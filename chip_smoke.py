@@ -9,18 +9,27 @@ each printing one JSON line; any failure raises and exits non-zero:
   device   the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel in glom_tpu_torch/kernels/csrc/;
   kernels  each kernel against its plain PyTorch version at the flagship
-           serving shapes (b=8, n=256, L=6, d=512), in float32 and bfloat16,
-           with times (CUDA events; per call, the median of 20 runs of 5
-           calls after a warm-up) beside the bound and a PyTorch library
-           call where one computes the same function; consensus also with
-           attend_self, the locality mask and n=2304 (b=1);
+           shapes (b=8, n=256, L=6, d=512), in float32 and bfloat16, with
+           times (CUDA events; per call, the median of 20 runs of 5 calls
+           after a warm-up) beside the bound and a PyTorch library call
+           where one computes the same function: the forward kernels (K1,
+           K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
+           consensus); consensus also with attend_self, the locality mask
+           and n=2304 (b=1);
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
            seeded weights) served over HTTP in-process: /embed with batches
            of 1, 3 and 8, /reconstruct with 2; shapes, finiteness, one
            answer against the plain path on the card, and the kernels'
            launch counts;
   profile  a torch.profiler trace of three b=8 /embed forwards through the
-           kernels: the device's busy share and device time by kernel.
+           kernels: the device's busy share and device time by kernel;
+  train    the denoising train step at flagship width, b=8, through the
+           kernels (Trainer.fit, 10 steps on one resident synthetic batch):
+           finite, falling losses; ms per step and images/s against the
+           plain ops on the card; one step's gradients against the plain
+           path; two runs of one step bitwise equal; the launches of all six
+           kernels per step; a torch.profiler trace of two steps; and the
+           checkpoint the trainer saved, served over HTTP on /embed.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -29,6 +38,7 @@ float32: TF32 is switched off for matmul and cuDNN.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -44,16 +54,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from glom_tpu_torch.config import GlomConfig
+from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
 from glom_tpu_torch.models import glom as glom_model
+from glom_tpu_torch.ops import consensus as plain_cons
+from glom_tpu_torch.ops import feedforward as plain_ffm
 from glom_tpu_torch.ops.consensus import consensus_attention as plain_consensus
 from glom_tpu_torch.ops.consensus import l2_normalize
 from glom_tpu_torch.ops.feedforward import grouped_ff_apply as plain_ff
 from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
 from glom_tpu_torch.serving.server import make_server
+from glom_tpu_torch.training import denoise
+from glom_tpu_torch.training.metrics import MetricLogger
+from glom_tpu_torch.training.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = GlomConfig(dim=512, levels=6, image_size=224, patch_size=14)
@@ -62,12 +78,27 @@ BATCH = 8
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
-# |kernel - plain| <= ATOL + RTOL * |plain|: float32 differs by summation
-# order only; bfloat16 outputs may round to neighbouring values (2**-8).
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# Each kernel is held against its plain version computed in float32 on the
+# same inputs (a bfloat16 input is exact in float32), with limits scaled to
+# the output and RTOL by the kernel's type:
+#   normwise     ||got - want|| <= RTOL ||want||           (Frobenius norms)
+#   elementwise  |got - want| <= RTOL (min(1, max|want|) + |want|)
+# float32 differs by summation order only; a bfloat16 output is rounded once,
+# by at most 2**-8 of each value.  K6 adds its key term to a larger value
+# term, so the key term is also held on its own:
+#   ||got - want|| <= RTOL ||key term|| + u ||want||
+# with u the output type's unit roundoff (2**-24, 2**-8).
+RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the tensor cores' dense TF32 rate; the float32 kernels take three TF32
+# passes a product (3xTF32), bounding them at 3 * FLOPs over this rate
+TF32_FLOPS = 495e12
 # embeddings after 12 iterations, kernels vs the plain path, float32
 SERVE_ATOL = 1e-3
 REPS, INNER = 20, 5
+# one train step's gradients, kernels vs the plain path, float32: relative
+# (Frobenius) error per parameter leaf
+GRAD_RTOL = 1e-4
+TRAIN_STEPS = 10
 
 
 def emit(obj) -> None:
@@ -107,14 +138,41 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> dict:
-    atol, rtol = TOL[dtype]
+def bounds(flops: float, nbytes: float, dtype) -> dict:
+    """The bound (the function's own: its type's peak rate) and, for a
+    float32 kernel, the bound of its method, 3xTF32 on the tensor cores."""
+    bms, by = bound_ms(flops, nbytes, dtype)
+    tf32 = (max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+            if dtype == torch.float32 else None)
+    return {"bound_ms": bms, "bound_by": by, "bound_3xtf32_ms": tf32,
+            "peak_flops": PEAK_FLOPS[dtype], "gflop": flops / 1e9}
+
+
+def f32(tree):
+    """A tensor or a dict of tensors in float32."""
+    return glom_model.tree_map(lambda t: t.float(), tree) if isinstance(tree, dict) else tree.float()
+
+
+def compare(got: torch.Tensor, want: torch.Tensor, dtype, what: str, part=None) -> dict:
+    """``got`` (the kernel's, in ``dtype``) against ``want`` (the plain
+    version in float32) under the limits stated at RTOL; ``part``, a term of
+    ``want`` held on its own."""
+    rtol = RTOL[dtype]
     g, w = got.float(), want.float()
     diff = (g - w).abs()
-    ok = bool(torch.isfinite(g).all()) and bool((diff <= atol + rtol * w.abs()).all())
-    err = {"max_abs_err": float(diff.max()),
-           "max_rel_err": float(diff.max() / w.abs().max().clamp_min(1e-30)),
-           "atol": atol, "rtol": rtol}
+    top = float(w.abs().max())
+    err_norm, want_norm = float(torch.linalg.vector_norm(diff)), float(torch.linalg.vector_norm(w))
+    err = {"max_abs_err": float(diff.max()), "norm_rel_err": err_norm / max(want_norm, 1e-30),
+           "want_rms": want_norm / w.numel() ** 0.5, "want_max": top, "rtol": rtol}
+    ok = (bool(torch.isfinite(g).all()) and err_norm <= rtol * want_norm
+          and bool((diff <= rtol * (min(1.0, top) + w.abs())).all()))
+    if part is not None:
+        part_norm = float(torch.linalg.vector_norm(part.float()))
+        u = torch.finfo(dtype).eps / 2
+        err.update({"part_rms": part_norm / w.numel() ** 0.5,
+                    "part_rel_err": err_norm / max(part_norm, 1e-30),
+                    "part_limit": rtol + u * want_norm / max(part_norm, 1e-30)})
+        ok = ok and err["part_rel_err"] <= err["part_limit"]
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version: {err}")
     return err
@@ -129,9 +187,12 @@ def phase_build() -> None:
         with open(log) as f:
             text = f.read()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
-        ptxas[name] = {"max_registers": max(regs, default=0),
-                       "max_spill_store_bytes": max(spills, default=0)}
+        # (kernel, element type, width) of each function that spills
+        spilling = [f"{m[0]}<{m[1].replace('13__nv_bfloat16', 'bf16')},{m[2]}> {m[3]} B"
+                    for m in re.findall(r"Function properties for \S*?([a-z_]+_kernel)I(\w+?)Li(\d+)E"
+                                        r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill stores",
+                                        text) if int(m[3])]
+        ptxas[name] = {"max_registers": max(regs, default=0), "spills": spilling}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source, "ptxas": ptxas,
           "flags": " ".join(_build.NVCC_FLAGS)})
@@ -139,7 +200,7 @@ def phase_build() -> None:
 
 def ff_case(params, x, dtype, label):
     out = ff_kernel.grouped_ff(params, x)
-    ref = plain_ff(params, x)
+    ref = plain_ff(f32(params), x.float())
     torch.cuda.synchronize()
     err = compare(out, ref, dtype, f"grouped_ff {label}")
     b, n, g, d = x.shape
@@ -147,19 +208,17 @@ def ff_case(params, x, dtype, label):
     item = x.element_size()
     flops = 4.0 * b * n * g * d * h
     nbytes = item * (2 * b * n * g * d + g * (2 * d * h + h + d))
-    bms, by = bound_ms(flops, nbytes, dtype)
     return {"case": label, "dtype": str(dtype).replace("torch.", ""),
             "shape": list(x.shape), **err,
             "kernel_ms": time_ms(lambda: ff_kernel.grouped_ff(params, x)),
             "plain_ms": time_ms(lambda: plain_ff(params, x)),
-            "library_ms": None, "bound_ms": bms, "bound_by": by,
-            "peak_flops": PEAK_FLOPS[dtype], "gflop": flops / 1e9}
+            "library_ms": None, **bounds(flops, nbytes, dtype)}
 
 
 def consensus_case(levels, dtype, label, *, attend_self=False, mask=None):
     out, lse = consensus_kernel.consensus_attention(
         levels, attend_self=attend_self, non_local_mask=mask)
-    ref, ref_lse = plain_consensus(levels, attend_self=attend_self, non_local_mask=mask)
+    ref, ref_lse = plain_consensus(levels.float(), attend_self=attend_self, non_local_mask=mask)
     torch.cuda.synchronize()
     err = compare(out, ref, dtype, f"consensus {label}")
     lse_err = compare(lse, ref_lse, torch.float32, f"consensus lse {label}")
@@ -167,15 +226,13 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None):
     item = levels.element_size()
     flops = 4.0 * b * L * n * n * d
     nbytes = 2 * item * b * n * L * d + 4 * b * L * n + (n * n if mask is not None else 0)
-    bms, by = bound_ms(flops, nbytes, dtype)
     row = {"case": label, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(levels.shape), **err, "lse_max_abs_err": lse_err["max_abs_err"],
            "kernel_ms": time_ms(lambda: consensus_kernel.consensus_attention(
                levels, attend_self=attend_self, non_local_mask=mask)),
            "plain_ms": time_ms(lambda: plain_consensus(
                levels, attend_self=attend_self, non_local_mask=mask)),
-           "library_ms": None, "bound_ms": bms, "bound_by": by,
-           "peak_flops": PEAK_FLOPS[dtype], "gflop": flops / 1e9}
+           "library_ms": None, **bounds(flops, nbytes, dtype)}
     if attend_self and mask is None:
         # the one variant scaled_dot_product_attention computes exactly
         q = levels.transpose(1, 2)
@@ -183,6 +240,79 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None):
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, q))
         row["library"] = "torch.nn.functional.scaled_dot_product_attention"
     return row
+
+
+def ff_bwd_case(params, x, g, dtype, label):
+    """K2 (dX) and K3 (dW) against their plain versions; two rows."""
+    b, n, gr, d = x.shape
+    h = params["w1"].shape[-1]
+    rows, item = b * n, x.element_size()
+    weights = gr * (2 * d * h + h)
+    out = []
+    for name, kernel, plain, factor, nbytes in (
+        ("grouped_ff_dx", ff_kernel.grouped_ff_dx, plain_ffm.grouped_ff_dx, 6.0,
+         item * (3 * rows * gr * d + weights)),
+        ("grouped_ff_dw", ff_kernel.grouped_ff_dw, plain_ffm.grouped_ff_dw, 8.0,
+         item * (2 * rows * gr * d + 2 * weights)),
+    ):
+        got, want = kernel(params, x, g), plain(f32(params), x.float(), g.float())
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):   # (dW1, db1, dW2): the worst leaf
+            errs = [compare(u, v, dtype, f"{name} {label} {k}")
+                    for k, u, v in zip(("w1", "b1", "w2"), got, want)]
+            err = max(errs, key=lambda e: e["norm_rel_err"])
+        else:
+            err = compare(got, want, dtype, f"{name} {label}")
+        flops = factor * rows * gr * d * h
+        out.append({"kernel": name, "case": label, "dtype": str(dtype).replace("torch.", ""),
+                    "shape": list(x.shape), **err,
+                    "kernel_ms": time_ms(lambda: kernel(params, x, g)),
+                    "plain_ms": time_ms(lambda: plain(params, x, g)),
+                    "library_ms": None, **bounds(flops, nbytes, dtype)})
+    return out
+
+
+def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None):
+    """K6 (dKV) and K7 (dQ) against their plain versions; two rows.  K6's
+    key term, which its output adds to the larger value term, is also held
+    on its own.  The library time is SDPA's backward (dQ, dK, dV) on the
+    attend_self=True case, the one variant SDPA computes exactly: the work of
+    K6 + K7."""
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    with torch.no_grad():
+        out, lse = consensus_kernel.consensus_attention(levels, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
+    b, n, L, d = levels.shape
+    item = levels.element_size()
+    nbytes = 3 * item * b * n * L * d + 8 * b * L * n + (n * n if mask is not None else 0)
+    library = None
+    if attend_self and mask is None:
+        q = levels.transpose(1, 2).detach().requires_grad_(True)
+        k = l2_normalize(levels.float()).to(dtype).transpose(1, 2).detach().requires_grad_(True)
+        v = levels.transpose(1, 2).detach().requires_grad_(True)
+        o = F.scaled_dot_product_attention(q, k, v)
+        go = g.transpose(1, 2)
+        library = time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+    key_term, _ = plain_cons.consensus_dkv_terms(levels.float(), g.float(), lse, delta, **kw)
+    rows = []
+    for name, kernel, plain, factor, part in (
+        ("consensus_dkv", consensus_kernel.consensus_dkv, plain_cons.consensus_dkv, 8.0, key_term),
+        ("consensus_dq", consensus_kernel.consensus_dq, plain_cons.consensus_dq, 6.0, None),
+    ):
+        got = kernel(levels, g, lse, delta, **kw)
+        want = plain(levels.float(), g.float(), lse, delta, **kw)
+        torch.cuda.synchronize()
+        err = compare(got, want, dtype, f"{name} {label}", part=part)
+        flops = factor * b * L * n * n * d
+        row = {"kernel": name, "case": label, "dtype": str(dtype).replace("torch.", ""),
+               "shape": list(levels.shape), **err,
+               "kernel_ms": time_ms(lambda: kernel(levels, g, lse, delta, **kw)),
+               "plain_ms": time_ms(lambda: plain(levels, g, lse, delta, **kw)),
+               "library_ms": library, **bounds(flops, nbytes, dtype)}
+        if library is not None:
+            row["library"] = "backward of torch.nn.functional.scaled_dot_product_attention (dQ, dK, dV)"
+        rows.append(row)
+    return rows
 
 
 def phase_kernels(device) -> dict:
@@ -196,7 +326,10 @@ def phase_kernels(device) -> dict:
     mask = glom_model.resolve_locality_mask(
         GlomConfig(dim=d, levels=L, image_size=224, patch_size=14,
                    local_consensus_radius=2), device)
-    ff_rows, cons_rows = [], []
+    g_ff = torch.randn((BATCH, n, L, d), generator=gen).to(device)
+    g_lv = torch.randn((BATCH, n, L, d), generator=gen).to(device)
+    g_big = torch.randn((1, 2304, L, d), generator=gen).to(device)
+    ff_rows, cons_rows, bwd_rows = [], [], []
     ff_kernel.grouped_ff.launches = 0
     consensus_kernel.consensus_attention.launches = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -211,16 +344,38 @@ def phase_kernels(device) -> dict:
         cons_rows.append(consensus_case(lv, dtype, "attend_self=True", attend_self=True))
         cons_rows.append(consensus_case(lv, dtype, "local_consensus_radius=2", mask=mask))
         cons_rows.append(consensus_case(big.to(dtype), dtype, "n=2304 (384/8), b=1"))
+        g = g_ff.to(dtype)
+        bwd_rows += ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
+                                "bottom_up (strided view, g=6)")
+        bwd_rows += ff_bwd_case(cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
+                                g[..., 1:, :].contiguous(), dtype, "top_down (g=5)")
+        gl = g_lv.to(dtype)
+        bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=False")
+        bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=True", attend_self=True)
+        bwd_rows += consensus_bwd_case(lv, gl, dtype, "local_consensus_radius=2", mask=mask)
+        bwd_rows += consensus_bwd_case(big.to(dtype), g_big.to(dtype), dtype,
+                                       "n=2304 (384/8), b=1")
     # launches of this phase: one checked call and 3 + REPS * INNER timed ones a row
     emit({"phase": "kernels", "kernel": "grouped_ff",
           "launches": ff_kernel.grouped_ff.launches, "rows": ff_rows})
     emit({"phase": "kernels", "kernel": "consensus_attention",
           "launches": consensus_kernel.consensus_attention.launches, "rows": cons_rows})
+    for name in BACKWARD:
+        emit({"phase": "kernels", "kernel": name, "rows": [
+            {k: v for k, v in r.items() if k != "kernel"} for r in bwd_rows if r["kernel"] == name]})
     # the main path's case, float32; SDPA computes only the attend_self=True
-    # variant exactly, so consensus's library time comes from that row (same
+    # variant exactly, so consensus's library times come from that row (same
     # shapes and work)
+    main = {"grouped_ff": ff_rows[0], "consensus_attention": cons_rows[0]}
     library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"]}
-    return {"grouped_ff": ff_rows[0], "consensus_attention": cons_rows[0]}, library
+    for name in BACKWARD:
+        rows = [r for r in bwd_rows if r["kernel"] == name]
+        main[name] = rows[0]
+        library[name] = next((r["library_ms"] for r in rows if r["library_ms"] is not None), None)
+    return main, library
+
+
+BACKWARD = ("grouped_ff_dx", "grouped_ff_dw", "consensus_dkv", "consensus_dq")
 
 
 def post(url: str, payload: dict) -> dict:
@@ -324,15 +479,16 @@ def phase_serve(device) -> dict:
     return launches
 
 
-def phase_profile(forward, runs: int = 3) -> None:
-    """A torch.profiler trace of ``runs`` b=8 /embed forwards through the
-    kernels: the device's busy share of the window (the sum of kernel times
-    on the one stream over the host-clock window, which the profiler itself
-    lengthens) and device time by kernel name."""
+def phase_profile(forward, runs: int = 3, *, phase: str = "profile", grad: bool = False) -> None:
+    """A torch.profiler trace of ``runs`` calls of ``forward`` (b=8 /embed
+    forwards, or with ``grad`` train steps) through the kernels: the
+    device's busy share of the window (the sum of kernel times on the one
+    stream over the host-clock window, which the profiler itself lengthens)
+    and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode(not grad):
         forward()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -349,10 +505,141 @@ def phase_profile(forward, runs: int = 3) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted(kernels, key=device_us, reverse=True)
     busy_ms = sum(device_us(e) for e in rows) / 1e3
-    emit({"phase": "profile", "runs": runs, "window_ms": window_ms, "device_busy_ms": busy_ms,
+    emit({"phase": phase, "runs": runs, "window_ms": window_ms, "device_busy_ms": busy_ms,
           "device_busy_share": busy_ms / window_ms,
           "by_name": [{"name": e.key[:80], "count": e.count, "device_ms": device_us(e) / 1e3}
-                      for e in rows[:12]]})
+                      for e in rows[:16]]})
+
+
+def counters() -> dict:
+    """The six kernel wrappers, whose ``launches`` count their kernels."""
+    return {"grouped_ff": ff_kernel.grouped_ff, "grouped_ff_dx": ff_kernel.grouped_ff_dx,
+            "grouped_ff_dw": ff_kernel.grouped_ff_dw,
+            "consensus_attention": consensus_kernel.consensus_attention,
+            "consensus_dkv": consensus_kernel.consensus_dkv,
+            "consensus_dq": consensus_kernel.consensus_dq}
+
+
+def fit_run(config, device, img, ckpt=None):
+    """``Trainer.fit`` for TRAIN_STEPS steps on one resident batch, logging
+    every step; returns ``(trainer, records)``."""
+    import io
+
+    stream = io.StringIO()
+    tc = TrainConfig(batch_size=BATCH, steps=TRAIN_STEPS, log_every=1, seed=0,
+                     checkpoint_dir=ckpt, checkpoint_every=TRAIN_STEPS if ckpt else 0)
+    trainer = Trainer(config, tc, device=device, logger=MetricLogger(stream=stream))
+    trainer.fit(itertools.repeat(img))
+    return trainer, [json.loads(line) for line in stream.getvalue().splitlines()]
+
+
+def phase_train(device) -> dict:
+    """The denoising train step at flagship width, b=8: the kernels' path
+    (the main path: counts set to 0 just before Trainer.fit, read just
+    after) against the plain path on the card."""
+    c = GlomConfig(**{**FLAGSHIP.to_json_dict(), "ff_impl": "pallas", "ff_fused_bwd": True,
+                      "attention_impl": "pallas"})
+    plain_cfg = GlomConfig(**{**c.to_json_dict(), "ff_impl": "dense", "attention_impl": "dense"})
+    gen = torch.Generator().manual_seed(1)
+    shape = (BATCH, c.channels, c.image_size, c.image_size)
+    img = torch.randn(shape, generator=gen).to(device)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    for fn in counters().values():
+        fn.launches = 0
+    kern, kern_log = fit_run(c, device, img, ckpt)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    t = denoise.resolve_loss_timestep(kern.train_cfg, c.default_iters)
+    want = {"grouped_ff": 2 * t, "grouped_ff_dx": 2 * t, "grouped_ff_dw": 2 * t,
+            "consensus_attention": t, "consensus_dkv": t, "consensus_dq": t}
+    if per_step != want:
+        raise AssertionError(f"train-step launches per step {per_step}, expected {want}")
+    _, plain_log = fit_run(plain_cfg, device, img)
+
+    losses = [r["loss"] for r in kern_log if "loss" in r]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+
+    def step_ms(log):   # host clock a step, from each one-step window; the first warms up
+        return statistics.median(1e3 * BATCH / r["imgs_per_sec"] for r in log[1:] if "imgs_per_sec" in r)
+
+    ms = {"kernels": step_ms(kern_log), "plain": step_ms(plain_log)}
+
+    # one step's gradients, kernels against the plain path, same params and noise
+    params = kern.state.params
+    noise = torch.randn(shape, generator=gen).to(device)
+
+    def grads(config):
+        loss, tree = denoise.loss_and_grads(denoise.make_loss_fn(config, kern.train_cfg),
+                                            params, img, noise=noise)
+        return loss.item(), ckpt_lib.flatten({"": glom_model.tree_map(lambda t: t.cpu(), tree)})
+
+    loss_k, gk = grads(c)
+    loss_p, gp = grads(plain_cfg)
+    rel = {n[1:]: float(np.linalg.norm(gk[n] - gp[n]) / max(np.linalg.norm(gp[n]), 1e-30))
+           for n in gp}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= GRAD_RTOL:
+        raise AssertionError(f"gradient {worst} differs from the plain path by {rel[worst]}")
+
+    # two runs of one step from the same state and noise: the same bits
+    step = denoise.make_step_fn(c, kern.train_cfg, kern.optimizer)
+    (s1, m1), (s2, m2) = step(kern.state, img, noise=noise), step(kern.state, img, noise=noise)
+    bitwise = all(torch.equal(a, b) for a, b in zip(glom_model.tree_leaves(s1.params),
+                                                    glom_model.tree_leaves(s2.params)))
+    bitwise = bitwise and torch.equal(m1["loss"], m2["loss"])
+    if not bitwise:
+        raise AssertionError("two runs of one train step differ")
+
+    emit({"phase": "train", "config": {**{k: c.to_json_dict()[k] for k in (
+              "dim", "levels", "image_size", "patch_size", "ff_impl", "ff_fused_bwd",
+              "attention_impl")}, "batch": BATCH, "iters": c.default_iters, "loss_timestep": t,
+              "optimizer": "adam", "lr": kern.train_cfg.learning_rate},
+          "steps": TRAIN_STEPS, "losses": losses,
+          "plain_losses": [r["loss"] for r in plain_log if "loss" in r],
+          "step_ms": ms, "images_per_s": {k: 1e3 * BATCH / v for k, v in ms.items()},
+          "step_ms_note": "median over steps 2..10 of one-step host-clock windows",
+          "launches": launches, "launches_per_step": per_step,
+          "grad_vs_plain": {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_leaf": worst,
+                            "worst_rel_err": rel[worst], "rtol": GRAD_RTOL},
+          "bitwise_repeat": bitwise})
+    phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
+                  phase="train_profile", grad=True)
+    serve_trained(ckpt, device, kern)
+    return launches
+
+
+def serve_trained(ckpt, device, trainer) -> None:
+    """The checkpoint the trainer saved, served over HTTP on /embed."""
+    engine = ServingEngine(ckpt, device=device)
+    engine.start()
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    try:
+        c = engine.config
+        imgs = np.random.default_rng(1).standard_normal(
+            (2, c.channels, c.image_size, c.image_size)).astype(np.float32)
+        reply = post("http://127.0.0.1:%d/embed" % server.server_address[1],
+                     {"images": imgs.tolist()})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        engine.shutdown(drain=True)
+    out = np.asarray(reply["embeddings"], np.float32)
+    with torch.inference_mode():
+        want = glom_model.apply(trainer.state.params["glom"], torch.from_numpy(imgs).to(device),
+                                config=engine.config).mean(dim=1).cpu().numpy()
+    err = float(np.abs(out - want).max())
+    if reply["step"] != trainer.state.step or out.shape != want.shape or not err <= SERVE_ATOL:
+        raise AssertionError(f"served trained checkpoint: step {reply['step']}, shape "
+                             f"{out.shape}, error {err}")
+    emit({"phase": "serve_trained", "checkpoint_step": reply["step"], "shape": list(out.shape),
+          "max_abs_err_vs_trained_params": err, "atol": SERVE_ATOL,
+          "server_latency_ms": reply["latency_ms"]})
 
 
 def main() -> int:
@@ -370,21 +657,37 @@ def main() -> int:
     phase_build()
     main_rows, library = phase_kernels(device)
     launches = phase_serve(device)
+    train_launches = phase_train(device)
+    # launches: the serving path's count for the forward kernels, the train
+    # path's for the backward ones; launches_train: the train path's for all
+    launches.update({k: train_launches[k] for k in BACKWARD})
     summary = []
     for name, source, replaces in (
         ("grouped_ff", "glom_tpu_torch/kernels/csrc/grouped_ff.cu",
          "glom_tpu/kernels/ff_pallas.py:124"),
         ("consensus_attention", "glom_tpu_torch/kernels/csrc/consensus.cu",
          "glom_tpu/kernels/consensus_pallas.py:217 and :153"),
+        ("grouped_ff_dx", "glom_tpu_torch/kernels/csrc/grouped_ff_bwd.cu",
+         "glom_tpu/kernels/ff_pallas.py:274 (_bwd_dx_kernel :190)"),
+        ("grouped_ff_dw", "glom_tpu_torch/kernels/csrc/grouped_ff_bwd.cu",
+         "glom_tpu/kernels/ff_pallas.py:295 (_bwd_dw_kernel :212)"),
+        ("consensus_dkv", "glom_tpu_torch/kernels/csrc/consensus_bwd.cu",
+         "glom_tpu/kernels/consensus_pallas.py:414 (_bwd_dkv_kernel :285)"),
+        ("consensus_dq", "glom_tpu_torch/kernels/csrc/consensus_bwd.cu",
+         "glom_tpu/kernels/consensus_pallas.py:434 (_bwd_dq_kernel :334)"),
     ):
         row = main_rows[name]
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": row["max_abs_err"],
+                        "launches": launches[name], "launches_train": train_launches[name],
+                        "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "bound_3xtf32_ms": row["bound_3xtf32_ms"],
                         "library_ms": library[name], "case": row["case"],
                         "dtype": row["dtype"],
-                        "library_case": None if library[name] is None else "attend_self=True"})
+                        "library_case": None if library[name] is None else (
+                            "attend_self=True" if name == "consensus_attention" else
+                            "attend_self=True; SDPA's backward (dQ, dK, dV) against K6 + K7")})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

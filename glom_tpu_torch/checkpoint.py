@@ -113,21 +113,72 @@ def save(directory: str, step: int, trees: Dict[str, object]) -> str:
     return path
 
 
-def latest_step(directory: str) -> Optional[int]:
-    """The step the manifest names, or None when there is no manifest."""
+def latest_step(directory: str, *, strict: bool = False) -> Optional[int]:
+    """The step the manifest names, or None when there is no manifest.  An
+    unreadable manifest is None too, unless ``strict`` (the trainer's
+    auto-resume), where it raises ``ValueError`` rather than let a run
+    restart from step 0 over a long run's checkpoints."""
+    manifest = os.path.join(directory, "manifest.json")
     try:
-        with open(os.path.join(directory, "manifest.json")) as f:
+        with open(manifest) as f:
             return int(json.load(f)["latest_step"])
     except FileNotFoundError:
         return None
+    except (json.JSONDecodeError, KeyError, TypeError, ValueError, OSError) as e:
+        if strict:
+            raise ValueError(
+                f"unreadable checkpoint manifest {manifest} ({type(e).__name__}: {e}); "
+                f"refusing to treat {directory} as fresh"
+            ) from e
+        return None
+
+
+def step_of(name: str) -> Optional[int]:
+    """The step of a ``ckpt_<step>.npz`` file name, else None."""
+    if name.startswith("ckpt_") and name.endswith(".npz"):
+        try:
+            return int(name[len("ckpt_"):-len(".npz")])
+        except ValueError:
+            return None
+    return None
+
+
+def verify_file_integrity(directory: str, step: int) -> Optional[bool]:
+    """The whole-file CRC of step ``step`` against its integrity record: True
+    (verified), False (corrupt, or missing while a record exists), None (no
+    record: unverifiable, presumed good)."""
+    rec = read_integrity(directory, step)
+    if rec is None or "file_crc32" not in rec:
+        return None
+    try:
+        return _file_crc(os.path.join(directory, rec.get("artifact", f"ckpt_{step}.npz"))) == rec["file_crc32"]
+    except OSError:
+        return False
+
+
+def prune(directory: str, keep: int, *, protect: int) -> None:
+    """Delete all but the ``keep`` newest steps (artifact and integrity
+    record), never step ``protect``."""
+    steps = sorted({s for s in map(step_of, os.listdir(directory)) if s is not None})
+    for step in steps[:-keep] if keep > 0 else []:
+        if step == protect:
+            continue
+        for path in (npz_path(directory, step), integrity_path(directory, step)):
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def read_integrity(directory: str, step: int) -> Optional[dict]:
+    """The step's integrity record, or None when it has none (or the record
+    is unreadable: the artifact may be fine)."""
     try:
         with open(integrity_path(directory, step)) as f:
-            return json.load(f)
+            rec = json.load(f)
     except FileNotFoundError:
         return None
+    except (json.JSONDecodeError, OSError):
+        return None
+    return rec if isinstance(rec, dict) and "arrays" in rec else None
 
 
 def load_arrays(directory: str, step: int) -> Dict[str, np.ndarray]:

@@ -1,39 +1,58 @@
-"""Grouped feed-forward: the wrapper of the hand-written CUDA kernel
-``csrc/grouped_ff.cu``, which replaces the TPU kernel
-``glom_tpu/kernels/ff_pallas.py::_forward``.
+"""Grouped feed-forward: the wrappers of the hand-written CUDA kernels
+``csrc/grouped_ff.cu`` (K1, the forward) and ``csrc/grouped_ff_bwd.cu`` (K2,
+dX, and K3, dW), which replace the TPU kernels of
+``glom_tpu/kernels/ff_pallas.py``: ``_forward``, and ``_backward_fused``'s
+``_bwd_dx_kernel`` and ``_bwd_dw_kernel``.
 
-:func:`grouped_ff` takes CPU tensors to the plain version
-(:func:`glom_tpu_torch.ops.feedforward.grouped_ff_apply`) and CUDA tensors
-to the kernel, and raises on anything the kernel does not take.  There is
-no fallback from the kernel to the plain version.  ``grouped_ff.launches``
-counts the kernel's launches.
+:func:`grouped_ff` is the forward.  Under autograd it runs inside a
+``torch.autograd.Function`` that saves ``(x, params)`` only and, with
+``fused_bwd=True``, differentiates through K2 and K3 (the hidden recomputed
+per tile); with ``fused_bwd=False`` its backward is the plain VJP of
+:func:`~glom_tpu_torch.ops.feedforward.grouped_ff_apply`, as
+``ff_pallas.py::_bwd`` chooses.
+
+Each wrapper takes CPU tensors to its kernel's plain version
+(``glom_tpu_torch.ops.feedforward``) and CUDA tensors to the kernel, and
+raises on anything the kernel does not take.  There is no fallback from a
+kernel to its plain version.  ``grouped_ff.launches``,
+``grouped_ff_dx.launches`` and ``grouped_ff_dw.launches`` count the
+kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.ops.feedforward import grouped_ff_apply
+from glom_tpu_torch.kernels._common import DTYPE_CODES, MAX_DIM, count, on_device, vector_aligned
+from glom_tpu_torch.ops import feedforward as plain
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HIDDEN_CHUNK = 64      # the kernel's hidden chunk: h must be a multiple
-MAX_DIM = 512          # the kernel holds a (64, d) f32 accumulator in registers
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, rows,
 #                 groups, dim, hidden, splits, dtype, stream): csrc/grouped_ff.cu
 _ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
-_lock = threading.Lock()
+# glom_grouped_ff_bwd_dx(x, row_stride, group_stride, w1, b1, w2, go, dx, rows,
+#                        groups, dim, hidden, dtype, stream): csrc/grouped_ff_bwd.cu
+_DX_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
+# glom_grouped_ff_bwd_dw(x, row_stride, group_stride, w1, b1, w2, go, dw1, db1,
+#                        dw2, rows, groups, dim, hidden, dtype, stream)
+_DW_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
 
 
 def _kernel():
-    """The kernel's C entry point, built and loaded on first use."""
+    """The forward kernel's C entry point, built and loaded on first use."""
     return _build.function("grouped_ff", "glom_grouped_ff", _ARGTYPES)
+
+
+def _bwd_kernels():
+    """The backward kernels' C entry points (dX, dW), built on first use."""
+    return (_build.function("grouped_ff_bwd", "glom_grouped_ff_bwd_dx", _DX_ARGTYPES),
+            _build.function("grouped_ff_bwd", "glom_grouped_ff_bwd_dw", _DW_ARGTYPES))
 
 
 def planned_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
@@ -43,16 +62,6 @@ def planned_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtyp
     with torch.cuda.device(device):
         return _build.plan("grouped_ff", "glom_grouped_ff_splits", torch.cuda.current_device(),
                            rows, g, d, h, DTYPE_CODES[dtype])
-
-
-def check_no_grad(*tensors) -> None:
-    """The kernels have no backward yet: refuse to build a graph."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the port's CUDA kernels are forward-only; their backward kernels "
-            "are ROADMAP queue 2 (the training slice). Run under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
 
 
 def _check(params: dict, x: torch.Tensor):
@@ -89,20 +98,13 @@ def _check(params: dict, x: torch.Tensor):
         )
 
 
-def grouped_ff(params: dict, x: torch.Tensor, *, splits: Optional[int] = None) -> torch.Tensor:
-    """``(b, n, g, d) -> (b, n, g, d)``: per group g,
-    ``gelu(x @ w1[g] + b1[g]) @ w2[g] + b2[g]`` (exact-erf GELU).  Drop-in
-    for :func:`glom_tpu_torch.ops.feedforward.grouped_ff_apply`.
+def _row_stride(x: torch.Tensor) -> int:
+    return x.stride(1) if x.shape[1] > 1 else x.stride(0)
 
-    ``splits``: how many blocks share a row tile's hidden dimension
-    (default: :func:`planned_splits`).  With more than one, the partial sums
-    go through an f32 workspace and a second, elementwise kernel adds them
-    in a fixed order; the call still counts as one launch."""
-    check_no_grad(x, *params.values())
-    if x.device.type == "cpu":
-        return grouped_ff_apply(params, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"grouped_ff runs on cpu or cuda tensors, got {x.device}")
+
+def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tensor:
+    if not on_device("grouped_ff", x):
+        return plain.grouped_ff_apply(params, x)
     _check(params, x)
     b, n, g, d = x.shape
     h = params["w1"].shape[-1]
@@ -115,11 +117,10 @@ def grouped_ff(params: dict, x: torch.Tensor, *, splits: Optional[int] = None) -
         raise ValueError(f"splits must be >= 1, got {splits}")
     ws = (torch.empty((splits, b * n * g * d), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
-    row_stride = x.stride(1) if n > 1 else x.stride(0)
     fn = _kernel()
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), row_stride, x.stride(2),
+            x.data_ptr(), _row_stride(x), x.stride(2),
             params["w1"].data_ptr(), params["b1"].data_ptr(),
             params["w2"].data_ptr(), params["b2"].data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
@@ -127,9 +128,142 @@ def grouped_ff(params: dict, x: torch.Tensor, *, splits: Optional[int] = None) -
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("grouped_ff", code)
-    with _lock:
-        grouped_ff.launches += 1
+    count(grouped_ff)
     return out
 
 
+def _check_bwd(params: dict, x: torch.Tensor) -> None:
+    _check(params, x)
+    if not vector_aligned(x, _row_stride(x), x.stride(2)):
+        raise ValueError(
+            "the backward kernels read x's rows as 4-element vectors: x must start on a "
+            f"4-element boundary with row and group strides multiples of 4 (strides {x.stride()})")
+
+
+def _cotangent(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent as the backward kernels read it: ``x``'s type (the
+    contract of ``ff_pallas.py::_backward_fused``), ``x``'s shape,
+    contiguous, on a vector boundary."""
+    if tuple(g.shape) != tuple(x.shape):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(x.shape)}")
+    go = g.to(x.dtype).contiguous()
+    return go if vector_aligned(go) else go.clone()
+
+
+def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2: ``dX = [(dO W2^T) * gelu'(x W1 + b1)] W1^T``, ``(b, n, g, d)`` in
+    ``x``'s type; ``g`` is dO.  ``x`` is read through its strides."""
+    if not on_device("grouped_ff_dx", x):
+        return plain.grouped_ff_dx(params, x, g)
+    _check_bwd(params, x)
+    go = _cotangent(x, g)
+    b, n, gr, d = x.shape
+    h = params["w1"].shape[-1]
+    dx = torch.empty((b, n, gr, d), dtype=x.dtype, device=x.device)
+    if b * n == 0:
+        return dx
+    fn, _ = _bwd_kernels()
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), _row_stride(x), x.stride(2),
+            params["w1"].data_ptr(), params["b1"].data_ptr(), params["w2"].data_ptr(),
+            go.data_ptr(), dx.data_ptr(), b * n, gr, d, h, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check("grouped_ff_bwd", code)
+    count(grouped_ff_dx)
+    return dx
+
+
+def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor):
+    """K3: ``(dW1 = X^T dH, db1 = 1^T dH, dW2 = gelu(pre)^T dO)`` summed over
+    every row, in the weights' type; ``g`` is dO."""
+    if not on_device("grouped_ff_dw", x):
+        return plain.grouped_ff_dw(params, x, g)
+    _check_bwd(params, x)
+    go = _cotangent(x, g)
+    b, n, gr, d = x.shape
+    h = params["w1"].shape[-1]
+    dw1 = torch.empty_like(params["w1"])
+    db1 = torch.empty_like(params["b1"])
+    dw2 = torch.empty_like(params["w2"])
+    if b * n == 0:
+        return dw1.zero_(), db1.zero_(), dw2.zero_()
+    _, fn = _bwd_kernels()
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), _row_stride(x), x.stride(2),
+            params["w1"].data_ptr(), params["b1"].data_ptr(), params["w2"].data_ptr(),
+            go.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            b * n, gr, d, h, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check("grouped_ff_bwd", code)
+    count(grouped_ff_dw)
+    return dw1, db1, dw2
+
+
+def grouped_ff_backward(params: dict, x: torch.Tensor, g: torch.Tensor):
+    """``(dx, dparams)`` of :func:`grouped_ff` at ``x`` for the cotangent
+    ``g``: K2, K3, and ``db2 = sum of dO`` in float32 (a plain reduction, as
+    ``ff_pallas.py::_backward_fused`` leaves it to XLA)."""
+    dx = grouped_ff_dx(params, x, g)
+    dw1, db1, dw2 = grouped_ff_dw(params, x, g)
+    db2 = g.to(x.dtype).float().sum(dim=(0, 1)).to(params["b2"].dtype)
+    return dx, {"w1": dw1, "b1": db1, "w2": dw2, "b2": db2}
+
+
+def plain_vjp(params: dict, x: torch.Tensor, g: torch.Tensor):
+    """``(dx, dparams)`` by autograd through the plain
+    :func:`~glom_tpu_torch.ops.feedforward.grouped_ff_apply`: the
+    ``fused_bwd=False`` backward (``ff_pallas.py::_bwd``'s einsum VJP)."""
+    names = ("w1", "b1", "w2", "b2")
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(True)
+        pd = {k: params[k].detach().requires_grad_(True) for k in names}
+        y = plain.grouped_ff_apply(pd, xd)
+        grads = torch.autograd.grad(y, [xd] + [pd[k] for k in names], g.to(y.dtype))
+    return grads[0], dict(zip(names, grads[1:]))
+
+
+class _GroupedFF(torch.autograd.Function):
+    """K1 forward; K2 + K3 (``fused_bwd``) or the plain VJP backward.  Saves
+    ``(x, params)`` only, as ``ff_pallas.py::_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, splits, fused_bwd):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.fused_bwd = fused_bwd
+        return _forward({"w1": w1, "b1": b1, "w2": w2, "b2": b2}, x, splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        params = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
+        vjp = grouped_ff_backward if ctx.fused_bwd else plain_vjp
+        dx, dp = vjp(params, x, g)
+        return dx, dp["w1"], dp["b1"], dp["w2"], dp["b2"], None, None
+
+
+def grouped_ff(params: dict, x: torch.Tensor, *, splits: Optional[int] = None,
+               fused_bwd: bool = True) -> torch.Tensor:
+    """``(b, n, g, d) -> (b, n, g, d)``: per group g,
+    ``gelu(x @ w1[g] + b1[g]) @ w2[g] + b2[g]`` (exact-erf GELU).  Drop-in
+    for :func:`glom_tpu_torch.ops.feedforward.grouped_ff_apply`.
+
+    ``splits``: how many blocks share a row tile's hidden dimension
+    (default: :func:`planned_splits`).  With more than one, the partial sums
+    go through an f32 workspace and a second, elementwise kernel adds them
+    in a fixed order; the call still counts as one launch.
+
+    When autograd records the call, the gradient is K2 + K3
+    (``fused_bwd=True``) or the plain VJP (``False``)."""
+    leaves = (x, params["w1"], params["b1"], params["w2"], params["b2"])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return _GroupedFF.apply(*leaves, splits, fused_bwd)
+    return _forward(params, x, splits)
+
+
 grouped_ff.launches = 0
+grouped_ff_dx.launches = 0
+grouped_ff_dw.launches = 0

@@ -12,7 +12,15 @@ traces it as a ``lax.scan``):
 ``ff_impl`` / ``attention_impl`` select the implementation: ``"dense"`` is
 the plain PyTorch ops (``glom_tpu_torch.ops``), ``"pallas"`` the port's
 hand-written CUDA kernels (``glom_tpu_torch.kernels``), which take the plain
-ops for CPU tensors.
+ops for CPU tensors.  :func:`apply` runs under autograd: the kernels'
+gradients are their backward kernels (``ff_fused_bwd`` picks K2 + K3 or the
+plain VJP for the FF, as in the JAX package; consensus always takes K6 +
+K7).
+
+The training-side knobs of the JAX config: ``scan_unroll`` is accepted and
+changes nothing here (it unrolls XLA's scan; this loop is eager Python);
+``remat`` and ``fuse_ff`` are refused by the train step
+(``glom_tpu_torch.training.denoise``) and ignored by the serving forward.
 """
 
 from __future__ import annotations
@@ -87,10 +95,10 @@ def param_count(params) -> int:
 
 
 def make_ff_fn(config: GlomConfig):
-    """The grouped-FF implementation: the CUDA kernel (``"pallas"``) or the
-    plain ops (``"dense"``)."""
+    """The grouped-FF implementation: the CUDA kernels (``"pallas"``, with
+    ``ff_fused_bwd`` choosing the backward) or the plain ops (``"dense"``)."""
     if config.ff_impl == "pallas":
-        return grouped_ff
+        return functools.partial(grouped_ff, fused_bwd=config.ff_fused_bwd)
     if config.ff_impl == "dense":
         return grouped_ff_apply
     raise NotImplementedError(

@@ -49,6 +49,14 @@ def decoder_init(generator: torch.Generator, config: GlomConfig, *,
     return {"w1": l1["w"], "b1": l1["b"], "w2": l2["w"], "b2": l2["b"]}
 
 
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` in the promoted type of ``x`` and ``w``, as ``jnp``
+    computes it (a bfloat16 state against float32 weights decodes in
+    float32); torch's matmul takes one type."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt) + b.to(dt)
+
+
 def decoder_apply(params: dict, state: torch.Tensor, config: GlomConfig, *,
                   arch: str = "linear", level: int = -1) -> torch.Tensor:
     """``(b, n, L, dim)`` level state -> ``(b, c, H, W)`` reconstruction."""
@@ -58,8 +66,8 @@ def decoder_apply(params: dict, state: torch.Tensor, config: GlomConfig, *,
     else:
         tokens = state[:, :, level]
     if arch in ("linear", "linear_all"):
-        patches = tokens @ params["w"] + params["b"]
+        patches = _dense(tokens, params["w"], params["b"])
     else:
-        h = F.gelu(tokens @ params["w1"] + params["b1"], approximate="none")
-        patches = h @ params["w2"] + params["b2"]
+        h = F.gelu(_dense(tokens, params["w1"], params["b1"]), approximate="none")
+        patches = _dense(h, params["w2"], params["b2"])
     return unpatchify(patches, config.patch_size, config.image_size, config.channels)

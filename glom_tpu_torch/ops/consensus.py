@@ -13,6 +13,13 @@ L2-normalized states, the scale is ``d**-0.5``.  Two masks:
 (``glom_tpu_torch/kernels/consensus.py``).  It computes in float32, returns
 the input's type, and also returns the per-row logsumexp of the masked
 logits, ``(b, L, n, 1)`` float32, which the kernel emits for the backward.
+
+:func:`consensus_dkv` and :func:`consensus_dq` are the plain versions of the
+backward kernels K6 and K7 (``glom_tpu/kernels/consensus_pallas.py::
+_bwd_dkv_kernel`` and ``::_bwd_dq_kernel``): they recompute the masked logits
+as the forward does and apply the flash-attention formulas with the
+forward's ``lse`` and ``delta = rowsum(dO * O)``, in float32, writing the
+``(b, L, n, n)`` probabilities the kernels never write.
 """
 
 from __future__ import annotations
@@ -31,6 +38,21 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.clamp(norm, min=eps)
 
 
+def _masked_logits(x: torch.Tensor, k: torch.Tensor, attend_self: bool,
+                   non_local_mask: Optional[torch.Tensor]):
+    """``(sim (b, L, n, n), self-mask or None)`` of float32 queries ``x`` and
+    normalized keys ``k``, both ``(b, n, L, d)``."""
+    n, d = x.shape[1], x.shape[-1]
+    sim = torch.einsum("bild,bjld->blij", x, k) * (d ** -0.5)
+    eye = None
+    if not attend_self:
+        eye = torch.eye(n, dtype=torch.bool, device=x.device)
+        sim = sim.masked_fill(eye, TOKEN_ATTEND_SELF_VALUE)
+    if non_local_mask is not None:
+        sim = sim.masked_fill(non_local_mask.to(device=x.device, dtype=torch.bool), MAX_NEG)
+    return sim, eye
+
+
 def consensus_attention(
     levels: torch.Tensor,
     *,
@@ -42,15 +64,57 @@ def consensus_attention(
     ``non_local_mask``: optional ``(n, n)`` bool or int8, nonzero = blocked
     (from :func:`glom_tpu_torch.ops.masks.local_consensus_mask`)."""
     x = levels.float()
-    n, d = x.shape[1], x.shape[-1]
-    k = l2_normalize(x)
-    sim = torch.einsum("bild,bjld->blij", x, k) * (d ** -0.5)
-    if not attend_self:
-        eye = torch.eye(n, dtype=torch.bool, device=x.device)
-        sim = sim.masked_fill(eye, TOKEN_ATTEND_SELF_VALUE)
-    if non_local_mask is not None:
-        sim = sim.masked_fill(non_local_mask.to(device=x.device, dtype=torch.bool), MAX_NEG)
+    sim, _ = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask)
     attn = torch.softmax(sim, dim=-1)
     lse = torch.logsumexp(sim, dim=-1, keepdim=True)
     out = torch.einsum("blij,bjld->bild", attn, x)
     return out.to(levels.dtype), lse
+
+
+def _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask):
+    """``(x, dO, P, dS)`` in float32: ``P = exp(S - lse)``, ``dS = P * (dO V^T -
+    delta)``, zero on the diagonal under the soft self-mask (the diagonal
+    logit is a constant there)."""
+    x = levels.float()
+    do = dout.to(levels.dtype).float()
+    sim, eye = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask)
+    p = torch.exp(sim - lse)
+    ds = p * (torch.einsum("bild,bjld->blij", do, x) - delta)
+    if eye is not None:
+        ds = ds.masked_fill(eye, 0.0)
+    return x, do, p, ds
+
+
+def l2_normalize_vjp(x: torch.Tensor, dk: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """The VJP of :func:`l2_normalize` along the last axis:
+    ``dk / |x| - x (x . dk) / |x|^3`` where ``|x| > eps``, else ``dk / eps``."""
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    m = torch.clamp(norm, min=eps)
+    dot = torch.sum(x * dk, dim=-1, keepdim=True)
+    return dk / m - torch.where(norm > eps, x * (dot / (m * m * norm)), torch.zeros_like(x))
+
+
+def consensus_dkv_terms(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+    """K6's two terms in float32: the key term ``normalize_vjp(dS^T Q
+    scale)`` and the value term ``P^T dO``."""
+    x, do, p, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
+    dv = torch.einsum("blij,bild->bjld", p, do)
+    dk = torch.einsum("blij,bild->bjld", ds, x) * (x.shape[-1] ** -0.5)
+    return l2_normalize_vjp(x, dk), dv
+
+
+def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+    """K6's plain version: ``normalize_vjp(dS^T Q scale) + P^T dO``, the
+    gradient through the keys and values, in ``levels``' type.  ``lse`` and
+    ``delta`` are ``(b, L, n, 1)`` float32."""
+    dk, dv = consensus_dkv_terms(levels, dout, lse, delta, attend_self=attend_self,
+                                 non_local_mask=non_local_mask)
+    return (dk + dv).to(levels.dtype)
+
+
+def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+    """K7's plain version: ``dS K scale``, the gradient through the queries,
+    in ``levels``' type."""
+    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
+    dq = torch.einsum("blij,bjld->bild", ds, l2_normalize(x)) * (x.shape[-1] ** -0.5)
+    return dq.to(levels.dtype)

@@ -14,9 +14,15 @@ import torch
 
 import glom_tpu_torch
 from glom_tpu_torch import Glom
-from glom_tpu_torch.config import GlomConfig
+from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.serving import server
 from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
+from glom_tpu_torch.training import train
+from glom_tpu_torch.training.trainer import Trainer
+
+# tier-1 runs these files beside the JAX suite under several workers; one
+# intra-op thread each keeps torch from oversubscribing the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "glom_tpu_torch")
@@ -40,7 +46,11 @@ def _is_reference(name: str) -> bool:
 
 def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
     mods = _port_modules()
-    assert "glom_tpu_torch.serving.server" in mods and "glom_tpu_torch.kernels.ff" in mods
+    assert {"glom_tpu_torch.serving.server", "glom_tpu_torch.kernels.ff",
+            "glom_tpu_torch.training.trainer", "glom_tpu_torch.training.train",
+            "glom_tpu_torch.training.optim", "glom_tpu_torch.training.data",
+            "glom_tpu_torch.training.metrics", "glom_tpu_torch.obs.monitors",
+            "glom_tpu_torch.resilience.integrity"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -69,7 +79,7 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
                 continue
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                           for n in names if _is_reference(n)]
-    assert len(_port_sources()) > 20
+    assert len(_port_sources()) > 28
     assert not offenders, offenders
 
 
@@ -87,6 +97,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
         Glom()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.main(["--checkpoint-dir", str(tmp_path), "--port", "0"])
+    tiny = GlomConfig(dim=32, levels=3, image_size=16, patch_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(tiny, TrainConfig(batch_size=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
+                    "--steps", "1"])
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"

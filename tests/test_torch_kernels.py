@@ -1,10 +1,11 @@
 """The port's kernel wrappers (glom_tpu_torch.kernels).
 
 On the CPU a wrapper takes its kernel's plain version; these tests hold that
-against glom_tpu's Pallas kernels run in interpret mode (float32, 1e-5
-absolute: one op, summation order only).  The tests marked ``gpu`` hold each
-CUDA kernel against its plain version on the card, in float32 and bfloat16;
-without a card they skip.  They import no JAX, so on the GPU machine (which
+against glom_tpu's Pallas kernels run in interpret mode, forward and
+backward (float32, 1e-5 absolute: one op, summation order only), and the
+autograd Functions against ``jax.vjp`` of the Pallas custom VJPs.  The tests
+marked ``gpu`` hold each CUDA kernel against its plain version on the card,
+in float32 and bfloat16; without a card they skip.  They import no JAX, so on the GPU machine (which
 has none) they run alone:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernels.py
@@ -14,6 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs these files beside the JAX suite under several workers; one
+# intra-op thread each keeps torch from oversubscribing the CPU
+torch.set_num_threads(1)
+
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
@@ -22,9 +27,12 @@ from glom_tpu_torch.ops import feedforward as plain_ff
 from glom_tpu_torch.ops.masks import local_consensus_mask
 
 ATOL = 1e-5
-# on the card: float32 differs by summation order; bfloat16 outputs may
-# round to a neighbouring value (2**-8 relative)
-GPU_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+# On the card each kernel is held against its plain version computed in
+# float32 on the same inputs, with limits scaled to the output:
+# ||got - want|| <= GPU_RTOL ||want|| and, element by element,
+# |got - want| <= GPU_RTOL (min(1, max|want|) + |want|).  float32 differs by
+# summation order; a bfloat16 output is rounded once (2**-8 relative).
+GPU_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def _ff_params(rng, g, d, h):
@@ -83,6 +91,144 @@ def test_consensus_matches_pallas_out_and_lse(attend_self, use_mask, kv_block):
             non_local_mask=None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL)
+
+
+def _ff_case(strided, seed=5):
+    rng = np.random.default_rng(seed)
+    p = _ff_params(rng, 3, 32, 128)
+    full = rng.standard_normal((2, 16, 4, 32)).astype(np.float32)
+    x = full[..., :-1, :] if strided else np.ascontiguousarray(full[..., 1:, :])
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    xt = torch.from_numpy(full)[..., :-1, :] if strided else torch.from_numpy(x)
+    return p, x, xt, g
+
+
+def _jnp(tree):
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_grouped_ff_backward_matches_pallas(strided):
+    """The plain K2 (dX) and K3 (dW) against _backward_fused's two kernels."""
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels.ff_pallas import _backward_fused
+
+    p, x, xt, g = _ff_case(strided)
+    want_dx, want = _backward_fused(jnp.asarray(np.ascontiguousarray(x)), _jnp(p),
+                                    jnp.asarray(g), interpret=True)
+    gt = torch.from_numpy(g)
+    np.testing.assert_allclose(ff_kernel.grouped_ff_dx(_torch(p), xt, gt).numpy(),
+                               np.asarray(want_dx), atol=ATOL)
+    dw1, db1, dw2 = ff_kernel.grouped_ff_dw(_torch(p), xt, gt)
+    for name, got in (("w1", dw1), ("b1", db1), ("w2", dw2)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[name]), atol=ATOL, err_msg=name)
+    _, dp = ff_kernel.grouped_ff_backward(_torch(p), xt, gt)
+    np.testing.assert_allclose(dp["b2"].numpy(), np.asarray(want["b2"]), atol=ATOL)
+
+
+@pytest.mark.parametrize("fused_bwd", [True, False])
+def test_grouped_ff_autograd_matches_jax_vjp(fused_bwd):
+    """The autograd Function (K1 forward; K2 + K3 or the plain VJP backward)
+    against jax.vjp of grouped_ff_pallas with the same fused_bwd."""
+    import jax
+
+    from glom_tpu.kernels.ff_pallas import grouped_ff_pallas
+
+    p, x, _, g = _ff_case(True, seed=6)
+    _, vjp = jax.vjp(lambda x_, p_: grouped_ff_pallas(p_, x_, interpret=True, fused_bwd=fused_bwd),
+                     np.ascontiguousarray(x), _jnp(p))
+    want_dx, want = vjp(g)
+    # the strided bottom-up view of a state that requires grad
+    full = torch.zeros((2, 16, 4, 32))
+    full[..., :-1, :] = torch.from_numpy(x)
+    full.requires_grad_(True)
+    pg = {k: v.requires_grad_(True) for k, v in _torch(p).items()}
+    ff_kernel.grouped_ff(pg, full[..., :-1, :], fused_bwd=fused_bwd).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(full.grad[..., :-1, :].numpy(), np.asarray(want_dx), atol=ATOL)
+    assert not full.grad[..., -1, :].any()
+    for k in pg:
+        np.testing.assert_allclose(pg[k].grad.numpy(), np.asarray(want[k]), atol=ATOL, err_msg=k)
+
+
+def _consensus_case(attend_self, use_mask, seed=7):
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels import consensus_pallas
+
+    rng = np.random.default_rng(seed)
+    levels = rng.standard_normal((2, 16, 3, 32)).astype(np.float32)
+    g = rng.standard_normal(levels.shape).astype(np.float32)
+    mask = local_consensus_mask(4, 1.5) if use_mask else None
+    mask_i8 = None if mask is None else jnp.asarray(mask.astype(np.int8))
+    out, lse = consensus_pallas._dispatch(jnp.asarray(levels), mask_i8, attend_self, True, None)
+    return levels, g, mask, mask_i8, out, lse
+
+
+@pytest.mark.parametrize("attend_self", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_consensus_backward_matches_pallas(attend_self, use_mask):
+    """The plain K6 (dKV) + K7 (dQ) against _backward_flash's two kernels; K7
+    alone against the gradient through the queries only."""
+    import jax
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels import consensus_pallas
+
+    levels, g, mask, mask_i8, out, lse = _consensus_case(attend_self, use_mask)
+    want = consensus_pallas._backward_flash(jnp.asarray(levels), mask_i8, out, lse,
+                                            jnp.asarray(g), attend_self=attend_self,
+                                            interpret=True)
+    lt, gt = torch.from_numpy(levels), torch.from_numpy(g)
+    mt = None if mask is None else torch.from_numpy(mask)
+    _, lse_t = plain_consensus.consensus_attention(lt, attend_self=attend_self, non_local_mask=mt)
+    delta = (gt * torch.from_numpy(np.array(out))).sum(-1).permute(0, 2, 1)[..., None]
+    kw = dict(attend_self=attend_self, non_local_mask=mt)
+    dq = consensus_kernel.consensus_dq(lt, gt, lse_t, delta, **kw)
+    dkv = consensus_kernel.consensus_dkv(lt, gt, lse_t, delta, **kw)
+    np.testing.assert_allclose((dq + dkv).numpy(), np.asarray(want), atol=ATOL)
+
+    # dQ alone: the same attention with the keys and values held fixed
+    jmask = None if mask is None else jnp.asarray(mask)
+    n, d = levels.shape[1], levels.shape[-1]
+
+    def through_queries(q):
+        kv = jax.lax.stop_gradient(jnp.asarray(levels))
+        k = kv / jnp.maximum(jnp.linalg.norm(kv, axis=-1, keepdims=True), 1e-12)
+        sim = jnp.einsum("bild,bjld->blij", q, k) * d ** -0.5
+        if not attend_self:
+            sim = jnp.where(jnp.eye(n, dtype=bool), -5e-4, sim)
+        if jmask is not None:
+            sim = jnp.where(jmask, -jnp.finfo(jnp.float32).max, sim)
+        return jnp.einsum("blij,bjld->bild", jax.nn.softmax(sim, axis=-1), kv)
+
+    _, vjp = jax.vjp(through_queries, jnp.asarray(levels))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
+
+
+@pytest.mark.parametrize("attend_self", [False, True])
+@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("flash_bwd", [True, False])
+def test_consensus_autograd_matches_jax_vjp(attend_self, use_mask, flash_bwd):
+    import jax
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels.consensus_pallas import consensus_attention_pallas
+
+    levels, g, mask, _, _, _ = _consensus_case(attend_self, use_mask, seed=8)
+    jmask = None if mask is None else jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda x: consensus_attention_pallas(
+        x, attend_self=attend_self, non_local_mask=jmask, interpret=True, flash_bwd=flash_bwd),
+        jnp.asarray(levels))
+    lt = torch.from_numpy(levels).requires_grad_(True)
+    out, lse = consensus_kernel.consensus_attention(
+        lt, attend_self=attend_self, flash_bwd=flash_bwd,
+        non_local_mask=None if mask is None else torch.from_numpy(mask))
+    assert not lse.requires_grad
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
 
 
 # -- what the wrappers refuse -------------------------------------------------
@@ -145,22 +291,30 @@ def test_consensus_check_refuses(case):
 
 
 def test_wrappers_refuse_grad_and_other_devices():
+    """Under autograd the wrappers record their backward (no refusal since
+    the backward kernels landed); off the CPU and CUDA they still raise."""
     p, x = _good_ff()
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        ff_kernel.grouped_ff(p, x)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        consensus_kernel.consensus_attention(torch.zeros((1, 4, 2, 8), requires_grad=True))
+    y = ff_kernel.grouped_ff(p, x)
+    assert y.requires_grad and y.grad_fn is not None
+    with torch.no_grad():
+        assert not ff_kernel.grouped_ff(p, x).requires_grad
+    out, lse = consensus_kernel.consensus_attention(torch.zeros((1, 4, 2, 8), requires_grad=True))
+    assert out.requires_grad and not lse.requires_grad
     # neither a CUDA nor a CPU tensor: no plain-version fallback either
     meta = torch.zeros((1, 4, 2, 128), device="meta")
     with pytest.raises(ValueError):
         consensus_kernel.consensus_attention(meta)
     with torch.inference_mode(), pytest.raises(ValueError):
         ff_kernel.grouped_ff({k: v.to("meta") for k, v in p.items()}, meta)
+    with pytest.raises(ValueError):
+        ff_kernel.grouped_ff_dx({k: v.to("meta") for k, v in p.items()}, meta, meta)
+    with pytest.raises(ValueError):
+        consensus_kernel.consensus_dq(meta, meta, meta, meta)
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch):
-    assert set(_build.sources()) == {"grouped_ff", "consensus"}
+    assert set(_build.sources()) == {"grouped_ff", "grouped_ff_bwd", "consensus", "consensus_bwd"}
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -199,9 +353,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_close(got, want, dtype):
-    atol, rtol = GPU_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+def _f32(tree):
+    return {k: v.float() for k, v in tree.items()}
+
+
+def _assert_close(got, want, dtype, part=None):
+    """``got`` (``dtype``) against ``want`` (float32) under GPU_RTOL's
+    limits.  ``part``, a term of ``want`` that the output adds to a larger
+    one, is held on its own: the error within GPU_RTOL of its norm plus the
+    output type's rounding of ``want``."""
+    rtol = GPU_RTOL[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err, norm = torch.linalg.vector_norm(diff).item(), torch.linalg.vector_norm(w).item()
+    assert torch.isfinite(g).all()
+    assert err <= rtol * norm, (err, norm)
+    bad = diff > rtol * (min(1.0, w.abs().max().item()) + w.abs())
+    assert not bad.any(), (diff.max().item(), int(bad.sum()))
+    if part is not None:
+        part_norm = torch.linalg.vector_norm(part.float()).item()
+        assert err <= rtol * part_norm + torch.finfo(dtype).eps / 2 * norm, (err, part_norm, norm)
 
 
 @pytest.mark.gpu
@@ -219,7 +390,7 @@ def test_gpu_grouped_ff_matches_plain(cuda, dtype, d, n, splits):
         for x in (lwi[..., :-1, :], lwi[..., 1:, :].contiguous()):
             got = ff_kernel.grouped_ff(p, x, splits=splits)
             assert got.dtype == dtype and got.shape == x.shape
-            _assert_close(got, plain_ff.grouped_ff_apply(p, x), dtype)
+            _assert_close(got, plain_ff.grouped_ff_apply(_f32(p), x.float()), dtype)
     assert ff_kernel.grouped_ff.launches == before + 2
 
 
@@ -243,7 +414,150 @@ def test_gpu_consensus_matches_plain(cuda, dtype, attend_self, radius, side, spl
         got, lse = consensus_kernel.consensus_attention(
             levels, attend_self=attend_self, non_local_mask=mask, splits=splits)
         want, want_lse = plain_consensus.consensus_attention(
-            levels, attend_self=attend_self, non_local_mask=mask)
+            levels.float(), attend_self=attend_self, non_local_mask=mask)
     assert consensus_kernel.consensus_attention.launches == before + 1
     _assert_close(got, want, dtype)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,n", [(128, 20), (384, 70), (512, 64)])
+def test_gpu_grouped_ff_backward_matches_plain(cuda, dtype, d, n):
+    """K2 (dX) and K3 (dW) against their plain versions, on the strided
+    bottom-up view and a contiguous input; rows 40, 140, 128 leave ragged
+    row tiles."""
+    rng = np.random.default_rng(9)
+    p = _torch(_ff_params(rng, 3, d, 4 * d), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((2, n, 4, d)).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.standard_normal((2, n, 3, d)).astype(np.float32)).to(cuda, dtype)
+    before = (ff_kernel.grouped_ff_dx.launches, ff_kernel.grouped_ff_dw.launches)
+    for x in (lwi[..., :-1, :], lwi[..., 1:, :].contiguous()):
+        got = ff_kernel.grouped_ff_dx(p, x, g)
+        assert got.dtype == dtype and got.shape == x.shape
+        _assert_close(got, plain_ff.grouped_ff_dx(_f32(p), x.float(), g.float()), dtype)
+        for name, got_w, want_w in zip(("w1", "b1", "w2"), ff_kernel.grouped_ff_dw(p, x, g),
+                                       plain_ff.grouped_ff_dw(_f32(p), x.float(), g.float())):
+            assert got_w.dtype == dtype and got_w.shape == p[name].shape
+            _assert_close(got_w, want_w, dtype)
+    assert (ff_kernel.grouped_ff_dx.launches, ff_kernel.grouped_ff_dw.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+@pytest.mark.parametrize("side", [5, 16, 48])
+def test_gpu_consensus_backward_matches_plain(cuda, dtype, attend_self, radius, side):
+    """K6 (dKV) and K7 (dQ) against their plain versions; side 5: n=25, a
+    ragged block; 48: n=2304."""
+    rng = np.random.default_rng(10)
+    n = side * side
+    b = 1 if n > 1024 else 2
+    levels = torch.from_numpy(rng.standard_normal((b, n, 3, 128)).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.standard_normal((b, n, 3, 128)).astype(np.float32)).to(cuda, dtype)
+    mask = (torch.from_numpy(local_consensus_mask(side, radius)).to(cuda)
+            if radius else None)
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    with torch.no_grad():
+        out, lse = plain_consensus.consensus_attention(levels, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
+    before = (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches)
+    # K6's key term, beside its larger value term, is also held on its own
+    key_term, _ = plain_consensus.consensus_dkv_terms(levels.float(), g.float(), lse, delta, **kw)
+    for kernel, ref, part in ((consensus_kernel.consensus_dkv, plain_consensus.consensus_dkv, key_term),
+                              (consensus_kernel.consensus_dq, plain_consensus.consensus_dq, None)):
+        got = kernel(levels, g, lse, delta, **kw)
+        assert got.dtype == dtype and got.shape == levels.shape
+        _assert_close(got, ref(levels.float(), g.float(), lse, delta, **kw), dtype, part)
+    assert (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_gpu_backward_kernels_are_deterministic(cuda):
+    """No atomics: two runs of each backward kernel give the same bits."""
+    rng = np.random.default_rng(11)
+    p = _torch(_ff_params(rng, 3, 256, 1024), cuda)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 3, 256)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(cuda)
+    for fn in (ff_kernel.grouped_ff_dx, ff_kernel.grouped_ff_dw):
+        a, b = fn(p, x, g), fn(p, x, g)
+        for u, v in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+    with torch.no_grad():
+        out, lse = consensus_kernel.consensus_attention(x)
+    delta = (g * out).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
+    for fn in (consensus_kernel.consensus_dkv, consensus_kernel.consensus_dq):
+        assert torch.equal(fn(x, g, lse, delta), fn(x, g, lse, delta))
+
+
+@pytest.mark.gpu
+def test_gpu_backward_kernels_take_vector_aligned_rows(cuda):
+    """The backward kernels read rows as 4-element vectors: an input one
+    element off that boundary is refused; a cotangent there is copied."""
+    rng = np.random.default_rng(13)
+    p = _torch(_ff_params(rng, 2, 128, 256), cuda)
+    shape = (2, 8, 2, 128)
+    flat = torch.from_numpy(rng.standard_normal(int(np.prod(shape)) + 1).astype(np.float32)).to(cuda)
+    off = flat[1:].view(shape)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    with pytest.raises(ValueError, match="4-element"):
+        ff_kernel.grouped_ff_dx(p, off, x)
+    stats = torch.zeros((2, 2, 8, 1), device=cuda)
+    with pytest.raises(ValueError, match="4-element"):
+        consensus_kernel.consensus_dq(off, x, stats, stats)
+    _assert_close(ff_kernel.grouped_ff_dx(p, x, off), plain_ff.grouped_ff_dx(p, x, off),
+                  torch.float32)
+
+
+@pytest.mark.gpu
+def test_gpu_autograd_through_the_kernels(cuda):
+    """The autograd Functions on the card against autograd through the plain
+    ops, float32: K1 + K2 + K3 and the consensus forward + K6 + K7."""
+    dtype = torch.float32
+    rng = np.random.default_rng(12)
+    p = _torch(_ff_params(rng, 3, 128, 512), cuda, dtype)
+    base = torch.from_numpy(rng.standard_normal((2, 40, 4, 128)).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.standard_normal((2, 40, 3, 128)).astype(np.float32)).to(cuda, dtype)
+    grads = []
+    for kernels in (True, False):
+        lwi = base.clone().requires_grad_(True)
+        pg = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        if kernels:
+            y = ff_kernel.grouped_ff(pg, lwi[..., :-1, :])
+            y = y + consensus_kernel.consensus_attention(y, attend_self=False)[0]
+        else:
+            y = plain_ff.grouped_ff_apply(pg, lwi[..., :-1, :])
+            y = y + plain_consensus.consensus_attention(y, attend_self=False)[0]
+        y.backward(g)
+        grads.append([lwi.grad] + [pg[k].grad for k in sorted(pg)])
+    for got, want in zip(*grads):
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_loss_backpropagates_through_the_kernels(cuda):
+    """compute_dtype bfloat16: the denoising loss through all six kernels
+    (their bf16 instances) against the plain ops on the card, to bf16's
+    precision, with finite float32 gradients."""
+    from glom_tpu_torch.config import GlomConfig, TrainConfig
+    from glom_tpu_torch.models import glom as glom_model
+    from glom_tpu_torch.training import denoise, optim
+
+    kw = dict(dim=128, levels=3, image_size=32, patch_size=8, compute_dtype="bfloat16")
+    train_cfg = TrainConfig(batch_size=2)
+    state = denoise.init_state(torch.Generator().manual_seed(0), GlomConfig(**kw),
+                               optim.Optimizer(1e-3), device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn((2, 3, 32, 32), generator=gen).to(cuda)
+    noise = torch.randn((2, 3, 32, 32), generator=gen).to(cuda)
+    losses = []
+    for impl in ("pallas", "dense"):
+        cfg = GlomConfig(**kw, ff_impl=impl, attention_impl=impl, ff_fused_bwd=True)
+        loss, grads = denoise.loss_and_grads(denoise.make_loss_fn(cfg, train_cfg),
+                                             state.params, img, noise=noise)
+        for g in glom_model.tree_leaves(grads):
+            assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        losses.append(loss.item())
+    np.testing.assert_allclose(losses[0], losses[1], rtol=2e-2)

@@ -28,6 +28,10 @@ from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models import heads
 from glom_tpu_torch.serving.engine import demo_params
 
+# tier-1 runs these files beside the JAX suite under several workers; one
+# intra-op thread each keeps torch from oversubscribing the CPU
+torch.set_num_threads(1)
+
 OP_ATOL = 1e-5
 FWD_ATOL = 1e-4
 TINY = dict(dim=32, levels=3, image_size=16, patch_size=4)

@@ -14,6 +14,10 @@ from glom_tpu.ops import masks as jax_masks
 from glom_tpu.ops import patch as jax_patch
 from glom_tpu_torch.ops import consensus, feedforward, masks, patch
 
+# tier-1 runs these files beside the JAX suite under several workers; one
+# intra-op thread each keeps torch from oversubscribing the CPU
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

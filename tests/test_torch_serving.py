@@ -35,6 +35,10 @@ from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
 from glom_tpu_torch.serving.server import make_server
 from glom_tpu_torch.training import denoise
 
+# tier-1 runs these files beside the JAX suite under several workers; one
+# intra-op thread each keeps torch from oversubscribing the CPU
+torch.set_num_threads(1)
+
 FWD_ATOL = 1e-4
 TINY = dict(dim=32, levels=3, image_size=16, patch_size=4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -204,9 +208,13 @@ def _tiny_port_ckpt(directory, decoder="linear"):
 
 @pytest.mark.parametrize("damage", ["bitflip", "rewritten"])
 def test_corrupt_npz_raises_crc_error(tmp_path, damage):
+    """A corrupt newest step: pinned, it raises the CRC error; by default the
+    loader (and the engine) quarantine it and fall back to the newest valid
+    step, as glom_tpu does; with no valid step left nothing loads."""
     d = str(tmp_path)
     _tiny_port_ckpt(d)
-    path = ckpt_lib.npz_path(d, 0)
+    ckpt_lib.save(d, 1, {"params": ckpt_lib.load_tree(d, 0, "params")})
+    path = ckpt_lib.npz_path(d, 1)
     if damage == "bitflip":
         with open(path, "r+b") as f:
             f.seek(os.path.getsize(path) // 2)
@@ -219,6 +227,13 @@ def test_corrupt_npz_raises_crc_error(tmp_path, damage):
         arrays["params/glom/pos_emb"] = arrays["params/glom/pos_emb"] + 1.0
         np.savez(path, **arrays)
     with pytest.raises(ckpt_lib.CorruptCheckpointError):
+        denoise.load_checkpoint_state(d, step=1, device="cpu")
+    with pytest.warns(UserWarning, match="quarantined corrupt checkpoint step 1"):
+        engine = ServingEngine(d, device="cpu")
+    assert engine.step == 0 and os.path.exists(path + ".corrupt")
+    assert ckpt_lib.latest_step(d) == 1     # the manifest still names the bad step
+    os.replace(ckpt_lib.npz_path(d, 0), ckpt_lib.npz_path(d, 0) + ".gone")
+    with pytest.raises(FileNotFoundError, match="no valid checkpoint"):
         ServingEngine(d, device="cpu")
 
 
