@@ -15,7 +15,10 @@ each printing one JSON line; any failure raises and exits non-zero:
            where one computes the same function: the forward kernels (K1,
            K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
            consensus); consensus also with attend_self, the locality mask
-           and n=2304 (b=1);
+           and n=2304 (b=1); and the fused level update (K8) against
+           reference_update at b=8 and b=1, with the mask and attend_self,
+           beside the time of the kernels it replaces (K1 + K1 + K4 and the
+           elementwise tail) on the same inputs;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
            seeded weights) served over HTTP in-process: /embed with batches
            of 1, 3 and 8, /reconstruct with 2; shapes, finiteness, one
@@ -29,7 +32,18 @@ each printing one JSON line; any failure raises and exits non-zero:
            plain ops on the card; one step's gradients against the plain
            path; two runs of one step bitwise equal; the launches of all six
            kernels per step; a torch.profiler trace of two steps; and the
-           checkpoint the trainer saved, served over HTTP on /embed.
+           checkpoint the trainer saved, served over HTTP on /embed;
+  serve_fused  the same checkpoint served with ff_impl="fused" over HTTP:
+           /embed with 1 and 8, /reconstruct with 2; the answer against the
+           plain path and against the "pallas" engine; K8's launches (and
+           none of K1 or K4); the b=8 forward's time on the three paths; a
+           traced window;
+  train_fused  Trainer.fit at flagship width, b=8, ff_impl="fused" (K8
+           forward; K1, K4 again and K2, K3, K6, K7 backward), 5 steps:
+           losses, launches per step, gradients against the plain path,
+           bitwise repeat, ms per step beside the "pallas" step's; then 2
+           steps each with remat=True and with fuse_ff=True, held the same
+           way.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -59,6 +73,7 @@ from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
+from glom_tpu_torch.kernels import fused_update as fused_kernel
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.ops import consensus as plain_cons
 from glom_tpu_torch.ops import feedforward as plain_ffm
@@ -99,6 +114,8 @@ REPS, INNER = 20, 5
 # (Frobenius) error per parameter leaf
 GRAD_RTOL = 1e-4
 TRAIN_STEPS = 10
+FUSED_TRAIN_STEPS = 5
+KNOB_TRAIN_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -315,6 +332,44 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None)
     return rows
 
 
+def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=None,
+               timings=True):
+    """K8 against reference_update computed in float32; with ``timings`` also
+    the plain version's time and the time of the kernels K8 replaces on the
+    same inputs: the unfused composition through K1 (bottom-up), K1
+    (top-down), K4 and the elementwise tail (cat, pos add, pad, sum, divide).
+    No single PyTorch call computes a whole level update, so library_ms is
+    null."""
+    bu, td = params["bottom_up"], params["top_down"]
+    pos = params["pos_emb"][None, :, None, :]
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    out = fused_kernel.fused_level_update(bu, td, levels, bottom, pos, **kw)
+    ref = fused_kernel.reference_update(f32(bu), f32(td), levels.float(), bottom.float(),
+                                        pos.float(), mask, attend_self=attend_self)
+    torch.cuda.synchronize()
+    err = compare(out, ref, dtype, f"fused_level_update {label}")
+    b, n, L, d = levels.shape
+    h = bu["w1"].shape[-1]
+    item = levels.element_size()
+    flops = 4.0 * b * n * d * h * (2 * L - 1) + 4.0 * b * L * n * n * d
+    weights = (2 * L - 1) * (2 * d * h + h + d)
+    nbytes = item * (2 * b * n * L * d + b * n * d + n * d + weights) + (
+        n * n if mask is not None else 0)
+    row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "shape": list(levels.shape),
+           "splits": fused_kernel.planned_splits(levels.device, b, n, L, h),
+           **err, "kernel_ms": time_ms(
+               lambda: fused_kernel.fused_level_update(bu, td, levels, bottom, pos, **kw)),
+           "plain_ms": None, "unfused_kernels_ms": None, "library_ms": None,
+           **bounds(flops, nbytes, dtype)}
+    if timings:
+        row["plain_ms"] = time_ms(lambda: fused_kernel.reference_update(
+            bu, td, levels, bottom, pos, mask, attend_self=attend_self))
+        row["unfused_kernels_ms"] = time_ms(lambda: fused_kernel.reference_update(
+            bu, td, levels, bottom, pos, mask, attend_self=attend_self,
+            ff_fn=ff_kernel.grouped_ff, consensus_fn=consensus_kernel.consensus_attention))
+    return row
+
+
 def phase_kernels(device) -> dict:
     gen = torch.Generator().manual_seed(0)
     c = FLAGSHIP
@@ -329,7 +384,7 @@ def phase_kernels(device) -> dict:
     g_ff = torch.randn((BATCH, n, L, d), generator=gen).to(device)
     g_lv = torch.randn((BATCH, n, L, d), generator=gen).to(device)
     g_big = torch.randn((1, 2304, L, d), generator=gen).to(device)
-    ff_rows, cons_rows, bwd_rows = [], [], []
+    ff_rows, cons_rows, bwd_rows, fused_rows = [], [], [], []
     ff_kernel.grouped_ff.launches = 0
     consensus_kernel.consensus_attention.launches = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -355,6 +410,16 @@ def phase_kernels(device) -> dict:
         bwd_rows += consensus_bwd_case(lv, gl, dtype, "local_consensus_radius=2", mask=mask)
         bwd_rows += consensus_bwd_case(big.to(dtype), g_big.to(dtype), dtype,
                                        "n=2304 (384/8), b=1")
+        # K8 reads levels and the tokens as views of one (b, n, L+1, d) state
+        with torch.inference_mode():
+            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype, "b=8"))
+            fused_rows.append(fused_case(cast, x[:1, :, 1:, :], x[:1, :, :1, :], dtype, "b=1"))
+            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype,
+                                         "b=8, attend_self=True", attend_self=True,
+                                         timings=False))
+            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype,
+                                         "b=8, local_consensus_radius=2", mask=mask,
+                                         timings=False))
     # launches of this phase: one checked call and 3 + REPS * INNER timed ones a row
     emit({"phase": "kernels", "kernel": "grouped_ff",
           "launches": ff_kernel.grouped_ff.launches, "rows": ff_rows})
@@ -363,11 +428,17 @@ def phase_kernels(device) -> dict:
     for name in BACKWARD:
         emit({"phase": "kernels", "kernel": name, "rows": [
             {k: v for k, v in r.items() if k != "kernel"} for r in bwd_rows if r["kernel"] == name]})
+    emit({"phase": "kernels", "kernel": "fused_level_update", "rows": fused_rows,
+          "library_note": "no single PyTorch call computes a whole level update; "
+                          "unfused_kernels_ms is K1 + K1 + K4 and the elementwise tail on the "
+                          "same inputs"})
     # the main path's case, float32; SDPA computes only the attend_self=True
     # variant exactly, so consensus's library times come from that row (same
     # shapes and work)
-    main = {"grouped_ff": ff_rows[0], "consensus_attention": cons_rows[0]}
-    library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"]}
+    main = {"grouped_ff": ff_rows[0], "consensus_attention": cons_rows[0],
+            "fused_level_update": fused_rows[0]}
+    library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"],
+               "fused_level_update": None}
     for name in BACKWARD:
         rows = [r for r in bwd_rows if r["kernel"] == name]
         main[name] = rows[0]
@@ -393,41 +464,16 @@ def phase_serve(device) -> dict:
     make_demo_checkpoint(ckpt, config=c, seed=0)
     engine = ServingEngine(ckpt, device=device)
     setup_s = time.perf_counter() - t0
-    engine.start()
-    server = make_server(engine, port=0)
-    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
-    thread.start()
-    try:
-        base = "http://127.0.0.1:%d" % server.server_address[1]
-        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
-            health = json.loads(resp.read())
-        assert health["ff_impl"] == "pallas" and health["attention_impl"] == "pallas", health
-        rng = np.random.default_rng(0)
-        shape = (c.channels, c.image_size, c.image_size)
-        imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 3, 8)}
-
-        ff_kernel.grouped_ff.launches = 0
-        consensus_kernel.consensus_attention.launches = 0
-        requests = []
-        for endpoint, k in (("embed", 1), ("embed", 3), ("embed", 8), ("reconstruct", 2)):
-            t = time.perf_counter()
-            reply = post(f"{base}/{endpoint}", {"images": imgs[k].tolist()})
-            wall_ms = (time.perf_counter() - t) * 1e3
-            key = "embeddings" if endpoint == "embed" else "images"
-            out = np.asarray(reply[key], dtype=np.float32)
-            want = (k, c.levels, c.dim) if endpoint == "embed" else (k,) + shape
-            assert out.shape == want, (endpoint, out.shape, want)
-            assert np.isfinite(out).all(), f"{endpoint} k={k}: non-finite output"
-            requests.append({"endpoint": endpoint, "k": k, "shape": list(out.shape),
-                             "server_latency_ms": reply["latency_ms"],
-                             "client_wall_ms": wall_ms, "out": out})
-        launches = {"grouped_ff": ff_kernel.grouped_ff.launches,
-                    "consensus_attention": consensus_kernel.consensus_attention.launches}
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-        engine.shutdown(drain=True)
+    rng = np.random.default_rng(0)
+    shape = (c.channels, c.image_size, c.image_size)
+    imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 3, 8)}
+    plan = (("embed", 1), ("embed", 3), ("embed", 8), ("reconstruct", 2))
+    ff_kernel.grouped_ff.launches = 0
+    consensus_kernel.consensus_attention.launches = 0
+    health, requests, outs = serve_requests(engine, plan, imgs)
+    launches = {"grouped_ff": ff_kernel.grouped_ff.launches,
+                "consensus_attention": consensus_kernel.consensus_attention.launches}
+    assert health["ff_impl"] == "pallas" and health["attention_impl"] == "pallas", health
 
     iters, t = engine.embed_iters, engine.reconstruct_timestep
     expected = {"grouped_ff": 3 * 2 * iters + 2 * t,
@@ -442,28 +488,13 @@ def phase_serve(device) -> dict:
         x = torch.from_numpy(imgs[3]).to(device)
         plain = glom_model.apply(engine.params["glom"], x, config=plain_cfg,
                                  iters=iters).mean(dim=1).cpu().numpy()
-    served = requests[1]["out"]
-    embed_err = float(np.abs(served - plain).max())
+    embed_err = float(np.abs(outs[("embed", 3)] - plain).max())
     if not embed_err <= SERVE_ATOL:
         raise AssertionError(f"/embed differs from the plain path by {embed_err} > {SERVE_ATOL}")
-    for r in requests:
-        del r["out"]
 
-    # one b=8 /embed forward (12 iterations), host clock to the result on the
-    # host, through the kernels and through the plain ops: median of 5
     x8 = torch.from_numpy(imgs[8]).to(device)
-
-    def forward_ms(cfg):
-        times = []
-        with torch.inference_mode():
-            for _ in range(6):
-                t0 = time.perf_counter()
-                glom_model.apply(engine.params["glom"], x8, config=cfg,
-                                 iters=iters).mean(dim=1).cpu()
-                times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times[1:])
-
-    embed_b8_ms = {"kernels": forward_ms(engine.config), "plain": forward_ms(plain_cfg)}
+    embed_b8_ms = {"kernels": embed_forward_ms(engine, x8, engine.config),
+                   "plain": embed_forward_ms(engine, x8, plain_cfg)}
     emit({"phase": "serve", "config": {"dim": c.dim, "levels": c.levels,
                                        "image_size": c.image_size, "patch_size": c.patch_size,
                                        "iters": iters, "reconstruct_timestep": t},
@@ -511,23 +542,131 @@ def phase_profile(forward, runs: int = 3, *, phase: str = "profile", grad: bool 
                       for e in rows[:16]]})
 
 
+def serve_requests(engine, plan, imgs):
+    """Run ``engine`` behind the HTTP server on a free port, read /healthz,
+    and post ``imgs[k]`` to each ``(endpoint, k)`` of ``plan``.  Every answer
+    must have the endpoint's shape and be finite.  Returns ``(health, one
+    record a request, {(endpoint, k): answer})`` and leaves nothing running."""
+    c = engine.config
+    engine.start()
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        requests, outs = [], {}
+        for endpoint, k in plan:
+            t = time.perf_counter()
+            reply = post(f"{base}/{endpoint}", {"images": imgs[k].tolist()})
+            wall_ms = (time.perf_counter() - t) * 1e3
+            out = np.asarray(reply["embeddings" if endpoint == "embed" else "images"], np.float32)
+            want = ((k, c.levels, c.dim) if endpoint == "embed"
+                    else (k, c.channels, c.image_size, c.image_size))
+            assert out.shape == want, (endpoint, out.shape, want)
+            assert np.isfinite(out).all(), f"{endpoint} k={k}: non-finite output"
+            outs[(endpoint, k)] = out
+            requests.append({"endpoint": endpoint, "k": k, "shape": list(out.shape),
+                             "step": reply["step"], "server_latency_ms": reply["latency_ms"],
+                             "client_wall_ms": wall_ms})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        engine.shutdown(drain=True)
+    return health, requests, outs
+
+
+def embed_forward_ms(engine, x8, cfg) -> float:
+    """One b=8 /embed forward of ``engine``'s weights under ``cfg`` (12
+    iterations), host clock to the result on the host: the median of 5 after
+    a warm-up."""
+    times = []
+    with torch.inference_mode():
+        for _ in range(6):
+            t0 = time.perf_counter()
+            glom_model.apply(engine.params["glom"], x8, config=cfg,
+                             iters=engine.embed_iters).mean(dim=1).cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def phase_serve_fused(device) -> dict:
+    """The flagship demo checkpoint served with ff_impl="fused": every
+    iteration one launch of K8, none of K1 or K4 (the main path of this
+    phase: counts set to 0 just before the requests, read just after)."""
+    c = FLAGSHIP
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")   # phase_serve wrote it
+    engine = ServingEngine(ckpt, device=device, ff_impl="fused")
+    rng = np.random.default_rng(2)
+    shape = (c.channels, c.image_size, c.image_size)
+    imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 8)}
+    plan = (("embed", 1), ("embed", 8), ("reconstruct", 2))
+    for fn in counters().values():
+        fn.launches = 0
+    health, requests, outs = serve_requests(engine, plan, imgs)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    iters, t = engine.embed_iters, engine.reconstruct_timestep
+    want = {k: 0 for k in launches}
+    want["fused_level_update"] = 2 * iters + t
+    if launches != want:
+        raise AssertionError(f"fused serving launches {launches}, expected {want}")
+    assert health["ff_impl"] == "fused", health
+
+    # the k=8 /embed answer against the plain path and the "pallas" engine's
+    plain_cfg = GlomConfig(**{**engine.config.to_json_dict(),
+                              "ff_impl": "dense", "attention_impl": "dense"})
+    pallas_engine = ServingEngine(ckpt, device=device)
+    x8 = torch.from_numpy(imgs[8]).to(device)
+    with torch.inference_mode():
+        plain = glom_model.apply(engine.params["glom"], x8, config=plain_cfg,
+                                 iters=iters).mean(dim=1).cpu().numpy()
+    err_plain = float(np.abs(outs[("embed", 8)] - plain).max())
+    err_pallas = float(np.abs(outs[("embed", 8)] - pallas_engine.run("embed", imgs[8])).max())
+    recon_err = float(np.abs(outs[("reconstruct", 2)]
+                             - pallas_engine.run("reconstruct", imgs[2])).max())
+    if not max(err_plain, err_pallas, recon_err) <= SERVE_ATOL:
+        raise AssertionError(f"fused serving differs: plain {err_plain}, pallas engine "
+                             f"{err_pallas}, reconstruct {recon_err} > {SERVE_ATOL}")
+
+    emit({"phase": "serve_fused", "config": {"dim": c.dim, "levels": c.levels,
+                                             "image_size": c.image_size,
+                                             "patch_size": c.patch_size, "iters": iters,
+                                             "reconstruct_timestep": t, "ff_impl": "fused"},
+          "requests": requests, "launches": launches,
+          "launches_per_forward": {"embed": {"fused_level_update": iters, "grouped_ff": 0,
+                                             "consensus_attention": 0},
+                                   "reconstruct": {"fused_level_update": t}},
+          "embed_vs_plain_max_abs_err": err_plain, "embed_vs_pallas_engine_max_abs_err": err_pallas,
+          "reconstruct_vs_pallas_engine_max_abs_err": recon_err, "atol": SERVE_ATOL,
+          "embed_b8_forward_ms": {"fused": embed_forward_ms(engine, x8, engine.config),
+                                  "pallas_kernels": embed_forward_ms(engine, x8, pallas_engine.config),
+                                  "plain": embed_forward_ms(engine, x8, plain_cfg)}})
+    phase_profile(lambda: glom_model.apply(engine.params["glom"], x8, config=engine.config,
+                                           iters=iters).mean(dim=1).cpu(),
+                  phase="serve_fused_profile")
+    return launches
+
+
 def counters() -> dict:
-    """The six kernel wrappers, whose ``launches`` count their kernels."""
-    return {"grouped_ff": ff_kernel.grouped_ff, "grouped_ff_dx": ff_kernel.grouped_ff_dx,
+    """The seven kernel wrappers, whose ``launches`` count their kernels."""
+    return {"fused_level_update": fused_kernel.fused_level_update,
+            "grouped_ff": ff_kernel.grouped_ff, "grouped_ff_dx": ff_kernel.grouped_ff_dx,
             "grouped_ff_dw": ff_kernel.grouped_ff_dw,
             "consensus_attention": consensus_kernel.consensus_attention,
             "consensus_dkv": consensus_kernel.consensus_dkv,
             "consensus_dq": consensus_kernel.consensus_dq}
 
 
-def fit_run(config, device, img, ckpt=None):
-    """``Trainer.fit`` for TRAIN_STEPS steps on one resident batch, logging
+def fit_run(config, device, img, ckpt=None, steps=TRAIN_STEPS):
+    """``Trainer.fit`` for ``steps`` steps on one resident batch, logging
     every step; returns ``(trainer, records)``."""
     import io
 
     stream = io.StringIO()
-    tc = TrainConfig(batch_size=BATCH, steps=TRAIN_STEPS, log_every=1, seed=0,
-                     checkpoint_dir=ckpt, checkpoint_every=TRAIN_STEPS if ckpt else 0)
+    tc = TrainConfig(batch_size=BATCH, steps=steps, log_every=1, seed=0,
+                     checkpoint_dir=ckpt, checkpoint_every=steps if ckpt else 0)
     trainer = Trainer(config, tc, device=device, logger=MetricLogger(stream=stream))
     trainer.fit(itertools.repeat(img))
     return trainer, [json.loads(line) for line in stream.getvalue().splitlines()]
@@ -552,8 +691,9 @@ def phase_train(device) -> dict:
     launches = {k: fn.launches for k, fn in counters().items()}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     t = denoise.resolve_loss_timestep(kern.train_cfg, c.default_iters)
-    want = {"grouped_ff": 2 * t, "grouped_ff_dx": 2 * t, "grouped_ff_dw": 2 * t,
-            "consensus_attention": t, "consensus_dkv": t, "consensus_dq": t}
+    want = {"fused_level_update": 0, "grouped_ff": 2 * t, "grouped_ff_dx": 2 * t,
+            "grouped_ff_dw": 2 * t, "consensus_attention": t, "consensus_dkv": t,
+            "consensus_dq": t}
     if per_step != want:
         raise AssertionError(f"train-step launches per step {per_step}, expected {want}")
     _, plain_log = fit_run(plain_cfg, device, img)
@@ -562,27 +702,13 @@ def phase_train(device) -> dict:
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses not finite and falling: {losses}")
 
-    def step_ms(log):   # host clock a step, from each one-step window; the first warms up
-        return statistics.median(1e3 * BATCH / r["imgs_per_sec"] for r in log[1:] if "imgs_per_sec" in r)
-
-    ms = {"kernels": step_ms(kern_log), "plain": step_ms(plain_log)}
+    ms = {"kernels": log_step_ms(kern_log), "plain": log_step_ms(plain_log)}
 
     # one step's gradients, kernels against the plain path, same params and noise
     params = kern.state.params
     noise = torch.randn(shape, generator=gen).to(device)
 
-    def grads(config):
-        loss, tree = denoise.loss_and_grads(denoise.make_loss_fn(config, kern.train_cfg),
-                                            params, img, noise=noise)
-        return loss.item(), ckpt_lib.flatten({"": glom_model.tree_map(lambda t: t.cpu(), tree)})
-
-    loss_k, gk = grads(c)
-    loss_p, gp = grads(plain_cfg)
-    rel = {n[1:]: float(np.linalg.norm(gk[n] - gp[n]) / max(np.linalg.norm(gp[n]), 1e-30))
-           for n in gp}
-    worst = max(rel, key=rel.get)
-    if not rel[worst] <= GRAD_RTOL:
-        raise AssertionError(f"gradient {worst} differs from the plain path by {rel[worst]}")
+    grad = grads_vs_plain(c, kern.train_cfg, params, img, noise)
 
     # two runs of one step from the same state and noise: the same bits
     step = denoise.make_step_fn(c, kern.train_cfg, kern.optimizer)
@@ -602,34 +728,125 @@ def phase_train(device) -> dict:
           "step_ms": ms, "images_per_s": {k: 1e3 * BATCH / v for k, v in ms.items()},
           "step_ms_note": "median over steps 2..10 of one-step host-clock windows",
           "launches": launches, "launches_per_step": per_step,
-          "grad_vs_plain": {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_leaf": worst,
-                            "worst_rel_err": rel[worst], "rtol": GRAD_RTOL},
+          "grad_vs_plain": grad,
           "bitwise_repeat": bitwise})
     phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
                   phase="train_profile", grad=True)
     serve_trained(ckpt, device, kern)
+    return launches, ms
+
+
+def grads_vs_plain(config, train_cfg, params, img, noise):
+    """One step's loss and gradients through ``config``'s path against the
+    plain path's, same params and noise: the worst leaf's relative error."""
+    plain_cfg = GlomConfig(**{**config.to_json_dict(), "ff_impl": "dense",
+                              "attention_impl": "dense", "remat": False, "fuse_ff": False})
+
+    def grads(cfg):
+        loss, tree = denoise.loss_and_grads(denoise.make_loss_fn(cfg, train_cfg), params, img,
+                                            noise=noise)
+        return loss.item(), ckpt_lib.flatten({"": glom_model.tree_map(lambda t: t.cpu(), tree)})
+
+    loss_k, gk = grads(config)
+    loss_p, gp = grads(plain_cfg)
+    rel = {n[1:]: float(np.linalg.norm(gk[n] - gp[n]) / max(np.linalg.norm(gp[n]), 1e-30))
+           for n in gp}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= GRAD_RTOL:
+        raise AssertionError(f"gradient {worst} differs from the plain path by {rel[worst]}")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_leaf": worst,
+            "worst_rel_err": rel[worst], "rtol": GRAD_RTOL}
+
+
+def log_step_ms(log):
+    """Host clock a step from the one-step logging windows; the first warms up."""
+    return statistics.median(1e3 * BATCH / r["imgs_per_sec"] for r in log[1:] if "imgs_per_sec" in r)
+
+
+def phase_train_fused(device, pallas_step_ms) -> dict:
+    """The train step with ff_impl="fused" at flagship width, b=8: K8 in the
+    forward; in the backward K1 and K4 again, then K2, K3, K6, K7 (the main
+    path of this phase: counts set to 0 just before Trainer.fit, read just
+    after).  Then remat=True and fuse_ff=True, two steps each."""
+    base = {**FLAGSHIP.to_json_dict(), "ff_fused_bwd": True}
+    c = GlomConfig(**{**base, "ff_impl": "fused"})
+    gen = torch.Generator().manual_seed(1)
+    shape = (BATCH, c.channels, c.image_size, c.image_size)
+    img = torch.randn(shape, generator=gen).to(device)
+    noise = torch.randn(shape, generator=gen).to(device)
+
+    def counted_fit(cfg, steps):
+        for fn in counters().values():
+            fn.launches = 0
+        trainer, log = fit_run(cfg, device, img, steps=steps)
+        launches = {k: fn.launches for k, fn in counters().items()}
+        return trainer, log, launches, {k: v / steps for k, v in launches.items()}
+
+    kern, log, launches, per_step = counted_fit(c, FUSED_TRAIN_STEPS)
+    t = denoise.resolve_loss_timestep(kern.train_cfg, c.default_iters)
+    want = {"fused_level_update": t, "grouped_ff": 2 * t, "grouped_ff_dx": 2 * t,
+            "grouped_ff_dw": 2 * t, "consensus_attention": t, "consensus_dkv": t,
+            "consensus_dq": t}
+    if per_step != want:
+        raise AssertionError(f"fused train-step launches per step {per_step}, expected {want}")
+    losses = [r["loss"] for r in log if "loss" in r]
+    if len(losses) != FUSED_TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fused train losses not finite and falling: {losses}")
+    grad = grads_vs_plain(c, kern.train_cfg, kern.state.params, img, noise)
+    step = denoise.make_step_fn(c, kern.train_cfg, kern.optimizer)
+    (s1, m1), (s2, m2) = step(kern.state, img, noise=noise), step(kern.state, img, noise=noise)
+    bitwise = all(torch.equal(a, b) for a, b in zip(glom_model.tree_leaves(s1.params),
+                                                    glom_model.tree_leaves(s2.params)))
+    if not (bitwise and torch.equal(m1["loss"], m2["loss"])):
+        raise AssertionError("two runs of one fused train step differ")
+
+    # the step's other knobs through the kernels: remat on top of the fused
+    # step (each K8 runs again in the backward), and fuse_ff, which defeats
+    # the fused step and runs both nets as one K1 / K2 / K3 call of 11 groups
+    knobs = {}
+    for name, cfg, want_k in (
+        ("remat", GlomConfig(**{**base, "ff_impl": "fused", "remat": True}),
+         {**want, "fused_level_update": 2 * t}),
+        ("fuse_ff", GlomConfig(**{**base, "ff_impl": "pallas", "attention_impl": "pallas",
+                                  "fuse_ff": True}),
+         {"fused_level_update": 0, "grouped_ff": t, "grouped_ff_dx": t, "grouped_ff_dw": t,
+          "consensus_attention": t, "consensus_dkv": t, "consensus_dq": t}),
+    ):
+        tr, klog, _, kper = counted_fit(cfg, KNOB_TRAIN_STEPS)
+        if kper != want_k:
+            raise AssertionError(f"{name} launches per step {kper}, expected {want_k}")
+        klosses = [r["loss"] for r in klog if "loss" in r]
+        if not all(np.isfinite(klosses)):
+            raise AssertionError(f"{name} losses not finite: {klosses}")
+        knobs[name] = {"launches_per_step": kper, "losses": klosses,
+                       "step_ms": log_step_ms(klog),
+                       "grad_vs_plain": grads_vs_plain(cfg, tr.train_cfg, kern.state.params, img,
+                                                       noise)}
+
+    ms = log_step_ms(log)
+    emit({"phase": "train_fused", "config": {**{k: c.to_json_dict()[k] for k in (
+              "dim", "levels", "image_size", "patch_size", "ff_impl", "ff_fused_bwd",
+              "attention_impl")}, "batch": BATCH, "iters": c.default_iters, "loss_timestep": t},
+          "steps": FUSED_TRAIN_STEPS, "losses": losses,
+          "step_ms": {"fused": ms, "pallas_kernels": pallas_step_ms["kernels"],
+                      "plain": pallas_step_ms["plain"]},
+          "images_per_s": 1e3 * BATCH / ms,
+          "step_ms_note": "median over the steps after the first of one-step host-clock windows",
+          "launches": launches, "launches_per_step": per_step, "grad_vs_plain": grad,
+          "bitwise_repeat": True, "knobs": knobs})
+    phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
+                  phase="train_fused_profile", grad=True)
     return launches
 
 
 def serve_trained(ckpt, device, trainer) -> None:
     """The checkpoint the trainer saved, served over HTTP on /embed."""
     engine = ServingEngine(ckpt, device=device)
-    engine.start()
-    server = make_server(engine, port=0)
-    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
-    thread.start()
-    try:
-        c = engine.config
-        imgs = np.random.default_rng(1).standard_normal(
-            (2, c.channels, c.image_size, c.image_size)).astype(np.float32)
-        reply = post("http://127.0.0.1:%d/embed" % server.server_address[1],
-                     {"images": imgs.tolist()})
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-        engine.shutdown(drain=True)
-    out = np.asarray(reply["embeddings"], np.float32)
+    c = engine.config
+    imgs = np.random.default_rng(1).standard_normal(
+        (2, c.channels, c.image_size, c.image_size)).astype(np.float32)
+    _, (reply,), outs = serve_requests(engine, (("embed", 2),), {2: imgs})
+    out = outs[("embed", 2)]
     with torch.inference_mode():
         want = glom_model.apply(trainer.state.params["glom"], torch.from_numpy(imgs).to(device),
                                 config=engine.config).mean(dim=1).cpu().numpy()
@@ -639,7 +856,7 @@ def serve_trained(ckpt, device, trainer) -> None:
                              f"{out.shape}, error {err}")
     emit({"phase": "serve_trained", "checkpoint_step": reply["step"], "shape": list(out.shape),
           "max_abs_err_vs_trained_params": err, "atol": SERVE_ATOL,
-          "server_latency_ms": reply["latency_ms"]})
+          "server_latency_ms": reply["server_latency_ms"]})
 
 
 def main() -> int:
@@ -657,12 +874,20 @@ def main() -> int:
     phase_build()
     main_rows, library = phase_kernels(device)
     launches = phase_serve(device)
-    train_launches = phase_train(device)
-    # launches: the serving path's count for the forward kernels, the train
-    # path's for the backward ones; launches_train: the train path's for all
+    train_launches, pallas_step_ms = phase_train(device)
+    fused_serve_launches = phase_serve_fused(device)
+    fused_train_launches = phase_train_fused(device, pallas_step_ms)
+    # launches: the serving path's count for the forward kernels (K8: the
+    # fused serving path's), the train path's for the backward ones;
+    # launches_train: the train path's for all (K8: the fused train path's);
+    # launches_train_fused: the fused train path's for all
     launches.update({k: train_launches[k] for k in BACKWARD})
+    launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
+    train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]
     summary = []
     for name, source, replaces in (
+        ("fused_level_update", "glom_tpu_torch/kernels/csrc/fused_update.cu",
+         "glom_tpu/kernels/fused_update_pallas.py:231 (_kernel :64)"),
         ("grouped_ff", "glom_tpu_torch/kernels/csrc/grouped_ff.cu",
          "glom_tpu/kernels/ff_pallas.py:124"),
         ("consensus_attention", "glom_tpu_torch/kernels/csrc/consensus.cu",
@@ -679,6 +904,8 @@ def main() -> int:
         row = main_rows[name]
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "launches_train": train_launches[name],
+                        "launches_train_fused": fused_train_launches[name],
+                        "unfused_kernels_ms": row.get("unfused_kernels_ms"),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

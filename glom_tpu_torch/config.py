@@ -7,10 +7,12 @@ written by name (``"float32"``, ``"bfloat16"``), as the JAX package writes
 them.
 
 The kernel selectors keep their names: ``ff_impl="pallas"`` and
-``attention_impl="pallas"`` select the port's hand-written CUDA kernels.
-Values that name a path the port does not implement yet (``fused``,
-``auto``, ``ring``, ``ulysses``) are accepted, so every JAX checkpoint
-loads; a forward asked to run one raises ``NotImplementedError``.
+``attention_impl="pallas"`` select the port's hand-written CUDA kernels,
+``ff_impl="fused"`` the single-launch level update, and
+``attention_impl="auto"`` the choice by the measured crossover
+(``models/glom.py``).  ``ring`` and ``ulysses`` name a path the port does
+not implement yet: they are accepted, so every JAX checkpoint loads, and a
+forward asked to run one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ class GlomConfig:
     ff_mult: int = 4
     param_dtype: torch.dtype = torch.float32
     compute_dtype: Optional[torch.dtype] = None   # None => param dtype
-    # training-side knobs of the JAX package, kept so its config.json
-    # round-trips; the serving forward does not read them
+    # the step's knobs, read by models/glom.py::make_step_builder for
+    # serving and training alike (scan_unroll: accepted, no effect here)
     remat: bool = False
     remat_policy: str = "dots"
     attention_impl: str = "dense"

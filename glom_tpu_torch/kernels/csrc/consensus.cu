@@ -55,17 +55,15 @@
 //    transpose to (b, L, n, d) is needed; out is (b, n, L, d) contiguous.
 // d must be a multiple of 128, at most 512.
 
-#include <float.h>
-#include <math.h>
-
 #include <type_traits>
 
 #include "common.cuh"
+#include "consensus_row.cuh"
 
 namespace {
 
 constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 32;         // keys per streamed block
+constexpr int BK = glom::KEY_BLOCK;   // keys per streamed block
 constexpr int THREADS = 256;   // 8 warps
 constexpr int COMBINE_THREADS = 256;
 constexpr int MAX_SPLITS = 8;
@@ -73,8 +71,6 @@ constexpr int MAX_SPLITS = 8;
 // write and combine (H100, d=512: at b=8, n=256 two splits gained nothing
 // in f32 and lost in bf16, against the 4 key blocks a block they save).
 constexpr double SPLIT_COST = 1.5;
-constexpr float SELF_LOGIT = -5e-4f;
-static_assert(BK == 32, "the softmax update gives each lane of a warp one key");
 
 template <int D>
 struct Layout {
@@ -140,18 +136,7 @@ consensus_kernel(const T* __restrict__ lv, long long sb, long long sn, long long
       vs[r * S::kStride + k] = (j0 + r < j_end) ? glom::to_f32(base[(j0 + r) * sn + k]) : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int e = 0; e < BK / 8; ++e) {   // 4 keys a warp
-      const float* vr = vs + (warp * (BK / 8) + e) * S::kStride;
-      float ss = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / 128; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(&vr[c * 128 + lane * 4]);
-        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-      }
-      ss = glom::warp_sum(ss);
-      if (lane == 0) kscale[warp * (BK / 8) + e] = scale / fmaxf(sqrtf(ss), 1e-12f);
-    }
+    glom::key_scales<D>(vs, S::kStride, kscale, nullptr, scale);   // 4 keys a warp
 
     float s[2][4], s_lo[2][4];
 #pragma unroll
@@ -191,32 +176,13 @@ consensus_kernel(const T* __restrict__ lv, long long sb, long long sn, long long
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = m1 + gid + (e >> 1) * 8, c = n1 + nt * 8 + 2 * tig + (e & 1);
-        const int i = q0 + r, j = j0 + c;
-        float v = (s[nt][e] + s_lo[nt][e]) * kscale[c];
-        if (!attend_self && i == j) v = SELF_LOGIT;
-        if (mask != nullptr && i < n && j < n && mask[(long long)i * n + j] != 0) v = -FLT_MAX;
-        if (j >= j_end) v = -INFINITY;
-        ps[r * S::kPStride + c] = v;
+        ps[r * S::kPStride + c] = glom::consensus_logit(
+            s[nt][e] + s_lo[nt][e], kscale[c], q0 + r, j0 + c, n, j_end, mask, attend_self);
       }
     }
     __syncthreads();
     // the online-softmax update, one warp per 8 rows, one lane per key
-#pragma unroll
-    for (int e = 0; e < BQ / 8; ++e) {
-      const int r = warp * (BQ / 8) + e;
-      const float v = ps[r * S::kPStride + lane];
-      const float m_old = row_max[r];
-      const float m_new = fmaxf(m_old, glom::warp_max(v));
-      const float p = expf(v - m_new);
-      const float sum = glom::warp_sum(p);
-      ps[r * S::kPStride + lane] = p;
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        corr[r] = c;
-        row_sum[r] = row_sum[r] * c + sum;
-        row_max[r] = m_new;
-      }
-    }
+    glom::softmax_update<BQ>(ps, S::kPStride, row_max, row_sum, corr);
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {

@@ -45,21 +45,19 @@
 // dO, dQ and dKV are (b, n, L, d) contiguous; lse and delta (b, L, n) f32.
 // d must be a multiple of 128, at most 512.
 
-#include <float.h>
-#include <math.h>
-
 #include <type_traits>
 
 #include "common.cuh"
+#include "consensus_row.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
 constexpr int BQ = 32;         // queries per block (K7) or per step (K6)
-constexpr int BK = 32;         // keys per step (K7) or per block (K6)
+constexpr int BK = glom::KEY_BLOCK;   // keys per step (K7) or per block (K6)
 constexpr int THREADS = 256;   // 8 warps
-constexpr float SELF_LOGIT = -5e-4f;
-constexpr float NORM_EPS = 1e-12f;
+using glom::NORM_EPS;
+using glom::SELF_LOGIT;
 
 template <int D>
 struct Layout {
@@ -68,32 +66,6 @@ struct Layout {
   static constexpr size_t kBytes =
       sizeof(float) * (3 * 32 * kRow + 2 * BQ * kP + 3 * BK + 2 * BQ + 8 * BK);
 };
-
-// Each warp computes the norms of 4 of the 32 keys in vs: kscale[j] =
-// scale / max(|v_j|, eps) and, when norm is not null, norm[j] = |v_j|.
-template <int D>
-__device__ __forceinline__ void key_norms(const float* vs, float* kscale, float* norm,
-                                          float scale) {
-  using S = Layout<D>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < BK / 8; ++e) {
-    const int j = warp * (BK / 8) + e;
-    const float* vr = vs + j * S::kRow;
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 128; ++c) {
-      const float4 v = *reinterpret_cast<const float4*>(&vr[c * 128 + lane * 4]);
-      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-    }
-    ss = glom::warp_sum(ss);
-    if (lane == 0) {
-      const float nrm = sqrtf(ss);
-      kscale[j] = scale / fmaxf(nrm, NORM_EPS);
-      if (norm != nullptr) norm[j] = nrm;
-    }
-  }
-}
 
 // S = Q V^T (warps 0-3) and dP = dO V^T (warps 4-7) for a (BQ, BK) tile:
 // two 16 x 8 tiles a warp over all of D, into ps and dps.
@@ -179,7 +151,7 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, long long sb, long long sn, lo
     __syncthreads();   // every warp is done with the previous key block (and Q, dO are loaded)
     glom::load_tile<BK, D, THREADS>(vs, S::kRow, base, sn, j0, n);
     __syncthreads();
-    key_norms<D>(vs, kscale, nullptr, scale);
+    glom::key_scales<D>(vs, S::kRow, kscale, nullptr, scale);
     logits_and_dp<D, kExact>(qs, gs, vs, ps, dps);
     __syncthreads();
     for (int e = tid; e < BQ * BK; e += THREADS) {
@@ -239,7 +211,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, long long sb, long long sn, l
 
   glom::load_tile<BK, D, THREADS>(vs, S::kRow, base, sn, j0, n);
   __syncthreads();
-  key_norms<D>(vs, kscale, norm, scale);
+  glom::key_scales<D>(vs, S::kRow, kscale, norm, scale);
 
   const int n2 = warp * (D / 8);
   float av[2][NT][4], ak[2][NT][4];   // dV and dK: the warp's 32 keys x D/8 columns

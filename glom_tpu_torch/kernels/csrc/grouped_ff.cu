@@ -82,17 +82,6 @@ __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752440f));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Start the copy of slab s of the block's weight stream into its ring
 // stage.  The stream is, for each hidden chunk c0, c0+1, ..., D/KS slabs of
 // w1's chunk columns, then HC/VS slabs of w2's chunk rows.
@@ -109,17 +98,17 @@ __device__ __forceinline__ void issue_slab(int s, int c0, T* ring, const T* w1g,
     constexpr int PER_ROW = HC / E;
     for (int i = tid; i < KS * PER_ROW; i += THREADS) {
       const int r = i / PER_ROW, q = i - r * PER_ROW;
-      cp_async16(dst + r * S::kW1Stride + q * E, src + (long long)r * hidden + q * E);
+      glom::cp_async16(dst + r * S::kW1Stride + q * E, src + (long long)r * hidden + q * E);
     }
   } else {
     const T* src = w2g + (long long)(c * HC + (j - N1) * VS) * D;
     constexpr int PER_ROW = D / E;
     for (int i = tid; i < VS * PER_ROW; i += THREADS) {
       const int r = i / PER_ROW, q = i - r * PER_ROW;
-      cp_async16(dst + r * S::kW2Stride + q * E, src + (long long)r * D + q * E);
+      glom::cp_async16(dst + r * S::kW2Stride + q * E, src + (long long)r * D + q * E);
     }
   }
-  cp_async_commit();
+  glom::cp_async_commit();
 }
 
 // Grid (row tiles, groups, splits).  Split z covers hidden chunks
@@ -176,7 +165,7 @@ grouped_ff_kernel(const T* __restrict__ x, long long row_stride, long long group
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait_all();
+    glom::cp_async_wait_all();
     __syncthreads();   // slab s has landed, and every warp is done with slab s-1
     if (s + 1 < steps) issue_slab<T, D>(s + 1, c0, ring, w1g, w2g, hidden, tid);
     const int c = c0 + s / (N1 + N2), j = s % (N1 + N2);

@@ -1,5 +1,6 @@
 // Warp-level products of f32 tiles in shared memory on the tensor cores,
-// for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu).
+// for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu) and the
+// fused level update (fused_update.cu).
 //
 // Each product is mma.sync m16n8k8 on tf32 operands with f32 accumulators.
 // An f32 operand is split into two tf32 parts, v = hi + lo (common.cuh's
@@ -10,7 +11,8 @@
 // Operands are addressed through a row and a column stride, so a transposed
 // operand (X^T, P^T) is the same tile read the other way:
 //     A(r, k) = a[r * ars + k * acs],   B(k, c) = b[k * brs + c * bcs].
-// `a` points at the warp's first row, `b` at its first column.
+// `a` points at the warp's first row, `b` at its first column.  A is f32; B
+// is f32 or, for a weight slab copied as it lies in device memory, bf16.
 #pragma once
 
 #include "common.cuh"
@@ -37,12 +39,12 @@ __device__ __forceinline__ void load_a(const float* a, int ars, int acs, int k, 
 }
 
 // The B fragment of columns [8 nt, 8 nt + 8) at depth k.
-template <bool EXACT>
-__device__ __forceinline__ void load_b(const float* b, int brs, int bcs, int k, uint32_t (&hi)[2],
+template <bool EXACT, typename TB>
+__device__ __forceinline__ void load_b(const TB* b, int brs, int bcs, int k, uint32_t (&hi)[2],
                                        uint32_t (&lo)[2]) {
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const float* bp = b + (k + tig) * brs + gid * bcs;
-  const float v[2] = {bp[0], bp[4 * brs]};
+  const TB* bp = b + (k + tig) * brs + gid * bcs;
+  const float v[2] = {to_f32(bp[0]), to_f32(bp[4 * brs])};
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     if (EXACT) {
@@ -62,9 +64,9 @@ __device__ __forceinline__ void load_b(const float* b, int brs, int bcs, int k, 
 // long sum (7e-4 on a K3 dW1 entry of the flagship shapes); instead each
 // tile's product over a depth of 16 is formed in a zeroed fragment and
 // added to c with an f32 add, which rounds to nearest.
-template <int MT, int NT, int K, bool EXACT_A, bool EXACT_B>
+template <int MT, int NT, int K, bool EXACT_A, bool EXACT_B, typename TB>
 __device__ __forceinline__ void warp_mma(float (&c)[MT][NT][4], const float* a, int ars, int acs,
-                                         const float* b, int brs, int bcs) {
+                                         const TB* b, int brs, int bcs) {
   static_assert(K % 16 == 0, "depth must be a multiple of 16");
 #pragma unroll
   for (int k0 = 0; k0 < K; k0 += 16) {
@@ -96,9 +98,9 @@ __device__ __forceinline__ void warp_mma(float (&c)[MT][NT][4], const float* a, 
 // multiple of 16): the even and odd k8 steps, and the hi*hi pass apart from
 // the lo passes, go to four accumulator sets, so four chains of dependent
 // mma are in flight instead of one.  They are added into c at the end.
-template <int MT, int NT, bool EXACT_A, bool EXACT_B>
+template <int MT, int NT, bool EXACT_A, bool EXACT_B, typename TB>
 __device__ __forceinline__ void warp_mma_long(float (&c)[MT][NT][4], const float* a, int ars,
-                                              int acs, const float* b, int brs, int bcs, int K) {
+                                              int acs, const TB* b, int brs, int bcs, int K) {
   float hi[2][MT][NT][4], lo[2][MT][NT][4];
 #pragma unroll
   for (int s = 0; s < 2; ++s)

@@ -12,26 +12,40 @@ traces it as a ``lax.scan``):
 ``ff_impl`` / ``attention_impl`` select the implementation: ``"dense"`` is
 the plain PyTorch ops (``glom_tpu_torch.ops``), ``"pallas"`` the port's
 hand-written CUDA kernels (``glom_tpu_torch.kernels``), which take the plain
-ops for CPU tensors.  :func:`apply` runs under autograd: the kernels'
-gradients are their backward kernels (``ff_fused_bwd`` picks K2 + K3 or the
-plain VJP for the FF, as in the JAX package; consensus always takes K6 +
-K7).
+ops for CPU tensors.  ``ff_impl="fused"`` is a step-level choice: when
+:func:`fused_update_supported` holds and the caller injects no
+``consensus_fn`` / ``ff_fn``, the whole iteration runs as one launch of the
+fused level-update kernel (``kernels/fused_update.py``, K8); otherwise it
+falls back to the grouped-FF kernel with the attention chosen by the
+``"auto"`` policy.  ``attention_impl="auto"`` picks the consensus kernels on
+a CUDA device above the measured crossover (:data:`ATTENTION_CROSSOVER_N`)
+and the plain ops otherwise.  :func:`apply` runs under autograd: the
+kernels' gradients are their backward kernels (``ff_fused_bwd`` picks K2 +
+K3 or the plain VJP for the FF, as in the JAX package; consensus always
+takes K6 + K7; K8 differentiates the unfused composition of those).
 
-The training-side knobs of the JAX config: ``scan_unroll`` is accepted and
-changes nothing here (it unrolls XLA's scan; this loop is eager Python);
-``remat`` and ``fuse_ff`` are refused by the train step
-(``glom_tpu_torch.training.denoise``) and ignored by the serving forward.
+Every caller's iteration comes from one place, :func:`make_step_builder`:
+the serving forward and the train step both go through :func:`apply`, so
+``fuse_ff`` (both nets as one grouped call of 2L-1 groups) and ``remat``
+(``torch.utils.checkpoint`` around one step) mean the same in both.
+``scan_unroll`` is accepted and changes nothing here (it unrolls XLA's
+scan; this loop is eager Python).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from glom_tpu_torch.config import GlomConfig
+from glom_tpu_torch.kernels import fused_update
+from glom_tpu_torch.kernels._common import MAX_DIM
 from glom_tpu_torch.kernels.consensus import consensus_attention as consensus_kernel
 from glom_tpu_torch.kernels.ff import grouped_ff
 from glom_tpu_torch.ops.consensus import consensus_attention
@@ -96,16 +110,40 @@ def param_count(params) -> int:
 
 def make_ff_fn(config: GlomConfig):
     """The grouped-FF implementation: the CUDA kernels (``"pallas"``, with
-    ``ff_fused_bwd`` choosing the backward) or the plain ops (``"dense"``)."""
-    if config.ff_impl == "pallas":
+    ``ff_fused_bwd`` choosing the backward) or the plain ops (``"dense"``).
+    ``"fused"`` resolves to the same grouped-FF kernel: the whole-update
+    fusion is a step-level choice (:func:`make_fused_update_fn` through
+    :func:`make_step_builder`), and this kernel is its fallback when
+    :func:`fused_update_supported` fails."""
+    if config.ff_impl in ("pallas", "fused"):
         return functools.partial(grouped_ff, fused_bwd=config.ff_fused_bwd)
-    if config.ff_impl == "dense":
-        return grouped_ff_apply
-    raise NotImplementedError(
-        f"ff_impl={config.ff_impl!r} is not in the port yet: the fused "
-        f"level-update kernel (K8) is first in ROADMAP queue 2; use 'pallas' "
-        f"or 'dense'"
-    )
+    return grouped_ff_apply
+
+
+def fused_update_supported(config: GlomConfig, device=None) -> bool:
+    """True when ``ff_impl="fused"`` takes this model shape on ``device``
+    (``kernels/fused_update.py::supports_config``).  ``fuse_ff`` defeats it:
+    that knob concatenates the two nets into one grouped call, another
+    fusion, and the two do not compose."""
+    if config.ff_impl != "fused" or config.fuse_ff:
+        return False
+    return fused_update.supports_config(config, device)
+
+
+def make_fused_update_fn(config: GlomConfig, device=None):
+    """The single-launch level update bound to this config:
+    ``f(bu_params, td_params, levels, bottom_level, pos_embs) -> new_levels``
+    (``kernels/fused_update.py``).  :func:`make_step_builder` consumes it."""
+    mask = resolve_locality_mask(config, device)
+
+    def f(bu_params, td_params, levels, bottom_level, pos_embs):
+        return fused_update.fused_level_update(
+            bu_params, td_params, levels, bottom_level, pos_embs,
+            attend_self=config.consensus_self, non_local_mask=mask,
+            ff_fused_bwd=config.ff_fused_bwd,
+        )
+
+    return f
 
 
 def resolve_locality_mask(config: GlomConfig, device=None) -> Optional[torch.Tensor]:
@@ -117,20 +155,71 @@ def resolve_locality_mask(config: GlomConfig, device=None) -> Optional[torch.Ten
     return None
 
 
+# Measured dense -> pallas crossover per GPU generation: at n <= entry the
+# plain consensus matches or beats the CUDA kernels (K4 forward, K6 + K7
+# backward) in the real train step, above it the kernels are chosen.  One row
+# per generation with its measurement; ``python -m glom_tpu_torch.tools.crossover``
+# measures again and prints the row for the card it runs on.
+ATTENTION_CROSSOVER_N = {
+    # NVIDIA H100 80GB HBM3, 700.00 W; the tool's run of this row's commit,
+    # flagship width, b=8, f32, FF on its kernels in both legs, images/s dense
+    # against pallas: n=16 249.3 / 304.9, n=64 209.1 / 239.8, n=256 74.10 /
+    # 75.07, n=576 32.15 / 31.87, n=1024 17.62 / 16.88.  The kernels win up to
+    # n=256 (by 22 % to 1 %: fewer launches) and the plain ops at 576 and 1024
+    # (by 1 % and 4 %: K6 and K7 run at a fifth of their bound, PERF.md), so
+    # the row is the largest measured n where dense still wins.  Above it the
+    # kernels are chosen for their memory: they never hold the (b, L, n, n)
+    # logits.
+    "H100": 1024,
+}
+# a generation with no measured row borrows the H100's, with a warning
+_CROSSOVER_FALLBACK_N = 1024
+
+
+def gpu_generation(device=None) -> str:
+    """The key of :data:`ATTENTION_CROSSOVER_N` for a CUDA device: the model
+    name in ``torch.cuda.get_device_name`` ("NVIDIA H100 80GB HBM3" ->
+    "H100"), or the whole name when it has no such word."""
+    name = torch.cuda.get_device_name(device)
+    for word in name.split():
+        if len(word) > 1 and word[0].isalpha() and word[1:].isdigit():
+            return word
+    return name
+
+
+def resolve_auto_attention(config: GlomConfig, device=None) -> str:
+    """What ``attention_impl="auto"`` means on ``device``: ``"pallas"`` on a
+    CUDA device when ``num_patches`` exceeds the generation's measured
+    crossover and the kernels take the width, ``"dense"`` otherwise (every
+    CPU run included).  An unmeasured generation warns and borrows the
+    H100's row."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type != "cuda":
+        return "dense"
+    gen = gpu_generation(dev)
+    crossover = ATTENTION_CROSSOVER_N.get(gen)
+    if crossover is None:
+        crossover = _CROSSOVER_FALLBACK_N
+        warnings.warn(
+            f"attention_impl='auto': no measured dense/pallas crossover for {gen!r}; using "
+            f"n>{_CROSSOVER_FALLBACK_N} from the H100. Run python -m "
+            f"glom_tpu_torch.tools.crossover on this card and add the row to "
+            f"glom_tpu_torch.models.glom.ATTENTION_CROSSOVER_N", stacklevel=3)
+    takes_width = config.dim % 128 == 0 and config.dim <= MAX_DIM
+    return "pallas" if config.num_patches > crossover and takes_width else "dense"
+
+
 def make_consensus_fn(config: GlomConfig, device=None):
     """``levels -> consensus`` for the config's ``attention_impl``: the CUDA
-    kernel (``"pallas"``) or the plain ops (``"dense"``)."""
+    kernels (``"pallas"``), the plain ops (``"dense"``), or whichever of the
+    two :func:`resolve_auto_attention` picks for ``device`` (``"auto"``)."""
     impl = config.attention_impl
+    if impl == "auto":
+        impl = resolve_auto_attention(config, device)
     if impl == "pallas":
         attend = consensus_kernel
     elif impl == "dense":
         attend = consensus_attention
-    elif impl == "auto":
-        raise NotImplementedError(
-            "attention_impl='auto' picks by a crossover measured on the TPU; "
-            "the port has no H100 crossover yet (ROADMAP queue 1, item 1). "
-            "Use 'pallas' or 'dense'"
-        )
     else:
         raise NotImplementedError(
             f"attention_impl={impl!r} needs the multi-GPU port "
@@ -167,9 +256,7 @@ def cast_for_compute(params: dict, img: torch.Tensor, config: GlomConfig):
 
 def update_divisors(config: GlomConfig, dtype, device=None) -> torch.Tensor:
     """``(L, 1)`` divisors [4, ..., 4, 3]: the top level has no top-down term."""
-    divisors = torch.full((config.levels, 1), 4.0, dtype=torch.float32)
-    divisors[-1] = 3.0
-    return divisors.to(device=device, dtype=dtype)
+    return fused_update.update_divisors(config.levels, dtype, device)
 
 
 def embed_inputs(params, img, config: GlomConfig):
@@ -197,6 +284,106 @@ def _update_step(params, bottom_level, pos_embs, divisors, consensus_fn, ff_fn, 
     return (levels + bottom_up_out + top_down_out + consensus) / divisors
 
 
+def _update_step_fused(cat_params, levels_count, bottom_level, pos_embs, divisors,
+                       consensus_fn, ff_fn, levels):
+    """The math of :func:`_update_step` with both nets as ONE grouped call of
+    ``2L-1`` groups (``cat_params``: the two nets' weights concatenated along
+    the group axis, once per :func:`apply`).  The groups are independent, so
+    this is exact; it changes how many FF launches an iteration issues."""
+    L = levels_count
+    levels_with_input = torch.cat([bottom_level, levels], dim=-2)
+    bu_in = levels_with_input[..., :-1, :]
+    td_in = levels_with_input[..., 2:, :] + pos_embs
+    fused_out = ff_fn(cat_params, torch.cat([bu_in, td_in], dim=-2))
+    bottom_up_out = fused_out[..., :L, :]
+    top_down_out = F.pad(fused_out[..., L:, :], (0, 0, 0, 1))
+    consensus = consensus_fn(levels)
+    return (levels + bottom_up_out + top_down_out + consensus) / divisors
+
+
+def make_step_builder(params, config: GlomConfig, pos_embs, divisors, consensus_fn, ff_fn,
+                      fused_fn=None):
+    """``build(bottom_level) -> step`` where ``step(levels)`` is one GLOM
+    iteration honouring the config's ``fuse_ff`` and ``remat``.  The one
+    place an iteration is put together, for serving and training alike.
+
+    ``fused_fn`` (:func:`make_fused_update_fn`) replaces the whole body with
+    the single-launch kernel; ``consensus_fn`` / ``ff_fn`` are then unused.
+
+    ``remat`` wraps the step in ``torch.utils.checkpoint`` (non-reentrant;
+    the step draws no random numbers, so no RNG state is kept): the forward
+    saves only the step's input and the backward runs the step again.  Both
+    policies give the gradients of the unwrapped step.  ``"full"`` recomputes
+    the step, as in the JAX package.  ``"dots"`` there keeps the matrix
+    products' outputs and recomputes the elementwise ops; in eager PyTorch
+    the step's only products are the kernels (or, with ``"dense"``, the plain
+    einsums), whose autograd Functions save their inputs and never the
+    hidden, so there is no product output to keep that the backward would
+    read: ``"dots"`` checkpoints the step exactly as ``"full"`` does."""
+    c = config
+    if fused_fn is not None:
+        def build_fused(bottom_level):
+            def fused_step(levels):
+                return fused_fn(params["bottom_up"], params["top_down"], levels, bottom_level,
+                                pos_embs)
+
+            return _with_remat(fused_step, c)
+
+        return build_fused
+    if c.fuse_ff:
+        # one weight concat per apply (outside the loop), 2L-1 groups
+        cat_params = {k: torch.cat([params["bottom_up"][k], params["top_down"][k]], dim=0)
+                      for k in params["bottom_up"]}
+
+    def build(bottom_level):
+        if c.fuse_ff:
+            step = functools.partial(_update_step_fused, cat_params, c.levels, bottom_level,
+                                     pos_embs, divisors, consensus_fn, ff_fn)
+        else:
+            step = functools.partial(_update_step, params, bottom_level, pos_embs, divisors,
+                                     consensus_fn, ff_fn)
+        return _with_remat(step, c)
+
+    return build
+
+
+def _with_remat(step, config: GlomConfig):
+    """``step`` under activation checkpointing when ``config.remat`` and
+    autograd is recording; unchanged otherwise."""
+    if not config.remat:
+        return step
+
+    def remat_step(levels):
+        if torch.is_grad_enabled():
+            return checkpoint(step, levels, use_reentrant=False, preserve_rng_state=False)
+        return step(levels)
+
+    return remat_step
+
+
+def resolve_step_fns(config: GlomConfig, device=None, *, consensus_fn=None, ff_fn=None,
+                     fused_fn=None):
+    """``(consensus_fn, ff_fn, fused_fn)`` as :func:`apply` runs them on
+    ``device``, by the precedence of ``glom_tpu``'s ``apply``: an injected
+    ``fused_fn`` is kept; with ``ff_impl="fused"``, no injected function and
+    :func:`fused_update_supported`, the fused step is built and the other two
+    stay None; otherwise the unfused halves are resolved, and on that fallback
+    a default ``attention_impl="dense"`` resolves by the ``"auto"`` policy."""
+    c = config
+    if (fused_fn is None and consensus_fn is None and ff_fn is None
+            and fused_update_supported(c, device)):
+        fused_fn = make_fused_update_fn(c, device)
+    if fused_fn is None:
+        if consensus_fn is None:
+            cc = c
+            if c.ff_impl == "fused" and c.attention_impl == "dense":
+                cc = dataclasses.replace(c, attention_impl="auto")
+            consensus_fn = make_consensus_fn(cc, device)
+        if ff_fn is None:
+            ff_fn = make_ff_fn(c)
+    return consensus_fn, ff_fn, fused_fn
+
+
 def apply(
     params: dict,
     img: torch.Tensor,
@@ -208,13 +395,20 @@ def apply(
     capture_timestep: Optional[int] = None,
     consensus_fn=None,
     ff_fn=None,
+    fused_fn=None,
 ):
     """Forward pass, ``Glom.forward(img, iters, levels, return_all)``.
 
     Returns ``(b, n, L, d)`` or, with ``return_all``, ``(iters+1, b, n, L, d)``
     including the t=0 state.  ``capture_timestep=t`` returns
     ``(final, state_after_t_iterations)`` (t=0 is the initial state).
-    ``consensus_fn`` / ``ff_fn`` override the config's implementations."""
+    ``consensus_fn`` / ``ff_fn`` override the config's implementations;
+    ``fused_fn`` replaces the whole update body with the single-launch kernel
+    (resolved from ``ff_impl="fused"`` when :func:`fused_update_supported`
+    holds and neither override is injected: injected functions win).  When
+    ``ff_impl="fused"`` falls back, a default ``attention_impl="dense"`` is a
+    leftover, not a choice, and resolves by the ``"auto"`` policy; an explicit
+    ``"auto"`` / ``"pallas"`` is honoured."""
     c = config
     validate_img(img, c)
     if levels is not None and tuple(levels.shape) != (
@@ -236,14 +430,10 @@ def apply(
         levels = initial_levels(params, tokens.shape[0], c, dt)
     else:
         levels = levels.to(dt)
-    if consensus_fn is None:
-        consensus_fn = make_consensus_fn(c, img.device)
-    if ff_fn is None:
-        ff_fn = make_ff_fn(c)
-    step = functools.partial(
-        _update_step, params, bottom_level, pos_embs,
-        update_divisors(c, dt, img.device), consensus_fn, ff_fn,
-    )
+    consensus_fn, ff_fn, fused_fn = resolve_step_fns(
+        c, img.device, consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+    step = make_step_builder(params, c, pos_embs, update_divisors(c, dt, img.device),
+                             consensus_fn, ff_fn, fused_fn=fused_fn)(bottom_level)
 
     states = [levels] if return_all else None
     captured = levels if capture_timestep == 0 else None

@@ -16,6 +16,10 @@ The engine loads the newest checkpoint of a directory written by either
 package and serves it with the hand-written CUDA kernels
 (``ff_impl`` / ``attention_impl`` ``"pallas"``, the default, overriding
 what the checkpoint recorded; the weights are the same either way).
+``ff_impl="fused"`` serves each iteration as one launch of the fused
+level-update kernel where the model's shape allows it
+(``models/glom.py::fused_update_supported``), and falls back to the
+grouped-FF and consensus kernels where it does not.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from glom_tpu_torch import checkpoint as ckpt_lib
 from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
-from glom_tpu_torch.kernels import consensus, ff
+from glom_tpu_torch.kernels import _build, consensus, ff, fused_update
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply, decoder_param_shapes
 from glom_tpu_torch.serving.batcher import DynamicBatcher
@@ -93,7 +97,8 @@ def make_demo_checkpoint(directory: str, *, config: Optional[GlomConfig] = None,
 def kernel_launches() -> Dict[str, int]:
     """Launch counts of the CUDA kernels, process-wide."""
     return {"grouped_ff": ff.grouped_ff.launches,
-            "consensus_attention": consensus.consensus_attention.launches}
+            "consensus_attention": consensus.consensus_attention.launches,
+            "fused_level_update": fused_update.fused_level_update.launches}
 
 
 class ServingEngine:
@@ -132,8 +137,9 @@ class ServingEngine:
         self.step = step
         dt = self.config.resolved_compute_dtype
         self.params = glom_model.tree_map(lambda p: p.to(dt), params)
-        self._ff_fn = glom_model.make_ff_fn(self.config)
-        self._consensus_fn = glom_model.make_consensus_fn(self.config, self.device)
+        # resolved once: the step's functions, the locality mask on the device
+        self._consensus_fn, self._ff_fn, self._fused_fn = glom_model.resolve_step_fns(
+            self.config, self.device)
         self.embed_iters = iters if iters is not None else self.config.default_iters
         recon_iters = iters if iters is not None else (
             self.train_cfg.iters if self.train_cfg.iters is not None
@@ -150,18 +156,16 @@ class ServingEngine:
         self._started = False
 
     def _build_kernels(self) -> None:
-        """Build and load the kernels the config runs before the first
-        request, so no request waits for ``nvcc``."""
-        if self.config.ff_impl == "pallas":
-            ff._kernel()
-        if self.config.attention_impl == "pallas":
-            consensus._kernel()
+        """Build the kernels before the first request, so no request waits
+        for ``nvcc``, when the config runs any."""
+        if (self.config.ff_impl, self.config.attention_impl) != ("dense", "dense"):
+            _build.build_all()
 
     # -- the forward -------------------------------------------------------
     def _forward(self, imgs: torch.Tensor, iters: int) -> torch.Tensor:
         return glom_model.apply(
             self.params["glom"], imgs, config=self.config, iters=iters,
-            consensus_fn=self._consensus_fn, ff_fn=self._ff_fn,
+            consensus_fn=self._consensus_fn, ff_fn=self._ff_fn, fused_fn=self._fused_fn,
         )
 
     def run(self, endpoint: str, imgs: np.ndarray) -> np.ndarray:

@@ -183,6 +183,10 @@ def main(argv=None) -> int:
     p.add_argument("--max-queue", type=int, default=64)
     p.add_argument("--iters", type=int, default=None,
                    help="GLOM iterations (default: the model's)")
+    p.add_argument("--ff-impl", default="pallas", choices=["dense", "pallas", "fused"],
+                   help="dense: plain ops; pallas: the grouped-FF kernel; fused: the "
+                        "single-launch level update (consensus + both FFs in one kernel, "
+                        "falling back to pallas when the model's shape rules it out)")
     p.add_argument("--verbose", action="store_true", help="per-request access log")
     args = p.parse_args(argv)
 
@@ -194,7 +198,7 @@ def main(argv=None) -> int:
         args.checkpoint_dir,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         iters=args.iters, max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-        device=args.device,
+        device=args.device, ff_impl=args.ff_impl,
     )
     engine.start()
     server = make_server(engine, args.host, args.port, quiet=not args.verbose)

@@ -13,8 +13,8 @@ The noise is drawn from an explicit ``torch.Generator`` (``jax.random``'s
 keys have no torch counterpart), or passed in as a tensor, so that a test
 can hand both packages the same noise.
 
-Refused here, by name of their ROADMAP item: ``consistency != "none"``
-(queue 1, item 3), ``remat`` and ``fuse_ff`` (queue 1, item 1).
+Refused here, by name of its ROADMAP item: ``consistency != "none"``
+(queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -75,25 +75,23 @@ def resolve_loss_timestep(train: TrainConfig, iters: int) -> int:
 
 
 def check_trainable(config: GlomConfig, train: TrainConfig) -> None:
-    """Refuse what the port's train step does not implement yet, the
-    unported ``ff_impl`` / ``attention_impl`` values included."""
-    glom_model.make_ff_fn(config)
+    """Refuse what the port's train step does not implement yet: the
+    unported ``attention_impl`` values (``ring``, ``ulysses``) and the
+    two-view consistency term."""
     glom_model.make_consensus_fn(config)
     if train.consistency != "none":
         raise NotImplementedError(
             f"consistency={train.consistency!r}: the two-view regularizer "
             f"(training/consistency.py) is ROADMAP queue 1, item 3; use 'none'")
-    for knob in ("remat", "fuse_ff"):
-        if getattr(config, knob):
-            raise NotImplementedError(
-                f"{knob}=True is not in the port's train step yet (ROADMAP queue 1, item 1); "
-                f"set it False")
 
 
-def make_loss_fn(config: GlomConfig, train: TrainConfig):
+def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, ff_fn=None,
+                 fused_fn=None):
     """``loss(params, img, *, generator=None, noise=None) -> (loss, recon)``.
     ``noise`` (standard normal, ``img``'s shape) is scaled by
-    ``train.noise_std``; without it the noise is drawn from ``generator``."""
+    ``train.noise_std``; without it the noise is drawn from ``generator``.
+    ``consensus_fn`` / ``ff_fn`` / ``fused_fn`` go to
+    :func:`glom_tpu_torch.models.glom.apply` as they are."""
     check_trainable(config, train)
     iters = train.iters if train.iters is not None else config.default_iters
     timestep = resolve_loss_timestep(train, iters)
@@ -103,7 +101,8 @@ def make_loss_fn(config: GlomConfig, train: TrainConfig):
             noise = torch.randn(img.shape, generator=generator, device=img.device, dtype=img.dtype)
         noised = img + noise.to(img.dtype) * train.noise_std
         # the forward stops at the loss timestep: its state is what decodes
-        state = glom_model.apply(params["glom"], noised, config=config, iters=timestep)
+        state = glom_model.apply(params["glom"], noised, config=config, iters=timestep,
+                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
         recon = decoder_apply(params["decoder"], state, config, arch=train.decoder,
                               level=train.loss_level)
         acc_dt = torch.promote_types(recon.dtype, torch.float32)
@@ -113,7 +112,8 @@ def make_loss_fn(config: GlomConfig, train: TrainConfig):
     return loss_fn
 
 
-def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer):
+def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *,
+                 consensus_fn=None, ff_fn=None, fused_fn=None):
     """``step(state, img, *, noise=None) -> (state, metrics)``.
 
     With ``train.grad_accum_steps > 1`` the batch splits into that many
@@ -127,7 +127,8 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer):
 
     ``glom_tpu``'s ``make_train_step`` jits this function and donates its
     state; eager PyTorch has neither, so this is the port's train step."""
-    loss_fn = make_loss_fn(config, train)
+    loss_fn = make_loss_fn(config, train, consensus_fn=consensus_fn, ff_fn=ff_fn,
+                           fused_fn=fused_fn)
     accum = train.grad_accum_steps
 
     def grad_of(params, img, noise, generator):

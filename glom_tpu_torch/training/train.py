@@ -8,6 +8,7 @@ the synthetic stream (``--data synthetic``, the JAX CLI's default).
 
     python -m glom_tpu_torch.training.train --steps 5 --batch-size 8 \\
         --ff-impl pallas --fused-ff-bwd --attention-impl pallas --log-every 1
+    python -m glom_tpu_torch.training.train --steps 5 --ff-impl fused --fused-ff-bwd
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ from glom_tpu_torch.training.trainer import Trainer
 
 # flags of the JAX CLI the port does not take yet: (flag, nargs, why)
 _REFUSED = (
-    ("--remat", 0, "ROADMAP queue 1, item 1"),
-    ("--remat-policy", 1, "ROADMAP queue 1, item 1"),
-    ("--fuse-ff", 0, "ROADMAP queue 1, item 1"),
     ("--consistency", 1, "ROADMAP queue 1, item 3"),
     ("--consistency-weight", 1, "ROADMAP queue 1, item 3"),
     ("--consistency-temperature", 1, "ROADMAP queue 1, item 3"),
@@ -77,13 +75,22 @@ def parse_args(argv=None):
     p.add_argument("--attention-impl", default="dense",
                    choices=["auto", "dense", "pallas", "ring", "ulysses"],
                    help="pallas = the port's CUDA consensus kernels (forward, K6, K7); "
-                        "auto, ring and ulysses are refused with their ROADMAP item")
+                        "auto = pallas on a CUDA device above the measured crossover, else "
+                        "dense; ring and ulysses are refused with their ROADMAP item")
     p.add_argument("--ff-impl", default="dense", choices=["dense", "pallas", "fused"],
-                   help="pallas = the port's CUDA grouped-FF kernel (K1); fused (K8) is "
-                        "refused with its ROADMAP item")
+                   help="pallas = the port's CUDA grouped-FF kernel (K1); fused = the whole "
+                        "level update in one launch (K8), falling back to pallas when the "
+                        "shape or --fuse-ff rules it out")
     p.add_argument("--fused-ff-bwd", action="store_true",
-                   help="with --ff-impl pallas: gradients through the backward kernels "
-                        "K2 and K3 instead of the plain VJP")
+                   help="with --ff-impl pallas or fused: gradients through the backward "
+                        "kernels K2 and K3 instead of the plain VJP")
+    p.add_argument("--fuse-ff", action="store_true",
+                   help="bottom-up and top-down as one grouped call of 2L-1 groups")
+    p.add_argument("--remat", action="store_true",
+                   help="activation checkpointing around each iteration")
+    p.add_argument("--remat-policy", default="dots", choices=["full", "dots"],
+                   help="kept for the JAX CLI's sake: both recompute the whole step here "
+                        "(models/glom.py::make_step_builder says why)")
     p.add_argument("--scan-unroll", type=int, default=1,
                    help="accepted for the JAX CLI's sake; the port's loop is eager, so "
                         "it changes nothing")
@@ -139,7 +146,8 @@ def main(argv=None):
         local_consensus_radius=args.local_consensus_radius,
         compute_dtype="bfloat16" if args.bf16 else None,
         attention_impl=args.attention_impl, ff_impl=args.ff_impl,
-        ff_fused_bwd=args.fused_ff_bwd, scan_unroll=args.scan_unroll,
+        ff_fused_bwd=args.fused_ff_bwd, fuse_ff=args.fuse_ff, remat=args.remat,
+        remat_policy=args.remat_policy, scan_unroll=args.scan_unroll,
     )
     train_cfg = TrainConfig(
         batch_size=args.batch_size, grad_accum_steps=args.grad_accum_steps,

@@ -111,8 +111,10 @@ class Trainer:
             device=self.device, noise_seed=train.seed)
         self._step = denoise.make_step_fn(config, train, self.optimizer)
         self._stop_requested = False
-        if self.device.type == "cuda" and "pallas" in (config.ff_impl, config.attention_impl):
-            _build.build_all()   # before the first step, which would otherwise pay for it
+        if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != ("dense", "dense"):
+            # every kernel the config can run (K8 and its backward's K1-K7 with
+            # "fused"), before the first step, which would otherwise pay for it
+            _build.build_all()
 
     # -- one step ------------------------------------------------------------
     def step(self, img, *, noise: Optional[torch.Tensor] = None) -> dict:

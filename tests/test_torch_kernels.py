@@ -314,7 +314,8 @@ def test_wrappers_refuse_grad_and_other_devices():
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch):
-    assert set(_build.sources()) == {"grouped_ff", "grouped_ff_bwd", "consensus", "consensus_bwd"}
+    assert set(_build.sources()) == {"grouped_ff", "grouped_ff_bwd", "consensus", "consensus_bwd",
+                                     "fused_update"}
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -561,3 +562,146 @@ def test_gpu_bf16_loss_backpropagates_through_the_kernels(cuda):
             assert g.dtype == torch.float32 and torch.isfinite(g).all()
         losses.append(loss.item())
     np.testing.assert_allclose(losses[0], losses[1], rtol=2e-2)
+
+
+# -- GPU: the fused level update (K8) against reference_update --------------
+
+def _update_inputs(rng, device, dtype, *, b, side, L=3, d=128, h=None, radius=0):
+    """One update's inputs on ``device``: levels and the tokens as strided
+    views of one (b, n, L+1, d) buffer, as the model's loop holds them."""
+    from glom_tpu_torch.kernels import fused_update
+
+    n, h = side * side, h if h is not None else 4 * d
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    bu, td = _torch(_ff_params(rng, L, d, h), device, dtype), _torch(_ff_params(rng, L - 1, d, h), device, dtype)
+    lwi = t(rng.standard_normal((b, n, L + 1, d)))
+    pos = t(rng.standard_normal((n, d)))[None, :, None, :]
+    mask = torch.from_numpy(local_consensus_mask(side, radius)).to(device) if radius else None
+    return fused_update, (bu, td, lwi[..., 1:, :], lwi[..., :1, :], pos), mask
+
+
+def _reference(fused_update, args, mask, attend_self):
+    bu, td, levels, bottom, pos = args
+    return fused_update.reference_update(_f32(bu), _f32(td), levels.float(), bottom.float(),
+                                         pos.float(), mask, attend_self=attend_self)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+@pytest.mark.parametrize("b,side", [(1, 5), (8, 5), (2, 16), (1, 32)])
+def test_gpu_fused_update_matches_reference(cuda, dtype, attend_self, radius, b, side):
+    """side 5: n=25, a ragged tile and key block; 16: n=256; 32: n=1024, the
+    largest the fused path is chosen for.  One launch a call."""
+    rng = np.random.default_rng(11)
+    fu, args, mask = _update_inputs(rng, cuda, dtype, b=b, side=side, radius=radius)
+    before = fu.fused_level_update.launches
+    with torch.inference_mode():
+        got = fu.fused_level_update(*args, attend_self=attend_self, non_local_mask=mask)
+        want = _reference(fu, args, mask, attend_self)
+    assert fu.fused_level_update.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[2].shape and got.is_contiguous()
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,L", [(128, 64, 2), (256, 192, 3), (384, 1536, 4), (512, 2048, 6)])
+def test_gpu_fused_update_widths_and_hidden_edges(cuda, dtype, d, h, L):
+    """Every width the kernel takes; h = 64 (one chunk of K1's, four of K8's)
+    and 192 (not a power of two); L = 2, where level 0 reads the tokens and
+    level 1 is the top."""
+    rng = np.random.default_rng(12)
+    fu, args, _ = _update_inputs(rng, cuda, dtype, b=2, side=6, L=L, d=d, h=h)
+    with torch.inference_mode():
+        got = fu.fused_level_update(*args)
+        want = _reference(fu, args, None, False)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side,h,radius", [(5, 192, 1.5), (16, 512, 0)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_gpu_fused_update_splits_agree(cuda, dtype, side, h, radius, splits):
+    """A tile's hidden chunks and keys shared by up to 8 blocks, their partial
+    terms combined by the second kernel.  side 5, h 192: one key block and
+    three hidden chunks, so with 8 splits most blocks have no key and five no
+    chunk; side 16, h 512: uneven shares with 3 splits.  Two runs give the
+    same bits, and a call counts as one launch."""
+    rng = np.random.default_rng(15)
+    fu, args, mask = _update_inputs(rng, cuda, dtype, b=2, side=side, h=h, radius=radius)
+    before = fu.fused_level_update.launches
+    with torch.inference_mode():
+        got = fu.fused_level_update(*args, non_local_mask=mask, splits=splits)
+        again = fu.fused_level_update(*args, non_local_mask=mask, splits=splits)
+        want = _reference(fu, args, mask, False)
+    assert fu.fused_level_update.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+    with pytest.raises(ValueError, match="splits"):
+        fu.fused_level_update(*args, splits=9)
+
+
+@pytest.mark.gpu
+def test_gpu_fused_update_reads_views_and_refuses_misaligned_rows(cuda):
+    """Contiguous copies of the strided views give the same bits; an input
+    whose rows do not start on a 4-element boundary is refused by name; two
+    runs give the same bits."""
+    rng = np.random.default_rng(13)
+    fu, args, _ = _update_inputs(rng, cuda, torch.float32, b=2, side=5)
+    bu, td, levels, bottom, pos = args
+    assert not levels.is_contiguous()
+    with torch.inference_mode():
+        a = fu.fused_level_update(bu, td, levels, bottom, pos)
+        again = fu.fused_level_update(bu, td, levels, bottom, pos)
+        c = fu.fused_level_update(bu, td, levels.contiguous(), bottom.contiguous(), pos.contiguous())
+    assert torch.equal(a, again) and torch.equal(a, c)
+    flat = torch.zeros(levels.numel() + 1, device=cuda)
+    shifted = flat[1:].view(levels.shape).copy_(levels)
+    with pytest.raises(ValueError, match="4-element"):
+        fu.fused_level_update(bu, td, shifted, bottom, pos)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fu.fused_level_update(bu, td, levels[..., :96], bottom[..., :96], pos[..., :96])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ff_fused_bwd", [True, False])
+def test_gpu_fused_update_autograd_runs_the_unfused_kernels(cuda, ff_fused_bwd):
+    """K8 forward; the backward launches K1 twice and K4 once again, then K2,
+    K3 (with ff_fused_bwd), K6 and K7, and gives the gradients of the plain
+    composition, under torch.utils.checkpoint too."""
+    from torch.utils.checkpoint import checkpoint
+
+    rng = np.random.default_rng(14)
+    fu, args, mask = _update_inputs(rng, cuda, torch.float32, b=2, side=6, radius=1.5)
+    g = torch.from_numpy(rng.standard_normal(tuple(args[2].shape)).astype(np.float32)).to(cuda)
+
+    def leaves():
+        bu, td, levels, bottom, pos = args
+        fresh = lambda t: t.detach().clone().requires_grad_(True)
+        return [{k: fresh(v) for k, v in bu.items()}, {k: fresh(v) for k, v in td.items()},
+                fresh(levels), fresh(bottom), fresh(pos)]
+
+    def flat(ls):
+        return list(ls[0].values()) + list(ls[1].values()) + ls[2:]
+
+    ref = leaves()
+    fu.reference_update(*ref, mask).backward(g)
+    counters = {"k8": fu.fused_level_update, "k1": ff_kernel.grouped_ff,
+                "k2": ff_kernel.grouped_ff_dx, "k3": ff_kernel.grouped_ff_dw,
+                "k4": consensus_kernel.consensus_attention, "k6": consensus_kernel.consensus_dkv,
+                "k7": consensus_kernel.consensus_dq}
+    bwd = 2 if ff_fused_bwd else 0
+    for wrap in (False, True):
+        mine = leaves()
+        before = {k: f.launches for k, f in counters.items()}
+        step = lambda lv: fu.fused_level_update(mine[0], mine[1], lv, mine[3], mine[4],
+                                                non_local_mask=mask, ff_fused_bwd=ff_fused_bwd)
+        out = checkpoint(step, mine[2], use_reentrant=False) if wrap else step(mine[2])
+        out.backward(g)
+        got = {k: f.launches - before[k] for k, f in counters.items()}
+        assert got == {"k8": 2 if wrap else 1, "k1": 2, "k2": bwd, "k3": bwd, "k4": 1, "k6": 1,
+                       "k7": 1}, got
+        for a, w in zip(flat(mine), flat(ref)):
+            _assert_close(a.grad, w.grad, torch.float32)

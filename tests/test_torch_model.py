@@ -143,20 +143,30 @@ def test_apply_refuses_bad_inputs():
 
 
 @pytest.mark.parametrize("field,value,queue", [
-    ("ff_impl", "fused", "queue 2"),
-    ("attention_impl", "auto", "queue 1"),
+    ("ff_impl", "fused", None),
+    ("attention_impl", "auto", None),
     ("attention_impl", "ring", "queue 1"),
     ("attention_impl", "ulysses", "queue 1"),
 ])
 def test_unported_impls_load_but_raise_on_forward(field, value, queue):
+    """Every ``ff_impl`` / ``attention_impl`` of glom_tpu loads.  ``fused`` and
+    ``auto`` run (on the CPU: the plain versions, the kernels' path bit for
+    bit); ``ring`` and ``ulysses`` wait for the multi-GPU port and refuse."""
     port, _ = _configs()
     cfg = dataclasses.replace(port, **{field: value})
     # the config (and so a checkpoint recording it) loads ...
     assert GlomConfig.from_json_dict(cfg.to_json_dict()) == cfg
     params = convert.params_from_numpy(_weights(port)["glom"], port, "cpu")
-    # ... and only a forward asked to run the path refuses
+    img = torch.from_numpy(_img(1))
+    if queue is None:
+        with torch.inference_mode():
+            got = glom_model.apply(params, img, config=cfg)
+            want = glom_model.apply(params, img, config=port)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        return
+    # ... and only a forward asked to run an unported path refuses
     with pytest.raises(NotImplementedError, match=queue):
-        glom_model.apply(params, torch.zeros((1, 3, 16, 16)), config=cfg)
+        glom_model.apply(params, img, config=cfg)
 
 
 def test_update_divisors_and_initial_levels():

@@ -148,7 +148,8 @@ def test_healthz_reports_the_contract_and_the_kernels(served):
     assert health["buckets"] == [1, 2, 4, 8] and health["step"] == 0
     assert (health["image_size"], health["channels"], health["levels"], health["dim"]) == (16, 3, 3, 32)
     assert health["device"] == "cpu"
-    assert set(health["kernel_launches"]) == {"grouped_ff", "consensus_attention"}
+    assert set(health["kernel_launches"]) == {"grouped_ff", "consensus_attention",
+                                              "fused_level_update"}
 
 
 @pytest.mark.parametrize("endpoint", ["embed", "reconstruct"])

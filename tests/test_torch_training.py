@@ -418,21 +418,31 @@ def test_trainer_refuses_what_it_does_not_implement(field, value, item):
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("remat", True, "queue 1, item 1"),
-    ("fuse_ff", True, "queue 1, item 1"),
-    ("ff_impl", "fused", "queue 2"),
+    ("remat", True, None),
+    ("fuse_ff", True, None),
+    ("ff_impl", "fused", None),
     ("attention_impl", "ring", "item 6"),
 ])
 def test_train_step_refuses_unported_knobs(knob, value, item):
+    """``remat``, ``fuse_ff`` and ``ff_impl="fused"`` train, and take the step
+    of the plain configuration (the same weights, image and noise: the same
+    loss and parameters to rounding); ``ring`` still waits for the multi-GPU
+    port and refuses."""
     kw = {**KERNELS, knob: value}
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(GlomConfig(**TINY, **kw), _train_cfg(), device="cpu")
-    # the serving forward still runs a remat / fuse_ff config
-    if knob in ("remat", "fuse_ff"):
-        cfg = GlomConfig(**TINY, **kw)
-        params = glom_model.init(torch.Generator().manual_seed(0), cfg)
-        with torch.inference_mode():
-            glom_model.apply(params, torch.from_numpy(_img()), config=cfg)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(GlomConfig(**TINY, **kw), _train_cfg(), device="cpu")
+        return
+    img, noise = _img(), torch.from_numpy(_img(seed=2))
+    runs = []
+    for cfg_kw in (kw, KERNELS):
+        trainer = Trainer(GlomConfig(**TINY, **cfg_kw), _train_cfg(), device="cpu")
+        metrics = trainer.step(img, noise=noise)
+        runs.append((metrics["loss"].item(), _flat(_to_np(trainer.state.params))))
+    (loss, params), (want_loss, want_params) = runs
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-6)
+    for k in want_params:
+        np.testing.assert_allclose(params[k], want_params[k], atol=1e-6, err_msg=k)
 
 
 def test_scan_unroll_changes_nothing():
@@ -456,12 +466,17 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_flags(tmp_path, capsys):
     with open(tmp_path / "config.json") as f:
         recorded = json.load(f)
     assert recorded["glom"]["ff_impl"] == "pallas" and recorded["train"]["steps"] == 2
-    for flag, item in (["--remat"], "item 1"), (["--mesh", "2", "1", "1"], "item 6"), (
+    for flag, item in (["--consistency", "mse"], "item 3"), (["--mesh", "2", "1", "1"], "item 6"), (
             ["--eval-every", "3"], "item 3"), (["--supervise"], "item 7"), (
             ["--data", "folder"], "item 3"):
         with pytest.raises(SystemExit):
             train.parse_args(flag)
         assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
+    # the step's knobs are flags now, with the JAX CLI's names and defaults
+    args = train.parse_args(["--remat", "--remat-policy", "full", "--fuse-ff", "--ff-impl", "fused"])
+    assert (args.remat, args.remat_policy, args.fuse_ff, args.ff_impl) == (True, "full", True, "fused")
+    args = train.parse_args([])
+    assert (args.remat, args.remat_policy, args.fuse_ff) == (False, "dots", False)
 
 
 def test_checkpoint_loader_pins_and_falls_back(tmp_path):
