@@ -14,9 +14,10 @@ each printing one JSON line; any failure raises and exits non-zero:
            after a warm-up) beside the bound and a PyTorch library call
            where one computes the same function: the forward kernels (K1,
            K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
-           consensus); consensus also with attend_self, the locality mask
-           and n=2304 (b=1); and the fused level update (K8) against
-           reference_update at b=8 and b=1, with the mask and attend_self,
+           consensus); consensus also with attend_self, the locality mask,
+           b=1 and n=2304 (b=1, with SDPA's time on those inputs); and the
+           fused level update (K8) against its plain version at b=8 and
+           b=1, with the mask and attend_self,
            beside the time of the kernels it replaces (K1 + K1 + K4 and the
            elementwise tail) on the same inputs;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
@@ -132,7 +133,10 @@ def nvidia_smi() -> str:
 def time_ms(fn) -> float:
     """Per-call time of ``fn()``: the median over REPS samples, each a run
     of INNER calls between two CUDA events, after a warm-up.  Queuing INNER
-    calls back to back keeps the host's launch gaps out of the device time."""
+    calls back to back keeps the host's launch gaps out of the device time;
+    one more call queued before the start event keeps the card busy while
+    the host prepares the first timed one, whose preparation would otherwise
+    count as device time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -140,6 +144,7 @@ def time_ms(fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        fn()
         start.record()
         for _ in range(INNER):
             fn()
@@ -232,7 +237,11 @@ def ff_case(params, x, dtype, label):
             "library_ms": None, **bounds(flops, nbytes, dtype)}
 
 
-def consensus_case(levels, dtype, label, *, attend_self=False, mask=None):
+def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, library=None):
+    """K4 against its plain version computed in float32.  ``library``
+    (default: attend_self=True without a mask, the one variant
+    scaled_dot_product_attention computes exactly) also times SDPA on that
+    variant of the same inputs: the same shapes and work."""
     out, lse = consensus_kernel.consensus_attention(
         levels, attend_self=attend_self, non_local_mask=mask)
     ref, ref_lse = plain_consensus(levels.float(), attend_self=attend_self, non_local_mask=mask)
@@ -250,12 +259,14 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None):
            "plain_ms": time_ms(lambda: plain_consensus(
                levels, attend_self=attend_self, non_local_mask=mask)),
            "library_ms": None, **bounds(flops, nbytes, dtype)}
-    if attend_self and mask is None:
-        # the one variant scaled_dot_product_attention computes exactly
+    if library is None:
+        library = attend_self and mask is None
+    if library:
         q = levels.transpose(1, 2)
         k = l2_normalize(levels.float()).to(dtype).transpose(1, 2)
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, q))
         row["library"] = "torch.nn.functional.scaled_dot_product_attention"
+        row["library_case"] = "attend_self=True"
     return row
 
 
@@ -334,9 +345,10 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None)
 
 def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=None,
                timings=True):
-    """K8 against reference_update computed in float32; with ``timings`` also
-    the plain version's time and the time of the kernels K8 replaces on the
-    same inputs: the unfused composition through K1 (bottom-up), K1
+    """K8 against its plain version (plain_update: the unfused composition in
+    float32 on the same inputs, rounded once to their type); with
+    ``timings`` also the plain version's time and the time of the kernels K8
+    replaces on the same inputs: the unfused composition through K1 (bottom-up), K1
     (top-down), K4 and the elementwise tail (cat, pos add, pad, sum, divide).
     No single PyTorch call computes a whole level update, so library_ms is
     null."""
@@ -344,8 +356,7 @@ def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=
     pos = params["pos_emb"][None, :, None, :]
     kw = dict(attend_self=attend_self, non_local_mask=mask)
     out = fused_kernel.fused_level_update(bu, td, levels, bottom, pos, **kw)
-    ref = fused_kernel.reference_update(f32(bu), f32(td), levels.float(), bottom.float(),
-                                        pos.float(), mask, attend_self=attend_self)
+    ref = fused_kernel.plain_update(bu, td, levels, bottom, pos, mask, attend_self=attend_self)
     torch.cuda.synchronize()
     err = compare(out, ref, dtype, f"fused_level_update {label}")
     b, n, L, d = levels.shape
@@ -362,7 +373,7 @@ def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=
            "plain_ms": None, "unfused_kernels_ms": None, "library_ms": None,
            **bounds(flops, nbytes, dtype)}
     if timings:
-        row["plain_ms"] = time_ms(lambda: fused_kernel.reference_update(
+        row["plain_ms"] = time_ms(lambda: fused_kernel.plain_update(
             bu, td, levels, bottom, pos, mask, attend_self=attend_self))
         row["unfused_kernels_ms"] = time_ms(lambda: fused_kernel.reference_update(
             bu, td, levels, bottom, pos, mask, attend_self=attend_self,
@@ -398,7 +409,8 @@ def phase_kernels(device) -> dict:
         cons_rows.append(consensus_case(lv, dtype, "attend_self=False"))
         cons_rows.append(consensus_case(lv, dtype, "attend_self=True", attend_self=True))
         cons_rows.append(consensus_case(lv, dtype, "local_consensus_radius=2", mask=mask))
-        cons_rows.append(consensus_case(big.to(dtype), dtype, "n=2304 (384/8), b=1"))
+        cons_rows.append(consensus_case(big.to(dtype), dtype, "n=2304 (384/8), b=1", library=True))
+        cons_rows.append(consensus_case(lv[:1], dtype, "b=1"))
         g = g_ff.to(dtype)
         bwd_rows += ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
                                 "bottom_up (strided view, g=6)")
@@ -436,7 +448,7 @@ def phase_kernels(device) -> dict:
     # variant exactly, so consensus's library times come from that row (same
     # shapes and work)
     main = {"grouped_ff": ff_rows[0], "consensus_attention": cons_rows[0],
-            "fused_level_update": fused_rows[0]}
+            "fused_level_update": fused_rows[0], "consensus_blocked": cons_rows[3]}
     library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"],
                "fused_level_update": None}
     for name in BACKWARD:
@@ -915,6 +927,15 @@ def main() -> int:
                         "library_case": None if library[name] is None else (
                             "attend_self=True" if name == "consensus_attention" else
                             "attend_self=True; SDPA's backward (dQ, dK, dV) against K6 + K7")})
+        if name == "consensus_attention":
+            # the same kernel in glom_tpu's blocked regime (K5, n > 1024)
+            k5 = main_rows["consensus_blocked"]
+            summary[-1]["k5"] = {
+                "replaces": "glom_tpu/kernels/consensus_pallas.py:198 (_forward_blocked :153)",
+                "case": k5["case"], "dtype": k5["dtype"], "max_abs_err": k5["max_abs_err"],
+                "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+                "bound_by": k5["bound_by"], "bound_3xtf32_ms": k5["bound_3xtf32_ms"],
+                "library_ms": k5["library_ms"], "library_case": "attend_self=True, same inputs"}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

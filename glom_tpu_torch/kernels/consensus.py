@@ -60,6 +60,14 @@ def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, dtype) 
                            b, n, L, d, DTYPE_CODES[dtype])
 
 
+def _rows_aligned(levels: torch.Tensor) -> bool:
+    """Every (b, i, l) row of ``levels`` on a 16-byte boundary; a dimension of
+    size 1 is never stepped over."""
+    per_vector = 16 // levels.element_size()
+    return levels.data_ptr() % 16 == 0 and all(
+        s % per_vector == 0 for s, size in zip(levels.stride()[:3], levels.shape[:3]) if size > 1)
+
+
 def _check(levels: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
@@ -86,6 +94,10 @@ def _forward(levels, attend_self, non_local_mask, splits):
         return plain.consensus_attention(
             levels, attend_self=attend_self, non_local_mask=non_local_mask)
     _check(levels, non_local_mask)
+    if not _rows_aligned(levels):
+        raise ValueError(
+            "the consensus kernel copies rows in 16-byte vectors: levels must start on a 16-byte "
+            f"boundary and every row lie on one (strides {levels.stride()})")
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     lse = torch.empty((b, L, n, 1), dtype=torch.float32, device=levels.device)

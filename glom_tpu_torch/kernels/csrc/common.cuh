@@ -38,6 +38,17 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
+// The same split in two operations, for operands that go straight to the
+// tensor cores: hi is v's own bits, since an mma reads only the top 19 bits
+// of a tf32 operand (the low 13 are ignored, as if cleared), and lo = v - hi
+// with those bits cleared, exact in f32.  hi is v truncated, not rounded,
+// so |lo| < 2^-10 |v| instead of 2^-11 |v|; the three passes lose about
+// one bit more than split_tf32's.
+__device__ __forceinline__ void split_tf32_trunc(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v);
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u));
+}
+
 // c += a @ b for one m16n8k8 tile on the tensor cores: a row-major 16x8,
 // b col-major 8x8, tf32 inputs, f32 accumulators.  Fragments (g = lane / 4,
 // t = lane % 4): a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
@@ -58,10 +69,48 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+// As cp_async16, but with `valid` false the 16 bytes are zero and nothing
+// is read (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// c += a @ b for one m16n8k16 tile on the tensor cores: bf16 inputs, f32
+// accumulators.  Each register holds two bf16, the lower column (of a) or
+// row (of b) in its low half: a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}; c as mma_tf32's.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory, one 16-byte
+// row per lane address (lanes 8m .. 8m+7 give matrix m's rows): lane l gets
+// the 32-bit word l % 4 of row l / 4 of each matrix (with `trans`, the pair
+// of rows 2 (l % 4), 2 (l % 4) + 1 at column l / 4).  On 32-bit data a
+// matrix is 8 rows of 4 elements, and lane l gets element (l / 4, l % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

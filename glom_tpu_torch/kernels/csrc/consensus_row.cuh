@@ -50,6 +50,12 @@ __device__ __forceinline__ void key_scales(const float* vs, int stride, float* k
   }
 }
 
+// kscale from a key's squared norm ss: scale / max(sqrt(ss), eps), as
+// key_scales computes it, by one reciprocal square root (about 2 ulp).
+__device__ __forceinline__ float key_scale_from_sq(float ss, float scale) {
+  return scale * rsqrtf(fmaxf(ss, NORM_EPS * NORM_EPS));
+}
+
 // The logit of query i and key j from the raw product q_i . v_j; keys at
 // j_end and beyond are not this block's.
 __device__ __forceinline__ float consensus_logit(float raw, float kscale, int i, int j, int n,

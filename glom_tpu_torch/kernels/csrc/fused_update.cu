@@ -14,7 +14,9 @@
 // levels, scale d^-1/2, soft self-mask, locality mask).  The top level adds
 // its zero top-down term instead of skipping it, as the unfused composition
 // does, so -0.0 comes out as it does there.  f32 or bf16 inputs (all one
-// type), f32 accumulation.
+// type); as in the TPU kernel every input is widened to f32, everything is
+// computed in f32 (the level l+1 + pos sum included), and out is rounded to
+// the inputs' type once, at its store.
 //
 // What bounds it: operations.  At the flagship shapes (b=8, n=256, L=6,
 // d=512, h=2048) an update does 4*d*h FLOPs a row for each of the 11 nets'
@@ -51,8 +53,8 @@
 //  * the index maps of the TPU kernel are pointer arithmetic here: levels is
 //    read through its strides ((b, n, L, d), no transpose), the bottom-up
 //    input is the tokens at l = 0 and level l-1 above, the top-down input
-//    level l+1 plus pos (added in the inputs' type, as the unfused
-//    composition adds it), and the top level runs no top-down net at all;
+//    level l+1 plus pos (added in f32 and never rounded, as the TPU kernel
+//    adds it), and the top level runs no top-down net at all;
 //  * the x tile, the parked sum, the hidden chunk and the ring take about
 //    214 KB of shared memory at d=512 f32, so one block runs on an SM.  A
 //    call has L * b * ceil(n / 32) tiles: 384 at b=8, three waves on 132
@@ -360,8 +362,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_update_kernel(const Args<T> 
     for (int i = tid; i < BM * D; i += THREADS) {
       const int r = i / D, k = i - r * D;
       if (q0 + r < n) {
-        const float v = xs[r * S::kRow + k] + glom::to_f32(a.pos[(q0 + r) * a.psn + k]);
-        xs[r * S::kRow + k] = glom::to_f32(glom::from_f32<T>(v));   // the sum in the inputs' type
+        xs[r * S::kRow + k] += glom::to_f32(a.pos[(q0 + r) * a.psn + k]);   // in f32, not rounded
       }
     }
     ff_term<T, D>(acc, xs, scratch, a.w[4] + (long long)l * D * hidden,

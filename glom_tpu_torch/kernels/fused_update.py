@@ -12,11 +12,14 @@ with ``stack = [tokens, levels]``, no top-down term at the top level and
 hiddens and the three terms never reach device memory.
 
 :func:`fused_level_update` is the entry point.  Its plain PyTorch version is
-:func:`reference_update`, the unfused composition (cat, two grouped FFs, pad,
-consensus, divisors): CPU tensors take it, CUDA tensors take the kernel, and
-the wrapper raises on anything the kernel does not take.  There is no
-fallback from the kernel to the plain version.  ``fused_level_update.launches``
-counts the kernel's launches.  A call with too few tiles to fill the card
+:func:`plain_update`: :func:`reference_update`, the unfused composition (cat,
+two grouped FFs, pad, consensus, divisors), on float32 copies of the inputs,
+rounded once to the levels' type, as the TPU kernel computes in float32 and
+rounds once at its store.  In float32 the two are the same function.  CPU
+tensors take it, CUDA tensors take the kernel, and the wrapper raises on
+anything the kernel does not take.  There is no fallback from the kernel to
+the plain version.  ``fused_level_update.launches`` counts the kernel's
+launches.  A call with too few tiles to fill the card
 splits each tile's hidden chunks and keys over several blocks
 (:func:`planned_splits`); their partial terms go through an f32 workspace and
 a second, elementwise kernel adds them in a fixed order.  The call still
@@ -24,9 +27,10 @@ counts as one launch.
 
 The gradient, as in ``fused_update_pallas.py::_bwd``: K8 has no backward
 kernel.  :class:`_FusedUpdate` saves the inputs and differentiates the
-unfused composition built from the port's own ``grouped_ff`` and
-``consensus_attention`` wrappers, so on the card a backward runs K1 and K4
-again and then K2, K3 (``ff_fused_bwd``), K6 and K7.
+unfused composition (:func:`reference_update`, in the inputs' own type)
+built from the port's own ``grouped_ff`` and ``consensus_attention``
+wrappers, so on the card a backward runs K1 and K4 again and then K2, K3
+(``ff_fused_bwd``), K6 and K7.
 """
 
 from __future__ import annotations
@@ -126,11 +130,12 @@ def update_divisors(levels_count: int, dtype, device=None) -> torch.Tensor:
 def reference_update(bu, td, levels, bottom_level, pos_embs, non_local_mask=None, *,
                      attend_self: bool = False, ff_fn=None, consensus_fn=None) -> torch.Tensor:
     """The unfused composition of the same iteration, combined exactly like
-    ``models/glom._update_step``: K8's plain PyTorch version.  ``ff_fn`` and
-    ``consensus_fn`` default to the plain ops; the backward of
-    :class:`_FusedUpdate` passes the kernel wrappers instead, as
-    ``fused_update_pallas.py::reference_update`` composes the Pallas
-    kernels."""
+    ``models/glom._update_step``, in the inputs' type: what the gradient of
+    :class:`_FusedUpdate` differentiates, and, on float32 copies,
+    :func:`plain_update`.  ``ff_fn`` and ``consensus_fn`` default to the
+    plain ops; the backward of :class:`_FusedUpdate` passes the kernel
+    wrappers instead, as ``fused_update_pallas.py::reference_update``
+    composes the Pallas kernels."""
     ff_fn = ff_fn if ff_fn is not None else plain_ff.grouped_ff_apply
     consensus_fn = consensus_fn if consensus_fn is not None else plain_consensus.consensus_attention
     levels_with_input = torch.cat([bottom_level, levels], dim=-2)
@@ -140,6 +145,20 @@ def reference_update(bu, td, levels, bottom_level, pos_embs, non_local_mask=None
     cons, _ = consensus_fn(levels, attend_self=attend_self, non_local_mask=non_local_mask)
     divisors = update_divisors(levels.shape[2], levels.dtype, levels.device)
     return (levels + bu_out + td_out + cons) / divisors
+
+
+def plain_update(bu, td, levels, bottom_level, pos_embs, non_local_mask=None, *,
+                 attend_self: bool = False) -> torch.Tensor:
+    """What K8 computes, in plain PyTorch: :func:`reference_update` on float32
+    copies of every input, rounded once to ``levels``' dtype
+    (``fused_update_pallas.py::_kernel`` casts its inputs to float32 and its
+    output back once).  In float32 it is :func:`reference_update` bit for bit;
+    in bfloat16 the unfused composition rounds the ``pos`` sum and each term
+    apart, and this function does not."""
+    f32 = lambda tree: {k: v.float() for k, v in tree.items()}
+    out = reference_update(f32(bu), f32(td), levels.float(), bottom_level.float(),
+                           pos_embs.float(), non_local_mask, attend_self=attend_self)
+    return out.to(levels.dtype)
 
 
 def _strides_aligned(t: torch.Tensor) -> bool:
@@ -200,7 +219,7 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
 
 def _forward(bu, td, levels, bottom, pos, mask, attend_self, splits=None) -> torch.Tensor:
     if not on_device("fused_level_update", levels):
-        return reference_update(bu, td, levels, bottom, pos, mask, attend_self=attend_self)
+        return plain_update(bu, td, levels, bottom, pos, mask, attend_self=attend_self)
     _check(bu, td, levels, bottom, pos, mask)
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)

@@ -4,12 +4,13 @@ the CPU.
 
 The same seeded numpy weights, states, images and noise go through both
 packages.  glom_tpu runs its fused Pallas kernel in interpret mode, as its own
-tests/test_fused_update.py does; the port runs ``reference_update``, the
-kernel's plain version, which CPU tensors take.  Float32.  Tolerances: 1e-5
-absolute for one update (summation order only), 1e-4 absolute over a forward
-of 2*L iterations, 1e-4 relative per leaf for gradients; over a few optimizer
-steps the losses 1e-5 relative and the parameters 1e-4 absolute, as
-tests/test_torch_training.py holds the unfused step.
+tests/test_fused_update.py does; the port runs ``plain_update``, the
+kernel's plain version, which CPU tensors take.  Float32 unless a test says
+otherwise.  Tolerances: 1e-5 absolute for one update (summation order only),
+1e-4 absolute over a forward of 2*L iterations, 1e-4 relative per leaf for
+gradients; over a few optimizer steps the losses 1e-5 relative and the
+parameters 1e-4 absolute, as tests/test_torch_training.py holds the unfused
+step; one bfloat16 rounding for one update in bfloat16.
 """
 
 import dataclasses
@@ -150,20 +151,51 @@ def test_fused_level_update_grads_match_jax_vjp(use_mask, ff_fused_bwd):
 
 
 def test_fused_level_update_is_reference_update_on_the_cpu():
-    """CPU tensors take the plain version, with and without autograd, and the
-    Function's gradient is the composition's own."""
+    """CPU tensors take the plain version, with and without autograd: in
+    float32 reference_update bit for bit; in bfloat16 the composition on
+    float32 copies rounded once, as glom_tpu's kernel computes.  The
+    Function's gradient is still the composition's own."""
     _, bu, td, levels, bottom, pos, mask = _update_case(False, True, seed=5)
     args = (_t(bu), _t(td), _t(levels), _t(bottom), _t(pos))
     want = fused_update.reference_update(*args, _t(mask))
     with torch.no_grad():
         got = fused_update.fused_level_update(*args, non_local_mask=_t(mask))
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+        bf = [glom_model.tree_map(lambda t: t.to(torch.bfloat16), a) for a in args]
+        got_bf = fused_update.fused_level_update(*bf, non_local_mask=_t(mask))
+        f32 = [glom_model.tree_map(lambda t: t.float(), a) for a in bf]
+        want_bf = fused_update.reference_update(*f32, _t(mask)).to(torch.bfloat16)
+    assert got_bf.dtype == torch.bfloat16
+    torch.testing.assert_close(got_bf, want_bf, atol=0, rtol=0)
+    assert not torch.equal(got_bf, fused_update.reference_update(*bf, _t(mask)))
     lv = args[2].clone().requires_grad_(True)
     ref = args[2].clone().requires_grad_(True)
     fused_update.fused_level_update(args[0], args[1], lv, args[3], args[4],
                                     non_local_mask=_t(mask)).sum().backward()
     fused_update.reference_update(args[0], args[1], ref, args[3], args[4], _t(mask)).sum().backward()
     torch.testing.assert_close(lv.grad, ref.grad, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_fused_level_update_bf16_matches_glom_tpu(use_mask):
+    """bfloat16: the port's fused update on the CPU against glom_tpu's fused
+    kernel in interpret mode on the same inputs.  Both widen every input to
+    float32, sum in float32 and round once, so they agree to within one
+    bfloat16 rounding of each value, 2**-8 |want|."""
+    _, bu, td, levels, bottom, pos, mask = _update_case(False, use_mask, seed=21)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = jax_fused.fused_level_update(
+        jax.tree_util.tree_map(bf, bu), jax.tree_util.tree_map(bf, td), bf(levels), bf(bottom),
+        bf(pos), non_local_mask=None if mask is None else jnp.asarray(mask))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    tb = lambda a: glom_model.tree_map(lambda t: t.to(torch.bfloat16), _t(a))
+    with torch.inference_mode():
+        got = fused_update.fused_level_update(tb(bu), tb(td), tb(levels), tb(bottom), tb(pos),
+                                              non_local_mask=_t(mask))
+    assert got.dtype == torch.bfloat16 and got.shape == levels.shape
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= 2.0 ** -8 * np.abs(want)).all(), (diff.max(), int((diff > 0).sum()))
 
 
 def test_fused_level_update_only_differentiates_what_asks():

@@ -290,6 +290,18 @@ def test_consensus_check_refuses(case):
         consensus_kernel._check(levels, mask)
 
 
+def test_consensus_forward_needs_16_byte_rows():
+    """The forward copies rows in 16-byte vectors: 4 float32 or 8 bfloat16
+    elements; a dimension of size 1 is never stepped over."""
+    x = torch.zeros((2, 8, 3, 128))
+    assert consensus_kernel._rows_aligned(x) and consensus_kernel._rows_aligned(x[..., 1:, :])
+    assert not consensus_kernel._rows_aligned(torch.zeros(x.numel() + 1)[1:].view(x.shape))
+    y = torch.zeros((2, 8, 3, 136), dtype=torch.bfloat16)
+    assert not consensus_kernel._rows_aligned(y[..., 4:])
+    assert consensus_kernel._rows_aligned(y[..., 8:]) and not consensus_kernel._rows_aligned(y[:1, :1, :1, 4:])
+    assert consensus_kernel._rows_aligned(torch.zeros((1, 4, 8, 128)).as_strided((1, 4, 1, 128), (5, 1024, 3, 1)))
+
+
 def test_wrappers_refuse_grad_and_other_devices():
     """Under autograd the wrappers record their backward (no refusal since
     the backward kernels landed); off the CPU and CUDA they still raise."""
@@ -399,14 +411,15 @@ def test_gpu_grouped_ff_matches_plain(cuda, dtype, d, n, splits):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
 @pytest.mark.parametrize("side", [5, 16, 48])
-@pytest.mark.parametrize("splits", [None, 1, 3])
-def test_gpu_consensus_matches_plain(cuda, dtype, attend_self, radius, side, splits):
-    """side 5: n=25, a ragged key block; 48: n=2304, the streamed regime.
-    splits None: the planned count; 1: one block takes every key; 3: the
-    keys shared by up to 3 blocks (one at n=25, whose keys are one block)."""
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 4, 5, 6, 7, 8])
+def test_gpu_consensus_matches_plain(cuda, dtype, attend_self, radius, side, b, splits):
+    """side 5: n=25, one ragged key block; 16: n=256; 48: n=2304, the
+    streamed regime.  splits None: the planned count; 1 to 8: every count
+    the planner can pick (at n=25 all are one block, whose keys are one key
+    block)."""
     rng = np.random.default_rng(4)
     n = side * side
-    b = 1 if n > 1024 else 2
     levels = torch.from_numpy(rng.standard_normal((b, n, 3, 128)).astype(np.float32)).to(cuda, dtype)
     mask = (torch.from_numpy(local_consensus_mask(side, radius)).to(cuda)
             if radius else None)
@@ -417,8 +430,41 @@ def test_gpu_consensus_matches_plain(cuda, dtype, attend_self, radius, side, spl
         want, want_lse = plain_consensus.consensus_attention(
             levels.float(), attend_self=attend_self, non_local_mask=mask)
     assert consensus_kernel.consensus_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == levels.shape
     _assert_close(got, want, dtype)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_gpu_consensus_widths(cuda, dtype, d, splits):
+    """Every width the kernel takes (a warp's slice of d is d/4: 32 to 128
+    columns), on the strided levels view of the model's loop, n=70 (a ragged
+    query tile and key block)."""
+    rng = np.random.default_rng(5)
+    lwi = torch.from_numpy(rng.standard_normal((2, 70, 4, d)).astype(np.float32)).to(cuda, dtype)
+    levels = lwi[..., 1:, :]
+    with torch.inference_mode():
+        got, lse = consensus_kernel.consensus_attention(levels, splits=splits)
+        want, want_lse = plain_consensus.consensus_attention(levels.float())
+    _assert_close(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,splits", [(8, None), (1, None), (1, 4)])
+def test_gpu_consensus_is_deterministic(cuda, dtype, b, splits):
+    """No atomics: two calls give the same bits, out and lse, at the main
+    path's widths, with one split and several."""
+    rng = np.random.default_rng(6)
+    levels = torch.from_numpy(rng.standard_normal((b, 256, 2, 512)).astype(np.float32)).to(cuda, dtype)
+    with torch.inference_mode():
+        a, lse_a = consensus_kernel.consensus_attention(levels, splits=splits)
+        c, lse_c = consensus_kernel.consensus_attention(levels, splits=splits)
+    assert torch.equal(a, c) and torch.equal(lse_a, lse_c)
 
 
 @pytest.mark.gpu
@@ -564,7 +610,7 @@ def test_gpu_bf16_loss_backpropagates_through_the_kernels(cuda):
     np.testing.assert_allclose(losses[0], losses[1], rtol=2e-2)
 
 
-# -- GPU: the fused level update (K8) against reference_update --------------
+# -- GPU: the fused level update (K8) against its plain version ------------
 
 def _update_inputs(rng, device, dtype, *, b, side, L=3, d=128, h=None, radius=0):
     """One update's inputs on ``device``: levels and the tokens as strided
@@ -581,9 +627,9 @@ def _update_inputs(rng, device, dtype, *, b, side, L=3, d=128, h=None, radius=0)
 
 
 def _reference(fused_update, args, mask, attend_self):
-    bu, td, levels, bottom, pos = args
-    return fused_update.reference_update(_f32(bu), _f32(td), levels.float(), bottom.float(),
-                                         pos.float(), mask, attend_self=attend_self)
+    """K8's plain version on the kernel's inputs: the composition in float32,
+    rounded once to their type."""
+    return fused_update.plain_update(*args, mask, attend_self=attend_self)
 
 
 @pytest.mark.gpu
