@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``glom_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase: the smoke test
+    python3 chip_smoke.py --only k2,train    # device, build and the named phases
 
 Run from the root of a checkout; it builds everything it needs.  Phases,
-each printing one JSON line; any failure raises and exits non-zero:
+each printing one JSON line; any failure raises and exits non-zero.  With
+``--only`` the run is partial, exits 3 and prints no ok line.
 
   device   the card's name and power limit (nvidia-smi);
   build    nvcc builds every kernel in glom_tpu_torch/kernels/csrc/;
@@ -14,12 +16,14 @@ each printing one JSON line; any failure raises and exits non-zero:
            after a warm-up) beside the bound and a PyTorch library call
            where one computes the same function: the forward kernels (K1,
            K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
-           consensus); consensus also with attend_self, the locality mask,
+           consensus); K2 also at b=1 and at 49 rows (off its 32-row tile);
+           consensus also with attend_self, the locality mask,
            b=1 and n=2304 (b=1, with SDPA's time on those inputs); and the
            fused level update (K8) against its plain version at b=8 and
            b=1, with the mask and attend_self,
            beside the time of the kernels it replaces (K1 + K1 + K4 and the
            elementwise tail) on the same inputs;
+  k2       (only with --only) K2's rows of the kernels phase alone;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
            seeded weights) served over HTTP in-process: /embed with batches
            of 1, 3 and 8, /reconstruct with 2; shapes, finiteness, one
@@ -30,7 +34,8 @@ each printing one JSON line; any failure raises and exits non-zero:
   train    the denoising train step at flagship width, b=8, through the
            kernels (Trainer.fit, 10 steps on one resident synthetic batch):
            finite, falling losses; ms per step and images/s against the
-           plain ops on the card; one step's gradients against the plain
+           plain ops on the card and, timed only, against ff_fused_bwd=False
+           (K1 with the plain float32 VJP of the grouped FF); one step's gradients against the plain
            path; two runs of one step bitwise equal; the launches of all six
            kernels per step; a torch.profiler trace of two steps; and the
            checkpoint the trainer saved, served over HTTP on /embed;
@@ -214,7 +219,16 @@ def phase_build() -> None:
                     for m in re.findall(r"Function properties for \S*?([a-z_]+_kernel)I(\w+?)Li(\d+)E"
                                         r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill stores",
                                         text) if int(m[3])]
-        ptxas[name] = {"max_registers": max(regs, default=0), "spills": spilling}
+        # registers of each kernel at each (element type, width)
+        per_kernel = {}
+        for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+                                   text, re.S):
+            m = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E", fn)
+            used = re.search(r"Used (\d+) registers", body)
+            if m and used:
+                per_kernel[f"{m[1]}<{m[2].replace('13__nv_bfloat16', 'bf16')},{m[3]}>"] = int(used[1])
+        ptxas[name] = {"max_registers": max(regs, default=0), "spills": spilling,
+                       "registers": per_kernel}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": per_source, "ptxas": ptxas,
           "flags": " ".join(_build.NVCC_FLAGS)})
@@ -270,8 +284,9 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, librar
     return row
 
 
-def ff_bwd_case(params, x, g, dtype, label):
-    """K2 (dX) and K3 (dW) against their plain versions; two rows."""
+def ff_bwd_case(params, x, g, dtype, label, kernels=("grouped_ff_dx", "grouped_ff_dw")):
+    """K2 (dX) and K3 (dW), or those of them named in ``kernels``, against
+    their plain versions; a row each."""
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
     rows, item = b * n, x.element_size()
@@ -283,6 +298,8 @@ def ff_bwd_case(params, x, g, dtype, label):
         ("grouped_ff_dw", ff_kernel.grouped_ff_dw, plain_ffm.grouped_ff_dw, 8.0,
          item * (2 * rows * gr * d + 2 * weights)),
     ):
+        if name not in kernels:
+            continue
         got, want = kernel(params, x, g), plain(f32(params), x.float(), g.float())
         torch.cuda.synchronize()
         if isinstance(got, tuple):   # (dW1, db1, dW2): the worst leaf
@@ -292,8 +309,13 @@ def ff_bwd_case(params, x, g, dtype, label):
         else:
             err = compare(got, want, dtype, f"{name} {label}")
         flops = factor * rows * gr * d * h
+        # K2's hidden split (none in a tree from before port PR 6, which
+        # --only k2 can time for comparison)
+        plan = getattr(ff_kernel, "planned_dx_splits", None)
+        extra = ({"splits": plan(x.device, rows, gr, d, h, dtype)}
+                 if name == "grouped_ff_dx" and plan else {})
         out.append({"kernel": name, "case": label, "dtype": str(dtype).replace("torch.", ""),
-                    "shape": list(x.shape), **err,
+                    "shape": list(x.shape), **extra, **err,
                     "kernel_ms": time_ms(lambda: kernel(params, x, g)),
                     "plain_ms": time_ms(lambda: plain(params, x, g)),
                     "library_ms": None, **bounds(flops, nbytes, dtype)})
@@ -381,7 +403,10 @@ def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=
     return row
 
 
-def phase_kernels(device) -> dict:
+def flagship_inputs(device):
+    """The kernels phase's seeded weights and inputs at the flagship shapes:
+    ``(params, lwi (b, n, L+1, d), levels, big (1, 2304, L, d), mask, g_ff,
+    g_lv, g_big)``."""
     gen = torch.Generator().manual_seed(0)
     c = FLAGSHIP
     n, L, d = c.num_patches, c.levels, c.dim
@@ -395,6 +420,38 @@ def phase_kernels(device) -> dict:
     g_ff = torch.randn((BATCH, n, L, d), generator=gen).to(device)
     g_lv = torch.randn((BATCH, n, L, d), generator=gen).to(device)
     g_big = torch.randn((1, 2304, L, d), generator=gen).to(device)
+    return params, lwi, levels, big, mask, g_ff, g_lv, g_big
+
+
+def k2_rows(cast, x, g, dtype):
+    """K2's rows in ``dtype``: the main path's two (the bottom-up strided
+    view, g=6, and the top-down input, g=5), then b=1 (256 rows) and 49 rows
+    (off the 32-row tile), both as strided views."""
+    rows = ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
+                       "bottom_up (strided view, g=6)", ("grouped_ff_dx",))
+    pos = cast["pos_emb"][None, :, None, :]
+    rows += ff_bwd_case(cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
+                        g[..., 1:, :].contiguous(), dtype, "top_down (g=5)", ("grouped_ff_dx",))
+    rows += ff_bwd_case(cast["bottom_up"], x[:1, :, :-1, :], g[:1], dtype,
+                        "bottom_up b=1 (strided view, g=6)", ("grouped_ff_dx",))
+    rows += ff_bwd_case(cast["bottom_up"], x[:1, :49, :-1, :], g[:1, :49].contiguous(), dtype,
+                        "bottom_up 49 rows (strided view, g=6)", ("grouped_ff_dx",))
+    return rows
+
+
+def phase_k2(device) -> None:
+    """K2 alone (``--only k2``): its rows in float32 and bfloat16, for
+    timing a K2 variant without the rest of the kernels phase."""
+    params, lwi, *_, g_ff, _, _ = flagship_inputs(device)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cast = glom_model.tree_map(lambda p: p.to(dtype), params)
+        rows += k2_rows(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
+    emit({"phase": "k2", "kernel": "grouped_ff_dx", "rows": rows})
+
+
+def phase_kernels(device) -> dict:
+    params, lwi, levels, big, mask, g_ff, g_lv, g_big = flagship_inputs(device)
     ff_rows, cons_rows, bwd_rows, fused_rows = [], [], [], []
     ff_kernel.grouped_ff.launches = 0
     consensus_kernel.consensus_attention.launches = 0
@@ -412,10 +469,12 @@ def phase_kernels(device) -> dict:
         cons_rows.append(consensus_case(big.to(dtype), dtype, "n=2304 (384/8), b=1", library=True))
         cons_rows.append(consensus_case(lv[:1], dtype, "b=1"))
         g = g_ff.to(dtype)
+        bwd_rows += k2_rows(cast, x, g, dtype)
         bwd_rows += ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
-                                "bottom_up (strided view, g=6)")
+                                "bottom_up (strided view, g=6)", ("grouped_ff_dw",))
         bwd_rows += ff_bwd_case(cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
-                                g[..., 1:, :].contiguous(), dtype, "top_down (g=5)")
+                                g[..., 1:, :].contiguous(), dtype, "top_down (g=5)",
+                                ("grouped_ff_dw",))
         gl = g_lv.to(dtype)
         bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=False")
         bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=True", attend_self=True)
@@ -474,7 +533,7 @@ def phase_serve(device) -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     t0 = time.perf_counter()
     make_demo_checkpoint(ckpt, config=c, seed=0)
-    engine = ServingEngine(ckpt, device=device)
+    engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas")
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     shape = (c.channels, c.image_size, c.image_size)
@@ -610,7 +669,9 @@ def phase_serve_fused(device) -> dict:
     phase: counts set to 0 just before the requests, read just after)."""
     c = FLAGSHIP
     ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")   # phase_serve wrote it
-    engine = ServingEngine(ckpt, device=device, ff_impl="fused")
+    if ckpt_lib.latest_step(ckpt) is None:   # run alone (--only serve_fused)
+        make_demo_checkpoint(ckpt, config=c, seed=0)
+    engine = ServingEngine(ckpt, device=device, ff_impl="fused", attention_impl="pallas")
     rng = np.random.default_rng(2)
     shape = (c.channels, c.image_size, c.image_size)
     imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 8)}
@@ -629,7 +690,7 @@ def phase_serve_fused(device) -> dict:
     # the k=8 /embed answer against the plain path and the "pallas" engine's
     plain_cfg = GlomConfig(**{**engine.config.to_json_dict(),
                               "ff_impl": "dense", "attention_impl": "dense"})
-    pallas_engine = ServingEngine(ckpt, device=device)
+    pallas_engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas")
     x8 = torch.from_numpy(imgs[8]).to(device)
     with torch.inference_mode():
         plain = glom_model.apply(engine.params["glom"], x8, config=plain_cfg,
@@ -709,12 +770,17 @@ def phase_train(device) -> dict:
     if per_step != want:
         raise AssertionError(f"train-step launches per step {per_step}, expected {want}")
     _, plain_log = fit_run(plain_cfg, device, img)
+    # the yardstick, timed and not asserted: K1 forward with the plain
+    # (cuBLAS, full float32) VJP behind it instead of K2 + K3
+    vjp_cfg = GlomConfig(**{**c.to_json_dict(), "ff_fused_bwd": False})
+    _, vjp_log = fit_run(vjp_cfg, device, img)
 
     losses = [r["loss"] for r in kern_log if "loss" in r]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses not finite and falling: {losses}")
 
-    ms = {"kernels": log_step_ms(kern_log), "plain": log_step_ms(plain_log)}
+    ms = {"kernels": log_step_ms(kern_log), "plain": log_step_ms(plain_log),
+          "kernels_plain_ff_vjp": log_step_ms(vjp_log)}
 
     # one step's gradients, kernels against the plain path, same params and noise
     params = kern.state.params
@@ -738,7 +804,9 @@ def phase_train(device) -> dict:
           "steps": TRAIN_STEPS, "losses": losses,
           "plain_losses": [r["loss"] for r in plain_log if "loss" in r],
           "step_ms": ms, "images_per_s": {k: 1e3 * BATCH / v for k, v in ms.items()},
-          "step_ms_note": "median over steps 2..10 of one-step host-clock windows",
+          "step_ms_note": "median over steps 2..10 of one-step host-clock windows; "
+                          "kernels_plain_ff_vjp: ff_fused_bwd=False (K1 forward, the plain "
+                          "float32 VJP of the grouped FF), timed only",
           "launches": launches, "launches_per_step": per_step,
           "grad_vs_plain": grad,
           "bitwise_repeat": bitwise})
@@ -840,8 +908,8 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
               "dim", "levels", "image_size", "patch_size", "ff_impl", "ff_fused_bwd",
               "attention_impl")}, "batch": BATCH, "iters": c.default_iters, "loss_timestep": t},
           "steps": FUSED_TRAIN_STEPS, "losses": losses,
-          "step_ms": {"fused": ms, "pallas_kernels": pallas_step_ms["kernels"],
-                      "plain": pallas_step_ms["plain"]},
+          "step_ms": {"fused": ms, **({} if pallas_step_ms is None else {
+              "pallas_kernels": pallas_step_ms["kernels"], "plain": pallas_step_ms["plain"]})},
           "images_per_s": 1e3 * BATCH / ms,
           "step_ms_note": "median over the steps after the first of one-step host-clock windows",
           "launches": launches, "launches_per_step": per_step, "grad_vs_plain": grad,
@@ -853,7 +921,7 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
 
 def serve_trained(ckpt, device, trainer) -> None:
     """The checkpoint the trainer saved, served over HTTP on /embed."""
-    engine = ServingEngine(ckpt, device=device)
+    engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas")
     c = engine.config
     imgs = np.random.default_rng(1).standard_normal(
         (2, c.channels, c.image_size, c.image_size)).astype(np.float32)
@@ -871,7 +939,49 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-def main() -> int:
+PHASES = ("kernels", "k2", "serve", "train", "serve_fused", "train_fused")
+
+
+def parse_args(argv):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Drive glom_tpu_torch on one NVIDIA GPU.")
+    p.add_argument("--only", default=None,
+                   help="comma-separated phases to run after device and build, for "
+                        f"iterating on one part: {', '.join(PHASES)} (k2: K2's rows alone). "
+                        "A partial run exits 3 and prints no ok line")
+    args = p.parse_args(argv)
+    if args.only is not None:
+        args.only = [name for name in args.only.split(",") if name]
+        unknown = sorted(set(args.only) - set(PHASES))
+        if unknown or not args.only:
+            p.error(f"--only takes phases among {PHASES}, got {args.only}")
+    return args
+
+
+def run_only(device, names) -> int:
+    """Device, build and the named phases only; never the ok line."""
+    pallas_step_ms = None
+    for name in names:
+        if name == "kernels":
+            phase_kernels(device)
+        elif name == "k2":
+            phase_k2(device)
+        elif name == "serve":
+            phase_serve(device)
+        elif name == "train":
+            _, pallas_step_ms = phase_train(device)
+        elif name == "serve_fused":
+            phase_serve_fused(device)
+        elif name == "train_fused":
+            phase_train_fused(device, pallas_step_ms)
+    print(nvidia_smi(), flush=True)
+    emit({"partial_run": names, "note": "--only: a partial run, not the smoke test; exit 3"})
+    return 3
+
+
+def main(argv=()) -> int:
+    args = parse_args(list(argv))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -884,6 +994,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "tf32": {"matmul": False, "cudnn": False}})
     phase_build()
+    if args.only is not None:
+        return run_only(device, args.only)
     main_rows, library = phase_kernels(device)
     launches = phase_serve(device)
     train_launches, pallas_step_ms = phase_train(device)
@@ -944,4 +1056,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -68,6 +68,12 @@ def _rows_aligned(levels: torch.Tensor) -> bool:
         s % per_vector == 0 for s, size in zip(levels.stride()[:3], levels.shape[:3]) if size > 1)
 
 
+def _fresh_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into new contiguous storage (``contiguous()`` would hand
+    back a contiguous tensor that starts off a boundary as it is)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
 def _check(levels: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
@@ -95,9 +101,10 @@ def _forward(levels, attend_self, non_local_mask, splits):
             levels, attend_self=attend_self, non_local_mask=non_local_mask)
     _check(levels, non_local_mask)
     if not _rows_aligned(levels):
-        raise ValueError(
-            "the consensus kernel copies rows in 16-byte vectors: levels must start on a 16-byte "
-            f"boundary and every row lie on one (strides {levels.stride()})")
+        # the kernel copies rows in 16-byte vectors; a fresh contiguous copy
+        # starts on the allocator's boundary and, with d % 128 == 0, so does
+        # every row
+        levels = _fresh_copy(levels)
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     lse = torch.empty((b, L, n, 1), dtype=torch.float32, device=levels.device)

@@ -83,6 +83,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Wait until at most N of the groups committed are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // c += a @ b for one m16n8k16 tile on the tensor cores: bf16 inputs, f32
 // accumulators.  Each register holds two bf16, the lower column (of a) or
 // row (of b) in its low half: a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],

@@ -17,33 +17,71 @@
 // 2048 rows, 6 groups) dX does 6*d*h FLOPs a row and group (pre, dO W2^T,
 // dH W1^T) and dW 8 (pre, dO W2^T, X^T dH, gelu^T dO): 77 and 103 GFLOP on
 // ~25 MB of inputs.  The plain PyTorch version writes and reads the (rows,
-// g, h) hidden and its gradient through device memory.
+// g, h) hidden and its gradient through device memory.  Both kernels run
+// their products on the tensor cores, mma.sync m16n8k8 with tf32 operands
+// and f32 accumulators: an f32 operand is split into tf32 parts, v = hi +
+// lo, and a product takes three passes, lo*hi + hi*lo + hi*hi (3xTF32), so
+// an f32 call keeps f32 accuracy; an operand that came from bf16 is exact in
+// tf32 and skips its pass.  A kernel is then bound by the tensor cores' rate
+// at three passes (0.47 ms for dX at flagship) and by the instructions
+// around each mma, fragment loads and splits, which issue from the same
+// schedulers.  The hidden never leaves the chip: each block recomputes pre
+// and dO W2^T for its tile, as the TPU kernels do.
 //
-// What the design does about it:
-//  * the products run on the tensor cores through tile_mma.cuh (mma.sync,
-//    3xTF32 for f32 operands, one pass for operands that came from bf16);
-//  * the hidden never leaves the chip: each block recomputes pre and
-//    dO W2^T for its tile in shared memory, as the TPU kernels do;
-//  * K2: a block owns 32 rows of one group and walks the whole hidden in
-//    chunks of 16.  Its x and dO tiles (f32) stay in shared memory; each
-//    chunk's w1 columns and w2 rows are loaded, pre and dO W2^T computed
-//    (one 16 x 8 tile a warp, four mma chains each), dH formed, and
-//    dH W1^T added into a (32, d) accumulator in the 8 warps' registers.
-//    The sum over the hidden stays in one block: no workspace, no atomics;
-//  * K3: a block owns 32 hidden units of one group and walks every row in
-//    tiles of 16, with its w1 columns and w2 rows resident in shared memory
-//    and dW1 (d, 32) and dW2 (32, d) accumulated in registers.  The sum
-//    over the rows stays in one block, in a fixed order, so two runs give
-//    the same bits;
-//  * a 32-row f32 x + dO pair is 132 KB at d=512, so a block takes about
-//    217 KB of shared memory and one block runs on an SM.  wgmma, TMA and
-//    overlapping the chunk loads with the products are later work.
+// K2 (dX).  Its previous design walked the hidden in chunks of 16 with four
+// barriers and synchronous weight loads a chunk, one 16 x 8 tile a warp for
+// the recompute (a split A and B fragment for three mma), and every warp
+// split the same dH values again: 2.6 ms at flagship.  Measured on the H100
+// by removing parts of the kernel one at a time (PERF.md, Findings), a
+// block's time is nearly the SUM of its mma, its weight copies, its splits
+// and its shared-memory fragment reads: with one block an SM and a barrier
+// a slab they do not overlap, and more warps or a deeper ring did not make
+// them.  So the design spends fewer of each per mma:
+//  * a block owns 32 rows of one group (x and dO tiles f32 in shared
+//    memory, loaded once) and walks the hidden in chunks of 256;
+//  * phase 1 of a chunk streams w1[k slab, chunk] and w2[chunk, k slab],
+//    16 rows of d a slab, through a two-stage cp.async ring with one
+//    barrier a slab.  Each warp owns all 32 rows x 32 hidden columns for
+//    pre AND dO W2^T (2 x 4 tiles: a split A fragment serves four n-tiles,
+//    a split B fragment two m-tiles: 48 mma for 32 split values and 4 KB
+//    of fragment reads), the three passes into one accumulator a tile;
+//  * dH = (dO W2^T) * gelu'(pre + b1) forms in the registers of the warp
+//    that computed both and goes to shared memory in f32;
+//  * phase 2 streams w1[:, j slab], 16 hidden units a slab, through the same
+//    ring; each warp splits dH's fragments for its k-steps and adds dH w1^T
+//    into its 32 rows x d/8 columns of a (32, d) f32 accumulator held in
+//    registers (2 x d/64 tiles: a split B fragment serves two m-tiles).
+//    Each slab's product is formed in a zeroed fragment and added with an
+//    f32 add (tile_mma.cuh: the tensor cores' own accumulation rounds
+//    toward zero);
+//  * every slab row is 64 or 512 bytes of one weight row, copied by fully
+//    unrolled loops of 16-byte cp.async, and stored unpadded with its
+//    16-byte chunks XOR-permuted by row (a swizzle) so that fragment loads
+//    hit distinct banks; fragments come by ldmatrix wherever the operand
+//    is stored along the depth (x, dO, dH, w2, phase 2's w1);
+//  * shared memory: x and dO 2 x 32 x (d+4) f32 (132 KB at d=512; 64 rows
+//    would need 264 KB, more than a block may have), dH 32 x 260 f32
+//    (33 KB) and two 32 KB ring stages: 230,912 bytes at d=512, one block
+//    an SM;
+//  * one block an SM makes a call's time whole waves of blocks: 320 row
+//    tiles (g=5 at b=8) take three waves like 384, and 48 (b=1) leave most
+//    SMs idle.  So glom_grouped_ff_bwd_dx_splits picks how many blocks share
+//    a tile's chunks (the fewest waves x chunks a block, K1's rule): with
+//    more than one, each writes its partial sum to an f32 workspace and a
+//    second kernel adds the partials in a fixed order.  Every sum stays in
+//    a fixed order, no atomics: two calls give the same bits.
+// K3 (dW): a block owns 32 hidden units of one group and walks every row in
+// tiles of 16, with its w1 columns and w2 rows resident in shared memory
+// and dW1 (d, 32) and dW2 (32, d) accumulated in registers (tile_mma.cuh);
+// the sum over the rows stays in one block, in a fixed order.  About 217 KB
+// of shared memory at d=512, one block an SM.  Its redesign is later work.
 //
 // Layout: x is read through a row stride and a group stride (elements; the
 // last dimension contiguous), so the bottom-up input, a strided view of the
 // (b, n, L+1, d) state, needs no copy.  dO, w1 (g, d, h), b1 (g, h),
-// w2 (g, h, d) and the outputs are contiguous.  d must be a multiple of 128,
-// at most 512; h a multiple of 32.
+// w2 (g, h, d) and the outputs are contiguous; K2 copies w1 and w2 with
+// cp.async, so they start on a 16-byte boundary.  d must be a multiple of
+// 128, at most 512; h a multiple of 32.
 
 #include <type_traits>
 
@@ -52,22 +90,49 @@
 
 namespace {
 
-constexpr int THREADS = 256;   // 8 warps
+constexpr int THREADS = 256;   // 8 warps (K3)
+constexpr int WARPS2 = 8;
+constexpr int THREADS2 = 32 * WARPS2;
+constexpr int NST = 2;         // stages of K2's weight ring (two 32 KB slabs)
 constexpr int BM2 = 32;        // dX: rows per block
-constexpr int HC2 = 16;        // dX: hidden units per chunk
+constexpr int HC2 = 256;       // dX: hidden units per chunk
+constexpr int KS2 = 16;        // dX, phase 1: rows of d per weight slab
+constexpr int JS2 = 16;        // dX, phase 2: hidden units per weight slab
 constexpr int BM3 = 16;        // dW: rows per step
 constexpr int HC3 = 32;        // dW: hidden units per block
 
-// Row strides (floats) of the shared tiles, padded so the fragment loads
-// of the long products hit distinct banks.
-template <int D>
+// K2's shared memory.  The weight slabs are stored without padding in f32,
+// their 16-byte chunks permuted by an XOR of the row (a "swizzle") so that
+// every fragment load of a warp still hits distinct banks and two 32 KB
+// stages fit beside the x, dO and dH tiles.  bf16 slabs are padded instead
+// (their loads are scalar).  Offsets are in elements of T.
+template <typename T, int D>
 struct DxLayout {
-  static constexpr int kRow = D + 4;     // x and dO tiles (BM2, D)
-  static constexpr int kW1 = HC2 + 8;    // w1 chunk (D, HC2)
-  static constexpr int kW2 = D + 4;      // w2 chunk (HC2, D)
-  static constexpr int kT = HC2 + 4;     // pre, then dH; and dO W2^T (BM2, HC2)
+  static constexpr bool kSwizzle = std::is_same<T, float>::value;
+  static constexpr int kRow = D + 4;     // x and dO tiles (BM2, D), f32
+  static constexpr int kH = HC2 + 4;     // dH (BM2, HC2), f32
+  static constexpr int kW1P = kSwizzle ? HC2 : HC2 + 8;   // phase 1: w1[k slab, chunk]  (KS2, HC2)
+  static constexpr int kW2P = kSwizzle ? KS2 : KS2 + 8;   // phase 1: w2[chunk, k slab]  (HC2, KS2)
+  static constexpr int kW1Q = kSwizzle ? JS2 : JS2 + 8;   // phase 2: w1[:, j slab]      (D, JS2)
+  static constexpr int kStage1 = KS2 * kW1P + HC2 * kW2P;
+  static constexpr int kStage2 = D * kW1Q;
+  static constexpr int kStage = kStage1 > kStage2 ? kStage1 : kStage2;
   static constexpr size_t kBytes =
-      sizeof(float) * (2 * BM2 * kRow + D * kW1 + HC2 * kW2 + 2 * BM2 * kT + HC2);
+      sizeof(float) * (2 * BM2 * kRow + BM2 * kH) + sizeof(T) * NST * kStage;
+
+  // element (k, n) of phase 1's w1 part: rows k + 0..3 XOR the column's
+  // 8-groups, so the four rows a B fragment reads land in distinct banks
+  __device__ static int w1p(int k, int n) { return k * kW1P + (kSwizzle ? n ^ ((k & 3) << 3) : n); }
+  // element (n, k) of phase 1's w2 part (rows of 4 chunks of 4): chunk
+  // k / 4 of row n XOR (n / 2) % 4
+  __device__ static int w2p(int n, int k) {
+    return n * kW2P + (kSwizzle ? ((((k >> 2) ^ ((n >> 1) & 3)) << 2) | (k & 3)) : k);
+  }
+  // element (n, j) of phase 2's w1 slab (rows of 4 chunks of 4): chunk j / 4
+  // of row n XOR (n / 2) % 4
+  __device__ static int w1q(int n, int j) {
+    return n * kW1Q + (kSwizzle ? ((((j >> 2) ^ ((n >> 1) & 3)) << 2) | (j & 3)) : j);
+  }
 };
 
 template <int D>
@@ -87,87 +152,347 @@ __device__ __forceinline__ void gelu_and_grad(float z, float& g, float& dg) {
   dg = cdf + z * pdf;
 }
 
-// Grid (row tiles, groups).
+// Fragment loads from shared memory by ldmatrix (common.cuh): on 32-bit
+// data each of the four 8 x 8 b16 matrices is 8 rows of 4 floats, and lane
+// l receives element (l / 4, l % 4) of each.
+//
+// The A fragment (rows [r0, r0 + 16), depth [k, k + 8)) of a row-major f32
+// tile: {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}.  Rows 16-byte aligned.
+__device__ __forceinline__ void ldm_a(uint32_t (&r)[4], const float* tile, int stride, int r0,
+                                      int k) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  glom::ldmatrix_x4(r, tile + (r0 + (lane & 7) + (m & 1) * 8) * stride + k + (m >> 1) * 4);
+}
+
+// The B fragments of two n8 tiles (columns [n0, n0 + 16), depth [k, k + 8))
+// of an operand stored n-major, B(k, n) = tile[addr(n, k)], each 4-element
+// chunk of a row contiguous and 16-byte aligned: {b0, b1} of the first tile
+// in r[0], r[1], of the second in r[2], r[3].
+template <class Addr>
+__device__ __forceinline__ void ldm_b2(uint32_t (&r)[4], const float* tile, Addr addr, int n0,
+                                       int k) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  glom::ldmatrix_x4(r, tile + addr(n0 + (lane & 7) + (m >> 1) * 8, k + (m & 1) * 4));
+}
+
+// K2's weight stream.  For each hidden chunk of HC2 units from the block's
+// first chunk cb (the hidden's last chunk may be shorter, a multiple of
+// 32): D / KS2 phase-1 slabs, w1[k0 : k0+KS2, chunk] and w2[chunk, k0 :
+// k0+KS2], then chunk / JS2 phase-2 slabs, w1[:, j0 : j0+JS2].  Step s of the
+// stream: its chunk start c0, width hc and index j within the chunk.
+template <int D>
+__device__ __forceinline__ void dx_step(int s, int cb, int hidden, int& c0, int& hc, int& j) {
+  constexpr int SPC = D / KS2 + HC2 / JS2;
+  const int c = min(cb + s / SPC, hidden / HC2);
+  c0 = c * HC2;
+  j = s - (c - cb) * SPC;
+  hc = min(HC2, hidden - c0);
+}
+
+// Start the copy of step s's slab into its ring stage.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__device__ __forceinline__ void dx_issue(int s, int cb, T* ring, const T* w1g, const T* w2g,
+                                         int hidden, int tid) {
+  using S = DxLayout<T, D>;
+  constexpr int N1 = D / KS2;
+  constexpr int E = 16 / sizeof(T);   // elements a 16-byte copy moves
+  int c0, hc, j;
+  dx_step<D>(s, cb, hidden, c0, hc, j);
+  T* dst = ring + (s % NST) * S::kStage;
+  if (j < N1) {
+    const int k0 = j * KS2;
+    constexpr int PR1 = HC2 / E, PR2 = KS2 / E;   // 16-byte pieces a row
+#pragma unroll
+    for (int u = 0; u < (KS2 * PR1 + THREADS2 - 1) / THREADS2; ++u) {
+      const int i = tid + u * THREADS2, r = i / PR1, q = i % PR1;
+      if (i < KS2 * PR1 && q * E < hc)
+        glom::cp_async16(dst + S::w1p(r, q * E), w1g + (long long)(k0 + r) * hidden + c0 + q * E);
+    }
+    T* dst2 = dst + KS2 * S::kW1P;
+#pragma unroll
+    for (int u = 0; u < (HC2 * PR2 + THREADS2 - 1) / THREADS2; ++u) {
+      const int i = tid + u * THREADS2, r = i / PR2, q = i % PR2;
+      if (i < HC2 * PR2 && r < hc)
+        glom::cp_async16(dst2 + S::w2p(r, q * E), w2g + (long long)(c0 + r) * D + k0 + q * E);
+    }
+  } else {
+    const int j0 = c0 + (j - N1) * JS2;
+    constexpr int PR = JS2 / E;
+#pragma unroll
+    for (int u = 0; u < (D * PR + THREADS2 - 1) / THREADS2; ++u) {
+      const int i = tid + u * THREADS2, r = i / PR, q = i % PR;
+      if (i < D * PR)
+        glom::cp_async16(dst + S::w1q(r, q * E), w1g + (long long)r * hidden + j0 + q * E);
+    }
+  }
+  glom::cp_async_commit();
+}
+
+// The A fragments of MT m-tiles (rows r0 + 16 mt) at depth k: split into hi
+// and lo for f32, hi alone (exact) for values that came from bf16.
+template <bool F32, int MT>
+__device__ __forceinline__ void a_frags(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT][4],
+                                        const float* tile, int stride, int r0, int k) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t raw[4];
+    ldm_a(raw, tile, stride, r0 + 16 * mt, k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (F32) glom::split_tf32(__uint_as_float(raw[e]), hi[mt][e], lo[mt][e]);
+      else hi[mt][e] = raw[e];
+    }
+  }
+}
+
+// acc_hi[mt][nt] += a_hi b_hi, acc_lo[mt][nt] += a_lo b_hi + a_hi b_lo (the
+// lo passes only for f32), each pass issued over every tile in turn.
+template <bool F32, int MT, int NT>
+__device__ __forceinline__ void mma3(float (&acc_hi)[MT][NT][4], float (&acc_lo)[MT][NT][4],
+                                     const uint32_t (&ahi)[MT][4], const uint32_t (&alo)[MT][4],
+                                     const uint32_t (&bhi)[NT][2], const uint32_t (&blo)[NT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) glom::mma_tf32(acc_hi[mt][nt], ahi[mt], bhi[nt]);
+  if constexpr (F32) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) glom::mma_tf32(acc_lo[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) glom::mma_tf32(acc_lo[mt][nt], ahi[mt], blo[nt]);
+  }
+}
+
+// Grid (row tiles, groups, splits).  Split z covers hidden chunks
+// [z * per_split, min((z + 1) * per_split, chunks)).  With ws null the block
+// writes dx; otherwise its partial sum goes to ws[z] (rows, groups, D), f32.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS2, 1)
 ff_bwd_dx_kernel(const T* __restrict__ x, long long row_stride, long long group_stride,
                  const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ go, T* __restrict__ dx, int rows, int groups, int hidden) {
-  using S = DxLayout<D>;
-  constexpr bool kExact = !std::is_same<T, float>::value;
-  constexpr int NT = D / 64;   // n8 tiles in a warp's D/8 output columns
+                 const T* __restrict__ go, T* __restrict__ dx, float* __restrict__ ws, int rows,
+                 int groups, int hidden, int per_split) {
+  using S = DxLayout<T, D>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int N1 = D / KS2, SPC = N1 + HC2 / JS2;
+  // phase 1: each warp owns all 32 rows (MT1 m-tiles) x 32 of the chunk's
+  // 256 hidden units (NT1 n-tiles)
+  constexpr int MT1 = 2, NT1 = 4;
+  // phase 2: each warp owns all 32 rows x D / 8 columns of dX (NT2 n-tiles,
+  // an even count)
+  constexpr int NT2 = D / 64;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);   // [BM2][kRow]  x tile
   float* gs = xs + BM2 * S::kRow;                // [BM2][kRow]  dO tile
-  float* w1s = gs + BM2 * S::kRow;               // [D][kW1]     w1[:, chunk]
-  float* w2s = w1s + D * S::kW1;                 // [HC2][kW2]   w2[chunk, :]
-  float* hs = w2s + HC2 * S::kW2;                // [BM2][kT]    pre, then dH
-  float* ps = hs + BM2 * S::kT;                  // [BM2][kT]    dO W2^T
-  float* b1s = ps + BM2 * S::kT;                 // [HC2]
+  float* dhs = gs + BM2 * S::kRow;               // [BM2][kH]    dH of the chunk
+  T* ring = reinterpret_cast<T*>(dhs + BM2 * S::kH);   // NST stages of weight slabs
 
   const int g = blockIdx.y, row0 = blockIdx.x * BM2;
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const T* w1g = w1 + (long long)g * D * hidden;
   const T* w2g = w2 + (long long)g * hidden * D;
   const T* b1g = b1 + (long long)g * hidden;
+  const int full = hidden / HC2, chunks = (hidden + HC2 - 1) / HC2;
+  const int cb = blockIdx.z * per_split, ce = min(cb + per_split, chunks);
+  const int steps = (min(ce, full) - cb) * SPC + (ce > full ? N1 + (hidden - full * HC2) / JS2 : 0);
 
-  glom::load_tile<BM2, D, THREADS>(xs, S::kRow, x + g * group_stride, row_stride, row0, rows);
-  glom::load_tile<BM2, D, THREADS>(gs, S::kRow, go + (long long)g * D, (long long)groups * D,
-                                   row0, rows);
+  // the ring runs NST - 1 slabs ahead: a group is committed for every slab
+  // index, empty past the last, so wait_group counts the same everywhere
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < steps) dx_issue<T, D>(s, cb, ring, w1g, w2g, hidden, tid);
+    else glom::cp_async_commit();
+  }
+  glom::load_tile<BM2, D, THREADS2>(xs, S::kRow, x + g * group_stride, row_stride, row0, rows);
+  glom::load_tile<BM2, D, THREADS2>(gs, S::kRow, go + (long long)g * D, (long long)groups * D,
+                                    row0, rows);
 
-  // pre (warps 0-3) and dO W2^T (warps 4-7): one 16 x 8 tile a warp
-  const bool second = warp >= 4;
-  const int tm = (warp >> 1) & 1, tn = warp & 1;
-  const float* pa = (second ? gs : xs) + tm * 16 * S::kRow;
-  // B(k, j) = w1[k, j] for pre; = w2[j, k] for dO W2^T
-  const float* pb = second ? w2s + tn * 8 * S::kW2 : w1s + tn * 8;
-  const int pbr = second ? 1 : S::kW1, pbc = second ? S::kW2 : 1;
-  float* pdst = (second ? ps : hs) + tm * 16 * S::kT + tn * 8;
-  // dX: the warp's 32 rows x D/8 columns
-  const int n2 = warp * (D / 8);
-  float acc[2][NT][4];
+  const int n1 = warp * 8 * NT1, n2 = warp * (D / WARPS2);
+  float acc[2][NT2][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // pre and dO W2^T: the three passes go to one accumulator each
+  float pa[MT1][NT1][4], ga[MT1][NT1][4];
 
-  for (int c0 = 0; c0 < hidden; c0 += HC2) {
-    __syncthreads();   // every warp is done with the previous chunk (and the tiles are loaded)
-    glom::load_tile<D, HC2, THREADS>(w1s, S::kW1, w1g + c0, hidden, 0, D);
-    glom::load_tile<HC2, D, THREADS>(w2s, S::kW2, w2g + (long long)c0 * D, D, 0, HC2);
-    if (tid < HC2) b1s[tid] = glom::to_f32(b1g[c0 + tid]);
-    __syncthreads();
-    {
-      float t[1][1][4] = {{{0.f, 0.f, 0.f, 0.f}}};
-      glom::warp_mma_long<1, 1, kExact, kExact>(t, pa, S::kRow, 1, pb, pbr, pbc, D);
-      glom::store_tile(pdst, S::kT, t[0][0]);
+  for (int s = 0; s < steps; ++s) {
+    glom::cp_async_wait_group<NST - 2>();
+    __syncthreads();   // slab s has landed; every warp is done with slab s-1 (and dH is stored)
+    if (s + NST - 1 < steps) dx_issue<T, D>(s + NST - 1, cb, ring, w1g, w2g, hidden, tid);
+    else glom::cp_async_commit();
+    int c0, hc, j;
+    dx_step<D>(s, cb, hidden, c0, hc, j);
+    const T* wsl = ring + (s % NST) * S::kStage;
+    const float* wslf = reinterpret_cast<const float*>(wsl);   // f32 only
+    if (j < N1) {
+      if (j == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT1; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT1; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pa[mt][nt][e] = ga[mt][nt][e] = 0.f;
+      }
+      if (n1 < hc) {   // warp-uniform: a short last chunk leaves some warps idle here
+        const T* w1sl = wsl;                    // B(k, n) = w1sl[w1p(k, n)]
+        const T* w2sl = wsl + KS2 * S::kW1P;    // B(k, n) = w2sl[w2p(n, k)]
+#pragma unroll
+        for (int kk = 0; kk < KS2; kk += 8) {
+          const int k = j * KS2 + kk;
+          uint32_t ahi[MT1][4], alo[MT1][4], bhi[NT1][2], blo[NT1][2];
+          // pre += x W1
+          a_frags<kF32, MT1>(ahi, alo, xs, S::kRow, 0, k);
+#pragma unroll
+          for (int nt = 0; nt < NT1; ++nt) {
+            const int n = n1 + nt * 8 + gid;
+            const float bv[2] = {glom::to_f32(w1sl[S::w1p(kk + tig, n)]),
+                                 glom::to_f32(w1sl[S::w1p(kk + tig + 4, n)])};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if constexpr (kF32) glom::split_tf32(bv[e], bhi[nt][e], blo[nt][e]);
+              else bhi[nt][e] = __float_as_uint(bv[e]);
+            }
+          }
+          mma3<kF32>(pa, pa, ahi, alo, bhi, blo);
+          // dO W2^T
+          a_frags<kF32, MT1>(ahi, alo, gs, S::kRow, 0, k);
+          if constexpr (kF32) {
+#pragma unroll
+            for (int p = 0; p < NT1 / 2; ++p) {
+              uint32_t braw[4];
+              ldm_b2(braw, reinterpret_cast<const float*>(w2sl),
+                     [](int n, int k) { return S::w2p(n, k); }, n1 + 16 * p, kk);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                glom::split_tf32(__uint_as_float(braw[e]), bhi[2 * p + (e >> 1)][e & 1],
+                          blo[2 * p + (e >> 1)][e & 1]);
+            }
+          } else {
+#pragma unroll
+            for (int nt = 0; nt < NT1; ++nt) {
+              const int n = n1 + nt * 8 + gid;
+              bhi[nt][0] = __float_as_uint(glom::to_f32(w2sl[S::w2p(n, kk + tig)]));
+              bhi[nt][1] = __float_as_uint(glom::to_f32(w2sl[S::w2p(n, kk + tig + 4)]));
+            }
+          }
+          mma3<kF32>(ga, ga, ahi, alo, bhi, blo);
+        }
+        if (j == N1 - 1) {
+          // dH = (dO W2^T) * gelu'(pre + b1) into shared memory for phase 2
+          // (the next step's __syncthreads publishes it)
+#pragma unroll
+          for (int nt = 0; nt < NT1; ++nt) {
+            const int col = n1 + nt * 8 + 2 * tig;
+            const float bias[2] = {glom::to_f32(b1g[c0 + col]), glom::to_f32(b1g[c0 + col + 1])};
+#pragma unroll
+            for (int mt = 0; mt < MT1; ++mt)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int row = mt * 16 + gid + 8 * half;
+                float dh[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int q = 2 * half + e;
+                  float h, dg;
+                  gelu_and_grad(pa[mt][nt][q] + bias[e], h, dg);
+                  dh[e] = ga[mt][nt][q] * dg;
+                }
+                glom::store2(dhs + row * S::kH + col, dh[0], dh[1]);
+              }
+          }
+        }
+      }
+    } else {
+      // phase 2: dX += dH[:, j slab] w1[:, j slab]^T, depth JS2 = 16: each
+      // tile's product is formed in a zeroed fragment t and added to acc
+      // with an f32 add (tile_mma.cuh: the tensor cores' accumulation rounds
+      // toward zero, which would bias a sum over the whole hidden)
+      constexpr int K8 = JS2 / 8;
+      const int kq = (j - N1) * JS2;
+      uint32_t ahi[K8][2][4], alo[K8][2][4];
+#pragma unroll
+      for (int k = 0; k < K8; ++k)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {   // dH, split here
+          uint32_t raw[4];
+          ldm_a(raw, dhs, S::kH, mt * 16, kq + 8 * k);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) glom::split_tf32(__uint_as_float(raw[e]), ahi[k][mt][e], alo[k][mt][e]);
+        }
+#pragma unroll
+      for (int nt0 = 0; nt0 < NT2; nt0 += 2) {   // two n-tiles at a time
+        uint32_t bhi[K8][2][2], blo[K8][2][2];
+#pragma unroll
+        for (int k = 0; k < K8; ++k) {
+          if constexpr (kF32) {
+            uint32_t braw[4];
+            ldm_b2(braw, wslf, [](int n, int jj) { return S::w1q(n, jj); }, n2 + nt0 * 8, 8 * k);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              glom::split_tf32(__uint_as_float(braw[e]), bhi[k][e >> 1][e & 1], blo[k][e >> 1][e & 1]);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int n = n2 + (nt0 + u) * 8 + gid;
+              bhi[k][u][0] = __float_as_uint(glom::to_f32(wsl[S::w1q(n, 8 * k + tig)]));
+              bhi[k][u][1] = __float_as_uint(glom::to_f32(wsl[S::w1q(n, 8 * k + tig + 4)]));
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int k = 0; k < K8; ++k) {
+              glom::mma_tf32(t, alo[k][mt], bhi[k][u]);
+              if constexpr (kF32) glom::mma_tf32(t, ahi[k][mt], blo[k][u]);
+              glom::mma_tf32(t, ahi[k][mt], bhi[k][u]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt0 + u][e] += t[e];
+          }
+      }
     }
-    __syncthreads();
-    for (int i = tid; i < BM2 * HC2; i += THREADS) {
-      const int r = i / HC2, j = i - r * HC2;
-      float h, dg;
-      gelu_and_grad(hs[r * S::kT + j] + b1s[j], h, dg);
-      hs[r * S::kT + j] = ps[r * S::kT + j] * dg;   // dH
-    }
-    __syncthreads();
-    // dX += dH @ w1[:, chunk]^T: B(j, col) = w1s[col * kW1 + j]
-    glom::warp_mma<2, NT, HC2, false, kExact>(acc, hs, S::kT, 1, w1s + n2 * S::kW1, 1, S::kW1);
   }
 
-  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + mt * 16 + gid + 8 * half;
       if (row >= rows) continue;
-      T* o = dx + ((long long)row * groups + g) * D + n2 + 2 * tig;
+      const long long o = ((long long)row * groups + g) * D + n2 + 2 * tig;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        glom::store2(o + nt * 8, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      for (int nt = 0; nt < NT2; ++nt) {
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        if (ws == nullptr) glom::store2(dx + o + nt * 8, v0, v1);
+        else glom::store2(ws + (long long)blockIdx.z * rows * groups * D + o + nt * 8, v0, v1);
+      }
     }
+}
+
+// dx[i] = sum_z ws[z][i], four elements a thread, the splits in order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+dx_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dx, long long total, int splits) {
+  const long long i = 4 * ((long long)blockIdx.x * THREADS + threadIdx.x);
+  if (i >= total) return;
+  float4 s = *reinterpret_cast<const float4*>(ws + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = *reinterpret_cast<const float4*>(ws + (long long)z * total + i);
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+  glom::store2(dx + i, s.x, s.y);
+  glom::store2(dx + i + 2, s.z, s.w);
 }
 
 // Grid (hidden / HC3, groups).
@@ -280,17 +605,50 @@ ff_bwd_dw_kernel(const T* __restrict__ x, long long row_stride, long long group_
 
 template <typename T, int D>
 cudaError_t launch_dx(const void* x, long long row_stride, long long group_stride, const void* w1,
-                      const void* b1, const void* w2, const void* go, void* dx, int rows,
-                      int groups, int hidden, cudaStream_t stream) {
-  const size_t smem = DxLayout<D>::kBytes;
+                      const void* b1, const void* w2, const void* go, void* dx, void* ws,
+                      int rows, int groups, int hidden, int splits, cudaStream_t stream) {
+  const size_t smem = DxLayout<T, D>::kBytes;
   cudaError_t err = glom::allow_smem(ff_bwd_dx_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((rows + BM2 - 1) / BM2, groups);
-  ff_bwd_dx_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  const int chunks = (hidden + HC2 - 1) / HC2;
+  const int per_split = (chunks + splits - 1) / splits;
+  splits = (chunks + per_split - 1) / per_split;   // no empty split
+  float* partial = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  const dim3 grid((rows + BM2 - 1) / BM2, groups, splits);
+  ff_bwd_dx_kernel<T, D><<<grid, THREADS2, smem, stream>>>(
       static_cast<const T*>(x), row_stride, group_stride, static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2), static_cast<const T*>(go),
-      static_cast<T*>(dx), rows, groups, hidden);
+      static_cast<T*>(dx), partial, rows, groups, hidden, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return err;
+  const long long total = (long long)rows * groups * D;
+  const long long blocks = (total / 4 + THREADS - 1) / THREADS;
+  dx_reduce_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      partial, static_cast<T*>(dx), total, splits);
   return cudaGetLastError();
+}
+
+// How many blocks of K2 for (T, D) an SM runs at once.
+template <typename T, int D>
+int dx_blocks_per_sm() {
+  const size_t smem = DxLayout<T, D>::kBytes;
+  if (glom::allow_smem(ff_bwd_dx_kernel<T, D>, smem) != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ff_bwd_dx_kernel<T, D>, THREADS2, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <typename T>
+int dx_occupancy(int dim) {
+  switch (dim) {
+    case 128: return dx_blocks_per_sm<T, 128>();
+    case 256: return dx_blocks_per_sm<T, 256>();
+    case 384: return dx_blocks_per_sm<T, 384>();
+    case 512: return dx_blocks_per_sm<T, 512>();
+    default: return -1;
+  }
 }
 
 template <typename T, int D>
@@ -310,13 +668,13 @@ cudaError_t launch_dw(const void* x, long long row_stride, long long group_strid
 
 template <typename T>
 cudaError_t dispatch_dx(int dim, const void* x, long long rs, long long gs, const void* w1,
-                        const void* b1, const void* w2, const void* go, void* dx, int rows,
-                        int groups, int hidden, cudaStream_t s) {
+                        const void* b1, const void* w2, const void* go, void* dx, void* ws,
+                        int rows, int groups, int hidden, int splits, cudaStream_t s) {
   switch (dim) {
-    case 128: return launch_dx<T, 128>(x, rs, gs, w1, b1, w2, go, dx, rows, groups, hidden, s);
-    case 256: return launch_dx<T, 256>(x, rs, gs, w1, b1, w2, go, dx, rows, groups, hidden, s);
-    case 384: return launch_dx<T, 384>(x, rs, gs, w1, b1, w2, go, dx, rows, groups, hidden, s);
-    case 512: return launch_dx<T, 512>(x, rs, gs, w1, b1, w2, go, dx, rows, groups, hidden, s);
+    case 128: return launch_dx<T, 128>(x, rs, gs, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
+    case 256: return launch_dx<T, 256>(x, rs, gs, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
+    case 384: return launch_dx<T, 384>(x, rs, gs, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
+    case 512: return launch_dx<T, 512>(x, rs, gs, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,20 +699,52 @@ bool valid(int rows, int groups, int dim, int hidden) {
 
 }  // namespace
 
+// How many blocks should share a row tile's hidden dimension in K2: the
+// count that runs the call's (row tile, split) blocks on the current
+// device's SMs in the fewest chunk-times (waves x chunks a block), the
+// fewest splits on a tie.  With more than one, the caller passes an f32
+// workspace of splits * rows * groups * dim.  -1 on bad arguments or a CUDA
+// error.
+extern "C" int glom_grouped_ff_bwd_dx_splits(int rows, int groups, int dim, int hidden, int dtype) {
+  if (!valid(rows, groups, dim, hidden)) return -1;
+  const int per_sm = dtype == glom::kF32 ? dx_occupancy<float>(dim)
+                     : dtype == glom::kBF16 ? dx_occupancy<__nv_bfloat16>(dim) : -1;
+  int device = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  const long long slots = (long long)sms * per_sm;
+  const long long tiles = (long long)((rows + BM2 - 1) / BM2) * groups;
+  const int chunks = (hidden + HC2 - 1) / HC2;
+  int best = 1;
+  long long best_cost = -1;
+  for (int per_split = chunks; per_split >= 1; --per_split) {
+    const int splits = (chunks + per_split - 1) / per_split;
+    const long long cost = (tiles * splits + slots - 1) / slots * per_split;
+    if (best_cost < 0 || cost < best_cost) best = splits, best_cost = cost;
+  }
+  return best;
+}
+
 // K2.  x: (rows, groups, dim) read through row_stride / group_stride
 // (elements); w1 (groups, dim, hidden), b1 (groups, hidden), w2 (groups,
 // hidden, dim), go = dO and dx (rows, groups, dim): contiguous, all of one
-// dtype.  Returns the launch's cudaError_t.
+// dtype; w1 and w2 16-byte aligned.  ws: with splits > 1, an f32 workspace
+// of splits * rows * groups * dim, 16-byte aligned; unused with one split.
+// Returns the launches' cudaError_t.
 extern "C" int glom_grouped_ff_bwd_dx(const void* x, long long row_stride, long long group_stride,
                                       const void* w1, const void* b1, const void* w2,
-                                      const void* go, void* dx, int rows, int groups, int dim,
-                                      int hidden, int dtype, void* stream) {
-  if (!valid(rows, groups, dim, hidden)) return cudaErrorInvalidValue;
+                                      const void* go, void* dx, void* ws, int rows, int groups,
+                                      int dim, int hidden, int splits, int dtype, void* stream) {
+  if (!valid(rows, groups, dim, hidden) || splits < 1 || (splits > 1 && ws == nullptr) ||
+      reinterpret_cast<uintptr_t>(w1) % 16 != 0 || reinterpret_cast<uintptr_t>(w2) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == glom::kF32)
-    return dispatch_dx<float>(dim, x, row_stride, group_stride, w1, b1, w2, go, dx, rows, groups, hidden, s);
+    return dispatch_dx<float>(dim, x, row_stride, group_stride, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
   if (dtype == glom::kBF16)
-    return dispatch_dx<__nv_bfloat16>(dim, x, row_stride, group_stride, w1, b1, w2, go, dx, rows, groups, hidden, s);
+    return dispatch_dx<__nv_bfloat16>(dim, x, row_stride, group_stride, w1, b1, w2, go, dx, ws, rows, groups, hidden, splits, s);
   return cudaErrorInvalidValue;
 }
 

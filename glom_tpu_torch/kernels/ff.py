@@ -36,9 +36,10 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, rows,
 #                 groups, dim, hidden, splits, dtype, stream): csrc/grouped_ff.cu
 _ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
-# glom_grouped_ff_bwd_dx(x, row_stride, group_stride, w1, b1, w2, go, dx, rows,
-#                        groups, dim, hidden, dtype, stream): csrc/grouped_ff_bwd.cu
-_DX_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
+# glom_grouped_ff_bwd_dx(x, row_stride, group_stride, w1, b1, w2, go, dx, ws,
+#                        rows, groups, dim, hidden, splits, dtype, stream):
+#                        csrc/grouped_ff_bwd.cu
+_DX_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
 # glom_grouped_ff_bwd_dw(x, row_stride, group_stride, w1, b1, w2, go, dw1, db1,
 #                        dw2, rows, groups, dim, hidden, dtype, stream)
 _DW_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
@@ -62,6 +63,14 @@ def planned_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtyp
     with torch.cuda.device(device):
         return _build.plan("grouped_ff", "glom_grouped_ff_splits", torch.cuda.current_device(),
                            rows, g, d, h, DTYPE_CODES[dtype])
+
+
+def planned_dx_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
+    """How many blocks share a row tile's hidden dimension in K2 on
+    ``device`` (``glom_grouped_ff_bwd_dx_splits``), cached per shape."""
+    with torch.cuda.device(device):
+        return _build.plan("grouped_ff_bwd", "glom_grouped_ff_bwd_dx_splits",
+                           torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
 
 
 def _check(params: dict, x: torch.Tensor):
@@ -150,9 +159,15 @@ def _cotangent(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return go if vector_aligned(go) else go.clone()
 
 
-def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
+                  splits: Optional[int] = None) -> torch.Tensor:
     """K2: ``dX = [(dO W2^T) * gelu'(x W1 + b1)] W1^T``, ``(b, n, g, d)`` in
-    ``x``'s type; ``g`` is dO.  ``x`` is read through its strides."""
+    ``x``'s type; ``g`` is dO.  ``x`` is read through its strides.
+
+    ``splits``: how many blocks share a row tile's hidden dimension
+    (default: :func:`planned_dx_splits`); with more than one their partial
+    sums go through an f32 workspace, added in a fixed order by a second
+    kernel, and the call still counts as one launch."""
     if not on_device("grouped_ff_dx", x):
         return plain.grouped_ff_dx(params, x, g)
     _check_bwd(params, x)
@@ -162,12 +177,19 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     dx = torch.empty((b, n, gr, d), dtype=x.dtype, device=x.device)
     if b * n == 0:
         return dx
+    if splits is None:
+        splits = planned_dx_splits(x.device, b * n, gr, d, h, x.dtype)
+    elif splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    ws = (torch.empty((splits, b * n * gr * d), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     fn, _ = _bwd_kernels()
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), _row_stride(x), x.stride(2),
             params["w1"].data_ptr(), params["b1"].data_ptr(), params["w2"].data_ptr(),
-            go.data_ptr(), dx.data_ptr(), b * n, gr, d, h, DTYPE_CODES[x.dtype],
+            go.data_ptr(), dx.data_ptr(), None if ws is None else ws.data_ptr(),
+            b * n, gr, d, h, splits, DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("grouped_ff_bwd", code)

@@ -13,9 +13,10 @@ callers' futures.
   after it would not change the answer.
 
 The engine loads the newest checkpoint of a directory written by either
-package and serves it with the hand-written CUDA kernels
-(``ff_impl`` / ``attention_impl`` ``"pallas"``, the default, overriding
-what the checkpoint recorded; the weights are the same either way).
+package and serves it with the kernel choice the checkpoint recorded
+(``ff_impl`` / ``attention_impl``), as ``glom_tpu``'s engine does; an
+explicit ``ff_impl`` or ``attention_impl`` overrides it (the weights are the
+same either way), and ``"pallas"`` picks the hand-written CUDA kernels.
 ``ff_impl="fused"`` serves each iteration as one launch of the fused
 level-update kernel where the model's shape allows it
 (``models/glom.py::fused_update_supported``), and falls back to the
@@ -117,8 +118,8 @@ class ServingEngine:
         max_wait_ms: float = 5.0,
         max_queue: int = 64,
         device=None,
-        ff_impl: str = "pallas",
-        attention_impl: str = "pallas",
+        ff_impl: Optional[str] = None,
+        attention_impl: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.checkpoint_dir = checkpoint_dir
@@ -132,8 +133,10 @@ class ServingEngine:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
         step, config, self.train_cfg, params = denoise.load_checkpoint_state(
             checkpoint_dir, device=self.device)
-        self.config = dataclasses.replace(
-            config, ff_impl=ff_impl, attention_impl=attention_impl)
+        # None keeps the checkpoint's choice; a value overrides it
+        overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
+                     if v is not None}
+        self.config = dataclasses.replace(config, **overrides)
         self.step = step
         dt = self.config.resolved_compute_dtype
         self.params = glom_model.tree_map(lambda p: p.to(dt), params)

@@ -183,8 +183,9 @@ def main(argv=None) -> int:
     p.add_argument("--max-queue", type=int, default=64)
     p.add_argument("--iters", type=int, default=None,
                    help="GLOM iterations (default: the model's)")
-    p.add_argument("--ff-impl", default="pallas", choices=["dense", "pallas", "fused"],
-                   help="dense: plain ops; pallas: the grouped-FF kernel; fused: the "
+    p.add_argument("--ff-impl", default=None, choices=["dense", "pallas", "fused"],
+                   help="override the checkpoint config's choice (default: keep it). "
+                        "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
                         "single-launch level update (consensus + both FFs in one kernel, "
                         "falling back to pallas when the model's shape rules it out)")
     p.add_argument("--verbose", action="store_true", help="per-request access log")

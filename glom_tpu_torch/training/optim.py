@@ -16,7 +16,8 @@ matches optax's:
 The state is the port's own layout, ``{"count": int, "mu": tree, "nu":
 tree}`` with the moments in the parameters' dtype (optax's default).  It is
 saved as the checkpoint's ``opt`` tree; ``glom_tpu``'s optax state has
-another layout and does not load here.
+another layout, which ``training/trainer.py::opt_state_from_optax`` maps
+onto this one.
 """
 
 from __future__ import annotations

@@ -15,10 +15,14 @@ A checkpoint is the port's npz layout with its CRC sidecar
   so ``glom_tpu``'s ``load_checkpoint_state`` and the port's
   ``ServingEngine`` read it;
 * ``opt``: the port's optimizer state, ``{"count", "mu", "nu"}``
-  (``training/optim.py``).  ``glom_tpu``'s optax state has another layout:
-  resuming it raises;
+  (``training/optim.py``).  A ``glom_tpu`` checkpoint's optax state resumes
+  too when it has the shape of the chain its ``config.json`` names (adam or
+  adamw, either under ``clip_by_global_norm``, as ``glom_tpu``'s trainer
+  builds them): :func:`opt_state_from_optax` maps it;
 * ``rng``: the state of the noise generator (uint8), so a resumed run
-  draws the noise an unbroken run would.
+  draws the noise an unbroken run would.  A ``glom_tpu`` checkpoint holds a
+  JAX PRNG key instead, which has no torch counterpart: its resume warns
+  and keeps the trainer's freshly seeded generator.
 
 Not here yet, each refused by name when the config asks for it: a mesh and
 sharded saves (ROADMAP queue 1, item 6), eval (item 3), forensics,
@@ -51,6 +55,48 @@ from glom_tpu_torch.training.optim import Optimizer, tree_map2
 EVENT_RESUME = "resume"
 EVENT_PREEMPT_STOP = "preempt_stop"
 EVENT_NAN = "nan"
+
+
+def _adam_chain(node, decay_key: Optional[str]) -> Optional[dict]:
+    """The ``{count, mu, nu}`` of an adam or adamw chain's flattened optax
+    state, or None.  ``optax.adam(lr)`` is ``chain(scale_by_adam,
+    scale_by_learning_rate)`` and ``adamw`` puts ``add_decayed_weights``
+    between them; only ``scale_by_adam`` (entry 0) and, with a schedule,
+    ``scale_by_learning_rate``'s step count (entry ``decay_key``: 1 for
+    adam, 2 for adamw; None for a constant rate) hold arrays: the empty
+    states leave no key in a checkpoint."""
+    if not isinstance(node, dict):
+        return None
+    adam = node.get("0")
+    if not (isinstance(adam, dict) and set(adam) == {"count", "mu", "nu"}):
+        return None
+    if set(node) != ({"0"} if decay_key is None else {"0", decay_key}):
+        return None
+    if decay_key is not None:
+        v = node[decay_key]
+        if not isinstance(v, dict) or set(v) != {"count"} or int(np.asarray(v["count"])) != int(
+                np.asarray(adam["count"])):
+            return None
+    return adam
+
+
+def opt_state_from_optax(opt, train: dict) -> Optional[dict]:
+    """A ``glom_tpu`` checkpoint's optax state in the port's layout ``{count,
+    mu, nu}``, or None.  ``train`` is the checkpoint's ``config.json`` train
+    section; its ``weight_decay``, ``grad_clip_norm`` and ``lr_schedule``
+    name the chain ``glom_tpu/training/trainer.py`` builds from it (adam or
+    adamw, either one under ``clip_by_global_norm``, whose state is empty and
+    leaves entry 1 alone), and the state must have that chain's shape.  A
+    state of another shape, as a custom ``tx`` leaves, gives None; one of
+    the same shape (optax's adam with other b1, b2 or eps; yogi) cannot be
+    told apart, so the port's Adam constants are assumed."""
+    sched = train.get("lr_schedule", "constant") != "constant"
+    decay_key = ("2" if train.get("weight_decay") else "1") if sched else None
+    if train.get("grad_clip_norm"):
+        if not (isinstance(opt, dict) and set(opt) == {"1"}):
+            return None
+        opt = opt["1"]
+    return _adam_chain(opt, decay_key)
 
 
 class NonFiniteError(RuntimeError):
@@ -148,6 +194,16 @@ class Trainer:
                 f"refusing to {verb} {directory}: it holds checkpoints of a different "
                 f"model architecture; differing fields (directory, this trainer): {diff}")
 
+    @staticmethod
+    def _recorded_train(directory: str) -> dict:
+        """The train section of ``directory``'s ``config.json``; empty when
+        there is none (the defaults: adam, a constant rate, no clipping)."""
+        path = os.path.join(directory, "config.json")
+        if not os.path.exists(path):
+            return {}
+        with open(path) as f:
+            return json.load(f).get("train", {})
+
     def save(self, directory: str) -> str:
         """Write the full training state at the current step; returns the
         artifact's path."""
@@ -168,12 +224,18 @@ class Trainer:
     def restore(self, directory: str, *, step: Optional[int] = None) -> int:
         """Restore params, optimizer state and the noise generator; with
         ``step=None`` from the newest step that passes its integrity check
-        (quarantining corrupt newer ones).  Returns the step."""
+        (quarantining corrupt newer ones).  A ``glom_tpu`` checkpoint's optax
+        state is mapped onto the port's (:func:`opt_state_from_optax`); its
+        JAX PRNG key is not, so the noise generator keeps its fresh seed.
+        Returns the step."""
         self._validate_config_json(directory)
         step, trees = integrity.restore_with_fallback(
             directory, ("params", "opt", "rng"), step=step)
         opt = trees["opt"]
-        if not isinstance(opt, dict) or set(opt) != {"count", "mu", "nu"}:
+        from_port = isinstance(opt, dict) and set(opt) == {"count", "mu", "nu"}
+        if not from_port:
+            opt = opt_state_from_optax(opt, self._recorded_train(directory))
+        if opt is None:
             raise ValueError(
                 f"checkpoint step {step} in {directory}: its optimizer state is not in "
                 f"the port's layout {{count, mu, nu}} (a glom_tpu checkpoint holds optax "
@@ -190,7 +252,15 @@ class Trainer:
             params,
             {"count": int(opt["count"]), "mu": like(opt["mu"], ref), "nu": like(opt["nu"], ref)},
             int(step), self.state.generator)
-        self.state.generator.set_state(torch.from_numpy(np.asarray(trees["rng"], np.uint8)))
+        if from_port:
+            self.state.generator.set_state(torch.from_numpy(np.asarray(trees["rng"], np.uint8)))
+        else:
+            warnings.warn(
+                f"checkpoint step {step} in {directory} is glom_tpu's: its optimizer state "
+                f"resumes as the chain its config.json names, with optax's default Adam "
+                f"constants (b1 0.9, b2 0.999, eps 1e-8) assumed; its JAX PRNG key has no "
+                f"torch counterpart, so the noise generator starts fresh from this "
+                f"trainer's seed", stacklevel=2)
         return int(step)
 
     # -- the loop ------------------------------------------------------------

@@ -580,7 +580,7 @@ def test_engine_serves_fused_as_it_serves_pallas(tmp_path):
     make_demo_checkpoint(d, config=GlomConfig(**TINY),
                          train=TrainConfig(batch_size=2, steps=0, decoder="mlp"), seed=7)
     fused = ServingEngine(d, device="cpu", ff_impl="fused")
-    pallas = ServingEngine(d, device="cpu")
+    pallas = ServingEngine(d, device="cpu", ff_impl="pallas", attention_impl="pallas")
     assert fused.health()["ff_impl"] == "fused" and pallas.health()["ff_impl"] == "pallas"
     # the fused step applies: nothing else is injected into the forward
     assert fused._fused_fn is not None and fused._consensus_fn is None and fused._ff_fn is None
@@ -628,7 +628,8 @@ def test_server_cli_takes_ff_impl_fused(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
-    want = ServingEngine(str(tmp_path / "ckpt"), device="cpu").run("embed", img)
+    want = ServingEngine(str(tmp_path / "ckpt"), device="cpu", ff_impl="pallas",
+                         attention_impl="pallas").run("embed", img)
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 

@@ -469,6 +469,52 @@ def test_gpu_consensus_is_deterministic(cuda, dtype, b, splits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("rows", [1, 49, 256, 2048])
+@pytest.mark.parametrize("g", [5, 6])
+@pytest.mark.parametrize("h", [ff_kernel.HIDDEN_CHUNK, 2048])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_gpu_grouped_ff_dx_matches_plain(cuda, d, h, g, rows, strided, dtype):
+    """K2 against its plain version over the widths it takes (d, and h from
+    the smallest the wrapper takes to the flagship's), both group counts of
+    the main path, row counts on and off its 32-row tile (2048 = b 8 x n
+    256), the strided bottom-up view and a contiguous input; two calls give
+    the same bits."""
+    rng = np.random.default_rng(d + h + g + rows)
+    p = _torch(_ff_params(rng, g, d, h), cuda, dtype)
+    b, n = (8, rows // 8) if rows > 256 else (1, rows)
+    lwi = torch.from_numpy(rng.standard_normal((b, n, g + 1, d)).astype(np.float32)).to(cuda, dtype)
+    x = lwi[..., :-1, :] if strided else lwi[..., 1:, :].contiguous()
+    dout = torch.from_numpy(rng.standard_normal((b, n, g, d)).astype(np.float32)).to(cuda, dtype)
+    before = ff_kernel.grouped_ff_dx.launches
+    got = ff_kernel.grouped_ff_dx(p, x, dout)
+    assert ff_kernel.grouped_ff_dx.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_close(got, plain_ff.grouped_ff_dx(_f32(p), x.float(), dout.float()), dtype)
+    assert torch.equal(got, ff_kernel.grouped_ff_dx(p, x, dout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_gpu_grouped_ff_dx_splits_the_hidden(cuda, splits, dtype):
+    """K2 with its hidden split over 1, 2, 3 (the last split short) and 8
+    blocks a row tile, at b=1 flagship shapes: each against the plain
+    version, two calls bitwise equal, one launch a call."""
+    rng = np.random.default_rng(15)
+    p = _torch(_ff_params(rng, 6, 512, 2048), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((1, 256, 7, 512)).astype(np.float32)).to(cuda, dtype)
+    x = lwi[..., :-1, :]
+    dout = torch.from_numpy(rng.standard_normal((1, 256, 6, 512)).astype(np.float32)).to(cuda, dtype)
+    before = ff_kernel.grouped_ff_dx.launches
+    got = ff_kernel.grouped_ff_dx(p, x, dout, splits=splits)
+    assert ff_kernel.grouped_ff_dx.launches == before + 1
+    _assert_close(got, plain_ff.grouped_ff_dx(_f32(p), x.float(), dout.float()), dtype)
+    assert torch.equal(got, ff_kernel.grouped_ff_dx(p, x, dout, splits=splits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n", [(128, 20), (384, 70), (512, 64)])
 def test_gpu_grouped_ff_backward_matches_plain(cuda, dtype, d, n):
     """K2 (dX) and K3 (dW) against their plain versions, on the strided
@@ -556,6 +602,28 @@ def test_gpu_backward_kernels_take_vector_aligned_rows(cuda):
         consensus_kernel.consensus_dq(off, x, stats, stats)
     _assert_close(ff_kernel.grouped_ff_dx(p, x, off), plain_ff.grouped_ff_dx(p, x, off),
                   torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gpu_consensus_forward_takes_rows_off_a_16_byte_boundary(cuda, dtype, offset):
+    """The forward kernel on levels whose rows lie off a 16-byte boundary
+    (``offset`` elements into a flat buffer, as consensus_pallas.py takes any
+    layout): the wrapper copies them into fresh storage and launches the
+    kernel, which agrees with the plain version."""
+    rng = np.random.default_rng(14)
+    shape = (2, 24, 3, 128)
+    flat = torch.from_numpy(
+        rng.standard_normal(int(np.prod(shape)) + offset).astype(np.float32)).to(cuda, dtype)
+    levels = flat[offset:].view(shape)
+    assert not consensus_kernel._rows_aligned(levels)
+    before = consensus_kernel.consensus_attention.launches
+    out, lse = consensus_kernel.consensus_attention(levels)
+    assert consensus_kernel.consensus_attention.launches == before + 1
+    want, want_lse = plain_consensus.consensus_attention(levels.float())
+    _assert_close(out, want, dtype)
+    _assert_close(lse, want_lse, torch.float32)
 
 
 @pytest.mark.gpu

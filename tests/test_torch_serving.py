@@ -24,6 +24,7 @@ import torch
 from glom_tpu import config as jax_config
 from glom_tpu.models import glom as jax_glom
 from glom_tpu.models import heads as jax_heads
+from glom_tpu.serving.engine import ServingEngine as JaxServingEngine
 from glom_tpu.serving.engine import make_demo_checkpoint as jax_make_demo_checkpoint
 from glom_tpu.training import denoise as jax_denoise
 from glom_tpu_torch import checkpoint as ckpt_lib
@@ -93,7 +94,8 @@ def jax_ckpt(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def served(jax_ckpt):
-    s = _Served(ServingEngine(jax_ckpt, device="cpu", max_wait_ms=1.0))
+    s = _Served(ServingEngine(jax_ckpt, device="cpu", max_wait_ms=1.0, ff_impl="pallas",
+                              attention_impl="pallas"))
     yield s
     s.close()
 
@@ -143,13 +145,60 @@ def test_http_answers_match_glom_tpu(served, jax_ckpt):
 def test_healthz_reports_the_contract_and_the_kernels(served):
     code, health = _request(served.url + "/healthz")
     assert code == 200 and health["status"] == "ok"
-    # the engine's kernel selection overrides the checkpoint's recorded "dense"
+    # the engine's explicit kernel selection overrides the checkpoint's recorded "dense"
     assert health["ff_impl"] == "pallas" and health["attention_impl"] == "pallas"
     assert health["buckets"] == [1, 2, 4, 8] and health["step"] == 0
     assert (health["image_size"], health["channels"], health["levels"], health["dim"]) == (16, 3, 3, 32)
     assert health["device"] == "cpu"
     assert set(health["kernel_launches"]) == {"grouped_ff", "consensus_attention",
                                               "fused_level_update"}
+
+
+def test_engine_serves_the_checkpoints_kernel_choice_as_glom_tpu(tmp_path):
+    """A bfloat16 ``ff_impl="fused"`` checkpoint written by glom_tpu is served
+    with the checkpoint's kernel choice by default, as glom_tpu's engine
+    serves it: the fused step, ``/healthz`` naming ``fused`` and the
+    recorded ``attention_impl``.  Its ``/embed`` answer is held against
+    glom_tpu's engine on the same images within one bfloat16 rounding of the
+    largest value, 2**-8 max|want|.  Forcing ``"pallas"`` (what the engine
+    did before it kept the checkpoint's choice) rounds at other places than
+    glom_tpu's fused path: 9.8e-4 max-abs (cosine 0.9999932) at this size,
+    above that bound; the fused path is 6.1e-5 off."""
+    d = str(tmp_path)
+    jax_make_demo_checkpoint(d, config=jax_config.GlomConfig(
+        **TINY, compute_dtype=jnp.bfloat16, ff_impl="fused"), seed=3)
+    imgs = _imgs(3)
+    ref = JaxServingEngine(d, buckets=(1, 2, 4), max_wait_ms=0.0, warmup=False, reload_poll_s=0)
+    try:
+        fut = ref.submit("embed", imgs)
+        assert ref.process_once("embed") == 3
+        want = np.asarray(fut.result(timeout=60), np.float32)
+    finally:
+        ref.shutdown(drain=False)
+    assert (ref.config.ff_impl, ref.config.attention_impl) == ("fused", "dense")
+    bound = 2.0 ** -8 * np.abs(want).max()
+
+    s = _Served(ServingEngine(d, device="cpu", max_wait_ms=1.0))
+    try:
+        code, health = _request(s.url + "/healthz")
+        assert code == 200
+        assert (health["ff_impl"], health["attention_impl"]) == ("fused", "dense")
+        assert s.engine._fused_fn is not None
+        assert s.engine.config.resolved_compute_dtype == torch.bfloat16
+        code, body = _request(s.url + "/embed", {"images": imgs.tolist()})
+        assert code == 200
+        got = np.asarray(body["embeddings"], np.float32)
+    finally:
+        s.close()
+    assert got.shape == want.shape == (3, 3, 32)
+    gap = np.abs(got - want).max()
+    assert gap <= bound, (gap, bound)
+
+    # an explicit choice still overrides the checkpoint's
+    forced = ServingEngine(d, device="cpu", ff_impl="pallas", attention_impl="pallas")
+    assert forced._fused_fn is None
+    assert (forced.health()["ff_impl"], forced.health()["attention_impl"]) == ("pallas", "pallas")
+    assert gap <= np.abs(forced.run("embed", imgs) - want).max()
 
 
 @pytest.mark.parametrize("endpoint", ["embed", "reconstruct"])

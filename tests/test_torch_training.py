@@ -357,17 +357,84 @@ def test_corrupt_newest_step_falls_back(tmp_path):
     assert ckpt_lib.verify_file_integrity(d, 2) is True
 
 
-def test_glom_tpu_optimizer_state_is_refused(tmp_path):
+def _save_glom_tpu_run(d, ref_cfg, ref_train, tx, steps):
+    """``steps`` of glom_tpu's jitted train step from its own init, saved as
+    glom_tpu's trainer saves (params, optax state, PRNG key); returns the
+    state."""
+    from glom_tpu import checkpoint as jax_ckpt
+
+    state = jax_denoise.init_state(jax.random.PRNGKey(0), ref_cfg, tx)
+    jax_step = jax.jit(jax_denoise.make_step_fn(ref_cfg, ref_train, tx))
+    imgs = np.random.default_rng(11).standard_normal((steps, 2, 3, 16, 16)).astype(np.float32)
+    for i in range(steps):
+        state, _ = jax_step(state, jnp.asarray(imgs[i]))
+    ckpt_lib.write_json(d, "config.json", {"glom": ref_cfg.to_json_dict(),
+                                           "train": ref_train.to_json_dict()})
+    jax_ckpt.save(d, steps, {"params": state.params, "opt": state.opt_state, "rng": state.rng})
+    return state
+
+
+@pytest.mark.parametrize("opt", [
+    dict(),
+    dict(weight_decay=0.05),
+    dict(grad_clip_norm=0.05),
+    dict(weight_decay=0.05, grad_clip_norm=0.05, lr_schedule="cosine", warmup_steps=2,
+         learning_rate=3e-3, steps=6),
+], ids=["adam", "adamw", "clip_adam", "clip_adamw_cosine"])
+def test_glom_tpu_optimizer_state_resumes(tmp_path, opt):
+    """A glom_tpu run after 2 steps resumes in the port: its optax state
+    (each chain glom_tpu's trainer builds) maps onto the port's
+    ``{count, mu, nu}`` bit for bit, and one port update on the same
+    gradients gives optax's within 1e-6 relative per leaf.  The JAX PRNG key
+    does not carry over: the resume warns."""
+    d = str(tmp_path)
+    kw = dict(batch_size=2, **opt)
+    ref_train = jax_config.TrainConfig(**kw)
+    tx = _jax_tx(ref_train)
+    state = _save_glom_tpu_run(d, jax_config.GlomConfig(**TINY), ref_train, tx, 2)
+    adam = state.opt_state[1][0] if ref_train.grad_clip_norm else state.opt_state[0]
+
+    trainer = _trainer(_train_cfg(**kw))
+    with pytest.warns(UserWarning, match="default Adam constants.*noise generator starts fresh"):
+        assert trainer.restore(d) == 2
+    got = trainer.state.opt_state
+    assert got["count"] == int(adam.count) == 2
+    for name, want in (("mu", adam.mu), ("nu", adam.nu)):
+        g, w = _flat(_to_np(got[name])), _flat(want)
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_array_equal(g[k], np.asarray(w[k]), err_msg=f"{name} {k}")
+
+    rng = np.random.default_rng(12)
+    grads = jax.tree_util.tree_map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32), state.params)
+    want, _ = tx.update(_jnp(grads), state.opt_state, state.params)
+    port_grads = glom_model.tree_map(torch.from_numpy, grads)
+    updates, new = trainer.optimizer.update(port_grads, got, trainer.state.params)
+    assert new["count"] == 3
+    _assert_tree_rel(_to_np(updates), want, 1e-6)
+
+
+@pytest.mark.parametrize("case", ["sgd", "chain_not_in_config"])
+def test_glom_tpu_optimizer_state_is_refused(tmp_path, case):
+    """An optax state outside the chains glom_tpu's trainer builds still
+    raises: SGD with momentum, or a custom ``tx`` whose chain (adamw under
+    ``clip_by_global_norm`` with a schedule) is not the one the checkpoint's
+    config.json names (plain adam at a constant rate)."""
     d = str(tmp_path)
     cfg = jax_config.GlomConfig(**TINY)
-    tx = optax.adam(1e-3)
+    if case == "sgd":
+        tx = optax.sgd(1e-3, momentum=0.9)
+    else:
+        tx = _jax_tx(jax_config.TrainConfig(batch_size=2, weight_decay=0.05, grad_clip_norm=0.05,
+                                            lr_schedule="cosine", warmup_steps=2, steps=6))
     st = jax_denoise.init_state(jax.random.PRNGKey(0), cfg, tx)
     ckpt_lib.write_json(d, "config.json", {"glom": cfg.to_json_dict(),
                                            "train": jax_config.TrainConfig().to_json_dict()})
     from glom_tpu import checkpoint as jax_ckpt
 
     jax_ckpt.save(d, 1, {"params": st.params, "opt": st.opt_state, "rng": st.rng})
-    with pytest.raises(ValueError, match="optimizer state"):
+    with pytest.raises(ValueError, match="optimizer state is not in the port's layout"):
         _trainer(_train_cfg()).restore(d)
 
 
