@@ -16,7 +16,8 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            after a warm-up) beside the bound and a PyTorch library call
            where one computes the same function: the forward kernels (K1,
            K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
-           consensus); K2 also at b=1 and at 49 rows (off its 32-row tile);
+           consensus; K2 hands K3 the hidden, and the pair is timed
+           together); K2 also at b=1 and at 49 rows (off its 32-row tile);
            consensus also with attend_self, the locality mask,
            b=1 and n=2304 (b=1, with SDPA's time on those inputs); and the
            fused level update (K8) against its plain version at b=8 and
@@ -24,6 +25,12 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            beside the time of the kernels it replaces (K1 + K1 + K4 and the
            elementwise tail) on the same inputs;
   k2       (only with --only) K2's rows of the kernels phase alone;
+  k3       (only with --only) K3's rows: for the bottom-up (g=6, strided
+           view) and top-down (g=5) calls at b=8, b=1 and 49 rows, in
+           float32 and bfloat16, K2 with the hidden it hands K3, K3 on that
+           hidden (its library column: two torch.bmm calls and a column
+           sum on the same hidden), and the pair timed together against the
+           TPU kernels' work;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
            seeded weights) served over HTTP in-process: /embed with batches
            of 1, 3 and 8, /reconstruct with 2; shapes, finiteness, one
@@ -37,8 +44,10 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            plain ops on the card and, timed only, against ff_fused_bwd=False
            (K1 with the plain float32 VJP of the grouped FF); one step's gradients against the plain
            path; two runs of one step bitwise equal; the launches of all six
-           kernels per step; a torch.profiler trace of two steps; and the
-           checkpoint the trainer saved, served over HTTP on /embed;
+           kernels per step; one step's peak device memory, through the
+           kernels and through the plain ops; a torch.profiler trace of two
+           steps; and the checkpoint the trainer saved, served over HTTP on
+           /embed;
   serve_fused  the same checkpoint served with ff_impl="fused" over HTTP:
            /embed with 1 and 8, /reconstruct with 2; the answer against the
            plain path and against the "pallas" engine; K8's launches (and
@@ -58,6 +67,7 @@ float32: TF32 is switched off for matmul and cuDNN.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import json
 import os
@@ -122,6 +132,9 @@ GRAD_RTOL = 1e-4
 TRAIN_STEPS = 10
 FUSED_TRAIN_STEPS = 5
 KNOB_TRAIN_STEPS = 2
+# whether K2 hands K3 the hidden (K3 then reads it and recomputes nothing);
+# --only k2 / k3 also time a parent tree, whose K3 recomputes it
+HANDOFF = "hidden" in inspect.signature(ff_kernel.grouped_ff_dw).parameters
 
 
 def emit(obj) -> None:
@@ -284,42 +297,151 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, librar
     return row
 
 
-def ff_bwd_case(params, x, g, dtype, label, kernels=("grouped_ff_dx", "grouped_ff_dw")):
-    """K2 (dX) and K3 (dW), or those of them named in ``kernels``, against
-    their plain versions; a row each."""
+def ff_dims(params, x):
+    """``(rows, groups, d, h, element bytes)`` of a grouped-FF call."""
     b, n, gr, d = x.shape
-    h = params["w1"].shape[-1]
-    rows, item = b * n, x.element_size()
-    weights = gr * (2 * d * h + h)
-    out = []
-    for name, kernel, plain, factor, nbytes in (
-        ("grouped_ff_dx", ff_kernel.grouped_ff_dx, plain_ffm.grouped_ff_dx, 6.0,
-         item * (3 * rows * gr * d + weights)),
-        ("grouped_ff_dw", ff_kernel.grouped_ff_dw, plain_ffm.grouped_ff_dw, 8.0,
-         item * (2 * rows * gr * d + 2 * weights)),
-    ):
-        if name not in kernels:
-            continue
-        got, want = kernel(params, x, g), plain(f32(params), x.float(), g.float())
-        torch.cuda.synchronize()
-        if isinstance(got, tuple):   # (dW1, db1, dW2): the worst leaf
-            errs = [compare(u, v, dtype, f"{name} {label} {k}")
-                    for k, u, v in zip(("w1", "b1", "w2"), got, want)]
-            err = max(errs, key=lambda e: e["norm_rel_err"])
-        else:
-            err = compare(got, want, dtype, f"{name} {label}")
-        flops = factor * rows * gr * d * h
-        # K2's hidden split (none in a tree from before port PR 6, which
-        # --only k2 can time for comparison)
-        plan = getattr(ff_kernel, "planned_dx_splits", None)
-        extra = ({"splits": plan(x.device, rows, gr, d, h, dtype)}
-                 if name == "grouped_ff_dx" and plan else {})
-        out.append({"kernel": name, "case": label, "dtype": str(dtype).replace("torch.", ""),
-                    "shape": list(x.shape), **extra, **err,
-                    "kernel_ms": time_ms(lambda: kernel(params, x, g)),
-                    "plain_ms": time_ms(lambda: plain(params, x, g)),
-                    "library_ms": None, **bounds(flops, nbytes, dtype)})
+    return b * n, gr, d, params["w1"].shape[-1], x.element_size()
+
+
+def k2_case(params, x, g, dtype, label):
+    """K2 (dX) against its plain version: ``(row, hidden)``.  In a tree
+    where K2 hands K3 the hidden (HANDOFF), the hidden it stores is held
+    against the plain one too, and the row times K2 with the stores (the
+    main path's call, ``kernel_ms``) and without them; ``hidden`` is what K3
+    then reads (None in an older tree)."""
+    rows, gr, d, h, item = ff_dims(params, x)
+    p32, x32, g32 = f32(params), x.float(), g.float()
+    hidden = None
+    if HANDOFF:
+        got, hidden = ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)
+    else:
+        got = ff_kernel.grouped_ff_dx(params, x, g)
+    want = plain_ffm.grouped_ff_dx(p32, x32, g32)
+    torch.cuda.synchronize()
+    err = compare(got, want, dtype, f"grouped_ff_dx {label}")
+    row = {"kernel": "grouped_ff_dx", "case": label, "dtype": str(dtype).replace("torch.", ""),
+           "shape": list(x.shape), "splits": ff_kernel.planned_dx_splits(x.device, rows, gr, d, h, dtype),
+           **err}
+    handoff_bytes = 0
+    if HANDOFF:
+        for name, u, v in zip(("hid", "dh"), hidden, plain_ffm.grouped_ff_hidden(p32, x32, g32)):
+            row[f"{name}_norm_rel_err"] = compare(u, v, torch.float32,
+                                                  f"grouped_ff_dx {label} {name}")["norm_rel_err"]
+        handoff_bytes = 2 * 4 * gr * rows * h   # hid and dh, f32, written once
+        row["kernel_ms"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True))
+        row["kernel_ms_no_handoff"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g))
+    else:
+        row["kernel_ms"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g))
+    flops = 6.0 * rows * gr * d * h
+    nbytes = item * (3 * rows * gr * d + gr * (2 * d * h + h)) + handoff_bytes
+    row.update({"handoff_bytes": handoff_bytes,
+                "plain_ms": time_ms(lambda: plain_ffm.grouped_ff_dx(params, x, g)),
+                "library_ms": None, **bounds(flops, nbytes, dtype)})
+    return row, hidden
+
+
+def grouped_ff_dw_f64(params, x, g):
+    """``(dW1, db1, dW2)`` of the grouped FF computed in float64 (the
+    formulas of plain.grouped_ff_dw, the cotangent cast to ``x``'s type
+    first): the exact sums against which K3 and its float32 plain version
+    are both measured."""
+    x64, g64 = x.double(), g.to(x.dtype).double()
+    w1, b1, w2 = (params[k].double() for k in ("w1", "b1", "w2"))
+    pre = torch.einsum("bngd,gdh->bngh", x64, w1) + b1
+    cdf = 0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * pre * pre) / (2.0 * np.pi) ** 0.5
+    dh = torch.einsum("bngd,ghd->bngh", g64, w2) * (cdf + pre * pdf)
+    return (torch.einsum("bngd,bngh->gdh", x64, dh), dh.sum(dim=(0, 1)),
+            torch.einsum("bngh,bngd->ghd", pre * cdf, g64))
+
+
+def error_vs(got, exact, dtype) -> dict:
+    """The worst over outputs of ``got`` against ``exact`` (float64):
+    normwise relative error, and the largest share of compare()'s
+    elementwise limit that any element uses."""
+    out = {"norm_rel_err": 0.0, "limit_share": 0.0}
+    for u, w in zip(got, exact):
+        diff = (u.double() - w).abs()
+        limit = RTOL[dtype] * (min(1.0, float(w.abs().max())) + w.abs())
+        out["norm_rel_err"] = max(out["norm_rel_err"],
+                                  float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(w)))
+        out["limit_share"] = max(out["limit_share"], float((diff / limit).max()))
     return out
+
+
+def k3_case(params, x, g, hidden, dtype, label, k2_ms):
+    """K3 (dW) against the reference plain.grouped_ff_dw; the worst of its
+    three outputs.  With the handoff K3 reads ``hidden`` (K2's) and does 4
+    units of rows*d*h*groups FLOPs, reading x, dO and the hidden; its plain
+    version is the twin on the same hidden, and its library time two
+    torch.bmm calls in full float32 and the column sum of dH on the same
+    hidden.  In an older tree K3 recomputes the hidden (8 units).  ``k2_ms``:
+    the time of the K2 it needs, beside it."""
+    rows, gr, d, h, item = ff_dims(params, x)
+    outputs = gr * (2 * d * h + h)
+    if HANDOFF:
+        hid, dh = hidden
+        call = lambda: ff_kernel.grouped_ff_dw(params, x, g, hidden)
+        plain = lambda: plain_ffm.grouped_ff_dw_from_hidden(x, g, hid, dh, dtype)
+        flops = 4.0 * rows * gr * d * h
+        nbytes = item * (2 * rows * gr * d + outputs) + 2 * 4 * gr * rows * h
+    else:
+        call = lambda: ff_kernel.grouped_ff_dw(params, x, g)
+        plain = lambda: plain_ffm.grouped_ff_dw(params, x, g)
+        flops = 8.0 * rows * gr * d * h
+        nbytes = item * (2 * rows * gr * d + 2 * outputs)
+    got = call()
+    want = plain_ffm.grouped_ff_dw(f32(params), x.float(), g.float())
+    torch.cuda.synchronize()
+    errs = [compare(u, v, dtype, f"grouped_ff_dw {label} {k}")
+            for k, u, v in zip(("w1", "b1", "w2"), got, want)]
+    # both against the exact sums: over thousands of rows the float32 plain
+    # version's own rounding is of the order of the kernel's
+    exact = grouped_ff_dw_f64(params, x, g)
+    vs_f64 = {"kernel": error_vs(got, exact, dtype), "plain_f32": error_vs(want, exact, dtype)}
+    del exact
+    row = {"kernel": "grouped_ff_dw", "case": label, "dtype": str(dtype).replace("torch.", ""),
+           "shape": list(x.shape), **max(errs, key=lambda e: e["norm_rel_err"]),
+           "bitwise_repeat": all(torch.equal(u, v) for u, v in zip(got, call())),
+           "vs_f64": vs_f64,
+           "kernel_ms": time_ms(call), "k2_ms": k2_ms, "plain_ms": time_ms(plain),
+           "library_ms": None, **bounds(flops, nbytes, dtype)}
+    if not row["bitwise_repeat"]:
+        raise AssertionError(f"grouped_ff_dw {label}: two calls differ")
+    if HANDOFF:
+        row["splits"] = ff_kernel.planned_dw_splits(x.device, rows, gr, d, h, dtype)
+        # the yardstick on the same hidden: dW1 = X^T dH and dW2 = H^T dO as
+        # batched products over the groups, in full float32 (x and dO cast
+        # outside the timing for bf16), and db1 = dH summed over rows
+        xg = x.float().reshape(rows, gr, d).transpose(0, 1)
+        gg = g.float().reshape(rows, gr, d).transpose(0, 1)
+        row["library_ms"] = time_ms(lambda: (torch.bmm(xg.transpose(1, 2), dh), dh.sum(dim=1),
+                                             torch.bmm(hid.transpose(1, 2), gg)))
+        row["library"] = ("two torch.bmm calls in full float32 (X^T dH, H^T dO) and dH.sum over "
+                          "rows, on the same hidden")
+    return row
+
+
+def pair_case(params, x, g, dtype, label, k2_ms, k3_ms):
+    """K2 + K3 as the backward runs them (K2 handing K3 the hidden, where it
+    does), timed together, against the bound of the TPU kernels' work: 14
+    units of rows*d*h*groups FLOPs (K2's 6, and the 8 of a K3 that
+    recomputes the hidden), reading x, dO and the weights and writing dX and
+    dW once.  The bound is the same in a tree before and after the handoff,
+    so the pair's times compare."""
+    rows, gr, d, h, item = ff_dims(params, x)
+    if HANDOFF:
+        call = lambda: ff_kernel.grouped_ff_dw(
+            params, x, g, ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)[1])
+    else:
+        call = lambda: (ff_kernel.grouped_ff_dx(params, x, g), ff_kernel.grouped_ff_dw(params, x, g))
+    flops = 14.0 * rows * gr * d * h
+    nbytes = item * (3 * rows * gr * d + 2 * gr * (2 * d * h + h))
+    return {"kernel": "grouped_ff_dx+grouped_ff_dw", "case": label,
+            "dtype": str(dtype).replace("torch.", ""), "shape": list(x.shape),
+            "handoff": HANDOFF, "kernel_ms": time_ms(call), "k2_ms": k2_ms, "k3_ms": k3_ms,
+            "work": "the TPU kernels' 14 units" + (" (the pair does 10)" if HANDOFF else ""),
+            **bounds(flops, nbytes, dtype)}
 
 
 def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None):
@@ -423,31 +545,49 @@ def flagship_inputs(device):
     return params, lwi, levels, big, mask, g_ff, g_lv, g_big
 
 
-def k2_rows(cast, x, g, dtype):
-    """K2's rows in ``dtype``: the main path's two (the bottom-up strided
-    view, g=6, and the top-down input, g=5), then b=1 (256 rows) and 49 rows
-    (off the 32-row tile), both as strided views."""
-    rows = ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
-                       "bottom_up (strided view, g=6)", ("grouped_ff_dx",))
+def ff_bwd_inputs(cast, x, g):
+    """The grouped-FF backward's cases: ``(label, params, x, dO)`` for the
+    main path's two calls (the bottom-up strided view, g=6, and the top-down
+    input, g=5), then b=1 (256 rows) and 49 rows (off a 32-row tile), both
+    as strided views."""
     pos = cast["pos_emb"][None, :, None, :]
-    rows += ff_bwd_case(cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
-                        g[..., 1:, :].contiguous(), dtype, "top_down (g=5)", ("grouped_ff_dx",))
-    rows += ff_bwd_case(cast["bottom_up"], x[:1, :, :-1, :], g[:1], dtype,
-                        "bottom_up b=1 (strided view, g=6)", ("grouped_ff_dx",))
-    rows += ff_bwd_case(cast["bottom_up"], x[:1, :49, :-1, :], g[:1, :49].contiguous(), dtype,
-                        "bottom_up 49 rows (strided view, g=6)", ("grouped_ff_dx",))
+    bu, td = cast["bottom_up"], cast["top_down"]
+    return (("bottom_up (strided view, g=6)", bu, x[..., :-1, :], g),
+            ("top_down (g=5)", td, (x[..., 2:, :] + pos).contiguous(), g[..., 1:, :].contiguous()),
+            ("bottom_up b=1 (strided view, g=6)", bu, x[:1, :, :-1, :], g[:1]),
+            ("bottom_up 49 rows (strided view, g=6)", bu, x[:1, :49, :-1, :],
+             g[:1, :49].contiguous()))
+
+
+def k2_rows(cast, x, g, dtype):
+    """K2's rows in ``dtype``, one a case of ff_bwd_inputs."""
+    return [k2_case(p, xx, gg, dtype, label)[0] for label, p, xx, gg in ff_bwd_inputs(cast, x, g)]
+
+
+def k3_rows(cast, x, g, dtype, cases=4):
+    """The first ``cases`` of ff_bwd_inputs in ``dtype``: for each, K2 (the
+    hidden it hands K3), K3 and the pair; three rows a case."""
+    rows = []
+    for label, p, xx, gg in ff_bwd_inputs(cast, x, g)[:cases]:
+        k2, hidden = k2_case(p, xx, gg, dtype, label)
+        k3 = k3_case(p, xx, gg, hidden, dtype, label, k2["kernel_ms"])
+        del hidden
+        rows += [k2, k3, pair_case(p, xx, gg, dtype, label, k2["kernel_ms"], k3["kernel_ms"])]
     return rows
 
 
-def phase_k2(device) -> None:
-    """K2 alone (``--only k2``): its rows in float32 and bfloat16, for
-    timing a K2 variant without the rest of the kernels phase."""
+def phase_only_ff_bwd(device, name: str) -> None:
+    """``--only k2`` (K2's rows) or ``--only k3`` (K3's: K2, K3 and the pair
+    a case) in float32 and bfloat16, for timing a kernel variant without
+    the rest of the kernels phase."""
     params, lwi, *_, g_ff, _, _ = flagship_inputs(device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         cast = glom_model.tree_map(lambda p: p.to(dtype), params)
-        rows += k2_rows(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
-    emit({"phase": "k2", "kernel": "grouped_ff_dx", "rows": rows})
+        fn = k2_rows if name == "k2" else k3_rows
+        rows += fn(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
+    emit({"phase": name, "kernel": "grouped_ff_dx" if name == "k2" else "grouped_ff_dw",
+          "handoff": HANDOFF, "rows": rows})
 
 
 def phase_kernels(device) -> dict:
@@ -469,12 +609,10 @@ def phase_kernels(device) -> dict:
         cons_rows.append(consensus_case(big.to(dtype), dtype, "n=2304 (384/8), b=1", library=True))
         cons_rows.append(consensus_case(lv[:1], dtype, "b=1"))
         g = g_ff.to(dtype)
-        bwd_rows += k2_rows(cast, x, g, dtype)
-        bwd_rows += ff_bwd_case(cast["bottom_up"], x[..., :-1, :], g, dtype,
-                                "bottom_up (strided view, g=6)", ("grouped_ff_dw",))
-        bwd_rows += ff_bwd_case(cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
-                                g[..., 1:, :].contiguous(), dtype, "top_down (g=5)",
-                                ("grouped_ff_dw",))
+        # K2, K3 and the pair on the main path's two calls, then K2 at b=1 and 49 rows
+        bwd_rows += k3_rows(cast, x, g, dtype, cases=2)
+        bwd_rows += [k2_case(p, xx, gg, dtype, label)[0]
+                     for label, p, xx, gg in ff_bwd_inputs(cast, x, g)[2:]]
         gl = g_lv.to(dtype)
         bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=False")
         bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=True", attend_self=True)
@@ -496,7 +634,7 @@ def phase_kernels(device) -> dict:
           "launches": ff_kernel.grouped_ff.launches, "rows": ff_rows})
     emit({"phase": "kernels", "kernel": "consensus_attention",
           "launches": consensus_kernel.consensus_attention.launches, "rows": cons_rows})
-    for name in BACKWARD:
+    for name in BACKWARD + ("grouped_ff_dx+grouped_ff_dw",):
         emit({"phase": "kernels", "kernel": name, "rows": [
             {k: v for k, v in r.items() if k != "kernel"} for r in bwd_rows if r["kernel"] == name]})
     emit({"phase": "kernels", "kernel": "fused_level_update", "rows": fused_rows,
@@ -510,10 +648,11 @@ def phase_kernels(device) -> dict:
             "fused_level_update": fused_rows[0], "consensus_blocked": cons_rows[3]}
     library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"],
                "fused_level_update": None}
-    for name in BACKWARD:
+    for name in BACKWARD + ("grouped_ff_dx+grouped_ff_dw",):
         rows = [r for r in bwd_rows if r["kernel"] == name]
         main[name] = rows[0]
-        library[name] = next((r["library_ms"] for r in rows if r["library_ms"] is not None), None)
+        library[name] = next((r.get("library_ms") for r in rows
+                              if r.get("library_ms") is not None), None)
     return main, library
 
 
@@ -796,6 +935,10 @@ def phase_train(device) -> dict:
     bitwise = bitwise and torch.equal(m1["loss"], m2["loss"])
     if not bitwise:
         raise AssertionError("two runs of one train step differ")
+    del s1, s2, m1, m2
+    memory = {"kernels": step_memory(step, kern.state, img, noise),
+              "plain": step_memory(denoise.make_step_fn(plain_cfg, kern.train_cfg, kern.optimizer),
+                                   kern.state, img, noise)}
 
     emit({"phase": "train", "config": {**{k: c.to_json_dict()[k] for k in (
               "dim", "levels", "image_size", "patch_size", "ff_impl", "ff_fused_bwd",
@@ -809,11 +952,28 @@ def phase_train(device) -> dict:
                           "float32 VJP of the grouped FF), timed only",
           "launches": launches, "launches_per_step": per_step,
           "grad_vs_plain": grad,
-          "bitwise_repeat": bitwise})
+          "bitwise_repeat": bitwise, "step_memory": memory,
+          "step_memory_note": "torch.cuda.max_memory_allocated over one step (forward, backward, "
+                              "Adam) from the trained state; resident: allocated before it",
+          "handoff": HANDOFF})
     phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
                   phase="train_profile", grad=True)
     serve_trained(ckpt, device, kern)
     return launches, ms
+
+
+def step_memory(step, state, img, noise) -> dict:
+    """One call of ``step`` from ``state``: the peak of device memory
+    allocated during it (torch.cuda.max_memory_allocated), what was
+    allocated before it, and the difference, in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    out = step(state, img, noise=noise)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"peak_bytes": peak, "resident_bytes": resident, "step_bytes": peak - resident}
 
 
 def grads_vs_plain(config, train_cfg, params, img, noise):
@@ -939,7 +1099,7 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-PHASES = ("kernels", "k2", "serve", "train", "serve_fused", "train_fused")
+PHASES = ("kernels", "k2", "k3", "serve", "train", "serve_fused", "train_fused")
 
 
 def parse_args(argv):
@@ -948,7 +1108,8 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description="Drive glom_tpu_torch on one NVIDIA GPU.")
     p.add_argument("--only", default=None,
                    help="comma-separated phases to run after device and build, for "
-                        f"iterating on one part: {', '.join(PHASES)} (k2: K2's rows alone). "
+                        f"iterating on one part: {', '.join(PHASES)} (k2: K2's rows alone; "
+                        "k3: K3's, each with the K2 it needs and the pair). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -965,8 +1126,8 @@ def run_only(device, names) -> int:
     for name in names:
         if name == "kernels":
             phase_kernels(device)
-        elif name == "k2":
-            phase_k2(device)
+        elif name in ("k2", "k3"):
+            phase_only_ff_bwd(device, name)
         elif name == "serve":
             phase_serve(device)
         elif name == "train":
@@ -1039,6 +1200,12 @@ def main(argv=()) -> int:
                         "library_case": None if library[name] is None else (
                             "attend_self=True" if name == "consensus_attention" else
                             "attend_self=True; SDPA's backward (dQ, dK, dV) against K6 + K7")})
+        if name == "grouped_ff_dw":
+            pair = main_rows["grouped_ff_dx+grouped_ff_dw"]
+            summary[-1]["library_case"] = main_rows[name].get("library")
+            summary[-1]["k2_plus_k3"] = {k: pair[k] for k in (
+                "case", "dtype", "work", "kernel_ms", "k2_ms", "k3_ms", "bound_ms", "bound_by",
+                "bound_3xtf32_ms")}
         if name == "consensus_attention":
             # the same kernel in glom_tpu's blocked regime (K5, n > 1024)
             k5 = main_rows["consensus_blocked"]

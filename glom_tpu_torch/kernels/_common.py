@@ -1,7 +1,7 @@
 """What every kernel wrapper shares: the element types the kernels take,
 their width limit, the device test that picks the kernel or its plain
-version, the vector-alignment test of the backward kernels' loads, and the
-launch counter."""
+version, the alignment test of the kernels' vector loads and the fresh copy
+that meets it, and the launch counter."""
 
 from __future__ import annotations
 
@@ -31,8 +31,16 @@ def on_device(name: str, x: torch.Tensor) -> bool:
     return True
 
 
-def vector_aligned(t: torch.Tensor, *strides: int) -> bool:
+def vector_aligned(t: torch.Tensor, *strides: int, nbytes: int = 0) -> bool:
     """Whether every row of ``t`` (rows ``strides`` apart, in elements)
-    starts on a 4-element boundary, as the backward kernels' vector loads
-    read them."""
-    return t.data_ptr() % (4 * t.element_size()) == 0 and all(s % 4 == 0 for s in strides)
+    starts on a boundary of ``nbytes`` (default: 4 elements), as a kernel's
+    vector loads or 16-byte ``cp.async`` copies read them."""
+    size = nbytes or 4 * t.element_size()
+    return t.data_ptr() % size == 0 and all(s * t.element_size() % size == 0 for s in strides)
+
+
+def fresh_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into new contiguous storage, which starts on the
+    allocator's boundary (``contiguous()`` would hand back a contiguous
+    tensor that starts off a boundary as it is)."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)

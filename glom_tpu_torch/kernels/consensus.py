@@ -29,7 +29,8 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import DTYPE_CODES, MAX_DIM, count, on_device, vector_aligned
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
+                                            vector_aligned)
 from glom_tpu_torch.ops import consensus as plain
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -68,12 +69,6 @@ def _rows_aligned(levels: torch.Tensor) -> bool:
         s % per_vector == 0 for s, size in zip(levels.stride()[:3], levels.shape[:3]) if size > 1)
 
 
-def _fresh_copy(t: torch.Tensor) -> torch.Tensor:
-    """``t`` copied into new contiguous storage (``contiguous()`` would hand
-    back a contiguous tensor that starts off a boundary as it is)."""
-    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
-
-
 def _check(levels: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
@@ -104,7 +99,7 @@ def _forward(levels, attend_self, non_local_mask, splits):
         # the kernel copies rows in 16-byte vectors; a fresh contiguous copy
         # starts on the allocator's boundary and, with d % 128 == 0, so does
         # every row
-        levels = _fresh_copy(levels)
+        levels = fresh_copy(levels)
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     lse = torch.empty((b, L, n, 1), dtype=torch.float32, device=levels.device)
@@ -148,10 +143,12 @@ def _backward_kernel(wrapper, fn, symbol, levels, dout, lse, delta, attend_self,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not (vector_aligned(levels, *levels.stride()[:3]) and vector_aligned(dout)):
-        raise ValueError(
-            "the backward kernels read rows as 4-element vectors: levels and dout must start "
-            f"on a 4-element boundary, levels' strides multiples of 4 (strides {levels.stride()})")
+    # the kernels read rows as 4-element vectors: rows off that boundary are
+    # copied into fresh storage first, as the forward does
+    if not vector_aligned(levels, *levels.stride()[:3]):
+        levels = fresh_copy(levels)
+    if not vector_aligned(dout):
+        dout = fresh_copy(dout)
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     if b * n == 0:
         return out
@@ -190,8 +187,6 @@ def consensus_backward(levels, non_local_mask, out, lse, g, *, attend_self=False
     reduction, as ``consensus_pallas.py::_backward_flash`` leaves it to XLA),
     then K7 + K6, added in ``levels``' type."""
     do = g.to(levels.dtype).contiguous()
-    if not vector_aligned(do):
-        do = do.clone()
     delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
     kw = dict(attend_self=attend_self, non_local_mask=non_local_mask)
     dq = consensus_dq(levels, do, lse, delta, **kw)

@@ -6,8 +6,10 @@ dX, and K3, dW), which replace the TPU kernels of
 
 :func:`grouped_ff` is the forward.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(x, params)`` only and, with
-``fused_bwd=True``, differentiates through K2 and K3 (the hidden recomputed
-per tile); with ``fused_bwd=False`` its backward is the plain VJP of
+``fused_bwd=True``, differentiates through K2 and K3: K2 recomputes the
+hidden per tile and hands it to K3 (``keep_hidden``), which reduces it over
+the rows; the hidden is freed when the backward returns.  With
+``fused_bwd=False`` the backward is the plain VJP of
 :func:`~glom_tpu_torch.ops.feedforward.grouped_ff_apply`, as
 ``ff_pallas.py::_bwd`` chooses.
 
@@ -27,7 +29,8 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import DTYPE_CODES, MAX_DIM, count, on_device, vector_aligned
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
+                                            vector_aligned)
 from glom_tpu_torch.ops import feedforward as plain
 
 HIDDEN_CHUNK = 64      # the kernel's hidden chunk: h must be a multiple
@@ -37,12 +40,14 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #                 groups, dim, hidden, splits, dtype, stream): csrc/grouped_ff.cu
 _ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
 # glom_grouped_ff_bwd_dx(x, row_stride, group_stride, w1, b1, w2, go, dx, ws,
-#                        rows, groups, dim, hidden, splits, dtype, stream):
-#                        csrc/grouped_ff_bwd.cu
-_DX_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
-# glom_grouped_ff_bwd_dw(x, row_stride, group_stride, w1, b1, w2, go, dw1, db1,
-#                        dw2, rows, groups, dim, hidden, dtype, stream)
-_DW_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
+#                        hid, dh, rows, groups, dim, hidden, splits, dtype,
+#                        stream): csrc/grouped_ff_bwd.cu
+_DX_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32,
+                _p]
+# glom_grouped_ff_bwd_dw(x, row_stride, group_stride, go, hid, dh, dw1, db1,
+#                        dw2, ws, rows, groups, dim, hidden, splits, dtype,
+#                        stream)
+_DW_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
 
 
 def _kernel():
@@ -70,6 +75,15 @@ def planned_dx_splits(device: torch.device, rows: int, g: int, d: int, h: int, d
     ``device`` (``glom_grouped_ff_bwd_dx_splits``), cached per shape."""
     with torch.cuda.device(device):
         return _build.plan("grouped_ff_bwd", "glom_grouped_ff_bwd_dx_splits",
+                           torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
+
+
+def planned_dw_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
+    """How many blocks share an output tile's rows in K3 on ``device``
+    (``glom_grouped_ff_bwd_dw_splits``, K2's rule over row slabs), cached
+    per shape."""
+    with torch.cuda.device(device):
+        return _build.plan("grouped_ff_bwd", "glom_grouped_ff_bwd_dw_splits",
                            torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
 
 
@@ -141,46 +155,62 @@ def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tens
     return out
 
 
-def _check_bwd(params: dict, x: torch.Tensor) -> None:
+def _bwd_input(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the backward kernels read it: checked, and copied into fresh
+    storage when its rows are off a 16-byte boundary (K2 reads them as
+    4-element vectors, K3 copies them in 16-byte pieces; ``glom_tpu``'s
+    kernels take any layout)."""
     _check(params, x)
-    if not vector_aligned(x, _row_stride(x), x.stride(2)):
-        raise ValueError(
-            "the backward kernels read x's rows as 4-element vectors: x must start on a "
-            f"4-element boundary with row and group strides multiples of 4 (strides {x.stride()})")
+    if vector_aligned(x, _row_stride(x), x.stride(2), nbytes=16):
+        return x
+    return fresh_copy(x)
 
 
 def _cotangent(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The cotangent as the backward kernels read it: ``x``'s type (the
     contract of ``ff_pallas.py::_backward_fused``), ``x``'s shape,
-    contiguous, on a vector boundary."""
+    contiguous, on a 16-byte boundary."""
     if tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(x.shape)}")
     go = g.to(x.dtype).contiguous()
-    return go if vector_aligned(go) else go.clone()
+    return go if vector_aligned(go, nbytes=16) else fresh_copy(go)
+
+
+def _splits(splits: Optional[int], plan, x: torch.Tensor, h: int) -> int:
+    b, n, gr, d = x.shape
+    if splits is None:
+        return plan(x.device, b * n, gr, d, h, x.dtype)
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    return splits
 
 
 def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
-                  splits: Optional[int] = None) -> torch.Tensor:
+                  splits: Optional[int] = None, keep_hidden: bool = False):
     """K2: ``dX = [(dO W2^T) * gelu'(x W1 + b1)] W1^T``, ``(b, n, g, d)`` in
     ``x``'s type; ``g`` is dO.  ``x`` is read through its strides.
 
     ``splits``: how many blocks share a row tile's hidden dimension
     (default: :func:`planned_dx_splits`); with more than one their partial
     sums go through an f32 workspace, added in a fixed order by a second
-    kernel, and the call still counts as one launch."""
+    kernel, and the call still counts as one launch.
+
+    ``keep_hidden``: also return the hidden K3 reads, ``(dx, (hid, dh))``:
+    ``hid = gelu(x W1 + b1)`` and ``dh = (dO W2^T) * gelu'(x W1 + b1)``,
+    each ``(g, b * n, h)`` float32, stored by the same launch."""
     if not on_device("grouped_ff_dx", x):
-        return plain.grouped_ff_dx(params, x, g)
-    _check_bwd(params, x)
+        dx = plain.grouped_ff_dx(params, x, g)
+        return (dx, plain.grouped_ff_hidden(params, x, g)) if keep_hidden else dx
+    x = _bwd_input(params, x)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
     dx = torch.empty((b, n, gr, d), dtype=x.dtype, device=x.device)
+    hidden = (tuple(torch.empty((gr, b * n, h), dtype=torch.float32, device=x.device)
+                    for _ in range(2)) if keep_hidden else None)
     if b * n == 0:
-        return dx
-    if splits is None:
-        splits = planned_dx_splits(x.device, b * n, gr, d, h, x.dtype)
-    elif splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
+        return (dx, hidden) if keep_hidden else dx
+    splits = _splits(splits, planned_dx_splits, x, h)
     ws = (torch.empty((splits, b * n * gr * d), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     fn, _ = _bwd_kernels()
@@ -189,36 +219,59 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
             x.data_ptr(), _row_stride(x), x.stride(2),
             params["w1"].data_ptr(), params["b1"].data_ptr(), params["w2"].data_ptr(),
             go.data_ptr(), dx.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if hidden is None else hidden[0].data_ptr(),
+            None if hidden is None else hidden[1].data_ptr(),
             b * n, gr, d, h, splits, DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("grouped_ff_bwd", code)
     count(grouped_ff_dx)
-    return dx
+    return (dx, hidden) if keep_hidden else dx
 
 
-def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor):
-    """K3: ``(dW1 = X^T dH, db1 = 1^T dH, dW2 = gelu(pre)^T dO)`` summed over
-    every row, in the weights' type; ``g`` is dO."""
+def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
+                  splits: Optional[int] = None):
+    """K3: ``(dW1 = X^T dH, db1 = 1^T dH, dW2 = H^T dO)`` summed over every
+    row, in the weights' type; ``g`` is dO and ``hidden`` the ``(hid, dh)``
+    that ``grouped_ff_dx(..., keep_hidden=True)`` returned for the same
+    ``(params, x, g)``.  K3 reads the hidden and recomputes nothing, so it
+    has no path without one.
+
+    ``splits``: how many blocks share an output tile's rows (default:
+    :func:`planned_dw_splits`); with more than one their partial sums go
+    through an f32 workspace, added in a fixed order by a second kernel,
+    and the call still counts as one launch."""
+    if hidden is None:
+        raise ValueError("grouped_ff_dw reads the hidden K2 stores: pass the (hid, dh) of "
+                         "grouped_ff_dx(params, x, g, keep_hidden=True)")
+    hid, dh = hidden
     if not on_device("grouped_ff_dw", x):
-        return plain.grouped_ff_dw(params, x, g)
-    _check_bwd(params, x)
+        return plain.grouped_ff_dw_from_hidden(x, g, hid, dh, params["w1"].dtype)
+    x = _bwd_input(params, x)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
+    for name, t in (("hid", hid), ("dh", dh)):
+        if (tuple(t.shape) != (gr, b * n, h) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be ({gr}, {b * n}, {h}) float32, contiguous and "
+                             f"16-byte aligned on {x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
     dw1 = torch.empty_like(params["w1"])
     db1 = torch.empty_like(params["b1"])
     dw2 = torch.empty_like(params["w2"])
     if b * n == 0:
         return dw1.zero_(), db1.zero_(), dw2.zero_()
+    splits = _splits(splits, planned_dw_splits, x, h)
+    ws = (torch.empty((splits, gr * (2 * d * h + h)), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     _, fn = _bwd_kernels()
     with torch.cuda.device(x.device):
         code = fn(
-            x.data_ptr(), _row_stride(x), x.stride(2),
-            params["w1"].data_ptr(), params["b1"].data_ptr(), params["w2"].data_ptr(),
-            go.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-            b * n, gr, d, h, DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), _row_stride(x), x.stride(2), go.data_ptr(), hid.data_ptr(),
+            dh.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            None if ws is None else ws.data_ptr(), b * n, gr, d, h, splits,
+            DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check("grouped_ff_bwd", code)
     count(grouped_ff_dw)
@@ -227,10 +280,12 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor):
 
 def grouped_ff_backward(params: dict, x: torch.Tensor, g: torch.Tensor):
     """``(dx, dparams)`` of :func:`grouped_ff` at ``x`` for the cotangent
-    ``g``: K2, K3, and ``db2 = sum of dO`` in float32 (a plain reduction, as
-    ``ff_pallas.py::_backward_fused`` leaves it to XLA)."""
-    dx = grouped_ff_dx(params, x, g)
-    dw1, db1, dw2 = grouped_ff_dw(params, x, g)
+    ``g``: K2, which hands its hidden to K3, K3, and ``db2 = sum of dO`` in
+    float32 (a plain reduction, as ``ff_pallas.py::_backward_fused`` leaves
+    it to XLA).  The hidden is freed when this returns."""
+    dx, hidden = grouped_ff_dx(params, x, g, keep_hidden=True)
+    dw1, db1, dw2 = grouped_ff_dw(params, x, g, hidden)
+    del hidden
     db2 = g.to(x.dtype).float().sum(dim=(0, 1)).to(params["b2"].dtype)
     return dx, {"w1": dw1, "b1": db1, "w2": dw2, "b2": db2}
 

@@ -14,6 +14,10 @@ backward kernels K2 and K3 (``glom_tpu/kernels/ff_pallas.py::_bwd_dx_kernel``
 and ``::_bwd_dw_kernel``): the formulas of ``_recompute_dh`` written out in
 float32, with the cotangent cast to ``x``'s type first and the results in
 ``x``'s and the weights' types, as the TPU kernels return them.
+:func:`grouped_ff_dw` is the reference of K3's function.  On the card K2
+also hands K3 the hidden it forms, and K3 reduces over rows what it is
+given; their twins are :func:`grouped_ff_hidden` (the ``(hid, dh)`` K2
+stores) and :func:`grouped_ff_dw_from_hidden` (K3's products on them).
 """
 
 from __future__ import annotations
@@ -66,6 +70,31 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor) -> torch.Tenso
     """K2's plain version: ``dX = dH W1^T`` in ``x``'s type."""
     _, _, _, dh = _recompute_dh(params, x, g)
     return torch.einsum("bngh,gdh->bngd", dh, params["w1"].float()).to(x.dtype)
+
+
+def grouped_ff_hidden(params: dict, x: torch.Tensor, g: torch.Tensor):
+    """The twin of the hidden K2 hands K3: ``(hid, dh)``, each
+    ``(groups, rows, h)`` float32 (rows = b * n), ``hid = gelu(pre)`` and
+    ``dh = (dO W2^T) * gelu'(pre)``, in float32 whatever ``x``'s type, as
+    ``_recompute_dh`` keeps them."""
+    _, _, h, dh = _recompute_dh(params, x, g)
+    b, n, gr, hidden = h.shape
+    return (h.reshape(b * n, gr, hidden).transpose(0, 1).contiguous(),
+            dh.reshape(b * n, gr, hidden).transpose(0, 1).contiguous())
+
+
+def grouped_ff_dw_from_hidden(x: torch.Tensor, g: torch.Tensor, hid: torch.Tensor,
+                              dh: torch.Tensor, dtype):
+    """The twin of K3 on a given hidden: ``(dW1 = X^T dH, db1 = 1^T dH,
+    dW2 = H^T dO)`` summed over every row in float32, returned in
+    ``dtype``; ``hid`` and ``dh`` as :func:`grouped_ff_hidden` gives them,
+    ``dO`` is ``g`` cast to ``x``'s type."""
+    b, n, gr, d = x.shape
+    xf = x.float().reshape(b * n, gr, d)
+    go = g.to(x.dtype).float().reshape(b * n, gr, d)
+    return (torch.einsum("rgd,grh->gdh", xf, dh).to(dtype),
+            dh.sum(dim=1).to(dtype),
+            torch.einsum("grh,rgd->ghd", hid, go).to(dtype))
 
 
 def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor):

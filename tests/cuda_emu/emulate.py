@@ -15,8 +15,9 @@ points as the card's library, on host pointers.
 It checks what a kernel computes -- index arithmetic, fragment layouts,
 ragged tiles, the order of a ring's stages -- and nothing about its speed.
 The tensor cores' products are emulated on operands cut to tf32 as the
-hardware cuts them, summed in double, so results differ from the card's in
-the last bits.
+hardware cuts them, summed in double and rounded toward zero as the card
+rounds its f32 accumulation (so a long sum kept inside the mma drifts here
+as it does there), and results differ from the card's in the last bits.
 """
 
 from __future__ import annotations

@@ -85,6 +85,11 @@ void launch(dim3 grid, int threads, size_t, cudaStream_t, K kernel, A... args) {
       }
 }
 inline float tf32(float v) { return __uint_as_float(__float_as_uint(v) & 0xffffe000u); }
+// v rounded to f32 toward zero
+inline float round_toward_zero(double v) {
+  const float f = (float)v;
+  return std::fabs((double)f) > std::fabs(v) ? std::nextafter(f, 0.0f) : f;
+}
 inline float bf(uint32_t r, int half) { return __uint_as_float((half ? (r >> 16) : (r & 0xffff)) << 16); }
 }  // namespace emu
 

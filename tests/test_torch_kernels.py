@@ -20,6 +20,7 @@ import torch
 torch.set_num_threads(1)
 
 from glom_tpu_torch.kernels import _build
+from glom_tpu_torch.kernels import _common
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
 from glom_tpu_torch.ops import consensus as plain_consensus
@@ -111,7 +112,8 @@ def _jnp(tree):
 
 @pytest.mark.parametrize("strided", [False, True])
 def test_grouped_ff_backward_matches_pallas(strided):
-    """The plain K2 (dX) and K3 (dW) against _backward_fused's two kernels."""
+    """The plain K2 (dX) and K3 (dW, on the hidden K2 hands it) against
+    _backward_fused's two kernels."""
     import jax.numpy as jnp
 
     from glom_tpu.kernels.ff_pallas import _backward_fused
@@ -120,13 +122,83 @@ def test_grouped_ff_backward_matches_pallas(strided):
     want_dx, want = _backward_fused(jnp.asarray(np.ascontiguousarray(x)), _jnp(p),
                                     jnp.asarray(g), interpret=True)
     gt = torch.from_numpy(g)
-    np.testing.assert_allclose(ff_kernel.grouped_ff_dx(_torch(p), xt, gt).numpy(),
-                               np.asarray(want_dx), atol=ATOL)
-    dw1, db1, dw2 = ff_kernel.grouped_ff_dw(_torch(p), xt, gt)
+    dx, hidden = ff_kernel.grouped_ff_dx(_torch(p), xt, gt, keep_hidden=True)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=ATOL)
+    np.testing.assert_array_equal(dx.numpy(), ff_kernel.grouped_ff_dx(_torch(p), xt, gt).numpy())
+    dw1, db1, dw2 = ff_kernel.grouped_ff_dw(_torch(p), xt, gt, hidden)
     for name, got in (("w1", dw1), ("b1", db1), ("w2", dw2)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want[name]), atol=ATOL, err_msg=name)
     _, dp = ff_kernel.grouped_ff_backward(_torch(p), xt, gt)
     np.testing.assert_allclose(dp["b2"].numpy(), np.asarray(want["b2"]), atol=ATOL)
+
+
+def _ff_case_hidden(strided, dtype=torch.float32, seed=16):
+    """Seeded inputs at d=32, h=64, g=3 (the bottom-up view of a (2, 16, 4,
+    32) state, or a contiguous copy), in ``dtype``: ``(p, x, g)`` as numpy
+    float32 (values exact in ``dtype``) and ``(pt, xt, gt)`` as tensors."""
+    rng = np.random.default_rng(seed)
+    cut = lambda a: torch.from_numpy(a.astype(np.float32)).to(dtype)
+    p = {k: cut(v) for k, v in _ff_params(rng, 3, 32, 64).items()}
+    full = cut(rng.standard_normal((2, 16, 4, 32)))
+    xt = full[..., :-1, :] if strided else full[..., 1:, :].contiguous()
+    gt = cut(rng.standard_normal((2, 16, 3, 32)))
+    as_np = lambda t: t.float().numpy()
+    return ({k: as_np(v) for k, v in p.items()}, np.ascontiguousarray(as_np(xt)), as_np(gt),
+            p, xt, gt)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_grouped_ff_backward_hands_k3_the_hidden(strided):
+    """grouped_ff_backward on CPU tensors: the plain twin of the hidden K2
+    hands K3, and K3's plain products on it, against jax.vjp of the fused
+    Pallas backward in interpret mode (1e-5) and against the reference
+    plain.grouped_ff_dw, which recomputes the hidden (1e-6)."""
+    import jax
+
+    from glom_tpu.kernels.ff_pallas import grouped_ff_pallas
+
+    p, x, g, pt, xt, gt = _ff_case_hidden(strided)
+    _, vjp = jax.vjp(lambda x_, p_: grouped_ff_pallas(p_, x_, interpret=True, fused_bwd=True),
+                     x, _jnp(p))
+    want_dx, want = vjp(g)
+    hid, dh = plain_ff.grouped_ff_hidden(pt, xt, gt)
+    assert hid.shape == dh.shape == (3, 32, 64) and hid.dtype == dh.dtype == torch.float32
+    dx, got = ff_kernel.grouped_ff_backward(pt, xt, gt)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=ATOL)
+    ref = plain_ff.grouped_ff_dw(pt, xt, gt)
+    for k, r in zip(("w1", "b1", "w2"), ref):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL, err_msg=k)
+        np.testing.assert_allclose(got[k].numpy(), r.numpy(), atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got["b2"].numpy(), np.asarray(want["b2"]), atol=ATOL)
+    for k, r in zip(("w1", "b1", "w2"),
+                    plain_ff.grouped_ff_dw_from_hidden(xt, gt, hid, dh, torch.float32)):
+        np.testing.assert_allclose(got[k].numpy(), r.numpy(), atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+def test_grouped_ff_backward_hands_k3_the_hidden_bf16(strided):
+    """The same in bfloat16 (inputs, weights and cotangent): within one
+    bfloat16 rounding (2**-8 of the largest value) of jax.vjp of the fused
+    Pallas backward, and of the reference plain.grouped_ff_dw."""
+    import jax
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels.ff_pallas import grouped_ff_pallas
+
+    p, x, g, pt, xt, gt = _ff_case_hidden(strided, torch.bfloat16, seed=17)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda x_, p_: grouped_ff_pallas(p_, x_, interpret=True, fused_bwd=True),
+                     bf(x), {k: bf(v) for k, v in p.items()})
+    want_dx, want = vjp(bf(g))
+    dx, got = ff_kernel.grouped_ff_backward(pt, xt, gt)
+    ref = dict(zip(("w1", "b1", "w2"), plain_ff.grouped_ff_dw(pt, xt, gt)))
+    pairs = [("x", dx, want_dx)] + [(k, got[k], want[k]) for k in ("w1", "b1", "w2", "b2")]
+    pairs += [(k + " (plain)", got[k], ref[k]) for k in ref]
+    for name, a, w in pairs:
+        assert a.dtype == torch.bfloat16, name
+        w = np.asarray(w.float() if isinstance(w, torch.Tensor) else w, np.float32)
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=0,
+                                   atol=2.0 ** -8 * np.abs(w).max(), err_msg=name)
 
 
 @pytest.mark.parametrize("fused_bwd", [True, False])
@@ -302,6 +374,34 @@ def test_consensus_forward_needs_16_byte_rows():
     assert consensus_kernel._rows_aligned(torch.zeros((1, 4, 8, 128)).as_strided((1, 4, 1, 128), (5, 1024, 3, 1)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_backward_wrappers_copy_rows_off_a_boundary(dtype, offset):
+    """The backward kernels read rows as 4-element vectors (K2, K6, K7) or
+    in 16-byte pieces (K3): the predicate says "off a boundary" for views
+    ``offset`` elements into a flat buffer, and fresh_copy gives the same
+    values in storage on the boundary, which the wrappers then launch on
+    (glom_tpu's kernels take any layout)."""
+    shape = (2, 8, 3, 128)
+    flat = torch.arange(int(np.prod(shape)) + offset, dtype=torch.float32).to(dtype)
+    base = flat[:-offset].view(shape)
+    off = flat[offset:].view(shape)
+    for view in (off, off[..., :-1, :]):
+        strides = (view.stride(1), view.stride(2))
+        assert not _common.vector_aligned(view, *strides)
+        assert not _common.vector_aligned(view, *strides, nbytes=16)
+        copy = _common.fresh_copy(view)
+        assert torch.equal(copy, view) and copy.is_contiguous()
+        assert copy.data_ptr() != view.data_ptr()
+        assert _common.vector_aligned(copy, copy.stride(1), copy.stride(2), nbytes=16)
+    # the strided bottom-up view of an aligned state needs no copy
+    assert _common.vector_aligned(base[..., :-1, :], base.stride(1), base.stride(2), nbytes=16)
+    p, _ = _good_ff(g=2, dtype=dtype)
+    assert ff_kernel._bwd_input(p, base[..., :-1, :]).data_ptr() == base.data_ptr()
+    got = ff_kernel._bwd_input(p, off[..., :-1, :])
+    assert torch.equal(got, off[..., :-1, :]) and got.data_ptr() % 16 == 0
+
+
 def test_wrappers_refuse_grad_and_other_devices():
     """Under autograd the wrappers record their backward (no refusal since
     the backward kernels landed); off the CPU and CUDA they still raise."""
@@ -323,6 +423,9 @@ def test_wrappers_refuse_grad_and_other_devices():
         ff_kernel.grouped_ff_dx({k: v.to("meta") for k, v in p.items()}, meta, meta)
     with pytest.raises(ValueError):
         consensus_kernel.consensus_dq(meta, meta, meta, meta)
+    # K3 reads the hidden K2 hands it and has no path without one
+    with pytest.raises(ValueError, match="keep_hidden"):
+        ff_kernel.grouped_ff_dw(p, x.detach(), torch.zeros_like(x), None)
 
 
 def test_build_lists_sources_and_needs_nvcc(monkeypatch):
@@ -517,19 +620,19 @@ def test_gpu_grouped_ff_dx_splits_the_hidden(cuda, splits, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n", [(128, 20), (384, 70), (512, 64)])
 def test_gpu_grouped_ff_backward_matches_plain(cuda, dtype, d, n):
-    """K2 (dX) and K3 (dW) against their plain versions, on the strided
-    bottom-up view and a contiguous input; rows 40, 140, 128 leave ragged
-    row tiles."""
+    """K2 (dX) and K3 (dW, on the hidden K2 hands it) against their plain
+    versions, on the strided bottom-up view and a contiguous input; rows 40,
+    140, 128 leave ragged row tiles."""
     rng = np.random.default_rng(9)
     p = _torch(_ff_params(rng, 3, d, 4 * d), cuda, dtype)
     lwi = torch.from_numpy(rng.standard_normal((2, n, 4, d)).astype(np.float32)).to(cuda, dtype)
     g = torch.from_numpy(rng.standard_normal((2, n, 3, d)).astype(np.float32)).to(cuda, dtype)
     before = (ff_kernel.grouped_ff_dx.launches, ff_kernel.grouped_ff_dw.launches)
     for x in (lwi[..., :-1, :], lwi[..., 1:, :].contiguous()):
-        got = ff_kernel.grouped_ff_dx(p, x, g)
+        got, hidden = ff_kernel.grouped_ff_dx(p, x, g, keep_hidden=True)
         assert got.dtype == dtype and got.shape == x.shape
         _assert_close(got, plain_ff.grouped_ff_dx(_f32(p), x.float(), g.float()), dtype)
-        for name, got_w, want_w in zip(("w1", "b1", "w2"), ff_kernel.grouped_ff_dw(p, x, g),
+        for name, got_w, want_w in zip(("w1", "b1", "w2"), ff_kernel.grouped_ff_dw(p, x, g, hidden),
                                        plain_ff.grouped_ff_dw(_f32(p), x.float(), g.float())):
             assert got_w.dtype == dtype and got_w.shape == p[name].shape
             _assert_close(got_w, want_w, dtype)
@@ -574,10 +677,12 @@ def test_gpu_backward_kernels_are_deterministic(cuda):
     p = _torch(_ff_params(rng, 3, 256, 1024), cuda)
     x = torch.from_numpy(rng.standard_normal((4, 64, 3, 256)).astype(np.float32)).to(cuda)
     g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(cuda)
-    for fn in (ff_kernel.grouped_ff_dx, ff_kernel.grouped_ff_dw):
-        a, b = fn(p, x, g), fn(p, x, g)
-        for u, v in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
-            assert torch.equal(u, v)
+    (dx, hidden), (dx2, hidden2) = (ff_kernel.grouped_ff_dx(p, x, g, keep_hidden=True)
+                                    for _ in range(2))
+    assert torch.equal(dx, dx2) and all(torch.equal(u, v) for u, v in zip(hidden, hidden2))
+    assert torch.equal(ff_kernel.grouped_ff_dx(p, x, g), ff_kernel.grouped_ff_dx(p, x, g))
+    for u, v in zip(ff_kernel.grouped_ff_dw(p, x, g, hidden), ff_kernel.grouped_ff_dw(p, x, g, hidden)):
+        assert torch.equal(u, v)
     with torch.no_grad():
         out, lse = consensus_kernel.consensus_attention(x)
     delta = (g * out).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
@@ -586,22 +691,113 @@ def test_gpu_backward_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.gpu
-def test_gpu_backward_kernels_take_vector_aligned_rows(cuda):
-    """The backward kernels read rows as 4-element vectors: an input one
-    element off that boundary is refused; a cotangent there is copied."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gpu_backward_kernels_take_vector_aligned_rows(cuda, dtype, offset):
+    """The backward kernels on inputs whose rows lie off a vector boundary
+    (``offset`` elements into a flat buffer), as glom_tpu's kernels take any
+    layout: each wrapper copies them into fresh storage, launches its kernel
+    once, and K2, K3, K6 and K7 agree with their plain versions."""
     rng = np.random.default_rng(13)
-    p = _torch(_ff_params(rng, 2, 128, 256), cuda)
-    shape = (2, 8, 2, 128)
-    flat = torch.from_numpy(rng.standard_normal(int(np.prod(shape)) + 1).astype(np.float32)).to(cuda)
-    off = flat[1:].view(shape)
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
-    with pytest.raises(ValueError, match="4-element"):
-        ff_kernel.grouped_ff_dx(p, off, x)
-    stats = torch.zeros((2, 2, 8, 1), device=cuda)
-    with pytest.raises(ValueError, match="4-element"):
-        consensus_kernel.consensus_dq(off, x, stats, stats)
-    _assert_close(ff_kernel.grouped_ff_dx(p, x, off), plain_ff.grouped_ff_dx(p, x, off),
-                  torch.float32)
+    p = _torch(_ff_params(rng, 2, 128, 256), cuda, dtype)
+    shape = (2, 8, 3, 128)
+    t = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(cuda, dtype)
+    off = t(int(np.prod(shape)) + offset)[offset:].view(shape)
+    x, g = off[..., :-1, :], t(2, 8, 2, 128)
+    g_off = t(2 * 8 * 2 * 128 + offset)[offset:].view(2, 8, 2, 128)
+    counters = (ff_kernel.grouped_ff_dx, ff_kernel.grouped_ff_dw, consensus_kernel.consensus_dkv,
+                consensus_kernel.consensus_dq)
+    before = [f.launches for f in counters]
+    p32 = _f32(p)
+    for xx, gg in ((x, g), (x, g_off)):
+        dx, hidden = ff_kernel.grouped_ff_dx(p, xx, gg, keep_hidden=True)
+        _assert_close(dx, plain_ff.grouped_ff_dx(p32, xx.float(), gg.float()), dtype)
+        for got, want in zip(ff_kernel.grouped_ff_dw(p, xx, gg, hidden),
+                             plain_ff.grouped_ff_dw(p32, xx.float(), gg.float())):
+            _assert_close(got, want, dtype)
+    levels, dout = off, t(int(np.prod(shape)) + offset)[offset:].view(shape)
+    with torch.no_grad():
+        out, lse = plain_consensus.consensus_attention(levels.float())
+    delta = (dout.float() * out).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
+    key_term, _ = plain_consensus.consensus_dkv_terms(levels.float(), dout.float(), lse, delta)
+    for kernel, ref, part in ((consensus_kernel.consensus_dkv, plain_consensus.consensus_dkv, key_term),
+                              (consensus_kernel.consensus_dq, plain_consensus.consensus_dq, None)):
+        _assert_close(kernel(levels, dout, lse, delta),
+                      ref(levels.float(), dout.float(), lse, delta), dtype, part)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1, 1]
+
+
+def _grouped_ff_dw_f64(p, x, g):
+    """``(dW1, db1, dW2)`` of the grouped FF in float64: the formulas of
+    plain.grouped_ff_dw, with the cotangent cast to ``x``'s type first."""
+    x64, g64 = x.double(), g.to(x.dtype).double()
+    w1, b1, w2 = (p[k].double() for k in ("w1", "b1", "w2"))
+    pre = torch.einsum("bngd,gdh->bngh", x64, w1) + b1
+    cdf = 0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+    pdf = torch.exp(-0.5 * pre * pre) / (2.0 * np.pi) ** 0.5
+    dh = torch.einsum("bngd,ghd->bngh", g64, w2) * (cdf + pre * pdf)
+    return (torch.einsum("bngd,bngh->gdh", x64, dh), dh.sum(dim=(0, 1)),
+            torch.einsum("bngh,bngd->ghd", pre * cdf, g64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("rows", [1, 49, 256, 2048])
+@pytest.mark.parametrize("g", [5, 6])
+@pytest.mark.parametrize("h", [192, 2048])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_gpu_grouped_ff_dw_matches_plain(cuda, d, h, g, rows, strided, dtype):
+    """K3 on the hidden K2 hands it against its reference, over the widths
+    it takes (h 192: a dW1 tile of 64 live columns, a dW2 tile of 64 live
+    rows), both group counts of the main path, row counts on and off its
+    32-row slab (2048 = b 8 x n 256), the strided bottom-up view and a
+    contiguous input, with the planned split of the rows; the hidden against
+    its plain twin; two calls give the same bits, one launch each.  The
+    reference is computed in float64: over 2048 rows at d=512, h=192, the
+    float32 plain.grouped_ff_dw is itself off the exact sums by up to 1.07
+    of the elementwise limit (K3: 0.31; NVIDIA H100, 700 W)."""
+    rng = np.random.default_rng(d + h + g + rows + 1)
+    p = _torch(_ff_params(rng, g, d, h), cuda, dtype)
+    b, n = (8, rows // 8) if rows > 256 else (1, rows)
+    lwi = torch.from_numpy(rng.standard_normal((b, n, g + 1, d)).astype(np.float32)).to(cuda, dtype)
+    x = lwi[..., :-1, :] if strided else lwi[..., 1:, :].contiguous()
+    dout = torch.from_numpy(rng.standard_normal((b, n, g, d)).astype(np.float32)).to(cuda, dtype)
+    p32, x32, g32 = _f32(p), x.float(), dout.float()
+    _, hidden = ff_kernel.grouped_ff_dx(p, x, dout, keep_hidden=True)
+    for got, want in zip(hidden, plain_ff.grouped_ff_hidden(p32, x32, g32)):
+        _assert_close(got, want, torch.float32)
+    before = ff_kernel.grouped_ff_dw.launches
+    got = ff_kernel.grouped_ff_dw(p, x, dout, hidden)
+    assert ff_kernel.grouped_ff_dw.launches == before + 1
+    for name, u, w in zip(("w1", "b1", "w2"), got, _grouped_ff_dw_f64(p, x, dout)):
+        assert u.dtype == dtype and u.shape == p[name].shape
+        _assert_close(u, w, dtype)
+    assert all(torch.equal(u, v) for u, v in zip(got, ff_kernel.grouped_ff_dw(p, x, dout, hidden)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [49, 256])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_gpu_grouped_ff_dw_splits_the_rows(cuda, splits, rows, dtype):
+    """K3 with the rows split over 1, 2, 3 and 8 blocks a tile (partial sums
+    through the f32 workspace, added in order by the second kernel; with 49
+    rows, two slabs, at most two splits hold any), at b=1 flagship widths:
+    against the reference, two calls bitwise equal, one launch a call."""
+    rng = np.random.default_rng(16)
+    p = _torch(_ff_params(rng, 6, 512, 2048), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((1, rows, 7, 512)).astype(np.float32)).to(cuda, dtype)
+    x = lwi[..., :-1, :]
+    dout = torch.from_numpy(rng.standard_normal((1, rows, 6, 512)).astype(np.float32)).to(cuda, dtype)
+    _, hidden = ff_kernel.grouped_ff_dx(p, x, dout, keep_hidden=True)
+    before = ff_kernel.grouped_ff_dw.launches
+    got = ff_kernel.grouped_ff_dw(p, x, dout, hidden, splits=splits)
+    assert ff_kernel.grouped_ff_dw.launches == before + 1
+    for u, w in zip(got, plain_ff.grouped_ff_dw(_f32(p), x.float(), dout.float())):
+        _assert_close(u, w, dtype)
+    again = ff_kernel.grouped_ff_dw(p, x, dout, hidden, splits=splits)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
 
 
 @pytest.mark.gpu
