@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``glom_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                    # every phase: the smoke test
-    python3 chip_smoke.py --only k2,train    # device, build and the named phases
+    python3 chip_smoke.py --only k1,train    # device, build and the named phases
 
 Run from the root of a checkout; it builds everything it needs.  Phases,
 each printing one JSON line; any failure raises and exits non-zero.  With
@@ -14,8 +14,8 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            shapes (b=8, n=256, L=6, d=512), in float32 and bfloat16, with
            times (CUDA events; per call, the median of 20 runs of 5 calls
            after a warm-up) beside the bound and a PyTorch library call
-           where one computes the same function: the forward kernels (K1,
-           K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
+           where one computes the same function: the forward kernels (K1's
+           rows as the k1 phase gives them; K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
            consensus; K2 hands K3 the hidden, and the pair is timed
            together); K2 also at b=1 and at 49 rows (off its 32-row tile);
            consensus also with attend_self, the locality mask,
@@ -24,6 +24,13 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            b=1, with the mask and attend_self,
            beside the time of the kernels it replaces (K1 + K1 + K4 and the
            elementwise tail) on the same inputs;
+  k1       (only with --only) K1's rows of the kernels phase alone: the
+           bottom-up (g=6, strided view), top-down (g=5) and fuse_ff (g=11)
+           calls at b=8, and b=1 and 49 rows (strided views), in float32
+           and bfloat16; each with its split count, its bound, the plain
+           version's time and a yardstick (two torch.baddbmm calls and an
+           exact GELU in full float32 on the same inputs), and at b=8 in
+           float32 its error against float64;
   k2       (only with --only) K2's rows of the kernels phase alone;
   k3       (only with --only) K3's rows: for the bottom-up (g=6, strided
            view) and top-down (g=5) calls at b=8, b=1 and 49 rows, in
@@ -67,7 +74,6 @@ float32: TF32 is switched off for matmul and cuDNN.
 
 from __future__ import annotations
 
-import inspect
 import itertools
 import json
 import os
@@ -132,9 +138,6 @@ GRAD_RTOL = 1e-4
 TRAIN_STEPS = 10
 FUSED_TRAIN_STEPS = 5
 KNOB_TRAIN_STEPS = 2
-# whether K2 hands K3 the hidden (K3 then reads it and recomputes nothing);
-# --only k2 / k3 also time a parent tree, whose K3 recomputes it
-HANDOFF = "hidden" in inspect.signature(ff_kernel.grouped_ff_dw).parameters
 
 
 def emit(obj) -> None:
@@ -227,19 +230,24 @@ def phase_build() -> None:
         with open(log) as f:
             text = f.read()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        # (kernel, element type, width) of each function that spills
-        spilling = [f"{m[0]}<{m[1].replace('13__nv_bfloat16', 'bf16')},{m[2]}> {m[3]} B"
-                    for m in re.findall(r"Function properties for \S*?([a-z_]+_kernel)I(\w+?)Li(\d+)E"
+        # (kernel, template arguments: element type and width) of each
+        # function that spills, and the registers of each
+        kernel = r"([a-z_]+_kernel)I(\w+?)E"
+
+        def label(m):
+            return f"{m[0]}<{m[1].replace('13__nv_bfloat16', 'bf16').replace('Li', ',')}>"
+
+        spilling = [f"{label(m)} {m[2]} B"
+                    for m in re.findall(r"Function properties for \S*?" + kernel +
                                         r"\S*\s+\d+ bytes stack frame, (\d+) bytes spill stores",
-                                        text) if int(m[3])]
-        # registers of each kernel at each (element type, width)
+                                        text) if int(m[2])]
         per_kernel = {}
         for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
                                    text, re.S):
-            m = re.search(r"([a-z_]+_kernel)I(\w+?)Li(\d+)E", fn)
+            m = re.search(kernel, fn)
             used = re.search(r"Used (\d+) registers", body)
             if m and used:
-                per_kernel[f"{m[1]}<{m[2].replace('13__nv_bfloat16', 'bf16')},{m[3]}>"] = int(used[1])
+                per_kernel[label((m[1], m[2]))] = int(used[1])
         ptxas[name] = {"max_registers": max(regs, default=0), "spills": spilling,
                        "registers": per_kernel}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -247,21 +255,82 @@ def phase_build() -> None:
           "flags": " ".join(_build.NVCC_FLAGS)})
 
 
-def ff_case(params, x, dtype, label):
-    out = ff_kernel.grouped_ff(params, x)
-    ref = plain_ff(f32(params), x.float())
+def grouped_ff_f64(params, x):
+    """The grouped FF's output computed in float64 on the same inputs: the
+    exact value against which K1 and its float32 plain version are both
+    measured."""
+    x64 = x.double()
+    w1, b1, w2, b2 = (params[k].double() for k in ("w1", "b1", "w2", "b2"))
+    pre = torch.einsum("bngd,gdh->bngh", x64, w1) + b1
+    hid = 0.5 * pre * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+    return torch.einsum("bngh,ghd->bngd", hid, w2) + b2
+
+
+def k1_case(params, x, dtype, label, *, exact=False):
+    """K1 (the grouped FF forward) against its plain version computed in
+    float32 on the same inputs, with its split count, bound, the plain
+    version's time and a yardstick: two torch.baddbmm calls and the exact
+    GELU in full float32 on the same inputs arranged (groups, rows, d)
+    outside the timing (three calls, never called by the port; no single
+    PyTorch call computes K1, so library_ms stays null).  ``exact``: also
+    the kernel's and the float32 plain version's error against float64,
+    the kernel's held within compare()'s limits."""
+    rows, gr, d, h, item = ff_dims(params, x)
+    got = ff_kernel.grouped_ff(params, x)
+    want = plain_ff(f32(params), x.float())
     torch.cuda.synchronize()
-    err = compare(out, ref, dtype, f"grouped_ff {label}")
-    b, n, g, d = x.shape
-    h = params["w1"].shape[-1]
-    item = x.element_size()
-    flops = 4.0 * b * n * g * d * h
-    nbytes = item * (2 * b * n * g * d + g * (2 * d * h + h + d))
-    return {"case": label, "dtype": str(dtype).replace("torch.", ""),
-            "shape": list(x.shape), **err,
-            "kernel_ms": time_ms(lambda: ff_kernel.grouped_ff(params, x)),
-            "plain_ms": time_ms(lambda: plain_ff(params, x)),
-            "library_ms": None, **bounds(flops, nbytes, dtype)}
+    err = compare(got, want, dtype, f"grouped_ff {label}")
+    flops = 4.0 * rows * gr * d * h
+    nbytes = item * (2 * rows * gr * d + gr * (2 * d * h + h + d))
+    row = {"kernel": "grouped_ff", "case": label, "dtype": str(dtype).replace("torch.", ""),
+           "shape": list(x.shape), "splits": ff_kernel.planned_splits(x.device, rows, gr, d, h, dtype),
+           **err, "bitwise_repeat": torch.equal(got, ff_kernel.grouped_ff(params, x))}
+    if not row["bitwise_repeat"]:
+        raise AssertionError(f"grouped_ff {label}: two calls differ")
+    if exact:
+        want64 = grouped_ff_f64(params, x)
+        row["vs_f64"] = {"kernel": error_vs([got], [want64], dtype),
+                         "plain_f32": error_vs([want], [want64], dtype)}
+        vs = row["vs_f64"]["kernel"]
+        if not (vs["norm_rel_err"] <= RTOL[dtype] and vs["limit_share"] <= 1.0):
+            raise AssertionError(f"grouped_ff {label}: off the float64 values by {vs}")
+        del want64
+    del got, want
+    xg = x.float().reshape(rows, gr, d).transpose(0, 1).contiguous()
+    w1, b1, w2, b2 = (params[k].float() for k in ("w1", "b1", "w2", "b2"))
+    b1, b2 = b1[:, None, :], b2[:, None, :]
+    row.update({
+        "kernel_ms": time_ms(lambda: ff_kernel.grouped_ff(params, x)),
+        "plain_ms": time_ms(lambda: plain_ff(params, x)),
+        "yardstick_ms": time_ms(lambda: torch.baddbmm(
+            b2, F.gelu(torch.baddbmm(b1, xg, w1), approximate="none"), w2)),
+        "yardstick": "torch.baddbmm, F.gelu(approximate='none'), torch.baddbmm in full float32 "
+                     "on the same inputs arranged (groups, rows, d)",
+        "library_ms": None, **bounds(flops, nbytes, dtype)})
+    return row
+
+
+def k1_inputs(cast, x):
+    """K1's cases: ``(label, params, x)`` for the main path's two calls at
+    b=8 (the bottom-up strided view, g=6, and the top-down input, g=5), the
+    fuse_ff call (both nets as one call of 11 groups), then b=1 and 49 rows
+    (off the 64-row tile) as strided views."""
+    pos = cast["pos_emb"][None, :, None, :]
+    bu, td = cast["bottom_up"], cast["top_down"]
+    td_in = x[..., 2:, :] + pos
+    both = {k: torch.cat([bu[k], td[k]]) for k in ("w1", "b1", "w2", "b2")}
+    return (("bottom_up (strided view, g=6)", bu, x[..., :-1, :]),
+            ("top_down (g=5)", td, td_in),
+            ("fuse_ff (g=11)", both, torch.cat([x[..., :-1, :], td_in], dim=-2)),
+            ("bottom_up b=1 (strided view, g=6)", bu, x[:1, :, :-1, :]),
+            ("bottom_up 49 rows (strided view, g=6)", bu, x[:1, :49, :-1, :]))
+
+
+def k1_rows(cast, x, dtype):
+    """K1's rows in ``dtype``, one a case of k1_inputs; the b=8 cases in
+    float32 also against float64."""
+    return [k1_case(p, xx, dtype, label, exact=dtype == torch.float32 and xx.shape[0] == BATCH)
+            for label, p, xx in k1_inputs(cast, x)]
 
 
 def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, library=None):
@@ -304,34 +373,25 @@ def ff_dims(params, x):
 
 
 def k2_case(params, x, g, dtype, label):
-    """K2 (dX) against its plain version: ``(row, hidden)``.  In a tree
-    where K2 hands K3 the hidden (HANDOFF), the hidden it stores is held
-    against the plain one too, and the row times K2 with the stores (the
-    main path's call, ``kernel_ms``) and without them; ``hidden`` is what K3
-    then reads (None in an older tree)."""
+    """K2 (dX) against its plain version, the hidden it stores for K3 against
+    the plain hidden: ``(row, hidden)``.  The row times K2 with the stores
+    (the main path's call, ``kernel_ms``) and without them; ``hidden`` is
+    what K3 then reads."""
     rows, gr, d, h, item = ff_dims(params, x)
     p32, x32, g32 = f32(params), x.float(), g.float()
-    hidden = None
-    if HANDOFF:
-        got, hidden = ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)
-    else:
-        got = ff_kernel.grouped_ff_dx(params, x, g)
+    got, hidden = ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)
     want = plain_ffm.grouped_ff_dx(p32, x32, g32)
     torch.cuda.synchronize()
     err = compare(got, want, dtype, f"grouped_ff_dx {label}")
     row = {"kernel": "grouped_ff_dx", "case": label, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(x.shape), "splits": ff_kernel.planned_dx_splits(x.device, rows, gr, d, h, dtype),
            **err}
-    handoff_bytes = 0
-    if HANDOFF:
-        for name, u, v in zip(("hid", "dh"), hidden, plain_ffm.grouped_ff_hidden(p32, x32, g32)):
-            row[f"{name}_norm_rel_err"] = compare(u, v, torch.float32,
-                                                  f"grouped_ff_dx {label} {name}")["norm_rel_err"]
-        handoff_bytes = 2 * 4 * gr * rows * h   # hid and dh, f32, written once
-        row["kernel_ms"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True))
-        row["kernel_ms_no_handoff"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g))
-    else:
-        row["kernel_ms"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g))
+    for name, u, v in zip(("hid", "dh"), hidden, plain_ffm.grouped_ff_hidden(p32, x32, g32)):
+        row[f"{name}_norm_rel_err"] = compare(u, v, torch.float32,
+                                              f"grouped_ff_dx {label} {name}")["norm_rel_err"]
+    handoff_bytes = 2 * 4 * gr * rows * h   # hid and dh, f32, written once
+    row["kernel_ms"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True))
+    row["kernel_ms_no_handoff"] = time_ms(lambda: ff_kernel.grouped_ff_dx(params, x, g))
     flops = 6.0 * rows * gr * d * h
     nbytes = item * (3 * rows * gr * d + gr * (2 * d * h + h)) + handoff_bytes
     row.update({"handoff_bytes": handoff_bytes,
@@ -371,25 +431,18 @@ def error_vs(got, exact, dtype) -> dict:
 
 def k3_case(params, x, g, hidden, dtype, label, k2_ms):
     """K3 (dW) against the reference plain.grouped_ff_dw; the worst of its
-    three outputs.  With the handoff K3 reads ``hidden`` (K2's) and does 4
-    units of rows*d*h*groups FLOPs, reading x, dO and the hidden; its plain
-    version is the twin on the same hidden, and its library time two
-    torch.bmm calls in full float32 and the column sum of dH on the same
-    hidden.  In an older tree K3 recomputes the hidden (8 units).  ``k2_ms``:
-    the time of the K2 it needs, beside it."""
+    three outputs.  K3 reads ``hidden`` (K2's) and does 4 units of
+    rows*d*h*groups FLOPs, reading x, dO and the hidden; its plain version
+    is the twin on the same hidden, and its library time two torch.bmm
+    calls in full float32 and the column sum of dH on the same hidden.
+    ``k2_ms``: the time of the K2 it needs, beside it."""
     rows, gr, d, h, item = ff_dims(params, x)
     outputs = gr * (2 * d * h + h)
-    if HANDOFF:
-        hid, dh = hidden
-        call = lambda: ff_kernel.grouped_ff_dw(params, x, g, hidden)
-        plain = lambda: plain_ffm.grouped_ff_dw_from_hidden(x, g, hid, dh, dtype)
-        flops = 4.0 * rows * gr * d * h
-        nbytes = item * (2 * rows * gr * d + outputs) + 2 * 4 * gr * rows * h
-    else:
-        call = lambda: ff_kernel.grouped_ff_dw(params, x, g)
-        plain = lambda: plain_ffm.grouped_ff_dw(params, x, g)
-        flops = 8.0 * rows * gr * d * h
-        nbytes = item * (2 * rows * gr * d + 2 * outputs)
+    hid, dh = hidden
+    call = lambda: ff_kernel.grouped_ff_dw(params, x, g, hidden)
+    plain = lambda: plain_ffm.grouped_ff_dw_from_hidden(x, g, hid, dh, dtype)
+    flops = 4.0 * rows * gr * d * h
+    nbytes = item * (2 * rows * gr * d + outputs) + 2 * 4 * gr * rows * h
     got = call()
     want = plain_ffm.grouped_ff_dw(f32(params), x.float(), g.float())
     torch.cuda.synchronize()
@@ -403,44 +456,38 @@ def k3_case(params, x, g, hidden, dtype, label, k2_ms):
     row = {"kernel": "grouped_ff_dw", "case": label, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(x.shape), **max(errs, key=lambda e: e["norm_rel_err"]),
            "bitwise_repeat": all(torch.equal(u, v) for u, v in zip(got, call())),
-           "vs_f64": vs_f64,
+           "vs_f64": vs_f64, "splits": ff_kernel.planned_dw_splits(x.device, rows, gr, d, h, dtype),
            "kernel_ms": time_ms(call), "k2_ms": k2_ms, "plain_ms": time_ms(plain),
            "library_ms": None, **bounds(flops, nbytes, dtype)}
     if not row["bitwise_repeat"]:
         raise AssertionError(f"grouped_ff_dw {label}: two calls differ")
-    if HANDOFF:
-        row["splits"] = ff_kernel.planned_dw_splits(x.device, rows, gr, d, h, dtype)
-        # the yardstick on the same hidden: dW1 = X^T dH and dW2 = H^T dO as
-        # batched products over the groups, in full float32 (x and dO cast
-        # outside the timing for bf16), and db1 = dH summed over rows
-        xg = x.float().reshape(rows, gr, d).transpose(0, 1)
-        gg = g.float().reshape(rows, gr, d).transpose(0, 1)
-        row["library_ms"] = time_ms(lambda: (torch.bmm(xg.transpose(1, 2), dh), dh.sum(dim=1),
-                                             torch.bmm(hid.transpose(1, 2), gg)))
-        row["library"] = ("two torch.bmm calls in full float32 (X^T dH, H^T dO) and dH.sum over "
-                          "rows, on the same hidden")
+    # the yardstick on the same hidden: dW1 = X^T dH and dW2 = H^T dO as
+    # batched products over the groups, in full float32 (x and dO cast
+    # outside the timing for bf16), and db1 = dH summed over rows
+    xg = x.float().reshape(rows, gr, d).transpose(0, 1)
+    gg = g.float().reshape(rows, gr, d).transpose(0, 1)
+    row["library_ms"] = time_ms(lambda: (torch.bmm(xg.transpose(1, 2), dh), dh.sum(dim=1),
+                                         torch.bmm(hid.transpose(1, 2), gg)))
+    row["library"] = ("two torch.bmm calls in full float32 (X^T dH, H^T dO) and dH.sum over "
+                      "rows, on the same hidden")
     return row
 
 
 def pair_case(params, x, g, dtype, label, k2_ms, k3_ms):
-    """K2 + K3 as the backward runs them (K2 handing K3 the hidden, where it
-    does), timed together, against the bound of the TPU kernels' work: 14
-    units of rows*d*h*groups FLOPs (K2's 6, and the 8 of a K3 that
-    recomputes the hidden), reading x, dO and the weights and writing dX and
-    dW once.  The bound is the same in a tree before and after the handoff,
-    so the pair's times compare."""
+    """K2 + K3 as the backward runs them (K2 handing K3 the hidden), timed
+    together, against the bound of the TPU kernels' work: 14 units of
+    rows*d*h*groups FLOPs (K2's 6, and the 8 of a K3 that recomputes the
+    hidden, as the TPU's does), reading x, dO and the weights and writing
+    dX and dW once."""
     rows, gr, d, h, item = ff_dims(params, x)
-    if HANDOFF:
-        call = lambda: ff_kernel.grouped_ff_dw(
-            params, x, g, ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)[1])
-    else:
-        call = lambda: (ff_kernel.grouped_ff_dx(params, x, g), ff_kernel.grouped_ff_dw(params, x, g))
+    call = lambda: ff_kernel.grouped_ff_dw(
+        params, x, g, ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)[1])
     flops = 14.0 * rows * gr * d * h
     nbytes = item * (3 * rows * gr * d + 2 * gr * (2 * d * h + h))
     return {"kernel": "grouped_ff_dx+grouped_ff_dw", "case": label,
             "dtype": str(dtype).replace("torch.", ""), "shape": list(x.shape),
-            "handoff": HANDOFF, "kernel_ms": time_ms(call), "k2_ms": k2_ms, "k3_ms": k3_ms,
-            "work": "the TPU kernels' 14 units" + (" (the pair does 10)" if HANDOFF else ""),
+            "kernel_ms": time_ms(call), "k2_ms": k2_ms, "k3_ms": k3_ms,
+            "work": "the TPU kernels' 14 units (the pair does 10)",
             **bounds(flops, nbytes, dtype)}
 
 
@@ -576,18 +623,21 @@ def k3_rows(cast, x, g, dtype, cases=4):
     return rows
 
 
-def phase_only_ff_bwd(device, name: str) -> None:
-    """``--only k2`` (K2's rows) or ``--only k3`` (K3's: K2, K3 and the pair
-    a case) in float32 and bfloat16, for timing a kernel variant without
-    the rest of the kernels phase."""
+def phase_only(device, name: str) -> None:
+    """``--only k1`` (K1's rows), ``--only k2`` (K2's) or ``--only k3``
+    (K3's: K2, K3 and the pair a case) in float32 and bfloat16, for timing
+    a kernel or a variant of it without the rest of the kernels phase."""
     params, lwi, *_, g_ff, _, _ = flagship_inputs(device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         cast = glom_model.tree_map(lambda p: p.to(dtype), params)
-        fn = k2_rows if name == "k2" else k3_rows
-        rows += fn(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
-    emit({"phase": name, "kernel": "grouped_ff_dx" if name == "k2" else "grouped_ff_dw",
-          "handoff": HANDOFF, "rows": rows})
+        if name == "k1":
+            rows += k1_rows(cast, lwi.to(dtype), dtype)
+        else:
+            fn = k2_rows if name == "k2" else k3_rows
+            rows += fn(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
+    kernel = {"k1": "grouped_ff", "k2": "grouped_ff_dx", "k3": "grouped_ff_dw"}[name]
+    emit({"phase": name, "kernel": kernel, "rows": rows})
 
 
 def phase_kernels(device) -> dict:
@@ -598,10 +648,7 @@ def phase_kernels(device) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cast = glom_model.tree_map(lambda p: p.to(dtype), params)
         x = lwi.to(dtype)
-        ff_rows.append(ff_case(cast["bottom_up"], x[..., :-1, :], dtype,
-                               "bottom_up (strided view, g=6)"))
-        pos = cast["pos_emb"][None, :, None, :]
-        ff_rows.append(ff_case(cast["top_down"], x[..., 2:, :] + pos, dtype, "top_down (g=5)"))
+        ff_rows += k1_rows(cast, x, dtype)
         lv = levels.to(dtype)
         cons_rows.append(consensus_case(lv, dtype, "attend_self=False"))
         cons_rows.append(consensus_case(lv, dtype, "attend_self=True", attend_self=True))
@@ -954,8 +1001,7 @@ def phase_train(device) -> dict:
           "grad_vs_plain": grad,
           "bitwise_repeat": bitwise, "step_memory": memory,
           "step_memory_note": "torch.cuda.max_memory_allocated over one step (forward, backward, "
-                              "Adam) from the trained state; resident: allocated before it",
-          "handoff": HANDOFF})
+                              "Adam) from the trained state; resident: allocated before it"})
     phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
                   phase="train_profile", grad=True)
     serve_trained(ckpt, device, kern)
@@ -1099,7 +1145,7 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-PHASES = ("kernels", "k2", "k3", "serve", "train", "serve_fused", "train_fused")
+PHASES = ("kernels", "k1", "k2", "k3", "serve", "train", "serve_fused", "train_fused")
 
 
 def parse_args(argv):
@@ -1108,8 +1154,8 @@ def parse_args(argv):
     p = argparse.ArgumentParser(description="Drive glom_tpu_torch on one NVIDIA GPU.")
     p.add_argument("--only", default=None,
                    help="comma-separated phases to run after device and build, for "
-                        f"iterating on one part: {', '.join(PHASES)} (k2: K2's rows alone; "
-                        "k3: K3's, each with the K2 it needs and the pair). "
+                        f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
+                        "k2: K2's; k3: K3's, each with the K2 it needs and the pair). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -1126,8 +1172,8 @@ def run_only(device, names) -> int:
     for name in names:
         if name == "kernels":
             phase_kernels(device)
-        elif name in ("k2", "k3"):
-            phase_only_ff_bwd(device, name)
+        elif name in ("k1", "k2", "k3"):
+            phase_only(device, name)
         elif name == "serve":
             phase_serve(device)
         elif name == "train":
@@ -1200,6 +1246,9 @@ def main(argv=()) -> int:
                         "library_case": None if library[name] is None else (
                             "attend_self=True" if name == "consensus_attention" else
                             "attend_self=True; SDPA's backward (dQ, dK, dV) against K6 + K7")})
+        if name == "grouped_ff":
+            summary[-1].update({k: row[k] for k in ("splits", "yardstick_ms", "yardstick",
+                                                    "vs_f64")})
         if name == "grouped_ff_dw":
             pair = main_rows["grouped_ff_dx+grouped_ff_dw"]
             summary[-1]["library_case"] = main_rows[name].get("library")

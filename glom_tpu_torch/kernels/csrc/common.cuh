@@ -140,6 +140,35 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Host helpers of the kernels' split planners.
+
+// The split count, at most max_splits, that runs `tiles` blocks' worth of
+// work, `units` steps a tile (hidden chunks in K2, row slabs in K3, hidden
+// slabs in K1), on `slots` resident blocks in the fewest step-times (waves x
+// steps a block), the fewest splits on a tie.
+inline int fewest_waves(long long tiles, long long slots, int units, long long max_splits) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int per_split = units; per_split >= 1; --per_split) {
+    const int splits = (units + per_split - 1) / per_split;
+    if (splits > max_splits) break;
+    const long long cost = (tiles * splits + slots - 1) / slots * per_split;
+    if (best_cost < 0 || cost < best_cost) best = splits, best_cost = cost;
+  }
+  return best;
+}
+
+// The current device's SM count times `per_sm`, or -1.
+inline long long block_slots(int per_sm) {
+  int device = 0, sms = 0;
+  if (per_sm < 1 || cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  return (long long)sms * per_sm;
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace glom
 
 extern "C" const char* glom_cuda_error_string(int code) {

@@ -76,7 +76,7 @@
 //  * one block an SM makes a call's time whole waves of blocks: 320 row
 //    tiles (g=5 at b=8) take three waves like 384, and 48 (b=1) leave most
 //    SMs idle.  So glom_grouped_ff_bwd_dx_splits picks how many blocks share
-//    a tile's chunks (the fewest waves x chunks a block, K1's rule): with
+//    a tile's chunks (the fewest waves x chunks a block): with
 //    more than one, each writes its partial sum to an f32 workspace and a
 //    second kernel adds the partials in a fixed order.  Every sum stays in
 //    a fixed order, no atomics: two calls give the same bits.
@@ -303,27 +303,6 @@ __device__ __forceinline__ void a_frags(uint32_t (&hi)[MT][4], uint32_t (&lo)[MT
   }
 }
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero_tiles(float (&t)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) t[mt][nt][e] = 0.f;
-}
-
-// acc += t, tile by tile, with f32 adds (which round to nearest).
-template <int MT, int NT>
-__device__ __forceinline__ void add_tiles(float (&acc)[MT][NT][4], const float (&t)[MT][NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[mt][nt][e];
-}
-
 // acc_hi[mt][nt] += a_hi b_hi, acc_lo[mt][nt] += a_lo b_hi + a_hi b_lo (the
 // lo passes only for f32), each pass issued over every tile in turn.
 template <bool F32, int MT, int NT>
@@ -415,8 +394,8 @@ ff_bwd_dx_kernel(const T* __restrict__ x, long long row_stride, long long group_
     const float* wslf = reinterpret_cast<const float*>(wsl);   // f32 only
     if (j < N1) {
       if (j == 0) {
-        zero_tiles(pa);
-        zero_tiles(ga);
+        glom::zero_tiles(pa);
+        glom::zero_tiles(ga);
       }
       if (n1 < hc) {   // warp-uniform: a short last chunk leaves some warps idle here
         const T* w1sl = wsl;                    // B(k, n) = w1sl[w1p(k, n)]
@@ -427,7 +406,7 @@ ff_bwd_dx_kernel(const T* __restrict__ x, long long row_stride, long long group_
         // would bias H and dH by about 4e-6 of their size (and K3 sums them
         // over every row)
         float t[MT1][NT1][4];
-        zero_tiles(t);
+        glom::zero_tiles(t);
 #pragma unroll
         for (int kk = 0; kk < KS2; kk += 8) {   // pre += x W1
           const int k = j * KS2 + kk;
@@ -446,8 +425,8 @@ ff_bwd_dx_kernel(const T* __restrict__ x, long long row_stride, long long group_
           }
           mma3<kF32>(t, t, ahi, alo, bhi, blo);
         }
-        add_tiles(pa, t);
-        zero_tiles(t);
+        glom::add_tiles(pa, t);
+        glom::zero_tiles(t);
 #pragma unroll
         for (int kk = 0; kk < KS2; kk += 8) {   // dO W2^T
           const int k = j * KS2 + kk;
@@ -474,7 +453,7 @@ ff_bwd_dx_kernel(const T* __restrict__ x, long long row_stride, long long group_
           }
           mma3<kF32>(t, t, ahi, alo, bhi, blo);
         }
-        add_tiles(ga, t);
+        glom::add_tiles(ga, t);
         if (j == N1 - 1) {
           // dH = (dO W2^T) * gelu'(pre + b1) into shared memory for phase 2
           // (the next step's __syncthreads publishes it), and with hid, H
@@ -593,29 +572,6 @@ dx_reduce_kernel(const float* __restrict__ ws, T* __restrict__ dx, long long tot
   glom::store2(dx + i + 2, s.z, s.w);
 }
 
-// Four consecutive elements of a K3 slab as f32: 16 bytes of f32, 8 of bf16.
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  return glom::to_f32x4(*reinterpret_cast<const uint2*>(p));
-}
-
-// Eight values to eight consecutive elements (16-byte aligned for bf16, 32
-// for f32).
-__device__ __forceinline__ void store8(float* o, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* o, const float (&v)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&b);
-  }
-  *reinterpret_cast<uint4*>(o) = u;
-}
-
 // Start the copy of rows [r0, r0 + BK3) of one operand into a slab: row r
 // at src + r * stride (elements), its first `width` (a multiple of 32) of W
 // columns; rows at or past `rend` are zero.
@@ -669,7 +625,7 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, long long sa,
     else glom::cp_async_commit();
   }
   float acc[2][4][4];
-  zero_tiles(acc);
+  glom::zero_tiles(acc);
   float dbs[4] = {0.f, 0.f, 0.f, 0.f};   // column wn + 4 gid + nt, rows tig and tig + 4 of each k-step
 
   for (int s = 0; s < steps; ++s) {
@@ -683,15 +639,15 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, long long sa,
     const TB* bs = reinterpret_cast<const TB*>(st + SA::kBytes);
     // the slab's product, formed in t and added to acc with an f32 add
     float t[2][4][4];
-    zero_tiles(t);
+    glom::zero_tiles(t);
 #pragma unroll
     for (int kk = 0; kk < BK3; kk += 8) {
       // mma rows g and g + 8 of m-tile mt are the tile's rows wm + 4 gid +
       // 2 mt and + 1; mma column j of n-tile nt is column wn + 4 j + nt
-      const float4 a0 = ld4(as + SA::at(kk + tig, wm + 4 * gid));
-      const float4 a1 = ld4(as + SA::at(kk + tig + 4, wm + 4 * gid));
-      const float4 b0 = ld4(bs + SB::at(kk + tig, wn + 4 * gid));
-      const float4 b1 = ld4(bs + SB::at(kk + tig + 4, wn + 4 * gid));
+      const float4 a0 = glom::ld4(as + SA::at(kk + tig, wm + 4 * gid));
+      const float4 a1 = glom::ld4(as + SA::at(kk + tig + 4, wm + 4 * gid));
+      const float4 b0 = glom::ld4(bs + SB::at(kk + tig, wn + 4 * gid));
+      const float4 b1 = glom::ld4(bs + SB::at(kk + tig + 4, wn + 4 * gid));
       const float av[2][4] = {{a0.x, a0.y, a0.z, a0.w}, {a1.x, a1.y, a1.z, a1.w}};
       const float bv[2][4] = {{b0.x, b0.y, b0.z, b0.w}, {b1.x, b1.y, b1.z, b1.w}};
       if (sums) {
@@ -732,7 +688,7 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, long long sa,
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) glom::mma_tf32(t[mt][nt], ahi[mt], bhi[nt]);
     }
-    add_tiles(acc, t);
+    glom::add_tiles(acc, t);
   }
   glom::cp_async_wait_all();
   if (!live) return;
@@ -746,7 +702,7 @@ __device__ __forceinline__ void dw_tile(const TA* __restrict__ a, long long sa,
       v[nt] = acc[q >> 1][nt][2 * (q & 1)];
       v[4 + nt] = acc[q >> 1][nt][2 * (q & 1) + 1];
     }
-    store8(c + (long long)(wm + 4 * gid + q) * ldc + wn + 8 * tig, v);
+    glom::store8(c + (long long)(wm + 4 * gid + q) * ldc + wn + 8 * tig, v);
   }
   if (sums) {
     // the four lanes of a column hold rows tig (mod 4): add them in a fixed order
@@ -952,33 +908,6 @@ bool valid(int rows, int groups, int dim, int hidden) {
          rows >= 1 && groups >= 1 && groups <= 65535;
 }
 
-// The split count, at most max_splits, that runs `tiles` blocks' worth of
-// work, `units` steps a tile (hidden chunks in K2, row slabs in K3), on
-// `slots` resident blocks in the fewest step-times (waves x steps a block),
-// the fewest splits on a tie.
-int fewest_waves(long long tiles, long long slots, int units, long long max_splits) {
-  int best = 1;
-  long long best_cost = -1;
-  for (int per_split = units; per_split >= 1; --per_split) {
-    const int splits = (units + per_split - 1) / per_split;
-    if (splits > max_splits) break;
-    const long long cost = (tiles * splits + slots - 1) / slots * per_split;
-    if (best_cost < 0 || cost < best_cost) best = splits, best_cost = cost;
-  }
-  return best;
-}
-
-// The current device's SM count times `per_sm`, or -1.
-long long block_slots(int per_sm) {
-  int device = 0, sms = 0;
-  if (per_sm < 1 || cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    return -1;
-  return (long long)sms * per_sm;
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 }  // namespace
 
 // How many blocks should share a row tile's hidden dimension in K2: the
@@ -989,12 +918,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // error.
 extern "C" int glom_grouped_ff_bwd_dx_splits(int rows, int groups, int dim, int hidden, int dtype) {
   if (!valid(rows, groups, dim, hidden)) return -1;
-  const long long slots = block_slots(dtype == glom::kF32 ? dx_occupancy<float>(dim)
+  const long long slots = glom::block_slots(dtype == glom::kF32 ? dx_occupancy<float>(dim)
                                       : dtype == glom::kBF16 ? dx_occupancy<__nv_bfloat16>(dim)
                                                              : -1);
   if (slots < 1) return -1;
   const int chunks = (hidden + HC2 - 1) / HC2;
-  return fewest_waves((long long)((rows + BM2 - 1) / BM2) * groups, slots, chunks, chunks);
+  return glom::fewest_waves((long long)((rows + BM2 - 1) / BM2) * groups, slots, chunks, chunks);
 }
 
 // K2.  x: (rows, groups, dim) read through row_stride / group_stride
@@ -1010,7 +939,8 @@ extern "C" int glom_grouped_ff_bwd_dx(const void* x, long long row_stride, long 
                                       int rows, int groups, int dim, int hidden, int splits,
                                       int dtype, void* stream) {
   if (!valid(rows, groups, dim, hidden) || splits < 1 || (splits > 1 && ws == nullptr) ||
-      !aligned16(w1) || !aligned16(w2) || !aligned16(ws) || (hid == nullptr) != (dh == nullptr))
+      !glom::aligned16(w1) || !glom::aligned16(w2) || !glom::aligned16(ws) ||
+      (hid == nullptr) != (dh == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == glom::kF32)
@@ -1032,12 +962,12 @@ extern "C" int glom_grouped_ff_bwd_dx(const void* x, long long row_stride, long 
 // hidden).  -1 on bad arguments or a CUDA error.
 extern "C" int glom_grouped_ff_bwd_dw_splits(int rows, int groups, int dim, int hidden, int dtype) {
   if (!valid(rows, groups, dim, hidden)) return -1;
-  const long long slots = block_slots(dtype == glom::kF32 ? dw_blocks_per_sm<float>()
+  const long long slots = glom::block_slots(dtype == glom::kF32 ? dw_blocks_per_sm<float>()
                                       : dtype == glom::kBF16 ? dw_blocks_per_sm<__nv_bfloat16>()
                                                              : -1);
   if (slots < 1) return -1;
   const long long tiles = (long long)dw_tiles(dim, hidden) * groups;
-  return fewest_waves(tiles, slots, (rows + BK3 - 1) / BK3, tiles < slots ? slots / tiles : 1);
+  return glom::fewest_waves(tiles, slots, (rows + BK3 - 1) / BK3, tiles < slots ? slots / tiles : 1);
 }
 
 // K3.  x (rows, groups, dim) read through row_stride / group_stride
@@ -1055,9 +985,10 @@ extern "C" int glom_grouped_ff_bwd_dw(const void* x, long long row_stride, long 
   const long long item = dtype == glom::kF32 ? 4 : 2;
   if (!valid(rows, groups, dim, hidden) || splits < 1 || (splits > 1 && ws == nullptr) ||
       (dtype != glom::kF32 && dtype != glom::kBF16) || hid == nullptr || dh == nullptr ||
-      !aligned16(x) || (row_stride * item) % 16 != 0 || (group_stride * item) % 16 != 0 ||
-      !aligned16(go) || !aligned16(hid) || !aligned16(dh) || !aligned16(dw1) ||
-      !aligned16(db1) || !aligned16(dw2) || !aligned16(ws))
+      !glom::aligned16(x) || (row_stride * item) % 16 != 0 || (group_stride * item) % 16 != 0 ||
+      !glom::aligned16(go) || !glom::aligned16(hid) || !glom::aligned16(dh) ||
+      !glom::aligned16(dw1) || !glom::aligned16(db1) || !glom::aligned16(dw2) ||
+      !glom::aligned16(ws))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == glom::kF32)

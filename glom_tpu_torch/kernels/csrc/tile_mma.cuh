@@ -1,6 +1,7 @@
 // Warp-level products of f32 tiles in shared memory on the tensor cores,
 // for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu) and the
-// fused level update (fused_update.cu).
+// fused level update (fused_update.cu), and the pieces of the tiled
+// products of grouped_ff.cu and grouped_ff_bwd.cu's K3.
 //
 // Each product is mma.sync m16n8k8 on tf32 operands with f32 accumulators.
 // An f32 operand is split into two tf32 parts, v = hi + lo (common.cuh's
@@ -151,6 +152,27 @@ __device__ __forceinline__ void store_tile(float* dst, int stride, const float (
   p[8 * stride + 1] = t[3];
 }
 
+template <int MT, int NT>
+__device__ __forceinline__ void zero_tiles(float (&t)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[mt][nt][e] = 0.f;
+}
+
+// acc += t, tile by tile, with f32 adds (which round to nearest).
+template <int MT, int NT>
+__device__ __forceinline__ void add_tiles(float (&acc)[MT][NT][4], const float (&t)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += t[mt][nt][e];
+}
+
 // Four consecutive elements as one vector load: 16 bytes of f32, 8 of bf16.
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
@@ -161,6 +183,29 @@ __device__ __forceinline__ float4 to_f32x4(uint2 u) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Four consecutive elements of a slab in shared memory as f32: 16 bytes of
+// f32, 8 of bf16.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  return to_f32x4(*reinterpret_cast<const uint2*>(p));
+}
+
+// Eight values to eight consecutive elements (16-byte aligned).
+__device__ __forceinline__ void store8(float* o, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* o, const float (&v)[8]) {
+  uint4 u;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(o) = u;
 }
 
 // The largest divisor of n that is at most 8.

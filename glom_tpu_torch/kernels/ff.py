@@ -4,7 +4,10 @@ dX, and K3, dW), which replace the TPU kernels of
 ``glom_tpu/kernels/ff_pallas.py``: ``_forward``, and ``_backward_fused``'s
 ``_bwd_dx_kernel`` and ``_bwd_dw_kernel``.
 
-:func:`grouped_ff` is the forward.  Under autograd it runs inside a
+:func:`grouped_ff` is the forward: K1a forms the hidden ``gelu(x W1 + b1)``
+in a float32 ``(g, rows, h)`` buffer that the wrapper allocates, and K1b
+multiplies it by W2; the buffer is freed when the call returns and never
+saved for autograd.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(x, params)`` only and, with
 ``fused_bwd=True``, differentiates through K2 and K3: K2 recomputes the
 hidden per tile and hands it to K3 (``keep_hidden``), which reduces it over
@@ -33,12 +36,12 @@ from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_c
                                             vector_aligned)
 from glom_tpu_torch.ops import feedforward as plain
 
-HIDDEN_CHUNK = 64      # the kernel's hidden chunk: h must be a multiple
+HIDDEN_CHUNK = 64      # h must be a multiple (K1's and K8's hidden chunk)
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, rows,
-#                 groups, dim, hidden, splits, dtype, stream): csrc/grouped_ff.cu
-_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
+# glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, hid,
+#                 rows, groups, dim, hidden, splits, dtype, stream): csrc/grouped_ff.cu
+_ARGTYPES = [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
 # glom_grouped_ff_bwd_dx(x, row_stride, group_stride, w1, b1, w2, go, dx, ws,
 #                        hid, dh, rows, groups, dim, hidden, splits, dtype,
 #                        stream): csrc/grouped_ff_bwd.cu
@@ -62,9 +65,9 @@ def _bwd_kernels():
 
 
 def planned_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
-    """How many blocks share a row tile's hidden dimension on ``device``
-    (``glom_grouped_ff_splits``: the count that fills the card's SMs in the
-    fewest steps), cached per shape."""
+    """How many blocks share an output tile's hidden dimension in K1b on
+    ``device`` (``glom_grouped_ff_splits``, K3's rule over hidden slabs),
+    cached per shape."""
     with torch.cuda.device(device):
         return _build.plan("grouped_ff", "glom_grouped_ff_splits", torch.cuda.current_device(),
                            rows, g, d, h, DTYPE_CODES[dtype])
@@ -128,25 +131,23 @@ def _row_stride(x: torch.Tensor) -> int:
 def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tensor:
     if not on_device("grouped_ff", x):
         return plain.grouped_ff_apply(params, x)
-    _check(params, x)
+    x = _kernel_input(params, x)
     b, n, g, d = x.shape
     h = params["w1"].shape[-1]
     out = torch.empty((b, n, g, d), dtype=x.dtype, device=x.device)
     if b * n == 0:
         return out
-    if splits is None:
-        splits = planned_splits(x.device, b * n, g, d, h, x.dtype)
-    elif splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
+    splits = _splits(splits, planned_splits, x, h)
     ws = (torch.empty((splits, b * n * g * d), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
+    hid = torch.empty((g, b * n, h), dtype=torch.float32, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), _row_stride(x), x.stride(2),
             params["w1"].data_ptr(), params["b1"].data_ptr(),
             params["w2"].data_ptr(), params["b2"].data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(),
+            None if ws is None else ws.data_ptr(), hid.data_ptr(),
             b * n, g, d, h, splits, DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -155,10 +156,10 @@ def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tens
     return out
 
 
-def _bwd_input(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the backward kernels read it: checked, and copied into fresh
-    storage when its rows are off a 16-byte boundary (K2 reads them as
-    4-element vectors, K3 copies them in 16-byte pieces; ``glom_tpu``'s
+def _kernel_input(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels read it: checked, and copied into fresh storage
+    when its rows are off a 16-byte boundary (K1 and K3 copy them in
+    16-byte pieces, K2 reads them as 4-element vectors; ``glom_tpu``'s
     kernels take any layout)."""
     _check(params, x)
     if vector_aligned(x, _row_stride(x), x.stride(2), nbytes=16):
@@ -201,7 +202,7 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
     if not on_device("grouped_ff_dx", x):
         dx = plain.grouped_ff_dx(params, x, g)
         return (dx, plain.grouped_ff_hidden(params, x, g)) if keep_hidden else dx
-    x = _bwd_input(params, x)
+    x = _kernel_input(params, x)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
@@ -247,7 +248,7 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     hid, dh = hidden
     if not on_device("grouped_ff_dw", x):
         return plain.grouped_ff_dw_from_hidden(x, g, hid, dh, params["w1"].dtype)
-    x = _bwd_input(params, x)
+    x = _kernel_input(params, x)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
@@ -328,10 +329,10 @@ def grouped_ff(params: dict, x: torch.Tensor, *, splits: Optional[int] = None,
     ``gelu(x @ w1[g] + b1[g]) @ w2[g] + b2[g]`` (exact-erf GELU).  Drop-in
     for :func:`glom_tpu_torch.ops.feedforward.grouped_ff_apply`.
 
-    ``splits``: how many blocks share a row tile's hidden dimension
-    (default: :func:`planned_splits`).  With more than one, the partial sums
-    go through an f32 workspace and a second, elementwise kernel adds them
-    in a fixed order; the call still counts as one launch.
+    ``splits``: how many blocks share an output tile's hidden dimension in
+    K1b (default: :func:`planned_splits`).  With more than one, the partial
+    sums go through an f32 workspace and a third, elementwise kernel adds
+    them in a fixed order with ``b2``; the call still counts as one launch.
 
     When autograd records the call, the gradient is K2 + K3
     (``fused_bwd=True``) or the plain VJP (``False``)."""

@@ -397,9 +397,37 @@ def test_backward_wrappers_copy_rows_off_a_boundary(dtype, offset):
     # the strided bottom-up view of an aligned state needs no copy
     assert _common.vector_aligned(base[..., :-1, :], base.stride(1), base.stride(2), nbytes=16)
     p, _ = _good_ff(g=2, dtype=dtype)
-    assert ff_kernel._bwd_input(p, base[..., :-1, :]).data_ptr() == base.data_ptr()
-    got = ff_kernel._bwd_input(p, off[..., :-1, :])
+    assert ff_kernel._kernel_input(p, base[..., :-1, :]).data_ptr() == base.data_ptr()
+    got = ff_kernel._kernel_input(p, off[..., :-1, :])
     assert torch.equal(got, off[..., :-1, :]) and got.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_forward_copies_rows_off_a_16_byte_boundary(dtype, offset):
+    """K1 copies x's rows in 16-byte pieces (4 float32 or 8 bfloat16
+    elements): for a bottom-up view, a top-down view and a contiguous input
+    ``offset`` elements into a flat buffer the predicate says "off" and the
+    forward launches on a fresh copy with the same values; the views of a
+    state on the boundary launch as they are.  A bfloat16 view 4 elements in
+    lies on an 8-byte boundary, which is not enough."""
+    shape = (2, 8, 4, 128)
+    flat = torch.arange(int(np.prod(shape)) + 8, dtype=torch.float32).to(dtype)
+    base = flat[:-8].view(shape)
+    p3, _ = _good_ff(g=3, dtype=dtype)
+    p2, _ = _good_ff(g=2, dtype=dtype)
+    offsets = [offset] + ([4] if dtype == torch.bfloat16 else [])
+    for off in offsets:
+        state = flat[off:off + base.numel()].view(shape)
+        for p, view in ((p3, state[..., :-1, :]), (p2, state[..., 2:, :]),
+                        (p3, flat[off:off + 2 * 8 * 3 * 128].view(2, 8, 3, 128))):
+            assert not _common.vector_aligned(view, ff_kernel._row_stride(view), view.stride(2),
+                                              nbytes=16)
+            got = ff_kernel._kernel_input(p, view)
+            assert torch.equal(got, view) and got.data_ptr() != view.data_ptr()
+            assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    for p, view in ((p3, base[..., :-1, :]), (p2, base[..., 2:, :])):
+        assert ff_kernel._kernel_input(p, view).data_ptr() == view.data_ptr()
 
 
 def test_wrappers_refuse_grad_and_other_devices():
@@ -495,18 +523,66 @@ def _assert_close(got, want, dtype, part=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,n", [(128, 20), (384, 70), (512, 64)])
 @pytest.mark.parametrize("splits", [None, 1, 3])
-def test_gpu_grouped_ff_matches_plain(cuda, dtype, d, n, splits):
+@pytest.mark.parametrize("g,extra", [(3, 0), (11, 64)])
+def test_gpu_grouped_ff_matches_plain(cuda, dtype, d, n, splits, g, extra):
     """splits None: the planned count (several, at these few rows); 1: the
-    block writes the output itself; 3: uneven shares of the hidden chunks."""
+    block writes the output itself; 3: uneven shares of K1b's hidden slabs.
+    g=11 is the fuse_ff call's group count; extra=64 puts h off the 128-wide
+    tile (K1a's last hidden tile half full)."""
     rng = np.random.default_rng(3)
-    p = _torch(_ff_params(rng, 3, d, 4 * d), cuda, dtype)
-    lwi = torch.from_numpy(rng.standard_normal((2, n, 4, d)).astype(np.float32)).to(cuda, dtype)
+    p = _torch(_ff_params(rng, g, d, 4 * d + extra), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((2, n, g + 1, d)).astype(np.float32)).to(cuda, dtype)
     before = ff_kernel.grouped_ff.launches
     with torch.inference_mode():
         for x in (lwi[..., :-1, :], lwi[..., 1:, :].contiguous()):
             got = ff_kernel.grouped_ff(p, x, splits=splits)
             assert got.dtype == dtype and got.shape == x.shape
             _assert_close(got, plain_ff.grouped_ff_apply(_f32(p), x.float()), dtype)
+    assert ff_kernel.grouped_ff.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_gpu_grouped_ff_flagship_matches_float64(cuda):
+    """K1 at the flagship's bottom-up call (b=8, n=256, g=6, d=512, h=2048,
+    the strided view), float32, against the same function in float64:
+    within GPU_RTOL normwise and elementwise, as the float32 plain version
+    is."""
+    rng = np.random.default_rng(15)
+    p = _torch(_ff_params(rng, 6, 512, 2048), cuda)
+    lwi = torch.from_numpy(rng.standard_normal((8, 256, 7, 512)).astype(np.float32)).to(cuda)
+    x = lwi[..., :-1, :]
+    with torch.inference_mode():
+        got = ff_kernel.grouped_ff(p, x).double()
+        w1, b1, w2, b2 = (p[k].double() for k in ("w1", "b1", "w2", "b2"))
+        pre = torch.einsum("bngd,gdh->bngh", x.double(), w1) + b1
+        want = torch.einsum("bngh,ghd->bngd", 0.5 * pre * (1.0 + torch.erf(pre * 2.0 ** -0.5)),
+                            w2) + b2
+    rtol = GPU_RTOL[torch.float32]
+    diff = (got - want).abs()
+    assert torch.linalg.vector_norm(diff) <= rtol * torch.linalg.vector_norm(want)
+    assert (diff <= rtol * (min(1.0, want.abs().max().item()) + want.abs())).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gpu_grouped_ff_takes_rows_off_a_16_byte_boundary(cuda, dtype, offset):
+    """K1 on inputs whose rows lie off a 16-byte boundary (``offset``
+    elements into a flat buffer; glom_tpu's kernel takes any layout): the
+    wrapper copies them into fresh storage, launches K1 once a call, and
+    agrees with the plain version."""
+    rng = np.random.default_rng(16)
+    p = _torch(_ff_params(rng, 3, 128, 192), cuda, dtype)
+    shape = (2, 24, 4, 128)
+    flat = torch.from_numpy(
+        rng.standard_normal(int(np.prod(shape)) + offset).astype(np.float32)).to(cuda, dtype)
+    state = flat[offset:].view(shape)
+    before = ff_kernel.grouped_ff.launches
+    with torch.inference_mode():
+        for x in (state[..., :-1, :], state[..., 1:, :]):
+            assert not _common.vector_aligned(x, ff_kernel._row_stride(x), x.stride(2), nbytes=16)
+            _assert_close(ff_kernel.grouped_ff(p, x), plain_ff.grouped_ff_apply(_f32(p), x.float()),
+                          dtype)
     assert ff_kernel.grouped_ff.launches == before + 2
 
 
