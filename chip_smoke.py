@@ -20,10 +20,7 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            together); K2 also at b=1 and at 49 rows (off its 32-row tile);
            consensus also with attend_self, the locality mask,
            b=1 and n=2304 (b=1, with SDPA's time on those inputs); and the
-           fused level update (K8) against its plain version at b=8 and
-           b=1, with the mask and attend_self,
-           beside the time of the kernels it replaces (K1 + K1 + K4 and the
-           elementwise tail) on the same inputs;
+           fused level update (K8's rows as the k8 phase gives them);
   k1       (only with --only) K1's rows of the kernels phase alone: the
            bottom-up (g=6, strided view), top-down (g=5) and fuse_ff (g=11)
            calls at b=8, and b=1 and 49 rows (strided views), in float32
@@ -32,6 +29,16 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            exact GELU in full float32 on the same inputs), and at b=8 in
            float32 its error against float64;
   k2       (only with --only) K2's rows of the kernels phase alone;
+  k8       (only with --only) K8's rows of the kernels phase alone: the
+           fused level update at b=8 and b=1 (views of one (b, n, L+1, d)
+           state), and at b=8 with attend_self and with the locality mask,
+           in float32 and bfloat16, against its plain version; each with
+           its split counts (K8b's hidden, the consensus keys), its bound,
+           a bitwise repeat, and for b=8 and b=1 the plain version's time
+           and two yardsticks on the same inputs: the kernels K8 replaces
+           (K1 + K1 + K4 and the elementwise tail) and K1 over both nets'
+           11 groups in one call + K4 + the tail; at b=8 in float32 its
+           error against float64;
   k3       (only with --only) K3's rows: for the bottom-up (g=6, strided
            view) and top-down (g=5) calls at b=8, b=1 and 49 rows, in
            float32 and bfloat16, K2 with the hidden it hands K3, K3 on that
@@ -63,7 +70,8 @@ each printing one JSON line; any failure raises and exits non-zero.  With
   train_fused  Trainer.fit at flagship width, b=8, ff_impl="fused" (K8
            forward; K1, K4 again and K2, K3, K6, K7 backward), 5 steps:
            losses, launches per step, gradients against the plain path,
-           bitwise repeat, ms per step beside the "pallas" step's; then 2
+           bitwise repeat, one step's peak device memory, ms per step
+           beside the "pallas" step's; then 2
            steps each with remat=True and with fuse_ff=True, held the same
            way.
 
@@ -534,15 +542,58 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None)
     return rows
 
 
+def fused_update_f64(bu, td, levels, bottom, pos, mask=None, attend_self=False):
+    """The level update computed in float64 on the same inputs: the exact
+    value against which K8 and its float32 plain version are both
+    measured."""
+    def ff(p, x):
+        p = {k: v.double() for k, v in p.items()}
+        pre = torch.einsum("bngd,gdh->bngh", x, p["w1"]) + p["b1"]
+        hid = 0.5 * pre * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+        return torch.einsum("bngh,ghd->bngd", hid, p["w2"]) + p["b2"]
+
+    lv = levels.double()
+    b, n, L, d = lv.shape
+    lwi = torch.cat([bottom.double(), lv], dim=-2)
+    terms = ff(bu, lwi[..., :-1, :]) + F.pad(ff(td, lwi[..., 2:, :] + pos.double()), (0, 0, 0, 1))
+    del lwi
+    keys = lv / lv.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    sim = torch.einsum("bild,bjld->blij", lv, keys) * d ** -0.5
+    if not attend_self:
+        sim = sim.masked_fill(torch.eye(n, dtype=torch.bool, device=lv.device), -5e-4)
+    if mask is not None:
+        sim = sim.masked_fill(mask.bool(), -torch.finfo(torch.float32).max)
+    cons = torch.einsum("blij,bjld->bild", torch.softmax(sim, -1), lv)
+    return (lv + terms + cons) / fused_kernel.update_divisors(L, torch.float64, lv.device)
+
+
+def k1_k4_update(both, levels, bottom, pos, mask=None, attend_self=False):
+    """The update through K1 over both nets' 2L-1 groups in one call (the
+    fuse_ff call, ``both``: the two nets' weights concatenated outside the
+    timing), K4, and the elementwise tail (cat, pos add, pad, sum, divide):
+    the yardstick of K8's design on the same inputs."""
+    L = levels.shape[2]
+    lwi = torch.cat([bottom, levels], dim=-2)
+    y = ff_kernel.grouped_ff(both, torch.cat([lwi[..., :-1, :], lwi[..., 2:, :] + pos], dim=-2))
+    cons, _ = consensus_kernel.consensus_attention(levels, attend_self=attend_self,
+                                                   non_local_mask=mask)
+    td = F.pad(y[..., L:, :], (0, 0, 0, 1))
+    return (levels + y[..., :L, :] + td + cons) / fused_kernel.update_divisors(
+        L, levels.dtype, levels.device)
+
+
 def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=None,
-               timings=True):
+               timings=True, exact=False):
     """K8 against its plain version (plain_update: the unfused composition in
     float32 on the same inputs, rounded once to their type); with
-    ``timings`` also the plain version's time and the time of the kernels K8
-    replaces on the same inputs: the unfused composition through K1 (bottom-up), K1
-    (top-down), K4 and the elementwise tail (cat, pos add, pad, sum, divide).
-    No single PyTorch call computes a whole level update, so library_ms is
-    null."""
+    ``timings`` also the plain version's time and two yardsticks on the same
+    inputs: the kernels K8 replaces, the unfused composition through K1
+    (bottom-up), K1 (top-down), K4 and the elementwise tail
+    (``unfused_kernels_ms``), and K1 over both nets' 11 groups in one call,
+    K4 and the tail (``k1_g11_k4_ms``).  No single PyTorch call computes a
+    whole level update, so library_ms is null.  ``exact``: also the error of
+    K8 and of its float32 plain version against float64, K8's held within
+    compare()'s limits."""
     bu, td = params["bottom_up"], params["top_down"]
     pos = params["pos_emb"][None, :, None, :]
     kw = dict(attend_self=attend_self, non_local_mask=mask)
@@ -558,18 +609,60 @@ def fused_case(params, levels, bottom, dtype, label, *, attend_self=False, mask=
     nbytes = item * (2 * b * n * L * d + b * n * d + n * d + weights) + (
         n * n if mask is not None else 0)
     row = {"case": label, "dtype": str(dtype).replace("torch.", ""), "shape": list(levels.shape),
-           "splits": fused_kernel.planned_splits(levels.device, b, n, L, h),
-           **err, "kernel_ms": time_ms(
+           "splits": fused_kernel.planned_splits(levels.device, b, n, L, d, h, dtype),
+           "key_splits": consensus_kernel.planned_splits(levels.device, b, n, L, d, dtype),
+           **err, "bitwise_repeat": torch.equal(
+               out, fused_kernel.fused_level_update(bu, td, levels, bottom, pos, **kw)),
+           "kernel_ms": time_ms(
                lambda: fused_kernel.fused_level_update(bu, td, levels, bottom, pos, **kw)),
-           "plain_ms": None, "unfused_kernels_ms": None, "library_ms": None,
+           "plain_ms": None, "unfused_kernels_ms": None, "k1_g11_k4_ms": None, "library_ms": None,
            **bounds(flops, nbytes, dtype)}
+    if not row["bitwise_repeat"]:
+        raise AssertionError(f"fused_level_update {label}: two calls differ")
+    if exact:
+        want64 = fused_update_f64(bu, td, levels, bottom, pos, mask, attend_self)
+        row["vs_f64"] = {"kernel": error_vs([out], [want64], dtype),
+                         "plain_f32": error_vs([ref], [want64], dtype)}
+        vs = row["vs_f64"]["kernel"]
+        if not (vs["norm_rel_err"] <= RTOL[dtype] and vs["limit_share"] <= 1.0):
+            raise AssertionError(f"fused_level_update {label}: off the float64 values by {vs}")
+        del want64
+    del out, ref
     if timings:
+        both = {k: torch.cat([bu[k], td[k]]) for k in ("w1", "b1", "w2", "b2")}
         row["plain_ms"] = time_ms(lambda: fused_kernel.plain_update(
             bu, td, levels, bottom, pos, mask, attend_self=attend_self))
         row["unfused_kernels_ms"] = time_ms(lambda: fused_kernel.reference_update(
             bu, td, levels, bottom, pos, mask, attend_self=attend_self,
             ff_fn=ff_kernel.grouped_ff, consensus_fn=consensus_kernel.consensus_attention))
+        row["k1_g11_k4_ms"] = time_ms(lambda: k1_k4_update(both, levels, bottom, pos, mask,
+                                                           attend_self))
     return row
+
+
+def k8_rows(cast, x, mask, dtype):
+    """K8's rows in ``dtype`` on views of the (b, n, L+1, d) state ``x``: b=8
+    (in float32 also against float64), b=1, then b=8 with attend_self and
+    with the locality mask (checked, and timed without the yardsticks)."""
+    with torch.inference_mode():
+        return [fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype, "b=8",
+                           exact=dtype == torch.float32),
+                fused_case(cast, x[:1, :, 1:, :], x[:1, :, :1, :], dtype, "b=1"),
+                fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype, "b=8, attend_self=True",
+                           attend_self=True, timings=False),
+                fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype,
+                           "b=8, local_consensus_radius=2", mask=mask, timings=False)]
+
+
+K8_NOTE = ("no single PyTorch call computes a whole level update; unfused_kernels_ms is K1 + "
+           "K1 + K4 and the elementwise tail on the same inputs, k1_g11_k4_ms K1 over both "
+           "nets' 11 groups in one call, K4 and the tail")
+# K8's stages, all launched by its C entry glom_fused_update
+K8_STAGES = ("td_input_kernel (levels[l+1] + pos in f32)",
+             "hidden_kernel (K8a: both nets' hidden, 2L-1 groups)",
+             "consensus_kernel<T, D, float> (K4's kernel, f32 output)",
+             "update_kernel (K8b: both nets' second layer and the update)",
+             "update_reduce_kernel (K8b's splits, where it splits)")
 
 
 def flagship_inputs(device):
@@ -624,20 +717,25 @@ def k3_rows(cast, x, g, dtype, cases=4):
 
 
 def phase_only(device, name: str) -> None:
-    """``--only k1`` (K1's rows), ``--only k2`` (K2's) or ``--only k3``
-    (K3's: K2, K3 and the pair a case) in float32 and bfloat16, for timing
-    a kernel or a variant of it without the rest of the kernels phase."""
-    params, lwi, *_, g_ff, _, _ = flagship_inputs(device)
+    """``--only k1`` (K1's rows), ``--only k2`` (K2's), ``--only k3`` (K3's:
+    K2, K3 and the pair a case) or ``--only k8`` (K8's) in float32 and
+    bfloat16, for timing a kernel or a variant of it without the rest of the
+    kernels phase."""
+    params, lwi, _, _, mask, g_ff, _, _ = flagship_inputs(device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         cast = glom_model.tree_map(lambda p: p.to(dtype), params)
         if name == "k1":
             rows += k1_rows(cast, lwi.to(dtype), dtype)
+        elif name == "k8":
+            rows += k8_rows(cast, lwi.to(dtype), mask, dtype)
         else:
             fn = k2_rows if name == "k2" else k3_rows
             rows += fn(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
-    kernel = {"k1": "grouped_ff", "k2": "grouped_ff_dx", "k3": "grouped_ff_dw"}[name]
-    emit({"phase": name, "kernel": kernel, "rows": rows})
+    kernel = {"k1": "grouped_ff", "k2": "grouped_ff_dx", "k3": "grouped_ff_dw",
+              "k8": "fused_level_update"}[name]
+    extra = {"stages": K8_STAGES, "library_note": K8_NOTE} if name == "k8" else {}
+    emit({"phase": name, "kernel": kernel, **extra, "rows": rows})
 
 
 def phase_kernels(device) -> dict:
@@ -667,15 +765,7 @@ def phase_kernels(device) -> dict:
         bwd_rows += consensus_bwd_case(big.to(dtype), g_big.to(dtype), dtype,
                                        "n=2304 (384/8), b=1")
         # K8 reads levels and the tokens as views of one (b, n, L+1, d) state
-        with torch.inference_mode():
-            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype, "b=8"))
-            fused_rows.append(fused_case(cast, x[:1, :, 1:, :], x[:1, :, :1, :], dtype, "b=1"))
-            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype,
-                                         "b=8, attend_self=True", attend_self=True,
-                                         timings=False))
-            fused_rows.append(fused_case(cast, x[..., 1:, :], x[..., :1, :], dtype,
-                                         "b=8, local_consensus_radius=2", mask=mask,
-                                         timings=False))
+        fused_rows += k8_rows(cast, x, mask, dtype)
     # launches of this phase: one checked call and 3 + REPS * INNER timed ones a row
     emit({"phase": "kernels", "kernel": "grouped_ff",
           "launches": ff_kernel.grouped_ff.launches, "rows": ff_rows})
@@ -684,10 +774,8 @@ def phase_kernels(device) -> dict:
     for name in BACKWARD + ("grouped_ff_dx+grouped_ff_dw",):
         emit({"phase": "kernels", "kernel": name, "rows": [
             {k: v for k, v in r.items() if k != "kernel"} for r in bwd_rows if r["kernel"] == name]})
-    emit({"phase": "kernels", "kernel": "fused_level_update", "rows": fused_rows,
-          "library_note": "no single PyTorch call computes a whole level update; "
-                          "unfused_kernels_ms is K1 + K1 + K4 and the elementwise tail on the "
-                          "same inputs"})
+    emit({"phase": "kernels", "kernel": "fused_level_update", "stages": K8_STAGES,
+          "rows": fused_rows, "library_note": K8_NOTE})
     # the main path's case, float32; SDPA computes only the attend_self=True
     # variant exactly, so consensus's library times come from that row (same
     # shapes and work)
@@ -1085,6 +1173,8 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
                                                     glom_model.tree_leaves(s2.params)))
     if not (bitwise and torch.equal(m1["loss"], m2["loss"])):
         raise AssertionError("two runs of one fused train step differ")
+    del s1, s2, m1, m2
+    memory = step_memory(step, kern.state, img, noise)
 
     # the step's other knobs through the kernels: remat on top of the fused
     # step (each K8 runs again in the backward), and fuse_ff, which defeats
@@ -1119,7 +1209,7 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
           "images_per_s": 1e3 * BATCH / ms,
           "step_ms_note": "median over the steps after the first of one-step host-clock windows",
           "launches": launches, "launches_per_step": per_step, "grad_vs_plain": grad,
-          "bitwise_repeat": True, "knobs": knobs})
+          "bitwise_repeat": True, "step_memory": memory, "knobs": knobs})
     phase_profile(lambda: step(kern.state, img, noise=noise)[1]["loss"].item(), runs=2,
                   phase="train_fused_profile", grad=True)
     return launches
@@ -1145,7 +1235,7 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-PHASES = ("kernels", "k1", "k2", "k3", "serve", "train", "serve_fused", "train_fused")
+PHASES = ("kernels", "k1", "k2", "k3", "k8", "serve", "train", "serve_fused", "train_fused")
 
 
 def parse_args(argv):
@@ -1155,7 +1245,8 @@ def parse_args(argv):
     p.add_argument("--only", default=None,
                    help="comma-separated phases to run after device and build, for "
                         f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
-                        "k2: K2's; k3: K3's, each with the K2 it needs and the pair). "
+                        "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k8: "
+                        "K8's). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -1172,7 +1263,7 @@ def run_only(device, names) -> int:
     for name in names:
         if name == "kernels":
             phase_kernels(device)
-        elif name in ("k1", "k2", "k3"):
+        elif name in ("k1", "k2", "k3", "k8"):
             phase_only(device, name)
         elif name == "serve":
             phase_serve(device)
@@ -1249,6 +1340,10 @@ def main(argv=()) -> int:
         if name == "grouped_ff":
             summary[-1].update({k: row[k] for k in ("splits", "yardstick_ms", "yardstick",
                                                     "vs_f64")})
+        if name == "fused_level_update":
+            summary[-1].update({"stages": K8_STAGES, "note": K8_NOTE,
+                                **{k: row[k] for k in ("splits", "key_splits", "k1_g11_k4_ms",
+                                                       "vs_f64")}})
         if name == "grouped_ff_dw":
             pair = main_rows["grouped_ff_dx+grouped_ff_dw"]
             summary[-1]["library_case"] = main_rows[name].get("library")

@@ -8,7 +8,7 @@ them.
 
 The kernel selectors keep their names: ``ff_impl="pallas"`` and
 ``attention_impl="pallas"`` select the port's hand-written CUDA kernels,
-``ff_impl="fused"`` the single-launch level update, and
+``ff_impl="fused"`` the fused level update (K8), and
 ``attention_impl="auto"`` the choice by the measured crossover
 (``models/glom.py``).  ``ring`` and ``ulysses`` name a path the port does
 not implement yet: they are accepted, so every JAX checkpoint loads, and a

@@ -118,14 +118,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, symbol: str, argtypes):
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The C function ``symbol`` of ``csrc/<name>.cu`` with its ctypes
-    signature (``int`` result: a ``cudaError_t``), built on first use.  The
-    library hands out one function object per symbol, so setting the same
-    signature again is harmless."""
+    signature (by default an ``int`` result: a ``cudaError_t``), built on
+    first use.  The library hands out one function object per symbol, so
+    setting the same signature again is harmless."""
     fn = getattr(library(name), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

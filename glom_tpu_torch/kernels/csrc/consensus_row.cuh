@@ -1,15 +1,12 @@
 // The pieces of one consensus-attention row that every kernel computing it
-// shares: consensus.cu (the forward), consensus_bwd.cu (K6, K7) and
-// fused_update.cu (the whole level update).  They fix the edge rules in one
-// place:
+// shares: consensus_fwd.cuh (the forward, K4's and K8's) and consensus_bwd.cu
+// (K6, K7).  They fix the edge rules in one place:
 //   * keys are the L2-normalised levels, eps 1e-12, and the logits carry
 //     d^-1/2: both fold into one factor per key, kscale_j;
 //   * the soft self-mask is the logit -5e-4 on the diagonal unless
 //     attend_self; a masked pair gets -FLT_MAX (never -inf, so a key block
 //     masked whole for a row stays finite); a key past the end gets -inf and
-//     weighs exactly 0;
-//   * the online softmax keeps a running (max, sum) per row and hands the
-//     caller the factor that rescales what it has accumulated so far.
+//     weighs exactly 0.
 // Blocks of 256 threads (8 warps) and key blocks of 32, one lane a key.
 #pragma once
 
@@ -66,32 +63,6 @@ __device__ __forceinline__ float consensus_logit(float raw, float kscale, int i,
   if (mask != nullptr && i < n && j < n && mask[(long long)i * n + j] != 0) v = -FLT_MAX;
   if (j >= j_end) v = -INFINITY;
   return v;
-}
-
-// One online-softmax step over a (ROWS, 32) tile of logits in ps (rows of
-// `stride` floats): the logits become exp(logit - new max), row_max and
-// row_sum are brought up to date, and corr[r] is the factor exp(old max -
-// new max) that rescales row r's earlier sums.  One warp per ROWS / 8 rows.
-template <int ROWS>
-__device__ __forceinline__ void softmax_update(float* ps, int stride, float* row_max,
-                                               float* row_sum, float* corr) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < ROWS / 8; ++e) {
-    const int r = warp * (ROWS / 8) + e;
-    const float v = ps[r * stride + lane];
-    const float m_old = row_max[r];
-    const float m_new = fmaxf(m_old, warp_max(v));
-    const float p = expf(v - m_new);
-    const float sum = warp_sum(p);
-    ps[r * stride + lane] = p;
-    if (lane == 0) {
-      const float c = expf(m_old - m_new);
-      corr[r] = c;
-      row_sum[r] = row_sum[r] * c + sum;
-      row_max[r] = m_new;
-    }
-  }
 }
 
 }  // namespace glom

@@ -1,7 +1,7 @@
 // Warp-level products of f32 tiles in shared memory on the tensor cores,
-// for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu) and the
-// fused level update (fused_update.cu), and the pieces of the tiled
-// products of grouped_ff.cu and grouped_ff_bwd.cu's K3.
+// for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu), and the
+// pieces of the tiled products of tile_gemm.cuh (K1, K8) and
+// grouped_ff_bwd.cu's K3.
 //
 // Each product is mma.sync m16n8k8 on tf32 operands with f32 accumulators.
 // An f32 operand is split into two tf32 parts, v = hi + lo (common.cuh's
@@ -206,6 +206,17 @@ __device__ __forceinline__ void store8(__nv_bfloat16* o, const float (&v)[8]) {
     w[i] = *reinterpret_cast<const uint32_t*>(&b);
   }
   *reinterpret_cast<uint4*>(o) = u;
+}
+
+// Eight consecutive elements as f32 (16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const float4 a = to_f32x4(make_uint2(u.x, u.y)), b = to_f32x4(make_uint2(u.z, u.w));
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
 // The largest divisor of n that is at most 8.

@@ -36,7 +36,7 @@ from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_c
                                             vector_aligned)
 from glom_tpu_torch.ops import feedforward as plain
 
-HIDDEN_CHUNK = 64      # h must be a multiple (K1's and K8's hidden chunk)
+HIDDEN_CHUNK = 64      # h must be a multiple (K1's and K8's kernels)
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, hid,

@@ -1,5 +1,5 @@
-"""The fused level update: the wrapper of the hand-written CUDA kernel
-``csrc/fused_update.cu`` (K8), which replaces the TPU kernel of
+"""The fused level update: the wrapper of the hand-written CUDA kernels of
+``csrc/fused_update.cu`` (K8), which replace the TPU kernel of
 ``glom_tpu/kernels/fused_update_pallas.py`` (``_forward``, body ``_kernel``).
 
 One GLOM iteration,
@@ -8,22 +8,29 @@ One GLOM iteration,
               + consensus(levels)[l]) / div_l
 
 with ``stack = [tokens, levels]``, no top-down term at the top level and
-``div = [4, ..., 4, 3]``, in ONE launch: the attention row, both nets'
-hiddens and the three terms never reach device memory.
+``div = [4, ..., 4, 3]``, in one call of the C entry ``glom_fused_update``,
+which launches on the caller's stream: the top-down input ``levels[l+1] +
+pos`` in float32; K8a, the hidden of both nets as one tiled product over
+their 2L-1 groups (K1's tiles); the consensus term in float32 (K4's
+kernel); and K8b, both nets' second layer and the whole update as one tiled
+product, rounded once.  No concatenation, pad, sum or divide runs outside
+them.  The hidden, the top-down input and the consensus term live in one
+float32 workspace that the wrapper allocates for the call and frees.
 
 :func:`fused_level_update` is the entry point.  Its plain PyTorch version is
 :func:`plain_update`: :func:`reference_update`, the unfused composition (cat,
 two grouped FFs, pad, consensus, divisors), on float32 copies of the inputs,
 rounded once to the levels' type, as the TPU kernel computes in float32 and
 rounds once at its store.  In float32 the two are the same function.  CPU
-tensors take it, CUDA tensors take the kernel, and the wrapper raises on
-anything the kernel does not take.  There is no fallback from the kernel to
-the plain version.  ``fused_level_update.launches`` counts the kernel's
-launches.  A call with too few tiles to fill the card
-splits each tile's hidden chunks and keys over several blocks
-(:func:`planned_splits`); their partial terms go through an f32 workspace and
-a second, elementwise kernel adds them in a fixed order.  The call still
-counts as one launch.
+tensors take it, CUDA tensors take the kernels, and the wrapper raises on
+anything they do not take; inputs whose rows lie off the 16-byte boundary
+the kernels read them on are copied into fresh storage first, as
+``glom_tpu``'s kernel takes any layout.  There is no fallback from the
+kernels to the plain version.  ``fused_level_update.launches`` counts the
+calls of the C entry, one a call.  A call whose K8b tiles leave the card
+part-empty splits each tile's hidden over several blocks
+(:func:`planned_splits`); their partial sums go through the workspace and
+an ordered second kernel adds them.
 
 The gradient, as in ``fused_update_pallas.py::_bwd``: K8 has no backward
 kernel.  :class:`_FusedUpdate` saves the inputs and differentiates the
@@ -36,15 +43,16 @@ wrappers, so on the card a backward runs K1 and K4 again and then K2, K3
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import DTYPE_CODES, MAX_DIM, count, on_device, vector_aligned
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
+                                            vector_aligned)
 from glom_tpu_torch.kernels.consensus import consensus_attention
+from glom_tpu_torch.kernels.consensus import planned_splits as planned_key_splits
 from glom_tpu_torch.kernels.ff import HIDDEN_CHUNK, grouped_ff
 from glom_tpu_torch.ops import consensus as plain_consensus
 from glom_tpu_torch.ops import feedforward as plain_ff
@@ -54,27 +62,37 @@ from glom_tpu_torch.ops import feedforward as plain_ff
 # but both packages choose the same path for the same config.
 ONE_SHOT_MAX_N = 1024
 
-# The kernel's tile of patches, its cap on the splits of a tile, and the
-# fewest hidden chunks (of HIDDEN_CHUNK) a split may be left with: csrc/fused_update.cu
-TILE_ROWS = 32
+# The most blocks that may share a K8b tile: csrc/fused_update.cu
 MAX_SPLITS = 8
-MIN_CHUNKS_PER_SPLIT = 4
-# What a split costs beside its share of a tile's work, as a fraction of the
-# tile: its partial terms written and read again, and the combine kernel.
-SPLIT_COST = 0.06
 
 _FF_NAMES = ("w1", "b1", "w2", "b2")
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_fused_update(levels, sb, sn, sl, bottom, tsb, tsn, pos, psn, bw1, bb1,
-#                   bw2, bb2, tw1, tb1, tw2, tb2, mask, out, ws, b, n, L, dim,
-#                   hidden, attend_self, splits, dtype, stream): csrc/fused_update.cu
-_ARGTYPES = ([_p, _i64, _i64, _i64, _p, _i64, _i64, _p, _i64] + [_p] * 11
-             + [_i32] * 8 + [_p])
+#                   bw2, bb2, tw1, tb1, tw2, tb2, mask, out, ws, ws_floats, b,
+#                   n, L, dim, hidden, attend_self, splits, cons_splits, dtype,
+#                   stream): csrc/fused_update.cu
+_ARGTYPES = ([_p, _i64, _i64, _i64, _p, _i64, _i64, _p, _i64] + [_p] * 11 + [_i64]
+             + [_i32] * 9 + [_p])
+# glom_fused_update_workspace(b, n, L, dim, hidden, splits, cons_splits)
+_WS_ARGTYPES = [_i32] * 7
 
 
 def _kernel():
-    """The kernel's C entry point, built and loaded on first use."""
+    """The kernels' C entry point, built and loaded on first use."""
     return _build.function("fused_update", "glom_fused_update", _ARGTYPES)
+
+
+def _workspace_floats(b: int, n: int, L: int, d: int, h: int, splits: int,
+                      key_splits: int) -> int:
+    """The float32 elements of a call's workspace
+    (``glom_fused_update_workspace``): both nets' hidden, the top-down input,
+    the consensus term and its lse, and the split workspaces."""
+    floats = _build.function("fused_update", "glom_fused_update_workspace", _WS_ARGTYPES,
+                             ctypes.c_longlong)(b, n, L, d, h, splits, key_splits)
+    if floats < 0:
+        raise RuntimeError(f"glom_fused_update_workspace{(b, n, L, d, h, splits, key_splits)} "
+                           "refused its arguments")
+    return floats
 
 
 def kernel_supports(dim: int, hidden: int) -> bool:
@@ -95,29 +113,12 @@ def supports_config(config, device=None) -> bool:
     return kernel_supports(config.dim, config.dim * config.ff_mult)
 
 
-def plan_splits(sms: int, b: int, n: int, L: int, hidden: int) -> int:
-    """How many blocks should share a tile on a card of ``sms`` SMs (one block
-    an SM): the count that runs the call's (tile, split) blocks in the least
-    time, counted in tiles' work: waves x (a split's share of the hidden
-    chunks + SPLIT_COST).  More splits are taken only for a gain above 5 %,
-    and a split keeps at least MIN_CHUNKS_PER_SPLIT chunks."""
-    tiles = L * b * math.ceil(n / TILE_ROWS)
-    chunks = hidden // HIDDEN_CHUNK
-    best, best_cost = 1, float(math.ceil(tiles / sms))
-    for splits in range(2, MAX_SPLITS + 1):
-        share = math.ceil(chunks / splits)
-        if share < MIN_CHUNKS_PER_SPLIT:
-            break
-        cost = math.ceil(tiles * splits / sms) * (share / chunks + SPLIT_COST)
-        if cost < 0.95 * best_cost:
-            best, best_cost = splits, cost
-    return best
-
-
-def planned_splits(device: torch.device, b: int, n: int, L: int, hidden: int) -> int:
-    """:func:`plan_splits` for ``device``'s SM count."""
-    return plan_splits(torch.cuda.get_device_properties(device).multi_processor_count,
-                       b, n, L, hidden)
+def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, h: int, dtype) -> int:
+    """How many blocks share a K8b tile's hidden on ``device``
+    (``glom_fused_update_splits``, K1b's rule), cached per shape."""
+    with torch.cuda.device(device):
+        return _build.plan("fused_update", "glom_fused_update_splits", torch.cuda.current_device(),
+                           b, n, L, d, h, DTYPE_CODES[dtype])
 
 
 def update_divisors(levels_count: int, dtype, device=None) -> torch.Tensor:
@@ -161,11 +162,21 @@ def plain_update(bu, td, levels, bottom_level, pos_embs, non_local_mask=None, *,
     return out.to(levels.dtype)
 
 
-def _strides_aligned(t: torch.Tensor) -> bool:
-    """Every row of ``t`` (last dimension contiguous) on a 4-element boundary;
-    a dimension of size 1 is never stepped over."""
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels read ``t`` (levels, bottom or pos) as it lies: every
+    row on a 16-byte boundary (they copy rows in 16-byte pieces; a dimension
+    of size 1 is never stepped over) and its (b, n) axes flattening to one
+    row axis."""
+    b, n = t.shape[:2]
     strides = [s for s, size in zip(t.stride()[:-1], t.shape[:-1]) if size > 1]
-    return t.stride(-1) == 1 and vector_aligned(t, *strides)
+    flat = b == 1 or n == 1 or t.stride(0) == n * t.stride(1)
+    return flat and vector_aligned(t, *strides, nbytes=16)
+
+
+def _kernel_input(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it: itself, or a fresh copy when
+    :func:`_rows_aligned` says no (``glom_tpu``'s kernel takes any layout)."""
+    return t if _rows_aligned(t) else fresh_copy(t)
 
 
 def _check(bu, td, levels, bottom, pos, mask) -> None:
@@ -190,11 +201,8 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
         if t.dtype != levels.dtype or t.device != levels.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel needs levels' "
                             f"{levels.dtype} on {levels.device}")
-        if not _strides_aligned(t):
-            raise ValueError(
-                f"{name}: the kernel reads rows as 4-element vectors; its last dimension must "
-                f"be contiguous and every row start on a 4-element boundary "
-                f"(strides {t.stride()})")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous (strides {t.stride()})")
     for net, params, g in (("bottom_up", bu, L), ("top_down", td, L - 1)):
         shapes = {"w1": (g, d, h), "b1": (g, h), "w2": (g, h, d), "b2": (g, d)}
         for name, shape in shapes.items():
@@ -221,17 +229,19 @@ def _forward(bu, td, levels, bottom, pos, mask, attend_self, splits=None) -> tor
     if not on_device("fused_level_update", levels):
         return plain_update(bu, td, levels, bottom, pos, mask, attend_self=attend_self)
     _check(bu, td, levels, bottom, pos, mask)
+    levels, bottom, pos = (_kernel_input(t) for t in (levels, bottom, pos))
     b, n, L, d = levels.shape
+    h = bu["w1"].shape[-1]
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     if b * n == 0:
         return out
     if splits is None:
-        splits = planned_splits(levels.device, b, n, L, bu["w1"].shape[-1])
+        splits = planned_splits(levels.device, b, n, L, d, h, levels.dtype)
     elif not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits must be 1 to {MAX_SPLITS}, got {splits}")
-    # per split: three (b, n, L, d) partial terms and a (max, sum) per row
-    ws = (torch.empty((splits, b * n * L * (3 * d + 2)), dtype=torch.float32,
-                      device=levels.device) if splits > 1 else None)
+    key_splits = planned_key_splits(levels.device, b, n, L, d, levels.dtype)
+    ws = torch.empty(_workspace_floats(b, n, L, d, h, splits, key_splits), dtype=torch.float32,
+                     device=levels.device)
     fn = _kernel()
     with torch.cuda.device(levels.device):
         code = fn(
@@ -239,11 +249,9 @@ def _forward(bu, td, levels, bottom, pos, mask, attend_self, splits=None) -> tor
             bottom.data_ptr(), bottom.stride(0), bottom.stride(1),
             pos.data_ptr(), pos.stride(1),
             *(bu[k].data_ptr() for k in _FF_NAMES), *(td[k].data_ptr() for k in _FF_NAMES),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            b, n, L, d, bu["w1"].shape[-1], int(bool(attend_self)), splits,
-            DTYPE_CODES[levels.dtype],
-            torch.cuda.current_stream(levels.device).cuda_stream,
+            None if mask is None else mask.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+            b, n, L, d, h, int(bool(attend_self)), splits, key_splits,
+            DTYPE_CODES[levels.dtype], torch.cuda.current_stream(levels.device).cuda_stream,
         )
     _build.check("fused_update", code)
     count(fused_level_update)
@@ -289,7 +297,7 @@ def fused_level_update(
     ff_fused_bwd: bool = False,
     splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """One GLOM iteration in a single launch: drop-in for the body of
+    """One GLOM iteration through K8's kernels: drop-in for the body of
     ``models/glom._update_step`` (``levels`` ``(b, n, L, d)``,
     ``bottom_level`` ``(b, n, 1, d)``, ``pos_embs`` ``(1, n, 1, d)``,
     ``non_local_mask`` optional ``(n, n)`` bool or int8, nonzero = blocked).
@@ -300,7 +308,7 @@ def fused_level_update(
     path's under the same config.
 
     ``splits`` (CUDA only, and only where autograd does not record the call):
-    how many blocks share a tile's hidden chunks and keys; default
+    how many blocks share a K8b tile's hidden, 1 to 8; default
     :func:`planned_splits`."""
     weights = [bu_params[k] for k in _FF_NAMES] + [td_params[k] for k in _FF_NAMES]
     leaves = [levels, bottom_level, pos_embs] + weights

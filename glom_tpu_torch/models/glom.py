@@ -14,8 +14,8 @@ the plain PyTorch ops (``glom_tpu_torch.ops``), ``"pallas"`` the port's
 hand-written CUDA kernels (``glom_tpu_torch.kernels``), which take the plain
 ops for CPU tensors.  ``ff_impl="fused"`` is a step-level choice: when
 :func:`fused_update_supported` holds and the caller injects no
-``consensus_fn`` / ``ff_fn``, the whole iteration runs as one launch of the
-fused level-update kernel (``kernels/fused_update.py``, K8); otherwise it
+``consensus_fn`` / ``ff_fn``, the whole iteration runs as one call of the
+fused level-update kernels (``kernels/fused_update.py``, K8); otherwise it
 falls back to the grouped-FF kernel with the attention chosen by the
 ``"auto"`` policy.  ``attention_impl="auto"`` picks the consensus kernels on
 a CUDA device above the measured crossover (:data:`ATTENTION_CROSSOVER_N`)
@@ -131,7 +131,7 @@ def fused_update_supported(config: GlomConfig, device=None) -> bool:
 
 
 def make_fused_update_fn(config: GlomConfig, device=None):
-    """The single-launch level update bound to this config:
+    """The fused level update (K8) bound to this config:
     ``f(bu_params, td_params, levels, bottom_level, pos_embs) -> new_levels``
     (``kernels/fused_update.py``).  :func:`make_step_builder` consumes it."""
     mask = resolve_locality_mask(config, device)
@@ -308,7 +308,7 @@ def make_step_builder(params, config: GlomConfig, pos_embs, divisors, consensus_
     place an iteration is put together, for serving and training alike.
 
     ``fused_fn`` (:func:`make_fused_update_fn`) replaces the whole body with
-    the single-launch kernel; ``consensus_fn`` / ``ff_fn`` are then unused.
+    the fused level update; ``consensus_fn`` / ``ff_fn`` are then unused.
 
     ``remat`` wraps the step in ``torch.utils.checkpoint`` (non-reentrant;
     the step draws no random numbers, so no RNG state is kept): the forward
@@ -403,7 +403,7 @@ def apply(
     including the t=0 state.  ``capture_timestep=t`` returns
     ``(final, state_after_t_iterations)`` (t=0 is the initial state).
     ``consensus_fn`` / ``ff_fn`` override the config's implementations;
-    ``fused_fn`` replaces the whole update body with the single-launch kernel
+    ``fused_fn`` replaces the whole update body with the fused level update
     (resolved from ``ff_impl="fused"`` when :func:`fused_update_supported`
     holds and neither override is injected: injected functions win).  When
     ``ff_impl="fused"`` falls back, a default ``attention_impl="dense"`` is a

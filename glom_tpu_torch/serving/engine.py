@@ -17,8 +17,8 @@ package and serves it with the kernel choice the checkpoint recorded
 (``ff_impl`` / ``attention_impl``), as ``glom_tpu``'s engine does; an
 explicit ``ff_impl`` or ``attention_impl`` overrides it (the weights are the
 same either way), and ``"pallas"`` picks the hand-written CUDA kernels.
-``ff_impl="fused"`` serves each iteration as one launch of the fused
-level-update kernel where the model's shape allows it
+``ff_impl="fused"`` serves each iteration as one call of the fused
+level-update kernels where the model's shape allows it
 (``models/glom.py::fused_update_supported``), and falls back to the
 grouped-FF and consensus kernels where it does not.
 """

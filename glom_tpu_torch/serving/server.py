@@ -186,7 +186,7 @@ def main(argv=None) -> int:
     p.add_argument("--ff-impl", default=None, choices=["dense", "pallas", "fused"],
                    help="override the checkpoint config's choice (default: keep it). "
                         "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
-                        "single-launch level update (consensus + both FFs in one kernel, "
+                        "fused level update (consensus + both FFs in one call of K8's kernels, "
                         "falling back to pallas when the model's shape rules it out)")
     p.add_argument("--verbose", action="store_true", help="per-request access log")
     args = p.parse_args(argv)

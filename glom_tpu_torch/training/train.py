@@ -79,8 +79,8 @@ def parse_args(argv=None):
                         "dense; ring and ulysses are refused with their ROADMAP item")
     p.add_argument("--ff-impl", default="dense", choices=["dense", "pallas", "fused"],
                    help="pallas = the port's CUDA grouped-FF kernel (K1); fused = the whole "
-                        "level update in one launch (K8), falling back to pallas when the "
-                        "shape or --fuse-ff rules it out")
+                        "level update in one call of its kernels (K8), falling back to pallas "
+                        "when the shape or --fuse-ff rules it out")
     p.add_argument("--fused-ff-bwd", action="store_true",
                    help="with --ff-impl pallas or fused: gradients through the backward "
                         "kernels K2 and K3 instead of the plain VJP")

@@ -101,9 +101,9 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def function(name: str, symbol: str, argtypes):
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The emulated C function ``symbol`` of ``csrc/<name>.cu``."""
     fn = getattr(library(name), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

@@ -262,7 +262,29 @@ def test_fused_check_refuses(case):
     elif case == "last_stride":
         a["levels"] = torch.zeros((2, 8, 128, 3)).transpose(2, 3)
     elif case == "misaligned":
-        a["levels"] = torch.zeros(2 * 8 * 3 * 128 + 1)[1:].view(2, 8, 3, 128)
+        # not refused: rows off the kernels' 16-byte boundary, or (b, n) axes
+        # that do not flatten, are copied into fresh storage, as glom_tpu's
+        # kernel takes any layout
+        for offset in (1, 2, 3):
+            flat = torch.arange(2 * 8 * 4 * 128 + offset, dtype=torch.float32)
+            views = {"levels": flat[offset:].view(2, 8, 4, 128)[..., 1:, :],
+                     "bottom": flat[offset:].view(2, 8, 4, 128)[..., :1, :],
+                     "pos": flat[offset:offset + 8 * 128].view(1, 8, 1, 128)}
+            views["levels"] = views["levels"][:, :, :3]
+            fused_update._check(**{**a, **views})
+            for name, t in views.items():
+                assert not fused_update._rows_aligned(t), name
+                copy = fused_update._kernel_input(t)
+                assert torch.equal(copy, t) and copy.data_ptr() != t.data_ptr()
+                assert fused_update._rows_aligned(copy) and copy.data_ptr() % 16 == 0
+        unflat = torch.zeros(2, 9, 3, 128)[:, :8]        # aligned, but b does not step over n
+        assert not fused_update._rows_aligned(unflat)
+        assert fused_update._rows_aligned(fused_update._kernel_input(unflat))
+        # the main path's views of an aligned state are read as they lie
+        state = torch.zeros(2, 8, 4, 128)
+        for t in (state[..., 1:, :], state[..., :1, :], torch.zeros(8, 128)[None, :, None, :]):
+            assert fused_update._kernel_input(t) is t
+        return
     elif case == "misaligned_weight":
         w = a["td"]["w1"]
         a["td"]["w1"] = torch.zeros(w.numel() + 1)[1:].view(w.shape)
@@ -281,23 +303,6 @@ def test_fused_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_update.fused_level_update(meta["bu"], meta["td"], meta["levels"], meta["bottom"],
                                         meta["pos"])
-
-
-@pytest.mark.parametrize("b,n,want", [(1, 256, 2), (2, 256, 4), (4, 256, 2), (8, 256, 1),
-                                      (32, 256, 1), (1, 1024, 2)])
-def test_plan_splits_fills_a_card_of_132_sms(b, n, want):
-    """A call with fewer tiles than SMs shares each tile's hidden chunks and
-    keys among blocks; a call that already fills the card does not (flagship
-    width: 6 levels, 32 hidden chunks)."""
-    assert fused_update.plan_splits(132, b, n, 6, 2048) == want
-
-
-def test_plan_splits_keeps_a_split_worth_its_cost():
-    # never more than MAX_SPLITS, never fewer than MIN_CHUNKS_PER_SPLIT chunks a split
-    assert fused_update.plan_splits(132, 1, 16, 2, 4096) == fused_update.MAX_SPLITS
-    assert fused_update.plan_splits(132, 1, 16, 2, 256) == 1        # 4 chunks in all
-    assert fused_update.plan_splits(132, 1, 16, 2, 512) == 2        # 8 chunks: 4 a split
-    assert fused_update.plan_splits(1, 1, 16, 2, 4096) == 1         # one SM: splitting only costs
 
 
 # -- the dispatch ---------------------------------------------------------------

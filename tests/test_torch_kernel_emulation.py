@@ -1,15 +1,17 @@
-"""The CUDA sources of K1 (``csrc/grouped_ff.cu``, the grouped-FF forward)
-and of K2 and K3 (``csrc/grouped_ff_bwd.cu``'s dX and dW kernels) run on the
-CPU through ``tests/cuda_emu/emulate.py``, against the wrappers' plain
-versions on the same inputs.
+"""The CUDA sources of K1 (``csrc/grouped_ff.cu``, the grouped-FF forward),
+of K2 and K3 (``csrc/grouped_ff_bwd.cu``'s dX and dW kernels) and of K8
+(``csrc/fused_update.cu``, the fused level update, with K4's consensus
+kernel inside) run on the CPU through ``tests/cuda_emu/emulate.py``, against
+the wrappers' plain versions on the same inputs.
 
 The emulator compiles the kernels' own source with ``g++`` and runs every
 CUDA thread of a block as a host thread, the tensor cores' products on
 operands cut to tf32 as the card cuts them.  So these tests reach the
 kernels' index arithmetic, fragment layouts, ragged row tiles and slabs,
 short hidden chunks and ragged output tiles, K1's hidden and the hidden K2
-hands K3, the splits and their ordered reductions, and the rings, which the
-CPU path of the wrappers (the plain versions) never does.  Limits as on the card (tests/test_torch_kernels.py):
+hands K3, K8's gather of both nets' inputs and its epilogue, the splits and
+their ordered reductions, and the rings, which the CPU path of the wrappers
+(the plain versions) never does.  Limits as on the card (tests/test_torch_kernels.py):
 ||got - want|| <= rtol ||want|| and |got - want| <= rtol (min(1, max|want|)
 + |want|), rtol 1e-4 for float32 and 1e-2 for bfloat16 (one rounding).
 """
@@ -21,8 +23,10 @@ import pytest
 import torch
 
 from glom_tpu_torch.kernels import ff as ff_kernel
+from glom_tpu_torch.kernels import fused_update
 from glom_tpu_torch.kernels._common import DTYPE_CODES
 from glom_tpu_torch.ops import feedforward as plain_ff
+from glom_tpu_torch.ops.masks import local_consensus_mask
 from tests.cuda_emu import emulate
 
 torch.set_num_threads(1)
@@ -380,3 +384,180 @@ def test_emulated_k1_sum_over_the_hidden_does_not_drift(k1_fn):
     assert (err.abs() <= 1e-4 * (min(1.0, want.abs().max().item()) + want.abs())).all()
     # no bias toward zero beyond a few units of the last place
     assert -(err * want.sign()).sum() <= 1e-6 * want.abs().sum()
+
+
+# -- K8: the fused level update, K1's tiled products and K4's consensus --------
+
+@pytest.fixture(scope="module")
+def k8():
+    """K8's emulated C entry and its workspace size."""
+    if not emulate.compiler():
+        pytest.skip("needs g++ to compile the kernel source against the emulator")
+    return (emulate.function("fused_update", "glom_fused_update", fused_update._ARGTYPES),
+            emulate.function("fused_update", "glom_fused_update_workspace",
+                             fused_update._WS_ARGTYPES, ctypes.c_longlong))
+
+
+def _k8_inputs(b, n, L, d, h, dtype, seed):
+    """``(bu, td, levels, bottom, pos)``: levels and the tokens as strided
+    views of one (b, n, L+1, d) buffer, as the model's loop holds them."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dtype)
+
+    def net(g):
+        return {"w1": t(g, d, h, scale=d ** -0.5), "b1": t(g, h, scale=0.1),
+                "w2": t(g, h, d, scale=h ** -0.5), "b2": t(g, d, scale=0.1)}
+
+    bu, td = net(L), net(L - 1)
+    lwi = t(b, n, L + 1, d)
+    return bu, td, lwi[..., 1:, :], lwi[..., :1, :], t(n, d)[None, :, None, :]
+
+
+def _emulated_k8(k8, args, mask=None, attend_self=False, splits=1, key_splits=1):
+    """K8's output in a buffer, and with a workspace, that start as NaN, so
+    that an element it skips shows."""
+    fn, ws_floats = k8
+    bu, td, levels, bottom, pos = args
+    b, n, L, d = levels.shape
+    h = bu["w1"].shape[-1]
+    out = torch.full((b, n, L, d), float("nan"), dtype=levels.dtype)
+    floats = ws_floats(b, n, L, d, h, splits, key_splits)
+    ws = torch.full((max(floats, 4),), float("nan"))
+    names = ("w1", "b1", "w2", "b2")
+    code = fn(levels.data_ptr(), levels.stride(0), levels.stride(1), levels.stride(2),
+              bottom.data_ptr(), bottom.stride(0), bottom.stride(1), pos.data_ptr(), pos.stride(1),
+              *(bu[k].data_ptr() for k in names), *(td[k].data_ptr() for k in names),
+              None if mask is None else mask.data_ptr(), out.data_ptr(), ws.data_ptr(), floats,
+              b, n, L, d, h, int(attend_self), splits, key_splits, DTYPE_CODES[levels.dtype], None)
+    assert code == 0, code
+    return out
+
+
+@pytest.mark.parametrize("b,side,L,d,h,dtype,extra", [
+    # n=25: one 64-row tile, 39 of its rows past the end; h 192: a hidden
+    # tile of 128 and one of 64; a short key block
+    (1, 5, 3, 128, 192, torch.float32, {}),
+    (1, 5, 3, 128, 192, torch.bfloat16, {}),
+    # L=2: level 0 reads the tokens and level 1 is the top; h one 64 tile;
+    # the views' contiguous copies give the same bits
+    (2, 3, 2, 128, 64, torch.float32, {"contiguous": True}),
+    (2, 3, 2, 128, 64, torch.bfloat16, {"contiguous": True}),
+    (1, 4, 3, 256, 64, torch.float32, {"attend_self": True}),
+    (1, 6, 2, 128, 192, torch.float32, {"radius": 1.5}),
+    (1, 6, 3, 128, 64, torch.bfloat16, {"radius": 1.5, "key_splits": 2}),
+    # K8b's hidden over 2 and 3 blocks (6 slabs: 3 + 3, 2 + 2 + 2) through the
+    # workspace, added in order and the update formed by the second kernel
+    (1, 5, 3, 128, 192, torch.float32, {"splits": 2}),
+    (2, 3, 2, 128, 192, torch.bfloat16, {"splits": 3, "key_splits": 1}),
+])
+def test_emulated_k8_matches_plain(k8, b, side, L, d, h, dtype, extra):
+    """K8 on strided views of one (b, n, L+1, d) buffer against plain_update
+    (the unfused composition in float32, rounded once); with splits, two
+    calls give the same bits."""
+    extra = dict(extra)
+    radius, contiguous = extra.pop("radius", 0), extra.pop("contiguous", False)
+    mask = torch.from_numpy(local_consensus_mask(side, radius)) if radius else None
+    args = _k8_inputs(b, side * side, L, d, h, dtype, seed=side + L + h)
+    got = _emulated_k8(k8, args, mask, **extra)
+    want = fused_update.plain_update(*args, mask, attend_self=extra.get("attend_self", False))
+    assert got.dtype == dtype and got.shape == args[2].shape
+    _assert_close(got, want, dtype)
+    if extra.get("splits", 1) > 1 or extra.get("key_splits", 1) > 1:
+        assert torch.equal(got, _emulated_k8(k8, args, mask, **extra))
+    if contiguous:
+        flat = args[:2] + tuple(t.contiguous() for t in args[2:])
+        assert torch.equal(got, _emulated_k8(k8, flat, mask, **extra))
+
+
+@pytest.mark.parametrize("b,n,L,d,h,want", [
+    (1, 256, 6, 512, 2048, 1),    # flagship b=1: 96 tiles; a split would not fit one wave of 132
+    (2, 256, 6, 512, 2048, 1),    # 192 tiles
+    (4, 256, 6, 512, 2048, 1),
+    (8, 256, 6, 512, 2048, 1),    # 768 tiles, many waves
+    (32, 256, 6, 512, 2048, 1),
+    (1, 1024, 6, 512, 2048, 1),   # the largest n the fused path takes: 384 tiles
+    (1, 64, 6, 512, 2048, 5),     # 24 tiles: 5 splits of 13 slabs fill 120 of 132 slots
+    (1, 25, 2, 512, 256, 8),      # 8 tiles, 8 slabs: one slab a block
+    (1, 16, 2, 128, 2048, 8),     # 2 tiles: at most 8 splits
+    (1, 16, 2, 128, 64, 2),       # 2 slabs: nothing more to split
+])
+def test_emulated_k8_plans_splits_for_132_sms(b, n, L, d, h, want):
+    """glom_fused_update_splits on a card of 132 SMs, one block an SM (the
+    emulator's device): K8b's hidden splits only where its tiles leave SMs
+    idle and the split blocks fit one wave, at most 8."""
+    if not emulate.compiler():
+        pytest.skip("needs g++ to compile the kernel source against the emulator")
+    plan = emulate.function("fused_update", "glom_fused_update_splits", [ctypes.c_int] * 6)
+    assert plan(b, n, L, d, h, 0) == want
+
+
+def test_emulated_k8_refuses_what_the_kernel_does_not_take(k8):
+    fn, ws_floats = k8
+    bu, td, levels, bottom, pos = _k8_inputs(2, 4, 3, 128, 64, torch.float32, seed=0)
+    assert ws_floats(2, 4, 3, 128, 64, 1, 1) > 0
+    for bad in ((2, 4, 3, 96, 64, 1, 1), (2, 4, 3, 128, 96, 1, 1), (2, 4, 1, 128, 64, 1, 1),
+                (2, 4, 3, 128, 64, 0, 1), (2, 4, 3, 128, 64, 9, 1), (2, 4, 3, 128, 64, 1, 9)):
+        assert ws_floats(*bad) < 0, bad                   # d, h, L, splits, key splits
+    out = torch.empty(levels.shape)
+    ws = torch.zeros(ws_floats(2, 4, 3, 128, 64, 1, 1))
+    names = ("w1", "b1", "w2", "b2")
+
+    def call(lv=levels, sb=levels.stride(0), bot=bottom, w1=bu["w1"], ws_ptr=ws.data_ptr(),
+             floats=ws.numel(), d=128, h=64, L=3, splits=1, dtype=0):
+        return fn(lv.data_ptr(), sb, lv.stride(1), lv.stride(2), bot.data_ptr(), bot.stride(0),
+                  bot.stride(1), pos.data_ptr(), pos.stride(1), w1.data_ptr(),
+                  *(bu[k].data_ptr() for k in names[1:]), *(td[k].data_ptr() for k in names),
+                  None, out.data_ptr(), ws_ptr, floats, 2, 4, L, d, h, 0, splits, 1, dtype, None)
+
+    assert call() == 0
+    assert call(d=96) != 0 and call(h=96) != 0 and call(L=1) != 0   # widths, levels
+    assert call(splits=0) != 0 and call(splits=9) != 0
+    assert call(ws_ptr=None) != 0 and call(floats=ws.numel() - 1) != 0   # no or short workspace
+    assert call(dtype=2) != 0
+    shifted = torch.zeros(levels.numel() + 4)[1:levels.numel() + 1].view(levels.shape)
+    assert call(lv=shifted) != 0                          # levels off a 16-byte boundary
+    assert call(sb=levels.stride(0) + 4) != 0             # (b, n) axes that do not flatten
+    assert call(bot=torch.zeros(2, 4, 1, 130)[..., 1:129]) != 0   # bottom's rows off it
+    off = torch.zeros(bu["w1"].numel() + 1)[1:].view(bu["w1"].shape)
+    assert call(w1=off) != 0                              # w1 off a 16-byte boundary
+
+
+def _f64_update(bu, td, levels, bottom, pos):
+    """``(the update, its two nets' terms)`` in float64, divided as the
+    update divides them: the exact values K8 and its plain version are held
+    against."""
+    def ff(p, x):
+        p = {k: v.double() for k, v in p.items()}
+        pre = torch.einsum("bngd,gdh->bngh", x, p["w1"]) + p["b1"]
+        return torch.einsum("bngh,ghd->bngd", 0.5 * pre * (1.0 + torch.erf(pre * 2.0 ** -0.5)),
+                            p["w2"]) + p["b2"]
+
+    lv = levels.double()
+    b, n, L, d = lv.shape
+    lwi = torch.cat([bottom.double(), lv], dim=-2)
+    terms = ff(bu, lwi[..., :-1, :]) + torch.nn.functional.pad(
+        ff(td, lwi[..., 2:, :] + pos.double()), (0, 0, 0, 1))
+    keys = lv / lv.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    sim = torch.einsum("bild,bjld->blij", lv, keys) * d ** -0.5
+    sim = sim.masked_fill(torch.eye(n, dtype=torch.bool), -5e-4)
+    cons = torch.einsum("blij,bjld->bild", torch.softmax(sim, -1), lv)
+    div = torch.tensor([4.0] * (L - 1) + [3.0], dtype=torch.float64)[:, None]
+    return (lv + terms + cons) / div, terms / div
+
+
+def test_emulated_k8_sum_over_the_hidden_does_not_drift(k8):
+    """K8 at K1's drift case (d=128, h=2048, 64 rows: n=64, b=1, L=2, one
+    block a tile, so K8b sums 64 hidden slabs of each net) against float64,
+    with K1's three bounds; the bias toward zero is measured along the two
+    nets' terms, which a sum kept inside the mma (whose f32 accumulation
+    rounds toward zero, as the emulator's does) would shrink."""
+    args = _k8_inputs(1, 64, 2, 128, 2048, torch.float32, seed=7)
+    got = _emulated_k8(k8, args)
+    want, terms = _f64_update(*args)
+    err = got.double() - want
+    assert torch.linalg.vector_norm(err) <= 1e-4 * torch.linalg.vector_norm(want)
+    assert (err.abs() <= 1e-4 * (min(1.0, want.abs().max().item()) + want.abs())).all()
+    # no bias toward zero beyond a few units of the last place
+    assert -(err * terms.sign()).sum() <= 1e-6 * terms.abs().sum()

@@ -1031,9 +1031,12 @@ def test_gpu_fused_update_splits_agree(cuda, dtype, side, h, radius, splits):
 
 @pytest.mark.gpu
 def test_gpu_fused_update_reads_views_and_refuses_misaligned_rows(cuda):
-    """Contiguous copies of the strided views give the same bits; an input
-    whose rows do not start on a 4-element boundary is refused by name; two
-    runs give the same bits."""
+    """Contiguous copies of the strided views give the same bits; two runs
+    give the same bits.  Inputs whose rows lie 1-3 elements off the
+    kernels' 16-byte boundary are copied into fresh storage, not refused (as
+    glom_tpu's kernel takes any layout), and agree with the plain version in
+    float32 and bfloat16, one launch a call; a width the kernels do not take
+    is still refused by name."""
     rng = np.random.default_rng(13)
     fu, args, _ = _update_inputs(rng, cuda, torch.float32, b=2, side=5)
     bu, td, levels, bottom, pos = args
@@ -1043,12 +1046,44 @@ def test_gpu_fused_update_reads_views_and_refuses_misaligned_rows(cuda):
         again = fu.fused_level_update(bu, td, levels, bottom, pos)
         c = fu.fused_level_update(bu, td, levels.contiguous(), bottom.contiguous(), pos.contiguous())
     assert torch.equal(a, again) and torch.equal(a, c)
-    flat = torch.zeros(levels.numel() + 1, device=cuda)
-    shifted = flat[1:].view(levels.shape).copy_(levels)
-    with pytest.raises(ValueError, match="4-element"):
-        fu.fused_level_update(bu, td, shifted, bottom, pos)
+    for dtype in (torch.float32, torch.bfloat16):
+        fu, (bu, td, levels, bottom, pos), _ = _update_inputs(rng, cuda, dtype, b=2, side=5)
+        for offset in (1, 2, 3):
+            def shifted(t):
+                flat = torch.zeros(t.numel() + offset, dtype=dtype, device=cuda)
+                return flat[offset:].view(t.shape).copy_(t)
+
+            views = (shifted(levels), shifted(bottom), shifted(pos))
+            assert not any(fu._rows_aligned(t) for t in views)
+            before = fu.fused_level_update.launches
+            with torch.inference_mode():
+                got = fu.fused_level_update(bu, td, *views)
+            assert fu.fused_level_update.launches == before + 1
+            _assert_close(got, _reference(fu, (bu, td, levels, bottom, pos), None, False), dtype)
     with pytest.raises(ValueError, match="multiple of 128"):
         fu.fused_level_update(bu, td, levels[..., :96], bottom[..., :96], pos[..., :96])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8])
+def test_gpu_fused_update_rounds_once_in_bf16(cuda, b):
+    """In bfloat16 K8 forms every term in float32, the consensus term
+    included (K4's kernel with a float32 output), its f32 top-down input
+    with its low tf32 part, and rounds once at its store: all but a few in
+    ten thousand elements are the bits of the float32 composition rounded
+    once (plain_update).  An operand cut to tf32 on its way (the first
+    design's top-down input) moved about 1.5 % of them.  b=1 runs K8b with
+    the split its planner picks there."""
+    rng = np.random.default_rng(16)
+    fu, args, _ = _update_inputs(rng, cuda, torch.bfloat16, b=b, side=16, d=256, h=512)
+    before = fu.fused_level_update.launches
+    with torch.inference_mode():
+        got = fu.fused_level_update(*args)
+        want = _reference(fu, args, None, False)
+    assert fu.fused_level_update.launches == before + 1
+    _assert_close(got, want, torch.bfloat16)
+    same = (got == want).float().mean().item()
+    assert same >= 0.999, same
 
 
 @pytest.mark.gpu
