@@ -16,11 +16,12 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            after a warm-up) beside the bound and a PyTorch library call
            where one computes the same function: the forward kernels (K1's
            rows as the k1 phase gives them; K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
-           consensus; K2 hands K3 the hidden, and the pair is timed
-           together); K2 also at b=1 and at 49 rows (off its 32-row tile);
-           consensus also with attend_self, the locality mask,
-           b=1 and n=2304 (b=1, with SDPA's time on those inputs); and the
-           fused level update (K8's rows as the k8 phase gives them);
+           consensus; K2 hands K3 the hidden and K6 hands K7 its dS', and
+           each pair is timed together); K2 also at b=1 and at 49 rows
+           (off its 32-row tile); consensus also with attend_self, the
+           locality mask, b=1 and n=2304 (b=1, with SDPA's time on those
+           inputs; the backward without b=1); and the fused level update
+           (K8's rows as the k8 phase gives them);
   k1       (only with --only) K1's rows of the kernels phase alone: the
            bottom-up (g=6, strided view), top-down (g=5) and fuse_ff (g=11)
            calls at b=8, and b=1 and 49 rows (strided views), in float32
@@ -29,6 +30,14 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            exact GELU in full float32 on the same inputs), and at b=8 in
            float32 its error against float64;
   k2       (only with --only) K2's rows of the kernels phase alone;
+  k6       (only with --only) K6's rows: at b=8 (in float32 also
+           against float64), with attend_self (beside the backward of
+           scaled_dot_product_attention), with the locality mask, at n=2304
+           (b=1) and at b=1, in float32 and bfloat16: K6 with the dS' it
+           hands K7 (held against the plain dS'), K7 on that dS' (its plain
+           version the twin on the same dS'), and the pair timed together
+           against the TPU kernels' work; each with its bound and a bitwise
+           repeat;
   k8       (only with --only) K8's rows of the kernels phase alone: the
            fused level update at b=8 and b=1 (views of one (b, n, L+1, d)
            state), and at b=8 with attend_self and with the locality mask,
@@ -483,35 +492,64 @@ def k3_case(params, x, g, hidden, dtype, label, k2_ms):
 
 def pair_case(params, x, g, dtype, label, k2_ms, k3_ms):
     """K2 + K3 as the backward runs them (K2 handing K3 the hidden), timed
-    together, against the bound of the TPU kernels' work: 14 units of
-    rows*d*h*groups FLOPs (K2's 6, and the 8 of a K3 that recomputes the
-    hidden, as the TPU's does), reading x, dO and the weights and writing
-    dX and dW once."""
+    together, against the bound of the work dX and dW need: 10 units of
+    rows*d*h*groups FLOPs (x W1, dO W2^T, dH W1^T, X^T dH, H^T dO; the TPU
+    kernels do 14, their K3 forming the hidden again), reading x, dO and the
+    weights and writing dX and dW once."""
     rows, gr, d, h, item = ff_dims(params, x)
     call = lambda: ff_kernel.grouped_ff_dw(
         params, x, g, ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)[1])
-    flops = 14.0 * rows * gr * d * h
+    flops = 10.0 * rows * gr * d * h
     nbytes = item * (3 * rows * gr * d + 2 * gr * (2 * d * h + h))
     return {"kernel": "grouped_ff_dx+grouped_ff_dw", "case": label,
             "dtype": str(dtype).replace("torch.", ""), "shape": list(x.shape),
             "kernel_ms": time_ms(call), "k2_ms": k2_ms, "k3_ms": k3_ms,
-            "work": "the TPU kernels' 14 units (the pair does 10)",
+            "work": "10 units, what dX and dW need (the TPU kernels do 14)",
             **bounds(flops, nbytes, dtype)}
 
 
-def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None):
-    """K6 (dKV) and K7 (dQ) against their plain versions; two rows.  K6's
-    key term, which its output adds to the larger value term, is also held
-    on its own.  The library time is SDPA's backward (dQ, dK, dV) on the
-    attend_self=True case, the one variant SDPA computes exactly: the work of
-    K6 + K7."""
+def consensus_bwd_f64(levels, g, attend_self=False, mask=None):
+    """``(dKV, dQ)`` of consensus attention in float64, the forward's out,
+    lse and delta included: the exact values against which K6, K7 and their
+    float32 plain versions are measured."""
+    x, gd = levels.double(), g.to(levels.dtype).double()
+    n, d = x.shape[1], x.shape[-1]
+    k = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    sim = torch.einsum("bild,bjld->blij", x, k) * d ** -0.5
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    if not attend_self:
+        sim = sim.masked_fill(eye, -5e-4)
+    if mask is not None:
+        sim = sim.masked_fill(mask.bool(), -torch.finfo(torch.float32).max)
+    p = torch.softmax(sim, dim=-1)
+    out = torch.einsum("blij,bjld->bild", p, x)
+    delta = (gd * out).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (torch.einsum("bild,bjld->blij", gd, x) - delta)
+    if not attend_self:
+        ds = ds.masked_fill(eye, 0.0)
+    dk = torch.einsum("blij,bild->bjld", ds, x) * d ** -0.5
+    dkv = plain_cons.l2_normalize_vjp(x, dk) + torch.einsum("blij,bild->bjld", p, gd)
+    return dkv, torch.einsum("blij,bjld->bild", ds, k) * d ** -0.5
+
+
+def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None, exact=False):
+    """K6 (dKV, storing the dS' it hands K7), K7 (dQ, a product of that dS'
+    and the levels) and the pair as consensus_backward runs them, against
+    their plain versions; three rows.  K6's key term, which its output adds
+    to the larger value term, is also held on its own, and dS' against the
+    plain dS'.  The library time is SDPA's backward (dQ, dK, dV) on the
+    attend_self=True case, the one variant SDPA computes exactly: the work
+    of the pair.  ``exact``: also K6's and K7's error against float64,
+    beside the float32 plain versions'."""
     kw = dict(attend_self=attend_self, non_local_mask=mask)
     with torch.no_grad():
         out, lse = consensus_kernel.consensus_attention(levels, **kw)
     delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
     b, n, L, d = levels.shape
     item = levels.element_size()
-    nbytes = 3 * item * b * n * L * d + 8 * b * L * n + (n * n if mask is not None else 0)
+    unit = 2.0 * b * L * n * n * d                 # one (n, n, d) product a (b, l) pair
+    side = 8 * b * L * n + (n * n if mask is not None else 0)   # lse, delta, the mask
+    ds_bytes = 4 * b * L * n * (-(-n // 32) * 32)
     library = None
     if attend_self and mask is None:
         q = levels.transpose(1, 2).detach().requires_grad_(True)
@@ -520,25 +558,69 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None)
         o = F.scaled_dot_product_attention(q, k, v)
         go = g.transpose(1, 2)
         library = time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+    dkv_call = lambda: consensus_kernel.consensus_dkv(levels, g, lse, delta, keep_ds=True, **kw)
+    got_dkv, ds = dkv_call()
+    dq_call = lambda: consensus_kernel.consensus_dq(levels, g, lse, delta, ds=ds, **kw)
+    pair_call = lambda: consensus_kernel.consensus_dq(levels, g, lse, delta, ds=dkv_call()[1],
+                                                      **kw)
+    got_dq = dq_call()
     key_term, _ = plain_cons.consensus_dkv_terms(levels.float(), g.float(), lse, delta, **kw)
-    rows = []
-    for name, kernel, plain, factor, part in (
-        ("consensus_dkv", consensus_kernel.consensus_dkv, plain_cons.consensus_dkv, 8.0, key_term),
-        ("consensus_dq", consensus_kernel.consensus_dq, plain_cons.consensus_dq, 6.0, None),
-    ):
-        got = kernel(levels, g, lse, delta, **kw)
-        want = plain(levels.float(), g.float(), lse, delta, **kw)
-        torch.cuda.synchronize()
-        err = compare(got, want, dtype, f"{name} {label}", part=part)
-        flops = factor * b * L * n * n * d
-        row = {"kernel": name, "case": label, "dtype": str(dtype).replace("torch.", ""),
-               "shape": list(levels.shape), **err,
-               "kernel_ms": time_ms(lambda: kernel(levels, g, lse, delta, **kw)),
-               "plain_ms": time_ms(lambda: plain(levels, g, lse, delta, **kw)),
-               "library_ms": library, **bounds(flops, nbytes, dtype)}
+    want_dkv = plain_cons.consensus_dkv(levels.float(), g.float(), lse, delta, **kw)
+    want_dq = plain_cons.consensus_dq(levels.float(), g.float(), lse, delta, **kw)
+    torch.cuda.synchronize()
+    common = {"case": label, "dtype": str(dtype).replace("torch.", ""),
+              "shape": list(levels.shape)}
+    k6 = {"kernel": "consensus_dkv", **common,
+          **compare(got_dkv, want_dkv, dtype, f"consensus_dkv {label}", part=key_term)}
+    k7 = {"kernel": "consensus_dq", **common,
+          **compare(got_dq, want_dq, dtype, f"consensus_dq {label}")}
+    want_ds = plain_cons.consensus_ds(levels.float(), g.float(), lse, delta, **kw)
+    k6["ds_norm_rel_err"] = compare(ds, want_ds, torch.float32,
+                                    f"consensus_dkv {label} dS'")["norm_rel_err"]
+    k6["ds_bytes"] = ds_bytes
+    del want_ds
+    k6["bitwise_repeat"] = torch.equal(got_dkv, dkv_call()[0])
+    k7["bitwise_repeat"] = torch.equal(got_dq, dq_call())
+    if not (k6["bitwise_repeat"] and k7["bitwise_repeat"]):
+        raise AssertionError(f"consensus backward {label}: two calls differ")
+    if exact:
+        dkv64, dq64 = consensus_bwd_f64(levels, g, attend_self, mask)
+        k6["vs_f64"] = {"kernel": error_vs([got_dkv], [dkv64], dtype),
+                        "plain_f32": error_vs([want_dkv], [dkv64], dtype)}
+        k7["vs_f64"] = {"kernel": error_vs([got_dq], [dq64], dtype),
+                        "plain_f32": error_vs([want_dq], [dq64], dtype)}
+        del dkv64, dq64
+    del key_term, want_dkv, want_dq
+    k6.update({"kernel_ms": time_ms(dkv_call),
+               "plain_ms": time_ms(lambda: plain_cons.consensus_dkv(levels, g, lse, delta, **kw)),
+               "library_ms": library, "work_units": 4,
+               **bounds(4 * unit, 3 * item * b * n * L * d + side + ds_bytes, dtype)})
+    k7.update({"kernel_ms": time_ms(dq_call),
+               "plain_ms": time_ms(lambda: plain_cons.consensus_dq_from_ds(levels, ds)),
+               "library_ms": library, "work_units": 1,
+               **bounds(unit, 2 * item * b * n * L * d + ds_bytes, dtype)})
+    pair = {"kernel": "consensus_dkv+consensus_dq", **common, "kernel_ms": time_ms(pair_call),
+            "k6_ms": k6["kernel_ms"], "k7_ms": k7["kernel_ms"], "library_ms": library,
+            "work": "5 units, what dQ, dK and dV need (the TPU kernels do 7)",
+            **bounds(5 * unit, 4 * item * b * n * L * d + side, dtype)}
+    for row in (k6, k7, pair):
         if library is not None:
-            row["library"] = "backward of torch.nn.functional.scaled_dot_product_attention (dQ, dK, dV)"
-        rows.append(row)
+            row["library"] = ("backward of torch.nn.functional.scaled_dot_product_attention "
+                              "(dQ, dK, dV)")
+    return [k6, k7, pair]
+
+
+def k6_rows(levels, g, big, g_big, mask, dtype, *, b1=True):
+    """K6, K7 and the pair (consensus_bwd_case) in ``dtype``: b=8 (in
+    float32 also against float64), attend_self (with SDPA's backward),
+    the locality mask, n=2304 at b=1, and b=1."""
+    rows = consensus_bwd_case(levels, g, dtype, "attend_self=False",
+                              exact=dtype == torch.float32)
+    rows += consensus_bwd_case(levels, g, dtype, "attend_self=True", attend_self=True)
+    rows += consensus_bwd_case(levels, g, dtype, "local_consensus_radius=2", mask=mask)
+    rows += consensus_bwd_case(big, g_big, dtype, "n=2304 (384/8), b=1")
+    if b1:
+        rows += consensus_bwd_case(levels[:1], g[:1].contiguous(), dtype, "b=1")
     return rows
 
 
@@ -718,14 +800,18 @@ def k3_rows(cast, x, g, dtype, cases=4):
 
 def phase_only(device, name: str) -> None:
     """``--only k1`` (K1's rows), ``--only k2`` (K2's), ``--only k3`` (K3's:
-    K2, K3 and the pair a case) or ``--only k8`` (K8's) in float32 and
+    K2, K3 and the pair a case), ``--only k6`` (K6's: K6, K7 and the pair a
+    case) or ``--only k8`` (K8's) in float32 and
     bfloat16, for timing a kernel or a variant of it without the rest of the
     kernels phase."""
-    params, lwi, _, _, mask, g_ff, _, _ = flagship_inputs(device)
+    params, lwi, levels, big, mask, g_ff, g_lv, g_big = flagship_inputs(device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         cast = glom_model.tree_map(lambda p: p.to(dtype), params)
-        if name == "k1":
+        if name == "k6":
+            rows += k6_rows(levels.to(dtype), g_lv.to(dtype), big.to(dtype), g_big.to(dtype),
+                            mask, dtype)
+        elif name == "k1":
             rows += k1_rows(cast, lwi.to(dtype), dtype)
         elif name == "k8":
             rows += k8_rows(cast, lwi.to(dtype), mask, dtype)
@@ -733,7 +819,7 @@ def phase_only(device, name: str) -> None:
             fn = k2_rows if name == "k2" else k3_rows
             rows += fn(cast, lwi.to(dtype), g_ff.to(dtype), dtype)
     kernel = {"k1": "grouped_ff", "k2": "grouped_ff_dx", "k3": "grouped_ff_dw",
-              "k8": "fused_level_update"}[name]
+              "k6": "consensus_dkv+consensus_dq", "k8": "fused_level_update"}[name]
     extra = {"stages": K8_STAGES, "library_note": K8_NOTE} if name == "k8" else {}
     emit({"phase": name, "kernel": kernel, **extra, "rows": rows})
 
@@ -758,12 +844,8 @@ def phase_kernels(device) -> dict:
         bwd_rows += k3_rows(cast, x, g, dtype, cases=2)
         bwd_rows += [k2_case(p, xx, gg, dtype, label)[0]
                      for label, p, xx, gg in ff_bwd_inputs(cast, x, g)[2:]]
-        gl = g_lv.to(dtype)
-        bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=False")
-        bwd_rows += consensus_bwd_case(lv, gl, dtype, "attend_self=True", attend_self=True)
-        bwd_rows += consensus_bwd_case(lv, gl, dtype, "local_consensus_radius=2", mask=mask)
-        bwd_rows += consensus_bwd_case(big.to(dtype), g_big.to(dtype), dtype,
-                                       "n=2304 (384/8), b=1")
+        bwd_rows += k6_rows(lv, g_lv.to(dtype), big.to(dtype), g_big.to(dtype), mask, dtype,
+                            b1=False)
         # K8 reads levels and the tokens as views of one (b, n, L+1, d) state
         fused_rows += k8_rows(cast, x, mask, dtype)
     # launches of this phase: one checked call and 3 + REPS * INNER timed ones a row
@@ -771,7 +853,7 @@ def phase_kernels(device) -> dict:
           "launches": ff_kernel.grouped_ff.launches, "rows": ff_rows})
     emit({"phase": "kernels", "kernel": "consensus_attention",
           "launches": consensus_kernel.consensus_attention.launches, "rows": cons_rows})
-    for name in BACKWARD + ("grouped_ff_dx+grouped_ff_dw",):
+    for name in BACKWARD + PAIRS:
         emit({"phase": "kernels", "kernel": name, "rows": [
             {k: v for k, v in r.items() if k != "kernel"} for r in bwd_rows if r["kernel"] == name]})
     emit({"phase": "kernels", "kernel": "fused_level_update", "stages": K8_STAGES,
@@ -783,7 +865,7 @@ def phase_kernels(device) -> dict:
             "fused_level_update": fused_rows[0], "consensus_blocked": cons_rows[3]}
     library = {"grouped_ff": None, "consensus_attention": cons_rows[1]["library_ms"],
                "fused_level_update": None}
-    for name in BACKWARD + ("grouped_ff_dx+grouped_ff_dw",):
+    for name in BACKWARD + PAIRS:
         rows = [r for r in bwd_rows if r["kernel"] == name]
         main[name] = rows[0]
         library[name] = next((r.get("library_ms") for r in rows
@@ -792,6 +874,9 @@ def phase_kernels(device) -> dict:
 
 
 BACKWARD = ("grouped_ff_dx", "grouped_ff_dw", "consensus_dkv", "consensus_dq")
+# the backward pairs as the step runs them: K2 handing K3 the hidden, K6
+# handing K7 its dS'
+PAIRS = ("grouped_ff_dx+grouped_ff_dw", "consensus_dkv+consensus_dq")
 
 
 def post(url: str, payload: dict) -> dict:
@@ -1235,7 +1320,7 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-PHASES = ("kernels", "k1", "k2", "k3", "k8", "serve", "train", "serve_fused", "train_fused")
+PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "train_fused")
 
 
 def parse_args(argv):
@@ -1245,8 +1330,8 @@ def parse_args(argv):
     p.add_argument("--only", default=None,
                    help="comma-separated phases to run after device and build, for "
                         f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
-                        "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k8: "
-                        "K8's). "
+                        "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k6: K6's, "
+                        "each with the K7 on its dS' and the pair; k8: K8's). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -1263,7 +1348,7 @@ def run_only(device, names) -> int:
     for name in names:
         if name == "kernels":
             phase_kernels(device)
-        elif name in ("k1", "k2", "k3", "k8"):
+        elif name in ("k1", "k2", "k3", "k6", "k8"):
             phase_only(device, name)
         elif name == "serve":
             phase_serve(device)
@@ -1344,6 +1429,13 @@ def main(argv=()) -> int:
             summary[-1].update({"stages": K8_STAGES, "note": K8_NOTE,
                                 **{k: row[k] for k in ("splits", "key_splits", "k1_g11_k4_ms",
                                                        "vs_f64")}})
+        if name in ("consensus_dkv", "consensus_dq"):
+            summary[-1].update({k: row[k] for k in ("vs_f64", "work_units") if k in row})
+        if name == "consensus_dq":
+            pair = main_rows["consensus_dkv+consensus_dq"]
+            summary[-1]["k6_plus_k7"] = {k: pair[k] for k in (
+                "case", "dtype", "work", "kernel_ms", "k6_ms", "k7_ms", "bound_ms", "bound_by",
+                "bound_3xtf32_ms")}
         if name == "grouped_ff_dw":
             pair = main_rows["grouped_ff_dx+grouped_ff_dw"]
             summary[-1]["library_case"] = main_rows[name].get("library")

@@ -4,7 +4,8 @@ and K7, dQ).  The forward replaces both forward TPU kernels of
 ``glom_tpu/kernels/consensus_pallas.py``: ``_forward`` (K4, K/V resident)
 and ``_forward_blocked`` (K5, K/V streamed, for n > 1024).  On Hopper K/V is
 always streamed, so one kernel covers every n.  K6 and K7 replace
-``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``.
+``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``; K6 hands K7
+the scaled logit gradient dS' it forms, so K7 recomputes nothing.
 
 :func:`consensus_attention` is the forward.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(levels, mask, out, lse)``, as
@@ -37,9 +38,12 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_consensus(levels, sb, sn, sl, mask, out, lse, ws, b, n, L, dim,
 #                attend_self, splits, dtype, stream): csrc/consensus.cu
 _ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _p]
-# glom_consensus_bwd_{dkv,dq}(levels, sb, sn, sl, go, lse, delta, mask, out,
-#                             b, n, L, dim, attend_self, dtype, stream): csrc/consensus_bwd.cu
-_BWD_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _p]
+# glom_consensus_bwd_dkv(levels, sb, sn, sl, go, lse, delta, mask, out, ds,
+#                        b, n, L, dim, attend_self, dtype, stream): csrc/consensus_bwd.cu
+_DKV_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32,
+                 _p]
+# glom_consensus_bwd_dq(levels, sb, sn, sl, ds, out, b, n, L, dim, dtype, stream)
+_DQ_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
 
 
 def _kernel():
@@ -47,9 +51,9 @@ def _kernel():
     return _build.function("consensus", "glom_consensus", _ARGTYPES)
 
 
-def _bwd_kernel(symbol: str):
+def _bwd_kernel(symbol: str, argtypes):
     """A backward kernel's C entry point, built and loaded on first use."""
-    return _build.function("consensus_bwd", symbol, _BWD_ARGTYPES)
+    return _build.function("consensus_bwd", symbol, argtypes)
 
 
 def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, dtype) -> int:
@@ -126,12 +130,10 @@ def _forward(levels, attend_self, non_local_mask, splits):
     return out, lse
 
 
-def _backward_kernel(wrapper, fn, symbol, levels, dout, lse, delta, attend_self, non_local_mask):
-    """Launch K6 or K7 (``symbol``, counted on ``wrapper``) or, on the CPU,
-    its plain version ``fn``."""
-    if not on_device(symbol, levels):
-        return fn(levels, dout, lse, delta, attend_self=attend_self,
-                  non_local_mask=non_local_mask)
+def _bwd_inputs(levels, dout, lse, delta, non_local_mask):
+    """Check what K6 and K7 read and return ``(levels, dout)``, each copied
+    into fresh storage where its rows are off the kernels' 16-byte
+    ``cp.async`` boundary (as the forward does)."""
     _check(levels, non_local_mask)
     b, n, L, d = levels.shape
     want = {"dout": ((b, n, L, d), levels.dtype), "lse": ((b, L, n, 1), torch.float32),
@@ -143,55 +145,160 @@ def _backward_kernel(wrapper, fn, symbol, levels, dout, lse, delta, attend_self,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    # the kernels read rows as 4-element vectors: rows off that boundary are
-    # copied into fresh storage first, as the forward does
-    if not vector_aligned(levels, *levels.stride()[:3]):
+    if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
         levels = fresh_copy(levels)
-    if not vector_aligned(dout):
+    if not vector_aligned(dout, nbytes=16):
         dout = fresh_copy(dout)
+    return levels, dout
+
+
+def ds_shape(levels: torch.Tensor) -> tuple:
+    """The shape of the dS' K6 hands K7 for ``levels`` (b, n, L, d):
+    ``(b, L, n, n rounded up to 32)``, float32."""
+    b, n, L, _ = levels.shape
+    return (b, L, n, plain.ds_columns(n))
+
+
+def _check_ds(levels, ds):
+    if (tuple(ds.shape) != ds_shape(levels) or ds.dtype != torch.float32
+            or ds.device != levels.device or not ds.is_contiguous() or ds.data_ptr() % 16):
+        raise ValueError(f"ds must be {ds_shape(levels)} float32, contiguous and 16-byte "
+                         f"aligned on {levels.device}, got {tuple(ds.shape)} {ds.dtype} on "
+                         f"{ds.device}")
+
+
+def _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds):
+    """K6 on checked inputs; stores dS' into ``ds`` unless it is None."""
+    b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
-    if b * n == 0:
-        return out
     with torch.cuda.device(levels.device):
-        code = _bwd_kernel(symbol)(
+        code = _bwd_kernel("glom_consensus_bwd_dkv", _DKV_ARGTYPES)(
             levels.data_ptr(), levels.stride(0), levels.stride(1), levels.stride(2),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if non_local_mask is None else non_local_mask.data_ptr(), out.data_ptr(),
-            b, n, L, d, int(bool(attend_self)), DTYPE_CODES[levels.dtype],
-            torch.cuda.current_stream(levels.device).cuda_stream,
-        )
+            None if ds is None else ds.data_ptr(), b, n, L, d, int(bool(attend_self)),
+            DTYPE_CODES[levels.dtype], torch.cuda.current_stream(levels.device).cuda_stream)
     _build.check("consensus_bwd", code)
-    count(wrapper)
     return out
 
 
-def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+def _launch_dq(levels, ds):
+    """K7 on checked inputs and K6's dS'."""
+    b, n, L, d = levels.shape
+    out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
+    with torch.cuda.device(levels.device):
+        code = _bwd_kernel("glom_consensus_bwd_dq", _DQ_ARGTYPES)(
+            levels.data_ptr(), levels.stride(0), levels.stride(1), levels.stride(2),
+            ds.data_ptr(), out.data_ptr(), b, n, L, d, DTYPE_CODES[levels.dtype],
+            torch.cuda.current_stream(levels.device).cuda_stream)
+    _build.check("consensus_bwd", code)
+    return out
+
+
+def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None,
+                  keep_ds=False):
     """K6: the gradient through the keys and values,
     ``normalize_vjp(dS^T Q scale) + P^T dO``, ``(b, n, L, d)`` in ``levels``'
     type.  ``dout`` (levels' type, contiguous), ``lse`` and ``delta``
-    (``(b, L, n, 1)`` float32, contiguous)."""
-    return _backward_kernel(consensus_dkv, plain.consensus_dkv, "glom_consensus_bwd_dkv",
-                            levels, dout, lse, delta, attend_self, non_local_mask)
+    (``(b, L, n, 1)`` float32, contiguous).
+
+    ``keep_ds``: also return the dS' K7 reads, ``(dkv, ds)``: ``dS'_ij =
+    dS_ij kscale_j``, float32 :func:`ds_shape`, stored by the same launch
+    (the plain :func:`~glom_tpu_torch.ops.consensus.consensus_ds` on the
+    CPU)."""
+    if not on_device("glom_consensus_bwd_dkv", levels):
+        kw = dict(attend_self=attend_self, non_local_mask=non_local_mask)
+        dkv = plain.consensus_dkv(levels, dout, lse, delta, **kw)
+        return (dkv, plain.consensus_ds(levels, dout, lse, delta, **kw)) if keep_ds else dkv
+    levels, dout = _bwd_inputs(levels, dout, lse, delta, non_local_mask)
+    ds = (torch.empty(ds_shape(levels), dtype=torch.float32, device=levels.device)
+          if keep_ds else None)
+    if levels.shape[0] * levels.shape[1] == 0:
+        out = torch.empty(levels.shape, dtype=levels.dtype, device=levels.device)
+        return (out, ds) if keep_ds else out
+    out = _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds)
+    count(consensus_dkv)
+    return (out, ds) if keep_ds else out
 
 
-def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
-    """K7: the gradient through the queries, ``dS K scale``; arguments as
-    :func:`consensus_dkv`'s."""
-    return _backward_kernel(consensus_dq, plain.consensus_dq, "glom_consensus_bwd_dq",
-                            levels, dout, lse, delta, attend_self, non_local_mask)
+def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None, ds=None):
+    """K7: the gradient through the queries, ``dS K scale``, as ``dS' V``
+    on the ``ds`` that ``consensus_dkv(..., keep_ds=True)`` returned for the
+    same arguments; K7 recomputes neither S nor dP, so on the card it raises
+    without ``ds``.  On the CPU, with ``ds`` it is its plain twin on that
+    dS' (:func:`~glom_tpu_torch.ops.consensus.consensus_dq_from_ds`), and
+    without it the plain K7 on :func:`consensus_dkv`'s arguments."""
+    if not on_device("glom_consensus_bwd_dq", levels):
+        if ds is None:
+            return plain.consensus_dq(levels, dout, lse, delta, attend_self=attend_self,
+                                      non_local_mask=non_local_mask)
+        _check_ds(levels, ds)
+        return plain.consensus_dq_from_ds(levels, ds)
+    if ds is None:
+        raise ValueError("consensus_dq reads the dS' K6 stores: pass the ds of "
+                         "consensus_dkv(levels, dout, lse, delta, keep_ds=True)")
+    _check(levels, non_local_mask)
+    _check_ds(levels, ds)
+    if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
+        levels = fresh_copy(levels)
+    if levels.shape[0] * levels.shape[1] == 0:
+        return torch.empty(levels.shape, dtype=levels.dtype, device=levels.device)
+    out = _launch_dq(levels, ds)
+    count(consensus_dq)
+    return out
+
+
+# The dS' workspace of consensus_backward is capped at this many bytes:
+# above it, K6 and K7 run over views of levels holding fewer (b, l) pairs.
+DS_CHUNK_BYTES = 256 << 20
+
+
+def ds_chunks(b: int, n: int, L: int, limit: Optional[int] = None):
+    """The ``(batch slice, level slice)`` views over which consensus_backward
+    runs K6 and K7 so that each chunk's dS' stays within ``limit`` bytes
+    (default :data:`DS_CHUNK_BYTES`): all of it where it fits, else whole
+    batch rows, else levels of one batch row at a time."""
+    limit = DS_CHUNK_BYTES if limit is None else limit
+    pairs = max(1, limit // (4 * n * plain.ds_columns(n)))
+    if pairs >= b * L:
+        return [(slice(0, b), slice(0, L))]
+    if pairs >= L:
+        rows = pairs // L
+        return [(slice(i, min(b, i + rows)), slice(0, L)) for i in range(0, b, rows)]
+    return [(slice(i, i + 1), slice(j, min(L, j + pairs)))
+            for i in range(b) for j in range(0, L, pairs)]
 
 
 def consensus_backward(levels, non_local_mask, out, lse, g, *, attend_self=False):
     """dLevels of :func:`consensus_attention` at ``levels`` for the
     cotangent ``g`` of ``out``: ``delta = rowsum(dO * O)`` in float32 (a plain
     reduction, as ``consensus_pallas.py::_backward_flash`` leaves it to XLA),
-    then K7 + K6, added in ``levels``' type."""
+    then K6, which hands K7 its dS', then K7, added in ``levels``' type.  The
+    dS' lives only inside this call; where it would pass
+    :data:`DS_CHUNK_BYTES` the pair runs over views of ``levels``
+    (:func:`ds_chunks`), and the call still counts one launch of each."""
     do = g.to(levels.dtype).contiguous()
     delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
     kw = dict(attend_self=attend_self, non_local_mask=non_local_mask)
-    dq = consensus_dq(levels, do, lse, delta, **kw)
-    dkv = consensus_dkv(levels, do, lse, delta, **kw)
-    return (dq + dkv).to(levels.dtype)
+    if not on_device("consensus_backward", levels):
+        dkv, ds = consensus_dkv(levels, do, lse, delta, keep_ds=True, **kw)
+        return (consensus_dq(levels, do, lse, delta, ds=ds, **kw) + dkv).to(levels.dtype)
+    levels, do = _bwd_inputs(levels, do, lse, delta, non_local_mask)
+    b, n, L, d = levels.shape
+    dlevels = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
+    if b * n == 0:
+        return dlevels
+    for bs, ls in ds_chunks(b, n, L):
+        lv = levels[bs, :, ls]
+        ds = torch.empty(ds_shape(lv), dtype=torch.float32, device=levels.device)
+        dkv = _launch_dkv(lv, do[bs, :, ls].contiguous(), lse[bs, ls].contiguous(),
+                          delta[bs, ls].contiguous(), attend_self, non_local_mask, ds)
+        dq = _launch_dq(lv, ds)
+        del ds
+        torch.add(dq, dkv, out=dlevels[bs, :, ls])
+    count(consensus_dkv)
+    count(consensus_dq)
+    return dlevels
 
 
 def plain_vjp(levels, non_local_mask, g, *, attend_self=False):

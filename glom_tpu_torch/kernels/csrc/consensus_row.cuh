@@ -21,34 +21,9 @@ constexpr int KEY_BLOCK = 32;            // keys per streamed block
 constexpr float SELF_LOGIT = -5e-4f;
 constexpr float NORM_EPS = 1e-12f;
 
-// Each of the 8 warps takes 4 of the 32 keys in vs (rows of `stride`
-// floats, D wide): kscale[j] = scale / max(|v_j|, eps) and, when norm is not
-// null, norm[j] = |v_j|.
-template <int D>
-__device__ __forceinline__ void key_scales(const float* vs, int stride, float* kscale,
-                                           float* norm, float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < KEY_BLOCK / 8; ++e) {
-    const int j = warp * (KEY_BLOCK / 8) + e;
-    const float* vr = vs + j * stride;
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 128; ++c) {
-      const float4 v = *reinterpret_cast<const float4*>(&vr[c * 128 + lane * 4]);
-      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-    }
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      const float nrm = sqrtf(ss);
-      kscale[j] = scale / fmaxf(nrm, NORM_EPS);
-      if (norm != nullptr) norm[j] = nrm;
-    }
-  }
-}
-
 // kscale from a key's squared norm ss: scale / max(sqrt(ss), eps), as
-// key_scales computes it, by one reciprocal square root (about 2 ulp).
+// consensus_bwd.cu's key_norms computes it, by one reciprocal square root
+// (about 2 ulp).
 __device__ __forceinline__ float key_scale_from_sq(float ss, float scale) {
   return scale * rsqrtf(fmaxf(ss, NORM_EPS * NORM_EPS));
 }

@@ -1,4 +1,5 @@
-// The tiled product that K1 (grouped_ff.cu) and K8 (fused_update.cu) run:
+// The tiled product that K1 (grouped_ff.cu), K8 (fused_update.cu) and K7
+// (consensus_bwd.cu) run:
 // a block's 64 x 128 output tile of A B, summed over the depth in slabs of
 // 32 that stream through a three-stage cp.async ring, on the tensor cores
 // (mma.sync m16n8k8, 3xTF32 for f32 operands), each slab's product folded
@@ -99,7 +100,9 @@ __device__ __forceinline__ void copy_slab(T* dst, const T* src, long long stride
 // acc = A B for the block's 64 x 128 output tile, summed over `depth` (a
 // multiple of BK): A(m, k) = a[m * lda + k] (a at the tile's first row;
 // rows at or past live_rows are zero), B(k, n) = b[k * ldb + n] (b at the
-// tile's first column; nw of its BN columns exist, a multiple of 32).  The
+// tile's first column; nw of its BN columns exist, a multiple of 32; rows
+// at or past live_depth are zero and never read, for a depth that ends off
+// a slab, as K7's keys do).  The
 // warp's share: rows 32 (warp % 2) + 16 mt + gid (+ 8), columns 32 (warp /
 // 2) + 8 tig + [0, 8): acc[mt][nt] holds mma columns 2 tig and 2 tig + 1,
 // which are the tile's columns 8 tig + nt and 8 tig + 4 + nt.
@@ -110,7 +113,8 @@ template <typename TA, typename TB, bool EXACT_A, bool EXACT_B>
 __device__ __forceinline__ void tile_product(float (&acc)[2][4][4], const TA* __restrict__ a,
                                              long long lda, int live_rows,
                                              const TB* __restrict__ b, long long ldb, int nw,
-                                             int depth, unsigned char* smem) {
+                                             int depth, unsigned char* smem,
+                                             int live_depth = 1 << 30) {
   using SA = ASlab<TA>;
   using SB = BSlab<TB>;
   constexpr int STAGE = SA::kBytes + SB::kBytes;
@@ -122,7 +126,8 @@ __device__ __forceinline__ void tile_product(float (&acc)[2][4][4], const TA* __
   auto issue = [&](int s) {
     unsigned char* st = smem + (s % NST) * STAGE;
     copy_slab<SA>(reinterpret_cast<TA*>(st), a + s * BK, lda, live_rows, BK);
-    copy_slab<SB>(reinterpret_cast<TB*>(st + SA::kBytes), b + (long long)s * BK * ldb, ldb, BK, nw);
+    copy_slab<SB>(reinterpret_cast<TB*>(st + SA::kBytes), b + (long long)s * BK * ldb, ldb,
+                  live_depth - s * BK, nw);
     glom::cp_async_commit();
   };
   // the ring runs NST - 1 slabs ahead; a group is committed for every slab

@@ -1,156 +1,18 @@
-// Warp-level products of f32 tiles in shared memory on the tensor cores,
-// for the backward kernels (grouped_ff_bwd.cu, consensus_bwd.cu), and the
-// pieces of the tiled products of tile_gemm.cuh (K1, K8) and
-// grouped_ff_bwd.cu's K3.
-//
-// Each product is mma.sync m16n8k8 on tf32 operands with f32 accumulators.
-// An f32 operand is split into two tf32 parts, v = hi + lo (common.cuh's
-// split_tf32), and a product takes three passes, lo*hi + hi*lo + hi*hi
-// ("3xTF32"), so f32 calls keep f32 accuracy.  An operand whose values came
-// from bf16 is exact in tf32 (lo = 0): marking it EXACT skips its pass.
-//
-// Operands are addressed through a row and a column stride, so a transposed
-// operand (X^T, P^T) is the same tile read the other way:
-//     A(r, k) = a[r * ars + k * acs],   B(k, c) = b[k * brs + c * bcs].
-// `a` points at the warp's first row, `b` at its first column.  A is f32; B
-// is f32 or, for a weight slab copied as it lies in device memory, bf16.
+// Pieces of the port's tiled products on the tensor cores (mma.sync
+// m16n8k8 on tf32 operands, f32 accumulators; an f32 operand split into
+// tf32 hi and lo, common.cuh's split_tf32, and a product taking three
+// passes, lo*hi + hi*lo + hi*hi, "3xTF32"), shared by tile_gemm.cuh (K1,
+// K7, K8), grouped_ff_bwd.cu (K2, K3) and consensus_bwd.cu (K6): zeroing
+// and adding fragment tiles (each slab's product is formed in a zeroed
+// fragment and added with an f32 add, since the tensor cores' f32
+// accumulation rounds toward zero), vector loads and stores of four or
+// eight elements of f32 or bf16, and the copy of a row tile into shared
+// memory as f32.
 #pragma once
 
 #include "common.cuh"
 
 namespace glom {
-
-// The A fragment of rows [16 mt, 16 mt + 16) at depth k (common.cuh's
-// fragment layout), split into tf32 hi and lo parts.
-template <bool EXACT>
-__device__ __forceinline__ void load_a(const float* a, int ars, int acs, int k, uint32_t (&hi)[4],
-                                       uint32_t (&lo)[4]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const float* ap = a + gid * ars + (k + tig) * acs;
-  const float v[4] = {ap[0], ap[8 * ars], ap[4 * acs], ap[8 * ars + 4 * acs]};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    if (EXACT) {
-      hi[e] = __float_as_uint(v[e]);
-      lo[e] = 0u;
-    } else {
-      split_tf32(v[e], hi[e], lo[e]);
-    }
-  }
-}
-
-// The B fragment of columns [8 nt, 8 nt + 8) at depth k.
-template <bool EXACT, typename TB>
-__device__ __forceinline__ void load_b(const TB* b, int brs, int bcs, int k, uint32_t (&hi)[2],
-                                       uint32_t (&lo)[2]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const TB* bp = b + (k + tig) * brs + gid * bcs;
-  const float v[2] = {to_f32(bp[0]), to_f32(bp[4 * brs])};
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (EXACT) {
-      hi[e] = __float_as_uint(v[e]);
-      lo[e] = 0u;
-    } else {
-      split_tf32(v[e], hi[e], lo[e]);
-    }
-  }
-}
-
-// c[mt][nt] (16 x 8 tiles; MT x NT of them) += A @ B over depth K, a
-// multiple of 8.  For products with many tiles a warp and a short depth
-// that a kernel sums into c over many steps (a row tile, a hidden chunk, a
-// key or query block each).  The tensor cores' f32 accumulation rounds
-// toward zero, so hundreds of steps accumulated inside the mma would bias a
-// long sum (7e-4 on a K3 dW1 entry of the flagship shapes); instead each
-// tile's product over a depth of 16 is formed in a zeroed fragment and
-// added to c with an f32 add, which rounds to nearest.
-template <int MT, int NT, int K, bool EXACT_A, bool EXACT_B, typename TB>
-__device__ __forceinline__ void warp_mma(float (&c)[MT][NT][4], const float* a, int ars, int acs,
-                                         const TB* b, int brs, int bcs) {
-  static_assert(K % 16 == 0, "depth must be a multiple of 16");
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-        load_a<EXACT_A>(a + mt * 16 * ars, ars, acs, k0 + 8 * s, ahi[s], alo[s]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          uint32_t bhi[2], blo[2];
-          load_b<EXACT_B>(b + nt * 8 * bcs, brs, bcs, k0 + 8 * s, bhi, blo);
-          if (!EXACT_B) mma_tf32(t, ahi[s], blo);
-          if (!EXACT_A) mma_tf32(t, alo[s], bhi);
-          mma_tf32(t, ahi[s], bhi);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[mt][nt][e] += t[e];
-      }
-    }
-  }
-}
-
-// As warp_mma, for products with few tiles a warp and a long depth K (a
-// multiple of 16): the even and odd k8 steps, and the hi*hi pass apart from
-// the lo passes, go to four accumulator sets, so four chains of dependent
-// mma are in flight instead of one.  They are added into c at the end.
-template <int MT, int NT, bool EXACT_A, bool EXACT_B, typename TB>
-__device__ __forceinline__ void warp_mma_long(float (&c)[MT][NT][4], const float* a, int ars,
-                                              int acs, const TB* b, int brs, int bcs, int K) {
-  float hi[2][MT][NT][4], lo[2][MT][NT][4];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hi[s][mt][nt][e] = lo[s][mt][nt][e] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int k = k0 + 8 * s;
-      uint32_t ahi[MT][4], alo[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) load_a<EXACT_A>(a + mt * 16 * ars, ars, acs, k, ahi[mt], alo[mt]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t bhi[2], blo[2];
-        load_b<EXACT_B>(b + nt * 8 * bcs, brs, bcs, k, bhi, blo);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if (!EXACT_B) mma_tf32(lo[s][mt][nt], ahi[mt], blo);
-          if (!EXACT_A) mma_tf32(lo[s][mt][nt], alo[mt], bhi);
-          mma_tf32(hi[s][mt][nt], ahi[mt], bhi);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        c[mt][nt][e] += (hi[0][mt][nt][e] + hi[1][mt][nt][e]) + (lo[0][mt][nt][e] + lo[1][mt][nt][e]);
-}
-
-// Store a warp's 16 x 8 tile t (fragment layout) into a row-major f32 tile
-// in shared memory; `dst` points at the tile's first element.
-__device__ __forceinline__ void store_tile(float* dst, int stride, const float (&t)[4]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  float* p = dst + gid * stride + 2 * tig;
-  p[0] = t[0];
-  p[1] = t[1];
-  p[8 * stride] = t[2];
-  p[8 * stride + 1] = t[3];
-}
 
 template <int MT, int NT>
 __device__ __forceinline__ void zero_tiles(float (&t)[MT][NT][4]) {

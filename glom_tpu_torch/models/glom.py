@@ -18,8 +18,8 @@ ops for CPU tensors.  ``ff_impl="fused"`` is a step-level choice: when
 fused level-update kernels (``kernels/fused_update.py``, K8); otherwise it
 falls back to the grouped-FF kernel with the attention chosen by the
 ``"auto"`` policy.  ``attention_impl="auto"`` picks the consensus kernels on
-a CUDA device above the measured crossover (:data:`ATTENTION_CROSSOVER_N`)
-and the plain ops otherwise.  :func:`apply` runs under autograd: the
+a CUDA device of the kernels' compute capability above the measured
+crossover (:data:`ATTENTION_CROSSOVER_N`) and the plain ops otherwise.  :func:`apply` runs under autograd: the
 kernels' gradients are their backward kernels (``ff_fused_bwd`` picks K2 +
 K3 or the plain VJP for the FF, as in the JAX package; consensus always
 takes K6 + K7; K8 differentiates the unfused composition of those).
@@ -156,24 +156,29 @@ def resolve_locality_mask(config: GlomConfig, device=None) -> Optional[torch.Ten
 
 
 # Measured dense -> pallas crossover per GPU generation: at n <= entry the
-# plain consensus matches or beats the CUDA kernels (K4 forward, K6 + K7
-# backward) in the real train step, above it the kernels are chosen.  One row
-# per generation with its measurement; ``python -m glom_tpu_torch.tools.crossover``
-# measures again and prints the row for the card it runs on.
+# plain consensus matched or beat the CUDA kernels (K4 forward, K6 + K7
+# backward) in the real train step, or, where the kernels won at every
+# measured n, the entry sits one below the smallest n measured; above it the
+# kernels are chosen.  One row per generation with its measurement;
+# ``python -m glom_tpu_torch.tools.crossover`` measures again and prints the
+# row for the card it runs on.
 ATTENTION_CROSSOVER_N = {
-    # NVIDIA H100 80GB HBM3, 700.00 W; the tool's run of this row's commit,
-    # flagship width, b=8, f32, FF on its kernels in both legs, images/s dense
-    # against pallas: n=16 249.3 / 304.9, n=64 209.1 / 239.8, n=256 74.10 /
-    # 75.07, n=576 32.15 / 31.87, n=1024 17.62 / 16.88.  The kernels win up to
-    # n=256 (by 22 % to 1 %: fewer launches) and the plain ops at 576 and 1024
-    # (by 1 % and 4 %: K6 and K7 run at a fifth of their bound, PERF.md), so
-    # the row is the largest measured n where dense still wins.  Above it the
-    # kernels are chosen for their memory: they never hold the (b, L, n, n)
-    # logits.
-    "H100": 1024,
+    # NVIDIA H100 80GB HBM3, 700.00 W; the tool's run of this row's commit
+    # (--sizes 56 112 224 336 448), flagship width, b=8, f32, FF on its
+    # kernels in both legs, images/s dense against pallas: n=16 386.1 /
+    # 592.3, n=64 361.1 / 418.2, n=256 128.0 / 136.7, n=576 54.54 / 58.46,
+    # n=1024 29.36 / 31.04.  The kernels win at every measured n (by 53 % to
+    # 6 %; before K6 hands K7 its dS', PERF.md, the plain ops won at 576 and
+    # 1024 and the row was 1024), so the row sits below the smallest, 16;
+    # n < 16 was not measured.
+    "H100": 15,
 }
-# a generation with no measured row borrows the H100's, with a warning
-_CROSSOVER_FALLBACK_N = 1024
+# an unmeasured generation whose compute capability the kernels are built
+# for borrows the H100's row, with a warning
+_CROSSOVER_FALLBACK_N = ATTENTION_CROSSOVER_N["H100"]
+# the compute capability of the kernels' build (sm_90a, kernels/_build.py):
+# on any other card "auto" is "dense"
+KERNELS_CAPABILITY = (9, 0)
 
 
 def gpu_generation(device=None) -> str:
@@ -189,12 +194,13 @@ def gpu_generation(device=None) -> str:
 
 def resolve_auto_attention(config: GlomConfig, device=None) -> str:
     """What ``attention_impl="auto"`` means on ``device``: ``"pallas"`` on a
-    CUDA device when ``num_patches`` exceeds the generation's measured
-    crossover and the kernels take the width, ``"dense"`` otherwise (every
-    CPU run included).  An unmeasured generation warns and borrows the
-    H100's row."""
+    CUDA device the kernels are built for when ``num_patches`` exceeds the
+    generation's measured crossover and the kernels take the width,
+    ``"dense"`` otherwise (every CPU run and every card of another compute
+    capability included).  An unmeasured generation of the kernels' compute
+    capability warns and borrows the H100's row."""
     dev = torch.device("cpu" if device is None else device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or torch.cuda.get_device_capability(dev) != KERNELS_CAPABILITY:
         return "dense"
     gen = gpu_generation(dev)
     crossover = ATTENTION_CROSSOVER_N.get(gen)

@@ -19,7 +19,9 @@ backward kernels K6 and K7 (``glom_tpu/kernels/consensus_pallas.py::
 _bwd_dkv_kernel`` and ``::_bwd_dq_kernel``): they recompute the masked logits
 as the forward does and apply the flash-attention formulas with the
 forward's ``lse`` and ``delta = rowsum(dO * O)``, in float32, writing the
-``(b, L, n, n)`` probabilities the kernels never write.
+``(b, L, n, n)`` probabilities the kernels never write.  K6 also hands K7
+the scaled logit gradient it forms, and K7 is a product of it and the levels;
+their plain twins are :func:`consensus_ds` and :func:`consensus_dq_from_ds`.
 """
 
 from __future__ import annotations
@@ -110,6 +112,31 @@ def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask
     dk, dv = consensus_dkv_terms(levels, dout, lse, delta, attend_self=attend_self,
                                  non_local_mask=non_local_mask)
     return (dk + dv).to(levels.dtype)
+
+
+def ds_columns(n: int) -> int:
+    """The row length of dS': ``n`` rounded up to the 32 keys of a K6 block."""
+    return -(-n // 32) * 32
+
+
+def consensus_ds(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+    """What K6 hands K7: ``dS'_ij = dS_ij kscale_j`` with ``kscale_j =
+    d^-1/2 / max(|x_j|, 1e-12)``, float32 ``(b, L, n, ds_columns(n))``, zero
+    past n (and wherever dS is)."""
+    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
+    n, d = x.shape[1], x.shape[-1]
+    norm = torch.sqrt(torch.sum(x * x, dim=-1))                 # (b, n, L)
+    kscale = (d ** -0.5) / torch.clamp(norm, min=1e-12)
+    ds = ds * kscale.permute(0, 2, 1)[:, :, None, :]
+    return torch.nn.functional.pad(ds, (0, ds_columns(n) - n))
+
+
+def consensus_dq_from_ds(levels, ds):
+    """K7's plain version on K6's dS' (:func:`consensus_ds`): ``dS' V``, the
+    gradient through the queries, in ``levels``' type."""
+    n = levels.shape[1]
+    dq = torch.einsum("blij,bjld->bild", ds[..., :n].float(), levels.float())
+    return dq.to(levels.dtype)
 
 
 def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):

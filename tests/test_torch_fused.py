@@ -394,8 +394,11 @@ def test_auto_attention_is_dense_on_the_cpu(n_side):
 
 def test_auto_attention_on_a_cuda_device_follows_the_measured_row(monkeypatch):
     """Above the generation's row, and at a width the kernels take, the
-    kernels; an unmeasured generation warns and borrows the H100's row."""
+    kernels; an unmeasured generation of the kernels' compute capability
+    warns and borrows the H100's row; a card of another capability, which
+    cannot load the kernels, gets the plain ops."""
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
     assert glom_model.gpu_generation("cuda") == "H100"
     row = glom_model.ATTENTION_CROSSOVER_N["H100"]
     side = int(row ** 0.5) + 1
@@ -407,9 +410,13 @@ def test_auto_attention_on_a_cuda_device_follows_the_measured_row(monkeypatch):
     if row >= 4:
         below = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8, attention_impl="auto")
         assert glom_model.resolve_auto_attention(below, "cuda") == "dense"
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA B200")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H200")
     with pytest.warns(UserWarning, match="crossover"):
         assert glom_model.resolve_auto_attention(above, "cuda") == "pallas"
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA B200")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (10, 0))
+    big = dataclasses.replace(above, image_size=8 * 64)
+    assert glom_model.resolve_auto_attention(big, "cuda") == "dense"
 
 
 # -- the forward ------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """The CUDA sources of K1 (``csrc/grouped_ff.cu``, the grouped-FF forward),
-of K2 and K3 (``csrc/grouped_ff_bwd.cu``'s dX and dW kernels) and of K8
-(``csrc/fused_update.cu``, the fused level update, with K4's consensus
-kernel inside) run on the CPU through ``tests/cuda_emu/emulate.py``, against
-the wrappers' plain versions on the same inputs.
+of K2 and K3 (``csrc/grouped_ff_bwd.cu``'s dX and dW kernels), of K6 and K7
+(``csrc/consensus_bwd.cu``, the consensus backward, K6 handing K7 its dS')
+and of K8 (``csrc/fused_update.cu``, the fused level update, with K4's
+consensus kernel inside) run on the CPU through ``tests/cuda_emu/emulate.py``,
+against the wrappers' plain versions on the same inputs.
 
 The emulator compiles the kernels' own source with ``g++`` and runs every
 CUDA thread of a block as a host thread, the tensor cores' products on
 operands cut to tf32 as the card cuts them.  So these tests reach the
 kernels' index arithmetic, fragment layouts, ragged row tiles and slabs,
 short hidden chunks and ragged output tiles, K1's hidden and the hidden K2
-hands K3, K8's gather of both nets' inputs and its epilogue, the splits and
+hands K3, K6's partial logits, its dS' and K7's product of it, K8's gather
+of both nets' inputs and its epilogue, the splits and
 their ordered reductions, and the rings, which the CPU path of the wrappers
 (the plain versions) never does.  Limits as on the card (tests/test_torch_kernels.py):
 ||got - want|| <= rtol ||want|| and |got - want| <= rtol (min(1, max|want|)
@@ -22,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
 from glom_tpu_torch.kernels import fused_update
 from glom_tpu_torch.kernels._common import DTYPE_CODES
+from glom_tpu_torch.ops import consensus as plain_cons
 from glom_tpu_torch.ops import feedforward as plain_ff
 from glom_tpu_torch.ops.masks import local_consensus_mask
 from tests.cuda_emu import emulate
@@ -561,3 +565,157 @@ def test_emulated_k8_sum_over_the_hidden_does_not_drift(k8):
     assert (err.abs() <= 1e-4 * (min(1.0, want.abs().max().item()) + want.abs())).all()
     # no bias toward zero beyond a few units of the last place
     assert -(err * terms.sign()).sum() <= 1e-6 * terms.abs().sum()
+
+
+# -- K6 and K7: the consensus backward, K6 handing K7 its dS' -----------------
+
+@pytest.fixture(scope="module")
+def k67():
+    """K6's and K7's emulated C entries."""
+    if not emulate.compiler():
+        pytest.skip("needs g++ to compile the kernel source against the emulator")
+    return (emulate.function("consensus_bwd", "glom_consensus_bwd_dkv",
+                             consensus_kernel._DKV_ARGTYPES),
+            emulate.function("consensus_bwd", "glom_consensus_bwd_dq",
+                             consensus_kernel._DQ_ARGTYPES))
+
+
+def _k67_inputs(b, n, L, d, dtype, seed, strided=False, non_local_mask=None, attend_self=False):
+    """``(levels, dO, lse, delta)``: levels a strided view of a (b, n, L+1,
+    d) buffer or contiguous, lse and delta from the plain forward."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    levels = t(b, n, L + 1, d)[..., 1:, :] if strided else t(b, n, L, d)
+    g = t(b, n, L, d)
+    out, lse = plain_cons.consensus_attention(levels.float(), attend_self=attend_self,
+                                              non_local_mask=non_local_mask)
+    delta = (g.float() * out).sum(-1).permute(0, 2, 1)[..., None].contiguous()
+    return levels, g, lse, delta
+
+
+def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep_ds=True):
+    """K6's dKV and dS' and K7's dQ on that dS', in buffers that start as NaN
+    so that an element the kernels skip shows."""
+    dkv_fn, dq_fn = k67
+    b, n, L, d = levels.shape
+    code = DTYPE_CODES[levels.dtype]
+    dkv = torch.full(levels.shape, float("nan"), dtype=levels.dtype)
+    ds = torch.full(consensus_kernel.ds_shape(levels), float("nan"))
+    strides = levels.stride()[:3]
+    assert dkv_fn(levels.data_ptr(), *strides, g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  None if mask is None else mask.data_ptr(), dkv.data_ptr(),
+                  ds.data_ptr() if keep_ds else None, b, n, L, d, int(attend_self), code,
+                  None) == 0
+    if not keep_ds:
+        return dkv
+    dq = torch.full(levels.shape, float("nan"), dtype=levels.dtype)
+    assert dq_fn(levels.data_ptr(), *strides, ds.data_ptr(), dq.data_ptr(), b, n, L, d, code,
+                 None) == 0
+    return dkv, ds, dq
+
+
+@pytest.mark.parametrize("n,L,d,dtype,extra", [
+    (40, 2, 128, torch.float32, {}),             # two key blocks, the last of 8; 3 query steps
+    (40, 2, 128, torch.bfloat16, {}),
+    (72, 1, 128, torch.float32, {"attend_self": True}),
+    (72, 1, 128, torch.bfloat16, {"attend_self": True, "strided": True}),
+    (36, 2, 128, torch.float32, {"side": 6}),    # the locality mask, radius 1.5
+    (36, 1, 128, torch.bfloat16, {"side": 6, "strided": True}),
+    (40, 2, 128, torch.float32, {"strided": True}),
+    (25, 1, 384, torch.float32, {}),             # a warp owns one m-tile and three quads
+    (33, 1, 512, torch.bfloat16, {"attend_self": True}),   # both m-tiles, two quads
+])
+def test_emulated_k6_hands_k7_its_ds(k67, n, L, d, dtype, extra):
+    """K6 (dKV, its key term also on its own, and the dS' it stores: every
+    element, zero past n) and K7 on that dS' against their plain versions
+    (K7 also against its plain twin on the same dS'); without a dS' K6 gives
+    the same dKV; two runs give the same bits."""
+    extra = dict(extra)
+    side, strided = extra.pop("side", None), extra.pop("strided", False)
+    mask = torch.from_numpy(local_consensus_mask(side, 1.5)) if side else None
+    kw = dict(non_local_mask=mask, **extra)
+    levels, g, lse, delta = _k67_inputs(1, n, L, d, dtype, n + L + d, strided, **kw)
+    dkv, ds, dq = _emulated_k67(k67, levels, g, lse, delta, mask, **extra)
+    lf, gf = levels.float(), g.float()
+    key_term, _ = plain_cons.consensus_dkv_terms(lf, gf, lse, delta, **kw)
+    want = plain_cons.consensus_dkv(lf, gf, lse, delta, **kw)
+    assert dkv.dtype == dtype and dq.dtype == dtype
+    _assert_close(dkv, want, dtype)
+    err = torch.linalg.vector_norm(dkv.float() - want)
+    assert err <= RTOL[dtype] * torch.linalg.vector_norm(key_term) + (
+        torch.finfo(dtype).eps / 2 * torch.linalg.vector_norm(want))
+    assert not ds[..., n:].any()
+    _assert_close(ds, plain_cons.consensus_ds(lf, gf, lse, delta, **kw), torch.float32)
+    _assert_close(dq, plain_cons.consensus_dq(lf, gf, lse, delta, **kw), dtype)
+    _assert_close(dq, plain_cons.consensus_dq_from_ds(levels, ds).float(), dtype)
+    assert torch.equal(dkv, _emulated_k67(k67, levels, g, lse, delta, mask, keep_ds=False,
+                                          **extra))
+    again = _emulated_k67(k67, levels, g, lse, delta, mask, **extra)
+    assert all(torch.equal(u, v) for u, v in zip((dkv, ds, dq), again))
+
+
+def test_emulated_k6_refuses_what_the_kernel_does_not_take(k67):
+    dkv_fn, dq_fn = k67
+    levels, g, lse, delta = _k67_inputs(1, 8, 2, 128, torch.float32, 0)
+    out, ds = torch.empty(levels.shape), torch.zeros(consensus_kernel.ds_shape(levels))
+
+    def k6(lv=levels.data_ptr(), sn=levels.stride(1), d=128, dtype=0):
+        return dkv_fn(lv, levels.stride(0), sn, levels.stride(2), g.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), None, out.data_ptr(), ds.data_ptr(), 1, 8, 2, d, 0,
+                      dtype, None)
+
+    def k7(lv=levels.data_ptr(), ds_ptr=ds.data_ptr(), d=128):
+        return dq_fn(lv, *levels.stride()[:3], ds_ptr, out.data_ptr(), 1, 8, 2, d, 0, None)
+
+    assert k6() == 0 and k7() == 0
+    assert k6(d=96) != 0 and k6(d=640) != 0 and k6(dtype=2) != 0 and k7(d=96) != 0
+    assert k6(lv=levels.data_ptr() + 4) != 0 and k7(lv=levels.data_ptr() + 4) != 0
+    assert k6(sn=levels.stride(1) + 1) != 0               # rows off a 16-byte boundary
+    assert k7(ds_ptr=None) != 0                           # K7 reads K6's dS'
+
+
+def test_emulated_k7_on_k6s_ds_stays_near_float64(k67):
+    """K7's dQ on K6's dS' against float64, normwise, within 1.75x the
+    float32 plain version's error.  dQ = sum_j dS'_ij V_j cancels, and so
+    does dS = P (dP - delta), so the bit a truncated tf32 split of S's and
+    dP's operands loses shows in dQ: with K6 splitting them so, dQ read 2.2x
+    the plain version's error here, with the rounded split 1.4x."""
+    levels, g, lse, delta = _k67_inputs(1, 128, 1, 128, torch.float32, 1)
+    _, _, dq = _emulated_k67(k67, levels, g, lse, delta)
+    x, gd = levels.double(), g.double()
+    n, d = x.shape[1], x.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool)
+    keys = x / x.norm(dim=-1, keepdim=True)
+    p = torch.softmax((torch.einsum("bild,bjld->blij", x, keys) * d ** -0.5).masked_fill(eye, -5e-4), -1)
+    dl = (gd * torch.einsum("blij,bjld->bild", p, x)).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (torch.einsum("bild,bjld->blij", gd, x) - dl)).masked_fill(eye, 0.0)
+    want = torch.einsum("blij,bjld->bild", ds, keys) * d ** -0.5
+    plain = plain_cons.consensus_dq(levels, g, lse, delta).double()
+    err = torch.linalg.vector_norm(dq.double() - want)
+    assert err <= 1.75 * torch.linalg.vector_norm(plain - want)
+
+
+def test_emulated_k6_sum_over_many_queries_does_not_drift(k67):
+    """K6's dKV over 384 queries (24 steps) against float64: each step's
+    dV and dK products are formed in a zeroed fragment and added with an f32
+    add, so the sums over the queries do not drift toward zero (kept inside
+    the mma, whose f32 accumulation rounds toward zero as the emulator's
+    does, they read 4.5e-6 normwise and 4.1e-6 of bias over 512 queries)."""
+    levels, g, lse, delta = _k67_inputs(1, 384, 1, 128, torch.float32, 9)
+    got = _emulated_k67(k67, levels, g, lse, delta, keep_ds=False).double()
+    x, gd = levels.double(), g.double()
+    n, d = x.shape[1], x.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool)
+    sim = torch.einsum("bild,bjld->blij", x, x / x.norm(dim=-1, keepdim=True)) * d ** -0.5
+    p = torch.softmax(sim.masked_fill(eye, -5e-4), -1)
+    dl = (gd * torch.einsum("blij,bjld->bild", p, x)).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (torch.einsum("bild,bjld->blij", gd, x) - dl)).masked_fill(eye, 0.0)
+    want = plain_cons.l2_normalize_vjp(x, torch.einsum("blij,bild->bjld", ds, x) * d ** -0.5)
+    want = want + torch.einsum("blij,bild->bjld", p, gd)
+    err = got - want
+    assert torch.linalg.vector_norm(err) <= 1e-6 * torch.linalg.vector_norm(want)
+    assert -(err * want.sign()).sum() <= 1e-6 * want.abs().sum()
+    assert (err.abs() <= 1e-4 * (1.0 + want.abs())).all()

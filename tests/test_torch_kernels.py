@@ -303,6 +303,56 @@ def test_consensus_autograd_matches_jax_vjp(attend_self, use_mask, flash_bwd):
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
 
 
+@pytest.mark.parametrize("attend_self,use_mask", [(False, False), (True, False), (False, True)])
+def test_consensus_dq_on_k6s_ds_is_the_plain_composition(attend_self, use_mask):
+    """On the CPU, K6 with its dS' kept gives the plain dKV and the plain
+    dS' (float32 (b, L, n, n rounded up to 32), zero past n), and K7 on that
+    dS' is its plain twin, dS' V, which agrees with the plain K7 that
+    recomputes the logits (n=20, off the 32-key block)."""
+    rng = np.random.default_rng(15)
+    side = 4 if use_mask else 5
+    n = side * side
+    levels = torch.from_numpy(rng.standard_normal((2, n, 3, 8)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, n, 3, 8)).astype(np.float32))
+    mask = torch.from_numpy(local_consensus_mask(side, 1.5)) if use_mask else None
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    out, lse = plain_consensus.consensus_attention(levels, **kw)
+    delta = (g * out).sum(-1).permute(0, 2, 1)[..., None].contiguous()
+    dkv, ds = consensus_kernel.consensus_dkv(levels, g, lse, delta, keep_ds=True, **kw)
+    assert torch.equal(dkv, plain_consensus.consensus_dkv(levels, g, lse, delta, **kw))
+    assert ds.dtype == torch.float32 and tuple(ds.shape) == consensus_kernel.ds_shape(levels)
+    assert tuple(ds.shape) == (2, 3, n, 32) and not ds[..., n:].any()
+    dq = consensus_kernel.consensus_dq(levels, g, lse, delta, ds=ds, **kw)
+    assert torch.equal(dq, plain_consensus.consensus_dq_from_ds(levels, ds))
+    np.testing.assert_allclose(dq.numpy(), plain_consensus.consensus_dq(
+        levels, g, lse, delta, **kw).numpy(), atol=ATOL)
+    with pytest.raises(ValueError, match="ds must be"):
+        consensus_kernel.consensus_dq(levels, g, lse, delta, ds=ds[..., :n].contiguous(), **kw)
+
+
+@pytest.mark.parametrize("b,n,L,limit,count", [
+    (8, 256, 6, None, 1),          # flagship: 12.6 MB, one chunk
+    (1, 2304, 6, None, 1),         # n=2304, b=1: 127 MB
+    (8, 2304, 6, None, 4),         # 1.02 GB: two batch rows (12 pairs, 255 MB) a chunk
+    (3, 40, 5, 4 * 40 * 64 * 7, 3),     # 7 pairs a chunk: one batch row of 5 levels
+    (2, 40, 5, 4 * 40 * 64 * 3, 4),     # 3 pairs: levels of one row at a time (3 + 2)
+    (2, 40, 5, 1, 10),             # a cap below one pair still runs one pair a chunk
+])
+def test_ds_chunks_cap_the_workspace(b, n, L, limit, count):
+    """consensus_backward's views: each (b, l) pair in exactly one chunk, in
+    order, and each chunk's dS' within the cap wherever one pair fits."""
+    chunks = consensus_kernel.ds_chunks(b, n, L, limit)
+    assert len(chunks) == count
+    cap = consensus_kernel.DS_CHUNK_BYTES if limit is None else limit
+    pair_bytes = 4 * n * plain_consensus.ds_columns(n)
+    seen = []
+    for bs, ls in chunks:
+        pairs = [(i, j) for i in range(b)[bs] for j in range(L)[ls]]
+        assert pairs and (len(pairs) * pair_bytes <= cap or len(pairs) == 1)
+        seen += pairs
+    assert seen == [(i, j) for i in range(b) for j in range(L)]
+
+
 # -- what the wrappers refuse -------------------------------------------------
 
 def _good_ff(d=128, g=2, h=256, dtype=torch.float32):
@@ -721,8 +771,9 @@ def test_gpu_grouped_ff_backward_matches_plain(cuda, dtype, d, n):
 @pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
 @pytest.mark.parametrize("side", [5, 16, 48])
 def test_gpu_consensus_backward_matches_plain(cuda, dtype, attend_self, radius, side):
-    """K6 (dKV) and K7 (dQ) against their plain versions; side 5: n=25, a
-    ragged block; 48: n=2304."""
+    """K6 (dKV, with the dS' it hands K7) and K7 (dQ, on that dS') against
+    their plain versions, the dS' against the plain dS' (every element
+    written, zero past n); side 5: n=25, a ragged block; 48: n=2304."""
     rng = np.random.default_rng(10)
     n = side * side
     b = 1 if n > 1024 else 2
@@ -737,13 +788,51 @@ def test_gpu_consensus_backward_matches_plain(cuda, dtype, attend_self, radius, 
     before = (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches)
     # K6's key term, beside its larger value term, is also held on its own
     key_term, _ = plain_consensus.consensus_dkv_terms(levels.float(), g.float(), lse, delta, **kw)
-    for kernel, ref, part in ((consensus_kernel.consensus_dkv, plain_consensus.consensus_dkv, key_term),
-                              (consensus_kernel.consensus_dq, plain_consensus.consensus_dq, None)):
-        got = kernel(levels, g, lse, delta, **kw)
+    dkv, ds = consensus_kernel.consensus_dkv(levels, g, lse, delta, keep_ds=True, **kw)
+    dq = consensus_kernel.consensus_dq(levels, g, lse, delta, ds=ds, **kw)
+    for got, ref, part in ((dkv, plain_consensus.consensus_dkv, key_term),
+                           (dq, plain_consensus.consensus_dq, None)):
         assert got.dtype == dtype and got.shape == levels.shape
         _assert_close(got, ref(levels.float(), g.float(), lse, delta, **kw), dtype, part)
+    want_ds = plain_consensus.consensus_ds(levels.float(), g.float(), lse, delta, **kw)
+    assert ds.shape == want_ds.shape and not ds[..., n:].any()
+    _assert_close(ds, want_ds, torch.float32)
     assert (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_gpu_consensus_dq_needs_k6s_ds(cuda):
+    """On the card K7 is a product of K6's dS' and the levels: without the
+    dS' it raises (there is no path that recomputes the logits, and no
+    fallback to the plain version), and it launches nothing."""
+    x = torch.zeros((1, 8, 2, 128), device=cuda)
+    lse = torch.zeros((1, 2, 8, 1), device=cuda)
+    before = consensus_kernel.consensus_dq.launches
+    with pytest.raises(ValueError, match="keep_ds"):
+        consensus_kernel.consensus_dq(x, x, lse, lse)
+    assert consensus_kernel.consensus_dq.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_consensus_backward_runs_in_chunks(cuda, dtype, monkeypatch):
+    """Under a small dS' cap consensus_backward runs K6 and K7 over views of
+    levels (whole batch rows, then levels of one row) and gives the bits of
+    one chunk, counting one launch of each a call."""
+    rng = np.random.default_rng(16)
+    levels = torch.from_numpy(rng.standard_normal((3, 40, 4, 128)).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.standard_normal((3, 40, 4, 128)).astype(np.float32)).to(cuda, dtype)
+    with torch.no_grad():
+        out, lse = consensus_kernel.consensus_attention(levels)
+    whole = consensus_kernel.consensus_backward(levels, None, out, lse, g)
+    _assert_close(whole, consensus_kernel.plain_vjp(levels.float(), None, g.float()), dtype)
+    for pairs in (4, 3):   # one batch row a chunk; three levels, then one
+        monkeypatch.setattr(consensus_kernel, "DS_CHUNK_BYTES", pairs * 4 * 40 * 64)
+        before = (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches)
+        assert torch.equal(consensus_kernel.consensus_backward(levels, None, out, lse, g), whole)
+        assert (consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches) == (
+            before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu
@@ -762,8 +851,12 @@ def test_gpu_backward_kernels_are_deterministic(cuda):
     with torch.no_grad():
         out, lse = consensus_kernel.consensus_attention(x)
     delta = (g * out).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
-    for fn in (consensus_kernel.consensus_dkv, consensus_kernel.consensus_dq):
-        assert torch.equal(fn(x, g, lse, delta), fn(x, g, lse, delta))
+    (dkv, ds), (dkv2, ds2) = (consensus_kernel.consensus_dkv(x, g, lse, delta, keep_ds=True)
+                              for _ in range(2))
+    assert torch.equal(dkv, dkv2) and torch.equal(ds, ds2)
+    assert torch.equal(consensus_kernel.consensus_dkv(x, g, lse, delta), dkv)
+    assert torch.equal(consensus_kernel.consensus_dq(x, g, lse, delta, ds=ds),
+                       consensus_kernel.consensus_dq(x, g, lse, delta, ds=ds))
 
 
 @pytest.mark.gpu
@@ -796,10 +889,11 @@ def test_gpu_backward_kernels_take_vector_aligned_rows(cuda, dtype, offset):
         out, lse = plain_consensus.consensus_attention(levels.float())
     delta = (dout.float() * out).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
     key_term, _ = plain_consensus.consensus_dkv_terms(levels.float(), dout.float(), lse, delta)
-    for kernel, ref, part in ((consensus_kernel.consensus_dkv, plain_consensus.consensus_dkv, key_term),
-                              (consensus_kernel.consensus_dq, plain_consensus.consensus_dq, None)):
-        _assert_close(kernel(levels, dout, lse, delta),
-                      ref(levels.float(), dout.float(), lse, delta), dtype, part)
+    dkv, ds = consensus_kernel.consensus_dkv(levels, dout, lse, delta, keep_ds=True)
+    dq = consensus_kernel.consensus_dq(levels, dout, lse, delta, ds=ds)
+    for got, ref, part in ((dkv, plain_consensus.consensus_dkv, key_term),
+                           (dq, plain_consensus.consensus_dq, None)):
+        _assert_close(got, ref(levels.float(), dout.float(), lse, delta), dtype, part)
     assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 1, 1]
 
 
