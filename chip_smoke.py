@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only k1,train    # device, build and the named phases
 
 Run from the root of a checkout; it builds everything it needs.  Phases,
-each printing one JSON line; any failure raises and exits non-zero.  With
+each printing its JSON lines; any failure raises and exits non-zero.  With
 ``--only`` the run is partial, exits 3 and prints no ok line.
 
   device   the card's name and power limit (nvidia-smi);
@@ -82,7 +82,22 @@ each printing one JSON line; any failure raises and exits non-zero.  With
            bitwise repeat, one step's peak device memory, ms per step
            beside the "pallas" step's; then 2
            steps each with remat=True and with fuse_ff=True, held the same
-           way.
+           way;
+  bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
+           flagship with 12 iterations, over legs (a)-(e) in six runs,
+           each record on its own line with the card's name and power
+           limit: (a) the record configuration, bench's defaults (bf16,
+           remat "dots", b=32, K1 forward with the plain FF backward,
+           dense consensus), traced;
+           (b) (a) through all the kernels (K1-K4, K6, K7), traced; (c) (a)
+           fused (K8 and its backward's K1-K7); (d) the plain ops under
+           remat "dots" and under "full" (peak memory of each); (e) the
+           train phase's configuration (f32, no remat, the kernels, b=8).
+           It fails on a leg not ok, an mfu outside (0, 1], a build inside
+           a timed window, a kernel of a leg not launched, "dots" peaking
+           below "full", (a)'s trace without the step phase, (b)'s without
+           K1's kernels, or (after the train phase) (e)'s rate more than
+           10 % off the train phase's.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -99,6 +114,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -110,6 +126,7 @@ import torch.nn.functional as F
 from glom_tpu_torch import checkpoint as ckpt_lib
 from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.kernels import _build
+from glom_tpu_torch.kernels import wrappers as kernel_wrappers
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
 from glom_tpu_torch.kernels import fused_update as fused_kernel
@@ -119,6 +136,7 @@ from glom_tpu_torch.ops import feedforward as plain_ffm
 from glom_tpu_torch.ops.consensus import consensus_attention as plain_consensus
 from glom_tpu_torch.ops.consensus import l2_normalize
 from glom_tpu_torch.ops.feedforward import grouped_ff_apply as plain_ff
+from glom_tpu_torch.profiling import memory_analysis, trace_files
 from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
 from glom_tpu_torch.serving.server import make_server
 from glom_tpu_torch.training import denoise
@@ -1035,10 +1053,10 @@ def phase_serve_fused(device) -> dict:
     shape = (c.channels, c.image_size, c.image_size)
     imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 8)}
     plan = (("embed", 1), ("embed", 8), ("reconstruct", 2))
-    for fn in counters().values():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
     health, requests, outs = serve_requests(engine, plan, imgs)
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     iters, t = engine.embed_iters, engine.reconstruct_timestep
     want = {k: 0 for k in launches}
     want["fused_level_update"] = 2 * iters + t
@@ -1081,16 +1099,6 @@ def phase_serve_fused(device) -> dict:
     return launches
 
 
-def counters() -> dict:
-    """The seven kernel wrappers, whose ``launches`` count their kernels."""
-    return {"fused_level_update": fused_kernel.fused_level_update,
-            "grouped_ff": ff_kernel.grouped_ff, "grouped_ff_dx": ff_kernel.grouped_ff_dx,
-            "grouped_ff_dw": ff_kernel.grouped_ff_dw,
-            "consensus_attention": consensus_kernel.consensus_attention,
-            "consensus_dkv": consensus_kernel.consensus_dkv,
-            "consensus_dq": consensus_kernel.consensus_dq}
-
-
 def fit_run(config, device, img, ckpt=None, steps=TRAIN_STEPS):
     """``Trainer.fit`` for ``steps`` steps on one resident batch, logging
     every step; returns ``(trainer, records)``."""
@@ -1117,10 +1125,10 @@ def phase_train(device) -> dict:
     ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
 
-    for fn in counters().values():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
     kern, kern_log = fit_run(c, device, img, ckpt)
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     t = denoise.resolve_loss_timestep(kern.train_cfg, c.default_iters)
     want = {"fused_level_update": 0, "grouped_ff": 2 * t, "grouped_ff_dx": 2 * t,
@@ -1183,16 +1191,9 @@ def phase_train(device) -> dict:
 
 def step_memory(step, state, img, noise) -> dict:
     """One call of ``step`` from ``state``: the peak of device memory
-    allocated during it (torch.cuda.max_memory_allocated), what was
-    allocated before it, and the difference, in bytes."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    out = step(state, img, noise=noise)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    del out
-    return {"peak_bytes": peak, "resident_bytes": resident, "step_bytes": peak - resident}
+    allocated during it, what was allocated before it, and the difference
+    (``profiling.memory_analysis``), in bytes."""
+    return memory_analysis(step, state, img, noise=noise)
 
 
 def grads_vs_plain(config, train_cfg, params, img, noise):
@@ -1235,10 +1236,10 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
     noise = torch.randn(shape, generator=gen).to(device)
 
     def counted_fit(cfg, steps):
-        for fn in counters().values():
+        for fn in kernel_wrappers().values():
             fn.launches = 0
         trainer, log = fit_run(cfg, device, img, steps=steps)
-        launches = {k: fn.launches for k, fn in counters().items()}
+        launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
         return trainer, log, launches, {k: v / steps for k, v in launches.items()}
 
     kern, log, launches, per_step = counted_fit(c, FUSED_TRAIN_STEPS)
@@ -1320,7 +1321,131 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
-PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "train_fused")
+# The bench phase's legs, each one run of ``python -m glom_tpu_torch.tools.bench``
+# at flagship with 12 iterations: (leg, what it shows, flags, the kernels it
+# must launch in its window).  "trace" marks a leg run with --profile-dir.
+_TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
+                  "consensus_dkv", "consensus_dq"}
+BENCH_LEGS = (
+    ("a", "the record configuration: bench's defaults (bf16, remat dots, b=32, K1 forward, "
+          "plain FF backward, dense consensus)", ["trace"], {"grouped_ff"}),
+    ("b", "all the kernels", ["--ff-impl", "pallas", "--attention-impl", "pallas",
+                              "--fused-ff-bwd", "trace"], _TRAIN_KERNELS),
+    ("c", "fused", ["--ff-impl", "fused", "--fused-ff-bwd"],
+     _TRAIN_KERNELS | {"fused_level_update"}),
+    ("d_dots", "the remat repair: plain ops, dots", ["--ff-impl", "dense",
+                                                     "--remat-policy", "dots"], set()),
+    ("d_full", "the remat repair: plain ops, full", ["--ff-impl", "dense",
+                                                     "--remat-policy", "full"], set()),
+    ("e", "the train phase's configuration", ["--fp32", "--no-remat", "--ff-impl", "pallas",
+                                              "--attention-impl", "pallas", "--fused-ff-bwd",
+                                              "--batch-size", str(BATCH)], _TRAIN_KERNELS),
+)
+# K1's two kernels (csrc/grouped_ff.cu), the name (b)'s trace must hold
+K1_KERNELS = ("ff_hidden_kernel", "ff_out_kernel")
+# (e)'s rate against the train phase's 1000 * BATCH / step_ms
+BENCH_TIE_RTOL = 0.10
+BENCH_LEG_TIMEOUT_S = 300
+
+
+def bench_leg(flags) -> dict:
+    """One run of the bench as a user runs it; its one JSON record."""
+    cmd = [sys.executable, "-m", "glom_tpu_torch.tools.bench", *flags]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=BENCH_LEG_TIMEOUT_S)
+    records = [line for line in res.stdout.splitlines() if line.startswith("{")]
+    if res.returncode != 0 or len(records) != 1:
+        raise AssertionError(f"{' '.join(cmd[1:])}: exit {res.returncode}, {len(records)} "
+                             f"records\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    return json.loads(records[0])
+
+
+def trace_summary(logdir: str, steps: int = 3):
+    """``(event names, summary)`` of the newest trace in ``logdir``: the CUDA
+    kernels' device time a step (their summed durations over ``steps``), by
+    name for the eight largest, and the device's busy share of the window
+    from the first ``step`` region's start to the last kernel's end."""
+    files = trace_files(logdir)
+    if not files:
+        return set(), {}
+    with open(files[-1]) as f:
+        events = json.load(f)["traceEvents"]
+    by_name, end = {}, 0.0
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+            end = max(end, e["ts"] + e["dur"])
+    starts = [e["ts"] for e in events if e.get("name") == "step" and e.get("ph") == "X"]
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {e.get("name", "") for e in events}, {
+        "kernel_ms_per_step": busy / 1e3 / steps,
+        "busy_share": busy / (end - min(starts)) if starts and end > min(starts) else None,
+        "top_kernels_ms_per_step": [{"name": k[:80], "ms": v / 1e3 / steps} for k, v in top]}
+
+
+def phase_bench(smi: str, pallas_step_ms=None) -> dict:
+    """``python -m glom_tpu_torch.tools.bench`` at flagship, 12 iterations,
+    over the legs of :data:`BENCH_LEGS`: each leg's record on its own line
+    with the card's name and power limit; every leg ok, its mfu in (0, 1],
+    no build in its window and its kernels launched; the dense leg's peak
+    memory under "dots" not below "full"; (a)'s trace naming the step phase,
+    (b)'s naming K1's kernels; and, after the train phase, (e)'s rate within
+    BENCH_TIE_RTOL of that phase's."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    records, traces, device = {}, {}, {}
+    try:
+        for leg, what, flags, kernels in BENCH_LEGS:
+            logdir = os.path.join(tmp, leg)
+            argv = [f for f in flags if f != "trace"]
+            if "trace" in flags:
+                argv += ["--profile-dir", logdir]
+            rec = bench_leg(argv)
+            emit({"phase": "bench", "leg": leg, "what": what, "argv": argv, "record": rec,
+                  "nvidia_smi": smi})
+            launched = set(rec["launches_per_step"])
+            if not (rec["status"] == "ok" and rec["mfu"] is not None and 0 < rec["mfu"] <= 1
+                    and rec["builds_in_window"] == 0 and launched >= kernels):
+                raise AssertionError(f"bench leg {leg}: status {rec['status']}, mfu {rec['mfu']}, "
+                                     f"builds_in_window {rec['builds_in_window']}, launched "
+                                     f"{sorted(launched)}, expected {sorted(kernels)}")
+            records[leg] = rec
+            if "trace" in flags:
+                traces[leg], device[leg] = trace_summary(logdir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dots, full = records["d_dots"], records["d_full"]
+    if dots["peak_memory_bytes"] < full["peak_memory_bytes"]:
+        raise AssertionError(f"remat dots peaked at {dots['peak_memory_bytes']} bytes, below "
+                             f"full's {full['peak_memory_bytes']}: dots keeps nothing")
+    k1_in = {leg: sorted(k for k in K1_KERNELS if any(k in n for n in names))
+             for leg, names in traces.items()}
+    if "step" not in traces["a"] or not k1_in["b"]:
+        raise AssertionError(f"traces: 'step' in (a) {'step' in traces['a']}, K1's kernels in "
+                             f"(b) {k1_in['b']}")
+    tie = None
+    if pallas_step_ms is not None:
+        want = 1e3 * BATCH / pallas_step_ms["kernels"]
+        tie = {"bench_imgs_per_s": records["e"]["value"], "train_phase_imgs_per_s": want,
+               "ratio": records["e"]["value"] / want, "rtol": BENCH_TIE_RTOL}
+        if not abs(tie["ratio"] - 1) <= BENCH_TIE_RTOL:
+            raise AssertionError(f"bench leg e against the train phase: {tie}")
+    summary = {
+        "phase": "bench_summary",
+        "imgs_per_s": {leg: r["value"] for leg, r in records.items()},
+        "mfu": {leg: r["mfu"] for leg, r in records.items()},
+        "peak_memory_bytes": {leg: r["peak_memory_bytes"] for leg, r in records.items()},
+        "dots_over_full_peak_memory": dots["peak_memory_bytes"] / full["peak_memory_bytes"],
+        "trace": {leg: {"step": "step" in names, "k1_kernels": k1_in[leg], **device[leg]}
+                  for leg, names in traces.items()},
+        "tie_to_train_phase": tie,
+    }
+    emit(summary)
+    return summary
+
+
+PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "train_fused",
+          "bench")
 
 
 def parse_args(argv):
@@ -1331,7 +1456,8 @@ def parse_args(argv):
                    help="comma-separated phases to run after device and build, for "
                         f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
                         "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k6: K6's, "
-                        "each with the K7 on its dS' and the pair; k8: K8's). "
+                        "each with the K7 on its dS' and the pair; k8: K8's; bench: the "
+                        "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -1358,6 +1484,8 @@ def run_only(device, names) -> int:
             phase_serve_fused(device)
         elif name == "train_fused":
             phase_train_fused(device, pallas_step_ms)
+        elif name == "bench":
+            phase_bench(nvidia_smi(), pallas_step_ms)
     print(nvidia_smi(), flush=True)
     emit({"partial_run": names, "note": "--only: a partial run, not the smoke test; exit 3"})
     return 3
@@ -1384,6 +1512,7 @@ def main(argv=()) -> int:
     train_launches, pallas_step_ms = phase_train(device)
     fused_serve_launches = phase_serve_fused(device)
     fused_train_launches = phase_train_fused(device, pallas_step_ms)
+    phase_bench(smi, pallas_step_ms)
     # launches: the serving path's count for the forward kernels (K8: the
     # fused serving path's), the train path's for the backward ones;
     # launches_train: the train path's for all (K8: the fused train path's);

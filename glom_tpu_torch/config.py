@@ -216,6 +216,34 @@ class TrainConfig:
         return cls(**d)
 
 
+# Bench and tooling presets, glom_tpu's (``glom_tpu/config.py``), shared by
+# ``tools/bench.py``, ``tools/mfu.py`` and ``tools/breakdown.py`` so that their
+# model shapes cannot drift apart.  ``tpu_batch`` keeps glom_tpu's name: it is
+# the batch on an accelerator, the card here.
+#   flagship: the reference default (glom_pytorch.py:80-86), the benchmark's
+#             config of record
+#   large:    dim=1024, levels=8, 384/16, n=576 (wider than the kernels take:
+#             ROADMAP queue 3, item 1)
+#   tiny:     a CPU-runnable smoke config, never a number of record
+BENCH_PRESETS = {
+    "flagship": dict(model_kwargs={}, iters=12, tpu_batch=32, cpu_batch=4),
+    "large": dict(
+        model_kwargs=dict(dim=1024, levels=8, image_size=384, patch_size=16),
+        iters=16, tpu_batch=4, cpu_batch=1,
+    ),
+    "tiny": dict(
+        model_kwargs=dict(dim=64, levels=3, image_size=64, patch_size=8),
+        iters=4, tpu_batch=8, cpu_batch=8,
+    ),
+}
+
+
+def bench_preset(name: str):
+    """``(model_kwargs, iters, batch on a card, batch on the CPU)``."""
+    p = BENCH_PRESETS[name]
+    return dict(p["model_kwargs"]), p["iters"], p["tpu_batch"], p["cpu_batch"]
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another.  Without a card, asking for ``cuda`` (explicitly or by default)

@@ -35,6 +35,15 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# sources compiled and libraries loaded in this process: a benchmark's
+# window must see neither (tools/bench.py, ``builds_in_window``)
+_events = {"builds": 0, "loads": 0}
+
+
+def events() -> Dict[str, int]:
+    """``{"builds": n, "loads": m}``: how many sources this process has
+    compiled and how many kernel libraries it has loaded."""
+    return dict(_events)
 
 
 def sources() -> Dict[str, str]:
@@ -99,6 +108,7 @@ def build_all() -> Dict[str, float]:
         with open(so[:-3] + ".log", "w") as f:
             f.write(err + out)
         os.replace(tmp, so)
+        _events["builds"] += 1
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
@@ -115,6 +125,7 @@ def library(name: str) -> ctypes.CDLL:
             lib.glom_cuda_error_string.argtypes = [ctypes.c_int]
             lib.glom_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            _events["loads"] += 1
         return lib
 
 

@@ -27,7 +27,8 @@ takes K6 + K7; K8 differentiates the unfused composition of those).
 Every caller's iteration comes from one place, :func:`make_step_builder`:
 the serving forward and the train step both go through :func:`apply`, so
 ``fuse_ff`` (both nets as one grouped call of 2L-1 groups) and ``remat``
-(``torch.utils.checkpoint`` around one step) mean the same in both.
+(``torch.utils.checkpoint`` around one step, keeping the matrix products'
+outputs under ``remat_policy="dots"``) mean the same in both.
 ``scan_unroll`` is accepted and changes nothing here (it unrolls XLA's
 scan; this loop is eager Python).
 """
@@ -41,7 +42,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from glom_tpu_torch.config import GlomConfig
 from glom_tpu_torch.kernels import fused_update
@@ -317,15 +319,9 @@ def make_step_builder(params, config: GlomConfig, pos_embs, divisors, consensus_
     the fused level update; ``consensus_fn`` / ``ff_fn`` are then unused.
 
     ``remat`` wraps the step in ``torch.utils.checkpoint`` (non-reentrant;
-    the step draws no random numbers, so no RNG state is kept): the forward
-    saves only the step's input and the backward runs the step again.  Both
-    policies give the gradients of the unwrapped step.  ``"full"`` recomputes
-    the step, as in the JAX package.  ``"dots"`` there keeps the matrix
-    products' outputs and recomputes the elementwise ops; in eager PyTorch
-    the step's only products are the kernels (or, with ``"dense"``, the plain
-    einsums), whose autograd Functions save their inputs and never the
-    hidden, so there is no product output to keep that the backward would
-    read: ``"dots"`` checkpoints the step exactly as ``"full"`` does."""
+    the step draws no random numbers, so no RNG state is kept), as
+    :func:`_with_remat` says; both policies give the gradients of the
+    unwrapped step."""
     c = config
     if fused_fn is not None:
         def build_fused(bottom_level):
@@ -353,15 +349,42 @@ def make_step_builder(params, config: GlomConfig, pos_embs, divisors, consensus_
     return build
 
 
+# the matrix products "dots" keeps, as jax.checkpoint_policies.checkpoint_dots
+# keeps dot_general's outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the output of a matrix product that
+    autograd records, recompute everything else.  A kernel's autograd
+    Function runs its forward with grad mode off, so the products of its
+    plain version on the CPU are not kept, and on the card its launches are
+    no aten op at all: the Function is opaque, as a ``pallas_call`` is to
+    ``checkpoint_dots``, and on the kernel paths "dots" saves what "full"
+    does, as in ``glom_tpu``."""
+    if op in _DOTS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _with_remat(step, config: GlomConfig):
     """``step`` under activation checkpointing when ``config.remat`` and
-    autograd is recording; unchanged otherwise."""
+    autograd is recording; unchanged otherwise.  ``"full"`` saves only the
+    step's input and runs the whole step again in the backward.  ``"dots"``
+    also keeps the outputs of the plain path's matrix products
+    (:func:`_save_dots`, through selective checkpointing) and recomputes the
+    elementwise work around them, as ``glom_tpu`` does with
+    ``checkpoint_dots``."""
     if not config.remat:
         return step
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if config.remat_policy == "dots" else noop_context_fn)
 
     def remat_step(levels):
         if torch.is_grad_enabled():
-            return checkpoint(step, levels, use_reentrant=False, preserve_rng_state=False)
+            return checkpoint(step, levels, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=context_fn)
         return step(levels)
 
     return remat_step

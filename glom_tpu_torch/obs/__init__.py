@@ -1,1 +1,2 @@
-"""Observability of the port: the train step's numerics summary."""
+"""Observability of the port: the train step's numerics summary
+(``monitors.py``) and the trainer's phase timer (``timing.py``)."""

@@ -41,7 +41,6 @@ _REFUSED = (
     ("--process-id", 1, "ROADMAP queue 1, item 6"),
     ("--stop-poll-steps", 1, "ROADMAP queue 1, item 6"),
     ("--async-checkpoint", 0, "ROADMAP queue 1, item 7"),
-    ("--profile-dir", 1, "ROADMAP queue 1, item 7"),
     ("--trace-dir", 1, "ROADMAP queue 1, item 7"),
     ("--metrics-csv", 1, "ROADMAP queue 1, item 7"),
     ("--prom-textfile", 1, "ROADMAP queue 1, item 7"),
@@ -89,8 +88,8 @@ def parse_args(argv=None):
     p.add_argument("--remat", action="store_true",
                    help="activation checkpointing around each iteration")
     p.add_argument("--remat-policy", default="dots", choices=["full", "dots"],
-                   help="kept for the JAX CLI's sake: both recompute the whole step here "
-                        "(models/glom.py::make_step_builder says why)")
+                   help="dots keeps the plain path's matrix products and recomputes the "
+                        "rest; full recomputes the whole step")
     p.add_argument("--scan-unroll", type=int, default=1,
                    help="accepted for the JAX CLI's sake; the port's loop is eager, so "
                         "it changes nothing")
@@ -117,6 +116,9 @@ def parse_args(argv=None):
     p.add_argument("--decoder-hidden-mult", type=int, default=2)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of steps 2-4 of the run here "
+                        "(glom_tpu_torch.profiling.trace)")
     p.add_argument("--halt-on-nan", action="store_true",
                    help="fail fast when a logging window shows nonfinite grads/loss")
     p.add_argument("--log-file", default=None)
@@ -157,6 +159,7 @@ def main(argv=None):
         decoder_hidden_mult=args.decoder_hidden_mult, steps=args.steps,
         log_every=args.log_every, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, halt_on_nan=args.halt_on_nan, seed=args.seed,
+        profile_dir=args.profile_dir,
     )
     trainer = Trainer(config, train_cfg, device=args.device,
                       logger=MetricLogger(path=args.log_file))

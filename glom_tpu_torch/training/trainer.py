@@ -24,18 +24,25 @@ A checkpoint is the port's npz layout with its CRC sidecar
   JAX PRNG key instead, which has no torch counterpart: its resume warns
   and keeps the trainer's freshly seeded generator.
 
+The loop is phase-timed as ``glom_tpu``'s is (``obs/timing.py``): every
+logged record carries ``t_data_wait``, ``t_h2d``, ``t_step`` and
+``t_log_sync`` (seconds over the window), ``t_window`` and
+``window_steps``, and each phase is an :func:`~glom_tpu_torch.profiling.annotate`
+region.  With ``profile_dir`` the loop traces steps ``start+2`` to
+``start+4`` (``profiling.trace``), the window ``glom_tpu`` traces.
+
 Not here yet, each refused by name when the config asks for it: a mesh and
-sharded saves (ROADMAP queue 1, item 6), eval (item 3), forensics,
-profiling, traces, diagnostics, metric exporters and async saves (item 7).
+sharded saves (ROADMAP queue 1, item 6), eval (item 3), forensics, request
+traces, diagnostics, metric exporters and async saves (item 7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
 import threading
-import time
 import warnings
 from typing import Iterator, Optional
 
@@ -47,6 +54,8 @@ from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
 from glom_tpu_torch.convert import params_to_numpy
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.models.glom import tree_map
+from glom_tpu_torch.obs.timing import PhaseTimer
+from glom_tpu_torch.profiling import annotate, trace
 from glom_tpu_torch.resilience import integrity
 from glom_tpu_torch.training import denoise
 from glom_tpu_torch.training.metrics import MetricLogger
@@ -113,7 +122,6 @@ _UNSUPPORTED = {
     "async_checkpoint": (False, "queue 1, item 7"),
     "forensics_dir": (None, "queue 1, item 7"),
     "forensics_trace_steps": (0, "queue 1, item 7"),
-    "profile_dir": (None, "queue 1, item 7"),
     "trace_dir": (None, "queue 1, item 7"),
     "diag_every": (0, "queue 1, item 7"),
     "metrics_csv": (None, "queue 1, item 7"),
@@ -163,11 +171,15 @@ class Trainer:
             _build.build_all()
 
     # -- one step ------------------------------------------------------------
+    def put(self, img) -> torch.Tensor:
+        """A batch (numpy or tensor) as the step takes it: float32 on the
+        trainer's device."""
+        return torch.as_tensor(img).to(self.device, torch.float32)
+
     def step(self, img, *, noise: Optional[torch.Tensor] = None) -> dict:
         """One train step on a batch (numpy or tensor); returns its metrics
         as device scalars."""
-        x = torch.as_tensor(img).to(self.device, torch.float32)
-        self.state, metrics = self._step(self.state, x, noise=noise)
+        self.state, metrics = self._step(self.state, self.put(img), noise=noise)
         return metrics
 
     # -- checkpoints ---------------------------------------------------------
@@ -306,26 +318,40 @@ class Trainer:
         window, window_imgs = [], 0
         poll = cfg.log_every or cfg.stop_poll_steps or 1
         self._sync()
-        t_window = time.perf_counter()
-        for i in range(start, steps):
-            img = next(batches)
-            metrics = self.step(img)
-            window.append(metrics)
-            window_imgs += int(img.shape[0])
-            if cfg.log_every and (i + 1) % cfg.log_every == 0:
-                last_metrics = self._log_window(i + 1, window, window_imgs, t_window)
-                window, window_imgs = [], 0
-                t_window = time.perf_counter()
-            elif cfg.monitor_numerics and (i + 1) % poll == 0:
-                self._numerics(i + 1, window)
-                window = []
-            if cfg.checkpoint_dir and cfg.checkpoint_every and (i + 1) % cfg.checkpoint_every == 0:
-                self.save(cfg.checkpoint_dir)
-                last_saved = i + 1
-            if self._stop_requested:
-                self.logger.log(i + 1, event=EVENT_PREEMPT_STOP)
-                completed, stopped = i + 1, True
-                break
+        timer = PhaseTimer()
+        with contextlib.ExitStack() as profiler:
+            for i in range(start, steps):
+                if cfg.profile_dir:
+                    # trace a 3-step window (steps 2, 3, 4 of this run), as
+                    # glom_tpu does; trace() drains the card at its end
+                    if i == start + 2:
+                        self._sync()
+                        profiler.enter_context(trace(cfg.profile_dir))
+                    elif i == start + 5:
+                        profiler.close()
+                with timer.phase("data_wait"), annotate("data_wait"):
+                    img = next(batches)
+                with timer.phase("h2d"), annotate("h2d"):
+                    x = self.put(img)
+                with timer.phase("step"), annotate("step"):
+                    self.state, metrics = self._step(self.state, x)
+                timer.count_step()
+                window.append(metrics)
+                window_imgs += int(x.shape[0])
+                if cfg.log_every and (i + 1) % cfg.log_every == 0:
+                    last_metrics = self._log_window(i + 1, window, window_imgs, timer)
+                    window, window_imgs = [], 0
+                elif cfg.monitor_numerics and (i + 1) % poll == 0:
+                    self._numerics(i + 1, window)
+                    window = []
+                every = cfg.checkpoint_every
+                if cfg.checkpoint_dir and every and (i + 1) % every == 0:
+                    self.save(cfg.checkpoint_dir)
+                    last_saved = i + 1
+                if self._stop_requested:
+                    self.logger.log(i + 1, event=EVENT_PREEMPT_STOP)
+                    completed, stopped = i + 1, True
+                    break
         self._sync()
         if window and cfg.monitor_numerics:
             self._numerics(completed, window)
@@ -351,12 +377,15 @@ class Trainer:
                     f"can keep them")
         return num
 
-    def _log_window(self, step: int, window: list, imgs: int, t_window: float) -> dict:
+    def _log_window(self, step: int, window: list, imgs: int, timer: PhaseTimer) -> dict:
         """One record: the last step's loss and grad norm, the window's
         images per second (host clock from the window's start until its last
-        step's values are on the host) and non-finite counts."""
-        last = {k: float(window[-1][k]) for k in ("loss", "grad_norm")}
-        seconds = time.perf_counter() - t_window
+        step's values are on the host), its non-finite counts and its phase
+        times (``timer.window()``)."""
+        with timer.phase("log_sync"), annotate("log_sync"):
+            last = {k: float(window[-1][k]) for k in ("loss", "grad_norm")}
+        phases = timer.window()
         num = self._numerics(step, window)
-        self.logger.log(step, imgs_per_sec=imgs / max(seconds, 1e-9), **last, **num)
+        self.logger.log(step, imgs_per_sec=imgs / max(phases["t_window"], 1e-9), **last, **num,
+                        **phases)
         return last

@@ -469,12 +469,15 @@ def _loss_and_grads(config, tree, img, t, iters):
     return loss.item(), glom_model.tree_map(lambda p: p.grad.numpy(), params)
 
 
-@pytest.mark.parametrize("ff_impl,policy", [("fused", "full"), ("fused", "dots"), ("pallas", "dots")])
+@pytest.mark.parametrize("ff_impl,policy", [("fused", "full"), ("fused", "dots"), ("pallas", "dots"),
+                                            ("dense", "dots"), ("dense", "full")])
 def test_remat_gives_the_unwrapped_steps_loss_and_gradients(policy, ff_impl):
     """remat=True under both policies, with capture_timestep: the loss and
     the gradients of remat=False, and glom_tpu's under the same knobs.  With
     ff_impl='fused' the checkpointed step is the fused update's autograd
-    Function, recomputed inside torch.utils.checkpoint."""
+    Function, recomputed inside torch.utils.checkpoint; with 'dense' and
+    'dots' the backward reads the products' outputs that selective
+    checkpointing kept."""
     kw = dict(ff_impl=ff_impl, ff_fused_bwd=True, remat=True, remat_policy=policy)
     if ff_impl == "pallas":
         kw["attention_impl"] = "pallas"

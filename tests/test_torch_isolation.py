@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.training.trainer", "glom_tpu_torch.training.train",
             "glom_tpu_torch.training.optim", "glom_tpu_torch.training.data",
             "glom_tpu_torch.training.metrics", "glom_tpu_torch.obs.monitors",
-            "glom_tpu_torch.resilience.integrity"} <= set(mods)
+            "glom_tpu_torch.resilience.integrity", "glom_tpu_torch.profiling",
+            "glom_tpu_torch.obs.timing", "glom_tpu_torch.tools.bench",
+            "glom_tpu_torch.tools.mfu", "glom_tpu_torch.tools.breakdown"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -106,6 +108,19 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"
+
+
+def test_bench_tools_refuse_to_fall_back_to_the_cpu(no_cuda, capsys):
+    """The bench and the breakdown run on the card unless told --device cpu;
+    the MFU tool, with nothing to name the card, asks for its peak."""
+    from glom_tpu_torch.tools import bench, breakdown, mfu
+
+    for tool in (bench, breakdown):
+        with pytest.raises(SystemExit, match="device='cpu'"):
+            tool.main(["--config", "tiny"])
+    with pytest.raises(SystemExit):
+        mfu.main(["--imgs-per-sec", "1"])
+    assert "--peak-tflops" in capsys.readouterr().err
 
 
 def test_chip_smoke_refuses_without_a_card(no_cuda, capsys):

@@ -1220,3 +1220,66 @@ def test_gpu_fused_update_autograd_runs_the_unfused_kernels(cuda, ff_fused_bwd):
                        "k7": 1}, got
         for a, w in zip(flat(mine), flat(ref)):
             _assert_close(a.grad, w.grad, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ff_impl", ["pallas", "fused", "dense"])
+def test_gpu_remat_dots_gives_the_unwrapped_steps_loss_and_gradients(cuda, ff_impl):
+    """remat_policy="dots" on the card (models/glom.py::_save_dots through
+    selective checkpointing): the kernels' autograd Functions launch through
+    ctypes, out of the dispatch mode's sight, so nothing of theirs is kept
+    and the backward recomputes them; on the kernel paths "dots" launches
+    what "full" launches.  Loss and gradients are those of remat=False, and
+    the plain path's kept products give them too."""
+    from glom_tpu_torch.config import GlomConfig
+    from glom_tpu_torch.kernels import wrappers
+    from glom_tpu_torch.models import glom as glom_model
+
+    attention = "dense" if ff_impl == "dense" else "pallas"
+    base = GlomConfig(dim=128, levels=3, image_size=32, patch_size=8, ff_impl=ff_impl,
+                      attention_impl=attention, ff_fused_bwd=True)
+    params0 = glom_model.init(torch.Generator().manual_seed(0), base, device=cuda)
+    img = torch.randn((2, 3, 32, 32), generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(**kw):
+        cfg = GlomConfig(**{**base.to_json_dict(), **kw})
+        params = glom_model.tree_map(lambda p: p.detach().clone().requires_grad_(True), params0)
+        before = {k: f.launches for k, f in wrappers().items()}
+        final, captured = glom_model.apply(params, img, config=cfg, iters=4, capture_timestep=2)
+        loss = (captured ** 2).mean() + (final ** 2).mean()
+        loss.backward()
+        launched = {k: f.launches - before[k] for k, f in wrappers().items()}
+        return loss.detach(), glom_model.tree_leaves(params), launched
+
+    plain_loss, plain_params, plain_launched = run(remat=False)
+    dots_loss, dots_params, dots_launched = run(remat=True, remat_policy="dots")
+    _, _, full_launched = run(remat=True, remat_policy="full")
+    assert torch.equal(dots_loss, plain_loss)
+    for a, w in zip(dots_params, plain_params):
+        err = torch.linalg.vector_norm(a.grad - w.grad) / torch.linalg.vector_norm(w.grad)
+        assert err <= 1e-6, err.item()
+    assert dots_launched == full_launched
+    if ff_impl == "dense":
+        assert not any(plain_launched.values())
+    else:
+        # the recompute runs each forward kernel once more
+        forward = "fused_level_update" if ff_impl == "fused" else "grouped_ff"
+        assert dots_launched[forward] == 2 * plain_launched[forward] > 0
+
+
+@pytest.mark.gpu
+def test_gpu_profiling_reads_the_cards_memory(cuda, tmp_path):
+    """profiling.memory_analysis measures one call's peak on the card (an
+    allocation of 64 MB inside the call shows), and device_memory_profile
+    writes the allocator's snapshot."""
+    import pickle
+
+    from glom_tpu_torch import profiling
+
+    x = torch.ones(1024, device=cuda)
+    mem = profiling.memory_analysis(lambda t: (t.repeat(16384) * 2).sum(), x)
+    assert mem["temp_bytes"] >= 2 * 64 * 2 ** 20 and mem["peak_bytes"] >= mem["resident_bytes"]
+    path = tmp_path / "snapshot.pickle"
+    profiling.device_memory_profile(str(path))
+    with open(path, "rb") as f:
+        assert "segments" in pickle.load(f)
