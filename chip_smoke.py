@@ -55,10 +55,17 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            sum on the same hidden), and the pair timed together against the
            TPU kernels' work;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
-           seeded weights) served over HTTP in-process: /embed with batches
-           of 1, 3 and 8, /reconstruct with 2; shapes, finiteness, one
-           answer against the plain path on the card, and the kernels'
-           launch counts;
+           seeded weights) served over HTTP in-process, every bucket of both
+           endpoints a CUDA graph captured at start-up: /embed with batches
+           of 1, 3 and 8, /reconstruct with 2, each with an X-Request-Id;
+           shapes, finiteness, the id echoed, one answer against the plain
+           path on the card, the kernels' launch counts (through replays),
+           no graph captured on the request path (/metrics), the first
+           request's trace in /debug/traces with glom_tpu's span names;
+           then each bucket (1, 2, 4, 8) of both endpoints replayed against
+           the same engine's eager forward (bitwise), the b=1, 4 and 8
+           /embed forward eager against replayed, the capture seconds and
+           the graph pools' bytes;
   profile  a torch.profiler trace of three b=8 /embed forwards through the
            kernels: the device's busy share and device time by kernel;
   train    the denoising train step at flagship width, b=8, through the
@@ -71,11 +78,24 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            kernels and through the plain ops; a torch.profiler trace of two
            steps; and the checkpoint the trainer saved, served over HTTP on
            /embed;
-  serve_fused  the same checkpoint served with ff_impl="fused" over HTTP:
-           /embed with 1 and 8, /reconstruct with 2; the answer against the
-           plain path and against the "pallas" engine; K8's launches (and
-           none of K1 or K4); the b=8 forward's time on the three paths; a
-           traced window;
+  serve_fused  the same checkpoint served with ff_impl="fused" over HTTP,
+           from its graphs: /embed with 1 and 8, /reconstruct with 2; the
+           answer against the plain path and against the "pallas" engine;
+           K8's launches (and none of K1 or K4); the serve phase's metrics,
+           trace and graph checks; the b=8 forward's time on the three
+           paths; a traced window;
+  serve_load  the flagship "pallas" engine under the port's load generator
+           (glom_tpu_torch/tools/loadgen.py, a process of its own): a closed
+           loop (/embed, batch sizes 1-8, concurrency 8, 5 s) for the
+           sustained rate, then an open loop at half its request rate for
+           10 s with step 1 of the checkpoint landing 3 s in and
+           hot-reloaded (its graphs captured off the request path); both
+           loadgen reports (p95/p99 null: tens of requests), the mean of
+           each request span, the memory of the two sets; no failed
+           request, /healthz at step 1, the answer after the swap bitwise
+           the eager forward of step 1's weights, one
+           serving_param_reloads; then a second reload (step 2, no load)
+           that leaves allocated memory where the first left it;
   train_fused  Trainer.fit at flagship width, b=8, ff_impl="fused" (K8
            forward; K1, K4 again and K2, K3, K6, K7 backward), 5 steps:
            losses, launches per step, gradients against the plain path,
@@ -106,6 +126,7 @@ float32: TF32 is switched off for matmul and cuDNN.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -118,6 +139,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import weakref
 
 import numpy as np
 import torch
@@ -897,11 +919,67 @@ BACKWARD = ("grouped_ff_dx", "grouped_ff_dw", "consensus_dkv", "consensus_dq")
 PAIRS = ("grouped_ff_dx+grouped_ff_dw", "consensus_dkv+consensus_dq")
 
 
-def post(url: str, payload: dict) -> dict:
+def post(url: str, payload: dict, headers=None):
+    """POST ``payload``; returns ``(json body, response headers)``."""
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=300) as resp:
-        return json.loads(resp.read())
+        return json.loads(resp.read()), resp.headers
+
+
+def get(url: str, raw: bool = False):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        body = resp.read()
+    return body.decode() if raw else json.loads(body)
+
+
+# glom_tpu's span names of one request's trace (glom_tpu/obs/tracing.py)
+REQUEST_SPANS = {"request", "parse", "queue_wait", "batch_assembly", "bucket_select", "pad",
+                 "execute", "respond"}
+GRAPH_BUCKETS = (1, 2, 4, 8)
+
+
+def graph_report(engine, c, seed: int) -> dict:
+    """Every (endpoint, bucket) of ``engine`` served from its captured graph
+    against the eager forward of the same engine and weights on the same
+    padded inputs: bitwise equal, as the same kernels run in the same order.
+    Then the b=1, 4 and 8 /embed forward, eager against replayed (host clock
+    to the answer on the host, the median of 5 after a warm-up), the start-up
+    capture seconds and the graph pools' bytes."""
+    rng = np.random.default_rng(seed)
+    shape = (c.channels, c.image_size, c.image_size)
+    for endpoint in ("embed", "reconstruct"):
+        for b in GRAPH_BUCKETS:
+            x = rng.standard_normal((b,) + shape).astype(np.float32)
+            replayed, eager = engine.run(endpoint, x), engine.run_eager(endpoint, x)
+            if not np.array_equal(replayed, eager):
+                raise AssertionError(
+                    f"{endpoint} b={b}: the replayed graph differs from the eager forward by "
+                    f"{float(np.abs(replayed - eager).max())}")
+    forward_ms = {}
+    for b in (1, 4, 8):
+        x = rng.standard_normal((b,) + shape).astype(np.float32)
+        forward_ms[f"b{b}"] = {"eager": served_ms(lambda: engine.run_eager("embed", x)),
+                               "replayed": served_ms(lambda: engine.run("embed", x))}
+    caches = engine.caches
+    return {"bitwise_equal": {ep: list(GRAPH_BUCKETS) for ep in caches},
+            "embed_forward_ms": forward_ms,
+            "capture_seconds": {ep: cache.warmup_seconds for ep, cache in caches.items()},
+            "warmup_seconds": engine.registry.snapshot().get("serving_warmup_seconds"),
+            "pool_bytes": engine.graph_pool_bytes(),
+            "launches_per_replay": {ep: cache.launches_per_replay()
+                                    for ep, cache in caches.items()}}
+
+
+def served_ms(fn) -> float:
+    """Host clock per call of ``fn`` (a forward to its answer on the host):
+    the median of 5 after a warm-up."""
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
 
 
 def phase_serve(device) -> dict:
@@ -918,11 +996,12 @@ def phase_serve(device) -> dict:
     plan = (("embed", 1), ("embed", 3), ("embed", 8), ("reconstruct", 2))
     ff_kernel.grouped_ff.launches = 0
     consensus_kernel.consensus_attention.launches = 0
-    health, requests, outs = serve_requests(engine, plan, imgs)
+    health, requests, outs, served = serve_requests(engine, plan, imgs)
     launches = {"grouped_ff": ff_kernel.grouped_ff.launches,
                 "consensus_attention": consensus_kernel.consensus_attention.launches}
     assert health["ff_impl"] == "pallas" and health["attention_impl"] == "pallas", health
 
+    # every request was a replay; each counts its graph's launches
     iters, t = engine.embed_iters, engine.reconstruct_timestep
     expected = {"grouped_ff": 3 * 2 * iters + 2 * t,
                 "consensus_attention": 3 * iters + t}
@@ -952,7 +1031,8 @@ def phase_serve(device) -> dict:
           "launches_per_bucket": {"embed": {"grouped_ff": 2 * iters, "consensus_attention": iters},
                                   "reconstruct": {"grouped_ff": 2 * t, "consensus_attention": t}},
           "embed_vs_plain_max_abs_err": embed_err, "embed_atol": SERVE_ATOL,
-          "embed_b8_forward_ms": embed_b8_ms})
+          "embed_b8_forward_ms": embed_b8_ms, **served,
+          "graphs": graph_report(engine, c, seed=10)})
     phase_profile(lambda: glom_model.apply(engine.params["glom"], x8, config=engine.config,
                                            iters=iters).mean(dim=1).cpu())
     return launches
@@ -992,9 +1072,13 @@ def phase_profile(forward, runs: int = 3, *, phase: str = "profile", grad: bool 
 
 def serve_requests(engine, plan, imgs):
     """Run ``engine`` behind the HTTP server on a free port, read /healthz,
-    and post ``imgs[k]`` to each ``(endpoint, k)`` of ``plan``.  Every answer
-    must have the endpoint's shape and be finite.  Returns ``(health, one
-    record a request, {(endpoint, k): answer})`` and leaves nothing running."""
+    and post ``imgs[k]`` to each ``(endpoint, k)`` of ``plan``, each with an
+    ``X-Request-Id``.  Every answer must have the endpoint's shape, be finite
+    and echo its request id (header and body).  Then /metrics must show no
+    graph captured on the request path, and the first request's trace in
+    /debug/traces must hold every span of ``REQUEST_SPANS``.  Returns
+    ``(health, one record a request, {(endpoint, k): answer}, what the
+    metrics and the trace showed)`` and leaves nothing running."""
     c = engine.config
     engine.start()
     server = make_server(engine, port=0)
@@ -1002,13 +1086,17 @@ def serve_requests(engine, plan, imgs):
     thread.start()
     try:
         base = "http://127.0.0.1:%d" % server.server_address[1]
-        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
-            health = json.loads(resp.read())
+        health = get(base + "/healthz")
         requests, outs = [], {}
-        for endpoint, k in plan:
+        for i, (endpoint, k) in enumerate(plan):
+            rid = f"chip-smoke-{endpoint}-{k}-{i}"
             t = time.perf_counter()
-            reply = post(f"{base}/{endpoint}", {"images": imgs[k].tolist()})
+            reply, headers = post(f"{base}/{endpoint}", {"images": imgs[k].tolist()},
+                                  {"X-Request-Id": rid})
             wall_ms = (time.perf_counter() - t) * 1e3
+            if headers.get("X-Request-Id") != rid or reply.get("request_id") != rid:
+                raise AssertionError(f"request id {rid} not echoed: header "
+                                     f"{headers.get('X-Request-Id')}, body {reply.get('request_id')}")
             out = np.asarray(reply["embeddings" if endpoint == "embed" else "images"], np.float32)
             want = ((k, c.levels, c.dim) if endpoint == "embed"
                     else (k, c.channels, c.image_size, c.image_size))
@@ -1018,26 +1106,51 @@ def serve_requests(engine, plan, imgs):
             requests.append({"endpoint": endpoint, "k": k, "shape": list(out.shape),
                              "step": reply["step"], "server_latency_ms": reply["latency_ms"],
                              "client_wall_ms": wall_ms})
+        metrics = get(base + "/metrics", raw=True)
+        captures = metric_value(metrics, "glom_serving_graph_captures_total")
+        if captures:
+            raise AssertionError(f"{captures} graph captures on the request path after warm-up")
+        first = f"chip-smoke-{plan[0][0]}-{plan[0][1]}-0"
+        spans = trace_spans(base, first)
+        if not REQUEST_SPANS <= spans:
+            raise AssertionError(f"trace {first}: spans {sorted(spans)} lack "
+                                 f"{sorted(REQUEST_SPANS - spans)}")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
         engine.shutdown(drain=True)
-    return health, requests, outs
+    return health, requests, outs, {"graph_captures_after_warmup": captures or 0,
+                                    "trace": {"request_id": first, "spans": sorted(spans)}}
+
+
+def metric_value(text: str, name: str):
+    """The value of sample ``name`` in a Prometheus text body, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def trace_spans(base: str, trace_id: str, timeout_s: float = 10.0) -> set:
+    """The span names of ``trace_id``'s completed record in /debug/traces,
+    polled until it lands (the root span ends after the reply is written)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        for rec in get(base + "/debug/traces?since=0")["traces"]:
+            if rec["trace_id"] == trace_id:
+                return {s["name"] for s in rec["spans"]}
+        if time.monotonic() > deadline:
+            raise AssertionError(f"trace {trace_id} never reached /debug/traces")
+        time.sleep(0.05)
 
 
 def embed_forward_ms(engine, x8, cfg) -> float:
     """One b=8 /embed forward of ``engine``'s weights under ``cfg`` (12
-    iterations), host clock to the result on the host: the median of 5 after
-    a warm-up."""
-    times = []
+    iterations), eager, host clock to the result on the host (``served_ms``)."""
     with torch.inference_mode():
-        for _ in range(6):
-            t0 = time.perf_counter()
-            glom_model.apply(engine.params["glom"], x8, config=cfg,
-                             iters=engine.embed_iters).mean(dim=1).cpu()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times[1:])
+        return served_ms(lambda: glom_model.apply(engine.params["glom"], x8, config=cfg,
+                                                  iters=engine.embed_iters).mean(dim=1).cpu())
 
 
 def phase_serve_fused(device) -> dict:
@@ -1055,7 +1168,7 @@ def phase_serve_fused(device) -> dict:
     plan = (("embed", 1), ("embed", 8), ("reconstruct", 2))
     for fn in kernel_wrappers().values():
         fn.launches = 0
-    health, requests, outs = serve_requests(engine, plan, imgs)
+    health, requests, outs, served = serve_requests(engine, plan, imgs)
     launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     iters, t = engine.embed_iters, engine.reconstruct_timestep
     want = {k: 0 for k in launches}
@@ -1067,15 +1180,16 @@ def phase_serve_fused(device) -> dict:
     # the k=8 /embed answer against the plain path and the "pallas" engine's
     plain_cfg = GlomConfig(**{**engine.config.to_json_dict(),
                               "ff_impl": "dense", "attention_impl": "dense"})
-    pallas_engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas")
+    pallas_engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas",
+                                  warmup=False)
     x8 = torch.from_numpy(imgs[8]).to(device)
     with torch.inference_mode():
         plain = glom_model.apply(engine.params["glom"], x8, config=plain_cfg,
                                  iters=iters).mean(dim=1).cpu().numpy()
     err_plain = float(np.abs(outs[("embed", 8)] - plain).max())
-    err_pallas = float(np.abs(outs[("embed", 8)] - pallas_engine.run("embed", imgs[8])).max())
+    err_pallas = float(np.abs(outs[("embed", 8)] - pallas_engine.run_eager("embed", imgs[8])).max())
     recon_err = float(np.abs(outs[("reconstruct", 2)]
-                             - pallas_engine.run("reconstruct", imgs[2])).max())
+                             - pallas_engine.run_eager("reconstruct", imgs[2])).max())
     if not max(err_plain, err_pallas, recon_err) <= SERVE_ATOL:
         raise AssertionError(f"fused serving differs: plain {err_plain}, pallas engine "
                              f"{err_pallas}, reconstruct {recon_err} > {SERVE_ATOL}")
@@ -1084,7 +1198,7 @@ def phase_serve_fused(device) -> dict:
                                              "image_size": c.image_size,
                                              "patch_size": c.patch_size, "iters": iters,
                                              "reconstruct_timestep": t, "ff_impl": "fused"},
-          "requests": requests, "launches": launches,
+          "requests": requests, "launches": launches, **served,
           "launches_per_forward": {"embed": {"fused_level_update": iters, "grouped_ff": 0,
                                              "consensus_attention": 0},
                                    "reconstruct": {"fused_level_update": t}},
@@ -1092,11 +1206,176 @@ def phase_serve_fused(device) -> dict:
           "reconstruct_vs_pallas_engine_max_abs_err": recon_err, "atol": SERVE_ATOL,
           "embed_b8_forward_ms": {"fused": embed_forward_ms(engine, x8, engine.config),
                                   "pallas_kernels": embed_forward_ms(engine, x8, pallas_engine.config),
-                                  "plain": embed_forward_ms(engine, x8, plain_cfg)}})
+                                  "plain": embed_forward_ms(engine, x8, plain_cfg)},
+          "graphs": graph_report(engine, c, seed=11)})
     phase_profile(lambda: glom_model.apply(engine.params["glom"], x8, config=engine.config,
                                            iters=iters).mean(dim=1).cpu(),
                   phase="serve_fused_profile")
     return launches
+
+
+# serve_load: the closed loop that finds the sustained rate, then the open
+# loop at half of it with a hot reload in the middle.  It is a smoke check of
+# the load generator and of a reload under load, not a tail measurement: its
+# windows answer tens of requests, so the report's p95/p99 are null (the
+# loadgen's MIN_TAIL_SAMPLES); PERF.md section 4 defines the longer leg.
+LOAD_BATCH_SIZES = tuple(range(1, 9))
+LOAD_CONCURRENCY = 8
+LOAD_CLOSED_S = 5.0
+LOAD_OPEN_S = 10.0
+LOAD_RELOAD_AT_S = 3.0
+# a second reload may leave allocated memory this far from the first's
+RELOAD_MEMORY_MARGIN = 16 * 2 ** 20
+LOAD_SPANS = ("request", "parse", "queue_wait", "batch_assembly", "pad", "execute", "respond")
+
+
+def run_loadgen(base: str, *args) -> dict:
+    """``python -m glom_tpu_torch.tools.loadgen`` in a process of its own
+    (the server's process keeps its interpreter lock to itself); its
+    report.  Exit 1 (a request failed) still reports."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "glom_tpu_torch.tools.loadgen", "--url", base,
+         "--batch-sizes", ",".join(map(str, LOAD_BATCH_SIZES)), *map(str, args)],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    if proc.returncode not in (0, 1):
+        raise RuntimeError(f"loadgen exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def span_means(before: dict, after: dict) -> dict:
+    """Mean milliseconds of each request span between two registry
+    snapshots."""
+    out = {}
+    for span in LOAD_SPANS:
+        key = f"serving_{span}_ms"
+        n = after.get(key + "_count", 0.0) - before.get(key + "_count", 0.0)
+        out[span] = ((after.get(key + "_sum", 0.0) - before.get(key + "_sum", 0.0)) / n
+                     if n else None)
+    return out
+
+
+def settled_memory(device) -> dict:
+    gc.collect()
+    torch.cuda.synchronize(device)
+    return {"allocated": torch.cuda.memory_allocated(device),
+            "reserved": torch.cuda.memory_reserved(device)}
+
+
+def phase_serve_load(device) -> dict:
+    """The flagship "pallas" engine behind the HTTP server under
+    ``glom_tpu_torch/tools/loadgen.py``, run as a process of its own: a
+    closed loop (/embed, batch sizes 1-8, concurrency 8, 5 s) for the
+    sustained rate, then an open loop at 50 % of its request rate for 10 s,
+    during which step 1 of the checkpoint lands and the watcher reloads it.
+    No request may fail, /healthz must reach step 1, the answers after the
+    swap must equal the eager forward of step 1's weights bit for bit, and
+    ``serving_param_reloads`` must be 1.  A second reload, to step 2 with no
+    load, must leave allocated memory where the first left it: a reload
+    does not leak."""
+    c = FLAGSHIP
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_load_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    make_demo_checkpoint(ckpt, config=c, seed=0)
+    engine = ServingEngine(ckpt, device=device, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0.25)
+    engine.start()
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    probe = np.random.default_rng(5).standard_normal(
+        (3, c.channels, c.image_size, c.image_size)).astype(np.float32)
+    try:
+        before, _ = post(base + "/embed", {"images": probe.tolist()})
+        for fn in kernel_wrappers().values():
+            fn.launches = 0
+        snap0 = engine.registry.snapshot()
+        closed = run_loadgen(base, "--concurrency", LOAD_CONCURRENCY,
+                             "--duration", LOAD_CLOSED_S)
+        snap1 = engine.registry.snapshot()
+        rate = 0.5 * closed["throughput_req_per_s"]
+        memory = {"before_reload": settled_memory(device),
+                  "pool_bytes_step0": engine.graph_pool_bytes()}
+        torch.cuda.reset_peak_memory_stats(device)
+        step0_set = weakref.ref(engine.serving)
+        count0 = engine.request_count
+
+        def land_step_1():
+            # LOAD_RELOAD_AT_S into the open loop's traffic (the loadgen
+            # builds its bodies before its first request)
+            deadline = time.monotonic() + 120
+            while engine.request_count == count0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            time.sleep(LOAD_RELOAD_AT_S)
+            make_demo_checkpoint(ckpt, config=c, seed=1, step=1)
+
+        writer = threading.Thread(target=land_step_1)
+        writer.start()
+        open_report = run_loadgen(base, "--rate", rate, "--duration", LOAD_OPEN_S)
+        writer.join()
+        snap2 = engine.registry.snapshot()
+        reloaded = poll_step(base, 1)
+        launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+        peak = torch.cuda.max_memory_allocated(device)
+        after, _ = post(base + "/embed", {"images": probe.tolist()})
+        metrics = get(base + "/metrics", raw=True)
+        eager = engine.run_eager("embed", probe)
+        memory.update({"peak_allocated_during_reload": peak,
+                       "after_reload_1": settled_memory(device),
+                       "pool_bytes_step1": engine.graph_pool_bytes(),
+                       "params_bytes": sum(p.numel() * p.element_size() for p in
+                                           glom_model.tree_leaves(engine.params))})
+        step1_set = weakref.ref(engine.serving)
+        make_demo_checkpoint(ckpt, config=c, seed=2, step=2)
+        reloaded_2 = poll_step(base, 2)
+        memory["after_reload_2"] = settled_memory(device)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        engine.shutdown(drain=True)
+    served = np.asarray(after["embeddings"], np.float32)
+    failed = {k: r[k] for r in (closed, open_report)
+              for k in ("requests_error", "requests_shed", "request_id_mismatches") if r[k]}
+    grown = memory["after_reload_2"]["allocated"] - memory["after_reload_1"]["allocated"]
+    checks = {
+        "no_failed_request": not failed,
+        "healthz_step_1": reloaded == 1 and after["step"] == 1,
+        "answer_after_swap_equals_eager_step_1": bool(np.array_equal(served, eager)),
+        "answer_changed": not np.array_equal(served, np.asarray(before["embeddings"], np.float32)),
+        "step_0_set_freed": step0_set() is None,
+        "serving_param_reloads_1": metric_value(metrics, "glom_serving_param_reloads_total") == 1,
+        "no_graph_capture_on_request_path":
+            not metric_value(metrics, "glom_serving_graph_captures_total"),
+        "kernels_launched": launches["grouped_ff"] > 0 and launches["consensus_attention"] > 0,
+        "second_reload_step_2": reloaded_2 == 2 and step1_set() is None,
+        "second_reload_keeps_allocated_memory": abs(grown) <= RELOAD_MEMORY_MARGIN,
+    }
+    emit({"phase": "serve_load", "config": {"dim": c.dim, "levels": c.levels, "ff_impl": "pallas",
+                                            "endpoint": "embed",
+                                            "batch_sizes": list(LOAD_BATCH_SIZES)},
+          "closed_loop": closed, "open_loop": open_report, "open_rate_req_per_s": rate,
+          "sustained_imgs_per_s": closed["throughput_imgs_per_s"],
+          "span_mean_ms": {"closed_loop": span_means(snap0, snap1),
+                           "open_loop": span_means(snap1, snap2)},
+          "reload_at_s": LOAD_RELOAD_AT_S, "launches": launches, "memory": memory,
+          "allocated_growth_reload_2": grown, "failed": failed, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"serve_load: {[k for k, ok in checks.items() if not ok]} failed")
+    return launches
+
+
+def poll_step(base: str, step: int, timeout_s: float = 60.0) -> int:
+    """/healthz's step once it reaches ``step`` (or the last one read when
+    ``timeout_s`` passes)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = get(base + "/healthz")["step"]
+        if got >= step or time.monotonic() > deadline:
+            return got
+        time.sleep(0.1)
 
 
 def fit_run(config, device, img, ckpt=None, steps=TRAIN_STEPS):
@@ -1307,7 +1586,7 @@ def serve_trained(ckpt, device, trainer) -> None:
     c = engine.config
     imgs = np.random.default_rng(1).standard_normal(
         (2, c.channels, c.image_size, c.image_size)).astype(np.float32)
-    _, (reply,), outs = serve_requests(engine, (("embed", 2),), {2: imgs})
+    _, (reply,), outs, _ = serve_requests(engine, (("embed", 2),), {2: imgs})
     out = outs[("embed", 2)]
     with torch.inference_mode():
         want = glom_model.apply(trainer.state.params["glom"], torch.from_numpy(imgs).to(device),
@@ -1444,8 +1723,8 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
     return summary
 
 
-PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "train_fused",
-          "bench")
+PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
+          "train_fused", "bench")
 
 
 def parse_args(argv):
@@ -1482,6 +1761,8 @@ def run_only(device, names) -> int:
             _, pallas_step_ms = phase_train(device)
         elif name == "serve_fused":
             phase_serve_fused(device)
+        elif name == "serve_load":
+            phase_serve_load(device)
         elif name == "train_fused":
             phase_train_fused(device, pallas_step_ms)
         elif name == "bench":
@@ -1511,6 +1792,7 @@ def main(argv=()) -> int:
     launches = phase_serve(device)
     train_launches, pallas_step_ms = phase_train(device)
     fused_serve_launches = phase_serve_fused(device)
+    phase_serve_load(device)
     fused_train_launches = phase_train_fused(device, pallas_step_ms)
     phase_bench(smi, pallas_step_ms)
     # launches: the serving path's count for the forward kernels (K8: the

@@ -1,11 +1,14 @@
 """What every kernel wrapper shares: the element types the kernels take,
 their width limit, the device test that picks the kernel or its plain
 version, the alignment test of the kernels' vector loads and the fresh copy
-that meets it, and the launch counter."""
+that meets it, and the launch counter, which also counts the launches a
+CUDA graph replays."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
+from typing import Dict
 
 import torch
 
@@ -13,12 +16,41 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 512          # the kernels hold a (64, d) f32 accumulator in registers
 
 _lock = threading.Lock()
+# per thread: the launches recorded into the CUDA graph being captured, or None
+_capture = threading.local()
 
 
 def count(fn) -> None:
-    """Add one to a wrapper's launch count; called only where its kernel launched."""
+    """Add one to a wrapper's launch count; called only where its kernel
+    launched.  Inside :func:`recording_launches` (a CUDA graph capture, which
+    records the launch and runs nothing) it goes to the graph's record
+    instead, and :func:`add_replayed` counts it at every replay."""
+    recorded = getattr(_capture, "launches", None)
+    if recorded is not None:
+        recorded[fn] = recorded.get(fn, 0) + 1
+        return
     with _lock:
         fn.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go to the yielded
+    ``{wrapper: launches}`` (one graph's launches per replay) and not to the
+    wrappers' counts."""
+    recorded: Dict = {}
+    _capture.launches = recorded
+    try:
+        yield recorded
+    finally:
+        _capture.launches = None
+
+
+def add_replayed(recorded: Dict) -> None:
+    """Count one replay of a graph whose capture recorded ``recorded``."""
+    with _lock:
+        for fn, n in recorded.items():
+            fn.launches += n
 
 
 def on_device(name: str, x: torch.Tensor) -> bool:

@@ -43,6 +43,7 @@ wrappers, so on the card a backward runs K1 and K4 again and then K2, K3
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -121,11 +122,27 @@ def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, h: int,
                            b, n, L, d, h, DTYPE_CODES[dtype])
 
 
+_DIVISORS: dict = {}
+_divisors_lock = threading.Lock()
+
+
 def update_divisors(levels_count: int, dtype, device=None) -> torch.Tensor:
-    """``(L, 1)`` divisors [4, ..., 4, 3]: the top level has no top-down term."""
-    divisors = torch.full((levels_count, 1), 4.0, dtype=torch.float32)
-    divisors[-1] = 3.0
-    return divisors.to(device=device, dtype=dtype)
+    """``(L, 1)`` divisors [4, ..., 4, 3]: the top level has no top-down term.
+
+    Built once per ``(L, dtype, device)`` and then reused: the forward runs
+    no host-to-device copy, so a CUDA graph can capture it.  Made outside
+    inference mode, so a tensor first asked for by a server can still be
+    saved for a later backward."""
+    key = (levels_count, dtype, torch.device("cpu" if device is None else device))
+    divisors = _DIVISORS.get(key)
+    if divisors is None:
+        with _divisors_lock, torch.inference_mode(False):
+            divisors = _DIVISORS.get(key)
+            if divisors is None:
+                host = torch.full((levels_count, 1), 4.0, dtype=torch.float32)
+                host[-1] = 3.0
+                divisors = _DIVISORS[key] = host.to(device=key[2], dtype=dtype)
+    return divisors
 
 
 def reference_update(bu, td, levels, bottom_level, pos_embs, non_local_mask=None, *,

@@ -59,12 +59,18 @@ def _candidate_steps(directory: str) -> list:
     return sorted({s for s in map(ckpt_lib.step_of, names) if s is not None}, reverse=True)
 
 
-def latest_valid_step(directory: str) -> Optional[int]:
+def latest_valid_step(directory: str, *, newer_than: Optional[int] = None) -> Optional[int]:
     """The newest step at or below the manifest's that passes its whole-file
     CRC, quarantining every newer one that fails; None when no step is
-    loadable."""
-    manifest_step = ckpt_lib.latest_step(directory)
+    loadable.  Steps at or below ``newer_than`` are returned without the CRC
+    read: a server already holds that step and only asks whether a newer one
+    landed (its watcher polls every few seconds)."""
+    manifest_step = -1   # read only when a step above newer_than needs it
     for step in _candidate_steps(directory):
+        if newer_than is not None and step <= newer_than:
+            return step
+        if manifest_step == -1:
+            manifest_step = ckpt_lib.latest_step(directory)
         if manifest_step is not None and step > manifest_step:
             continue   # above the finalization barrier
         if ckpt_lib.verify_file_integrity(directory, step) is False:

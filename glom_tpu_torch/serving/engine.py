@@ -1,9 +1,11 @@
-"""Serving engine (``glom_tpu/serving/engine.py``, its main path).
+"""Serving engine: model lifecycle and batched execution
+(``glom_tpu/serving/engine.py``, its single-replica path).
 
 request -> :class:`~glom_tpu_torch.serving.batcher.DynamicBatcher` (one per
-endpoint) -> worker thread -> the batch padded to the nearest bucket ->
-the forward under ``torch.inference_mode()`` -> per-request slices on the
-callers' futures.
+endpoint) -> worker thread -> the batch padded to its bucket and replayed as
+that bucket's CUDA graph
+(:class:`~glom_tpu_torch.serving.compile_cache.BucketedGraphCache`; eager on
+the CPU) -> per-request slices on the callers' futures.
 
 * ``embed``: ``mean(apply(imgs), over patches)`` -> ``(k, L, d)``, the
   per-level embeddings.
@@ -12,15 +14,52 @@ callers' futures.
   ``(k, c, H, W)``.  The forward stops at that timestep: the iterations
   after it would not change the answer.
 
-The engine loads the newest checkpoint of a directory written by either
-package and serves it with the kernel choice the checkpoint recorded
+The engine loads the newest valid checkpoint of a directory written by
+either package and serves it with the kernel choice the checkpoint recorded
 (``ff_impl`` / ``attention_impl``), as ``glom_tpu``'s engine does; an
 explicit ``ff_impl`` or ``attention_impl`` overrides it (the weights are the
 same either way), and ``"pallas"`` picks the hand-written CUDA kernels.
 ``ff_impl="fused"`` serves each iteration as one call of the fused
 level-update kernels where the model's shape allows it
 (``models/glom.py::fused_update_supported``), and falls back to the
-grouped-FF and consensus kernels where it does not.
+grouped-FF and consensus kernels where it does not.  The step's functions
+and the locality mask are resolved once, here, outside every graph.
+
+Model lifecycle:
+
+  * **warm-up** -- :meth:`ServingEngine.warm` (run by the constructor unless
+    ``warmup=False``) captures every (endpoint, bucket) pair as a CUDA graph,
+    so no request captures; ``serving_warmup_seconds`` records how long it
+    took, and ``serving_graph_captures`` counts captures the request path
+    made (``serving_xla_compiles`` in ``glom_tpu``; 0 after warm-up);
+  * **hot reload** -- a watcher polls for a newer valid step every
+    ``reload_poll_s``; the new weights are restored, a new graph set is
+    captured against them off the request path, and ``(step, params,
+    graphs)`` is swapped in with one reference assignment.  In-flight
+    batches hold the old set and finish on it; it is freed when no replay
+    holds it.  A reload that fails warns, counts ``serving_reload_failures``
+    and keeps serving the old set;
+  * **staged reload** -- :meth:`ServingEngine.stage_reload` /
+    :meth:`commit_staged` / :meth:`abort_staged` / :meth:`finalize_reload`
+    / :meth:`rollback` (``/admin/reload/*``), ``glom_tpu``'s two-phase
+    fleet primitive;
+  * **drain** -- :meth:`ServingEngine.shutdown` with ``drain=True`` stops
+    admission, lets queued work flush and joins the workers.
+
+Observability is ``glom_tpu``'s, through the port's copies of its obs
+modules: the registry's ``serving_*`` families (the server's ``/metrics``),
+a trace per request (the server mints the root span; the batcher, the engine
+and the graph cache record ``queue_wait``, ``batch_assembly``,
+``bucket_select``, ``pad`` and ``execute`` under it; ``reload_swap`` times a
+swap; ``trace_log`` writes one JSONL record per completed trace), a
+per-endpoint :class:`~glom_tpu_torch.obs.triggers.QueueSaturationMonitor`
+(``serving_queue_saturation_events``, and an event on the timeline), and
+declarative SLOs (``slos``) with burn-rate alerting.
+
+Arguments of ``glom_tpu``'s engine that need modules the port does not have
+yet (forensics bundles, quantized weights, sessions, tenants, deploys, the
+capacity and quality planes, bulk jobs, the part-whole endpoints, several
+models, a device mesh) are refused by name when set: :data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -28,6 +67,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -38,13 +78,68 @@ from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
 from glom_tpu_torch.kernels import _build, consensus, ff, fused_update
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply, decoder_param_shapes
-from glom_tpu_torch.serving.batcher import DynamicBatcher
+from glom_tpu_torch.obs.events import Timeline
+from glom_tpu_torch.obs.registry import MetricRegistry
+from glom_tpu_torch.obs.slo import SLO, SloManager, parse_slo
+from glom_tpu_torch.obs.tracing import SPAN_BATCH_ASSEMBLY, SPAN_RELOAD, TraceSink, Tracer
+from glom_tpu_torch.obs.triggers import QueueSaturationMonitor, TriggerEngine
+from glom_tpu_torch.resilience import integrity
+from glom_tpu_torch.serving.batcher import Closed, DynamicBatcher, Overloaded  # noqa: F401
+from glom_tpu_torch.serving.compile_cache import BucketedGraphCache, DeviceLock
 from glom_tpu_torch.training import denoise
 
 ENDPOINTS = ("embed", "reconstruct")
+# endpoints an SLO may target
+SLO_ENDPOINTS = ENDPOINTS
 
 # The smallest config the CUDA kernels take (d a multiple of 128).
 DEMO_CONFIG = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8)
+
+# glom_tpu's engine arguments this port does not take yet: name -> (the value
+# that leaves it unset, what it waits for).  Any other value is refused.
+_Q = "ROADMAP queue 1"
+UNPORTED = {
+    "warmup_dir": (None, f"obs/forensics.py's compile snapshots ({_Q}, item 7)"),
+    "forensics_dir": (None, f"obs/forensics.py ({_Q}, item 7)"),
+    "quant": ("f32", f"serving/quant.py ({_Q}, item 4)"),
+    "donate_inputs": (None, "an XLA buffer donation; a graph's static input is reused as it is"),
+    "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
+    "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
+    "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
+    "warm_iters": (None, f"serving/sessions.py ({_Q}, item 4)"),
+    "session_ttl_s": (600.0, f"serving/sessions.py ({_Q}, item 4)"),
+    "session_max_bytes": (256 * 2 ** 20, f"serving/sessions.py ({_Q}, item 4)"),
+    "session_spill_dir": (None, f"serving/sessions.py ({_Q}, item 4)"),
+    "tenant_quotas": (None, f"the batcher's tenant admission ({_Q}, item 4)"),
+    "extra_models": (None, f"serving/registry.py ({_Q}, item 4)"),
+    "deploy_promote_after": (3, f"serving/deploy.py ({_Q}, item 4)"),
+    "deploy_window_s": (None, f"serving/deploy.py ({_Q}, item 4)"),
+    "deploy_min_events": (None, f"serving/deploy.py ({_Q}, item 4)"),
+    "deploy_canary_fraction": (0.1, f"serving/deploy.py ({_Q}, item 4)"),
+    "deploy_pin_url": (None, f"serving/deploy.py ({_Q}, item 4)"),
+    "capacity_policy": (None, f"obs/capacity.py ({_Q}, item 4)"),
+    "capacity_interval_s": (1.0, f"obs/capacity.py ({_Q}, item 4)"),
+    "capacity_window_s": (30.0, f"obs/capacity.py ({_Q}, item 4)"),
+    "capacity_persist_windows": (5, f"obs/capacity.py ({_Q}, item 4)"),
+    "capacity_ceiling": (None, f"obs/capacity.py ({_Q}, item 4)"),
+    "quality_sample": (1.0, f"obs/quality.py ({_Q}, item 5)"),
+    "quality_seed": (0, f"obs/quality.py ({_Q}, item 5)"),
+    "bulk_dir": (None, f"serving/bulk.py ({_Q}, item 4)"),
+    "parse_thresholds": (None, f"hierarchy/parse.py, /parse ({_Q}, item 5)"),
+    "index_dir": (None, f"hierarchy/index.py, /similar ({_Q}, item 5)"),
+}
+
+
+def refuse_unported(args: dict) -> None:
+    """Raise for an unknown argument, and for one of :data:`UNPORTED` set to
+    anything but its unset value, naming what it waits for."""
+    for name, value in args.items():
+        if name not in UNPORTED:
+            raise TypeError(f"ServingEngine() got an unexpected keyword argument {name!r}")
+        unset, needs = UNPORTED[name]
+        if value != unset:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet: it needs {needs}")
 
 
 def demo_params(config: GlomConfig, train: TrainConfig, seed: int = 0) -> dict:
@@ -83,16 +178,19 @@ def demo_params(config: GlomConfig, train: TrainConfig, seed: int = 0) -> dict:
 
 
 def make_demo_checkpoint(directory: str, *, config: Optional[GlomConfig] = None,
-                         train: Optional[TrainConfig] = None, seed: int = 0) -> int:
-    """Write an untrained, servable checkpoint (step 0) with seeded numpy
-    weights, in the Trainer's layout (``config.json`` + npz + integrity
-    record + manifest), which ``glom_tpu`` also reads.  Returns the step."""
+                         train: Optional[TrainConfig] = None, seed: int = 0,
+                         step: int = 0) -> int:
+    """Write an untrained, servable checkpoint (``step``, default 0) with
+    seeded numpy weights, in the Trainer's layout (``config.json`` + npz +
+    integrity record + manifest), which ``glom_tpu`` also reads.  A later
+    ``step`` with another ``seed`` is what a running server hot-reloads.
+    Returns the step."""
     config = config if config is not None else DEMO_CONFIG
     train = train if train is not None else TrainConfig(batch_size=2, steps=0)
     ckpt_lib.write_json(directory, "config.json",
                         {"glom": config.to_json_dict(), "train": train.to_json_dict()})
-    ckpt_lib.save(directory, 0, {"params": demo_params(config, train, seed)})
-    return 0
+    ckpt_lib.save(directory, step, {"params": demo_params(config, train, seed)})
+    return step
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -102,12 +200,54 @@ def kernel_launches() -> Dict[str, int]:
             "fused_level_update": fused_update.fused_level_update.launches}
 
 
+
+
+def make_embed_fn(config: GlomConfig, iters: int, step_fns):
+    """``(params, imgs) -> (b, L, d)`` float32: the mean over patches of the
+    forward after ``iters`` iterations, every level computed (the endpoint
+    slices one on the host)."""
+    consensus_fn, ff_fn, fused_fn = step_fns
+
+    def f(params, imgs):
+        out = glom_model.apply(params["glom"], imgs, config=config, iters=iters,
+                               consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        return out.mean(dim=1).float()
+
+    return f
+
+
+def make_reconstruct_fn(config: GlomConfig, train_cfg: TrainConfig, timestep: int, step_fns):
+    """``(params, imgs) -> (b, c, H, W)`` float32: the state after the
+    training loss timestep, decoded through the trained head."""
+    consensus_fn, ff_fn, fused_fn = step_fns
+
+    def f(params, imgs):
+        state = glom_model.apply(params["glom"], imgs, config=config, iters=timestep,
+                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        return decoder_apply(params["decoder"], state, config, arch=train_cfg.decoder,
+                             level=train_cfg.loss_level).float()
+
+    return f
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingSet:
+    """What serves: a checkpoint's step, its parameters on the device, and
+    the graph caches captured against them.  Swapped as one reference."""
+    step: int
+    params: dict
+    caches: Dict[str, BucketedGraphCache]
+
+
 class ServingEngine:
-    """One loaded model, one batcher and one worker thread per endpoint.
+    """One loaded model, one batcher and one worker thread per endpoint, and
+    the hot-reload watcher.
 
     Runs on ``cuda`` unless ``device`` names another device; without a card
-    it raises unless ``device="cpu"``.  ``start(workers=False)`` skips the
-    threads, so tests can pump :meth:`process_once` by hand."""
+    it raises unless ``device="cpu"``.  ``clock`` is injectable (tests drive
+    batching and SLOs deterministically); ``start(workers=False)`` skips the
+    threads, so tests can pump :meth:`process_once` and call
+    :meth:`check_reload` by hand."""
 
     def __init__(
         self,
@@ -117,12 +257,50 @@ class ServingEngine:
         iters: Optional[int] = None,
         max_wait_ms: float = 5.0,
         max_queue: int = 64,
+        registry: Optional[MetricRegistry] = None,
+        reload_poll_s: float = 2.0,
+        reload_retries: int = 3,
+        reload_retry_base_s: float = 0.05,
+        reload_backoff_max: int = 8,
+        sleep=None,
+        warmup: bool = True,
+        saturation_threshold: float = 0.9,
+        saturation_sustained: int = 3,
+        saturation_debounce: int = 200,
+        max_captures: int = 3,
+        clock=None,
+        trace_log: Optional[str] = None,
+        trace_max_traces: int = 256,
+        slos: Optional[Sequence] = None,
         device=None,
         ff_impl: Optional[str] = None,
         attention_impl: Optional[str] = None,
+        **unported,
     ):
+        refuse_unported(unported)
         self.device = resolve_device(device)
         self.checkpoint_dir = checkpoint_dir
+        self.registry = registry if registry is not None else MetricRegistry()
+        self._clock = clock if clock is not None else time.monotonic
+
+        # -- end-to-end tracing: always on (host-side bookkeeping in a
+        # bounded sink); with trace_log, one JSONL record per completed trace
+        trace_exporter = None
+        if trace_log:
+            from glom_tpu_torch.obs.exporters import JsonlExporter
+
+            trace_exporter = JsonlExporter(path=trace_log)
+        self.tracer = Tracer(clock=self._clock, sink=TraceSink(max_traces=trace_max_traces),
+                             registry=self.registry, exporter=trace_exporter)
+        self._reload_poll_s = reload_poll_s
+        if reload_retries < 1:
+            raise ValueError(f"reload_retries must be >= 1, got {reload_retries}")
+        self._reload_retries = reload_retries
+        self._reload_retry_base_s = reload_retry_base_s
+        self._reload_backoff_max = max(1, reload_backoff_max)
+        self._reload_failstreak = 0
+        self._sleep = sleep if sleep is not None else time.sleep
+
         if ckpt_lib.latest_step(checkpoint_dir) is None:
             raise FileNotFoundError(
                 f"no finalized checkpoint in {checkpoint_dir!r}; train first, "
@@ -137,26 +315,69 @@ class ServingEngine:
         overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
                      if v is not None}
         self.config = dataclasses.replace(config, **overrides)
-        self.step = step
-        dt = self.config.resolved_compute_dtype
-        self.params = glom_model.tree_map(lambda p: p.to(dt), params)
-        # resolved once: the step's functions, the locality mask on the device
-        self._consensus_fn, self._ff_fn, self._fused_fn = glom_model.resolve_step_fns(
-            self.config, self.device)
+        # resolved once, outside every graph: the step's functions and the
+        # locality mask on the device
+        self._step_fns = glom_model.resolve_step_fns(self.config, self.device)
+        self._consensus_fn, self._ff_fn, self._fused_fn = self._step_fns
         self.embed_iters = iters if iters is not None else self.config.default_iters
         recon_iters = iters if iters is not None else (
             self.train_cfg.iters if self.train_cfg.iters is not None
             else self.config.default_iters)
         self.reconstruct_timestep = denoise.resolve_loss_timestep(self.train_cfg, recon_iters)
+        self._fns = {
+            "embed": make_embed_fn(self.config, self.embed_iters, self._step_fns),
+            "reconstruct": make_reconstruct_fn(self.config, self.train_cfg,
+                                               self.reconstruct_timestep, self._step_fns),
+        }
         if self.device.type == "cuda":
             self._build_kernels()
-        self.batchers = {
+        # replays share the card; a capture (start-up, reload, or a lazy
+        # bucket) holds it alone
+        self._device_lock = DeviceLock()
+        self._serving = self._make_set(step, params)
+
+        self.batchers: Dict[str, DynamicBatcher] = {
             ep: DynamicBatcher(max_batch=self.buckets[-1], max_wait_ms=max_wait_ms,
-                               max_queue=max_queue)
+                               max_queue=max_queue, clock=self._clock, tracer=self.tracer)
             for ep in ENDPOINTS
         }
-        self._threads = []
+        # -- overload detection, per endpoint (each has its own queue)
+        self._saturation = {
+            ep: QueueSaturationMonitor(threshold=saturation_threshold,
+                                       sustained=saturation_sustained)
+            for ep in ENDPOINTS
+        }
+        self._triggers = TriggerEngine(debounce_steps=saturation_debounce,
+                                       max_captures=max_captures, registry=self.registry)
+        self.timeline = Timeline(clock=self._clock)
+        # -- SLO burn-rate alerting
+        self._slo: Optional[SloManager] = None
+        self._slo_lock = threading.Lock()
+        if slos:
+            parsed = [s if isinstance(s, SLO) else parse_slo(s) for s in slos]
+            for s in parsed:
+                if s.endpoint is not None and s.endpoint not in SLO_ENDPOINTS:
+                    raise ValueError(
+                        f"SLO {s.name!r} names unknown endpoint {s.endpoint!r}; "
+                        f"valid endpoints: {SLO_ENDPOINTS}")
+            self._slo = SloManager(parsed, clock=self._clock, registry=self.registry,
+                                   triggers=self._triggers, tracer=self.tracer)
+
+        # -- staged (two-phase) reload: ``_staged`` is a set loaded and
+        # captured but not serving; ``_prev`` the set a commit displaced
+        self._staged: Optional[ServingSet] = None
+        self._prev: Optional[ServingSet] = None
+        self._reload_lock = threading.Lock()
+
+        self._lock = threading.Lock()  # set swap + counters + saturation
+        self._threads: list = []
+        self._stop = threading.Event()
         self._started = False
+        self._shed_seen = {ep: 0 for ep in ENDPOINTS}
+        self.request_count = 0
+        self._warm = False
+        if warmup:
+            self.warm()
 
     def _build_kernels(self) -> None:
         """Build the kernels before the first request, so no request waits
@@ -164,62 +385,342 @@ class ServingEngine:
         if (self.config.ff_impl, self.config.attention_impl) != ("dense", "dense"):
             _build.build_all()
 
-    # -- the forward -------------------------------------------------------
-    def _forward(self, imgs: torch.Tensor, iters: int) -> torch.Tensor:
-        return glom_model.apply(
-            self.params["glom"], imgs, config=self.config, iters=iters,
-            consensus_fn=self._consensus_fn, ff_fn=self._ff_fn, fused_fn=self._fused_fn,
-        )
+    # -- serving sets ------------------------------------------------------
+    def _make_set(self, step: int, params: dict) -> ServingSet:
+        """A set for ``params`` (cast to the compute dtype) with a graph
+        cache per endpoint, not yet captured."""
+        c = self.config
+        dt = c.resolved_compute_dtype
+        params = glom_model.tree_map(lambda p: p.to(dt), params)
+        shape = (c.channels, c.image_size, c.image_size)
+        caches = {
+            ep: BucketedGraphCache(self._fns[ep], self.buckets, input_shape=shape,
+                                   device=self.device, name=ep, lock=self._device_lock,
+                                   iters=self.embed_iters if ep == "embed"
+                                   else self.reconstruct_timestep)
+            for ep in ENDPOINTS
+        }
+        return ServingSet(int(step), params, caches)
 
+    @staticmethod
+    def _warm_set(serving: ServingSet) -> None:
+        for cache in serving.caches.values():
+            cache.warmup(serving.params)
+
+    def warm(self) -> None:
+        """Capture every (endpoint, bucket) pair of the serving set; the
+        request path captures nothing after this returns, and reloads
+        capture their new set before swapping it in."""
+        t0 = self._clock()
+        self._warm_set(self._serving)
+        self._warm = True
+        self.registry.gauge(
+            "serving_warmup_seconds",
+            help="wall time of the startup graph-capture pass", unit="seconds",
+        ).set(self._clock() - t0)
+
+    @property
+    def serving(self) -> ServingSet:
+        return self._serving
+
+    @property
+    def step(self) -> int:
+        return self._serving.step
+
+    @property
+    def params(self) -> dict:
+        return self._serving.params
+
+    @property
+    def caches(self) -> Dict[str, BucketedGraphCache]:
+        return self._serving.caches
+
+    def _load_set(self, step: int) -> ServingSet:
+        """Restore ``step`` onto the device and capture its graphs (when the
+        engine warms) off the request path."""
+        _, _, _, params = denoise.load_checkpoint_state(self.checkpoint_dir, step=step,
+                                                        device=self.device)
+        serving = self._make_set(step, params)
+        if self._warm:
+            self._warm_set(serving)
+        return serving
+
+    def graph_pool_bytes(self) -> Dict[str, Optional[int]]:
+        """Bytes the card holds for each endpoint's graph pool (None on the
+        CPU)."""
+        return {ep: cache.pool_bytes() for ep, cache in self.caches.items()}
+
+    # -- the forward -------------------------------------------------------
     def run(self, endpoint: str, imgs: np.ndarray) -> np.ndarray:
-        """Run one batch of ``k <= max(buckets)`` images, padded with zeros
-        to the nearest bucket; returns the endpoint's output for the ``k``."""
-        k = imgs.shape[0]
-        bucket = next((b for b in self.buckets if b >= k), None)
-        if bucket is None:
-            raise ValueError(f"batch of {k} exceeds the largest bucket {self.buckets[-1]}")
-        with torch.inference_mode():
-            x = torch.zeros((bucket,) + tuple(imgs.shape[1:]), dtype=torch.float32,
-                            device=self.device)
-            x[:k] = torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.float32)).to(self.device)
-            if endpoint == "embed":
-                out = self._forward(x, self.embed_iters).mean(dim=1)
-            elif endpoint == "reconstruct":
-                state = self._forward(x, self.reconstruct_timestep)
-                out = decoder_apply(
-                    self.params["decoder"], state, self.config,
-                    arch=self.train_cfg.decoder, level=self.train_cfg.loss_level,
-                )
-            else:
-                raise ValueError(f"unknown endpoint {endpoint!r}")
-            return out[:k].float().cpu().numpy()
+        """One batch of ``k <= max(buckets)`` images through the serving
+        path (padded to its bucket, replayed on the card); the endpoint's
+        output for the ``k``."""
+        serving = self._serving
+        return serving.caches[self._endpoint(endpoint)](serving.params, imgs)
+
+    def run_eager(self, endpoint: str, imgs: np.ndarray) -> np.ndarray:
+        """The same batch through the eager forward of the same weights at
+        the same bucket: what a replay equals bit for bit."""
+        serving = self._serving
+        return serving.caches[self._endpoint(endpoint)].eager(serving.params, imgs)
+
+    @staticmethod
+    def _endpoint(endpoint: str) -> str:
+        if endpoint not in ENDPOINTS:
+            raise ValueError(f"unknown endpoint {endpoint!r}")
+        return endpoint
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self, *, workers: bool = True, watch: Optional[bool] = None) -> None:
+        """Start one worker thread per endpoint and the hot-reload watcher
+        (``watch`` defaults to ``reload_poll_s > 0``)."""
+        if self._started:
+            return
+        self._started = True
+        if watch is None:
+            watch = self._reload_poll_s > 0
+        if workers:
+            for ep in ENDPOINTS:
+                t = threading.Thread(target=self._worker_loop, args=(ep,),
+                                     name=f"glom-torch-serving-{ep}", daemon=True)
+                t.start()
+                self._threads.append(t)
+        if watch:
+            t = threading.Thread(target=self._watch_loop, name="glom-torch-serving-reload",
+                                 daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def shutdown(self, *, drain: bool = True, timeout: float = 30.0) -> None:
+        """Close admission, let queued work flush (``drain=True``) or fail it,
+        stop the watcher and join the threads.  Idempotent."""
+        for batcher in self.batchers.values():
+            batcher.close(drain=drain)
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        self._threads = []
+        if self.tracer.exporter is not None:
+            self.tracer.exporter.close()
+
+    # -- hot reload --------------------------------------------------------
+    def _reload_failure(self, what: str, e: Exception) -> None:
+        self.registry.counter(
+            "serving_reload_failures",
+            help="failed hot-reload polls/loads (engine kept old params)",
+        ).inc()
+        warnings.warn(f"{what} failed ({type(e).__name__}: {e}); continuing to serve "
+                      f"step {self.step}", stacklevel=3)
+
+    def _poll_latest(self) -> Optional[int]:
+        """The newest valid step; the step already served is returned
+        without its CRC read."""
+        return integrity.latest_valid_step(self.checkpoint_dir, newer_than=self.step)
+
+    def check_reload(self) -> bool:
+        """One watcher poll: load, capture and swap when a newer valid step
+        landed.  Returns True on a swap.  Never raises: a poll retries with
+        backoff, a corrupt step is quarantined, and any failure keeps the
+        old set serving with ``serving_reload_failures`` counted."""
+        newest = None
+        for attempt in range(self._reload_retries):
+            try:
+                newest = self._poll_latest()
+                self._reload_failstreak = 0
+                break
+            except Exception as e:
+                self._reload_failure("reload poll", e)
+                if attempt + 1 >= self._reload_retries:
+                    self._reload_failstreak += 1
+                    return False
+                self._sleep(self._reload_retry_base_s * (2 ** attempt))
+        if newest is None or newest <= self.step:
+            return False
+        with self._reload_lock:
+            if newest <= self.step:
+                return False
+            span = self.tracer.start_trace(
+                SPAN_RELOAD, attrs={"from_step": int(self.step), "to_step": int(newest)})
+            try:
+                serving = self._load_set(newest)
+            except ckpt_lib.CorruptCheckpointError as e:
+                self.tracer.end(span, attrs={"error": repr(e)})
+                integrity.quarantine(self.checkpoint_dir, newest, reason=str(e))
+                self._reload_failure(f"hot reload of step {newest}", e)
+                self._reload_failstreak += 1
+                return False
+            except Exception as e:
+                self.tracer.end(span, attrs={"error": repr(e)})
+                self._reload_failure(f"hot reload of step {newest}", e)
+                self._reload_failstreak += 1
+                return False
+            with self._lock:
+                # the old set is not kept: only a staged commit keeps one
+                # to roll back to
+                self._serving = serving
+            self.tracer.end(span)
+            self._note_swap(newest)
+            return True
+
+    def _note_swap(self, step: int) -> None:
+        self.registry.counter("serving_param_reloads",
+                              help="successful checkpoint hot reloads").inc()
+        self.registry.gauge("serving_checkpoint_step",
+                            help="step of the params being served").set(step)
+
+    def stage_reload(self, step: Optional[int] = None) -> Optional[int]:
+        """Phase one of a coordinated rollout: load a step and capture its
+        graphs off the request path, without serving it.  ``step=None`` polls
+        for the newest valid step above the one serving; a pinned ``step``
+        stages exactly that one.  Returns the staged step, or None when there
+        is nothing to stage or the load failed.  Every attempt supersedes
+        earlier staging."""
+        with self._reload_lock:
+            self._staged = None
+            target = step
+            if target is None:
+                try:
+                    target = self._poll_latest()
+                except Exception as e:
+                    self._reload_failure("stage poll", e)
+                    return None
+            if target is None or (step is None and target <= self.step):
+                return None
+            if target == self.step:
+                return None
+            try:
+                serving = self._load_set(int(target))
+            except ckpt_lib.CorruptCheckpointError as e:
+                integrity.quarantine(self.checkpoint_dir, int(target), reason=str(e))
+                self._reload_failure(f"stage of step {target}", e)
+                return None
+            except Exception as e:
+                self._reload_failure(f"stage of step {target}", e)
+                return None
+            self._staged = serving
+            return int(target)
+
+    def commit_staged(self) -> Optional[int]:
+        """Phase two: swap the staged set in (one reference assignment;
+        in-flight batches finish on the old set), keeping the displaced set
+        as the rollback point.  Returns the step now serving."""
+        with self._reload_lock:
+            if self._staged is None:
+                return int(self.step)
+            serving, self._staged = self._staged, None
+            span = self.tracer.start_trace(SPAN_RELOAD, attrs={
+                "from_step": int(self.step), "to_step": serving.step, "phase": "commit"})
+            with self._lock:
+                self._prev = self._serving
+                self._serving = serving
+            self.tracer.end(span)
+            self._note_swap(serving.step)
+            return serving.step
+
+    def abort_staged(self) -> bool:
+        """Drop the staged set; True when one was staged."""
+        with self._reload_lock:
+            had = self._staged is not None
+            self._staged = None
+            return had
+
+    def finalize_reload(self) -> bool:
+        """Release the rollback point (a full second set of weights and
+        graphs); True when one was held."""
+        with self._reload_lock:
+            had = self._prev is not None
+            self._prev = None
+            return had
+
+    def rollback(self) -> Optional[int]:
+        """Swap back to the set the last commit displaced (one-shot);
+        returns the step now serving, or None with nothing to roll to."""
+        with self._reload_lock:
+            if self._prev is None:
+                return None
+            serving, self._prev = self._prev, None
+            span = self.tracer.start_trace(SPAN_RELOAD, attrs={
+                "from_step": int(self.step), "to_step": serving.step, "phase": "rollback"})
+            with self._lock:
+                self._serving = serving
+            self.tracer.end(span)
+            self.registry.counter(
+                "serving_reload_rollbacks",
+                help="param swaps reverted by a fleet-coordinated rollback").inc()
+            self.registry.gauge("serving_checkpoint_step",
+                                help="step of the params being served").set(serving.step)
+            return serving.step
+
+    def _watch_loop(self) -> None:
+        # consecutive fully-failed polls stretch the wait (doubling, capped
+        # at reload_backoff_max x poll); one answered poll resets it
+        while not self._stop.wait(
+                self._reload_poll_s * min(2 ** self._reload_failstreak, self._reload_backoff_max)):
+            self.check_reload()
 
     # -- the request path --------------------------------------------------
-    def submit(self, endpoint: str, imgs: np.ndarray):
+    def submit(self, endpoint: str, imgs: np.ndarray, *, ctx=None):
         """Enqueue a ``(k, c, H, W)`` batch; returns the Future of the
         endpoint's output.  Raises the batcher's ``Overloaded`` (shed) or
-        ``Closed`` (shutting down)."""
-        return self.batchers[endpoint].submit(
-            np.ascontiguousarray(imgs, dtype=np.float32), size=imgs.shape[0])
+        ``Closed`` (shutting down).  ``ctx`` (the request's root span)
+        threads the trace through the batcher and the executor."""
+        batcher = self.batchers[endpoint]
+        try:
+            future = batcher.submit(np.ascontiguousarray(imgs, dtype=np.float32),
+                                    size=imgs.shape[0], ctx=ctx)
+        except Overloaded:
+            self.registry.counter("serving_shed_total",
+                                  help="requests shed at queue capacity").inc()
+            self._observe_saturation(endpoint)
+            raise
+        self._observe_saturation(endpoint)
+        return future
 
     def process_once(self, endpoint: str, *, block: bool = False,
                      timeout: Optional[float] = None) -> int:
-        """Pull one flushed batch and run it; returns the images served."""
+        """Pull one flushed batch and run it; returns the images served.
+        The worker loops the blocking form; tests call the non-blocking
+        form.  A failed batch fails its own futures; the worker lives on."""
         batch = self.batchers[endpoint].next_batch(block=block, timeout=timeout)
         if not batch:
             return 0
-        imgs = np.concatenate([item.payload for item in batch])
+        # the batch span (made at take) feeds the duration histograms; each
+        # member request's root span mirrors the same physical operations
+        batch_span = batch[0].batch_span
+        n = sum(item.size for item in batch)
+        t_asm0 = self.tracer.clock()
+        arrays = [item.payload for item in batch]
+        imgs = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+        contexts = ([batch_span] if batch_span is not None else []) + [
+            it.ctx for it in batch if it.ctx is not None]
+        if contexts:
+            t_asm1 = self.tracer.clock()
+            for i, ctx in enumerate(contexts):
+                self.tracer.record(SPAN_BATCH_ASSEMBLY, ctx, t_asm0, t_asm1,
+                                   attrs={"items": len(batch), "images": n}, observe=i == 0)
+        # one read of the serving set: a swap during the batch leaves it on
+        # the set it started with
+        serving = self._serving
+        cache = serving.caches[endpoint]
+        error = None
+        t0 = self._clock()
         try:
-            out = self.run(endpoint, imgs)
-        except Exception as e:  # the batch's callers get the error; the worker lives on
+            out = cache(serving.params, imgs, tracer=self.tracer, contexts=contexts)
+        except Exception as e:  # the batch's callers get the error
+            error = e
             for item in batch:
                 item.future.set_exception(e)
-            return 0
-        offset = 0
-        for item in batch:
-            item.future.set_result(out[offset:offset + item.size])
-            offset += item.size
-        return offset
+        else:
+            batch_s = self._clock() - t0
+            offset = 0
+            for item in batch:
+                item.future.set_result(out[offset:offset + item.size])
+                offset += item.size
+            self._account_batch(endpoint, cache, n, batch_s)
+        if batch_span is not None:
+            self.tracer.end(batch_span, attrs={} if error is None else {"error": repr(error)})
+        return 0 if error is not None else n
 
     def _worker_loop(self, endpoint: str) -> None:
         batcher = self.batchers[endpoint]
@@ -228,42 +729,80 @@ class ServingEngine:
             if served == 0 and batcher.closed and batcher.depth == 0:
                 return
 
-    def start(self, *, workers: bool = True) -> None:
-        if self._started:
+    # -- accounting / overload detection -----------------------------------
+    def _account_batch(self, endpoint: str, cache: BucketedGraphCache, n: int,
+                       batch_s: float) -> None:
+        reg = self.registry
+        with self._lock:
+            self.request_count += n
+        reg.counter("serving_requests_total", help="images served across endpoints").inc(n)
+        reg.histogram(f"serving_batch_seconds_{endpoint}", help="device batch execution time",
+                      unit="seconds").observe(batch_s)
+        bucket = cache.pick(n) or n
+        reg.histogram("serving_batch_occupancy",
+                      help="real images / bucket size per executed batch").observe(n / bucket)
+        reg.histogram(reg.labeled("serving_batch_occupancy_b", bucket),
+                      help="real images / bucket size for one bucket").observe(n / bucket)
+        reg.gauge("serving_queue_depth", help="queued images").set(self.batchers[endpoint].depth)
+        new_captures = cache.poll_captures()
+        if new_captures:
+            reg.counter(
+                "serving_graph_captures",
+                help="request-path CUDA graph captures after warm-up (must stay 0)",
+            ).inc(new_captures)
+
+    def _observe_saturation(self, endpoint: str) -> None:
+        batcher = self.batchers[endpoint]
+        with self._lock:
+            shed_total = batcher.stats.shed
+            shed_delta = shed_total - self._shed_seen[endpoint]
+            self._shed_seen[endpoint] = shed_total
+            detail = self._saturation[endpoint].update(batcher.depth, batcher.max_queue,
+                                                       shed_delta)
+            if detail is not None:
+                self.registry.counter("serving_queue_saturation_events",
+                                      help="sustained-overload detections").inc()
+                # no forensics bundle yet (obs/forensics.py is not ported):
+                # the detection goes on the timeline
+                self.timeline.note("queue_saturation", endpoint=endpoint, **detail)
+        self.registry.gauge("serving_queue_depth", help="queued images").set(batcher.depth)
+
+    def observe_outcome(self, endpoint: str, latency_ms: Optional[float], error: bool,
+                        trace_id: Optional[str] = None) -> None:
+        """One request's terminal outcome, fed to the SLO burn-rate
+        evaluators (the server calls this for successes and errors: sheds
+        burn the error budget too).  No-op without SLOs.  Serialized under
+        its own lock, not the engine's, so alerting never stalls the
+        workers' accounting or a swap."""
+        if self._slo is None:
             return
-        self._started = True
-        if workers:
-            for ep in ENDPOINTS:
-                t = threading.Thread(target=self._worker_loop, args=(ep,),
-                                     name=f"glom-torch-serving-{ep}", daemon=True)
-                t.start()
-                self._threads.append(t)
+        with self._slo_lock:
+            self._slo.observe(endpoint, latency_ms, error, trace_id=trace_id,
+                              step=self.request_count)
 
-    def shutdown(self, *, drain: bool = True, timeout: float = 30.0) -> None:
-        """Close admission, let queued work flush (``drain=True``) or fail it,
-        and join the workers.  Idempotent."""
-        for batcher in self.batchers.values():
-            batcher.close(drain=drain)
-        deadline = time.monotonic() + timeout
-        for t in self._threads:
-            t.join(timeout=max(0.0, deadline - time.monotonic()))
-        self._threads = []
-
+    # -- health ------------------------------------------------------------
     def health(self) -> dict:
-        """The ``/healthz`` payload."""
+        """The ``/healthz`` payload: liveness, the model's input contract,
+        the reload state, the graphs and the kernels' launch counts."""
         c = self.config
+        serving, staged = self._serving, self._staged
         return {
             "status": "ok",
-            "step": int(self.step),
+            "step": int(serving.step),
+            "warm": all(cache.warmed for cache in serving.caches.values()),
+            "queue_depth": {ep: b.depth for ep, b in self.batchers.items()},
             "buckets": list(self.buckets),
             "ff_impl": c.ff_impl,
             "attention_impl": c.attention_impl,
+            "staged_step": None if staged is None else int(staged.step),
+            "graphs": {ep: {"graphed": cache.graphed, "warmup_seconds": cache.warmup_seconds,
+                            "launches_per_replay": cache.launches_per_replay()}
+                       for ep, cache in serving.caches.items()},
             "image_size": c.image_size,
             "patch_size": c.patch_size,
             "channels": c.channels,
             "levels": c.levels,
             "dim": c.dim,
             "device": str(self.device),
-            "queue_depth": {ep: b.depth for ep, b in self.batchers.items()},
             "kernel_launches": kernel_launches(),
         }

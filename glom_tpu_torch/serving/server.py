@@ -1,38 +1,75 @@
 """Stdlib HTTP front for the serving engine (``glom_tpu/serving/server.py``,
-its JSON contract).
+its single-replica routes and JSON contract).
 
 ``python -m glom_tpu_torch.serving.server --checkpoint-dir D [--demo]
 [--port P] [--device cuda]`` serves:
 
-  * ``POST /embed`` — ``{"images": [...]}`` (one ``(c, H, W)`` image or a
+  * ``POST /embed`` -- ``{"images": [...]}`` (one ``(c, H, W)`` image or a
     ``(k, c, H, W)`` batch as nested lists, optionally ``"level": l``) ->
-    ``{"step", "latency_ms", "embeddings"}``, ``(k, levels, dim)`` or
-    ``(k, dim)`` for one level;
-  * ``POST /reconstruct`` — the same request -> ``{"step", "latency_ms",
-    "images"}``, ``(k, c, H, W)``;
-  * ``GET /healthz`` — liveness, the model's input contract and the kernel
-    launch counts.
+    ``{"step", "latency_ms", "request_id", "embeddings"}``, ``(k, levels,
+    dim)`` or ``(k, dim)`` for one level;
+  * ``POST /reconstruct`` -- the same request -> ``{"step", "latency_ms",
+    "request_id", "images"}``, ``(k, c, H, W)``;
+  * ``GET /healthz`` -- liveness, the model's input contract, the graphs
+    and the kernel launch counts;
+  * ``GET /metrics`` -- the engine's registry in the Prometheus text format
+    (0.0.4), or OpenMetrics with trace-id exemplars and ``# EOF`` when the
+    ``Accept`` header asks for it (``--metrics-timestamps`` stamps its
+    samples);
+  * ``GET /debug/traces?since=N`` -- completed request traces after cursor
+    ``N``; ``GET /debug/timeline`` -- the engine's event timeline;
+  * ``POST /admin/reload/{prepare,commit,abort,finalize,rollback}`` -- the
+    staged two-phase reload (``prepare`` takes an optional ``{"step": N}``).
 
-A bad request is answered 400, a shed one 503 ``{"error": "overloaded"}``,
-and SIGTERM drains queued work before exit.
+Every request is traced end to end: an inbound ``X-Request-Id`` or W3C
+``traceparent`` joins the client's trace, a fresh id is minted otherwise,
+and the identity is echoed on every reply (``X-Request-Id`` and
+``traceparent`` headers, ``request_id`` in the body).  A bad request is
+answered 400, a shed one 503 ``{"error": "overloaded"}``, a request during
+drain 503 ``{"error": "shutting_down"}``; error replies count into
+``serving_errors_<class>xx``, and every outcome feeds the engine's SLOs
+(``--slo``).  SIGTERM drains queued work before exit.
+
+Flags of ``glom_tpu``'s CLI whose modules the port does not have yet are
+recognised and refused by name (:func:`refused_flags`).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import urlparse
 
 import numpy as np
 
+from glom_tpu_torch.obs.exporters import (
+    OPENMETRICS_CONTENT_TYPE,
+    PROM_TEXT_CONTENT_TYPE,
+    prometheus_lines,
+    wants_openmetrics,
+)
+from glom_tpu_torch.obs.tracing import (
+    SPAN_DISPATCH_WAIT,
+    SPAN_PARSE,
+    SPAN_REQUEST,
+    SPAN_RESPOND,
+    debug_traces_payload,
+    format_traceparent,
+    parse_traceparent,
+    request_trace_id,
+)
 from glom_tpu_torch.serving.batcher import Closed, Overloaded
-from glom_tpu_torch.serving.engine import ServingEngine
+from glom_tpu_torch.serving.engine import UNPORTED, ServingEngine
 
 _MAX_BODY = 256 * 1024 * 1024  # refuse absurd payloads before parsing them
 _RESULT_TIMEOUT_S = 120.0
+_HEX_ID = re.compile(r"[0-9a-f]{1,32}")
 
 
 class ServingHTTPServer(ThreadingHTTPServer):
@@ -40,10 +77,13 @@ class ServingHTTPServer(ThreadingHTTPServer):
     allow_reuse_address = True
     request_queue_size = 128
 
-    def __init__(self, addr, handler, engine: ServingEngine, *, quiet: bool = True):
+    def __init__(self, addr, handler, engine: ServingEngine, *, quiet: bool = True,
+                 metrics_timestamps: bool = False):
         super().__init__(addr, handler)
         self.engine = engine
         self.quiet = quiet
+        # stamp /metrics samples with unix seconds (OpenMetrics bodies only)
+        self.metrics_timestamps = metrics_timestamps
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -55,11 +95,25 @@ class _Handler(BaseHTTPRequestHandler):
         if not self.server.quiet:
             super().log_message(fmt, *args)
 
-    def _reply(self, code: int, payload: dict) -> None:
-        body = json.dumps(payload).encode()
+    def _reply(self, code: int, payload, content_type: str = "application/json") -> None:
+        if code >= 400:
+            self.server.engine.registry.counter(
+                f"serving_errors_{code // 100}xx",
+                help=f"requests answered with a {code // 100}xx status",
+            ).inc()
+        body = (json.dumps(payload) if isinstance(payload, (dict, list)) else payload).encode()
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        # every reply after trace minting echoes the request's identity
+        rid = getattr(self, "_request_id", None)
+        if rid is not None:
+            self.send_header("X-Request-Id", rid)
+            tid = self._trace_root.trace_id
+            # traceparent needs canonical lowercase hex; any X-Request-Id
+            # still echoes above
+            if _HEX_ID.fullmatch(tid):
+                self.send_header("traceparent", format_traceparent(tid, self._trace_root.span_id))
         self.end_headers()
         self.wfile.write(body)
 
@@ -96,91 +150,218 @@ class _Handler(BaseHTTPRequestHandler):
             return None
         return imgs
 
+    # -- routes ------------------------------------------------------------
     def do_GET(self):  # noqa: N802 (http.server contract)
-        if self.path == "/healthz":
-            self._reply(200, self.server.engine.health())
+        # keep-alive reuses the handler: a GET must not echo the previous
+        # request's identity
+        self._request_id = None
+        engine = self.server.engine
+        parsed = urlparse(self.path)
+        if parsed.path == "/healthz":
+            self._reply(200, engine.health())
+        elif parsed.path == "/metrics":
+            # exemplars and timestamps only under a negotiated OpenMetrics
+            # body, which must end with `# EOF`: a 0.0.4 parser rejects both
+            om = wants_openmetrics(self.headers.get("Accept"))
+            body = prometheus_lines(engine.registry, exemplars=om,
+                                    timestamps=om and self.server.metrics_timestamps)
+            if om:
+                body += "# EOF\n"
+            self._reply(200, body,
+                        content_type=OPENMETRICS_CONTENT_TYPE if om else PROM_TEXT_CONTENT_TYPE)
+        elif parsed.path == "/debug/traces":
+            status, payload = debug_traces_payload(engine.tracer, parsed.query,
+                                                   role="engine", step=int(engine.step))
+            self._reply(status, payload)
+        elif parsed.path == "/debug/timeline":
+            self._reply(200, {"role": "engine", "step": int(engine.step),
+                              "events": engine.timeline.events()})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
+    def _do_admin(self):
+        """The staged two-phase reload: control-plane calls, untraced."""
+        engine = self.server.engine
+        action = self.path[len("/admin/reload/"):]
+        if action == "prepare":
+            payload = (self._read_json() if int(self.headers.get("Content-Length") or 0) > 0
+                       else {})
+            if payload is None:
+                return
+            step = payload.get("step")
+            staged = engine.stage_reload(step=int(step) if step is not None else None)
+            self._reply(200, {"staged_step": staged, "serving_step": int(engine.step)})
+        elif action == "commit":
+            self._reply(200, {"step": engine.commit_staged()})
+        elif action == "abort":
+            self._reply(200, {"aborted": engine.abort_staged()})
+        elif action == "finalize":
+            self._reply(200, {"finalized": engine.finalize_reload()})
+        elif action == "rollback":
+            step = engine.rollback()
+            if step is None:
+                self._reply(409, {"error": "nothing to roll back to"})
+            else:
+                self._reply(200, {"step": step})
+        else:
+            self._reply(404, {"error": f"no admin action {action!r}"})
+
     def do_POST(self):  # noqa: N802
+        self._request_id = None  # reset before routing (keep-alive reuse)
+        if self.path.startswith("/admin/reload/"):
+            self._do_admin()
+            return
         if self.path not in ("/embed", "/reconstruct"):
             self._reply(404, {"error": f"no route {self.path}"})
             return
         endpoint = self.path[1:]
         engine = self.server.engine
+        tracer = engine.tracer
+
+        # join the client's trace or mint one: X-Request-Id wins, a W3C
+        # traceparent supplies trace and remote parent; the identity is
+        # echoed on every reply (_reply)
+        rid_header = request_trace_id(self.headers.get("X-Request-Id"))
+        remote = parse_traceparent(self.headers.get("traceparent"))
+        root = tracer.start_trace(SPAN_REQUEST,
+                                  trace_id=rid_header or (remote[0] if remote else None),
+                                  parent_id=remote[1] if remote else None,
+                                  attrs={"endpoint": endpoint})
+        self._trace_root = root
+        self._request_id = rid_header or root.trace_id
+
+        def _finish(status: int, latency_ms=None, at=None):
+            tracer.end(root, attrs={"status": status}, at=at)
+            engine.observe_outcome(endpoint, latency_ms, status >= 500, trace_id=root.trace_id)
+
+        # parse / dispatch_wait / respond share their edges, so they tile
+        # the request span
         payload = self._read_json()
-        if payload is None:
-            return
-        imgs = self._parse_images(payload)
+        imgs = self._parse_images(payload) if payload is not None else None
+        t_parsed = tracer.clock()
+        tracer.record(SPAN_PARSE, root, root.start, t_parsed)
         if imgs is None:
+            _finish(400)
             return
-        level = payload.get("level") if endpoint == "embed" else None
-        if level is not None:
-            try:
-                level = int(level)
-            except (TypeError, ValueError):
-                level = engine.config.levels
-            if not -engine.config.levels <= level < engine.config.levels:
-                self._reply(400, {"error": (
-                    f"level {payload.get('level')!r} outside this model's "
-                    f"{engine.config.levels} levels")})
-                return
         t0 = time.monotonic()
         try:
-            out = engine.submit(endpoint, imgs).result(timeout=_RESULT_TIMEOUT_S)
-        except Overloaded:
-            self._reply(503, {"error": "overloaded",
-                              "detail": "queue at capacity; retry with backoff"})
-            return
-        except Closed:
-            self._reply(503, {"error": "shutting_down",
-                              "detail": "server is draining; retry elsewhere"})
-            return
+            out = engine.submit(endpoint, imgs, ctx=root).result(timeout=_RESULT_TIMEOUT_S)
+        except Overloaded as e:
+            error, code, body = e, 503, {"error": "overloaded",
+                                         "detail": "queue at capacity; retry with backoff"}
+        except Closed as e:
+            error, code, body = e, 503, {"error": "shutting_down",
+                                         "detail": "server is draining; retry elsewhere"}
         except ValueError as e:  # e.g. a request larger than the largest bucket
-            self._reply(400, {"error": str(e)})
-            return
+            error, code, body = e, 400, {"error": str(e)}
         except Exception as e:  # the request's forward failed; the server lives on
-            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            error, code, body = e, 500, {"error": f"{type(e).__name__}: {e}"}
+        else:
+            error = None
+        t_done = tracer.clock()
+        tracer.record(SPAN_DISPATCH_WAIT, root, t_parsed, t_done)
+        if error is not None:
+            self._reply(code, body)
+            _finish(code)
             return
-        resp = {"step": int(engine.step),
-                "latency_ms": (time.monotonic() - t0) * 1e3}
+        latency = time.monotonic() - t0
+        engine.registry.histogram(
+            f"serving_latency_seconds_{endpoint}",
+            help="request latency, admission to response", unit="seconds",
+        ).observe(latency)
+        resp = {"step": int(engine.step), "latency_ms": round(latency * 1e3, 3),
+                "request_id": self._request_id}
         if endpoint == "embed":
-            resp["embeddings"] = (out if level is None else out[:, level]).tolist()
+            level = payload.get("level")
+            if level is not None:
+                try:
+                    out = out[:, int(level)]
+                except (IndexError, TypeError, ValueError):
+                    self._reply(400, {"error": (
+                        f"level {level!r} outside this model's {engine.config.levels} levels")})
+                    t_end = tracer.clock()
+                    tracer.record(SPAN_RESPOND, root, t_done, t_end)
+                    _finish(400, at=t_end)
+                    return
+            resp["embeddings"] = out.tolist()
         else:
             resp["images"] = out.tolist()
         self._reply(200, resp)
+        t_end = tracer.clock()
+        tracer.record(SPAN_RESPOND, root, t_done, t_end)
+        _finish(200, latency_ms=latency * 1e3, at=t_end)
 
 
 def make_server(engine: ServingEngine, host: str = "127.0.0.1", port: int = 0,
-                *, quiet: bool = True) -> ServingHTTPServer:
+                *, quiet: bool = True, metrics_timestamps: bool = False) -> ServingHTTPServer:
     """Bind (port 0 picks a free port: read ``server.server_address``); the
     caller runs ``serve_forever`` on a thread of its own."""
-    return ServingHTTPServer((host, port), _Handler, engine, quiet=quiet)
+    return ServingHTTPServer((host, port), _Handler, engine, quiet=quiet,
+                             metrics_timestamps=metrics_timestamps)
 
 
-def main(argv=None) -> int:
-    import argparse
+# flags of glom_tpu's serving CLI the port does not take yet: flag -> (nargs,
+# the engine argument it sets, whose entry in UNPORTED says what it waits for)
+_REFUSED = {
+    "--quant": (1, "quant"),
+    "--mesh-shape": (1, "mesh_shape"),
+    "--param-sharding": (1, "param_sharding"),
+    "--no-donate": (0, "donate_inputs"),
+    "--warm-iters": (1, "warm_iters"),
+    "--session-ttl-s": (1, "session_ttl_s"),
+    "--session-max-mb": (1, "session_max_bytes"),
+    "--session-spill-dir": (1, "session_spill_dir"),
+    "--tenant-quota": (1, "tenant_quotas"),
+    "--model": (1, "extra_models"),
+    "--deploy-pin-url": (1, "deploy_pin_url"),
+    "--deploy-promote-after": (1, "deploy_promote_after"),
+    "--deploy-window-s": (1, "deploy_window_s"),
+    "--deploy-min-events": (1, "deploy_min_events"),
+    "--deploy-canary-fraction": (1, "deploy_canary_fraction"),
+    "--capacity-policy": (1, "capacity_policy"),
+    "--capacity-ceiling": (1, "capacity_ceiling"),
+    "--capacity-window-s": (1, "capacity_window_s"),
+    "--capacity-persist-windows": (1, "capacity_persist_windows"),
+    "--bulk-dir": (1, "bulk_dir"),
+    "--index-dir": (1, "index_dir"),
+    "--parse-thresholds": (1, "parse_thresholds"),
+    "--quality-sample": (1, "quality_sample"),
+    "--forensics-dir": (1, "forensics_dir"),
+    "--warmup-dir": (1, "warmup_dir"),
+}
+# the two with no engine argument behind them: flag -> (nargs, why)
+_REFUSED_CLI = {
+    "--buckets-file": (1, "tools/trace_report.py --suggest-buckets, which writes its ladder "
+                          "(ROADMAP queue 1, item 4); --buckets takes the ladder"),
+    "--platform": (1, "the port picks its device with --device"),
+}
 
-    from glom_tpu_torch import checkpoint as ckpt_lib
-    from glom_tpu_torch.serving.engine import make_demo_checkpoint
 
+def refused_flags() -> dict:
+    """Every refused flag -> (nargs, why)."""
+    return {**{flag: (nargs, UNPORTED[name][1]) for flag, (nargs, name) in _REFUSED.items()},
+            **_REFUSED_CLI}
+
+
+def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="GLOM online serving on PyTorch/CUDA: dynamic batching "
-                    "into bucketed forwards through the hand-written kernels")
+        description="GLOM online serving on PyTorch/CUDA: dynamic batching into "
+                    "bucketed CUDA graphs of the hand-written kernels, with "
+                    "checkpoint hot reload")
     p.add_argument("--checkpoint-dir", required=True,
                    help="Trainer checkpoint dir (reads its config.json)")
     p.add_argument("--demo", action="store_true",
-                   help="write a small demo checkpoint into --checkpoint-dir "
-                        "if it has none")
+                   help="write a small demo checkpoint into --checkpoint-dir if it has none")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the plain PyTorch versions "
-                        "of the kernels")
+                   help="torch device; 'cpu' runs the plain PyTorch versions of the kernels")
     p.add_argument("--buckets", default="1,2,4,8",
                    help="comma-separated batch buckets, padded up to")
-    p.add_argument("--max-wait-ms", type=float, default=5.0)
-    p.add_argument("--max-queue", type=int, default=64)
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="micro-batch deadline: flush a partial batch after this")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="queued-image bound; beyond it requests shed (503)")
     p.add_argument("--iters", type=int, default=None,
                    help="GLOM iterations (default: the model's)")
     p.add_argument("--ff-impl", default=None, choices=["dense", "pallas", "fused"],
@@ -188,21 +369,49 @@ def main(argv=None) -> int:
                         "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
                         "fused level update (consensus + both FFs in one call of K8's kernels, "
                         "falling back to pallas when the model's shape rules it out)")
+    p.add_argument("--reload-poll-s", type=float, default=2.0,
+                   help="checkpoint hot-reload poll period; 0 disables")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the start-up graph captures (the first request of each "
+                        "bucket then captures it, counted in serving_graph_captures)")
+    p.add_argument("--trace-log", default=None,
+                   help="JSONL file receiving one record per completed request trace")
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="declarative SLO target, repeatable: 'embed:p95<250ms' (latency) "
+                        "or 'errors<1%%' (error rate)")
+    p.add_argument("--metrics-timestamps", action="store_true",
+                   help="stamp /metrics samples with unix seconds on OpenMetrics scrapes")
     p.add_argument("--verbose", action="store_true", help="per-request access log")
+    refused = p.add_argument_group("refused: not in the port yet")
+    refused_table = refused_flags()
+    for flag, (nargs, _) in refused_table.items():
+        kw = {"action": "store_true"} if nargs == 0 else {}
+        refused.add_argument(flag, default=argparse.SUPPRESS, help=argparse.SUPPRESS, **kw)
     args = p.parse_args(argv)
+    for flag, (_, why) in refused_table.items():
+        if hasattr(args, flag[2:].replace("-", "_")):
+            p.error(f"{flag} is not in the port's server yet ({why})")
+    return args
 
+
+def main(argv=None) -> int:
+    from glom_tpu_torch import checkpoint as ckpt_lib
+    from glom_tpu_torch.serving.engine import make_demo_checkpoint
+
+    args = parse_args(argv)
     if args.demo and ckpt_lib.latest_step(args.checkpoint_dir) is None:
         make_demo_checkpoint(args.checkpoint_dir)
         print(json.dumps({"event": "demo_checkpoint", "dir": args.checkpoint_dir}))
 
     engine = ServingEngine(
-        args.checkpoint_dir,
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        args.checkpoint_dir, buckets=tuple(int(b) for b in args.buckets.split(",")),
         iters=args.iters, max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-        device=args.device, ff_impl=args.ff_impl,
+        device=args.device, ff_impl=args.ff_impl, reload_poll_s=args.reload_poll_s,
+        warmup=not args.no_warmup, trace_log=args.trace_log, slos=args.slo,
     )
     engine.start()
-    server = make_server(engine, args.host, args.port, quiet=not args.verbose)
+    server = make_server(engine, args.host, args.port, quiet=not args.verbose,
+                         metrics_timestamps=args.metrics_timestamps)
     stop_once = threading.Event()
 
     def _graceful(signum, frame):

@@ -52,7 +52,11 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.training.metrics", "glom_tpu_torch.obs.monitors",
             "glom_tpu_torch.resilience.integrity", "glom_tpu_torch.profiling",
             "glom_tpu_torch.obs.timing", "glom_tpu_torch.tools.bench",
-            "glom_tpu_torch.tools.mfu", "glom_tpu_torch.tools.breakdown"} <= set(mods)
+            "glom_tpu_torch.tools.mfu", "glom_tpu_torch.tools.breakdown",
+            "glom_tpu_torch.obs.registry", "glom_tpu_torch.obs.exporters",
+            "glom_tpu_torch.obs.tracing", "glom_tpu_torch.obs.triggers",
+            "glom_tpu_torch.obs.events", "glom_tpu_torch.obs.slo",
+            "glom_tpu_torch.serving.compile_cache", "glom_tpu_torch.tools.loadgen"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -81,8 +85,26 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
                 continue
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                           for n in names if _is_reference(n)]
-    assert len(_port_sources()) > 28
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert len(sources) > 38 and {
+        "glom_tpu_torch/tools/loadgen.py", "glom_tpu_torch/serving/compile_cache.py",
+        "glom_tpu_torch/obs/slo.py", "glom_tpu_torch/obs/tracing.py"} <= sources
     assert not offenders, offenders
+
+
+def test_the_slo_module_keeps_its_own_copy_of_the_quality_metrics():
+    """``obs/slo.py`` holds ``QUALITY_SLO_METRICS`` as a literal of its own
+    (``glom_tpu``'s comes from its JAX-side ``obs/quality.py``) and imports
+    no quality module."""
+    path = os.path.join(PKG, "obs", "slo.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    copies = [node.value for node in tree.body if isinstance(node, ast.Assign)
+              and [getattr(t, "id", None) for t in node.targets] == ["QUALITY_SLO_METRICS"]]
+    assert len(copies) == 1 and isinstance(copies[0], ast.Tuple)
+    assert all(isinstance(e, ast.Constant) and isinstance(e.value, str) for e in copies[0].elts)
+    imported = [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in imported if m and "quality" in m]
 
 
 @pytest.fixture

@@ -26,6 +26,7 @@ from glom_tpu.models import glom as jax_glom
 from glom_tpu.models import heads as jax_heads
 from glom_tpu.serving.engine import ServingEngine as JaxServingEngine
 from glom_tpu.serving.engine import make_demo_checkpoint as jax_make_demo_checkpoint
+from glom_tpu.serving.server import make_server as jax_make_server
 from glom_tpu.training import denoise as jax_denoise
 from glom_tpu_torch import checkpoint as ckpt_lib
 from glom_tpu_torch.config import GlomConfig, TrainConfig
@@ -61,12 +62,12 @@ def _request(url, payload=None, raw=None):
 
 
 class _Served:
-    """An engine behind the port's HTTP server on a free port."""
+    """An engine behind the port's HTTP server (or ``make``'s) on a free port."""
 
-    def __init__(self, engine, *, workers=True):
+    def __init__(self, engine, *, workers=True, make=make_server):
         self.engine = engine
         engine.start(workers=workers)
-        self.server = make_server(engine, port=0)
+        self.server = make(engine, port=0)
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        kwargs={"poll_interval": 0.05}, daemon=True)
         self.thread.start()
@@ -393,3 +394,114 @@ def test_batcher_close_without_drain_fails_the_queued():
     with pytest.raises(Closed):
         fut.result(timeout=1)
     assert b.depth == 0 and b.closed
+
+
+# ---------------------------------------------------------------------------
+# hot reload and the staged reload, against glom_tpu's engine
+# ---------------------------------------------------------------------------
+
+def _reload_pair(tmp_path):
+    """The port's and glom_tpu's engines, each on its own copy of one
+    port-written checkpoint, polled by hand (no watcher, no warm-up)."""
+    dirs = []
+    for side in ("ours", "theirs"):
+        d = str(tmp_path / side)
+        make_demo_checkpoint(d, config=GlomConfig(**TINY), seed=7)
+        dirs.append(d)
+    ours = ServingEngine(dirs[0], device="cpu", buckets=(1, 4), max_wait_ms=0.0, warmup=False,
+                         reload_poll_s=0)
+    theirs = JaxServingEngine(dirs[1], buckets=(1, 4), max_wait_ms=0.0, warmup=False,
+                              reload_poll_s=0, quality_sample=0.0)
+    return dirs, ours, theirs
+
+
+def _jax_embed(engine, imgs):
+    fut = engine.submit("embed", imgs)
+    engine.process_once("embed")
+    return np.asarray(fut.result(timeout=60), np.float32)
+
+
+def test_hot_reload_swaps_on_a_newer_step_as_glom_tpu(tmp_path):
+    dirs, ours, theirs = _reload_pair(tmp_path)
+    imgs = _imgs(2, seed=8)
+    before = ours.run("embed", imgs)
+    for d in dirs:
+        make_demo_checkpoint(d, config=GlomConfig(**TINY), seed=9, step=5)
+    assert ours.check_reload() is True and theirs.check_reload() is True
+    assert ours.step == theirs.step == 5
+    after = ours.run("embed", imgs)
+    assert not np.array_equal(before, after)
+    np.testing.assert_allclose(after, _jax_embed(theirs, imgs), atol=FWD_ATOL)
+    for engine in (ours, theirs):
+        snap = engine.registry.snapshot()
+        assert snap["serving_param_reloads"] == 1.0 and snap["serving_checkpoint_step"] == 5.0
+        assert snap["serving_reload_swap_ms_count"] == 1.0
+        assert engine.check_reload() is False      # nothing newer
+
+
+@pytest.mark.parametrize("damage", ["torn_manifest", "missing_artifact"])
+def test_hot_reload_keeps_serving_through_a_bad_manifest_as_glom_tpu(tmp_path, damage):
+    dirs, ours, theirs = _reload_pair(tmp_path)
+    for d in dirs:
+        path = os.path.join(d, "manifest.json")
+        if damage == "torn_manifest":
+            with open(path, "wb") as f:
+                f.write(b"not json at all")
+        else:
+            with open(path, "w") as f:
+                json.dump({"latest_step": 9, "path": "ckpt_9.npz"}, f)
+    assert ours.check_reload() is False and theirs.check_reload() is False
+    assert ours.step == theirs.step == 0
+    assert ours.run("embed", _imgs(1)).shape == (1, 3, 32)
+
+
+STAGED = [  # (action, body or None, what happens first)
+    ("prepare", {}, None),                        # nothing newer
+    ("prepare", {}, "land_3"),                    # stage step 3
+    ("commit", None, None),
+    ("rollback", None, None),                     # back to 0
+    ("rollback", None, None),                     # 409: nothing to roll back to
+    ("prepare", {"step": 3}, None),
+    ("abort", None, None),
+    ("commit", None, None),                       # nothing staged: stays at 0
+    ("prepare", {"step": 3}, None),
+    ("commit", None, None),
+    ("finalize", None, None),
+    ("rollback", None, None),                     # 409 after finalize
+    ("prepare", {"step": 3}, None),               # already serving 3
+    ("bogus", None, None),                        # 404
+]
+
+
+def test_staged_reload_over_http_swaps_at_the_same_steps_as_glom_tpu(tmp_path):
+    dirs, ours, theirs = _reload_pair(tmp_path)
+    served = [_Served(ours, workers=False), _Served(theirs, workers=False, make=jax_make_server)]
+    imgs = _imgs(2, seed=12)
+    try:
+        for action, body, before in STAGED:
+            if before == "land_3":
+                for d in dirs:
+                    make_demo_checkpoint(d, config=GlomConfig(**TINY), seed=13, step=3)
+            replies = []
+            for s in served:
+                req = urllib.request.Request(
+                    f"{s.url}/admin/reload/{action}",
+                    data=None if body is None else json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"}, method="POST")
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        replies.append((resp.status, json.loads(resp.read())))
+                except urllib.error.HTTPError as e:
+                    replies.append((e.code, json.loads(e.read())))
+                health = _request(s.url + "/healthz")[1]
+                replies[-1] += (health["step"], health["staged_step"])
+            assert replies[0] == replies[1], (action, body, replies)
+            assert ours.step == theirs.step
+            np.testing.assert_allclose(ours.run("embed", imgs), _jax_embed(theirs, imgs),
+                                       atol=FWD_ATOL)
+        assert ours.step == 3
+        for key in ("serving_param_reloads", "serving_reload_rollbacks"):
+            assert ours.registry.snapshot()[key] == theirs.registry.snapshot()[key]
+    finally:
+        for s in served:
+            s.close()
