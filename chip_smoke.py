@@ -103,6 +103,32 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            beside the "pallas" step's; then 2
            steps each with remat=True and with fuse_ff=True, held the same
            way;
+  train_data  training on data at flagship width, b=8, f32: a seeded uint8
+           NHWC dataset of 1024 images at 256x256 as one .npy in build/
+           (memory-mapped by the folder stream); the native batcher (it must
+           build) held bitwise against the NumPy path over 4 batches; one
+           two-view step (InfoNCE, weight 0.1) on "pallas" with the kernel
+           backward, on "fused", and with MSE, each against the plain path
+           (loss 1e-5, every gradient leaf 1e-4, relative); the two-view
+           step's launches (the one-view step's, over 2b rows) and peak
+           memory beside the one-view step's; Trainer.fit for 12 steps on
+           the folder stream with flip, two views and an EvalSuite every 4
+           steps (64 PSNR and 256 probe images of 8 seeded classes; the main
+           path: counts set to 0 just before, read just after, each kernel's
+           exact count asserted), checkpointed at step 6; a second trainer
+           restored from step 6 and fed the run's batches 7-12 must give
+           its losses and parameters bitwise; the eval's forwards at its
+           chunk of 32 (a probe chunk's embeddings to 12 iterations, a PSNR
+           chunk's state and PSNR to the loss timestep under fixed noise)
+           against the plain path (1e-4 relative); the probes' float32
+           standardize against float64 (64 roundoffs of the mean's
+           cancellation), accuracies equal to a float64 probe's, and the
+           single-level weights and test logits within 1e-3 of a float64
+           solve; the step time, t_data_wait's share of the
+           window, the eval seconds, the peak memory; then python -m
+           glom_tpu_torch.training.train on the same data (--consistency
+           mse --eval-every 5, 10 steps) must exit 0 with finite losses and
+           psnr_db records;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -1600,6 +1626,378 @@ def serve_trained(ckpt, device, trainer) -> None:
           "server_latency_ms": reply["server_latency_ms"]})
 
 
+# The train_data phase: a seeded uint8 NHWC dataset of DATA_IMAGES images
+# (one .npy, memory-mapped by the folder stream), two views a step, a held-out
+# suite of EVAL_PSNR_IMAGES PSNR images and EVAL_PROBE_IMAGES probe images of
+# EVAL_CLASSES classes, DATA_STEPS steps evaluated every DATA_EVAL_EVERY and
+# checkpointed at DATA_CKPT_AT, and the CLI's run
+DATA_IMAGES, DATA_SIDE = 1024, 256
+EVAL_PSNR_IMAGES, EVAL_PROBE_IMAGES, EVAL_CLASSES = 64, 256, 8
+DATA_STEPS, DATA_EVAL_EVERY, DATA_CKPT_AT = 12, 4, 6
+NATIVE_BATCHES = 4
+# one two-view loss against the plain path's, float32, relative
+LOSS_RTOL = 1e-5
+# the probe's float32 standardize against float64, elementwise in units of
+# float32's roundoff u: |x32 - x64| <= PROBE_STD_ULPS u (max|f| / std) (1 + |x64|),
+# the cancellation of a feature's mean from values max|f| over its spread
+PROBE_STD_ULPS = 64
+# the single-level probe's float32 ridge weights and test logits against a
+# float64 solve of the same standardized features, relative (Frobenius); the
+# weights read 4.1e-5 on the H100.  The all-levels probe (L*d features over
+# fewer train rows: rank-deficient) is printed, not held
+PROBE_RTOL = 1e-3
+CLI_STEPS, CLI_EVAL_EVERY = 10, 5
+CLI_TIMEOUT_S = 600
+
+
+def data_dataset(seed: int = 0) -> str:
+    """The seeded dataset, written as one .npy into build/ (ignored by git)."""
+    directory = os.path.join(ROOT, "build", "chip_smoke_data")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    np.save(os.path.join(directory, "images.npy"),
+            rng.integers(0, 256, (DATA_IMAGES, DATA_SIDE, DATA_SIDE, 3), dtype=np.uint8))
+    return directory
+
+
+def class_images(n: int, seed: int, c: GlomConfig):
+    """``n`` images of EVAL_CLASSES classes, each a fixed random pattern plus
+    noise, and their labels (numpy, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    shape = (c.channels, c.image_size, c.image_size)
+    patterns = rng.uniform(-1.0, 1.0, (EVAL_CLASSES,) + shape).astype(np.float32)
+    labels = np.arange(n) % EVAL_CLASSES
+    return (patterns[labels] + 0.25 * rng.standard_normal((n,) + shape, dtype=np.float32),
+            labels)
+
+
+class Recorded:
+    """A batch iterator that keeps a copy of every batch it hands out."""
+
+    def __init__(self, it):
+        self.it, self.batches = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.it)
+        self.batches.append(np.array(batch))
+        return batch
+
+
+def full_losses(trainer) -> list:
+    """The trainer's step losses at full precision (the log rounds them)."""
+    losses, step = [], trainer._step
+
+    def recorded(state, x, **kw):
+        state, metrics = step(state, x, **kw)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    trainer._step = recorded
+    return losses
+
+
+def two_view_vs_plain(config, train_cfg, params, img, noise, want_launches) -> dict:
+    """One two-view loss and its gradients through ``config``'s kernels
+    against the plain path's: the loss within LOSS_RTOL, each leaf within
+    GRAD_RTOL, and the kernels' launches (the plain path makes none)
+    ``want_launches``."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    grad = grads_vs_plain(config, train_cfg, params, img, noise)
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    if launches != want_launches:
+        raise AssertionError(f"two-view loss and gradients launched {launches}, expected "
+                             f"{want_launches}")
+    rel = abs(grad["loss_kernels"] - grad["loss_plain"]) / abs(grad["loss_plain"])
+    if not rel <= LOSS_RTOL:
+        raise AssertionError(f"two-view loss {grad['loss_kernels']} vs plain "
+                             f"{grad['loss_plain']}: relative {rel}")
+    return {**grad, "loss_rel_err": rel, "loss_rtol": LOSS_RTOL, "launches": launches}
+
+
+def rel_err(got, want) -> float:
+    """``||got - want|| / ||want||`` (Frobenius), in float64."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def probe_vs_f64(suite, params) -> dict:
+    """The suite's probes as it runs them (float32) against float64, apart
+    from the eval module: the standardize against one in float64 (within
+    PROBE_STD_ULPS roundoffs), the accuracies equal to those of a float64
+    standardize and solve, and for the single-level probe the weights and
+    test logits within PROBE_RTOL of a float64 solve of the same
+    standardized features."""
+    from glom_tpu_torch.training import eval as eval_lib
+
+    feats, n = suite._chunked_embed(params["glom"], suite.probe_images)
+    labels = torch.from_numpy(suite.probe_labels[:n]).to(feats.device)
+    k = min(suite._probe_split, n - 1)
+    onehot = F.one_hot(labels[:k], suite.num_classes).double()
+    u = 2.0 ** -24
+    out = {}
+    for name, f in (("level", feats[:, suite._level]), ("all_levels", feats.reshape(n, -1))):
+        acc32 = eval_lib.linear_probe(f[:k], labels[:k], f[k:], labels[k:],
+                                      num_classes=suite.num_classes)
+        x, xt = eval_lib.standardize(f[:k], f[k:])
+        f64 = f.double()
+        mean, std = f64[:k].mean(0), torch.std(f64[:k], dim=0, correction=0) + 1e-6
+        x64, xt64 = (f64[:k] - mean) / std, (f64[k:] - mean) / std
+        scale = f64.abs().amax(0) / std
+        std_ulps = max(float(((a.double() - b).abs() / (u * scale * (1 + b.abs()))).max())
+                       for a, b in ((x, x64), (xt, xt64)))
+        w32 = eval_lib.ridge_weights(x, onehot.float(), 1e-3)
+        w_same = eval_lib.ridge_weights(x.double(), onehot, 1e-3)
+        w64 = eval_lib.ridge_weights(x64, onehot, 1e-3)
+        acc64 = tuple(float(torch.mean((torch.argmax(a @ w64, -1) == y).double()))
+                      for a, y in ((x64, labels[:k]), (xt64, labels[k:])))
+        res = {"features": int(f.shape[1]), "train_rows": k, "acc_f32": list(acc32),
+               "acc_f64": list(acc64), "standardize_err_ulps": std_ulps,
+               "weights_rel_err": rel_err(w32, w_same),
+               "test_logits_rel_err": rel_err(xt @ w32, xt.double() @ w_same),
+               "weights_rel_err_vs_f64_standardize": rel_err(w32, w64),
+               "held": name == "level"}
+        out[name] = res
+        if list(acc32) != list(acc64):
+            raise AssertionError(f"{name} probe: float32 accuracies {acc32} vs float64 {acc64}")
+        if not std_ulps <= PROBE_STD_ULPS:
+            raise AssertionError(f"{name} probe: the standardize against float64 {res}")
+        if res["held"] and not max(res["weights_rel_err"],
+                                   res["test_logits_rel_err"]) <= PROBE_RTOL:
+            raise AssertionError(f"{name} probe: the float32 solve against float64 {res}")
+    return {**out, "std_ulps_limit": PROBE_STD_ULPS, "rtol": PROBE_RTOL}
+
+
+def eval_vs_plain(config, suite, params, noise_std: float, timestep: int, seed: int = 4) -> dict:
+    """The held-out suite's forwards at its chunk (no_grad), through
+    ``config``'s kernels against the plain path on the same params: the
+    probe's pooled embeddings of one chunk (to the suite's iterations), and
+    on a chunk of the PSNR images under one fixed noise tensor the state
+    the decoder reads (to ``timestep``) and the PSNR.  Each within GRAD_RTOL
+    relative to its norm, and the kernel forwards launch K1 twice and K4
+    once an iteration."""
+    from glom_tpu_torch.training import eval as eval_lib
+
+    plain_cfg = GlomConfig(**{**config.to_json_dict(), "ff_impl": "dense",
+                              "attention_impl": "dense"})
+    dev = params["glom"]["pos_emb"].device
+    chunk = suite.chunk
+    probe = torch.from_numpy(suite.probe_images[:chunk]).to(dev)
+    imgs = torch.from_numpy(suite.psnr_images[:chunk]).to(dev)
+    noise = torch.randn(imgs.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    iters = suite.iters or config.default_iters
+
+    def forwards(cfg):
+        emb = eval_lib.embed_levels(params["glom"], probe, config=cfg, iters=suite.iters)
+        with torch.no_grad():
+            state = glom_model.apply(params["glom"], imgs + noise * noise_std, config=cfg,
+                                     iters=timestep)
+        psnr = eval_lib.make_psnr_fn(cfg, noise_std=noise_std, iters=suite.iters,
+                                     timestep=timestep)(params, imgs, noise=noise)
+        return emb, state, psnr
+
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    got = forwards(config)
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    want_launches = {k: 0 for k in launches}
+    want_launches["grouped_ff"] = 2 * (iters + 2 * timestep)
+    want_launches["consensus_attention"] = iters + 2 * timestep
+    if launches != want_launches:
+        raise AssertionError(f"the eval forwards launched {launches}, expected {want_launches}")
+    want = forwards(plain_cfg)
+    errs = {name: rel_err(g, w) for name, g, w in zip(("probe_embeddings", "psnr_state", "psnr"),
+                                                       got, want)}
+    if not max(errs.values()) <= GRAD_RTOL:
+        raise AssertionError(f"the eval forwards against the plain path: {errs}")
+    return {"chunk": chunk, "probe_iters": iters, "psnr_timestep": timestep,
+            "rel_err": errs, "rtol": GRAD_RTOL, "psnr_kernels": float(got[2]),
+            "psnr_plain": float(want[2]), "launches": launches}
+
+
+def phase_train_data(device) -> dict:
+    """Training on data at flagship width, b=8: the native batcher against
+    the NumPy path, the two-view objective through the kernels against the
+    plain path, Trainer.fit on the folder stream with two views and the
+    held-out suite (the main path: counts set to 0 just before, read just
+    after), a stop at step 6 and a resume that retakes steps 7-12 bitwise,
+    and the CLI's run on the same data."""
+    from glom_tpu_torch import native
+    from glom_tpu_torch.training.data import folder_batches, make_batches
+    from glom_tpu_torch.training.eval import EvalSuite
+
+    t0 = time.monotonic()
+    root = data_dataset()
+    c = GlomConfig(**{**FLAGSHIP.to_json_dict(), "ff_impl": "pallas", "ff_fused_bwd": True,
+                      "attention_impl": "pallas"})
+    # 1. the native batcher, which must build here (nvcc needs a host
+    # compiler); built afresh, so that this machine's g++ and libjpeg decide
+    # what it reports, not a library copied with the checkout
+    shutil.rmtree(os.path.join(ROOT, "glom_tpu_torch", "native", "build"), ignore_errors=True)
+    if native.load() is None:
+        raise AssertionError("the native batcher did not build (g++) on the card's machine")
+    fast = folder_batches(root, BATCH, c.image_size, seed=3)
+    slow = folder_batches(root, BATCH, c.image_size, seed=3, use_native=False)
+    for i in range(NATIVE_BATCHES):
+        if not np.array_equal(next(fast), next(slow)):
+            raise AssertionError(f"native batch {i} differs from the NumPy path's")
+    emit({"phase": "train_data_native", "loaded": True, "has_jpeg": native.has_jpeg(),
+          "dataset": [DATA_IMAGES, DATA_SIDE, DATA_SIDE, 3], "batches_bitwise": NATIVE_BATCHES,
+          "setup_s": time.monotonic() - t0})
+
+    # 2. two views through the kernels against the plain path
+    tc = TrainConfig(batch_size=BATCH, consistency="infonce", consistency_weight=0.1, seed=0)
+    trainer = Trainer(c, tc, device=device)
+    params = trainer.state.params
+    img = torch.from_numpy(next(fast)).to(device)
+    gen = torch.Generator().manual_seed(2)
+    noise = torch.randn((2,) + tuple(img.shape), generator=gen).to(device)
+    fused = GlomConfig(**{**c.to_json_dict(), "ff_impl": "fused", "attention_impl": "dense"})
+    mse = TrainConfig(batch_size=BATCH, consistency="mse", consistency_weight=0.1, seed=0)
+    t = denoise.resolve_loss_timestep(tc, c.default_iters)
+    per_step = {"fused_level_update": 0, "grouped_ff": 2 * t, "grouped_ff_dx": 2 * t,
+                "grouped_ff_dw": 2 * t, "consensus_attention": t, "consensus_dkv": t,
+                "consensus_dq": t}
+    # "fused": K8 forward; its gradient runs the unfused kernels
+    fused_step = {**per_step, "fused_level_update": t}
+    vs_plain = {"pallas_infonce": two_view_vs_plain(c, tc, params, img, noise, per_step),
+                "fused_infonce": two_view_vs_plain(fused, tc, params, img, noise, fused_step),
+                "pallas_mse": two_view_vs_plain(c, mse, params, img, noise, per_step)}
+    step = denoise.make_step_fn(c, tc, trainer.optimizer)
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    step(trainer.state, img, noise=noise)
+    torch.cuda.synchronize()
+    one_step = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    if one_step != per_step:
+        raise AssertionError(f"two-view step launches {one_step}, expected {per_step}")
+    memory = step_memory(step, trainer.state, img, noise)
+    one_view = step_memory(denoise.make_step_fn(c, TrainConfig(batch_size=BATCH),
+                                                trainer.optimizer),
+                           trainer.state, img, noise[0])
+    del trainer, params, step
+    emit({"phase": "train_data_two_views", "batch": BATCH, "rows_a_forward": 2 * BATCH,
+          "vs_plain": vs_plain, "launches_one_step": one_step,
+          "launches_note": "one two-view step: the one-view step's launches, each over 2b rows",
+          "step_memory": {"two_views": memory, "one_view": one_view}})
+
+    # 3. Trainer.fit on the folder stream: two views, eval every 4 steps
+    psnr_imgs, _ = class_images(EVAL_PSNR_IMAGES, 11, c)
+    probe_imgs, probe_labels = class_images(EVAL_PROBE_IMAGES, 12, c)
+    suite = EvalSuite(c, psnr_imgs, probe_images=probe_imgs, probe_labels=probe_labels,
+                      num_classes=EVAL_CLASSES, noise_std=tc.noise_std)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_train_data_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def fit_cfg(**kw):
+        return TrainConfig(batch_size=BATCH, steps=DATA_STEPS, log_every=1,
+                           eval_every=DATA_EVAL_EVERY, consistency="infonce",
+                           consistency_weight=0.1, seed=0, **kw)
+
+    import io
+
+    log = io.StringIO()
+    whole = Trainer(c, fit_cfg(checkpoint_dir=ckpt, checkpoint_every=DATA_CKPT_AT),
+                    device=device, logger=MetricLogger(stream=log))
+    whole.set_eval_suite(suite)
+    losses = full_losses(whole)
+    stream = Recorded(make_batches("folder", BATCH, c.image_size, c.channels, 5, root,
+                                   augment="flip"))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    try:
+        whole.fit(stream)
+    finally:
+        stream.it.close()
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    fit_peak = torch.cuda.max_memory_allocated()
+    # launches: the steps', plus each eval's forwards (K1 twice and K4 once an
+    # iteration): the PSNR chunks to the loss timestep, the probe's to 12
+    chunk = suite.chunk
+    evals = DATA_STEPS // DATA_EVAL_EVERY
+    eval_iters = evals * (EVAL_PSNR_IMAGES // chunk * t + EVAL_PROBE_IMAGES // chunk
+                          * c.default_iters)
+    want = {k: DATA_STEPS * v for k, v in per_step.items()}
+    want["grouped_ff"] += 2 * eval_iters
+    want["consensus_attention"] += eval_iters
+    if launches != want:
+        raise AssertionError(f"train_data fit launches {launches}, expected {want}")
+    records = [json.loads(line) for line in log.getvalue().splitlines()]
+    steps_log = [r for r in records if "loss" in r]
+    eval_log = [r for r in records if "eval_psnr_db" in r]
+    loss_values = [float(v) for v in losses]
+    if (len(loss_values) != DATA_STEPS or not all(np.isfinite(loss_values))
+            or len(eval_log) != evals
+            or not all(np.isfinite(list(r.values())).all() for r in eval_log)):
+        raise AssertionError(f"train_data fit: losses {loss_values}, evals {eval_log}")
+
+    # stop at step 6, resume in a new trainer on the unbroken run's batches 7-12
+    resumed = Trainer(c, fit_cfg(), device=device, logger=MetricLogger(stream=io.StringIO()))
+    resumed.set_eval_suite(suite)
+    if resumed.restore(ckpt, step=DATA_CKPT_AT) != DATA_CKPT_AT:
+        raise AssertionError("the resume did not restore step 6")
+    tail = full_losses(resumed)
+    resumed.fit(iter(stream.batches[DATA_CKPT_AT:]))
+    bitwise = (len(tail) == DATA_STEPS - DATA_CKPT_AT
+               and all(torch.equal(a, b) for a, b in zip(tail, losses[DATA_CKPT_AT:]))
+               and all(torch.equal(a, b) for a, b in zip(
+                   glom_model.tree_leaves(resumed.state.params),
+                   glom_model.tree_leaves(whole.state.params))))
+    if not bitwise:
+        raise AssertionError(f"resumed losses {[float(v) for v in tail]} differ from the "
+                             f"unbroken run's {loss_values[DATA_CKPT_AT:]}")
+    eval_check = eval_vs_plain(c, suite, whole.state.params, tc.noise_std, t)
+    probe = probe_vs_f64(suite, whole.state.params)
+    windows = [r for r in steps_log if "t_window" in r]
+    wait, window = sum(r["t_data_wait"] for r in windows), sum(r["t_window"] for r in windows)
+    steady = [r for r in steps_log[1:] if "t_eval" not in r]
+    del resumed
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "train_data", "config": {"batch": BATCH, "views": 2,
+                                            "consistency": "infonce", "weight": 0.1,
+                                            "augment": "flip", "eval_every": DATA_EVAL_EVERY,
+                                            "loss_timestep": t, "suite_chunk": chunk},
+          "losses": loss_values, "eval": eval_log, "launches": launches,
+          "resume_bitwise": bitwise, "resumed_from": DATA_CKPT_AT,
+          "step_ms": statistics.median(1e3 * BATCH / r["imgs_per_sec"] for r in steady),
+          "step_ms_note": "median over one-step windows after the first, eval windows left out",
+          "data_wait_share": wait / window, "t_data_wait_s": wait, "t_window_s": window,
+          "eval_s": [r["t_eval"] for r in steps_log if "t_eval" in r],
+          "fit_peak_memory_bytes": fit_peak, "eval_vs_plain": eval_check,
+          "probe_vs_f64": probe})
+
+    # 4. the CLI, as a user runs it
+    cli_log = os.path.join(root, "cli.jsonl")
+    cmd = [sys.executable, "-m", "glom_tpu_torch.training.train", "--data", "folder",
+           "--data-dir", root, "--consistency", "mse", "--eval-every", str(CLI_EVAL_EVERY),
+           "--steps", str(CLI_STEPS), "--log-every", "1", "--ff-impl", "pallas",
+           "--attention-impl", "pallas", "--fused-ff-bwd", "--log-file", cli_log]
+    t_cli = time.monotonic()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=CLI_TIMEOUT_S)
+    cli_s = time.monotonic() - t_cli
+    if res.returncode != 0:
+        raise AssertionError(f"the training CLI exited {res.returncode}: {res.stderr[-3000:]}")
+    with open(cli_log) as f:
+        cli = [json.loads(line) for line in f]
+    cli_losses = [r["loss"] for r in cli if "loss" in r]
+    cli_psnr = [r["psnr_db"] for r in cli if "psnr_db" in r]
+    if (len(cli_losses) != CLI_STEPS or not all(np.isfinite(cli_losses))
+            or len(cli_psnr) != CLI_STEPS // CLI_EVAL_EVERY or not all(np.isfinite(cli_psnr))):
+        raise AssertionError(f"the training CLI: losses {cli_losses}, psnr_db {cli_psnr}")
+    emit({"phase": "train_data_cli", "argv": cmd[3:], "exit": res.returncode,
+          "losses": cli_losses, "psnr_db": cli_psnr, "seconds": cli_s})
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_data_done", "seconds": time.monotonic() - t0})
+    return launches
+
+
 # The bench phase's legs, each one run of ``python -m glom_tpu_torch.tools.bench``
 # at flagship with 12 iterations: (leg, what it shows, flags, the kernels it
 # must launch in its window).  "trace" marks a leg run with --profile-dir.
@@ -1724,7 +2122,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
-          "train_fused", "bench")
+          "train_fused", "train_data", "bench")
 
 
 def parse_args(argv):
@@ -1735,7 +2133,8 @@ def parse_args(argv):
                    help="comma-separated phases to run after device and build, for "
                         f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
                         "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k6: K6's, "
-                        "each with the K7 on its dS' and the pair; k8: K8's; bench: the "
+                        "each with the K7 on its dS' and the pair; k8: K8's; train_data: "
+                        "the data streams, two views, eval and resume; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -1765,6 +2164,8 @@ def run_only(device, names) -> int:
             phase_serve_load(device)
         elif name == "train_fused":
             phase_train_fused(device, pallas_step_ms)
+        elif name == "train_data":
+            phase_train_data(device)
         elif name == "bench":
             phase_bench(nvidia_smi(), pallas_step_ms)
     print(nvidia_smi(), flush=True)
@@ -1794,6 +2195,7 @@ def main(argv=()) -> int:
     fused_serve_launches = phase_serve_fused(device)
     phase_serve_load(device)
     fused_train_launches = phase_train_fused(device, pallas_step_ms)
+    data_launches = phase_train_data(device)
     phase_bench(smi, pallas_step_ms)
     # launches: the serving path's count for the forward kernels (K8: the
     # fused serving path's), the train path's for the backward ones;
@@ -1823,6 +2225,7 @@ def main(argv=()) -> int:
         summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "launches_train": train_launches[name],
                         "launches_train_fused": fused_train_launches[name],
+                        "launches_train_data": data_launches[name],
                         "unfused_kernels_ms": row.get("unfused_kernels_ms"),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],

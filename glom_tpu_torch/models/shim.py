@@ -6,7 +6,10 @@ Same ctor kwargs as the reference ``Glom`` (``dim``, ``levels``,
 ``local_consensus_radius``), same ``forward(img, iters=None, levels=None,
 return_all=False)`` and output shapes.  The parameters are the JAX
 package's tree, registered as nested ``ParameterDict``s; the forward is
-:func:`glom_tpu_torch.models.glom.apply`.
+:func:`glom_tpu_torch.models.glom.apply`.  ``save`` / ``load`` write and
+read a params-only checkpoint (``{"params": ...}`` in the npz layout of
+``glom_tpu_torch/checkpoint.py``), which ``glom_tpu``'s ``Glom.load`` reads,
+and the other way round.
 """
 
 from __future__ import annotations
@@ -16,8 +19,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from glom_tpu_torch import checkpoint as ckpt_lib
 from glom_tpu_torch.config import GlomConfig, resolve_device
-from glom_tpu_torch.convert import from_reference_state_dict, to_reference_state_dict
+from glom_tpu_torch.convert import (
+    from_reference_state_dict, params_from_numpy, params_to_numpy, to_reference_state_dict)
 from glom_tpu_torch.models import glom as glom_model
 
 
@@ -95,6 +100,28 @@ class Glom(nn.Module):
     @property
     def num_params(self) -> int:
         return glom_model.param_count(self.params())
+
+    def save(self, directory: str, step: int = 0) -> str:
+        """Write the parameters as a checkpoint (atomic npz, integrity
+        record, manifest); returns its path."""
+        return ckpt_lib.save(directory, step, {"params": params_to_numpy(self.params())})
+
+    def load(self, directory: str, step: Optional[int] = None) -> int:
+        """Restore the parameters from a checkpoint (the manifest's newest
+        step by default); returns the step.  A tree of other shapes than
+        this model's raises ``ValueError``."""
+        if step is None:
+            step = ckpt_lib.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint manifest in {directory}")
+        tree = ckpt_lib.load_tree(directory, step, "params")
+        want = glom_model.param_shapes(self.config)
+        got = glom_model.tree_map(lambda a: tuple(a.shape), tree)
+        if got != want:
+            raise ValueError(f"checkpoint step {step} in {directory} holds parameters of "
+                             f"shapes {got}; this model's are {want}")
+        self.tree = _register(params_from_numpy(tree, self.config, self.device))
+        return step
 
     def reference_state_dict(self) -> dict:
         """The parameters in the reference's ``state_dict`` layout."""

@@ -81,8 +81,10 @@ def latest_valid_step(directory: str, *, newer_than: Optional[int] = None) -> Op
 
 
 def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
+                          optional: Tuple[str, ...] = (),
                           step: Optional[int] = None) -> Tuple[int, Dict[str, dict]]:
-    """``(step, {name: tree of numpy arrays})`` of the named trees.  With
+    """``(step, {name: tree of numpy arrays})`` of the named trees, and of
+    those in ``optional`` that the step holds.  With
     ``step=None`` the newest valid step loads, and a step whose per-array
     CRCs fail at load is quarantined and the next one tried.  A pinned
     ``step`` raises :class:`~glom_tpu_torch.checkpoint.CorruptCheckpointError`
@@ -94,7 +96,7 @@ def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
         missing = [n for n in names if n not in trees]
         if missing:
             raise KeyError(f"checkpoint step {s} in {directory} holds no tree named {missing}")
-        return s, {n: trees[n] for n in names}
+        return s, {n: trees[n] for n in names + tuple(optional) if n in trees}
 
     if step is not None:
         return load(step)

@@ -11,7 +11,12 @@ with its flags where they apply and its defaults: the flagship model, 12
 iterations, bf16 compute, remat with policy "dots", batch 32 (4 on the CPU),
 20 timed steps after 3 of warm-up (2 after 1 on the CPU), ``--ff-impl
 auto`` (the grouped-FF kernels on a card, the plain ops on the CPU), dense
-consensus, the plain FF backward, one resident synthetic batch.
+consensus, the plain FF backward, one resident synthetic batch.  ``--data
+images --data-dir DIR`` streams a fresh batch of a JPEG/PNG folder tree
+through :class:`~glom_tpu_torch.training.image_stream.ImageFolderStream`
+every step instead (decode threads, the native libjpeg batch decoder where
+it builds, and the transfer to the card inside the window), under the
+metric name with ``_realdata``.
 ``--scan-unroll`` is accepted and changes nothing (the port's loop is
 eager).  ``--device`` takes the place of ``--platform`` and
 ``--device-probe-timeout``: there is no relay to guard.  Without a card and
@@ -41,6 +46,7 @@ failure to trace is printed and does not cost the record.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -72,16 +78,23 @@ def parse_args(argv=None):
                    help="with --ff-impl pallas or fused: the backward kernels K2 + K3 instead "
                         "of the plain VJP")
     p.add_argument("--data", default="synthetic", choices=["synthetic", "images"],
-                   help="synthetic = one resident batch reused every step")
+                   help="synthetic = one resident batch reused every step; images = a fresh "
+                        "batch from --data-dir through ImageFolderStream every step")
+    p.add_argument("--data-dir", default=None,
+                   help="ImageFolder root for --data images")
+    p.add_argument("--data-workers", type=int, default=8,
+                   help="decode threads for --data images")
+    p.add_argument("--decode", default="auto", choices=["auto", "python"],
+                   help="--data images decode path: auto = the native libjpeg batch decoder "
+                        "where it is available, python = the per-file cv2/PIL thread pool")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of 3 steps after the warm-up here "
                         "(outside the timed window)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (refused without a card) or cpu")
     args = p.parse_args(argv)
-    if args.data == "images":
-        p.error("--data images needs the port's image stream (training/image_stream.py and "
-                "glom_tpu/native/'s copy, ROADMAP queue 1, item 3)")
+    if args.data == "images" and not args.data_dir:
+        p.error("--data images needs --data-dir")
     return args
 
 
@@ -97,6 +110,8 @@ def main(argv=None) -> dict:
     from glom_tpu_torch.training.trainer import Trainer
 
     metric = METRIC + ("" if args.config == "flagship" else f"_{args.config}")
+    if args.data == "images":
+        metric += "_realdata"
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
@@ -116,89 +131,107 @@ def main(argv=None) -> dict:
         ff_impl=args.ff_impl, ff_fused_bwd=args.fused_ff_bwd, **model_kwargs)
     train = TrainConfig(batch_size=batch, iters=iters, log_every=0)
     trainer = Trainer(config, train, device=device)
-    img = trainer.put(next(synthetic_batches(batch, config.image_size, config.channels)))
+    with contextlib.ExitStack() as stack:
+        if args.data == "images":
+            from glom_tpu_torch.training.image_stream import ImageFolderStream
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(device)
+            # the whole input path, a fresh batch every step: the stream's own
+            # read-ahead overlaps decoding with the card's work
+            stream = stack.enter_context(ImageFolderStream(
+                args.data_dir, batch, config.image_size, channels=config.channels,
+                workers=args.data_workers,
+                native_decode=None if args.decode == "auto" else False))
 
-    for _ in range(warmup):
-        trainer.step(img)
-    sync()
+            def next_img():
+                return trainer.put(next(stream))
+        else:
+            resident = trainer.put(next(synthetic_batches(batch, config.image_size,
+                                                          config.channels)))
 
-    if args.profile_dir:
-        # the trainer's trace plumbing and phase names, so a bench trace and
-        # a trainer trace read alike
-        from glom_tpu_torch.profiling import annotate, trace
+            def next_img():
+                return resident
 
-        try:
-            with trace(args.profile_dir):
-                for _ in range(3):
-                    with annotate("data_wait"):
-                        x = img        # the resident batch: no h2d
-                    with annotate("step"):
-                        trainer.step(x)
-            print(f"# trace written to {args.profile_dir}", flush=True)
-        except Exception as e:  # tracing must never cost the number of record
-            print(f"# trace failed ({type(e).__name__}: {e})", flush=True)
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(device)
 
-    counters = wrappers()
-    executed = resolve_loss_timestep(train, iters)
-    train_flops = mfu_tool.train_flops_per_image(config, executed)
-    kind = torch.cuda.get_device_name(device) if on_card else "cpu"
-    peak, peak_source = (mfu_tool.peak_tflops(kind, dtype) if on_card
-                         else (None, "the CPU has no data-sheet peak here"))
-
-    def measure():
-        for fn in counters.values():
-            fn.launches = 0
-        builds = _build.events()
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(device)
-        # the card drained at both ends, no step's values read in between
+        for _ in range(warmup):
+            trainer.step(next_img())
         sync()
-        t0 = time.monotonic()
-        for _ in range(steps):
-            trainer.step(img)
-        sync()
-        dt = time.monotonic() - t0
-        after = _build.events()
-        rate = batch * steps / dt
-        return {"seconds": dt, "rate": rate,
-                "mfu": None if peak is None else rate * train_flops / (peak * 1e12),
-                "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if on_card else None,
-                "launches": {k: fn.launches / steps for k, fn in counters.items()},
-                "builds": sum(after[k] - builds[k] for k in after)}
 
-    m = measure()
-    remeasured = False
-    if m["mfu"] is not None and m["mfu"] > 1.0:
-        # above the card's peak: a timing fault, not a measurement
-        m, remeasured = measure(), True
-    result = {
-        "metric": metric, "value": m["rate"], "unit": "imgs/sec/chip", "status": "ok",
-        "backend": "gpu" if on_card else "cpu", "device_kind": kind,
-        "config": args.config, "dtype": "float32" if args.fp32 else "bfloat16",
-        "remat": config.remat, "remat_policy": config.remat_policy,
-        "ff_impl": config.ff_impl, "attention_impl": config.attention_impl,
-        "fused_ff_bwd": config.ff_fused_bwd, "fuse_ff": config.fuse_ff,
-        "batch": batch, "steps": steps, "warmup": warmup, "iters": iters,
-        "executed_iters": executed, "seconds": m["seconds"],
-        "model_flops_per_img": train_flops, "mfu": m["mfu"], "peak_tflops": peak,
-        "peak_source": peak_source, "peak_memory_bytes": m["peak_memory_bytes"],
-        "launches_per_step": {k: v for k, v in m["launches"].items() if v},
-        # annotate, don't zero: a build or library load inside the window is
-        # real wall-clock in the rate; the reader must know why it is low
-        "builds_in_window": m["builds"],
-    }
-    if remeasured:
-        result["remeasured"] = True
-    if m["mfu"] is not None and m["mfu"] > 1.0:
-        result.update(value=0.0, status="error",
-                      error=f"implausible rate {m['rate']:.1f} imgs/s: mfu {m['mfu']:.3f} above "
-                            f"the card's peak after a re-measure — timing fault")
-    print(json.dumps(result), flush=True)
-    return result
+        if args.profile_dir:
+            # the trainer's trace plumbing and phase names, so a bench trace and
+            # a trainer trace read alike
+            from glom_tpu_torch.profiling import annotate, trace
+
+            try:
+                with trace(args.profile_dir):
+                    for _ in range(3):
+                        with annotate("data_wait"):
+                            x = next_img()
+                        with annotate("step"):
+                            trainer.step(x)
+                print(f"# trace written to {args.profile_dir}", flush=True)
+            except Exception as e:  # tracing must never cost the number of record
+                print(f"# trace failed ({type(e).__name__}: {e})", flush=True)
+
+        counters = wrappers()
+        executed = resolve_loss_timestep(train, iters)
+        train_flops = mfu_tool.train_flops_per_image(config, executed)
+        kind = torch.cuda.get_device_name(device) if on_card else "cpu"
+        peak, peak_source = (mfu_tool.peak_tflops(kind, dtype) if on_card
+                             else (None, "the CPU has no data-sheet peak here"))
+
+        def measure():
+            for fn in counters.values():
+                fn.launches = 0
+            builds = _build.events()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(device)
+            # the card drained at both ends, no step's values read in between
+            sync()
+            t0 = time.monotonic()
+            for _ in range(steps):
+                trainer.step(next_img())
+            sync()
+            dt = time.monotonic() - t0
+            after = _build.events()
+            rate = batch * steps / dt
+            return {"seconds": dt, "rate": rate,
+                    "mfu": None if peak is None else rate * train_flops / (peak * 1e12),
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if on_card else None,
+                    "launches": {k: fn.launches / steps for k, fn in counters.items()},
+                    "builds": sum(after[k] - builds[k] for k in after)}
+
+        m = measure()
+        remeasured = False
+        if m["mfu"] is not None and m["mfu"] > 1.0:
+            # above the card's peak: a timing fault, not a measurement
+            m, remeasured = measure(), True
+        result = {
+            "metric": metric, "value": m["rate"], "unit": "imgs/sec/chip", "status": "ok",
+            "backend": "gpu" if on_card else "cpu", "device_kind": kind,
+            "config": args.config, "dtype": "float32" if args.fp32 else "bfloat16",
+            "remat": config.remat, "remat_policy": config.remat_policy,
+            "ff_impl": config.ff_impl, "attention_impl": config.attention_impl,
+            "fused_ff_bwd": config.ff_fused_bwd, "fuse_ff": config.fuse_ff,
+            "data": args.data, "batch": batch, "steps": steps, "warmup": warmup, "iters": iters,
+            "executed_iters": executed, "seconds": m["seconds"],
+            "model_flops_per_img": train_flops, "mfu": m["mfu"], "peak_tflops": peak,
+            "peak_source": peak_source, "peak_memory_bytes": m["peak_memory_bytes"],
+            "launches_per_step": {k: v for k, v in m["launches"].items() if v},
+            # annotate, don't zero: a build or library load inside the window is
+            # real wall-clock in the rate; the reader must know why it is low
+            "builds_in_window": m["builds"],
+        }
+        if remeasured:
+            result["remeasured"] = True
+        if m["mfu"] is not None and m["mfu"] > 1.0:
+            result.update(value=0.0, status="error",
+                          error=f"implausible rate {m['rate']:.1f} imgs/s: mfu {m['mfu']:.3f} above "
+                                f"the card's peak after a re-measure — timing fault")
+        print(json.dumps(result), flush=True)
+        return result
 
 
 if __name__ == "__main__":

@@ -13,8 +13,14 @@ The noise is drawn from an explicit ``torch.Generator`` (``jax.random``'s
 keys have no torch counterpart), or passed in as a tensor, so that a test
 can hand both packages the same noise.
 
-Refused here, by name of its ROADMAP item: ``consistency != "none"``
-(queue 1, item 3).
+With ``train.consistency`` ``"mse"`` or ``"infonce"`` the step runs two
+independently noised views of each image as ONE forward of 2·b images, the
+first b rows view 1 and the last b view 2; the decoder reads view 1 and
+``training/consistency.py`` couples the two views' pooled states.  Their
+noise has the layout ``(2, b, ...)``: ``noise[0]`` is view 1's,
+``noise[1]`` view 2's.  A microbatch of rows ``sl`` takes ``noise[:, sl]``,
+which flattens to the ``(2·mb, ...)`` draw ``glom_tpu`` makes per
+microbatch (view 1's rows, then view 2's).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from glom_tpu_torch.models.glom import param_shapes, tree_leaves, tree_map
 from glom_tpu_torch.models.heads import decoder_apply, decoder_init, decoder_param_shapes
 from glom_tpu_torch.obs.monitors import numerics_metrics
 from glom_tpu_torch.resilience import integrity
+from glom_tpu_torch.training.consistency import regularizer_from_state
 from glom_tpu_torch.training.optim import Optimizer, apply_updates, global_norm, tree_map2
 
 
@@ -74,39 +81,52 @@ def resolve_loss_timestep(train: TrainConfig, iters: int) -> int:
     return t
 
 
+CONSISTENCY_KINDS = ("none", "mse", "infonce")
+
+
 def check_trainable(config: GlomConfig, train: TrainConfig) -> None:
-    """Refuse what the port's train step does not implement yet: the
-    unported ``attention_impl`` values (``ring``, ``ulysses``) and the
-    two-view consistency term."""
+    """Refuse what the port's train step does not implement yet (the
+    unported ``attention_impl`` values ``ring`` and ``ulysses``) and an
+    unknown consistency kind."""
     glom_model.make_consensus_fn(config)
-    if train.consistency != "none":
-        raise NotImplementedError(
-            f"consistency={train.consistency!r}: the two-view regularizer "
-            f"(training/consistency.py) is ROADMAP queue 1, item 3; use 'none'")
+    if train.consistency not in CONSISTENCY_KINDS:
+        raise ValueError(f"unknown consistency kind {train.consistency!r}; one of "
+                         f"{CONSISTENCY_KINDS}")
 
 
 def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, ff_fn=None,
                  fused_fn=None):
     """``loss(params, img, *, generator=None, noise=None) -> (loss, recon)``.
-    ``noise`` (standard normal, ``img``'s shape) is scaled by
-    ``train.noise_std``; without it the noise is drawn from ``generator``.
-    ``consensus_fn`` / ``ff_fn`` / ``fused_fn`` go to
-    :func:`glom_tpu_torch.models.glom.apply` as they are."""
+    ``noise`` (standard normal; ``img``'s shape, or ``(2, *img.shape)`` with
+    two views) is scaled by ``train.noise_std``; without it the noise is
+    drawn from ``generator``.  ``consensus_fn`` / ``ff_fn`` / ``fused_fn`` go
+    to :func:`glom_tpu_torch.models.glom.apply` as they are."""
     check_trainable(config, train)
     iters = train.iters if train.iters is not None else config.default_iters
     timestep = resolve_loss_timestep(train, iters)
+    two_views = train.consistency != "none"
 
     def loss_fn(params, img, *, generator=None, noise=None):
+        b = img.shape[0]
+        shape = ((2,) if two_views else ()) + tuple(img.shape)
         if noise is None:
-            noise = torch.randn(img.shape, generator=generator, device=img.device, dtype=img.dtype)
-        noised = img + noise.to(img.dtype) * train.noise_std
+            noise = torch.randn(shape, generator=generator, device=img.device, dtype=img.dtype)
+        if tuple(noise.shape) != shape:
+            raise ValueError(f"noise of shape {tuple(noise.shape)}; this step takes {shape}")
+        noise = noise.to(img.dtype).reshape((-1,) + tuple(img.shape[1:]))
+        # two views: one forward of 2b images, view 1's rows then view 2's
+        noised = (torch.cat([img, img]) if two_views else img) + noise * train.noise_std
         # the forward stops at the loss timestep: its state is what decodes
         state = glom_model.apply(params["glom"], noised, config=config, iters=timestep,
                                  consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
-        recon = decoder_apply(params["decoder"], state, config, arch=train.decoder,
+        recon = decoder_apply(params["decoder"], state[:b], config, arch=train.decoder,
                               level=train.loss_level)
         acc_dt = torch.promote_types(recon.dtype, torch.float32)
         loss = torch.mean((recon.to(acc_dt) - img.to(acc_dt)) ** 2)
+        if two_views:
+            loss = loss + train.consistency_weight * regularizer_from_state(
+                train.consistency, state[:b], state[b:], level=train.consistency_level,
+                temperature=train.consistency_temperature)
         return loss, recon
 
     return loss_fn
@@ -119,8 +139,11 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *
     With ``train.grad_accum_steps > 1`` the batch splits into that many
     microbatches run one after the other; their gradients add up in float32
     (or wider) accumulators and average before the one optimizer update, so
-    for this loss (a mean over the batch) the step is the full-batch step.
-    ``noise``, when given, is the whole batch's, split the same way.
+    for the denoising loss (a mean over the batch) the step is the
+    full-batch step.  InfoNCE's negatives are then the microbatch's, as in
+    ``glom_tpu``'s accumulated step.  ``noise``, when given, is the whole
+    batch's (:func:`make_loss_fn`'s shape), split the same way along the
+    batch axis (with two views, its second).
     Metrics (device scalars): ``loss``, the raw pre-clip ``grad_norm`` and,
     with ``train.monitor_numerics``, ``nonfinite_grads`` and
     ``loss_nonfinite``.
@@ -130,6 +153,7 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *
     loss_fn = make_loss_fn(config, train, consensus_fn=consensus_fn, ff_fn=ff_fn,
                            fused_fn=fused_fn)
     accum = train.grad_accum_steps
+    two_views = train.consistency != "none"
 
     def grad_of(params, img, noise, generator):
         return loss_and_grads(loss_fn, params, img, generator=generator, noise=noise)
@@ -145,8 +169,8 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *
                              state.params)
             for i in range(accum):
                 sl = slice(i * mb, (i + 1) * mb)
-                l, g = grad_of(state.params, img[sl], None if noise is None else noise[sl],
-                               state.generator)
+                micro_noise = None if noise is None else (noise[:, sl] if two_views else noise[sl])
+                l, g = grad_of(state.params, img[sl], micro_noise, state.generator)
                 loss = loss + l.to(loss.dtype)
                 grads = tree_map2(lambda a, b: a + b.to(a.dtype), grads, g)
             loss = loss / accum

@@ -1,64 +1,61 @@
 """CLI training entry point: ``python -m glom_tpu_torch.training.train``.
 
-The flags this trainer honours keep ``glom_tpu.training.train``'s names.
-The run is on ``cuda`` unless ``--device cpu`` is given; without a card it
-refuses rather than move to the CPU.  Every other flag of the JAX CLI is
-recognised and refused, with the ROADMAP item that will port it.  Data is
-the synthetic stream (``--data synthetic``, the JAX CLI's default).
+The flags this trainer honours keep ``glom_tpu.training.train``'s names and
+defaults.  The run is on ``cuda`` unless ``--device cpu`` is given; without a
+card it refuses rather than move to the CPU.  Every other flag of the JAX
+CLI is recognised and refused, with the reason from the trainer's one table
+(``training/trainer.py::REASONS``).  Data is the synthetic stream, a folder
+of ``.npy``/``.npz`` arrays or a JPEG/PNG folder tree (``--data images``,
+resumable: its cursor rides in the checkpoint).  With ``--data images`` and
+``--eval-every`` a held-out split is carved off before the stream exists
+and scored by an ``EvalSuite`` (PSNR and the linear probes); otherwise
+``--eval-every`` logs the incoming batch's PSNR.
 
     python -m glom_tpu_torch.training.train --steps 5 --batch-size 8 \\
         --ff-impl pallas --fused-ff-bwd --attention-impl pallas --log-every 1
-    python -m glom_tpu_torch.training.train --steps 5 --ff-impl fused --fused-ff-bwd
+    python -m glom_tpu_torch.training.train --data folder --data-dir DIR --augment flip \\
+        --consistency infonce --eval-every 50
 """
 
 from __future__ import annotations
 
 import argparse
 
-from glom_tpu_torch.config import GlomConfig, TrainConfig
-from glom_tpu_torch.training.data import synthetic_batches
-from glom_tpu_torch.training.metrics import MetricLogger
-from glom_tpu_torch.training.trainer import Trainer
+import numpy as np
 
-# flags of the JAX CLI the port does not take yet: (flag, nargs, why)
-_REFUSED = (
-    ("--consistency", 1, "ROADMAP queue 1, item 3"),
-    ("--consistency-weight", 1, "ROADMAP queue 1, item 3"),
-    ("--consistency-temperature", 1, "ROADMAP queue 1, item 3"),
-    ("--consistency-level", 1, "ROADMAP queue 1, item 3"),
-    ("--eval-every", 1, "ROADMAP queue 1, item 3"),
-    ("--data-dir", 1, "ROADMAP queue 1, item 3"),
-    ("--augment", 1, "ROADMAP queue 1, item 3"),
-    ("--eval-holdout", 1, "ROADMAP queue 1, item 3"),
-    ("--probe-examples", 1, "ROADMAP queue 1, item 3"),
-    ("--probe-l2-grid", "+", "ROADMAP queue 1, item 3"),
-    ("--eval-max-images", 1, "ROADMAP queue 1, item 3"),
-    ("--mesh", "+", "ROADMAP queue 1, item 6"),
-    ("--param-sharding", 1, "ROADMAP queue 1, item 6"),
-    ("--checkpoint-backend", 1, "ROADMAP queue 1, item 6"),
-    ("--coordinator", 1, "ROADMAP queue 1, item 6"),
-    ("--num-processes", 1, "ROADMAP queue 1, item 6"),
-    ("--process-id", 1, "ROADMAP queue 1, item 6"),
-    ("--stop-poll-steps", 1, "ROADMAP queue 1, item 6"),
-    ("--async-checkpoint", 0, "ROADMAP queue 1, item 7"),
-    ("--trace-dir", 1, "ROADMAP queue 1, item 7"),
-    ("--metrics-csv", 1, "ROADMAP queue 1, item 7"),
-    ("--prom-textfile", 1, "ROADMAP queue 1, item 7"),
-    ("--diag-every", 1, "ROADMAP queue 1, item 7"),
-    ("--no-monitor-numerics", 0, "ROADMAP queue 1, item 7"),
-    ("--grad-spike-factor", 1, "ROADMAP queue 1, item 7"),
-    ("--supervise", 0, "ROADMAP queue 1, item 7"),
-    ("--max-restart-failures", 1, "ROADMAP queue 1, item 7"),
-    ("--restart-window-s", 1, "ROADMAP queue 1, item 7"),
-    ("--forensics-dir", 1, "ROADMAP queue 1, item 7"),
-    ("--forensics-ring", 1, "ROADMAP queue 1, item 7"),
-    ("--forensics-max-captures", 1, "ROADMAP queue 1, item 7"),
-    ("--forensics-debounce-steps", 1, "ROADMAP queue 1, item 7"),
-    ("--forensics-trace-steps", 1, "ROADMAP queue 1, item 7"),
-    ("--no-forensics-hlo", 0, "ROADMAP queue 1, item 7"),
-    ("--forensics-step-time-factor", 1, "ROADMAP queue 1, item 7"),
-    ("--platform", 1, "the port picks its device with --device"),
-)
+from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.training.data import AUGMENT_KINDS, _StatefulAugmented, make_batches
+from glom_tpu_torch.training.metrics import MetricLogger
+from glom_tpu_torch.training.trainer import REASONS, Trainer
+
+# flags of the JAX CLI the port does not take yet: flag -> (nargs, REASONS key)
+_REFUSED = {
+    "--mesh": ("+", "mesh"),
+    "--param-sharding": (1, "mesh"),
+    "--checkpoint-backend": (1, "mesh"),
+    "--coordinator": (1, "mesh"),
+    "--num-processes": (1, "mesh"),
+    "--process-id": (1, "mesh"),
+    "--stop-poll-steps": (1, "mesh"),
+    "--async-checkpoint": (0, "obs"),
+    "--trace-dir": (1, "obs"),
+    "--metrics-csv": (1, "obs"),
+    "--prom-textfile": (1, "obs"),
+    "--diag-every": (1, "obs"),
+    "--no-monitor-numerics": (0, "obs"),
+    "--grad-spike-factor": (1, "obs"),
+    "--supervise": (0, "obs"),
+    "--max-restart-failures": (1, "obs"),
+    "--restart-window-s": (1, "obs"),
+    "--forensics-dir": (1, "obs"),
+    "--forensics-ring": (1, "obs"),
+    "--forensics-max-captures": (1, "obs"),
+    "--forensics-debounce-steps": (1, "obs"),
+    "--forensics-trace-steps": (1, "obs"),
+    "--no-forensics-hlo": (0, "obs"),
+    "--forensics-step-time-factor": (1, "obs"),
+    "--platform": (1, "device"),
+}
 
 
 def parse_args(argv=None):
@@ -111,6 +108,14 @@ def parse_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--noise-std", type=float, default=1.0)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="evaluate every N steps (0 = off): the EvalSuite on the held-out "
+                        "split with --data images, else the incoming batch's PSNR")
+    p.add_argument("--consistency", default="none", choices=["none", "mse", "infonce"],
+                   help="two-view consistency regularization of top-ish levels")
+    p.add_argument("--consistency-weight", type=float, default=0.1)
+    p.add_argument("--consistency-temperature", type=float, default=0.1)
+    p.add_argument("--consistency-level", type=int, default=-1)
     p.add_argument("--decoder", default="linear",
                    choices=["linear", "mlp", "linear_all", "mlp_all"])
     p.add_argument("--decoder-hidden-mult", type=int, default=2)
@@ -122,22 +127,61 @@ def parse_args(argv=None):
     p.add_argument("--halt-on-nan", action="store_true",
                    help="fail fast when a logging window shows nonfinite grads/loss")
     p.add_argument("--log-file", default=None)
-    p.add_argument("--data", default="synthetic",
-                   help="synthetic (the only stream in the port; the folder and image "
-                        "streams are ROADMAP queue 1, item 3)")
+    p.add_argument("--data", default="synthetic", choices=["synthetic", "folder", "images"],
+                   help="synthetic randn stream, .npy/.npz folder, or a JPEG/PNG folder tree "
+                        "(a resumable stream)")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--augment", default="none", choices=list(AUGMENT_KINDS))
+    p.add_argument("--eval-holdout", type=float, default=0.02,
+                   help="(images + --eval-every) fraction of files held out of training for "
+                        "the eval suite")
+    p.add_argument("--probe-examples", type=int, default=256,
+                   help="held-out labeled examples for the linear probe (0 disables it)")
+    p.add_argument("--probe-l2-grid", type=float, nargs="+", default=None,
+                   help="candidate ridge strengths for the probe, chosen on a held-out tail "
+                        "of the probe-train half (default: fixed l2=1e-3)")
+    p.add_argument("--eval-max-images", type=int, default=1024,
+                   help="cap on held-out images decoded into host RAM and scored per eval "
+                        "point")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (refused without a card)")
     refused = p.add_argument_group("refused: not in the port yet")
-    for flag, nargs, _ in _REFUSED:
+    for flag, (nargs, _) in _REFUSED.items():
         kw = {"action": "store_true"} if nargs == 0 else {"nargs": None if nargs == 1 else nargs}
         refused.add_argument(flag, default=argparse.SUPPRESS, help=argparse.SUPPRESS, **kw)
     args = p.parse_args(argv)
-    for flag, _, why in _REFUSED:
+    for flag, (_, why) in _REFUSED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not in the port's trainer yet ({why})")
-    if args.data != "synthetic":
-        p.error(f"--data {args.data} is not in the port yet (ROADMAP queue 1, item 3)")
+            p.error(f"{flag} is not in the port's trainer yet ({REASONS[why]})")
+    if args.data != "synthetic" and not args.data_dir:
+        p.error(f"--data {args.data} needs --data-dir")
     return args
+
+
+def holdout_eval_data(args):
+    """``(train_files, eval_images, probe_kwargs)`` for ``--data images``
+    with ``--eval-every``: the held-out files are carved off before the
+    training stream exists (``glom_tpu``'s split, permutation and caps), and
+    the probe's labels are the files' parent directories."""
+    from glom_tpu_torch.training.eval import holdout_split
+    from glom_tpu_torch.training.image_stream import (
+        labels_from_paths, list_image_files, load_images)
+
+    train_files, eval_files = holdout_split(list_image_files(args.data_dir), args.eval_holdout,
+                                            seed=args.seed)
+    # eval files arrive grouped by class (sorted paths): permute before the
+    # caps so that the decoded subset spans classes
+    perm = np.random.default_rng(args.seed).permutation(len(eval_files))
+    eval_files = [eval_files[i] for i in perm[:args.eval_max_images]]
+    eval_imgs = load_images(eval_files, args.image_size)
+    probe_kwargs = {}
+    if args.probe_examples:
+        labels, names = labels_from_paths(eval_files[:args.probe_examples])
+        if len(names) > 1:
+            probe_kwargs = dict(probe_images=eval_imgs[:args.probe_examples],
+                                probe_labels=labels, num_classes=len(names),
+                                probe_l2_grid=args.probe_l2_grid)
+    return train_files, eval_imgs, probe_kwargs
 
 
 def main(argv=None):
@@ -155,7 +199,10 @@ def main(argv=None):
         batch_size=args.batch_size, grad_accum_steps=args.grad_accum_steps,
         learning_rate=args.lr, lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip_norm, iters=args.iters,
-        loss_timestep=args.loss_timestep, noise_std=args.noise_std, decoder=args.decoder,
+        loss_timestep=args.loss_timestep, noise_std=args.noise_std,
+        consistency=args.consistency, consistency_weight=args.consistency_weight,
+        consistency_temperature=args.consistency_temperature,
+        consistency_level=args.consistency_level, eval_every=args.eval_every, decoder=args.decoder,
         decoder_hidden_mult=args.decoder_hidden_mult, steps=args.steps,
         log_every=args.log_every, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, halt_on_nan=args.halt_on_nan, seed=args.seed,
@@ -163,8 +210,28 @@ def main(argv=None):
     )
     trainer = Trainer(config, train_cfg, device=args.device,
                       logger=MetricLogger(path=args.log_file))
-    batches = synthetic_batches(args.batch_size, args.image_size, config.channels, args.seed)
-    final = trainer.fit(batches)
+    if args.data == "images" and args.eval_every:
+        from glom_tpu_torch.training.eval import EvalSuite
+        from glom_tpu_torch.training.image_stream import ImageFolderStream
+
+        train_files, eval_imgs, probe_kwargs = holdout_eval_data(args)
+        trainer.set_eval_suite(EvalSuite(
+            config, eval_imgs, noise_std=args.noise_std, iters=args.iters,
+            timestep=args.loss_timestep, chunk=min(args.batch_size, len(eval_imgs)),
+            decoder=args.decoder, **probe_kwargs))
+        batches = ImageFolderStream(args.data_dir, args.batch_size, args.image_size,
+                                    channels=config.channels, seed=args.seed, files=train_files)
+        if args.augment != "none":
+            batches = _StatefulAugmented(batches, args.augment, args.seed)
+    else:
+        batches = make_batches(args.data, args.batch_size, args.image_size, config.channels,
+                               args.seed, args.data_dir, augment=args.augment)
+    try:
+        final = trainer.fit(batches)
+    finally:
+        close = getattr(batches, "close", None)
+        if callable(close):
+            close()
     print({"final": final})
     return final
 

@@ -9,31 +9,46 @@ halts with :class:`NonFiniteError` on non-finite values when
 from the newest checkpoint that passes its integrity check, and on SIGTERM
 stops after the step in flight and saves.
 
+Every ``eval_every`` steps the loop evaluates, as ``glom_tpu``'s does: with
+an :class:`~glom_tpu_torch.training.eval.EvalSuite` (``set_eval_suite``) it
+logs the held-out PSNR and linear-probe accuracies; without one, the
+denoising PSNR (``psnr_db``) of the incoming batch before the step consumes
+it.  The eval's noise comes from a generator of its own seeded ``seed + i``
+at step ``i``, never from the train step's, so a run with eval trains on the
+same noise as one without.
+
 A checkpoint is the port's npz layout with its CRC sidecar
-(``glom_tpu_torch/checkpoint.py``) beside ``config.json``:
-* ``params``: the ``{"glom", "decoder"}`` tree under ``glom_tpu``'s names,
-  so ``glom_tpu``'s ``load_checkpoint_state`` and the port's
-  ``ServingEngine`` read it;
-* ``opt``: the port's optimizer state, ``{"count", "mu", "nu"}``
-  (``training/optim.py``).  A ``glom_tpu`` checkpoint's optax state resumes
-  too when it has the shape of the chain its ``config.json`` names (adam or
-  adamw, either under ``clip_by_global_norm``, as ``glom_tpu``'s trainer
-  builds them): :func:`opt_state_from_optax` maps it;
-* ``rng``: the state of the noise generator (uint8), so a resumed run
-  draws the noise an unbroken run would.  A ``glom_tpu`` checkpoint holds a
-  JAX PRNG key instead, which has no torch counterpart: its resume warns
-  and keeps the trainer's freshly seeded generator.
+(``glom_tpu_torch/checkpoint.py``) beside ``config.json``, under
+``glom_tpu``'s names, so that either package's trainer restores the other's:
+* ``params``: the ``{"glom", "decoder"}`` tree, which ``glom_tpu``'s
+  ``load_checkpoint_state`` and the port's ``ServingEngine`` read too;
+* ``opt``: the Adam state ``{count, mu, nu}`` (``training/optim.py``) in the
+  layout of the optax chain ``glom_tpu``'s trainer builds from the same
+  ``config.json`` (adam or adamw, with or without a schedule, either under
+  ``clip_by_global_norm``; :func:`opt_state_to_optax`), which
+  :func:`opt_state_from_optax` maps back;
+* ``rng``: a JAX PRNG key ``PRNGKey(seed + step)`` (two uint32 words), so
+  that ``glom_tpu`` resumes with a key of its own;
+* ``generator``: the port's noise generator (uint8), so a resumed run draws
+  the noise an unbroken run would.  A ``glom_tpu`` checkpoint has none: its
+  resume warns and keeps the trainer's freshly seeded generator;
+* ``data``: with a resumable stream (``state_dict`` / ``load_state_dict``,
+  as :class:`~glom_tpu_torch.training.image_stream.ImageFolderStream` has),
+  its cursor, which ``restore(batches=...)`` hands back, so the stream goes
+  on with the exact next batch.
 
 The loop is phase-timed as ``glom_tpu``'s is (``obs/timing.py``): every
 logged record carries ``t_data_wait``, ``t_h2d``, ``t_step`` and
-``t_log_sync`` (seconds over the window), ``t_window`` and
-``window_steps``, and each phase is an :func:`~glom_tpu_torch.profiling.annotate`
-region.  With ``profile_dir`` the loop traces steps ``start+2`` to
+``t_log_sync`` (seconds over the window; ``t_eval`` in a window that
+evaluated), ``t_window`` and ``window_steps``, and each phase is an
+:func:`~glom_tpu_torch.profiling.annotate` region; ``imgs_per_sec`` leaves
+the eval out.  With ``profile_dir`` the loop traces steps ``start+2`` to
 ``start+4`` (``profiling.trace``), the window ``glom_tpu`` traces.
 
-Not here yet, each refused by name when the config asks for it: a mesh and
-sharded saves (ROADMAP queue 1, item 6), eval (item 3), forensics, request
-traces, diagnostics, metric exporters and async saves (item 7).
+Not here yet, each refused by name when the config asks for it
+(:data:`UNSUPPORTED`): a mesh and sharded saves (ROADMAP queue 1, item 6),
+forensics, request traces, diagnostics, metric exporters and async saves
+(item 7).
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ from glom_tpu_torch.obs.timing import PhaseTimer
 from glom_tpu_torch.profiling import annotate, trace
 from glom_tpu_torch.resilience import integrity
 from glom_tpu_torch.training import denoise
+from glom_tpu_torch.training.eval import make_psnr_fn
 from glom_tpu_torch.training.metrics import MetricLogger
 from glom_tpu_torch.training.optim import Optimizer, tree_map2
 
@@ -108,38 +124,61 @@ def opt_state_from_optax(opt, train: dict) -> Optional[dict]:
     return _adam_chain(opt, decay_key)
 
 
+def opt_state_to_optax(opt: dict, train: TrainConfig) -> dict:
+    """The port's ``{count, mu, nu}`` (numpy trees) in the layout of the
+    optax chain ``glom_tpu``'s trainer builds from ``train``: the inverse of
+    :func:`opt_state_from_optax`."""
+    count = np.asarray(opt["count"], np.int32)
+    node = {"0": {"count": count, "mu": opt["mu"], "nu": opt["nu"]}}
+    if train.lr_schedule != "constant":
+        node["2" if train.weight_decay else "1"] = {"count": count}
+    return {"1": node} if train.grad_clip_norm else node
+
+
 class NonFiniteError(RuntimeError):
     """Raised (with ``TrainConfig.halt_on_nan``) when a logging window shows
     non-finite gradients or loss, before the poisoned parameters can be
     checkpointed."""
 
 
-# TrainConfig fields the port does not implement, each with its default and
-# the ROADMAP item that ports it
-_UNSUPPORTED = {
-    "eval_every": (0, "queue 1, item 3"),
-    "checkpoint_backend": ("npz", "queue 1, item 6"),
-    "async_checkpoint": (False, "queue 1, item 7"),
-    "forensics_dir": (None, "queue 1, item 7"),
-    "forensics_trace_steps": (0, "queue 1, item 7"),
-    "trace_dir": (None, "queue 1, item 7"),
-    "diag_every": (0, "queue 1, item 7"),
-    "metrics_csv": (None, "queue 1, item 7"),
-    "prom_textfile": (None, "queue 1, item 7"),
+# Why the port lacks each thing it refuses: the one table of reasons, read by
+# the trainer's refusals (UNSUPPORTED) and by the CLI's (training/train.py)
+REASONS = {
+    "mesh": "the multi-GPU port, ROADMAP queue 1, item 6",
+    "obs": "the observability and robustness port, ROADMAP queue 1, item 7",
+    "device": "the port picks its device with --device",
+}
+
+# TrainConfig fields the port's trainer does not implement: (default, REASONS key)
+UNSUPPORTED = {
+    "checkpoint_backend": ("npz", "mesh"),
+    "param_sharding": ("tp", "mesh"),
+    "async_checkpoint": (False, "obs"),
+    "forensics_dir": (None, "obs"),
+    "forensics_ring": (256, "obs"),
+    "forensics_max_captures": (3, "obs"),
+    "forensics_debounce_steps": (200, "obs"),
+    "forensics_trace_steps": (0, "obs"),
+    "forensics_hlo": (True, "obs"),
+    "forensics_step_time_factor": (2.0, "obs"),
+    "trace_dir": (None, "obs"),
+    "diag_every": (0, "obs"),
+    "metrics_csv": (None, "obs"),
+    "prom_textfile": (None, "obs"),
+    "grad_spike_factor": (10.0, "obs"),
 }
 
 
 def check_supported(train: TrainConfig) -> None:
     """Refuse the TrainConfig fields this trainer does not implement."""
-    for field, (default, item) in _UNSUPPORTED.items():
+    for field, (default, why) in UNSUPPORTED.items():
         if getattr(train, field) != default:
             raise NotImplementedError(
                 f"TrainConfig.{field}={getattr(train, field)!r} is not in the port's "
-                f"trainer yet (ROADMAP {item})")
+                f"trainer yet ({REASONS[why]})")
     if train.mesh_shape is not None and int(np.prod(train.mesh_shape)) > 1:
         raise NotImplementedError(
-            f"mesh_shape={train.mesh_shape}: the port trains on one card; the "
-            f"multi-GPU port is ROADMAP queue 1, item 6")
+            f"mesh_shape={train.mesh_shape}: the port trains on one card ({REASONS['mesh']})")
 
 
 def _to_numpy_tree(tree):
@@ -164,11 +203,20 @@ class Trainer:
             decoder=train.decoder, decoder_hidden_mult=train.decoder_hidden_mult,
             device=self.device, noise_seed=train.seed)
         self._step = denoise.make_step_fn(config, train, self.optimizer)
+        self._eval_suite = None
+        # without a suite, eval scores the incoming batch's denoising PSNR
+        self._eval = make_psnr_fn(config, noise_std=train.noise_std, iters=train.iters,
+                                  timestep=train.loss_timestep, level=train.loss_level,
+                                  decoder=train.decoder)
         self._stop_requested = False
         if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != ("dense", "dense"):
             # every kernel the config can run (K8 and its backward's K1-K7 with
             # "fused"), before the first step, which would otherwise pay for it
             _build.build_all()
+
+    def set_eval_suite(self, suite) -> None:
+        """Attach or replace the held-out :class:`~glom_tpu_torch.training.eval.EvalSuite`."""
+        self._eval_suite = suite
 
     # -- one step ------------------------------------------------------------
     def put(self, img) -> torch.Tensor:
@@ -216,43 +264,55 @@ class Trainer:
         with open(path) as f:
             return json.load(f).get("train", {})
 
-    def save(self, directory: str) -> str:
-        """Write the full training state at the current step; returns the
-        artifact's path."""
+    def save(self, directory: str, *, data_state: Optional[dict] = None) -> str:
+        """Write the full training state at the current step, with the data
+        stream's cursor ``data_state`` when given; returns the artifact's
+        path."""
         os.makedirs(directory, exist_ok=True)
         self._write_config_json(directory)
         st = self.state
+        opt = {"count": st.opt_state["count"], "mu": _to_numpy_tree(st.opt_state["mu"]),
+               "nu": _to_numpy_tree(st.opt_state["nu"])}
         trees = {
             "params": params_to_numpy(st.params),
-            "opt": {"count": np.asarray(st.opt_state["count"], np.int32),
-                    "mu": _to_numpy_tree(st.opt_state["mu"]),
-                    "nu": _to_numpy_tree(st.opt_state["nu"])},
-            "rng": st.generator.get_state().numpy(),
+            "opt": opt_state_to_optax(opt, self.train_cfg),
+            "rng": np.asarray([0, (self.train_cfg.seed + st.step) % 2 ** 32], np.uint32),
+            "generator": st.generator.get_state().numpy(),
         }
+        if data_state is not None:
+            trees["data"] = {k: np.asarray(int(v)) for k, v in data_state.items()}
         path = ckpt_lib.save(directory, st.step, trees)
         ckpt_lib.prune(directory, 3, protect=st.step)
         return path
 
-    def restore(self, directory: str, *, step: Optional[int] = None) -> int:
+    def restore(self, directory: str, *, step: Optional[int] = None, batches=None) -> int:
         """Restore params, optimizer state and the noise generator; with
         ``step=None`` from the newest step that passes its integrity check
-        (quarantining corrupt newer ones).  A ``glom_tpu`` checkpoint's optax
-        state is mapped onto the port's (:func:`opt_state_from_optax`); its
-        JAX PRNG key is not, so the noise generator keeps its fresh seed.
-        Returns the step."""
+        (quarantining corrupt newer ones).  The optimizer state is mapped
+        from the optax layout of the chain ``config.json`` names
+        (:func:`opt_state_from_optax`).  A ``glom_tpu`` checkpoint holds no
+        generator state (its JAX PRNG key has no torch counterpart), so the
+        noise generator keeps its fresh seed, with a warning.  When
+        ``batches`` is resumable (``load_state_dict``), the checkpoint's
+        ``data`` cursor is handed to it; a checkpoint without one warns and
+        leaves the stream where it is.  Returns the step."""
         self._validate_config_json(directory)
         step, trees = integrity.restore_with_fallback(
-            directory, ("params", "opt", "rng"), step=step)
-        opt = trees["opt"]
-        from_port = isinstance(opt, dict) and set(opt) == {"count", "mu", "nu"}
-        if not from_port:
-            opt = opt_state_from_optax(opt, self._recorded_train(directory))
+            directory, ("params", "opt"), optional=("generator", "data"), step=step)
+        opt = opt_state_from_optax(trees["opt"], self._recorded_train(directory))
+        if opt is None and isinstance(trees["opt"], dict) and set(trees["opt"]) == {
+                "count", "mu", "nu"}:
+            raise ValueError(
+                f"checkpoint step {step} in {directory} is in the port's older layout (opt as "
+                f"one {{count, mu, nu}} tree, rng as the generator's bytes), which no longer "
+                f"resumes: load its params with load_checkpoint_state or Glom.load and start "
+                f"a new optimizer")
         if opt is None:
             raise ValueError(
                 f"checkpoint step {step} in {directory}: its optimizer state is not in "
-                f"the port's layout {{count, mu, nu}} (a glom_tpu checkpoint holds optax "
-                f"state, which the port does not resume; load its params with "
-                f"load_checkpoint_state and start a new optimizer)")
+                f"the port's layout (the optax adam or adamw chain its config.json names; "
+                f"a custom optax transformation's state is not resumed: load its params "
+                f"with load_checkpoint_state and start a new optimizer)")
         ref = self.state.params
 
         def like(tree, template):
@@ -264,8 +324,9 @@ class Trainer:
             params,
             {"count": int(opt["count"]), "mu": like(opt["mu"], ref), "nu": like(opt["nu"], ref)},
             int(step), self.state.generator)
-        if from_port:
-            self.state.generator.set_state(torch.from_numpy(np.asarray(trees["rng"], np.uint8)))
+        if "generator" in trees:
+            self.state.generator.set_state(torch.from_numpy(np.asarray(trees["generator"],
+                                                                       np.uint8)))
         else:
             warnings.warn(
                 f"checkpoint step {step} in {directory} is glom_tpu's: its optimizer state "
@@ -273,20 +334,28 @@ class Trainer:
                 f"constants (b1 0.9, b2 0.999, eps 1e-8) assumed; its JAX PRNG key has no "
                 f"torch counterpart, so the noise generator starts fresh from this "
                 f"trainer's seed", stacklevel=2)
+        if batches is not None and hasattr(batches, "load_state_dict"):
+            if "data" in trees:
+                batches.load_state_dict({k: int(v) for k, v in trees["data"].items()})
+            else:
+                warnings.warn(f"checkpoint step {step} carries no data-iterator state; the "
+                              f"stream restarts from its initial cursor", stacklevel=2)
         return int(step)
 
     # -- the loop ------------------------------------------------------------
     def fit(self, batches: Iterator, steps: Optional[int] = None) -> dict:
         """Run the loop to ``steps`` total steps (default ``TrainConfig.steps``).
         With a checkpoint dir the loop first resumes from its newest valid
-        step, so ``steps`` at or below it does nothing.  Returns the last
-        logged metrics."""
+        step, so ``steps`` at or below it does nothing.  A resumable stream
+        (``state_dict``) has its cursor restored with the state and saved in
+        every checkpoint.  Returns the last logged metrics."""
         cfg = self.train_cfg
         steps = steps if steps is not None else cfg.steps
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir, strict=True) is not None:
             resume = integrity.latest_valid_step(cfg.checkpoint_dir)
             if resume is not None:
-                self.logger.log(self.restore(cfg.checkpoint_dir, step=resume), event=EVENT_RESUME)
+                self.logger.log(self.restore(cfg.checkpoint_dir, step=resume, batches=batches),
+                                event=EVENT_RESUME)
             else:
                 warnings.warn(f"every checkpoint in {cfg.checkpoint_dir} failed its integrity "
                               f"check and was quarantined; training restarts from step 0",
@@ -309,8 +378,24 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _evaluate(self, i: int, x: torch.Tensor, timer: PhaseTimer) -> None:
+        """The eval phase before step ``i + 1``: the queued steps drain first
+        (charged to ``step``), then the suite runs, or the incoming batch's
+        PSNR is taken before the step consumes it, with noise from a
+        generator seeded ``seed + i``."""
+        with timer.phase("step"):
+            self._sync()
+        with timer.phase("eval"), annotate("eval"):
+            gen = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed + i)
+            if self._eval_suite is not None:
+                self.logger.log(i + 1, **self._eval_suite.run(self.state.params, gen))
+            else:
+                self.logger.log(i + 1, psnr_db=float(self._eval(self.state.params, x,
+                                                                generator=gen)))
+
     def _fit_loop(self, batches, steps: int) -> dict:
         cfg = self.train_cfg
+        data_state = batches.state_dict if hasattr(batches, "state_dict") else lambda: None
         start = self.state.step
         last_metrics: dict = {}
         last_saved = -1
@@ -333,6 +418,8 @@ class Trainer:
                     img = next(batches)
                 with timer.phase("h2d"), annotate("h2d"):
                     x = self.put(img)
+                if cfg.eval_every and (i + 1) % cfg.eval_every == 0:
+                    self._evaluate(i, x, timer)
                 with timer.phase("step"), annotate("step"):
                     self.state, metrics = self._step(self.state, x)
                 timer.count_step()
@@ -346,7 +433,7 @@ class Trainer:
                     window = []
                 every = cfg.checkpoint_every
                 if cfg.checkpoint_dir and every and (i + 1) % every == 0:
-                    self.save(cfg.checkpoint_dir)
+                    self.save(cfg.checkpoint_dir, data_state=data_state())
                     last_saved = i + 1
                 if self._stop_requested:
                     self.logger.log(i + 1, event=EVENT_PREEMPT_STOP)
@@ -357,7 +444,7 @@ class Trainer:
             self._numerics(completed, window)
         if (cfg.checkpoint_dir and (cfg.checkpoint_every or stopped)
                 and last_saved != completed and start < completed):
-            self.save(cfg.checkpoint_dir)
+            self.save(cfg.checkpoint_dir, data_state=data_state())
         return last_metrics
 
     def _numerics(self, step: int, window: list) -> dict:
@@ -380,12 +467,13 @@ class Trainer:
     def _log_window(self, step: int, window: list, imgs: int, timer: PhaseTimer) -> dict:
         """One record: the last step's loss and grad norm, the window's
         images per second (host clock from the window's start until its last
-        step's values are on the host), its non-finite counts and its phase
-        times (``timer.window()``)."""
+        step's values are on the host, less the eval phase, as ``glom_tpu``
+        counts it), its non-finite counts and its phase times
+        (``timer.window()``)."""
         with timer.phase("log_sync"), annotate("log_sync"):
             last = {k: float(window[-1][k]) for k in ("loss", "grad_norm")}
         phases = timer.window()
         num = self._numerics(step, window)
-        self.logger.log(step, imgs_per_sec=imgs / max(phases["t_window"], 1e-9), **last, **num,
-                        **phases)
+        train_s = phases["t_window"] - phases.get("t_eval", 0.0)
+        self.logger.log(step, imgs_per_sec=imgs / max(train_s, 1e-9), **last, **num, **phases)
         return last

@@ -64,9 +64,55 @@ def test_bench_without_a_card_refuses_and_prints_no_record():
 
 
 def test_bench_refuses_data_images(capsys):
+    """``--data images`` streams a folder tree, so it needs one."""
     with pytest.raises(SystemExit):
         bench.parse_args(["--data", "images"])
-    assert "ROADMAP queue 1, item 3" in capsys.readouterr().err
+    assert "--data images needs --data-dir" in capsys.readouterr().err
+
+
+@pytest.fixture(scope="module")
+def jpeg_tree(tmp_path_factory):
+    """16 JPEGs in two class folders, written with PIL."""
+    from PIL import Image
+
+    import numpy as np
+
+    root = tmp_path_factory.mktemp("bench_jpegs")
+    rng = np.random.default_rng(0)
+    for c in range(2):
+        (root / f"c{c}").mkdir()
+        for i in range(8):
+            Image.fromarray(rng.integers(0, 255, (72, 80, 3), dtype=np.uint8)).save(
+                root / f"c{c}" / f"{i}.jpg")
+    return str(root)
+
+
+def test_bench_streams_an_image_tree_under_the_realdata_metric(jpeg_tree):
+    """``--data images --data-dir``: one record under the ``_realdata`` name,
+    a fresh batch of the tree a step."""
+    out = _run_bench("--config", "tiny", "--device", "cpu", "--data", "images", "--data-dir",
+                     jpeg_tree, "--data-workers", "2")
+    assert out.returncode == 0, out.stderr[-2000:]
+    (rec,) = _records(out.stdout)
+    assert rec["metric"] == "denoise_ssl_train_imgs_per_sec_per_chip_tiny_realdata"
+    assert rec["status"] == "ok" and rec["data"] == "images" and rec["value"] > 0
+
+
+@pytest.mark.parametrize("decode", ["auto", "python"])
+def test_bench_decode_flag_picks_the_decoder(jpeg_tree, decode, monkeypatch, capsys):
+    """``--decode auto`` decodes the all-JPEG tree in the native core;
+    ``--decode python`` takes the per-file Python decoders and never calls it."""
+    from glom_tpu_torch import native
+
+    calls = []
+    real = native.decode_jpeg_batch
+    monkeypatch.setattr(native, "decode_jpeg_batch",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rec = bench.main(["--config", "tiny", "--device", "cpu", "--data", "images", "--data-dir",
+                      jpeg_tree, "--decode", decode, "--steps", "1", "--warmup", "0",
+                      "--batch-size", "4", "--data-workers", "2"])
+    assert rec["metric"].endswith("_realdata") and _records(capsys.readouterr().out) == [rec]
+    assert bool(calls) == (decode == "auto" and native.has_jpeg())
 
 
 def test_bench_in_process_traces_the_step_phase_outside_the_window(tmp_path, capsys):

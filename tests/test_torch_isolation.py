@@ -56,7 +56,9 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.obs.registry", "glom_tpu_torch.obs.exporters",
             "glom_tpu_torch.obs.tracing", "glom_tpu_torch.obs.triggers",
             "glom_tpu_torch.obs.events", "glom_tpu_torch.obs.slo",
-            "glom_tpu_torch.serving.compile_cache", "glom_tpu_torch.tools.loadgen"} <= set(mods)
+            "glom_tpu_torch.serving.compile_cache", "glom_tpu_torch.tools.loadgen",
+            "glom_tpu_torch.training.consistency", "glom_tpu_torch.training.eval",
+            "glom_tpu_torch.training.image_stream", "glom_tpu_torch.native"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -86,9 +88,11 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                           for n in names if _is_reference(n)]
     sources = {os.path.relpath(p, REPO) for p in _port_sources()}
-    assert len(sources) > 38 and {
+    assert len(sources) > 42 and {
         "glom_tpu_torch/tools/loadgen.py", "glom_tpu_torch/serving/compile_cache.py",
-        "glom_tpu_torch/obs/slo.py", "glom_tpu_torch/obs/tracing.py"} <= sources
+        "glom_tpu_torch/obs/slo.py", "glom_tpu_torch/obs/tracing.py",
+        "glom_tpu_torch/training/consistency.py", "glom_tpu_torch/training/eval.py",
+        "glom_tpu_torch/training/image_stream.py", "glom_tpu_torch/native/__init__.py"} <= sources
     assert not offenders, offenders
 
 
@@ -127,6 +131,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
                     "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
+                    "--steps", "1", "--consistency", "infonce", "--eval-every", "1"])
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"

@@ -438,6 +438,27 @@ def test_glom_tpu_optimizer_state_is_refused(tmp_path, case):
         _trainer(_train_cfg()).restore(d)
 
 
+def test_older_port_layout_is_refused_by_name_and_its_params_load(tmp_path):
+    """A checkpoint in the port's older layout (opt one ``{count, mu, nu}``
+    tree, rng the generator's bytes) does not resume: the error names that
+    layout and the params-only loaders, and its params still load."""
+    d = str(tmp_path)
+    trainer = _trainer(_train_cfg())
+    trainer.save(d)
+    st = trainer.state
+    ckpt_lib.save(d, 1, {"params": _to_np(st.params),
+                         "opt": {"count": np.asarray(st.opt_state["count"], np.int32),
+                                 "mu": _to_np(st.opt_state["mu"]),
+                                 "nu": _to_np(st.opt_state["nu"])},
+                         "rng": st.generator.get_state().numpy()})
+    with pytest.raises(ValueError, match="older layout.*load_checkpoint_state or Glom.load"):
+        _trainer(_train_cfg()).restore(d, step=1)
+    step, _, _, params = denoise.load_checkpoint_state(d, step=1, device="cpu")
+    assert step == 1
+    for a, b in zip(glom_model.tree_leaves(params), glom_model.tree_leaves(st.params)):
+        assert torch.equal(a, b)
+
+
 def test_halt_on_nan_raises_before_a_checkpoint(tmp_path):
     bad = np.full((2, 3, 16, 16), np.nan, np.float32)
     trainer = _trainer(_train_cfg(tmp_path, steps=2, log_every=1, halt_on_nan=True,
@@ -473,8 +494,8 @@ def test_fit_logs_every_log_every_steps(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("consistency", "mse", "item 3"),
-    ("eval_every", 5, "item 3"),
+    ("checkpoint_backend", "sharded", "item 6"),
+    ("grad_spike_factor", 3.0, "item 7"),
     ("async_checkpoint", True, "item 7"),
     ("forensics_dir", "/nonexistent", "item 7"),
     ("mesh_shape", (2, 1, 1), "item 6"),
@@ -533,9 +554,9 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_flags(tmp_path, capsys):
     with open(tmp_path / "config.json") as f:
         recorded = json.load(f)
     assert recorded["glom"]["ff_impl"] == "pallas" and recorded["train"]["steps"] == 2
-    for flag, item in (["--consistency", "mse"], "item 3"), (["--mesh", "2", "1", "1"], "item 6"), (
-            ["--eval-every", "3"], "item 3"), (["--supervise"], "item 7"), (
-            ["--data", "folder"], "item 3"):
+    for flag, item in (["--trace-dir", "t"], "item 7"), (["--mesh", "2", "1", "1"], "item 6"), (
+            ["--coordinator", "h:1"], "item 6"), (["--supervise"], "item 7"), (
+            ["--diag-every", "3"], "item 7"):
         with pytest.raises(SystemExit):
             train.parse_args(flag)
         assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
