@@ -129,6 +129,31 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            glom_tpu_torch.training.train on the same data (--consistency
            mse --eval-every 5, 10 steps) must exit 0 with finite losses and
            psnr_db records;
+  classify the classifier (models/classifier.py) at flagship width, b=8, f32,
+           10 classes: logits and one unfrozen step's loss and gradients
+           through the kernels against the plain path; 3 Adam steps (the
+           main path: K1-K4, K6, K7 counted), ms a step, images/s, peak
+           memory; a frozen step under adamw with weight decay: K1 and K4
+           only, every backbone leaf bitwise as it was;
+  video    models/video.py and training/video.py at flagship width, 8 frames
+           of 4 images (examples/video_training.py's bench), 12 iterations
+           a frame: each frame's rolled-out state against the plain path;
+           one video step's loss and gradients over 4 frames under fixed
+           noise against the plain path; 3 f32 steps over the clip (the main
+           path, backprop through the carried state), then 3 in bf16 with
+           remat; frames/s of the rollout and the step, each step's peak
+           memory;
+  extract  training/extract.py::extract_embeddings on 64 seeded images in
+           batches of 24 (a tail of 16) through a checkpoint written with
+           ff_impl="pallas", against the same checkpoint forced to the plain
+           path, for the top level and for every level; images/s;
+  islands  the index forward (hierarchy/parse.py::make_index_fn) at b=8
+           against the plain path, then the islanding post-pass
+           (make_pack_fn: 256 fixed propagation steps) on the card with each
+           level's threshold at its 30/50/70 % agreement quantile, against
+           the host flood fill on the same maps: labels and counts bitwise,
+           sizes exact, means within 1e-5 of float64; the pack's time and
+           its device operations;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -302,6 +327,17 @@ def compare(got: torch.Tensor, want: torch.Tensor, dtype, what: str, part=None) 
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version: {err}")
     return err
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel: launches}`` since the last :func:`reset_launches`."""
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def phase_build() -> None:
@@ -1192,10 +1228,9 @@ def phase_serve_fused(device) -> dict:
     shape = (c.channels, c.image_size, c.image_size)
     imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in (1, 2, 8)}
     plan = (("embed", 1), ("embed", 8), ("reconstruct", 2))
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     health, requests, outs, served = serve_requests(engine, plan, imgs)
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     iters, t = engine.embed_iters, engine.reconstruct_timestep
     want = {k: 0 for k in launches}
     want["fused_level_update"] = 2 * iters + t
@@ -1315,8 +1350,7 @@ def phase_serve_load(device) -> dict:
         (3, c.channels, c.image_size, c.image_size)).astype(np.float32)
     try:
         before, _ = post(base + "/embed", {"images": probe.tolist()})
-        for fn in kernel_wrappers().values():
-            fn.launches = 0
+        reset_launches()
         snap0 = engine.registry.snapshot()
         closed = run_loadgen(base, "--concurrency", LOAD_CONCURRENCY,
                              "--duration", LOAD_CLOSED_S)
@@ -1343,7 +1377,7 @@ def phase_serve_load(device) -> dict:
         writer.join()
         snap2 = engine.registry.snapshot()
         reloaded = poll_step(base, 1)
-        launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated(device)
         after, _ = post(base + "/embed", {"images": probe.tolist()})
         metrics = get(base + "/metrics", raw=True)
@@ -1430,10 +1464,9 @@ def phase_train(device) -> dict:
     ckpt = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
 
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     kern, kern_log = fit_run(c, device, img, ckpt)
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     t = denoise.resolve_loss_timestep(kern.train_cfg, c.default_iters)
     want = {"fused_level_update": 0, "grouped_ff": 2 * t, "grouped_ff_dx": 2 * t,
@@ -1508,19 +1541,26 @@ def grads_vs_plain(config, train_cfg, params, img, noise):
                               "attention_impl": "dense", "remat": False, "fuse_ff": False})
 
     def grads(cfg):
-        loss, tree = denoise.loss_and_grads(denoise.make_loss_fn(cfg, train_cfg), params, img,
-                                            noise=noise)
-        return loss.item(), ckpt_lib.flatten({"": glom_model.tree_map(lambda t: t.cpu(), tree)})
+        return denoise.loss_and_grads(denoise.make_loss_fn(cfg, train_cfg), params, img,
+                                      noise=noise)
 
-    loss_k, gk = grads(config)
-    loss_p, gp = grads(plain_cfg)
+    (loss_k, gk), (loss_p, gp) = grads(config), grads(plain_cfg)
+    return {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+            **leaves_vs_plain(gk, gp, "gradient")}
+
+
+def leaves_vs_plain(grads_k: dict, grads_p: dict, what: str) -> dict:
+    """Every leaf of the gradient tree ``grads_k`` (through the kernels)
+    within GRAD_RTOL of ``grads_p``'s (the plain path), relative
+    (Frobenius); the worst leaf and its error."""
+    gk, gp = (ckpt_lib.flatten({"": glom_model.tree_map(lambda t: t.detach().cpu(), g)})
+              for g in (grads_k, grads_p))
     rel = {n[1:]: float(np.linalg.norm(gk[n] - gp[n]) / max(np.linalg.norm(gp[n]), 1e-30))
            for n in gp}
     worst = max(rel, key=rel.get)
     if not rel[worst] <= GRAD_RTOL:
-        raise AssertionError(f"gradient {worst} differs from the plain path by {rel[worst]}")
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_leaf": worst,
-            "worst_rel_err": rel[worst], "rtol": GRAD_RTOL}
+        raise AssertionError(f"{what}: {worst} differs from the plain path by {rel[worst]}")
+    return {"worst_leaf": worst, "worst_rel_err": rel[worst], "rtol": GRAD_RTOL}
 
 
 def log_step_ms(log):
@@ -1541,10 +1581,9 @@ def phase_train_fused(device, pallas_step_ms) -> dict:
     noise = torch.randn(shape, generator=gen).to(device)
 
     def counted_fit(cfg, steps):
-        for fn in kernel_wrappers().values():
-            fn.launches = 0
+        reset_launches()
         trainer, log = fit_run(cfg, device, img, steps=steps)
-        launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+        launches = launch_counts()
         return trainer, log, launches, {k: v / steps for k, v in launches.items()}
 
     kern, log, launches, per_step = counted_fit(c, FUSED_TRAIN_STEPS)
@@ -1705,10 +1744,9 @@ def two_view_vs_plain(config, train_cfg, params, img, noise, want_launches) -> d
     against the plain path's: the loss within LOSS_RTOL, each leaf within
     GRAD_RTOL, and the kernels' launches (the plain path makes none)
     ``want_launches``."""
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     grad = grads_vs_plain(config, train_cfg, params, img, noise)
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     if launches != want_launches:
         raise AssertionError(f"two-view loss and gradients launched {launches}, expected "
                              f"{want_launches}")
@@ -1800,10 +1838,9 @@ def eval_vs_plain(config, suite, params, noise_std: float, timestep: int, seed: 
                                      timestep=timestep)(params, imgs, noise=noise)
         return emb, state, psnr
 
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     got = forwards(config)
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     want_launches = {k: 0 for k in launches}
     want_launches["grouped_ff"] = 2 * (iters + 2 * timestep)
     want_launches["consensus_attention"] = iters + 2 * timestep
@@ -1868,11 +1905,10 @@ def phase_train_data(device) -> dict:
                 "fused_infonce": two_view_vs_plain(fused, tc, params, img, noise, fused_step),
                 "pallas_mse": two_view_vs_plain(c, mse, params, img, noise, per_step)}
     step = denoise.make_step_fn(c, tc, trainer.optimizer)
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     step(trainer.state, img, noise=noise)
     torch.cuda.synchronize()
-    one_step = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    one_step = launch_counts()
     if one_step != per_step:
         raise AssertionError(f"two-view step launches {one_step}, expected {per_step}")
     memory = step_memory(step, trainer.state, img, noise)
@@ -1910,13 +1946,12 @@ def phase_train_data(device) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    reset_launches()
     try:
         whole.fit(stream)
     finally:
         stream.it.close()
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = launch_counts()
     fit_peak = torch.cuda.max_memory_allocated()
     # launches: the steps', plus each eval's forwards (K1 twice and K4 once an
     # iteration): the PSNR chunks to the loss timestep, the probe's to 12
@@ -1995,6 +2030,386 @@ def phase_train_data(device) -> dict:
           "losses": cli_losses, "psnr_db": cli_psnr, "seconds": cli_s})
     shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "train_data_done", "seconds": time.monotonic() - t0})
+    return launches
+
+
+# The slice's paths beside the denoising step: the classifier (CLASSIFY_STEPS
+# steps at b=8 over CLASSIFY_CLASSES classes), video (examples/video_training.py's
+# bench sizes: VIDEO_FRAMES frames of VIDEO_BATCH images; the gradient check on
+# the first VIDEO_GRAD_FRAMES), extraction (EXTRACT_IMAGES seeded images in
+# batches of EXTRACT_BATCH, the last a shorter tail) and the islanding post-pass
+# (thresholds at each level's ISLAND_QUANTILES of agreement)
+CLASSIFY_CLASSES, CLASSIFY_STEPS = 10, 3
+VIDEO_FRAMES, VIDEO_BATCH, VIDEO_GRAD_FRAMES, VIDEO_STEPS = 8, 4, 4, 3
+EXTRACT_IMAGES, EXTRACT_BATCH = 64, 24
+ISLAND_QUANTILES = (0.3, 0.5, 0.7)
+# a path through the kernels against the plain path on the same inputs and
+# params, float32: relative (Frobenius), the train phase's rule
+PATH_RTOL = 1e-4
+# the pack's island means against a float64 mean of the same cells
+ISLAND_MEAN_ATOL = 1e-5
+
+
+def kernel_config(**kw) -> GlomConfig:
+    """Flagship through the kernels: K1 and K4 forward, K2, K3, K6, K7 backward."""
+    return GlomConfig(**{**FLAGSHIP.to_json_dict(), "ff_impl": "pallas", "ff_fused_bwd": True,
+                         "attention_impl": "pallas", **kw})
+
+
+def plain_of(config: GlomConfig) -> GlomConfig:
+    return GlomConfig(**{**config.to_json_dict(), "ff_impl": "dense", "attention_impl": "dense"})
+
+
+def want_launches(fwd: int, bwd: int = 0) -> dict:
+    """The launches of ``fwd`` forward iterations on "pallas" (K1 twice, K4
+    once each) and ``bwd`` backward ones (K2 and K3 twice, K6 and K7 once)."""
+    return {"fused_level_update": 0, "grouped_ff": 2 * fwd, "grouped_ff_dx": 2 * bwd,
+            "grouped_ff_dw": 2 * bwd, "consensus_attention": fwd, "consensus_dkv": bwd,
+            "consensus_dq": bwd}
+
+
+def check_launches(what: str, got: dict, want: dict) -> dict:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def vs_plain(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """``got`` (through the kernels) within PATH_RTOL of ``want`` (the plain
+    path), finite; the relative error."""
+    err = rel_err(got, want)
+    if not (bool(torch.isfinite(got).all()) and err <= PATH_RTOL):
+        raise AssertionError(f"{what}: {err} from the plain path (limit {PATH_RTOL})")
+    return err
+
+
+def loss_and_leaves_vs_plain(loss_k, grads_k, loss_p, grads_p, what: str) -> dict:
+    """A loss within LOSS_RTOL and every gradient leaf within GRAD_RTOL of
+    the plain path's (relative)."""
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not loss_rel <= LOSS_RTOL:
+        raise AssertionError(f"{what}: loss {float(loss_k)} vs plain {float(loss_p)} "
+                             f"({loss_rel})")
+    return {"loss_kernels": float(loss_k), "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+            "loss_rtol": LOSS_RTOL, **leaves_vs_plain(grads_k, grads_p, what)}
+
+
+def host_ms(fn):
+    """``(ms, fn())`` on the host's clock between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def timed_steps(step, state, *args, steps: int, **kw):
+    """``steps`` calls ``state, metrics = step(state, *args, **kw)``:
+    ``(state, [ms], [loss])``, each on the host's clock, the losses finite."""
+    ms, losses = [], []
+    for _ in range(steps):
+        t, (state, metrics) = host_ms(lambda: step(state, *args, **kw))
+        ms.append(t)
+        losses.append(metrics["loss"].item())
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"losses not finite: {losses}")
+    return state, ms, losses
+
+
+def phase_classify(device) -> dict:
+    """The classifier at flagship width, b=8, f32, 12 iterations: logits and
+    one unfrozen step's loss and gradients through the kernels against the
+    plain path; the main path, CLASSIFY_STEPS unfrozen Adam steps (counts set
+    to 0 just before, read just after), timed, with one step's peak memory;
+    a frozen step under adamw with weight decay, which must launch no
+    backward kernel and leave every backbone leaf bitwise as it was."""
+    from glom_tpu_torch.models import classifier
+    from glom_tpu_torch.training.optim import Optimizer
+
+    c = kernel_config()
+    plain = plain_of(c)
+    iters = c.default_iters
+    gen = torch.Generator().manual_seed(2)
+    params = classifier.init(gen, c, CLASSIFY_CLASSES, device)
+    imgs = torch.randn((BATCH, c.channels, c.image_size, c.image_size), generator=gen).to(device)
+    labels = (torch.arange(BATCH) % CLASSIFY_CLASSES).to(device)
+
+    with torch.inference_mode():
+        reset_launches()
+        logits = classifier.apply(params, imgs, config=c)
+        fwd = check_launches("classifier logits", launch_counts(), want_launches(iters))
+        logits_err = vs_plain(logits, classifier.apply(params, imgs, config=plain),
+                              "classifier logits")
+
+    def loss_grads(cfg):
+        live = glom_model.tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = classifier.make_loss_fn(cfg)(live, imgs, labels)
+        return loss.detach(), classifier.grads_of(loss, live)
+
+    grad = loss_and_leaves_vs_plain(*loss_grads(c), *loss_grads(plain), "classifier step")
+
+    opt = Optimizer(1e-4)
+    step = classifier.make_train_step(c, opt)
+
+    def step3(carry):
+        p, s, m = step(carry[0], carry[1], imgs, labels)
+        return (p, s), m
+
+    reset_launches()
+    (p, s), ms, losses = timed_steps(step3, (params, opt.init(params)), steps=CLASSIFY_STEPS)
+    launches = check_launches("classifier steps", launch_counts(),
+                              want_launches(iters * CLASSIFY_STEPS, iters * CLASSIFY_STEPS))
+    memory = memory_analysis(step, p, s, imgs, labels)
+    del p, s
+
+    frozen_opt = Optimizer(1e-3, weight_decay=0.1)
+    frozen = classifier.make_train_step(c, frozen_opt, freeze_backbone=True)
+    fs = frozen_opt.init(params)
+    reset_launches()
+    frozen_ms, (fp, fs, fm) = host_ms(lambda: frozen(params, fs, imgs, labels))
+    frozen_launches = check_launches("frozen classifier step", launch_counts(),
+                                     want_launches(iters))
+    unchanged = all(torch.equal(a, b) for a, b in zip(glom_model.tree_leaves(params["glom"]),
+                                                      glom_model.tree_leaves(fp["glom"])))
+    if not unchanged or torch.equal(fp["head"]["w"], params["head"]["w"]):
+        raise AssertionError(f"frozen step: backbone unchanged {unchanged}, head moved "
+                             f"{not torch.equal(fp['head']['w'], params['head']['w'])}")
+    step_ms = statistics.median(ms[1:])
+    emit({"phase": "classify", "config": {"dim": c.dim, "levels": c.levels, "batch": BATCH,
+                                          "iters": iters, "classes": CLASSIFY_CLASSES,
+                                          "ff_impl": c.ff_impl, "attention_impl": c.attention_impl},
+          "logits_rel_err": logits_err, "logits_rtol": PATH_RTOL, "forward_launches": fwd,
+          "step_vs_plain": grad, "steps": CLASSIFY_STEPS, "losses": losses, "step_ms": ms,
+          "ms_per_step": step_ms, "images_per_s": 1e3 * BATCH / step_ms,
+          "step_ms_note": "host clock between synchronizations; ms_per_step the median "
+                          "after the first", "launches": launches,
+          "launches_per_step": {k: v // CLASSIFY_STEPS for k, v in launches.items()},
+          "step_memory": memory, "frozen": {"launches": frozen_launches, "ms": frozen_ms,
+                                            "backbone_bitwise_unchanged": unchanged,
+                                            "loss": fm["loss"].item(), "weight_decay": 0.1}})
+    return launches
+
+
+def phase_video(device) -> dict:
+    """Video at flagship width, 12 iterations a frame, VIDEO_FRAMES frames of
+    VIDEO_BATCH images: each frame's rolled-out state through the kernels
+    against the plain path (f32); one video train step's loss and gradients
+    over VIDEO_GRAD_FRAMES frames under fixed noise against the plain path;
+    the main path, VIDEO_STEPS f32 train steps over the whole clip (counts set
+    to 0 just before, read just after), timed with their peak memory; then
+    the rollout and the step timed in bf16 with remat."""
+    from glom_tpu_torch.models import video
+    from glom_tpu_torch.training import video as tvideo
+    from glom_tpu_torch.training.optim import Optimizer
+
+    c = kernel_config()
+    plain = plain_of(c)
+    iters = c.default_iters
+    tc = TrainConfig(batch_size=VIDEO_BATCH, learning_rate=1e-3, iters=iters, noise_std=0.3)
+    opt = Optimizer(tc.learning_rate)
+    state = denoise.init_state(torch.Generator().manual_seed(3), c, opt, device=device)
+    gen = torch.Generator().manual_seed(4)
+    shape = (VIDEO_FRAMES, VIDEO_BATCH, c.channels, c.image_size, c.image_size)
+    clip = torch.randn(shape, generator=gen).to(device)
+    noise = torch.randn(shape, generator=gen).to(device)
+    glom = state.params["glom"]
+    frames_total = VIDEO_FRAMES * VIDEO_BATCH
+
+    with torch.inference_mode():
+        reset_launches()
+        _, states = video.rollout(glom, clip, config=c, return_states=True)
+        roll = check_launches("rollout", launch_counts(), want_launches(iters * VIDEO_FRAMES))
+        _, plain_states = video.rollout(glom, clip, config=plain, return_states=True)
+        frame_err = [vs_plain(k, p, f"rollout frame {i}")
+                     for i, (k, p) in enumerate(zip(states, plain_states))]
+    del states, plain_states
+
+    short, short_noise = clip[:VIDEO_GRAD_FRAMES], noise[:VIDEO_GRAD_FRAMES]
+
+    def video_grads(cfg):
+        return denoise.loss_and_grads(tvideo.make_video_loss_fn(cfg, tc), state.params, short,
+                                      noise=short_noise)
+
+    reset_launches()
+    kern = video_grads(c)
+    n_short = iters * VIDEO_GRAD_FRAMES
+    grad_launches = check_launches("video loss and gradients", launch_counts(),
+                                   want_launches(n_short, n_short))
+    grad = loss_and_leaves_vs_plain(*kern, *video_grads(plain), "video step")
+    del kern
+
+    def rollout_ms(cfg):
+        """Three rollouts of the clip, each on the host's clock; the first
+        of a configuration takes its one-time costs."""
+        with torch.inference_mode():
+            return [host_ms(lambda: video.rollout(glom, clip, config=cfg))[0] for _ in range(3)]
+
+    n_clip = iters * VIDEO_FRAMES
+    timings = {"float32": {"rollout_ms": rollout_ms(c)}}
+    step = tvideo.make_video_train_step(c, tc, opt)
+    reset_launches()
+    s, ms, losses = timed_steps(step, state, clip, noise=noise, steps=VIDEO_STEPS)
+    launches = check_launches("video steps", launch_counts(),
+                              want_launches(n_clip * VIDEO_STEPS, n_clip * VIDEO_STEPS))
+    timings["float32"].update({"step_ms": ms, "losses": losses,
+                               "step_memory": memory_analysis(step, s, clip, noise=noise)})
+    del s
+
+    # bf16 compute with remat: the forward's K1 and K4 run again in the backward;
+    # the bf16 rollout runs first, so that the step's first time holds remat's
+    # one-time cost and not bf16's
+    cb = kernel_config(compute_dtype="bfloat16", remat=True)
+    timings["bfloat16_remat"] = {"rollout_ms": rollout_ms(cb)}
+    step_b = tvideo.make_video_train_step(cb, tc, opt)
+    reset_launches()
+    s, ms_b, losses_b = timed_steps(step_b, state, clip, noise=noise, steps=VIDEO_STEPS)
+    check_launches("bf16 remat video steps", launch_counts(),
+                   want_launches(2 * n_clip * VIDEO_STEPS, n_clip * VIDEO_STEPS))
+    timings["bfloat16_remat"].update({"step_ms": ms_b, "losses": losses_b,
+                                      "step_memory": memory_analysis(step_b, s, clip,
+                                                                     noise=noise)})
+    del s
+    for t in timings.values():
+        t.update({"rollout_frames_per_s": 1e3 * frames_total / statistics.median(
+                      t["rollout_ms"][1:]),
+                  "step_frames_per_s": 1e3 * frames_total / statistics.median(t["step_ms"][1:])})
+    emit({"phase": "video", "config": {"dim": c.dim, "levels": c.levels, "frames": VIDEO_FRAMES,
+                                       "batch": VIDEO_BATCH, "iters": iters,
+                                       "noise_std": tc.noise_std},
+          "rollout_launches": roll, "rollout_frame_rel_err": frame_err, "rtol": PATH_RTOL,
+          "grad_frames": VIDEO_GRAD_FRAMES, "step_vs_plain": grad,
+          "grad_launches": grad_launches, "launches": launches, "steps": VIDEO_STEPS,
+          "timings": timings,
+          "timing_note": "host clock between synchronizations; frames/s = frames x batch over "
+                         "the median after the first; step_memory: one step's peak"})
+    return launches
+
+
+def phase_extract(device) -> dict:
+    """Embedding extraction at flagship width: a checkpoint written with
+    ff_impl="pallas", loaded as the CLI loads it, and extract_embeddings on
+    EXTRACT_IMAGES seeded images (the main path: counts set to 0 just before
+    the top-level run, read just after) against the same checkpoint forced
+    to the plain path, for the top level and for every level; images/s."""
+    from glom_tpu_torch.training import extract
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_extract_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    make_demo_checkpoint(ckpt, config=kernel_config(), seed=5)
+    step, config, _, params = denoise.load_checkpoint_state(ckpt, device=device)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if (config.ff_impl, config.attention_impl) != ("pallas", "pallas"):
+        raise AssertionError(f"the checkpoint's config: {config.ff_impl}, "
+                             f"{config.attention_impl}")
+    imgs = np.random.default_rng(6).standard_normal(
+        (EXTRACT_IMAGES, config.channels, config.image_size, config.image_size)).astype(np.float32)
+    batches = [imgs[i:i + EXTRACT_BATCH] for i in range(0, EXTRACT_IMAGES, EXTRACT_BATCH)]
+    n_fwd = config.default_iters * len(batches)
+    rows, launches = {}, None
+    for name, kw in (("level", {"level": -1}), ("all_levels", {"all_levels": True})):
+        reset_launches()
+        got = extract.extract_embeddings(params["glom"], config, batches, **kw)
+        counted = check_launches(f"extract {name}", launch_counts(), want_launches(n_fwd))
+        launches = launches or counted
+        want = extract.extract_embeddings(params["glom"], plain_of(config), batches, **kw)
+        shape = (EXTRACT_IMAGES,) + ((config.levels,) if name == "all_levels" else ()) + (
+            config.dim,)
+        if got.shape != shape or got.dtype != np.float32:
+            raise AssertionError(f"extract {name}: {got.shape} {got.dtype}, expected {shape}")
+        err = vs_plain(torch.from_numpy(got), torch.from_numpy(want), f"extract {name}")
+        ms = {path: host_ms(lambda: extract.extract_embeddings(params["glom"], cfg, batches,
+                                                               **kw))[0]
+              for path, cfg in (("kernels", config), ("plain", plain_of(config)))}
+        rows[name] = {"rel_err": err, "shape": list(shape), "ms": ms,
+                      "images_per_s": {k: 1e3 * EXTRACT_IMAGES / v for k, v in ms.items()}}
+    emit({"phase": "extract", "checkpoint_step": step, "images": EXTRACT_IMAGES,
+          "batches": [len(b) for b in batches], "iters": config.default_iters,
+          "rtol": PATH_RTOL, "launches": launches, **rows,
+          "ms_note": "host clock over extract_embeddings on the 64 images (each batch's "
+                     "embeddings back on the host), after the counted and compared runs"})
+    return launches
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) of one call of ``fn``,
+    from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def phase_islands(device) -> dict:
+    """GLOM's islands at flagship width, b=8: the index forward (the main
+    path: counts set to 0 just before, read just after) against the plain
+    path; then make_pack_fn on the card, with each level's threshold at its
+    ISLAND_QUANTILES of agreement, against the host flood fill on the same
+    agreement maps: labels and counts bitwise, sizes exact, means within
+    ISLAND_MEAN_ATOL of a float64 mean of the same cells; the pack's time
+    and its device operations."""
+    from glom_tpu_torch.hierarchy import parse
+    from glom_tpu_torch.models.islands import label_islands
+    from glom_tpu_torch.obs.quality import agreement_maps
+
+    c = kernel_config()
+    side, n, L, d = c.num_patches_side, c.num_patches, c.levels, c.dim
+    gen = torch.Generator().manual_seed(7)
+    params = {"glom": glom_model.init(gen, c, device)}
+    imgs = torch.randn((BATCH, c.channels, c.image_size, c.image_size), generator=gen).to(device)
+    with torch.inference_mode():
+        reset_launches()
+        levels = parse.make_index_fn(c, None)(params, imgs)
+        launches = check_launches("index forward", launch_counts(),
+                                  want_launches(c.default_iters))
+        index_err = vs_plain(levels, parse.make_index_fn(plain_of(c), None)(params, imgs),
+                             "index forward")
+        agree = agreement_maps(levels, side)[1]
+    agree_np = agree.cpu().numpy()
+    states = levels.double().cpu().numpy()
+    cases = []
+    for q in ISLAND_QUANTILES:
+        thr = tuple(float(torch.quantile(agree[:, lv].flatten(), q)) for lv in range(L))
+        pack = parse.make_pack_fn(c, thr)
+        with torch.inference_mode():
+            rows = pack(levels).cpu().numpy()
+            pack_ms = time_ms(lambda: pack(levels))
+            ops = device_ops(lambda: pack(levels))
+        labels = rows[:, :L * n].reshape(BATCH, L, side, side)
+        counts = rows[:, L * n:L * n + L]
+        sizes = rows[:, L * n + L:2 * L * n + L].reshape(BATCH, L, n)
+        means = rows[:, 2 * L * n + L:].reshape(BATCH, L, n, d)
+        mean_err, islands = 0.0, []
+        for i in range(BATCH):
+            for lv in range(L):
+                want, want_sizes = label_islands(agree_np[i, lv], thr[lv])
+                k = len(want_sizes)
+                if not (np.array_equal(labels[i, lv], want) and counts[i, lv] == k
+                        and np.array_equal(sizes[i, lv, :k], want_sizes)
+                        and not sizes[i, lv, k:].any() and not means[i, lv, k:].any()):
+                    raise AssertionError(f"islands q={q} image {i} level {lv}: the pack's "
+                                         f"labelling differs from the host flood fill")
+                sums = np.zeros((k + 1, d))
+                np.add.at(sums, want.ravel(), states[i, :, lv])
+                ref = sums[1:] / want_sizes[:, None]
+                mean_err = max(mean_err, float(np.abs(means[i, lv, :k] - ref).max(initial=0.0)))
+                islands.append(k)
+        if not mean_err <= ISLAND_MEAN_ATOL:
+            raise AssertionError(f"islands q={q}: means {mean_err} from float64")
+        cases.append({"quantile": q, "thresholds": thr,
+                      "above_share": float((agree >= torch.tensor(
+                          thr, device=agree.device)[None, :, None, None]).float().mean()),
+                      "islands_min": min(islands), "islands_max": max(islands),
+                      "islands_mean": float(np.mean(islands)), "mean_max_abs_err": mean_err,
+                      "pack_ms": pack_ms, "pack_device_ops": ops})
+    emit({"phase": "islands", "batch": BATCH, "side": side, "levels": L, "dim": d,
+          "propagation_steps": n, "index_rel_err": index_err, "rtol": PATH_RTOL,
+          "launches": launches, "row_width": parse.parse_row_width(L, side, d),
+          "mean_atol": ISLAND_MEAN_ATOL, "cases": cases,
+          "pack_ms_note": "CUDA events, the median of 20 runs of 5 calls; device ops from a "
+                          "torch.profiler trace of one call"})
     return launches
 
 
@@ -2122,7 +2537,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
-          "train_fused", "train_data", "bench")
+          "train_fused", "train_data", "classify", "video", "extract", "islands", "bench")
 
 
 def parse_args(argv):
@@ -2134,7 +2549,9 @@ def parse_args(argv):
                         f"iterating on one part: {', '.join(PHASES)} (k1: K1's rows alone; "
                         "k2: K2's; k3: K3's, each with the K2 it needs and the pair; k6: K6's, "
                         "each with the K7 on its dS' and the pair; k8: K8's; train_data: "
-                        "the data streams, two views, eval and resume; bench: the "
+                        "the data streams, two views, eval and resume; classify, video, "
+                        "extract, islands: the classifier, video, extraction and islanding "
+                        "paths; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -2144,6 +2561,11 @@ def parse_args(argv):
         if unknown or not args.only:
             p.error(f"--only takes phases among {PHASES}, got {args.only}")
     return args
+
+
+# the classifier, video, extraction and islanding paths, in the full run's order
+SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
+                "islands": phase_islands}
 
 
 def run_only(device, names) -> int:
@@ -2166,6 +2588,8 @@ def run_only(device, names) -> int:
             phase_train_fused(device, pallas_step_ms)
         elif name == "train_data":
             phase_train_data(device)
+        elif name in SLICE_PHASES:
+            SLICE_PHASES[name](device)
         elif name == "bench":
             phase_bench(nvidia_smi(), pallas_step_ms)
     print(nvidia_smi(), flush=True)
@@ -2196,11 +2620,13 @@ def main(argv=()) -> int:
     phase_serve_load(device)
     fused_train_launches = phase_train_fused(device, pallas_step_ms)
     data_launches = phase_train_data(device)
+    slice_launches = {name: phase(device) for name, phase in SLICE_PHASES.items()}
     phase_bench(smi, pallas_step_ms)
     # launches: the serving path's count for the forward kernels (K8: the
     # fused serving path's), the train path's for the backward ones;
     # launches_train: the train path's for all (K8: the fused train path's);
-    # launches_train_fused: the fused train path's for all
+    # launches_train_fused: the fused train path's for all; launches_classify,
+    # _video, _extract, _islands: each of those paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]
@@ -2226,6 +2652,8 @@ def main(argv=()) -> int:
                         "launches": launches[name], "launches_train": train_launches[name],
                         "launches_train_fused": fused_train_launches[name],
                         "launches_train_data": data_launches[name],
+                        **{f"launches_{path}": counts[name]
+                           for path, counts in slice_launches.items()},
                         "unfused_kernels_ms": row.get("unfused_kernels_ms"),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],

@@ -17,7 +17,7 @@ from glom_tpu_torch import Glom
 from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.serving import server
 from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
-from glom_tpu_torch.training import train
+from glom_tpu_torch.training import extract, train
 from glom_tpu_torch.training.trainer import Trainer
 
 # tier-1 runs these files beside the JAX suite under several workers; one
@@ -58,7 +58,12 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.obs.events", "glom_tpu_torch.obs.slo",
             "glom_tpu_torch.serving.compile_cache", "glom_tpu_torch.tools.loadgen",
             "glom_tpu_torch.training.consistency", "glom_tpu_torch.training.eval",
-            "glom_tpu_torch.training.image_stream", "glom_tpu_torch.native"} <= set(mods)
+            "glom_tpu_torch.training.image_stream", "glom_tpu_torch.native",
+            "glom_tpu_torch.models.classifier", "glom_tpu_torch.models.video",
+            "glom_tpu_torch.models.islands", "glom_tpu_torch.training.video",
+            "glom_tpu_torch.training.extract", "glom_tpu_torch.obs.quality",
+            "glom_tpu_torch.hierarchy", "glom_tpu_torch.hierarchy.parse",
+            "glom_tpu_torch.hierarchy.index"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -92,7 +97,12 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
         "glom_tpu_torch/tools/loadgen.py", "glom_tpu_torch/serving/compile_cache.py",
         "glom_tpu_torch/obs/slo.py", "glom_tpu_torch/obs/tracing.py",
         "glom_tpu_torch/training/consistency.py", "glom_tpu_torch/training/eval.py",
-        "glom_tpu_torch/training/image_stream.py", "glom_tpu_torch/native/__init__.py"} <= sources
+        "glom_tpu_torch/training/image_stream.py", "glom_tpu_torch/native/__init__.py",
+        "glom_tpu_torch/models/classifier.py", "glom_tpu_torch/models/video.py",
+        "glom_tpu_torch/models/islands.py", "glom_tpu_torch/training/video.py",
+        "glom_tpu_torch/training/extract.py", "glom_tpu_torch/obs/quality.py",
+        "glom_tpu_torch/hierarchy/__init__.py", "glom_tpu_torch/hierarchy/parse.py",
+        "glom_tpu_torch/hierarchy/index.py"} <= sources
     assert not offenders, offenders
 
 
@@ -134,6 +144,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
                     "--steps", "1", "--consistency", "infonce", "--eval-every", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract.main(["--checkpoint-dir", str(tmp_path), "--data-dir", str(tmp_path)])
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"
