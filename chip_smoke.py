@@ -55,15 +55,16 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            sum on the same hidden), and the pair timed together against the
            TPU kernels' work;
   serve    a flagship demo checkpoint (dim 512, 6 levels, 224/14, random
-           seeded weights) served over HTTP in-process, every bucket of both
-           endpoints a CUDA graph captured at start-up: /embed with batches
+           seeded weights) served over HTTP in-process, every bucket of every
+           graph family (/embed, /reconstruct, the index forward and /parse's
+           pack) a CUDA graph captured at start-up: /embed with batches
            of 1, 3 and 8, /reconstruct with 2, each with an X-Request-Id;
            shapes, finiteness, the id echoed, one answer against the plain
            path on the card, the kernels' launch counts (through replays),
            no graph captured on the request path (/metrics), the first
            request's trace in /debug/traces with glom_tpu's span names;
-           then each bucket (1, 2, 4, 8) of both endpoints replayed against
-           the same engine's eager forward (bitwise), the b=1, 4 and 8
+           then each bucket (1, 2, 4, 8) of both endpoints and of the index
+           forward replayed against the same engine's eager forward (bitwise), the b=1, 4 and 8
            /embed forward eager against replayed, the capture seconds and
            the graph pools' bytes;
   profile  a torch.profiler trace of three b=8 /embed forwards through the
@@ -154,6 +155,33 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            the host flood fill on the same maps: labels and counts bitwise,
            sizes exact, means within 1e-5 of float64; the pack's time and
            its device operations;
+  quant    serving at f32, bf16 and int8 on "pallas" and "fused" (six engines,
+           every family captured at start-up; bf16 and int8 at buckets 1
+           and 8): each bucket's /embed and /reconstruct replay bitwise its
+           eager forward; the b=8 /embed against the plain path in the same
+           mode (f32 1e-4, bf16 and int8 1e-2, relative); accuracy_report of
+           bf16 and int8 against f32 with glom_tpu's thresholds (a miss is
+           recorded); resident parameter bytes, each family's pool bytes,
+           /embed b=1 and b=8 replay (device) and served (host) times;
+  sessions stateful sessions, warm_iters "auto" (6 of 12), f32 "pallas": 8
+           chained frames at b=1 and b=4 against models/video.py's
+           rollout_varied (<= 1e-6 relative; bitwise reported), two
+           interleaved sessions bitwise their solo runs, a batch change
+           restarting cold, a spill on drain restored by a new engine whose
+           next warm frame is bitwise the one of the engine that never
+           stopped, an int8 session (bf16 state), a fused warm frame (K8
+           only), cold and warm frame times, a session's state bytes;
+  parse    /parse, /similar and /session/parse at flagship with each level's
+           threshold at its 30/50/70 % agreement quantile: /parse at every
+           bucket replayed against the eager index forward and pack (labels,
+           counts, sizes bitwise, means 1e-5), an index of 64 seeded images,
+           /similar on 8 of them at the top level and level 0 against a
+           float64 scan of the same vectors (scores 4e-6; each image its own
+           float64 top-1; at level 0 its own served top-1), four /session/parse frames against island_deltas on the
+           eager labels, then over HTTP an int8 engine with a tenant quota
+           (a=0.01:2): every new route once, tenant a's third image 503
+           tenant_overloaded; /parse b=1 and b=8 device time, the pack's
+           share, and no capture on the request path;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -189,6 +217,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import weakref
 
@@ -1002,7 +1031,8 @@ GRAPH_BUCKETS = (1, 2, 4, 8)
 
 
 def graph_report(engine, c, seed: int) -> dict:
-    """Every (endpoint, bucket) of ``engine`` served from its captured graph
+    """Every (family, bucket) of ``engine``'s forwards (/embed, /reconstruct
+    and the index forward /parse and /similar run) served from its captured graph
     against the eager forward of the same engine and weights on the same
     padded inputs: bitwise equal, as the same kernels run in the same order.
     Then the b=1, 4 and 8 /embed forward, eager against replayed (host clock
@@ -1010,7 +1040,9 @@ def graph_report(engine, c, seed: int) -> dict:
     capture seconds and the graph pools' bytes."""
     rng = np.random.default_rng(seed)
     shape = (c.channels, c.image_size, c.image_size)
-    for endpoint in ("embed", "reconstruct"):
+    # the forward families (/parse's pack is held by the parse phase)
+    checked = ("embed", "reconstruct", "index")
+    for endpoint in checked:
         for b in GRAPH_BUCKETS:
             x = rng.standard_normal((b,) + shape).astype(np.float32)
             replayed, eager = engine.run(endpoint, x), engine.run_eager(endpoint, x)
@@ -1024,7 +1056,7 @@ def graph_report(engine, c, seed: int) -> dict:
         forward_ms[f"b{b}"] = {"eager": served_ms(lambda: engine.run_eager("embed", x)),
                                "replayed": served_ms(lambda: engine.run("embed", x))}
     caches = engine.caches
-    return {"bitwise_equal": {ep: list(GRAPH_BUCKETS) for ep in caches},
+    return {"bitwise_equal": {ep: list(GRAPH_BUCKETS) for ep in checked},
             "embed_forward_ms": forward_ms,
             "capture_seconds": {ep: cache.warmup_seconds for ep, cache in caches.items()},
             "warmup_seconds": engine.registry.snapshot().get("serving_warmup_seconds"),
@@ -2413,6 +2445,549 @@ def phase_islands(device) -> dict:
     return launches
 
 
+# quant, sessions and parse: the serving request path at reduced precision,
+# with state, and the part-whole endpoints, every family captured at start-up
+QUANT_MODES = ("f32", "bf16", "int8")
+# the reduced modes capture buckets 1 and 8 only (the phase's time)
+QUANT_BUCKETS = {"f32": GRAPH_BUCKETS, "bf16": (1, 8), "int8": (1, 8)}
+# a path through the kernels against the plain path in bf16 (normwise)
+BF16_PATH_RTOL = 1e-2
+QUANT_PROBE = 4
+SESSION_FRAMES = 8
+SESSION_STATE_RTOL = 1e-6
+INDEX_IMAGES = 64
+SIMILAR_QUERIES = 8
+PARSE_FRAMES = 4
+# the parse engine's threshold of level l sits at its PARSE_QUANTILES[l % 3]
+# agreement quantile
+PARSE_QUANTILES = (0.3, 0.5, 0.7)
+# /similar's float32 scan against a float64 scan of the same index vectors:
+# the scores' rounding over 512-wide dot products of unit vectors
+SIMILAR_F32_ATOL = 4e-6
+
+
+def flagship_ckpt(name: str, seed: int, **kw) -> str:
+    """A fresh flagship demo checkpoint under build/ (random seeded weights)."""
+    ckpt = os.path.join(ROOT, "build", name)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    make_demo_checkpoint(ckpt, config=kernel_config(**kw), seed=seed)
+    return ckpt
+
+
+def free_engines(*engines) -> None:
+    for engine in engines:
+        engine.shutdown(drain=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_ms(cache, bucket: int) -> float:
+    """Device time of one replay of ``cache``'s graph at ``bucket`` (CUDA
+    events, time_ms): the forward alone, without the copies in and out."""
+    graph = cache._graphs[bucket].graph
+    return time_ms(graph.replay)
+
+
+def plain_embed_fn(engine):
+    """``engine``'s /embed forward on the plain path in the engine's own
+    quant mode (the same weights, dequantized the same way)."""
+    from glom_tpu_torch.serving import engine as engine_mod
+    from glom_tpu_torch.serving import quant
+
+    cfg = plain_of(engine.serve_config)
+    fns = glom_model.resolve_step_fns(cfg, engine.device)
+    return quant.quantized_forward(engine_mod.make_embed_fn(cfg, engine.embed_iters, fns),
+                                   engine.quant)
+
+
+def phase_quant(device) -> dict:
+    """Serving at f32, bf16 and int8 on "pallas" and on "fused", each an
+    engine with every family captured at start-up (the reduced modes at
+    buckets 1 and 8): every bucket's /embed and /reconstruct replay bitwise
+    its eager forward; the b=8 /embed through the kernels against the plain
+    path in the same mode (f32: PATH_RTOL; bf16 and int8: the bf16 rule,
+    1e-2); accuracy_report of bf16 and int8 against f32 on the pallas path
+    with glom_tpu's thresholds (a miss is recorded, a finding, not a
+    failure); the resident parameter bytes, each family's pool bytes, and
+    /embed b=1 and b=8 replayed (device time of the graph by CUDA events,
+    and the host's wall clock to the answer).  The main path: one b=8
+    /embed replay an engine (counts set to 0 just before, read just after)."""
+    from glom_tpu_torch.serving import quant
+
+    ckpt = flagship_ckpt("chip_smoke_quant_ckpt", seed=12)
+    c = kernel_config()
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(13)
+    x = {b: rng.standard_normal((b,) + shape).astype(np.float32) for b in GRAPH_BUCKETS}
+    iters = c.default_iters
+    rows, total = {}, {k: 0 for k in kernel_wrappers()}
+    for impl in ("pallas", "fused"):
+        for mode in QUANT_MODES:
+            buckets = QUANT_BUCKETS[mode]
+            t0 = time.perf_counter()
+            engine = ServingEngine(ckpt, device=device, ff_impl=impl, quant=mode,
+                                   buckets=buckets, reload_poll_s=0)
+            setup_s = time.perf_counter() - t0
+            for endpoint in ("embed", "reconstruct"):
+                for b in buckets:
+                    if not np.array_equal(engine.run(endpoint, x[b]),
+                                          engine.run_eager(endpoint, x[b])):
+                        raise AssertionError(f"quant {mode} {impl} {endpoint} b={b}: the replay "
+                                             f"differs from the eager forward")
+            reset_launches()
+            got = engine.run("embed", x[8])
+            launches = launch_counts()
+            want = ({**want_launches(0), "fused_level_update": iters} if impl == "fused"
+                    else want_launches(iters))
+            check_launches(f"quant {mode} {impl} /embed b=8", launches, want)
+            for k, n in launches.items():
+                total[k] += n
+            with torch.inference_mode():
+                plain = plain_embed_fn(engine)(
+                    engine.params, torch.from_numpy(x[8]).to(device)).cpu()
+            err = rel_err(torch.from_numpy(got), plain)
+            rtol = PATH_RTOL if mode == "f32" else BF16_PATH_RTOL
+            if not (np.isfinite(got).all() and err <= rtol):
+                raise AssertionError(f"quant {mode} {impl}: /embed {err} from the plain path "
+                                     f"(limit {rtol})")
+            embed = engine.caches["embed"]
+            rows[f"{impl}/{mode}"] = {
+                "buckets": list(buckets), "setup_seconds": setup_s,
+                "bitwise_replay": {"embed": list(buckets), "reconstruct": list(buckets)},
+                "embed_b8_vs_plain_rel_err": err, "rtol": rtol,
+                "param_bytes": engine.param_bytes(), "pool_bytes": engine.graph_pool_bytes(),
+                # what one /parse or /similar replay of the index forward launches
+                "index_launches_per_replay_b8": engine.caches["index"].launches_per_replay()
+                .get(8),
+                "embed_replay_device_ms": {f"b{b}": replay_ms(embed, b) for b in (1, 8)},
+                "embed_served_ms": {f"b{b}": served_ms(lambda: engine.run("embed", x[b]))
+                                    for b in (1, 8)},
+                "launches_main": launches}
+            free_engines(engine)
+    _, config, train_cfg, params = denoise.load_checkpoint_state(ckpt, device="cpu")
+    report = quant.accuracy_report(config, train_cfg, params, x[QUANT_PROBE], device=device)
+    accuracy = {mode: {k: r[k] for k in ("worst_cosine", "worst_max_abs_rel", "thresholds",
+                                         "pass")}
+                | {"embed_levels": {lv: r["embed"][lv] for lv in r["embed"]},
+                   "reconstruct": r["reconstruct"]}
+                for mode, r in report.items()}
+    emit({"phase": "quant", "config": {"dim": c.dim, "levels": c.levels, "iters": iters,
+                                       "image_size": c.image_size, "patch_size": c.patch_size},
+          "engines": rows, "accuracy": accuracy, "accuracy_probe": QUANT_PROBE,
+          "launches": total,
+          "time_note": "embed_replay_device_ms: CUDA events over graph replays (time_ms); "
+                       "embed_served_ms: host clock of engine.run to the answer on the host, "
+                       "the median of 5 after a warm-up"})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return total
+
+
+def session_chain(engine, sid: str, frames) -> list:
+    return [engine.session_embed(sid, f) for f in frames]
+
+
+def rollout_embeddings(engine, frames, schedule, params=None) -> list:
+    """The chained frames eagerly through models/video.py::rollout_varied,
+    one frame a call with the carried state: each frame's mean embeddings."""
+    from glom_tpu_torch.models import video
+
+    params = engine.params["glom"] if params is None else params
+    out, state = [], None
+    with torch.inference_mode():
+        for frame, it in zip(frames, schedule):
+            state = video.rollout_varied(params, [torch.from_numpy(frame).to(engine.device)],
+                                         [it], config=engine.serve_config, levels=state)
+            out.append(state.mean(dim=1).float().cpu())
+    return out
+
+
+def chain_vs_rollout(got, want, what: str) -> dict:
+    errs = [rel_err(torch.from_numpy(g), w) for (g, _), w in zip(got, want)]
+    if not max(errs) <= SESSION_STATE_RTOL:
+        raise AssertionError(f"{what}: frames {errs} from the rollout (limit "
+                             f"{SESSION_STATE_RTOL})")
+    return {"max_rel_err": max(errs),
+            "bitwise": all(np.array_equal(g, w.numpy()) for (g, _), w in zip(got, want))}
+
+
+def phase_sessions(device) -> dict:
+    """Stateful sessions at flagship width, f32, "pallas", warm_iters="auto"
+    (6 of 12): SESSION_FRAMES chained frames through session_embed at b=1 and
+    b=4 (the main path: counts set to 0 just before, read just after)
+    against models/video.py::rollout_varied([12, 6, 6, ...]) run eagerly on
+    the same frames; two sessions at b=4 with their frames interleaved, each
+    bitwise its solo run; a batch change restarting cold; a spill on drain
+    restored by a new engine, whose next warm frame is bitwise the one of
+    the engine that never stopped; an int8 session of four frames (a bf16
+    state) against the rollout of the dequantized weights; a fused session's
+    warm frame (K8 only); the cold and warm frame times and a session's
+    state bytes."""
+    from glom_tpu_torch.serving import quant
+
+    ckpt = flagship_ckpt("chip_smoke_sessions_ckpt", seed=14)
+    spill = os.path.join(ROOT, "build", "chip_smoke_spill")
+    shutil.rmtree(spill, ignore_errors=True)
+    c = kernel_config()
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(15)
+    engine = ServingEngine(ckpt, device=device, warm_iters="auto", reload_poll_s=0,
+                           session_spill_dir=spill)
+    cold_it, warm_it = engine._session_cold_iters, engine._session_warm_iters
+    schedule = [cold_it] + [warm_it] * (SESSION_FRAMES - 1)
+    frames = {b: [rng.standard_normal((b,) + shape).astype(np.float32)
+                  for _ in range(SESSION_FRAMES)] for b in (1, 4)}
+    reset_launches()
+    chains = {b: session_chain(engine, f"chain-b{b}", frames[b]) for b in (1, 4)}
+    launches = check_launches("session frames", launch_counts(),
+                              want_launches(2 * sum(schedule)))
+    vs_rollout = {}
+    for b in (1, 4):
+        infos = [info for _, info in chains[b]]
+        if [i["cold"] for i in infos] != [True] + [False] * (SESSION_FRAMES - 1):
+            raise AssertionError(f"session b={b}: {infos}")
+        vs_rollout[f"b{b}"] = chain_vs_rollout(chains[b], rollout_embeddings(
+            engine, frames[b], schedule), f"session b={b}")
+
+    # two sessions at one bucket, frames alternating: each as alone
+    a, bb = frames[4][:4], [f[::-1].copy() for f in frames[4][:4]]
+    mixed = {"a": [], "b": []}
+    for fa, fb in zip(a, bb):
+        mixed["a"].append(engine.session_embed("mix-a", fa)[0])
+        mixed["b"].append(engine.session_embed("mix-b", fb)[0])
+    alone = {"a": [engine.session_embed("solo-a", f)[0] for f in a],
+             "b": [engine.session_embed("solo-b", f)[0] for f in bb]}
+    for k in ("a", "b"):
+        if not all(np.array_equal(m, s) for m, s in zip(mixed[k], alone[k])):
+            raise AssertionError(f"interleaved session {k} differs from its solo run")
+
+    out, info = engine.session_embed("chain-b4", frames[1][0])
+    if not (info["cold"] and info.get("restart") == "batch_changed"):
+        raise AssertionError(f"batch change: {info}")
+
+    # timing: warm frames continue a session, cold ones reset it first
+    timing = {}
+    for b in (1, 4):
+        x = frames[b][0]
+        engine.session_embed(f"time-b{b}", x)
+        warm_ms = served_ms(lambda: engine.session_embed(f"time-b{b}", x))
+
+        def cold():
+            engine.session_reset(f"time-b{b}")
+            engine.session_embed(f"time-b{b}", x)
+
+        timing[f"b{b}"] = {"warm_served_ms": warm_ms, "cold_served_ms": served_ms(cold),
+                           "warm_replay_device_ms": replay_ms(engine.caches["session_warm"], b),
+                           "cold_replay_device_ms": replay_ms(engine.caches["session_cold"], b)}
+    state_bytes = {f"b{b}": engine.sessions.get(f"time-b{b}").nbytes for b in (1, 4)}
+    per_frame = {"warm": engine.caches["session_warm"].launches_per_replay().get(1),
+                 "cold": engine.caches["session_cold"].launches_per_replay().get(1)}
+
+    # spill on drain, restore in a new engine: the next warm frame is the one
+    # of an engine that never stopped
+    spill_frames = frames[4][:3] + [frames[4][5]]
+    for f in spill_frames[:3]:
+        engine.session_embed("spilled", f)
+        engine.session_embed("kept", f)
+    never_stopped = engine.session_embed("kept", spill_frames[3])[0]
+    pools = engine.graph_pool_bytes()
+    captures = engine.registry.snapshot().get("serving_graph_captures", 0)
+    free_engines(engine)
+    booted = ServingEngine(ckpt, device=device, warm_iters="auto", reload_poll_s=0,
+                           session_spill_dir=spill, buckets=(4,))
+    restored = booted.registry.snapshot().get("serving_session_restores")
+    out, info = booted.session_embed("spilled", spill_frames[3])
+    if info["cold"] or info["frames"] != 4 or not np.array_equal(out, never_stopped):
+        raise AssertionError(f"restored session: {info}, bitwise "
+                             f"{np.array_equal(out, never_stopped)}")
+    free_engines(booted)
+
+    # int8: a bf16 state on the card
+    q = ServingEngine(ckpt, device=device, warm_iters="auto", reload_poll_s=0, quant="int8",
+                      buckets=(1,))
+    q_frames = frames[1][:4]
+    q_chain = session_chain(q, "int8", q_frames)
+    q_state = q.sessions.get("int8").levels
+    if q_state.dtype != torch.bfloat16:
+        raise AssertionError(f"int8 session state is {q_state.dtype}")
+    q_vs = chain_vs_rollout(q_chain, rollout_embeddings(
+        q, q_frames, schedule[:4], params=quant.dequantize_tree(q.params)["glom"]),
+        "int8 session")
+    free_engines(q)
+
+    # fused: a warm frame is warm_iters launches of K8
+    fz = ServingEngine(ckpt, device=device, warm_iters="auto", reload_poll_s=0,
+                       ff_impl="fused", buckets=(1,))
+    session_chain(fz, "fused", frames[1][:2])
+    reset_launches()
+    fz.session_embed("fused", frames[1][2])
+    check_launches("fused warm frame", launch_counts(),
+                   {**want_launches(0), "fused_level_update": warm_it})
+    fused_per_frame = fz.caches["session_warm"].launches_per_replay().get(1)
+    free_engines(fz)
+    shutil.rmtree(spill, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "sessions", "config": {"dim": c.dim, "levels": c.levels},
+          "cold_iters": cold_it, "warm_iters": warm_it, "frames": SESSION_FRAMES,
+          "launches": launches, "launches_per_frame": {"pallas": per_frame,
+                                                      "fused_warm": fused_per_frame},
+          "vs_rollout": vs_rollout, "rtol": SESSION_STATE_RTOL,
+          "interleaved_bitwise_solo": True, "batch_change_restart": "batch_changed",
+          "spill_restored_sessions": restored, "restored_frame_bitwise": True,
+          "int8_state_dtype": "bfloat16", "int8_vs_rollout": q_vs,
+          "state_bytes": state_bytes, "timing": timing, "pool_bytes": pools,
+          "graph_captures_after_warmup": captures,
+          "time_note": "*_served_ms: host clock of session_embed to the answer on the host, "
+                       "the median of 5 after a warm-up (cold: a reset, then the frame); "
+                       "*_replay_device_ms: CUDA events over graph replays (time_ms)"})
+    if captures:
+        raise AssertionError(f"{captures} graph captures on the session path")
+    return launches
+
+
+def split_rows(rows, L, n):
+    """Packed parse rows -> (labels, counts, sizes, means)."""
+    return (rows[:, :L * n], rows[:, L * n:L * n + L], rows[:, L * n + L:2 * L * n + L],
+            rows[:, 2 * L * n + L:])
+
+
+def rows_vs_eager(got, want, L, n, what: str) -> float:
+    """Labels, counts and sizes bitwise, means within ISLAND_MEAN_ATOL."""
+    g, w = split_rows(got, L, n), split_rows(want, L, n)
+    if not all(np.array_equal(a, b) for a, b in zip(g[:3], w[:3])):
+        raise AssertionError(f"{what}: labels, counts or sizes differ from the eager path")
+    err = float(np.abs(g[3] - w[3]).max())
+    if not err <= ISLAND_MEAN_ATOL:
+        raise AssertionError(f"{what}: means {err} from the eager path")
+    return err
+
+
+def similar_report(engine, corpus, picks, index_dir, L) -> dict:
+    """/similar on ``corpus[picks]`` (every slot ranked) at the top level and
+    at level 0, against a float64 scan of the same index vectors and of the
+    same queries: every served score within SIMILAR_F32_ATOL of the float64
+    one, the served top-1 the float64 top-1 up to that rounding, and each
+    image the float64 top-1 of its own query (the index holds its vectors:
+    cosine 1).  At level 0 each image must be the served top-1 too; at the
+    top level a served self-match is recorded, not required, since images
+    whose patch means agree within float32 rounding tie in the float32 scan
+    (glom_tpu's scan is float32 as well)."""
+    from glom_tpu_torch.hierarchy.index import assemble_level
+
+    def unit(x):
+        return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+    states = engine.run("index", corpus[picks])
+    report = {}
+    for level in (L - 1, 0):
+        results, info = engine.similar(corpus[picks], level=level, k=INDEX_IMAGES)
+        entries = unit(assemble_level(index_dir, level, total=INDEX_IMAGES).astype(np.float64))
+        ranks, gaps, err = [], [], 0.0
+        for i, slot in enumerate(picks):
+            q = states[i, :, level, :]
+            if level == L - 1:
+                q = q.mean(axis=0, keepdims=True)
+            f64 = np.einsum("qd,ked->kqe", unit(q.astype(np.float64)), entries)
+            f64 = f64.reshape(INDEX_IMAGES, -1).max(axis=1)
+            served = {r["slot"]: r["score"] for r in results[i]}
+            err = max(err, max(abs(served[k] - f64[k]) for k in range(INDEX_IMAGES)))
+            others = np.delete(f64, slot)
+            if not (int(np.argmax(f64)) == slot and f64[slot] > others.max()):
+                raise AssertionError(f"/similar level {level}: image {slot} is not its own "
+                                     f"float64 top-1")
+            if f64[results[i][0]["slot"]] < f64.max() - 2 * SIMILAR_F32_ATOL:
+                raise AssertionError(f"/similar level {level}: served top-1 "
+                                     f"{results[i][0]} against the float64 scan")
+            ranks.append([r["slot"] for r in results[i]].index(slot))
+            gaps.append(float(f64[slot] - others.max()))
+        if not err <= SIMILAR_F32_ATOL:
+            raise AssertionError(f"/similar level {level}: scores {err} from float64")
+        if level == 0 and any(ranks):
+            raise AssertionError(f"/similar level 0: self ranks {ranks}")
+        report[f"level_{info['level']}"] = {
+            "served_self_rank": ranks, "top1_self": ranks.count(0),
+            "float64_self_gap_min": min(gaps), "score_max_abs_err_vs_f64": err}
+    return report
+
+
+def parse_device_ms(engine, bucket: int) -> dict:
+    """Device time of /parse at ``bucket`` (CUDA events): the index graph's
+    replay, the copy of its output into the pack's input and the pack's
+    replay; and the pack's replay alone."""
+    index = engine.caches["index"]._graphs[bucket]
+    pack = engine.caches["parse"]._graphs[(bucket, "float32")]
+
+    def whole():
+        index.graph.replay()
+        pack.static_in.copy_(index.static_out)
+        pack.graph.replay()
+
+    with torch.inference_mode():   # the static buffers are inference tensors
+        total, pack_ms = time_ms(whole), time_ms(pack.graph.replay)
+    return {"device_ms": total, "pack_device_ms": pack_ms, "pack_share": pack_ms / total}
+
+
+def phase_parse(device) -> dict:
+    """The part-whole endpoints at flagship width, f32, "pallas", with
+    warm_iters and an index: the threshold of level l at the
+    PARSE_QUANTILES[l % 3] quantile of its agreement on a probe batch; /parse
+    at every bucket replayed against the eager index forward and eager pack
+    (labels, counts, sizes bitwise, means within 1e-5); an index of 64
+    seeded images written from the index graphs with
+    hierarchy/index.py::write_index_parts, then /similar on 8 of them at the
+    top level and at level 0 (similar_report); /session/parse over four
+    frames, the first reporting every island appeared and the deltas of
+    each against island_deltas on the eagerly computed labels (the main
+    path: counts set to 0 before a b=8 /parse and the four frames, read
+    after); then over HTTP, an int8 engine with --tenant-quota a=0.01:2:
+    one request each to /parse, /similar, /session/embed, /session/parse,
+    /session/reset, tenant a's third image 503 tenant_overloaded and an
+    unknown tenant through; /parse b=1 and b=8 times (device by CUDA events,
+    the pack's share, host wall), and no capture on the request path."""
+    from glom_tpu_torch.hierarchy import parse
+    from glom_tpu_torch.hierarchy.index import write_index_parts
+    from glom_tpu_torch.obs.quality import agreement_maps
+    from glom_tpu_torch.serving import server as server_mod
+
+    ckpt = flagship_ckpt("chip_smoke_parse_ckpt", seed=16)
+    index_dir = os.path.join(ROOT, "build", "chip_smoke_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    c = kernel_config()
+    side, n, L, d = c.num_patches_side, c.num_patches, c.levels, c.dim
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(17)
+    probe = rng.standard_normal((BATCH,) + shape).astype(np.float32)
+    _, _, _, params = denoise.load_checkpoint_state(ckpt, device=device)
+    with torch.inference_mode():
+        agree = agreement_maps(parse.make_index_fn(c, None)(
+            params, torch.from_numpy(probe).to(device)), side)[1]
+    thr = tuple(float(torch.quantile(agree[:, lv].flatten(), PARSE_QUANTILES[lv % 3]))
+                for lv in range(L))
+    del params, agree
+    t0 = time.perf_counter()
+    engine = ServingEngine(ckpt, device=device, warm_iters="auto", reload_poll_s=0,
+                           parse_thresholds=thr, index_dir=index_dir)
+    setup_s = time.perf_counter() - t0
+    mean_err = {}
+    for b in GRAPH_BUCKETS:
+        x = rng.standard_normal((b,) + shape).astype(np.float32)
+        mean_err[f"b{b}"] = rows_vs_eager(engine.run("parse", x), engine.run_eager("parse", x),
+                                          L, n, f"/parse b={b}")
+
+    # the main path: a b=8 /parse and four /session/parse frames
+    frames = [rng.standard_normal((1,) + shape).astype(np.float32) for _ in range(PARSE_FRAMES)]
+    schedule = [engine._session_cold_iters] + [engine._session_warm_iters] * (PARSE_FRAMES - 1)
+    reset_launches()
+    rows8 = engine.run("parse", probe)
+    session_out = [engine.session_parse("parse-cam", f) for f in frames]
+    launches = check_launches("parse path", launch_counts(),
+                              want_launches(c.default_iters + sum(schedule)))
+    counts = split_rows(rows8, L, n)[1]
+    # the session's labels, eagerly: the rollout's state through the pack
+    from glom_tpu_torch.models import video
+
+    prev, state, deltas_ok = None, None, []
+    with torch.inference_mode():
+        for (rows, info), f, it in zip(session_out, frames, schedule):
+            state = video.rollout_varied(engine.params["glom"],
+                                         [torch.from_numpy(f).to(device)], [it],
+                                         config=engine.serve_config, levels=state)
+            want_rows = engine._pack_fn(state).cpu().numpy()
+            rows_vs_eager(rows, want_rows, L, n, "/session/parse")
+            labels = np.rint(want_rows[:, :L * n]).astype(np.int32).reshape(L, side, side)
+            want = [parse.island_deltas(prev, labels)]
+            if info["deltas"] != want:
+                raise AssertionError(f"/session/parse frame {info['frames']}: deltas differ")
+            if prev is None and any(dl["vanished"] or dl["moved"] or dl["stable"]
+                                    for dl in info["deltas"][0]):
+                raise AssertionError("the first parse frame must report every island appeared")
+            deltas_ok.append({k: sum(len(dl[k]) for dl in info["deltas"][0])
+                              for k in ("appeared", "vanished", "moved", "stable")})
+            prev = labels
+
+    # the index: 64 seeded images through the index graphs, then /similar
+    corpus = np.random.default_rng(18).standard_normal(
+        (INDEX_IMAGES,) + shape).astype(np.float32)
+    for lo in range(0, INDEX_IMAGES, BATCH):
+        write_index_parts(index_dir, lo, lo + BATCH, engine.run("index", corpus[lo:lo + BATCH]))
+    picks = list(range(0, INDEX_IMAGES, INDEX_IMAGES // SIMILAR_QUERIES))
+    similar = similar_report(engine, corpus, picks, index_dir, L)
+    timing = {}
+    for b in (1, 8):
+        x = probe[:b]
+        timing[f"b{b}"] = {**parse_device_ms(engine, b),
+                           "served_ms": served_ms(lambda: engine.run("parse", x)),
+                           "eager_served_ms": served_ms(lambda: engine.run_eager("parse", x)),
+                           "index_replay_device_ms": replay_ms(engine.caches["index"], b)}
+    captures = engine.registry.snapshot().get("serving_graph_captures", 0)
+    pools = engine.graph_pool_bytes()
+    free_engines(engine)
+
+    # over HTTP: int8, a tenant quota, every new route once
+    args = server_mod.parse_args(["--checkpoint-dir", ckpt, "--quant", "int8", "--tenant-quota",
+                                  "a=0.01:2", "--warm-iters", "auto", "--buckets", "1",
+                                  "--reload-poll-s", "0", "--index-dir", index_dir,
+                                  "--parse-thresholds", ",".join(str(t) for t in thr)])
+    http_engine = server_mod.engine_from_args(args)
+    http_engine.start()
+    server = make_server(http_engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    img = {"images": corpus[:1].tolist()}
+    replies = {}
+    try:
+        def call(path, payload, tenant):
+            req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json",
+                                                  "X-Tenant": tenant})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                return e.code, json.loads(e.read())
+
+        replies["parse"] = call("/parse", img, "a")
+        replies["similar"] = call("/similar", {**img, "k": 2}, "a")
+        replies["session_embed_a"] = call("/session/embed", {**img, "session": "h"}, "a")
+        replies["session_embed"] = call("/session/embed", {**img, "session": "h"}, "z")
+        replies["session_parse"] = call("/session/parse", {**img, "session": "h"}, "z")
+        replies["session_reset"] = call("/session/reset", {"session": "h"}, "z")
+        http_health = get(base + "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        http_captures = http_engine.registry.snapshot().get("serving_graph_captures", 0)
+        free_engines(http_engine)
+    codes = {k: v[0] for k, v in replies.items()}
+    want_codes = {"parse": 200, "similar": 200, "session_embed_a": 503, "session_embed": 200,
+                  "session_parse": 200, "session_reset": 200}
+    if codes != want_codes or replies["session_embed_a"][1].get("error") != "tenant_overloaded":
+        raise AssertionError(f"HTTP codes {codes}, expected {want_codes}: {replies}")
+    if not (replies["session_parse"][1]["frames"] == 2 and replies["session_reset"][1]["reset"]
+            and len(replies["parse"][1]["islands"][0]) == L):
+        raise AssertionError(f"HTTP replies: {replies}")
+    if captures or http_captures:
+        raise AssertionError(f"graph captures on the request path: {captures}, {http_captures}")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "parse", "config": {"dim": d, "levels": L, "side": side,
+                                       "iters": c.default_iters},
+          "thresholds": thr, "quantiles": [PARSE_QUANTILES[lv % 3] for lv in range(L)],
+          "setup_seconds": setup_s, "replay_vs_eager_mean_max_abs_err": mean_err,
+          "mean_atol": ISLAND_MEAN_ATOL, "islands_b8": {"min": int(counts.min()),
+                                                        "max": int(counts.max())},
+          "launches": launches, "session_parse_deltas": deltas_ok, "similar": similar,
+          "index_images": INDEX_IMAGES, "timing": timing, "pool_bytes": pools,
+          "http": {"codes": codes, "quant": http_health["quant"],
+                   "tenants": http_health["tenants"]},
+          "graph_captures_after_warmup": captures,
+          "time_note": "device_ms: CUDA events over the index replay, the copy into the pack "
+                       "and the pack replay (time_ms); served_ms: host clock of engine.run to "
+                       "the rows on the host, the median of 5 after a warm-up"})
+    return launches
+
+
 # The bench phase's legs, each one run of ``python -m glom_tpu_torch.tools.bench``
 # at flagship with 12 iterations: (leg, what it shows, flags, the kernels it
 # must launch in its window).  "trace" marks a leg run with --profile-dir.
@@ -2537,7 +3112,8 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
-          "train_fused", "train_data", "classify", "video", "extract", "islands", "bench")
+          "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
+          "sessions", "parse", "bench")
 
 
 def parse_args(argv):
@@ -2551,7 +3127,8 @@ def parse_args(argv):
                         "each with the K7 on its dS' and the pair; k8: K8's; train_data: "
                         "the data streams, two views, eval and resume; classify, video, "
                         "extract, islands: the classifier, video, extraction and islanding "
-                        "paths; bench: the "
+                        "paths; quant, sessions, parse: serving at f32/bf16/int8, stateful "
+                        "sessions, /parse, /similar and /session/parse; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -2563,9 +3140,11 @@ def parse_args(argv):
     return args
 
 
-# the classifier, video, extraction and islanding paths, in the full run's order
+# the classifier, video, extraction, islanding, quantized, session and parse
+# paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
-                "islands": phase_islands}
+                "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
+                "parse": phase_parse}
 
 
 def run_only(device, names) -> int:
@@ -2626,7 +3205,8 @@ def main(argv=()) -> int:
     # fused serving path's), the train path's for the backward ones;
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
-    # _video, _extract, _islands: each of those paths' main run
+    # _video, _extract, _islands, _quant, _sessions, _parse: each of those
+    # paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]

@@ -11,8 +11,8 @@ the three workloads ``glom_tpu`` serves on it:
   * :mod:`~glom_tpu_torch.hierarchy.index`: the level-aware
     nearest-neighbour index, stdlib + numpy only.
 
-Serving them (``/parse``, ``/similar``, ``/session/parse``) is the engine's
-part and is not ported yet (ROADMAP queue 1, item 4).
+Serving them (``/parse``, ``/similar``, ``/session/parse``) is the serving
+engine's part (``serving/engine.py``).
 """
 
 from glom_tpu_torch.hierarchy.parse import (  # noqa: F401

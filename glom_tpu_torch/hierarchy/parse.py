@@ -158,14 +158,17 @@ def make_pack_fn(config, thresholds: Sequence[float]):
 _make_packer = make_pack_fn
 
 
-def make_index_fn(config, iters: Optional[int], *, ff_fn=None, fused_fn=None):
+def make_index_fn(config, iters: Optional[int], *, ff_fn=None, fused_fn=None,
+                  consensus_fn=None):
     """``(params, imgs) -> (b, n, L, d)`` float32 column state, the bulk
     ``transform: "index"`` forward (``params``: ``{"glom": ...}``).  The cast
     is part of the function: the index files are float32 by layout whatever
-    the compute dtype."""
+    the compute dtype.  The step functions, when given, are
+    ``models/glom.py::resolve_step_fns``'s (the serving engine resolves them
+    once, outside its graphs)."""
     def f(params, imgs):
         levels = glom_model.apply(params["glom"], imgs, config=config, iters=iters,
-                                  ff_fn=ff_fn, fused_fn=fused_fn)
+                                  consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
         return levels.float()
 
     return f

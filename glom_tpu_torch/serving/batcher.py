@@ -1,6 +1,6 @@
 """Deadline-aware dynamic micro-batcher with admission control: the port's
-own copy of ``glom_tpu/serving/batcher.py``, with its tracing hooks and
-counters (tenant admission waits for the port's tenancy).
+own copy of ``glom_tpu/serving/batcher.py``, with its tracing hooks,
+counters and tenant bulkheads.
 
 Callers :meth:`~DynamicBatcher.submit` payloads and get a
 ``concurrent.futures.Future``; a worker pulls flushed batches with
@@ -16,6 +16,12 @@ closed when its batch is taken; the take opens one ``batch`` span (its own
 trace, linking every member) that the engine closes after the execute.
 :class:`BatcherStats` counts submissions, sheds and flushes by rule; the
 engine folds the sheds into its registry.
+
+**Tenant bulkheads**: :class:`TenantAdmission` holds one token bucket per
+configured tenant (``rate[:burst]`` in images/s), shared by every endpoint
+of an engine.  A tenant past its quota sheds with
+:class:`TenantQuotaExceeded` (the server answers 503 ``tenant_overloaded``)
+while other tenants' admission is untouched.
 
 Time is injectable (``clock``) and ``next_batch(block=False)`` never
 sleeps, so the flush rules can be tested with a fake clock.
@@ -35,8 +41,132 @@ class Overloaded(RuntimeError):
     """Queue at capacity: the request was shed, not enqueued."""
 
 
+class TenantQuotaExceeded(Overloaded):
+    """One tenant's token bucket is empty: only that tenant's request was
+    shed."""
+
+    def __init__(self, message: str, tenant: str):
+        super().__init__(message)
+        self.tenant = tenant
+
+
 class Closed(RuntimeError):
     """Submitted after shutdown began: the request was not enqueued."""
+
+
+class TokenBucket:
+    """A token bucket over an injectable clock: ``rate`` tokens/s refill up
+    to ``burst``; :meth:`take` consumes all it asks for or nothing.  Not
+    locked: its owner (:class:`TenantAdmission`) serializes access."""
+
+    def __init__(self, rate: float, burst: float, *, clock=None):
+        if rate <= 0:
+            raise ValueError(f"rate must be > 0 tokens/s, got {rate}")
+        if burst < 1:
+            raise ValueError(f"burst must be >= 1 token, got {burst}")
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self._clock = clock if clock is not None else time.monotonic
+        self._tokens = self.burst  # a fresh tenant starts with its full burst
+        self._last = self._clock()
+
+    def _refill(self) -> None:
+        now = self._clock()
+        self._tokens = min(self.burst, self._tokens + (now - self._last) * self.rate)
+        self._last = now
+
+    def take(self, n: float = 1.0) -> bool:
+        self._refill()
+        if self._tokens >= n:
+            self._tokens -= n
+            return True
+        return False
+
+    def give(self, n: float) -> None:
+        """Return ``n`` tokens, capped at the burst."""
+        self._tokens = min(self.burst, self._tokens + n)
+
+    @property
+    def tokens(self) -> float:
+        self._refill()
+        return self._tokens
+
+
+def parse_quota(spec) -> tuple:
+    """``"RATE"`` or ``"RATE:BURST"`` (images/s; the burst defaults to
+    ``max(rate, 1)``) -> ``(rate, burst)``; a tuple or list passes through."""
+    if isinstance(spec, (tuple, list)):
+        return float(spec[0]), float(spec[1])
+    text = str(spec)
+    if ":" in text:
+        rate_s, burst_s = text.split(":", 1)
+        return float(rate_s), float(burst_s)
+    rate = float(text)
+    return rate, max(rate, 1.0)
+
+
+class TenantAdmission:
+    """Per-tenant token-bucket bulkheads, shared by every endpoint of one
+    engine: a quota is a promise about the tenant's load, not about one
+    endpoint's.
+
+    ``quotas`` maps a tenant to its spec (:func:`parse_quota`); a tenant
+    without one is bounded only by the global ``max_queue``.  :meth:`admit`
+    takes ``images`` tokens or raises :class:`TenantQuotaExceeded`; a shed
+    request takes none.  Locked: handler threads race through admission."""
+
+    def __init__(self, quotas: dict, *, clock=None):
+        clock = clock if clock is not None else time.monotonic
+        self._buckets = {}
+        self._limits = {}
+        for tenant, spec in (quotas or {}).items():
+            rate, burst = parse_quota(spec)
+            self._buckets[tenant] = TokenBucket(rate, burst, clock=clock)
+            self._limits[tenant] = (rate, burst)
+        self._lock = threading.Lock()
+        self.admitted: dict = {t: 0 for t in self._buckets}
+        self.shed: dict = {t: 0 for t in self._buckets}
+
+    def admit(self, tenant: Optional[str], images: int) -> None:
+        if tenant is None:
+            return
+        with self._lock:
+            bucket = self._buckets.get(tenant)
+            if bucket is None:
+                return
+            if bucket.take(images):
+                self.admitted[tenant] += images
+                return
+            self.shed[tenant] += 1
+        rate, burst = self._limits[tenant]
+        raise TenantQuotaExceeded(
+            f"tenant {tenant!r} over its admission quota ({rate:g} imgs/s, "
+            f"burst {burst:g}); request shed", tenant)
+
+    def refund(self, tenant: Optional[str], images: int) -> None:
+        """Give back the tokens of a request rejected downstream (a global
+        queue shed): the budget counts only work admitted."""
+        if tenant is None:
+            return
+        with self._lock:
+            bucket = self._buckets.get(tenant)
+            if bucket is not None:
+                bucket.give(images)
+                self.admitted[tenant] = max(0, self.admitted[tenant] - images)
+
+    def snapshot(self) -> dict:
+        """Per-tenant quota state for ``/healthz``."""
+        with self._lock:
+            return {
+                tenant: {
+                    "rate": self._limits[tenant][0],
+                    "burst": self._limits[tenant][1],
+                    "tokens": round(self._buckets[tenant].tokens, 3),
+                    "admitted_images": self.admitted[tenant],
+                    "shed_requests": self.shed[tenant],
+                }
+                for tenant in sorted(self._buckets)
+            }
 
 
 @dataclass
@@ -99,7 +229,8 @@ class DynamicBatcher:
         """Enqueue ``payload`` (``size`` images); returns the Future the
         worker resolves.  Raises :class:`Overloaded` at capacity or
         :class:`Closed` after shutdown began.  ``ctx`` (a span context)
-        opens a ``queue_wait`` span under the request's trace."""
+        opens a ``queue_wait`` span under the request's trace.  A tenant's
+        quota is taken upstream, in the engine."""
         if size < 1:
             raise ValueError(f"size must be >= 1, got {size}")
         if size > self.max_batch:

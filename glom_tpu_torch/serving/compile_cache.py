@@ -32,17 +32,29 @@ memory pool, so one cache's replays run one at a time; two caches (the two
 endpoints, or the sets before and after a reload) have pools of their own
 and replay concurrently.  A capture must see no other CUDA work in the
 process, so captures and replays share a :class:`DeviceLock`: replays hold
-it shared, a capture holds it alone.
+it shared, a capture holds it alone, and a request prepares every graph it
+will replay before it takes its hold.
 
 A graph's kernel launches are recorded at capture
 (``kernels/_common.py::recording_launches``) and added to the wrappers'
 launch counts at every replay.
+
+Stateful (session) families, ``glom_tpu``'s ``carries_state`` /
+``takes_state``: a cache may take the carried ``(bucket, n, L, d)`` state as
+a second static input and return the new state as a second output.  A
+graph's outputs are static buffers the next replay of its bucket
+overwrites, whoever triggers it, so the new state is copied into a tensor
+the caller owns before the cache's lock is released.  :class:`PostPassCache`
+is ``/parse``: another cache's forward followed by a post-pass captured as
+a graph of its own, which copies the inner output into its static input
+under the inner cache's lock.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from contextlib import contextmanager
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -76,7 +88,9 @@ def pad_to_bucket(imgs: np.ndarray, bucket: int) -> np.ndarray:
 class DeviceLock:
     """Shared/exclusive lock over the card: replays take it shared, a capture
     alone.  A waiting capture stops new replays from entering, so it waits
-    for at most the replays already running."""
+    for at most the replays already running.  Not reentrant: a thread that
+    holds it shared must neither take it again nor capture, so every cache
+    prepares its graph before it takes its hold."""
 
     def __init__(self):
         self._cond = threading.Condition()
@@ -126,45 +140,66 @@ def _side_stream(device) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[index]
 
 
+def _capture_graph(fn, args, device, pool):
+    """``fn(*args)`` run once eagerly on the side stream (kernel builds,
+    planner caches, cuBLAS handles and cached constants are made there),
+    then captured: ``(graph, outputs, launches)``.  The caller holds the
+    device lock alone."""
+    side = _side_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _common.recording_launches() as launches:
+        with torch.cuda.graph(graph, pool=pool):
+            outputs = fn(*args)
+    return graph, outputs, dict(launches)
+
+
+def _pool_bytes(pool) -> Optional[int]:
+    if pool is None:
+        return None
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 class _Graph:
-    """One bucket's captured forward: the graph, its static input and
-    output, and the launches one replay makes."""
+    """One key's captured graph: its static inputs (the images, or the state
+    a post-pass reads, and, for a cache that takes state, the carried state)
+    and outputs (the answer and, for one that carries state, the new state),
+    and the launches one replay makes."""
 
-    __slots__ = ("graph", "static_in", "static_out", "launches")
+    __slots__ = ("graph", "static_in", "static_state", "static_out", "static_new", "launches")
 
-    def __init__(self, graph, static_in, static_out, launches):
-        self.graph, self.static_in, self.static_out = graph, static_in, static_out
+    def __init__(self, graph, static_in, static_state, static_out, static_new, launches):
+        self.graph, self.static_in, self.static_state = graph, static_in, static_state
+        self.static_out, self.static_new = static_out, static_new
         self.launches = launches
 
+    def replay(self) -> None:
+        self.graph.replay()
+        _common.add_replayed(self.launches)
 
-class BucketedGraphCache:
-    """One forward ``fn(params, x) -> y`` served per batch bucket.
 
-    ``x`` is a float32 ``(bucket,) + input_shape`` tensor on ``device`` and
-    ``y`` a tensor whose first axis is the batch; ``fn`` runs under
-    ``torch.inference_mode()``.  ``lock`` is the process's
-    :class:`DeviceLock` (one is made when none is given)."""
+class _GraphFamily:
+    """What every graph cache keeps: one graph per key, captured in one
+    memory pool whose replays run one at a time; the keys prepared; the
+    captures made on the request path; the warm-up's time.  A subclass says
+    what a key captures (:meth:`_capture_call`) and how the captured
+    outputs split (:meth:`_split`)."""
 
-    def __init__(self, fn: Callable, buckets: Sequence[int], *, input_shape: Tuple[int, ...],
-                 device, name: str = "forward", lock: Optional[DeviceLock] = None,
-                 iters: Optional[int] = None):
-        buckets = sorted(set(int(b) for b in buckets))
-        if not buckets:
-            raise ValueError("need at least one bucket size")
-        if buckets[0] < 1:
-            raise ValueError(f"bucket sizes must be >= 1, got {buckets[0]}")
-        self.fn = fn
+    def __init__(self, buckets: Sequence[int], *, device, name: str,
+                 lock: Optional[DeviceLock]):
         self.name = name
         self.buckets: Tuple[int, ...] = tuple(buckets)
-        self.input_shape = tuple(int(s) for s in input_shape)
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
-        self.iters = None if iters is None else int(iters)
         self._lock = lock if lock is not None else DeviceLock()
-        self._replay = threading.Lock()       # one replay at a time on this cache's pool
-        self._params = None                   # the tree the graphs were captured with
-        self._graphs: Dict[int, _Graph] = {}
-        self._ready: set = set()              # buckets prepared (captured, or first used on the CPU)
+        self._replay = threading.Lock()       # one replay at a time on this family's pool
+        self._graphs: Dict = {}
+        self._ready: set = set()              # keys prepared (captured, or first used on the CPU)
         self._pool = None
         self._new_captures = 0
         self.warmup_seconds: Optional[float] = None
@@ -177,6 +212,140 @@ class BucketedGraphCache:
     def pick(self, n: int) -> Optional[int]:
         return pick_bucket(self.buckets, n)
 
+    def bucket_of(self, b: int, what: str = "batch of") -> int:
+        """The bucket a batch of ``b`` pads to; ``ValueError`` past the
+        largest."""
+        bucket = self.pick(b)
+        if bucket is None:
+            raise ValueError(f"{what} {b} exceeds the largest bucket {self.max_bucket}")
+        return bucket
+
+    # -- capture -----------------------------------------------------------
+    def _capture_call(self, key):
+        """``(fn, args, static_in, static_state)``: ``fn(*args)`` is what
+        ``key`` captures, its static inputs made on the card."""
+        raise NotImplementedError
+
+    def _split(self, out):
+        """The captured outputs as ``(answer, new state or None)``."""
+        return out, None
+
+    def _capture(self, key) -> bool:
+        """Capture ``key`` (on the CPU: mark it prepared).  Returns whether
+        this call prepared it; raises when the capture fails.  The caller
+        holds no hold on the device lock."""
+        if key in self._ready:
+            return False
+        if not self.graphed:
+            with self._replay:
+                fresh = key not in self._ready
+                self._ready.add(key)
+            return fresh
+        with self._lock.exclusive():
+            if key in self._ready:
+                return False
+            dev = self.device
+            with torch.cuda.device(dev), torch.inference_mode():
+                fn, args, static_in, static_state = self._capture_call(key)
+                graph, out, launches = _capture_graph(fn, args, dev, self._pool)
+                if self._pool is None:
+                    self._pool = graph.pool()
+            out, static_new = self._split(out)
+            self._graphs[key] = _Graph(graph, static_in, static_state, out, static_new,
+                                       launches)
+            self._ready.add(key)
+        return True
+
+    def _prepare(self, key) -> bool:
+        """Whether ``key`` was prepared before this call; a key that was not
+        is captured now and counted."""
+        prepared = key in self._ready
+        if not prepared and self._capture(key):
+            with self._replay:
+                self._new_captures += 1
+        return prepared
+
+    def _warm(self, keys) -> None:
+        """Capture every key (idempotent) and record ``warmup_seconds``."""
+        t0 = time.perf_counter()
+        for key in keys:
+            self._capture(key)
+        if self.graphed:
+            torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.perf_counter() - t0
+        self.warmed = True
+
+    @contextmanager
+    def _holding(self, key):
+        """``key``'s graph, with this family's pool held: its outputs stay
+        this caller's until the block ends.  The caller holds the device
+        lock shared."""
+        entry = self._graphs[key]
+        with self._replay, torch.inference_mode():
+            yield entry
+
+    def poll_captures(self) -> int:
+        """Captures made on the request path since the last poll: nonzero
+        after warm-up means a key was not prepared at start-up."""
+        with self._replay:
+            n, self._new_captures = self._new_captures, 0
+        return n
+
+    # -- what the graphs cost ----------------------------------------------
+    def _label(self, key):
+        return key
+
+    def launches_per_replay(self) -> Dict:
+        """``{key: {wrapper name: launches}}`` one replay makes."""
+        return {self._label(k): {fn.__name__: n for fn, n in g.launches.items()}
+                for k, g in sorted(self._graphs.items())}
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes the card has reserved for this family's graph pool (None on
+        the CPU, or before a capture)."""
+        return _pool_bytes(self._pool)
+
+
+class BucketedGraphCache(_GraphFamily):
+    """One forward served per batch bucket (a graph's key is its bucket).
+
+    ``fn(params, x)`` (or ``fn(params, x, state)`` with ``takes_state``)
+    takes a float32 ``(bucket,) + input_shape`` tensor on ``device`` and
+    returns a tensor whose first axis is the batch, or, with
+    ``carries_state``, ``(y, new_state)``: ``y`` is sliced back to the real
+    batch, the new state stays bucket-shaped (the next frame's input) and is
+    handed back as a fresh tensor the caller owns, copied out of the graph's
+    static output before the next replay may overwrite it.  A ``takes_state``
+    cache needs ``state_shape`` (the state's shape after the batch axis) and
+    ``state_dtype``.  ``fn`` runs under ``torch.inference_mode()``.
+    ``lock`` is the process's :class:`DeviceLock` (one is made when none is
+    given)."""
+
+    def __init__(self, fn: Callable, buckets: Sequence[int], *, input_shape: Tuple[int, ...],
+                 device, name: str = "forward", lock: Optional[DeviceLock] = None,
+                 iters: Optional[int] = None, carries_state: bool = False,
+                 takes_state: bool = False, state_shape: Optional[Tuple[int, ...]] = None,
+                 state_dtype=None):
+        buckets = sorted(set(int(b) for b in buckets))
+        if not buckets:
+            raise ValueError("need at least one bucket size")
+        if buckets[0] < 1:
+            raise ValueError(f"bucket sizes must be >= 1, got {buckets[0]}")
+        if takes_state and not carries_state:
+            raise ValueError("takes_state requires carries_state (a warm step returns the "
+                             "next state)")
+        if takes_state and (state_shape is None or state_dtype is None):
+            raise ValueError("takes_state needs state_shape and state_dtype")
+        super().__init__(buckets, device=device, name=name, lock=lock)
+        self.fn = fn
+        self.input_shape = tuple(int(s) for s in input_shape)
+        self.iters = None if iters is None else int(iters)
+        self.carries_state = bool(carries_state)
+        self.takes_state = bool(takes_state)
+        self.state_shape = None if state_shape is None else tuple(int(s) for s in state_shape)
+        self.state_dtype = state_dtype
+        self._params = None                   # the tree the graphs were captured with
+
     # -- capture -----------------------------------------------------------
     def _bind(self, params) -> None:
         if self._params is None:
@@ -186,111 +355,109 @@ class BucketedGraphCache:
                 f"cache {self.name!r}: its graphs were captured with another parameter "
                 f"tree; build a new cache for new parameters")
 
-    def _capture(self, bucket: int) -> bool:
-        """Capture ``bucket``'s forward (on the CPU: mark it prepared).
-        Returns whether this call prepared it; raises when the capture
-        fails."""
-        if bucket in self._ready:
-            return False
-        if not self.graphed:
-            with self._replay:
-                fresh = bucket not in self._ready
-                self._ready.add(bucket)
-            return fresh
-        with self._lock.exclusive():
-            if bucket in self._ready:
-                return False
-            params, dev = self._params, self.device
-            with torch.cuda.device(dev), torch.inference_mode():
-                static_in = torch.zeros((bucket,) + self.input_shape, dtype=torch.float32,
-                                        device=dev)
-                # eagerly once, on a side stream: kernel builds, planner
-                # caches, cuBLAS handles and cached constants are made here
-                side = _side_stream(dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
-                    self.fn(params, static_in)
-                torch.cuda.current_stream(dev).wait_stream(side)
-                graph = torch.cuda.CUDAGraph()
-                with _common.recording_launches() as launches:
-                    with torch.cuda.graph(graph, pool=self._pool):
-                        static_out = self.fn(params, static_in)
-                if self._pool is None:
-                    self._pool = graph.pool()
-            self._graphs[bucket] = _Graph(graph, static_in, static_out, dict(launches))
-            self._ready.add(bucket)
-        return True
+    def _capture_call(self, bucket: int):
+        static_in = torch.zeros((bucket,) + self.input_shape, dtype=torch.float32,
+                                device=self.device)
+        args = (self._params, static_in)
+        static_state = None
+        if self.takes_state:
+            static_state = torch.zeros((bucket,) + self.state_shape, dtype=self.state_dtype,
+                                       device=self.device)
+            args += (static_state,)
+        return self.fn, args, static_in, static_state
+
+    def _split(self, out):
+        return out if self.carries_state else (out, None)
 
     def warmup(self, params) -> None:
         """Capture every bucket against ``params`` (on the CPU: mark each
         prepared).  Idempotent per bucket; records ``warmup_seconds``."""
-        import time
-
         self._bind(params)
-        t0 = time.perf_counter()
-        for bucket in self.buckets:
-            self._capture(bucket)
-        if self.graphed:
-            torch.cuda.synchronize(self.device)
-        self.warmup_seconds = time.perf_counter() - t0
-        self.warmed = True
+        self._warm(self.buckets)
 
     # -- request path ------------------------------------------------------
-    def _bucket_of(self, b: int) -> int:
-        bucket = self.pick(b)
-        if bucket is None:
-            raise ValueError(f"batch of {b} exceeds the largest bucket {self.max_bucket}")
-        return bucket
+    def _check_state(self, state, bucket: int) -> None:
+        if not self.takes_state:
+            return
+        want = (bucket,) + self.state_shape
+        if state is None or tuple(state.shape) != want:
+            raise ValueError(f"cache {self.name!r} takes a carried state of shape {want}, got "
+                             f"{None if state is None else tuple(state.shape)}")
 
-    def _eager(self, params, imgs: np.ndarray, bucket: int) -> np.ndarray:
-        b = imgs.shape[0]
+    def _to_host(self, out, new, b: int):
+        """The default take: the answer's first ``b`` rows on the host, and
+        (with ``carries_state``) the new state copied into a tensor the
+        caller owns."""
+        owned = None if new is None else new.clone()
+        host = out[:b].cpu().numpy()
+        return host if not self.carries_state else (host, owned)
+
+    def _run_eager(self, params, imgs: np.ndarray, bucket: int, state, take):
         with torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(pad_to_bucket(imgs, bucket),
                                                       dtype=np.float32)).to(self.device)
-            return self.fn(params, x)[:b].cpu().numpy()
+            args = (params, x) + ((state,) if self.takes_state else ())
+            out = self.fn(*args)
+            new = None
+            if self.carries_state:
+                out, new = out
+            return take(out, new, imgs.shape[0])
 
-    def eager(self, params, imgs: np.ndarray) -> np.ndarray:
+    def _execute(self, params, imgs: np.ndarray, bucket: int, state, take, clock=None):
+        """Replay ``bucket`` (on the CPU: run eagerly) and return ``(take(out,
+        new_state, b), t_pad)``: ``take`` sees the outputs while this cache
+        still holds its pool and the device lock shared, so it may read them
+        on the card, and replay another family's graph that is prepared."""
+        b = imgs.shape[0]
+        if not self.graphed:
+            t_pad = clock() if clock else 0.0
+            return self._run_eager(params, imgs, bucket, state, take), t_pad
+        with self._lock.shared(), self._holding(bucket) as entry:
+            entry.static_in[:b].copy_(torch.from_numpy(np.ascontiguousarray(imgs, np.float32)))
+            if b < bucket:
+                entry.static_in[b:].zero_()
+            if self.takes_state:
+                entry.static_state.copy_(state)
+            t_pad = clock() if clock else 0.0
+            entry.replay()
+            return take(entry.static_out, entry.static_new, b), t_pad
+
+    def eager(self, params, imgs: np.ndarray, *, state=None):
         """The forward run eagerly at the bucket's shape, padded as the
         request path pads: what a replay must equal bit for bit."""
-        bucket = self._bucket_of(imgs.shape[0])
+        bucket = self.bucket_of(imgs.shape[0])
+        self._check_state(state, bucket)
         with self._lock.shared():
-            return self._eager(params, imgs, bucket)
+            return self._run_eager(params, imgs, bucket, state, self._to_host)
 
-    def __call__(self, params, imgs: np.ndarray, *, tracer=None, contexts: Sequence = ()):
+    def __call__(self, params, imgs: np.ndarray, *, state=None, tracer=None,
+                 contexts: Sequence = ()):
         """Pad ``imgs`` to its bucket, replay (on the CPU: run eagerly), and
-        return the output's first ``len(imgs)`` rows as a host array.
+        return the answer's first ``len(imgs)`` rows as a host array (with
+        ``carries_state``: ``(rows, new_state)``, the state on the card).
 
         With a ``tracer``, records ``bucket_select`` / ``pad`` / ``execute``
         spans under every context in ``contexts`` (the batch span first, then
         each member request; only the first feeds the duration histograms),
         as ``glom_tpu``'s cache does.  ``execute`` ends once the output is on
         the host."""
+        return self._serve(params, imgs, state, self._to_host, tracer, contexts)
+
+    def _serve(self, params, imgs: np.ndarray, state, take, tracer, contexts):
+        """Prepare the bucket (a capture needs the device lock alone, so it
+        comes before any hold), then execute it with ``take``."""
         b = imgs.shape[0]
         self._bind(params)
         clock = tracer.clock if tracer is not None and contexts else None
         t0 = clock() if clock else 0.0
-        bucket = self._bucket_of(b)
-        prepared = bucket in self._ready
-        if not prepared and self._capture(bucket):
-            with self._replay:
-                self._new_captures += 1
-        if not self.graphed:
-            t_pad = clock() if clock else 0.0
-            out = self._eager(params, imgs, bucket)
-        else:
-            entry = self._graphs[bucket]
-            with self._lock.shared(), self._replay, torch.inference_mode():
-                entry.static_in[:b].copy_(torch.from_numpy(np.ascontiguousarray(imgs, np.float32)))
-                if b < bucket:
-                    entry.static_in[b:].zero_()
-                t_pad = clock() if clock else 0.0
-                entry.graph.replay()
-                _common.add_replayed(entry.launches)
-                out = entry.static_out[:b].cpu().numpy()
+        bucket = self.bucket_of(b)
+        self._check_state(state, bucket)
+        prepared = self._prepare(bucket)
+        out, t_pad = self._execute(params, imgs, bucket, state, take, clock)
         if clock:
             t_done = clock()
             attrs = {"images": b, "bucket": bucket, "graph": self.graphed,
-                     "prepared": prepared, "endpoint": self.name,
+                     "prepared": prepared, "endpoint": self.name, "stateful": self.takes_state,
                      "padding_waste": round((bucket - b) / bucket, 4)}
             if self.iters is not None:
                 attrs["iters"] = self.iters
@@ -305,24 +472,100 @@ class BucketedGraphCache:
                               observe=observe)
         return out
 
+
+class PostPassCache(_GraphFamily):
+    """An endpoint that is another cache's forward followed by a post-pass
+    (``glom_tpu/serving/compile_cache.py::PostPassCache``).
+
+    ``/parse`` is the case: the ``index`` cache's forward, then the
+    islanding pack (``hierarchy/parse.py::make_pack_fn``).  The pack is
+    captured as a graph of its own per key ``(bucket, state dtype name)``,
+    in this cache's pool, so no second family of forward graphs is
+    captured.  A request prepares both graphs, then replays the index graph
+    and, inside the index cache's hold, copies its output into the pack's
+    static input (the next index replay would overwrite it), replays the
+    pack and copies the rows to the host.  :meth:`apply_post` runs the pack
+    alone on a session's carried state, at that state's dtype:
+    :meth:`warm_state` admits a dtype's graphs at start-up.  On the CPU both
+    run eagerly with the same bookkeeping.
+
+    Trace spans come from the inner cache, so the execute span (the pack
+    inside it) carries the inner endpoint's name."""
+
+    def __init__(self, inner: BucketedGraphCache, post_fn: Callable, *,
+                 state_shape: Tuple[int, ...], name: str = "parse"):
+        super().__init__(inner.buckets, device=inner.device, name=name, lock=inner._lock)
+        self.inner = inner
+        self.post_fn = post_fn
+        self.iters = inner.iters
+        self.state_shape = tuple(int(s) for s in state_shape)
+        # the inner forward's output: the index family's float32 state
+        self.state_dtype = torch.float32
+
+    @staticmethod
+    def _key(bucket: int, dtype) -> Tuple[int, str]:
+        return int(bucket), str(dtype).replace("torch.", "")
+
+    def _label(self, key) -> str:
+        return "%d/%s" % key
+
+    def _capture_call(self, key):
+        bucket, dtype = key
+        static_in = torch.zeros((bucket,) + self.state_shape, dtype=getattr(torch, dtype),
+                                device=self.device)
+        return self.post_fn, (static_in,), static_in, None
+
+    def warm_state(self, dtype) -> None:
+        """Capture the pack for a carried state of ``dtype`` at every bucket
+        (idempotent)."""
+        for bucket in self.buckets:
+            self._capture(self._key(bucket, dtype))
+
+    def warmup(self, params) -> None:
+        """Warm the inner cache (idempotent) and capture the pack at every
+        bucket for the inner forward's float32 output (``warmup_seconds``
+        times the pack's captures)."""
+        if not self.inner.warmed:
+            self.inner.warmup(params)
+        self._warm([self._key(b, self.state_dtype) for b in self.buckets])
+
+    def _pack(self, state: torch.Tensor, b: int) -> np.ndarray:
+        """The pack on a bucket-shaped state on the card: rows ``[:b]`` on
+        the host.  The caller holds the device lock shared."""
+        if not self.graphed:
+            with torch.inference_mode():
+                return self.post_fn(state)[:b].cpu().numpy()
+        with self._holding(self._key(state.shape[0], state.dtype)) as entry:
+            entry.static_in.copy_(state)
+            entry.replay()
+            return entry.static_out[:b].cpu().numpy()
+
+    def apply_post(self, state: torch.Tensor, b: Optional[int] = None) -> np.ndarray:
+        """The pack alone on an already computed, bucket-shaped state (a
+        session's carried state): its rows ``[:b]`` on the host."""
+        b = int(state.shape[0]) if b is None else int(b)
+        self._prepare(self._key(state.shape[0], state.dtype))
+        with self._lock.shared():
+            return self._pack(state, b)
+
+    def __call__(self, params, imgs: np.ndarray, *, tracer=None, contexts: Sequence = ()):
+        """The inner forward on ``imgs`` padded to its bucket, then the pack:
+        the rows of the first ``len(imgs)`` images on the host."""
+        self._prepare(self._key(self.bucket_of(imgs.shape[0]), self.state_dtype))
+        return self.inner._serve(params, imgs, None,
+                                 lambda out, _new, b: self._pack(out, b), tracer, contexts)
+
+    def eager(self, params, imgs: np.ndarray) -> np.ndarray:
+        """The inner forward and the pack run eagerly at the bucket's shape:
+        what a replay must equal (labels, counts and sizes bit for bit; the
+        means up to the order of the pack's atomic sums)."""
+        bucket = self.bucket_of(imgs.shape[0])
+        with self._lock.shared(), torch.inference_mode():
+            return self.inner._run_eager(
+                params, imgs, bucket, None,
+                lambda out, _new, b: self.post_fn(out)[:b].cpu().numpy())
+
     def poll_captures(self) -> int:
-        """Captures made on the request path since the last poll: nonzero
-        after warm-up means a bucket was not prepared at start-up."""
-        with self._replay:
-            n, self._new_captures = self._new_captures, 0
-        return n
-
-    # -- what the graphs cost ----------------------------------------------
-    def launches_per_replay(self) -> Dict[int, Dict[str, int]]:
-        """``{bucket: {wrapper name: launches}}`` one replay makes."""
-        return {b: {fn.__name__: n for fn, n in g.launches.items()}
-                for b, g in sorted(self._graphs.items())}
-
-    def pool_bytes(self) -> Optional[int]:
-        """Bytes the card has reserved for this cache's graph pool (None on
-        the CPU, or before a capture)."""
-        if self._pool is None:
-            return None
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        """Pack captures on the request path since the last poll, plus the
+        inner cache's."""
+        return super().poll_captures() + self.inner.poll_captures()

@@ -13,6 +13,8 @@ the CPU) -> per-request slices on the callers' futures.
   (``resolve_loss_timestep``) decoded through the trained head ->
   ``(k, c, H, W)``.  The forward stops at that timestep: the iterations
   after it would not change the answer.
+* ``parse``: one packed islanding row an image
+  (``hierarchy/parse.py::parse_row_width`` columns).
 
 The engine loads the newest valid checkpoint of a directory written by
 either package and serves it with the kernel choice the checkpoint recorded
@@ -56,10 +58,33 @@ per-endpoint :class:`~glom_tpu_torch.obs.triggers.QueueSaturationMonitor`
 (``serving_queue_saturation_events``, and an event on the timeline), and
 declarative SLOs (``slos``) with burn-rate alerting.
 
+Serving at reduced precision, per tenant and with state:
+
+  * ``quant`` (``f32`` | ``bf16`` | ``int8``; :mod:`.quant`): the tree is
+    quantized on the host and placed once; the int8 dequant runs inside
+    every graph, so every weight reaches the kernels as bf16; a reload
+    re-quantizes the new tree before its graphs are captured;
+  * ``tenant_quotas``: per-tenant token buckets (``X-Tenant``) in front of
+    every endpoint, the session and ``/similar`` paths included;
+  * ``warm_iters``: stateful sessions (``/session/embed``,
+    ``/session/parse``, ``/session/reset``; :mod:`.sessions`).  Two more
+    graph families, ``session_cold`` (the full settle from the init state,
+    returning the state) and ``session_warm`` (``warm_iters`` iterations
+    from the carried state), whose new state is copied out of the graph
+    into storage the store owns before the bucket's next replay.  The state
+    stays on the card between frames; ``session_spill_dir`` spills it on
+    drain (float32) and restores it at start-up;
+  * the part-whole endpoints: ``/parse`` is the ``index`` family's forward
+    followed by the islanding pack, captured as a graph of its own per
+    bucket (:class:`~glom_tpu_torch.serving.compile_cache.PostPassCache`;
+    ``parse_thresholds``); ``/similar`` embeds through the ``index`` family
+    and scans ``index_dir``'s level index; ``/session/parse`` runs the pack
+    on a session's carried state, at its dtype.
+
 Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (forensics bundles, quantized weights, sessions, tenants, deploys, the
-capacity and quality planes, bulk jobs, the part-whole endpoints, several
-models, a device mesh) are refused by name when set: :data:`UNPORTED`.
+yet (forensics bundles, deploys and several models, the capacity and quality
+planes, bulk jobs, a device mesh) are refused by name when set:
+:data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -68,13 +93,14 @@ import dataclasses
 import threading
 import time
 import warnings
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from glom_tpu_torch import checkpoint as ckpt_lib
 from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
+from glom_tpu_torch.hierarchy import parse as hierarchy_parse
 from glom_tpu_torch.kernels import _build, consensus, ff, fused_update
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply, decoder_param_shapes
@@ -84,13 +110,26 @@ from glom_tpu_torch.obs.slo import SLO, SloManager, parse_slo
 from glom_tpu_torch.obs.tracing import SPAN_BATCH_ASSEMBLY, SPAN_RELOAD, TraceSink, Tracer
 from glom_tpu_torch.obs.triggers import QueueSaturationMonitor, TriggerEngine
 from glom_tpu_torch.resilience import integrity
-from glom_tpu_torch.serving.batcher import Closed, DynamicBatcher, Overloaded  # noqa: F401
-from glom_tpu_torch.serving.compile_cache import BucketedGraphCache, DeviceLock
+from glom_tpu_torch.serving import quant as serving_quant
+from glom_tpu_torch.serving import sessions as serving_sessions
+from glom_tpu_torch.serving.batcher import (  # noqa: F401
+    Closed,
+    DynamicBatcher,
+    Overloaded,
+    TenantAdmission,
+    TenantQuotaExceeded,
+)
+from glom_tpu_torch.serving.compile_cache import (
+    BucketedGraphCache,
+    DeviceLock,
+    PostPassCache,
+)
 from glom_tpu_torch.training import denoise
 
-ENDPOINTS = ("embed", "reconstruct")
-# endpoints an SLO may target
-SLO_ENDPOINTS = ENDPOINTS
+ENDPOINTS = ("embed", "reconstruct", "parse")
+# endpoints an SLO may target: the batched three, and the session and
+# similarity paths, which have no batcher but report their outcomes alike
+SLO_ENDPOINTS = ENDPOINTS + ("session", "similar")
 
 # The smallest config the CUDA kernels take (d a multiple of 128).
 DEMO_CONFIG = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8)
@@ -101,32 +140,24 @@ _Q = "ROADMAP queue 1"
 UNPORTED = {
     "warmup_dir": (None, f"obs/forensics.py's compile snapshots ({_Q}, item 7)"),
     "forensics_dir": (None, f"obs/forensics.py ({_Q}, item 7)"),
-    "quant": ("f32", f"serving/quant.py ({_Q}, item 4)"),
     "donate_inputs": (None, "an XLA buffer donation; a graph's static input is reused as it is"),
     "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
     "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
     "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
-    "warm_iters": (None, f"serving/sessions.py ({_Q}, item 4)"),
-    "session_ttl_s": (600.0, f"serving/sessions.py ({_Q}, item 4)"),
-    "session_max_bytes": (256 * 2 ** 20, f"serving/sessions.py ({_Q}, item 4)"),
-    "session_spill_dir": (None, f"serving/sessions.py ({_Q}, item 4)"),
-    "tenant_quotas": (None, f"the batcher's tenant admission ({_Q}, item 4)"),
-    "extra_models": (None, f"serving/registry.py ({_Q}, item 4)"),
-    "deploy_promote_after": (3, f"serving/deploy.py ({_Q}, item 4)"),
-    "deploy_window_s": (None, f"serving/deploy.py ({_Q}, item 4)"),
-    "deploy_min_events": (None, f"serving/deploy.py ({_Q}, item 4)"),
-    "deploy_canary_fraction": (0.1, f"serving/deploy.py ({_Q}, item 4)"),
-    "deploy_pin_url": (None, f"serving/deploy.py ({_Q}, item 4)"),
-    "capacity_policy": (None, f"obs/capacity.py ({_Q}, item 4)"),
-    "capacity_interval_s": (1.0, f"obs/capacity.py ({_Q}, item 4)"),
-    "capacity_window_s": (30.0, f"obs/capacity.py ({_Q}, item 4)"),
-    "capacity_persist_windows": (5, f"obs/capacity.py ({_Q}, item 4)"),
-    "capacity_ceiling": (None, f"obs/capacity.py ({_Q}, item 4)"),
-    "quality_sample": (1.0, f"obs/quality.py ({_Q}, item 5)"),
-    "quality_seed": (0, f"obs/quality.py ({_Q}, item 5)"),
-    "bulk_dir": (None, f"serving/bulk.py ({_Q}, item 4)"),
-    "parse_thresholds": (None, f"hierarchy/parse.py, /parse ({_Q}, item 5)"),
-    "index_dir": (None, f"hierarchy/index.py, /similar ({_Q}, item 5)"),
+    "extra_models": (None, f"serving/registry.py ({_Q}, item 4.4)"),
+    "deploy_promote_after": (3, f"serving/deploy.py ({_Q}, item 4.4)"),
+    "deploy_window_s": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
+    "deploy_min_events": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
+    "deploy_canary_fraction": (0.1, f"serving/deploy.py ({_Q}, item 4.4)"),
+    "deploy_pin_url": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
+    "capacity_policy": (None, f"obs/capacity.py ({_Q}, item 4.5)"),
+    "capacity_interval_s": (1.0, f"obs/capacity.py ({_Q}, item 4.5)"),
+    "capacity_window_s": (30.0, f"obs/capacity.py ({_Q}, item 4.5)"),
+    "capacity_persist_windows": (5, f"obs/capacity.py ({_Q}, item 4.5)"),
+    "capacity_ceiling": (None, f"obs/capacity.py ({_Q}, item 4.5)"),
+    "quality_sample": (1.0, f"obs/quality.py's QualityPlane ({_Q}, item 4.6)"),
+    "quality_seed": (0, f"obs/quality.py's QualityPlane ({_Q}, item 4.6)"),
+    "bulk_dir": (None, f"serving/bulk.py ({_Q}, item 4.7)"),
 }
 
 
@@ -230,13 +261,41 @@ def make_reconstruct_fn(config: GlomConfig, train_cfg: TrainConfig, timestep: in
     return f
 
 
+def make_session_fns(config: GlomConfig, cold_iters: int, warm_iters: int, step_fns):
+    """The two forwards of a stateful session, ``models/video.py``'s carried
+    levels split in two: ``cold(params, imgs) -> (emb, levels)``, the full
+    settle from the init state at ``cold_iters`` (a session's first frame, or
+    a restart), and ``warm(params, imgs, levels) -> (emb, levels)``,
+    ``warm_iters`` iterations from the previous frame's state.  ``emb`` is
+    the float32 mean over patches; ``levels`` the new state in the compute
+    dtype.  Chained, they are ``video.rollout_varied`` with the schedule
+    ``[cold_iters, warm_iters, ...]``."""
+    consensus_fn, ff_fn, fused_fn = step_fns
+
+    def cold(params, imgs):
+        levels = glom_model.apply(params["glom"], imgs, config=config, iters=cold_iters,
+                                  consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        return levels.mean(dim=1).float(), levels
+
+    def warm(params, imgs, levels):
+        new = glom_model.apply(params["glom"], imgs, config=config, iters=warm_iters,
+                               levels=levels, consensus_fn=consensus_fn, ff_fn=ff_fn,
+                               fused_fn=fused_fn)
+        return new.mean(dim=1).float(), new
+
+    return cold, warm
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingSet:
-    """What serves: a checkpoint's step, its parameters on the device, and
-    the graph caches captured against them.  Swapped as one reference."""
+    """What serves: a checkpoint's step, its parameters on the device (the
+    quantized tree under ``quant``), and the graph caches captured against
+    them: one per endpoint, ``index`` (the ``/similar`` forward, and
+    ``parse``'s inner forward) and, with sessions, ``session_cold`` and
+    ``session_warm``.  Swapped as one reference."""
     step: int
     params: dict
-    caches: Dict[str, BucketedGraphCache]
+    caches: Dict[str, Union[BucketedGraphCache, PostPassCache]]
 
 
 class ServingEngine:
@@ -275,6 +334,14 @@ class ServingEngine:
         device=None,
         ff_impl: Optional[str] = None,
         attention_impl: Optional[str] = None,
+        quant: str = "f32",
+        warm_iters=None,
+        session_ttl_s: float = 600.0,
+        session_max_bytes: int = 256 * 2 ** 20,
+        session_spill_dir: Optional[str] = None,
+        tenant_quotas: Optional[Dict[str, object]] = None,
+        parse_thresholds=None,
+        index_dir: Optional[str] = None,
         **unported,
     ):
         refuse_unported(unported)
@@ -309,32 +376,87 @@ class ServingEngine:
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
+        # -- quantized serving: one mode an engine; a reload quantizes its
+        # new tree the same way.  The tree is loaded to the host for a
+        # reduced mode (quantized there, then placed once)
+        if quant not in serving_quant.QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r}; one of {serving_quant.QUANT_MODES}")
+        self.quant = quant
+        self._load_device = self.device if quant == "f32" else torch.device("cpu")
         step, config, self.train_cfg, params = denoise.load_checkpoint_state(
-            checkpoint_dir, device=self.device)
+            checkpoint_dir, device=self._load_device)
         # None keeps the checkpoint's choice; a value overrides it
         overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
                      if v is not None}
         self.config = dataclasses.replace(config, **overrides)
+        # the config the forwards run: bf16 compute under a reduced mode
+        self.serve_config = serve_cfg = serving_quant.serving_config(self.config, quant)
         # resolved once, outside every graph: the step's functions and the
         # locality mask on the device
-        self._step_fns = glom_model.resolve_step_fns(self.config, self.device)
+        self._step_fns = glom_model.resolve_step_fns(serve_cfg, self.device)
         self._consensus_fn, self._ff_fn, self._fused_fn = self._step_fns
         self.embed_iters = iters if iters is not None else self.config.default_iters
         recon_iters = iters if iters is not None else (
             self.train_cfg.iters if self.train_cfg.iters is not None
             else self.config.default_iters)
         self.reconstruct_timestep = denoise.resolve_loss_timestep(self.train_cfg, recon_iters)
+        c = serve_cfg
+        # the state every stateful path carries: the compute dtype, (n, L, d)
+        self._state_dtype = c.resolved_compute_dtype
+        self._state_tail = (c.num_patches, c.levels, c.dim)
+        # -- the part-whole endpoints: /parse is the index forward and the
+        # islanding pack; /similar embeds through the index forward
+        self.parse_thresholds = hierarchy_parse.parse_thresholds(parse_thresholds, c.levels)
+        self.index_dir = index_dir
+        self._index = None
+        if index_dir is not None:
+            from glom_tpu_torch.hierarchy.index import LevelIndex
+
+            self._index = LevelIndex(index_dir, c.levels)
+        self._pack_fn = hierarchy_parse.make_pack_fn(c, self.parse_thresholds)
+        consensus_fn, ff_fn, fused_fn = self._step_fns
         self._fns = {
-            "embed": make_embed_fn(self.config, self.embed_iters, self._step_fns),
-            "reconstruct": make_reconstruct_fn(self.config, self.train_cfg,
-                                               self.reconstruct_timestep, self._step_fns),
+            "embed": make_embed_fn(c, self.embed_iters, self._step_fns),
+            "reconstruct": make_reconstruct_fn(c, self.train_cfg, self.reconstruct_timestep,
+                                               self._step_fns),
+            "index": hierarchy_parse.make_index_fn(c, self.embed_iters, ff_fn=ff_fn,
+                                                   fused_fn=fused_fn,
+                                                   consensus_fn=consensus_fn),
         }
+        # -- stateful sessions: warm_iters enables them ("auto" = half the
+        # cold iterations)
+        self._session_cold_iters = int(self.embed_iters)
+        self._session_warm_iters = None
+        self.sessions: Optional[serving_sessions.SessionStore] = None
+        self._session_spill_dir = session_spill_dir
+        if warm_iters is not None:
+            if warm_iters == "auto":
+                warm_iters = max(1, self._session_cold_iters // 2)
+            warm_iters = int(warm_iters)
+            if warm_iters < 1:
+                raise ValueError(f"warm_iters must be >= 1, got {warm_iters}")
+            self._session_warm_iters = warm_iters
+            self._fns["session_cold"], self._fns["session_warm"] = make_session_fns(
+                c, self._session_cold_iters, warm_iters, self._step_fns)
+            self.sessions = serving_sessions.SessionStore(
+                max_bytes=session_max_bytes, ttl_s=session_ttl_s, registry=self.registry,
+                clock=self._clock)
+        self._fns = {name: serving_quant.quantized_forward(fn, quant)
+                     for name, fn in self._fns.items()}
         if self.device.type == "cuda":
             self._build_kernels()
         # replays share the card; a capture (start-up, reload, or a lazy
         # bucket) holds it alone
         self._device_lock = DeviceLock()
         self._serving = self._make_set(step, params)
+        if self.sessions is not None and session_spill_dir:
+            # warm boot: a drained replica's spilled states come back
+            # resident (invalid ones are dropped)
+            self.sessions.restore(session_spill_dir, validate=self._valid_spilled_state,
+                                  place=self._place_state)
+        # -- tenant bulkheads: one admission for every endpoint
+        self.tenants: Optional[TenantAdmission] = (
+            TenantAdmission(tenant_quotas, clock=self._clock) if tenant_quotas else None)
 
         self.batchers: Dict[str, DynamicBatcher] = {
             ep: DynamicBatcher(max_batch=self.buckets[-1], max_wait_ms=max_wait_ms,
@@ -370,6 +492,12 @@ class ServingEngine:
         self._reload_lock = threading.Lock()
 
         self._lock = threading.Lock()  # set swap + counters + saturation
+        # session frames bypass the batchers: the drain waits on this count
+        # before the spill, so every acknowledged frame's state is in it
+        self._session_inflight = 0
+        self._session_cv = threading.Condition()
+        # /session/parse's delta baselines (_note_parse_labels)
+        self._parse_labels: Dict[str, np.ndarray] = {}
         self._threads: list = []
         self._stop = threading.Event()
         self._started = False
@@ -387,25 +515,43 @@ class ServingEngine:
 
     # -- serving sets ------------------------------------------------------
     def _make_set(self, step: int, params: dict) -> ServingSet:
-        """A set for ``params`` (cast to the compute dtype) with a graph
-        cache per endpoint, not yet captured."""
-        c = self.config
-        dt = c.resolved_compute_dtype
-        params = glom_model.tree_map(lambda p: p.to(dt), params)
+        """A set for ``params`` (cast to the compute dtype under ``f32``,
+        quantized and placed on the device otherwise) with its graph caches,
+        not yet captured."""
+        c = self.serve_config
+        if self.quant == "f32":
+            dt = c.resolved_compute_dtype
+            params = glom_model.tree_map(lambda p: p.to(dt), params)
+        else:
+            params = serving_quant.tree_to(serving_quant.quantize_tree(params, self.quant),
+                                           self.device)
         shape = (c.channels, c.image_size, c.image_size)
-        caches = {
-            ep: BucketedGraphCache(self._fns[ep], self.buckets, input_shape=shape,
-                                   device=self.device, name=ep, lock=self._device_lock,
-                                   iters=self.embed_iters if ep == "embed"
-                                   else self.reconstruct_timestep)
-            for ep in ENDPOINTS
-        }
+
+        def cache(name, iters, **kw):
+            return BucketedGraphCache(self._fns[name], self.buckets, input_shape=shape,
+                                      device=self.device, name=name, lock=self._device_lock,
+                                      iters=iters, **kw)
+
+        caches = {"embed": cache("embed", self.embed_iters),
+                  "reconstruct": cache("reconstruct", self.reconstruct_timestep),
+                  "index": cache("index", self.embed_iters)}
+        caches["parse"] = PostPassCache(caches["index"], self._pack_fn,
+                                        state_shape=self._state_tail, name="parse")
+        if self.sessions is not None:
+            caches["session_cold"] = cache("session_cold", self._session_cold_iters,
+                                           carries_state=True)
+            caches["session_warm"] = cache("session_warm", self._session_warm_iters,
+                                           carries_state=True, takes_state=True,
+                                           state_shape=self._state_tail,
+                                           state_dtype=self._state_dtype)
         return ServingSet(int(step), params, caches)
 
-    @staticmethod
-    def _warm_set(serving: ServingSet) -> None:
+    def _warm_set(self, serving: ServingSet) -> None:
         for cache in serving.caches.values():
             cache.warmup(serving.params)
+        if self.sessions is not None:
+            # /session/parse runs the pack on the carried state, at its dtype
+            serving.caches["parse"].warm_state(self._state_dtype)
 
     def warm(self) -> None:
         """Capture every (endpoint, bucket) pair of the serving set; the
@@ -439,36 +585,42 @@ class ServingEngine:
         """Restore ``step`` onto the device and capture its graphs (when the
         engine warms) off the request path."""
         _, _, _, params = denoise.load_checkpoint_state(self.checkpoint_dir, step=step,
-                                                        device=self.device)
+                                                        device=self._load_device)
         serving = self._make_set(step, params)
         if self._warm:
             self._warm_set(serving)
         return serving
 
     def graph_pool_bytes(self) -> Dict[str, Optional[int]]:
-        """Bytes the card holds for each endpoint's graph pool (None on the
+        """Bytes the card holds for each graph family's pool (None on the
         CPU)."""
-        return {ep: cache.pool_bytes() for ep, cache in self.caches.items()}
+        return {name: cache.pool_bytes() for name, cache in self.caches.items()}
+
+    def param_bytes(self) -> int:
+        """Bytes the served parameter tree holds on the device."""
+        return serving_quant.tree_nbytes(self._serving.params)
 
     # -- the forward -------------------------------------------------------
-    def run(self, endpoint: str, imgs: np.ndarray) -> np.ndarray:
-        """One batch of ``k <= max(buckets)`` images through the serving
-        path (padded to its bucket, replayed on the card); the endpoint's
-        output for the ``k``."""
+    def run(self, name: str, imgs: np.ndarray, **kw):
+        """One batch of ``k <= max(buckets)`` images through graph family
+        ``name`` (an endpoint, ``index``, or with sessions ``session_cold``
+        and ``session_warm``, which takes ``state=``), padded to its bucket
+        and replayed on the card; the family's output for the ``k``."""
         serving = self._serving
-        return serving.caches[self._endpoint(endpoint)](serving.params, imgs)
+        return self._cache(serving, name)(serving.params, imgs, **kw)
 
-    def run_eager(self, endpoint: str, imgs: np.ndarray) -> np.ndarray:
+    def run_eager(self, name: str, imgs: np.ndarray, **kw):
         """The same batch through the eager forward of the same weights at
         the same bucket: what a replay equals bit for bit."""
         serving = self._serving
-        return serving.caches[self._endpoint(endpoint)].eager(serving.params, imgs)
+        return self._cache(serving, name).eager(serving.params, imgs, **kw)
 
     @staticmethod
-    def _endpoint(endpoint: str) -> str:
-        if endpoint not in ENDPOINTS:
-            raise ValueError(f"unknown endpoint {endpoint!r}")
-        return endpoint
+    def _cache(serving: ServingSet, name: str):
+        if name not in serving.caches:
+            raise ValueError(f"unknown graph family {name!r}; this engine has "
+                             f"{sorted(serving.caches)}")
+        return serving.caches[name]
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, *, workers: bool = True, watch: Optional[bool] = None) -> None:
@@ -501,6 +653,22 @@ class ServingEngine:
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
         self._threads = []
+        if self.sessions is not None and self._session_spill_dir:
+            # spill after the workers drained and every admitted session
+            # frame made its put (admission is shut by _stop, so the count
+            # only falls); a crash mid-spill leaves the previous spill whole
+            with self._session_cv:
+                drained = self._session_cv.wait_for(
+                    lambda: self._session_inflight == 0,
+                    timeout=max(0.0, deadline - time.monotonic()))
+            if not drained:
+                warnings.warn(f"{self._session_inflight} session frame(s) still in flight at "
+                              f"the drain deadline; spilling without them", stacklevel=2)
+            try:
+                self.sessions.spill(self._session_spill_dir)
+            except OSError as e:
+                warnings.warn(f"session spill failed ({e}); the sessions restart cold",
+                              stacklevel=2)
         if self.tracer.exporter is not None:
             self.tracer.exporter.close()
 
@@ -658,24 +826,47 @@ class ServingEngine:
         while not self._stop.wait(
                 self._reload_poll_s * min(2 ** self._reload_failstreak, self._reload_backoff_max)):
             self.check_reload()
+            if self.sessions is not None:
+                # idle sessions age out on the watcher's cadence
+                self.sessions.sweep()
 
     # -- the request path --------------------------------------------------
-    def submit(self, endpoint: str, imgs: np.ndarray, *, ctx=None):
+    def submit(self, endpoint: str, imgs: np.ndarray, *, ctx=None,
+               tenant: Optional[str] = None):
         """Enqueue a ``(k, c, H, W)`` batch; returns the Future of the
-        endpoint's output.  Raises the batcher's ``Overloaded`` (shed) or
+        endpoint's output.  Raises the batcher's ``Overloaded`` (shed),
+        :class:`TenantQuotaExceeded` (``tenant`` past its quota) or
         ``Closed`` (shutting down).  ``ctx`` (the request's root span)
         threads the trace through the batcher and the executor."""
+        self._admit(tenant, imgs.shape[0])
         batcher = self.batchers[endpoint]
         try:
             future = batcher.submit(np.ascontiguousarray(imgs, dtype=np.float32),
                                     size=imgs.shape[0], ctx=ctx)
         except Overloaded:
+            if self.tenants is not None:
+                # the tokens bought nothing: a global shed gives them back
+                self.tenants.refund(tenant, int(imgs.shape[0]))
             self.registry.counter("serving_shed_total",
                                   help="requests shed at queue capacity").inc()
             self._observe_saturation(endpoint)
             raise
         self._observe_saturation(endpoint)
         return future
+
+    def _admit(self, tenant: Optional[str], images: int) -> None:
+        """The tenant's quota, shared by the batched, session and similarity
+        paths; a shed counts into the shed totals."""
+        if self.tenants is None:
+            return
+        try:
+            self.tenants.admit(tenant, int(images))
+        except TenantQuotaExceeded:
+            self.registry.counter("serving_shed_total",
+                                  help="requests shed at queue capacity").inc()
+            self.registry.counter(self.registry.labeled("serving_tenant_shed_", tenant),
+                                  help="requests shed at a tenant's admission quota").inc()
+            raise
 
     def process_once(self, endpoint: str, *, block: bool = False,
                      timeout: Optional[float] = None) -> int:
@@ -729,6 +920,232 @@ class ServingEngine:
             if served == 0 and batcher.closed and batcher.depth == 0:
                 return
 
+    # -- stateful sessions (/session/*) -------------------------------------
+    @property
+    def sessions_enabled(self) -> bool:
+        return self.sessions is not None
+
+    def _valid_spilled_state(self, shape, dtype) -> bool:
+        # the spill is float32 whatever the serving dtype, and _place_state
+        # casts it back: only the shape gates a restore, and its batch must
+        # be a bucket this engine captured
+        del dtype
+        return (len(shape) == 4 and shape[0] in self.buckets
+                and tuple(shape[1:]) == self._state_tail)
+
+    def _place_state(self, host_levels: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(host_levels, np.float32)).to(
+            device=self.device, dtype=self._state_dtype)
+
+    def session_embed(self, session_id: str, imgs: np.ndarray, *, ctx=None,
+                      tenant: Optional[str] = None):
+        """One frame of a stateful session: ``warm_iters`` iterations from the
+        session's resident state when it has one, the full cold settle
+        otherwise.  Returns ``(embeddings, info)``, ``info`` carrying
+        ``cold``, ``frames``, ``iters`` and ``step`` (and ``restart`` after a
+        batch change).
+
+        Runs on the caller's thread: a session's frames are ordered (frame
+        k+1 takes frame k's state), so batching across requests buys nothing
+        within a session; the per-session locks let other sessions' frames
+        interleave.  Each frame is one replay of a captured graph; the state
+        never leaves the card between frames."""
+        return self._session_frame(session_id, imgs, ctx=ctx, tenant=tenant, parse=False)
+
+    def session_parse(self, session_id: str, imgs: np.ndarray, *, ctx=None,
+                      tenant: Optional[str] = None):
+        """One parse frame of a session (``/session/parse``): the same state
+        update as :meth:`session_embed` (one state a session, so the two
+        kinds of frame interleave freely), answered with the packed islanding
+        rows of the new state; ``info["deltas"]`` holds each image's island
+        deltas against the previous parse frame
+        (:func:`~glom_tpu_torch.hierarchy.parse.island_deltas`).  A cold
+        frame, or a session's first parse frame, reports every island
+        ``appeared``."""
+        return self._session_frame(session_id, imgs, ctx=ctx, tenant=tenant, parse=True)
+
+    def _session_frame(self, session_id: str, imgs: np.ndarray, *, ctx, tenant, parse: bool):
+        if self.sessions is None:
+            raise RuntimeError("sessions disabled on this engine (construct with warm_iters= "
+                               "to enable /session/embed and /session/parse)")
+        if not serving_sessions.valid_session_id(session_id):
+            raise ValueError(f"invalid session id {session_id!r} (want "
+                             f"{serving_sessions.SESSION_ID_RE.pattern})")
+        # the tenant's quota covers sessions too: a frame past it sheds
+        # before it takes any device time
+        self._admit(tenant, imgs.shape[0])
+        imgs = np.ascontiguousarray(imgs, dtype=np.float32)
+        b = imgs.shape[0]
+        bucket = self.caches["session_cold"].bucket_of(b, "session frame batch")
+        contexts = [ctx] if ctx is not None else []
+        restart = None
+        # admission and the drain's count under one condition, so that no
+        # frame slips between the check and the count
+        with self._session_cv:
+            if self._stop.is_set():
+                raise Closed("engine draining; session frame rejected")
+            self._session_inflight += 1
+        try:
+            with self.sessions.locked(session_id):
+                entry = self.sessions.get(session_id)
+                if entry is not None and entry.batch != b:
+                    # the state is shaped for the session's first batch: a
+                    # new image count a frame starts a fresh equilibrium
+                    self.sessions.reset(session_id)
+                    entry, restart = None, "batch_changed"
+                # one read of the serving set: the frame runs whole on it
+                # (after a reload, the new set's graphs take the old state)
+                serving = self._serving
+                t0 = self._clock()
+                if entry is None:
+                    out, new_levels = serving.caches["session_cold"](
+                        serving.params, imgs, tracer=self.tracer, contexts=contexts)
+                    cold, frames = True, 1
+                else:
+                    out, new_levels = serving.caches["session_warm"](
+                        serving.params, imgs, state=entry.levels, tracer=self.tracer,
+                        contexts=contexts)
+                    cold, frames = False, entry.frames + 1
+                if parse:
+                    # the pack on the new (bucket-shaped) state replaces the
+                    # embeddings; only the rows slice back to the batch
+                    out = serving.caches["parse"].apply_post(new_levels, b)
+                elapsed = self._clock() - t0
+                self.sessions.put(session_id, new_levels, batch=b, bucket=bucket,
+                                  step=serving.step, frames=frames)
+                # still under the session's lock: this frame's labels pair
+                # with the previous parse frame's
+                deltas = self._note_parse_labels(session_id, out, cold) if parse else None
+        finally:
+            with self._session_cv:
+                self._session_inflight -= 1
+                self._session_cv.notify_all()
+        self._account_session(cold, b, elapsed, restart)
+        info = {"cold": cold, "frames": frames,
+                "iters": self._session_cold_iters if cold else self._session_warm_iters,
+                "step": int(serving.step)}
+        if restart is not None:
+            info["restart"] = restart
+        if deltas is not None:
+            info["deltas"] = deltas
+        return out, info
+
+    #: retained per-session parse labels (host int32 grids), the delta
+    #: baseline; bounded, so abandoned sessions cannot grow the host map
+    _PARSE_LABELS_MAX = 4096
+
+    def _note_parse_labels(self, session_id: str, packed: np.ndarray, cold: bool):
+        """One parse frame's label bookkeeping (the caller holds the
+        session's lock): the deltas against the previous parse frame's
+        labels, then this frame's kept as the next baseline.  A cold frame
+        never diffs against labels from before its restart."""
+        c = self.config
+        side = c.image_size // c.patch_size
+        n = side * side
+        cur = np.rint(packed[:, :c.levels * n]).astype(np.int32)
+        cur = cur.reshape(packed.shape[0], c.levels, side, side)
+        prev = None if cold else self._parse_labels.get(session_id)
+        if prev is not None and prev.shape != cur.shape:
+            prev = None
+        deltas = [hierarchy_parse.island_deltas(None if prev is None else prev[i], cur[i])
+                  for i in range(cur.shape[0])]
+        self._parse_labels[session_id] = cur
+        while len(self._parse_labels) > self._PARSE_LABELS_MAX:
+            self._parse_labels.pop(next(iter(self._parse_labels)))
+        return deltas
+
+    def session_reset(self, session_id: str) -> bool:
+        """Drop a session's state (``/session/reset``); its next frame is
+        cold.  Returns whether it had state.  Under the session's lock, so a
+        reset and an in-flight frame order one way or the other."""
+        if self.sessions is None:
+            raise RuntimeError("sessions disabled on this engine")
+        with self.sessions.locked(session_id):
+            self._parse_labels.pop(session_id, None)
+            return self.sessions.reset(session_id)
+
+    def _account_session(self, cold: bool, images: int, elapsed_s: float, restart) -> None:
+        reg = self.registry
+        with self._lock:
+            self.request_count += 1
+        reg.counter("serving_requests_total", help="images served across endpoints").inc(images)
+        mode = "cold" if cold else "warm"
+        reg.counter(f"serving_session_{mode}_frames",
+                    help=f"session frames served {mode} "
+                         + ("(full settle)" if cold else "(warm-started)")).inc()
+        reg.histogram(f"serving_session_frame_seconds_{mode}",
+                      help=f"device time per {mode} session frame",
+                      unit="seconds").observe(elapsed_s)
+        if restart is not None:
+            reg.counter("serving_session_cold_restarts",
+                        help="sessions restarted cold after a per-frame batch-size change "
+                             "(eviction/failover colds surface as serving_session_misses)").inc()
+        caches = self._serving.caches
+        self._count_captures(sum(caches[name].poll_captures()
+                                 for name in ("session_cold", "session_warm", "parse")))
+        # with no reload watcher running, the traffic itself drives the TTL
+        # sweep, gated by an interval
+        self.sessions.sweep(min_interval=max(1.0, self.sessions.ttl_s / 10.0))
+
+    def _count_captures(self, n: int) -> None:
+        if n:
+            self.registry.counter(
+                "serving_graph_captures",
+                help="request-path CUDA graph captures after warm-up (must stay 0)",
+            ).inc(n)
+
+    # -- similarity queries (/similar) --------------------------------------
+    @property
+    def similar_enabled(self) -> bool:
+        return self._index is not None
+
+    def similar(self, imgs: np.ndarray, *, level: Optional[int] = None, k: int = 5, ctx=None,
+                tenant: Optional[str] = None):
+        """Level-aware nearest neighbours (``/similar``): the query images go
+        through the ``index`` graphs (the forward an index build runs, so
+        queries and entries share one space), then this replica's level
+        index is scanned on the host.  Below the top level the query is an
+        image's patch vectors ("search by part"), at the top their mean.
+        Returns ``(results, info)``, one top-``k`` list an image."""
+        if self._index is None:
+            raise RuntimeError("similarity index disabled on this engine (construct with "
+                               "index_dir= to enable /similar)")
+        self._admit(tenant, imgs.shape[0])
+        imgs = np.ascontiguousarray(imgs, dtype=np.float32)
+        b = imgs.shape[0]
+        c = self.config
+        level = c.levels - 1 if level is None else int(level)
+        if not 0 <= level < c.levels:
+            raise ValueError(f"level {level} outside [0, {c.levels})")
+        if k < 1:
+            raise ValueError(f"need k >= 1, got {k}")
+        self.caches["index"].bucket_of(b, "query batch")
+        contexts = [ctx] if ctx is not None else []
+        serving = self._serving
+        t0 = self._clock()
+        states = serving.caches["index"](serving.params, imgs, tracer=self.tracer,
+                                         contexts=contexts)             # (b, n, L, d)
+        results = []
+        for i in range(b):
+            q = states[i, :, level, :]
+            if level == c.levels - 1:
+                q = q.mean(axis=0, keepdims=True)
+            results.append(self._index.query(q, level, k=k))
+        elapsed = self._clock() - t0
+        self._account_similar(b, elapsed)
+        return results, {"level": level, "k": int(k), "index": self._index.stats()}
+
+    def _account_similar(self, images: int, elapsed_s: float) -> None:
+        reg = self.registry
+        with self._lock:
+            self.request_count += 1
+        reg.counter("serving_requests_total", help="images served across endpoints").inc(images)
+        reg.counter("serving_similar_queries", help="similarity queries answered").inc()
+        reg.histogram("serving_similar_seconds",
+                      help="embed + index-scan time per similarity query",
+                      unit="seconds").observe(elapsed_s)
+        self._count_captures(self._serving.caches["index"].poll_captures())
+
     # -- accounting / overload detection -----------------------------------
     def _account_batch(self, endpoint: str, cache: BucketedGraphCache, n: int,
                        batch_s: float) -> None:
@@ -744,12 +1161,7 @@ class ServingEngine:
         reg.histogram(reg.labeled("serving_batch_occupancy_b", bucket),
                       help="real images / bucket size for one bucket").observe(n / bucket)
         reg.gauge("serving_queue_depth", help="queued images").set(self.batchers[endpoint].depth)
-        new_captures = cache.poll_captures()
-        if new_captures:
-            reg.counter(
-                "serving_graph_captures",
-                help="request-path CUDA graph captures after warm-up (must stay 0)",
-            ).inc(new_captures)
+        self._count_captures(cache.poll_captures())
 
     def _observe_saturation(self, endpoint: str) -> None:
         batcher = self.batchers[endpoint]
@@ -768,17 +1180,28 @@ class ServingEngine:
         self.registry.gauge("serving_queue_depth", help="queued images").set(batcher.depth)
 
     def observe_outcome(self, endpoint: str, latency_ms: Optional[float], error: bool,
-                        trace_id: Optional[str] = None) -> None:
+                        trace_id: Optional[str] = None, tenant: Optional[str] = None) -> None:
         """One request's terminal outcome, fed to the SLO burn-rate
         evaluators (the server calls this for successes and errors: sheds
-        burn the error budget too).  No-op without SLOs.  Serialized under
-        its own lock, not the engine's, so alerting never stalls the
-        workers' accounting or a swap."""
+        burn the error budget too).  ``tenant`` mints the per-tenant outcome
+        metrics (cardinality-bounded) and scopes per-tenant SLOs.  The SLOs
+        are serialized under their own lock, not the engine's, so alerting
+        never stalls the workers' accounting or a swap."""
+        if tenant is not None:
+            reg = self.registry
+            reg.counter(reg.labeled("serving_tenant_requests_", tenant),
+                        help="requests answered per tenant (all outcomes)").inc()
+            if error:
+                reg.counter(reg.labeled("serving_tenant_errors_", tenant),
+                            help="5xx-class outcomes per tenant").inc()
+            if latency_ms is not None:
+                reg.histogram(reg.labeled("serving_tenant_latency_ms_", tenant),
+                              help="request latency per tenant", unit="ms").observe(latency_ms)
         if self._slo is None:
             return
         with self._slo_lock:
             self._slo.observe(endpoint, latency_ms, error, trace_id=trace_id,
-                              step=self.request_count)
+                              step=self.request_count, tenant=tenant)
 
     # -- health ------------------------------------------------------------
     def health(self) -> dict:
@@ -792,9 +1215,19 @@ class ServingEngine:
             "warm": all(cache.warmed for cache in serving.caches.values()),
             "queue_depth": {ep: b.depth for ep, b in self.batchers.items()},
             "buckets": list(self.buckets),
+            "quant": self.quant,
             "ff_impl": c.ff_impl,
             "attention_impl": c.attention_impl,
             "staged_step": None if staged is None else int(staged.step),
+            "sessions": None if self.sessions is None else {
+                "warm_iters": self._session_warm_iters,
+                "cold_iters": self._session_cold_iters,
+                **self.sessions.snapshot()},
+            "tenants": None if self.tenants is None else self.tenants.snapshot(),
+            # the part-whole endpoints' contract: the islanding thresholds
+            # and this replica's index inventory
+            "hierarchy": {"parse_thresholds": list(self.parse_thresholds),
+                          "index": None if self._index is None else self._index.stats()},
             "graphs": {ep: {"graphed": cache.graphed, "warmup_seconds": cache.warmup_seconds,
                             "launches_per_replay": cache.launches_per_replay()}
                        for ep, cache in serving.caches.items()},

@@ -10,6 +10,16 @@ its single-replica routes and JSON contract).
     dim)`` or ``(k, dim)`` for one level;
   * ``POST /reconstruct`` -- the same request -> ``{"step", "latency_ms",
     "request_id", "images"}``, ``(k, c, H, W)``;
+  * ``POST /parse`` -- the same request -> ``{..., "islands"}``, per image
+    and level the island labels, count, sizes and mean embeddings;
+  * ``POST /session/embed`` and ``/session/parse`` -- ``{"session": id,
+    "images": ...}``, one frame of a stateful stream (the engine needs
+    ``--warm-iters``): the embeddings (or islands with their deltas against
+    the session's previous parse frame) and ``cold``, ``frames``,
+    ``iters``; ``POST /session/reset`` -- ``{"session": id}`` drops the
+    state;
+  * ``POST /similar`` -- images with optional ``"level"`` and ``"k"`` ->
+    ``{"results"}``, each image's nearest index slots (``--index-dir``);
   * ``GET /healthz`` -- liveness, the model's input contract, the graphs
     and the kernel launch counts;
   * ``GET /metrics`` -- the engine's registry in the Prometheus text format
@@ -28,7 +38,11 @@ and the identity is echoed on every reply (``X-Request-Id`` and
 answered 400, a shed one 503 ``{"error": "overloaded"}``, a request during
 drain 503 ``{"error": "shutting_down"}``; error replies count into
 ``serving_errors_<class>xx``, and every outcome feeds the engine's SLOs
-(``--slo``).  SIGTERM drains queued work before exit.
+(``--slo``).  SIGTERM drains queued work (and spills the sessions) before
+exit.  A request may carry ``X-Tenant``: its images go through that
+tenant's quota (``--tenant-quota``), a tenant past it is answered 503
+``{"error": "tenant_overloaded", "tenant": ...}``, and an invalid tenant
+label 400.
 
 Flags of ``glom_tpu``'s CLI whose modules the port does not have yet are
 recognised and refused by name (:func:`refused_flags`).
@@ -64,12 +78,18 @@ from glom_tpu_torch.obs.tracing import (
     parse_traceparent,
     request_trace_id,
 )
-from glom_tpu_torch.serving.batcher import Closed, Overloaded
+from glom_tpu_torch.serving.batcher import Closed, Overloaded, TenantQuotaExceeded
 from glom_tpu_torch.serving.engine import UNPORTED, ServingEngine
+from glom_tpu_torch.serving.sessions import valid_session_id
 
 _MAX_BODY = 256 * 1024 * 1024  # refuse absurd payloads before parsing them
 _RESULT_TIMEOUT_S = 120.0
 _HEX_ID = re.compile(r"[0-9a-f]{1,32}")
+# X-Tenant's charset: it is minted into metric names (through the
+# registry's cardinality-bounded labeled())
+_TENANT_RE = re.compile(r"[A-Za-z0-9._-]{1,64}")
+_TENANT_OVERLOADED = "tenant admission quota exhausted; back off"
+_BAD_SESSION = "want 1-128 chars of [A-Za-z0-9._:-]"
 
 
 class ServingHTTPServer(ThreadingHTTPServer):
@@ -131,6 +151,46 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": "body must be a JSON object"})
             return None
         return payload
+
+    def _tenant(self) -> Optional[str]:
+        """The request's ``X-Tenant``, or None.  An invalid label is answered
+        400 here and returned as ``""``, so the caller can tell "absent"
+        from "bad"."""
+        tenant = self.headers.get("X-Tenant")
+        if tenant is None:
+            return None
+        if not _TENANT_RE.fullmatch(tenant):
+            # the body is still unread: consume it, or a keep-alive
+            # connection's next request would start inside it
+            length = int(self.headers.get("Content-Length") or 0)
+            if 0 < length <= _MAX_BODY:
+                self.rfile.read(length)
+            self._reply(400, {"error": f"bad X-Tenant {tenant!r}: want 1-64 chars of "
+                                       f"[A-Za-z0-9._-]"})
+            return ""
+        return tenant
+
+    def _start_request(self, endpoint: str):
+        """Join the client's trace or mint one (``X-Request-Id`` wins, a W3C
+        ``traceparent`` supplies the trace and remote parent); the identity
+        is echoed on every reply (:meth:`_reply`).  Returns the root span."""
+        tracer = self.server.engine.tracer
+        rid_header = request_trace_id(self.headers.get("X-Request-Id"))
+        remote = parse_traceparent(self.headers.get("traceparent"))
+        root = tracer.start_trace(SPAN_REQUEST,
+                                  trace_id=rid_header or (remote[0] if remote else None),
+                                  parent_id=remote[1] if remote else None,
+                                  attrs={"endpoint": endpoint})
+        self._trace_root = root
+        self._request_id = rid_header or root.trace_id
+        return root
+
+    def _bad_tenant(self, root) -> None:
+        """Close the trace of a request answered 400 for its X-Tenant."""
+        tracer = self.server.engine.tracer
+        t = tracer.clock()
+        tracer.record(SPAN_PARSE, root, root.start, t)
+        tracer.end(root, attrs={"status": 400}, at=t)
 
     def _parse_images(self, payload: dict) -> Optional[np.ndarray]:
         cfg = self.server.engine.config
@@ -211,28 +271,28 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.startswith("/admin/reload/"):
             self._do_admin()
             return
-        if self.path not in ("/embed", "/reconstruct"):
+        if self.path in ("/session/embed", "/session/parse", "/session/reset"):
+            self._do_session()
+            return
+        if self.path == "/similar":
+            self._do_similar()
+            return
+        if self.path not in ("/embed", "/reconstruct", "/parse"):
             self._reply(404, {"error": f"no route {self.path}"})
             return
         endpoint = self.path[1:]
         engine = self.server.engine
         tracer = engine.tracer
-
-        # join the client's trace or mint one: X-Request-Id wins, a W3C
-        # traceparent supplies trace and remote parent; the identity is
-        # echoed on every reply (_reply)
-        rid_header = request_trace_id(self.headers.get("X-Request-Id"))
-        remote = parse_traceparent(self.headers.get("traceparent"))
-        root = tracer.start_trace(SPAN_REQUEST,
-                                  trace_id=rid_header or (remote[0] if remote else None),
-                                  parent_id=remote[1] if remote else None,
-                                  attrs={"endpoint": endpoint})
-        self._trace_root = root
-        self._request_id = rid_header or root.trace_id
+        root = self._start_request(endpoint)
+        tenant = self._tenant()
+        if tenant == "":
+            self._bad_tenant(root)
+            return
 
         def _finish(status: int, latency_ms=None, at=None):
             tracer.end(root, attrs={"status": status}, at=at)
-            engine.observe_outcome(endpoint, latency_ms, status >= 500, trace_id=root.trace_id)
+            engine.observe_outcome(endpoint, latency_ms, status >= 500, trace_id=root.trace_id,
+                                   tenant=tenant)
 
         # parse / dispatch_wait / respond share their edges, so they tile
         # the request span
@@ -245,7 +305,11 @@ class _Handler(BaseHTTPRequestHandler):
             return
         t0 = time.monotonic()
         try:
-            out = engine.submit(endpoint, imgs, ctx=root).result(timeout=_RESULT_TIMEOUT_S)
+            out = engine.submit(endpoint, imgs, ctx=root, tenant=tenant).result(
+                timeout=_RESULT_TIMEOUT_S)
+        except TenantQuotaExceeded as e:
+            error, code, body = e, 503, {"error": "tenant_overloaded", "tenant": e.tenant,
+                                         "detail": _TENANT_OVERLOADED}
         except Overloaded as e:
             error, code, body = e, 503, {"error": "overloaded",
                                          "detail": "queue at capacity; retry with backoff"}
@@ -284,9 +348,183 @@ class _Handler(BaseHTTPRequestHandler):
                     _finish(400, at=t_end)
                     return
             resp["embeddings"] = out.tolist()
+        elif endpoint == "parse":
+            resp["islands"] = self._islands(out)
         else:
             resp["images"] = out.tolist()
         self._reply(200, resp)
+        t_end = tracer.clock()
+        tracer.record(SPAN_RESPOND, root, t_done, t_end)
+        _finish(200, latency_ms=latency * 1e3, at=t_end)
+
+    def _islands(self, rows: np.ndarray) -> list:
+        from glom_tpu_torch.hierarchy.parse import unpack_parse
+
+        cfg = self.server.engine.config
+        side = cfg.image_size // cfg.patch_size
+        return [unpack_parse(row, cfg.levels, side, cfg.dim) for row in rows]
+
+    # -- stateful sessions --------------------------------------------------
+    def _do_session(self):
+        """``/session/embed`` and ``/session/parse`` (one frame of a stream,
+        warm from the session's state) and ``/session/reset``; 404 unless the
+        engine has sessions (``--warm-iters``)."""
+        engine = self.server.engine
+        tracer = engine.tracer
+        parse = self.path == "/session/parse"
+        if not engine.sessions_enabled:
+            self._reply(404, {"error": "sessions disabled on this engine "
+                                       "(start the server with --warm-iters)"})
+            return
+        if self.path == "/session/reset":
+            # a control-plane call, untraced
+            payload = self._read_json()
+            if payload is None:
+                return
+            session_id = payload.get("session")
+            if not valid_session_id(session_id):
+                self._reply(400, {"error": f"bad 'session' field {session_id!r}: "
+                                           f"{_BAD_SESSION}"})
+                return
+            self._reply(200, {"session": session_id,
+                              "reset": engine.session_reset(session_id)})
+            return
+
+        # the trace starts before the body is read, as on the batched routes
+        root = self._start_request("session")
+        tenant = self._tenant()
+        if tenant == "":
+            self._bad_tenant(root)
+            return
+
+        def _finish(status: int, latency_ms=None, at=None):
+            tracer.end(root, attrs={"status": status}, at=at)
+            engine.observe_outcome("session", latency_ms, status >= 500,
+                                   trace_id=root.trace_id, tenant=tenant)
+
+        payload = self._read_json()
+        session_id = payload.get("session") if payload is not None else None
+        if payload is not None:
+            if not valid_session_id(session_id):
+                self._reply(400, {"error": f"bad 'session' field {session_id!r}: "
+                                           f"{_BAD_SESSION}"})
+                payload = None
+            else:
+                root.attrs["session"] = session_id
+        imgs = self._parse_images(payload) if payload is not None else None
+        t_parsed = tracer.clock()
+        tracer.record(SPAN_PARSE, root, root.start, t_parsed)
+        if imgs is None:
+            _finish(400)
+            return
+        t0 = time.monotonic()
+        run = engine.session_parse if parse else engine.session_embed
+        try:
+            out, info = run(session_id, imgs, ctx=root, tenant=tenant)
+        except TenantQuotaExceeded as e:
+            self._reply(503, {"error": "tenant_overloaded", "tenant": e.tenant,
+                              "detail": _TENANT_OVERLOADED})
+            _finish(503)
+            return
+        except Closed:
+            self._reply(503, {"error": "shutting_down",
+                              "detail": "server is draining; retry elsewhere"})
+            _finish(503)
+            return
+        except ValueError as e:  # a frame batch past the largest bucket
+            self._reply(400, {"error": str(e)})
+            _finish(400)
+            return
+        except Exception as e:
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            _finish(500)
+            return
+        latency = time.monotonic() - t0
+        # dispatch_wait spans the whole inline execute (the cache's execute
+        # span overlaps inside it), so the trace covers the handler
+        t_done = tracer.clock()
+        tracer.record(SPAN_DISPATCH_WAIT, root, t_parsed, t_done)
+        engine.registry.histogram(
+            "serving_latency_seconds_session" + ("_parse" if parse else ""),
+            help=("session parse-frame latency, admission to response" if parse
+                  else "session frame latency, admission to response"),
+            unit="seconds").observe(latency)
+        resp = {"latency_ms": round(latency * 1e3, 3), "request_id": self._request_id,
+                "session": session_id, **info}
+        if parse:
+            resp["islands"] = self._islands(out)
+        else:
+            level = payload.get("level")
+            if level is not None:
+                try:
+                    out = out[:, int(level)]
+                except (IndexError, TypeError, ValueError):
+                    self._reply(400, {"error": (
+                        f"level {level!r} outside this model's {engine.config.levels} levels")})
+                    _finish(400)
+                    return
+            resp["embeddings"] = out.tolist()
+        self._reply(200, resp)
+        t_end = tracer.clock()
+        tracer.record(SPAN_RESPOND, root, t_done, t_end)
+        _finish(200, latency_ms=latency * 1e3, at=t_end)
+
+    # -- similarity queries --------------------------------------------------
+    def _do_similar(self):
+        """``/similar``: images plus optional ``level`` (default: the top)
+        and ``k`` (default 5); 404 unless the engine has an index
+        (``--index-dir``).  Inline on the handler's thread, like a session
+        frame."""
+        engine = self.server.engine
+        tracer = engine.tracer
+        if not engine.similar_enabled:
+            self._reply(404, {"error": "similarity index disabled on this engine "
+                                       "(start the server with --index-dir)"})
+            return
+        root = self._start_request("similar")
+        tenant = self._tenant()
+        if tenant == "":
+            self._bad_tenant(root)
+            return
+
+        def _finish(status: int, latency_ms=None, at=None):
+            tracer.end(root, attrs={"status": status}, at=at)
+            engine.observe_outcome("similar", latency_ms, status >= 500,
+                                   trace_id=root.trace_id, tenant=tenant)
+
+        payload = self._read_json()
+        imgs = self._parse_images(payload) if payload is not None else None
+        t_parsed = tracer.clock()
+        tracer.record(SPAN_PARSE, root, root.start, t_parsed)
+        if imgs is None:
+            _finish(400)
+            return
+        t0 = time.monotonic()
+        try:
+            level = payload.get("level")
+            results, info = engine.similar(imgs, level=None if level is None else int(level),
+                                           k=int(payload.get("k", 5)), ctx=root, tenant=tenant)
+        except TenantQuotaExceeded as e:
+            self._reply(503, {"error": "tenant_overloaded", "tenant": e.tenant,
+                              "detail": _TENANT_OVERLOADED})
+            _finish(503)
+            return
+        except (TypeError, ValueError) as e:  # a bad level or k, an oversize batch
+            self._reply(400, {"error": str(e)})
+            _finish(400)
+            return
+        except Exception as e:
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            _finish(500)
+            return
+        latency = time.monotonic() - t0
+        t_done = tracer.clock()
+        tracer.record(SPAN_DISPATCH_WAIT, root, t_parsed, t_done)
+        engine.registry.histogram("serving_latency_seconds_similar",
+                                  help="similarity query latency, admission to response",
+                                  unit="seconds").observe(latency)
+        self._reply(200, {"step": int(engine.step), "latency_ms": round(latency * 1e3, 3),
+                          "request_id": self._request_id, "results": results, **info})
         t_end = tracer.clock()
         tracer.record(SPAN_RESPOND, root, t_done, t_end)
         _finish(200, latency_ms=latency * 1e3, at=t_end)
@@ -303,15 +541,9 @@ def make_server(engine: ServingEngine, host: str = "127.0.0.1", port: int = 0,
 # flags of glom_tpu's serving CLI the port does not take yet: flag -> (nargs,
 # the engine argument it sets, whose entry in UNPORTED says what it waits for)
 _REFUSED = {
-    "--quant": (1, "quant"),
     "--mesh-shape": (1, "mesh_shape"),
     "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
-    "--warm-iters": (1, "warm_iters"),
-    "--session-ttl-s": (1, "session_ttl_s"),
-    "--session-max-mb": (1, "session_max_bytes"),
-    "--session-spill-dir": (1, "session_spill_dir"),
-    "--tenant-quota": (1, "tenant_quotas"),
     "--model": (1, "extra_models"),
     "--deploy-pin-url": (1, "deploy_pin_url"),
     "--deploy-promote-after": (1, "deploy_promote_after"),
@@ -323,8 +555,6 @@ _REFUSED = {
     "--capacity-window-s": (1, "capacity_window_s"),
     "--capacity-persist-windows": (1, "capacity_persist_windows"),
     "--bulk-dir": (1, "bulk_dir"),
-    "--index-dir": (1, "index_dir"),
-    "--parse-thresholds": (1, "parse_thresholds"),
     "--quality-sample": (1, "quality_sample"),
     "--forensics-dir": (1, "forensics_dir"),
     "--warmup-dir": (1, "warmup_dir"),
@@ -364,6 +594,36 @@ def parse_args(argv=None):
                    help="queued-image bound; beyond it requests shed (503)")
     p.add_argument("--iters", type=int, default=None,
                    help="GLOM iterations (default: the model's)")
+    p.add_argument("--quant", default="f32", choices=["f32", "bf16", "int8"],
+                   help="serving precision: bf16 = bf16 weights and compute; int8 = "
+                        "weight-only symmetric int8, dequantized to bf16 inside the graphs, "
+                        "bf16 activations.  Check a mode first with python -m "
+                        "glom_tpu_torch.tools.quant_check")
+    p.add_argument("--warm-iters", default=None, metavar="N|auto",
+                   help="enable stateful sessions (/session/embed, /session/parse, "
+                        "/session/reset): a warm frame settles from the previous frame's "
+                        "state in N iterations ('auto' = half the cold count)")
+    p.add_argument("--session-ttl-s", type=float, default=600.0,
+                   help="idle sessions older than this are evicted")
+    p.add_argument("--session-max-mb", type=float, default=256.0,
+                   help="bound on resident session state; the least recently used "
+                        "sessions are evicted beyond it")
+    p.add_argument("--session-spill-dir", default=None,
+                   help="spill the session states here on drain and restore them at "
+                        "start-up (float32 npz, the checkpoint layout)")
+    p.add_argument("--tenant-quota", action="append", default=None,
+                   metavar="NAME=RATE[:BURST]",
+                   help="repeatable: a tenant's admission quota in images/s (token "
+                        "bucket; the burst defaults to the rate).  Requests carry X-Tenant; "
+                        "a tenant past its bucket is answered 503 without touching others")
+    p.add_argument("--parse-thresholds", default=None, metavar="T|T0,T1,..",
+                   help="agreement threshold(s) for /parse islanding: one float for every "
+                        "level, or one a level, comma-separated, each in [-1, 1] "
+                        "(default 0.9)")
+    p.add_argument("--index-dir", default=None, metavar="DIR",
+                   help="enable POST /similar over the level index in DIR (written by "
+                        "hierarchy/index.py::write_index_parts); parts that land later "
+                        "are seen by later queries")
     p.add_argument("--ff-impl", default=None, choices=["dense", "pallas", "fused"],
                    help="override the checkpoint config's choice (default: keep it). "
                         "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
@@ -394,6 +654,26 @@ def parse_args(argv=None):
     return args
 
 
+def engine_from_args(args, **overrides) -> ServingEngine:
+    """The engine the parsed flags describe; ``overrides`` replace or add
+    engine arguments (a caller that serves in its own process, for one)."""
+    kwargs = dict(
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        iters=args.iters, max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        device=args.device, ff_impl=args.ff_impl, reload_poll_s=args.reload_poll_s,
+        warmup=not args.no_warmup, trace_log=args.trace_log, slos=args.slo,
+        quant=args.quant, warm_iters=args.warm_iters, session_ttl_s=args.session_ttl_s,
+        session_max_bytes=int(args.session_max_mb * 2 ** 20),
+        session_spill_dir=args.session_spill_dir,
+        tenant_quotas=({name: spec for name, spec in
+                        (entry.split("=", 1) for entry in args.tenant_quota)}
+                       if args.tenant_quota else None),
+        parse_thresholds=args.parse_thresholds, index_dir=args.index_dir,
+    )
+    kwargs.update(overrides)
+    return ServingEngine(args.checkpoint_dir, **kwargs)
+
+
 def main(argv=None) -> int:
     from glom_tpu_torch import checkpoint as ckpt_lib
     from glom_tpu_torch.serving.engine import make_demo_checkpoint
@@ -403,12 +683,7 @@ def main(argv=None) -> int:
         make_demo_checkpoint(args.checkpoint_dir)
         print(json.dumps({"event": "demo_checkpoint", "dir": args.checkpoint_dir}))
 
-    engine = ServingEngine(
-        args.checkpoint_dir, buckets=tuple(int(b) for b in args.buckets.split(",")),
-        iters=args.iters, max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-        device=args.device, ff_impl=args.ff_impl, reload_poll_s=args.reload_poll_s,
-        warmup=not args.no_warmup, trace_log=args.trace_log, slos=args.slo,
-    )
+    engine = engine_from_args(args)
     engine.start()
     server = make_server(engine, args.host, args.port, quiet=not args.verbose,
                          metrics_timestamps=args.metrics_timestamps)

@@ -3,13 +3,14 @@
 On the CPU: ``pick_bucket`` and ``pad_to_bucket`` against
 ``glom_tpu.serving.compile_cache`` on ``tests/test_serving.py``'s cases, the
 request path's padding (padded rows give the unpadded answers bit for bit),
-the lazy-bucket count behind ``serving_graph_captures``, and the device lock.
+the lazy-bucket count behind ``serving_graph_captures``, the device lock, a
+stateful cache's contract and ``PostPassCache``'s.
 
 Tests marked ``gpu`` hold every bucket's replayed graph against the same
-engine's eager forward bit for bit, the launch counts under replay, a hot
-reload under replaying workers, reloads that keep allocated memory, and a
-capture that must fail (in a process of its own); without a card they
-skip.  This file imports JAX only inside the parity tests, so on
+engine's eager forward bit for bit (also at int8, for the session families
+and for ``/parse``, and ``/parse`` at buckets captured on the request path), the launch counts under replay, a hot reload under
+replaying workers, reloads that keep allocated memory, and a capture that
+must fail (in a process of its own); without a card they skip.  This file imports JAX only inside the parity tests, so on
 the GPU machine (which has no JAX)
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_compile_cache.py
@@ -26,6 +27,7 @@ from glom_tpu_torch.kernels import _common, wrappers
 from glom_tpu_torch.serving.compile_cache import (
     BucketedGraphCache,
     DeviceLock,
+    PostPassCache,
     pad_to_bucket,
     pick_bucket,
 )
@@ -193,6 +195,88 @@ def test_launch_recording_counts_replays_not_the_capture():
     fn.launches = before
 
 
+@pytest.mark.parametrize("path", ["embed", "session_warm", "parse", "apply_post"])
+def test_a_lazy_capture_comes_before_any_hold_on_the_device_lock(path):
+    """On the card a capture takes the device lock alone, so a thread that
+    held it shared while it captured would wait on itself for good (and,
+    counted as waiting, stop every other replay).  Every request path
+    prepares its graphs before it takes its hold: each capture here sees no
+    shared holder."""
+    lock = DeviceLock()
+    inner = BucketedGraphCache(lambda p, x: x * p["w"], (2, 4), input_shape=(2,),
+                               device="cpu", name="toy", lock=lock)
+    post = PostPassCache(inner, lambda y: y.sum(dim=-1, keepdim=True), state_shape=(2,))
+    warm = BucketedGraphCache(lambda p, x, s: (x.sum(dim=-1) + s[:, 0], s + 1), (2, 4),
+                              input_shape=(2,), device="cpu", name="warm", lock=lock,
+                              carries_state=True, takes_state=True, state_shape=(1,),
+                              state_dtype=torch.float32)
+    holders = []
+    for family in (inner, post, warm):
+        def probe(key, capture=family._capture, name=family.name):
+            holders.append((name, lock._shared))
+            return capture(key)
+
+        family._capture = probe
+    params, x = {"w": torch.tensor(2.0)}, np.ones((3, 2), np.float32)
+    run = {"embed": lambda: inner(params, x),
+           "session_warm": lambda: warm(params, x, state=torch.zeros(4, 1)),
+           "parse": lambda: post(params, x),
+           "apply_post": lambda: post.apply_post(torch.ones(4, 2), 3)}[path]
+    run()
+    want = {"embed": ["toy"], "session_warm": ["warm"], "parse": ["parse", "toy"],
+            "apply_post": ["parse"]}[path]
+    assert holders == [(name, 0) for name in want]
+
+
+def _stateful(takes_state=True):
+    """A cache over ``(x.sum(-1) + state.sum(-1), state + x.sum(-1))``."""
+    def fn(params, x, state=None):
+        s = x.sum(dim=-1, keepdim=True)
+        state = torch.zeros_like(s) if state is None else state
+        return s[:, 0] + state[:, 0] * params["w"], state + s
+
+    return BucketedGraphCache(fn, (2, 4), input_shape=(3,), device="cpu", name="s",
+                              carries_state=True, takes_state=takes_state,
+                              state_shape=(1,) if takes_state else None,
+                              state_dtype=torch.float32 if takes_state else None)
+
+
+def test_a_stateful_cache_takes_a_bucket_state_and_hands_back_its_own():
+    params = {"w": torch.tensor(2.0)}
+    cold, warm = _stateful(takes_state=False), _stateful()
+    x = np.arange(9, dtype=np.float32).reshape(3, 3)
+    out, state = cold(params, x)
+    assert out.tolist() == [3.0, 12.0, 21.0] and tuple(state.shape) == (4, 1)
+    out2, state2 = warm(params, x, state=state)
+    assert out2.tolist() == [9.0, 36.0, 63.0] and state2 is not state
+    assert state2[:3, 0].tolist() == [6.0, 24.0, 42.0] and state[:3, 0].tolist() == [3.0, 12.0, 21.0]
+    with pytest.raises(ValueError, match="carried state of shape"):
+        warm(params, x)
+    with pytest.raises(ValueError, match="carried state of shape"):
+        warm(params, x, state=state[:2])
+    with pytest.raises(ValueError, match="takes_state requires carries_state"):
+        BucketedGraphCache(lambda p, x, s: x, (1,), input_shape=(1,), device="cpu",
+                           takes_state=True)
+    with pytest.raises(ValueError, match="state_shape and state_dtype"):
+        BucketedGraphCache(lambda p, x, s: x, (1,), input_shape=(1,), device="cpu",
+                           carries_state=True, takes_state=True)
+
+
+def test_post_pass_cache_runs_the_post_pass_on_the_inner_forward():
+    inner = _toy(buckets=(2, 4))
+    post = PostPassCache(inner, lambda y: y.sum(dim=-1, keepdim=True) * 10, state_shape=(2,))
+    params = {"w": torch.tensor(3.0)}
+    x = np.arange(6, dtype=np.float32).reshape(3, 2)
+    assert post(params, x).tolist() == [[30.0], [150.0], [270.0]]
+    assert np.array_equal(post.eager(params, x), post(params, x))
+    # a bucket not prepared at start-up counts a capture, the inner's too
+    assert post.poll_captures() == 2 and post.poll_captures() == 0
+    post.warmup(params)
+    assert post.warmed and post.poll_captures() == 0
+    rows = post.apply_post(torch.ones(4, 2, dtype=torch.float64), 3)
+    assert rows.tolist() == [[20.0]] * 3 and post.poll_captures() == 1
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -336,3 +420,87 @@ def test_a_capture_that_fails_raises(cuda):
                           text=True, timeout=300, cwd=repo, env=env)
     assert proc.stdout.split("\n")[:2] == ["warmup raised", "request raised"], (
         proc.returncode, proc.stdout, proc.stderr[-2000:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_quantized_replays_bitwise_the_eager_forward(cuda, card_ckpt, quant):
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0, quant=quant, buckets=(1, 4))
+    x = np.random.default_rng(4).standard_normal((3, 3, 16, 16)).astype(np.float32)
+    for endpoint in ("embed", "reconstruct", "index"):
+        np.testing.assert_array_equal(engine.run(endpoint, x), engine.run_eager(endpoint, x))
+    assert engine.registry.snapshot().get("serving_graph_captures") is None
+
+
+@pytest.mark.gpu
+def test_session_families_replay_bitwise_and_hand_back_owned_state(cuda, card_ckpt):
+    """A warm replay equals the eager warm forward on the same state, and the
+    state it hands back is a copy: another replay of the bucket leaves it as
+    it was."""
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0, warm_iters=2, buckets=(2,))
+    rng = np.random.default_rng(5)
+    x, y = (rng.standard_normal((2, 3, 16, 16)).astype(np.float32) for _ in range(2))
+    out, state = engine.run("session_cold", x)
+    eager_out, eager_state = engine.run_eager("session_cold", x)
+    np.testing.assert_array_equal(out, eager_out)
+    assert torch.equal(state, eager_state)
+    kept = state.clone()
+    warm, new = engine.run("session_warm", x, state=state)
+    engine.run("session_warm", y, state=new)          # another replay of the bucket
+    assert torch.equal(state, kept)
+    want, want_state = engine.run_eager("session_warm", x, state=kept)
+    np.testing.assert_array_equal(warm, want)
+    assert torch.equal(new, want_state)
+
+
+@pytest.mark.gpu
+def test_parse_replays_its_eager_path(cuda, card_ckpt):
+    """/parse replayed against the eager index forward and pack: labels,
+    counts and sizes bitwise, the means within 1e-5 (the pack's atomic
+    sums)."""
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0, parse_thresholds=0.5)
+    c = CARD
+    n, L = c.num_patches, c.levels
+    rng = np.random.default_rng(6)
+    for b in (1, 3, 8):
+        x = rng.standard_normal((b, 3, 16, 16)).astype(np.float32)
+        got, want = engine.run("parse", x), engine.run_eager("parse", x)
+        cut = 2 * L * n + L
+        np.testing.assert_array_equal(got[:, :cut], want[:, :cut])
+        assert np.abs(got[:, cut:] - want[:, cut:]).max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_parse_captures_its_graphs_on_the_request_path(cuda, card_ckpt):
+    """An engine built without warm-up (the server's ``--no-warmup``)
+    captures /parse's index and pack graphs at a bucket's first request, and
+    /session/parse's cold forward and pack at a session's first frame: no
+    capture waits on its own thread's hold on the device lock, and each is
+    counted in serving_graph_captures."""
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0, parse_thresholds=0.5, warm_iters=2,
+                           buckets=(1, 4), warmup=False, max_wait_ms=0.0)
+    x = np.random.default_rng(7).standard_normal((3, 3, 16, 16)).astype(np.float32)
+    served = {}
+
+    def serve():
+        fut = engine.submit("parse", x)
+        engine.process_once("parse")
+        served["parse"] = fut.result(timeout=60)
+        served["session"] = engine.session_parse("lazy", x[:1])[0]
+
+    worker = threading.Thread(target=serve, daemon=True)
+    worker.start()
+    worker.join(120)
+    assert not worker.is_alive(), "a capture on the request path waited on its own hold"
+    assert engine.registry.snapshot()["serving_graph_captures"] == 4.0
+    n, L = CARD.num_patches, CARD.levels
+    cut = 2 * L * n + L
+    want = engine.run_eager("parse", x)
+    np.testing.assert_array_equal(served["parse"][:, :cut], want[:, :cut])
+    assert np.abs(served["parse"][:, cut:] - want[:, cut:]).max() <= 1e-5
+    assert served["session"].shape == (1, want.shape[1])
+    engine.shutdown(drain=False)

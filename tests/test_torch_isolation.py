@@ -63,7 +63,8 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.models.islands", "glom_tpu_torch.training.video",
             "glom_tpu_torch.training.extract", "glom_tpu_torch.obs.quality",
             "glom_tpu_torch.hierarchy", "glom_tpu_torch.hierarchy.parse",
-            "glom_tpu_torch.hierarchy.index"} <= set(mods)
+            "glom_tpu_torch.hierarchy.index", "glom_tpu_torch.serving.quant",
+            "glom_tpu_torch.serving.sessions", "glom_tpu_torch.tools.quant_check"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -102,7 +103,8 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
         "glom_tpu_torch/models/islands.py", "glom_tpu_torch/training/video.py",
         "glom_tpu_torch/training/extract.py", "glom_tpu_torch/obs/quality.py",
         "glom_tpu_torch/hierarchy/__init__.py", "glom_tpu_torch/hierarchy/parse.py",
-        "glom_tpu_torch/hierarchy/index.py"} <= sources
+        "glom_tpu_torch/hierarchy/index.py", "glom_tpu_torch/serving/quant.py",
+        "glom_tpu_torch/serving/sessions.py", "glom_tpu_torch/tools/quant_check.py"} <= sources
     assert not offenders, offenders
 
 
@@ -146,6 +148,12 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
                     "--steps", "1", "--consistency", "infonce", "--eval-every", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         extract.main(["--checkpoint-dir", str(tmp_path), "--data-dir", str(tmp_path)])
+    from glom_tpu_torch.tools import quant_check
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quant_check.main(["--checkpoint-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(str(tmp_path), quant="int8", warm_iters="auto")
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"

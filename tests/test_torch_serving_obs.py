@@ -528,11 +528,12 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
                                         "detail": "server is draining; retry elsewhere"})
 
 
-@pytest.mark.parametrize("name,value", [("quant", "int8"), ("forensics_dir", "/x"),
+@pytest.mark.parametrize("name,value", [("deploy_window_s", 5.0), ("forensics_dir", "/x"),
                                         ("warmup_dir", "/x"), ("mesh_shape", (1, 4, 1)),
-                                        ("warm_iters", 3), ("tenant_quotas", {"a": 1}),
+                                        ("capacity_ceiling", 100.0), ("quality_seed", 3),
                                         ("extra_models", {"m": "/x"}), ("bulk_dir", "/x"),
-                                        ("index_dir", "/x"), ("quality_sample", 0.5),
+                                        ("deploy_canary_fraction", 0.5),
+                                        ("quality_sample", 0.5),
                                         ("capacity_policy", "p95_ms<250"),
                                         ("deploy_pin_url", "http://x")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
@@ -552,15 +553,41 @@ def test_unset_unported_arguments_and_unknown_ones(ckpt):
         ServingEngine(ckpt, device="cpu", no_such_argument=1)
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--mesh-shape", "1,4,1"],
-                                  ["--forensics-dir", "/x"], ["--warm-iters", "3"],
-                                  ["--tenant-quota", "a=1"], ["--model", "m=/x"],
+@pytest.mark.parametrize("flag", [["--deploy-pin-url", "http://x"], ["--mesh-shape", "1,4,1"],
+                                  ["--forensics-dir", "/x"], ["--capacity-policy", "p95_ms<250"],
+                                  ["--quality-sample", "0.5"], ["--model", "m=/x"],
                                   ["--bulk-dir", "/x"], ["--no-donate"],
                                   ["--platform", "cpu"], ["--buckets-file", "/x.json"]])
 def test_unported_cli_flags_are_refused_by_name(ckpt, flag, capsys):
     with pytest.raises(SystemExit) as e:
         server.main(["--checkpoint-dir", ckpt, "--device", "cpu"] + flag)
     assert e.value.code == 2 and flag[0] in capsys.readouterr().err
+
+
+def test_engine_from_args_translates_every_ported_flag(ckpt, tmp_path):
+    """The server's flags reach the engine through one function, the one
+    ``main`` calls; an override replaces an argument."""
+    args = server.parse_args([
+        "--checkpoint-dir", ckpt, "--device", "cpu", "--buckets", "2,1", "--reload-poll-s",
+        "0", "--no-warmup", "--quant", "int8", "--warm-iters", "auto", "--session-ttl-s", "30",
+        "--session-max-mb", "0.5", "--session-spill-dir", str(tmp_path / "spill"),
+        "--tenant-quota", "a=2:4", "--tenant-quota", "b=1", "--parse-thresholds",
+        "0.1,0.2,0.3", "--index-dir", str(tmp_path / "index")])
+    engine = server.engine_from_args(args, max_queue=7)
+    try:
+        health = engine.health()
+        assert engine.buckets == (1, 2) and not health["warm"]
+        assert engine.batchers["embed"].max_queue == 7
+        assert health["quant"] == "int8" and health["device"] == "cpu"
+        assert health["sessions"]["warm_iters"] == health["sessions"]["cold_iters"] // 2
+        assert (engine.sessions.ttl_s, engine.sessions.max_bytes) == (30.0, 2 ** 19)
+        assert engine._session_spill_dir == str(tmp_path / "spill")
+        assert {t: (q["rate"], q["burst"]) for t, q in health["tenants"].items()} == {
+            "a": (2.0, 4.0), "b": (1.0, 1.0)}
+        assert health["hierarchy"]["parse_thresholds"] == [0.1, 0.2, 0.3]
+        assert engine.index_dir == str(tmp_path / "index")
+    finally:
+        engine.shutdown(drain=False)
 
 
 def test_refused_flags_give_the_engine_arguments_reasons():
