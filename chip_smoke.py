@@ -182,6 +182,27 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            (a=0.01:2): every new route once, tenant a's third image 503
            tenant_overloaded; /parse b=1 and b=8 device time, the pack's
            share, and no capture on the request path;
+  deploy   safe deploys on one replica at flagship width, f32 "pallas",
+           buckets 1 and 8, sessions on, an extra model "b" under "fused":
+           a corrupt candidate quarantined before it is resident; a shadow
+           (its capture seconds, the longest exclusive hold, /embed b=1 p99
+           before and during it, the primary's b=1/b=8 p50/p95 without and
+           with it, the divergence gauge against float64, every candidate
+           replay bitwise its eager forward); a canary over 32 affinity keys
+           (each answer bitwise the assigned version's), a burn-rate
+           rollback under candidate:delay with no client error and a pinned
+           session restarting cold; a clean candidate auto-promoted with no
+           capture; the extra model through K8; three shadow -> rollback
+           cycles within 1 % of allocated memory;
+  session_tools  python -m glom_tpu_torch.tools.session_check --warm-iters
+           2,3,4,6 --frames 16 --batch 2 through the session graphs (exact
+           launch counts), then the loadgen's --sessions 4 --frames 16 and
+           --tenant a:3 --tenant b:1 against an in-process server;
+  faults   data:nan_batch@3 halting a flagship Trainer.fit (b=8, the
+           kernel backward) with NonFiniteError at step 3, ckpt_write:torn
+           on its last save (the loader falls back to step 1), and
+           reload:io_error*3 on an engine's watcher (retries, backoff, then
+           the load);
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -2991,6 +3012,509 @@ def phase_parse(device) -> dict:
 # The bench phase's legs, each one run of ``python -m glom_tpu_torch.tools.bench``
 # at flagship with 12 iterations: (leg, what it shows, flags, the kernels it
 # must launch in its window).  "trace" marks a leg run with --profile-dir.
+# -- deploys, the session tools, fault injection ---------------------------------
+DEPLOY_BUCKETS = (1, 8)
+DEPLOY_KEYS = 32
+# the shadow's divergence gauge (rounded to 6 digits) against float64 on the host
+DIVERGENCE_ATOL = 1e-6
+# allocated memory after a shadow -> rollback cycle, against before the first
+MEMORY_CYCLE_RTOL = 0.01
+MEMORY_CYCLES = 3
+SHADOW_BATCHES = 4
+LATENCY_SAMPLES = {1: 40, 8: 20}
+SESSION_SWEEP = "2,3,4,6"
+SESSION_TOOL_FRAMES = 16
+FAULT_TRAIN_STEPS = 4
+
+
+def perturbed_step(ckpt: str, step: int, seed: int, src: int = 0, scale: float = 1e-3) -> None:
+    """Step ``step`` of ``ckpt``: step ``src``'s parameters plus seeded noise
+    (its other trees dropped: a server reads only ``params``)."""
+    tree = ckpt_lib.unflatten(ckpt_lib.load_arrays(ckpt, src))["params"]
+    rng = np.random.default_rng(seed)
+    flat = ckpt_lib.flatten({"params": tree})
+    noisy = {k: (v + scale * rng.standard_normal(v.shape)).astype(v.dtype)
+             for k, v in flat.items()}
+    ckpt_lib.save(ckpt, step, ckpt_lib.unflatten(noisy))
+
+
+def embed_ms(engine, x, n: int, starts=None, **kw) -> list:
+    """Host clock of ``n`` /embed submissions one after another, ms each
+    (``starts`` collects each one's start on the host's clock)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        engine.submit("embed", x, **kw).result(timeout=120)
+        out.append((time.perf_counter() - t0) * 1e3)
+        if starts is not None:
+            starts.append(t0)
+    return out
+
+
+def timed(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` so each call appends ``(start, end)`` on the host's
+    clock to ``log``; ``del obj.name`` unwraps an instance attribute."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            log.append((t0, time.perf_counter()))
+
+    setattr(obj, name, wrapper)
+
+
+def pct(xs, q):
+    ordered = sorted(xs)
+    return ordered[min(len(ordered) - 1, max(0, int(np.ceil(q / 100 * len(ordered))) - 1))]
+
+
+def latency_block(xs) -> dict:
+    return {"n": len(xs), "p50": pct(xs, 50), "p95": pct(xs, 95), "p99": pct(xs, 99),
+            "max": max(xs)}
+
+
+def stop_shadow_thread(engine) -> None:
+    engine.deploy._stop.set()
+    with engine.deploy._shadow_cv:
+        engine.deploy._shadow_cv.notify_all()
+    engine.deploy._shadow_thread.join(timeout=30)
+    engine.deploy._stop.clear()
+
+
+def set_bytes(serving) -> dict:
+    from glom_tpu_torch.serving import quant
+
+    return {"params": quant.tree_nbytes(serving.params),
+            "pools": {name: cache.pool_bytes() for name, cache in serving.caches.items()}}
+
+
+def phase_deploy(device) -> dict:
+    """Safe deploys on one replica at flagship width, f32 "pallas", buckets 1
+    and 8, warm_iters "auto", with an extra model "b" (the flagship under
+    ff_impl="fused", its own checkpoint) and the SLO p95<100ms on 2 s
+    windows (deploy windows of 1 s, 4 events, promote after 2): (A) a
+    candidate written with ckpt_write:bitflip armed is quarantined by
+    /admin/deploy/shadow (a null step, idle, allocated memory unchanged);
+    (B) a shadow of step 2 (step 0's weights plus seeded noise): its capture
+    seconds, the longest exclusive hold of the device lock, /embed b=1 p99
+    before and during begin_shadow, the primary's /embed b=1 and b=8
+    p50/p95 without and with the shadow, then SHADOW_BATCHES mirrored b=8
+    batches pumped by hand (the main path: counts set to 0 before a
+    primary batch and its shadow replay): each batch's
+    deploy_shadow_divergence against the float64 divergence of the two
+    sets' eager answers, every candidate bucket bitwise its eager forward,
+    the primary's answers bitwise as before the shadow; (C) a canary at 0.5
+    over 32 X-Affinity-Keys, each answer bitwise the eager forward of the
+    version assign names, a session pinned to the candidate, then
+    candidate:delay armed until the burn-rate rollback, with no client
+    error, the next answers the primary's and the pinned session restarting
+    cold (version_retired); (D) a clean step 3 canaried until the
+    auto-promote: step 3 serves, its answers bitwise the candidate's, no
+    capture by the promote, serving_graph_captures 0, the promote's wall
+    time; (E) /embed with "model": "b" bitwise b's eager forward, K8's
+    launches counted; then MEMORY_CYCLES shadow -> rollback cycles holding
+    allocated memory within 1 % of before the first."""
+    from glom_tpu_torch.obs.slo import parse_slo
+    from glom_tpu_torch.resilience import faultinject
+    from glom_tpu_torch.serving import compile_cache, deploy
+
+    ckpt = flagship_ckpt("chip_smoke_deploy_ckpt", seed=16)
+    ckpt_b = flagship_ckpt("chip_smoke_deploy_b", seed=17, ff_impl="fused")
+    c = kernel_config()
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(18)
+    x = {b: rng.standard_normal((b,) + shape).astype(np.float32) for b in DEPLOY_BUCKETS}
+    iters = c.default_iters
+    t0 = time.perf_counter()
+    engine = ServingEngine(
+        ckpt, device=device, buckets=DEPLOY_BUCKETS, reload_poll_s=0, max_wait_ms=1.0,
+        warm_iters="auto", extra_models={"b": ckpt_b},
+        slos=[parse_slo("p95<100ms", short_window_s=2.0, long_window_s=4.0, min_events=4,
+                        burn_threshold=2.0)],
+        deploy_window_s=1.0, deploy_min_events=4, deploy_promote_after=2)
+    setup_s = time.perf_counter() - t0
+    engine.start(watch=False)
+    server = make_server(engine)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://{}:{}".format(*server.server_address[:2])
+    out = {"setup_seconds": setup_s, "buckets": list(DEPLOY_BUCKETS),
+           "primary_bytes": set_bytes(engine.serving),
+           "extra_model_bytes": set_bytes(engine.models.get("b").caches)}
+    try:
+        before = {b: engine.run("embed", x[b]) for b in DEPLOY_BUCKETS}
+
+        # (A) a corrupt candidate never becomes resident
+        with faultinject.injected("ckpt_write:bitflip"):
+            make_demo_checkpoint(ckpt, config=c, seed=19, step=1)
+        mem0 = settled_memory(device)["allocated"]
+        body, _ = post(base + "/admin/deploy/shadow", {})
+        mem1 = settled_memory(device)["allocated"]
+        quarantined = [f for f in os.listdir(ckpt) if f.endswith(".corrupt")]
+        if body["candidate_step"] is not None or engine.deploy.phase != "idle" \
+                or not quarantined or mem1 != mem0:
+            raise AssertionError(f"corrupt candidate: {body}, {quarantined}, {mem0} -> {mem1}")
+        out["corrupt"] = {"reply": body, "quarantined": quarantined,
+                          "allocated_before": mem0, "allocated_after": mem1}
+
+        # (B) the shadow: its capture off the request path, beside live traffic
+        perturbed_step(ckpt, 2, seed=20)
+        lat_before = embed_ms(engine, x[1], 60)
+        quiet = {b: embed_ms(engine, x[b], LATENCY_SAMPLES[b]) for b in DEPLOY_BUCKETS}
+        engine._device_lock.longest_exclusive_s = 0.0
+        made = compile_cache.captures_made()
+        during, starts, stop = [], [], threading.Event()
+        restores, captures = [], []
+        timed(engine, "_restore_set", restores)
+        timed(engine, "_warm_set", captures)
+
+        def drive():
+            while not stop.is_set():
+                during.extend(embed_ms(engine, x[1], 1, starts=starts))
+
+        loader = threading.Thread(target=drive)
+        loader.start()
+        t0 = time.perf_counter()
+        body, _ = post(base + "/admin/deploy/shadow", {"step": 2})
+        shadow_s = time.perf_counter() - t0
+        stop.set()
+        loader.join()
+        del engine._restore_set, engine._warm_set
+        # where the slowest request of the window sat: inside the restore
+        # (host reads, CRCs, the copy to the card) or the captures
+        slowest = int(np.argmax(during))
+        s0, s1 = starts[slowest], starts[slowest] + during[slowest] / 1e3
+        window = {"restore_s": restores[0][1] - restores[0][0],
+                  "capture_s": captures[0][1] - captures[0][0],
+                  "slowest_request_ms": during[slowest],
+                  "slowest_overlaps_restore_s": max(0.0, min(s1, restores[0][1])
+                                                    - max(s0, restores[0][0])),
+                  "slowest_overlaps_captures_s": max(0.0, min(s1, captures[0][1])
+                                                     - max(s0, captures[0][0]))}
+        cand = engine.deploy.candidate(2)
+        if body["candidate_step"] != 2 or cand is None:
+            raise AssertionError(f"shadow: {body}")
+        shadowed = {b: embed_ms(engine, x[b], LATENCY_SAMPLES[b]) for b in DEPLOY_BUCKETS}
+        out["shadow"] = {
+            "capture_seconds": shadow_s, "captures": compile_cache.captures_made() - made,
+            "begin_shadow_window": window,
+            "longest_exclusive_hold_s": engine._device_lock.longest_exclusive_s,
+            "candidate_bytes": set_bytes(cand.caches),
+            "embed_b1_before_begin_shadow_ms": latency_block(lat_before),
+            "embed_b1_during_begin_shadow_ms": latency_block(during),
+            "primary_embed_ms": {f"b{b}": {"without_shadow": latency_block(quiet[b]),
+                                           "with_shadow": latency_block(shadowed[b])}
+                                 for b in DEPLOY_BUCKETS},
+            "shadow_dropped": engine.registry.snapshot().get("deploy_shadow_dropped", 0)}
+        stop_shadow_thread(engine)
+        with engine.deploy._shadow_cv:
+            engine.deploy._shadow_q.clear()
+        for ep in ("embed", "reconstruct"):
+            for b in DEPLOY_BUCKETS:
+                cache = cand.caches.caches[ep]
+                if not np.array_equal(cache(cand.params, x[b]), cache.eager(cand.params, x[b])):
+                    raise AssertionError(f"candidate {ep} b={b}: replay differs from eager")
+        divergences, main = [], {k: 0 for k in kernel_wrappers()}
+        for i in range(SHADOW_BATCHES):
+            xb = np.random.default_rng(30 + i).standard_normal((8,) + shape).astype(np.float32)
+            reset_launches()
+            got = engine.submit("embed", xb).result(timeout=120)
+            with engine.deploy._shadow_cv:
+                item = engine.deploy._shadow_q.popleft()
+            if not engine.deploy.process_shadow(*item):
+                raise AssertionError("shadow: the mirrored batch did not run")
+            launches = check_launches("primary b=8 + its shadow", launch_counts(),
+                                      want_launches(2 * iters))
+            for k, n in launches.items():
+                main[k] += n
+            want, _ = deploy._cosine_divergence(
+                engine.run_eager("embed", xb),
+                cand.caches.caches["embed"].eager(cand.params, xb))
+            gauge = engine.registry.snapshot()["deploy_shadow_divergence"]
+            if not (np.array_equal(got, engine.run_eager("embed", xb))
+                    and abs(gauge - want) <= DIVERGENCE_ATOL):
+                raise AssertionError(f"shadow batch {i}: gauge {gauge}, float64 {want}")
+            divergences.append({"gauge": gauge, "float64": want})
+        for b in DEPLOY_BUCKETS:
+            if not np.array_equal(engine.run("embed", x[b]), before[b]):
+                raise AssertionError(f"primary b={b}: answers moved during the shadow")
+        out["shadow"]["divergence"] = divergences
+
+        # (C) canary at 0.5, then a burn-rate rollback (no auto-promote while
+        # the keys are checked: the windows would count their clean outcomes)
+        engine.deploy.promote_after = 10 ** 6
+        body, _ = post(base + "/admin/deploy/canary", {"fraction": 0.5})
+        if body["phase"] != "canary":
+            raise AssertionError(f"canary: {body}")
+        eager = {0: engine.run_eager("embed", x[1]),
+                 2: cand.caches.caches["embed"].eager(cand.params, x[1])}
+        sides = {}
+        for i in range(DEPLOY_KEYS):
+            key = f"key-{i}"
+            version = engine.deploy.assign(key) or 0
+            resp, _ = post(base + "/embed", {"images": x[1].tolist()}, {"X-Affinity-Key": key})
+            if resp["step"] != version or not np.array_equal(
+                    np.asarray(resp["embeddings"], np.float32), eager[version]):
+                raise AssertionError(f"canary key {key}: step {resp['step']}, assigned "
+                                     f"{version}, bitwise mismatch")
+            sides[key] = version
+        pinned = next(f"sess-{i}" for i in range(256)
+                      if engine.deploy.assign(f"sess-{i}") == 2)
+        infos = [engine.session_embed(pinned, x[1])[1] for _ in range(2)]
+        if [(i["step"], i["cold"]) for i in infos] != [(2, True), (2, False)]:
+            raise AssertionError(f"pinned session: {infos}")
+        cand_keys = [k for k, v in sides.items() if v == 2]
+        codes, t0 = [], time.perf_counter()
+        with faultinject.injected("candidate:delay*100"):
+            for i in itertools.count():
+                if engine.deploy.phase == "idle" or time.perf_counter() - t0 > 60:
+                    break
+                try:
+                    resp, _ = post(base + "/embed", {"images": x[1].tolist()},
+                                   {"X-Affinity-Key": cand_keys[i % len(cand_keys)]})
+                    codes.append(200)
+                except urllib.error.HTTPError as e:
+                    codes.append(e.code)
+        report = engine.deploy.last_report
+        if engine.deploy.phase != "idle" or report["action"] != "rolled_back" or set(codes) != {200}:
+            raise AssertionError(f"rollback: {engine.deploy.phase}, {report}, codes {codes}")
+        after = [post(base + "/embed", {"images": x[1].tolist()}, {"X-Affinity-Key": k})[0]
+                 for k in cand_keys[:4]]
+        if any(r["step"] != 0 or not np.array_equal(np.asarray(r["embeddings"], np.float32),
+                                                    eager[0]) for r in after):
+            raise AssertionError("after the rollback: answers are not the primary's")
+        _, info = engine.session_embed(pinned, x[1])
+        if not (info["cold"] and info.get("restart") == "version_retired" and info["step"] == 0):
+            raise AssertionError(f"pinned session after the rollback: {info}")
+        out["canary"] = {"keys": DEPLOY_KEYS, "on_candidate": len(cand_keys),
+                         "rollback": {k: report[k] for k in ("reason", "pins",
+                                                              "phase_at_rollback")}
+                         | {k: report.get(k) for k in ("slo", "burn_rate_short")},
+                         "requests_until_rollback": len(codes), "client_errors": 0,
+                         "pinned_session_after": info}
+
+        # (D) a clean candidate auto-promotes; the promote captures nothing
+        engine.deploy.promote_after = 2
+        perturbed_step(ckpt, 3, seed=21)
+        body, _ = post(base + "/admin/deploy/canary", {"fraction": 0.5, "step": 3})
+        cand3 = engine.deploy.candidate(3)
+        if body["candidate_step"] != 3 or cand3 is None:
+            raise AssertionError(f"canary of step 3: {body}")
+        made = compile_cache.captures_made()
+        promotes = []
+        timed(engine.deploy, "promote", promotes)
+        keys3 = [f"key-{i}" for i in range(256) if engine.deploy.assign(f"key-{i}") == 3]
+        t0 = time.perf_counter()
+        for i in itertools.count():
+            if engine.deploy.phase == "idle" or time.perf_counter() - t0 > 60:
+                break
+            post(base + "/embed", {"images": x[1].tolist()},
+                 {"X-Affinity-Key": keys3[i % len(keys3)]})
+        del engine.deploy.promote
+        report = engine.deploy.last_report
+        resp, _ = post(base + "/embed", {"images": x[1].tolist()})
+        captures = engine.registry.snapshot().get("serving_graph_captures", 0)
+        if (report["action"] != "promoted" or engine.step != 3 or engine.serving is not cand3.caches
+                or compile_cache.captures_made() != made or captures
+                or resp["step"] != 3
+                or not all(np.array_equal(
+                    np.asarray(resp["embeddings"], np.float32) if b == 1 else engine.run(
+                        "embed", x[b]), cand3.caches.caches["embed"].eager(cand3.params, x[b]))
+                    for b in DEPLOY_BUCKETS)):
+            raise AssertionError(f"promote: {report}, step {engine.step}, captures "
+                                 f"{compile_cache.captures_made() - made}/{captures}")
+        out["promote"] = {"report": {k: report[k] for k in ("step", "from_step")},
+                          "wall_ms": [(t1 - t0) * 1e3 for t0, t1 in promotes],
+                          "captures_by_promote": 0,
+                          "serving_graph_captures": captures,
+                          "requests_until_promote": i}
+
+        # (E) the extra model, through K8
+        b = engine.models.get("b")
+        resp, _ = post(base + "/embed", {"images": x[1].tolist(), "model": "b"})
+        reset_launches()
+        got = engine.submit("embed", x[8], model="b").result(timeout=120)
+        launches_b = check_launches("extra model b /embed b=8", launch_counts(),
+                                    {**want_launches(0), "fused_level_update": iters})
+        for k, n in launches_b.items():
+            main[k] += n
+        if resp.get("model") != "b" or not (
+                np.array_equal(np.asarray(resp["embeddings"], np.float32),
+                               b.caches.caches["embed"].eager(b.params, x[1]))
+                and np.array_equal(got, b.caches.caches["embed"].eager(b.params, x[8]))):
+            raise AssertionError("extra model b: an answer differs from its eager forward")
+        out["extra_model"] = {"launches_b8": launches_b, "bitwise_eager": [1, 8]}
+
+        # retiring frees the card: shadow -> rollback cycles (the displaced
+        # step-0 set and every reference of this phase released first)
+        del cand, cand3, b
+        engine.finalize_reload()
+        perturbed_step(ckpt, 4, seed=22)
+        base_mem = settled_memory(device)["allocated"]
+        cycles = []
+        for _ in range(MEMORY_CYCLES):
+            post(base + "/admin/deploy/shadow", {"step": 4})
+            resident = settled_memory(device)["allocated"]
+            post(base + "/admin/deploy/rollback", {})
+            cycles.append({"with_candidate": resident,
+                           "after_rollback": settled_memory(device)["allocated"]})
+        drift = abs(cycles[-1]["after_rollback"] - base_mem) / base_mem
+        if drift > MEMORY_CYCLE_RTOL:
+            raise AssertionError(f"shadow -> rollback cycles: allocated {base_mem} -> {cycles}")
+        out["memory_cycles"] = {"before": base_mem, "cycles": cycles, "rel_drift": drift,
+                                "rtol": MEMORY_CYCLE_RTOL}
+    finally:
+        server.shutdown()
+        server.server_close()
+        free_engines(engine)
+    emit({"phase": "deploy", "config": {"dim": c.dim, "levels": c.levels, "iters": iters},
+          "launches": main, **out,
+          "time_note": "host clock (time.perf_counter) throughout: *_ms lists and blocks are "
+                       "engine.submit to the answer on the host; capture_seconds is the "
+                       "/admin/deploy/shadow call; promote wall_ms is DeployController.promote"})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(ckpt_b, ignore_errors=True)
+    return main
+
+
+def phase_session_tools(device) -> dict:
+    """The session tools at flagship width: python -m
+    glom_tpu_torch.tools.session_check --warm-iters 2,3,4,6 --frames 16
+    --batch 2 on a "pallas" checkpoint (the main path: counts set to 0 just
+    before, read just after; every frame a graph replay), its verdict and
+    each sweep value's distance and p50/p95; then the port's load generator
+    against an in-process server: --sessions 4 --frames 16, and --tenant a:3
+    --tenant b:1 (tenant a's quota 50 images/s), p50/p95 per frame kind and
+    per tenant."""
+    import contextlib
+    import io
+
+    from glom_tpu_torch.tools import session_check
+
+    ckpt = flagship_ckpt("chip_smoke_session_tools_ckpt", seed=23)
+    c = kernel_config()
+    report_path = os.path.join(ROOT, "build", "chip_smoke_session_check.json")
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):     # its report is read from the file
+        rc = session_check.main(["--checkpoint-dir", ckpt, "--warm-iters", SESSION_SWEEP,
+                                 "--frames", str(SESSION_TOOL_FRAMES), "--batch", "2",
+                                 "--report", report_path, "--device", str(device)])
+    launches = launch_counts()
+    with open(report_path) as f:
+        report = json.load(f)
+    cold, frames = report["cold_iters"], SESSION_TOOL_FRAMES
+    sweep = [int(w) for w in SESSION_SWEEP.split(",")]
+    # each cache's capture runs its forward once eagerly: the cold cache
+    # (capture + frame 0), the full cache (capture + frames-1), and each warm
+    # value's (capture + frames-1)
+    fwd = 2 * cold + cold * frames + sum(w * frames for w in sweep)
+    check_launches("session_check", launches, want_launches(fwd))
+    if rc not in (0, 1) or len(report["sweep"]) != len(sweep):
+        raise AssertionError(f"session_check exited {rc}: {report}")
+
+    engine = ServingEngine(ckpt, device=device, buckets=(1, 8), reload_poll_s=0,
+                           warm_iters="auto", tenant_quotas={"a": "50:50"})
+    engine.start(watch=False)
+    server = make_server(engine)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://{}:{}".format(*server.server_address[:2])
+    try:
+        sessions = run_loadgen(base, "--sessions", 4, "--frames", SESSION_TOOL_FRAMES)
+        tenants = run_loadgen(base, "--tenant", "a:3", "--tenant", "b:1", "--requests", 80,
+                              "--concurrency", 4)
+    finally:
+        server.shutdown()
+        server.server_close()
+        free_engines(engine)
+    if sessions["requests_error"] or sessions["session"]["affinity"]["violations"] \
+            or tenants["requests_error"]:
+        raise AssertionError(f"loadgen: {sessions}, {tenants}")
+    emit({"phase": "session_tools", "config": {"dim": c.dim, "levels": c.levels},
+          "session_check": {"exit_code": rc, **{k: report[k] for k in (
+              "cold_iters", "frames", "batch", "threshold", "burn_in", "best_warm_iters",
+              "half_target_iters", "half_target_met", "latency_ratio")},
+              "sweep": report["sweep"]},
+          "launches": launches,
+          "loadgen_sessions": {"session": sessions["session"],
+                               "latency_ms": sessions["latency_ms"]},
+          "loadgen_tenants": {"per_tenant": tenants["per_tenant"],
+                              "latency_ms": tenants["latency_ms"]},
+          "time_note": "session_check: host clock around one graph-cache call a frame "
+                       "(answer on the host); loadgen: HTTP round trips from its own process"})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
+def phase_faults(device) -> dict:
+    """Fault injection on the card: Trainer.fit at flagship width, b=8, f32,
+    "pallas" with the kernel backward and halt_on_nan, on the synthetic
+    stream with data:nan_batch@3 and ckpt_write:torn@2 armed, a checkpoint a
+    step (the main path: counts set to 0 just before, read just after): it
+    raises NonFiniteError at step 3 after three steps' launches of K1-K4,
+    K6 and K7; the loader then falls back from the torn step 2 to step 1;
+    then a serving engine on that directory with reload:io_error*3 armed: a
+    poll retries and backs off (the sleeps recorded) and fails, the next
+    loads the newer step."""
+    import io
+
+    from glom_tpu_torch.resilience import faultinject
+    from glom_tpu_torch.training.data import make_batches
+    from glom_tpu_torch.training.trainer import NonFiniteError
+
+    c = kernel_config()
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_faults_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tc = TrainConfig(batch_size=BATCH, steps=FAULT_TRAIN_STEPS, log_every=1, seed=0,
+                     halt_on_nan=True, checkpoint_dir=ckpt, checkpoint_every=1)
+    stream = io.StringIO()
+    trainer = Trainer(c, tc, device=device, logger=MetricLogger(stream=stream))
+    batches = make_batches("synthetic", BATCH, c.image_size, seed=0, prefetch=0)
+    reset_launches()
+    with faultinject.injected("data:nan_batch@3;ckpt_write:torn@2") as plan:
+        try:
+            trainer.fit(batches)
+        except NonFiniteError as e:
+            halted = str(e)
+        else:
+            raise AssertionError("data:nan_batch@3: the trainer did not halt")
+        fired = plan.summary()
+    launches = launch_counts()
+    t = denoise.resolve_loss_timestep(trainer.train_cfg, c.default_iters)
+    check_launches("three train steps", launches, {
+        "fused_level_update": 0, "grouped_ff": 6 * t, "grouped_ff_dx": 6 * t,
+        "grouped_ff_dw": 6 * t, "consensus_attention": 3 * t, "consensus_dkv": 3 * t,
+        "consensus_dq": 3 * t})
+    if "at step 3" not in halted:
+        raise AssertionError(f"halted: {halted}")
+    step, _, _, _ = denoise.load_checkpoint_state(ckpt, device="cpu")
+    quarantined = sorted(f for f in os.listdir(ckpt) if f.endswith(".corrupt"))
+    if step != 1 or not quarantined:
+        raise AssertionError(f"torn step 2: the loader took {step}, quarantined {quarantined}")
+
+    slept = []
+    engine = ServingEngine(ckpt, device=device, buckets=(1,), reload_poll_s=0,
+                           sleep=slept.append)
+    perturbed_step(ckpt, 5, seed=24, src=1)
+    with faultinject.injected("reload:io_error*3"):
+        first = engine.check_reload()
+        second = engine.check_reload()
+    failures = engine.registry.snapshot().get("serving_reload_failures")
+    if first or not second or engine.step != 5 or failures != 3 or len(slept) != 2:
+        raise AssertionError(f"reload:io_error*3: {first}, {second}, step {engine.step}, "
+                             f"failures {failures}, sleeps {slept}")
+    free_engines(engine)
+    emit({"phase": "faults", "config": {"dim": c.dim, "levels": c.levels, "batch": BATCH},
+          "nan_batch": {"halted": halted, "launches": launches, "plan": fired},
+          "torn_save": {"loaded_step": step, "quarantined": quarantined},
+          "reload_io_error": {"first_check": first, "second_check": second,
+                              "reload_failures": failures, "backoff_sleeps_s": slept,
+                              "step": 5}})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 _TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
                   "consensus_dkv", "consensus_dq"}
 BENCH_LEGS = (
@@ -3113,7 +3637,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
-          "sessions", "parse", "bench")
+          "sessions", "parse", "deploy", "session_tools", "faults", "bench")
 
 
 def parse_args(argv):
@@ -3128,7 +3652,10 @@ def parse_args(argv):
                         "the data streams, two views, eval and resume; classify, video, "
                         "extract, islands: the classifier, video, extraction and islanding "
                         "paths; quant, sessions, parse: serving at f32/bf16/int8, stateful "
-                        "sessions, /parse, /similar and /session/parse; bench: the "
+                        "sessions, /parse, /similar and /session/parse; deploy, "
+                        "session_tools, faults: shadow/canary/promote/rollback and extra "
+                        "models, session_check and the loadgen's session and tenant modes, "
+                        "fault injection; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -3140,11 +3667,12 @@ def parse_args(argv):
     return args
 
 
-# the classifier, video, extraction, islanding, quantized, session and parse
-# paths, in the full run's order
+# the classifier, video, extraction, islanding, quantized, session, parse,
+# deploy, session-tool and fault paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
-                "parse": phase_parse}
+                "parse": phase_parse, "deploy": phase_deploy,
+                "session_tools": phase_session_tools, "faults": phase_faults}
 
 
 def run_only(device, names) -> int:
@@ -3205,8 +3733,8 @@ def main(argv=()) -> int:
     # fused serving path's), the train path's for the backward ones;
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
-    # _video, _extract, _islands, _quant, _sessions, _parse: each of those
-    # paths' main run
+    # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
+    # _session_tools, _faults: each of those paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]

@@ -5,7 +5,9 @@ flattened by '/'-joined key paths (``params/glom/bottom_up/w1``), beside
 ``ckpt_{step}.integrity.json`` (a CRC32 of every array and of the whole
 file) and a ``manifest.json`` naming the newest step.  Every write is
 atomic (a temporary file, then a rename).  Checkpoints written here restore
-in ``glom_tpu`` and the other way round.
+in ``glom_tpu`` and the other way round.  ``save`` threads the ``ckpt_write``
+fault-injection site (:mod:`glom_tpu_torch.resilience.faultinject`) as
+``glom_tpu``'s does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import zlib
 from typing import Dict, Optional
 
 import numpy as np
+
+from glom_tpu_torch.resilience import faultinject
 
 _SEP = "/"
 
@@ -109,8 +113,31 @@ def save(directory: str, step: int, trees: Dict[str, object]) -> str:
         "file_crc32": _file_crc(path),
         "arrays": {k: _array_crc(v) for k, v in arrays.items()},
     })
+    # after the integrity record, so an injected corruption is detectable,
+    # as a real one is (a good write whose bytes later go bad)
+    _apply_write_fault(path, step)
     write_json(directory, "manifest.json", {"latest_step": int(step), "path": path})
     return path
+
+
+def _apply_write_fault(path: str, step: int) -> None:
+    """The ``ckpt_write`` injection site (``glom_tpu/checkpoint.py``'s): a
+    torn write truncates the artifact to half, a bitflip inverts one byte at
+    the plan's seeded offset.  A no-op when no plan is armed."""
+    kind = faultinject.fire("ckpt_write", step=step)
+    if kind is None:
+        return
+    size = os.path.getsize(path)
+    if kind == "torn":
+        with open(path, "r+b") as f:
+            f.truncate(max(size // 2, 1))
+    elif kind == "bitflip":
+        off = int(faultinject.uniform("ckpt_write", 0, max(size - 1, 0)))
+        with open(path, "r+b") as f:
+            f.seek(off)
+            b = f.read(1) or b"\0"
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0xFF]))
 
 
 def latest_step(directory: str, *, strict: bool = False) -> Optional[int]:

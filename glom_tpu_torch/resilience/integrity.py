@@ -59,12 +59,15 @@ def _candidate_steps(directory: str) -> list:
     return sorted({s for s in map(ckpt_lib.step_of, names) if s is not None}, reverse=True)
 
 
-def latest_valid_step(directory: str, *, newer_than: Optional[int] = None) -> Optional[int]:
+def latest_valid_step(directory: str, *, newer_than: Optional[int] = None,
+                      quarantine_corrupt: bool = True) -> Optional[int]:
     """The newest step at or below the manifest's that passes its whole-file
-    CRC, quarantining every newer one that fails; None when no step is
-    loadable.  Steps at or below ``newer_than`` are returned without the CRC
-    read: a server already holds that step and only asks whether a newer one
-    landed (its watcher polls every few seconds)."""
+    CRC, quarantining every newer one that fails (unless
+    ``quarantine_corrupt=False``: a read-only scan, as the model registry's
+    lineage makes); None when no step is loadable.  Steps at or below
+    ``newer_than`` are returned without the CRC read: a server already holds
+    that step and only asks whether a newer one landed (its watcher polls
+    every few seconds)."""
     manifest_step = -1   # read only when a step above newer_than needs it
     for step in _candidate_steps(directory):
         if newer_than is not None and step <= newer_than:
@@ -74,7 +77,8 @@ def latest_valid_step(directory: str, *, newer_than: Optional[int] = None) -> Op
         if manifest_step is not None and step > manifest_step:
             continue   # above the finalization barrier
         if ckpt_lib.verify_file_integrity(directory, step) is False:
-            quarantine(directory, step, reason="file CRC mismatch")
+            if quarantine_corrupt:
+                quarantine(directory, step, reason="file CRC mismatch")
             continue
         return step
     return None

@@ -35,6 +35,11 @@ process, so captures and replays share a :class:`DeviceLock`: replays hold
 it shared, a capture holds it alone, and a request prepares every graph it
 will replay before it takes its hold.
 
+:func:`captures_made` counts every key prepared in the process (a graph
+captured on the card, a key first marked on the CPU), so a caller can show
+that a path captured nothing; :attr:`DeviceLock.longest_exclusive_s` is the
+longest a capture has kept replays out.
+
 A graph's kernel launches are recorded at capture
 (``kernels/_common.py::recording_launches``) and added to the wrappers'
 launch counts at every replay.
@@ -85,23 +90,46 @@ def pad_to_bucket(imgs: np.ndarray, bucket: int) -> np.ndarray:
     return np.concatenate([imgs, np.zeros((bucket - b,) + imgs.shape[1:], imgs.dtype)])
 
 
+_PREPARED = [0]                       # keys prepared in this process
+_PREPARED_LOCK = threading.Lock()
+
+
+def captures_made() -> int:
+    """Keys prepared in this process so far: graphs captured on a card (a
+    bucket of a family, a pack at one state dtype), keys first marked on the
+    CPU."""
+    with _PREPARED_LOCK:
+        return _PREPARED[0]
+
+
 class DeviceLock:
     """Shared/exclusive lock over the card: replays take it shared, a capture
     alone.  A waiting capture stops new replays from entering, so it waits
-    for at most the replays already running.  Not reentrant: a thread that
-    holds it shared must neither take it again nor capture, so every cache
-    prepares its graph before it takes its hold."""
+    for at most the replays already running; the replays waiting when a
+    capture ends enter before the next capture, so a run of captures (a
+    deploy candidate's set, one bucket a hold) lets live traffic through
+    between them.  Not reentrant: a thread that holds it shared must neither
+    take it again nor capture, so every cache prepares its graph before it
+    takes its hold.  ``longest_exclusive_s`` is the longest exclusive hold
+    so far (a caller may reset it to 0)."""
 
     def __init__(self):
         self._cond = threading.Condition()
         self._shared = 0
         self._exclusive = False
         self._waiting = 0
+        self._shared_waiting = 0
+        self._admit = 0        # replays let in ahead of the next capture
+        self.longest_exclusive_s = 0.0
 
     @contextmanager
     def shared(self):
         with self._cond:
-            self._cond.wait_for(lambda: not self._exclusive and not self._waiting)
+            self._shared_waiting += 1
+            self._cond.wait_for(
+                lambda: not self._exclusive and (not self._waiting or self._admit > 0))
+            self._shared_waiting -= 1
+            self._admit = max(0, self._admit - 1)
             self._shared += 1
         try:
             yield
@@ -114,15 +142,25 @@ class DeviceLock:
     def exclusive(self):
         with self._cond:
             self._waiting += 1
-            self._cond.wait_for(lambda: not self._exclusive and self._shared == 0)
+            self._cond.wait_for(
+                lambda: not self._exclusive and self._shared == 0 and not self._admit)
             self._waiting -= 1
             self._exclusive = True
+        t0 = time.perf_counter()
         try:
             yield
         finally:
             with self._cond:
+                self.longest_exclusive_s = max(self.longest_exclusive_s,
+                                               time.perf_counter() - t0)
                 self._exclusive = False
+                self._admit = self._shared_waiting
                 self._cond.notify_all()
+
+
+def _count_prepared() -> None:
+    with _PREPARED_LOCK:
+        _PREPARED[0] += 1
 
 
 _SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
@@ -240,6 +278,8 @@ class _GraphFamily:
             with self._replay:
                 fresh = key not in self._ready
                 self._ready.add(key)
+            if fresh:
+                _count_prepared()
             return fresh
         with self._lock.exclusive():
             if key in self._ready:
@@ -254,6 +294,7 @@ class _GraphFamily:
             self._graphs[key] = _Graph(graph, static_in, static_state, out, static_new,
                                        launches)
             self._ready.add(key)
+        _count_prepared()
         return True
 
     def _prepare(self, key) -> bool:

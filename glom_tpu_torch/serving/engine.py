@@ -81,10 +81,28 @@ Serving at reduced precision, per tenant and with state:
     and scans ``index_dir``'s level index; ``/session/parse`` runs the pack
     on a session's carried state, at its dtype.
 
+Several models and safe deploys:
+
+  * ``models`` (:mod:`.registry`): every servable ``(model, step)`` is a
+    record; the start-up set is the default model's primary, re-anchored by
+    every swap (hot reload, staged commit, promote, rollback), and each of
+    ``extra_models`` (``{name: checkpoint dir}``) is a primary of its own,
+    loaded with its own config into a set of its own (a request names it in
+    its ``model`` field);
+  * ``deploy`` (:mod:`.deploy`): shadow / canary / promote / rollback of a
+    newer checkpoint of the default model (``deploy_*``).  The candidate's
+    set is captured off the request path from the engine's program against
+    its own parameters.  A flushed batch runs as one group per ``mkey``:
+    the primary's, the canary's (the candidate's graphs; a retired
+    candidate's items fall back to the primary) and each extra model's,
+    each padded to its own bucket; the primary's answers are mirrored to the
+    shadow after its futures resolve.  A session with state stays on the
+    version that computed it, and restarts cold (``version_retired``) when
+    that candidate was retired.
+
 Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (forensics bundles, deploys and several models, the capacity and quality
-planes, bulk jobs, a device mesh) are refused by name when set:
-:data:`UNPORTED`.
+yet (forensics bundles, the capacity and quality planes, bulk jobs, a device
+mesh) are refused by name when set: :data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -109,7 +127,7 @@ from glom_tpu_torch.obs.registry import MetricRegistry
 from glom_tpu_torch.obs.slo import SLO, SloManager, parse_slo
 from glom_tpu_torch.obs.tracing import SPAN_BATCH_ASSEMBLY, SPAN_RELOAD, TraceSink, Tracer
 from glom_tpu_torch.obs.triggers import QueueSaturationMonitor, TriggerEngine
-from glom_tpu_torch.resilience import integrity
+from glom_tpu_torch.resilience import faultinject, integrity
 from glom_tpu_torch.serving import quant as serving_quant
 from glom_tpu_torch.serving import sessions as serving_sessions
 from glom_tpu_torch.serving.batcher import (  # noqa: F401
@@ -144,12 +162,6 @@ UNPORTED = {
     "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
     "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
     "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
-    "extra_models": (None, f"serving/registry.py ({_Q}, item 4.4)"),
-    "deploy_promote_after": (3, f"serving/deploy.py ({_Q}, item 4.4)"),
-    "deploy_window_s": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
-    "deploy_min_events": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
-    "deploy_canary_fraction": (0.1, f"serving/deploy.py ({_Q}, item 4.4)"),
-    "deploy_pin_url": (None, f"serving/deploy.py ({_Q}, item 4.4)"),
     "capacity_policy": (None, f"obs/capacity.py ({_Q}, item 4.5)"),
     "capacity_interval_s": (1.0, f"obs/capacity.py ({_Q}, item 4.5)"),
     "capacity_window_s": (30.0, f"obs/capacity.py ({_Q}, item 4.5)"),
@@ -298,6 +310,117 @@ class ServingSet:
     caches: Dict[str, Union[BucketedGraphCache, PostPassCache]]
 
 
+def load_params(checkpoint_dir: str, step: Optional[int], quant: str, device):
+    """``(step, config, train_cfg, params)`` of a checkpoint: on ``device``
+    under ``f32``, on the host under a reduced mode (quantized there, then
+    placed once by :meth:`ServingProgram.make`)."""
+    load_device = device if quant == "f32" else torch.device("cpu")
+    return denoise.load_checkpoint_state(checkpoint_dir, step=step, device=load_device)
+
+
+class ServingProgram:
+    """What a :class:`ServingSet` is captured from: the graph functions of one
+    model config, quant mode, bucket ladder and iteration counts (one
+    ``registry.cache_signature``).  :meth:`make` places a parameter tree and
+    builds its caches, :meth:`warm` captures them.  The engine's primary, a
+    deploy candidate and every reload build their sets from the engine's
+    program; ``registry.load_version`` builds an extra model's from its own.
+
+    ``config`` is the checkpoint's config (with the engine's kernel
+    overrides); ``warm_iters`` (an int, or None) adds the session families
+    ``session_cold`` and ``session_warm``.  On a card, the kernels the config
+    runs are built here, before any request."""
+
+    def __init__(self, config: GlomConfig, train_cfg: TrainConfig, *, quant: str, buckets,
+                 iters: Optional[int], device, lock: Optional[DeviceLock] = None,
+                 warm_iters: Optional[int] = None, parse_thresholds=None):
+        if quant not in serving_quant.QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r}; one of {serving_quant.QUANT_MODES}")
+        self.quant = quant
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets}")
+        self.device = torch.device(device)
+        self.lock = lock if lock is not None else DeviceLock()
+        # the config the forwards run: bf16 compute under a reduced mode
+        self.serve_config = c = serving_quant.serving_config(config, quant)
+        # resolved once, outside every graph: the step's functions and the
+        # locality mask on the device
+        self.step_fns = glom_model.resolve_step_fns(c, self.device)
+        consensus_fn, ff_fn, fused_fn = self.step_fns
+        self.embed_iters = iters if iters is not None else config.default_iters
+        recon_iters = iters if iters is not None else (
+            train_cfg.iters if train_cfg.iters is not None else config.default_iters)
+        self.reconstruct_timestep = denoise.resolve_loss_timestep(train_cfg, recon_iters)
+        # the state every stateful path carries: the compute dtype, (n, L, d)
+        self.state_dtype = c.resolved_compute_dtype
+        self.state_tail = (c.num_patches, c.levels, c.dim)
+        self.parse_thresholds = hierarchy_parse.parse_thresholds(parse_thresholds, c.levels)
+        self.pack_fn = hierarchy_parse.make_pack_fn(c, self.parse_thresholds)
+        fns = {
+            "embed": make_embed_fn(c, self.embed_iters, self.step_fns),
+            "reconstruct": make_reconstruct_fn(c, train_cfg, self.reconstruct_timestep,
+                                               self.step_fns),
+            "index": hierarchy_parse.make_index_fn(c, self.embed_iters, ff_fn=ff_fn,
+                                                   fused_fn=fused_fn, consensus_fn=consensus_fn),
+        }
+        self.session_cold_iters = int(self.embed_iters)
+        self.session_warm_iters = warm_iters
+        if warm_iters is not None:
+            fns["session_cold"], fns["session_warm"] = make_session_fns(
+                c, self.session_cold_iters, warm_iters, self.step_fns)
+        self.fns = {name: serving_quant.quantized_forward(fn, quant) for name, fn in fns.items()}
+        if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != (
+                "dense", "dense"):
+            # built before the first request, so no request waits for nvcc
+            _build.build_all()
+
+    @property
+    def sessions(self) -> bool:
+        return self.session_warm_iters is not None
+
+    def make(self, step: int, params: dict) -> ServingSet:
+        """A set for ``params`` (cast to the compute dtype under ``f32``,
+        quantized and placed on the device otherwise) with its graph caches,
+        not yet captured."""
+        c = self.serve_config
+        if self.quant == "f32":
+            dt = c.resolved_compute_dtype
+            params = glom_model.tree_map(lambda p: p.to(dt), params)
+        else:
+            params = serving_quant.tree_to(serving_quant.quantize_tree(params, self.quant),
+                                           self.device)
+        shape = (c.channels, c.image_size, c.image_size)
+
+        def cache(name, iters, **kw):
+            return BucketedGraphCache(self.fns[name], self.buckets, input_shape=shape,
+                                      device=self.device, name=name, lock=self.lock,
+                                      iters=iters, **kw)
+
+        caches = {"embed": cache("embed", self.embed_iters),
+                  "reconstruct": cache("reconstruct", self.reconstruct_timestep),
+                  "index": cache("index", self.embed_iters)}
+        caches["parse"] = PostPassCache(caches["index"], self.pack_fn,
+                                        state_shape=self.state_tail, name="parse")
+        if self.sessions:
+            caches["session_cold"] = cache("session_cold", self.session_cold_iters,
+                                           carries_state=True)
+            caches["session_warm"] = cache("session_warm", self.session_warm_iters,
+                                           carries_state=True, takes_state=True,
+                                           state_shape=self.state_tail,
+                                           state_dtype=self.state_dtype)
+        return ServingSet(int(step), params, caches)
+
+    def warm(self, serving: ServingSet) -> None:
+        """Capture every (family, bucket) of ``serving``, one bucket a hold of
+        the device lock, so live replays run between the captures."""
+        for cache in serving.caches.values():
+            cache.warmup(serving.params)
+        if self.sessions:
+            # /session/parse runs the pack on the carried state, at its dtype
+            serving.caches["parse"].warm_state(self.state_dtype)
+
+
 class ServingEngine:
     """One loaded model, one batcher and one worker thread per endpoint, and
     the hot-reload watcher.
@@ -342,6 +465,12 @@ class ServingEngine:
         tenant_quotas: Optional[Dict[str, object]] = None,
         parse_thresholds=None,
         index_dir: Optional[str] = None,
+        extra_models: Optional[Dict[str, str]] = None,
+        deploy_promote_after: int = 3,
+        deploy_window_s: Optional[float] = None,
+        deploy_min_events: Optional[int] = None,
+        deploy_canary_fraction: float = 0.1,
+        deploy_pin_url: Optional[str] = None,
         **unported,
     ):
         refuse_unported(unported)
@@ -373,82 +502,57 @@ class ServingEngine:
                 f"no finalized checkpoint in {checkpoint_dir!r}; train first, "
                 f"or write one with make_demo_checkpoint"
             )
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        if not self.buckets or self.buckets[0] < 1:
-            raise ValueError(f"buckets must be positive ints, got {buckets}")
         # -- quantized serving: one mode an engine; a reload quantizes its
-        # new tree the same way.  The tree is loaded to the host for a
-        # reduced mode (quantized there, then placed once)
-        if quant not in serving_quant.QUANT_MODES:
-            raise ValueError(f"unknown quant mode {quant!r}; one of {serving_quant.QUANT_MODES}")
+        # new tree the same way
         self.quant = quant
-        self._load_device = self.device if quant == "f32" else torch.device("cpu")
-        step, config, self.train_cfg, params = denoise.load_checkpoint_state(
-            checkpoint_dir, device=self._load_device)
+        step, config, self.train_cfg, params = load_params(checkpoint_dir, None, quant,
+                                                           self.device)
         # None keeps the checkpoint's choice; a value overrides it
         overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
                      if v is not None}
         self.config = dataclasses.replace(config, **overrides)
-        # the config the forwards run: bf16 compute under a reduced mode
-        self.serve_config = serve_cfg = serving_quant.serving_config(self.config, quant)
-        # resolved once, outside every graph: the step's functions and the
-        # locality mask on the device
-        self._step_fns = glom_model.resolve_step_fns(serve_cfg, self.device)
+        # -- stateful sessions: warm_iters enables them ("auto" = half the
+        # cold iterations)
+        cold_iters = int(iters if iters is not None else self.config.default_iters)
+        if warm_iters is not None:
+            if warm_iters == "auto":
+                warm_iters = max(1, cold_iters // 2)
+            warm_iters = int(warm_iters)
+            if warm_iters < 1:
+                raise ValueError(f"warm_iters must be >= 1, got {warm_iters}")
+        # replays share the card; a capture (start-up, reload, a deploy
+        # candidate, or a lazy bucket) holds it alone
+        self._device_lock = DeviceLock()
+        self._program = program = ServingProgram(
+            self.config, self.train_cfg, quant=quant, buckets=buckets, iters=iters,
+            device=self.device, lock=self._device_lock, warm_iters=warm_iters,
+            parse_thresholds=parse_thresholds)
+        self.buckets = program.buckets
+        self.serve_config = program.serve_config
+        self._step_fns = program.step_fns
         self._consensus_fn, self._ff_fn, self._fused_fn = self._step_fns
-        self.embed_iters = iters if iters is not None else self.config.default_iters
-        recon_iters = iters if iters is not None else (
-            self.train_cfg.iters if self.train_cfg.iters is not None
-            else self.config.default_iters)
-        self.reconstruct_timestep = denoise.resolve_loss_timestep(self.train_cfg, recon_iters)
-        c = serve_cfg
-        # the state every stateful path carries: the compute dtype, (n, L, d)
-        self._state_dtype = c.resolved_compute_dtype
-        self._state_tail = (c.num_patches, c.levels, c.dim)
+        self.embed_iters = program.embed_iters
+        self.reconstruct_timestep = program.reconstruct_timestep
+        self._state_dtype, self._state_tail = program.state_dtype, program.state_tail
+        self._session_cold_iters = program.session_cold_iters
+        self._session_warm_iters = program.session_warm_iters
         # -- the part-whole endpoints: /parse is the index forward and the
         # islanding pack; /similar embeds through the index forward
-        self.parse_thresholds = hierarchy_parse.parse_thresholds(parse_thresholds, c.levels)
+        self.parse_thresholds = program.parse_thresholds
+        self._pack_fn = program.pack_fn
         self.index_dir = index_dir
         self._index = None
         if index_dir is not None:
             from glom_tpu_torch.hierarchy.index import LevelIndex
 
-            self._index = LevelIndex(index_dir, c.levels)
-        self._pack_fn = hierarchy_parse.make_pack_fn(c, self.parse_thresholds)
-        consensus_fn, ff_fn, fused_fn = self._step_fns
-        self._fns = {
-            "embed": make_embed_fn(c, self.embed_iters, self._step_fns),
-            "reconstruct": make_reconstruct_fn(c, self.train_cfg, self.reconstruct_timestep,
-                                               self._step_fns),
-            "index": hierarchy_parse.make_index_fn(c, self.embed_iters, ff_fn=ff_fn,
-                                                   fused_fn=fused_fn,
-                                                   consensus_fn=consensus_fn),
-        }
-        # -- stateful sessions: warm_iters enables them ("auto" = half the
-        # cold iterations)
-        self._session_cold_iters = int(self.embed_iters)
-        self._session_warm_iters = None
+            self._index = LevelIndex(index_dir, self.serve_config.levels)
         self.sessions: Optional[serving_sessions.SessionStore] = None
         self._session_spill_dir = session_spill_dir
-        if warm_iters is not None:
-            if warm_iters == "auto":
-                warm_iters = max(1, self._session_cold_iters // 2)
-            warm_iters = int(warm_iters)
-            if warm_iters < 1:
-                raise ValueError(f"warm_iters must be >= 1, got {warm_iters}")
-            self._session_warm_iters = warm_iters
-            self._fns["session_cold"], self._fns["session_warm"] = make_session_fns(
-                c, self._session_cold_iters, warm_iters, self._step_fns)
+        if program.sessions:
             self.sessions = serving_sessions.SessionStore(
                 max_bytes=session_max_bytes, ttl_s=session_ttl_s, registry=self.registry,
                 clock=self._clock)
-        self._fns = {name: serving_quant.quantized_forward(fn, quant)
-                     for name, fn in self._fns.items()}
-        if self.device.type == "cuda":
-            self._build_kernels()
-        # replays share the card; a capture (start-up, reload, or a lazy
-        # bucket) holds it alone
-        self._device_lock = DeviceLock()
-        self._serving = self._make_set(step, params)
+        self._serving = program.make(step, params)
         if self.sessions is not None and session_spill_dir:
             # warm boot: a drained replica's spilled states come back
             # resident (invalid ones are dropped)
@@ -485,6 +589,34 @@ class ServingEngine:
             self._slo = SloManager(parsed, clock=self._clock, registry=self.registry,
                                    triggers=self._triggers, tracer=self.tracer)
 
+        # -- the model registry: the start-up set is the default model's
+        # primary; an extra model is a primary of its own, with its own
+        # config, program and graphs
+        from glom_tpu_torch.serving import registry as model_registry
+
+        self.models = model_registry.ModelRegistry(registry=self.registry, clock=self._clock)
+        self.models.register(
+            model_registry.DEFAULT_MODEL, self._serving.step, caches=self._serving,
+            config=self.serve_config, train_cfg=self.train_cfg,
+            signature=model_registry.cache_signature(self.config, quant, self.buckets,
+                                                     iters=iters),
+            source_dir=checkpoint_dir, quant=quant, role="primary", program=self._program)
+        for name, model_dir in (extra_models or {}).items():
+            if name == model_registry.DEFAULT_MODEL:
+                raise ValueError(f"extra model name {name!r} collides with the engine's own "
+                                 f"model")
+            model_registry.load_version(
+                name, model_dir, buckets=self.buckets, quant=quant, iters=iters,
+                warmup=warmup, models=self.models, role="primary", device=self.device,
+                lock=self._device_lock)
+        # -- shadow/canary deploys of the default model
+        from glom_tpu_torch.serving.deploy import DeployController
+
+        self.deploy = DeployController(
+            self, promote_after=deploy_promote_after, window_s=deploy_window_s,
+            min_events=deploy_min_events, canary_fraction=deploy_canary_fraction,
+            pin_url=deploy_pin_url)
+
         # -- staged (two-phase) reload: ``_staged`` is a set loaded and
         # captured but not serving; ``_prev`` the set a commit displaced
         self._staged: Optional[ServingSet] = None
@@ -507,51 +639,9 @@ class ServingEngine:
         if warmup:
             self.warm()
 
-    def _build_kernels(self) -> None:
-        """Build the kernels before the first request, so no request waits
-        for ``nvcc``, when the config runs any."""
-        if (self.config.ff_impl, self.config.attention_impl) != ("dense", "dense"):
-            _build.build_all()
-
     # -- serving sets ------------------------------------------------------
-    def _make_set(self, step: int, params: dict) -> ServingSet:
-        """A set for ``params`` (cast to the compute dtype under ``f32``,
-        quantized and placed on the device otherwise) with its graph caches,
-        not yet captured."""
-        c = self.serve_config
-        if self.quant == "f32":
-            dt = c.resolved_compute_dtype
-            params = glom_model.tree_map(lambda p: p.to(dt), params)
-        else:
-            params = serving_quant.tree_to(serving_quant.quantize_tree(params, self.quant),
-                                           self.device)
-        shape = (c.channels, c.image_size, c.image_size)
-
-        def cache(name, iters, **kw):
-            return BucketedGraphCache(self._fns[name], self.buckets, input_shape=shape,
-                                      device=self.device, name=name, lock=self._device_lock,
-                                      iters=iters, **kw)
-
-        caches = {"embed": cache("embed", self.embed_iters),
-                  "reconstruct": cache("reconstruct", self.reconstruct_timestep),
-                  "index": cache("index", self.embed_iters)}
-        caches["parse"] = PostPassCache(caches["index"], self._pack_fn,
-                                        state_shape=self._state_tail, name="parse")
-        if self.sessions is not None:
-            caches["session_cold"] = cache("session_cold", self._session_cold_iters,
-                                           carries_state=True)
-            caches["session_warm"] = cache("session_warm", self._session_warm_iters,
-                                           carries_state=True, takes_state=True,
-                                           state_shape=self._state_tail,
-                                           state_dtype=self._state_dtype)
-        return ServingSet(int(step), params, caches)
-
     def _warm_set(self, serving: ServingSet) -> None:
-        for cache in serving.caches.values():
-            cache.warmup(serving.params)
-        if self.sessions is not None:
-            # /session/parse runs the pack on the carried state, at its dtype
-            serving.caches["parse"].warm_state(self._state_dtype)
+        self._program.warm(serving)
 
     def warm(self) -> None:
         """Capture every (endpoint, bucket) pair of the serving set; the
@@ -584,12 +674,16 @@ class ServingEngine:
     def _load_set(self, step: int) -> ServingSet:
         """Restore ``step`` onto the device and capture its graphs (when the
         engine warms) off the request path."""
-        _, _, _, params = denoise.load_checkpoint_state(self.checkpoint_dir, step=step,
-                                                        device=self._load_device)
-        serving = self._make_set(step, params)
+        serving = self._restore_set(step)
         if self._warm:
             self._warm_set(serving)
         return serving
+
+    def _restore_set(self, step: int) -> ServingSet:
+        """Restore ``step`` onto the device as a set whose graphs are not
+        captured yet."""
+        _, _, _, params = load_params(self.checkpoint_dir, step, self.quant, self.device)
+        return self._program.make(step, params)
 
     def graph_pool_bytes(self) -> Dict[str, Optional[int]]:
         """Bytes the card holds for each graph family's pool (None on the
@@ -649,6 +743,7 @@ class ServingEngine:
         for batcher in self.batchers.values():
             batcher.close(drain=drain)
         self._stop.set()
+        self.deploy.close()
         deadline = time.monotonic() + timeout
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -683,7 +778,15 @@ class ServingEngine:
 
     def _poll_latest(self) -> Optional[int]:
         """The newest valid step; the step already served is returned
-        without its CRC read."""
+        without its CRC read.  The ``reload`` fault-injection site sits in
+        front: ``io_error`` raises as a flaky mount would, ``corrupt_manifest``
+        reads as nothing finalized."""
+        kind = faultinject.fire("reload")
+        if kind == "io_error":
+            raise faultinject.FaultError("injected reload io_error")
+        if kind == "corrupt_manifest":
+            warnings.warn("injected corrupt reload manifest", stacklevel=2)
+            return None
         return integrity.latest_valid_step(self.checkpoint_dir, newer_than=self.step)
 
     def check_reload(self) -> bool:
@@ -736,6 +839,9 @@ class ServingEngine:
                               help="successful checkpoint hot reloads").inc()
         self.registry.gauge("serving_checkpoint_step",
                             help="step of the params being served").set(step)
+        # every swap re-anchors the registry's primary record on the set now
+        # serving, so /healthz's models block never drifts from it
+        self.models.sync_primary("default", step, self._serving)
 
     def stage_reload(self, step: Optional[int] = None) -> Optional[int]:
         """Phase one of a coordinated rollout: load a step and capture its
@@ -757,6 +863,13 @@ class ServingEngine:
                 return None
             if target == self.step:
                 return None
+            resident = self.models.get("default", int(target))
+            if resident is not None:
+                # a promote pinned through a router stages the step a
+                # deploy already holds: adopt its set (restore nothing,
+                # capture nothing), as sync_primary adopts its record
+                self._staged = resident.caches
+                return int(target)
             try:
                 serving = self._load_set(int(target))
             except ckpt_lib.CorruptCheckpointError as e:
@@ -818,7 +931,26 @@ class ServingEngine:
                 help="param swaps reverted by a fleet-coordinated rollback").inc()
             self.registry.gauge("serving_checkpoint_step",
                                 help="step of the params being served").set(serving.step)
+            self.models.sync_primary("default", serving.step, serving, source="rollback")
             return serving.step
+
+    def promote_candidate(self, step: int) -> int:
+        """The deploy controller's local promote: the resident candidate's set
+        becomes the serving set by the same reference swap as a staged commit
+        (nothing restored, nothing captured), and the displaced set is kept
+        as the rollback point until :meth:`finalize_reload`."""
+        version = self.models.get("default", int(step))
+        if version is None:
+            raise KeyError(f"no resident default@{step} to promote")
+        with self._reload_lock:
+            span = self.tracer.start_trace(SPAN_RELOAD, attrs={
+                "from_step": int(self.step), "to_step": int(step), "phase": "promote"})
+            with self._lock:
+                self._prev = self._serving
+                self._serving = version.caches
+            self.tracer.end(span)
+            self._note_swap(int(step))
+        return int(step)
 
     def _watch_loop(self) -> None:
         # consecutive fully-failed polls stretch the wait (doubling, capped
@@ -832,17 +964,28 @@ class ServingEngine:
 
     # -- the request path --------------------------------------------------
     def submit(self, endpoint: str, imgs: np.ndarray, *, ctx=None,
-               tenant: Optional[str] = None):
+               tenant: Optional[str] = None, model: Optional[str] = None,
+               version: Optional[int] = None):
         """Enqueue a ``(k, c, H, W)`` batch; returns the Future of the
         endpoint's output.  Raises the batcher's ``Overloaded`` (shed),
         :class:`TenantQuotaExceeded` (``tenant`` past its quota) or
         ``Closed`` (shutting down).  ``ctx`` (the request's root span)
-        threads the trace through the batcher and the executor."""
+        threads the trace through the batcher and the executor.  ``model``
+        targets an extra registry model (``ValueError`` for one not
+        resident); ``version`` pins the default model's deploy candidate
+        (the server takes it from :meth:`DeployController.assign`)."""
         self._admit(tenant, imgs.shape[0])
+        mkey = None
+        if model is not None:
+            if self.models.get(model) is None:
+                raise ValueError(f"unknown model {model!r}; resident: {self.models.models()}")
+            mkey = (model, None)
+        elif version is not None:
+            mkey = ("default", int(version))
         batcher = self.batchers[endpoint]
         try:
             future = batcher.submit(np.ascontiguousarray(imgs, dtype=np.float32),
-                                    size=imgs.shape[0], ctx=ctx)
+                                    size=imgs.shape[0], ctx=ctx, mkey=mkey)
         except Overloaded:
             if self.tenants is not None:
                 # the tokens bought nothing: a global shed gives them back
@@ -868,50 +1011,111 @@ class ServingEngine:
                                   help="requests shed at a tenant's admission quota").inc()
             raise
 
+    def _resolve_group(self, primary: ServingSet, mkey):
+        """``(set, retired)`` one execute group runs on: ``mkey`` None is the
+        default primary; ``("default", step)`` the deploy candidate, or the
+        primary when it was retired between submit and execute (the
+        post-rollback contract); ``(model, None)`` an extra model's primary."""
+        if mkey is None:
+            return primary, False
+        model, step = mkey
+        if model == "default" and step is not None:
+            version = self.deploy.candidate(step)
+            if version is None:
+                return primary, True
+            return version.caches, False
+        version = self.models.get(model)
+        if version is None:
+            raise RuntimeError(f"model {model!r} was retired with items in flight")
+        return version.caches, False
+
     def process_once(self, endpoint: str, *, block: bool = False,
                      timeout: Optional[float] = None) -> int:
         """Pull one flushed batch and run it; returns the images served.
         The worker loops the blocking form; tests call the non-blocking
-        form.  A failed batch fails its own futures; the worker lives on."""
+        form.  Items of different ``mkey`` (canary traffic, extra models)
+        share the flush and run as separate groups, each padded to its own
+        bucket and replayed from its own set's graphs; a group's failure
+        fails only its own futures.  With a shadow deploy, the primary
+        group's images and answers are mirrored to the shadow after its
+        futures resolve."""
         batch = self.batchers[endpoint].next_batch(block=block, timeout=timeout)
         if not batch:
             return 0
         # the batch span (made at take) feeds the duration histograms; each
         # member request's root span mirrors the same physical operations
         batch_span = batch[0].batch_span
-        n = sum(item.size for item in batch)
+        n_total = sum(item.size for item in batch)
+        groups: Dict = {}
+        for item in batch:
+            groups.setdefault(item.mkey, []).append(item)
         t_asm0 = self.tracer.clock()
-        arrays = [item.payload for item in batch]
-        imgs = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
+        group_imgs = {}
+        for mkey, items in groups.items():
+            arrays = [item.payload for item in items]
+            group_imgs[mkey] = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
         contexts = ([batch_span] if batch_span is not None else []) + [
             it.ctx for it in batch if it.ctx is not None]
         if contexts:
             t_asm1 = self.tracer.clock()
             for i, ctx in enumerate(contexts):
                 self.tracer.record(SPAN_BATCH_ASSEMBLY, ctx, t_asm0, t_asm1,
-                                   attrs={"items": len(batch), "images": n}, observe=i == 0)
-        # one read of the serving set: a swap during the batch leaves it on
-        # the set it started with
-        serving = self._serving
-        cache = serving.caches[endpoint]
-        error = None
-        t0 = self._clock()
-        try:
-            out = cache(serving.params, imgs, tracer=self.tracer, contexts=contexts)
-        except Exception as e:  # the batch's callers get the error
-            error = e
-            for item in batch:
-                item.future.set_exception(e)
-        else:
+                                   attrs={"items": len(batch), "images": n_total},
+                                   observe=i == 0)
+        # one read of the serving set: a swap during the batch leaves the
+        # primary group on the set it started with
+        primary = self._serving
+        served = 0
+        primary_imgs = primary_out = None
+        batch_error = None
+        for mkey, items in groups.items():
+            imgs = group_imgs[mkey]
+            n = imgs.shape[0]
+            group_ctxs = ([batch_span] if batch_span is not None else []) + [
+                it.ctx for it in items if it.ctx is not None]
+            try:
+                serving, retired = self._resolve_group(primary, mkey)
+                cache = serving.caches[endpoint]
+                t0 = self._clock()
+                out = cache(serving.params, imgs, tracer=self.tracer, contexts=group_ctxs)
+                if mkey is not None and mkey[1] is not None and not retired:
+                    # the canary group's fault seam: a delay is latency the
+                    # client sees, never an error
+                    kind = self.deploy.injected_fault()
+                    if kind == "delay":
+                        self._sleep(self.deploy.fault_delay_s)
+                    elif kind == "error":
+                        raise faultinject.FaultError("injected candidate error")
+            except Exception as e:  # the group's callers get the error
+                for item in items:
+                    if not item.future.done():
+                        item.future.set_exception(e)
+                batch_error = e
+                continue
             batch_s = self._clock() - t0
             offset = 0
-            for item in batch:
+            for item in items:
                 item.future.set_result(out[offset:offset + item.size])
                 offset += item.size
+            if mkey is None:
+                primary_imgs, primary_out = imgs, out
             self._account_batch(endpoint, cache, n, batch_s)
+            if mkey is not None and mkey[0] != "default":
+                self.registry.counter(self.registry.labeled("serving_model_requests_", mkey[0]),
+                                      help="images served per non-default registry model").inc(n)
+            elif mkey is not None and not retired:
+                self.registry.counter("deploy_canary_requests",
+                                      help="live images executed against the deploy "
+                                           "candidate").inc(n)
+            served += n
         if batch_span is not None:
-            self.tracer.end(batch_span, attrs={} if error is None else {"error": repr(error)})
-        return 0 if error is not None else n
+            self.tracer.end(batch_span,
+                            attrs={} if batch_error is None else {"error": repr(batch_error)})
+        if primary_imgs is not None and self.deploy.phase == "shadow":
+            # the primary's answers ride along: the shadow compares the
+            # candidate with the primary on the same batch
+            self.deploy.mirror(endpoint, primary_imgs, primary_out)
+        return served
 
     def _worker_loop(self, endpoint: str) -> None:
         batcher = self.batchers[endpoint]
@@ -995,7 +1199,25 @@ class ServingEngine:
                     entry, restart = None, "batch_changed"
                 # one read of the serving set: the frame runs whole on it
                 # (after a reload, the new set's graphs take the old state)
-                serving = self._serving
+                serving, canary = self._serving, False
+                if (entry is not None and entry.step != serving.step
+                        and self.deploy.retired(entry.step)):
+                    # the state was computed by a candidate a rollback or an
+                    # abort retired: never warm-iterate it on the primary
+                    self.sessions.reset(session_id)
+                    entry, restart = None, "version_retired"
+                cand_step = self.deploy.candidate_step
+                if cand_step is not None:
+                    # a session with state stays on the version that
+                    # computed it; only a cold frame follows the canary
+                    # assignment
+                    assigned = (cand_step if entry is not None and entry.step == cand_step
+                                else (self.deploy.assign(session_id) if entry is None
+                                      else None))
+                    if assigned is not None:
+                        version = self.deploy.candidate(assigned)
+                        if version is not None:
+                            serving, canary = version.caches, True
                 t0 = self._clock()
                 if entry is None:
                     out, new_levels = serving.caches["session_cold"](
@@ -1020,10 +1242,13 @@ class ServingEngine:
             with self._session_cv:
                 self._session_inflight -= 1
                 self._session_cv.notify_all()
-        self._account_session(cold, b, elapsed, restart)
+        self._account_session(serving, cold, b, elapsed, restart)
         info = {"cold": cold, "frames": frames,
                 "iters": self._session_cold_iters if cold else self._session_warm_iters,
                 "step": int(serving.step)}
+        if canary:
+            # the server routes this outcome to the candidate's evaluators
+            info["canary_step"] = int(serving.step)
         if restart is not None:
             info["restart"] = restart
         if deltas is not None:
@@ -1064,7 +1289,8 @@ class ServingEngine:
             self._parse_labels.pop(session_id, None)
             return self.sessions.reset(session_id)
 
-    def _account_session(self, cold: bool, images: int, elapsed_s: float, restart) -> None:
+    def _account_session(self, serving: ServingSet, cold: bool, images: int, elapsed_s: float,
+                         restart) -> None:
         reg = self.registry
         with self._lock:
             self.request_count += 1
@@ -1080,7 +1306,7 @@ class ServingEngine:
             reg.counter("serving_session_cold_restarts",
                         help="sessions restarted cold after a per-frame batch-size change "
                              "(eviction/failover colds surface as serving_session_misses)").inc()
-        caches = self._serving.caches
+        caches = serving.caches
         self._count_captures(sum(caches[name].poll_captures()
                                  for name in ("session_cold", "session_warm", "parse")))
         # with no reload watcher running, the traffic itself drives the TTL
@@ -1180,13 +1406,16 @@ class ServingEngine:
         self.registry.gauge("serving_queue_depth", help="queued images").set(batcher.depth)
 
     def observe_outcome(self, endpoint: str, latency_ms: Optional[float], error: bool,
-                        trace_id: Optional[str] = None, tenant: Optional[str] = None) -> None:
+                        trace_id: Optional[str] = None, tenant: Optional[str] = None,
+                        version: Optional[int] = None) -> None:
         """One request's terminal outcome, fed to the SLO burn-rate
         evaluators (the server calls this for successes and errors: sheds
         burn the error budget too).  ``tenant`` mints the per-tenant outcome
         metrics (cardinality-bounded) and scopes per-tenant SLOs.  The SLOs
         are serialized under their own lock, not the engine's, so alerting
-        never stalls the workers' accounting or a swap."""
+        never stalls the workers' accounting or a swap.  ``version`` routes a
+        canary outcome to the deploy candidate's evaluators instead of the
+        primary's SLOs; one of a candidate retired in flight feeds neither."""
         if tenant is not None:
             reg = self.registry
             reg.counter(reg.labeled("serving_tenant_requests_", tenant),
@@ -1197,6 +1426,11 @@ class ServingEngine:
             if latency_ms is not None:
                 reg.histogram(reg.labeled("serving_tenant_latency_ms_", tenant),
                               help="request latency per tenant", unit="ms").observe(latency_ms)
+        if version is not None:
+            if version == self.deploy.candidate_step:
+                self.deploy.observe_candidate(endpoint, latency_ms, error, trace_id=trace_id,
+                                              tenant=tenant)
+            return
         if self._slo is None:
             return
         with self._slo_lock:
@@ -1219,6 +1453,10 @@ class ServingEngine:
             "ff_impl": c.ff_impl,
             "attention_impl": c.attention_impl,
             "staged_step": None if staged is None else int(staged.step),
+            # the deploy phase and the resident versions, so an operator or
+            # a router sees "this replica is canarying step N"
+            "deploy": self.deploy.status(),
+            "models": self.models.snapshot(),
             "sessions": None if self.sessions is None else {
                 "warm_iters": self._session_warm_iters,
                 "cold_iters": self._session_cold_iters,

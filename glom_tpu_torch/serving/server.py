@@ -29,7 +29,18 @@ its single-replica routes and JSON contract).
   * ``GET /debug/traces?since=N`` -- completed request traces after cursor
     ``N``; ``GET /debug/timeline`` -- the engine's event timeline;
   * ``POST /admin/reload/{prepare,commit,abort,finalize,rollback}`` -- the
-    staged two-phase reload (``prepare`` takes an optional ``{"step": N}``).
+    staged two-phase reload (``prepare`` takes an optional ``{"step": N}``);
+  * ``POST /admin/deploy/{shadow,canary,promote,rollback,abort,status}`` and
+    ``GET /admin/deploy/status`` -- the deploy lifecycle (``shadow`` and
+    ``canary`` take an optional ``{"step": N}``, ``canary`` a
+    ``"fraction"``): "nothing to deploy" is a 200 with a null
+    ``candidate_step``, a settle verb with no deploy or a second deploy
+    while one is active a 409.
+
+A batched request may name an extra model (``--model NAME=DIR``) in its
+``model`` field (400 for one not resident); otherwise the deploy's canary
+assignment hashes its ``X-Affinity-Key`` (else its request id), and the
+reply's ``step`` is the version that answered it.
 
 Every request is traced end to end: an inbound ``X-Request-Id`` or W3C
 ``traceparent`` joins the client's trace, a fresh id is minted otherwise,
@@ -192,8 +203,8 @@ class _Handler(BaseHTTPRequestHandler):
         tracer.record(SPAN_PARSE, root, root.start, t)
         tracer.end(root, attrs={"status": 400}, at=t)
 
-    def _parse_images(self, payload: dict) -> Optional[np.ndarray]:
-        cfg = self.server.engine.config
+    def _parse_images(self, payload: dict, cfg=None) -> Optional[np.ndarray]:
+        cfg = self.server.engine.config if cfg is None else cfg
         try:
             imgs = np.asarray(payload["images"], dtype=np.float32)
         except (KeyError, TypeError, ValueError) as e:
@@ -236,6 +247,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif parsed.path == "/debug/timeline":
             self._reply(200, {"role": "engine", "step": int(engine.step),
                               "events": engine.timeline.events()})
+        elif parsed.path == "/admin/deploy/status":
+            self._reply(200, engine.deploy.status())
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -266,10 +279,53 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(404, {"error": f"no admin action {action!r}"})
 
+    def _do_deploy_admin(self):
+        """The deploy lifecycle verbs: control-plane calls, untraced."""
+        engine = self.server.engine
+        deploy = engine.deploy
+        action = self.path[len("/admin/deploy/"):]
+        payload = (self._read_json() if int(self.headers.get("Content-Length") or 0) > 0
+                   else {})
+        if payload is None:
+            return
+        try:
+            if action in ("shadow", "canary"):
+                step = payload.get("step")
+                step = int(step) if step is not None else None
+                if action == "shadow":
+                    staged = deploy.begin_shadow(step=step)
+                else:
+                    fraction = payload.get("fraction")
+                    staged = deploy.begin_canary(
+                        fraction=float(fraction) if fraction is not None else None, step=step)
+                # "nothing to deploy" is a clean 200 with a null step
+                self._reply(200, {"candidate_step": staged, "phase": deploy.phase,
+                                  "serving_step": int(engine.step)})
+            elif action == "promote":
+                report = deploy.promote()
+                self._reply(200 if report is not None else 409,
+                            report or {"error": "no active deploy"})
+            elif action == "rollback":
+                report = deploy.rollback(reason=str(payload.get("reason", "operator")))
+                self._reply(200 if report is not None else 409,
+                            report or {"error": "no active deploy"})
+            elif action == "abort":
+                self._reply(200, {"aborted": deploy.abort()})
+            elif action == "status":
+                self._reply(200, deploy.status())
+            else:
+                self._reply(404, {"error": f"no deploy action {action!r}"})
+        except (RuntimeError, ValueError) as e:
+            # a second concurrent deploy, a bad fraction: the caller's error
+            self._reply(409, {"error": str(e)})
+
     def do_POST(self):  # noqa: N802
         self._request_id = None  # reset before routing (keep-alive reuse)
         if self.path.startswith("/admin/reload/"):
             self._do_admin()
+            return
+        if self.path.startswith("/admin/deploy/"):
+            self._do_deploy_admin()
             return
         if self.path in ("/session/embed", "/session/parse", "/session/reset"):
             self._do_session()
@@ -288,36 +344,58 @@ class _Handler(BaseHTTPRequestHandler):
         if tenant == "":
             self._bad_tenant(root)
             return
+        # the canary assignment hashes the stickiest key the request offers
+        deploy_key = self.headers.get("X-Affinity-Key") or self._request_id
 
-        def _finish(status: int, latency_ms=None, at=None):
+        def _finish(status: int, latency_ms=None, at=None, version=None):
             tracer.end(root, attrs={"status": status}, at=at)
             engine.observe_outcome(endpoint, latency_ms, status >= 500, trace_id=root.trace_id,
-                                   tenant=tenant)
+                                   tenant=tenant, version=version)
 
         # parse / dispatch_wait / respond share their edges, so they tile
         # the request span
         payload = self._read_json()
-        imgs = self._parse_images(payload) if payload is not None else None
+        model = payload.get("model") if payload is not None else None
+        model_cfg = None
+        if model is not None:
+            record = engine.models.get(model)
+            if record is None:
+                self._reply(400, {"error": f"unknown model {model!r}; resident: "
+                                           f"{engine.models.models()}"})
+                _finish(400)
+                return
+            model_cfg = record.config
+            root.attrs["model"] = model
+        imgs = self._parse_images(payload, model_cfg) if payload is not None else None
         t_parsed = tracer.clock()
         tracer.record(SPAN_PARSE, root, root.start, t_parsed)
         if imgs is None:
             _finish(400)
             return
+        # extra models never canary: deploys guard the default model
+        version = engine.deploy.assign(deploy_key) if model is None else None
+        # an outcome rejected before it executed never touched the candidate
+        # and is not charged to it
+        out_version = version
         t0 = time.monotonic()
         try:
-            out = engine.submit(endpoint, imgs, ctx=root, tenant=tenant).result(
-                timeout=_RESULT_TIMEOUT_S)
+            out = engine.submit(endpoint, imgs, ctx=root, tenant=tenant, model=model,
+                                version=version).result(timeout=_RESULT_TIMEOUT_S)
         except TenantQuotaExceeded as e:
             error, code, body = e, 503, {"error": "tenant_overloaded", "tenant": e.tenant,
                                          "detail": _TENANT_OVERLOADED}
+            out_version = None
         except Overloaded as e:
             error, code, body = e, 503, {"error": "overloaded",
                                          "detail": "queue at capacity; retry with backoff"}
+            out_version = None
         except Closed as e:
             error, code, body = e, 503, {"error": "shutting_down",
                                          "detail": "server is draining; retry elsewhere"}
+            out_version = None
         except ValueError as e:  # e.g. a request larger than the largest bucket
             error, code, body = e, 400, {"error": str(e)}
+            out_version = None
         except Exception as e:  # the request's forward failed; the server lives on
             error, code, body = e, 500, {"error": f"{type(e).__name__}: {e}"}
         else:
@@ -326,15 +404,22 @@ class _Handler(BaseHTTPRequestHandler):
         tracer.record(SPAN_DISPATCH_WAIT, root, t_parsed, t_done)
         if error is not None:
             self._reply(code, body)
-            _finish(code)
+            _finish(code, version=out_version)
             return
         latency = time.monotonic() - t0
         engine.registry.histogram(
             f"serving_latency_seconds_{endpoint}",
             help="request latency, admission to response", unit="seconds",
         ).observe(latency)
-        resp = {"step": int(engine.step), "latency_ms": round(latency * 1e3, 3),
-                "request_id": self._request_id}
+        # the step names the version that answered: a candidate retired in
+        # flight fell back to the primary
+        served_version = version
+        if version is not None and engine.deploy.candidate_step != version:
+            served_version = None
+        resp = {"step": int(served_version) if served_version is not None else int(engine.step),
+                "latency_ms": round(latency * 1e3, 3), "request_id": self._request_id}
+        if model is not None:
+            resp["model"] = model
         if endpoint == "embed":
             level = payload.get("level")
             if level is not None:
@@ -345,22 +430,22 @@ class _Handler(BaseHTTPRequestHandler):
                         f"level {level!r} outside this model's {engine.config.levels} levels")})
                     t_end = tracer.clock()
                     tracer.record(SPAN_RESPOND, root, t_done, t_end)
-                    _finish(400, at=t_end)
+                    _finish(400, at=t_end, version=version)
                     return
             resp["embeddings"] = out.tolist()
         elif endpoint == "parse":
-            resp["islands"] = self._islands(out)
+            resp["islands"] = self._islands(out, model_cfg)
         else:
             resp["images"] = out.tolist()
         self._reply(200, resp)
         t_end = tracer.clock()
         tracer.record(SPAN_RESPOND, root, t_done, t_end)
-        _finish(200, latency_ms=latency * 1e3, at=t_end)
+        _finish(200, latency_ms=latency * 1e3, at=t_end, version=version)
 
-    def _islands(self, rows: np.ndarray) -> list:
+    def _islands(self, rows: np.ndarray, cfg=None) -> list:
         from glom_tpu_torch.hierarchy.parse import unpack_parse
 
-        cfg = self.server.engine.config
+        cfg = self.server.engine.config if cfg is None else cfg
         side = cfg.image_size // cfg.patch_size
         return [unpack_parse(row, cfg.levels, side, cfg.dim) for row in rows]
 
@@ -397,10 +482,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._bad_tenant(root)
             return
 
-        def _finish(status: int, latency_ms=None, at=None):
+        def _finish(status: int, latency_ms=None, at=None, version=None):
             tracer.end(root, attrs={"status": status}, at=at)
             engine.observe_outcome("session", latency_ms, status >= 500,
-                                   trace_id=root.trace_id, tenant=tenant)
+                                   trace_id=root.trace_id, tenant=tenant, version=version)
 
         payload = self._read_json()
         session_id = payload.get("session") if payload is not None else None
@@ -449,6 +534,7 @@ class _Handler(BaseHTTPRequestHandler):
             help=("session parse-frame latency, admission to response" if parse
                   else "session frame latency, admission to response"),
             unit="seconds").observe(latency)
+        # info carries the honest step: the version that computed the frame
         resp = {"latency_ms": round(latency * 1e3, 3), "request_id": self._request_id,
                 "session": session_id, **info}
         if parse:
@@ -467,7 +553,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(200, resp)
         t_end = tracer.clock()
         tracer.record(SPAN_RESPOND, root, t_done, t_end)
-        _finish(200, latency_ms=latency * 1e3, at=t_end)
+        _finish(200, latency_ms=latency * 1e3, at=t_end, version=info.get("canary_step"))
 
     # -- similarity queries --------------------------------------------------
     def _do_similar(self):
@@ -544,12 +630,6 @@ _REFUSED = {
     "--mesh-shape": (1, "mesh_shape"),
     "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
-    "--model": (1, "extra_models"),
-    "--deploy-pin-url": (1, "deploy_pin_url"),
-    "--deploy-promote-after": (1, "deploy_promote_after"),
-    "--deploy-window-s": (1, "deploy_window_s"),
-    "--deploy-min-events": (1, "deploy_min_events"),
-    "--deploy-canary-fraction": (1, "deploy_canary_fraction"),
     "--capacity-policy": (1, "capacity_policy"),
     "--capacity-ceiling": (1, "capacity_ceiling"),
     "--capacity-window-s": (1, "capacity_window_s"),
@@ -639,6 +719,21 @@ def parse_args(argv=None):
     p.add_argument("--slo", action="append", default=None, metavar="SPEC",
                    help="declarative SLO target, repeatable: 'embed:p95<250ms' (latency) "
                         "or 'errors<1%%' (error rate)")
+    p.add_argument("--model", action="append", default=None, metavar="NAME=DIR", dest="models",
+                   help="repeatable: load an extra named model from its own checkpoint dir, "
+                        "resident beside the default (a request names it in a \"model\" field)")
+    p.add_argument("--deploy-pin-url", default=None, metavar="URL",
+                   help="fleet router base URL: a deploy's promote and rollback converge every "
+                        "replica through its two-phase POST /rollout instead of a local swap")
+    p.add_argument("--deploy-promote-after", type=int, default=3,
+                   help="clean candidate burn windows before auto-promote")
+    p.add_argument("--deploy-window-s", type=float, default=None,
+                   help="candidate burn-window length (default: the longest SLO short window)")
+    p.add_argument("--deploy-min-events", type=int, default=None,
+                   help="candidate outcomes a window needs to count as evidence (default: "
+                        "the smallest SLO min_events)")
+    p.add_argument("--deploy-canary-fraction", type=float, default=0.1,
+                   help="default live-traffic fraction for /admin/deploy/canary")
     p.add_argument("--metrics-timestamps", action="store_true",
                    help="stamp /metrics samples with unix seconds on OpenMetrics scrapes")
     p.add_argument("--verbose", action="store_true", help="per-request access log")
@@ -669,6 +764,12 @@ def engine_from_args(args, **overrides) -> ServingEngine:
                         (entry.split("=", 1) for entry in args.tenant_quota)}
                        if args.tenant_quota else None),
         parse_thresholds=args.parse_thresholds, index_dir=args.index_dir,
+        extra_models=({name: path for name, path in
+                       (entry.split("=", 1) for entry in args.models)}
+                      if args.models else None),
+        deploy_promote_after=args.deploy_promote_after, deploy_window_s=args.deploy_window_s,
+        deploy_min_events=args.deploy_min_events,
+        deploy_canary_fraction=args.deploy_canary_fraction, deploy_pin_url=args.deploy_pin_url,
     )
     kwargs.update(overrides)
     return ServingEngine(args.checkpoint_dir, **kwargs)

@@ -5,6 +5,10 @@ port's copy of ``tools/loadgen.py``'s driving modes and report.
         --duration 5 --concurrency 8 --batch-sizes 1,2,3,4,5,6,7,8
     python -m glom_tpu_torch.tools.loadgen --url http://127.0.0.1:8000 \\
         --rate 50 --duration 10
+    python -m glom_tpu_torch.tools.loadgen --url http://127.0.0.1:8000 \\
+        --sessions 4 --frames 16
+    python -m glom_tpu_torch.tools.loadgen --url http://127.0.0.1:8000 \\
+        --tenant a:3 --tenant b:1 --requests 100
 
 * **closed loop** (default): ``--concurrency`` workers each keep one request
   in flight, for ``--requests`` requests or, with ``--duration`` and no
@@ -12,7 +16,16 @@ port's copy of ``tools/loadgen.py``'s driving modes and report.
   the latency at it;
 * **open loop** (``--rate R``): request ``i`` fires at ``i / R`` seconds
   whether or not earlier ones finished: latency under an offered load,
-  queueing and shedding included.
+  queueing and shedding included;
+* **sessions** (``--sessions N --frames F``): N concurrent stateful streams,
+  each sending F frames one after another through ``/session/embed`` with
+  its session id as ``X-Affinity-Key``; the report's ``session`` block
+  splits cold from warm frame latency and checks affinity (every session's
+  frames on one replica; with one target it holds trivially);
+* **tenants** (``--tenant NAME:WEIGHT``, repeatable): requests carry
+  ``X-Tenant``, cycling the tenants by integer weight; the report gains a
+  ``per_tenant`` section, and a tenant's quota sheds (503
+  ``tenant_overloaded``) count as sheds, not errors.
 
 Batch sizes cycle through ``--batch-sizes``; the image contract (size,
 channels) is read from ``/healthz``.  Every request carries an
@@ -21,10 +34,11 @@ echo counts in ``request_id_mismatches``.  The report is one JSON object
 with ``tools/loadgen.py``'s keys: p50/p95/p99/mean/max latency (ms), the
 achieved request and image rates, and the ok, shed and error counts.  Below
 :data:`MIN_TAIL_SAMPLES` answered requests p95 and p99 are null: on fewer
-samples they are the slowest request or two, not a tail.  The
-session, tenant, parse and router scenarios of ``tools/loadgen.py`` wait for
-their modules in the port.  Exit 0 when no request failed and every id was
-echoed.
+samples they are the slowest request or two, not a tail.  ``tools/loadgen.py``'s
+``--corrupt``, ``--regress-at``, ``--timeline`` and ``--fleet`` are refused
+by name: they wait for the quality plane, the capacity plane and the fleet
+router (ROADMAP queue 1, items 4.6, 4.5 and 4.11).  Exit 0 when no request
+failed, every id was echoed and no session split across replicas.
 """
 
 from __future__ import annotations
@@ -57,15 +71,21 @@ def fetch_health(url, timeout):
         return json.loads(r.read())
 
 
-def make_payloads(health, batch_sizes, seed=0):
-    """One JSON body per batch size, built once (the load generator's time
-    goes to the network path, not to ``json.dumps``)."""
+def make_image_lists(health, batch_sizes, seed=0):
+    """Nested image lists per batch size (``tools/loadgen.py``'s seed and
+    draws), shared by the stateless and the session bodies."""
     import numpy as np
 
     c, s = health["channels"], health["image_size"]
     rng = np.random.RandomState(seed)
-    return {b: json.dumps({"images": rng.randn(b, c, s, s).astype("float32").tolist()}).encode()
-            for b in batch_sizes}
+    return {b: rng.randn(b, c, s, s).astype("float32").tolist() for b in batch_sizes}
+
+
+def make_payloads(health, batch_sizes, seed=0):
+    """One JSON body per batch size, built once (the load generator's time
+    goes to the network path, not to ``json.dumps``)."""
+    return {b: json.dumps({"images": images}).encode()
+            for b, images in make_image_lists(health, batch_sizes, seed).items()}
 
 
 class Results:
@@ -86,6 +106,12 @@ class Results:
         self.id_mismatches = 0   # X-Request-Id failed to round-trip
         self.replicas = {}       # per target URL when several are sprayed
         self.endpoints = {}      # per endpoint with a comma mix
+        self.tenants = {}        # per X-Tenant with --tenant
+        # session mode: cold/warm frame latency, and per session the
+        # replicas that served its frames (the affinity evidence)
+        self.cold_ms = []
+        self.warm_ms = []
+        self.sessions = {}
 
     def _rec(self, table, key):
         rec = table.get(key)
@@ -96,10 +122,11 @@ class Results:
         return rec
 
     def record(self, latency_ms=None, images=0, shed=False, error=False, request_id=None,
-               id_mismatch=False, replica=None, endpoint=None):
+               id_mismatch=False, replica=None, endpoint=None, tenant=None):
         with self.lock:
             recs = [self._rec(self.replicas, replica) if replica is not None else None,
-                    self._rec(self.endpoints, endpoint) if endpoint is not None else None]
+                    self._rec(self.endpoints, endpoint) if endpoint is not None else None,
+                    self._rec(self.tenants, tenant) if tenant is not None else None]
             recs = [r for r in recs if r is not None]
             if id_mismatch:
                 self.id_mismatches += 1
@@ -123,13 +150,38 @@ class Results:
                     if "images_ok" in r:
                         r["images_ok"] += images
 
+    def note_session(self, sid, *, cold=None, latency_ms=None, replica=None):
+        with self.lock:
+            rec = self.sessions.setdefault(sid, {"replicas": [], "colds": 0, "frames": 0})
+            rec["frames"] += 1
+            if replica is not None:
+                rec["replicas"].append(replica)
+            if cold is not None and latency_ms is not None:
+                if cold:
+                    rec["colds"] += 1
+                    self.cold_ms.append(latency_ms)
+                else:
+                    self.warm_ms.append(latency_ms)
+
     def slowest(self, n):
         with self.lock:
             return sorted(self.samples, reverse=True)[:n]
 
 
+def parse_tenants(specs):
+    """``["a:3", "b:1"]`` -> the request -> tenant cycle ``[a, a, a, b]``
+    (integer weights; a bare ``NAME`` weighs 1)."""
+    schedule = []
+    for spec in specs:
+        name, _, weight = spec.partition(":")
+        if not name:
+            raise ValueError(f"bad --tenant spec {spec!r}")
+        schedule.extend([name] * max(1, int(weight or 1)))
+    return schedule
+
+
 def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, timeout,
-               results, duration=None):
+               results, duration=None, tenants=None):
     """``concurrency`` workers, one request in flight each, until
     ``n_requests`` were sent or ``duration`` seconds passed (whichever is
     given; both: whichever comes first).  Returns the wall seconds."""
@@ -151,7 +203,8 @@ def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, 
             b = batch_sizes[(i // len(urls)) % len(batch_sizes)]
             send(urls[i % len(urls)], endpoints[i % len(endpoints)], payloads[b], b, timeout,
                  results, time.monotonic(), request_id=f"lg-{os.getpid()}-{i}",
-                 multi_target=len(urls) > 1)
+                 multi_target=len(urls) > 1,
+                 tenant=tenants[i % len(tenants)] if tenants else None)
 
     threads = [threading.Thread(target=worker, daemon=True) for _ in range(concurrency)]
     for t in threads:
@@ -161,7 +214,8 @@ def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, 
     return time.monotonic() - t_start
 
 
-def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, results):
+def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, results,
+             tenants=None):
     """Fixed arrival schedule: request ``i`` fires at ``i / rate`` seconds
     whether or not earlier ones finished (one thread per in-flight
     request).  Returns the wall seconds."""
@@ -177,7 +231,8 @@ def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, re
             target=send,
             args=(urls[i % len(urls)], endpoints[i % len(endpoints)], payloads[b], b, timeout,
                   results, time.monotonic()),
-            kwargs={"request_id": f"lg-{os.getpid()}-{i}", "multi_target": len(urls) > 1},
+            kwargs={"request_id": f"lg-{os.getpid()}-{i}", "multi_target": len(urls) > 1,
+                    "tenant": tenants[i % len(tenants)] if tenants else None},
             daemon=True)
         t.start()
         threads.append(t)
@@ -187,12 +242,14 @@ def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, re
 
 
 def send(url, endpoint, body, n_images, timeout, results, t0, request_id=None,
-         multi_target=False):
+         multi_target=False, tenant=None):
     """One request; its outcome recorded in ``results`` (503: shed; any other
     failure: an error)."""
     headers = {"Content-Type": "application/json"}
     if request_id is not None:
         headers["X-Request-Id"] = request_id
+    if tenant is not None:
+        headers["X-Tenant"] = tenant
     req = urllib.request.Request(f"{url}/{endpoint}", data=body, headers=headers)
     replica = url if multi_target else None
     try:
@@ -204,15 +261,125 @@ def send(url, endpoint, body, n_images, timeout, results, t0, request_id=None,
         e.read()
         results.record(shed=(e.code == 503), error=(e.code != 503),
                        id_mismatch=(request_id is not None and echoed != request_id),
-                       replica=replica, endpoint=endpoint)
+                       replica=replica, endpoint=endpoint, tenant=tenant)
         return
     except Exception:  # a load generator keeps offering load through any one failure
-        results.record(error=True, replica=replica, endpoint=endpoint)
+        results.record(error=True, replica=replica, endpoint=endpoint, tenant=tenant)
         return
     results.record(latency_ms=(time.monotonic() - t0) * 1e3, images=n_images,
                    request_id=request_id,
                    id_mismatch=(request_id is not None and echoed != request_id),
-                   replica=replica, endpoint=endpoint)
+                   replica=replica, endpoint=endpoint, tenant=tenant)
+
+
+# -- session mode --------------------------------------------------------------
+
+def send_session(url, body, n_images, sid, timeout, results, request_id):
+    """One frame of one session: the session id rides the body (the
+    engine's state key) and ``X-Affinity-Key`` (a router's pin)."""
+    headers = {"Content-Type": "application/json", "X-Affinity-Key": sid,
+               "X-Request-Id": request_id}
+    req = urllib.request.Request(f"{url}/session/embed", data=body, headers=headers)
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            echoed = r.headers.get("X-Request-Id")
+            served = r.headers.get("X-Served-By")
+            resp = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        e.read()
+        served = e.headers.get("X-Served-By") if e.headers else None
+        results.record(shed=(e.code == 503), error=(e.code != 503),
+                       id_mismatch=(e.headers.get("X-Request-Id") != request_id
+                                    if e.headers else True), replica=served)
+        results.note_session(sid, replica=served)
+        return
+    except Exception:  # a load generator keeps offering load through any one failure
+        results.record(error=True)
+        results.note_session(sid)
+        return
+    lat = (time.monotonic() - t0) * 1e3
+    results.record(latency_ms=lat, images=n_images, request_id=request_id,
+                   id_mismatch=(echoed != request_id), replica=served)
+    results.note_session(sid, cold=bool(resp.get("cold")), latency_ms=lat, replica=served)
+
+
+def run_sessions(urls, image_lists, batch_sizes, n_sessions, n_frames, timeout, results):
+    """``n_sessions`` streams in parallel threads, each sending its
+    ``n_frames`` frames one after another (frame k+1 takes frame k's
+    state).  Returns the wall seconds."""
+    def worker(si):
+        sid = f"lg-sess-{os.getpid()}-{si}"
+        url = urls[si % len(urls)]
+        b = batch_sizes[si % len(batch_sizes)]
+        body = json.dumps({"session": sid, "images": image_lists[b]}).encode()
+        for fi in range(n_frames):
+            send_session(url, body, b, sid, timeout, results,
+                         request_id=f"lg-{os.getpid()}-s{si}f{fi}")
+
+    threads = [threading.Thread(target=worker, args=(si,), daemon=True)
+               for si in range(n_sessions)]
+    t_start = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.monotonic() - t_start
+
+
+def check_session_affinity(urls, results, timeout, after_seq=-1):
+    """Every session's frames should land on one replica.  A session that
+    saw more than one is legitimate only when a target's timeline shows an
+    ejection or readmission of one of its replicas after ``after_seq``;
+    otherwise it is a violation.  Targets that name no replica
+    (``X-Served-By``) make the check vacuous."""
+    from collections import Counter
+
+    with results.lock:
+        sessions = {sid: list(rec["replicas"]) for sid, rec in results.sessions.items()}
+    served = {sid: [r for r in reps if r] for sid, reps in sessions.items()}
+    total = sum(len(reps) for reps in served.values())
+    modal = sum(max(Counter(reps).values()) for reps in served.values() if reps)
+    split = {sid: sorted(set(reps)) for sid, reps in served.items() if len(set(reps)) > 1}
+    ejections, ejected, checked = 0, set(), False
+    if split:
+        for url in urls:
+            try:
+                with urllib.request.urlopen(f"{url}/debug/timeline", timeout=timeout) as r:
+                    events = json.loads(r.read()).get("events", [])
+            except Exception:  # a target without a timeline: no verdict from it
+                continue
+            checked = True
+            for e in events:
+                if (e.get("event") in ("ejection", "readmission")
+                        and int(e.get("seq", -1)) > after_seq):
+                    ejections += 1
+                    if e.get("replica"):
+                        ejected.add(e["replica"])
+    violations = (sorted(sid for sid, reps in split.items() if not ejected.intersection(reps))
+                  if checked else [])
+    return {"hit_rate": round(modal / total, 4) if total else None, "split_sessions": split,
+            "ejection_events": ejections if checked else None, "timeline_checked": checked,
+            "violations": violations}
+
+
+def _lat_block(xs):
+    return {"count": len(xs),
+            "p50": round(percentile(xs, 50), 3) if xs else None,
+            "p95": round(percentile(xs, 95), 3) if xs else None,
+            "mean": round(sum(xs) / len(xs), 3) if xs else None}
+
+
+def session_report(results, urls, timeout, after_seq=-1):
+    """The ``session`` block: cold and warm frame latency and affinity."""
+    with results.lock:
+        cold, warm = list(results.cold_ms), list(results.warm_ms)
+        n_sessions = len(results.sessions)
+    cold_b, warm_b = _lat_block(cold), _lat_block(warm)
+    return {"sessions": n_sessions, "cold_ms": cold_b, "warm_ms": warm_b,
+            "warm_over_cold_p50": (round(warm_b["p50"] / cold_b["p50"], 4)
+                                   if warm_b["p50"] and cold_b["p50"] else None),
+            "affinity": check_session_affinity(urls, results, timeout, after_seq=after_seq)}
 
 
 def _latency(xs, keys=("p50", "p95", "p99"), min_tail=0):
@@ -248,6 +415,18 @@ def report(results, wall_s, mode, slow_n=0, min_tail=0):
     if slow_n:
         out["slowest"] = [{"request_id": rid, "latency_ms": round(ms, 3)}
                           for ms, rid in results.slowest(slow_n)]
+    if results.tenants:
+        per_tenant = {}
+        for key, rec in sorted(results.tenants.items()):
+            total = rec["ok"] + rec["shed"] + rec["errors"]
+            per_tenant[key] = {
+                "requests_ok": rec["ok"], "requests_shed": rec["shed"],
+                "requests_error": rec["errors"],
+                # the share of this tenant's offered load its quota turned away
+                "shed_rate": round(rec["shed"] / total, 4) if total else None,
+                "error_rate": round(rec["errors"] / total, 4) if total else None,
+                "latency_ms": _latency(rec["latencies_ms"], ("p50", "p95"), min_tail)}
+        out["per_tenant"] = per_tenant
     if len(results.endpoints) > 1:
         out["per_endpoint"] = {
             key: {"requests_ok": rec["ok"], "requests_shed": rec["shed"],
@@ -265,31 +444,72 @@ def report(results, wall_s, mode, slow_n=0, min_tail=0):
 
 
 def run(url, *, endpoints=("embed",), batch_sizes=(1, 2, 3), concurrency=4, requests=None,
-        rate=0.0, duration=None, timeout=60.0, targets=None, slow_n=0, health=None) -> dict:
+        rate=0.0, duration=None, timeout=60.0, targets=None, slow_n=0, health=None,
+        sessions=0, frames=16, tenants=None) -> dict:
     """Drive a server (or several ``targets``) and return the report:
-    an open loop at ``rate`` for ``duration`` seconds when ``rate > 0``,
-    else a closed loop of ``concurrency`` for ``requests`` requests or
-    ``duration`` seconds."""
+    ``sessions`` streams of ``frames`` frames when ``sessions > 0``; else an
+    open loop at ``rate`` for ``duration`` seconds when ``rate > 0``, else a
+    closed loop of ``concurrency`` for ``requests`` requests or
+    ``duration`` seconds.  ``tenants`` (``["a:3", "b:1"]``) labels the
+    requests of either loop with ``X-Tenant``."""
     urls = [u.rstrip("/") for u in (targets or [url])]
     endpoints, batch_sizes = list(endpoints), list(batch_sizes)
     health = health if health is not None else fetch_health(urls[0], timeout)
-    payloads = make_payloads(health, batch_sizes)
     results = Results()
+    if sessions > 0:
+        image_lists = make_image_lists(health, batch_sizes)
+        # the timelines' cursor before the run: only an ejection during it
+        # may excuse a split session
+        start_seq = _timeline_max_seq(urls, timeout)
+        wall = run_sessions(urls, image_lists, batch_sizes, sessions, frames, timeout, results)
+        out = report(results, wall, f"sessions(n={sessions},frames={frames})", slow_n=slow_n,
+                     min_tail=MIN_TAIL_SAMPLES)
+        out["session"] = session_report(results, urls, timeout, after_seq=start_seq)
+        return out
+    payloads = make_payloads(health, batch_sizes)
+    schedule = parse_tenants(tenants) if tenants else None
     if rate > 0:
         wall = run_open(urls, endpoints, payloads, batch_sizes, rate,
-                        duration if duration is not None else 5.0, timeout, results)
+                        duration if duration is not None else 5.0, timeout, results,
+                        tenants=schedule)
         mode = f"open({rate}/s)"
     else:
         if requests is None and duration is None:
             requests = 100
         wall = run_closed(urls, endpoints, payloads, batch_sizes, requests, concurrency,
-                          timeout, results, duration=duration)
+                          timeout, results, duration=duration, tenants=schedule)
         mode = f"closed(c={concurrency})"
     if len(endpoints) > 1:
         mode += f" endpoints({','.join(endpoints)})"
+    if schedule:
+        mode += f" tenants({','.join(sorted(set(schedule)))})"
     if len(urls) > 1:
         mode += f" x{len(urls)} targets"
     return report(results, wall, mode, slow_n=slow_n, min_tail=MIN_TAIL_SAMPLES)
+
+
+def _timeline_max_seq(urls, timeout):
+    """The newest timeline sequence number on any target, -1 when none
+    serves a timeline."""
+    seq = -1
+    for url in urls:
+        try:
+            with urllib.request.urlopen(f"{url}/debug/timeline", timeout=timeout) as r:
+                events = json.loads(r.read()).get("events", [])
+        except Exception:  # a target without a timeline
+            continue
+        for e in events:
+            seq = max(seq, int(e.get("seq", -1)))
+    return seq
+
+
+# tools/loadgen.py's modes that wait for a plane of the port: flag -> (nargs, why)
+REFUSED = {
+    "--corrupt": (1, "the quality plane (ROADMAP queue 1, item 4.6)"),
+    "--regress-at": (1, "the capacity plane's attribution (ROADMAP queue 1, item 4.5)"),
+    "--timeline": (0, "the capacity plane's series (ROADMAP queue 1, item 4.5)"),
+    "--fleet": (0, "the fleet router (ROADMAP queue 1, item 4.11)"),
+}
 
 
 def main(argv=None) -> int:
@@ -311,7 +531,20 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=60.0,
                    help="per-request HTTP timeout (seconds)")
     p.add_argument("--slow-n", type=int, default=0, help="list the N slowest request ids")
+    p.add_argument("--sessions", type=int, default=0, metavar="N",
+                   help="session mode: N concurrent stateful sessions of --frames frames "
+                        "each through /session/embed")
+    p.add_argument("--frames", type=int, default=16, help="session mode: frames a session")
+    p.add_argument("--tenant", action="append", default=None, metavar="NAME:WEIGHT",
+                   help="repeatable: requests carry X-Tenant, cycling tenants by integer "
+                        "weight; the report gains per_tenant")
+    for flag, (nargs, _) in REFUSED.items():
+        p.add_argument(flag, default=argparse.SUPPRESS, help=argparse.SUPPRESS,
+                       **({"action": "store_true"} if nargs == 0 else {}))
     args = p.parse_args(argv)
+    for flag, (_, why) in REFUSED.items():
+        if hasattr(args, flag[2:].replace("-", "_")):
+            p.error(f"{flag} is not in the port's load generator yet: it needs {why}")
     endpoints = [e.strip() for e in args.endpoint.split(",") if e.strip()]
     if not endpoints or any(e not in ("embed", "reconstruct") for e in endpoints):
         print(f"loadgen: bad --endpoint {args.endpoint!r} (want a comma mix of "
@@ -321,9 +554,15 @@ def main(argv=None) -> int:
               batch_sizes=[int(b) for b in args.batch_sizes.split(",")],
               concurrency=args.concurrency, requests=args.requests, rate=args.rate,
               duration=args.duration, timeout=args.timeout, targets=args.target,
-              slow_n=args.slow_n)
+              slow_n=args.slow_n, sessions=args.sessions, frames=args.frames,
+              tenants=args.tenant)
     print(json.dumps(out, indent=2))
-    return 0 if out["requests_error"] == 0 and out["request_id_mismatches"] == 0 else 1
+    violations = out.get("session", {}).get("affinity", {}).get("violations")
+    if violations:
+        print(f"loadgen: AFFINITY VIOLATION — sessions {violations} split across replicas "
+              f"with no ejection in the timeline", file=sys.stderr)
+    return 0 if (out["requests_error"] == 0 and out["request_id_mismatches"] == 0
+                 and not violations) else 1
 
 
 if __name__ == "__main__":

@@ -15,13 +15,11 @@ train on the same batches, bit for bit.
 
 Batches are NCHW float32 numpy arrays in [-1, 1]; the trainer moves them to
 the card.  A background-thread prefetcher overlaps host batch prep with
-device compute.
+device compute.  The stateless streams pass through :func:`fault_injected`,
+the ``data`` fault-injection site, as ``glom_tpu``'s do.
 
 Not here: ``glom_tpu``'s multi-host elastic streams (``ElasticBatches``,
-``HostShardedBatches``, ``host_block``; ROADMAP queue 1, item 6), and the
-``fault_injected`` wrap of the stateless streams, a pass-through until a
-fault is armed, which waits for the copy of ``resilience/faultinject.py``
-(item 7).
+``HostShardedBatches``, ``host_block``; ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -34,6 +32,8 @@ import time
 from typing import Iterator, Optional
 
 import numpy as np
+
+from glom_tpu_torch.resilience import faultinject
 
 
 def synthetic_batches(
@@ -195,6 +195,29 @@ def augmented(it, kind: str, seed: int = 0):
     def gen():
         for batch in it:
             yield augment_batch(batch, rng, kind)
+
+    return gen()
+
+
+def fault_injected(it: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+    """The ``data`` injection site (:mod:`glom_tpu_torch.resilience.faultinject`):
+    an armed plan delays, drops or poisons batches, or crashes the pipeline,
+    at the 1-based batch index it names.  Disarmed, one no-op call a batch."""
+
+    def gen():
+        idx = 0
+        for batch in it:
+            idx += 1
+            kind = faultinject.fire("data", step=idx)
+            if kind == "drop_batch":
+                continue
+            if kind == "crash":
+                raise faultinject.FaultError(f"injected data-pipeline crash at batch {idx}")
+            if kind == "delay":
+                time.sleep(faultinject.uniform("data", 0.05, 0.25))
+            elif kind == "nan_batch":
+                batch = np.full_like(batch, np.nan)
+            yield batch
 
     return gen()
 
@@ -482,8 +505,5 @@ def make_batches(
         return _StatefulAugmented(stream, augment, seed)
     else:
         raise ValueError(f"unknown data source {kind!r}")
-    # glom_tpu wraps this in fault_injected (a pass-through until a fault is
-    # armed); that waits for the copy of resilience/faultinject.py (ROADMAP
-    # queue 1, item 7)
-    it = augmented(it, augment, seed)
+    it = fault_injected(augmented(it, augment, seed))
     return Prefetcher(it, prefetch) if prefetch > 0 else it

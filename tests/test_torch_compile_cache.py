@@ -9,8 +9,9 @@ stateful cache's contract and ``PostPassCache``'s.
 Tests marked ``gpu`` hold every bucket's replayed graph against the same
 engine's eager forward bit for bit (also at int8, for the session families
 and for ``/parse``, and ``/parse`` at buckets captured on the request path), the launch counts under replay, a hot reload under
-replaying workers, reloads that keep allocated memory, and a capture that
-must fail (in a process of its own); without a card they skip.  This file imports JAX only inside the parity tests, so on
+replaying workers, reloads and shadow -> rollback cycles that keep allocated
+memory, a promote (local or router-pinned) that captures nothing, and a
+capture that must fail (in a process of its own); without a card they skip.  This file imports JAX only inside the parity tests, so on
 the GPU machine (which has no JAX)
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_compile_cache.py
@@ -180,6 +181,37 @@ def test_device_lock_lets_a_waiting_capture_in_before_new_replays():
     for t in (first, cap, late):
         t.join(5)
     assert order == ["r1", "capture", "r2"]
+
+
+def test_device_lock_lets_waiting_replays_in_between_two_captures():
+    """A replay that waits through one capture runs before the next, even
+    when the capturing thread asks again at once (a candidate's set is
+    captured one bucket a hold so that live traffic gets through)."""
+    from tests.polling import poll_until
+
+    lock = DeviceLock()
+    order = []
+    holding = threading.Event()
+
+    def captures():
+        with lock.exclusive():
+            holding.set()
+            assert poll_until(lambda: lock._shared_waiting == 1)
+            order.append("capture 1")
+        with lock.exclusive():
+            order.append("capture 2")
+
+    def replay():
+        assert holding.wait(5)
+        with lock.shared():
+            order.append("replay")
+
+    threads = [threading.Thread(target=captures), threading.Thread(target=replay)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(5)
+    assert order == ["capture 1", "replay", "capture 2"]
 
 
 def test_launch_recording_counts_replays_not_the_capture():
@@ -382,6 +414,61 @@ def test_reloads_keep_allocated_memory(cuda, card_ckpt):
         torch.cuda.synchronize(cuda)
         allocated.append(torch.cuda.memory_allocated(cuda))
     assert allocated[2] == allocated[1], allocated
+
+
+@pytest.mark.gpu
+def test_shadow_rollback_cycles_keep_allocated_memory(cuda, card_ckpt):
+    """A rollback retires the candidate's set, its graphs, pools and
+    parameters with it: three shadow -> rollback cycles leave allocated
+    memory within 1 % of where it stood before the first."""
+    import gc
+
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0, warm_iters="auto")
+    make_demo_checkpoint(card_ckpt, config=CARD, seed=9, step=1)
+    gc.collect()
+    torch.cuda.synchronize(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    for _ in range(3):
+        assert engine.deploy.begin_shadow(step=1) == 1
+        assert torch.cuda.memory_allocated(cuda) > before
+        assert engine.deploy.rollback()["action"] == "rolled_back"
+    gc.collect()
+    torch.cuda.synchronize(cuda)
+    after = torch.cuda.memory_allocated(cuda)
+    engine.shutdown(drain=False)
+    assert abs(after - before) <= 0.01 * before, (before, after)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pinned", [False, True])
+def test_a_promote_captures_nothing(cuda, card_ckpt, pinned):
+    """Both kinds of promote capture nothing: the local swap, and the one
+    pinned through a router, whose /admin/reload/prepare + commit stage the
+    resident candidate set.  The candidate's graphs then serve, bitwise its
+    eager forward."""
+    from glom_tpu_torch.serving.compile_cache import captures_made
+
+    engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
+                           reload_poll_s=0)
+    make_demo_checkpoint(card_ckpt, config=CARD, seed=11, step=1)
+    assert engine.deploy.begin_canary(fraction=0.5, step=1) == 1
+    cand = engine.deploy.candidate(1)
+    if pinned:
+        def router(url, body, timeout):       # the router's two-phase rollout, in process
+            assert engine.stage_reload(step=1) == 1
+            assert engine.commit_staged() == 1
+            return 200, b'{"status": "committed"}'
+
+        engine.deploy.pin_url, engine.deploy._http = "http://router", router
+    made = captures_made()
+    report = engine.deploy.promote()
+    assert captures_made() == made and report["fleet_pin"]["ok"]
+    assert engine.step == 1 and engine.serving is cand.caches
+    x = np.random.default_rng(12).standard_normal((2, 3, 16, 16)).astype(np.float32)
+    np.testing.assert_array_equal(engine.run("embed", x), engine.run_eager("embed", x))
+    assert engine.registry.snapshot().get("serving_graph_captures", 0) == 0
+    engine.shutdown(drain=False)
 
 
 # a forward the card cannot capture: a host read inside

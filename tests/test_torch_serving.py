@@ -248,9 +248,10 @@ def test_shed_request_is_503(jax_ckpt):
 
 
 def test_unknown_route_is_404(served):
-    # /parse is served since the part-whole endpoints came to the port; the
-    # deploy verbs are still glom_tpu's alone
-    assert _request(served.url + "/admin/deploy/shadow", {"step": 1})[0] == 404
+    # /parse is served since the part-whole endpoints came to the port, and
+    # /admin/deploy/* since the deploys did; the bulk-job verbs are still
+    # glom_tpu's alone
+    assert _request(served.url + "/admin/jobs/submit", {"name": "x"})[0] == 404
     assert _request(served.url + "/nothing")[0] == 404
 
 

@@ -528,14 +528,14 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
                                         "detail": "server is draining; retry elsewhere"})
 
 
-@pytest.mark.parametrize("name,value", [("deploy_window_s", 5.0), ("forensics_dir", "/x"),
+@pytest.mark.parametrize("name,value", [("capacity_window_s", 5.0), ("forensics_dir", "/x"),
                                         ("warmup_dir", "/x"), ("mesh_shape", (1, 4, 1)),
                                         ("capacity_ceiling", 100.0), ("quality_seed", 3),
-                                        ("extra_models", {"m": "/x"}), ("bulk_dir", "/x"),
-                                        ("deploy_canary_fraction", 0.5),
+                                        ("capacity_persist_windows", 2), ("bulk_dir", "/x"),
+                                        ("capacity_interval_s", 0.5),
                                         ("quality_sample", 0.5),
                                         ("capacity_policy", "p95_ms<250"),
-                                        ("deploy_pin_url", "http://x")])
+                                        ("param_sharding", "tp")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
     with pytest.raises(NotImplementedError, match=name):
         ServingEngine(ckpt, device="cpu", reload_poll_s=0, **{name: value})
@@ -553,9 +553,9 @@ def test_unset_unported_arguments_and_unknown_ones(ckpt):
         ServingEngine(ckpt, device="cpu", no_such_argument=1)
 
 
-@pytest.mark.parametrize("flag", [["--deploy-pin-url", "http://x"], ["--mesh-shape", "1,4,1"],
+@pytest.mark.parametrize("flag", [["--capacity-window-s", "5"], ["--mesh-shape", "1,4,1"],
                                   ["--forensics-dir", "/x"], ["--capacity-policy", "p95_ms<250"],
-                                  ["--quality-sample", "0.5"], ["--model", "m=/x"],
+                                  ["--quality-sample", "0.5"], ["--warmup-dir", "/x"],
                                   ["--bulk-dir", "/x"], ["--no-donate"],
                                   ["--platform", "cpu"], ["--buckets-file", "/x.json"]])
 def test_unported_cli_flags_are_refused_by_name(ckpt, flag, capsys):
@@ -572,7 +572,9 @@ def test_engine_from_args_translates_every_ported_flag(ckpt, tmp_path):
         "0", "--no-warmup", "--quant", "int8", "--warm-iters", "auto", "--session-ttl-s", "30",
         "--session-max-mb", "0.5", "--session-spill-dir", str(tmp_path / "spill"),
         "--tenant-quota", "a=2:4", "--tenant-quota", "b=1", "--parse-thresholds",
-        "0.1,0.2,0.3", "--index-dir", str(tmp_path / "index")])
+        "0.1,0.2,0.3", "--index-dir", str(tmp_path / "index"), "--model", f"alt={ckpt}",
+        "--deploy-promote-after", "2", "--deploy-window-s", "1.5", "--deploy-min-events", "4",
+        "--deploy-canary-fraction", "0.25", "--deploy-pin-url", "http://127.0.0.1:9/"])
     engine = server.engine_from_args(args, max_queue=7)
     try:
         health = engine.health()
@@ -586,6 +588,12 @@ def test_engine_from_args_translates_every_ported_flag(ckpt, tmp_path):
             "a": (2.0, 4.0), "b": (1.0, 1.0)}
         assert health["hierarchy"]["parse_thresholds"] == [0.1, 0.2, 0.3]
         assert engine.index_dir == str(tmp_path / "index")
+        assert health["models"]["models"] == ["alt", "default"]
+        assert {k: health["deploy"][k] for k in ("promote_after", "window_s", "min_events",
+                                                 "pin_url")} == {
+            "promote_after": 2, "window_s": 1.5, "min_events": 4,
+            "pin_url": "http://127.0.0.1:9"}
+        assert engine.deploy.default_fraction == 0.25
     finally:
         engine.shutdown(drain=False)
 
