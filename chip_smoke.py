@@ -203,6 +203,23 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            on its last save (the loader falls back to step 1), and
            reload:io_error*3 on an engine's watcher (retries, backoff, then
            the load);
+  quality  the quality post-pass graph family at flagship, buckets 1 and 8,
+           the default quality_sample 1.0, on "pallas" f32, "fused" f32 and
+           "pallas" bf16: each bucket's replay bitwise its eager post-pass,
+           the signals against the plain path per column group (f32 1e-3
+           max-abs, bf16 1e-2 relative), a sampled b=1 and b=8 /embed
+           batch's launches exactly (the forward's and the post-pass's), no
+           capture and no failed post-pass, the replay times and pools; a
+           shadow deploy's agreement from the candidate's own family; /embed
+           b=1 and b=8 p50/p95 with quality_sample 1.0 and 0.0; the quality
+           smoke (tools/quality_report.py's loop) at flagship;
+  capacity the capacity smoke (tools/capacity.py's loop) at flagship; a
+           server under the loadgen's closed loop with the plane ticked on
+           the host's clock: capacity_duty_cycle beside the CUDA-event time
+           of the replays in its window, no utilization without a ceiling;
+           trace_report --suggest-buckets on its trace log; a server on
+           that ladder (--buckets-file) with --capacity-ceiling at the
+           closed loop's images/s: a utilization in (0, 1.05], no capture;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -226,6 +243,7 @@ float32: TF32 is switched off for matmul and cuDNN.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -1097,6 +1115,31 @@ def served_ms(fn) -> float:
     return statistics.median(times[1:])
 
 
+def sampled_batches(engine, batches: int) -> int:
+    """How many of ``batches`` primary batches the quality sampler took: all
+    of them at the default quality_sample=1.0 (checked), each one replay of
+    the ``quality`` family after its answers were out."""
+    summary = engine.quality.summary()
+    if summary["sample_fraction"] == 1.0 and not (
+            summary["decided"] == summary["sampled"] == batches):
+        raise AssertionError(f"quality sampling: {summary['decided']} decided, "
+                             f"{summary['sampled']} sampled of {batches} batches")
+    return summary["sampled"]
+
+
+def wait_quality(engine, observed: int, timeout_s: float = 120.0) -> None:
+    """Until the quality plane has observed ``observed`` requests: the
+    post-pass of a sampled batch runs on the endpoint's worker after the
+    batch's answers are out.  A post-pass that fails fails the phase."""
+    deadline = time.monotonic() + timeout_s
+    while engine.quality.observed < observed:
+        failures = engine.registry.snapshot().get("quality_post_pass_failures")
+        if failures or time.monotonic() > deadline:
+            raise AssertionError(f"quality post-pass: {engine.quality.observed} of {observed} "
+                                 f"observed, {failures} failed")
+        time.sleep(0.002)
+
+
 def phase_serve(device) -> dict:
     c = FLAGSHIP
     ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
@@ -1116,10 +1159,13 @@ def phase_serve(device) -> dict:
                 "consensus_attention": consensus_kernel.consensus_attention.launches}
     assert health["ff_impl"] == "pallas" and health["attention_impl"] == "pallas", health
 
-    # every request was a replay; each counts its graph's launches
+    # every request was a replay; each counts its graph's launches, and each
+    # request's batch was sampled (the default quality_sample=1.0) and
+    # replayed the quality family after its answer
     iters, t = engine.embed_iters, engine.reconstruct_timestep
-    expected = {"grouped_ff": 3 * 2 * iters + 2 * t,
-                "consensus_attention": 3 * iters + t}
+    sampled, q_it = sampled_batches(engine, len(plan)), engine._program.quality_iters
+    expected = {"grouped_ff": 3 * 2 * iters + 2 * t + sampled * 2 * q_it,
+                "consensus_attention": 3 * iters + t + sampled * q_it}
     if launches != expected:
         raise AssertionError(f"kernel launches {launches}, expected {expected}")
 
@@ -1144,7 +1190,10 @@ def phase_serve(device) -> dict:
           "buckets_run": {"embed": [1, 4, 8], "reconstruct": [2]},
           "launches": launches,
           "launches_per_bucket": {"embed": {"grouped_ff": 2 * iters, "consensus_attention": iters},
-                                  "reconstruct": {"grouped_ff": 2 * t, "consensus_attention": t}},
+                                  "reconstruct": {"grouped_ff": 2 * t, "consensus_attention": t},
+                                  "quality": {"grouped_ff": 2 * q_it,
+                                              "consensus_attention": q_it}},
+          "quality_sampled_batches": sampled,
           "embed_vs_plain_max_abs_err": embed_err, "embed_atol": SERVE_ATOL,
           "embed_b8_forward_ms": embed_b8_ms, **served,
           "graphs": graph_report(engine, c, seed=10)})
@@ -1285,8 +1334,9 @@ def phase_serve_fused(device) -> dict:
     health, requests, outs, served = serve_requests(engine, plan, imgs)
     launches = launch_counts()
     iters, t = engine.embed_iters, engine.reconstruct_timestep
+    sampled, q_it = sampled_batches(engine, len(plan)), engine._program.quality_iters
     want = {k: 0 for k in launches}
-    want["fused_level_update"] = 2 * iters + t
+    want["fused_level_update"] = 2 * iters + t + sampled * q_it
     if launches != want:
         raise AssertionError(f"fused serving launches {launches}, expected {want}")
     assert health["ff_impl"] == "fused", health
@@ -1315,7 +1365,9 @@ def phase_serve_fused(device) -> dict:
           "requests": requests, "launches": launches, **served,
           "launches_per_forward": {"embed": {"fused_level_update": iters, "grouped_ff": 0,
                                              "consensus_attention": 0},
-                                   "reconstruct": {"fused_level_update": t}},
+                                   "reconstruct": {"fused_level_update": t},
+                                   "quality": {"fused_level_update": q_it}},
+          "quality_sampled_batches": sampled,
           "embed_vs_plain_max_abs_err": err_plain, "embed_vs_pallas_engine_max_abs_err": err_pallas,
           "reconstruct_vs_pallas_engine_max_abs_err": recon_err, "atol": SERVE_ATOL,
           "embed_b8_forward_ms": {"fused": embed_forward_ms(engine, x8, engine.config),
@@ -1473,6 +1525,7 @@ def phase_serve_load(device) -> dict:
           "sustained_imgs_per_s": closed["throughput_imgs_per_s"],
           "span_mean_ms": {"closed_loop": span_means(snap0, snap1),
                            "open_loop": span_means(snap1, snap2)},
+          "quality_sample": engine.quality.sampler.fraction,
           "reload_at_s": LOAD_RELOAD_AT_S, "launches": launches, "memory": memory,
           "allocated_growth_reload_2": grown, "failed": failed, "checks": checks})
     if not all(checks.values()):
@@ -3094,7 +3147,7 @@ def set_bytes(serving) -> dict:
 def phase_deploy(device) -> dict:
     """Safe deploys on one replica at flagship width, f32 "pallas", buckets 1
     and 8, warm_iters "auto", with an extra model "b" (the flagship under
-    ff_impl="fused", its own checkpoint) and the SLO p95<100ms on 2 s
+    ff_impl="fused", its own checkpoint) and the SLO p95<200ms on 2 s
     windows (deploy windows of 1 s, 4 events, promote after 2): (A) a
     candidate written with ckpt_write:bitflip armed is quarantined by
     /admin/deploy/shadow (a null step, idle, allocated memory unchanged);
@@ -3103,7 +3156,9 @@ def phase_deploy(device) -> dict:
     before and during begin_shadow, the primary's /embed b=1 and b=8
     p50/p95 without and with the shadow, then SHADOW_BATCHES mirrored b=8
     batches pumped by hand (the main path: counts set to 0 before a
-    primary batch and its shadow replay): each batch's
+    primary batch and its shadow replay, each with its quality pass; the
+    shadow's agreement gauge from the candidate's own quality family): each
+    batch's
     deploy_shadow_divergence against the float64 divergence of the two
     sets' eager answers, every candidate bucket bitwise its eager forward,
     the primary's answers bitwise as before the shadow; (C) a canary at 0.5
@@ -3132,7 +3187,11 @@ def phase_deploy(device) -> dict:
     engine = ServingEngine(
         ckpt, device=device, buckets=DEPLOY_BUCKETS, reload_poll_s=0, max_wait_ms=1.0,
         warm_iters="auto", extra_models={"b": ckpt_b},
-        slos=[parse_slo("p95<100ms", short_window_s=2.0, long_window_s=4.0, min_events=4,
+        # a shadow's latency holds the candidate's forward and its quality
+        # pass (glom_tpu times both), queued behind the primary's forward and
+        # quality pass on one card: about 110 ms at b=8 under load, inside
+        # this bound, while candidate:delay's 250 ms per batch crosses it
+        slos=[parse_slo("p95<200ms", short_window_s=2.0, long_window_s=4.0, min_events=4,
                         burn_threshold=2.0)],
         deploy_window_s=1.0, deploy_min_events=4, deploy_promote_after=2)
     setup_s = time.perf_counter() - t0
@@ -3216,17 +3275,31 @@ def phase_deploy(device) -> dict:
                 cache = cand.caches.caches[ep]
                 if not np.array_equal(cache(cand.params, x[b]), cache.eager(cand.params, x[b])):
                     raise AssertionError(f"candidate {ep} b={b}: replay differs from eager")
-        divergences, main = [], {k: 0 for k in kernel_wrappers()}
+        divergences, agreements, main = [], [], {k: 0 for k in kernel_wrappers()}
         for i in range(SHADOW_BATCHES):
             xb = np.random.default_rng(30 + i).standard_normal((8,) + shape).astype(np.float32)
+            observed = engine.quality.observed
             reset_launches()
             got = engine.submit("embed", xb).result(timeout=120)
+            # the primary's quality pass runs after its answer: wait for it
+            wait_quality(engine, observed + 1)
             with engine.deploy._shadow_cv:
-                item = engine.deploy._shadow_q.popleft()
+                item = engine.deploy._shadow_q.popleft() if engine.deploy._shadow_q else None
+            if item is None:
+                raise AssertionError(f"shadow batch {i}: nothing mirrored (phase "
+                                     f"{engine.deploy.phase}, {engine.deploy.last_report})")
             if not engine.deploy.process_shadow(*item):
                 raise AssertionError("shadow: the mirrored batch did not run")
-            launches = check_launches("primary b=8 + its shadow", launch_counts(),
-                                      want_launches(2 * iters))
+            # the primary's forward and quality pass, the candidate's forward
+            # and its own quality pass (the shadow's agreement and residual)
+            launches = check_launches("primary b=8 + its shadow, each with its quality pass",
+                                      launch_counts(), want_launches(4 * iters))
+            own = cand.caches.caches["quality"].eager(cand.params, xb)
+            agreement = engine.registry.snapshot()["deploy_shadow_agreement"]
+            if agreement != round(float(own[:, :c.levels].mean()), 6):
+                raise AssertionError(f"shadow batch {i}: deploy_shadow_agreement {agreement}, "
+                                     f"the candidate's own post-pass {own[:, :c.levels].mean()}")
+            agreements.append(agreement)
             for k, n in launches.items():
                 main[k] += n
             want, _ = deploy._cosine_divergence(
@@ -3241,6 +3314,7 @@ def phase_deploy(device) -> dict:
             if not np.array_equal(engine.run("embed", x[b]), before[b]):
                 raise AssertionError(f"primary b={b}: answers moved during the shadow")
         out["shadow"]["divergence"] = divergences
+        out["shadow"]["agreement"] = agreements
 
         # (C) canary at 0.5, then a burn-rate rollback (no auto-promote while
         # the keys are checked: the windows would count their clean outcomes)
@@ -3515,6 +3589,435 @@ def phase_faults(device) -> dict:
     return launches
 
 
+# -- the quality and capacity planes ------------------------------------------
+QUALITY_BUCKETS = (1, 8)
+# (ff_impl, quant) of the quality phase's engines
+QUALITY_CASES = (("pallas", "f32"), ("fused", "f32"), ("pallas", "bf16"))
+# /embed requests of each size, one after another: the latency plan run with
+# quality_sample 1.0 and 0.0
+QUALITY_PLAN = {1: 40, 8: 20}
+
+
+def signal_groups(mat, L: int) -> dict:
+    """A (b, 3L+1) quality signal matrix by column group."""
+    return {"agreement": mat[:, :L], "entropy": mat[:, L:2 * L], "norm": mat[:, 2 * L:3 * L],
+            "residual": mat[:, 3 * L:]}
+
+
+def plain_quality_fn(engine):
+    """``engine``'s quality post-pass on the plain path in the engine's own
+    quant mode (the same weights, dequantized the same way)."""
+    from glom_tpu_torch.obs.quality import make_quality_fn
+    from glom_tpu_torch.serving import quant
+
+    cfg = plain_of(engine.serve_config)
+    consensus_fn, ff_fn, fused_fn = glom_model.resolve_step_fns(cfg, engine.device)
+    return quant.quantized_forward(
+        make_quality_fn(cfg, engine.train_cfg, None, consensus_fn=consensus_fn, ff_fn=ff_fn,
+                        fused_fn=fused_fn), engine.quant)
+
+
+def quality_engine_report(engine, impl: str, mode: str, x: dict, *, timing: bool) -> tuple:
+    """One quality-phase engine: every bucket's quality replay bitwise its
+    eager post-pass; the b=8 signals against the plain path per column group
+    (f32: max-abs SERVE_ATOL; bf16: BF16_PATH_RTOL of the group's largest
+    value); the launches one replay records; then the main path, a b=1 and a
+    b=8 /embed batch each sampled and post-passed (counts set to 0 just
+    before, read just after the post-pass): the /embed forward's and the
+    quality replay's launches exactly; the replay times (CUDA events) and
+    the pools.  Returns ``(report, main-path launches)``."""
+    c = engine.config
+    L, iters, q_it = c.levels, engine.embed_iters, engine._program.quality_iters
+    quality = engine.caches["quality"]
+    for b in QUALITY_BUCKETS:
+        if not np.array_equal(engine.run("quality", x[b]), engine.run_eager("quality", x[b])):
+            raise AssertionError(f"quality {impl}/{mode} b={b}: the replay differs from the "
+                                 f"eager post-pass")
+    got = engine.run("quality", x[8])
+    with torch.inference_mode():
+        plain = plain_quality_fn(engine)(engine.params,
+                                         torch.from_numpy(x[8]).to(engine.device)).cpu().numpy()
+    errors = {}
+    for name, g in signal_groups(got, L).items():
+        w = signal_groups(plain, L)[name]
+        err = float(np.abs(g - w).max())
+        errors[name] = err if mode == "f32" else err / float(np.abs(w).max())
+    limit = SERVE_ATOL if mode == "f32" else BF16_PATH_RTOL
+    if not (np.isfinite(got).all() and max(errors.values()) <= limit):
+        raise AssertionError(f"quality {impl}/{mode}: signals from the plain path {errors} "
+                             f"(limit {limit})")
+    per_quality = ({**want_launches(0), "fused_level_update": q_it} if impl == "fused"
+                   else want_launches(q_it))
+    per_embed = ({**want_launches(0), "fused_level_update": iters} if impl == "fused"
+                 else want_launches(iters))
+    recorded = quality.launches_per_replay()
+    for b in QUALITY_BUCKETS:
+        if {**{k: 0 for k in per_quality}, **recorded[b]} != per_quality:
+            raise AssertionError(f"quality {impl}/{mode} b={b}: a replay records {recorded[b]}, "
+                                 f"expected {per_quality}")
+    engine.start(watch=False)
+    main = {k: 0 for k in kernel_wrappers()}
+    for b in QUALITY_BUCKETS:
+        observed = engine.quality.observed
+        reset_launches()
+        engine.submit("embed", x[b]).result(timeout=120)
+        wait_quality(engine, observed + 1)
+        launches = check_launches(f"quality {impl}/{mode} /embed b={b} and its post-pass",
+                                  launch_counts(),
+                                  {k: per_embed[k] + per_quality[k] for k in per_embed})
+        for k, n in launches.items():
+            main[k] += n
+    snap = engine.registry.snapshot()
+    if snap.get("serving_graph_captures") or snap.get("quality_post_pass_failures"):
+        raise AssertionError(f"quality {impl}/{mode}: captures "
+                             f"{snap.get('serving_graph_captures')}, post-pass failures "
+                             f"{snap.get('quality_post_pass_failures')}")
+    report = {"signals_vs_plain": errors, "limit": limit,
+              "signals_vs_plain_rule": "max-abs" if mode == "f32" else "max-abs / max|plain|",
+              "bitwise_replay": list(QUALITY_BUCKETS),
+              "launches_per_quality_replay": per_quality,
+              "launches_main": main, "signals_b8_mean": {
+                  k: float(v.mean()) for k, v in signal_groups(got, L).items()},
+              "quality_capture_seconds": quality.warmup_seconds,
+              "pool_bytes": engine.graph_pool_bytes(), "param_bytes": engine.param_bytes(),
+              "quality_replay_device_ms": {f"b{b}": replay_ms(quality, b)
+                                           for b in QUALITY_BUCKETS},
+              "graph_captures": snap.get("serving_graph_captures", 0),
+              "post_pass_failures": snap.get("quality_post_pass_failures", 0)}
+    if timing:
+        report["embed_replay_device_ms"] = {f"b{b}": replay_ms(engine.caches["embed"], b)
+                                            for b in QUALITY_BUCKETS}
+    return report, main
+
+
+def embed_plan_ms(engine, x: dict) -> dict:
+    """QUALITY_PLAN's /embed requests through ``engine.submit``, one after
+    another (host clock, submit to the answer; after two warm-up requests a
+    size): p50/p95 by size."""
+    out = {}
+    for b, n in QUALITY_PLAN.items():
+        embed_ms(engine, x[b], 2)
+        out[f"b{b}"] = latency_block(embed_ms(engine, x[b], n))
+    return out
+
+
+def phase_quality(device) -> dict:
+    """The quality plane at flagship width, buckets 1 and 8, quality_sample
+    at the default 1.0: engines on "pallas" f32, "fused" f32 and "pallas"
+    bf16 (quality_engine_report: each quality replay bitwise its eager
+    post-pass, the signals against the plain path, exact launches a sampled
+    batch, no capture and no failed post-pass, replay times and pools); on
+    the f32 "pallas" engine a shadow deploy of another checkpoint step whose
+    deploy_shadow_agreement must be the candidate's own post-pass; the
+    /embed b=1 and b=8 latency plan with quality_sample 1.0 and 0.0; and the
+    quality smoke (tools/quality_report.py's loop) at flagship."""
+    from glom_tpu_torch.tools import quality_report
+
+    ckpt = flagship_ckpt("chip_smoke_quality_ckpt", seed=25)
+    c = kernel_config()
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(26)
+    x = {b: rng.standard_normal((b,) + shape).astype(np.float32) for b in QUALITY_BUCKETS}
+    engines, total, latency = {}, {k: 0 for k in kernel_wrappers()}, {}
+    for impl, mode in QUALITY_CASES:
+        t0 = time.perf_counter()
+        engine = ServingEngine(ckpt, device=device, ff_impl=impl, quant=mode,
+                               buckets=QUALITY_BUCKETS, reload_poll_s=0)
+        setup_s = time.perf_counter() - t0
+        report, main = quality_engine_report(engine, impl, mode, x,
+                                             timing=(impl, mode) == ("pallas", "f32"))
+        report["setup_seconds"] = setup_s
+        for k, n in main.items():
+            total[k] += n
+        if (impl, mode) == ("pallas", "f32"):
+            latency["quality_sample_1.0"] = embed_plan_ms(engine, x)
+            report["shadow"] = shadow_agreement(engine, ckpt, c, x[8])
+        engines[f"{impl}/{mode}"] = report
+        free_engines(engine)
+    off = ServingEngine(ckpt, device=device, buckets=QUALITY_BUCKETS, reload_poll_s=0,
+                        quality_sample=0.0)
+    off.start(watch=False)
+    latency["quality_sample_0.0"] = embed_plan_ms(off, x)
+    if "quality" in off.caches or off.quality.observed:
+        raise AssertionError("quality_sample=0.0 built a quality family or sampled")
+    off_pools = off.graph_pool_bytes()
+    free_engines(off)
+    t0 = time.perf_counter()
+    smoke = quality_report.run_smoke(str(device), checkpoint_dir=ckpt, buckets=QUALITY_BUCKETS)
+    smoke_s = time.perf_counter() - t0
+    if smoke["smoke"] != "ok":
+        raise AssertionError(f"quality smoke at flagship: {smoke}")
+    emit({"phase": "quality", "config": {"dim": c.dim, "levels": c.levels, "iters":
+                                         c.default_iters, "buckets": list(QUALITY_BUCKETS),
+                                         "quality_sample": 1.0},
+          "engines": engines, "embed_latency_ms": latency, "plan": QUALITY_PLAN,
+          "pool_bytes_quality_sample_0": off_pools, "smoke": smoke, "smoke_seconds": smoke_s,
+          "launches": total,
+          "time_note": "quality/embed_replay_device_ms: CUDA events over graph replays "
+                       "(time_ms); embed_latency_ms: host clock of engine.submit to the answer, "
+                       "requests one after another, the batch's post-pass running on the "
+                       "worker after its answer (so it delays the next request)"})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return total
+
+
+def shadow_agreement(engine, ckpt: str, c, x8) -> dict:
+    """A shadow deploy of step 1 (other seeded weights) on ``engine``: one
+    mirrored b=8 batch pumped by hand; deploy_shadow_agreement must be the
+    candidate's own quality family's agreement on it (its replay bitwise its
+    eager post-pass), not the primary's."""
+    make_demo_checkpoint(ckpt, config=c, seed=27, step=1)
+    if engine.deploy.begin_shadow(step=1) != 1:
+        raise AssertionError("quality shadow: step 1 did not become the candidate")
+    try:
+        stop_shadow_thread(engine)
+        with engine.deploy._shadow_cv:
+            engine.deploy._shadow_q.clear()
+        cand = engine.deploy.candidate(1)
+        observed = engine.quality.observed
+        engine.submit("embed", x8).result(timeout=120)
+        wait_quality(engine, observed + 1)
+        with engine.deploy._shadow_cv:
+            item = engine.deploy._shadow_q.popleft()
+        if not engine.deploy.process_shadow(*item):
+            raise AssertionError("quality shadow: the mirrored batch did not run")
+        cache = cand.caches.caches["quality"]
+        own = cache.eager(cand.params, x8)
+        if cache is engine.caches["quality"] or not np.array_equal(cache(cand.params, x8), own):
+            raise AssertionError("quality shadow: the candidate's family is not its own")
+        L = c.levels
+        gauge = engine.registry.snapshot()["deploy_shadow_agreement"]
+        primary = float(engine.run_eager("quality", x8)[:, :L].mean())
+        if gauge != round(float(own[:, :L].mean()), 6):
+            raise AssertionError(f"quality shadow: deploy_shadow_agreement {gauge}, the "
+                                 f"candidate's post-pass {own[:, :L].mean()}")
+        return {"deploy_shadow_agreement": gauge, "candidate_post_pass": float(
+            own[:, :L].mean()), "primary_post_pass": primary,
+            "candidate_quality_pool_bytes": cache.pool_bytes()}
+    finally:
+        engine.deploy.abort()
+
+
+CAPACITY_LADDER = 2
+CAPACITY_CLOSED_S = 5.0
+CAPACITY_CEILING_S = 3.0
+# a utilization against this run's own closed-loop rate: above 0, and at most
+# the rate itself with a margin for the windows' edges
+UTIL_MAX = 1.05
+
+
+@contextlib.contextmanager
+def replay_events(engine):
+    """CUDA events around every graph replay while the block runs, and the
+    engine's execute-span total before and after: yields a dict filled at
+    exit with the window's host seconds, the execute span's milliseconds and
+    the replays' milliseconds by family (the endpoints' and the quality
+    post-pass's), twice: between the events around each replay (which also
+    hold any wait of the device for the host to launch the replay once the
+    start event has run), and as each (family, bucket) graph's replay time
+    alone (time_ms) times the replays the window made of it."""
+    from glom_tpu_torch.serving import compile_cache
+
+    events, original = [], compile_cache._Graph.replay
+
+    def replay(graph):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        original(graph)
+        end.record()
+        events.append((graph, start, end))
+
+    rec = {}
+    span0 = engine.registry.snapshot().get("serving_execute_ms_sum", 0.0)
+    t0 = time.monotonic()
+    compile_cache._Graph.replay = replay
+    try:
+        yield rec
+    finally:
+        compile_cache._Graph.replay = original
+    window_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    family = {id(g): (name, str(key)) for name, cache in engine.caches.items()
+              for key, g in cache._graphs.items()}
+    by_family, per_replay, made = {}, [], {}
+    for graph, start, end in events:
+        name, key = family.get(id(graph), ("other", "?"))
+        ms = start.elapsed_time(end)
+        by_family[name] = by_family.get(name, 0.0) + ms
+        per_replay.append([name, key, round(ms, 3)])
+        made[(name, key)] = made.get((name, key), 0) + 1
+    # the window's traffic is /embed: its family and the quality family,
+    # both keyed by bucket
+    alone = {(name, key): replay_ms(engine.caches[name], int(key)) for name, key in made
+             if key.isdigit()}
+    alone_by_family = {}
+    for (name, key), ms in alone.items():
+        alone_by_family[name] = alone_by_family.get(name, 0.0) + made[(name, key)] * ms
+    span_ms = engine.registry.snapshot().get("serving_execute_ms_sum", 0.0) - span0
+    endpoint_ms = sum(v for k, v in by_family.items() if k != "quality")
+    rec.update({"window_s": window_s, "execute_span_ms": span_ms, "replays": len(events),
+                "replay_device_ms": by_family, "per_replay": per_replay,
+                "replay_alone_ms": {f"{name}/{key}": ms for (name, key), ms in alone.items()},
+                "replays_timed_alone_ms": alone_by_family,
+                "duty_from_replays_timed_alone": sum(alone_by_family.values()) / 1e3 / window_s,
+                "duty_from_execute_span": span_ms / 1e3 / window_s,
+                "duty_from_endpoint_replays": endpoint_ms / 1e3 / window_s,
+                "duty_from_all_replays": sum(by_family.values()) / 1e3 / window_s})
+
+
+def phase_capacity(device) -> dict:
+    """The capacity plane at flagship width: (1) the capacity smoke
+    (tools/capacity.py's loop, buckets 1 and 8): a burst recommends
+    scale_up within the persist windows, capacity_pressure fires once,
+    quiescence flips to scale_down, /capacity and /debug/series over HTTP,
+    no utilization without a ceiling, no capture; (2) a "pallas" server
+    with a trace log under the loadgen's closed loop (its own process, batch
+    sizes 1-8, concurrency 8; the main path: counts set to 0 just before,
+    read just after), the plane ticked on the host's clock before and after:
+    capacity_duty_cycle beside the CUDA-event time of the replays in that
+    window, and no capacity_utilization; the same loop against a server
+    started with --quality-sample 0; (3) trace_report --suggest-buckets
+    on that trace log; (4) a server started with --buckets-file on its
+    ladder and --capacity-ceiling at (2)'s closed-loop images/s, under a
+    shorter closed loop: a utilization in (0, UTIL_MAX], no capture after
+    warm-up."""
+    from glom_tpu_torch.serving import server as server_mod
+    from glom_tpu_torch.tools import capacity as capacity_tool
+
+    ckpt = flagship_ckpt("chip_smoke_capacity_ckpt", seed=28)
+    c = kernel_config()
+    t0 = time.perf_counter()
+    smoke = capacity_tool.run_smoke(str(device), checkpoint_dir=ckpt, buckets=QUALITY_BUCKETS)
+    smoke_s = time.perf_counter() - t0
+    if smoke["smoke"] != "ok":
+        raise AssertionError(f"capacity smoke at flagship: {smoke}")
+
+    log = os.path.join(ROOT, "build", "chip_smoke_capacity_trace.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    engine = ServingEngine(ckpt, device=device, reload_poll_s=0, trace_log=log,
+                           capacity_policy="p95_ms<250,duty<0.85,shed<0.01")
+    engine.start(watch=False)
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    prime = {"images": np.random.default_rng(29).standard_normal(
+        (1, c.channels, c.image_size, c.image_size)).astype(np.float32).tolist()}
+    try:
+        # one request before the first tick: the window's first point must
+        # hold the serving series the plane takes deltas of
+        post(base + "/embed", prime)
+        engine.capacity.tick()
+        reset_launches()
+        with replay_events(engine) as window:
+            closed = run_loadgen(base, "--concurrency", LOAD_CONCURRENCY,
+                                 "--duration", CAPACITY_CLOSED_S)
+            time.sleep(1.0)      # the plane samples at most once a second
+            engine.capacity.tick()
+        launches = launch_counts()
+        summary = engine.capacity.summary()
+        cap = get(base + "/capacity")
+        names = get(base + "/debug/series")["names"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        free_engines(engine)
+    signals = summary["signals"]
+    rate = closed["throughput_imgs_per_s"]
+    if closed["requests_error"] or not signals.get("duty") or signals.get("util") is not None \
+            or "capacity_utilization" in names or cap["role"] != "replica":
+        raise AssertionError(f"capacity under load: {closed}, {summary}")
+    if not (launches["grouped_ff"] and launches["consensus_attention"]):
+        raise AssertionError(f"capacity under load: launches {launches}")
+
+    # the same closed loop against a server with --quality-sample 0: what the
+    # default sampling costs the loop's images/s, in the same call
+    args = server_mod.parse_args(["--checkpoint-dir", ckpt, "--quality-sample", "0",
+                                  "--reload-poll-s", "0"])
+    engine = server_mod.engine_from_args(args, device=device)
+    engine.start(watch=False)
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    try:
+        unsampled = run_loadgen("http://127.0.0.1:%d" % server.server_address[1],
+                                "--concurrency", LOAD_CONCURRENCY, "--duration",
+                                CAPACITY_CLOSED_S)
+        sampled_none = "quality" not in engine.caches and not engine.quality.observed
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        free_engines(engine)
+    if unsampled["requests_error"] or not sampled_none:
+        raise AssertionError(f"--quality-sample 0: {unsampled}, quality family or samples left")
+
+    proc = subprocess.run([sys.executable, "-m", "glom_tpu_torch.tools.trace_report", log,
+                           "--suggest-buckets", "--ladder-size", str(CAPACITY_LADDER)],
+                          capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                              p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)})
+    if proc.returncode:
+        raise AssertionError(f"trace_report --suggest-buckets exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    ladder = json.loads(proc.stdout)
+    ladder_file = os.path.join(ROOT, "build", "chip_smoke_ladder.json")
+    with open(ladder_file, "w") as f:
+        json.dump(ladder, f)
+
+    args = server_mod.parse_args(["--checkpoint-dir", ckpt, "--buckets-file", ladder_file,
+                                  "--capacity-ceiling", repr(rate), "--reload-poll-s", "0"])
+    engine = server_mod.engine_from_args(args, device=device)
+    engine.start(watch=False)
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        post(base + "/embed", prime)
+        engine.capacity.tick()
+        again = run_loadgen(base, "--concurrency", LOAD_CONCURRENCY,
+                            "--duration", CAPACITY_CEILING_S)
+        time.sleep(1.0)
+        engine.capacity.tick()
+        ceiling_summary = engine.capacity.summary()
+        ceiling_cap = get(base + "/capacity")
+        captures = engine.registry.snapshot().get("serving_graph_captures", 0)
+        buckets = list(engine.buckets)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        free_engines(engine)
+    util = ceiling_summary["signals"].get("util")
+    if (buckets != ladder["suggested_buckets"] or captures or again["requests_error"]
+            or util is None or not 0 < util <= UTIL_MAX
+            or ceiling_cap["recommendation"]["signals"].get("ceiling_imgs_per_sec") != rate):
+        raise AssertionError(f"--buckets-file / --capacity-ceiling: buckets {buckets}, ladder "
+                             f"{ladder}, captures {captures}, util {util}, {again}")
+    emit({"phase": "capacity", "config": {"dim": c.dim, "levels": c.levels,
+                                          "ff_impl": "pallas", "quality_sample": 1.0},
+          "smoke": smoke, "smoke_seconds": smoke_s,
+          "closed_loop": {k: closed[k] for k in ("mode", "requests_ok", "images_ok",
+                                                  "throughput_imgs_per_s", "latency_ms")},
+          "closed_loop_quality_sample_0": {k: unsampled[k] for k in (
+              "requests_ok", "images_ok", "throughput_imgs_per_s", "latency_ms")},
+          "capacity_signals": signals, "duty_window": window,
+          "suggested": ladder, "ladder_file_buckets": buckets,
+          "ceiling_imgs_per_s": rate, "ceiling_closed_loop": {
+              k: again[k] for k in ("requests_ok", "throughput_imgs_per_s", "latency_ms")},
+          "utilization": util, "utilization_max": UTIL_MAX,
+          "graph_captures_after_warmup": captures, "launches": launches,
+          "time_note": "duty_window: capacity_duty_cycle is the execute span's milliseconds "
+                       "over the plane's window (two ticks on the host's clock); the replays' "
+                       "device milliseconds are CUDA events around every graph replay in the "
+                       "same window (endpoints, and the quality post-pass the span leaves out)"})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 _TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
                   "consensus_dkv", "consensus_dq"}
 BENCH_LEGS = (
@@ -3637,7 +4140,8 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
-          "sessions", "parse", "deploy", "session_tools", "faults", "bench")
+          "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
+          "bench")
 
 
 def parse_args(argv):
@@ -3655,7 +4159,9 @@ def parse_args(argv):
                         "sessions, /parse, /similar and /session/parse; deploy, "
                         "session_tools, faults: shadow/canary/promote/rollback and extra "
                         "models, session_check and the loadgen's session and tenant modes, "
-                        "fault injection; bench: the "
+                        "fault injection; quality, capacity: the quality post-pass family, "
+                        "its shadow agreement and smoke, the capacity smoke, duty cycle, "
+                        "--suggest-buckets and --capacity-ceiling; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -3668,11 +4174,13 @@ def parse_args(argv):
 
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
-# deploy, session-tool and fault paths, in the full run's order
+# deploy, session-tool, fault, quality and capacity paths, in the full run's
+# order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
-                "session_tools": phase_session_tools, "faults": phase_faults}
+                "session_tools": phase_session_tools, "faults": phase_faults,
+                "quality": phase_quality, "capacity": phase_capacity}
 
 
 def run_only(device, names) -> int:
@@ -3734,7 +4242,8 @@ def main(argv=()) -> int:
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
-    # _session_tools, _faults: each of those paths' main run
+    # _session_tools, _faults, _quality, _capacity: each of those paths' main
+    # run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]

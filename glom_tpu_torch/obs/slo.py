@@ -37,12 +37,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from glom_tpu_torch.obs.quality import QUALITY_SLO_METRICS
 from glom_tpu_torch.obs.triggers import TRIGGER_QUALITY_DRIFT, TRIGGER_SLO_BURN
-
-# The port's own copy of ``glom_tpu/obs/quality.py::QUALITY_SLO_METRICS``
-# (its ``QUALITY_METRICS`` plus ``divergence`` and ``drift``): the quality
-# plane itself is not ported yet, but a quality-kind SLO parses the same.
-QUALITY_SLO_METRICS = ("agreement", "entropy", "norm", "residual", "divergence", "drift")
 
 
 @dataclass(frozen=True)

@@ -178,6 +178,8 @@ class _Item:
     ctx: Any = None          # the request's span context (root span)
     queue_span: Any = None   # open queue_wait span, closed at batch take
     batch_span: Any = None   # the batch-level span this item flushed into
+    # the request's X-Tenant (the quality plane labels its signals with it)
+    tenant: Optional[str] = None
     # (model, step) the item executes against; None: the default model's
     # primary.  Items of different keys share a flush and execute as
     # separate groups
@@ -229,13 +231,14 @@ class DynamicBatcher:
         with self._cond:
             return self._queued
 
-    def submit(self, payload: Any, size: int = 1, *, ctx=None, mkey: Any = None) -> Future:
+    def submit(self, payload: Any, size: int = 1, *, ctx=None, tenant: Optional[str] = None,
+               mkey: Any = None) -> Future:
         """Enqueue ``payload`` (``size`` images); returns the Future the
         worker resolves.  Raises :class:`Overloaded` at capacity or
         :class:`Closed` after shutdown began.  ``ctx`` (a span context)
-        opens a ``queue_wait`` span under the request's trace; ``mkey`` pins
-        the item to a (model, step).  A tenant's quota is taken upstream,
-        in the engine."""
+        opens a ``queue_wait`` span under the request's trace; ``tenant``
+        rides the item; ``mkey`` pins the item to a (model, step).  A
+        tenant's quota is taken upstream, in the engine."""
         if size < 1:
             raise ValueError(f"size must be >= 1, got {size}")
         if size > self.max_batch:
@@ -253,7 +256,7 @@ class DynamicBatcher:
                     f"images); request shed"
                 )
             item = _Item(payload=payload, size=size, enqueued_at=self._clock(), ctx=ctx,
-                         mkey=mkey)
+                         tenant=tenant, mkey=mkey)
             if self._tracer is not None and ctx is not None:
                 from glom_tpu_torch.obs.tracing import SPAN_QUEUE_WAIT
 

@@ -32,10 +32,14 @@ A new checkpoint never takes all of the traffic in one step:
 
 The controller is transport-agnostic (``http`` injectable) and runs on the
 engine's injectable clock; every transition is serialized under one lock,
-with the fleet pin's HTTP after the flip.  The engine has no forensics
-bundles and no quality cache yet (ROADMAP queue 1, items 7 and 4.6): a
-rollback writes no bundle and the shadow judges divergence alone, as
-``glom_tpu``'s controller does when those planes are absent.
+with the fleet pin's HTTP after the flip.  The shadow judges a mirrored
+batch by its divergence from the primary's answer and, when the engine
+samples quality, by the candidate's own agreement and residual: the
+candidate's set carries its own ``quality`` graph family (captured against
+its parameters with the rest of its set), which the shadow replays on the
+same batch.  The engine has no forensics bundles yet (ROADMAP queue 1, item
+7): a rollback writes no bundle, as ``glom_tpu``'s controller does without
+one.
 """
 
 from __future__ import annotations
@@ -601,7 +605,7 @@ class DeployController:
             # the cache copies the answer to the host under its own hold,
             # before another replay of the family can overwrite its output
             out = version.caches.caches[endpoint](version.params, imgs)
-            quality = self._shadow_quality(endpoint, out, primary_out)
+            quality = self._shadow_quality(endpoint, version, imgs, out, primary_out)
             del out  # compared, never delivered: shadow stays invisible
             if kind == "delay":
                 # a deliberate wall-clock stall: a genuinely slow candidate
@@ -620,17 +624,19 @@ class DeployController:
                                quality=quality)
         return True
 
-    def _shadow_quality(self, endpoint: str, out, primary_out) -> Optional[Dict[str, float]]:
+    def _shadow_quality(self, endpoint: str, version, imgs, out,
+                        primary_out) -> Optional[Dict[str, float]]:
         """Quality signals for one shadow comparison: ``divergence`` =
         1 - mean per-level cosine between primary and candidate outputs
         on the SAME batch (the direct is-it-the-same-model measure), and
         the candidate's own ``agreement``/``residual`` from the quality
         post-pass (does the candidate still PARSE — a candidate can
         diverge because it is better, but a collapsed parse is not).
-        Best-effort: a missing primary baseline omits ``divergence``; the
-        port's engine has no quality cache yet (the quality plane, ROADMAP
-        queue 1, item 4.6), so ``agreement``/``residual`` are omitted as
-        ``glom_tpu`` omits them without one."""
+        Best-effort: a missing primary baseline omits ``divergence``, a set
+        without a ``quality`` family (an engine with ``quality_sample=0``)
+        omits ``agreement``/``residual``.  The candidate's own family replays
+        here, never the primary's: a graph holds the parameters it was
+        captured with."""
         import numpy as np
 
         signals: Dict[str, float] = {}
@@ -653,6 +659,21 @@ class DeployController:
                 "deploy_shadow_compared",
                 help="mirrored batches judged primary-vs-candidate",
             ).inc()
+        engine = self.engine
+        qc = version.caches.caches.get("quality")
+        if qc is not None and getattr(imgs, "ndim", 0) == 4:
+            try:
+                mat = np.asarray(qc(version.params, imgs))
+                levels = engine.config.levels
+                signals["agreement"] = float(mat[:, :levels].mean())
+                signals["residual"] = float(mat[:, 3 * levels].mean())
+                engine.poll_quality_compiles(version.caches)
+                self.metrics.gauge(
+                    "deploy_shadow_agreement",
+                    help="candidate island agreement on mirrored batches",
+                ).set(round(signals["agreement"], 6))
+            except Exception:  # the comparison is evidence, not a dependency: a failed post-pass must not fail the mirror
+                pass
         return signals or None
 
     #: wall-seconds one injected ``candidate:delay`` fault adds (the

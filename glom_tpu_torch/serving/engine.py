@@ -100,14 +100,41 @@ Several models and safe deploys:
     version that computed it, and restarts cold (``version_retired``) when
     that candidate was retired.
 
+The capacity and quality planes (``glom_tpu``'s, through the port's copies
+of its obs modules):
+
+  * ``capacity`` (:class:`~glom_tpu_torch.obs.capacity.CapacityPlane`): a
+    series store sampled from the registry, the ``capacity_*`` signals
+    (duty cycle = execute-span time over wall time, shed ratio, queue depth,
+    p95, padding waste per bucket, tenant headroom) and a dry-run advisor
+    over ``capacity_policy``; a scale-up that persists
+    ``capacity_persist_windows`` windows fires ``capacity_pressure``
+    (counted; no forensics bundle yet).  Utilization needs
+    ``capacity_ceiling``: the port never reads a ``BENCH_*.json`` of the
+    repository (a TPU's rate) in its place.  Nothing samples until
+    :meth:`CapacityPlane.tick` is driven or its timer thread started (the
+    server's ``main`` starts it); the thread reads the registry only, never
+    the device;
+  * ``quality`` (:class:`~glom_tpu_torch.obs.quality.QualityPlane`): with
+    ``quality_sample > 0`` every set carries one more graph family,
+    ``quality`` (:func:`~glom_tpu_torch.obs.quality.make_quality_fn`: the
+    forward, agreement, entropy and norms of the final levels, and the
+    decoder's residual), captured with the others.  After a primary group's
+    futures resolve, a credit sampler (``quality_sample``, ``quality_seed``)
+    decides whether the batch replays it; each request's rows feed the
+    sketches, the drift against ``quality_ref.json`` and the quality SLOs.
+    A post-pass that raises is counted (``quality_post_pass_failures``) and
+    answered by nothing else.  ``quality_sample <= 0`` builds no family.
+
 Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (forensics bundles, the capacity and quality planes, bulk jobs, a device
-mesh) are refused by name when set: :data:`UNPORTED`.
+yet (forensics bundles, bulk jobs, a device mesh) are refused by name when
+set: :data:`UNPORTED`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 import warnings
@@ -122,7 +149,9 @@ from glom_tpu_torch.hierarchy import parse as hierarchy_parse
 from glom_tpu_torch.kernels import _build, consensus, ff, fused_update
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply, decoder_param_shapes
+from glom_tpu_torch.obs.capacity import DEFAULT_POLICY, CapacityPlane
 from glom_tpu_torch.obs.events import Timeline
+from glom_tpu_torch.obs.quality import QualityPlane, make_quality_fn, unpack_signals
 from glom_tpu_torch.obs.registry import MetricRegistry
 from glom_tpu_torch.obs.slo import SLO, SloManager, parse_slo
 from glom_tpu_torch.obs.tracing import SPAN_BATCH_ASSEMBLY, SPAN_RELOAD, TraceSink, Tracer
@@ -162,13 +191,6 @@ UNPORTED = {
     "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
     "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
     "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
-    "capacity_policy": (None, f"obs/capacity.py ({_Q}, item 4.5)"),
-    "capacity_interval_s": (1.0, f"obs/capacity.py ({_Q}, item 4.5)"),
-    "capacity_window_s": (30.0, f"obs/capacity.py ({_Q}, item 4.5)"),
-    "capacity_persist_windows": (5, f"obs/capacity.py ({_Q}, item 4.5)"),
-    "capacity_ceiling": (None, f"obs/capacity.py ({_Q}, item 4.5)"),
-    "quality_sample": (1.0, f"obs/quality.py's QualityPlane ({_Q}, item 4.6)"),
-    "quality_seed": (0, f"obs/quality.py's QualityPlane ({_Q}, item 4.6)"),
     "bulk_dir": (None, f"serving/bulk.py ({_Q}, item 4.7)"),
 }
 
@@ -303,8 +325,9 @@ class ServingSet:
     """What serves: a checkpoint's step, its parameters on the device (the
     quantized tree under ``quant``), and the graph caches captured against
     them: one per endpoint, ``index`` (the ``/similar`` forward, and
-    ``parse``'s inner forward) and, with sessions, ``session_cold`` and
-    ``session_warm``.  Swapped as one reference."""
+    ``parse``'s inner forward), with sessions ``session_cold`` and
+    ``session_warm``, and with quality sampling ``quality`` (the post-pass of
+    a sampled batch).  Swapped as one reference."""
     step: int
     params: dict
     caches: Dict[str, Union[BucketedGraphCache, PostPassCache]]
@@ -328,12 +351,15 @@ class ServingProgram:
 
     ``config`` is the checkpoint's config (with the engine's kernel
     overrides); ``warm_iters`` (an int, or None) adds the session families
-    ``session_cold`` and ``session_warm``.  On a card, the kernels the config
-    runs are built here, before any request."""
+    ``session_cold`` and ``session_warm``; ``quality_sample > 0`` the
+    ``quality`` family (the sets :meth:`make` builds with ``quality=True``).
+    On a card, the kernels the config runs are built here, before any
+    request."""
 
     def __init__(self, config: GlomConfig, train_cfg: TrainConfig, *, quant: str, buckets,
                  iters: Optional[int], device, lock: Optional[DeviceLock] = None,
-                 warm_iters: Optional[int] = None, parse_thresholds=None):
+                 warm_iters: Optional[int] = None, parse_thresholds=None,
+                 quality_sample: float = 0.0):
         if quant not in serving_quant.QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; one of {serving_quant.QUANT_MODES}")
         self.quant = quant
@@ -369,6 +395,11 @@ class ServingProgram:
         if warm_iters is not None:
             fns["session_cold"], fns["session_warm"] = make_session_fns(
                 c, self.session_cold_iters, warm_iters, self.step_fns)
+        self.quality_iters = None
+        if quality_sample > 0:
+            fns["quality"] = make_quality_fn(c, train_cfg, iters, ff_fn=ff_fn,
+                                             fused_fn=fused_fn, consensus_fn=consensus_fn)
+            self.quality_iters = fns["quality"].iters
         self.fns = {name: serving_quant.quantized_forward(fn, quant) for name, fn in fns.items()}
         if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != (
                 "dense", "dense"):
@@ -379,10 +410,16 @@ class ServingProgram:
     def sessions(self) -> bool:
         return self.session_warm_iters is not None
 
-    def make(self, step: int, params: dict) -> ServingSet:
+    @property
+    def quality(self) -> bool:
+        return self.quality_iters is not None
+
+    def make(self, step: int, params: dict, *, quality: bool = True) -> ServingSet:
         """A set for ``params`` (cast to the compute dtype under ``f32``,
         quantized and placed on the device otherwise) with its graph caches,
-        not yet captured."""
+        not yet captured; ``quality=False`` leaves the ``quality`` family out
+        (an extra model's set: only the default model's batches are
+        sampled)."""
         c = self.serve_config
         if self.quant == "f32":
             dt = c.resolved_compute_dtype
@@ -409,6 +446,8 @@ class ServingProgram:
                                            carries_state=True, takes_state=True,
                                            state_shape=self.state_tail,
                                            state_dtype=self.state_dtype)
+        if quality and self.quality:
+            caches["quality"] = cache("quality", self.quality_iters)
         return ServingSet(int(step), params, caches)
 
     def warm(self, serving: ServingSet) -> None:
@@ -471,6 +510,13 @@ class ServingEngine:
         deploy_min_events: Optional[int] = None,
         deploy_canary_fraction: float = 0.1,
         deploy_pin_url: Optional[str] = None,
+        capacity_policy: Optional[str] = None,
+        capacity_interval_s: float = 1.0,
+        capacity_window_s: float = 30.0,
+        capacity_persist_windows: int = 5,
+        capacity_ceiling: Optional[float] = None,
+        quality_sample: float = 1.0,
+        quality_seed: int = 0,
         **unported,
     ):
         refuse_unported(unported)
@@ -526,7 +572,7 @@ class ServingEngine:
         self._program = program = ServingProgram(
             self.config, self.train_cfg, quant=quant, buckets=buckets, iters=iters,
             device=self.device, lock=self._device_lock, warm_iters=warm_iters,
-            parse_thresholds=parse_thresholds)
+            parse_thresholds=parse_thresholds, quality_sample=quality_sample)
         self.buckets = program.buckets
         self.serve_config = program.serve_config
         self._step_fns = program.step_fns
@@ -589,6 +635,13 @@ class ServingEngine:
             self._slo = SloManager(parsed, clock=self._clock, registry=self.registry,
                                    triggers=self._triggers, tracer=self.tracer)
 
+        # -- model-quality telemetry: the plane always exists (it never
+        # samples without the quality family); the reference profile rides
+        # the checkpoint conventions, adopted when one was frozen
+        self.quality = QualityPlane(self.registry, levels=self.serve_config.levels,
+                                    sample=quality_sample, seed=quality_seed, clock=self._clock)
+        self.quality.load_reference(checkpoint_dir)
+
         # -- the model registry: the start-up set is the default model's
         # primary; an extra model is a primary of its own, with its own
         # config, program and graphs
@@ -616,6 +669,20 @@ class ServingEngine:
             self, promote_after=deploy_promote_after, window_s=deploy_window_s,
             min_events=deploy_min_events, canary_fraction=deploy_canary_fraction,
             pin_url=deploy_pin_url)
+
+        # -- the capacity plane: host-side work only, and nothing samples
+        # until tick() is driven or start() runs its timer thread.  Its
+        # recommendations are dry-run: it never touches admission, batching
+        # or the device
+        self.capacity = CapacityPlane(
+            self.registry, policy=capacity_policy or DEFAULT_POLICY,
+            ceiling_imgs_per_sec=capacity_ceiling, interval_s=capacity_interval_s,
+            window_s=capacity_window_s, persist_windows=capacity_persist_windows,
+            clock=self._clock, triggers=self._triggers,
+            tenants_fn=lambda: self.tenants.snapshot() if self.tenants is not None else None,
+            on_recommend=lambda rec: self.timeline.note(
+                "capacity_recommendation", action=rec["action"],
+                reasons=rec.get("reasons", []), persisted=rec.get("persisted", 0)))
 
         # -- staged (two-phase) reload: ``_staged`` is a set loaded and
         # captured but not serving; ``_prev`` the set a commit displaced
@@ -744,6 +811,7 @@ class ServingEngine:
             batcher.close(drain=drain)
         self._stop.set()
         self.deploy.close()
+        self.capacity.stop()  # a no-op unless its timer thread was started
         deadline = time.monotonic() + timeout
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -985,7 +1053,7 @@ class ServingEngine:
         batcher = self.batchers[endpoint]
         try:
             future = batcher.submit(np.ascontiguousarray(imgs, dtype=np.float32),
-                                    size=imgs.shape[0], ctx=ctx, mkey=mkey)
+                                    size=imgs.shape[0], ctx=ctx, tenant=tenant, mkey=mkey)
         except Overloaded:
             if self.tenants is not None:
                 # the tokens bought nothing: a global shed gives them back
@@ -1038,7 +1106,8 @@ class ServingEngine:
         bucket and replayed from its own set's graphs; a group's failure
         fails only its own futures.  With a shadow deploy, the primary
         group's images and answers are mirrored to the shadow after its
-        futures resolve."""
+        futures resolve, and a batch the quality sampler picks replays the
+        primary set's ``quality`` family (:meth:`_observe_quality`)."""
         batch = self.batchers[endpoint].next_batch(block=block, timeout=timeout)
         if not batch:
             return 0
@@ -1067,6 +1136,7 @@ class ServingEngine:
         primary = self._serving
         served = 0
         primary_imgs = primary_out = None
+        primary_items = ()
         batch_error = None
         for mkey, items in groups.items():
             imgs = group_imgs[mkey]
@@ -1098,7 +1168,7 @@ class ServingEngine:
                 item.future.set_result(out[offset:offset + item.size])
                 offset += item.size
             if mkey is None:
-                primary_imgs, primary_out = imgs, out
+                primary_imgs, primary_out, primary_items = imgs, out, items
             self._account_batch(endpoint, cache, n, batch_s)
             if mkey is not None and mkey[0] != "default":
                 self.registry.counter(self.registry.labeled("serving_model_requests_", mkey[0]),
@@ -1115,6 +1185,9 @@ class ServingEngine:
             # the primary's answers ride along: the shadow compares the
             # candidate with the primary on the same batch
             self.deploy.mirror(endpoint, primary_imgs, primary_out)
+        if (primary_imgs is not None and "quality" in primary.caches
+                and self.quality.should_sample()):
+            self._observe_quality(endpoint, primary, primary_imgs, primary_items)
         return served
 
     def _worker_loop(self, endpoint: str) -> None:
@@ -1320,6 +1393,56 @@ class ServingEngine:
                 help="request-path CUDA graph captures after warm-up (must stay 0)",
             ).inc(n)
 
+    # -- model-quality telemetry -------------------------------------------
+    def poll_quality_compiles(self, serving: Optional[ServingSet] = None) -> None:
+        """Fold the captures the ``quality`` family of ``serving`` (default:
+        the set serving now) made on the request path into
+        ``serving_graph_captures``: it is captured at start-up like every
+        family, so the zero-after-warm-up rule covers it."""
+        serving = self._serving if serving is None else serving
+        cache = serving.caches.get("quality")
+        if cache is not None:
+            self._count_captures(cache.poll_captures())
+
+    def _observe_quality(self, endpoint: str, serving: ServingSet, imgs: np.ndarray,
+                         items) -> None:
+        """One sampled primary batch through ``serving``'s ``quality`` family:
+        its per-image rows (bucket padding sliced off, copied to the host
+        before the family can replay again) are averaged back to each
+        request's signals, which the quality plane (sketches, drift, gauges)
+        and the quality SLOs observe.  Telemetry never fails a served batch:
+        a post-pass that raises is counted, and nothing else answers it."""
+        try:
+            mat = serving.caches["quality"](serving.params, imgs)
+        except Exception:  # counted: telemetry must never fail a served batch
+            self.registry.counter(
+                "quality_post_pass_failures",
+                help="quality post-pass executions that raised "
+                     "(telemetry-only; the served batch was unaffected)",
+            ).inc()
+            return
+        self.poll_quality_compiles(serving)
+        levels = self.config.levels
+        offset = 0
+        for item in items:
+            rows = mat[offset:offset + item.size]
+            offset += item.size
+            if rows.size == 0:
+                continue
+            signals = unpack_signals(rows.mean(axis=0), levels)
+            trace_id = getattr(item.ctx, "trace_id", None)
+            # the input's fingerprint, what a quality_drift detection names so
+            # an offending input is findable after the request is gone
+            fingerprint = hashlib.sha1(
+                np.ascontiguousarray(item.payload).tobytes()).hexdigest()[:16]
+            flat = self.quality.observe(signals, trace_id=trace_id, tenant=item.tenant,
+                                        version=serving.step, fingerprint=fingerprint)
+            if self._slo is not None:
+                with self._slo_lock:
+                    self._slo.observe_quality(flat, endpoint=endpoint, trace_id=trace_id,
+                                              step=self.request_count, tenant=item.tenant,
+                                              fingerprint=fingerprint)
+
     # -- similarity queries (/similar) --------------------------------------
     @property
     def similar_enabled(self) -> bool:
@@ -1466,6 +1589,10 @@ class ServingEngine:
             # and this replica's index inventory
             "hierarchy": {"parse_thresholds": list(self.parse_thresholds),
                           "index": None if self._index is None else self._index.stats()},
+            # the capacity and quality summaries ride /healthz, so a fleet
+            # router's health poll is also its capacity and sketch feed
+            "capacity": self.capacity.summary(),
+            "quality": self.quality.summary(),
             "graphs": {ep: {"graphed": cache.graphed, "warmup_seconds": cache.warmup_seconds,
                             "launches_per_replay": cache.launches_per_replay()}
                        for ep, cache in serving.caches.items()},

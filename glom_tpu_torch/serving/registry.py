@@ -93,7 +93,9 @@ class ModelVersion:
             "quant": self.quant,
             "role": self.role,
             "cache_aliased": bool(self.aliased),
-            "endpoints": sorted(self.caches.caches),
+            # the quality post-pass is a family, not an endpoint (glom_tpu
+            # keeps it beside the endpoint caches)
+            "endpoints": sorted(k for k in self.caches.caches if k != "quality"),
             "loaded_at": round(self.loaded_at, 3),
         }
 
@@ -321,7 +323,7 @@ def load_version(model: str, checkpoint_dir: str, *, buckets=(1, 2, 4, 8), quant
         program = ServingProgram(config, train_cfg, quant=quant, buckets=buckets, iters=iters,
                                  device=device, lock=lock)
         aliased = False
-    serving = program.make(loaded_step, params)
+    serving = program.make(loaded_step, params, quality=False)
     if warmup:
         program.warm(serving)
     version_kwargs = dict(caches=serving, config=program.serve_config, train_cfg=train_cfg,

@@ -27,7 +27,16 @@ its single-replica routes and JSON contract).
     ``Accept`` header asks for it (``--metrics-timestamps`` stamps its
     samples);
   * ``GET /debug/traces?since=N`` -- completed request traces after cursor
-    ``N``; ``GET /debug/timeline`` -- the engine's event timeline;
+    ``N``; ``GET /debug/timeline`` -- the engine's event timeline (capacity
+    recommendations among its events);
+  * ``GET /capacity`` -- the capacity plane: the policy, the advisor's
+    recommendation and history, the per-rule forecasts; ``GET
+    /debug/series?name=&prefix=&since=&step=`` -- its series store (no
+    selector: the list of series);
+  * ``GET /quality`` -- the quality plane: live against reference sketch
+    statistics, drift, the worst requests; ``POST /admin/quality/ref``
+    freezes the live sketches as the drift reference (``quality_ref.json``
+    beside the checkpoints);
   * ``POST /admin/reload/{prepare,commit,abort,finalize,rollback}`` -- the
     staged two-phase reload (``prepare`` takes an optional ``{"step": N}``);
   * ``POST /admin/deploy/{shadow,canary,promote,rollback,abort,status}`` and
@@ -55,8 +64,14 @@ tenant's quota (``--tenant-quota``), a tenant past it is answered 503
 ``{"error": "tenant_overloaded", "tenant": ...}``, and an invalid tenant
 label 400.
 
-Flags of ``glom_tpu``'s CLI whose modules the port does not have yet are
-recognised and refused by name (:func:`refused_flags`).
+``--buckets-file`` takes the bucket ladder from a JSON list or from the
+payload of ``python -m glom_tpu_torch.tools.trace_report --suggest-buckets``.
+``--capacity-ceiling`` is the only source of the capacity plane's ceiling:
+unlike ``glom_tpu``'s server, the port's never falls back to a
+``BENCH_*.json`` of the repository (a TPU's rate), so without the flag
+``capacity_utilization`` is absent.  Flags of ``glom_tpu``'s CLI whose
+modules the port does not have yet are recognised and refused by name
+(:func:`refused_flags`).
 """
 
 from __future__ import annotations
@@ -244,9 +259,17 @@ class _Handler(BaseHTTPRequestHandler):
             status, payload = debug_traces_payload(engine.tracer, parsed.query,
                                                    role="engine", step=int(engine.step))
             self._reply(status, payload)
+        elif parsed.path == "/debug/series":
+            # the capacity plane's series store: ring-bounded history of
+            # every registry metric, for trend queries
+            self._reply(200, engine.capacity.series_payload(parsed.query))
         elif parsed.path == "/debug/timeline":
             self._reply(200, {"role": "engine", "step": int(engine.step),
                               "events": engine.timeline.events()})
+        elif parsed.path == "/capacity":
+            self._reply(200, engine.capacity.payload())
+        elif parsed.path == "/quality":
+            self._reply(200, engine.quality.payload())
         elif parsed.path == "/admin/deploy/status":
             self._reply(200, engine.deploy.status())
         else:
@@ -326,6 +349,18 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if self.path.startswith("/admin/deploy/"):
             self._do_deploy_admin()
+            return
+        if self.path == "/admin/quality/ref":
+            # freeze the live quality sketches as the drift reference,
+            # written beside the checkpoints and adopted at once
+            engine = self.server.engine
+            try:
+                path = engine.quality.save_reference(engine.checkpoint_dir,
+                                                     step=int(engine.step))
+            except OSError as e:
+                self._reply(500, {"error": f"reference write failed: {e}"})
+                return
+            self._reply(200, {"written": path, "step": int(engine.step)})
             return
         if self.path in ("/session/embed", "/session/parse", "/session/reset"):
             self._do_session()
@@ -630,19 +665,12 @@ _REFUSED = {
     "--mesh-shape": (1, "mesh_shape"),
     "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
-    "--capacity-policy": (1, "capacity_policy"),
-    "--capacity-ceiling": (1, "capacity_ceiling"),
-    "--capacity-window-s": (1, "capacity_window_s"),
-    "--capacity-persist-windows": (1, "capacity_persist_windows"),
     "--bulk-dir": (1, "bulk_dir"),
-    "--quality-sample": (1, "quality_sample"),
     "--forensics-dir": (1, "forensics_dir"),
     "--warmup-dir": (1, "warmup_dir"),
 }
-# the two with no engine argument behind them: flag -> (nargs, why)
+# the one with no engine argument behind it: flag -> (nargs, why)
 _REFUSED_CLI = {
-    "--buckets-file": (1, "tools/trace_report.py --suggest-buckets, which writes its ladder "
-                          "(ROADMAP queue 1, item 4); --buckets takes the ladder"),
     "--platform": (1, "the port picks its device with --device"),
 }
 
@@ -668,6 +696,11 @@ def parse_args(argv=None):
                    help="torch device; 'cpu' runs the plain PyTorch versions of the kernels")
     p.add_argument("--buckets", default="1,2,4,8",
                    help="comma-separated batch buckets, padded up to")
+    p.add_argument("--buckets-file", default=None,
+                   help="JSON file holding the bucket ladder: a plain list or the payload of "
+                        "python -m glom_tpu_torch.tools.trace_report --suggest-buckets (its "
+                        "'suggested_buckets'); overrides --buckets.  Serve with --trace-log, "
+                        "fit a ladder with trace_report, restart with its file")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="micro-batch deadline: flush a partial batch after this")
     p.add_argument("--max-queue", type=int, default=64,
@@ -734,6 +767,23 @@ def parse_args(argv=None):
                         "the smallest SLO min_events)")
     p.add_argument("--deploy-canary-fraction", type=float, default=0.1,
                    help="default live-traffic fraction for /admin/deploy/canary")
+    p.add_argument("--capacity-policy", default=None, metavar="SPEC",
+                   help="dry-run autoscale advisor policy, e.g. "
+                        "'p95_ms<250,duty<0.8,shed<0.01': evaluated over the capacity series "
+                        "every window; violations are recommendations only (GET /capacity)")
+    p.add_argument("--capacity-ceiling", type=float, default=None,
+                   help="measured images/s ceiling of this card for utilization accounting; "
+                        "without it capacity_utilization is absent (no BENCH_*.json is read "
+                        "in its place)")
+    p.add_argument("--capacity-window-s", type=float, default=30.0,
+                   help="capacity signal window (duty/shed/rate deltas are taken over it)")
+    p.add_argument("--capacity-persist-windows", type=int, default=5,
+                   help="consecutive scale-up windows before the advisor fires the debounced "
+                        "capacity_pressure trigger")
+    p.add_argument("--quality-sample", type=float, default=1.0,
+                   help="fraction of served batches replayed through the quality post-pass "
+                        "(island agreement, residual, drift sketches: GET /quality); "
+                        "deterministic credit sampling; 0 builds no quality graphs")
     p.add_argument("--metrics-timestamps", action="store_true",
                    help="stamp /metrics samples with unix seconds on OpenMetrics scrapes")
     p.add_argument("--verbose", action="store_true", help="per-request access log")
@@ -749,11 +799,26 @@ def parse_args(argv=None):
     return args
 
 
+def read_buckets_file(path: str) -> tuple:
+    """The ladder of a ``--buckets-file``: a JSON list of ints, or a
+    ``--suggest-buckets`` payload (its ``suggested_buckets``)."""
+    with open(path) as f:
+        ladder = json.load(f)
+    if isinstance(ladder, dict):
+        ladder = ladder.get("suggested_buckets")
+    if not (isinstance(ladder, list) and ladder
+            and all(isinstance(b, int) and b >= 1 for b in ladder)):
+        raise SystemExit(f"--buckets-file {path!r} holds no usable ladder (want a list of "
+                         f"ints or a --suggest-buckets payload)")
+    return tuple(ladder)
+
+
 def engine_from_args(args, **overrides) -> ServingEngine:
     """The engine the parsed flags describe; ``overrides`` replace or add
     engine arguments (a caller that serves in its own process, for one)."""
     kwargs = dict(
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        buckets=(read_buckets_file(args.buckets_file) if args.buckets_file
+                 else tuple(int(b) for b in args.buckets.split(","))),
         iters=args.iters, max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
         device=args.device, ff_impl=args.ff_impl, reload_poll_s=args.reload_poll_s,
         warmup=not args.no_warmup, trace_log=args.trace_log, slos=args.slo,
@@ -770,6 +835,9 @@ def engine_from_args(args, **overrides) -> ServingEngine:
         deploy_promote_after=args.deploy_promote_after, deploy_window_s=args.deploy_window_s,
         deploy_min_events=args.deploy_min_events,
         deploy_canary_fraction=args.deploy_canary_fraction, deploy_pin_url=args.deploy_pin_url,
+        capacity_policy=args.capacity_policy, capacity_window_s=args.capacity_window_s,
+        capacity_persist_windows=args.capacity_persist_windows,
+        capacity_ceiling=args.capacity_ceiling, quality_sample=args.quality_sample,
     )
     kwargs.update(overrides)
     return ServingEngine(args.checkpoint_dir, **kwargs)
@@ -786,6 +854,7 @@ def main(argv=None) -> int:
 
     engine = engine_from_args(args)
     engine.start()
+    engine.capacity.start()  # the sampler's thread; tests tick() with a fake clock
     server = make_server(engine, args.host, args.port, quiet=not args.verbose,
                          metrics_timestamps=args.metrics_timestamps)
     stop_once = threading.Event()

@@ -25,7 +25,17 @@ port's copy of ``tools/loadgen.py``'s driving modes and report.
 * **tenants** (``--tenant NAME:WEIGHT``, repeatable): requests carry
   ``X-Tenant``, cycling the tenants by integer weight; the report gains a
   ``per_tenant`` section, and a tenant's quota sheds (503
-  ``tenant_overloaded``) count as sheds, not errors.
+  ``tenant_overloaded``) count as sheds, not errors;
+* **corrupt** (``--corrupt FRAC``): a deterministic FRAC of the requests carry
+  the same images plus seeded heavy noise and the top half blanked: a shift of
+  the quality plane's distributions with no latency or error signal (the
+  report's ``requests_corrupted``);
+* **regress** (``--regress-at FRAC``): from FRAC of the run on, every request
+  is sent at the largest batch size, a step at a known request index (the
+  report's ``regress``);
+* **timeline** (``--timeline [--timeline-step-s S]``): the run windowed into
+  S-second buckets of throughput, p50/p95, sheds and errors (the report's
+  ``timeline``).
 
 Batch sizes cycle through ``--batch-sizes``; the image contract (size,
 channels) is read from ``/healthz``.  Every request carries an
@@ -35,10 +45,9 @@ with ``tools/loadgen.py``'s keys: p50/p95/p99/mean/max latency (ms), the
 achieved request and image rates, and the ok, shed and error counts.  Below
 :data:`MIN_TAIL_SAMPLES` answered requests p95 and p99 are null: on fewer
 samples they are the slowest request or two, not a tail.  ``tools/loadgen.py``'s
-``--corrupt``, ``--regress-at``, ``--timeline`` and ``--fleet`` are refused
-by name: they wait for the quality plane, the capacity plane and the fleet
-router (ROADMAP queue 1, items 4.6, 4.5 and 4.11).  Exit 0 when no request
-failed, every id was echoed and no session split across replicas.
+``--fleet`` is refused by name: it waits for the fleet router (ROADMAP queue 1,
+item 4.11).  Exit 0 when no request failed, every id was echoed and no session
+split across replicas.
 """
 
 from __future__ import annotations
@@ -88,13 +97,41 @@ def make_payloads(health, batch_sizes, seed=0):
             for b, images in make_image_lists(health, batch_sizes, seed).items()}
 
 
-class Results:
-    """What the requests came back with, recorded from many threads.
-    ``corrupted`` and ``regressed`` stay 0 here (their scenarios are not
-    ported) and are reported so the report keeps ``tools/loadgen.py``'s keys."""
+def make_corrupt_payloads(health, batch_sizes, seed=1):
+    """``--corrupt`` bodies: the same base images (seed 0) plus seeded heavy
+    noise and the top half blanked, ``tools/loadgen.py``'s draws: a shift
+    the quality plane's drift sketches must catch, in a request that stays
+    well formed (no latency or error signal)."""
+    import numpy as np
 
-    def __init__(self):
+    c, s = health["channels"], health["image_size"]
+    base = np.random.RandomState(0)
+    noise = np.random.RandomState(seed)
+    out = {}
+    for b in batch_sizes:
+        imgs = base.randn(b, c, s, s).astype("float32")
+        imgs = imgs + 2.5 * noise.randn(b, c, s, s).astype("float32")
+        imgs[..., : s // 2, :] = 0.0  # occlude the top half
+        out[b] = json.dumps({"images": imgs.tolist()}).encode()
+    return out
+
+
+def corrupt_this(i, frac):
+    """Stratified deterministic pick: request ``i`` is corrupted iff the
+    integer part of the running credit ``(i + 1) * frac`` advanced — exactly
+    ``floor(n * frac)`` picks over any prefix of n requests, evenly spread,
+    the same picks for the same frac every run."""
+    return frac > 0 and int((i + 1) * frac) > int(i * frac)
+
+
+class Results:
+    """What the requests came back with, recorded from many threads.  With
+    ``timeline``, one ``(completion time, latency_ms or None, kind)`` sample
+    a request for :func:`timeline_report`."""
+
+    def __init__(self, timeline=False):
         self.lock = threading.Lock()
+        self.timeline_samples = [] if timeline else None
         self.latencies_ms = []
         self.samples = []        # (latency_ms, request_id) for --slow-n
         self.images_ok = 0
@@ -128,6 +165,9 @@ class Results:
                     self._rec(self.endpoints, endpoint) if endpoint is not None else None,
                     self._rec(self.tenants, tenant) if tenant is not None else None]
             recs = [r for r in recs if r is not None]
+            if self.timeline_samples is not None:
+                kind = "shed" if shed else ("error" if error else "ok")
+                self.timeline_samples.append((time.monotonic(), latency_ms, kind))
             if id_mismatch:
                 self.id_mismatches += 1
             if shed:
@@ -180,8 +220,26 @@ def parse_tenants(specs):
     return schedule
 
 
+def _pick_body(i, b, payloads, batch_sizes, results, corrupt_payloads, corrupt_frac,
+               regress_from):
+    """Request ``i``'s batch size and body: past ``regress_from`` the largest
+    size, and a corrupt body where :func:`corrupt_this` picks it (both
+    counted)."""
+    if regress_from is not None and i >= regress_from:
+        b = max(batch_sizes)
+        with results.lock:
+            results.regressed += 1
+    body = payloads[b]
+    if corrupt_payloads is not None and corrupt_this(i, corrupt_frac):
+        body = corrupt_payloads[b]
+        with results.lock:
+            results.corrupted += 1
+    return b, body
+
+
 def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, timeout,
-               results, duration=None, tenants=None):
+               results, duration=None, tenants=None, corrupt_payloads=None, corrupt_frac=0.0,
+               regress_from=None):
     """``concurrency`` workers, one request in flight each, until
     ``n_requests`` were sent or ``duration`` seconds passed (whichever is
     given; both: whichever comes first).  Returns the wall seconds."""
@@ -201,7 +259,9 @@ def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, 
             # the batch size advances once per round of targets, so every
             # target sees every size
             b = batch_sizes[(i // len(urls)) % len(batch_sizes)]
-            send(urls[i % len(urls)], endpoints[i % len(endpoints)], payloads[b], b, timeout,
+            b, body = _pick_body(i, b, payloads, batch_sizes, results, corrupt_payloads,
+                                 corrupt_frac, regress_from)
+            send(urls[i % len(urls)], endpoints[i % len(endpoints)], body, b, timeout,
                  results, time.monotonic(), request_id=f"lg-{os.getpid()}-{i}",
                  multi_target=len(urls) > 1,
                  tenant=tenants[i % len(tenants)] if tenants else None)
@@ -215,7 +275,7 @@ def run_closed(urls, endpoints, payloads, batch_sizes, n_requests, concurrency, 
 
 
 def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, results,
-             tenants=None):
+             tenants=None, corrupt_payloads=None, corrupt_frac=0.0, regress_from=None):
     """Fixed arrival schedule: request ``i`` fires at ``i / rate`` seconds
     whether or not earlier ones finished (one thread per in-flight
     request).  Returns the wall seconds."""
@@ -227,9 +287,11 @@ def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, re
         if delay > 0:
             time.sleep(delay)
         b = batch_sizes[(i // len(urls)) % len(batch_sizes)]
+        b, body = _pick_body(i, b, payloads, batch_sizes, results, corrupt_payloads,
+                             corrupt_frac, regress_from)
         t = threading.Thread(
             target=send,
-            args=(urls[i % len(urls)], endpoints[i % len(endpoints)], payloads[b], b, timeout,
+            args=(urls[i % len(urls)], endpoints[i % len(endpoints)], body, b, timeout,
                   results, time.monotonic()),
             kwargs={"request_id": f"lg-{os.getpid()}-{i}", "multi_target": len(urls) > 1,
                     "tenant": tenants[i % len(tenants)] if tenants else None},
@@ -382,6 +444,44 @@ def session_report(results, urls, timeout, after_seq=-1):
             "affinity": check_session_affinity(urls, results, timeout, after_seq=after_seq)}
 
 
+def timeline_report(results, step_s=1.0):
+    """The run's completions in fixed ``step_s`` windows: per window the
+    throughput, p50/p95, shed and error counts, window starts relative to
+    the first completion (``tools/loadgen.py``'s ``timeline`` block: a
+    mid-run latency step shows as a trend flip in the windowed p95)."""
+    with results.lock:
+        samples = list(results.timeline_samples or ())
+    if not samples:
+        return None
+    t0 = min(t for t, _, _ in samples)
+    windows = {}
+    for t, lat, kind in samples:
+        w = int((t - t0) / step_s)
+        rec = windows.setdefault(w, {"ok": 0, "shed": 0, "errors": 0, "latencies": []})
+        if kind == "ok":
+            rec["ok"] += 1
+            if lat is not None:
+                rec["latencies"].append(lat)
+        elif kind == "shed":
+            rec["shed"] += 1
+        else:
+            rec["errors"] += 1
+    out = []
+    for w in sorted(windows):
+        rec = windows[w]
+        lats = rec["latencies"]
+        out.append({
+            "t_s": round(w * step_s, 3),
+            "requests_ok": rec["ok"],
+            "requests_shed": rec["shed"],
+            "requests_error": rec["errors"],
+            "throughput_req_per_s": round(rec["ok"] / step_s, 2),
+            "p50_ms": round(percentile(lats, 50), 3) if lats else None,
+            "p95_ms": round(percentile(lats, 95), 3) if lats else None,
+        })
+    return {"step_s": step_s, "windows": out}
+
+
 def _latency(xs, keys=("p50", "p95", "p99"), min_tail=0):
     return {k: round(percentile(xs, int(k[1:])), 3)
             if xs and (k == "p50" or len(xs) >= min_tail) else None for k in keys}
@@ -445,17 +545,21 @@ def report(results, wall_s, mode, slow_n=0, min_tail=0):
 
 def run(url, *, endpoints=("embed",), batch_sizes=(1, 2, 3), concurrency=4, requests=None,
         rate=0.0, duration=None, timeout=60.0, targets=None, slow_n=0, health=None,
-        sessions=0, frames=16, tenants=None) -> dict:
+        sessions=0, frames=16, tenants=None, corrupt=0.0, regress_at=0.0, timeline=False,
+        timeline_step_s=1.0) -> dict:
     """Drive a server (or several ``targets``) and return the report:
     ``sessions`` streams of ``frames`` frames when ``sessions > 0``; else an
     open loop at ``rate`` for ``duration`` seconds when ``rate > 0``, else a
     closed loop of ``concurrency`` for ``requests`` requests or
     ``duration`` seconds.  ``tenants`` (``["a:3", "b:1"]``) labels the
-    requests of either loop with ``X-Tenant``."""
+    requests of either loop with ``X-Tenant``; ``corrupt`` sends that
+    fraction perturbed, ``regress_at`` steps to the largest batch size from
+    that fraction of the run on (it needs a count: ``requests`` or ``rate``),
+    and ``timeline`` adds the windowed ``timeline`` block."""
     urls = [u.rstrip("/") for u in (targets or [url])]
     endpoints, batch_sizes = list(endpoints), list(batch_sizes)
     health = health if health is not None else fetch_health(urls[0], timeout)
-    results = Results()
+    results = Results(timeline=timeline)
     if sessions > 0:
         image_lists = make_image_lists(health, batch_sizes)
         # the timelines' cursor before the run: only an ejection during it
@@ -465,27 +569,50 @@ def run(url, *, endpoints=("embed",), batch_sizes=(1, 2, 3), concurrency=4, requ
         out = report(results, wall, f"sessions(n={sessions},frames={frames})", slow_n=slow_n,
                      min_tail=MIN_TAIL_SAMPLES)
         out["session"] = session_report(results, urls, timeout, after_seq=start_seq)
+        if timeline:
+            out["timeline"] = timeline_report(results, timeline_step_s)
         return out
     payloads = make_payloads(health, batch_sizes)
+    corrupt_payloads = make_corrupt_payloads(health, batch_sizes) if corrupt > 0 else None
     schedule = parse_tenants(tenants) if tenants else None
+    open_duration = duration if duration is not None else 5.0
+    if rate <= 0 and requests is None and duration is None:
+        requests = 100
+    regress_from = None
+    if regress_at > 0:
+        n = max(1, int(rate * open_duration)) if rate > 0 else requests
+        if n is None:
+            raise ValueError("regress_at needs a request count: requests= or rate=")
+        regress_from = math.ceil(n * min(regress_at, 1.0))
+    shape = dict(corrupt_payloads=corrupt_payloads, corrupt_frac=corrupt,
+                 regress_from=regress_from)
     if rate > 0:
-        wall = run_open(urls, endpoints, payloads, batch_sizes, rate,
-                        duration if duration is not None else 5.0, timeout, results,
-                        tenants=schedule)
+        wall = run_open(urls, endpoints, payloads, batch_sizes, rate, open_duration, timeout,
+                        results, tenants=schedule, **shape)
         mode = f"open({rate}/s)"
     else:
-        if requests is None and duration is None:
-            requests = 100
         wall = run_closed(urls, endpoints, payloads, batch_sizes, requests, concurrency,
-                          timeout, results, duration=duration, tenants=schedule)
+                          timeout, results, duration=duration, tenants=schedule, **shape)
         mode = f"closed(c={concurrency})"
     if len(endpoints) > 1:
         mode += f" endpoints({','.join(endpoints)})"
+    if corrupt > 0:
+        mode += f" corrupt({corrupt})"
+    if regress_from is not None:
+        mode += f" regress(at={regress_at})"
     if schedule:
         mode += f" tenants({','.join(sorted(set(schedule)))})"
     if len(urls) > 1:
         mode += f" x{len(urls)} targets"
-    return report(results, wall, mode, slow_n=slow_n, min_tail=MIN_TAIL_SAMPLES)
+    out = report(results, wall, mode, slow_n=slow_n, min_tail=MIN_TAIL_SAMPLES)
+    if regress_from is not None:
+        # the ground truth a knee detector is held to: the request index
+        # where the step began
+        out["regress"] = {"frac": regress_at, "from_request": regress_from,
+                          "batch_size": max(batch_sizes)}
+    if timeline:
+        out["timeline"] = timeline_report(results, timeline_step_s)
+    return out
 
 
 def _timeline_max_seq(urls, timeout):
@@ -503,11 +630,8 @@ def _timeline_max_seq(urls, timeout):
     return seq
 
 
-# tools/loadgen.py's modes that wait for a plane of the port: flag -> (nargs, why)
+# tools/loadgen.py's modes that wait for a module of the port: flag -> (nargs, why)
 REFUSED = {
-    "--corrupt": (1, "the quality plane (ROADMAP queue 1, item 4.6)"),
-    "--regress-at": (1, "the capacity plane's attribution (ROADMAP queue 1, item 4.5)"),
-    "--timeline": (0, "the capacity plane's series (ROADMAP queue 1, item 4.5)"),
     "--fleet": (0, "the fleet router (ROADMAP queue 1, item 4.11)"),
 }
 
@@ -538,6 +662,19 @@ def main(argv=None) -> int:
     p.add_argument("--tenant", action="append", default=None, metavar="NAME:WEIGHT",
                    help="repeatable: requests carry X-Tenant, cycling tenants by integer "
                         "weight; the report gains per_tenant")
+    p.add_argument("--corrupt", type=float, default=0.0, metavar="FRAC",
+                   help="send this fraction of the requests perturbed (seeded heavy noise, "
+                        "the top half blanked; the same requests every run): a shift of the "
+                        "quality plane's drift with no latency or error signal")
+    p.add_argument("--regress-at", type=float, default=0.0, metavar="FRAC",
+                   help="from FRAC of the run on, send every request at the largest "
+                        "--batch-sizes size: a step at a known request index (the report's "
+                        "'regress'); needs --requests or --rate")
+    p.add_argument("--timeline", action="store_true",
+                   help="window the run into per-step throughput/p95/shed/error buckets in "
+                        "the report")
+    p.add_argument("--timeline-step-s", type=float, default=1.0,
+                   help="with --timeline: the window width in seconds")
     for flag, (nargs, _) in REFUSED.items():
         p.add_argument(flag, default=argparse.SUPPRESS, help=argparse.SUPPRESS,
                        **({"action": "store_true"} if nargs == 0 else {}))
@@ -545,6 +682,8 @@ def main(argv=None) -> int:
     for flag, (_, why) in REFUSED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not in the port's load generator yet: it needs {why}")
+    if args.regress_at > 0 and args.rate <= 0 and args.requests is None and args.duration:
+        p.error("--regress-at needs a request count: --requests, or --rate")
     endpoints = [e.strip() for e in args.endpoint.split(",") if e.strip()]
     if not endpoints or any(e not in ("embed", "reconstruct") for e in endpoints):
         print(f"loadgen: bad --endpoint {args.endpoint!r} (want a comma mix of "
@@ -555,7 +694,8 @@ def main(argv=None) -> int:
               concurrency=args.concurrency, requests=args.requests, rate=args.rate,
               duration=args.duration, timeout=args.timeout, targets=args.target,
               slow_n=args.slow_n, sessions=args.sessions, frames=args.frames,
-              tenants=args.tenant)
+              tenants=args.tenant, corrupt=args.corrupt, regress_at=args.regress_at,
+              timeline=args.timeline, timeline_step_s=args.timeline_step_s)
     print(json.dumps(out, indent=2))
     violations = out.get("session", {}).get("affinity", {}).get("violations")
     if violations:

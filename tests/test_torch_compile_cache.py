@@ -139,7 +139,9 @@ def test_engine_counts_lazy_captures_into_the_registry(tiny_ckpt):
         fut = engine.submit("embed", np.zeros((k, 3, 16, 16), np.float32))
         assert engine.process_once("embed") == k
         fut.result(timeout=30)
-    assert engine.registry.snapshot()["serving_graph_captures"] == 2.0   # buckets 1 and 4
+    # buckets 1 and 4 of embed, and of the quality post-pass that samples
+    # every batch by default (glom_tpu counts its lazy compiles alike)
+    assert engine.registry.snapshot()["serving_graph_captures"] == 4.0
     warmed = _engine(tiny_ckpt, buckets=(1, 2, 4))
     assert warmed.health()["warm"]
     for k in (1, 3, 2):
@@ -564,9 +566,10 @@ def test_parse_replays_its_eager_path(cuda, card_ckpt):
 def test_parse_captures_its_graphs_on_the_request_path(cuda, card_ckpt):
     """An engine built without warm-up (the server's ``--no-warmup``)
     captures /parse's index and pack graphs at a bucket's first request, and
-    /session/parse's cold forward and pack at a session's first frame: no
-    capture waits on its own thread's hold on the device lock, and each is
-    counted in serving_graph_captures."""
+    /session/parse's cold forward and pack at a session's first frame, and
+    the quality post-pass the parse batch is sampled for (the default
+    quality_sample=1.0): no capture waits on its own thread's hold on the
+    device lock, and each is counted in serving_graph_captures."""
     engine = ServingEngine(card_ckpt, device=cuda, ff_impl="pallas", attention_impl="pallas",
                            reload_poll_s=0, parse_thresholds=0.5, warm_iters=2,
                            buckets=(1, 4), warmup=False, max_wait_ms=0.0)
@@ -583,7 +586,7 @@ def test_parse_captures_its_graphs_on_the_request_path(cuda, card_ckpt):
     worker.start()
     worker.join(120)
     assert not worker.is_alive(), "a capture on the request path waited on its own hold"
-    assert engine.registry.snapshot()["serving_graph_captures"] == 4.0
+    assert engine.registry.snapshot()["serving_graph_captures"] == 5.0
     n, L = CARD.num_patches, CARD.levels
     cut = 2 * L * n + L
     want = engine.run_eager("parse", x)

@@ -64,7 +64,10 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.training.extract", "glom_tpu_torch.obs.quality",
             "glom_tpu_torch.hierarchy", "glom_tpu_torch.hierarchy.parse",
             "glom_tpu_torch.hierarchy.index", "glom_tpu_torch.serving.quant",
-            "glom_tpu_torch.serving.sessions", "glom_tpu_torch.tools.quant_check"} <= set(mods)
+            "glom_tpu_torch.serving.sessions", "glom_tpu_torch.tools.quant_check",
+            "glom_tpu_torch.obs.timeseries", "glom_tpu_torch.obs.capacity",
+            "glom_tpu_torch.obs.sketch", "glom_tpu_torch.tools.trace_report",
+            "glom_tpu_torch.tools.capacity", "glom_tpu_torch.tools.quality_report"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -104,23 +107,31 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
         "glom_tpu_torch/training/extract.py", "glom_tpu_torch/obs/quality.py",
         "glom_tpu_torch/hierarchy/__init__.py", "glom_tpu_torch/hierarchy/parse.py",
         "glom_tpu_torch/hierarchy/index.py", "glom_tpu_torch/serving/quant.py",
-        "glom_tpu_torch/serving/sessions.py", "glom_tpu_torch/tools/quant_check.py"} <= sources
+        "glom_tpu_torch/serving/sessions.py", "glom_tpu_torch/tools/quant_check.py",
+        "glom_tpu_torch/obs/timeseries.py", "glom_tpu_torch/obs/capacity.py",
+        "glom_tpu_torch/obs/sketch.py", "glom_tpu_torch/tools/trace_report.py",
+        "glom_tpu_torch/tools/capacity.py", "glom_tpu_torch/tools/quality_report.py"} <= sources
     assert not offenders, offenders
 
 
 def test_the_slo_module_keeps_its_own_copy_of_the_quality_metrics():
-    """``obs/slo.py`` holds ``QUALITY_SLO_METRICS`` as a literal of its own
-    (``glom_tpu``'s comes from its JAX-side ``obs/quality.py``) and imports
-    no quality module."""
+    """``obs/slo.py`` takes ``QUALITY_SLO_METRICS`` from the port's own
+    ``obs/quality.py``, as ``glom_tpu``'s takes it from its quality module,
+    and holds no literal of its own; the names equal ``glom_tpu``'s."""
     path = os.path.join(PKG, "obs", "slo.py")
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    copies = [node.value for node in tree.body if isinstance(node, ast.Assign)
-              and [getattr(t, "id", None) for t in node.targets] == ["QUALITY_SLO_METRICS"]]
-    assert len(copies) == 1 and isinstance(copies[0], ast.Tuple)
-    assert all(isinstance(e, ast.Constant) and isinstance(e.value, str) for e in copies[0].elts)
-    imported = [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
-    assert not [m for m in imported if m and "quality" in m]
+    literals = [node for node in tree.body if isinstance(node, ast.Assign)
+                and [getattr(t, "id", None) for t in node.targets] == ["QUALITY_SLO_METRICS"]]
+    assert not literals
+    imported = [(n.module, [a.name for a in n.names]) for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.module and "quality" in n.module]
+    assert imported == [("glom_tpu_torch.obs.quality", ["QUALITY_SLO_METRICS"])]
+    from glom_tpu.obs.quality import QUALITY_SLO_METRICS as theirs
+
+    from glom_tpu_torch.obs import slo
+
+    assert slo.QUALITY_SLO_METRICS == theirs
 
 
 @pytest.fixture

@@ -12,8 +12,9 @@ take the same requests: their answers agree within 1e-4, ``/metrics`` names
 the same ``serving_*`` families (``serving_graph_captures`` for
 ``serving_xla_compiles``, both absent after warm-up), request identity is
 echoed alike, each trace holds the same span names, and shed and drain are
-the same structured 503s.  Arguments and flags the port does not take yet
-are refused by name.
+the same structured 503s.  The capacity and quality arguments and flags
+reach the engine's planes as glom_tpu's do; the arguments and flags the port
+does not take yet are refused by name.
 """
 
 import importlib.util
@@ -528,13 +529,9 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
                                         "detail": "server is draining; retry elsewhere"})
 
 
-@pytest.mark.parametrize("name,value", [("capacity_window_s", 5.0), ("forensics_dir", "/x"),
+@pytest.mark.parametrize("name,value", [("forensics_dir", "/x"),
                                         ("warmup_dir", "/x"), ("mesh_shape", (1, 4, 1)),
-                                        ("capacity_ceiling", 100.0), ("quality_seed", 3),
-                                        ("capacity_persist_windows", 2), ("bulk_dir", "/x"),
-                                        ("capacity_interval_s", 0.5),
-                                        ("quality_sample", 0.5),
-                                        ("capacity_policy", "p95_ms<250"),
+                                        ("bulk_dir", "/x"),
                                         ("param_sharding", "tp")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
     with pytest.raises(NotImplementedError, match=name):
@@ -545,6 +542,46 @@ def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
     assert name in inspect.signature(JaxServingEngine.__init__).parameters
 
 
+def _planes(engine, has_quality_family):
+    """What the capacity and quality arguments set, read the same way off
+    either package's engine: the capacity plane's window, ceiling, sampling
+    interval, persistence and policy, the quality sampler's fraction and its
+    next 32 decisions (a copy: the engine's sampler is not advanced), and
+    whether the quality post-pass exists."""
+    import copy
+
+    cap, sampler = engine.capacity, copy.deepcopy(engine.quality.sampler)
+    return {"window_s": cap.accountant.window_s, "ceiling": cap.accountant.ceiling,
+            "interval_s": cap.sampler.interval_s, "persist": cap.persist_windows,
+            "policy": cap.advisor.policy, "fraction": sampler.fraction,
+            "decisions": [sampler.decide() for _ in range(32)],
+            "quality_family": has_quality_family}
+
+
+@pytest.mark.parametrize("name,value", [("capacity_window_s", 5.0), ("capacity_ceiling", 100.0),
+                                        ("quality_seed", 3), ("capacity_persist_windows", 2),
+                                        ("capacity_interval_s", 0.5), ("quality_sample", 0.5),
+                                        ("capacity_policy", "p95_ms<250")])
+def test_ported_engine_arguments_have_glom_tpus_effect(ckpt, name, value):
+    """Each capacity and quality argument is taken and sets the planes as
+    glom_tpu's engine does (with ``quality_sample=0.5`` the quality family
+    is still built, and a seed changes the sampler's decisions alike)."""
+    kw = {name: value}
+    if name == "quality_seed":
+        kw["quality_sample"] = 0.4
+    ours = ServingEngine(ckpt, device="cpu", reload_poll_s=0, warmup=False, **kw)
+    theirs = JaxServingEngine(ckpt, reload_poll_s=0, warmup=False, **kw)
+    try:
+        got = _planes(ours, "quality" in ours.caches)
+        want = _planes(theirs, theirs.quality_cache is not None)
+    finally:
+        ours.shutdown(drain=False)
+        theirs.shutdown(drain=False)
+    assert got == want
+    default = _planes(ServingEngine(ckpt, device="cpu", reload_poll_s=0, warmup=False), True)
+    assert got != default  # the argument is not a no-op
+
+
 def test_unset_unported_arguments_and_unknown_ones(ckpt):
     engine = ServingEngine(ckpt, device="cpu", reload_poll_s=0, quant="f32", mesh_shape=None,
                            quality_sample=1.0, warmup=False)
@@ -553,15 +590,44 @@ def test_unset_unported_arguments_and_unknown_ones(ckpt):
         ServingEngine(ckpt, device="cpu", no_such_argument=1)
 
 
-@pytest.mark.parametrize("flag", [["--capacity-window-s", "5"], ["--mesh-shape", "1,4,1"],
-                                  ["--forensics-dir", "/x"], ["--capacity-policy", "p95_ms<250"],
-                                  ["--quality-sample", "0.5"], ["--warmup-dir", "/x"],
+@pytest.mark.parametrize("flag", [["--mesh-shape", "1,4,1"],
+                                  ["--forensics-dir", "/x"], ["--warmup-dir", "/x"],
                                   ["--bulk-dir", "/x"], ["--no-donate"],
-                                  ["--platform", "cpu"], ["--buckets-file", "/x.json"]])
+                                  ["--platform", "cpu"]])
 def test_unported_cli_flags_are_refused_by_name(ckpt, flag, capsys):
     with pytest.raises(SystemExit) as e:
         server.main(["--checkpoint-dir", ckpt, "--device", "cpu"] + flag)
     assert e.value.code == 2 and flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--capacity-window-s", "--capacity-policy", "--quality-sample",
+                                  "--buckets-file"])
+def test_ported_cli_flags_reach_the_engine(ckpt, flag, tmp_path):
+    """Each flag is taken and reaches the engine as glom_tpu's server passes
+    it (the value itself; ``--buckets-file`` the ladder of a
+    ``--suggest-buckets`` payload, or of a plain list)."""
+    ladder_file = tmp_path / "ladder.json"
+    ladder_file.write_text(json.dumps({"suggested_buckets": [1, 3, 6], "observed_batches": 9}))
+    value, read = {
+        "--capacity-window-s": ("5", lambda e: e.capacity.accountant.window_s == 5.0),
+        "--capacity-policy": ("p95_ms<250", lambda e: e.capacity.advisor.policy == "p95_ms<250"),
+        "--quality-sample": ("0.5", lambda e: e.quality.sampler.fraction == 0.5
+                             and "quality" in e.caches),
+        "--buckets-file": (str(ladder_file), lambda e: e.buckets == (1, 3, 6)),
+    }[flag]
+    args = server.parse_args(["--checkpoint-dir", ckpt, "--device", "cpu", "--reload-poll-s",
+                              "0", "--no-warmup", flag, value])
+    engine = server.engine_from_args(args)
+    try:
+        assert read(engine)
+    finally:
+        engine.shutdown(drain=False)
+    if flag == "--buckets-file":
+        ladder_file.write_text("[2, 4]")
+        assert server.read_buckets_file(str(ladder_file)) == (2, 4)
+        ladder_file.write_text(json.dumps({"error": "no executed batches"}))
+        with pytest.raises(SystemExit, match="no usable ladder"):
+            server.read_buckets_file(str(ladder_file))
 
 
 def test_engine_from_args_translates_every_ported_flag(ckpt, tmp_path):

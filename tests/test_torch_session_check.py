@@ -1,7 +1,8 @@
 """The port's session tools against glom_tpu's on the CPU:
 ``python -m glom_tpu_torch.tools.session_check`` (tools/session_check.py's
 counterpart, through the session graph families) and the port's load
-generator's ``--sessions`` and ``--tenant`` modes (tools/loadgen.py's).
+generator's ``--sessions``, ``--tenant``, ``--corrupt``, ``--regress-at``
+and ``--timeline`` modes (tools/loadgen.py's).
 
 The sweep's equilibrium distances equal glom_tpu's tool on the same
 checkpoint and frames within 1e-5; ``--smoke``, ``--require-half`` and a bad
@@ -148,10 +149,49 @@ def test_loadgen_tenant_report_as_tools_loadgen(served):
     assert loadgen.parse_tenants(["a:3", "b"]) == theirs.parse_tenants(["a:3", "b"])
 
 
-@pytest.mark.parametrize("flag", [["--corrupt", "0.5"], ["--regress-at", "0.5"], ["--timeline"],
-                                  ["--fleet"]])
+@pytest.mark.parametrize("flag", [["--fleet"]])
 def test_loadgen_refuses_the_modes_it_waits_for_by_name(flag, capsys):
     with pytest.raises(SystemExit) as e:
         loadgen.main(["--url", "http://127.0.0.1:9"] + flag)
     err = capsys.readouterr().err
     assert e.value.code == 2 and flag[0] in err and "ROADMAP queue 1" in err
+
+
+@pytest.mark.parametrize("mode", ["--corrupt", "--regress-at", "--timeline"])
+def test_loadgen_modes_match_tools_loadgens(served, mode, capsys):
+    """``--corrupt`` sends tools/loadgen.py's bodies bit for bit, on the same
+    requests; ``--regress-at`` steps at the same request index; and
+    ``--timeline`` windows the run into the same block.  Each through the
+    CLI against a served port engine."""
+    url, _ = served
+    theirs = _tool("loadgen")
+    health = theirs._fetch_health(url, 30)
+    argv = ["--url", url, "--requests", "8", "--concurrency", "1", "--batch-sizes", "1,2"]
+    if mode == "--corrupt":
+        ours_b = loadgen.make_corrupt_payloads(health, [1, 2])
+        assert ours_b == theirs._make_corrupt_payloads(health, [1, 2])
+        picks = [i for i in range(40) if loadgen.corrupt_this(i, 0.3)]
+        assert picks == [i for i in range(40) if theirs._corrupt_this(i, 0.3)] and len(picks) == 12
+        argv += ["--corrupt", "0.5"]
+    elif mode == "--regress-at":
+        argv += ["--regress-at", "0.5"]
+    else:
+        argv += ["--timeline", "--timeline-step-s", "0.5"]
+    assert loadgen.main(argv) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["requests_ok"] == 8 and out["requests_error"] == 0
+    if mode == "--corrupt":
+        assert out["requests_corrupted"] == 4 and "corrupt(0.5)" in out["mode"]
+    elif mode == "--regress-at":
+        # glom_tpu's rule: from ceil(n * frac) on, the largest size
+        assert out["regress"] == {"frac": 0.5, "from_request": 4, "batch_size": 2}
+        assert out["requests_regressed"] == 4 and out["images_ok"] == (1 + 2) * 2 + 2 * 4
+    else:
+        results = theirs._Results(timeline=True)
+        payloads = theirs._make_payloads(health, [1, 2])
+        theirs.run_closed([url], ["embed"], payloads, [1, 2], 8, 1, 30, results)
+        want = theirs.timeline_report(results, 0.5)
+        got = out["timeline"]
+        assert got["step_s"] == want["step_s"] == 0.5
+        assert sorted(got["windows"][0]) == sorted(want["windows"][0])
+        assert sum(w["requests_ok"] for w in got["windows"]) == 8
