@@ -29,7 +29,10 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            version's time and a yardstick (two torch.baddbmm calls and an
            exact GELU in full float32 on the same inputs), and at b=8 in
            float32 its error against float64;
-  k2       (only with --only) K2's rows of the kernels phase alone;
+  k2       (only with --only) K2's rows of the kernels phase alone, each
+           with a yardstick (torch.baddbmm for the pre-activation, torch.bmm
+           for dO W2^T, the exact-erf GELU derivative and torch.bmm by W1^T,
+           in full float32 on the same inputs);
   k6       (only with --only) K6's rows: at b=8 (in float32 also
            against float64), with attend_self (beside the backward of
            scaled_dot_product_attention), with the locality mask, at n=2304
@@ -220,6 +223,28 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            trace_report --suggest-buckets on its trace log; a server on
            that ladder (--buckets-file) with --capacity-ceiling at the
            closed loop's images/s: a utilization in (0, 1.05], no capture;
+  bulk     the bulk tier at flagship, f32 "pallas", buckets 1/2/4/8, one
+           engine with a job store and its idle thread: an idle-only
+           synthetic /embed job of 384 slots (slots/s, each chunk's device
+           time by CUDA events, the share of the replay bound of 8 slots a
+           b=8 replay, launches exactly K1 24 + K4 12 a bucket replay, no
+           capture, the first chunk against the plain path); the
+           kill-and-resume smoke (tools/bulk_run.py) bitwise the control with
+           no capture; one client's closed loop of 100 requests of 1-7 images
+           without and with a 4096-slot job active (answers bitwise,
+           bulk_scavenged_slots_total above 0, the idle buckets' launches
+           exactly on top of the loop's, the loop's p50/p99) and /embed b=1
+           p50/p99 over 100 requests each way; an index job over 64 slots and /similar over
+           its sink (each image its own top-1 at level 0); the bucket and
+           offset bit check on "pallas" and "fused", reported, with the
+           predictions beside the measurements;
+  attribution  whyslow's smoke (tools/whyslow.py) at flagship, buckets 1 and
+           2: baseline traffic over HTTP, then a canary at fraction 1.0 under
+           candidate:delay; exactly one cause, the deploy_canary event at its
+           step, queue_wait the majority phase, no capture, the op-diff plane
+           None, a byte-identical verdict on re-attribution; the launches of
+           the regression window (after the candidate's captures) whole
+           replays of K1 24 + K4 12;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -583,7 +608,27 @@ def k2_case(params, x, g, dtype, label):
     nbytes = item * (3 * rows * gr * d + gr * (2 * d * h + h)) + handoff_bytes
     row.update({"handoff_bytes": handoff_bytes,
                 "plain_ms": time_ms(lambda: plain_ffm.grouped_ff_dx(params, x, g)),
-                "library_ms": None, **bounds(flops, nbytes, dtype)})
+                **bounds(flops, nbytes, dtype)})
+    # the yardstick on the same inputs in full float32 (x and dO cast outside
+    # the timing for bf16): the pre-activation by one baddbmm, dO W2^T by one
+    # bmm, the exact-erf GELU's derivative, and the product by W1^T
+    xg = x.float().reshape(rows, gr, d).transpose(0, 1)
+    gg = g.float().reshape(rows, gr, d).transpose(0, 1)
+    w1, b1, w2 = (p32[k] for k in ("w1", "b1", "w2"))
+    w1t, w2t = w1.transpose(1, 2), w2.transpose(1, 2)
+
+    def yardstick():
+        pre = torch.baddbmm(b1[:, None, :], xg, w1)
+        cdf = 0.5 * (1.0 + torch.erf(pre * 2.0 ** -0.5))
+        pdf = torch.exp(-0.5 * pre * pre) * (2.0 * np.pi) ** -0.5
+        return torch.bmm(torch.bmm(gg, w2t) * (cdf + pre * pdf), w1t)
+
+    yard = yardstick().transpose(0, 1).reshape(want.shape)
+    row["library_vs_plain"] = compare(yard, want, torch.float32,
+                                      f"grouped_ff_dx {label} yardstick")["norm_rel_err"]
+    row["library_ms"] = time_ms(yardstick)
+    row["library"] = ("torch.baddbmm (x W1 + b1), torch.bmm (dO W2^T), the exact-erf GELU "
+                      "derivative and torch.bmm by W1^T, in full float32, on the same inputs")
     return row, hidden
 
 
@@ -4018,6 +4063,351 @@ def phase_capacity(device) -> dict:
     return launches
 
 
+# the bulk phase: an idle-only job at flagship, buckets 1/2/4/8
+BULK_IDLE_SLOTS = 384
+# the kill-and-resume job: not a multiple of the largest bucket (8)
+BULK_RESUME_SLOTS = 37
+# the job kept active under the closed loop (two shards: one can be
+# scavenged while the idle thread runs the other), cancelled after it
+BULK_LOAD_SLOTS = 4096
+BULK_PLAN_REQUESTS = 100
+BULK_B1_REQUESTS = 100
+BULK_TIMEOUT_S = 300.0
+# the predictions of PERF.md §6 for the bulk tier with the slots drawn
+# ahead on the runner's host thread and the idle buckets' grace after online
+# work, from the /embed b=8 replay of about 25.4 ms and the host work
+# measured beside it: a chunk costs its replay, the cache call's copies, the
+# stack and the part write with the cursor, about 29-35 ms, so 230-280
+# slots/s; a closed loop meets no idle replay but at its first request, so
+# its p50 rises by the host threads' competition alone
+BULK_PREDICTED = {"idle_slots_per_s": [230.0, 280.0], "share_of_replay_bound": [0.73, 0.88],
+                  "b1_p50_rise_ms": [0.0, 3.0], "b1_p99_rise_ms": [0.0, 30.0],
+                  "loop_p50_rise_ms": [0.0, 3.0], "loop_p99_rise_ms": [0.0, 30.0],
+                  "scavenged_answers": "bitwise", "pool_bytes": "unchanged"}
+
+
+def wait_job(engine, name: str, timeout_s: float = BULK_TIMEOUT_S) -> float:
+    """Seconds until bulk job ``name`` is done on ``engine``; a bulk bucket
+    that raised fails the phase."""
+    t0 = time.perf_counter()
+    while engine.bulk.status(name)["status"] != "done":
+        errors = engine.registry.snapshot().get("bulk_batch_errors_total")
+        if errors or time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"bulk job {name}: {engine.bulk.status(name)}, {errors} "
+                                 f"bucket errors")
+        time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def bucket_offset_bits(engine, family: str, ds) -> dict:
+    """One slot at every row offset of buckets 1, 2, 4 and 8 beside other
+    slots, against its answer at bucket 8, offset 0: the max-abs difference
+    of each (bucket, offset), and whether each is bitwise."""
+    ref = engine.run(family, ds.read(0, 8))[0]
+    slot = ds.read(0, 1)[0]
+    worst = {}
+    for bucket in GRAPH_BUCKETS:
+        for off in range(bucket):
+            imgs = ds.read(8 + off, 8 + off + bucket).copy()
+            imgs[off] = slot
+            worst[f"b{bucket}/o{off}"] = float(np.abs(engine.run(family, imgs)[off] - ref).max())
+    return {"max_abs_vs_b8_o0": worst,
+            "bitwise": sorted(k for k, v in worst.items() if v == 0.0),
+            "bitwise_within_each_bucket": {
+                f"b{b}": len({worst[f"b{b}/o{o}"] for o in range(b)}) == 1
+                for b in GRAPH_BUCKETS}}
+
+
+def phase_bulk(device) -> dict:
+    """The bulk tier at flagship width, f32 "pallas", buckets 1/2/4/8 (one
+    engine with a job store, its idle thread running): (1) an idle-only
+    synthetic /embed job of BULK_IDLE_SLOTS slots (the main path: counts set
+    to 0 just before the submit, read when it is done): slots/s on the host's
+    clock, each chunk's device time by CUDA events around its replay, the
+    share of the replay bound (8 slots a b=8 replay), launches exactly K1 24
+    + K4 12 a bucket replay, no capture, the first chunk bitwise the engine's
+    own replay and within SERVE_ATOL of the plain path; (2) the kill-and-
+    resume smoke (tools/bulk_run.py) at flagship: bitwise the control, no
+    capture; (3) a closed loop of one client, BULK_PLAN_REQUESTS requests of
+    1-7 images, without and then with a BULK_LOAD_SLOTS-slot job active: the
+    answers bitwise, bulk_scavenged_slots_total above 0, the loop's launches
+    those of the run without a job plus K1 24 + K4 12 for each idle bucket
+    the job ran meanwhile, the loop's p50/p99 and /embed b=1 p50/p99 over
+    BULK_B1_REQUESTS (host clock) with and without the job; (4) an index job over INDEX_IMAGES slots, then
+    /similar over its sink (similar_report: each image its own top-1 at
+    level 0); (5) the bucket and offset bit check on "pallas" (/embed and the
+    index forward) and "fused" (/embed), reported."""
+    from glom_tpu_torch.bulk.jobs import BulkJobSpec, ChunkSink, SlotDataset
+    from glom_tpu_torch.tools import bulk_run
+
+    ckpt = flagship_ckpt("chip_smoke_bulk_ckpt", seed=31)
+    work = os.path.join(ROOT, "build", "chip_smoke_bulk")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "index"))
+    c = kernel_config()
+    L = c.levels
+    engine = ServingEngine(ckpt, device=device, buckets=GRAPH_BUCKETS, reload_poll_s=0,
+                           bulk_dir=os.path.join(work, "store"),
+                           index_dir=os.path.join(work, "index"))
+    engine.start(watch=False)
+    pools_before = engine.graph_pool_bytes()
+    report = {}
+    try:
+        # (1) idle buckets alone
+        idle = {"name": "idle", "dataset": f"synthetic:{BULK_IDLE_SLOTS}", "transform": "embed",
+                "sink": os.path.join(work, "idle_out"), "seed": 32}
+        reset_launches()
+        with replay_events(engine) as window:
+            t0 = time.perf_counter()
+            engine.bulk.submit(idle)
+            wait_job(engine, "idle")
+            idle_s = time.perf_counter() - t0
+            launches = launch_counts()
+        chunks = window["per_replay"]
+        check_launches("bulk idle job", launches, want_launches(c.default_iters * len(chunks)))
+        out = ChunkSink(idle["sink"]).assemble(BULK_IDLE_SLOTS)
+        ds = SlotDataset(BulkJobSpec(**idle, image_size=c.image_size))
+        first = engine.run("embed", ds.read(0, 8))
+        with torch.inference_mode():
+            plain = plain_embed_fn(engine)(engine.params,
+                                           torch.from_numpy(ds.read(0, 8)).to(device)).cpu()
+        plain_err = float((torch.from_numpy(out[:8]) - plain).abs().max())
+        snap = engine.registry.snapshot()
+        if (out.shape != (BULK_IDLE_SLOTS, L, c.dim) or not np.isfinite(out).all()
+                or out[:8].tobytes() != first.tobytes() or plain_err > SERVE_ATOL
+                or snap.get("bulk_idle_slots_total") != BULK_IDLE_SLOTS
+                or snap.get("bulk_scavenged_slots_total") or snap.get("serving_graph_captures")
+                or len(chunks) != -(-BULK_IDLE_SLOTS // 8)):
+            raise AssertionError(f"bulk idle job: shape {out.shape}, plain {plain_err}, "
+                                 f"{len(chunks)} chunks, {snap}")
+        b8_ms = replay_ms(engine.caches["embed"], 8)
+        # a chunk's host work, piece by piece (host clock, the median of 5
+        # after a warm-up): the eight slots' draws, the cache call around the
+        # replay (the copies in and out), and the part write with the
+        # cursor's advance into a scratch store
+        from glom_tpu_torch.bulk.jobs import JobStore
+
+        scratch = JobStore(os.path.join(work, "scratch_store"))
+        scratch.submit(BulkJobSpec(name="s", dataset="synthetic:48", sink=work, seed=0,
+                                   image_size=c.image_size), total=48)
+        sink, cursor = ChunkSink(os.path.join(work, "scratch_out")), [0]
+
+        def commit():
+            sink.write(cursor[0], cursor[0] + 8, out[:8])
+            scratch.advance("s", 0, cursor[0] + 8)
+            cursor[0] += 8
+
+        x8 = ds.read(0, 8)
+        host = {"read_8_slots": served_ms(lambda: ds.read(8, 16)),
+                "cache_call_b8": served_ms(lambda: engine.run("embed", x8)),
+                "part_write_and_advance": served_ms(commit)}
+        rate = BULK_IDLE_SLOTS / idle_s
+        bound_rate = 8 / (b8_ms / 1e3)
+        chunk_ms = [ms for _, _, ms in chunks]
+        report["idle"] = {
+            "slots": BULK_IDLE_SLOTS, "seconds": idle_s, "slots_per_s": rate,
+            "replay_bound_slots_per_s": bound_rate, "share_of_replay_bound": rate / bound_rate,
+            "embed_b8_replay_ms": b8_ms, "chunks": len(chunks),
+            "chunk_device_ms": {"median": statistics.median(chunk_ms), "min": min(chunk_ms),
+                                "max": max(chunk_ms), "all": chunk_ms},
+            "chunk_host_ms_mean": (idle_s * 1e3 - sum(chunk_ms)) / len(chunks),
+            "chunk_host_ms_parts": host,
+            "device_busy_share": sum(chunk_ms) / (idle_s * 1e3),
+            "first_chunk_vs_plain_max_abs_err": plain_err, "atol": SERVE_ATOL,
+            "launches": launches}
+        emit({"phase": "bulk", "part": "idle", **report["idle"]})
+        main_launches = launches
+
+        # (2) kill and resume, bitwise
+        smoke = bulk_run.run_smoke(str(device), checkpoint_dir=ckpt, buckets=GRAPH_BUCKETS,
+                                   total=BULK_RESUME_SLOTS, workdir=work)
+        ref, got = smoke.pop("outputs")
+        if smoke["smoke"] != "ok" or not np.isfinite(ref).all():
+            raise AssertionError(f"bulk kill-and-resume at flagship: {smoke}")
+        smoke["control_first_chunk_bitwise_this_engine"] = ref[:8].tobytes() == engine.run(
+            "embed", SlotDataset(BulkJobSpec(
+                name="smoke", dataset=f"synthetic:{BULK_RESUME_SLOTS}", sink=work,
+                seed=bulk_run.SMOKE_SEED, image_size=c.image_size)).read(0, 8)).tobytes()
+        report["kill_and_resume"] = smoke
+        emit({"phase": "bulk", "part": "kill_and_resume", **smoke})
+
+        # (3) scavenging under a closed loop of one client
+        rng = np.random.default_rng(33)
+        shape = (c.channels, c.image_size, c.image_size)
+        plan = [rng.standard_normal((int(k),) + shape).astype(np.float32)
+                for k in rng.integers(1, 8, BULK_PLAN_REQUESTS)]
+        x1 = rng.standard_normal((1,) + shape).astype(np.float32)
+
+        def idle_slots():
+            return engine.registry.snapshot().get("bulk_idle_slots_total", 0)
+
+        def loop(job=None):
+            """The plan's answers, each answer's host-clock ms, the loop's
+            launches and the idle buckets the job ran meanwhile (the job
+            paused, its chunks in flight settled, at both edges of the
+            count; each idle bucket a whole chunk of GRAPH_BUCKETS[-1]
+            slots while no shard reaches its end)."""
+            observed = engine.quality.observed
+            if job:
+                engine.bulk.pause(job, wait=True)
+            reset_launches()
+            idle0 = idle_slots()
+            if job:
+                engine.bulk.resume(job)
+            answers, ms = [], []
+            for x in plan:
+                t0 = time.perf_counter()
+                answers.append(engine.submit("embed", x).result(timeout=120))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            wait_quality(engine, observed + len(plan))
+            if job:
+                engine.bulk.pause(job, wait=True)
+                ends = [s for s in engine.bulk.status(job)["shards"] if s["cursor"] >= s["hi"]]
+                if ends:
+                    raise AssertionError(f"bulk: a shard of {job!r} ended in the loop {ends}")
+            launches, idle = launch_counts(), idle_slots() - idle0
+            if job:
+                engine.bulk.resume(job)
+            if idle % GRAPH_BUCKETS[-1]:
+                raise AssertionError(f"bulk: {idle} idle slots in the loop, not whole buckets")
+            return answers, ms, launches, idle // GRAPH_BUCKETS[-1]
+
+        none_answers, none_ms, none_launches, _ = loop()
+        none_b1 = embed_ms(engine, x1, BULK_B1_REQUESTS)
+        load = {"name": "load", "dataset": f"synthetic:{BULK_LOAD_SLOTS}", "transform": "embed",
+                "sink": os.path.join(work, "load_out"), "seed": 34}
+        half = BULK_LOAD_SLOTS // 2
+        engine.bulk.submit({**load, "shard": [0, half]})
+        engine.bulk.submit({**load, "shard": [half, BULK_LOAD_SLOTS]})
+        job_answers, job_ms, job_launches, idle_buckets = loop("load")
+        observed = engine.quality.observed
+        job_b1 = embed_ms(engine, x1, BULK_B1_REQUESTS)
+        # neither the last request's post-pass nor a chunk of the job may
+        # replay inside the index job's count below
+        wait_quality(engine, observed + BULK_B1_REQUESTS)
+        status = engine.bulk.pause("load", wait=True)
+        engine.bulk.cancel("load")
+        snap = engine.registry.snapshot()
+        per_replay = want_launches(c.default_iters)
+        expected = {k: none_launches[k] + idle_buckets * per_replay[k] for k in none_launches}
+        mismatched = [i for i, (a, b) in enumerate(zip(none_answers, job_answers))
+                      if a.tobytes() != b.tobytes()]
+        scavenged = snap.get("bulk_scavenged_slots_total", 0)
+        if (mismatched or not scavenged or job_launches != expected
+                or status["status"] == "done" or snap.get("serving_graph_captures")):
+            raise AssertionError(f"bulk scavenging: answers differ at {mismatched}, scavenged "
+                                 f"{scavenged}, launches {job_launches} against {expected}, "
+                                 f"job {status['status']}")
+        report["scavenging"] = {
+            "requests": BULK_PLAN_REQUESTS, "images": sum(len(x) for x in plan),
+            "answers_bitwise_without_job": True, "bulk_scavenged_slots_total": scavenged,
+            "bulk_idle_slots_total_all_phase": snap.get("bulk_idle_slots_total"),
+            "idle_buckets_during_loop": idle_buckets,
+            "launches_without_job": none_launches, "launches_with_job": job_launches,
+            "load_job_done_before_cancel": status["done"],
+            "loop_ms_without_job": latency_block(none_ms),
+            "loop_ms_with_job": latency_block(job_ms),
+            "loop_p50_rise_ms": pct(job_ms, 50) - pct(none_ms, 50),
+            "loop_p99_rise_ms": pct(job_ms, 99) - pct(none_ms, 99),
+            "embed_b1_ms_without_job": latency_block(none_b1),
+            "embed_b1_ms_with_idle_job": latency_block(job_b1),
+            "b1_p50_rise_ms": pct(job_b1, 50) - pct(none_b1, 50),
+            "b1_p99_rise_ms": pct(job_b1, 99) - pct(none_b1, 99)}
+        emit({"phase": "bulk", "part": "scavenging", **report["scavenging"]})
+
+        # (4) the index build, then /similar over it
+        index_dir = os.path.join(work, "index")
+        spec = {"name": "index", "dataset": f"synthetic:{INDEX_IMAGES}", "transform": "index",
+                "sink": index_dir, "seed": 35}
+        reset_launches()
+        engine.bulk.submit(spec)
+        index_s = wait_job(engine, "index")
+        index_launches = launch_counts()
+        replays = -(-INDEX_IMAGES // 8)
+        check_launches("bulk index job", index_launches,
+                       want_launches(c.default_iters * replays))
+        corpus = SlotDataset(BulkJobSpec(**spec, image_size=c.image_size)).read(0, INDEX_IMAGES)
+        picks = [int(p) for p in np.random.default_rng(36).choice(INDEX_IMAGES, SIMILAR_QUERIES,
+                                                                   replace=False)]
+        report["index"] = {"slots": INDEX_IMAGES, "seconds": index_s, "launches": index_launches,
+                           "similar": similar_report(engine, corpus, picks, index_dir, L)}
+        emit({"phase": "bulk", "part": "index", **report["index"]})
+
+        # (5) the bucket and offset bit check
+        bits_ds = SlotDataset(BulkJobSpec(name="bits", dataset="synthetic:24", sink=work,
+                                          seed=37, image_size=c.image_size))
+        report["bits"] = {"pallas/embed": bucket_offset_bits(engine, "embed", bits_ds),
+                          "pallas/index": bucket_offset_bits(engine, "index", bits_ds)}
+        report["pool_bytes_unchanged"] = engine.graph_pool_bytes() == pools_before
+    finally:
+        free_engines(engine)
+    fused = ServingEngine(ckpt, device=device, ff_impl="fused", buckets=GRAPH_BUCKETS,
+                          reload_poll_s=0, quality_sample=0)
+    try:
+        report["bits"]["fused/embed"] = bucket_offset_bits(fused, "embed", bits_ds)
+    finally:
+        free_engines(fused)
+    emit({"phase": "bulk", "part": "bits", **report["bits"]})
+    emit({"phase": "bulk", "card": nvidia_smi(),
+          "config": {"dim": c.dim, "levels": L, "ff_impl": "pallas", "buckets": GRAPH_BUCKETS},
+          "predicted": BULK_PREDICTED,
+          "measured": {"idle_slots_per_s": report["idle"]["slots_per_s"],
+                       "share_of_replay_bound": report["idle"]["share_of_replay_bound"],
+                       "b1_p50_rise_ms": report["scavenging"]["b1_p50_rise_ms"],
+                       "b1_p99_rise_ms": report["scavenging"]["b1_p99_rise_ms"],
+                       "loop_p50_rise_ms": report["scavenging"]["loop_p50_rise_ms"],
+                       "loop_p99_rise_ms": report["scavenging"]["loop_p99_rise_ms"],
+                       "scavenged_answers": "bitwise",
+                       "pool_bytes_unchanged": report["pool_bytes_unchanged"]},
+          "launches": main_launches,
+          "time_note": "slots_per_s: host clock from the submit to the job's done; "
+                       "chunk_device_ms: CUDA events around each chunk's graph replay; "
+                       "embed_b8_replay_ms: time_ms of the b=8 graph alone; b1 latencies: "
+                       "host clock of engine.submit to the answer, one after another"})
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return main_launches
+
+
+def phase_attribution(device) -> dict:
+    """whyslow's smoke (tools/whyslow.py) at flagship on "pallas", buckets 1
+    and 2, through the kernels: baseline traffic over HTTP from four
+    clients, then a canary at fraction 1.0 under candidate:delay; exactly
+    one cause, the deploy_canary event at its step, queue_wait the majority
+    phase, no capture on the request path, the op-diff plane None (no
+    compile snapshots in the port) and a byte-identical verdict on
+    re-attribution.  The main path is the regression window: the counts
+    are set to 0 once the candidate's graphs are captured and read after the
+    smoke, so they hold replays alone (each /embed replay and each quality
+    post-pass of 12 iterations: K1 24 + K4 12), and each count must be a
+    whole, nonzero number of replays."""
+    from glom_tpu_torch.tools import whyslow
+
+    ckpt = flagship_ckpt("chip_smoke_attribution_ckpt", seed=38)
+    t0 = time.perf_counter()
+    report = whyslow.run_smoke(str(device), checkpoint_dir=ckpt, on_canary=reset_launches)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    per_replay = want_launches(kernel_config().default_iters)
+    replays = {k: launches[k] // n for k, n in per_replay.items() if n}
+    if (report["smoke"] != "ok"
+            or any(launches[k] % n or not launches[k] for k, n in per_replay.items() if n)
+            or any(launches[k] for k, n in per_replay.items() if not n)):
+        raise AssertionError(f"attribution smoke at flagship: {report['checks']}, "
+                             f"{report['requests']}, {report['verdict']['verdict']}, "
+                             f"launches {launches} against {per_replay} a replay")
+    verdict = report["verdict"]
+    emit({"phase": "attribution", "card": nvidia_smi(), "seconds": seconds,
+          "checks": report["checks"], "requests": report["requests"],
+          "verdict": verdict["verdict"], "confidence": verdict["confidence"],
+          "knee": verdict["knee"], "regression": verdict["regression"],
+          "phases": verdict["phases"][:4], "causes": verdict["causes"],
+          "op_diff": verdict["op_diff"], "launches": launches,
+          "replays_in_window": replays})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 _TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
                   "consensus_dkv", "consensus_dq"}
 BENCH_LEGS = (
@@ -4141,7 +4531,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
-          "bench")
+          "bulk", "attribution", "bench")
 
 
 def parse_args(argv):
@@ -4161,7 +4551,9 @@ def parse_args(argv):
                         "models, session_check and the loadgen's session and tenant modes, "
                         "fault injection; quality, capacity: the quality post-pass family, "
                         "its shadow agreement and smoke, the capacity smoke, duty cycle, "
-                        "--suggest-buckets and --capacity-ceiling; bench: the "
+                        "--suggest-buckets and --capacity-ceiling; bulk, attribution: the "
+                        "bulk tier (an idle job, kill and resume, scavenging, the index "
+                        "build, the bucket bit check) and whyslow's smoke; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -4174,13 +4566,14 @@ def parse_args(argv):
 
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
-# deploy, session-tool, fault, quality and capacity paths, in the full run's
-# order
+# deploy, session-tool, fault, quality, capacity, bulk and attribution paths,
+# in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
                 "session_tools": phase_session_tools, "faults": phase_faults,
-                "quality": phase_quality, "capacity": phase_capacity}
+                "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
+                "attribution": phase_attribution}
 
 
 def run_only(device, names) -> int:
@@ -4242,8 +4635,8 @@ def main(argv=()) -> int:
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
-    # _session_tools, _faults, _quality, _capacity: each of those paths' main
-    # run
+    # _session_tools, _faults, _quality, _capacity, _bulk, _attribution: each
+    # of those paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]
@@ -4295,6 +4688,8 @@ def main(argv=()) -> int:
             summary[-1]["k6_plus_k7"] = {k: pair[k] for k in (
                 "case", "dtype", "work", "kernel_ms", "k6_ms", "k7_ms", "bound_ms", "bound_by",
                 "bound_3xtf32_ms")}
+        if name == "grouped_ff_dx":
+            summary[-1]["library_case"] = main_rows[name].get("library")
         if name == "grouped_ff_dw":
             pair = main_rows["grouped_ff_dx+grouped_ff_dw"]
             summary[-1]["library_case"] = main_rows[name].get("library")

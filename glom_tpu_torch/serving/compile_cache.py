@@ -58,6 +58,7 @@ under the inner cache's lock.
 from __future__ import annotations
 
 import bisect
+import gc
 import threading
 import time
 from contextlib import contextmanager
@@ -182,16 +183,32 @@ def _capture_graph(fn, args, device, pool):
     """``fn(*args)`` run once eagerly on the side stream (kernel builds,
     planner caches, cuBLAS handles and cached constants are made there),
     then captured: ``(graph, outputs, launches)``.  The caller holds the
-    device lock alone."""
+    device lock alone.
+
+    Destroying a graph while another is being captured invalidates the
+    capture (CUDA error 901) when the capture forbids such calls process-wide.
+    A set's graphs can be freed on any thread: by a reference count that
+    drops (a rollback or a reload commit releasing a retired set) or by a
+    cyclic collection (a dropped engine).  So the capture forbids unsafe calls
+    on its own thread only (``capture_error_mode="thread_local"``; the device
+    lock keeps every other replay and capture out), and Python's cyclic
+    collection, which may run on the capturing thread itself, is off during
+    it."""
     side = _side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         fn(*args)
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with _common.recording_launches() as launches:
-        with torch.cuda.graph(graph, pool=pool):
-            outputs = fn(*args)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with _common.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                outputs = fn(*args)
+    finally:
+        if collecting:
+            gc.enable()
     return graph, outputs, dict(launches)
 
 

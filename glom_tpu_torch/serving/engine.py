@@ -126,9 +126,20 @@ of its obs modules):
     A post-pass that raises is counted (``quality_post_pass_failures``) and
     answered by nothing else.  ``quality_sample <= 0`` builds no family.
 
+The bulk tier (:mod:`.bulk`; ``bulk_dir``): scavenger-class offline jobs
+over a durable job store.  The runner adopts every unfinished job of the
+store at construction (resume after a kill needs no operator), fills the
+padding rows of a primary group's bucket with bulk slots (the online rows
+first; the futures, the shadow mirror, the quality sampler and the
+accounting see only theirs), and replays whole buckets from its own thread
+while no batcher holds a queued image.  Either way the bulk rows go through
+the same cache call as online rows: the graphs captured at start-up, never
+a new capture.  ``/admin/jobs/*`` drives it; ``/healthz`` carries its
+summary as ``bulk``.
+
 Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (forensics bundles, bulk jobs, a device mesh) are refused by name when
-set: :data:`UNPORTED`.
+yet (forensics bundles, a device mesh) are refused by name when set:
+:data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -191,7 +202,6 @@ UNPORTED = {
     "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
     "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
     "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
-    "bulk_dir": (None, f"serving/bulk.py ({_Q}, item 4.7)"),
 }
 
 
@@ -517,6 +527,7 @@ class ServingEngine:
         capacity_ceiling: Optional[float] = None,
         quality_sample: float = 1.0,
         quality_seed: int = 0,
+        bulk_dir: Optional[str] = None,
         **unported,
     ):
         refuse_unported(unported)
@@ -684,6 +695,19 @@ class ServingEngine:
                 "capacity_recommendation", action=rec["action"],
                 reasons=rec.get("reasons", []), persisted=rec.get("persisted", 0)))
 
+        # -- the bulk tier: with a bulk_dir the runner adopts every
+        # unfinished job of the store now (resume after a kill is
+        # zero-touch), scavenges bucket padding from process_once and runs
+        # idle buckets from its own thread (started with the workers)
+        self.bulk = None
+        # the clock when an online batch last started or ended (the idle
+        # buckets' grace runs from it)
+        self.online_at = float("-inf")
+        if bulk_dir is not None:
+            from glom_tpu_torch.serving.bulk import BulkRunner
+
+            self.bulk = BulkRunner(self, bulk_dir, clock=self._clock)
+
         # -- staged (two-phase) reload: ``_staged`` is a set loaded and
         # captured but not serving; ``_prev`` the set a commit displaced
         self._staged: Optional[ServingSet] = None
@@ -803,6 +827,10 @@ class ServingEngine:
                                  daemon=True)
             t.start()
             self._threads.append(t)
+        if workers and self.bulk is not None:
+            # idle buckets need live workers to preempt them; workers=False
+            # tests drive bulk.run_idle_once() by hand
+            self.bulk.start()
 
     def shutdown(self, *, drain: bool = True, timeout: float = 30.0) -> None:
         """Close admission, let queued work flush (``drain=True``) or fail it,
@@ -810,6 +838,11 @@ class ServingEngine:
         for batcher in self.batchers.values():
             batcher.close(drain=drain)
         self._stop.set()
+        if self.bulk is not None:
+            # before the workers are joined: a chunk still staged is never
+            # committed, so the durable cursor stays at the last completed
+            # part and the next engine over the store re-executes it
+            self.bulk.stop()
         self.deploy.close()
         self.capacity.stop()  # a no-op unless its timer thread was started
         deadline = time.monotonic() + timeout
@@ -1111,6 +1144,7 @@ class ServingEngine:
         batch = self.batchers[endpoint].next_batch(block=block, timeout=timeout)
         if not batch:
             return 0
+        self.online_at = self._clock()
         # the batch span (made at take) feeds the duration histograms; each
         # member request's root span mirrors the same physical operations
         batch_span = batch[0].batch_span
@@ -1143,11 +1177,25 @@ class ServingEngine:
             n = imgs.shape[0]
             group_ctxs = ([batch_span] if batch_span is not None else []) + [
                 it.ctx for it in items if it.ctx is not None]
+            bulk_token = None
             try:
                 serving, retired = self._resolve_group(primary, mkey)
                 cache = serving.caches[endpoint]
+                exec_imgs = imgs
+                if mkey is None and self.bulk is not None:
+                    # scavenge: the bucket pads to its size anyway, so bulk
+                    # slots fill the padding and the same replay runs them;
+                    # the online rows come first and everything below sees
+                    # only out[:n]
+                    bucket = cache.pick(n)
+                    if bucket is not None and bucket > n:
+                        bulk_token = self.bulk.fill(endpoint, bucket - n)
+                        if bulk_token is not None:
+                            exec_imgs = np.concatenate([imgs, bulk_token.imgs])
                 t0 = self._clock()
-                out = cache(serving.params, imgs, tracer=self.tracer, contexts=group_ctxs)
+                out_all = cache(serving.params, exec_imgs, tracer=self.tracer,
+                                contexts=group_ctxs)
+                out = out_all[:n] if bulk_token is not None else out_all
                 if mkey is not None and mkey[1] is not None and not retired:
                     # the canary group's fault seam: a delay is latency the
                     # client sees, never an error
@@ -1157,6 +1205,9 @@ class ServingEngine:
                     elif kind == "error":
                         raise faultinject.FaultError("injected candidate error")
             except Exception as e:  # the group's callers get the error
+                if bulk_token is not None:
+                    # nothing was committed: the staged slots run again later
+                    self.bulk.abandon(bulk_token)
                 for item in items:
                     if not item.future.done():
                         item.future.set_exception(e)
@@ -1170,6 +1221,8 @@ class ServingEngine:
             if mkey is None:
                 primary_imgs, primary_out, primary_items = imgs, out, items
             self._account_batch(endpoint, cache, n, batch_s)
+            if bulk_token is not None:
+                self.bulk.commit(bulk_token, out_all[n:])
             if mkey is not None and mkey[0] != "default":
                 self.registry.counter(self.registry.labeled("serving_model_requests_", mkey[0]),
                                       help="images served per non-default registry model").inc(n)
@@ -1188,6 +1241,7 @@ class ServingEngine:
         if (primary_imgs is not None and "quality" in primary.caches
                 and self.quality.should_sample()):
             self._observe_quality(endpoint, primary, primary_imgs, primary_items)
+        self.online_at = self._clock()
         return served
 
     def _worker_loop(self, endpoint: str) -> None:
@@ -1593,6 +1647,9 @@ class ServingEngine:
             # router's health poll is also its capacity and sketch feed
             "capacity": self.capacity.summary(),
             "quality": self.quality.summary(),
+            # the bulk summary rides /healthz too: per-shard durable cursors
+            # a fleet router re-partitions a dead replica's range from
+            "bulk": None if self.bulk is None else self.bulk.summary(),
             "graphs": {ep: {"graphed": cache.graphed, "warmup_seconds": cache.warmup_seconds,
                             "launches_per_replay": cache.launches_per_replay()}
                        for ep, cache in serving.caches.items()},

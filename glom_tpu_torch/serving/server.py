@@ -44,7 +44,13 @@ its single-replica routes and JSON contract).
     ``canary`` take an optional ``{"step": N}``, ``canary`` a
     ``"fraction"``): "nothing to deploy" is a 200 with a null
     ``candidate_step``, a settle verb with no deploy or a second deploy
-    while one is active a 409.
+    while one is active a 409;
+  * ``POST /admin/jobs/{submit,status,pause,resume,cancel}`` and ``GET
+    /admin/jobs/status[?name=]`` -- the bulk tier (``--bulk-dir``): submit
+    takes ``{"name", "dataset", "transform", "sink", ...}`` (optionally a
+    fleet ``"shard": [lo, hi]``), the others ``{"name"}``; an unknown job is
+    a 404, an identity clash or a done job's resubmit a 409, and every verb
+    is a 404 when the tier is off.
 
 A batched request may name an extra model (``--model NAME=DIR``) in its
 ``model`` field (400 for one not resident); otherwise the deploy's canary
@@ -116,6 +122,7 @@ _HEX_ID = re.compile(r"[0-9a-f]{1,32}")
 _TENANT_RE = re.compile(r"[A-Za-z0-9._-]{1,64}")
 _TENANT_OVERLOADED = "tenant admission quota exhausted; back off"
 _BAD_SESSION = "want 1-128 chars of [A-Za-z0-9._:-]"
+_BULK_OFF = "bulk tier disabled on this engine (start with --bulk-dir)"
 
 
 class ServingHTTPServer(ThreadingHTTPServer):
@@ -272,6 +279,19 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200, engine.quality.payload())
         elif parsed.path == "/admin/deploy/status":
             self._reply(200, engine.deploy.status())
+        elif parsed.path == "/admin/jobs/status":
+            # the bulk jobs' progress, the GET mirror of the POST verb:
+            # ?name= narrows it to one job
+            if engine.bulk is None:
+                self._reply(404, {"error": _BULK_OFF})
+                return
+            from urllib.parse import parse_qs
+
+            name = parse_qs(parsed.query).get("name", [None])[0]
+            try:
+                self._reply(200, engine.bulk.status(name))
+            except KeyError as e:
+                self._reply(404, {"error": str(e)})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -342,6 +362,37 @@ class _Handler(BaseHTTPRequestHandler):
             # a second concurrent deploy, a bad fraction: the caller's error
             self._reply(409, {"error": str(e)})
 
+    def _do_jobs_admin(self):
+        """The bulk tier's verbs (``bulk_run``, or a fleet router sharding a
+        job): control-plane calls, untraced."""
+        engine = self.server.engine
+        if engine.bulk is None:
+            self._reply(404, {"error": _BULK_OFF})
+            return
+        action = self.path[len("/admin/jobs/"):]
+        payload = (self._read_json() if int(self.headers.get("Content-Length") or 0) > 0
+                   else {})
+        if payload is None:
+            return
+        try:
+            if action == "submit":
+                self._reply(200, engine.bulk.submit(payload))
+            elif action == "status":
+                self._reply(200, engine.bulk.status(payload.get("name")))
+            elif action == "pause":
+                self._reply(200, engine.bulk.pause(payload["name"]))
+            elif action == "resume":
+                self._reply(200, engine.bulk.resume(payload["name"]))
+            elif action == "cancel":
+                self._reply(200, engine.bulk.cancel(payload["name"]))
+            else:
+                self._reply(404, {"error": f"no jobs action {action!r}"})
+        except KeyError as e:
+            self._reply(404, {"error": f"unknown job: {e}"})
+        except (RuntimeError, ValueError) as e:
+            # an identity clash, an overlapping shard, a done job's resubmit
+            self._reply(409, {"error": str(e)})
+
     def do_POST(self):  # noqa: N802
         self._request_id = None  # reset before routing (keep-alive reuse)
         if self.path.startswith("/admin/reload/"):
@@ -349,6 +400,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if self.path.startswith("/admin/deploy/"):
             self._do_deploy_admin()
+            return
+        if self.path.startswith("/admin/jobs/"):
+            self._do_jobs_admin()
             return
         if self.path == "/admin/quality/ref":
             # freeze the live quality sketches as the drift reference,
@@ -665,7 +719,6 @@ _REFUSED = {
     "--mesh-shape": (1, "mesh_shape"),
     "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
-    "--bulk-dir": (1, "bulk_dir"),
     "--forensics-dir": (1, "forensics_dir"),
     "--warmup-dir": (1, "warmup_dir"),
 }
@@ -737,6 +790,10 @@ def parse_args(argv=None):
                    help="enable POST /similar over the level index in DIR (written by "
                         "hierarchy/index.py::write_index_parts); parts that land later "
                         "are seen by later queries")
+    p.add_argument("--bulk-dir", default=None, metavar="DIR",
+                   help="enable the bulk tier: the job store of scavenger-class offline jobs "
+                        "(POST /admin/jobs/*); unfinished jobs in the store resume at start-up "
+                        "from their durable cursors")
     p.add_argument("--ff-impl", default=None, choices=["dense", "pallas", "fused"],
                    help="override the checkpoint config's choice (default: keep it). "
                         "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
@@ -838,6 +895,7 @@ def engine_from_args(args, **overrides) -> ServingEngine:
         capacity_policy=args.capacity_policy, capacity_window_s=args.capacity_window_s,
         capacity_persist_windows=args.capacity_persist_windows,
         capacity_ceiling=args.capacity_ceiling, quality_sample=args.quality_sample,
+        bulk_dir=args.bulk_dir,
     )
     kwargs.update(overrides)
     return ServingEngine(args.checkpoint_dir, **kwargs)

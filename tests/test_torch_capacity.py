@@ -11,6 +11,8 @@ fleet plane ingests the port engine's ``/healthz`` summary as it ingests its
 own, ``--buckets-file`` takes ``trace_report --suggest-buckets``'s payload,
 the port's ``trace_report`` equals glom_tpu's on the same feeds, and
 ``python -m glom_tpu_torch.tools.capacity --smoke`` passes on the CPU.
+glom_tpu's fleet router also shards a bulk job across two port replicas
+through their ``/admin/jobs/*`` and ``/healthz["bulk"]``.
 """
 
 import copy
@@ -313,6 +315,68 @@ def test_glom_tpus_fleet_plane_ingests_the_port_engines_health(served):
     assert payload["replicas"]["torch-r0"] == summary["signals"]
     assert rec["signals"]["imgs_per_sec"] == pytest.approx(summary["signals"]["imgs_per_sec"]
                                                            + 5.0)
+
+
+# a slot at bucket 1 against the same slot at a larger bucket on the CPU
+# (tests/test_torch_bulk.py's bit check): the plain matmuls sum a one-image
+# batch in another order
+BUCKET1_ATOL = 1e-6
+
+
+def test_glom_tpus_router_shards_a_job_across_two_port_replicas(ckpt, tmp_path):
+    """glom_tpu's FleetRouter in front of two port engines: a synthetic job
+    is cut across both, each replica's idle buckets run its shard into the
+    shared sink, the router reads every cursor from their ``/healthz["bulk"]``
+    and calls the job done.  The assembled output equals a single engine's:
+    bitwise on every slot that ran at a bucket above 1 in both runs, within
+    BUCKET1_ATOL on a slot that ran at bucket 1 in one of them (the
+    control's tail chunk [12, 13); the second shard's tail [11, 13) runs at
+    bucket 4)."""
+    from glom_tpu.bulk.jobs import ChunkSink as JaxChunkSink
+    from glom_tpu.serving.router import FleetRouter
+
+    total, sink = 13, str(tmp_path / "out")
+    payload = {"name": "fleet", "dataset": f"synthetic:{total}", "transform": "embed",
+               "sink": sink, "seed": 4}
+    replicas = []
+    for name in ("r0", "r1"):
+        engine = ServingEngine(ckpt, device="cpu", buckets=(1, 4), reload_poll_s=0,
+                               quality_sample=0, bulk_dir=str(tmp_path / f"store_{name}"))
+        engine.start(workers=False, watch=False)
+        srv = server.make_server(engine)
+        threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                         daemon=True).start()
+        replicas.append((engine, srv, "http://127.0.0.1:%d" % srv.server_address[1]))
+    router = FleetRouter([url for _, _, url in replicas], names=["r0", "r1"])
+    try:
+        router.check_health_once(force=True)
+        status = router.submit_job(dict(payload))
+        assert status["owners"] == {"r0": [[0, 7]], "r1": [[7, 13]]}
+        for engine, _, _ in replicas:
+            while engine.bulk.run_idle_once():
+                pass
+        router.check_health_once(force=True)
+        done = router.job_status("fleet")
+        bulks = [_get(url + "/healthz")["bulk"] for _, _, url in replicas]
+    finally:
+        for engine, srv, _ in replicas:
+            srv.shutdown()
+            srv.server_close()
+            engine.shutdown(drain=False)
+    assert done["status"] == "done" and done["done"] == total
+    assert [b["jobs"]["fleet"]["shards"][0]["cursor"] for b in bulks] == [7, 13]
+    got = JaxChunkSink(sink).assemble(total)
+    control = ServingEngine(ckpt, device="cpu", buckets=(1, 4), reload_poll_s=0,
+                            quality_sample=0, bulk_dir=str(tmp_path / "store_control"))
+    try:
+        control.bulk.submit(dict(payload, sink=str(tmp_path / "control")))
+        while control.bulk.run_idle_once():
+            pass
+    finally:
+        control.shutdown(drain=False)
+    want = JaxChunkSink(str(tmp_path / "control")).assemble(total)
+    assert got[:12].tobytes() == want[:12].tobytes()
+    assert np.abs(got[12] - want[12]).max() <= BUCKET1_ATOL
 
 
 def test_trace_report_is_glom_tpus_on_a_served_feed_and_the_golden_one(served):

@@ -10,8 +10,9 @@ Tests marked ``gpu`` hold every bucket's replayed graph against the same
 engine's eager forward bit for bit (also at int8, for the session families
 and for ``/parse``, and ``/parse`` at buckets captured on the request path), the launch counts under replay, a hot reload under
 replaying workers, reloads and shadow -> rollback cycles that keep allocated
-memory, a promote (local or router-pinned) that captures nothing, and a
-capture that must fail (in a process of its own); without a card they skip.  This file imports JAX only inside the parity tests, so on
+memory, a promote (local or router-pinned) that captures nothing, a
+capture that outlives a graph freed on another thread, and a capture that
+must fail (in a process of its own); without a card they skip.  This file imports JAX only inside the parity tests, so on
 the GPU machine (which has no JAX)
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_compile_cache.py
@@ -344,6 +345,34 @@ def test_every_bucket_replays_bitwise_the_eager_forward(cuda, card_ckpt, ff_impl
             x = rng.standard_normal((b, 3, 16, 16)).astype(np.float32)
             np.testing.assert_array_equal(engine.run(endpoint, x), engine.run_eager(endpoint, x))
     assert engine.registry.snapshot().get("serving_graph_captures") is None
+
+
+@pytest.mark.gpu
+def test_a_graph_freed_on_another_thread_leaves_a_capture_valid(cuda):
+    """A retired set's graphs are freed where their last reference drops, on
+    any thread (a rollback, a reload's commit); such a free while another
+    graph is captured must not invalidate that capture."""
+    from glom_tpu_torch.serving.compile_cache import _capture_graph
+
+    x = torch.arange(4.0, device=cuda)
+    held = [_capture_graph(lambda t: t * 2, (x,), cuda, None)[0]]
+    freed = threading.Event()
+
+    def drop():
+        held.clear()                    # the last reference: the graph is destroyed
+        freed.set()
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing():
+            threading.Thread(target=drop).start()
+            assert freed.wait(30)
+        return t + 1
+
+    graph, out, _ = _capture_graph(fn, (x,), cuda, None)
+    assert not held
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1)
 
 
 @pytest.mark.gpu

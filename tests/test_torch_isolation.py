@@ -67,7 +67,10 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.serving.sessions", "glom_tpu_torch.tools.quant_check",
             "glom_tpu_torch.obs.timeseries", "glom_tpu_torch.obs.capacity",
             "glom_tpu_torch.obs.sketch", "glom_tpu_torch.tools.trace_report",
-            "glom_tpu_torch.tools.capacity", "glom_tpu_torch.tools.quality_report"} <= set(mods)
+            "glom_tpu_torch.tools.capacity", "glom_tpu_torch.tools.quality_report",
+            "glom_tpu_torch.bulk", "glom_tpu_torch.bulk.jobs", "glom_tpu_torch.serving.bulk",
+            "glom_tpu_torch.obs.attribution", "glom_tpu_torch.tools.bulk_run",
+            "glom_tpu_torch.tools.whyslow"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -165,6 +168,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
         quant_check.main(["--checkpoint-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(str(tmp_path), quant="int8", warm_iters="auto")
+    from glom_tpu_torch.tools import bulk_run, whyslow
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(str(tmp_path), bulk_dir=str(tmp_path / "jobs"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bulk_run.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        whyslow.main(["--smoke"])
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"

@@ -248,10 +248,12 @@ def test_shed_request_is_503(jax_ckpt):
 
 
 def test_unknown_route_is_404(served):
-    # /parse is served since the part-whole endpoints came to the port, and
-    # /admin/deploy/* since the deploys did; the bulk-job verbs are still
-    # glom_tpu's alone
-    assert _request(served.url + "/admin/jobs/submit", {"name": "x"})[0] == 404
+    # /parse is served since the part-whole endpoints came to the port,
+    # /admin/deploy/* since the deploys did, and /admin/jobs/* since the bulk
+    # tier did: without --bulk-dir they answer glom_tpu's 404
+    code, body = _request(served.url + "/admin/jobs/submit", {"name": "x"})[:2]
+    assert (code, body) == (404, {"error": "bulk tier disabled on this engine "
+                                           "(start with --bulk-dir)"})
     assert _request(served.url + "/nothing")[0] == 404
 
 

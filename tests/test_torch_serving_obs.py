@@ -531,7 +531,6 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
 
 @pytest.mark.parametrize("name,value", [("forensics_dir", "/x"),
                                         ("warmup_dir", "/x"), ("mesh_shape", (1, 4, 1)),
-                                        ("bulk_dir", "/x"),
                                         ("param_sharding", "tp")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
     with pytest.raises(NotImplementedError, match=name):
@@ -592,12 +591,40 @@ def test_unset_unported_arguments_and_unknown_ones(ckpt):
 
 @pytest.mark.parametrize("flag", [["--mesh-shape", "1,4,1"],
                                   ["--forensics-dir", "/x"], ["--warmup-dir", "/x"],
-                                  ["--bulk-dir", "/x"], ["--no-donate"],
-                                  ["--platform", "cpu"]])
+                                  ["--no-donate"], ["--platform", "cpu"]])
 def test_unported_cli_flags_are_refused_by_name(ckpt, flag, capsys):
     with pytest.raises(SystemExit) as e:
         server.main(["--checkpoint-dir", ckpt, "--device", "cpu"] + flag)
     assert e.value.code == 2 and flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("how", ["argument", "flag"])
+def test_bulk_dir_reaches_the_engine_and_serves_jobs(ckpt, how, tmp_path):
+    """``bulk_dir`` (and ``--bulk-dir`` through ``engine_from_args``) builds
+    the bulk tier over that store, as glom_tpu's engine takes it: the
+    ``/admin/jobs/*`` routes answer, and ``/healthz`` carries its summary."""
+    store = str(tmp_path / "jobs")
+    if how == "argument":
+        engine = ServingEngine(ckpt, device="cpu", reload_poll_s=0, warmup=False, bulk_dir=store)
+    else:
+        engine = server.engine_from_args(server.parse_args([
+            "--checkpoint-dir", ckpt, "--device", "cpu", "--reload-poll-s", "0", "--no-warmup",
+            "--bulk-dir", store]))
+    served = _Served(engine, server.make_server, workers=False)
+    try:
+        payload = {"name": "j", "dataset": "synthetic:3", "transform": "embed",
+                   "sink": str(tmp_path / "out")}
+        code, body, _ = _request(served.url + "/admin/jobs/submit", payload)
+        assert code == 200 and (body["name"], body["total"], body["status"]) == ("j", 3, "pending")
+        code, body, _ = _request(served.url + "/admin/jobs/status?name=j")
+        assert code == 200 and body["remaining"] == 3
+        health = _request(served.url + "/healthz")[1]
+        assert health["bulk"]["backlog"] == 3 and engine.bulk.store.root == store
+    finally:
+        served.close()
+    import inspect
+
+    assert "bulk_dir" in inspect.signature(JaxServingEngine.__init__).parameters
 
 
 @pytest.mark.parametrize("flag", ["--capacity-window-s", "--capacity-policy", "--quality-sample",
