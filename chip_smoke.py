@@ -245,6 +245,29 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            None, a byte-identical verdict on re-attribution; the launches of
            the regression window (after the candidate's captures) whole
            replays of K1 24 + K4 12;
+  fleet    the port's router (serving/router.py) at flagship, f32 "pallas",
+           buckets 1/2/4/8, over two replicas spawned in-process by its
+           --spawn path: each replica's memory; an /embed through the router
+           bitwise the serving replica's direct answer and within 1e-3 of
+           the plain path; a window of routed requests (the main path)
+           launching exactly K1 24 + K4 12 a replay plus each sampled
+           batch's quality post-pass, no capture; X-Affinity-Key frames on
+           one replica each; /embed b=1 p50/p99 direct and through the
+           router (100 each, in turns); the loadgen's closed loop through a
+           router over one replica and over both; fail-over (a replica's
+           server shut down under a client's loop: no failed request, the
+           ejection and, after its restart, the re-admission on
+           /debug/timeline); a coordinated rollout under that loop (the
+           captures, the longest exclusive hold, no new -> old answer by the
+           router's admission) and one whose prepare fails through the
+           reload fault seam (both stay on the old step); an index job
+           sharded over both and /similar's merge (each query its own top-1
+           at level 0, glom_tpu's merge rule); the observatory's console;
+           two server processes on the one card under the same closed loop,
+           the busy share from the replays' CUDA-event times beside each
+           loop; loadgen --smoke --fleet (stitched coverage >= 0.95, its
+           spans and parent links); capacity and quality_report --smoke
+           --fleet;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -4408,6 +4431,557 @@ def phase_attribution(device) -> dict:
     return launches
 
 
+# -- the fleet ------------------------------------------------------------------
+FLEET_HOP_REQUESTS = 100
+# clients of the fail-over and rollout loops: in this process, each parse of
+# a 3 MB body holds the interpreter lock, and four clients starved the
+# rollout's captures (110 s, a 6.6 s exclusive hold on the H100; two: 27.6-
+# 42.6 s; PERF.md)
+FLEET_CLIENTS = 1
+FLEET_LOOP_S = 10.0
+FLEET_AFFINITY_KEYS = 3
+FLEET_AFFINITY_FRAMES = 8
+FLEET_QUERIES = 8
+FLEET_INDEX_SLOTS = 64
+FLEET_TIMEOUT_S = 300.0
+# the predictions written into PERF.md before the phase's first run
+FLEET_PREDICTED = {"hop_p50_ms": [1.0, 5.0], "one_process_ratio": [0.9, 1.1],
+                   "two_process_ratio": [1.5, 2.0], "replica_gb": [2.6, 3.0],
+                   "phase_seconds": 150.0}
+
+
+class FleetClients:
+    """``n`` client threads posting ``body`` to ``url``'s /embed one after
+    another until stopped: every answer's ``(sent, received, step,
+    X-Served-By)`` on the host's clock, and every failure."""
+
+    def __init__(self, url: str, body: bytes, n: int = FLEET_CLIENTS):
+        self.url, self.body = url, body
+        self.answers, self.errors = [], []
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, daemon=True) for _ in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            req = urllib.request.Request(f"{self.url}/embed", data=self.body,
+                                         headers={"Content-Type": "application/json"})
+            sent = time.monotonic()
+            try:
+                with urllib.request.urlopen(req, timeout=FLEET_TIMEOUT_S) as r:
+                    served = r.headers.get("X-Served-By")
+                    step = json.loads(r.read())["step"]
+                self.answers.append((sent, time.monotonic(), step, served))
+            except Exception as e:  # recorded: the phase asserts there are none
+                self.errors.append(repr(e))
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=FLEET_TIMEOUT_S)
+
+
+def new_to_old(answers) -> list:
+    """The answers that went back to an older step than one already
+    received: each ``(sent, received, step, ...)`` sent after another's
+    answer of a newer step had arrived.  A coordinated rollout leaves none
+    (glom_tpu/serving/router.py: no client reads step N and is then served
+    N-1 by a later request)."""
+    received = sorted((r, step) for _, r, step, *_ in answers)
+    out, newest, i = [], None, 0
+    for sent, _, step, *_ in sorted(answers):
+        while i < len(received) and received[i][0] < sent:
+            newest = received[i][1] if newest is None else max(newest, received[i][1])
+            i += 1
+        if newest is not None and step < newest:
+            out.append((sent, step, newest))
+    return out
+
+
+def merge_similar(answers, k: int):
+    """glom_tpu's merge of per-replica /similar answers
+    (glom_tpu/serving/router.py::FleetRouter.similar_fanout): per image, the
+    candidates deduped by slot keeping the best score, ranked by (-score,
+    slot), cut to k."""
+    merged = None
+    for payload in answers:
+        if merged is None:
+            merged = [dict() for _ in payload["results"]]
+        for best, hits in zip(merged, payload["results"]):
+            for hit in hits:
+                slot, score = int(hit["slot"]), float(hit["score"])
+                if slot not in best or score > best[slot]:
+                    best[slot] = score
+    return [[{"slot": s, "score": v} for s, v in sorted(best.items(),
+                                                         key=lambda kv: (-kv[1], kv[0]))[:k]]
+            for best in merged]
+
+
+def fleet_closed_loop(url: str) -> dict:
+    """The loadgen's closed loop against ``url`` (its own process, /embed,
+    batch sizes 1-8, concurrency 8, FLEET_LOOP_S)."""
+    return run_loadgen(url, "--concurrency", LOAD_CONCURRENCY, "--duration", FLEET_LOOP_S)
+
+
+def bucket_replays(snapshots) -> dict:
+    """Replays made per bucket between ``(before, after)`` registry
+    snapshot pairs (one a replica): the per-bucket execute span counts."""
+    out = {}
+    for before, after in snapshots:
+        for b in GRAPH_BUCKETS:
+            key = f"serving_execute_ms_b{b}_count"
+            out[b] = out.get(b, 0) + int(after.get(key, 0.0) - before.get(key, 0.0))
+    return out
+
+
+def busy_share(replays: dict, replay_alone_ms: dict, window_s: float) -> float:
+    """The card's busy share over a loop: each bucket's replays (the /embed
+    graph and, every batch being sampled at quality_sample 1.0, its quality
+    post-pass) times that graph's replay time alone (CUDA events), over the
+    loop's wall seconds."""
+    return sum(n * replay_alone_ms[b] for b, n in replays.items()) / 1e3 / window_s
+
+
+def start_server_process(ckpt: str, log_path: str):
+    """``python -m glom_tpu_torch.serving.server`` on the card in a process
+    of its own, on a free port, its output into ``log_path``."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "glom_tpu_torch.serving.server", "--checkpoint-dir", ckpt,
+             "--device", "cuda", "--port", "0", "--reload-poll-s", "0",
+             "--buckets", ",".join(map(str, GRAPH_BUCKETS))],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+
+
+def served_url(proc, log_path: str) -> str:
+    """The base URL of a server process once its ``serving`` line is out."""
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    while time.monotonic() < deadline:
+        with open(log_path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            if line.startswith("{") and '"serving"' in line:
+                rec = json.loads(line)
+                return f"http://{rec['host']}:{rec['port']}"
+        if proc.poll() is not None:
+            raise AssertionError(f"server process exited {proc.returncode}: "
+                                 f"{lines[-20:]}")
+        time.sleep(0.2)
+    raise AssertionError("server process did not start serving in time")
+
+
+def phase_fleet(device) -> dict:
+    """The fleet at flagship width, f32 "pallas", buckets 1/2/4/8: the port's
+    router (``glom_tpu_torch/serving/router.py``) in front of two replicas
+    spawned in-process by its ``--spawn`` path (``_spawn_fleet``; each its
+    own batcher, graph sets and parameters, one job store each, one shared
+    index).  Each replica's memory (allocated on the card, its pools and
+    parameters).  (1) an /embed through the router bitwise the direct answer
+    of the replica that served it (``X-Served-By``) and within SERVE_ATOL of
+    the plain path; (2) the main path, a window of routed requests (counts
+    set to 0 just before, read just after): the launches exactly the served
+    replays times K1 24 + K4 12, plus each sampled batch's quality post-pass
+    (K1 2q + K4 q), no capture; (3) FLEET_AFFINITY_KEYS keys of
+    FLEET_AFFINITY_FRAMES frames each with X-Affinity-Key, each key on one
+    replica; (4) the hop: /embed b=1 p50/p99 direct and through the router,
+    FLEET_HOP_REQUESTS each, in turns; (5) a closed loop (the loadgen, c=8,
+    batch sizes 1-8) through a router over one replica and over both; (6)
+    fail-over: r1's HTTP server shut down under FLEET_CLIENTS clients, no
+    request fails, the router's timeline shows the ejection, and after the
+    server restarts on its port, the re-admission; (7) a coordinated rollout
+    to a new step under the clients: both replicas prepare off the request
+    path (the captures made and the longest exclusive hold), and ordered by
+    dispatch no answer goes from the new step back to the old (no request
+    sent after a new-step answer arrived is answered from the old step);
+    then a rollout whose r1 prepare fails through the port's ``reload``
+    fault seam leaves both on the old step; (8) an index job submitted
+    through the router, sharded over both replicas, then /similar through
+    the router: each of FLEET_QUERIES images its own top-1 at level 0, and
+    the merged top-k glom_tpu's merge of the two replicas' own answers; (9)
+    the fleet observatory's console lists both replicas at the serving step;
+    (10) two replicas as server processes on the one card behind a router:
+    the same closed loop, with the card's busy share from the replays'
+    CUDA-event times beside each loop's; (11) ``loadgen --smoke --fleet`` at
+    flagship: the stitched trace's coverage at least 0.95, its spans and
+    parent links; (12) ``capacity --smoke --fleet`` and ``quality_report
+    --smoke --fleet`` at flagship."""
+    from glom_tpu_torch.bulk.jobs import BulkJobSpec, SlotDataset
+    from glom_tpu_torch.obs.observatory import FleetObservatory, TailSampler
+    from glom_tpu_torch.resilience import faultinject
+    from glom_tpu_torch.serving import compile_cache
+    from glom_tpu_torch.serving import router as router_mod
+    from glom_tpu_torch.tools import capacity as capacity_tool
+    from glom_tpu_torch.tools import loadgen
+    from glom_tpu_torch.tools import quality_report
+
+    t_phase = time.perf_counter()
+    ckpt = flagship_ckpt("chip_smoke_fleet_ckpt", seed=40)
+    work = os.path.join(ROOT, "build", "chip_smoke_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    index_dir = os.path.join(work, "index")
+    os.makedirs(index_dir)
+    c = kernel_config()
+    iters = c.default_iters
+    shape = (c.channels, c.image_size, c.image_size)
+    rng = np.random.default_rng(41)
+    out = {"phase": "fleet", "card": nvidia_smi(), "predicted": FLEET_PREDICTED}
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+
+    # -- the fleet: two replicas through the router's --spawn path ----------
+    mem0 = settled_memory(device)
+    args = type("SpawnArgs", (), {
+        "checkpoint_dir": ckpt, "demo": False, "buckets": ",".join(map(str, GRAPH_BUCKETS)),
+        "max_wait_ms": 5.0, "quant": "f32", "warm_iters": None, "device": str(device),
+        "bulk_dir": os.path.join(work, "store"), "index_dir": index_dir,
+        "parse_thresholds": None, "host": "127.0.0.1"})()
+    t0 = time.perf_counter()
+    urls, members = router_mod._spawn_fleet(2, args)
+    spawn_s = time.perf_counter() - t0
+    mem1 = settled_memory(device)
+    engines = [eng for eng, _ in members]
+    # each replica's own bytes: its graph pools and its parameters (the
+    # card's reserved total also moves with earlier phases' freed pools)
+    out["memory"] = {
+        "per_replica": [{"bytes": sum(b or 0 for b in eng.graph_pool_bytes().values())
+                         + eng.param_bytes(),
+                         "pool_bytes": eng.graph_pool_bytes(), "param_bytes": eng.param_bytes()}
+                        for eng in engines],
+        "allocated_for_two_replicas": mem1["allocated"] - mem0["allocated"],
+        "spawn_seconds": spawn_s}
+    router = router_mod.FleetRouter(urls, health_interval_s=0.2,
+                                    request_timeout_s=FLEET_TIMEOUT_S,
+                                    admin_timeout_s=FLEET_TIMEOUT_S)
+    router.start()
+    front = router_mod.make_router_server(router)
+    threading.Thread(target=front.serve_forever, daemon=True).start()
+    base = "http://{}:{}".format(*front.server_address[:2])
+    servers = [srv for _, srv in members]
+    try:
+        # (1) answers
+        x3 = rng.standard_normal((3,) + shape).astype(np.float32)
+        via, headers = post(base + "/embed", {"images": x3.tolist()})
+        name = headers["X-Served-By"]
+        direct, _ = post(urls[int(name[1:])] + "/embed", {"images": x3.tolist()})
+        if via["embeddings"] != direct["embeddings"]:
+            raise AssertionError("/embed through the router differs from the replica's answer")
+        plain_cfg = plain_of(engines[0].config)
+        with torch.inference_mode():
+            plain = glom_model.apply(engines[0].params["glom"], torch.from_numpy(x3).to(device),
+                                     config=plain_cfg, iters=iters).mean(dim=1).cpu().numpy()
+        err = float(np.abs(np.asarray(via["embeddings"], np.float32) - plain).max())
+        if not err <= SERVE_ATOL:
+            raise AssertionError(f"/embed through the router: {err} from the plain path")
+        out["answers"] = {"served_by": name, "bitwise_replica": True,
+                          "vs_plain_max_abs_err": err, "atol": SERVE_ATOL}
+        part_done("spawn_and_answers")
+
+        # (2) the main path: a window of routed requests
+        plan = (1, 3, 8, 2, 5, 1, 4, 8, 7, 6)
+        bodies = {b: {"images": rng.standard_normal((b,) + shape).astype(np.float32).tolist()}
+                  for b in set(plan)}
+        # (1)'s two requests went to the serving replica: their post-passes
+        # end before the window opens
+        wait_quality(engines[int(name[1:])], 2)
+        q0 = [eng.quality.summary() for eng in engines]
+        made = compile_cache.captures_made()
+        reset_launches()
+        served_by = []
+        for b in plan:
+            _, headers = post(base + "/embed", bodies[b])
+            served_by.append(headers["X-Served-By"])
+        for i, (eng, s0) in enumerate(zip(engines, q0)):
+            wait_quality(eng, s0["observed"] + served_by.count(f"r{i}"))
+        launches = launch_counts()
+        sampled = sum(eng.quality.summary()["sampled"] - s0["sampled"]
+                      for eng, s0 in zip(engines, q0))
+        if sampled != len(plan):     # quality_sample 1.0: every batch
+            raise AssertionError(f"fleet: {sampled} of {len(plan)} batches sampled")
+        q_it = engines[0]._program.quality_iters
+        want = want_launches(iters * len(plan) + q_it * sampled)
+        check_launches("fleet: the routed window", launches, want)
+        if compile_cache.captures_made() != made:
+            raise AssertionError("fleet: a graph was captured on the request path")
+        main_launches = dict(launches)
+        out["main_path"] = {"requests": list(plan), "served_by": served_by,
+                            "replays": len(plan), "quality_replays": sampled,
+                            "quality_iters": q_it, "launches": launches,
+                            "per_replay": want_launches(iters)}
+        part_done("main_path")
+
+        # (3) affinity
+        affinity = {}
+        for k in range(FLEET_AFFINITY_KEYS):
+            key = f"session-{k}"
+            affinity[key] = sorted({post(base + "/embed", bodies[1], {"X-Affinity-Key": key})[1][
+                "X-Served-By"] for _ in range(FLEET_AFFINITY_FRAMES)})
+        if any(len(v) != 1 for v in affinity.values()):
+            raise AssertionError(f"fleet: a session split across replicas: {affinity}")
+        out["affinity"] = affinity
+        part_done("affinity")
+
+        # (4) the router hop: /embed b=1, direct and through the router, in
+        # turns, the body encoded once (as the loadgen sends it)
+        hop = {"direct": [], "router": []}
+        b1 = json.dumps(bodies[1]).encode()
+        for _ in range(FLEET_HOP_REQUESTS):
+            for way, url in (("direct", urls[0]), ("router", base)):
+                req = urllib.request.Request(url + "/embed", data=b1,
+                                             headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=FLEET_TIMEOUT_S) as r:
+                    json.loads(r.read())
+                hop[way].append((time.perf_counter() - t0) * 1e3)
+        out["hop_ms"] = {way: latency_block(xs) for way, xs in hop.items()}
+        out["hop_ms"]["p50_rise"] = pct(hop["router"], 50) - pct(hop["direct"], 50)
+        out["hop_ms"]["p99_rise"] = pct(hop["router"], 99) - pct(hop["direct"], 99)
+        emit({"phase": "fleet", "part": "hop", "card": out["card"], **out["hop_ms"]})
+        part_done("hop")
+
+        # (5) replicas in one process: a router over one replica, then over both
+        replay_alone = {b: replay_ms(engines[0].caches["embed"], b)
+                        + replay_ms(engines[0].caches["quality"], b) for b in GRAPH_BUCKETS}
+        solo = router_mod.FleetRouter(urls[:1], health_interval_s=0.2,
+                                      request_timeout_s=FLEET_TIMEOUT_S)
+        solo.start()
+        solo_front = router_mod.make_router_server(solo)
+        threading.Thread(target=solo_front.serve_forever, daemon=True).start()
+        loops = {}
+        try:
+            for label, url in (("one_replica", "http://{}:{}".format(
+                    *solo_front.server_address[:2])), ("two_replicas_one_process", base)):
+                snaps = [eng.registry.snapshot() for eng in engines]
+                rep = fleet_closed_loop(url)
+                pairs = list(zip(snaps, [eng.registry.snapshot() for eng in engines]))
+                replays = bucket_replays(pairs)
+                loops[label] = {"imgs_per_s": rep["throughput_imgs_per_s"],
+                                "req_per_s": rep["throughput_req_per_s"],
+                                "latency_ms": rep["latency_ms"], "errors": rep["requests_error"],
+                                "per_replica": {k: v["requests_ok"] for k, v in
+                                                (rep.get("per_replica") or {}).items()},
+                                "replays_by_bucket": replays,
+                                "busy_share": busy_share(replays, replay_alone,
+                                                         rep["wall_seconds"])}
+        finally:
+            solo.shutdown()
+            solo_front.shutdown()
+            solo_front.server_close()
+        loops["replay_alone_ms"] = replay_alone
+        loops["one_process_ratio"] = (loops["two_replicas_one_process"]["imgs_per_s"]
+                                      / loops["one_replica"]["imgs_per_s"])
+        emit({"phase": "fleet", "part": "one_process", "card": out["card"], **loops})
+        out["loops"] = loops
+        part_done("one_process_loops")
+
+        # (6) fail-over under the clients, then the re-admission
+        clients = FleetClients(base, b1)
+        time.sleep(1.0)
+        host, port = servers[1].server_address[:2]
+        servers[1].shutdown()
+        servers[1].server_close()
+        time.sleep(2.0)
+        servers[1] = make_server(engines[1], host, port)
+        threading.Thread(target=servers[1].serve_forever, daemon=True).start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not any(
+                e["event"] == "readmission" for e in router.timeline()):
+            time.sleep(0.1)
+        time.sleep(1.0)
+        clients.stop()
+        events = [e for e in router.timeline() if e["event"] in ("ejection", "readmission")]
+        if clients.errors or [e["event"] for e in events] != ["ejection", "readmission"]:
+            raise AssertionError(f"fleet fail-over: {clients.errors[:3]}, events {events}")
+        timeline = get(base + "/debug/timeline")
+        if not {"ejection", "readmission"} <= {e["event"] for e in timeline["events"]}:
+            raise AssertionError("fleet: /debug/timeline lacks the ejection or re-admission")
+        out["fail_over"] = {"answers": len(clients.answers), "errors": 0,
+                            "events": [{k: e[k] for k in ("event", "replica")} for e in events],
+                            "served_by": {r: [a[3] for a in clients.answers].count(r)
+                                          for r in ("r0", "r1")}}
+        part_done("fail_over")
+
+        # (7) a coordinated rollout under the clients, then one that fails
+        for eng in engines:
+            eng._device_lock.longest_exclusive_s = 0.0
+        made = compile_cache.captures_made()
+        clients = FleetClients(base, b1)
+        time.sleep(1.0)
+        make_demo_checkpoint(ckpt, config=c, seed=42, step=1)
+        t0 = time.perf_counter()
+        report, _ = post(base + "/rollout", {})
+        rollout_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        clients.stop()
+        steps = [a[2] for a in sorted(clients.answers)]
+        back = new_to_old(clients.answers)
+        if (report.get("status") != "committed" or report.get("step") != 1 or clients.errors
+                or back or not steps or steps[0] != 0 or steps[-1] != 1
+                or {eng.step for eng in engines} != {1}):
+            raise AssertionError(f"fleet rollout: {report}, errors {clients.errors[:3]}, "
+                                 f"new -> old {back[:3]}, steps {[e.step for e in engines]}")
+        out["rollout"] = {"report": report, "seconds": rollout_s, "answers": len(steps),
+                          "old_answers": steps.count(0), "new_answers": steps.count(1),
+                          "new_to_old": 0,
+                          "captures": compile_cache.captures_made() - made,
+                          "longest_exclusive_hold_s": [eng._device_lock.longest_exclusive_s
+                                                       for eng in engines]}
+        make_demo_checkpoint(ckpt, config=c, seed=43, step=2)
+        original = engines[1].stage_reload
+
+        def seamed_stage(step=None):
+            # r1's prepare passes through the reload fault seam (the engine
+            # polls it only on a prepare that discovers its step)
+            if faultinject.fire("reload") is not None:
+                engines[1]._reload_failure("stage", faultinject.FaultError("injected"))
+                return None
+            return original(step)
+
+        engines[1].stage_reload = seamed_stage
+        try:
+            with faultinject.injected("reload:io_error"):
+                try:
+                    post(base + "/rollout", {"step": 2})
+                    failed = None
+                except urllib.error.HTTPError as e:
+                    failed = e.code, json.loads(e.read())
+        finally:
+            del engines[1].stage_reload
+        if (failed is None or failed[0] != 502 or failed[1].get("status") != "aborted"
+                or {eng.step for eng in engines} != {1}
+                or any(eng._staged is not None for eng in engines)):
+            raise AssertionError(f"fleet: a failed prepare did not abort: {failed}, steps "
+                                 f"{[eng.step for eng in engines]}")
+        out["rollout_fault"] = {"status": failed[0], "report": failed[1],
+                                "steps": [eng.step for eng in engines]}
+        part_done("rollouts")
+
+        # (8) an index job sharded over both replicas, then /similar
+        spec = {"name": "index", "dataset": f"synthetic:{FLEET_INDEX_SLOTS}",
+                "transform": "index", "sink": index_dir, "seed": 35}
+        t0 = time.perf_counter()
+        submitted, _ = post(base + "/admin/jobs/submit", spec)
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while router.job_status("index")["status"] != "done":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"fleet index job: {router.job_status('index')}")
+            time.sleep(0.1)
+        index_s = time.perf_counter() - t0
+        corpus = SlotDataset(BulkJobSpec(**spec, image_size=c.image_size)).read(
+            0, FLEET_INDEX_SLOTS)
+        picks = [int(p) for p in rng.choice(FLEET_INDEX_SLOTS, FLEET_QUERIES, replace=False)]
+        query = {"images": corpus[picks].tolist(), "level": 0, "k": 10}
+        merged, headers = post(base + "/similar", query)
+        own = [post(u + "/similar", query)[0] for u in urls]
+        tops = [hits[0]["slot"] for hits in merged["results"]]
+        if tops != picks or merged["results"] != merge_similar(own, 10) \
+                or headers.get("X-Served-By") != "r0,r1":
+            raise AssertionError(f"fleet /similar: top-1 {tops} for {picks}, "
+                                 f"merge equal {merged['results'] == merge_similar(own, 10)}")
+        out["similar"] = {"owners": submitted["owners"], "index_seconds": index_s,
+                          "top1_self": len(picks), "merge_equals_glom_tpus_rule": True,
+                          "served_by": headers.get("X-Served-By")}
+        part_done("similar")
+
+        # (9) the observatory's console
+        observatory = FleetObservatory(base, sampler=TailSampler(0.0, seed=0),
+                                       http_timeout_s=FLEET_TIMEOUT_S)
+        observatory.poll_once()
+        console = [{k: r[k] for k in ("name", "healthy", "step")}
+                   for r in observatory.console()["replicas"]]
+        if console != [{"name": f"r{i}", "healthy": True, "step": 1} for i in range(2)]:
+            raise AssertionError(f"fleet observatory console: {console}")
+        out["console_replicas"] = console
+        part_done("console")
+    finally:
+        router.shutdown()
+        front.shutdown()
+        front.server_close()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        free_engines(*engines)
+
+    # (10) two replica processes on the one card
+    files = [os.path.join(work, f"server{i}.log") for i in range(2)]
+    procs = [start_server_process(ckpt, f) for f in files]
+    try:
+        purls = [served_url(p, f) for p, f in zip(procs, files)]
+        prouter = router_mod.FleetRouter(purls, health_interval_s=0.2,
+                                         request_timeout_s=FLEET_TIMEOUT_S)
+        prouter.start()
+        pfront = router_mod.make_router_server(prouter)
+        threading.Thread(target=pfront.serve_forever, daemon=True).start()
+        try:
+            snaps = [get(u + "/debug/forensics")["registry"] for u in purls]
+            rep = fleet_closed_loop("http://{}:{}".format(*pfront.server_address[:2]))
+            pairs = list(zip(snaps, [get(u + "/debug/forensics")["registry"] for u in purls]))
+            replays = bucket_replays(pairs)
+            out["loops"]["two_replica_processes"] = {
+                "imgs_per_s": rep["throughput_imgs_per_s"],
+                "req_per_s": rep["throughput_req_per_s"],
+                "latency_ms": rep["latency_ms"], "errors": rep["requests_error"],
+                "per_replica": {k: v["requests_ok"]
+                                for k, v in (rep.get("per_replica") or {}).items()},
+                "replays_by_bucket": replays,
+                "busy_share": busy_share(replays, out["loops"]["replay_alone_ms"],
+                                         rep["wall_seconds"])}
+            out["loops"]["two_process_ratio"] = (
+                rep["throughput_imgs_per_s"] / out["loops"]["one_replica"]["imgs_per_s"])
+        finally:
+            prouter.shutdown()
+            pfront.shutdown()
+            pfront.server_close()
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    part_done("two_processes")
+    emit({"phase": "fleet", "part": "two_processes", "card": out["card"],
+          **out["loops"]["two_replica_processes"],
+          "two_process_ratio": out["loops"]["two_process_ratio"]})
+    if any(out["loops"][k]["errors"] for k in ("one_replica", "two_replicas_one_process",
+                                               "two_replica_processes")):
+        raise AssertionError(f"fleet closed loops: {out['loops']}")
+
+    # (11) the stitched trace at flagship
+    smoke = loadgen.run_smoke(str(device), fleet=True, checkpoint_dir=ckpt)
+    if smoke["smoke"] != "ok":
+        raise AssertionError(f"loadgen --smoke --fleet at flagship: {smoke['checks']}, "
+                             f"coverage {smoke['trace_coverage']}")
+    out["stitched"] = {k: smoke[k] for k in ("trace_coverage", "min_coverage", "hop_links",
+                                             "trace_span_names", "checks")}
+    part_done("stitched")
+
+    # (12) the tools' fleet legs
+    legs = {}
+    for name, tool in (("capacity", capacity_tool), ("quality_report", quality_report)):
+        t0 = time.perf_counter()
+        rep = tool.run_smoke(str(device), checkpoint_dir=ckpt, buckets=(1,), fleet=True)
+        if rep["smoke"] != "ok":
+            raise AssertionError(f"{name} --smoke --fleet at flagship: {rep['checks']}")
+        legs[name] = {"seconds": time.perf_counter() - t0, "checks": rep["checks"]}
+    out["tool_fleet_legs"] = legs
+    part_done("tool_legs")
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return main_launches
+
+
 _TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
                   "consensus_dkv", "consensus_dq"}
 BENCH_LEGS = (
@@ -4531,7 +5105,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
-          "bulk", "attribution", "bench")
+          "bulk", "attribution", "fleet", "bench")
 
 
 def parse_args(argv):
@@ -4553,7 +5127,10 @@ def parse_args(argv):
                         "its shadow agreement and smoke, the capacity smoke, duty cycle, "
                         "--suggest-buckets and --capacity-ceiling; bulk, attribution: the "
                         "bulk tier (an idle job, kill and resume, scavenging, the index "
-                        "build, the bucket bit check) and whyslow's smoke; bench: the "
+                        "build, the bucket bit check) and whyslow's smoke; fleet: the router "
+                        "over two replicas (answers, launches, affinity, the hop, fail-over, "
+                        "rollouts, /similar, the observatory, two server processes, the "
+                        "stitched trace, the tools' fleet legs); bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -4566,14 +5143,14 @@ def parse_args(argv):
 
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
-# deploy, session-tool, fault, quality, capacity, bulk and attribution paths,
-# in the full run's order
+# deploy, session-tool, fault, quality, capacity, bulk, attribution and fleet
+# paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
                 "session_tools": phase_session_tools, "faults": phase_faults,
                 "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
-                "attribution": phase_attribution}
+                "attribution": phase_attribution, "fleet": phase_fleet}
 
 
 def run_only(device, names) -> int:
@@ -4621,22 +5198,33 @@ def main(argv=()) -> int:
     phase_build()
     if args.only is not None:
         return run_only(device, args.only)
-    main_rows, library = phase_kernels(device)
-    launches = phase_serve(device)
-    train_launches, pallas_step_ms = phase_train(device)
-    fused_serve_launches = phase_serve_fused(device)
-    phase_serve_load(device)
-    fused_train_launches = phase_train_fused(device, pallas_step_ms)
-    data_launches = phase_train_data(device)
-    slice_launches = {name: phase(device) for name, phase in SLICE_PHASES.items()}
-    phase_bench(smi, pallas_step_ms)
+    seconds = {}
+
+    def timed_phase(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    main_rows, library = timed_phase("kernels", phase_kernels, device)
+    launches = timed_phase("serve", phase_serve, device)
+    train_launches, pallas_step_ms = timed_phase("train", phase_train, device)
+    fused_serve_launches = timed_phase("serve_fused", phase_serve_fused, device)
+    timed_phase("serve_load", phase_serve_load, device)
+    fused_train_launches = timed_phase("train_fused", phase_train_fused, device, pallas_step_ms)
+    data_launches = timed_phase("train_data", phase_train_data, device)
+    slice_launches = {name: timed_phase(name, phase, device)
+                      for name, phase in SLICE_PHASES.items()}
+    timed_phase("bench", phase_bench, smi, pallas_step_ms)
+    # each phase's host seconds: the run must end inside its time limit
+    emit({"phase_seconds": seconds})
     # launches: the serving path's count for the forward kernels (K8: the
     # fused serving path's), the train path's for the backward ones;
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
-    # _session_tools, _faults, _quality, _capacity, _bulk, _attribution: each
-    # of those paths' main run
+    # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet:
+    # each of those paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]

@@ -1614,6 +1614,23 @@ class ServingEngine:
             self._slo.observe(endpoint, latency_ms, error, trace_id=trace_id,
                               step=self.request_count, tenant=tenant)
 
+    def debug_forensics(self) -> dict:
+        """The ``/debug/forensics`` payload the fleet observatory polls on
+        every replica: ``glom_tpu``'s for an engine with no
+        ``forensics_dir`` (the port writes no bundles until ROADMAP queue 1,
+        item 7), so ``bundles`` is empty; the registry snapshot and the
+        recent SLO firings are this engine's."""
+        # copy `fired` under the SLO lock: request threads append to the
+        # deque inside _slo.observe(), and iterating a deque concurrent
+        # with appends raises RuntimeError
+        if self._slo is not None:
+            with self._slo_lock:
+                slo_fired = list(self._slo.fired)
+        else:
+            slo_fired = []
+        return {"role": "engine", "step": int(self.step), "bundles": [],
+                "registry": self.registry.snapshot(), "slo_fired": slo_fired}
+
     # -- health ------------------------------------------------------------
     def health(self) -> dict:
         """The ``/healthz`` payload: liveness, the model's input contract,

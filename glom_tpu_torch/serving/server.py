@@ -28,7 +28,10 @@ its single-replica routes and JSON contract).
     samples);
   * ``GET /debug/traces?since=N`` -- completed request traces after cursor
     ``N``; ``GET /debug/timeline`` -- the engine's event timeline (capacity
-    recommendations among its events);
+    recommendations among its events); ``GET /debug/forensics`` -- the
+    registry snapshot, the recent SLO firings and the bundle list (empty:
+    the port writes no forensics bundle yet), which the fleet observatory
+    polls;
   * ``GET /capacity`` -- the capacity plane: the policy, the advisor's
     recommendation and history, the per-rule forecasts; ``GET
     /debug/series?name=&prefix=&since=&step=`` -- its series store (no
@@ -273,6 +276,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif parsed.path == "/debug/timeline":
             self._reply(200, {"role": "engine", "step": int(engine.step),
                               "events": engine.timeline.events()})
+        elif parsed.path == "/debug/forensics":
+            self._reply(200, engine.debug_forensics())
         elif parsed.path == "/capacity":
             self._reply(200, engine.capacity.payload())
         elif parsed.path == "/quality":

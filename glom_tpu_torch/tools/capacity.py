@@ -3,7 +3,7 @@
     python -m glom_tpu_torch.tools.capacity report --url http://127.0.0.1:8000
     python -m glom_tpu_torch.tools.capacity query --url http://127.0.0.1:8000 \\
         --name capacity_duty_cycle --since -120 --step 1
-    python -m glom_tpu_torch.tools.capacity --smoke [--device cpu]
+    python -m glom_tpu_torch.tools.capacity --smoke [--fleet] [--device cpu]
 
 ``report`` renders ``GET /capacity`` — the policy, the current
 recommendation (scale-up / scale-down / rebalance / hold, with the
@@ -21,10 +21,12 @@ window the recommendation must flip to **scale-down**; without a ceiling
 there is no utilization; and the request path must never have captured a
 graph (``serving_graph_captures == 0``).  Windows are driven by explicit
 ``tick(t)`` times, so pass/fail does not depend on the host's scheduling;
-only the signal values come from real served requests.  ``tools/capacity.py``
-also puts a fleet router in front of the replica; the port has no router
-yet (ROADMAP queue 1, item 4.11), so that leg is refused by name
-(``--fleet``).  Without ``--device`` the smoke runs on ``cuda``.
+only the signal values come from real served requests.  With ``--fleet`` a
+fleet router (:mod:`glom_tpu_torch.serving.router`) then fronts the replica, as
+``tools/capacity.py``'s smoke does: it must ingest the replica's capacity
+summary from the ``/healthz`` its health loop fetches (labeled per-replica
+series on its ``/capacity``) and log a ``capacity_recommendation`` on its
+timeline.  Without ``--device`` the smoke runs on ``cuda``.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ SMOKE_PERSIST = 3
 SMOKE_BURST = 16
 # a flagship request's JSON body is megabytes: the smoke's HTTP timeout
 TIMEOUT_S = 120.0
-
-FLEET_REFUSED = "the fleet router (ROADMAP queue 1, item 4.11)"
 
 
 def _get_json(url: str, timeout: float = 10.0) -> dict:
@@ -132,10 +132,10 @@ def cmd_query(args) -> int:
 # ---------------------------------------------------------------------------
 # the smoke
 # ---------------------------------------------------------------------------
-def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
-    """The engine-only acceptance loop; returns the report (``"smoke"`` is
-    ``"ok"`` when every check holds).  ``checkpoint_dir`` None serves a demo
-    checkpoint written to a temporary directory."""
+def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2), *, fleet=False) -> dict:
+    """The acceptance loop; returns the report (``"smoke"`` is ``"ok"`` when
+    every check holds).  ``checkpoint_dir`` None serves a demo checkpoint
+    written to a temporary directory; ``fleet`` adds the router leg."""
     import tempfile
     import threading
 
@@ -164,6 +164,7 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
         host, port = server.server_address[:2]
         threading.Thread(target=server.serve_forever, daemon=True).start()
         target = f"http://{host}:{port}"
+        router = router_server = None
         try:
             health = loadgen.fetch_health(target, timeout=TIMEOUT_S)
             payloads = loadgen.make_payloads(health, [1])
@@ -223,6 +224,32 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
                     and "capacity_utilization" not in listing.get("names", [])
                     and "capacity_utilization" not in snap),
             }
+            fleet_cap = rec_events = None
+            if fleet:
+                # the router leg: a router fronting the replica ingests the
+                # capacity summary from /healthz and evaluates its own
+                # (default-policy) fleet advisor each health pass
+                from glom_tpu_torch.serving.router import FleetRouter, make_router_server
+
+                router = FleetRouter([target], health_interval_s=0.2,
+                                     health_timeout_s=TIMEOUT_S)
+                router.start()
+                router_server = make_router_server(router)
+                threading.Thread(target=router_server.serve_forever, daemon=True).start()
+                rtarget = "http://{}:{}".format(*router_server.server_address[:2])
+                fleet_cap = loadgen.poll_until(
+                    lambda: (lambda p: p if p.get("replicas") else None)(
+                        _get_json(f"{rtarget}/capacity", TIMEOUT_S)), timeout_s=30.0)
+                timeline = _get_json(f"{rtarget}/debug/timeline", TIMEOUT_S)
+                rec_events = [e for e in timeline.get("events", [])
+                              if e.get("event") == "capacity_recommendation"]
+                checks.update({
+                    "fleet_ingested": bool(fleet_cap) and fleet_cap.get("role") == "router",
+                    "fleet_replica_series": bool(fleet_cap) and any(
+                        n.startswith("capacity_duty_cycle{")
+                        for n in fleet_cap.get("series_names", [])),
+                    "fleet_recommendation_event": len(rec_events) >= 1,
+                })
             ok = all(checks.values())
             return {
                 "smoke": "ok" if ok else "FAILED",
@@ -235,10 +262,14 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
                 "burst_signals": burst_signals,
                 "pressure_fired": engine.capacity.pressure_fired,
                 "graph_captures": captures,
-                "fleet": f"refused: {FLEET_REFUSED}",
+                "fleet_recommendation": rec_events[-1] if rec_events else None,
                 "checks": checks,
             }
         finally:
+            if router_server is not None:
+                router.shutdown()
+                router_server.shutdown()
+                router_server.server_close()
             server.shutdown()
             engine.shutdown()
             server.server_close()
@@ -256,7 +287,9 @@ def main(argv=None) -> int:
                         "of the kernels")
     p.add_argument("--checkpoint-dir", default=None,
                    help="with --smoke: serve this checkpoint (default: a demo one)")
-    p.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--fleet", action="store_true",
+                   help="with --smoke: then front the replica with a fleet router (the "
+                        "router's capacity plane leg)")
     sub = p.add_subparsers(dest="cmd")
     rep = sub.add_parser("report", help="render GET /capacity")
     rep.add_argument("--url", default="http://127.0.0.1:8000")
@@ -274,10 +307,10 @@ def main(argv=None) -> int:
                    help="desired resolution in seconds (selects the tier)")
     q.add_argument("--format", choices=["text", "json"], default="text")
     args = p.parse_args(argv)
-    if args.fleet:
-        p.error(f"--fleet is not in the port's capacity tool yet: it needs {FLEET_REFUSED}")
+    if args.fleet and not args.smoke:
+        p.error("--fleet goes with --smoke")
     if args.smoke:
-        report = run_smoke(args.device, args.checkpoint_dir)
+        report = run_smoke(args.device, args.checkpoint_dir, fleet=args.fleet)
         print(json.dumps(report, indent=2))
         return 0 if report["smoke"] == "ok" else 1
     if args.cmd == "report":

@@ -44,10 +44,15 @@ echo counts in ``request_id_mismatches``.  The report is one JSON object
 with ``tools/loadgen.py``'s keys: p50/p95/p99/mean/max latency (ms), the
 achieved request and image rates, and the ok, shed and error counts.  Below
 :data:`MIN_TAIL_SAMPLES` answered requests p95 and p99 are null: on fewer
-samples they are the slowest request or two, not a tail.  ``tools/loadgen.py``'s
-``--fleet`` is refused by name: it waits for the fleet router (ROADMAP queue 1,
-item 4.11).  Exit 0 when no request failed, every id was echoed and no session
-split across replicas.
+samples they are the slowest request or two, not a tail.  Pointed at a
+router (``python -m glom_tpu_torch.serving.router``), the report gains a
+``per_replica`` section keyed by the router's ``X-Served-By``.  Exit 0 when no
+request failed, every id was echoed and no session split across replicas.
+
+``--smoke [--fleet] [--device cpu]`` needs no server: it serves a demo
+checkpoint in-process and checks one request's trace (with ``--fleet``, the
+trace stitched across a router's hop) and ``/parse`` through a router
+(:func:`run_smoke`).
 """
 
 from __future__ import annotations
@@ -306,27 +311,35 @@ def run_open(urls, endpoints, payloads, batch_sizes, rate, duration, timeout, re
 def send(url, endpoint, body, n_images, timeout, results, t0, request_id=None,
          multi_target=False, tenant=None):
     """One request; its outcome recorded in ``results`` (503: shed; any other
-    failure: an error)."""
+    failure: an error).  The replica it is recorded under is the router's
+    ``X-Served-By`` when there is one, else the target URL when several are
+    sprayed."""
     headers = {"Content-Type": "application/json"}
     if request_id is not None:
         headers["X-Request-Id"] = request_id
     if tenant is not None:
         headers["X-Tenant"] = tenant
     req = urllib.request.Request(f"{url}/{endpoint}", data=body, headers=headers)
-    replica = url if multi_target else None
+
+    def replica_key(resp_headers):
+        served_by = resp_headers.get("X-Served-By") if resp_headers else None
+        return served_by or (url if multi_target else None)
+
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             echoed = r.headers.get("X-Request-Id")
+            replica = replica_key(r.headers)
             json.loads(r.read())
     except urllib.error.HTTPError as e:
         echoed = e.headers.get("X-Request-Id")
         e.read()
         results.record(shed=(e.code == 503), error=(e.code != 503),
                        id_mismatch=(request_id is not None and echoed != request_id),
-                       replica=replica, endpoint=endpoint, tenant=tenant)
+                       replica=replica_key(e.headers), endpoint=endpoint, tenant=tenant)
         return
     except Exception:  # a load generator keeps offering load through any one failure
-        results.record(error=True, replica=replica, endpoint=endpoint, tenant=tenant)
+        results.record(error=True, replica=url if multi_target else None, endpoint=endpoint,
+                       tenant=tenant)
         return
     results.record(latency_ms=(time.monotonic() - t0) * 1e3, images=n_images,
                    request_id=request_id,
@@ -630,10 +643,189 @@ def _timeline_max_seq(urls, timeout):
     return seq
 
 
-# tools/loadgen.py's modes that wait for a module of the port: flag -> (nargs, why)
-REFUSED = {
-    "--fleet": (0, "the fleet router (ROADMAP queue 1, item 4.11)"),
-}
+# -- the smoke -------------------------------------------------------------------
+
+def poll_until(fn, timeout_s=10.0, interval_s=0.01):
+    """``fn()`` until it returns something truthy or the time is up (then
+    its last value)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        out = fn()
+        if out or time.monotonic() >= deadline:
+            return out
+        time.sleep(interval_s)
+
+
+def _smoke_parse_router(engine_url, timeout) -> dict:
+    """The part-whole leg of ``--smoke``: ``/parse`` THROUGH a router at
+    mixed batch sizes comes back with well-formed per-level islands, with
+    no graph captured on the request path (``serving_graph_captures``
+    absent from the replica's ``/metrics``).  Raises AssertionError on a
+    breach."""
+    from glom_tpu_torch.serving.router import FleetRouter, make_router_server
+
+    router = FleetRouter([engine_url], health_interval_s=0.2)
+    router.start()
+    router_server = make_router_server(router)
+    threading.Thread(target=router_server.serve_forever, daemon=True).start()
+    front = "http://{}:{}".format(*router_server.server_address[:2])
+    try:
+        health = fetch_health(front, timeout)
+        payloads = make_payloads(health, [1, 2])
+        results = Results()
+        for i, b in enumerate([1, 2, 1, 2]):
+            send(front, "parse", payloads[b], b, timeout, results, time.monotonic(),
+                 request_id=f"lg-parse-{i}")
+        assert results.ok == 4 and results.errors == 0, vars(results)
+        side = health["image_size"] // health["patch_size"]
+        req = urllib.request.Request(f"{front}/parse", data=payloads[2],
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            islands = json.loads(r.read())["islands"]
+        assert len(islands) == 2, len(islands)
+        for per_level in islands:
+            assert len(per_level) == health["levels"]
+            for lv in per_level:
+                assert len(lv["labels"]) == side
+                assert len(lv["sizes"]) == lv["num_islands"]
+                assert len(lv["means"]) == lv["num_islands"]
+        with urllib.request.urlopen(f"{engine_url}/metrics", timeout=timeout) as r:
+            metrics = r.read().decode()
+        captures = [line for line in metrics.splitlines()
+                    if line.startswith("glom_serving_graph_captures ")]
+        assert not captures, f"/parse captured a graph on the request path: {captures}"
+        return {"requests_ok": results.ok, "levels": health["levels"],
+                "islands_l0": islands[0][0]["num_islands"], "graph_captures": 0}
+    finally:
+        router.shutdown()
+        router_server.shutdown()
+        router_server.server_close()
+
+
+def run_smoke(device="cuda", *, fleet=False, checkpoint_dir=None, min_coverage=0.95,
+              timeout=120.0) -> dict:
+    """The in-process round trip: a checkpoint (a demo one by default) ->
+    engine -> HTTP server -> one ``/embed`` with an ``X-Request-Id``, then
+    the tracing checks: one trace under that id whose spans hold the
+    request's pipeline and explain at least ``min_coverage`` of its wall
+    time (0: reported, not gated: a share of wall time the host's
+    scheduling decides), and a Perfetto-loadable export.  With ``fleet`` a
+    router fronts the replica and the checks run on the STITCHED
+    cross-process trace (router + replica segments, clock-aligned over the
+    hop): its spans add ``router_request`` and ``proxy``, and its parent
+    links (root -> proxy -> the replica's ``request``) must hold.  Then the
+    ``/parse``-through-a-router leg.  ``tools/loadgen.py``'s tenant-bulkhead
+    leg is not run: its verdict compares two p95s of wall time on the
+    host (the port's tenancy tests hold the bulkhead).  Returns the report
+    (``"smoke"`` is ``"ok"`` when every check holds)."""
+    import tempfile
+
+    from glom_tpu_torch.obs.tracing import TraceExporter, span_coverage
+    from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
+    from glom_tpu_torch.serving.server import make_server
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = checkpoint_dir
+        if ckpt is None:
+            ckpt = os.path.join(d, "ckpt")
+            make_demo_checkpoint(ckpt)
+        engine = ServingEngine(ckpt, buckets=(1, 2), max_wait_ms=1.0, warmup=True,
+                               reload_poll_s=0, device=device)
+        engine.start()
+        server = make_server(engine)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        engine_url = "http://{}:{}".format(*server.server_address[:2])
+        target = engine_url
+        router = router_server = None
+        if fleet:
+            from glom_tpu_torch.serving.router import FleetRouter, make_router_server
+
+            router = FleetRouter([engine_url], health_interval_s=0.2)
+            router.start()
+            router_server = make_router_server(router)
+            threading.Thread(target=router_server.serve_forever, daemon=True).start()
+            target = "http://{}:{}".format(*router_server.server_address[:2])
+        request_id = f"smoke-{os.getpid()}"
+        try:
+            health = fetch_health(target, timeout)
+            payloads = make_payloads(health, [1])
+            results = Results()
+            t0 = time.monotonic()
+            send(target, "embed", payloads[1], 1, timeout, results, t0, request_id=request_id)
+            wall = time.monotonic() - t0
+
+            # the server closes the root span AFTER writing the reply: poll
+            # for it instead of racing the handler thread
+            def closed_root_spans():
+                spans = [sp.to_dict() for sp in engine.tracer.sink.trace(request_id)]
+                root = next((sp for sp in spans if sp.get("root_span")), None)
+                return spans if root is not None and root.get("end") is not None else None
+
+            spans = poll_until(closed_root_spans) or [
+                sp.to_dict() for sp in engine.tracer.sink.trace(request_id)]
+            links = None
+            if fleet:
+                from glom_tpu_torch.obs.observatory import stitch
+                from glom_tpu_torch.tools.observatory import hop_links
+
+                def both_segments():
+                    segments = []
+                    for src, tracer in (("router", router.tracer), ("replica", engine.tracer)):
+                        _, recs = tracer.completed_since(0)
+                        segments.extend((src, r) for r in recs
+                                        if r.get("trace_id") == request_id)
+                    return segments if len(segments) >= 2 else None
+
+                segments = poll_until(both_segments)
+                if segments:
+                    spans = stitch(segments)["spans"]
+                links = hop_links(spans)
+            coverage = span_coverage(spans)
+            perfetto_path = os.path.join(d, "smoke_trace.json")
+            TraceExporter(engine.tracer.sink).write(perfetto_path)
+            with open(perfetto_path) as f:
+                perfetto = json.load(f)
+            perfetto_ok = (isinstance(perfetto.get("traceEvents"), list)
+                           and any(e.get("ph") == "X" for e in perfetto["traceEvents"]))
+            span_names = {sp["name"] for sp in spans}
+            want_names = {"request", "queue_wait", "batch_assembly", "pad", "execute", "respond"}
+            if fleet:
+                want_names |= {"router_request", "route", "proxy"}
+            checks = {
+                "request_ok": results.ok == 1 and results.errors == 0,
+                "request_id_echoed": results.id_mismatches == 0,
+                "spans": want_names <= span_names,
+                "coverage": coverage is not None and coverage >= min_coverage,
+                "perfetto": perfetto_ok,
+            }
+            if fleet:
+                checks["hop_links"] = bool(links and links["root_is_outermost"]
+                                           and links["proxy_under_root"]
+                                           and links["request_under_proxy"])
+            parse_leg = _smoke_parse_router(engine_url, timeout) if all(
+                checks.values()) else None
+            return {
+                "smoke": "ok" if all(checks.values()) and parse_leg else "FAILED",
+                "smoke_mode": "fleet-stitched" if fleet else "engine",
+                "device": str(engine.device),
+                "checks": checks,
+                "request_id": request_id,
+                "trace_span_names": sorted(span_names),
+                "trace_coverage": None if coverage is None else round(coverage, 4),
+                "min_coverage": min_coverage,
+                "hop_links": links,
+                "perfetto_events": len(perfetto.get("traceEvents", [])),
+                "parse_router": parse_leg,
+                **report(results, wall, "smoke"),
+            }
+        finally:
+            if router_server is not None:
+                router.shutdown()
+                router_server.shutdown()
+                router_server.server_close()
+            server.shutdown()
+            engine.shutdown()
+            server.server_close()
 
 
 def main(argv=None) -> int:
@@ -675,13 +867,27 @@ def main(argv=None) -> int:
                         "the report")
     p.add_argument("--timeline-step-s", type=float, default=1.0,
                    help="with --timeline: the window width in seconds")
-    for flag, (nargs, _) in REFUSED.items():
-        p.add_argument(flag, default=argparse.SUPPRESS, help=argparse.SUPPRESS,
-                       **({"action": "store_true"} if nargs == 0 else {}))
+    p.add_argument("--smoke", action="store_true",
+                   help="in-process round trip through a served engine (no --url needed); "
+                        "exit status is the signal")
+    p.add_argument("--fleet", action="store_true",
+                   help="with --smoke: put a router in front of the replica and check the "
+                        "STITCHED cross-process trace (the replica's spans alone overstate "
+                        "coverage: the router hop is invisible to them)")
+    p.add_argument("--device", default="cuda",
+                   help="with --smoke: torch device; 'cpu' runs the plain PyTorch versions "
+                        "of the kernels")
+    p.add_argument("--min-coverage", type=float, default=0.95,
+                   help="with --smoke: the trace's span coverage must reach this (0: report "
+                        "it only)")
     args = p.parse_args(argv)
-    for flag, (_, why) in REFUSED.items():
-        if hasattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not in the port's load generator yet: it needs {why}")
+    if args.fleet and not args.smoke:
+        p.error("--fleet goes with --smoke (point --url at a router to load a fleet)")
+    if args.smoke:
+        out = run_smoke(args.device, fleet=args.fleet, min_coverage=args.min_coverage,
+                        timeout=args.timeout)
+        print(json.dumps(out, indent=2))
+        return 0 if out["smoke"] == "ok" else 1
     if args.regress_at > 0 and args.rate <= 0 and args.requests is None and args.duration:
         p.error("--regress-at needs a request count: --requests, or --rate")
     endpoints = [e.strip() for e in args.endpoint.split(",") if e.strip()]

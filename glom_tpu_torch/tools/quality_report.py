@@ -3,7 +3,7 @@
     python -m glom_tpu_torch.tools.quality_report report --url http://127.0.0.1:8000
     python -m glom_tpu_torch.tools.quality_report report --url ... --format json
     python -m glom_tpu_torch.tools.quality_report freeze --url http://127.0.0.1:8000
-    python -m glom_tpu_torch.tools.quality_report --smoke [--device cpu]
+    python -m glom_tpu_torch.tools.quality_report --smoke [--fleet] [--device cpu]
 
 ``report`` renders ``GET /quality`` — per-metric live-vs-reference sketch
 stats (count / mean / p50 / p95), the PSI + KS drift scores, the latest
@@ -20,11 +20,11 @@ load generator's ``--corrupt`` sends must push the live KS drift over the
 SLO and fire ``quality_drift`` exactly once, with the offending trace ids
 and their input fingerprints (counted: the port writes no forensics bundle
 yet) — while no request errors, no quality post-pass fails and the request
-path captures no graph (``serving_graph_captures == 0``).
-``tools/quality_report.py`` also merges the replica's sketches in a fleet
-router; the port has no router yet (ROADMAP queue 1, item 4.11), so that
-leg is refused by name (``--fleet``).  Without ``--device`` the smoke runs
-on ``cuda``.
+path captures no graph (``serving_graph_captures == 0``).  With ``--fleet`` a
+fleet router (:mod:`glom_tpu_torch.serving.router`) then fronts the replica, as
+``tools/quality_report.py``'s smoke does, and must merge the replica's
+sketches from the ``/healthz`` its health loop fetches into its ``/quality``.
+Without ``--device`` the smoke runs on ``cuda``.
 """
 
 from __future__ import annotations
@@ -44,8 +44,6 @@ SMOKE_CLEAN = 8
 SMOKE_CORRUPT = 16
 # a flagship request's JSON body is megabytes: the smoke's HTTP timeout
 TIMEOUT_S = 120.0
-
-FLEET_REFUSED = "the fleet router (ROADMAP queue 1, item 4.11)"
 
 
 def _get_json(url: str, timeout: float = 10.0) -> dict:
@@ -132,10 +130,11 @@ def cmd_freeze(args) -> int:
 # ---------------------------------------------------------------------------
 # smoke
 # ---------------------------------------------------------------------------
-def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
-    """The engine-only acceptance loop; returns the report (``"smoke"`` is
-    ``"ok"`` when every check holds).  ``checkpoint_dir`` None serves a demo
-    checkpoint written to a temporary directory; a given directory gets the
+def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2), *, fleet=False) -> dict:
+    """The acceptance loop; returns the report (``"smoke"`` is ``"ok"`` when
+    every check holds); ``fleet`` adds the router leg.  ``checkpoint_dir``
+    None serves a demo checkpoint written to a temporary directory; a given
+    directory gets the
     frozen reference only for the run (a ``quality_ref.json`` it held before
     is refused: the smoke would replace it)."""
     import tempfile
@@ -165,6 +164,7 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
         host, port = server.server_address[:2]
         threading.Thread(target=server.serve_forever, daemon=True).start()
         target = f"http://{host}:{port}"
+        router = router_server = None
         try:
             health = loadgen.fetch_health(target, timeout=TIMEOUT_S)
             payloads = loadgen.make_payloads(health, [1])
@@ -209,6 +209,23 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
                 "zero_post_pass_failures": failures == 0,
                 "quality_endpoint": quality.get("observed", 0) > 0,
             }
+            fleet_doc = None
+            if fleet:
+                # the router leg: a router fronting the replica merges its
+                # sketches from the same /healthz its health loop fetches
+                from glom_tpu_torch.serving.router import FleetRouter, make_router_server
+
+                router = FleetRouter([target], health_interval_s=0.2,
+                                     health_timeout_s=TIMEOUT_S)
+                router.start()
+                router_server = make_router_server(router)
+                threading.Thread(target=router_server.serve_forever, daemon=True).start()
+                rtarget = "http://{}:{}".format(*router_server.server_address[:2])
+                fleet_doc = loadgen.poll_until(
+                    lambda: (lambda p: p if (p.get("fleet") or {}).get("replicas") else None)(
+                        _get_json(f"{rtarget}/quality", TIMEOUT_S)), timeout_s=30.0)
+                checks["fleet_merged"] = bool(fleet_doc) and bool(
+                    (fleet_doc.get("fleet") or {}).get("metrics"))
             ok = all(checks.values())
             return {
                 "smoke": "ok" if ok else "FAILED",
@@ -221,10 +238,15 @@ def run_smoke(device="cuda", checkpoint_dir=None, buckets=(1, 2)) -> dict:
                                                     "trace_ids", "fingerprints")},
                 "graph_captures": captures,
                 "post_pass_failures": failures,
-                "fleet": f"refused: {FLEET_REFUSED}",
+                "fleet_drift": (fleet_doc.get("fleet") or {}).get("drift") if fleet_doc
+                else None,
                 "checks": checks,
             }
         finally:
+            if router_server is not None:
+                router.shutdown()
+                router_server.shutdown()
+                router_server.server_close()
             server.shutdown()
             engine.shutdown()
             server.server_close()
@@ -244,7 +266,9 @@ def main(argv=None) -> int:
                         "of the kernels")
     p.add_argument("--checkpoint-dir", default=None,
                    help="with --smoke: serve this checkpoint (default: a demo one)")
-    p.add_argument("--fleet", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--fleet", action="store_true",
+                   help="with --smoke: then front the replica with a fleet router (the "
+                        "router's sketch-merge leg)")
     sub = p.add_subparsers(dest="cmd")
     rep = sub.add_parser("report", help="render GET /quality")
     rep.add_argument("--url", default="http://127.0.0.1:8000")
@@ -256,10 +280,10 @@ def main(argv=None) -> int:
     fr.add_argument("--url", default="http://127.0.0.1:8000")
     fr.add_argument("--timeout", type=float, default=10.0)
     args = p.parse_args(argv)
-    if args.fleet:
-        p.error(f"--fleet is not in the port's quality tool yet: it needs {FLEET_REFUSED}")
+    if args.fleet and not args.smoke:
+        p.error("--fleet goes with --smoke")
     if args.smoke:
-        report = run_smoke(args.device, args.checkpoint_dir)
+        report = run_smoke(args.device, args.checkpoint_dir, fleet=args.fleet)
         print(json.dumps(report, indent=2))
         return 0 if report["smoke"] == "ok" else 1
     if args.cmd == "report":

@@ -4,6 +4,7 @@
   python -m glom_tpu_torch.tools.trace_report traces.jsonl --slowest 10
   python -m glom_tpu_torch.tools.trace_report traces.jsonl --trace <request-id>
   python -m glom_tpu_torch.tools.trace_report traces.jsonl --suggest-buckets [--ladder-size 4]
+  python -m glom_tpu_torch.tools.trace_report router.jsonl replica0.jsonl replica1.jsonl
 
 Reads the per-trace JSONL the serving engine emits (``--trace-log``: one
 JSON object per COMPLETED trace — ``trace_id``, root span name, duration,
@@ -24,10 +25,12 @@ and the span list) and prints:
     printed as JSON the server takes verbatim through ``--buckets-file`` —
     close the loop: measure waste, re-ladder, serve.
 
-One feed at a time: ``tools/trace_report.py`` joins several feeds (a
-router's and its replicas') through the fleet observatory's ``stitch``,
-which the port does not have yet (ROADMAP queue 1, item 4.11), so several
-feeds are refused by name.  Stdlib only.
+Several feeds (a router's ``--trace-log`` and its replicas' ``GET
+/debug/traces?since=0`` rings, one JSON record per line) are JOINED: records
+sharing a trace id become one cross-process trace, clock-aligned over the
+router hop by the fleet observatory's ``stitch``
+(:mod:`glom_tpu_torch.obs.observatory`), and the padding-waste dedupe is
+per file (two replicas' clocks are independent).  One feed reads as before.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 
 
@@ -47,9 +51,11 @@ def _percentile(xs, q):
     return ordered[rank]
 
 
-def read_traces(path):
+def read_traces(path, source=None):
     """One dict per line; truncated/garbage lines are skipped (a killed
-    server must not make its own evidence unreadable)."""
+    server must not make its own evidence unreadable).  With ``source``
+    set (several feeds), every record and span is tagged so the join and
+    the per-batch dedupe know which process emitted what."""
     traces = []
     with open(path) as f:
         for line in f:
@@ -61,19 +67,51 @@ def read_traces(path):
             except ValueError:
                 continue
             if isinstance(rec, dict) and rec.get("spans"):
+                if source is not None:
+                    rec["_src"] = source
+                    for s in rec["spans"]:
+                        s.setdefault("source", source)
                 traces.append(rec)
     return traces
 
 
 def read_many(paths):
-    """The traces of one feed.  Several feeds are joined by the fleet
-    observatory's stitcher in ``tools/trace_report.py``; the port has none
-    yet, so they are refused by name."""
-    if len(paths) != 1:
-        raise NotImplementedError(
-            f"{len(paths)} feeds need the fleet observatory's stitch, which the port "
-            f"does not have yet (ROADMAP queue 1, item 4.11); pass one feed")
-    return read_traces(paths[0])
+    """Read several trace logs (router + N replicas) and JOIN records
+    sharing a trace id into single cross-process traces, clock-aligned
+    over the router hop by the fleet observatory's stitcher.  Single-file
+    groups pass through untouched, so a one-log run reads as
+    :func:`read_traces`."""
+    labels = []
+    for path in paths:
+        base = os.path.basename(path)
+        label = base
+        k = 2
+        while label in labels:
+            label = f"{base}#{k}"
+            k += 1
+        labels.append(label)
+    if len(paths) == 1:
+        return read_traces(paths[0])
+    from glom_tpu_torch.obs.observatory import stitch
+
+    groups = {}
+    order = []
+    for path, label in zip(paths, labels):
+        for rec in read_traces(path, source=label):
+            tid = rec.get("trace_id")
+            if tid not in groups:
+                order.append(tid)
+            groups.setdefault(tid, []).append(rec)
+    out = []
+    for tid in order:
+        recs = groups[tid]
+        if len(recs) == 1:
+            out.append(recs[0])
+            continue
+        merged = stitch([(r["_src"], r) for r in recs])
+        if merged is not None:
+            out.append(merged)
+    return out
 
 
 def find_root(spans):
@@ -489,8 +527,8 @@ def print_trace(traces, trace_id) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("jsonl", nargs="+",
-                   help="the per-trace JSONL feed (the server's --trace-log); "
-                        "several feeds are refused (ROADMAP queue 1, item 4.11)")
+                   help="the per-trace JSONL feed (the server's --trace-log); several "
+                        "feeds (a router's and its replicas') are joined by trace id")
     p.add_argument("--format", choices=["text", "json"], default="text")
     p.add_argument("--slowest", type=int, default=5,
                    help="how many slowest traces to list")
@@ -503,9 +541,6 @@ def main(argv=None) -> int:
                    help="bucket count for --suggest-buckets (default: as "
                         "many as the feed's current ladder)")
     args = p.parse_args(argv)
-    if len(args.jsonl) != 1:
-        p.error("several feeds need the fleet observatory's stitch, which the port does "
-                "not have yet (ROADMAP queue 1, item 4.11); pass one feed")
     try:
         traces = read_many(args.jsonl)
     except OSError as e:

@@ -407,11 +407,14 @@ def test_trace_report_cli_feeds_buckets_file_and_refuses_several_feeds(served, t
     ladder_file.write_text(json.dumps(payload))
     assert server.read_buckets_file(str(ladder_file)) == tuple(payload["suggested_buckets"])
     assert len(payload["suggested_buckets"]) == 2 and payload["suggested_buckets"][-1] == 4
-    with pytest.raises(SystemExit) as e:
-        trace_report.main([log, log])
-    assert e.value.code == 2 and "4.11" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="4.11"):
-        trace_report.read_many([log, log])
+    # several feeds are joined by trace id through the fleet observatory's
+    # stitch, as glom_tpu's tool joins them
+    theirs = _tool("trace_report")
+    joined = trace_report.read_many([log, log])
+    assert joined == theirs.read_many([log, log]) and joined
+    assert trace_report.main([log, log, "--format", "json"]) == 0
+    assert json.loads(capsys.readouterr().out) == json.loads(json.dumps(
+        theirs.summarize(theirs.read_many([log, log]))))
 
 
 def test_capacity_cli_report_and_query(served, capsys):
@@ -421,9 +424,13 @@ def test_capacity_cli_report_and_query(served, capsys):
     assert "role=replica" in out and "duty<0.5" in out
     assert capacity_tool.main(["query", "--url", url, "--name", "capacity_duty_cycle"]) == 0
     assert capsys.readouterr().out.startswith("# capacity_duty_cycle (2 points)")
-    with pytest.raises(SystemExit) as e:
-        capacity_tool.main(["--fleet"])
-    assert e.value.code == 2 and "4.11" in capsys.readouterr().err
+    # the fleet leg: the port's router in front of a port replica ingests
+    # its capacity summary and logs its recommendation
+    assert capacity_tool.main(["--smoke", "--fleet", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["smoke"] == "ok" and report["checks"]["fleet_ingested"]
+    assert report["checks"]["fleet_replica_series"]
+    assert report["fleet_recommendation"]["event"] == "capacity_recommendation"
 
 
 def test_capacity_smoke_passes_on_the_cpu(capsys):

@@ -70,7 +70,9 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.tools.capacity", "glom_tpu_torch.tools.quality_report",
             "glom_tpu_torch.bulk", "glom_tpu_torch.bulk.jobs", "glom_tpu_torch.serving.bulk",
             "glom_tpu_torch.obs.attribution", "glom_tpu_torch.tools.bulk_run",
-            "glom_tpu_torch.tools.whyslow"} <= set(mods)
+            "glom_tpu_torch.tools.whyslow", "glom_tpu_torch.serving.router",
+            "glom_tpu_torch.obs.observatory", "glom_tpu_torch.obs.forensics",
+            "glom_tpu_torch.tools.observatory"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -113,7 +115,9 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
         "glom_tpu_torch/serving/sessions.py", "glom_tpu_torch/tools/quant_check.py",
         "glom_tpu_torch/obs/timeseries.py", "glom_tpu_torch/obs/capacity.py",
         "glom_tpu_torch/obs/sketch.py", "glom_tpu_torch/tools/trace_report.py",
-        "glom_tpu_torch/tools/capacity.py", "glom_tpu_torch/tools/quality_report.py"} <= sources
+        "glom_tpu_torch/tools/capacity.py", "glom_tpu_torch/tools/quality_report.py",
+        "glom_tpu_torch/serving/router.py", "glom_tpu_torch/obs/observatory.py",
+        "glom_tpu_torch/obs/forensics.py", "glom_tpu_torch/tools/observatory.py"} <= sources
     assert not offenders, offenders
 
 
@@ -176,6 +180,13 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
         bulk_run.main(["--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         whyslow.main(["--smoke"])
+    from glom_tpu_torch.serving import router
+    from glom_tpu_torch.tools import observatory
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        router.main(["--spawn", "2", "--checkpoint-dir", str(tmp_path), "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        observatory.main(["--smoke"])
     # asking for the CPU is the one way onto it
     assert ServingEngine(str(tmp_path), device="cpu").device.type == "cpu"
     assert Glom(dim=32, levels=3, image_size=16, patch_size=4, device="cpu").device.type == "cpu"

@@ -487,6 +487,8 @@ def test_quality_smoke_passes_on_the_cpu(capsys):
     assert report["smoke"] == "ok" and all(report["checks"].values())
     assert report["drift_after"] > 0.2 > report["drift_before"]
     assert report["quality_drift_fires"] == 1 and report["fire"]["fingerprints"]
-    with pytest.raises(SystemExit) as e:
-        quality_report.main(["--fleet"])
-    assert e.value.code == 2 and "4.11" in capsys.readouterr().err
+    # the fleet leg: the port's router merges the replica's sketches
+    assert quality_report.main(["--smoke", "--fleet", "--device", "cpu"]) == 0
+    fleet = json.loads(capsys.readouterr().out)
+    assert fleet["smoke"] == "ok" and fleet["checks"]["fleet_merged"]
+    assert fleet["fleet_drift"] > 0.2

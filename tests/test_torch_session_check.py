@@ -150,11 +150,18 @@ def test_loadgen_tenant_report_as_tools_loadgen(served):
 
 
 @pytest.mark.parametrize("flag", [["--fleet"]])
-def test_loadgen_refuses_the_modes_it_waits_for_by_name(flag, capsys):
+def test_loadgen_runs_the_modes_it_waited_for(flag, capsys):
+    """``--smoke --fleet``: a port router in front of a port replica, the
+    request's trace stitched across the hop (its spans and parent links;
+    the coverage share, wall time on the host, is reported, not gated)."""
+    assert loadgen.main(["--smoke", "--device", "cpu", "--min-coverage", "0"] + flag) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["smoke_mode"] == "fleet-stitched" and out["checks"]["hop_links"]
+    assert {"router_request", "proxy", "request"} <= set(out["trace_span_names"])
+    assert out["parse_router"]["requests_ok"] == 4
     with pytest.raises(SystemExit) as e:
-        loadgen.main(["--url", "http://127.0.0.1:9"] + flag)
-    err = capsys.readouterr().err
-    assert e.value.code == 2 and flag[0] in err and "ROADMAP queue 1" in err
+        loadgen.main(flag)  # a fleet is loaded through its router's --url
+    assert e.value.code == 2 and "--smoke" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mode", ["--corrupt", "--regress-at", "--timeline"])
