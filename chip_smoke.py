@@ -268,6 +268,33 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            loop; loadgen --smoke --fleet (stitched coverage >= 0.95, its
            spans and parent links); capacity and quality_report --smoke
            --fleet;
+  train_obs  the trainer with every observability and robustness field on at
+           flagship, f32, b=8, "pallas" with the kernel backward (the main
+           path: 12 steps and two diagnostics points, exact launches):
+           metrics_csv rows equal to the JSONL records, prom_textfile's
+           steps_total, train_trace.json's phases, no build in the window; a
+           scaled batch's grad_spike bundle (its kernels.json one step's
+           launches, its trace two steps' K1-K4, K6, K7); the diagnostics on
+           "pallas" and "fused" (K8) within 1e-4 of the plain path; the async
+           save bitwise the sync one and a ckpt_write:torn fault raising
+           from finish_saves; nan (data:nan_batch), step_time_regression
+           (data:delay) and crash bundles; --supervise with data:crash once:
+           one restart (supervisor_restarts_io_error 1) and the parameters
+           bitwise an unfailed run's; a sticky CUDA error (K1 writing through
+           a bad pointer, in a child process) classified cuda_fatal and the
+           supervisor giving up at once; the window rate all fields on
+           against all off, with the predictions beside the measurements;
+  forensics  an engine at flagship, f32 "pallas", buckets 1/8, with
+           forensics_dir and warmup_dir: one warm-up bundle a family and
+           bucket (each launch table the graph's replay launches; /embed K1
+           24 + K4 12; no capture added; warm-up timed against an engine
+           without warmup_dir); /embed b=1 and b=8 bitwise their eager
+           forwards; an induced slo_burn bundle with attribution.json listed
+           on /debug/forensics; a shadow candidate over HTTP (its snapshots
+           in the attribution evidence) and a forced rollback's
+           deploy_rollback bundle; the op-diff of a bf16 engine's graphs
+           naming the quant change at both buckets; the answers again,
+           bitwise;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -292,6 +319,7 @@ float32: TF32 is switched off for matmul and cuDNN.
 from __future__ import annotations
 
 import contextlib
+import csv
 import gc
 import itertools
 import json
@@ -4397,8 +4425,8 @@ def phase_attribution(device) -> dict:
     and 2, through the kernels: baseline traffic over HTTP from four
     clients, then a canary at fraction 1.0 under candidate:delay; exactly
     one cause, the deploy_canary event at its step, queue_wait the majority
-    phase, no capture on the request path, the op-diff plane None (no
-    compile snapshots in the port) and a byte-identical verdict on
+    phase, no capture on the request path, the op-diff plane None (the
+    candidate's graphs come from the primary's program) and a byte-identical verdict on
     re-attribution.  The main path is the regression window: the counts
     are set to 0 once the candidate's graphs are captured and read after the
     smoke, so they hold replays alone (each /embed replay and each quality
@@ -4982,6 +5010,583 @@ def phase_fleet(device) -> dict:
     return main_launches
 
 
+# -- observability and robustness: the trainer's fields, the supervisor, the
+# engine's forensics and warm-up bundles -----------------------------------
+TRAIN_OBS_STEPS = 12
+TRAIN_OBS_LOG_EVERY = 2
+TRAIN_OBS_DIAG_EVERY = 6
+# the batch scaled by TRAIN_OBS_SPIKE_SCALE: a grad_spike bundle at the end of
+# its window, whose trace holds the next two steps
+TRAIN_OBS_SPIKE_AT = 6
+TRAIN_OBS_SPIKE_SCALE = 1e3
+# the diagnostics, the kernels' path against the plain path: relative
+# (to max(|plain|, 0.01))
+DIAG_RTOL = 1e-4
+# data:delay on the last four of these batches (after one warm step): the
+# step-time regression trigger over eight baseline windows
+STEP_TIME_STEPS = 13
+# the per-window rate with every field on against all off: log_every 10,
+# windows 2 and 3 of each run
+OVERHEAD_STEPS = 30
+OVERHEAD_LOG_EVERY = 10
+# the main kernel of each wrapper on the "pallas" train path, by the name a
+# profiler trace gives it
+TRACE_KERNELS = {"grouped_ff": "ff_hidden_kernel", "grouped_ff_dx": "ff_bwd_dx_kernel",
+                 "grouped_ff_dw": "ff_bwd_dw_kernel", "consensus_attention": "consensus_kernel",
+                 "consensus_dkv": "consensus_bwd_dkv_kernel",
+                 "consensus_dq": "consensus_bwd_dq_kernel"}
+# the predictions written into PERF.md before the first card run
+TRAIN_OBS_PREDICTED = {"diag_point_ms": [25.0, 35.0], "sync_save_s": [0.5, 2.0],
+                       "async_save_s": [0.0, 0.15], "obs_on_over_off_rate": [0.98, 1.02],
+                       "capture_ms": [0.0, 50.0]}
+FORENSICS_BUCKETS = (1, 8)
+FORENSICS_PREDICTED = {"warmup_with_over_without": [0.95, 1.05]}
+# a child that launches K1 with a bad output pointer: what a sticky CUDA
+# error raises, and the supervisor giving up on it
+STICKY_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from glom_tpu_torch.kernels import _common, ff
+from glom_tpu_torch.resilience import supervisor
+
+b, n, g, d, h = 1, 64, 2, 128, 512
+x = torch.randn(b, n, g, d, device="cuda")
+w1, b1 = torch.randn(g, d, h, device="cuda"), torch.randn(g, h, device="cuda")
+w2, b2 = torch.randn(g, h, d, device="cuda"), torch.randn(g, d, device="cuda")
+hid = torch.empty((g, b * n, h), dtype=torch.float32, device="cuda")
+out = {}
+try:
+    code = ff._kernel()(x.data_ptr(), ff._row_stride(x), x.stride(2), w1.data_ptr(),
+                        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), 16, None, hid.data_ptr(),
+                        b * n, g, d, h, 1, _common.DTYPE_CODES[x.dtype],
+                        torch.cuda.current_stream().cuda_stream)
+    out["launch_code"] = int(code)
+    torch.cuda.synchronize()
+    out["raised"] = None
+except Exception as e:
+    out.update(raised=type(e).__name__, mro=[c.__name__ for c in type(e).__mro__],
+               message=str(e).splitlines()[0], reason=supervisor.classify_failure(e))
+attempts, sleeps = [], []
+
+def fit():
+    attempts.append(1)
+    return float((torch.ones(1, device="cuda") * 2).sum())
+
+try:
+    supervisor.Supervisor(fit, sleep=sleeps.append).run()
+    out["giveup"] = None
+except supervisor.GiveUp as e:
+    out["giveup"] = str(e)[:160]
+except Exception as e:
+    out["giveup"] = f"not a GiveUp: {type(e).__name__}: {e}"
+out.update(attempts=len(attempts), sleeps=sleeps)
+print(json.dumps(out), flush=True)
+'''
+
+
+def spiked_batches(seed: int, at: int, scale: float, image_size: int):
+    """The synthetic stream with batch ``at`` (1-based) scaled by ``scale``."""
+    from glom_tpu_torch.training.data import synthetic_batches
+
+    for i, batch in enumerate(synthetic_batches(BATCH, image_size, 3, seed=seed), 1):
+        yield batch * scale if i == at else batch
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Each wrapper's main kernel's launches in a Chrome trace (TRACE_KERNELS)."""
+    events = read_json(path)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {w: sum(1 for n in names if k in n) for w, k in TRACE_KERNELS.items()}
+
+
+def trace_launch_gap(path: str) -> dict:
+    """Kernel records against their launches in a Chrome trace: the host's
+    ``cudaLaunchKernel`` calls, the device's kernel records, and the first
+    of each (us), which say whether the device side lost records."""
+    events = read_json(path)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and "LaunchKernel" in e.get("name", "")]
+    return {"kernel_records": len(kernels), "launch_calls": len(launches),
+            "first_kernel_ts": min((e["ts"] for e in kernels), default=None),
+            "first_launch_ts": min((e["ts"] for e in launches), default=None)}
+
+
+def rel_to(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 0.01) for k in want)
+
+
+def window_step_ms(rec: dict) -> float:
+    """One logged window's train time a step, ms (eval, checkpoint, diag
+    and exporter writes left out, as imgs_per_sec counts)."""
+    return 1e3 * BATCH / rec["imgs_per_sec"]
+
+
+def obs_fit(c, device, tc, batches):
+    """``Trainer.fit`` of ``tc`` on ``batches``; ``(trainer, records)``."""
+    import io
+
+    stream = io.StringIO()
+    trainer = Trainer(c, tc, device=device, logger=MetricLogger(stream=stream))
+    trainer.fit(batches)
+    return trainer, [json.loads(line) for line in stream.getvalue().splitlines()]
+
+
+def only_bundle(root: str, prefix: str) -> str:
+    names = sorted(n for n in os.listdir(root) if n.startswith(prefix + "-"))
+    if len(names) != 1:
+        raise AssertionError(f"{root}: bundles {sorted(os.listdir(root))}, expected one "
+                             f"{prefix}-*")
+    return os.path.join(root, names[0])
+
+
+def bundle_kernels(bundle: str, want: dict, what: str) -> dict:
+    """A bundle's step snapshot: the launch table equals ``want`` (the
+    wrappers' launches one step makes) and the cost is there."""
+    got = read_json(os.path.join(bundle, "kernels.json"))
+    check_launches(f"{what} bundle's kernels.json", got, {k: v for k, v in want.items() if v})
+    if not read_json(os.path.join(bundle, "cost_analysis.json"))["flops"] > 0:
+        raise AssertionError(f"{what}: no cost analysis")
+    return got
+
+
+def phase_train_obs(device) -> dict:
+    """The trainer with every observability and robustness field on, at
+    flagship width, f32, b=8, "pallas" with the kernel backward and no
+    remat: metrics_csv, prom_textfile, trace_dir, diag_every, a forensics
+    dir with a traced trigger, async checkpoints and log_every (the main
+    path: the counts set to 0 just before Trainer.fit and read just after:
+    K1-K4, K6 and K7 for 12 steps, and K1 + K4 for two diagnostics points).
+    The CSV rows are the JSONL records, the textfile's steps_total the
+    steps, train_trace.json the loop's phases; a scaled batch writes a
+    grad_spike bundle whose kernels.json is one step's launches and whose
+    trace holds two steps' launches of K1-K4, K6 and K7; no build or
+    rebuild in the window.  Then the diagnostics on "pallas" and "fused"
+    (K8) against the plain path; the async save bitwise the sync one, and a
+    ckpt_write fault raising from finish_saves; nan (data:nan_batch),
+    step_time_regression (data:delay) and crash bundles; the supervised CLI
+    restarting once on data:crash and ending bitwise on an unfailed run's
+    parameters; what a sticky CUDA error raises in a child process, and the
+    supervisor giving up on it at once; the window rate with every field on
+    against all off."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from glom_tpu_torch.obs.diagnostics import flatten_diagnostics, make_diagnostics_fn
+    from glom_tpu_torch.resilience import faultinject
+    from glom_tpu_torch.training import train as train_cli
+    from glom_tpu_torch.training.data import fault_injected, synthetic_batches
+
+    t_phase = time.perf_counter()
+    c = kernel_config()
+    work = os.path.join(ROOT, "build", "chip_smoke_train_obs")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def d(name):
+        return os.path.join(work, name)
+
+    t = denoise.resolve_loss_timestep(TrainConfig(), c.default_iters)
+    per_step = want_launches(t, t)
+    diag_point = want_launches(c.default_iters + 1)   # the forward and one more iteration
+    n_diag = TRAIN_OBS_STEPS // TRAIN_OBS_DIAG_EVERY
+    tc = TrainConfig(batch_size=BATCH, steps=TRAIN_OBS_STEPS, log_every=TRAIN_OBS_LOG_EVERY,
+                     seed=0, metrics_csv=d("m.csv"), prom_textfile=d("m.prom"),
+                     trace_dir=d("trace"), diag_every=TRAIN_OBS_DIAG_EVERY,
+                     forensics_dir=d("f"), forensics_trace_steps=2, checkpoint_dir=d("ck"),
+                     checkpoint_every=TRAIN_OBS_DIAG_EVERY, async_checkpoint=True)
+    stream = io.StringIO()
+    trainer = Trainer(c, tc, device=device, logger=MetricLogger(stream=stream))
+    builds = _build.events()
+    reset_launches()
+    trainer.fit(spiked_batches(0, TRAIN_OBS_SPIKE_AT, TRAIN_OBS_SPIKE_SCALE, c.image_size))
+    launches = launch_counts()
+    check_launches("the main run", launches, {
+        k: TRAIN_OBS_STEPS * per_step[k] + n_diag * diag_point[k] for k in per_step})
+    records = [json.loads(line) for line in stream.getvalue().splitlines()]
+    # no kernel built in the window and no rebuild after the first step (a
+    # library's first load there is the recompile monitor's baseline)
+    if (_build.events()["builds"] != builds["builds"]
+            or any(r.get("event") == "recompile" for r in records)):
+        raise AssertionError(f"a build in the window: {builds} -> {_build.events()}")
+    # the records: CSV rows, the textfile, the phase trace
+    with open(d("m.csv")) as f:
+        rows = list(csv.DictReader(f))
+    same = len(rows) == len(records) and all(
+        (float(row[k]) == float(v)) if not isinstance(v, str) else row[k] == v
+        for row, rec in zip(rows, records) for k, v in rec.items())
+    with open(d("m.prom")) as f:
+        steps_total = metric_value(f.read(), "glom_steps_total")
+    spans = {e["name"] for e in read_json(os.path.join(d("trace"), "train_trace.json"))[
+        "traceEvents"] if e.get("ph") == "X"}
+    want_spans = {"data_wait", "h2d", "step", "log_sync", "diag", "checkpoint"}
+    windows = [r for r in records if "window_steps" in r]
+    diags = [r for r in records if "island_agreement" in r]
+    if not (same and steps_total == TRAIN_OBS_STEPS and want_spans <= spans
+            and len(windows) == TRAIN_OBS_STEPS // TRAIN_OBS_LOG_EVERY and len(diags) == n_diag):
+        raise AssertionError(f"records: csv {len(rows)} rows vs {len(records)} records "
+                             f"(equal {same}), steps_total {steps_total}, spans {sorted(spans)}, "
+                             f"{len(windows)} windows, {len(diags)} diagnostics")
+    # the traced grad_spike bundle
+    spike = only_bundle(d("f"), "grad_spike")
+    manifest = read_json(os.path.join(spike, "manifest.json"))
+    spike_kernels = bundle_kernels(spike, per_step, "grad_spike")
+    traced = trace_kernel_counts(os.path.join(spike, "trace", "trace.json"))
+    want_traced = {w: 2 * per_step[w] for w in TRACE_KERNELS}
+    if manifest.get("trace_state") != "complete" or traced != want_traced:
+        raise AssertionError(f"grad_spike trace: state {manifest.get('trace_state')}, kernels "
+                             f"{traced}, expected {want_traced}; "
+                             f"{trace_launch_gap(os.path.join(spike, 'trace', 'trace.json'))}")
+    spike_step = manifest["step"]
+    traced_ms = window_step_ms(next(r for r in windows if r["step"] == spike_step + 2))
+    untraced_ms = statistics.median(window_step_ms(r) for r in windows
+                                    if r["step"] not in (spike_step + 2, 2))
+    capture_ms, _ = host_ms(lambda: trainer._forensics.capture("nan", 10 ** 6, {}, trace=False))
+
+    # the diagnostics: the kernels' path against the plain path on the same
+    # parameters and batch, "pallas" (K1 + K4) and "fused" (K8, then K1 + K4)
+    params = trainer.state.params["glom"]
+    x = torch.from_numpy(next(synthetic_batches(BATCH, c.image_size, 3, seed=11))).to(device)
+    plain_diag = make_diagnostics_fn(plain_of(c), device=device)
+    want = flatten_diagnostics(plain_diag(params, x))
+    plain_ms, _ = host_ms(lambda: flatten_diagnostics(plain_diag(params, x)))
+    diag_rows = {}
+    for impl, cfg, launched in (
+            ("pallas", c, diag_point),
+            ("fused", kernel_config(ff_impl="fused"),
+             {**want_launches(1), "fused_level_update": c.default_iters})):
+        fn = make_diagnostics_fn(cfg, device=device)
+        flatten_diagnostics(fn(params, x))   # warm
+        reset_launches()
+        got = flatten_diagnostics(fn(params, x))
+        check_launches(f"a diagnostics point on {impl}", launch_counts(), launched)
+        ms, _ = host_ms(lambda: flatten_diagnostics(fn(params, x)))
+        err = rel_to(got, want)
+        if not err <= DIAG_RTOL:
+            raise AssertionError(f"diagnostics on {impl}: {err} from the plain path")
+        diag_rows[impl] = {"ms": ms, "rel_err": err, "launches": launched}
+
+    # the async save against the sync save of the same step, and a torn write
+    async_s, _ = host_ms(lambda: trainer.save(d("async")))
+    drain_s, _ = host_ms(trainer.finish_saves)
+    trainer.train_cfg = dataclasses.replace(tc, async_checkpoint=False)
+    sync_s, _ = host_ms(lambda: trainer.save(d("sync")))
+    trainer.train_cfg = tc
+    step = int(trainer.state.step)
+    a, s = ckpt_lib.load_arrays(d("async"), step), ckpt_lib.load_arrays(d("sync"), step)
+    bitwise = sorted(a) == sorted(s) and all(np.array_equal(a[k], s[k]) for k in s)
+    with faultinject.injected(f"ckpt_write:torn@{step}"):
+        trainer.save(d("torn"))
+        try:
+            trainer.finish_saves()
+            torn = None
+        except ckpt_lib.CorruptCheckpointError as e:
+            torn = str(e)
+    window_ckpt_ms = [1e3 * r["t_checkpoint"] for r in windows if "t_checkpoint" in r]
+    if not bitwise or torn is None:
+        raise AssertionError(f"async save bitwise {bitwise}, torn write raised {torn}")
+    del trainer, params
+
+    # the other triggers, each its own trainer
+    def trig_cfg(name, steps, **kw):
+        return TrainConfig(batch_size=BATCH, steps=steps, log_every=1, seed=0,
+                           forensics_dir=d(name), **kw)
+
+    with faultinject.injected("data:nan_batch@2"):
+        obs_fit(c, device, trig_cfg("f_nan", 3),
+                fault_injected(synthetic_batches(BATCH, c.image_size, 3, seed=1)))
+    nan_kernels = bundle_kernels(only_bundle(d("f_nan"), "nan"), per_step, "nan")
+    slow = Trainer(c, trig_cfg("f_slow", STEP_TIME_STEPS), device=device,
+                   logger=MetricLogger(stream=io.StringIO()))
+    stream_slow = synthetic_batches(BATCH, c.image_size, 3, seed=2)
+    slow.step(next(stream_slow))   # warm: the baseline windows are steady steps
+    delayed = STEP_TIME_STEPS - 1
+    with faultinject.injected(f"data:delay@{delayed - 3}*4"):
+        slow.fit(fault_injected(stream_slow))
+    slow_bundle = only_bundle(d("f_slow"), "step_time_regression")
+    slow_detail = read_json(os.path.join(slow_bundle, "manifest.json"))["detail"]
+    bundle_kernels(slow_bundle, per_step, "step_time_regression")
+    del slow
+
+    def crashing():
+        for i, batch in enumerate(synthetic_batches(BATCH, c.image_size, 3, seed=3), 1):
+            if i == 3:
+                raise ValueError("a data worker died mid-fit")
+            yield batch
+
+    try:
+        obs_fit(c, device, trig_cfg("f_crash", 4), crashing())
+        raise AssertionError("the crash did not surface")
+    except ValueError:
+        pass
+    crash = only_bundle(d("f_crash"), "crash")
+    bundle_kernels(crash, per_step, "crash")
+    if "a data worker died" not in read_json(os.path.join(crash, "manifest.json"))[
+            "detail"]["traceback"]:
+        raise AssertionError("the crash bundle carries no traceback")
+
+    # the supervised CLI: data:crash at the third batch, one restart, the
+    # parameters of an unfailed run of the same steps (the synthetic stream
+    # restarts on a resume in both packages: the unfailed run is one stopped
+    # at the last checkpoint before the crash and resumed)
+    argv = ["--dim", str(c.dim), "--levels", str(c.levels), "--image-size", str(c.image_size),
+            "--patch-size", str(c.patch_size), "--batch-size", str(BATCH), "--log-every", "1",
+            "--ff-impl", "pallas", "--fused-ff-bwd", "--attention-impl", "pallas",
+            "--checkpoint-every", "2", "--device", str(device)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        with faultinject.injected("data:crash@3"):
+            train_cli.main(argv + ["--steps", "4", "--supervise", "--checkpoint-dir", d("sup"),
+                                   "--forensics-dir", d("f_sup")])
+        sup_s = time.perf_counter() - t0
+        train_cli.main(argv + ["--steps", "2", "--checkpoint-dir", d("ref")])
+        train_cli.main(argv + ["--steps", "4", "--checkpoint-dir", d("ref")])
+    restart = read_json(os.path.join(only_bundle(d("f_sup"), "crash_restart"), "metrics.json"))
+    got = ckpt_lib.load_arrays(d("sup"), 4)
+    ref = ckpt_lib.load_arrays(d("ref"), 4)
+    keys = sorted(k for k in ref if k.startswith("params"))
+    sup_bitwise = all(np.array_equal(got[k], ref[k]) for k in keys)
+    if not (sup_bitwise and restart.get("supervisor_restarts") == 1.0
+            and restart.get("supervisor_restarts_io_error") == 1.0):
+        raise AssertionError(f"supervised run: bitwise {sup_bitwise}, counters "
+                             f"{ {k: v for k, v in restart.items() if 'supervisor' in k} }")
+
+    # a sticky CUDA error, in a process of its own: it poisons the context
+    res = subprocess.run([sys.executable, "-c", STICKY_CHILD, ROOT], capture_output=True,
+                         text=True, timeout=180, cwd=ROOT)
+    sticky = json.loads([ln for ln in res.stdout.splitlines() if ln.startswith("{")][-1]) \
+        if res.returncode == 0 and "{" in res.stdout else {"stderr": res.stderr[-2000:]}
+    if not (sticky.get("reason") == "cuda_fatal" and sticky.get("giveup")
+            and sticky.get("attempts") == 1 and sticky.get("sleeps") == []):
+        raise AssertionError(f"sticky CUDA error: {sticky}")
+
+    # the window rate with every field on against all off, A B B A
+    def rate(kind: str, k: int) -> float:
+        kw = {} if kind == "off" else _obs_fields_on(d(f"over{k}"))
+        if kind == "on_no_checkpoint":
+            kw.update(checkpoint_dir=None, checkpoint_every=0)
+        _, recs = obs_fit(c, device, TrainConfig(batch_size=BATCH, steps=OVERHEAD_STEPS,
+                                                 log_every=OVERHEAD_LOG_EVERY, seed=0, **kw),
+                          synthetic_batches(BATCH, c.image_size, 3, seed=4))
+        wins = [r["imgs_per_sec"] for r in recs if "window_steps" in r][1:]
+        return statistics.mean(wins)
+
+    # in turns; on_no_checkpoint: every field on but the (async) checkpoints,
+    # whose writer thread runs beside the next window
+    rates = {"off": [], "on": [], "on_no_checkpoint": []}
+    for k, kind in enumerate(("off", "on", "on_no_checkpoint", "on_no_checkpoint", "on",
+                              "off")):
+        rates[kind].append(rate(kind, k))
+    on_over_off = statistics.mean(rates["on"]) / statistics.mean(rates["off"])
+    no_ckpt_over_off = (statistics.mean(rates["on_no_checkpoint"])
+                        / statistics.mean(rates["off"]))
+
+    out = {"phase": "train_obs", "card": nvidia_smi(),
+           "config": {"dim": c.dim, "levels": c.levels, "batch": BATCH, "dtype": "float32",
+                      "ff_impl": "pallas", "ff_fused_bwd": True, "attention_impl": "pallas",
+                      "steps": TRAIN_OBS_STEPS, "log_every": TRAIN_OBS_LOG_EVERY,
+                      "diag_every": TRAIN_OBS_DIAG_EVERY},
+           "launches": launches, "launches_per_step": per_step,
+           "launches_per_diag_point": diag_point,
+           "records": {"jsonl": len(records), "csv_rows": len(rows), "steps_total": steps_total,
+                       "spans": sorted(spans)},
+           "grad_spike": {"bundle": os.path.basename(spike), "kernels": spike_kernels,
+                          "trace_kernels_two_steps": traced, "traced_step_ms": traced_ms,
+                          "untraced_step_ms_median": untraced_ms},
+           "capture_ms_no_trace": capture_ms,
+           "diagnostics": {"plain_ms": plain_ms, **diag_rows, "rtol": DIAG_RTOL},
+           "checkpoint": {"async_save_s": async_s / 1e3, "async_drain_s": drain_s / 1e3,
+                          "sync_save_s": sync_s / 1e3, "in_fit_t_checkpoint_ms": window_ckpt_ms,
+                          "bitwise": bitwise, "torn_write_raised": torn[:120]},
+           "nan": {"kernels": nan_kernels},
+           "step_time_regression": {"bundle": os.path.basename(slow_bundle),
+                                    "detail": slow_detail},
+           "crash": os.path.basename(crash),
+           "supervised": {"seconds": sup_s, "bitwise_vs_unfailed": sup_bitwise,
+                          "restart_counters": {k: v for k, v in restart.items()
+                                               if k.startswith("supervisor")}},
+           "sticky_cuda_error": sticky,
+           "rate_imgs_per_s": rates, "obs_on_over_off": on_over_off,
+           "obs_on_no_checkpoint_over_off": no_ckpt_over_off,
+           "predicted": TRAIN_OBS_PREDICTED, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def _obs_fields_on(root: str) -> dict:
+    """Every observability field on, with no trigger firing."""
+    os.makedirs(root, exist_ok=True)
+    return dict(metrics_csv=os.path.join(root, "m.csv"),
+                prom_textfile=os.path.join(root, "m.prom"),
+                trace_dir=os.path.join(root, "trace"), diag_every=OVERHEAD_LOG_EVERY,
+                forensics_dir=os.path.join(root, "f"), checkpoint_dir=os.path.join(root, "ck"),
+                checkpoint_every=OVERHEAD_LOG_EVERY, async_checkpoint=True)
+
+
+def phase_forensics(device) -> dict:
+    """The engine's forensics at flagship, f32 "pallas", buckets 1 and 8:
+    the warm-up bundles (one a family and bucket, each launch table the
+    graph's replay launches, no capture added; warm-up timed against an
+    engine without warmup_dir); answers on /embed b=1 and b=8 (the main path:
+    the counts set to 0 just before and read just after: K1 24 + K4 12 a
+    replay) bitwise their eager forwards; an induced slo_burn bundle with
+    attribution.json, listed on /debug/forensics; a shadow candidate through
+    /admin/deploy/* (its graph snapshots beside the primary's in the
+    attribution evidence) and a forced rollback writing deploy_rollback; the
+    op-diff of a bf16 engine's graphs against the f32 engine's naming the
+    quant change at both buckets; the answers again, bitwise the first."""
+    from glom_tpu_torch.obs import attribution
+    from glom_tpu_torch.obs.slo import parse_slo
+    from glom_tpu_torch.serving import compile_cache
+
+    t_phase = time.perf_counter()
+    c = kernel_config()
+    ckpt = flagship_ckpt("chip_smoke_forensics_ckpt", seed=40)
+    work = os.path.join(ROOT, "build", "chip_smoke_forensics")
+    shutil.rmtree(work, ignore_errors=True)
+    fdir, wdir = os.path.join(work, "f"), os.path.join(work, "w")
+    common = dict(device=device, buckets=FORENSICS_BUCKETS, reload_poll_s=0)
+
+    def warmed(**kw):
+        """An engine, its warm-up seconds and the captures it made."""
+        n = compile_cache.captures_made()
+        eng = ServingEngine(ckpt, **common, **kw)
+        return (eng, eng.registry.snapshot()["serving_warmup_seconds"],
+                compile_cache.captures_made() - n)
+
+    # warm-up without warmup_dir and with it, in turns after a first engine
+    # (the process's first captures pay for what later ones reuse)
+    warm = {"first": [], "without": [], "with": []}
+    caps = {"without": set(), "with": set()}
+    for k, kind in enumerate(("first", "without", "with", "without")):
+        kw = {"warmup_dir": os.path.join(work, f"w{k}")} if kind == "with" else {}
+        eng, seconds, made = warmed(**kw)
+        warm[kind].append(seconds)
+        caps.setdefault(kind, set()).add(made)
+        free_engines(eng)
+    slo = [parse_slo("p95<100ms", short_window_s=5.0, long_window_s=10.0, min_events=4,
+                     burn_threshold=2.0)]
+    engine, seconds, made = warmed(forensics_dir=fdir, warmup_dir=wdir, slos=slo)
+    warm["with"].append(seconds)
+    caps["with"].add(made)
+    warm_without = statistics.mean(warm["without"])
+    warm_with = statistics.mean(warm["with"])
+    caps_without, caps_with = sorted(caps["without"]), sorted(caps["with"])
+    families = sorted(engine.caches)
+    want_bundles = sorted(f"{f}-b{b}" for f in families for b in FORENSICS_BUCKETS)
+    if sorted(os.listdir(wdir)) != want_bundles or caps_with != caps_without:
+        raise AssertionError(f"warm-up bundles {sorted(os.listdir(wdir))}, expected "
+                             f"{want_bundles}; captures {caps_with} vs {caps_without}")
+    tables = {}
+    for f in families:
+        cache = engine.caches[f]
+        per_replay = cache.launches_per_replay()
+        for b in FORENSICS_BUCKETS:
+            got = read_json(os.path.join(wdir, f"{f}-b{b}", "kernels.json"))
+            # the graph's key is its bucket (parse's: bucket/state dtype)
+            label = next((k for k in per_replay if str(k).split("/")[0] == str(b)), None)
+            want_table = per_replay[label] if cache.graphed else {}
+            if got != want_table:
+                raise AssertionError(f"warm-up bundle {f}-b{b}: {got}, the graph {label} "
+                                     f"launches {want_table}")
+            tables[f"{f}-b{b}"] = got
+    embed_table = {k: v for k, v in want_launches(c.default_iters).items() if v}
+    if tables["embed-b8"] != embed_table or tables["embed-b1"] != embed_table:
+        raise AssertionError(f"/embed's launch table {tables['embed-b8']}, expected "
+                             f"{embed_table}")
+
+    rng = np.random.default_rng(40)
+    xs = {b: rng.standard_normal((b, c.channels, c.image_size, c.image_size)).astype(np.float32)
+          for b in FORENSICS_BUCKETS}
+    reset_launches()
+    before = {b: engine.run("embed", xs[b]) for b in FORENSICS_BUCKETS}
+    launches = launch_counts()
+    check_launches("/embed b=1 and b=8", launches,
+                   {k: len(FORENSICS_BUCKETS) * v for k, v in
+                    want_launches(c.default_iters).items()})
+    for b in FORENSICS_BUCKETS:
+        if not np.array_equal(before[b], engine.run_eager("embed", xs[b])):
+            raise AssertionError(f"/embed b={b}: the replay is not bitwise its eager forward")
+
+    srv = make_server(engine)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = "http://{}:{}".format(*srv.server_address[:2])
+    try:
+        # an induced slo_burn: the firing outcome pays the capture
+        outcome_ms = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            engine.observe_outcome("embed", 900.0, False, trace_id=f"burn-{i}")
+            outcome_ms.append((time.perf_counter() - t0) * 1e3)
+        listed = [b["name"] for b in get(base + "/debug/forensics")["bundles"]]
+        burn = only_bundle(fdir, "slo_burn")
+        burn_files = sorted(os.listdir(burn))
+        if os.path.basename(burn) not in listed or "attribution.json" not in burn_files \
+                or "kernels.json" not in burn_files:
+            raise AssertionError(f"slo_burn: listed {listed}, files {burn_files}")
+        burn_kernels = read_json(os.path.join(burn, "kernels.json"))
+        check_launches("the slo_burn bundle's snapshot", burn_kernels, embed_table)
+
+        # a shadow candidate through /admin/deploy/*, then a forced rollback
+        perturbed_step(ckpt, 2, seed=41)
+        shadow, _ = post(base + "/admin/deploy/shadow", {"step": 2})
+        evidence = attribution.collect_engine_evidence(engine)
+        snaps = evidence.get("snapshots") or {}
+        deploy_diff = attribution.diff_snapshots(snaps.get("before"), snaps.get("after"))
+        rolled, _ = post(base + "/admin/deploy/rollback", {})
+        rollback = only_bundle(fdir, "deploy_rollback")
+        listed = [b["name"] for b in get(base + "/debug/forensics")["bundles"]]
+        if (shadow.get("candidate_step") != 2 or sorted(snaps.get("after") or {}) !=
+                list(FORENSICS_BUCKETS) or os.path.basename(rollback) not in listed):
+            raise AssertionError(f"deploy: {shadow}, snapshots {sorted(snaps)}, rollback "
+                                 f"{rolled}, listed {listed}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+    # the op-diff over a quant change: a bf16 engine's graphs against these
+    bf16 = ServingEngine(ckpt, **common, quant="bf16", quality_sample=0.0)
+    quant_diff = attribution.diff_snapshots(engine.caches["embed"].snapshots,
+                                            bf16.caches["embed"].snapshots)
+    free_engines(bf16)
+    rows = {r["bucket"]: r for r in (quant_diff or {}).get("buckets", [])}
+    if sorted(rows) != list(FORENSICS_BUCKETS) or any(
+            r.get("quant") != {"before": "f32", "after": "bf16"} for r in rows.values()):
+        raise AssertionError(f"the op-diff over f32 -> bf16: {quant_diff}")
+
+    after = {b: engine.run("embed", xs[b]) for b in FORENSICS_BUCKETS}
+    if engine.caches["embed"].poll_captures() != 0 or not all(
+            np.array_equal(after[b], before[b]) for b in FORENSICS_BUCKETS):
+        raise AssertionError("answers after the bundles and the deploy differ from before, "
+                             "or the request path captured")
+    free_engines(engine)
+    emit({"phase": "forensics", "card": nvidia_smi(),
+          "config": {"dim": c.dim, "levels": c.levels, "dtype": "float32", "ff_impl": "pallas",
+                     "attention_impl": "pallas", "buckets": list(FORENSICS_BUCKETS)},
+          "warmup_s": {"runs": warm, "without_warmup_dir": warm_without,
+                       "with_warmup_dir": warm_with, "ratio": warm_with / warm_without},
+          "warmup_bundles": tables, "captures": {"without": caps_without, "with": caps_with},
+          "launches": launches, "bitwise_eager": list(FORENSICS_BUCKETS),
+          "slo_burn": {"bundle": os.path.basename(burn), "files": burn_files,
+                       "kernels": burn_kernels, "outcome_ms_max": max(outcome_ms),
+                       "outcome_ms_median": statistics.median(outcome_ms)},
+          "deploy": {"shadow": shadow, "op_diff_candidate": deploy_diff,
+                     "rollback": os.path.basename(rollback), "listed": listed},
+          "op_diff_f32_to_bf16": quant_diff, "answers_after_bitwise": True,
+          "predicted": FORENSICS_PREDICTED, "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 _TRAIN_KERNELS = {"grouped_ff", "grouped_ff_dx", "grouped_ff_dw", "consensus_attention",
                   "consensus_dkv", "consensus_dq"}
 BENCH_LEGS = (
@@ -5105,7 +5710,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
-          "bulk", "attribution", "fleet", "bench")
+          "bulk", "attribution", "fleet", "train_obs", "forensics", "bench")
 
 
 def parse_args(argv):
@@ -5130,7 +5735,11 @@ def parse_args(argv):
                         "build, the bucket bit check) and whyslow's smoke; fleet: the router "
                         "over two replicas (answers, launches, affinity, the hop, fail-over, "
                         "rollouts, /similar, the observatory, two server processes, the "
-                        "stitched trace, the tools' fleet legs); bench: the "
+                        "stitched trace, the tools' fleet legs); train_obs: the trainer with "
+                        "every observability field on (records, diagnostics, async saves, "
+                        "bundles and their traces, the supervisor, a sticky CUDA error); "
+                        "forensics: the engine's warm-up, slo_burn and deploy_rollback "
+                        "bundles and the op-diff; bench: the "
                         "bench's legs, tied to train's rate when train runs first). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
@@ -5143,14 +5752,15 @@ def parse_args(argv):
 
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
-# deploy, session-tool, fault, quality, capacity, bulk, attribution and fleet
-# paths, in the full run's order
+# deploy, session-tool, fault, quality, capacity, bulk, attribution, fleet,
+# trainer-observability and engine-forensics paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
                 "session_tools": phase_session_tools, "faults": phase_faults,
                 "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
-                "attribution": phase_attribution, "fleet": phase_fleet}
+                "attribution": phase_attribution, "fleet": phase_fleet,
+                "train_obs": phase_train_obs, "forensics": phase_forensics}
 
 
 def run_only(device, names) -> int:
@@ -5223,8 +5833,8 @@ def main(argv=()) -> int:
     # launches_train: the train path's for all (K8: the fused train path's);
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
-    # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet:
-    # each of those paths' main run
+    # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
+    # _train_obs, _forensics: each of those paths' main run
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]

@@ -1,10 +1,12 @@
-"""Observability of the port: the train step's numerics summary
-(``monitors.py``), the trainer's phase timer (``timing.py``), and the
-serving engine's copies of ``glom_tpu``'s stdlib-only obs modules — the
-metric registry (``registry.py``), its exporters (``exporters.py``: the
-``/metrics`` text), request tracing (``tracing.py``), triggers
-(``triggers.py``), the event timeline (``events.py``) and declarative SLOs
-(``slo.py``)."""
+"""Observability of the port: the runtime monitors (``monitors.py``: the
+step's numerics, device memory, kernel rebuilds), the trainer's phase timer
+(``timing.py``), GLOM diagnostics (``diagnostics.py``), forensics bundles
+(``forensics.py``: the flight recorder, the env fingerprint, the capture
+pipeline), and the copies of ``glom_tpu``'s stdlib-only obs modules — the
+metric registry (``registry.py``), its exporters (``exporters.py``: JSONL,
+CSV, the Prometheus textfile and the ``/metrics`` text), request tracing
+(``tracing.py``), triggers (``triggers.py``), the event timeline
+(``events.py``) and declarative SLOs (``slo.py``)."""
 
 from glom_tpu_torch.obs.registry import (  # noqa: F401
     EVENT_FORENSICS,

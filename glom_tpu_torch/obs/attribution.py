@@ -2,13 +2,13 @@
 
 The port's copy of ``glom_tpu/obs/attribution.py`` (stdlib only), the same
 code, so one evidence dict gives both packages the same verdict, byte for
-byte (:func:`canonical_json`).  One difference in what the port can feed
-it: the op-diff plane compares per-bucket compile snapshots, and the port's
-graph caches keep none yet (compile snapshots come with the forensics
-plane, ``ROADMAP.md`` queue 1, item 7).  So :func:`collect_engine_evidence`
-finds no ``snapshots`` on a port engine's caches and the verdict's
-``op_diff`` is ``None``, exactly as ``glom_tpu`` reports it when no
-snapshot exists; evidence recorded elsewhere with snapshots still diffs.
+byte (:func:`canonical_json`).  The op-diff plane compares per-bucket
+snapshots: on a port engine they are the graph caches' capture records
+(``serving/compile_cache.py``), which carry ``glom_tpu``'s ``quant`` label
+and an analytic ``cost_analysis`` (flops and bytes at the bucket), so a
+quant change, a bucket-ladder change or a change of the flops or bytes
+diffs as it does on ``glom_tpu``'s compile snapshots.  They carry no
+``hlo``, so the fusion count never moves.
 
 Every detector in the stack (SLO burn, bench gate, capacity pressure,
 quality drift) ends at "something moved"; a human then diffs series,
@@ -620,8 +620,7 @@ def collect_engine_evidence(engine, *, since_s: Optional[float] = None,
 
 def _endpoint_snapshots(caches) -> Dict[int, Dict[str, Any]]:
     """Flatten {endpoint: graph cache} to {bucket: snapshot}, preferring
-    the default transform endpoint when buckets collide (a port cache keeps
-    no ``snapshots``: empty)."""
+    the default transform endpoint when buckets collide."""
     out: Dict[int, Dict[str, Any]] = {}
     for name in sorted(caches or {}):
         cache = caches[name]

@@ -5,9 +5,10 @@ but for one deliberate difference: :func:`read_bench_ceiling` reads only a
 path it is given.  ``glom_tpu``'s falls back to the repository root's
 ``BENCH_*.json``, and every such file in this repository holds a TPU's rate,
 which is no ceiling for a card: here no path means no ceiling, and
-``capacity_utilization`` stays absent (the plane never guesses).  The port
-writes no forensics bundle yet: ``capacity_pressure`` fires through the
-trigger engine's debounce and is counted in ``pressure_fired``.
+``capacity_utilization`` stays absent (the plane never guesses).
+``capacity_pressure`` fires through the trigger engine's debounce, is
+counted in ``pressure_fired`` and, with a forensics manager, writes a
+bundle carrying the recommendation history.
 
 Everything an autoscaler will need to DECIDE, computed
 today from signals the serving stack already emits and retained as

@@ -1,10 +1,8 @@
 """Fleet observatory: cross-replica trace stitching, tail-based sampling,
 and correlated incident forensics — the port's copy of
-``glom_tpu/obs/observatory.py`` (stdlib only, the same code).  The port's
-replicas write no forensics bundles yet (ROADMAP queue 1, item 7), so their
-``/debug/forensics`` lists none and an incident here starts from the
-router's timeline (an ejection); a ``glom_tpu`` replica's bundles are read
-as the reference's collector reads them.
+``glom_tpu/obs/observatory.py`` (stdlib only, the same code).  A port
+replica lists the bundles of its ``forensics_dir`` on ``/debug/forensics``
+as a ``glom_tpu`` replica does, and the collector reads either.
 
 The fleet router made the fleet serve as one unit; its observability stayed
 process-local — per-replica trace rings, per-replica forensics bundles,

@@ -22,10 +22,23 @@ The PyTorch counterparts of ``glom_tpu``'s XLA-backed helpers:
   * ``device_memory_profile(path)`` — the CUDA caching allocator's snapshot.
   * ``debug_nans(enable)`` — autograd's anomaly detection.
 
-The XLA-only parts of ``glom_tpu/profiling.py`` (``compiled_cost_analysis``,
-``compiled_memory_analysis``, ``snapshot_from_compiled``,
-``compile_snapshot``) go with ``obs/forensics.py`` (ROADMAP queue 1,
-item 7).
+``glom_tpu``'s forensics snapshots are XLA's: ``compile_snapshot`` lowers
+and compiles the jitted step for its HLO text and the compiler's cost and
+memory analyses.  The port compiles nothing, and ``FlopCounterMode``
+cannot see a ctypes kernel, so its snapshots are records of what ran:
+
+  * :func:`graph_snapshot` — one CUDA graph's, taken when the graph is
+    captured (``serving/compile_cache.py``): the launches of each kernel
+    wrapper one replay makes, from the capture's record;
+  * :func:`step_snapshot` — one train step's, from the wrappers' counts
+    across the trainer's last step.
+
+Each is a JSON-able ``{"kernels": {wrapper: launches}, "cost_analysis":
+{"flops", "bytes accessed"}, "memory_analysis": {...}}``.  The cost is
+:func:`analytic_cost`, ``tools/mfu.py``'s analytic count at the bucket or
+batch; the memory, the graph pool's and the parameters' bytes or the
+step's peak.  Taking a snapshot never runs a step or a replay and never
+captures.
 """
 
 from __future__ import annotations
@@ -138,6 +151,62 @@ def memory_analysis(fn, *args, **kwargs) -> Dict[str, Any]:
     peak = torch.cuda.max_memory_allocated(device)
     del out
     return {"peak_bytes": peak, "resident_bytes": resident, "temp_bytes": peak - resident}
+
+
+def tree_nbytes(tree) -> int:
+    """Bytes of every tensor in nested dicts, lists, tuples and dataclasses."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def analytic_cost(config, images: int, iters: int, *, train: bool = False,
+                  param_bytes: int = 0) -> Dict[str, float]:
+    """``{"flops", "bytes accessed"}`` of ``images`` images through ``iters``
+    executed iterations of ``config``: the flops are ``tools/mfu.py``'s
+    analytic model count (times 3 for a train step: forward, then dX and
+    dW); the bytes an analytic floor, each iteration reading the weights
+    (``param_bytes``) once and the state once and writing it once, in the
+    compute type, plus the float32 images (a train step moves three times
+    a forward's).  A model of the work, not a measurement: it moves when
+    the bucket, the iteration count, the compute type or the stored
+    weights' width does."""
+    from glom_tpu_torch.tools.mfu import model_flops_per_image
+
+    c = config
+    elt = torch.finfo(c.resolved_compute_dtype).bits // 8
+    state = images * c.num_patches * c.levels * c.dim * elt
+    img = images * c.channels * c.image_size * c.image_size * 4
+    scale = 3.0 if train else 1.0
+    return {"flops": scale * images * model_flops_per_image(c, iters),
+            "bytes accessed": scale * (iters * (param_bytes + 2 * state) + img)}
+
+
+def graph_snapshot(launches: Dict[str, int], *, cost: Dict[str, float], pool_bytes,
+                   param_bytes: int, device) -> Dict[str, Any]:
+    """One captured graph's snapshot: its replay's launches by wrapper
+    (``launches``, the capture's record; empty on the CPU, where no kernel
+    launches), the
+    ``cost`` of :func:`analytic_cost` at its bucket, and its memory: the
+    family's graph pool after this capture (None on the CPU) and the
+    parameters it reads."""
+    return {"kernels": dict(launches), "cost_analysis": dict(cost),
+            "memory_analysis": {"pool_bytes": pool_bytes, "param_bytes": int(param_bytes)},
+            "device": torch.device(device).type}
+
+
+def step_snapshot(launches: Dict[str, int], *, cost: Dict[str, float], params, opt_state,
+                  device) -> Dict[str, Any]:
+    """One train step's snapshot: the wrappers' launches across the last
+    step (``launches``, by wrapper), the ``cost`` of :func:`analytic_cost` at its batch,
+    and its memory: on a card the caching allocator's allocated bytes and
+    their peak since the last reset, beside the parameters' and the
+    optimizer state's bytes (those two alone on the CPU)."""
+    device = torch.device(device)
+    memory = {"param_bytes": tree_nbytes(params), "opt_state_bytes": tree_nbytes(opt_state)}
+    if device.type == "cuda":
+        memory.update(allocated_bytes=torch.cuda.memory_allocated(device),
+                      peak_bytes=torch.cuda.max_memory_allocated(device))
+    return {"kernels": dict(launches), "cost_analysis": dict(cost),
+            "memory_analysis": memory, "device": device.type}
 
 
 def device_memory_profile(path: str) -> None:

@@ -11,7 +11,11 @@ decides what happens when it fails:
   newest first and quarantining failures on the way down;
 * :func:`restore_with_fallback` loads the newest valid step and, when a
   step that passed the scan fails its per-array CRCs at load, quarantines
-  it and tries the next.  A pinned step raises instead.
+  it and tries the next.  A pinned step raises instead;
+* :class:`IntegrityObserver` is the telemetry splice: every quarantine
+  bumps ``ckpt_corrupt_total`` and fires the debounced ``ckpt_corrupt``
+  forensics trigger (one bundle an incident, not one a damaged file), as
+  the trainer's anomaly pipeline does.
 
 Steps without an integrity record are presumed good.  No step above the
 manifest's is ever chosen: the manifest's rename is the barrier that
@@ -22,16 +26,47 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch.obs.triggers import TRIGGER_CKPT_CORRUPT
 
 QUARANTINE_SUFFIX = ".corrupt"
 
 
-def quarantine(directory: str, step: int, *, reason: str = "") -> list:
-    """Rename step ``step``'s npz and integrity record to ``<name>.corrupt``.
-    Warns, never raises; returns the renamed paths."""
+class IntegrityObserver:
+    """Routes quarantine events into the shared obs stack: counter +
+    debounced ``ckpt_corrupt`` trigger + forensics bundle.  All three are
+    optional (an observer with only a registry still counts);
+    ``triggers`` and ``forensics`` may be attached after construction (the
+    serving engine builds them later in its own ``__init__``)."""
+
+    def __init__(self, *, registry=None, triggers=None, forensics=None):
+        self.registry = registry
+        self.triggers = triggers
+        self.forensics = forensics
+
+    def on_corrupt(self, directory: str, step: int, detail: Dict[str, Any]) -> None:
+        if self.registry is not None:
+            self.registry.counter(
+                "ckpt_corrupt_total",
+                help="checkpoints quarantined after failing integrity verification",
+            ).inc()
+        if self.forensics is None:
+            return
+        if self.triggers is not None and not self.triggers.fire(TRIGGER_CKPT_CORRUPT, step):
+            return  # debounced: one bundle per incident, not per artifact
+        detail = dict(detail, directory=directory)
+        path = self.forensics.capture(TRIGGER_CKPT_CORRUPT, step, detail, trace=False)
+        if path is None and self.triggers is not None:
+            self.triggers.refund(TRIGGER_CKPT_CORRUPT, step)
+
+
+def quarantine(directory: str, step: int, *, observer: Optional[IntegrityObserver] = None,
+               reason: str = "") -> list:
+    """Rename step ``step``'s npz and integrity record to ``<name>.corrupt``
+    and tell ``observer``.  Warns, never raises; returns the renamed
+    paths."""
     renamed = []
     for path in (ckpt_lib.npz_path(directory, step), ckpt_lib.integrity_path(directory, step)):
         if not os.path.exists(path):
@@ -47,6 +82,12 @@ def quarantine(directory: str, step: int, *, reason: str = "") -> list:
             + (f" ({reason})" if reason else ""),
             stacklevel=2,
         )
+        if observer is not None:
+            observer.on_corrupt(directory, step, {
+                "step": int(step),
+                "reason": reason or "integrity verification failed",
+                "quarantined": [os.path.basename(p) for p in renamed],
+            })
     return renamed
 
 
@@ -60,7 +101,8 @@ def _candidate_steps(directory: str) -> list:
 
 
 def latest_valid_step(directory: str, *, newer_than: Optional[int] = None,
-                      quarantine_corrupt: bool = True) -> Optional[int]:
+                      quarantine_corrupt: bool = True,
+                      observer: Optional[IntegrityObserver] = None) -> Optional[int]:
     """The newest step at or below the manifest's that passes its whole-file
     CRC, quarantining every newer one that fails (unless
     ``quarantine_corrupt=False``: a read-only scan, as the model registry's
@@ -78,7 +120,7 @@ def latest_valid_step(directory: str, *, newer_than: Optional[int] = None,
             continue   # above the finalization barrier
         if ckpt_lib.verify_file_integrity(directory, step) is False:
             if quarantine_corrupt:
-                quarantine(directory, step, reason="file CRC mismatch")
+                quarantine(directory, step, observer=observer, reason="file CRC mismatch")
             continue
         return step
     return None
@@ -86,7 +128,9 @@ def latest_valid_step(directory: str, *, newer_than: Optional[int] = None,
 
 def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
                           optional: Tuple[str, ...] = (),
-                          step: Optional[int] = None) -> Tuple[int, Dict[str, dict]]:
+                          step: Optional[int] = None,
+                          observer: Optional[IntegrityObserver] = None
+                          ) -> Tuple[int, Dict[str, dict]]:
     """``(step, {name: tree of numpy arrays})`` of the named trees, and of
     those in ``optional`` that the step holds.  With
     ``step=None`` the newest valid step loads, and a step whose per-array
@@ -105,7 +149,7 @@ def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
     if step is not None:
         return load(step)
     while True:
-        chosen = latest_valid_step(directory)
+        chosen = latest_valid_step(directory, observer=observer)
         if chosen is None:
             raise FileNotFoundError(
                 f"no valid checkpoint in {directory} (every candidate corrupt or absent)")
@@ -113,4 +157,4 @@ def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
             return load(chosen)
         except ckpt_lib.CorruptCheckpointError as e:
             # each pass quarantines its failure, so the candidates shrink
-            quarantine(directory, chosen, reason=str(e))
+            quarantine(directory, chosen, observer=observer, reason=str(e))

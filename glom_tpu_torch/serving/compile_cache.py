@@ -42,7 +42,14 @@ longest a capture has kept replays out.
 
 A graph's kernel launches are recorded at capture
 (``kernels/_common.py::recording_launches``) and added to the wrappers'
-launch counts at every replay.
+launch counts at every replay.  The capture also records the key's
+snapshot (``snapshots``, by bucket; :func:`glom_tpu_torch.profiling.
+graph_snapshot`): those launches, the analytic cost the cache's
+``cost_fn`` gives for the bucket, the pool's and the parameters' bytes,
+and ``glom_tpu``'s labels ``quant``, ``stateful`` and ``iters``.  It is
+the port's counterpart of ``glom_tpu``'s per-bucket compile snapshot, read
+by warm-up bundles, forensics and the attribution plane's op-diff, and
+reading it runs nothing on the card.
 
 Stateful (session) families, ``glom_tpu``'s ``carries_state`` /
 ``takes_state``: a cache may take the carried ``(bucket, n, L, d)`` state as
@@ -67,6 +74,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from glom_tpu_torch import profiling
 from glom_tpu_torch.kernels import _common
 
 
@@ -212,6 +220,11 @@ def _capture_graph(fn, args, device, pool):
     return graph, outputs, dict(launches)
 
 
+def _by_name(launches: Dict) -> Dict[str, int]:
+    """A capture's record, ``{wrapper: launches}``, keyed by wrapper name."""
+    return {fn.__name__: n for fn, n in launches.items()}
+
+
 def _pool_bytes(pool) -> Optional[int]:
     if pool is None:
         return None
@@ -246,8 +259,12 @@ class _GraphFamily:
     outputs split (:meth:`_split`)."""
 
     def __init__(self, buckets: Sequence[int], *, device, name: str,
-                 lock: Optional[DeviceLock]):
+                 lock: Optional[DeviceLock], quant: Optional[str] = None,
+                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None):
         self.name = name
+        self.quant = quant
+        self._cost_fn = cost_fn
+        self.snapshots: Dict[int, Dict] = {}   # by bucket: what its graph launches and costs
         self.buckets: Tuple[int, ...] = tuple(buckets)
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
@@ -296,6 +313,7 @@ class _GraphFamily:
                 fresh = key not in self._ready
                 self._ready.add(key)
             if fresh:
+                self._record_snapshot(key, {})
                 _count_prepared()
             return fresh
         with self._lock.exclusive():
@@ -311,8 +329,33 @@ class _GraphFamily:
             self._graphs[key] = _Graph(graph, static_in, static_state, out, static_new,
                                        launches)
             self._ready.add(key)
+            self._record_snapshot(key, launches)
         _count_prepared()
         return True
+
+    # -- snapshots -----------------------------------------------------------
+    def _bucket(self, key) -> int:
+        return int(key)
+
+    def _param_tree(self):
+        return None
+
+    def _snapshot_labels(self) -> Dict:
+        return {"quant": self.quant}
+
+    def _record_snapshot(self, key, launches) -> None:
+        """``key``'s snapshot from its capture's record (the first key of a
+        bucket keeps it)."""
+        bucket = self._bucket(key)
+        if bucket in self.snapshots:
+            return
+        cost = self._cost_fn(bucket) if self._cost_fn is not None else {}
+        snap = profiling.graph_snapshot(
+            _by_name(launches), cost=cost,
+            pool_bytes=_pool_bytes(self._pool) if self.graphed else None,
+            param_bytes=profiling.tree_nbytes(self._param_tree()), device=self.device)
+        snap.update(self._snapshot_labels())
+        self.snapshots[bucket] = snap
 
     def _prepare(self, key) -> bool:
         """Whether ``key`` was prepared before this call; a key that was not
@@ -355,8 +398,7 @@ class _GraphFamily:
 
     def launches_per_replay(self) -> Dict:
         """``{key: {wrapper name: launches}}`` one replay makes."""
-        return {self._label(k): {fn.__name__: n for fn, n in g.launches.items()}
-                for k, g in sorted(self._graphs.items())}
+        return {self._label(k): _by_name(g.launches) for k, g in sorted(self._graphs.items())}
 
     def pool_bytes(self) -> Optional[int]:
         """Bytes the card has reserved for this family's graph pool (None on
@@ -383,7 +425,8 @@ class BucketedGraphCache(_GraphFamily):
                  device, name: str = "forward", lock: Optional[DeviceLock] = None,
                  iters: Optional[int] = None, carries_state: bool = False,
                  takes_state: bool = False, state_shape: Optional[Tuple[int, ...]] = None,
-                 state_dtype=None):
+                 state_dtype=None, quant: Optional[str] = None,
+                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None):
         buckets = sorted(set(int(b) for b in buckets))
         if not buckets:
             raise ValueError("need at least one bucket size")
@@ -394,7 +437,8 @@ class BucketedGraphCache(_GraphFamily):
                              "next state)")
         if takes_state and (state_shape is None or state_dtype is None):
             raise ValueError("takes_state needs state_shape and state_dtype")
-        super().__init__(buckets, device=device, name=name, lock=lock)
+        super().__init__(buckets, device=device, name=name, lock=lock, quant=quant,
+                         cost_fn=cost_fn)
         self.fn = fn
         self.input_shape = tuple(int(s) for s in input_shape)
         self.iters = None if iters is None else int(iters)
@@ -412,6 +456,17 @@ class BucketedGraphCache(_GraphFamily):
             raise ValueError(
                 f"cache {self.name!r}: its graphs were captured with another parameter "
                 f"tree; build a new cache for new parameters")
+
+    def _param_tree(self):
+        return self._params
+
+    def _snapshot_labels(self) -> Dict:
+        labels = {"quant": self.quant}
+        if self.carries_state:
+            labels["stateful"] = self.takes_state
+        if self.iters is not None:
+            labels["iters"] = self.iters
+        return labels
 
     def _capture_call(self, bucket: int):
         static_in = torch.zeros((bucket,) + self.input_shape, dtype=torch.float32,
@@ -552,7 +607,10 @@ class PostPassCache(_GraphFamily):
 
     def __init__(self, inner: BucketedGraphCache, post_fn: Callable, *,
                  state_shape: Tuple[int, ...], name: str = "parse"):
-        super().__init__(inner.buckets, device=inner.device, name=name, lock=inner._lock)
+        # the pack launches no hand kernel and its work is not the model's:
+        # its snapshots carry the launches (none) and the pool, no cost
+        super().__init__(inner.buckets, device=inner.device, name=name, lock=inner._lock,
+                         quant=inner.quant)
         self.inner = inner
         self.post_fn = post_fn
         self.iters = inner.iters
@@ -566,6 +624,12 @@ class PostPassCache(_GraphFamily):
 
     def _label(self, key) -> str:
         return "%d/%s" % key
+
+    def _bucket(self, key) -> int:
+        return int(key[0])
+
+    def _param_tree(self):
+        return self.inner._params
 
     def _capture_call(self, key):
         bucket, dtype = key

@@ -37,9 +37,10 @@ batch by its divergence from the primary's answer and, when the engine
 samples quality, by the candidate's own agreement and residual: the
 candidate's set carries its own ``quality`` graph family (captured against
 its parameters with the rest of its set), which the shadow replays on the
-same batch.  The engine has no forensics bundles yet (ROADMAP queue 1, item
-7): a rollback writes no bundle, as ``glom_tpu``'s controller does without
-one.
+same batch.  A rollback fires the ``deploy_rollback`` forensics bundle when
+the engine has a forensics directory: the reason, the before/after pins,
+the offending trace ids (with their spans while the tracer keeps them) and
+the candidate's burn rates at the moment of retreat.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from glom_tpu_torch.obs.slo import SLO, BurnRateEvaluator, parse_slo
+from glom_tpu_torch.obs.triggers import TRIGGER_DEPLOY_ROLLBACK
 from glom_tpu_torch.resilience import faultinject
 
 PHASES = ("idle", "shadow", "canary")
@@ -178,6 +180,10 @@ class DeployController:
         self._window_events = 0
         self._window_breached = False
         self._clean_windows = 0
+        # offender ring: trace ids of recent BAD candidate outcomes (the
+        # rollback bundle's evidence, kept even when an SLO's own short
+        # window has rotated them out)
+        self._offenders: "deque" = deque(maxlen=20)
         self.last_report: Optional[dict] = None
         # -- shadow executor ------------------------------------------------
         self._shadow_q: "deque" = deque(maxlen=shadow_queue)
@@ -307,7 +313,8 @@ class DeployController:
 
         engine = self.engine
         if step is None:
-            step = integrity.latest_valid_step(engine.checkpoint_dir, newer_than=engine.step)
+            step = integrity.latest_valid_step(engine.checkpoint_dir, newer_than=engine.step,
+                                               observer=engine._integrity_obs)
             if step is None or step <= engine.step:
                 return None
         step = int(step)
@@ -321,7 +328,8 @@ class DeployController:
         try:
             serving = engine._restore_set(step)
         except ckpt_lib.CorruptCheckpointError as e:
-            integrity.quarantine(engine.checkpoint_dir, step, reason=str(e))
+            integrity.quarantine(engine.checkpoint_dir, step, observer=engine._integrity_obs,
+                                 reason=str(e))
             self._load_failure(step, e)
             return None
         except Exception as e:
@@ -401,7 +409,8 @@ class DeployController:
         """Retire the candidate (its set, graphs and pools freed with the
         registry record) and converge the fleet back onto the old pin.  The
         report names the reason, the before/after pins and the phase; the
-        ``deploy_rollback`` forensics bundle waits for the forensics plane."""
+        ``deploy_rollback`` forensics bundle adds the offending trace ids and
+        the candidate's burn rates."""
         with self._lock:
             cand = self._cand
             if cand is None:
@@ -409,6 +418,8 @@ class DeployController:
             self._cand = None
             if cand.step not in self._retired_steps:
                 self._retired_steps.append(cand.step)
+            offenders = list(self._offenders)
+            rates = {ev.slo.name: ev.burn_rates() for ev in self._evaluators}
             self._stop_evaluating()
         self._note_idle()
         old_step = int(self.engine.step)
@@ -429,9 +440,7 @@ class DeployController:
         ).inc()
         self._note_event("deploy_rollback", step=old_step,
                          candidate_step=int(cand.step), reason=reason)
-        # the deploy_rollback forensics bundle (the offending trace ids, the
-        # burn rates) waits for obs/forensics.py (ROADMAP queue 1, item 7);
-        # glom_tpu's engine without a forensics dir writes none either
+        self._capture_rollback(report, offenders, rates)
         self.last_report = report
         return report
 
@@ -477,6 +486,7 @@ class DeployController:
         self._window_events = 0
         self._window_breached = False
         self._clean_windows = 0
+        self._offenders.clear()
 
     def retired(self, step: int) -> bool:
         """Whether ``step`` is a candidate a rollback/abort retired — a
@@ -732,6 +742,8 @@ class DeployController:
                            else value > slo.threshold)
                 else:
                     bad = error
+                if bad and trace_id is not None:
+                    self._offenders.append(trace_id)
                 ev.observe(bad, trace_id)
                 rates = ev.burn_rates()
                 short = rates.get("short")
@@ -774,6 +786,27 @@ class DeployController:
             self.promote()
 
     # -- fleet pin -----------------------------------------------------------
+    # -- rollback evidence / fleet pin ------------------------------------
+    def _capture_rollback(self, report: dict, offenders: List[str],
+                          rates: Dict[str, dict]) -> None:
+        engine = self.engine
+        detail = dict(report)
+        detail["trace_ids"] = offenders[-20:][::-1]
+        detail["burn_rates"] = rates
+        if engine._forensics is None:
+            return
+        if not engine._triggers.fire(TRIGGER_DEPLOY_ROLLBACK, engine.request_count):
+            return
+        extra = None
+        if offenders:
+            traces = {tid: [s.to_dict() for s in engine.tracer.sink.trace(tid)]
+                      for tid in detail["trace_ids"]}
+            extra = {"deploy_traces.json": {k: v for k, v in traces.items() if v}}
+        path = engine._forensics.capture(TRIGGER_DEPLOY_ROLLBACK, engine.request_count, detail,
+                                         trace=False, extra_files=extra)
+        if path is None:
+            engine._triggers.refund(TRIGGER_DEPLOY_ROLLBACK, engine.request_count)
+
     def _pin_fleet(self, step: int) -> dict:
         """Converge every replica onto ``step`` through the router's
         two-phase rollout (stage everywhere, gate, drain,

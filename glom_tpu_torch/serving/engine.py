@@ -58,6 +58,22 @@ per-endpoint :class:`~glom_tpu_torch.obs.triggers.QueueSaturationMonitor`
 (``serving_queue_saturation_events``, and an event on the timeline), and
 declarative SLOs (``slos``) with burn-rate alerting.
 
+Forensics (``glom_tpu``'s, through :mod:`glom_tpu_torch.obs.forensics`):
+
+  * ``forensics_dir``: the triggers shared by the engine write post-mortem
+    bundles there, each through the one debounced, budgeted
+    :class:`~glom_tpu_torch.obs.triggers.TriggerEngine`: overload
+    (``queue_saturation``), ``slo_burn``, ``quality_drift``,
+    ``capacity_pressure`` (the three regression-class ones with the
+    attribution plane's verdict as ``attribution.json``),
+    ``deploy_rollback`` and ``ckpt_corrupt`` (a quarantine at load, reload
+    or a candidate's load).  A bundle's snapshot is the largest ``/embed``
+    bucket's graph record (``serving/compile_cache.py``): what one replay
+    launches, its analytic cost and its memory, read without a capture or
+    a replay.  ``/debug/forensics`` lists the bundles;
+  * ``warmup_dir``: at start-up, one bundle a (family, bucket) with that
+    graph's record.
+
 Serving at reduced precision, per tenant and with state:
 
   * ``quant`` (``f32`` | ``bf16`` | ``int8``; :mod:`.quant`): the tree is
@@ -109,7 +125,7 @@ of its obs modules):
     p95, padding waste per bucket, tenant headroom) and a dry-run advisor
     over ``capacity_policy``; a scale-up that persists
     ``capacity_persist_windows`` windows fires ``capacity_pressure``
-    (counted; no forensics bundle yet).  Utilization needs
+    (counted, and a bundle with a ``forensics_dir``).  Utilization needs
     ``capacity_ceiling``: the port never reads a ``BENCH_*.json`` of the
     repository (a TPU's rate) in its place.  Nothing samples until
     :meth:`CapacityPlane.tick` is driven or its timer thread started (the
@@ -138,8 +154,8 @@ a new capture.  ``/admin/jobs/*`` drives it; ``/healthz`` carries its
 summary as ``bulk``.
 
 Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (forensics bundles, a device mesh) are refused by name when set:
-:data:`UNPORTED`.
+yet (a device mesh) or that mean nothing to a CUDA graph (buffer donation)
+are refused by name when set: :data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -155,18 +171,25 @@ import numpy as np
 import torch
 
 from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch import profiling
 from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
 from glom_tpu_torch.hierarchy import parse as hierarchy_parse
 from glom_tpu_torch.kernels import _build, consensus, ff, fused_update
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply, decoder_param_shapes
+from glom_tpu_torch.obs import attribution as obs_attribution
 from glom_tpu_torch.obs.capacity import DEFAULT_POLICY, CapacityPlane
 from glom_tpu_torch.obs.events import Timeline
+from glom_tpu_torch.obs.forensics import MANIFEST, ForensicsManager, is_bundle_dir, write_bundle
 from glom_tpu_torch.obs.quality import QualityPlane, make_quality_fn, unpack_signals
 from glom_tpu_torch.obs.registry import MetricRegistry
 from glom_tpu_torch.obs.slo import SLO, SloManager, parse_slo
 from glom_tpu_torch.obs.tracing import SPAN_BATCH_ASSEMBLY, SPAN_RELOAD, TraceSink, Tracer
-from glom_tpu_torch.obs.triggers import QueueSaturationMonitor, TriggerEngine
+from glom_tpu_torch.obs.triggers import (
+    TRIGGER_QUEUE_SATURATION,
+    QueueSaturationMonitor,
+    TriggerEngine,
+)
 from glom_tpu_torch.resilience import faultinject, integrity
 from glom_tpu_torch.serving import quant as serving_quant
 from glom_tpu_torch.serving import sessions as serving_sessions
@@ -196,8 +219,6 @@ DEMO_CONFIG = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8)
 # that leaves it unset, what it waits for).  Any other value is refused.
 _Q = "ROADMAP queue 1"
 UNPORTED = {
-    "warmup_dir": (None, f"obs/forensics.py's compile snapshots ({_Q}, item 7)"),
-    "forensics_dir": (None, f"obs/forensics.py ({_Q}, item 7)"),
     "donate_inputs": (None, "an XLA buffer donation; a graph's static input is reused as it is"),
     "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
     "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
@@ -343,12 +364,14 @@ class ServingSet:
     caches: Dict[str, Union[BucketedGraphCache, PostPassCache]]
 
 
-def load_params(checkpoint_dir: str, step: Optional[int], quant: str, device):
+def load_params(checkpoint_dir: str, step: Optional[int], quant: str, device, *,
+                observer=None):
     """``(step, config, train_cfg, params)`` of a checkpoint: on ``device``
     under ``f32``, on the host under a reduced mode (quantized there, then
     placed once by :meth:`ServingProgram.make`)."""
     load_device = device if quant == "f32" else torch.device("cpu")
-    return denoise.load_checkpoint_state(checkpoint_dir, step=step, device=load_device)
+    return denoise.load_checkpoint_state(checkpoint_dir, step=step, device=load_device,
+                                         observer=observer)
 
 
 class ServingProgram:
@@ -438,11 +461,16 @@ class ServingProgram:
             params = serving_quant.tree_to(serving_quant.quantize_tree(params, self.quant),
                                            self.device)
         shape = (c.channels, c.image_size, c.image_size)
+        param_bytes = profiling.tree_nbytes(params)
 
         def cache(name, iters, **kw):
+            # each bucket's snapshot carries the analytic cost of its forward
+            def cost(bucket):
+                return profiling.analytic_cost(c, bucket, iters, param_bytes=param_bytes)
+
             return BucketedGraphCache(self.fns[name], self.buckets, input_shape=shape,
                                       device=self.device, name=name, lock=self.lock,
-                                      iters=iters, **kw)
+                                      iters=iters, quant=self.quant, cost_fn=cost, **kw)
 
         caches = {"embed": cache("embed", self.embed_iters),
                   "reconstruct": cache("reconstruct", self.reconstruct_timestep),
@@ -528,6 +556,8 @@ class ServingEngine:
         quality_sample: float = 1.0,
         quality_seed: int = 0,
         bulk_dir: Optional[str] = None,
+        warmup_dir: Optional[str] = None,
+        forensics_dir: Optional[str] = None,
         **unported,
     ):
         refuse_unported(unported)
@@ -553,6 +583,11 @@ class ServingEngine:
         self._reload_backoff_max = max(1, reload_backoff_max)
         self._reload_failstreak = 0
         self._sleep = sleep if sleep is not None else time.sleep
+        self._warmup_dir = warmup_dir
+        # checkpoint-integrity telemetry (triggers and forensics attached
+        # below, once they exist): corrupt artifacts found at load or reload
+        # are quarantined, counted and ckpt_corrupt-triggered
+        self._integrity_obs = integrity.IntegrityObserver(registry=self.registry)
 
         if ckpt_lib.latest_step(checkpoint_dir) is None:
             raise FileNotFoundError(
@@ -563,7 +598,8 @@ class ServingEngine:
         # new tree the same way
         self.quant = quant
         step, config, self.train_cfg, params = load_params(checkpoint_dir, None, quant,
-                                                           self.device)
+                                                           self.device,
+                                                           observer=self._integrity_obs)
         # None keeps the checkpoint's choice; a value overrides it
         overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
                      if v is not None}
@@ -633,6 +669,23 @@ class ServingEngine:
         self._triggers = TriggerEngine(debounce_steps=saturation_debounce,
                                        max_captures=max_captures, registry=self.registry)
         self.timeline = Timeline(clock=self._clock)
+        # -- forensics bundles: the snapshot is the largest /embed bucket's
+        # capture record, so an overload capture never captures or replays
+        self._forensics: Optional[ForensicsManager] = None
+        if forensics_dir:
+            max_bucket = self.buckets[-1]
+            self._forensics = ForensicsManager(
+                forensics_dir,
+                config={"checkpoint_dir": checkpoint_dir, "buckets": list(self.buckets),
+                        "max_queue": max_queue, "max_wait_ms": max_wait_ms,
+                        "glom": self.config.to_json_dict()},
+                snapshot_fn=lambda: self.caches["embed"].snapshots.get(max_bucket),
+                registry=self.registry,
+                attribution_fn=lambda: obs_attribution.attribute(
+                    obs_attribution.collect_engine_evidence(self)))
+        # quarantines now reach the debounced ckpt_corrupt trigger's bundle
+        self._integrity_obs.triggers = self._triggers
+        self._integrity_obs.forensics = self._forensics
         # -- SLO burn-rate alerting
         self._slo: Optional[SloManager] = None
         self._slo_lock = threading.Lock()
@@ -644,7 +697,8 @@ class ServingEngine:
                         f"SLO {s.name!r} names unknown endpoint {s.endpoint!r}; "
                         f"valid endpoints: {SLO_ENDPOINTS}")
             self._slo = SloManager(parsed, clock=self._clock, registry=self.registry,
-                                   triggers=self._triggers, tracer=self.tracer)
+                                   triggers=self._triggers, forensics=self._forensics,
+                                   tracer=self.tracer)
 
         # -- model-quality telemetry: the plane always exists (it never
         # samples without the quality family); the reference profile rides
@@ -689,7 +743,7 @@ class ServingEngine:
             self.registry, policy=capacity_policy or DEFAULT_POLICY,
             ceiling_imgs_per_sec=capacity_ceiling, interval_s=capacity_interval_s,
             window_s=capacity_window_s, persist_windows=capacity_persist_windows,
-            clock=self._clock, triggers=self._triggers,
+            clock=self._clock, triggers=self._triggers, forensics=self._forensics,
             tenants_fn=lambda: self.tenants.snapshot() if self.tenants is not None else None,
             on_recommend=lambda rec: self.timeline.note(
                 "capacity_recommendation", action=rec["action"],
@@ -741,10 +795,29 @@ class ServingEngine:
         t0 = self._clock()
         self._warm_set(self._serving)
         self._warm = True
+        if self._warmup_dir:
+            for family, cache in self._serving.caches.items():
+                self._write_warmup_snapshots(family, cache)
         self.registry.gauge(
             "serving_warmup_seconds",
             help="wall time of the startup graph-capture pass", unit="seconds",
         ).set(self._clock() - t0)
+
+    def _write_warmup_snapshots(self, family: str, cache) -> None:
+        """One bundle a (family, bucket) under ``warmup_dir``, named
+        ``<family>-b<bucket>``: ``glom_tpu``'s manifest (endpoint, bucket,
+        quant, cost and memory analyses) and, in place of its ``hlo.txt``,
+        ``kernels.json``, the launches one replay of the graph makes."""
+        for bucket, snap in sorted(cache.snapshots.items()):
+            files = {MANIFEST: {
+                "endpoint": family, "bucket": bucket, "quant": cache.quant,
+                "cost_analysis": snap.get("cost_analysis", {}),
+                "memory_analysis": snap.get("memory_analysis", {}),
+            }, "kernels.json": snap.get("kernels", {})}
+            try:
+                write_bundle(self._warmup_dir, f"{family}-b{bucket}", files)
+            except OSError as e:
+                warnings.warn(f"warmup snapshot write failed ({e})", stacklevel=2)
 
     @property
     def serving(self) -> ServingSet:
@@ -888,7 +961,8 @@ class ServingEngine:
         if kind == "corrupt_manifest":
             warnings.warn("injected corrupt reload manifest", stacklevel=2)
             return None
-        return integrity.latest_valid_step(self.checkpoint_dir, newer_than=self.step)
+        return integrity.latest_valid_step(self.checkpoint_dir, newer_than=self.step,
+                                           observer=self._integrity_obs)
 
     def check_reload(self) -> bool:
         """One watcher poll: load, capture and swap when a newer valid step
@@ -918,7 +992,8 @@ class ServingEngine:
                 serving = self._load_set(newest)
             except ckpt_lib.CorruptCheckpointError as e:
                 self.tracer.end(span, attrs={"error": repr(e)})
-                integrity.quarantine(self.checkpoint_dir, newest, reason=str(e))
+                integrity.quarantine(self.checkpoint_dir, newest, observer=self._integrity_obs,
+                                     reason=str(e))
                 self._reload_failure(f"hot reload of step {newest}", e)
                 self._reload_failstreak += 1
                 return False
@@ -974,7 +1049,8 @@ class ServingEngine:
             try:
                 serving = self._load_set(int(target))
             except ckpt_lib.CorruptCheckpointError as e:
-                integrity.quarantine(self.checkpoint_dir, int(target), reason=str(e))
+                integrity.quarantine(self.checkpoint_dir, int(target),
+                                     observer=self._integrity_obs, reason=str(e))
                 self._reload_failure(f"stage of step {target}", e)
                 return None
             except Exception as e:
@@ -1577,9 +1653,18 @@ class ServingEngine:
             if detail is not None:
                 self.registry.counter("serving_queue_saturation_events",
                                       help="sustained-overload detections").inc()
-                # no forensics bundle yet (obs/forensics.py is not ported):
-                # the detection goes on the timeline
                 self.timeline.note("queue_saturation", endpoint=endpoint, **detail)
+                detail["endpoint"] = endpoint
+                count = self.request_count
+                if self._forensics is not None and self._triggers.fire(
+                        TRIGGER_QUEUE_SATURATION, count):
+                    # the bundle write is small and captures are rare, so it
+                    # runs under the lock (two racing threads could overshoot
+                    # the capture budget)
+                    path = self._forensics.capture(TRIGGER_QUEUE_SATURATION, count, detail,
+                                                   trace=False)
+                    if path is None:
+                        self._triggers.refund(TRIGGER_QUEUE_SATURATION, count)
         self.registry.gauge("serving_queue_depth", help="queued images").set(batcher.depth)
 
     def observe_outcome(self, endpoint: str, latency_ms: Optional[float], error: bool,
@@ -1616,10 +1701,26 @@ class ServingEngine:
 
     def debug_forensics(self) -> dict:
         """The ``/debug/forensics`` payload the fleet observatory polls on
-        every replica: ``glom_tpu``'s for an engine with no
-        ``forensics_dir`` (the port writes no bundles until ROADMAP queue 1,
-        item 7), so ``bundles`` is empty; the registry snapshot and the
-        recent SLO firings are this engine's."""
+        every replica: this engine's bundle manifests (none without a
+        ``forensics_dir``), its registry snapshot and its recent SLO
+        firings.  Read-only and cheap: a directory listing and small JSON
+        reads; never touches the request path."""
+        import json
+        import os
+
+        bundles = []
+        root = self._forensics.root if self._forensics is not None else None
+        if root and os.path.isdir(root):
+            for name in sorted(os.listdir(root)):
+                path = os.path.join(root, name)
+                if not is_bundle_dir(path):
+                    continue
+                try:
+                    with open(os.path.join(path, MANIFEST)) as f:
+                        manifest = json.load(f)
+                except (OSError, ValueError):
+                    continue  # a manifest mid-write: the next poll sees it
+                bundles.append({"name": name, "manifest": manifest})
         # copy `fired` under the SLO lock: request threads append to the
         # deque inside _slo.observe(), and iterating a deque concurrent
         # with appends raises RuntimeError
@@ -1628,7 +1729,7 @@ class ServingEngine:
                 slo_fired = list(self._slo.fired)
         else:
             slo_fired = []
-        return {"role": "engine", "step": int(self.step), "bundles": [],
+        return {"role": "engine", "step": int(self.step), "bundles": bundles,
                 "registry": self.registry.snapshot(), "slo_fired": slo_fired}
 
     # -- health ------------------------------------------------------------

@@ -29,8 +29,8 @@ its single-replica routes and JSON contract).
   * ``GET /debug/traces?since=N`` -- completed request traces after cursor
     ``N``; ``GET /debug/timeline`` -- the engine's event timeline (capacity
     recommendations among its events); ``GET /debug/forensics`` -- the
-    registry snapshot, the recent SLO firings and the bundle list (empty:
-    the port writes no forensics bundle yet), which the fleet observatory
+    registry snapshot, the recent SLO firings and the bundle list of
+    ``--forensics-dir`` (empty without one), which the fleet observatory
     polls;
   * ``GET /capacity`` -- the capacity plane: the policy, the advisor's
     recommendation and history, the per-rule forecasts; ``GET
@@ -724,8 +724,6 @@ _REFUSED = {
     "--mesh-shape": (1, "mesh_shape"),
     "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
-    "--forensics-dir": (1, "forensics_dir"),
-    "--warmup-dir": (1, "warmup_dir"),
 }
 # the one with no engine argument behind it: flag -> (nargs, why)
 _REFUSED_CLI = {
@@ -809,6 +807,13 @@ def parse_args(argv=None):
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the start-up graph captures (the first request of each "
                         "bucket then captures it, counted in serving_graph_captures)")
+    p.add_argument("--warmup-dir", default=None,
+                   help="write one bundle a (family, bucket) here at warm-up: the graph's "
+                        "kernel launches a replay, its analytic cost and its memory")
+    p.add_argument("--forensics-dir", default=None,
+                   help="bundle root for the engine's triggered captures (queue_saturation, "
+                        "slo_burn, quality_drift, capacity_pressure, deploy_rollback, "
+                        "ckpt_corrupt)")
     p.add_argument("--trace-log", default=None,
                    help="JSONL file receiving one record per completed request trace")
     p.add_argument("--slo", action="append", default=None, metavar="SPEC",
@@ -900,7 +905,8 @@ def engine_from_args(args, **overrides) -> ServingEngine:
         capacity_policy=args.capacity_policy, capacity_window_s=args.capacity_window_s,
         capacity_persist_windows=args.capacity_persist_windows,
         capacity_ceiling=args.capacity_ceiling, quality_sample=args.quality_sample,
-        bulk_dir=args.bulk_dir,
+        bulk_dir=args.bulk_dir, warmup_dir=args.warmup_dir,
+        forensics_dir=args.forensics_dir,
     )
     kwargs.update(overrides)
     return ServingEngine(args.checkpoint_dir, **kwargs)

@@ -18,8 +18,9 @@ every step instead (decode threads, the native libjpeg batch decoder where
 it builds, and the transfer to the card inside the window), under the
 metric name with ``_realdata``.
 ``--scan-unroll`` is accepted and changes nothing (the port's loop is
-eager).  ``--device`` takes the place of ``--platform`` and
-``--device-probe-timeout``: there is no relay to guard.  Without a card and
+eager).  ``--device`` takes the place of ``--platform``;
+``--device-probe-timeout`` watches the first touch of the card
+(:mod:`glom_tpu_torch.device_guard`).  Without a card and
 without ``--device cpu`` it exits non-zero, printing no record: it never
 falls back to the CPU.
 
@@ -48,6 +49,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import sys
 import time
 
 METRIC = "denoise_ssl_train_imgs_per_sec_per_chip"
@@ -92,6 +94,10 @@ def parse_args(argv=None):
                         "(outside the timed window)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (refused without a card) or cpu")
+    p.add_argument("--device-probe-timeout", type=float, default=240,
+                   help="seconds the first touch of the card may take before the tool "
+                        "emits an error line and exits 2 (glom_tpu_torch.device_guard); "
+                        "<= 0 disables the guard")
     args = p.parse_args(argv)
     if args.data == "images" and not args.data_dir:
         p.error("--data images needs --data-dir")
@@ -103,6 +109,7 @@ def main(argv=None) -> dict:
     import torch
 
     from glom_tpu_torch.config import GlomConfig, TrainConfig, bench_preset, resolve_device
+    from glom_tpu_torch.device_guard import guarded_cuda_init
     from glom_tpu_torch.kernels import _build, wrappers
     from glom_tpu_torch.tools import mfu as mfu_tool
     from glom_tpu_torch.training.data import synthetic_batches
@@ -116,6 +123,8 @@ def main(argv=None) -> dict:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"bench: {e}")
+    guarded_cuda_init(device, args.device_probe_timeout,
+                      lambda msg: print(f"bench: {msg}", file=sys.stderr, flush=True))
     on_card = device.type == "cuda"
     if args.ff_impl == "auto":
         args.ff_impl = "pallas" if on_card else "dense"

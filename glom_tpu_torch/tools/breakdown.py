@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import statistics
 import time
 
@@ -63,11 +64,16 @@ def main(argv=None):
     p.add_argument("--ff-impl", default="dense", choices=["dense", "pallas"])
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (refused without a card) or cpu")
+    p.add_argument("--device-probe-timeout", type=float, default=240,
+                   help="seconds the first touch of the card may take before the tool "
+                        "emits an error line and exits 2 (glom_tpu_torch.device_guard); "
+                        "<= 0 disables the guard")
     args = p.parse_args(argv)
 
     import torch
 
     from glom_tpu_torch.config import GlomConfig, TrainConfig, bench_preset, resolve_device
+    from glom_tpu_torch.device_guard import guarded_cuda_init
     from glom_tpu_torch.models import glom as glom_model
     from glom_tpu_torch.training import denoise
     from glom_tpu_torch.training.optim import Optimizer
@@ -76,6 +82,8 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"breakdown: {e}")
+    guarded_cuda_init(device, args.device_probe_timeout,
+                      lambda msg: print(f"breakdown: {msg}", file=sys.stderr, flush=True))
     kw, iters, card_b, cpu_b = bench_preset(args.config)
     batch = args.batch_size or (card_b if device.type == "cuda" else cpu_b)
     config = GlomConfig(compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 import time
 
 import torch
@@ -83,9 +84,17 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--sizes", type=int, nargs="+", default=list(IMAGE_SIZES))
+    p.add_argument("--device-probe-timeout", type=float, default=240,
+                   help="seconds the first touch of the card may take before the tool "
+                        "emits an error line and exits 2 (glom_tpu_torch.device_guard); "
+                        "<= 0 disables the guard")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("refusing: no CUDA device; the crossover is a property of the card")
+    from glom_tpu_torch.device_guard import guarded_cuda_init
+
+    guarded_cuda_init("cuda", args.device_probe_timeout,
+                      lambda msg: print(f"crossover: {msg}", file=sys.stderr, flush=True))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(

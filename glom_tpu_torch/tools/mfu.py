@@ -30,6 +30,7 @@ The peak comes from :data:`PEAK_TFLOPS`, keyed by the card's name
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -99,6 +100,7 @@ def executed_flops_per_image(config, iters: int, executed: int, batch: int, devi
 
 def main(argv=None):
     from glom_tpu_torch.config import GlomConfig, TrainConfig, bench_preset, resolve_device
+    from glom_tpu_torch.device_guard import guarded_cuda_init
     from glom_tpu_torch.training.denoise import resolve_loss_timestep
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -118,6 +120,10 @@ def main(argv=None):
                         "a valid explicit choice — the t=0 state)")
     p.add_argument("--skip-executed", action="store_true",
                    help="analytic numerator only (no train step is run)")
+    p.add_argument("--device-probe-timeout", type=float, default=240,
+                   help="seconds the first touch of the card may take before the tool "
+                        "emits an error line and exits 2 (glom_tpu_torch.device_guard); "
+                        "<= 0 disables the guard")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the executed count runs (the plain path's step)")
     args = p.parse_args(argv)
@@ -127,6 +133,8 @@ def main(argv=None):
     if card is None and args.peak_tflops is None:
         if not torch.cuda.is_available():
             p.error("no card to name: pass --card or --peak-tflops")
+        guarded_cuda_init("cuda", args.device_probe_timeout,
+                          lambda msg: print(f"mfu: {msg}", file=sys.stderr, flush=True))
         card = torch.cuda.get_device_name(0)
     if args.peak_tflops is not None:
         peak, source = args.peak_tflops, "--peak-tflops"
@@ -150,6 +158,8 @@ def main(argv=None):
     if args.skip_executed:
         return
     device = resolve_device(args.device)
+    guarded_cuda_init(device, args.device_probe_timeout,
+                      lambda msg: print(f"mfu: {msg}", file=sys.stderr, flush=True))
     per_img = executed_flops_per_image(config, iters, executed, args.batch_size, device)
     util = args.imgs_per_sec * per_img / (peak * 1e12)
     print(f"executed FLOPs/img      : {per_img/1e9:.1f} GF "

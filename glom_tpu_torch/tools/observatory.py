@@ -26,11 +26,11 @@ port's replicas (``--device``, ``cuda`` by default), a short burst with one
 induced slow request; the stitched trace is retained with the whole
 cross-hop span chain and its parent links, a histogram exemplar resolves
 through the collector to a stored stitched trace naming its hottest phase,
-and — the one difference from ``tools/observatory.py``, whose replicas write
-``slo_burn`` bundles the port's do not write yet (ROADMAP queue 1, item 7) —
-one replica's HTTP server is shut down, the router ejects it, and exactly one
-``replica_ejection`` incident bundle lands with the surviving replica's
-evidence.  ``--min-coverage`` (default 0.95) gates the best stitched
+and — the one difference from ``tools/observatory.py``, whose incident
+starts from its replicas' ``slo_burn`` bundles — one replica's HTTP server
+is shut down, the router ejects it, and exactly one ``replica_ejection``
+incident bundle lands with the surviving replica's evidence (the smoke's
+replicas run without a forensics directory).  ``--min-coverage`` (default 0.95) gates the best stitched
 trace's span coverage, a share of wall time the host's scheduling decides;
 0 turns the gate off (the CPU tests, which hold the structure only).
 """

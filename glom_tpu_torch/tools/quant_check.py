@@ -36,6 +36,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch versions of the kernels")
+    p.add_argument("--device-probe-timeout", type=float, default=240,
+                   help="seconds the first touch of the card may take before the tool "
+                        "emits an error line and exits 2 (glom_tpu_torch.device_guard); "
+                        "<= 0 disables the guard")
     p.add_argument("--platform", default=argparse.SUPPRESS, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if hasattr(args, "platform"):
@@ -46,6 +50,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from glom_tpu_torch.config import resolve_device
+    from glom_tpu_torch.device_guard import guarded_cuda_init
     from glom_tpu_torch.serving import quant
     from glom_tpu_torch.training import denoise
 
@@ -55,6 +60,8 @@ def main(argv=None) -> int:
             p.error(f"no acceptance threshold for mode {m!r} "
                     f"(known: {sorted(quant.ACCURACY_THRESHOLDS)})")
     device = resolve_device(args.device)
+    guarded_cuda_init(device, args.device_probe_timeout,
+                      lambda msg: print(f"quant_check: {msg}", file=sys.stderr, flush=True))
     ckpt_dir = args.checkpoint_dir
     if args.demo and ckpt_dir is None:
         import tempfile

@@ -212,7 +212,8 @@ def read_configs(directory: str):
             TrainConfig.from_json_dict(payload.get("train") or {}))
 
 
-def load_checkpoint_state(directory: str, *, step: Optional[int] = None, device=None):
+def load_checkpoint_state(directory: str, *, step: Optional[int] = None, device=None,
+                          observer=None):
     """``(step, config, train_cfg, params)`` from a checkpoint directory
     written by ``glom_tpu``'s Trainer or by this package: ``config.json``
     gives the configs, the npz the ``{"glom": ..., "decoder": ...}`` tree,
@@ -220,12 +221,15 @@ def load_checkpoint_state(directory: str, *, step: Optional[int] = None, device=
 
     With ``step=None`` the newest step that passes its integrity check
     loads: a corrupt newer step is quarantined (renamed ``*.corrupt``) and
-    the load falls back, as ``glom_tpu``'s loader does.  A pinned ``step``
+    the load falls back, as ``glom_tpu``'s loader does, telling ``observer``
+    (an :class:`~glom_tpu_torch.resilience.integrity.IntegrityObserver`) of
+    each quarantine.  A pinned ``step``
     raises :class:`~glom_tpu_torch.checkpoint.CorruptCheckpointError` on a
     bad CRC.  A tree that does not match the recorded config raises
     ``ValueError``."""
     config, train_cfg = read_configs(directory)
-    step, trees = integrity.restore_with_fallback(directory, ("params",), step=step)
+    step, trees = integrity.restore_with_fallback(directory, ("params",), step=step,
+                                                  observer=observer)
     tree = trees["params"]
     want = checkpoint_shapes(config, train_cfg)
     got = {k: tree_map(lambda a: tuple(a.shape), tree[k]) if k in tree else None

@@ -1,49 +1,73 @@
-"""JSONL metric records (``glom_tpu/training/metrics.py::MetricLogger``).
+"""Metrics logging facade (``glom_tpu/training/metrics.py::MetricLogger``).
 
-One JSON object per line, to stdout (or a given stream) and, with ``path``,
-appended to a file.  A record is ``{"step", "time", **scalars}``: ints,
-bools and strings pass through, floats round to 6 significant digits (the
-JAX package's ``normalize_scalar``), and a tensor scalar is read as a float.
-``close()`` is idempotent; a later ``log`` reopens the file for appending.
+``MetricLogger`` is what the Trainer (and CLI) log through: one record per
+logging boundary, fanned out to pluggable exporters
+(:mod:`glom_tpu_torch.obs.exporters`).  The default keeps the historical
+format: JSONL to stdout (or a given stream) plus an optional append-mode
+file.  A record is ``{"step", "time", **scalars}``: ints, bools and strings
+pass through, floats round to 6 significant digits
+(:func:`~glom_tpu_torch.obs.exporters.normalize_scalar`), and a tensor
+scalar is read as a float.
+
+``registry`` is the :class:`~glom_tpu_torch.obs.registry.MetricRegistry`
+that exporters which want one (``wants_registry``: the Prometheus textfile)
+render with each record; the Trainer adopts a caller's logger's registry as
+``glom_tpu``'s does.  ``close()`` flushes and closes every exporter and is
+idempotent; a later ``log`` reopens file sinks in append mode.  The port
+runs in one process, so every logger emits (``glom_tpu`` gates on process
+0 of a multi-host job).
 """
 
 from __future__ import annotations
 
-import json
-import math
 import sys
 import time
 from typing import IO, Callable, Optional
 
-
-def normalize_scalar(v):
-    if isinstance(v, (bool, int, str)):
-        return v
-    f = float(v)
-    return float(f"{f:.6g}") if math.isfinite(f) else f
+from glom_tpu_torch.obs.exporters import JsonlExporter, normalize_scalar
 
 
 class MetricLogger:
     def __init__(self, path: Optional[str] = None, stream: Optional[IO] = None,
+                 exporters=None, registry=None,
                  clock: Optional[Callable[[], float]] = None):
         self.path = path
-        self._stream = stream if stream is not None else sys.stdout
-        self._file = None
+        self.registry = registry
+        self._exporters = [JsonlExporter(path=path,
+                                         stream=stream if stream is not None else sys.stdout)]
+        if exporters:
+            self._exporters.extend(exporters)
+        # injectable clock: record `time` fields are deterministic in tests
         self._clock = clock if clock is not None else time.time
         self._t0 = self._clock()
 
+    def add_exporter(self, exporter) -> None:
+        """Attach another sink.  A second exporter of the same class on the
+        same path is a no-op: two Trainers sharing one logger must not
+        double-write the same file."""
+        path = getattr(exporter, "path", None)
+        if path is not None and any(
+                type(e) is type(exporter) and getattr(e, "path", None) == path
+                for e in self._exporters):
+            return
+        self._exporters.append(exporter)
+
     def log(self, step: int, **scalars) -> None:
         rec = {"step": int(step), "time": round(self._clock() - self._t0, 3)}
-        rec.update({k: normalize_scalar(v) for k, v in scalars.items()})
-        line = json.dumps(rec)
-        print(line, file=self._stream, flush=True)
-        if self.path:
-            if self._file is None:
-                self._file = open(self.path, "a")
-            self._file.write(line + "\n")
-            self._file.flush()
+        for k, v in scalars.items():
+            rec[k] = normalize_scalar(v)
+        for ex in self._exporters:
+            if getattr(ex, "wants_registry", False):
+                ex.emit(rec, registry=self.registry)
+            else:
+                ex.emit(rec)
 
     def close(self) -> None:
-        if self._file is not None:
-            self._file.close()
-            self._file = None
+        for ex in self._exporters:
+            ex.close()
+
+    def __enter__(self) -> "MetricLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -11,10 +11,21 @@ resumable: its cursor rides in the checkpoint).  With ``--data images`` and
 and scored by an ``EvalSuite`` (PSNR and the linear probes); otherwise
 ``--eval-every`` logs the incoming batch's PSNR.
 
+The observability and robustness flags are ``glom_tpu``'s: exporters
+(``--metrics-csv``, ``--prom-textfile``), the phase trace (``--trace-dir``),
+diagnostics (``--diag-every``), the numerics monitor
+(``--no-monitor-numerics``, ``--grad-spike-factor``), forensics bundles
+(``--forensics-*``), async saves (``--async-checkpoint``) and the
+supervisor (``--supervise``, ``--max-restart-failures``,
+``--restart-window-s``), which runs a fresh ``Trainer`` and data stream for
+each attempt: what recovers flows only through the checkpoint directory.
+
     python -m glom_tpu_torch.training.train --steps 5 --batch-size 8 \\
         --ff-impl pallas --fused-ff-bwd --attention-impl pallas --log-every 1
     python -m glom_tpu_torch.training.train --data folder --data-dir DIR --augment flip \\
         --consistency infonce --eval-every 50
+    python -m glom_tpu_torch.training.train --supervise --checkpoint-dir CKPT \\
+        --checkpoint-every 10 --forensics-dir FORENSICS --steps 100
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import argparse
 
 import numpy as np
 
-from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
 from glom_tpu_torch.training.data import AUGMENT_KINDS, _StatefulAugmented, make_batches
 from glom_tpu_torch.training.metrics import MetricLogger
 from glom_tpu_torch.training.trainer import REASONS, Trainer
@@ -37,23 +48,6 @@ _REFUSED = {
     "--num-processes": (1, "mesh"),
     "--process-id": (1, "mesh"),
     "--stop-poll-steps": (1, "mesh"),
-    "--async-checkpoint": (0, "obs"),
-    "--trace-dir": (1, "obs"),
-    "--metrics-csv": (1, "obs"),
-    "--prom-textfile": (1, "obs"),
-    "--diag-every": (1, "obs"),
-    "--no-monitor-numerics": (0, "obs"),
-    "--grad-spike-factor": (1, "obs"),
-    "--supervise": (0, "obs"),
-    "--max-restart-failures": (1, "obs"),
-    "--restart-window-s": (1, "obs"),
-    "--forensics-dir": (1, "obs"),
-    "--forensics-ring": (1, "obs"),
-    "--forensics-max-captures": (1, "obs"),
-    "--forensics-debounce-steps": (1, "obs"),
-    "--forensics-trace-steps": (1, "obs"),
-    "--no-forensics-hlo": (0, "obs"),
-    "--forensics-step-time-factor": (1, "obs"),
     "--platform": (1, "device"),
 }
 
@@ -145,6 +139,57 @@ def parse_args(argv=None):
                         "point")
     p.add_argument("--device", default=None,
                    help="torch device; default cuda (refused without a card)")
+    # checkpointing and observability (glom_tpu_torch.obs)
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write checkpoints on a background thread (the host copy stays "
+                        "synchronous; fit returns once the last one is durable)")
+    p.add_argument("--trace-dir", default=None,
+                   help="write the step loop's phase spans as a Perfetto-loadable "
+                        "train_trace.json here at the end of fit")
+    p.add_argument("--metrics-csv", default=None,
+                   help="also mirror every log record to this CSV file")
+    p.add_argument("--prom-textfile", default=None,
+                   help="write a Prometheus textfile-collector snapshot here at every log "
+                        "boundary (atomic rename)")
+    p.add_argument("--diag-every", type=int, default=0,
+                   help="GLOM diagnostics cadence (island agreement, attention entropy, "
+                        "contribution shares): one extra forward every N steps; 0 = off")
+    p.add_argument("--no-monitor-numerics", action="store_true",
+                   help="disable the NaN/Inf and grad-spike monitor (on by default; a few "
+                        "reductions a step)")
+    p.add_argument("--grad-spike-factor", type=float, default=10.0,
+                   help="flag a window when grad_norm exceeds this factor times its running "
+                        "EMA")
+    # resilience (glom_tpu_torch.resilience)
+    p.add_argument("--supervise", action="store_true",
+                   help="run fit() under the self-healing supervisor: a crash restarts with "
+                        "exponential backoff from the newest checkpoint that passes its "
+                        "integrity check; a crash loop, or a sticky CUDA error, gives up")
+    p.add_argument("--max-restart-failures", type=int, default=5,
+                   help="(--supervise) failures within the crash-loop window before giving up")
+    p.add_argument("--restart-window-s", type=float, default=600.0,
+                   help="(--supervise) sliding crash-loop window, seconds")
+    # forensics (glom_tpu_torch.obs.forensics): anomaly-triggered evidence
+    p.add_argument("--forensics-dir", default=None,
+                   help="write post-mortem bundles (flight-recorder ring, env fingerprint, "
+                        "the step's kernel launches and cost) here when a monitor fires, the "
+                        "run crashes or a stop ends it")
+    p.add_argument("--forensics-ring", type=int, default=256,
+                   help="flight-recorder capacity in log records (0 = off)")
+    p.add_argument("--forensics-max-captures", type=int, default=3,
+                   help="budget of triggered captures a run")
+    p.add_argument("--forensics-debounce-steps", type=int, default=200,
+                   help="per-trigger re-fire spacing: a NaN storm inside this many steps is "
+                        "one bundle")
+    p.add_argument("--forensics-trace-steps", type=int, default=0,
+                   help="also record a torch.profiler trace of N steps after each capture "
+                        "(0 = off; ignored while --profile-dir is set)")
+    p.add_argument("--no-forensics-hlo", action="store_true",
+                   help="leave the step snapshot (kernel launches, cost, memory) out of "
+                        "bundles (glom_tpu's name: there it is the HLO snapshot)")
+    p.add_argument("--forensics-step-time-factor", type=float, default=2.0,
+                   help="fire the step-time regression trigger when recent windows' p95 "
+                        "step time exceeds this factor times the baseline p95 (0 = off)")
     refused = p.add_argument_group("refused: not in the port yet")
     for flag, (nargs, _) in _REFUSED.items():
         kw = {"action": "store_true"} if nargs == 0 else {"nargs": None if nargs == 1 else nargs}
@@ -186,6 +231,9 @@ def holdout_eval_data(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    # the device is settled before any attempt: without a card this refuses
+    # at once, and a supervisor never retries it
+    resolve_device(args.device)
     config = GlomConfig(
         dim=args.dim, levels=args.levels, image_size=args.image_size,
         patch_size=args.patch_size, consensus_self=args.consensus_self,
@@ -206,32 +254,78 @@ def main(argv=None):
         decoder_hidden_mult=args.decoder_hidden_mult, steps=args.steps,
         log_every=args.log_every, checkpoint_every=args.checkpoint_every,
         checkpoint_dir=args.checkpoint_dir, halt_on_nan=args.halt_on_nan, seed=args.seed,
-        profile_dir=args.profile_dir,
+        profile_dir=args.profile_dir, async_checkpoint=args.async_checkpoint,
+        trace_dir=args.trace_dir, monitor_numerics=not args.no_monitor_numerics,
+        grad_spike_factor=args.grad_spike_factor, diag_every=args.diag_every,
+        forensics_dir=args.forensics_dir, forensics_ring=args.forensics_ring,
+        forensics_max_captures=args.forensics_max_captures,
+        forensics_debounce_steps=args.forensics_debounce_steps,
+        forensics_trace_steps=args.forensics_trace_steps,
+        forensics_hlo=not args.no_forensics_hlo,
+        forensics_step_time_factor=args.forensics_step_time_factor,
+        metrics_csv=args.metrics_csv, prom_textfile=args.prom_textfile,
     )
-    trainer = Trainer(config, train_cfg, device=args.device,
-                      logger=MetricLogger(path=args.log_file))
-    if args.data == "images" and args.eval_every:
-        from glom_tpu_torch.training.eval import EvalSuite
-        from glom_tpu_torch.training.image_stream import ImageFolderStream
+    eval_data = holdout_eval_data(args) if args.data == "images" and args.eval_every else None
 
-        train_files, eval_imgs, probe_kwargs = holdout_eval_data(args)
-        trainer.set_eval_suite(EvalSuite(
-            config, eval_imgs, noise_std=args.noise_std, iters=args.iters,
-            timestep=args.loss_timestep, chunk=min(args.batch_size, len(eval_imgs)),
-            decoder=args.decoder, **probe_kwargs))
-        batches = ImageFolderStream(args.data_dir, args.batch_size, args.image_size,
-                                    channels=config.channels, seed=args.seed, files=train_files)
-        if args.augment != "none":
-            batches = _StatefulAugmented(batches, args.augment, args.seed)
+    def make_stream():
+        if eval_data is not None:
+            from glom_tpu_torch.training.image_stream import ImageFolderStream
+
+            stream = ImageFolderStream(args.data_dir, args.batch_size, args.image_size,
+                                       channels=config.channels, seed=args.seed,
+                                       files=eval_data[0])
+            if args.augment != "none":
+                stream = _StatefulAugmented(stream, args.augment, args.seed)
+            return stream
+        return make_batches(args.data, args.batch_size, args.image_size, config.channels,
+                            args.seed, args.data_dir, augment=args.augment)
+
+    def run_once():
+        # built fresh for each (supervised) attempt: a crashed attempt's
+        # trainer, state and stream may be poisoned; recovery flows only
+        # through the checkpoint directory
+        trainer = Trainer(config, train_cfg, device=args.device,
+                          logger=MetricLogger(path=args.log_file))
+        if eval_data is not None:
+            from glom_tpu_torch.training.eval import EvalSuite
+
+            _, eval_imgs, probe_kwargs = eval_data
+            trainer.set_eval_suite(EvalSuite(
+                config, eval_imgs, noise_std=args.noise_std, iters=args.iters,
+                timestep=args.loss_timestep, chunk=min(args.batch_size, len(eval_imgs)),
+                decoder=args.decoder, **probe_kwargs))
+        batches = make_stream()
+        try:
+            return trainer.fit(batches)
+        finally:
+            close = getattr(batches, "close", None)
+            if callable(close):
+                close()
+
+    if args.supervise:
+        from glom_tpu_torch.obs import MetricRegistry
+        from glom_tpu_torch.resilience.supervisor import RestartPolicy, Supervisor
+
+        # the supervisor outlives every attempt's Trainer (each builds its own
+        # registry and forensics), so it has its own: the restart counters
+        # land in each crash_restart bundle's metrics.json
+        sup_registry = MetricRegistry()
+        sup_forensics = None
+        if args.forensics_dir:
+            from glom_tpu_torch.obs.forensics import ForensicsManager
+
+            sup_forensics = ForensicsManager(
+                args.forensics_dir, registry=sup_registry,
+                config={"glom": config.to_json_dict(), "train": train_cfg.to_json_dict()})
+        final = Supervisor(
+            run_once,
+            policy=RestartPolicy(max_failures=args.max_restart_failures,
+                                 window_s=args.restart_window_s),
+            checkpoint_dir=args.checkpoint_dir, registry=sup_registry,
+            forensics=sup_forensics, seed=args.seed,
+        ).run()
     else:
-        batches = make_batches(args.data, args.batch_size, args.image_size, config.channels,
-                               args.seed, args.data_dir, augment=args.augment)
-    try:
-        final = trainer.fit(batches)
-    finally:
-        close = getattr(batches, "close", None)
-        if callable(close):
-            close()
+        final = run_once()
     print({"final": final})
     return final
 

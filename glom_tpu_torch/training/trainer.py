@@ -1,13 +1,13 @@
-"""A minimal single-card trainer (``glom_tpu/training/trainer.py``).
+"""The single-card trainer (``glom_tpu/training/trainer.py``).
 
-It covers the loop of the JAX package's ``Trainer`` on one device:
-``fit`` runs the denoising step (``training/denoise.py``) to a step count,
-logs a JSONL record every ``log_every`` steps (loss, the raw pre-clip grad
-norm, images per second over the window, the window's non-finite counts),
-halts with :class:`NonFiniteError` on non-finite values when
-``halt_on_nan``, checkpoints every ``checkpoint_every`` steps, auto-resumes
-from the newest checkpoint that passes its integrity check, and on SIGTERM
-stops after the step in flight and saves.
+It runs the loop of the JAX package's ``Trainer`` on one device: ``fit``
+runs the denoising step (``training/denoise.py``) to a step count, logs a
+JSONL record every ``log_every`` steps (loss, the raw pre-clip grad norm,
+images per second over the window, the window's numerics and device memory,
+its phase times), halts with :class:`NonFiniteError` on non-finite values
+when ``halt_on_nan``, checkpoints every ``checkpoint_every`` steps,
+auto-resumes from the newest checkpoint that passes its integrity check,
+and on SIGTERM stops after the step in flight and saves.
 
 Every ``eval_every`` steps the loop evaluates, as ``glom_tpu``'s does: with
 an :class:`~glom_tpu_torch.training.eval.EvalSuite` (``set_eval_suite``) it
@@ -37,18 +37,41 @@ A checkpoint is the port's npz layout with its CRC sidecar
   its cursor, which ``restore(batches=...)`` hands back, so the stream goes
   on with the exact next batch.
 
-The loop is phase-timed as ``glom_tpu``'s is (``obs/timing.py``): every
-logged record carries ``t_data_wait``, ``t_h2d``, ``t_step`` and
-``t_log_sync`` (seconds over the window; ``t_eval`` in a window that
-evaluated), ``t_window`` and ``window_steps``, and each phase is an
-:func:`~glom_tpu_torch.profiling.annotate` region; ``imgs_per_sec`` leaves
-the eval out.  With ``profile_dir`` the loop traces steps ``start+2`` to
-``start+4`` (``profiling.trace``), the window ``glom_tpu`` traces.
+With ``async_checkpoint`` the save copies the state to the host (numpy,
+device to host) before it returns, so the next step cannot touch what is
+written, and a background thread writes the npz.  :meth:`finish_saves`
+joins it and re-raises its error; ``fit`` returns only once the checkpoint
+is durable.  Where the port differs: the writer reads its artifact back
+against the integrity record before the save counts as durable, because no
+caller sees a background write fail otherwise (a torn or flipped artifact,
+the ``ckpt_write`` fault seam's, raises from :meth:`finish_saves` here, and
+not only at the next resume).
+
+Observability is ``glom_tpu``'s (``glom_tpu_torch/obs``): one
+:class:`~glom_tpu_torch.obs.registry.MetricRegistry` per trainer and logger
+(a caller's logger's registry is adopted), exporters from the config
+(``metrics_csv``, ``prom_textfile``), the loop phase-timed
+(``obs/timing.py``: ``t_data_wait``, ``t_h2d``, ``t_step``, ``t_log_sync``,
+``t_stop_poll``, and ``t_eval``, ``t_diag``, ``t_checkpoint``,
+``t_log_emit`` in a window that had them, left out of ``imgs_per_sec``),
+each phase a span of a per-window trace (``trace_dir`` writes
+``train_trace.json`` at the end of ``fit``) and an
+:func:`~glom_tpu_torch.profiling.annotate` region, the monitors
+(``obs/monitors.py``: numerics with the grad-norm spike flag, device
+memory, kernel rebuilds), ``diag_every``'s GLOM diagnostics
+(``obs/diagnostics.py``) in a ``diag`` phase of their own, and with
+``forensics_dir`` post-mortem bundles (``obs/forensics.py``) through the
+debounced triggers ``nan``, ``grad_spike``, ``step_time_regression``,
+``recompile``, ``ckpt_corrupt``, and the terminal ``crash`` and
+``preempt``, with ``faulthandler`` armed around ``fit``.  A bundle's step
+snapshot (``profiling.step_snapshot``) is the kernel launches of the last
+step, its analytic cost and its memory.  With ``profile_dir`` the loop
+traces steps ``start+2`` to ``start+4`` (``profiling.trace``), the window
+``glom_tpu`` traces; a triggered trace is then off, as two profilers cannot
+run at once.
 
 Not here yet, each refused by name when the config asks for it
-(:data:`UNSUPPORTED`): a mesh and sharded saves (ROADMAP queue 1, item 6),
-forensics, request traces, diagnostics, metric exporters and async saves
-(item 7).
+(:data:`UNSUPPORTED`): a mesh and sharded saves (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -58,6 +81,8 @@ import json
 import os
 import signal
 import threading
+import time
+import traceback
 import warnings
 from typing import Iterator, Optional
 
@@ -65,21 +90,42 @@ import numpy as np
 import torch
 
 from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch import profiling
 from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
-from glom_tpu_torch.convert import params_to_numpy
 from glom_tpu_torch.kernels import _build
+from glom_tpu_torch.kernels import wrappers as kernel_wrappers
 from glom_tpu_torch.models.glom import tree_map
+from glom_tpu_torch.obs import (
+    EVENT_FORENSICS,
+    EVENT_NAN,
+    EVENT_PREEMPT_STOP,
+    EVENT_RECOMPILE,
+    EVENT_RESUME,
+    MetricRegistry,
+    StepTimeRegressionMonitor,
+    TraceExporter,
+    TraceSink,
+    Tracer,
+    TriggerEngine,
+)
+from glom_tpu_torch.obs.diagnostics import flatten_diagnostics, make_diagnostics_fn
+from glom_tpu_torch.obs.forensics import FlightRecorder, ForensicsManager
+from glom_tpu_torch.obs.monitors import MemoryMonitor, NumericsMonitor, RecompileMonitor
 from glom_tpu_torch.obs.timing import PhaseTimer
+from glom_tpu_torch.obs.triggers import (
+    TRIGGER_CRASH,
+    TRIGGER_GRAD_SPIKE,
+    TRIGGER_NAN,
+    TRIGGER_PREEMPT,
+    TRIGGER_RECOMPILE,
+    TRIGGER_STEP_TIME,
+)
 from glom_tpu_torch.profiling import annotate, trace
 from glom_tpu_torch.resilience import integrity
 from glom_tpu_torch.training import denoise
 from glom_tpu_torch.training.eval import make_psnr_fn
 from glom_tpu_torch.training.metrics import MetricLogger
 from glom_tpu_torch.training.optim import Optimizer, tree_map2
-
-EVENT_RESUME = "resume"
-EVENT_PREEMPT_STOP = "preempt_stop"
-EVENT_NAN = "nan"
 
 
 def _adam_chain(node, decay_key: Optional[str]) -> Optional[dict]:
@@ -136,16 +182,17 @@ def opt_state_to_optax(opt: dict, train: TrainConfig) -> dict:
 
 
 class NonFiniteError(RuntimeError):
-    """Raised (with ``TrainConfig.halt_on_nan``) when a logging window shows
+    """Raised (with ``TrainConfig.halt_on_nan``) when a numerics window shows
     non-finite gradients or loss, before the poisoned parameters can be
-    checkpointed."""
+    checkpointed: failing fast is what lets a supervisor
+    (:mod:`glom_tpu_torch.resilience.supervisor`) restart from the last
+    clean checkpoint."""
 
 
 # Why the port lacks each thing it refuses: the one table of reasons, read by
 # the trainer's refusals (UNSUPPORTED) and by the CLI's (training/train.py)
 REASONS = {
     "mesh": "the multi-GPU port, ROADMAP queue 1, item 6",
-    "obs": "the observability and robustness port, ROADMAP queue 1, item 7",
     "device": "the port picks its device with --device",
 }
 
@@ -153,19 +200,6 @@ REASONS = {
 UNSUPPORTED = {
     "checkpoint_backend": ("npz", "mesh"),
     "param_sharding": ("tp", "mesh"),
-    "async_checkpoint": (False, "obs"),
-    "forensics_dir": (None, "obs"),
-    "forensics_ring": (256, "obs"),
-    "forensics_max_captures": (3, "obs"),
-    "forensics_debounce_steps": (200, "obs"),
-    "forensics_trace_steps": (0, "obs"),
-    "forensics_hlo": (True, "obs"),
-    "forensics_step_time_factor": (2.0, "obs"),
-    "trace_dir": (None, "obs"),
-    "diag_every": (0, "obs"),
-    "metrics_csv": (None, "obs"),
-    "prom_textfile": (None, "obs"),
-    "grad_spike_factor": (10.0, "obs"),
 }
 
 
@@ -182,12 +216,18 @@ def check_supported(train: TrainConfig) -> None:
 
 
 def _to_numpy_tree(tree):
-    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(), tree)
+    """float32 numpy copies of a tensor tree, made before this returns (a
+    card's tensors copy to the host; a host tensor is copied too, so the
+    arrays never share memory with the live state)."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32, copy=True).numpy(), tree)
 
 
 class Trainer:
     # fields that fix the parameters' shapes and meaning (glom_tpu's list)
     _ARCH_FIELDS = ("dim", "levels", "image_size", "patch_size", "channels", "ff_mult")
+    # per-step numerics keys: logged as window aggregates (NumericsMonitor),
+    # never as the last step's raw values
+    _NUMERICS_KEYS = ("nonfinite_grads", "loss_nonfinite")
 
     def __init__(self, config: GlomConfig, train: TrainConfig, *, device=None,
                  optimizer: Optional[Optimizer] = None, logger: Optional[MetricLogger] = None):
@@ -197,7 +237,20 @@ class Trainer:
         self.train_cfg = train
         self.device = resolve_device(device)
         self.optimizer = optimizer if optimizer is not None else Optimizer.from_config(train)
+        # ONE registry per trainer and logger pair: a caller's logger's
+        # registry is adopted, so what the trainer instruments and what the
+        # exporters render are one set of metrics
         self.logger = logger if logger is not None else MetricLogger()
+        self.registry = getattr(self.logger, "registry", None) or MetricRegistry()
+        if getattr(self.logger, "registry", "absent") is None:
+            self.logger.registry = self.registry
+        if hasattr(self.logger, "add_exporter"):
+            from glom_tpu_torch.obs import CsvExporter, PrometheusTextfileExporter
+
+            if train.metrics_csv:
+                self.logger.add_exporter(CsvExporter(train.metrics_csv))
+            if train.prom_textfile:
+                self.logger.add_exporter(PrometheusTextfileExporter(train.prom_textfile))
         self.state = denoise.init_state(
             torch.Generator().manual_seed(train.seed), config, self.optimizer,
             decoder=train.decoder, decoder_hidden_mult=train.decoder_hidden_mult,
@@ -213,6 +266,52 @@ class Trainer:
             # every kernel the config can run (K8 and its backward's K1-K7 with
             # "fused"), before the first step, which would otherwise pay for it
             _build.build_all()
+
+        # -- runtime health monitors: kernel builds and loads mid-run are the
+        # port's recompiles
+        self._recompile_mon = RecompileMonitor(lambda: sum(_build.events().values()))
+        self._mem_mon = MemoryMonitor(self.device)
+        self._num_mon = NumericsMonitor(spike_factor=train.grad_spike_factor)
+        # -- step-scoped spans: each logging window one trace, each phase a
+        # span; a window holds about 9 phase spans a step
+        self.tracer = Tracer(registry=self.registry, sink=TraceSink(
+            max_spans=max(512, 12 * (train.log_every or 1) + 16)))
+
+        # -- anomaly-triggered forensics: the flight recorder tees every
+        # logged record into a bounded ring; bundles, triggers and the
+        # step-time detector exist only with a forensics_dir
+        self._recorder = FlightRecorder(capacity=train.forensics_ring) if train.forensics_ring \
+            else None
+        self._forensics = None
+        self._triggers = None
+        self._steptime_mon = None
+        self._wrappers = kernel_wrappers()
+        self._last_batch = None            # (images, shape) of the last step
+        self._last_launches: dict = {}     # the wrappers' launches across it
+        if train.forensics_dir:
+            self._triggers = TriggerEngine(debounce_steps=train.forensics_debounce_steps,
+                                           max_captures=train.forensics_max_captures,
+                                           registry=self.registry)
+            self._forensics = ForensicsManager(
+                train.forensics_dir, recorder=self._recorder,
+                config={"glom": config.to_json_dict(), "train": train.to_json_dict()},
+                # profile_dir's trace owns the profiler: two cannot coexist
+                trace_steps=0 if train.profile_dir else train.forensics_trace_steps,
+                snapshot_fn=self._forensics_snapshot if train.forensics_hlo else None,
+                registry=self.registry)
+            if train.forensics_step_time_factor:
+                self._steptime_mon = StepTimeRegressionMonitor(
+                    factor=train.forensics_step_time_factor)
+        # checkpoint-integrity telemetry: quarantines found during resume
+        # count ckpt_corrupt_total and fire the debounced ckpt_corrupt trigger
+        self._integrity_obs = integrity.IntegrityObserver(
+            registry=self.registry, triggers=self._triggers, forensics=self._forensics)
+
+        self._diag = None
+        if train.diag_every:
+            self._diag = make_diagnostics_fn(config, iters=train.iters, device=self.device)
+        self._ckpt_thread: Optional[threading.Thread] = None
+        self._ckpt_error: Optional[BaseException] = None
 
     def set_eval_suite(self, suite) -> None:
         """Attach or replace the held-out :class:`~glom_tpu_torch.training.eval.EvalSuite`."""
@@ -230,7 +329,73 @@ class Trainer:
         self.state, metrics = self._step(self.state, self.put(img), noise=noise)
         return metrics
 
+    # -- forensics -------------------------------------------------------------
+    def _log(self, step: int, **scalars) -> None:
+        """Log one record and tee it into the flight recorder, so a later
+        bundle carries the records leading up to the anomaly.  Every log
+        site of the trainer goes through here."""
+        if self._recorder is not None:
+            self._recorder.record(step, scalars)
+        self.logger.log(step, **scalars)
+
+    def _launch_counts(self) -> dict:
+        return {name: fn.launches for name, fn in self._wrappers.items()}
+
+    def _forensics_snapshot(self) -> dict:
+        """The last step's snapshot (``profiling.step_snapshot``): its
+        kernel launches, the analytic cost of a step at its batch, the
+        state's memory.  Runs nothing on the card."""
+        if self._last_batch is None:
+            return {}
+        tc = self.train_cfg
+        iters = tc.iters if tc.iters is not None else self.config.default_iters
+        executed = denoise.resolve_loss_timestep(tc, iters)
+        images = self._last_batch * (2 if tc.consistency != "none" else 1)
+        cost = profiling.analytic_cost(self.config, images, executed, train=True,
+                                       param_bytes=profiling.tree_nbytes(self.state.params))
+        return profiling.step_snapshot(self._last_launches, cost=cost, params=self.state.params,
+                                       opt_state=self.state.opt_state, device=self.device)
+
+    def _maybe_capture(self, trigger: str, step: int, detail: dict) -> None:
+        """Route one monitor firing through the trigger engine (debounce and
+        budget) and, when accepted, write a bundle.  Never raises."""
+        if self._forensics is None:
+            return
+        if self._triggers is not None and not self._triggers.fire(trigger, step):
+            return
+        path = self._forensics.capture(trigger, step, detail)
+        if path:
+            self._log(step, event=EVENT_FORENSICS, trigger=trigger, bundle=path)
+        elif self._triggers is not None:
+            # the capture failed (warned by the manager): give the budget
+            # slot back so a later anomaly can still be captured
+            self._triggers.refund(trigger, step)
+
+    def _crash_capture(self, exc: BaseException) -> None:
+        """The bundle of an exception out of ``fit``: past the trigger engine
+        (a crash fires once), best effort; the exception is what surfaces."""
+        if self._forensics is None:
+            return
+        self._forensics.stop_trace()
+        self._forensics.capture(
+            TRIGGER_CRASH, int(self.state.step),
+            {"error": f"{type(exc).__name__}: {exc}",
+             "traceback": "".join(traceback.format_exception(type(exc), exc,
+                                                             exc.__traceback__))})
+
     # -- checkpoints ---------------------------------------------------------
+    def finish_saves(self) -> None:
+        """Block until an async checkpoint write in flight is durable.
+        Re-raises the writer's exception (a swallowed ENOSPC, or a torn
+        artifact, would let ``fit`` claim a checkpoint that is not there)."""
+        t = self._ckpt_thread
+        if t is not None:
+            t.join()
+            self._ckpt_thread = None
+            err, self._ckpt_error = self._ckpt_error, None
+            if err is not None:
+                raise err
+
     def _write_config_json(self, directory: str) -> None:
         """Make the directory self-describing; refuse to save a different
         architecture into it."""
@@ -264,26 +429,57 @@ class Trainer:
         with open(path) as f:
             return json.load(f).get("train", {})
 
-    def save(self, directory: str, *, data_state: Optional[dict] = None) -> str:
-        """Write the full training state at the current step, with the data
-        stream's cursor ``data_state`` when given; returns the artifact's
-        path."""
-        os.makedirs(directory, exist_ok=True)
-        self._write_config_json(directory)
+    def _host_trees(self, data_state: Optional[dict]) -> dict:
+        """The state as numpy trees on the host, copied before this
+        returns."""
         st = self.state
         opt = {"count": st.opt_state["count"], "mu": _to_numpy_tree(st.opt_state["mu"]),
                "nu": _to_numpy_tree(st.opt_state["nu"])}
         trees = {
-            "params": params_to_numpy(st.params),
+            "params": _to_numpy_tree(st.params),
             "opt": opt_state_to_optax(opt, self.train_cfg),
             "rng": np.asarray([0, (self.train_cfg.seed + st.step) % 2 ** 32], np.uint32),
-            "generator": st.generator.get_state().numpy(),
+            "generator": st.generator.get_state().numpy().copy(),
         }
         if data_state is not None:
             trees["data"] = {k: np.asarray(int(v)) for k, v in data_state.items()}
-        path = ckpt_lib.save(directory, st.step, trees)
-        ckpt_lib.prune(directory, 3, protect=st.step)
+        return trees
+
+    @staticmethod
+    def _write(directory: str, step: int, trees: dict) -> str:
+        path = ckpt_lib.save(directory, step, trees)
+        ckpt_lib.prune(directory, 3, protect=step)
         return path
+
+    def save(self, directory: str, *, data_state: Optional[dict] = None) -> str:
+        """Write the full training state at the current step, with the data
+        stream's cursor ``data_state`` when given; returns the artifact's
+        path.  With ``async_checkpoint`` the path is named at once and the
+        write runs on a thread: it is durable only once
+        :meth:`finish_saves` returns (``fit`` drains on every exit path)."""
+        self.finish_saves()  # order the manifests; at most one write in flight
+        os.makedirs(directory, exist_ok=True)
+        self._write_config_json(directory)
+        step = int(self.state.step)
+        trees = self._host_trees(data_state)
+        if not self.train_cfg.async_checkpoint:
+            return self._write(directory, step, trees)
+
+        def write():
+            try:
+                self._write(directory, step, trees)
+                if ckpt_lib.verify_file_integrity(directory, step) is False:
+                    raise ckpt_lib.CorruptCheckpointError(
+                        f"checkpoint step {step} in {directory} failed its integrity check "
+                        f"after the write")
+            except BaseException as e:  # surfaced by finish_saves()
+                self._ckpt_error = e
+
+        # non-daemon: interpreter exit must not kill a write mid-savez
+        self._ckpt_error = None
+        self._ckpt_thread = threading.Thread(target=write, name="glom-torch-ckpt")
+        self._ckpt_thread.start()
+        return ckpt_lib.npz_path(directory, step)
 
     def restore(self, directory: str, *, step: Optional[int] = None, batches=None) -> int:
         """Restore params, optimizer state and the noise generator; with
@@ -296,9 +492,11 @@ class Trainer:
         ``batches`` is resumable (``load_state_dict``), the checkpoint's
         ``data`` cursor is handed to it; a checkpoint without one warns and
         leaves the stream where it is.  Returns the step."""
+        self.finish_saves()  # never read past a write in flight
         self._validate_config_json(directory)
         step, trees = integrity.restore_with_fallback(
-            directory, ("params", "opt"), optional=("generator", "data"), step=step)
+            directory, ("params", "opt"), optional=("generator", "data"), step=step,
+            observer=self._integrity_obs)
         opt = opt_state_from_optax(trees["opt"], self._recorded_train(directory))
         if opt is None and isinstance(trees["opt"], dict) and set(trees["opt"]) == {
                 "count", "mu", "nu"}:
@@ -348,14 +546,45 @@ class Trainer:
         With a checkpoint dir the loop first resumes from its newest valid
         step, so ``steps`` at or below it does nothing.  A resumable stream
         (``state_dict``) has its cursor restored with the state and saved in
-        every checkpoint.  Returns the last logged metrics."""
+        every checkpoint.  Returns the last logged metrics.
+
+        With ``forensics_dir``, an exception out of the loop writes a
+        ``crash-<step>`` bundle (the flight recorder's ring, the env
+        fingerprint, the step snapshot, the traceback) before it surfaces,
+        and ``faulthandler`` writes the crashes Python never sees to
+        ``<forensics_dir>/faulthandler.log``.  Every exit path drains the
+        async checkpoint writer and closes the logger's exporters."""
+        armed = self._forensics is not None and self._forensics.arm_faulthandler()
+        try:
+            return self._fit(batches, steps)
+        except Exception as e:
+            self._crash_capture(e)
+            raise
+        finally:
+            if armed:
+                self._forensics.disarm_faulthandler()
+            try:
+                self.finish_saves()
+            except Exception:
+                # the original exception is the one to surface, but the user
+                # must still learn that the last checkpoint write failed
+                warnings.warn("async checkpoint write failed while handling another error; "
+                              "the latest checkpoint may be missing:\n"
+                              + traceback.format_exc(), stacklevel=2)
+            finally:
+                try:
+                    self.logger.close()
+                except OSError:
+                    pass  # a full disk must not mask the original error
+
+    def _fit(self, batches, steps: Optional[int]) -> dict:
         cfg = self.train_cfg
         steps = steps if steps is not None else cfg.steps
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir, strict=True) is not None:
-            resume = integrity.latest_valid_step(cfg.checkpoint_dir)
+            resume = integrity.latest_valid_step(cfg.checkpoint_dir, observer=self._integrity_obs)
             if resume is not None:
-                self.logger.log(self.restore(cfg.checkpoint_dir, step=resume, batches=batches),
-                                event=EVENT_RESUME)
+                self._log(self.restore(cfg.checkpoint_dir, step=resume, batches=batches),
+                          event=EVENT_RESUME)
             else:
                 warnings.warn(f"every checkpoint in {cfg.checkpoint_dir} failed its integrity "
                               f"check and was quarantined; training restarts from step 0",
@@ -369,7 +598,6 @@ class Trainer:
         finally:
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
-            self.logger.close()
 
     def _request_stop(self, signum, frame) -> None:
         self._stop_requested = True
@@ -378,20 +606,25 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _evaluate(self, i: int, x: torch.Tensor, timer: PhaseTimer) -> None:
-        """The eval phase before step ``i + 1``: the queued steps drain first
-        (charged to ``step``), then the suite runs, or the incoming batch's
-        PSNR is taken before the step consumes it, with noise from a
-        generator seeded ``seed + i``."""
+    def _drain_steps(self, timer: PhaseTimer) -> None:
+        """Wait out the issued steps, charged to the ``step`` phase, before a
+        blocking phase (eval, diagnostics, checkpoint): its first sync would
+        otherwise take the queued train work into its own bucket, and
+        ``imgs_per_sec`` leaves those phases out."""
         with timer.phase("step"):
             self._sync()
+
+    def _evaluate(self, i: int, x: torch.Tensor, timer: PhaseTimer) -> None:
+        """The eval phase before step ``i + 1``: the queued steps drain first,
+        then the suite runs, or the incoming batch's PSNR is taken before the
+        step consumes it, with noise from a generator seeded ``seed + i``."""
+        self._drain_steps(timer)
         with timer.phase("eval"), annotate("eval"):
             gen = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed + i)
             if self._eval_suite is not None:
-                self.logger.log(i + 1, **self._eval_suite.run(self.state.params, gen))
+                self._log(i + 1, **self._eval_suite.run(self.state.params, gen))
             else:
-                self.logger.log(i + 1, psnr_db=float(self._eval(self.state.params, x,
-                                                                generator=gen)))
+                self._log(i + 1, psnr_db=float(self._eval(self.state.params, x, generator=gen)))
 
     def _fit_loop(self, batches, steps: int) -> dict:
         cfg = self.train_cfg
@@ -403,7 +636,8 @@ class Trainer:
         window, window_imgs = [], 0
         poll = cfg.log_every or cfg.stop_poll_steps or 1
         self._sync()
-        timer = PhaseTimer()
+        timer = PhaseTimer(registry=self.registry, tracer=self.tracer)
+        emitted_recompiles = self._recompile_mon.recompiles
         with contextlib.ExitStack() as profiler:
             for i in range(start, steps):
                 if cfg.profile_dir:
@@ -420,60 +654,163 @@ class Trainer:
                     x = self.put(img)
                 if cfg.eval_every and (i + 1) % cfg.eval_every == 0:
                     self._evaluate(i, x, timer)
+                before = self._launch_counts() if self._forensics is not None else None
                 with timer.phase("step"), annotate("step"):
                     self.state, metrics = self._step(self.state, x)
+                if before is not None:
+                    # host-side counters: a bundle's snapshot names what the
+                    # last step launched without replaying it
+                    after = self._launch_counts()
+                    self._last_launches = {k: after[k] - before[k] for k in after
+                                           if after[k] != before[k]}
+                    self._last_batch = int(x.shape[0])
                 timer.count_step()
-                window.append(metrics)
                 window_imgs += int(x.shape[0])
+                if self._forensics is not None and self._forensics.trace_due(i + 1):
+                    # the triggered trace holds the steps it promises
+                    self._drain_steps(timer)
+                    self._forensics.stop_trace()
+                if cfg.log_every or cfg.monitor_numerics:
+                    window.append(metrics)
+                if self._recompile_mon.poll() and (
+                        self._recompile_mon.recompiles > emitted_recompiles):
+                    # a kernel built or loaded past the first step: surface
+                    # it with the step that paid for it
+                    emitted_recompiles = self._recompile_mon.recompiles
+                    self.registry.counter(
+                        "recompiles", help="kernel builds or loads after the first step").inc()
+                    self._log(i + 1, event=EVENT_RECOMPILE,
+                              compile_count=self._recompile_mon.compiles)
+                    self._maybe_capture(TRIGGER_RECOMPILE, i + 1, {
+                        "compile_count": self._recompile_mon.compiles,
+                        "recompiles": self._recompile_mon.recompiles})
+                if self._diag is not None and (i + 1) % cfg.diag_every == 0:
+                    self._drain_steps(timer)
+                    with timer.phase("diag"), annotate("diag"):
+                        diag = flatten_diagnostics(self._diag(self.state.params["glom"], x))
+                    for k in ("island_agreement", "attn_entropy"):
+                        self.registry.gauge(k).set(diag[k])
+                    self._log(i + 1, **diag)
                 if cfg.log_every and (i + 1) % cfg.log_every == 0:
                     last_metrics = self._log_window(i + 1, window, window_imgs, timer)
                     window, window_imgs = [], 0
-                elif cfg.monitor_numerics and (i + 1) % poll == 0:
-                    self._numerics(i + 1, window)
+                elif not cfg.log_every and cfg.monitor_numerics and (i + 1) % poll == 0:
+                    # logging off: NaN surveillance still runs, bounded
+                    self._numerics_summary(i + 1, self._fetch(window))
                     window = []
                 every = cfg.checkpoint_every
                 if cfg.checkpoint_dir and every and (i + 1) % every == 0:
-                    self.save(cfg.checkpoint_dir, data_state=data_state())
+                    self._drain_steps(timer)
+                    with timer.phase("checkpoint"), annotate("checkpoint"):
+                        self.save(cfg.checkpoint_dir, data_state=data_state())
                     last_saved = i + 1
-                if self._stop_requested:
-                    self.logger.log(i + 1, event=EVENT_PREEMPT_STOP)
+                with timer.phase("stop_poll"):
+                    stop = self._stop_requested
+                if stop:
+                    self._log(i + 1, event=EVENT_PREEMPT_STOP)
+                    if self._forensics is not None:
+                        # terminal path, past the trigger engine (fires once);
+                        # no snapshot and no trace in the grace window
+                        self._forensics.stop_trace()
+                        self._forensics.capture(TRIGGER_PREEMPT, i + 1, {"reason": "SIGTERM"},
+                                                snapshot=False, trace=False)
                     completed, stopped = i + 1, True
                     break
         self._sync()
+        if self._forensics is not None:
+            self._forensics.stop_trace()  # a trace window outliving the loop
         if window and cfg.monitor_numerics:
-            self._numerics(completed, window)
+            # the tail past the last boundary (the steps right before a stop,
+            # where a diverging run most likely went non-finite) is still
+            # surveyed; its throughput record stays dropped
+            self._numerics_summary(completed, self._fetch(window))
         if (cfg.checkpoint_dir and (cfg.checkpoint_every or stopped)
                 and last_saved != completed and start < completed):
             self.save(cfg.checkpoint_dir, data_state=data_state())
+        self.finish_saves()  # fit returns only once the checkpoint is durable
+        timer.close()  # the tail window's root span closes before the export
+        if cfg.trace_dir:
+            # Perfetto-loadable export of the run's phase spans; best effort
+            try:
+                os.makedirs(cfg.trace_dir, exist_ok=True)
+                TraceExporter(self.tracer.sink).write(
+                    os.path.join(cfg.trace_dir, "train_trace.json"))
+            except OSError as e:
+                warnings.warn(f"trace export failed ({e})", stacklevel=2)
         return last_metrics
 
-    def _numerics(self, step: int, window: list) -> dict:
-        """The window's non-finite counts; logs a ``nan`` event and, with
-        ``halt_on_nan``, raises :class:`NonFiniteError` when any."""
-        if not self.train_cfg.monitor_numerics:
-            return {}
-        bad = sum(float(m["nonfinite_grads"]) for m in window)
-        bad_loss = sum(int(float(m["loss_nonfinite"])) for m in window)
-        num = {"nonfinite_grads": bad, "loss_nonfinite_steps": bad_loss}
-        if bad or bad_loss:
-            self.logger.log(step, event=EVENT_NAN, **num)
+    @staticmethod
+    def _fetch(window: list) -> list:
+        """A window's per-step device scalars as host floats, in one copy,
+        keyed in sorted order as ``glom_tpu``'s jitted step returns them (the
+        records' key order follows it)."""
+        if not window:
+            return []
+        keys = sorted(window[0])
+        values = torch.stack([torch.stack([m[k].detach().float().reshape(()) for k in keys])
+                              for m in window]).cpu().tolist()
+        return [dict(zip(keys, row)) for row in values]
+
+    def _numerics_summary(self, step: int, fetched: list) -> dict:
+        """Fold one window of fetched per-step metrics into the numerics
+        monitor; a window with non-finite values logs the ``nan`` event,
+        counts ``nan_windows``, fires the ``nan`` trigger and, with
+        ``halt_on_nan``, raises :class:`NonFiniteError` before the step's
+        checkpoint can keep the poisoned parameters."""
+        num = self._num_mon.update(fetched)
+        if num.get("nonfinite_grads") or num.get("loss_nonfinite_steps"):
+            self.registry.counter("nan_windows",
+                                  help="logging windows with nonfinite grads/loss").inc()
+            self._log(step, event=EVENT_NAN, nonfinite_grads=num["nonfinite_grads"],
+                      loss_nonfinite_steps=num["loss_nonfinite_steps"])
+            # a NaN storm is one incident: the debounce collapses its windows
+            self._maybe_capture(TRIGGER_NAN, step, {
+                "nonfinite_grads": num["nonfinite_grads"],
+                "loss_nonfinite_steps": num["loss_nonfinite_steps"]})
             if self.train_cfg.halt_on_nan:
                 raise NonFiniteError(
-                    f"nonfinite grads/loss at step {step} (nonfinite_grads={bad}, "
-                    f"loss_nonfinite_steps={bad_loss}); halting before a checkpoint "
-                    f"can keep them")
+                    f"nonfinite grads/loss detected at step {step} "
+                    f"(nonfinite_grads={num['nonfinite_grads']}, "
+                    f"loss_nonfinite_steps={num['loss_nonfinite_steps']}); halting so a "
+                    f"supervisor can resume from the last clean checkpoint")
         return num
 
     def _log_window(self, step: int, window: list, imgs: int, timer: PhaseTimer) -> dict:
-        """One record: the last step's loss and grad norm, the window's
-        images per second (host clock from the window's start until its last
-        step's values are on the host, less the eval phase, as ``glom_tpu``
-        counts it), its non-finite counts and its phase times
-        (``timer.window()``)."""
+        """Cut one logging window: fetch its per-step scalars (the loop's one
+        host sync), fold in the monitors, and log the phase-timed record:
+        the last step's loss and grad norm, images per second over the
+        window's train time (eval, checkpoint, diagnostics and exporter
+        writes left out, as ``glom_tpu`` counts it), the window's numerics,
+        the card's memory and the phase times.  Returns the last step's
+        loss and grad norm."""
         with timer.phase("log_sync"), annotate("log_sync"):
-            last = {k: float(window[-1][k]) for k in ("loss", "grad_norm")}
+            fetched = self._fetch(window)
+        last = {k: v for k, v in fetched[-1].items() if k not in self._NUMERICS_KEYS}
+        num = self._numerics_summary(step, fetched) if self.train_cfg.monitor_numerics else {}
+        mem = self._mem_mon.sample()
         phases = timer.window()
-        num = self._numerics(step, window)
-        train_s = phases["t_window"] - phases.get("t_eval", 0.0)
-        self.logger.log(step, imgs_per_sec=imgs / max(train_s, 1e-9), **last, **num, **phases)
+        overhead = sum(phases.get(f"t_{p}", 0.0) for p in ("eval", "checkpoint", "diag",
+                                                            "log_emit"))
+        train_s = max(phases["t_window"] - overhead, 1e-9)
+        # from the cut to the end of the exporters' writes: the next
+        # window's log_emit phase
+        t_emit = time.monotonic()
+        self.registry.counter("steps_total", help="train steps completed").inc(
+            phases["window_steps"])
+        self.registry.counter("imgs_total", help="images consumed").inc(imgs)
+        for k in ("loss", "grad_norm"):
+            if k in last:
+                self.registry.gauge(k).set(last[k])
+        for k, v in mem.items():
+            self.registry.gauge(k, unit="bytes").set(v)
+        # one card: the per-chip rate is the rate
+        self._log(step, imgs_per_sec=imgs / train_s, imgs_per_sec_per_chip=imgs / train_s,
+                  **last, **num, **mem, **phases)
+        if num.get("grad_norm_spike"):
+            self._maybe_capture(TRIGGER_GRAD_SPIKE, step, {"grad_norm": last.get("grad_norm")})
+        if self._steptime_mon is not None and phases["window_steps"]:
+            regression = self._steptime_mon.update(train_s / phases["window_steps"])
+            if regression is not None:
+                self._maybe_capture(TRIGGER_STEP_TIME, step, regression)
+        timer.add("log_emit", time.monotonic() - t_emit)
         return last

@@ -9,8 +9,10 @@ parts (knee, phase deltas, event scores, snapshot diffs, the text render).
 The golden fixture of tests/data/attribution reproduces byte for byte, the
 report comparison is glom_tpu's, evidence collected from a port engine
 attributes alike in both, and ``whyslow --smoke --device cpu`` names the
-induced canary with no capture.  The port's graph caches keep no compile
-snapshots yet, so on a port engine the op-diff plane is None.
+induced canary with no capture.  A port engine's graph caches record a
+snapshot of each bucket at its capture; a deploy candidate's graphs come
+from the primary's program (the same quant, buckets and cost), so under a
+canary the op-diff plane is None.
 """
 
 import importlib.util
@@ -207,8 +209,9 @@ def test_engine_evidence_from_a_port_engine(tmp_path):
     """collect_engine_evidence on a port engine under a canary (requests
     traced as the server traces them, ten times slower after it): the series
     store's serving_ and capacity_ series, the engine timeline (the
-    deploy_canary event), no compile snapshots (the op-diff plane is None),
-    and the same verdict from glom_tpu's attribute on the same evidence."""
+    deploy_canary event), the primary's and the candidate's graph snapshots
+    (equal: one program, so the op-diff plane is None), and the same verdict
+    from glom_tpu's attribute on the same evidence."""
     ckpt = str(tmp_path / "ckpt")
     make_demo_checkpoint(ckpt)
     t = [100.0]
@@ -231,7 +234,8 @@ def test_engine_evidence_from_a_port_engine(tmp_path):
         evidence = attribution.collect_engine_evidence(engine, since_s=30.0)
     finally:
         engine.shutdown(drain=False)
-    assert "snapshots" not in evidence
+    snaps = evidence["snapshots"]
+    assert sorted(snaps["before"]) == [1, 2] and snaps["after"] == snaps["before"]
     assert evidence["window"]["end"] - evidence["window"]["start"] == 30.0
     assert any(k.startswith("serving_request_ms") for k in evidence["series"])
     assert any(k.startswith("capacity_") for k in evidence["series"])

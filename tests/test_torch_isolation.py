@@ -72,7 +72,10 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.obs.attribution", "glom_tpu_torch.tools.bulk_run",
             "glom_tpu_torch.tools.whyslow", "glom_tpu_torch.serving.router",
             "glom_tpu_torch.obs.observatory", "glom_tpu_torch.obs.forensics",
-            "glom_tpu_torch.tools.observatory"} <= set(mods)
+            "glom_tpu_torch.tools.observatory", "glom_tpu_torch.obs.diagnostics",
+            "glom_tpu_torch.resilience.supervisor", "glom_tpu_torch.device_guard",
+            "glom_tpu_torch.tools.forensics_report",
+            "glom_tpu_torch.tools.obs_report"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -117,7 +120,11 @@ def test_no_source_of_the_port_imports_jax_or_glom_tpu():
         "glom_tpu_torch/obs/sketch.py", "glom_tpu_torch/tools/trace_report.py",
         "glom_tpu_torch/tools/capacity.py", "glom_tpu_torch/tools/quality_report.py",
         "glom_tpu_torch/serving/router.py", "glom_tpu_torch/obs/observatory.py",
-        "glom_tpu_torch/obs/forensics.py", "glom_tpu_torch/tools/observatory.py"} <= sources
+        "glom_tpu_torch/obs/forensics.py", "glom_tpu_torch/tools/observatory.py",
+        "glom_tpu_torch/obs/diagnostics.py", "glom_tpu_torch/obs/monitors.py",
+        "glom_tpu_torch/resilience/supervisor.py", "glom_tpu_torch/device_guard.py",
+        "glom_tpu_torch/tools/forensics_report.py",
+        "glom_tpu_torch/tools/obs_report.py"} <= sources
     assert not offenders, offenders
 
 
@@ -164,6 +171,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
                     "--steps", "1", "--consistency", "infonce", "--eval-every", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--dim", "32", "--levels", "3", "--image-size", "16", "--patch-size", "4",
+                    "--steps", "1", "--supervise", "--checkpoint-dir", str(tmp_path / "sup")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         extract.main(["--checkpoint-dir", str(tmp_path), "--data-dir", str(tmp_path)])
     from glom_tpu_torch.tools import quant_check

@@ -529,8 +529,9 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
                                         "detail": "server is draining; retry elsewhere"})
 
 
-@pytest.mark.parametrize("name,value", [("forensics_dir", "/x"),
-                                        ("warmup_dir", "/x"), ("mesh_shape", (1, 4, 1)),
+@pytest.mark.parametrize("name,value", [("donate_inputs", True),
+                                        ("mesh_axis_names", ("data", "model")),
+                                        ("mesh_shape", (1, 4, 1)),
                                         ("param_sharding", "tp")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
     with pytest.raises(NotImplementedError, match=name):
@@ -590,7 +591,7 @@ def test_unset_unported_arguments_and_unknown_ones(ckpt):
 
 
 @pytest.mark.parametrize("flag", [["--mesh-shape", "1,4,1"],
-                                  ["--forensics-dir", "/x"], ["--warmup-dir", "/x"],
+                                  ["--param-sharding", "tp"], ["--mesh-shape", "2,1,1"],
                                   ["--no-donate"], ["--platform", "cpu"]])
 def test_unported_cli_flags_are_refused_by_name(ckpt, flag, capsys):
     with pytest.raises(SystemExit) as e:

@@ -495,9 +495,9 @@ def test_fit_logs_every_log_every_steps(tmp_path, capsys):
 
 @pytest.mark.parametrize("field,value,item", [
     ("checkpoint_backend", "sharded", "item 6"),
-    ("grad_spike_factor", 3.0, "item 7"),
-    ("async_checkpoint", True, "item 7"),
-    ("forensics_dir", "/nonexistent", "item 7"),
+    ("param_sharding", "ep", "item 6"),
+    ("checkpoint_backend", "orbax", "item 6"),
+    ("mesh_shape", (1, 2, 1), "item 6"),
     ("mesh_shape", (2, 1, 1), "item 6"),
 ])
 def test_trainer_refuses_what_it_does_not_implement(field, value, item):
@@ -554,9 +554,9 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_flags(tmp_path, capsys):
     with open(tmp_path / "config.json") as f:
         recorded = json.load(f)
     assert recorded["glom"]["ff_impl"] == "pallas" and recorded["train"]["steps"] == 2
-    for flag, item in (["--trace-dir", "t"], "item 7"), (["--mesh", "2", "1", "1"], "item 6"), (
-            ["--coordinator", "h:1"], "item 6"), (["--supervise"], "item 7"), (
-            ["--diag-every", "3"], "item 7"):
+    for flag, item in (["--param-sharding", "ep"], "item 6"), (["--mesh", "2", "1", "1"], "item 6"), (
+            ["--coordinator", "h:1"], "item 6"), (["--checkpoint-backend", "orbax"], "item 6"), (
+            ["--process-id", "0"], "item 6"):
         with pytest.raises(SystemExit):
             train.parse_args(flag)
         assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
