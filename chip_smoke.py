@@ -309,7 +309,24 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            a timed window, a kernel of a leg not launched, "dots" peaking
            below "full", (a)'s trace without the step phase, (b)'s without
            K1's kernels, or (after the train phase) (e)'s rate more than
-           10 % off the train phase's.
+           10 % off the train phase's;
+  large    glom_tpu's large preset (BASELINE.json config 4: d=1024, 8 levels,
+           384/16, n=576, 16 iterations, random seeded weights, nothing
+           cut): (i) K1 (bottom-up g=8 strided, top-down g=7), K4 (b=4; the
+           locality mask; n=2304, b=1; d=2048, b=1) and K8 (b=4), float32
+           and bfloat16, each against its plain version with its time, bound
+           and library call, as the kernels phase's rows; (ii) a seeded
+           checkpoint served over HTTP on /embed from CUDA graphs at buckets
+           1, 2 and 4 on "pallas" f32 (K1 32 + K4 16 launches a forward), on
+           "fused" f32 (K8 16) and on "pallas" bf16: answers against the
+           plain path, exact launches through the replays, the b=4 replay
+           bitwise its eager forward, each bucket's replay time; (iii)
+           python -m glom_tpu_torch.tools.bench --config large at its
+           defaults (bf16, remat "dots", b=4, K1 forward, the plain FF VJP,
+           dense consensus), 5 steps, its record with the card's name and
+           power limit; (iv) a Trainer at d=1024 with attention_impl="pallas",
+           ff_fused_bwd=True or ff_impl="fused" refused by name (K6, K2,
+           K6), nothing launched.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -341,7 +358,7 @@ import torch
 import torch.nn.functional as F
 
 from glom_tpu_torch import checkpoint as ckpt_lib
-from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.config import GlomConfig, TrainConfig, bench_preset
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels import wrappers as kernel_wrappers
 from glom_tpu_torch.kernels import consensus as consensus_kernel
@@ -4466,7 +4483,7 @@ FLEET_HOP_REQUESTS = 100
 # rollout's captures (110 s, a 6.6 s exclusive hold on the H100; two: 27.6-
 # 42.6 s; PERF.md)
 FLEET_CLIENTS = 1
-FLEET_LOOP_S = 10.0
+FLEET_LOOP_S = 6.0
 FLEET_AFFINITY_KEYS = 3
 FLEET_AFFINITY_FRAMES = 8
 FLEET_QUERIES = 8
@@ -5707,10 +5724,217 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
     return summary
 
 
+# large: glom_tpu's large preset (BASELINE.json config 4, bench.py --config
+# large), at full width: d=1024, 8 levels, 384/16 (n=576), 16 iterations
+LARGE_KW, LARGE_ITERS, LARGE_BATCH, _ = bench_preset("large")
+LARGE = GlomConfig(**LARGE_KW)
+LARGE_BUCKETS = (1, 2, 4)
+# the bench leg: bench's defaults at the large preset, a few steps
+LARGE_BENCH_FLAGS = ["--config", "large", "--steps", "5", "--warmup", "2"]
+# the training configurations the backward kernels' widths refuse at d=1024,
+# with the kernel each message names
+LARGE_REFUSED = ((dict(attention_impl="pallas"), "K6"),
+                 (dict(ff_impl="pallas", ff_fused_bwd=True), "K2"),
+                 (dict(ff_impl="fused"), "K6"))
+
+
+def large_inputs(device):
+    """The large preset's seeded weights and inputs: ``(params, lwi (4, 576,
+    9, 1024), big (1, 2304, 8, 1024), wide (1, 576, 8, 2048), mask)``."""
+    gen = torch.Generator().manual_seed(21)
+    c = LARGE
+    n, L, d = c.num_patches, c.levels, c.dim
+    params = glom_model.init(gen, c, device)
+    lwi = torch.randn((LARGE_BATCH, n, L + 1, d), generator=gen).to(device)
+    big = torch.randn((1, 2304, L, d), generator=gen).to(device)   # 768/16
+    wide = torch.randn((1, n, L, 2 * d), generator=gen).to(device)
+    mask = glom_model.resolve_locality_mask(
+        GlomConfig(**{**LARGE_KW, "local_consensus_radius": 2}), device)
+    return params, lwi, big, wide, mask
+
+
+def large_kernel_rows(device) -> dict:
+    """K1 (bottom-up g=8 strided, top-down g=7), K4 (b=4; the locality mask;
+    n=2304, b=1; d=2048, b=1) and K8 (b=4) at the large preset, f32 and
+    bf16, each against its plain version with its time, bound and library
+    call, as the kernels phase holds them at flagship."""
+    params, lwi, big, wide, mask = large_inputs(device)
+    rows = {"grouped_ff": [], "consensus_attention": [], "fused_level_update": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        cast = glom_model.tree_map(lambda p: p.to(dtype), params)
+        x = lwi.to(dtype)
+        pos = cast["pos_emb"][None, :, None, :]
+        rows["grouped_ff"] += [
+            k1_case(cast["bottom_up"], x[..., :-1, :], dtype, "large bottom_up (strided view, g=8)"),
+            k1_case(cast["top_down"], x[..., 2:, :] + pos, dtype, "large top_down (g=7)")]
+        lv = x[..., 1:, :]
+        rows["consensus_attention"] += [
+            consensus_case(lv, dtype, "large b=4", library=True),
+            consensus_case(lv, dtype, "large b=4, local_consensus_radius=2", mask=mask),
+            consensus_case(big.to(dtype), dtype, "large n=2304 (768/16), b=1", library=True),
+            consensus_case(wide.to(dtype), dtype, "d=2048, n=576, b=1", library=True)]
+        with torch.inference_mode():
+            rows["fused_level_update"].append(
+                fused_case(cast, lv, x[..., :1, :], dtype, "large b=4"))
+        del cast, x, lv
+    for kernel, r in rows.items():
+        emit({"phase": "large", "part": "kernels", "kernel": kernel, "rows": r,
+              **({"stages": K8_STAGES, "library_note": K8_NOTE}
+                 if kernel == "fused_level_update" else {})})
+    return rows
+
+
+def replays_ms(cache, bucket: int, reps: int = 3) -> float:
+    """Device time of one replay of ``cache``'s graph at ``bucket``: CUDA
+    events around ``reps`` replays after one more, the mean (a large-preset
+    replay takes up to 0.2 s, too long for time_ms's 123)."""
+    graph = cache._graphs[bucket].graph
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def large_serving(device) -> dict:
+    """A seeded large-preset checkpoint served on /embed from the engine's
+    CUDA graphs at buckets 1, 2 and 4, over HTTP: "pallas" in f32 (K1 32 and
+    K4 16 launches a forward), "fused" in f32 (K8 16), "pallas" in bf16;
+    each answer against the plain path on the card in the engine's mode (f32
+    within SERVE_ATOL, bf16 within BF16_PATH_RTOL relative), the launches
+    counted through the replays (the main path: counts set to 0 just before
+    the requests, read just after), the b=4 replay bitwise its eager
+    forward."""
+    c = LARGE
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_large_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_demo_checkpoint(ckpt, config=c, seed=0)
+    ckpt_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    shape = (c.channels, c.image_size, c.image_size)
+    imgs = {k: rng.standard_normal((k,) + shape).astype(np.float32) for k in LARGE_BUCKETS}
+    plan = tuple(("embed", k) for k in LARGE_BUCKETS)
+    it = LARGE_ITERS
+    legs, launches = {}, {}
+    try:
+        for name, kw, per_forward in (
+                ("pallas_f32", dict(ff_impl="pallas", attention_impl="pallas"),
+                 {"grouped_ff": 2 * it, "consensus_attention": it}),
+                ("fused_f32", dict(ff_impl="fused", attention_impl="pallas"),
+                 {"fused_level_update": it}),
+                ("pallas_bf16", dict(ff_impl="pallas", attention_impl="pallas", quant="bf16"),
+                 {"grouped_ff": 2 * it, "consensus_attention": it})):
+            t0 = time.perf_counter()
+            engine = ServingEngine(ckpt, device=device, buckets=LARGE_BUCKETS, iters=it,
+                                   quality_sample=0.0, **kw)
+            start_s = time.perf_counter() - t0
+            reset_launches()
+            health, requests, outs, served = serve_requests(engine, plan, imgs)
+            got = launch_counts()
+            want = {k: per_forward.get(k, 0) * len(plan) for k in got}
+            check_launches(f"large serving {name}", got, want)
+            errs = {}
+            with torch.inference_mode():
+                for k in LARGE_BUCKETS:
+                    plain = plain_embed_fn(engine)(engine.params,
+                                                   torch.from_numpy(imgs[k]).to(device)).cpu()
+                    errs[k] = (float((torch.from_numpy(outs[("embed", k)]) - plain).abs().max())
+                               if engine.quant == "f32" else
+                               rel_err(torch.from_numpy(outs[("embed", k)]), plain))
+            limit = SERVE_ATOL if engine.quant == "f32" else BF16_PATH_RTOL
+            if not max(errs.values()) <= limit:
+                raise AssertionError(f"large serving {name}: /embed from the plain path by "
+                                     f"{errs} (limit {limit})")
+            b4 = imgs[LARGE_BUCKETS[-1]]
+            bitwise = bool(np.array_equal(engine.run("embed", b4), engine.run_eager("embed", b4)))
+            if not bitwise:
+                raise AssertionError(f"large serving {name}: the b=4 replay differs from its "
+                                     f"eager forward")
+            legs[name] = {
+                "health": {k: health.get(k) for k in ("ff_impl", "attention_impl", "quant")},
+                "start_seconds": start_s, "requests": requests, "launches": got,
+                "launches_per_forward": per_forward, "embed_vs_plain": errs,
+                "embed_vs_plain_kind": "max_abs" if engine.quant == "f32" else "rel",
+                "limit": limit, "b4_replay_bitwise_eager": bitwise,
+                "embed_replay_ms": {k: replays_ms(engine.caches["embed"], k)
+                                    for k in LARGE_BUCKETS},
+                "pool_bytes": engine.graph_pool_bytes(), **served}
+            if name != "pallas_bf16":
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            free_engines(engine)
+            del engine
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "large", "part": "serving", "config": {
+        "dim": c.dim, "levels": c.levels, "image_size": c.image_size,
+        "patch_size": c.patch_size, "num_patches": c.num_patches, "iters": it,
+        "buckets": list(LARGE_BUCKETS)}, "checkpoint_seconds": ckpt_s, "legs": legs})
+    return launches
+
+
+def large_refusals(device) -> dict:
+    """The training configurations at d=1024 whose gradient needs K2/K3 or
+    K6/K7 raise ValueError when the Trainer is built, naming the kernel, and
+    launch nothing; ff_impl="pallas" with the plain FF VJP and dense
+    attention builds."""
+    reset_launches()
+    refused = {}
+    for kw, kernel in LARGE_REFUSED:
+        c = GlomConfig(**{**LARGE_KW, **kw})
+        try:
+            Trainer(c, TrainConfig(batch_size=LARGE_BATCH, iters=LARGE_ITERS), device=device)
+        except ValueError as e:
+            if kernel not in str(e) or f"d={c.dim}" not in str(e):
+                raise AssertionError(f"large refusal {kw}: message names no {kernel}: {e}")
+            refused[json.dumps(kw, sort_keys=True)] = {"kernel": kernel, "message": str(e)}
+        else:
+            raise AssertionError(f"large: a Trainer with {kw} at d=1024 was built")
+    if any(launch_counts().values()):
+        raise AssertionError(f"large refusals launched {launch_counts()}")
+    return refused
+
+
+def phase_large(device, smi: str) -> dict:
+    """The large preset through the port on one card: (i) the kernel rows,
+    (ii) serving /embed from CUDA graphs on "pallas" and "fused", (iii)
+    ``python -m glom_tpu_torch.tools.bench --config large`` at its defaults
+    (bf16, remat "dots", b=4, K1 forward, the plain FF VJP, dense consensus),
+    its record with the card's name and power limit, (iv) the backward
+    kernels' refusals at d=1024.  Returns the serving path's launches and
+    the kernel rows."""
+    seconds = {}
+    t0 = time.perf_counter()
+    rows = large_kernel_rows(device)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = large_serving(device)
+    seconds["serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = bench_leg(LARGE_BENCH_FLAGS)
+    if not (rec["status"] == "ok" and rec["mfu"] is not None and 0 < rec["mfu"] <= 1
+            and rec["builds_in_window"] == 0 and "grouped_ff" in rec["launches_per_step"]
+            and rec["ff_impl"] == "pallas" and rec["attention_impl"] == "dense"
+            and rec["dtype"] == "bfloat16" and rec["batch"] == LARGE_BATCH):
+        raise AssertionError(f"large bench leg: {rec}")
+    emit({"phase": "large", "part": "bench", "argv": LARGE_BENCH_FLAGS, "record": rec,
+          "nvidia_smi": smi})
+    seconds["bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refused = large_refusals(device)
+    seconds["refusals"] = time.perf_counter() - t0
+    emit({"phase": "large", "part": "refusals", "refused": refused, "part_seconds": seconds})
+    return launches, rows
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
-          "bulk", "attribution", "fleet", "train_obs", "forensics", "bench")
+          "bulk", "attribution", "fleet", "train_obs", "forensics", "bench", "large")
 
 
 def parse_args(argv):
@@ -5740,7 +5964,8 @@ def parse_args(argv):
                         "bundles and their traces, the supervisor, a sticky CUDA error); "
                         "forensics: the engine's warm-up, slo_burn and deploy_rollback "
                         "bundles and the op-diff; bench: the "
-                        "bench's legs, tied to train's rate when train runs first). "
+                        "bench's legs, tied to train's rate when train runs first; large: the "
+                        "large preset's kernel rows, serving, bench leg and refusals). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -5787,6 +6012,8 @@ def run_only(device, names) -> int:
             SLICE_PHASES[name](device)
         elif name == "bench":
             phase_bench(nvidia_smi(), pallas_step_ms)
+        elif name == "large":
+            phase_large(device, nvidia_smi())
     print(nvidia_smi(), flush=True)
     emit({"partial_run": names, "note": "--only: a partial run, not the smoke test; exit 3"})
     return 3
@@ -5826,6 +6053,7 @@ def main(argv=()) -> int:
     slice_launches = {name: timed_phase(name, phase, device)
                       for name, phase in SLICE_PHASES.items()}
     timed_phase("bench", phase_bench, smi, pallas_step_ms)
+    large_launches, large_rows = timed_phase("large", phase_large, device, smi)
     # each phase's host seconds: the run must end inside its time limit
     emit({"phase_seconds": seconds})
     # launches: the serving path's count for the forward kernels (K8: the
@@ -5834,7 +6062,8 @@ def main(argv=()) -> int:
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
-    # _train_obs, _forensics: each of those paths' main run
+    # _train_obs, _forensics: each of those paths' main run; launches_large:
+    # the large preset's serving run ("pallas" and "fused" in f32)
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]
@@ -5862,6 +6091,7 @@ def main(argv=()) -> int:
                         "launches_train_data": data_launches[name],
                         **{f"launches_{path}": counts[name]
                            for path, counts in slice_launches.items()},
+                        "launches_large": large_launches.get(name, 0),
                         "unfused_kernels_ms": row.get("unfused_kernels_ms"),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -5894,6 +6124,13 @@ def main(argv=()) -> int:
             summary[-1]["k2_plus_k3"] = {k: pair[k] for k in (
                 "case", "dtype", "work", "kernel_ms", "k2_ms", "k3_ms", "bound_ms", "bound_by",
                 "bound_3xtf32_ms")}
+        if name in large_rows:
+            # the large preset's main row (float32, the first case) and, for
+            # K4, its n=2304 (K5) and d=2048 rows
+            summary[-1]["large"] = [{k: r.get(k) for k in (
+                "case", "dtype", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_3xtf32_ms", "library_ms", "yardstick_ms",
+                "unfused_kernels_ms")} for r in large_rows[name] if r["dtype"] == "float32"]
         if name == "consensus_attention":
             # the same kernel in glom_tpu's blocked regime (K5, n > 1024)
             k5 = main_rows["consensus_blocked"]

@@ -1,8 +1,8 @@
 """What every kernel wrapper shares: the element types the kernels take,
-their width limit, the device test that picks the kernel or its plain
-version, the alignment test of the kernels' vector loads and the fresh copy
-that meets it, and the launch counter, which also counts the launches a
-CUDA graph replays."""
+the one account of the widths they take, the device test that picks the
+kernel or its plain version, the alignment test of the kernels' vector
+loads and the fresh copy that meets it, and the launch counter, which also
+counts the launches a CUDA graph replays."""
 
 from __future__ import annotations
 
@@ -13,7 +13,33 @@ from typing import Dict
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 512          # the kernels hold a (64, d) f32 accumulator in registers
+# K2's warps own d/8 columns of dX (csrc/grouped_ff_bwd.cu) and K6 holds
+# (32, d) row tiles in shared memory (csrc/consensus_bwd.cu): the backward
+# kernels take d up to this until their redesign (ROADMAP.md queue 3, item 1b)
+BACKWARD_MAX_DIM = 512
+BACKWARD_ROADMAP = "ROADMAP.md queue 3, item 1b"
+
+
+def forward_takes(d: int) -> bool:
+    """Whether the forward kernels (K1, K4, K8) take width ``d``: any
+    positive multiple of 128 (K4 above 512 is csrc/consensus_wide.cuh's
+    design)."""
+    return d > 0 and d % 128 == 0
+
+
+def backward_takes(d: int) -> bool:
+    """Whether the backward kernels (K2, K3, K6, K7) take width ``d``: a
+    positive multiple of 128, at most :data:`BACKWARD_MAX_DIM`."""
+    return forward_takes(d) and d <= BACKWARD_MAX_DIM
+
+
+def check_width(kernel: str, d: int, *, backward: bool = False) -> None:
+    """Raise ``ValueError`` naming ``kernel`` when it does not take width ``d``."""
+    if backward and not backward_takes(d):
+        raise ValueError(f"{kernel} needs d a multiple of 128 and <= {BACKWARD_MAX_DIM}, got "
+                         f"d={d} (wider backward kernels: {BACKWARD_ROADMAP})")
+    if not forward_takes(d):
+        raise ValueError(f"{kernel} needs d a multiple of 128, got d={d}")
 
 _lock = threading.Lock()
 # per thread: the launches recorded into the CUDA graph being captured, or None

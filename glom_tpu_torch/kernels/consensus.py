@@ -3,7 +3,11 @@
 and K7, dQ).  The forward replaces both forward TPU kernels of
 ``glom_tpu/kernels/consensus_pallas.py``: ``_forward`` (K4, K/V resident)
 and ``_forward_blocked`` (K5, K/V streamed, for n > 1024).  On Hopper K/V is
-always streamed, so one kernel covers every n.  K6 and K7 replace
+always streamed, so one kernel covers every n.  The forward takes any d
+that is a multiple of 128: up to 512 ``csrc/consensus_fwd.cuh``'s kernel,
+above it ``csrc/consensus_wide.cuh``'s design (the logits through a float32
+workspace the wrapper allocates, :func:`workspace_floats`).  The backward
+kernels take d up to 512 (``_common.backward_takes``).  K6 and K7 replace
 ``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``; K6 hands K7
 the scaled logit gradient dS' it forms, so K7 recomputes nothing.
 
@@ -30,7 +34,7 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy, on_device,
                                             vector_aligned)
 from glom_tpu_torch.ops import consensus as plain
 
@@ -49,6 +53,19 @@ _DQ_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
 def _kernel():
     """The forward kernel's C entry point, built and loaded on first use."""
     return _build.function("consensus", "glom_consensus", _ARGTYPES)
+
+
+def workspace_floats(b: int, n: int, L: int, d: int, splits: int, dtype) -> int:
+    """The float32 elements of a forward call's workspace
+    (``glom_consensus_workspace``): none with the narrow kernel (d <= 512)
+    and one split; per split beyond one the unnormalized sums and a (max,
+    sum) per row; above d=512 the wide design's logits, key scales,
+    transposed keys and split sums (``csrc/consensus_wide.cuh``)."""
+    floats = _build.function("consensus", "glom_consensus_workspace", [_i32] * 6,
+                             ctypes.c_longlong)(b, n, L, d, splits, DTYPE_CODES[dtype])
+    if floats < 0:
+        raise RuntimeError(f"glom_consensus_workspace{(b, n, L, d, splits)} refused its arguments")
+    return floats
 
 
 def _bwd_kernel(symbol: str, argtypes):
@@ -73,14 +90,16 @@ def _rows_aligned(levels: torch.Tensor) -> bool:
         s % per_vector == 0 for s, size in zip(levels.stride()[:3], levels.shape[:3]) if size > 1)
 
 
-def _check(levels: torch.Tensor, mask: Optional[torch.Tensor]) -> None:
+def _check(levels: torch.Tensor, mask: Optional[torch.Tensor],
+           kernel: str = "consensus kernel (K4)", backward: bool = False) -> None:
+    """Raise on what ``kernel`` does not take: K4 (the forward) any width that
+    is a multiple of 128, K6 and K7 (``backward``) at most 512 of it."""
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
     if levels.dtype not in DTYPE_CODES:
         raise TypeError(f"consensus kernel takes float32 or bfloat16, got {levels.dtype}")
     b, n, L, d = levels.shape
-    if d % 128 != 0 or d > MAX_DIM:
-        raise ValueError(f"consensus kernel needs d a multiple of 128 and <= {MAX_DIM}, got {d}")
+    check_width(kernel, d, backward=backward)
     if levels.stride(3) != 1:
         raise ValueError("levels' last dimension must be contiguous")
     if b * L > 65535:
@@ -113,9 +132,8 @@ def _forward(levels, attend_self, non_local_mask, splits):
         splits = planned_splits(levels.device, b, n, L, d, levels.dtype)
     elif splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
-    # per split: the unnormalized (b, n, L, d) sums and a (max, sum) per row
-    ws = (torch.empty((splits, b * n * L * (d + 2)), dtype=torch.float32, device=levels.device)
-          if splits > 1 else None)
+    floats = workspace_floats(b, n, L, d, splits, levels.dtype)
+    ws = torch.empty((floats,), dtype=torch.float32, device=levels.device) if floats else None
     fn = _kernel()
     with torch.cuda.device(levels.device):
         code = fn(
@@ -134,7 +152,7 @@ def _bwd_inputs(levels, dout, lse, delta, non_local_mask):
     """Check what K6 and K7 read and return ``(levels, dout)``, each copied
     into fresh storage where its rows are off the kernels' 16-byte
     ``cp.async`` boundary (as the forward does)."""
-    _check(levels, non_local_mask)
+    _check(levels, non_local_mask, "consensus_dkv kernel (K6)", backward=True)
     b, n, L, d = levels.shape
     want = {"dout": ((b, n, L, d), levels.dtype), "lse": ((b, L, n, 1), torch.float32),
             "delta": ((b, L, n, 1), torch.float32)}
@@ -237,7 +255,7 @@ def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=
     if ds is None:
         raise ValueError("consensus_dq reads the dS' K6 stores: pass the ds of "
                          "consensus_dkv(levels, dout, lse, delta, keep_ds=True)")
-    _check(levels, non_local_mask)
+    _check(levels, non_local_mask, "consensus_dq kernel (K7)", backward=True)
     _check_ds(levels, ds)
     if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
         levels = fresh_copy(levels)
@@ -348,9 +366,9 @@ def consensus_attention(
 
     ``splits`` (CUDA only): how many blocks share a query tile's keys
     (default: :func:`planned_splits`).  With more than one, each writes its
-    unnormalized sums and row statistics to an f32 workspace and a second,
-    elementwise kernel combines them in a fixed order; the call still
-    counts as one launch.
+    unnormalized sums and row statistics (above d=512: its share of P V) to
+    an f32 workspace and a second, elementwise kernel combines them in a
+    fixed order; the call still counts as one launch.
 
     When autograd records the call, the gradient is K6 + K7
     (``flash_bwd=True``) or the plain VJP (``False``)."""

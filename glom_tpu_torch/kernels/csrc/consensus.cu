@@ -5,7 +5,9 @@
 // with an online softmax, `_kernel_blocked`).  The kernel, its design and
 // its split combine are consensus_fwd.cuh's, which K8's consensus stage
 // (fused_update.cu) shares; this file holds K4's C entry points and its
-// split planner.  The output is in the inputs' type.
+// split planner.  The output is in the inputs' type.  d is any multiple of
+// 128: up to 512 consensus_fwd.cuh's kernel, above it consensus_wide.cuh's
+// design.
 
 #include "common.cuh"
 #include "consensus_fwd.cuh"
@@ -26,8 +28,7 @@ int occupancy(int dim) {
 }
 
 bool valid(int b, int n, int L, int dim) {
-  return dim % 128 == 0 && dim >= 128 && dim <= 512 && b >= 1 && n >= 1 && L >= 1 &&
-         (long long)b * L <= 65535;
+  return dim % 128 == 0 && dim >= 128 && b >= 1 && n >= 1 && L >= 1 && (long long)b * L <= 65535;
 }
 
 }  // namespace
@@ -37,11 +38,14 @@ bool valid(int b, int n, int L, int dim) {
 // least time, counted in key-block times: waves x (key blocks a block, plus
 // SPLIT_COST for writing and combining a split's partial sums), the fewest
 // splits on a tie.  A split covers at least 2 key blocks, and there are at
-// most 8.  With splits > 1
-// the caller passes an f32 workspace of splits * b * n * L * (dim + 2)
-// elements.  Returns -1 on bad arguments or a CUDA error.
+// most 8.  Above d=512 the wide design's rule instead (consensus_wide.cuh:
+// how many blocks share a P V tile's keys).  Returns -1 on bad arguments or
+// a CUDA error.
 extern "C" int glom_consensus_splits(int b, int n, int L, int dim, int dtype) {
   if (!valid(b, n, L, dim)) return -1;
+  if (dim > wide::NARROW_MAX_DIM)
+    return dtype == glom::kF32 ? wide::plan<float>(b, n, L, dim, MAX_SPLITS)
+           : dtype == glom::kBF16 ? wide::plan<__nv_bfloat16>(b, n, L, dim, MAX_SPLITS) : -1;
   const int per_sm = dtype == glom::kF32 ? occupancy<float>(dim)
                      : dtype == glom::kBF16 ? occupancy<__nv_bfloat16>(dim) : -1;
   int device = 0, sms = 0;
@@ -64,16 +68,28 @@ extern "C" int glom_consensus_splits(int b, int n, int L, int dim, int dtype) {
   return best;
 }
 
+// The f32 workspace glom_consensus needs, in floats: none with the narrow
+// kernel and one split, splits * b * n * L * (dim + 2) with several; above
+// d=512 the wide design's logits, key scales, transposed keys and split
+// sums.  -1 on bad arguments.
+extern "C" long long glom_consensus_workspace(int b, int n, int L, int dim, int splits,
+                                              int dtype) {
+  if (!valid(b, n, L, dim) || splits < 1 || (dtype != glom::kF32 && dtype != glom::kBF16))
+    return -1;
+  return workspace_floats(b, n, L, dim, splits, dtype == glom::kF32 ? 4 : 2);
+}
+
 // levels (b, n, L, dim) read through strides sb, sn, sl (elements; the last
 // dimension contiguous, every row on a 16-byte boundary); mask (n, n) int8 or bool, contiguous, or null;
-// out (b, n, L, dim) contiguous, levels' dtype; lse (b, L, n) f32; ws: with
-// splits > 1, the f32 workspace glom_consensus_splits describes, 16-byte
-// aligned.  Returns the launches' cudaError_t.
+// out (b, n, L, dim) contiguous, levels' dtype; lse (b, L, n) f32; ws: the
+// f32 workspace of glom_consensus_workspace's size (null where that is 0),
+// 16-byte aligned.  Returns the launches' cudaError_t.
 extern "C" int glom_consensus(const void* levels, long long sb, long long sn, long long sl,
                               const void* mask, void* out, void* lse, void* ws, int b, int n,
                               int L, int dim, int attend_self, int splits, int dtype,
                               void* stream) {
-  if (!valid(b, n, L, dim) || splits < 1 || (splits > 1 && ws == nullptr) ||
+  if (!valid(b, n, L, dim) || splits < 1 ||
+      ((splits > 1 || dim > wide::NARROW_MAX_DIM) && ws == nullptr) ||
       reinterpret_cast<uintptr_t>(ws) % 16 != 0 || reinterpret_cast<uintptr_t>(levels) % 16 != 0) {
     return cudaErrorInvalidValue;
   }

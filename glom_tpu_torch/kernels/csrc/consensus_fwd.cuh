@@ -75,7 +75,9 @@
 //  * levels is read through its strides (each row on a 16-byte boundary, the
 //    last dimension contiguous), so no transpose to (b, L, n, d) is needed;
 //    out is (b, n, L, d) contiguous.
-// d must be a multiple of 128, at most 512.  Deterministic: every sum in a
+// This kernel takes d a multiple of 128, at most 512; dispatch() sends a
+// wider d (any multiple of 128) to consensus_wide.cuh's design, which needs
+// the workspace workspace_floats() counts.  Deterministic: every sum in a
 // fixed order, no atomics.
 
 #pragma once
@@ -84,6 +86,7 @@
 
 #include "common.cuh"
 #include "consensus_row.cuh"
+#include "consensus_wide.cuh"
 
 // Internal linkage: K4's library and K8's each hold their own instances.
 // With external linkage the function-local cache of blocks_per_sm would be
@@ -515,10 +518,20 @@ cudaError_t dispatch(int dim, const void* lv, long long sb, long long sn, long l
     case 256: return launch<T, 256, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
     case 384: return launch<T, 384, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
     case 512: return launch<T, 512, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (dim % 128 != 0 || dim <= wide::NARROW_MAX_DIM || ws == nullptr) return cudaErrorInvalidValue;
+      return wide::launch<T, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, dim, attend_self,
+                                 splits, stream);
   }
 }
 
+// The f32 workspace a call needs, in floats (`item`: bytes of an input
+// element): with the narrow kernel, per split beyond one the unnormalized
+// sums and a (max, sum) per row; with the wide design, consensus_wide.cuh's.
+inline long long workspace_floats(int b, int n, int L, int dim, int splits, int item) {
+  if (dim > wide::NARROW_MAX_DIM) return wide::workspace(b, n, L, dim, splits, item).total;
+  return splits > 1 ? (long long)splits * b * n * L * (dim + 2) : 0;
+}
 
 }  // namespace
 }  // namespace cons

@@ -58,8 +58,8 @@
 // last dimension contiguous, every row on a 16-byte boundary, and levels'
 // and bottom's (b, n) axes flattening to one row axis); the weights
 // (bottom_up: L groups, top_down: L-1) and out (b, n, L, d) are contiguous,
-// w1 and w2 on a 16-byte boundary.  d must be a multiple of 128, at most
-// 512; h a multiple of 64.
+// w1 and w2 on a 16-byte boundary.  d must be a multiple of 128 (above 512
+// the consensus stage is consensus_wide.cuh's design); h a multiple of 64.
 
 #include <type_traits>
 
@@ -98,8 +98,9 @@ struct Args {
 
 // The f32 workspace of a call, in floats: each part starts on a 16-byte
 // boundary.  The keys' split workspace (consensus_fwd.cuh's: per split the
-// partial sums and a (max, sum) per row) and K8b's never live at once and
-// share `scratch`.
+// partial sums and a (max, sum) per row; above d=512 the wide design's
+// logits, key scales and transposed keys, consensus_wide.cuh) and K8b's never
+// live at once and share `scratch`.
 struct Workspace {
   long long hid, tdin, cons, lse, scratch, total;
 };
@@ -114,7 +115,8 @@ Workspace workspace(int b, int n, int L, int dim, int hidden, int splits, int co
   w.cons = w.tdin + rows * (L - 1) * dim;
   w.lse = w.cons + rows * L * dim;
   w.scratch = w.lse + round4((long long)b * L * n);
-  const long long keys = cons_splits > 1 ? round4(cons_splits * rows * L * (dim + 2LL)) : 0;
+  // sized for f32 inputs, whatever the call's type
+  const long long keys = round4(glom::cons::workspace_floats(b, n, L, dim, cons_splits, 4));
   const long long tiles = splits > 1 ? 2LL * splits * rows * L * dim : 0;
   w.total = w.scratch + (keys > tiles ? keys : tiles);
   return w;
@@ -351,8 +353,8 @@ int blocks_per_sm() {
 }
 
 bool valid(int b, int n, int L, int dim, int hidden) {
-  return dim % 128 == 0 && dim >= 128 && dim <= 512 && hidden % H_ALIGN == 0 &&
-         hidden >= H_ALIGN && b >= 1 && n >= 1 && L >= 2 && (long long)b * L <= 65535;
+  return dim % 128 == 0 && dim >= 128 && hidden % H_ALIGN == 0 && hidden >= H_ALIGN && b >= 1 &&
+         n >= 1 && L >= 2 && (long long)b * L <= 65535;
 }
 
 // A (b, n, ...) tensor's rows: every one on a 16-byte boundary (a stride

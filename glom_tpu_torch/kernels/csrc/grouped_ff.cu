@@ -49,8 +49,9 @@
 // last dimension contiguous, every row on a 16-byte boundary), so the
 // bottom-up input, a strided view of the (b, n, L+1, d) state, needs no
 // copy.  w1 (g, d, h), b1 (g, h), w2 (g, h, d), b2 (g, d), out (rows, g, d)
-// and the hidden are contiguous.  d must be a multiple of 128, at most 512;
-// h a multiple of 64 (ragged against the 128-wide tile).
+// and the hidden are contiguous.  d must be a multiple of 128 (any: the
+// tiles' shared memory does not grow with d); h a multiple of 64 (ragged
+// against the 128-wide tile).
 
 #include <type_traits>
 
@@ -191,7 +192,7 @@ int blocks_per_sm() {
 }
 
 bool valid(int rows, int groups, int dim, int hidden) {
-  return dim % 128 == 0 && dim >= 128 && dim <= 512 && hidden % H_ALIGN == 0 && hidden >= H_ALIGN &&
+  return dim % 128 == 0 && dim >= 128 && hidden % H_ALIGN == 0 && hidden >= H_ALIGN &&
          rows >= 1 && groups >= 1 && groups <= 65535;
 }
 

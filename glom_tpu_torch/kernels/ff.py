@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy, on_device,
                                             vector_aligned)
 from glom_tpu_torch.ops import feedforward as plain
 
@@ -90,7 +90,10 @@ def planned_dw_splits(device: torch.device, rows: int, g: int, d: int, h: int, d
                            torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
 
 
-def _check(params: dict, x: torch.Tensor):
+def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)",
+           backward: bool = False):
+    """Raise on what ``kernel`` does not take: K1 (the forward) any width
+    that is a multiple of 128, K2 and K3 (``backward``) at most 512 of it."""
     if x.dim() != 4:
         raise ValueError(f"x must be (b, n, g, d), got shape {tuple(x.shape)}")
     if x.dtype not in DTYPE_CODES:
@@ -111,8 +114,7 @@ def _check(params: dict, x: torch.Tensor):
             raise ValueError(f"{name} must be contiguous")
         if name in ("w1", "w2") and p.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it with cp.async)")
-    if d % 128 != 0 or d > MAX_DIM:
-        raise ValueError(f"grouped_ff kernel needs d a multiple of 128 and <= {MAX_DIM}, got {d}")
+    check_width(kernel, d, backward=backward)
     if h % HIDDEN_CHUNK != 0:
         raise ValueError(f"grouped_ff kernel needs h a multiple of {HIDDEN_CHUNK}, got {h}")
     if x.stride(3) != 1:
@@ -156,12 +158,13 @@ def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tens
     return out
 
 
-def _kernel_input(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x`` as the kernels read it: checked, and copied into fresh storage
+def _kernel_input(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)",
+                  backward: bool = False) -> torch.Tensor:
+    """``x`` as ``kernel`` reads it: checked, and copied into fresh storage
     when its rows are off a 16-byte boundary (K1 and K3 copy them in
     16-byte pieces, K2 reads them as 4-element vectors; ``glom_tpu``'s
     kernels take any layout)."""
-    _check(params, x)
+    _check(params, x, kernel, backward)
     if vector_aligned(x, _row_stride(x), x.stride(2), nbytes=16):
         return x
     return fresh_copy(x)
@@ -202,7 +205,7 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
     if not on_device("grouped_ff_dx", x):
         dx = plain.grouped_ff_dx(params, x, g)
         return (dx, plain.grouped_ff_hidden(params, x, g)) if keep_hidden else dx
-    x = _kernel_input(params, x)
+    x = _kernel_input(params, x, "grouped_ff_dx kernel (K2)", backward=True)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
@@ -248,7 +251,7 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     hid, dh = hidden
     if not on_device("grouped_ff_dw", x):
         return plain.grouped_ff_dw_from_hidden(x, g, hid, dh, params["w1"].dtype)
-    x = _kernel_input(params, x)
+    x = _kernel_input(params, x, "grouped_ff_dw kernel (K3)", backward=True)
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]

@@ -50,8 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import (DTYPE_CODES, MAX_DIM, count, fresh_copy, on_device,
-                                            vector_aligned)
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, forward_takes,
+                                            fresh_copy, on_device, vector_aligned)
 from glom_tpu_torch.kernels.consensus import consensus_attention
 from glom_tpu_torch.kernels.consensus import planned_splits as planned_key_splits
 from glom_tpu_torch.kernels.ff import HIDDEN_CHUNK, grouped_ff
@@ -97,8 +97,12 @@ def _workspace_floats(b: int, n: int, L: int, d: int, h: int, splits: int,
 
 
 def kernel_supports(dim: int, hidden: int) -> bool:
-    """The widths K8 takes: K1's and K4's set (its backward runs them)."""
-    return dim % 128 == 0 and 0 < dim <= MAX_DIM and hidden % HIDDEN_CHUNK == 0 and hidden > 0
+    """The widths K8 takes: the forward kernels' (``_common.forward_takes``)
+    and h a multiple of the hidden chunk.  Its gradient runs the backward
+    kernels, which take fewer (``_common.backward_takes``); a train step
+    refuses those configurations before it launches anything
+    (``models/glom.py::check_trainable_widths``)."""
+    return forward_takes(dim) and hidden % HIDDEN_CHUNK == 0 and hidden > 0
 
 
 def supports_config(config, device=None) -> bool:
@@ -205,10 +209,10 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
     h = bu["w1"].shape[-1]
     if L < 2:
         raise ValueError(f"fused_level_update needs at least 2 levels, got {L}")
+    check_width("fused_level_update kernel (K8)", d)
     if not kernel_supports(d, h):
-        raise ValueError(
-            f"fused_level_update kernel needs d a multiple of 128 and <= {MAX_DIM} and h a "
-            f"multiple of {HIDDEN_CHUNK}, got d={d}, h={h}")
+        raise ValueError(f"fused_level_update kernel (K8) needs h a multiple of {HIDDEN_CHUNK}, "
+                         f"got h={h}")
     if b * L > 65535:
         raise ValueError(f"fused_level_update kernel takes b * L <= 65535, got {b * L}")
     for name, t, shape in (("levels", levels, (b, n, L, d)), ("bottom_level", bottom, (b, n, 1, d)),

@@ -244,7 +244,11 @@ def test_fused_check_refuses(case):
     elif case == "dim":
         a = _good_update(d=96)
     elif case == "dim_large":
-        a = _good_update(d=640, h=128)
+        # K8's forward takes every multiple of 128 past 512 (its consensus
+        # stage the wide design); off a multiple of 128 it refuses
+        for d in (640, 1024):
+            fused_update._check(**_good_update(d=d, h=128))
+        a = _good_update(d=600, h=128)
     elif case == "hidden":
         a = _good_update(h=96)
     elif case == "levels":
@@ -320,9 +324,10 @@ def test_supports_config_predicates():
     # fuse_ff is a competing fusion, and another ff_impl never takes the fused step
     assert not glom_model.fused_update_supported(dataclasses.replace(c, fuse_ff=True))
     assert not glom_model.fused_update_supported(dataclasses.replace(c, ff_impl="pallas"))
-    # on a CUDA device the kernel's own widths: K1's and K4's set
+    # on a CUDA device the kernel's own widths: the forward kernels' set
     assert not fused_update.supports_config(c, "cuda")
-    for dim, ok in ((128, True), (384, True), (512, True), (640, False), (1024, False), (96, False)):
+    for dim, ok in ((128, True), (384, True), (512, True), (640, True), (1024, True), (96, False),
+                    (600, False)):
         wide = GlomConfig(dim=dim, levels=3, image_size=64, patch_size=8, ff_impl="fused")
         assert fused_update.supports_config(wide, "cuda") is ok
         assert glom_model.fused_update_supported(wide, torch.device("cuda")) is ok
@@ -658,3 +663,87 @@ def test_counters_do_not_move_on_the_cpu():
              ff_kernel.grouped_ff_dx.launches, consensus_kernel.consensus_attention.launches,
              consensus_kernel.consensus_dq.launches)
     assert after == before
+
+
+# -- widths past 512: the forward kernels take them, the backward ones not yet --
+
+WIDE = dict(dim=640, levels=3, image_size=16, patch_size=4)
+
+
+@pytest.mark.parametrize("ff_impl", ["pallas", "fused"])
+def test_forward_at_d640_matches_glom_tpu(ff_impl):
+    """The port's forward at d=640 (ff_impl "pallas" or "fused", attention on
+    the kernels; their plain versions on the CPU) against glom_tpu's through
+    its Pallas kernels in interpret mode, 2 iterations, the weights carried
+    by convert.py."""
+    kw = dict(WIDE, ff_impl=ff_impl, attention_impl="pallas")
+    port, ref = GlomConfig(**kw), jax_config.GlomConfig(**kw)
+    tree = _tree(port, seed=3)["glom"]
+    img = _img(seed=5)
+    want = jax_glom.apply(_jnp(tree), jnp.asarray(img), config=ref, iters=2)
+    got = _port_apply(port, tree, img, iters=2)
+    assert got.shape == (2, 16, 3, 640)
+    np.testing.assert_allclose(got, np.asarray(want), atol=FWD_ATOL)
+
+
+def test_auto_attention_at_d640_stays_dense_until_the_backward_kernels_take_it(monkeypatch):
+    """'auto' picks the kernels only where both directions take the width:
+    above the crossover at d=512 the kernels, at d=640 and 1024 the plain
+    ops (K6 and K7 take d up to 512), while the forward wrappers and K8 take
+    those widths."""
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
+    above = dict(levels=3, image_size=8 * 24, patch_size=8, attention_impl="auto")   # n=576
+    assert glom_model.resolve_auto_attention(GlomConfig(dim=512, **above), "cuda") == "pallas"
+    for dim in (640, 1024):
+        c = GlomConfig(dim=dim, **above)
+        assert glom_model.resolve_auto_attention(c, "cuda") == "dense"
+        assert fused_update.supports_config(dataclasses.replace(c, ff_impl="fused"), "cuda")
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    ({"attention_impl": "pallas"}, "K6"),
+    ({"ff_impl": "pallas", "ff_fused_bwd": True}, "K2"),
+    ({"ff_impl": "fused"}, "K6"),
+    ({"ff_impl": "fused", "ff_fused_bwd": True}, "K2"),
+])
+def test_train_step_at_d640_refuses_the_backward_kernels_before_it_runs(kw, kernel):
+    """A train step or Trainer at d=640 whose gradient runs K2/K3 or K6/K7
+    raises ValueError when it is built, naming the kernel, the width and the
+    ROADMAP item; it never switches to the plain VJP."""
+    c = GlomConfig(**WIDE, **kw)
+    tc = TrainConfig(batch_size=2, steps=1)
+    pattern = rf"d=640.*{kernel}.*queue 3, item 1b"
+    with pytest.raises(ValueError, match=pattern):
+        denoise.make_step_fn(c, tc, optim.Optimizer.from_config(tc))
+    from glom_tpu_torch.training.trainer import Trainer
+
+    with pytest.raises(ValueError, match=pattern):
+        Trainer(c, tc, device="cpu")
+    from glom_tpu_torch.models import classifier
+    from glom_tpu_torch.training import video
+
+    with pytest.raises(ValueError, match=pattern):
+        video.make_video_train_step(c, tc, optim.Optimizer.from_config(tc))
+    with pytest.raises(ValueError, match=pattern):
+        classifier.make_train_step(c, optim.Optimizer.from_config(tc))
+    # a frozen backbone runs no backward through it
+    classifier.make_train_step(c, optim.Optimizer.from_config(tc), freeze_backbone=True)
+
+
+@pytest.mark.parametrize("attention_impl", ["dense", "auto"])
+def test_train_step_at_d640_trains_through_k1_and_the_plain_vjp(attention_impl):
+    """ff_impl='pallas' with ff_fused_bwd=False (glom_tpu's plain VJP, K1 on
+    the card) and dense or 'auto' attention train at d=640: one step of the
+    Trainer, finite, and its loss the plain path's."""
+    from glom_tpu_torch.training.trainer import Trainer
+
+    small = dict(dim=640, levels=2, image_size=8, patch_size=4)
+    tc = TrainConfig(batch_size=2, steps=1, seed=3)
+    img = np.random.default_rng(2).standard_normal((2, 3, 8, 8)).astype(np.float32)
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 3, 8, 8)).astype(np.float32))
+    losses = []
+    for kw in ({"ff_impl": "pallas", "attention_impl": attention_impl}, {}):
+        trainer = Trainer(GlomConfig(**small, **kw), tc, device="cpu")
+        losses.append(trainer.step(img, noise=noise)["loss"].item())
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]

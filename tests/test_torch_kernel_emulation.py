@@ -319,6 +319,10 @@ def _plain_hidden(params, x):
     # workspace, added in order with b2 by the third kernel
     (49, 1, 128, 320, torch.float32, True, 3),
     (33, 2, 128, 192, torch.bfloat16, False, 2),
+    # past the narrow widths: d=640, five output tiles a row tile, K1a's
+    # depth 20 slabs
+    (17, 2, 640, 64, torch.float32, True, 1),
+    (9, 1, 640, 128, torch.bfloat16, False, 2),
 ])
 def test_emulated_k1_matches_plain(k1_fn, rows, g, d, h, dtype, strided, splits):
     """K1's output against grouped_ff_apply in float32 on the same inputs,
@@ -455,6 +459,9 @@ def _emulated_k8(k8, args, mask=None, attend_self=False, splits=1, key_splits=1)
     # workspace, added in order and the update formed by the second kernel
     (1, 5, 3, 128, 192, torch.float32, {"splits": 2}),
     (2, 3, 2, 128, 192, torch.bfloat16, {"splits": 3, "key_splits": 1}),
+    # d=640: the consensus stage is the wide design (csrc/consensus_wide.cuh)
+    (1, 4, 2, 640, 64, torch.float32, {}),
+    (1, 4, 2, 640, 64, torch.bfloat16, {"radius": 1.5, "key_splits": 2}),
 ])
 def test_emulated_k8_matches_plain(k8, b, side, L, d, h, dtype, extra):
     """K8 on strided views of one (b, n, L+1, d) buffer against plain_update
@@ -565,6 +572,96 @@ def test_emulated_k8_sum_over_the_hidden_does_not_drift(k8):
     assert (err.abs() <= 1e-4 * (min(1.0, want.abs().max().item()) + want.abs())).all()
     # no bias toward zero beyond a few units of the last place
     assert -(err * terms.sign()).sum() <= 1e-6 * terms.abs().sum()
+
+
+# -- K4 past d=512: csrc/consensus_wide.cuh ----------------------------------
+
+@pytest.fixture(scope="module")
+def k4():
+    """K4's emulated C entry, its workspace size and its split planner."""
+    if not emulate.compiler():
+        pytest.skip("needs g++ to compile the kernel source against the emulator")
+    return (emulate.function("consensus", "glom_consensus", consensus_kernel._ARGTYPES),
+            emulate.function("consensus", "glom_consensus_workspace", [ctypes.c_int] * 6,
+                             ctypes.c_longlong),
+            emulate.function("consensus", "glom_consensus_splits", [ctypes.c_int] * 5))
+
+
+def _emulated_k4(k4, levels, mask=None, attend_self=False, splits=1):
+    """K4's ``(out, lse)`` in buffers, and with a workspace, that start as
+    NaN, so that an element it skips shows."""
+    fn, ws_floats, _ = k4
+    b, n, L, d = levels.shape
+    floats = ws_floats(b, n, L, d, splits, DTYPE_CODES[levels.dtype])
+    ws = torch.full((max(floats, 4),), float("nan"))
+    out = torch.full((b, n, L, d), float("nan"), dtype=levels.dtype)
+    lse = torch.full((b, L, n, 1), float("nan"))
+    assert fn(levels.data_ptr(), *levels.stride()[:3], None if mask is None else mask.data_ptr(),
+              out.data_ptr(), lse.data_ptr(), ws.data_ptr(), b, n, L, d, int(attend_self),
+              splits, DTYPE_CODES[levels.dtype], None) == 0
+    return out, lse
+
+
+@pytest.mark.parametrize("n,L,d,dtype,extra", [
+    (40, 2, 640, torch.float32, {}),           # a ragged key slab and query tile
+    (40, 2, 640, torch.bfloat16, {"attend_self": True, "strided": True}),
+    (36, 1, 1024, torch.float32, {"side": 6, "splits": 2}),   # the locality mask, radius 1.5
+    (36, 1, 1024, torch.bfloat16, {"side": 6, "strided": True}),
+    (64, 1, 640, torch.float32, {"attend_self": True, "splits": 2}),   # P V's keys over 2 blocks
+    (25, 2, 1024, torch.bfloat16, {"splits": 2}),
+])
+def test_emulated_wide_k4_matches_plain(k4, n, L, d, dtype, extra):
+    """The wide design (key scales and V^T, the logits through the
+    workspace, the softmax, P V, with splits their ordered sum) against the
+    plain consensus in float32 on the same inputs, out and lse; two runs give
+    the same bits."""
+    extra = dict(extra)
+    side, strided = extra.pop("side", None), extra.pop("strided", False)
+    mask = torch.from_numpy(local_consensus_mask(side, 1.5)) if side else None
+    rng = np.random.default_rng(n + L + d)
+    x = torch.from_numpy(rng.standard_normal((1, n, L + 1, d)).astype(np.float32)).to(dtype)
+    levels = x[..., 1:, :] if strided else x[..., 1:, :].contiguous()
+    out, lse = _emulated_k4(k4, levels, mask, **extra)
+    want, want_lse = plain_cons.consensus_attention(
+        levels.float(), attend_self=extra.get("attend_self", False), non_local_mask=mask)
+    assert out.dtype == dtype
+    _assert_close(out, want, dtype)
+    _assert_close(lse, want_lse, torch.float32)
+    again = _emulated_k4(k4, levels, mask, **extra)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("b,n,L,d,want", [
+    (4, 576, 8, 1024, 1),     # the large preset: 2,304 P V tiles, many waves
+    (1, 2304, 8, 1024, 1),    # n=2304 (the K5 route)
+    (1, 40, 2, 640, 2),       # 10 tiles of 2 slabs: one slab a block
+    (1, 576, 1, 2048, 1),     # 144 tiles, over a wave of 132: no split fits one wave
+])
+def test_emulated_wide_k4_plans_splits_for_132_sms(k4, b, n, L, d, want):
+    """glom_consensus_splits above d=512 on a card of 132 SMs, one block an
+    SM (the emulator's device): tile_gemm.cuh's rule over P V's tiles."""
+    assert k4[2](b, n, L, d, 0) == want
+
+
+def test_emulated_k4_workspace_and_refusals(k4):
+    """glom_consensus_workspace: the narrow kernel's split sums as before,
+    the wide design's parts above 512; bad arguments refused; the wide
+    design refuses a call without its workspace."""
+    fn, ws_floats, plan = k4
+    assert ws_floats(2, 8, 3, 512, 1, 0) == 0
+    assert ws_floats(2, 8, 3, 512, 3, 0) == 3 * 2 * 8 * 3 * (512 + 2)
+    # logits (b, L, n, 32-padded n), key scales, V^T in f32 or bf16, split sums
+    f32 = 6 * 8 * 32 + 6 * 32 + 6 * 640 * 32
+    assert ws_floats(2, 8, 3, 640, 1, 0) == f32
+    assert ws_floats(2, 8, 3, 640, 1, 1) == f32 - 6 * 640 * 16
+    assert ws_floats(2, 8, 3, 640, 2, 0) == f32 + 2 * 2 * 8 * 3 * 640
+    for bad in ((2, 8, 3, 96, 1, 0), (2, 8, 3, 640, 0, 0), (2, 8, 3, 640, 1, 2), (0, 8, 3, 640, 1, 0)):
+        assert ws_floats(*bad) < 0, bad
+    assert plan(2, 8, 3, 96, 0) < 0 and plan(2, 8, 3, 640, 2) < 0
+    levels = torch.zeros((2, 8, 3, 640))
+    out, lse = torch.empty(levels.shape), torch.empty((2, 3, 8))
+    assert fn(levels.data_ptr(), *levels.stride()[:3], None, out.data_ptr(), lse.data_ptr(),
+              None, 2, 8, 3, 640, 0, 1, 0, None) != 0
 
 
 # -- K6 and K7: the consensus backward, K6 handing K7 its dS' -----------------

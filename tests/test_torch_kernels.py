@@ -377,6 +377,13 @@ def test_ff_check_refuses(case):
     elif case == "shape":
         p["b1"], err = p["b1"][:, :-1], ValueError
     elif case == "dim":
+        # K1 takes every multiple of 128; K2 and K3 at most 512, by name
+        for d in (640, 1024):
+            wide_p, wide_x = _good_ff(d=d, h=64)
+            ff_kernel._check(wide_p, wide_x)
+            for kernel in ("grouped_ff_dx kernel (K2)", "grouped_ff_dw kernel (K3)"):
+                with pytest.raises(ValueError, match=r"\(K[23]\).*d=%d.*queue 3, item 1b" % d):
+                    ff_kernel._check(wide_p, wide_x, kernel, backward=True)
         p, x = _good_ff(d=96, h=256)
         err = ValueError
     elif case == "hidden":
@@ -401,7 +408,18 @@ def test_consensus_check_refuses(case):
     if case == "dtype":
         levels, err = levels.double(), TypeError
     elif case == "dim":
-        levels = torch.zeros((2, 8, 3, 640))
+        # the forward takes every multiple of 128 (above 512 the wide design);
+        # the backward kernels K6 and K7 at most 512, each refusing by name
+        for d in (640, 1024, 2048):
+            consensus_kernel._check(torch.zeros((2, 8, 3, d)), None)
+            with pytest.raises(ValueError, match=r"\(K6\).*d=%d.*queue 3, item 1b" % d):
+                consensus_kernel._check(torch.zeros((2, 8, 3, d)), None,
+                                        "consensus_dkv kernel (K6)", backward=True)
+        consensus_kernel._check(torch.zeros((2, 8, 3, 512)), None, "K6", backward=True)
+        for d in (96, 600):
+            with pytest.raises(ValueError, match="multiple of 128"):
+                consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, "K6", backward=True)
+        levels = torch.zeros((2, 8, 3, 96))
     elif case == "mask_shape":
         mask = torch.zeros((8, 7), dtype=torch.bool)
     elif case == "mask_dtype":
@@ -1058,6 +1076,103 @@ def _update_inputs(rng, device, dtype, *, b, side, L=3, d=128, h=None, radius=0)
     pos = t(rng.standard_normal((n, d)))[None, :, None, :]
     mask = torch.from_numpy(local_consensus_mask(side, radius)).to(device) if radius else None
     return fused_update, (bu, td, lwi[..., 1:, :], lwi[..., :1, :], pos), mask
+
+
+# -- GPU: the forward kernels past d=512 ---------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 768, 1024, 2048])
+@pytest.mark.parametrize("side,b", [(24, 2), (48, 1)])
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+@pytest.mark.parametrize("splits", [None, 2])
+def test_gpu_wide_consensus_matches_plain(cuda, dtype, d, side, b, attend_self, radius, splits):
+    """K4 above d=512 (csrc/consensus_wide.cuh) on the strided levels view
+    of the model's loop: n=576 (the large preset) and n=2304 (the K5 route),
+    the self-mask, the locality mask, the planned split count and 2; one
+    launch a call, two calls the same bits."""
+    rng = np.random.default_rng(d + side)
+    n = side * side
+    lwi = torch.from_numpy(rng.standard_normal((b, n, 3, d)).astype(np.float32)).to(cuda, dtype)
+    levels = lwi[..., 1:, :]
+    mask = torch.from_numpy(local_consensus_mask(side, radius)).to(cuda) if radius else None
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    before = consensus_kernel.consensus_attention.launches
+    with torch.inference_mode():
+        got, lse = consensus_kernel.consensus_attention(levels, splits=splits, **kw)
+        want, want_lse = plain_consensus.consensus_attention(levels.float(), **kw)
+        again, lse_again = consensus_kernel.consensus_attention(levels, splits=splits, **kw)
+    assert consensus_kernel.consensus_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == levels.shape
+    _assert_close(got, want, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again) and torch.equal(lse, lse_again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 1024])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("g", [7, 8])
+def test_gpu_wide_grouped_ff_matches_plain(cuda, dtype, d, splits, g):
+    """K1 above d=512 on the model's two calls (g=8: the bottom-up strided
+    view; g=7: the top-down input), n=70, h=4d."""
+    rng = np.random.default_rng(d + g)
+    p = _torch(_ff_params(rng, g, d, 4 * d), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((2, 70, g + 1, d)).astype(np.float32)).to(cuda, dtype)
+    before = ff_kernel.grouped_ff.launches
+    with torch.inference_mode():
+        for x in (lwi[..., :-1, :], lwi[..., 1:, :].contiguous()):
+            got = ff_kernel.grouped_ff(p, x, splits=splits)
+            assert got.dtype == dtype and got.shape == x.shape
+            _assert_close(got, plain_ff.grouped_ff_apply(_f32(p), x.float()), dtype)
+    assert ff_kernel.grouped_ff.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 1024])
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+@pytest.mark.parametrize("b,side", [(1, 6), (2, 24)])
+def test_gpu_wide_fused_update_matches_reference(cuda, dtype, d, attend_self, radius, b, side):
+    """K8 above d=512 (its consensus stage the wide design), L=3, h=4d:
+    n=36 and n=576; one launch a call."""
+    rng = np.random.default_rng(d + side)
+    fu, args, mask = _update_inputs(rng, cuda, dtype, b=b, side=side, d=d, radius=radius)
+    before = fu.fused_level_update.launches
+    with torch.inference_mode():
+        got = fu.fused_level_update(*args, attend_self=attend_self, non_local_mask=mask)
+        want = _reference(fu, args, mask, attend_self)
+    assert fu.fused_level_update.launches == before + 1
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_backward_kernels_refuse_d640_before_they_launch(cuda):
+    """K2, K3, K6 and K7 at d=640 raise ValueError naming the kernel, and
+    launch nothing; the forward kernels take the same inputs."""
+    rng = np.random.default_rng(13)
+    d = 640
+    p = _torch(_ff_params(rng, 2, d, 256), cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 2, d)).astype(np.float32)).to(cuda)
+    counts = lambda: (ff_kernel.grouped_ff_dx.launches, ff_kernel.grouped_ff_dw.launches,
+                      consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches)
+    before = counts()
+    with pytest.raises(ValueError, match=r"\(K2\).*d=640"):
+        ff_kernel.grouped_ff_dx(p, x, x)
+    hidden = tuple(torch.zeros((2, 16, 256), device=cuda) for _ in range(2))
+    with pytest.raises(ValueError, match=r"\(K3\).*d=640"):
+        ff_kernel.grouped_ff_dw(p, x, x, hidden)
+    out, lse = consensus_kernel.consensus_attention(x)
+    delta = torch.zeros_like(lse)
+    with pytest.raises(ValueError, match=r"\(K6\).*d=640"):
+        consensus_kernel.consensus_dkv(x, x, lse, delta)
+    ds = torch.zeros(consensus_kernel.ds_shape(x), device=cuda)
+    with pytest.raises(ValueError, match=r"\(K7\).*d=640"):
+        consensus_kernel.consensus_dq(x, x, lse, delta, ds=ds)
+    assert counts() == before
+    ff_kernel.grouped_ff(p, x)
+    torch.cuda.synchronize()
 
 
 def _reference(fused_update, args, mask, attend_self):
