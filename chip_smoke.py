@@ -313,20 +313,27 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
   large    glom_tpu's large preset (BASELINE.json config 4: d=1024, 8 levels,
            384/16, n=576, 16 iterations, random seeded weights, nothing
            cut): (i) K1 (bottom-up g=8 strided, top-down g=7), K4 (b=4; the
-           locality mask; n=2304, b=1; d=2048, b=1) and K8 (b=4), float32
-           and bfloat16, each against its plain version with its time, bound
-           and library call, as the kernels phase's rows; (ii) a seeded
+           locality mask; n=2304, b=1; d=2048, b=1), K8 (b=4), K2, K3 and
+           their pair (bottom-up g=8 strided, top-down g=7; K3 held against
+           the float64 sums) and K6, K7 and their pair (b=4; attend_self beside SDPA's
+           backward; the locality mask), float32 and bfloat16, each against
+           its plain version with its time, bound and library call, as the
+           kernels phase's rows (fewer timing samples); (ii) a seeded
            checkpoint served over HTTP on /embed from CUDA graphs at buckets
            1, 2 and 4 on "pallas" f32 (K1 32 + K4 16 launches a forward), on
            "fused" f32 (K8 16) and on "pallas" bf16: answers against the
            plain path, exact launches through the replays, the b=4 replay
-           bitwise its eager forward, each bucket's replay time; (iii)
-           python -m glom_tpu_torch.tools.bench --config large at its
-           defaults (bf16, remat "dots", b=4, K1 forward, the plain FF VJP,
-           dense consensus), 5 steps, its record with the card's name and
-           power limit; (iv) a Trainer at d=1024 with attention_impl="pallas",
-           ff_fused_bwd=True or ff_impl="fused" refused by name (K6, K2,
-           K6), nothing launched.
+           bitwise its eager forward and timed; (iii) python -m
+           glom_tpu_torch.tools.bench --config large through every kernel
+           (--ff-impl pallas --attention-impl pallas --fused-ff-bwd, leg (b)),
+           5 steps, the record with the card's name and power limit; (iv) one
+           f32 train step at b=4 of a Trainer with attention_impl="pallas"
+           (K4, K6, K7 9 each), ff_fused_bwd=True (K1, K2, K3 18 each) and
+           ff_impl="fused" (K8 9, K1 18, K4, K6, K7 9), launches exact, loss
+           and gradients against the plain path, two runs of one step
+           bitwise; "auto" attention picking "pallas" on the card; and one
+           step on "dense" and on "pallas" attention, timed, for the
+           crossover's row.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -729,13 +736,17 @@ def error_vs(got, exact, dtype) -> dict:
     return out
 
 
-def k3_case(params, x, g, hidden, dtype, label, k2_ms):
+def k3_case(params, x, g, hidden, dtype, label, k2_ms, *, exact_gate=False):
     """K3 (dW) against the reference plain.grouped_ff_dw; the worst of its
     three outputs.  K3 reads ``hidden`` (K2's) and does 4 units of
     rows*d*h*groups FLOPs, reading x, dO and the hidden; its plain version
     is the twin on the same hidden, and its library time two torch.bmm
     calls in full float32 and the column sum of dH on the same hidden.
-    ``k2_ms``: the time of the K2 it needs, beside it."""
+    ``k2_ms``: the time of the K2 it needs, beside it.  ``exact_gate``: hold
+    the outputs against the float64 sums instead, under the same limits
+    (the reference plain version's error against them is reported): over
+    thousands of rows the float32 plain version's own rounding can reach
+    the elementwise limit on small entries."""
     rows, gr, d, h, item = ff_dims(params, x)
     outputs = gr * (2 * d * h + h)
     hid, dh = hidden
@@ -746,21 +757,27 @@ def k3_case(params, x, g, hidden, dtype, label, k2_ms):
     got = call()
     want = plain_ffm.grouped_ff_dw(f32(params), x.float(), g.float())
     torch.cuda.synchronize()
-    errs = [compare(u, v, dtype, f"grouped_ff_dw {label} {k}")
-            for k, u, v in zip(("w1", "b1", "w2"), got, want)]
     # both against the exact sums: over thousands of rows the float32 plain
     # version's own rounding is of the order of the kernel's
     exact = grouped_ff_dw_f64(params, x, g)
     vs_f64 = {"kernel": error_vs(got, exact, dtype), "plain_f32": error_vs(want, exact, dtype)}
-    del exact
+    ref = [w.float() for w in exact] if exact_gate else want
+    errs = [compare(u, v, dtype, f"grouped_ff_dw {label} {k}")
+            for k, u, v in zip(("w1", "b1", "w2"), got, ref)]
+    del exact, ref
     row = {"kernel": "grouped_ff_dw", "case": label, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(x.shape), **max(errs, key=lambda e: e["norm_rel_err"]),
+           "gate": "float64" if exact_gate else "plain",
            "bitwise_repeat": all(torch.equal(u, v) for u, v in zip(got, call())),
            "vs_f64": vs_f64, "splits": ff_kernel.planned_dw_splits(x.device, rows, gr, d, h, dtype),
            "kernel_ms": time_ms(call), "k2_ms": k2_ms, "plain_ms": time_ms(plain),
            "library_ms": None, **bounds(flops, nbytes, dtype)}
     if not row["bitwise_repeat"]:
         raise AssertionError(f"grouped_ff_dw {label}: two calls differ")
+    if exact_gate:
+        row["vs_plain"] = {"max_abs_err": max(float((u.float() - v).abs().max())
+                                              for u, v in zip(got, want)),
+                           "norm_rel_err": max(rel_err(u, v) for u, v in zip(got, want))}
     # the yardstick on the same hidden: dW1 = X^T dH and dW2 = H^T dO as
     # batched products over the groups, in full float32 (x and dO cast
     # outside the timing for bf16), and db1 = dH summed over rows
@@ -833,14 +850,18 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None,
     unit = 2.0 * b * L * n * n * d                 # one (n, n, d) product a (b, l) pair
     side = 8 * b * L * n + (n * n if mask is not None else 0)   # lse, delta, the mask
     ds_bytes = 4 * b * L * n * (-(-n // 32) * 32)
-    library = None
+    library = library_note = None
     if attend_self and mask is None:
         q = levels.transpose(1, 2).detach().requires_grad_(True)
         k = l2_normalize(levels.float()).to(dtype).transpose(1, 2).detach().requires_grad_(True)
         v = levels.transpose(1, 2).detach().requires_grad_(True)
-        o = F.scaled_dot_product_attention(q, k, v)
-        go = g.transpose(1, 2)
-        library = time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+        try:
+            o = F.scaled_dot_product_attention(q, k, v)
+            go = g.transpose(1, 2)
+            library = time_ms(lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+        except RuntimeError as e:   # no SDPA backend takes this width
+            library_note = f"none: {e}"
+        del q, k, v
     dkv_call = lambda: consensus_kernel.consensus_dkv(levels, g, lse, delta, keep_ds=True, **kw)
     got_dkv, ds = dkv_call()
     dq_call = lambda: consensus_kernel.consensus_dq(levels, g, lse, delta, ds=ds, **kw)
@@ -890,6 +911,8 @@ def consensus_bwd_case(levels, g, dtype, label, *, attend_self=False, mask=None,
         if library is not None:
             row["library"] = ("backward of torch.nn.functional.scaled_dot_product_attention "
                               "(dQ, dK, dV)")
+        elif library_note is not None:
+            row["library"] = library_note
     return [k6, k7, pair]
 
 
@@ -3453,10 +3476,13 @@ def phase_deploy(device) -> dict:
         if [(i["step"], i["cold"]) for i in infos] != [(2, True), (2, False)]:
             raise AssertionError(f"pinned session: {infos}")
         cand_keys = [k for k, v in sides.items() if v == 2]
-        codes, t0 = [], time.perf_counter()
+        # the controller reads idle as soon as it takes the candidate, before
+        # its report is written: wait for the rollback call to return
+        codes, rollbacks, t0 = [], [], time.perf_counter()
+        timed(engine.deploy, "rollback", rollbacks)
         with faultinject.injected("candidate:delay*100"):
             for i in itertools.count():
-                if engine.deploy.phase == "idle" or time.perf_counter() - t0 > 60:
+                if rollbacks or time.perf_counter() - t0 > 60:
                     break
                 try:
                     resp, _ = post(base + "/embed", {"images": x[1].tolist()},
@@ -3464,6 +3490,7 @@ def phase_deploy(device) -> dict:
                     codes.append(200)
                 except urllib.error.HTTPError as e:
                     codes.append(e.code)
+        del engine.deploy.rollback
         report = engine.deploy.last_report
         if engine.deploy.phase != "idle" or report["action"] != "rolled_back" or set(codes) != {200}:
             raise AssertionError(f"rollback: {engine.deploy.phase}, {report}, codes {codes}")
@@ -3495,7 +3522,7 @@ def phase_deploy(device) -> dict:
         keys3 = [f"key-{i}" for i in range(256) if engine.deploy.assign(f"key-{i}") == 3]
         t0 = time.perf_counter()
         for i in itertools.count():
-            if engine.deploy.phase == "idle" or time.perf_counter() - t0 > 60:
+            if promotes or time.perf_counter() - t0 > 60:   # the promote call returned
                 break
             post(base + "/embed", {"images": x[1].tolist()},
                  {"X-Affinity-Key": keys3[i % len(keys3)]})
@@ -5729,18 +5756,45 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
 LARGE_KW, LARGE_ITERS, LARGE_BATCH, _ = bench_preset("large")
 LARGE = GlomConfig(**LARGE_KW)
 LARGE_BUCKETS = (1, 2, 4)
-# the bench leg: bench's defaults at the large preset, a few steps
-LARGE_BENCH_FLAGS = ["--config", "large", "--steps", "5", "--warmup", "2"]
-# the training configurations the backward kernels' widths refuse at d=1024,
-# with the kernel each message names
-LARGE_REFUSED = ((dict(attention_impl="pallas"), "K6"),
-                 (dict(ff_impl="pallas", ff_fused_bwd=True), "K2"),
-                 (dict(ff_impl="fused"), "K6"))
+# the bench leg: every kernel at the large preset (K1 forward, K2 + K3
+# backward, K4 + K6 + K7), a few steps
+LARGE_BENCH_FLAGS = ["--config", "large", "--steps", "5", "--warmup", "2", "--ff-impl", "pallas",
+                     "--attention-impl", "pallas", "--fused-ff-bwd"]
+# the training configurations whose gradient runs the backward kernels at
+# d=1024, with their launches per step at loss timestep t: K6 and K7 for
+# attention on the kernels; K2 and K3 for the FF's kernel backward; K8, then
+# K1, K4, K6 and K7 again in its backward, for the fused step
+LARGE_TRAINED = (
+    ("attention_pallas", dict(attention_impl="pallas"),
+     lambda t: {"consensus_attention": t, "consensus_dkv": t, "consensus_dq": t}),
+    ("ff_fused_bwd", dict(ff_impl="pallas", ff_fused_bwd=True),
+     lambda t: {"grouped_ff": 2 * t, "grouped_ff_dx": 2 * t, "grouped_ff_dw": 2 * t}),
+    ("fused", dict(ff_impl="fused"),
+     lambda t: {"fused_level_update": t, "grouped_ff": 2 * t, "consensus_attention": t,
+                "consensus_dkv": t, "consensus_dq": t}),
+)
+# the large kernel rows' timing: fewer samples than the flagship rows (each
+# call takes milliseconds), to keep the script inside its time limit
+LARGE_REPS, LARGE_INNER = 5, 2
+
+
+@contextlib.contextmanager
+def timing_samples(reps: int, inner: int):
+    """time_ms with ``reps`` samples of ``inner`` calls inside the block."""
+    global REPS, INNER
+    saved = REPS, INNER
+    REPS, INNER = reps, inner
+    try:
+        yield
+    finally:
+        REPS, INNER = saved
 
 
 def large_inputs(device):
     """The large preset's seeded weights and inputs: ``(params, lwi (4, 576,
-    9, 1024), big (1, 2304, 8, 1024), wide (1, 576, 8, 2048), mask)``."""
+    9, 1024), big (1, 2304, 8, 1024), wide (1, 576, 8, 2048), mask, g_ff,
+    g_lv)``; g_ff and g_lv, (4, 576, 8, 1024), are the backward kernels'
+    cotangents."""
     gen = torch.Generator().manual_seed(21)
     c = LARGE
     n, L, d = c.num_patches, c.levels, c.dim
@@ -5750,33 +5804,60 @@ def large_inputs(device):
     wide = torch.randn((1, n, L, 2 * d), generator=gen).to(device)
     mask = glom_model.resolve_locality_mask(
         GlomConfig(**{**LARGE_KW, "local_consensus_radius": 2}), device)
-    return params, lwi, big, wide, mask
+    g_ff = torch.randn((LARGE_BATCH, n, L, d), generator=gen).to(device)
+    g_lv = torch.randn((LARGE_BATCH, n, L, d), generator=gen).to(device)
+    return params, lwi, big, wide, mask, g_ff, g_lv
 
 
 def large_kernel_rows(device) -> dict:
     """K1 (bottom-up g=8 strided, top-down g=7), K4 (b=4; the locality mask;
-    n=2304, b=1; d=2048, b=1) and K8 (b=4) at the large preset, f32 and
-    bf16, each against its plain version with its time, bound and library
-    call, as the kernels phase holds them at flagship."""
-    params, lwi, big, wide, mask = large_inputs(device)
-    rows = {"grouped_ff": [], "consensus_attention": [], "fused_level_update": []}
-    for dtype in (torch.float32, torch.bfloat16):
-        cast = glom_model.tree_map(lambda p: p.to(dtype), params)
-        x = lwi.to(dtype)
-        pos = cast["pos_emb"][None, :, None, :]
-        rows["grouped_ff"] += [
-            k1_case(cast["bottom_up"], x[..., :-1, :], dtype, "large bottom_up (strided view, g=8)"),
-            k1_case(cast["top_down"], x[..., 2:, :] + pos, dtype, "large top_down (g=7)")]
-        lv = x[..., 1:, :]
-        rows["consensus_attention"] += [
-            consensus_case(lv, dtype, "large b=4", library=True),
-            consensus_case(lv, dtype, "large b=4, local_consensus_radius=2", mask=mask),
-            consensus_case(big.to(dtype), dtype, "large n=2304 (768/16), b=1", library=True),
-            consensus_case(wide.to(dtype), dtype, "d=2048, n=576, b=1", library=True)]
-        with torch.inference_mode():
-            rows["fused_level_update"].append(
-                fused_case(cast, lv, x[..., :1, :], dtype, "large b=4"))
-        del cast, x, lv
+    n=2304, b=1; d=2048, b=1) and K8 (b=4) at the large preset; K2, K3 and
+    the pair on the model's two FF calls (bottom-up g=8 strided, top-down
+    g=7); K6, K7 and the pair at b=4 (attend_self=False, attend_self=True
+    beside SDPA's backward, the locality mask); f32 and bf16, each against
+    its plain version with its time, bound and library call, as the kernels
+    phase holds them at flagship (K3 held against the float64 sums, its
+    plain version's error against them beside it)."""
+    params, lwi, big, wide, mask, g_ff, g_lv = large_inputs(device)
+    rows = {"grouped_ff": [], "consensus_attention": [], "fused_level_update": [],
+            **{name: [] for name in BACKWARD + PAIRS}}
+    with timing_samples(LARGE_REPS, LARGE_INNER):
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = glom_model.tree_map(lambda p: p.to(dtype), params)
+            x = lwi.to(dtype)
+            pos = cast["pos_emb"][None, :, None, :]
+            rows["grouped_ff"] += [
+                k1_case(cast["bottom_up"], x[..., :-1, :], dtype,
+                        "large bottom_up (strided view, g=8)"),
+                k1_case(cast["top_down"], x[..., 2:, :] + pos, dtype, "large top_down (g=7)")]
+            lv = x[..., 1:, :]
+            rows["consensus_attention"] += [
+                consensus_case(lv, dtype, "large b=4", library=True),
+                consensus_case(lv, dtype, "large b=4, local_consensus_radius=2", mask=mask),
+                consensus_case(big.to(dtype), dtype, "large n=2304 (768/16), b=1", library=True),
+                consensus_case(wide.to(dtype), dtype, "d=2048, n=576, b=1", library=True)]
+            with torch.inference_mode():
+                rows["fused_level_update"].append(
+                    fused_case(cast, lv, x[..., :1, :], dtype, "large b=4"))
+            g = g_ff.to(dtype)
+            for label, p, xx, gg in (
+                    ("large bottom_up (strided view, g=8)", cast["bottom_up"], x[..., :-1, :], g),
+                    ("large top_down (g=7)", cast["top_down"], (x[..., 2:, :] + pos).contiguous(),
+                     g[..., 1:, :].contiguous())):
+                k2, hidden = k2_case(p, xx, gg, dtype, label)
+                k3 = k3_case(p, xx, gg, hidden, dtype, label, k2["kernel_ms"], exact_gate=True)
+                del hidden
+                pair = pair_case(p, xx, gg, dtype, label, k2["kernel_ms"], k3["kernel_ms"])
+                for r in (k2, k3, pair):
+                    rows[r["kernel"]].append(r)
+            gl = g_lv.to(dtype)
+            for r in (consensus_bwd_case(lv, gl, dtype, "large b=4")
+                      + consensus_bwd_case(lv, gl, dtype, "large b=4, attend_self=True",
+                                           attend_self=True)
+                      + consensus_bwd_case(lv, gl, dtype, "large b=4, local_consensus_radius=2",
+                                           mask=mask)):
+                rows[r["kernel"]].append(r)
+            del cast, x, lv, g, gl
     for kernel, r in rows.items():
         emit({"phase": "large", "part": "kernels", "kernel": kernel, "rows": r,
               **({"stages": K8_STAGES, "library_note": K8_NOTE}
@@ -5807,7 +5888,7 @@ def large_serving(device) -> dict:
     within SERVE_ATOL, bf16 within BF16_PATH_RTOL relative), the launches
     counted through the replays (the main path: counts set to 0 just before
     the requests, read just after), the b=4 replay bitwise its eager
-    forward."""
+    forward and timed."""
     c = LARGE
     ckpt = os.path.join(ROOT, "build", "chip_smoke_large_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -5860,8 +5941,8 @@ def large_serving(device) -> dict:
                 "launches_per_forward": per_forward, "embed_vs_plain": errs,
                 "embed_vs_plain_kind": "max_abs" if engine.quant == "f32" else "rel",
                 "limit": limit, "b4_replay_bitwise_eager": bitwise,
-                "embed_replay_ms": {k: replays_ms(engine.caches["embed"], k)
-                                    for k in LARGE_BUCKETS},
+                "embed_replay_ms": {LARGE_BUCKETS[-1]: replays_ms(engine.caches["embed"],
+                                                                  LARGE_BUCKETS[-1])},
                 "pool_bytes": engine.graph_pool_bytes(), **served}
             if name != "pallas_bf16":
                 for k, v in got.items():
@@ -5877,36 +5958,81 @@ def large_serving(device) -> dict:
     return launches
 
 
-def large_refusals(device) -> dict:
-    """The training configurations at d=1024 whose gradient needs K2/K3 or
-    K6/K7 raise ValueError when the Trainer is built, naming the kernel, and
-    launch nothing; ff_impl="pallas" with the plain FF VJP and dense
-    attention builds."""
-    reset_launches()
-    refused = {}
-    for kw, kernel in LARGE_REFUSED:
+def large_training(device) -> tuple:
+    """One denoising train step at the large preset, b=4, f32, for each of
+    LARGE_TRAINED's configurations (attention on the kernels, the FF's kernel
+    backward, the fused step): the Trainer's step with every count set to 0
+    just before it and read just after (the main path: exact launches a
+    step), the step's loss and gradients against the plain path's (the same
+    params, image and noise), and two runs of one step from the same state
+    bitwise.  Beside it, for the measured crossover's row: what "auto"
+    picks at the large preset on this card (it must be "pallas", as
+    ``glom_tpu``'s rule picks), and one step on "dense" and on "pallas"
+    attention (the first configuration against the plain path), timed,
+    gating nothing.  Returns ``(report, launches)``, the launches summed
+    over the configurations."""
+    gen = torch.Generator().manual_seed(22)
+    shape = (LARGE_BATCH, LARGE.channels, LARGE.image_size, LARGE.image_size)
+    img = torch.randn(shape, generator=gen).to(device)
+    noise = torch.randn(shape, generator=gen).to(device)
+    tc = TrainConfig(batch_size=LARGE_BATCH, iters=LARGE_ITERS)
+    t = denoise.resolve_loss_timestep(tc, LARGE_ITERS)
+    report, launches, step_ms = {}, {}, {}
+    for name, kw, want_fn in LARGE_TRAINED:
         c = GlomConfig(**{**LARGE_KW, **kw})
-        try:
-            Trainer(c, TrainConfig(batch_size=LARGE_BATCH, iters=LARGE_ITERS), device=device)
-        except ValueError as e:
-            if kernel not in str(e) or f"d={c.dim}" not in str(e):
-                raise AssertionError(f"large refusal {kw}: message names no {kernel}: {e}")
-            refused[json.dumps(kw, sort_keys=True)] = {"kernel": kernel, "message": str(e)}
-        else:
-            raise AssertionError(f"large: a Trainer with {kw} at d=1024 was built")
-    if any(launch_counts().values()):
-        raise AssertionError(f"large refusals launched {launch_counts()}")
-    return refused
+        trainer = Trainer(c, tc, device=device)
+        reset_launches()
+        metrics = trainer.step(img, noise=noise)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = {k: want_fn(t).get(k, 0) for k in got}
+        check_launches(f"large train step {name}", got, want)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        grad = grads_vs_plain(c, tc, trainer.state.params, img, noise)
+        step = denoise.make_step_fn(c, tc, trainer.optimizer)
+        (s1, m1), (s2, m2) = (step(trainer.state, img, noise=noise),
+                              step(trainer.state, img, noise=noise))
+        bitwise = all(torch.equal(a, b) for a, b in zip(glom_model.tree_leaves(s1.params),
+                                                        glom_model.tree_leaves(s2.params)))
+        if not (bitwise and torch.equal(m1["loss"], m2["loss"])):
+            raise AssertionError(f"large train step {name}: two runs of one step differ")
+        del s1, s2, m1, m2
+        step_ms[name] = host_ms(lambda: step(trainer.state, img, noise=noise))[0]
+        if name == "attention_pallas":
+            plain = denoise.make_step_fn(plain_of(c), tc, trainer.optimizer)
+            plain(trainer.state, img, noise=noise)
+            step_ms["dense"] = host_ms(lambda: plain(trainer.state, img, noise=noise))[0]
+            del plain
+        report[name] = {"config": kw, "loss": float(metrics["loss"]), "launches": got,
+                        "grad_vs_plain": grad, "bitwise_repeat": bitwise,
+                        "step_ms": step_ms[name]}
+        del trainer, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    auto = glom_model.resolve_auto_attention(GlomConfig(**{**LARGE_KW, "attention_impl": "auto"}),
+                                             device)
+    if auto != "pallas":
+        raise AssertionError(f"attention_impl='auto' at the large preset picks {auto!r}, where "
+                             f"glom_tpu's rule picks its kernels")
+    report["crossover_check"] = {
+        "n": LARGE.num_patches, "h100_row": glom_model.ATTENTION_CROSSOVER_N["H100"],
+        "auto_picks": auto, "dense_step_ms": step_ms["dense"],
+        "pallas_step_ms": step_ms["attention_pallas"],
+        "note": "one f32 train step (forward and backward, Adam), FF on the plain ops in both, "
+                "after a warm one, on the host's clock; timed, gates nothing"}
+    return {"loss_timestep": t, "batch": LARGE_BATCH, "iters": LARGE_ITERS, **report}, launches
 
 
-def phase_large(device, smi: str) -> dict:
+def phase_large(device, smi: str) -> tuple:
     """The large preset through the port on one card: (i) the kernel rows,
     (ii) serving /embed from CUDA graphs on "pallas" and "fused", (iii)
-    ``python -m glom_tpu_torch.tools.bench --config large`` at its defaults
-    (bf16, remat "dots", b=4, K1 forward, the plain FF VJP, dense consensus),
-    its record with the card's name and power limit, (iv) the backward
-    kernels' refusals at d=1024.  Returns the serving path's launches and
-    the kernel rows."""
+    ``python -m glom_tpu_torch.tools.bench --config large`` through every
+    kernel (K1-K4, K6, K7), its record with the card's name and power
+    limit, (iv) a train step of each configuration whose gradient runs the
+    backward kernels at d=1024.
+    Returns the serving path's launches, the kernel rows and the train
+    steps' launches."""
     seconds = {}
     t0 = time.perf_counter()
     rows = large_kernel_rows(device)
@@ -5915,20 +6041,21 @@ def phase_large(device, smi: str) -> dict:
     launches = large_serving(device)
     seconds["serving"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rec = bench_leg(LARGE_BENCH_FLAGS)
-    if not (rec["status"] == "ok" and rec["mfu"] is not None and 0 < rec["mfu"] <= 1
-            and rec["builds_in_window"] == 0 and "grouped_ff" in rec["launches_per_step"]
-            and rec["ff_impl"] == "pallas" and rec["attention_impl"] == "dense"
-            and rec["dtype"] == "bfloat16" and rec["batch"] == LARGE_BATCH):
-        raise AssertionError(f"large bench leg: {rec}")
-    emit({"phase": "large", "part": "bench", "argv": LARGE_BENCH_FLAGS, "record": rec,
-          "nvidia_smi": smi})
+    kern = bench_leg(LARGE_BENCH_FLAGS)
+    if not (kern["status"] == "ok" and kern["mfu"] is not None and 0 < kern["mfu"] <= 1
+            and kern["builds_in_window"] == 0 and kern["attention_impl"] == "pallas"
+            and kern["batch"] == LARGE_BATCH
+            and all(kern["launches_per_step"].get(k, 0) > 0
+                    for k in ("grouped_ff", "consensus_attention") + BACKWARD)):
+        raise AssertionError(f"large bench leg (b): {kern}")
+    emit({"phase": "large", "part": "bench", "legs": {
+        "b": {"argv": LARGE_BENCH_FLAGS, "record": kern}}, "nvidia_smi": smi})
     seconds["bench"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    refused = large_refusals(device)
-    seconds["refusals"] = time.perf_counter() - t0
-    emit({"phase": "large", "part": "refusals", "refused": refused, "part_seconds": seconds})
-    return launches, rows
+    report, train_launches = large_training(device)
+    seconds["train"] = time.perf_counter() - t0
+    emit({"phase": "large", "part": "train", **report, "part_seconds": seconds})
+    return launches, rows, train_launches
 
 
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
@@ -5965,7 +6092,7 @@ def parse_args(argv):
                         "forensics: the engine's warm-up, slo_burn and deploy_rollback "
                         "bundles and the op-diff; bench: the "
                         "bench's legs, tied to train's rate when train runs first; large: the "
-                        "large preset's kernel rows, serving, bench leg and refusals). "
+                        "large preset's kernel rows, serving, bench leg and train steps). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -6053,7 +6180,8 @@ def main(argv=()) -> int:
     slice_launches = {name: timed_phase(name, phase, device)
                       for name, phase in SLICE_PHASES.items()}
     timed_phase("bench", phase_bench, smi, pallas_step_ms)
-    large_launches, large_rows = timed_phase("large", phase_large, device, smi)
+    large_launches, large_rows, large_train_launches = timed_phase("large", phase_large, device,
+                                                                   smi)
     # each phase's host seconds: the run must end inside its time limit
     emit({"phase_seconds": seconds})
     # launches: the serving path's count for the forward kernels (K8: the
@@ -6063,7 +6191,8 @@ def main(argv=()) -> int:
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
     # _train_obs, _forensics: each of those paths' main run; launches_large:
-    # the large preset's serving run ("pallas" and "fused" in f32)
+    # the large preset's serving run ("pallas" and "fused" in f32);
+    # launches_large_train: its three train steps (one a configuration)
     launches.update({k: train_launches[k] for k in BACKWARD})
     launches["fused_level_update"] = fused_serve_launches["fused_level_update"]
     train_launches["fused_level_update"] = fused_train_launches["fused_level_update"]
@@ -6092,6 +6221,7 @@ def main(argv=()) -> int:
                         **{f"launches_{path}": counts[name]
                            for path, counts in slice_launches.items()},
                         "launches_large": large_launches.get(name, 0),
+                        "launches_large_train": large_train_launches.get(name, 0),
                         "unfused_kernels_ms": row.get("unfused_kernels_ms"),
                         "max_abs_err": row["max_abs_err"],
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
@@ -6125,8 +6255,8 @@ def main(argv=()) -> int:
                 "case", "dtype", "work", "kernel_ms", "k2_ms", "k3_ms", "bound_ms", "bound_by",
                 "bound_3xtf32_ms")}
         if name in large_rows:
-            # the large preset's main row (float32, the first case) and, for
-            # K4, its n=2304 (K5) and d=2048 rows
+            # the large preset's rows in float32 (K4's n=2304 (K5) and d=2048
+            # rows among them)
             summary[-1]["large"] = [{k: r.get(k) for k in (
                 "case", "dtype", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_3xtf32_ms", "library_ms", "yardstick_ms",

@@ -222,8 +222,8 @@ class TrainConfig:
 # the batch on an accelerator, the card here.
 #   flagship: the reference default (glom_pytorch.py:80-86), the benchmark's
 #             config of record
-#   large:    dim=1024, levels=8, 384/16, n=576 (the forward kernels take it;
-#             the backward ones take d up to 512 until ROADMAP queue 3, item 1b)
+#   large:    dim=1024, levels=8, 384/16, n=576 (every kernel takes it, in
+#             both directions)
 #   tiny:     a CPU-runnable smoke config, never a number of record
 BENCH_PRESETS = {
     "flagship": dict(model_kwargs={}, iters=12, tpu_batch=32, cpu_batch=4),

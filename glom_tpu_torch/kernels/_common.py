@@ -13,32 +13,19 @@ from typing import Dict
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# K2's warps own d/8 columns of dX (csrc/grouped_ff_bwd.cu) and K6 holds
-# (32, d) row tiles in shared memory (csrc/consensus_bwd.cu): the backward
-# kernels take d up to this until their redesign (ROADMAP.md queue 3, item 1b)
-BACKWARD_MAX_DIM = 512
-BACKWARD_ROADMAP = "ROADMAP.md queue 3, item 1b"
 
 
-def forward_takes(d: int) -> bool:
-    """Whether the forward kernels (K1, K4, K8) take width ``d``: any
-    positive multiple of 128 (K4 above 512 is csrc/consensus_wide.cuh's
-    design)."""
+def kernels_take(d: int) -> bool:
+    """Whether the kernels (K1-K4, K6-K8) take width ``d``: any positive
+    multiple of 128 (above 512, K4 is csrc/consensus_wide.cuh's design, K6
+    csrc/consensus_bwd_wide.cuh's and K2 grouped_ff_bwd.cu's composition on
+    the tiled product)."""
     return d > 0 and d % 128 == 0
 
 
-def backward_takes(d: int) -> bool:
-    """Whether the backward kernels (K2, K3, K6, K7) take width ``d``: a
-    positive multiple of 128, at most :data:`BACKWARD_MAX_DIM`."""
-    return forward_takes(d) and d <= BACKWARD_MAX_DIM
-
-
-def check_width(kernel: str, d: int, *, backward: bool = False) -> None:
+def check_width(kernel: str, d: int) -> None:
     """Raise ``ValueError`` naming ``kernel`` when it does not take width ``d``."""
-    if backward and not backward_takes(d):
-        raise ValueError(f"{kernel} needs d a multiple of 128 and <= {BACKWARD_MAX_DIM}, got "
-                         f"d={d} (wider backward kernels: {BACKWARD_ROADMAP})")
-    if not forward_takes(d):
+    if not kernels_take(d):
         raise ValueError(f"{kernel} needs d a multiple of 128, got d={d}")
 
 _lock = threading.Lock()

@@ -6,10 +6,12 @@ and ``_forward_blocked`` (K5, K/V streamed, for n > 1024).  On Hopper K/V is
 always streamed, so one kernel covers every n.  The forward takes any d
 that is a multiple of 128: up to 512 ``csrc/consensus_fwd.cuh``'s kernel,
 above it ``csrc/consensus_wide.cuh``'s design (the logits through a float32
-workspace the wrapper allocates, :func:`workspace_floats`).  The backward
-kernels take d up to 512 (``_common.backward_takes``).  K6 and K7 replace
-``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``; K6 hands K7
-the scaled logit gradient dS' it forms, so K7 recomputes nothing.
+workspace the wrapper allocates, :func:`workspace_floats`).  K6 and K7
+replace ``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` at
+the same widths: K6 above 512 is ``csrc/consensus_bwd_wide.cuh``'s design
+(through a float32 workspace the wrapper allocates,
+:func:`bwd_workspace_floats`).  K6 hands K7 the scaled logit gradient dS' it
+forms, so K7 recomputes nothing.
 
 :func:`consensus_attention` is the forward.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(levels, mask, out, lse)``, as
@@ -43,9 +45,9 @@ _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #                attend_self, splits, dtype, stream): csrc/consensus.cu
 _ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _p]
 # glom_consensus_bwd_dkv(levels, sb, sn, sl, go, lse, delta, mask, out, ds,
-#                        b, n, L, dim, attend_self, dtype, stream): csrc/consensus_bwd.cu
-_DKV_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32,
-                 _p]
+#                        ws, b, n, L, dim, attend_self, dtype, stream): csrc/consensus_bwd.cu
+_DKV_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
+                 _i32, _p]
 # glom_consensus_bwd_dq(levels, sb, sn, sl, ds, out, b, n, L, dim, dtype, stream)
 _DQ_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
 
@@ -73,6 +75,18 @@ def _bwd_kernel(symbol: str, argtypes):
     return _build.function("consensus_bwd", symbol, argtypes)
 
 
+def bwd_workspace_floats(b: int, n: int, L: int, d: int, dtype) -> int:
+    """The float32 elements of a K6 call's workspace
+    (``glom_consensus_bwd_workspace``): none up to d=512; above it the wide
+    design's S, dP, their transposed products' operands, key scales,
+    transposed keys, dV and dK (``csrc/consensus_bwd_wide.cuh``)."""
+    floats = _build.function("consensus_bwd", "glom_consensus_bwd_workspace", [_i32] * 5,
+                             ctypes.c_longlong)(b, n, L, d, DTYPE_CODES[dtype])
+    if floats < 0:
+        raise RuntimeError(f"glom_consensus_bwd_workspace{(b, n, L, d)} refused its arguments")
+    return floats
+
+
 def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, dtype) -> int:
     """How many blocks share a query tile's keys on ``device``
     (``glom_consensus_splits``: the count that fills the card's SMs in the
@@ -91,15 +105,15 @@ def _rows_aligned(levels: torch.Tensor) -> bool:
 
 
 def _check(levels: torch.Tensor, mask: Optional[torch.Tensor],
-           kernel: str = "consensus kernel (K4)", backward: bool = False) -> None:
-    """Raise on what ``kernel`` does not take: K4 (the forward) any width that
-    is a multiple of 128, K6 and K7 (``backward``) at most 512 of it."""
+           kernel: str = "consensus kernel (K4)") -> None:
+    """Raise on what ``kernel`` (K4, K6 or K7) does not take; each takes any
+    width that is a multiple of 128."""
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
     if levels.dtype not in DTYPE_CODES:
         raise TypeError(f"consensus kernel takes float32 or bfloat16, got {levels.dtype}")
     b, n, L, d = levels.shape
-    check_width(kernel, d, backward=backward)
+    check_width(kernel, d)
     if levels.stride(3) != 1:
         raise ValueError("levels' last dimension must be contiguous")
     if b * L > 65535:
@@ -152,7 +166,7 @@ def _bwd_inputs(levels, dout, lse, delta, non_local_mask):
     """Check what K6 and K7 read and return ``(levels, dout)``, each copied
     into fresh storage where its rows are off the kernels' 16-byte
     ``cp.async`` boundary (as the forward does)."""
-    _check(levels, non_local_mask, "consensus_dkv kernel (K6)", backward=True)
+    _check(levels, non_local_mask, "consensus_dkv kernel (K6)")
     b, n, L, d = levels.shape
     want = {"dout": ((b, n, L, d), levels.dtype), "lse": ((b, L, n, 1), torch.float32),
             "delta": ((b, L, n, 1), torch.float32)}
@@ -186,16 +200,20 @@ def _check_ds(levels, ds):
 
 
 def _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds):
-    """K6 on checked inputs; stores dS' into ``ds`` unless it is None."""
+    """K6 on checked inputs; stores dS' into ``ds`` unless it is None.  Its
+    workspace (above d=512) lives only inside this call."""
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
+    floats = bwd_workspace_floats(b, n, L, d, levels.dtype)
+    ws = torch.empty((floats,), dtype=torch.float32, device=levels.device) if floats else None
     with torch.cuda.device(levels.device):
         code = _bwd_kernel("glom_consensus_bwd_dkv", _DKV_ARGTYPES)(
             levels.data_ptr(), levels.stride(0), levels.stride(1), levels.stride(2),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if non_local_mask is None else non_local_mask.data_ptr(), out.data_ptr(),
-            None if ds is None else ds.data_ptr(), b, n, L, d, int(bool(attend_self)),
-            DTYPE_CODES[levels.dtype], torch.cuda.current_stream(levels.device).cuda_stream)
+            None if ds is None else ds.data_ptr(), None if ws is None else ws.data_ptr(),
+            b, n, L, d, int(bool(attend_self)), DTYPE_CODES[levels.dtype],
+            torch.cuda.current_stream(levels.device).cuda_stream)
     _build.check("consensus_bwd", code)
     return out
 
@@ -255,7 +273,7 @@ def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=
     if ds is None:
         raise ValueError("consensus_dq reads the dS' K6 stores: pass the ds of "
                          "consensus_dkv(levels, dout, lse, delta, keep_ds=True)")
-    _check(levels, non_local_mask, "consensus_dq kernel (K7)", backward=True)
+    _check(levels, non_local_mask, "consensus_dq kernel (K7)")
     _check_ds(levels, ds)
     if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
         levels = fresh_copy(levels)
@@ -292,9 +310,10 @@ def consensus_backward(levels, non_local_mask, out, lse, g, *, attend_self=False
     cotangent ``g`` of ``out``: ``delta = rowsum(dO * O)`` in float32 (a plain
     reduction, as ``consensus_pallas.py::_backward_flash`` leaves it to XLA),
     then K6, which hands K7 its dS', then K7, added in ``levels``' type.  The
-    dS' lives only inside this call; where it would pass
-    :data:`DS_CHUNK_BYTES` the pair runs over views of ``levels``
-    (:func:`ds_chunks`), and the call still counts one launch of each."""
+    dS' (and above d=512 K6's workspace) lives only inside this call; where
+    the dS' would pass :data:`DS_CHUNK_BYTES` the pair runs over views of
+    ``levels`` (:func:`ds_chunks`), and the call still counts one launch of
+    each."""
     do = g.to(levels.dtype).contiguous()
     delta = (do.float() * out.float()).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
     kw = dict(attend_self=attend_self, non_local_mask=non_local_mask)

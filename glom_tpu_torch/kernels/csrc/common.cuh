@@ -163,6 +163,10 @@ inline long long block_slots(int per_sm) {
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// v rounded up to a multiple of 4: a count of floats that keeps the next
+// part of a workspace on a 16-byte boundary.
+inline long long round4(long long v) { return (v + 3) / 4 * 4; }
+
 }  // namespace glom
 
 extern "C" const char* glom_cuda_error_string(int code) {

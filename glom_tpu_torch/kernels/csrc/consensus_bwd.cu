@@ -69,14 +69,20 @@
 // with the keys past n zero; K7 recomputes neither S nor dP.
 // Deterministic: every sum in a fixed order, no atomics.
 //
+// Past d=512 the key block and ring above do not fit a block's shared
+// memory: K6 is then consensus_bwd_wide.cuh's design (six launches on
+// tile_gemm.cuh's product, through an f32 workspace the caller allocates,
+// glom_consensus_bwd_workspace), and K7 is the same tiled product as below.
+//
 // Layout: levels is read through its strides (last dimension contiguous,
 // every row on a 16-byte boundary); dO, dQ and dKV are (b, n, L, d)
 // contiguous; lse and delta (b, L, n) f32; dS' (b, L, n, npad) f32.  d must
-// be a multiple of 128, at most 512.
+// be a multiple of 128.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "consensus_bwd_wide.cuh"
 #include "consensus_row.cuh"
 #include "tile_gemm.cuh"
 #include "tile_mma.cuh"
@@ -193,14 +199,6 @@ __device__ __forceinline__ void key_norms(const T* keys, float* kscale, float* n
       norm[j] = nrm;
     }
   }
-}
-
-__device__ __forceinline__ void store4(float* o, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
-  glom::store2(o, v[0], v[1]);
-  glom::store2(o + 2, v[2], v[3]);
 }
 
 // (query q, key r) of a step's P (x = the first partial) or dS scale (16
@@ -458,7 +456,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, long long sb, long long sn, l
             const int e = 2 * half + e1;
             out[nt] = ak[mi][qi][nt][e] * inv - vv[nt] * coef + av[mi][qi][nt][e];
           }
-          store4(o + c, out);
+          glom::store4(o + c, out);
         }
     }
 }
@@ -504,11 +502,15 @@ cudaError_t launch_dkv(const T* lv, long long sb, long long sn, long long sl, co
   return cudaGetLastError();
 }
 
+// K6's template instantiations take d up to this; a wider d runs
+// consensus_bwd_wide.cuh's design.
+constexpr int NARROW_MAX_DIM = 512;
+
 template <typename T>
 cudaError_t dispatch_dkv(int dim, const void* lv, long long sb, long long sn, long long sl,
                          const void* go, const float* lse, const float* delta, const int8_t* mask,
-                         void* out, float* ds, int b, int n, int npad, int L, int attend_self,
-                         cudaStream_t s) {
+                         void* out, float* ds, void* ws, int b, int n, int npad, int L,
+                         int attend_self, cudaStream_t s) {
   const T* x = static_cast<const T*>(lv);
   const T* g = static_cast<const T*>(go);
   T* o = static_cast<T*>(out);
@@ -517,7 +519,10 @@ cudaError_t dispatch_dkv(int dim, const void* lv, long long sb, long long sn, lo
     case 256: return launch_dkv<T, 256>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
     case 384: return launch_dkv<T, 384>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
     case 512: return launch_dkv<T, 512>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (dim <= NARROW_MAX_DIM || ws == nullptr) return cudaErrorInvalidValue;
+      return glom::cons::wide_bwd::launch_dkv<T>(lv, sb, sn, sl, go, lse, delta, mask, out, ds, ws,
+                                                 b, n, L, dim, attend_self, s);
   }
 }
 
@@ -540,7 +545,7 @@ bool valid(const void* levels, long long sb, long long sn, long long sl, int b, 
            int dim, int dtype) {
   const long long item = dtype == glom::kF32 ? 4 : 2;
   return (dtype == glom::kF32 || dtype == glom::kBF16) && dim % 128 == 0 && dim >= 128 &&
-         dim <= 512 && b >= 1 && n >= 1 && L >= 1 && (long long)b * L <= 65535 &&
+         b >= 1 && n >= 1 && L >= 1 && (long long)b * L <= 65535 &&
          glom::aligned16(levels) && (sb * item) % 16 == 0 && (sn * item) % 16 == 0 &&
          (sl * item) % 16 == 0;
 }
@@ -549,19 +554,33 @@ int pad_keys(int n) { return (n + KB - 1) / KB * KB; }
 
 }  // namespace
 
+// The f32 workspace glom_consensus_bwd_dkv needs, in floats: none up to
+// d=512; above it consensus_bwd_wide.cuh's S, dP, P^T, (dS scale)^T, key
+// scales, V^T, dV and dK.  -1 on bad arguments.
+extern "C" long long glom_consensus_bwd_workspace(int b, int n, int L, int dim, int dtype) {
+  if (dtype != glom::kF32 && dtype != glom::kBF16) return -1;
+  if (dim % 128 != 0 || dim < 128 || b < 1 || n < 1 || L < 1 || (long long)b * L > 65535)
+    return -1;
+  if (dim <= NARROW_MAX_DIM) return 0;
+  return glom::cons::wide_bwd::workspace(b, n, L, dim, dtype == glom::kF32 ? 4 : 2).total;
+}
+
 // K6.  levels (b, n, L, dim) read through strides sb, sn, sl (elements; the
 // last dimension contiguous, every row on a 16-byte boundary); go = dO (b,
 // n, L, dim) contiguous, levels' dtype; lse and delta (b, L, n) f32; mask
 // (n, n) int8 or bool, contiguous, or null; out = dKV (b, n, L, dim)
 // contiguous, levels' dtype; ds: null, or the dS' K7 reads, f32 (b, L, n,
-// npad) with npad = n rounded up to 32, every element written.  go, out and
-// ds 16-byte aligned.  Returns the launch's cudaError_t.
+// npad) with npad = n rounded up to 32, every element written; ws: the f32
+// workspace of glom_consensus_bwd_workspace's size (null where that is 0).
+// go, out, ds and ws 16-byte aligned.  Returns the launches' cudaError_t.
 extern "C" int glom_consensus_bwd_dkv(const void* levels, long long sb, long long sn, long long sl,
                                       const void* go, const void* lse, const void* delta,
-                                      const void* mask, void* out, void* ds, int b, int n, int L,
-                                      int dim, int attend_self, int dtype, void* stream) {
+                                      const void* mask, void* out, void* ds, void* ws, int b,
+                                      int n, int L, int dim, int attend_self, int dtype,
+                                      void* stream) {
   if (!valid(levels, sb, sn, sl, b, n, L, dim, dtype) || !glom::aligned16(go) ||
-      !glom::aligned16(out) || !glom::aligned16(ds))
+      !glom::aligned16(out) || !glom::aligned16(ds) || !glom::aligned16(ws) ||
+      (dim > NARROW_MAX_DIM && ws == nullptr))
     return cudaErrorInvalidValue;
   const int8_t* m = static_cast<const int8_t*>(mask);
   const float* ls = static_cast<const float*>(lse);
@@ -569,9 +588,9 @@ extern "C" int glom_consensus_bwd_dkv(const void* levels, long long sb, long lon
   float* d = static_cast<float*>(ds);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == glom::kF32)
-    return dispatch_dkv<float>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, b, n, pad_keys(n),
-                               L, attend_self, s);
-  return dispatch_dkv<__nv_bfloat16>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, b, n,
+    return dispatch_dkv<float>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, ws, b, n,
+                               pad_keys(n), L, attend_self, s);
+  return dispatch_dkv<__nv_bfloat16>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, ws, b, n,
                                      pad_keys(n), L, attend_self, s);
 }
 

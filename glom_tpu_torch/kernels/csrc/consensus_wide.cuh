@@ -71,8 +71,6 @@ static_assert(KEYS == tl::BK, "np is a whole number of the products' slabs");
 
 inline int padded_keys(int n) { return (n + KEYS - 1) / KEYS * KEYS; }
 
-inline long long round4(long long v) { return (v + 3) / 4 * 4; }
-
 // The parts of a call's f32 workspace, in floats, each on a 16-byte
 // boundary: the logits and then P (b, L, n, np), the key scales (b, L, np),
 // V^T (b, L, d, np) in the inputs' type (`item` bytes an element), and with
@@ -90,16 +88,6 @@ inline Workspace workspace(int b, int n, int L, int dim, int splits, int item) {
   w.partial = w.vt + round4((pairs * dim * np * item + 3) / 4);
   w.total = w.partial + (splits > 1 ? (long long)splits * pairs * n * dim : 0);
   return w;
-}
-
-// Four values to four consecutive elements of T (8-byte aligned in bf16,
-// 16 in f32).
-__device__ __forceinline__ void store4(float* o, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
-  glom::store2(o, v[0], v[1]);
-  glom::store2(o + 2, v[2], v[3]);
 }
 
 // Grid (np / KEYS, b * L).  Keys [j0, j0 + KEYS) of pair (b, l): their

@@ -105,7 +105,6 @@ struct Workspace {
   long long hid, tdin, cons, lse, scratch, total;
 };
 
-long long round4(long long v) { return (v + 3) / 4 * 4; }
 
 Workspace workspace(int b, int n, int L, int dim, int hidden, int splits, int cons_splits) {
   const long long rows = (long long)b * n;
@@ -114,9 +113,9 @@ Workspace workspace(int b, int n, int L, int dim, int hidden, int splits, int co
   w.tdin = w.hid + (2LL * L - 1) * rows * hidden;
   w.cons = w.tdin + rows * (L - 1) * dim;
   w.lse = w.cons + rows * L * dim;
-  w.scratch = w.lse + round4((long long)b * L * n);
+  w.scratch = w.lse + glom::round4((long long)b * L * n);
   // sized for f32 inputs, whatever the call's type
-  const long long keys = round4(glom::cons::workspace_floats(b, n, L, dim, cons_splits, 4));
+  const long long keys = glom::round4(glom::cons::workspace_floats(b, n, L, dim, cons_splits, 4));
   const long long tiles = splits > 1 ? 2LL * splits * rows * L * dim : 0;
   w.total = w.scratch + (keys > tiles ? keys : tiles);
   return w;

@@ -116,17 +116,43 @@
 //    a fixed order.  Every sum stays in a fixed order, no atomics: two
 //    calls give the same bits.
 //
+// K2 past d=512.  The x and dO tiles above (2 x 32 x (d+4) f32: 263 KB at
+// d=1024, over the 227 KB a block may have) and a warp's (32, d/8) dX
+// accumulator do not fit, so above 512 K2 is a composition on
+// tile_gemm.cuh's tiled product (K1's), through the hidden (K3's where the
+// caller passes it, else in the workspace) and an f32 workspace the caller
+// allocates (glom_grouped_ff_bwd_dx_workspace):
+//  * wt_kernel: W1^T (g, h, d) and W2^T (g, d, h) in the weights' type, a
+//    32 x 32 transpose through shared memory a block, so that both weights
+//    are the B operand as tile_gemm.cuh reads it (row-major along the
+//    depth).  The simple choice over a transposing slab loader: at the
+//    large preset (g=8, d=1024, h=4096, f32) it moves 4 x 134 MB, about 0.16
+//    ms of traffic beside a 2.81 ms 3xTF32 bound;
+//  * pre_kernel: pre = x W1 + b1 (K1a's product, no GELU in its epilogue),
+//    x read through its strides, into the hidden's first buffer;
+//  * grad_kernel: G = dO W2^T, whose epilogue reads pre and writes H =
+//    gelu(pre) over it and dH = G gelu'(pre) (exact-erf GELU) into the
+//    second buffer: every element read and written by the thread that
+//    formed it;
+//  * dx_kernel: dX = dH W1^T, the depth the hidden, written in x's type;
+//    where its tiles leave the card part-empty, the hidden is split over
+//    `splits` blocks (tile_gemm.cuh's rule) and dx_reduce_kernel adds their
+//    partial sums in a fixed order, as the narrow design's splits do.
+// Each product folds its slabs with an f32 add (tile_gemm.cuh), so H and dH
+// drift no more than the narrow design's.
+//
 // Layout: x is read through a row stride and a group stride (elements; the
 // last dimension contiguous), so the bottom-up input, a strided view of the
 // (b, n, L+1, d) state, needs no copy.  dO, w1 (g, d, h), b1 (g, h),
 // w2 (g, h, d), the hidden (g, rows, h) and the outputs are contiguous; K2
 // copies w1 and w2 with cp.async, and K3 x, dO and the hidden, so those
 // start (and x's rows lie) on a 16-byte boundary.  d must be a multiple of
-// 128, at most 512; h a multiple of 32.
+// 128; h a multiple of 32.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "tile_gemm.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -889,6 +915,233 @@ int dw_blocks_per_sm() {
   return n;
 }
 
+// K2 past d=512: the composition on tile_gemm.cuh's product (header).
+namespace wide {
+
+namespace tl = glom::tile;
+
+constexpr int NARROW_MAX_DIM = 512;   // ff_bwd_dx_kernel's instantiations take d up to this
+constexpr int WT = 32;                // wt_kernel's tile side
+constexpr int WT_THREADS = 256;
+constexpr int WT_SMEM = WT * (WT + 1) * sizeof(float);
+
+// The parts of a call's f32 workspace, in floats, each on a 16-byte
+// boundary: W1^T (g, h, d) and W2^T (g, d, h) in the weights' type (`item`
+// bytes an element), with splits > 1 the split partial sums (splits, rows,
+// g, d), and where the caller passes no hidden (has_hidden 0) H and dH
+// (g, rows, h) each.
+struct Workspace {
+  long long w1t, w2t, partial, hid, dh, total;
+};
+
+inline Workspace workspace(int rows, int groups, int dim, int hidden, int splits, int item,
+                           int has_hidden) {
+  const long long weight = glom::round4(((long long)groups * dim * hidden * item + 3) / 4);
+  const long long hidden_floats = has_hidden ? 0 : (long long)groups * rows * hidden;
+  Workspace w;
+  w.w1t = 0;
+  w.w2t = weight;
+  w.partial = 2 * weight;
+  w.hid = w.partial + (splits > 1 ? (long long)splits * rows * groups * dim : 0);
+  w.dh = w.hid + hidden_floats;
+  w.total = w.dh + hidden_floats;
+  return w;
+}
+
+// Grid ((d / 32) (h / 32), groups, 2): z = 0 transposes a 32 x 32 tile of
+// w1[g] (d, h) into w1t[g] (h, d), z = 1 one of w2[g] (h, d) into w2t[g]
+// (d, h).  Thread t loads row t / 8 of the tile, columns 4 (t % 8) + [0, 4),
+// and stores row t / 8 of the transposed tile.
+template <typename T>
+__global__ void __launch_bounds__(WT_THREADS)
+wt_kernel(const T* __restrict__ w1, const T* __restrict__ w2, T* __restrict__ w1t,
+          T* __restrict__ w2t, int dim, int hidden) {
+  using V = typename glom::Vec4<T>::type;
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);   // [WT][WT + 1]
+  const bool second = blockIdx.z == 1;
+  const int rows = second ? hidden : dim, cols = second ? dim : hidden;
+  const long long off = (long long)blockIdx.y * dim * hidden;
+  const T* src = (second ? w2 : w1) + off;
+  T* dst = (second ? w2t : w1t) + off;
+  const int per_row = cols / WT;
+  const int r0 = blockIdx.x / per_row * WT, c0 = blockIdx.x % per_row * WT;
+  const int r = threadIdx.x >> 3, q = threadIdx.x & 7;
+  const float4 v = glom::to_f32x4(
+      *reinterpret_cast<const V*>(src + (long long)(r0 + r) * cols + c0 + 4 * q));
+  float* t = tile + r * (WT + 1) + 4 * q;
+  t[0] = v.x, t[1] = v.y, t[2] = v.z, t[3] = v.w;
+  __syncthreads();   // the tile is written
+  const float* c = tile + 4 * q * (WT + 1) + r;
+  const float out[4] = {c[0], c[WT + 1], c[2 * (WT + 1)], c[3 * (WT + 1)]};
+  glom::store4(dst + (long long)(c0 + r) * rows + r0 + 4 * q, out);
+}
+
+// Grid (row tiles x hidden tiles, groups): pre[g][row0 :, n0 :] = x[row0 :,
+// g] w1[g][:, n0 :] + b1[g][n0 :], f32.
+template <typename T>
+__global__ void __launch_bounds__(tl::THREADS, 2)
+pre_kernel(const T* __restrict__ x, long long row_stride, long long group_stride,
+           const T* __restrict__ w1, const T* __restrict__ b1, float* __restrict__ pre, int rows,
+           int dim, int hidden) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.y, per_row = (hidden + tl::BN - 1) / tl::BN;
+  const int row0 = blockIdx.x / per_row * tl::BM, n0 = blockIdx.x % per_row * tl::BN;
+  const int nw = min(tl::BN, hidden - n0);
+  float acc[2][4][4];
+  tl::tile_product<T, T, kExact, kExact>(acc, x + g * group_stride + row0 * row_stride,
+                                         row_stride, rows - row0,
+                                         w1 + (long long)g * dim * hidden + n0, hidden, nw, dim,
+                                         reinterpret_cast<unsigned char*>(smem4));
+  const int col = tl::col_in_tile();
+  if (col >= nw) return;
+  float bias[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bias[i] = glom::to_f32(b1[(long long)g * hidden + n0 + col + i]);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = row0 + tl::row_in_tile(q);
+    if (row >= rows) continue;
+    float v[8];
+    tl::row_of(acc, q, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] += bias[i];
+    glom::store8(pre + ((long long)g * rows + row) * hidden + n0 + col, v);
+  }
+}
+
+// Grid (row tiles x hidden tiles, groups): G = dO[row0 :, g] w2t[g][:, n0 :];
+// hid holds pre on entry and H = gelu(pre) on return, dh = G gelu'(pre).
+template <typename T>
+__global__ void __launch_bounds__(tl::THREADS, 2)
+grad_kernel(const T* __restrict__ go, const T* __restrict__ w2t, float* __restrict__ hid,
+            float* __restrict__ dh, int rows, int groups, int dim, int hidden) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.y, per_row = (hidden + tl::BN - 1) / tl::BN;
+  const int row0 = blockIdx.x / per_row * tl::BM, n0 = blockIdx.x % per_row * tl::BN;
+  const int nw = min(tl::BN, hidden - n0);
+  const long long sg = (long long)groups * dim;   // dO's row stride
+  float acc[2][4][4];
+  tl::tile_product<T, T, kExact, kExact>(acc, go + (long long)row0 * sg + (long long)g * dim, sg,
+                                         rows - row0, w2t + (long long)g * dim * hidden + n0,
+                                         hidden, nw, dim, reinterpret_cast<unsigned char*>(smem4));
+  const int col = tl::col_in_tile();
+  if (col >= nw) return;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = row0 + tl::row_in_tile(q);
+    if (row >= rows) continue;
+    float v[8], pre[8], h[8], d[8];
+    tl::row_of(acc, q, v);
+    const long long o = ((long long)g * rows + row) * hidden + n0 + col;
+    glom::load8(hid + o, pre);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float dg;
+      gelu_and_grad(pre[i], h[i], dg);
+      d[i] = v[i] * dg;
+    }
+    glom::store8(hid + o, h);
+    glom::store8(dh + o, d);
+  }
+}
+
+// Grid (row tiles x d tiles, groups, splits): split z sums hidden slabs
+// [z * per_split, (z + 1) * per_split).  With partial null the block writes
+// dx[row0 :, g, n0 :] = dh[g][row0 :] w1t[g][:, n0 :] in T; otherwise its
+// partial sum goes to partial[z] (rows, groups, d), f32.
+template <typename T>
+__global__ void __launch_bounds__(tl::THREADS, 2)
+dx_kernel(const float* __restrict__ dh, const T* __restrict__ w1t, T* __restrict__ dx,
+          float* __restrict__ partial, int rows, int groups, int dim, int hidden, int per_split) {
+  constexpr bool kExact = !std::is_same<T, float>::value;
+  extern __shared__ float4 smem4[];
+  const int g = blockIdx.y, per_row = dim / tl::BN;
+  const int row0 = blockIdx.x / per_row * tl::BM, n0 = blockIdx.x % per_row * tl::BN;
+  const int k0 = blockIdx.z * per_split * tl::BK, depth = min(per_split * tl::BK, hidden - k0);
+  float acc[2][4][4];
+  tl::tile_product<float, T, false, kExact>(acc, dh + ((long long)g * rows + row0) * hidden + k0,
+                                            hidden, rows - row0,
+                                            w1t + ((long long)g * hidden + k0) * dim + n0, dim,
+                                            tl::BN, depth, reinterpret_cast<unsigned char*>(smem4));
+  const int col = n0 + tl::col_in_tile();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = row0 + tl::row_in_tile(q);
+    if (row >= rows) continue;
+    float v[8];
+    tl::row_of(acc, q, v);
+    const long long o = ((long long)row * groups + g) * dim + col;
+    if (partial == nullptr) glom::store8(dx + o, v);
+    else glom::store8(partial + (long long)blockIdx.z * rows * groups * dim + o, v);
+  }
+}
+
+// How many dx_kernel blocks for T an SM runs at once.
+template <typename T>
+int blocks_per_sm() {
+  const size_t smem = tl::smem_bytes<float, T>();
+  if (glom::allow_smem(dx_kernel<T>, smem) != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dx_kernel<T>, tl::THREADS, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
+}
+
+// How many blocks should share a dX tile's hidden: tile_gemm.cuh's rule.
+template <typename T>
+int plan(int rows, int groups, int dim, int hidden) {
+  const long long slots = glom::block_slots(blocks_per_sm<T>());
+  if (slots < 1) return -1;
+  const long long tiles = (long long)((rows + tl::BM - 1) / tl::BM) * (dim / tl::BN) * groups;
+  return tl::plan_splits(tiles, slots, hidden / tl::BK, slots);
+}
+
+template <typename T>
+cudaError_t launch(const T* x, long long row_stride, long long group_stride, const T* w1,
+                   const T* b1, const T* w2, const T* go, T* dx, void* ws, float* hid, float* dh,
+                   int rows, int groups, int dim, int hidden, int splits, cudaStream_t stream) {
+  const Workspace w = workspace(rows, groups, dim, hidden, splits, sizeof(T), hid != nullptr);
+  float* f = static_cast<float*>(ws);
+  T* w1t = reinterpret_cast<T*>(f + w.w1t);
+  T* w2t = reinterpret_cast<T*>(f + w.w2t);
+  if (hid == nullptr) hid = f + w.hid, dh = f + w.dh;
+  const size_t smem_tt = tl::smem_bytes<T, T>(), smem_ft = tl::smem_bytes<float, T>();
+  cudaError_t err = glom::allow_smem(pre_kernel<T>, smem_tt);
+  if (err == cudaSuccess) err = glom::allow_smem(grad_kernel<T>, smem_tt);
+  if (err == cudaSuccess) err = glom::allow_smem(dx_kernel<T>, smem_ft);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_t((dim / WT) * (hidden / WT), groups, 2);
+  wt_kernel<T><<<grid_t, WT_THREADS, WT_SMEM, stream>>>(w1, w2, w1t, w2t, dim, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int row_tiles = (rows + tl::BM - 1) / tl::BM;
+  const dim3 grid_h(row_tiles * ((hidden + tl::BN - 1) / tl::BN), groups);
+  pre_kernel<T><<<grid_h, tl::THREADS, smem_tt, stream>>>(x, row_stride, group_stride, w1, b1, hid, rows, dim, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  grad_kernel<T><<<grid_h, tl::THREADS, smem_tt, stream>>>(go, w2t, hid, dh, rows, groups, dim, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int slabs = hidden / tl::BK;
+  const int per_split = (slabs + splits - 1) / splits;
+  splits = (slabs + per_split - 1) / per_split;   // no empty split
+  float* partial = splits > 1 ? f + w.partial : nullptr;
+  const dim3 grid_x(row_tiles * (dim / tl::BN), groups, splits);
+  dx_kernel<T><<<grid_x, tl::THREADS, smem_ft, stream>>>(dh, w1t, dx, partial, rows, groups, dim, hidden, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || partial == nullptr) return err;
+  const long long total = (long long)rows * groups * dim;
+  const long long blocks = (total / 4 + THREADS - 1) / THREADS;
+  dx_reduce_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(partial, dx, total, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
 template <typename T>
 cudaError_t dispatch_dx(int dim, const void* x, long long rs, long long gs, const void* w1,
                         const void* b1, const void* w2, const void* go, void* dx, void* ws,
@@ -899,12 +1152,18 @@ cudaError_t dispatch_dx(int dim, const void* x, long long rs, long long gs, cons
     case 256: return launch_dx<T, 256>(x, rs, gs, w1, b1, w2, go, dx, ws, hid, dh, rows, groups, hidden, splits, s);
     case 384: return launch_dx<T, 384>(x, rs, gs, w1, b1, w2, go, dx, ws, hid, dh, rows, groups, hidden, splits, s);
     case 512: return launch_dx<T, 512>(x, rs, gs, w1, b1, w2, go, dx, ws, hid, dh, rows, groups, hidden, splits, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (dim <= wide::NARROW_MAX_DIM || ws == nullptr) return cudaErrorInvalidValue;
+      return wide::launch<T>(static_cast<const T*>(x), rs, gs, static_cast<const T*>(w1),
+                             static_cast<const T*>(b1), static_cast<const T*>(w2),
+                             static_cast<const T*>(go), static_cast<T*>(dx), ws,
+                             static_cast<float*>(hid), static_cast<float*>(dh), rows, groups, dim,
+                             hidden, splits, s);
   }
 }
 
 bool valid(int rows, int groups, int dim, int hidden) {
-  return dim % 128 == 0 && dim >= 128 && dim <= 512 && hidden % H_ALIGN == 0 && hidden >= H_ALIGN &&
+  return dim % 128 == 0 && dim >= 128 && hidden % H_ALIGN == 0 && hidden >= H_ALIGN &&
          rows >= 1 && groups >= 1 && groups <= 65535;
 }
 
@@ -913,11 +1172,13 @@ bool valid(int rows, int groups, int dim, int hidden) {
 // How many blocks should share a row tile's hidden dimension in K2: the
 // count that runs the call's (row tile, split) blocks on the current
 // device's SMs in the fewest chunk-times (waves x chunks a block), the
-// fewest splits on a tie.  With more than one, the caller passes an f32
-// workspace of splits * rows * groups * dim.  -1 on bad arguments or a CUDA
-// error.
+// fewest splits on a tie; above d=512 tile_gemm.cuh's rule over the dX
+// product's tiles.  -1 on bad arguments or a CUDA error.
 extern "C" int glom_grouped_ff_bwd_dx_splits(int rows, int groups, int dim, int hidden, int dtype) {
   if (!valid(rows, groups, dim, hidden)) return -1;
+  if (dim > wide::NARROW_MAX_DIM)
+    return dtype == glom::kF32 ? wide::plan<float>(rows, groups, dim, hidden)
+           : dtype == glom::kBF16 ? wide::plan<__nv_bfloat16>(rows, groups, dim, hidden) : -1;
   const long long slots = glom::block_slots(dtype == glom::kF32 ? dx_occupancy<float>(dim)
                                       : dtype == glom::kBF16 ? dx_occupancy<__nv_bfloat16>(dim)
                                                              : -1);
@@ -926,21 +1187,45 @@ extern "C" int glom_grouped_ff_bwd_dx_splits(int rows, int groups, int dim, int 
   return glom::fewest_waves((long long)((rows + BM2 - 1) / BM2) * groups, slots, chunks, chunks);
 }
 
+// The f32 workspace glom_grouped_ff_bwd_dx needs, in floats: up to d=512
+// none with one split and splits * rows * groups * dim with several; above
+// it W1^T and W2^T in the weights' type, the split sums, and with has_hidden
+// 0 (the call will pass no hid, dh) H and dH.  -1 on bad arguments.
+extern "C" long long glom_grouped_ff_bwd_dx_workspace(int rows, int groups, int dim, int hidden,
+                                                      int splits, int dtype, int has_hidden) {
+  if (!valid(rows, groups, dim, hidden) || splits < 1 ||
+      (dtype != glom::kF32 && dtype != glom::kBF16))
+    return -1;
+  if (dim > wide::NARROW_MAX_DIM)
+    return wide::workspace(rows, groups, dim, hidden, splits, dtype == glom::kF32 ? 4 : 2,
+                           has_hidden).total;
+  return splits > 1 ? (long long)splits * rows * groups * dim : 0;
+}
+
 // K2.  x: (rows, groups, dim) read through row_stride / group_stride
 // (elements); w1 (groups, dim, hidden), b1 (groups, hidden), w2 (groups,
 // hidden, dim), go = dO and dx (rows, groups, dim): contiguous, all of one
-// dtype; w1 and w2 16-byte aligned.  ws: with splits > 1, an f32 workspace
-// of splits * rows * groups * dim, 16-byte aligned; unused with one split.
-// hid, dh: both null, or K3's hidden, f32 (groups, rows, hidden) each,
-// which the kernel fills with H and dH.  Returns the launches' cudaError_t.
+// dtype; w1 and w2 16-byte aligned.  ws: the f32 workspace of
+// glom_grouped_ff_bwd_dx_workspace's size (null where that is 0; its
+// has_hidden says whether hid and dh are passed), 16-byte aligned.  hid, dh:
+// both null, or K3's hidden, f32 (groups, rows, hidden) each, which the
+// kernels fill with H and dH.  Above d=512 x's rows and dO also on a 16-byte
+// boundary.  Returns the
+// launches' cudaError_t.
 extern "C" int glom_grouped_ff_bwd_dx(const void* x, long long row_stride, long long group_stride,
                                       const void* w1, const void* b1, const void* w2,
                                       const void* go, void* dx, void* ws, void* hid, void* dh,
                                       int rows, int groups, int dim, int hidden, int splits,
                                       int dtype, void* stream) {
+  const long long item = dtype == glom::kF32 ? 4 : 2;
   if (!valid(rows, groups, dim, hidden) || splits < 1 || (splits > 1 && ws == nullptr) ||
       !glom::aligned16(w1) || !glom::aligned16(w2) || !glom::aligned16(ws) ||
       (hid == nullptr) != (dh == nullptr))
+    return cudaErrorInvalidValue;
+  if (dim > wide::NARROW_MAX_DIM &&
+      (ws == nullptr || !glom::aligned16(x) || !glom::aligned16(go) ||
+       !glom::aligned16(dx) || !glom::aligned16(hid) || !glom::aligned16(dh) ||
+       (row_stride * item) % 16 != 0 || (group_stride * item) % 16 != 0))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == glom::kF32)

@@ -54,6 +54,16 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
   return to_f32x4(*reinterpret_cast<const uint2*>(p));
 }
 
+// Four values to four consecutive elements (8-byte aligned in bf16, 16 in
+// f32).
+__device__ __forceinline__ void store4(float* o, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const float (&v)[4]) {
+  store2(o, v[0], v[1]);
+  store2(o + 2, v[2], v[3]);
+}
+
 // Eight values to eight consecutive elements (16-byte aligned).
 __device__ __forceinline__ void store8(float* o, const float (&v)[8]) {
   *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);

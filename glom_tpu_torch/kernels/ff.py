@@ -11,7 +11,11 @@ saved for autograd.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(x, params)`` only and, with
 ``fused_bwd=True``, differentiates through K2 and K3: K2 recomputes the
 hidden per tile and hands it to K3 (``keep_hidden``), which reduces it over
-the rows; the hidden is freed when the backward returns.  With
+the rows; the hidden is freed when the backward returns.  Every kernel takes
+any d that is a multiple of 128: K2 above 512 is a composition on the tiled
+product (``csrc/grouped_ff_bwd.cu``'s header), through a float32 workspace
+the wrapper allocates (:func:`dx_workspace_floats`), which also holds the
+hidden where K3 does not ask for it.  With
 ``fused_bwd=False`` the backward is the plain VJP of
 :func:`~glom_tpu_torch.ops.feedforward.grouped_ff_apply`, as
 ``ff_pallas.py::_bwd`` chooses.
@@ -90,10 +94,24 @@ def planned_dw_splits(device: torch.device, rows: int, g: int, d: int, h: int, d
                            torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
 
 
-def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)",
-           backward: bool = False):
-    """Raise on what ``kernel`` does not take: K1 (the forward) any width
-    that is a multiple of 128, K2 and K3 (``backward``) at most 512 of it."""
+def dx_workspace_floats(rows: int, g: int, d: int, h: int, splits: int, dtype,
+                        keep_hidden: bool) -> int:
+    """The float32 elements of a K2 call's workspace
+    (``glom_grouped_ff_bwd_dx_workspace``): up to d=512 the split sums (none
+    with one split); above it also W1^T and W2^T in the weights' type and,
+    without ``keep_hidden``, the hidden."""
+    floats = _build.function("grouped_ff_bwd", "glom_grouped_ff_bwd_dx_workspace", [_i32] * 7,
+                             ctypes.c_longlong)(rows, g, d, h, splits, DTYPE_CODES[dtype],
+                                                int(keep_hidden))
+    if floats < 0:
+        raise RuntimeError(f"glom_grouped_ff_bwd_dx_workspace{(rows, g, d, h, splits)} refused "
+                           "its arguments")
+    return floats
+
+
+def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)"):
+    """Raise on what ``kernel`` (K1, K2 or K3) does not take; each takes any
+    width that is a multiple of 128."""
     if x.dim() != 4:
         raise ValueError(f"x must be (b, n, g, d), got shape {tuple(x.shape)}")
     if x.dtype not in DTYPE_CODES:
@@ -114,7 +132,7 @@ def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)"
             raise ValueError(f"{name} must be contiguous")
         if name in ("w1", "w2") and p.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it with cp.async)")
-    check_width(kernel, d, backward=backward)
+    check_width(kernel, d)
     if h % HIDDEN_CHUNK != 0:
         raise ValueError(f"grouped_ff kernel needs h a multiple of {HIDDEN_CHUNK}, got {h}")
     if x.stride(3) != 1:
@@ -158,13 +176,13 @@ def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tens
     return out
 
 
-def _kernel_input(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)",
-                  backward: bool = False) -> torch.Tensor:
+def _kernel_input(params: dict, x: torch.Tensor,
+                  kernel: str = "grouped_ff kernel (K1)") -> torch.Tensor:
     """``x`` as ``kernel`` reads it: checked, and copied into fresh storage
     when its rows are off a 16-byte boundary (K1 and K3 copy them in
     16-byte pieces, K2 reads them as 4-element vectors; ``glom_tpu``'s
     kernels take any layout)."""
-    _check(params, x, kernel, backward)
+    _check(params, x, kernel)
     if vector_aligned(x, _row_stride(x), x.stride(2), nbytes=16):
         return x
     return fresh_copy(x)
@@ -205,7 +223,7 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
     if not on_device("grouped_ff_dx", x):
         dx = plain.grouped_ff_dx(params, x, g)
         return (dx, plain.grouped_ff_hidden(params, x, g)) if keep_hidden else dx
-    x = _kernel_input(params, x, "grouped_ff_dx kernel (K2)", backward=True)
+    x = _kernel_input(params, x, "grouped_ff_dx kernel (K2)")
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
@@ -215,8 +233,8 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
     if b * n == 0:
         return (dx, hidden) if keep_hidden else dx
     splits = _splits(splits, planned_dx_splits, x, h)
-    ws = (torch.empty((splits, b * n * gr * d), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    floats = dx_workspace_floats(b * n, gr, d, h, splits, x.dtype, keep_hidden)
+    ws = torch.empty((floats,), dtype=torch.float32, device=x.device) if floats else None
     fn, _ = _bwd_kernels()
     with torch.cuda.device(x.device):
         code = fn(
@@ -251,7 +269,7 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     hid, dh = hidden
     if not on_device("grouped_ff_dw", x):
         return plain.grouped_ff_dw_from_hidden(x, g, hid, dh, params["w1"].dtype)
-    x = _kernel_input(params, x, "grouped_ff_dw kernel (K3)", backward=True)
+    x = _kernel_input(params, x, "grouped_ff_dw kernel (K3)")
     go = _cotangent(x, g)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]

@@ -50,8 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, forward_takes,
-                                            fresh_copy, on_device, vector_aligned)
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy,
+                                            kernels_take, on_device, vector_aligned)
 from glom_tpu_torch.kernels.consensus import consensus_attention
 from glom_tpu_torch.kernels.consensus import planned_splits as planned_key_splits
 from glom_tpu_torch.kernels.ff import HIDDEN_CHUNK, grouped_ff
@@ -97,12 +97,9 @@ def _workspace_floats(b: int, n: int, L: int, d: int, h: int, splits: int,
 
 
 def kernel_supports(dim: int, hidden: int) -> bool:
-    """The widths K8 takes: the forward kernels' (``_common.forward_takes``)
-    and h a multiple of the hidden chunk.  Its gradient runs the backward
-    kernels, which take fewer (``_common.backward_takes``); a train step
-    refuses those configurations before it launches anything
-    (``models/glom.py::check_trainable_widths``)."""
-    return forward_takes(dim) and hidden % HIDDEN_CHUNK == 0 and hidden > 0
+    """The widths K8 takes: the kernels' (``_common.kernels_take``, which
+    its gradient's K1-K7 take too) and h a multiple of the hidden chunk."""
+    return kernels_take(dim) and hidden % HIDDEN_CHUNK == 0 and hidden > 0
 
 
 def supports_config(config, device=None) -> bool:

@@ -105,10 +105,7 @@ def make_train_step(config: GlomConfig, optimizer: Optimizer, *, iters: Optional
     ``torch.no_grad()``, its gradients are zeros (``glom_tpu``'s
     ``stop_gradient``), the optimizer sees them as optax does, and the glom
     leaves come back as the same tensors: decoupled weight decay cannot move
-    them.  Unfrozen, it refuses a gradient through the backward kernels at a
-    width they do not take (``models/glom.py::check_trainable_widths``)."""
-    if not freeze_backbone:
-        glom_model.check_trainable_widths(config)
+    them."""
     loss_fn = make_loss_fn(config, iters=iters, level=level)
 
     def step(params, opt_state, imgs, labels):

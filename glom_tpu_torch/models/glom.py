@@ -19,8 +19,8 @@ fused level-update kernels (``kernels/fused_update.py``, K8); otherwise it
 falls back to the grouped-FF kernel with the attention chosen by the
 ``"auto"`` policy.  ``attention_impl="auto"`` picks the consensus kernels on
 a CUDA device of the kernels' compute capability above the measured
-crossover (:data:`ATTENTION_CROSSOVER_N`) at a width both directions of the
-kernels take, and the plain ops otherwise.  :func:`apply` runs under autograd: the
+crossover (:data:`ATTENTION_CROSSOVER_N`) at any width the kernels take (a
+multiple of 128), and the plain ops otherwise.  :func:`apply` runs under autograd: the
 kernels' gradients are their backward kernels (``ff_fused_bwd`` picks K2 +
 K3 or the plain VJP for the FF, as in the JAX package; consensus always
 takes K6 + K7; K8 differentiates the unfused composition of those).
@@ -48,7 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from glom_tpu_torch.config import GlomConfig
 from glom_tpu_torch.kernels import fused_update
-from glom_tpu_torch.kernels._common import BACKWARD_MAX_DIM, BACKWARD_ROADMAP, backward_takes
+from glom_tpu_torch.kernels._common import kernels_take
 from glom_tpu_torch.kernels.consensus import consensus_attention as consensus_kernel
 from glom_tpu_torch.kernels.ff import grouped_ff
 from glom_tpu_torch.ops.consensus import consensus_attention
@@ -198,17 +198,12 @@ def gpu_generation(device=None) -> str:
 def resolve_auto_attention(config: GlomConfig, device=None) -> str:
     """What ``attention_impl="auto"`` means on ``device``: ``"pallas"`` on a
     CUDA device the kernels are built for when ``num_patches`` exceeds the
-    generation's measured crossover and the kernels of both directions take
-    the width, ``"dense"`` otherwise (every CPU run and every card of another
-    compute capability included).  An unmeasured generation of the kernels'
-    compute capability warns and borrows the H100's row.
-
-    Both directions, because ``"pallas"`` attention always differentiates
-    through K6 and K7 (``kernels/consensus.py``), which take d up to 512
-    until ROADMAP.md queue 3, item 1b: so above 512 (the large preset's
-    1024) ``"auto"`` is ``"dense"``, for serving too, where ``glom_tpu``'s
-    picks its Pallas kernels at n=576 on a TPU.  ``attention_impl="pallas"``
-    serves through K4 at any multiple of 128."""
+    generation's measured crossover and the kernels take the width (any
+    multiple of 128, in both directions), ``"dense"`` otherwise (every CPU
+    run and every card of another compute capability included), as
+    ``glom_tpu``'s rule picks its Pallas kernels above the crossover at any
+    width.  An unmeasured generation of the kernels' compute capability warns
+    and borrows the H100's row."""
     dev = torch.device("cpu" if device is None else device)
     if dev.type != "cuda" or torch.cuda.get_device_capability(dev) != KERNELS_CAPABILITY:
         return "dense"
@@ -221,35 +216,7 @@ def resolve_auto_attention(config: GlomConfig, device=None) -> str:
             f"n>{_CROSSOVER_FALLBACK_N} from the H100. Run python -m "
             f"glom_tpu_torch.tools.crossover on this card and add the row to "
             f"glom_tpu_torch.models.glom.ATTENTION_CROSSOVER_N", stacklevel=3)
-    return "pallas" if config.num_patches > crossover and backward_takes(config.dim) else "dense"
-
-
-def check_trainable_widths(config: GlomConfig) -> None:
-    """Refuse, before anything launches, a training configuration whose
-    gradient runs a backward kernel at a width it does not take yet (d above
-    :data:`~glom_tpu_torch.kernels._common.BACKWARD_MAX_DIM`): attention on
-    the kernels (K6 and K7), the grouped FF's kernel backward
-    (``ff_fused_bwd``: K2 and K3), and the fused level update, whose
-    gradient differentiates the unfused composition through K6 and K7.  It
-    never switches such a configuration to the plain VJP.  ``ff_impl=
-    "pallas"`` with ``ff_fused_bwd=False`` (K1 forward, the plain FF VJP,
-    ``glom_tpu``'s own choice) and dense or ``"auto"`` attention train at any
-    width the forward kernels take."""
-    d = config.dim
-    if d <= BACKWARD_MAX_DIM:
-        return
-    needs = []
-    if config.attention_impl == "pallas":
-        needs.append("attention_impl='pallas' (its gradient: K6 and K7)")
-    if config.ff_impl == "fused":
-        needs.append("ff_impl='fused' (K8's gradient runs the consensus backward: K6 and K7)")
-    if config.ff_fused_bwd and config.ff_impl in ("pallas", "fused"):
-        needs.append("ff_fused_bwd=True (its gradient: K2 and K3)")
-    if needs:
-        raise ValueError(
-            f"d={d}: {'; '.join(needs)} needs the backward kernels, which take d up to "
-            f"{BACKWARD_MAX_DIM} ({BACKWARD_ROADMAP}); train with ff_impl='pallas', "
-            f"ff_fused_bwd=False and attention_impl='dense' or 'auto'")
+    return "pallas" if config.num_patches > crossover and kernels_take(config.dim) else "dense"
 
 
 def make_consensus_fn(config: GlomConfig, device=None):

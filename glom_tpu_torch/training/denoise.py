@@ -86,12 +86,9 @@ CONSISTENCY_KINDS = ("none", "mse", "infonce")
 
 def check_trainable(config: GlomConfig, train: TrainConfig) -> None:
     """Refuse what the port's train step does not implement yet (the
-    unported ``attention_impl`` values ``ring`` and ``ulysses``, and a
-    gradient through the backward kernels at a width they do not take:
-    ``models/glom.py::check_trainable_widths``) and an unknown consistency
-    kind."""
+    unported ``attention_impl`` values ``ring`` and ``ulysses``) and an
+    unknown consistency kind."""
     glom_model.make_consensus_fn(config)
-    glom_model.check_trainable_widths(config)
     if train.consistency not in CONSISTENCY_KINDS:
         raise ValueError(f"unknown consistency kind {train.consistency!r}; one of "
                          f"{CONSISTENCY_KINDS}")

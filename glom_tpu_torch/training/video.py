@@ -22,7 +22,6 @@ from typing import Optional, Tuple
 import torch
 
 from glom_tpu_torch.config import GlomConfig, TrainConfig
-from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.heads import decoder_apply
 from glom_tpu_torch.models.video import rollout
 from glom_tpu_torch.training.denoise import DenoiseState, loss_and_grads
@@ -66,10 +65,7 @@ def make_video_train_step(config: GlomConfig, train: TrainConfig, optimizer: Opt
                           consensus_fn=None):
     """``step(state, frames, *, noise=None) -> (state, metrics)`` over clips;
     ``metrics``: ``loss`` and the pre-clip ``grad_norm``, device scalars.
-    Without ``noise`` the step draws it from ``state.generator``.  Refuses a
-    gradient through the backward kernels at a width they do not take
-    (``models/glom.py::check_trainable_widths``)."""
-    glom_model.check_trainable_widths(config)
+    Without ``noise`` the step draws it from ``state.generator``."""
     loss_fn = make_video_loss_fn(config, train, consensus_fn=consensus_fn)
 
     def step_fn(state: DenoiseState, frames: torch.Tensor, *,

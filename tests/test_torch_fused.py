@@ -665,7 +665,7 @@ def test_counters_do_not_move_on_the_cpu():
     assert after == before
 
 
-# -- widths past 512: the forward kernels take them, the backward ones not yet --
+# -- widths past 512: every kernel takes them, in both directions ---------------
 
 WIDE = dict(dim=640, levels=3, image_size=16, patch_size=4)
 
@@ -686,49 +686,87 @@ def test_forward_at_d640_matches_glom_tpu(ff_impl):
     np.testing.assert_allclose(got, np.asarray(want), atol=FWD_ATOL)
 
 
-def test_auto_attention_at_d640_stays_dense_until_the_backward_kernels_take_it(monkeypatch):
-    """'auto' picks the kernels only where both directions take the width:
-    above the crossover at d=512 the kernels, at d=640 and 1024 the plain
-    ops (K6 and K7 take d up to 512), while the forward wrappers and K8 take
-    those widths."""
+@pytest.mark.parametrize("dim", [640, 1024])
+def test_auto_attention_past_512_picks_the_kernels_as_glom_tpu(monkeypatch, dim):
+    """'auto' at d=640 and 1024 follows glom_tpu's rule, which has no width
+    term: the kernels above the generation's crossover (n=576 on a mocked
+    H100 here, on a mocked v5e in glom_tpu), the plain ops below it (n=9)."""
+    from glom_tpu.kernels import consensus_pallas
+    from glom_tpu.parallel import mesh
+
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
     monkeypatch.setattr(torch.cuda, "get_device_capability", lambda device=None: (9, 0))
-    above = dict(levels=3, image_size=8 * 24, patch_size=8, attention_impl="auto")   # n=576
-    assert glom_model.resolve_auto_attention(GlomConfig(dim=512, **above), "cuda") == "pallas"
-    for dim in (640, 1024):
-        c = GlomConfig(dim=dim, **above)
-        assert glom_model.resolve_auto_attention(c, "cuda") == "dense"
-        assert fused_update.supports_config(dataclasses.replace(c, ff_impl="fused"), "cuda")
+    monkeypatch.setattr(mesh, "default_backend_is_tpu", lambda: True)
+    monkeypatch.setattr(mesh, "tpu_generation", lambda d=None: "v5e")
+    for side, want in ((24, "pallas"), (3, "dense")):   # n=576, n=9
+        kw = dict(dim=dim, levels=3, image_size=8 * side, patch_size=8, attention_impl="auto")
+        assert glom_model.resolve_auto_attention(GlomConfig(**kw), "cuda") == want
+        ref = jax_glom.make_consensus_fn(jax_config.GlomConfig(**kw))
+        assert (ref.func is consensus_pallas.consensus_attention_pallas) == (want == "pallas")
 
 
-@pytest.mark.parametrize("kw,kernel", [
-    ({"attention_impl": "pallas"}, "K6"),
-    ({"ff_impl": "pallas", "ff_fused_bwd": True}, "K2"),
-    ({"ff_impl": "fused"}, "K6"),
-    ({"ff_impl": "fused", "ff_fused_bwd": True}, "K2"),
+@pytest.mark.parametrize("kw", [
+    {"attention_impl": "pallas"},                    # its gradient: K6 and K7
+    {"ff_impl": "pallas", "ff_fused_bwd": True},     # K2 and K3
+    {"ff_impl": "fused"},                            # K8's: K1-K4 and K6, K7
+    {"ff_impl": "fused", "ff_fused_bwd": True},      # and K2, K3
 ])
-def test_train_step_at_d640_refuses_the_backward_kernels_before_it_runs(kw, kernel):
-    """A train step or Trainer at d=640 whose gradient runs K2/K3 or K6/K7
-    raises ValueError when it is built, naming the kernel, the width and the
-    ROADMAP item; it never switches to the plain VJP."""
-    c = GlomConfig(**WIDE, **kw)
-    tc = TrainConfig(batch_size=2, steps=1)
-    pattern = rf"d=640.*{kernel}.*queue 3, item 1b"
-    with pytest.raises(ValueError, match=pattern):
-        denoise.make_step_fn(c, tc, optim.Optimizer.from_config(tc))
+def test_train_step_at_d640_matches_glom_tpu(kw):
+    """A train step at d=640 whose gradient runs the backward kernels (their
+    plain versions on the CPU): the denoising loss and every gradient against
+    jax.grad of glom_tpu's loss through its Pallas kernels (interpret mode)
+    on the same weights, batch and noise, within LOSS_RTOL and GRAD_RTOL per
+    leaf; the step and the Trainer build and take a finite step."""
+    port_cfg, ref_cfg = GlomConfig(**WIDE, **kw), jax_config.GlomConfig(**WIDE, **kw)
+    train_cfg = TrainConfig(batch_size=2, steps=1, iters=2)
+    tree = demo_params(port_cfg, train_cfg, seed=3)
+    img = _img(seed=6)
+    key = jax.random.PRNGKey(5)
+    jax_loss = jax_denoise.make_loss_fn(ref_cfg, jax_config.TrainConfig(batch_size=2, iters=2))
+    (want_loss, _), want = jax.value_and_grad(jax_loss, has_aux=True)(
+        _jnp(tree), jnp.asarray(img), key)
+    noise = torch.from_numpy(np.array(jax.random.normal(key, img.shape, jnp.float32)))
+    params = convert.params_from_numpy(tree, port_cfg, "cpu")
+    loss, grads = denoise.loss_and_grads(denoise.make_loss_fn(port_cfg, train_cfg), params,
+                                         torch.from_numpy(img), noise=noise)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_RTOL)
+    _assert_tree_rel(glom_model.tree_map(lambda t: t.numpy(), grads), want, GRAD_RTOL)
     from glom_tpu_torch.training.trainer import Trainer
 
-    with pytest.raises(ValueError, match=pattern):
-        Trainer(c, tc, device="cpu")
+    metrics = Trainer(port_cfg, train_cfg, device="cpu").step(img, noise=noise)
+    assert np.isfinite(metrics["loss"].item())
+
+
+def test_classifier_and_video_steps_at_d640_take_a_step_on_the_kernels():
+    """The unfrozen classifier step and the video step at d=640 with
+    attention_impl="pallas" and the FF kernels' backward build and take one
+    step on the CPU, with the plain path's loss (the wrappers' plain
+    versions are the plain ops there)."""
     from glom_tpu_torch.models import classifier
     from glom_tpu_torch.training import video
 
-    with pytest.raises(ValueError, match=pattern):
-        video.make_video_train_step(c, tc, optim.Optimizer.from_config(tc))
-    with pytest.raises(ValueError, match=pattern):
-        classifier.make_train_step(c, optim.Optimizer.from_config(tc))
-    # a frozen backbone runs no backward through it
-    classifier.make_train_step(c, optim.Optimizer.from_config(tc), freeze_backbone=True)
+    small = dict(dim=640, levels=2, image_size=8, patch_size=4)
+    kernels = dict(attention_impl="pallas", ff_impl="pallas", ff_fused_bwd=True)
+    tc = TrainConfig(batch_size=2, steps=1, iters=2, noise_std=0.3)
+    rng = np.random.default_rng(8)
+    imgs = torch.from_numpy(rng.standard_normal((2, 3, 8, 8)).astype(np.float32))
+    labels = torch.tensor([0, 1])
+    clip = torch.from_numpy(rng.standard_normal((2, 2, 3, 8, 8)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((2, 2, 3, 8, 8)).astype(np.float32))
+    losses = {"classify": [], "video": []}
+    for kw in (kernels, {}):
+        c = GlomConfig(**small, **kw)
+        optimizer = optim.Optimizer.from_config(tc)
+        params = classifier.init(torch.Generator().manual_seed(0), c, 3)
+        _, _, m = classifier.make_train_step(c, optimizer, iters=2)(
+            params, optimizer.init(params), imgs, labels)
+        losses["classify"].append(m["loss"].item())
+        p = convert.params_from_numpy(demo_params(c, tc, seed=1), c, "cpu")
+        state = denoise.DenoiseState(p, optimizer.init(p), 0, torch.Generator())
+        _, m = video.make_video_train_step(c, tc, optimizer)(state, clip, noise=noise)
+        losses["video"].append(m["loss"].item())
+    for name, (got, plain) in losses.items():
+        assert np.isfinite(got) and got == plain, (name, got, plain)
 
 
 @pytest.mark.parametrize("attention_impl", ["dense", "auto"])

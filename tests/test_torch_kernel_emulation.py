@@ -704,7 +704,7 @@ def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep
     strides = levels.stride()[:3]
     assert dkv_fn(levels.data_ptr(), *strides, g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   None if mask is None else mask.data_ptr(), dkv.data_ptr(),
-                  ds.data_ptr() if keep_ds else None, b, n, L, d, int(attend_self), code,
+                  ds.data_ptr() if keep_ds else None, None, b, n, L, d, int(attend_self), code,
                   None) == 0
     if not keep_ds:
         return dkv
@@ -761,13 +761,14 @@ def test_emulated_k6_refuses_what_the_kernel_does_not_take(k67):
 
     def k6(lv=levels.data_ptr(), sn=levels.stride(1), d=128, dtype=0):
         return dkv_fn(lv, levels.stride(0), sn, levels.stride(2), g.data_ptr(), lse.data_ptr(),
-                      delta.data_ptr(), None, out.data_ptr(), ds.data_ptr(), 1, 8, 2, d, 0,
-                      dtype, None)
+                      delta.data_ptr(), None, out.data_ptr(), ds.data_ptr(), None, 1, 8, 2, d,
+                      0, dtype, None)
 
     def k7(lv=levels.data_ptr(), ds_ptr=ds.data_ptr(), d=128):
         return dq_fn(lv, *levels.stride()[:3], ds_ptr, out.data_ptr(), 1, 8, 2, d, 0, None)
 
     assert k6() == 0 and k7() == 0
+    # d=640 is the wide design's, which needs its workspace (the wide file's tests)
     assert k6(d=96) != 0 and k6(d=640) != 0 and k6(dtype=2) != 0 and k7(d=96) != 0
     assert k6(lv=levels.data_ptr() + 4) != 0 and k7(lv=levels.data_ptr() + 4) != 0
     assert k6(sn=levels.stride(1) + 1) != 0               # rows off a 16-byte boundary

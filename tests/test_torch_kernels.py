@@ -377,14 +377,18 @@ def test_ff_check_refuses(case):
     elif case == "shape":
         p["b1"], err = p["b1"][:, :-1], ValueError
     elif case == "dim":
-        # K1 takes every multiple of 128; K2 and K3 at most 512, by name
+        # K1, K2 and K3 take every multiple of 128 and refuse any other
+        # width by name
+        kernels = ("grouped_ff kernel (K1)", "grouped_ff_dx kernel (K2)",
+                   "grouped_ff_dw kernel (K3)")
         for d in (640, 1024):
             wide_p, wide_x = _good_ff(d=d, h=64)
-            ff_kernel._check(wide_p, wide_x)
-            for kernel in ("grouped_ff_dx kernel (K2)", "grouped_ff_dw kernel (K3)"):
-                with pytest.raises(ValueError, match=r"\(K[23]\).*d=%d.*queue 3, item 1b" % d):
-                    ff_kernel._check(wide_p, wide_x, kernel, backward=True)
+            for kernel in kernels:
+                ff_kernel._check(wide_p, wide_x, kernel)
         p, x = _good_ff(d=96, h=256)
+        for kernel in kernels[1:]:
+            with pytest.raises(ValueError, match=r"\(K[23]\).*multiple of 128.*d=96"):
+                ff_kernel._check(p, x, kernel)
         err = ValueError
     elif case == "hidden":
         p, x = _good_ff(h=96)
@@ -408,17 +412,17 @@ def test_consensus_check_refuses(case):
     if case == "dtype":
         levels, err = levels.double(), TypeError
     elif case == "dim":
-        # the forward takes every multiple of 128 (above 512 the wide design);
-        # the backward kernels K6 and K7 at most 512, each refusing by name
-        for d in (640, 1024, 2048):
-            consensus_kernel._check(torch.zeros((2, 8, 3, d)), None)
-            with pytest.raises(ValueError, match=r"\(K6\).*d=%d.*queue 3, item 1b" % d):
-                consensus_kernel._check(torch.zeros((2, 8, 3, d)), None,
-                                        "consensus_dkv kernel (K6)", backward=True)
-        consensus_kernel._check(torch.zeros((2, 8, 3, 512)), None, "K6", backward=True)
+        # K4, K6 and K7 take every multiple of 128 (above 512 the wide
+        # designs) and refuse any other width by name
+        kernels = ("consensus kernel (K4)", "consensus_dkv kernel (K6)",
+                   "consensus_dq kernel (K7)")
+        for d in (512, 640, 1024, 2048):
+            for kernel in kernels:
+                consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, kernel)
         for d in (96, 600):
-            with pytest.raises(ValueError, match="multiple of 128"):
-                consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, "K6", backward=True)
+            for kernel in kernels[1:]:
+                with pytest.raises(ValueError, match=r"\(K[67]\).*multiple of 128"):
+                    consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, kernel)
         levels = torch.zeros((2, 8, 3, 96))
     elif case == "mask_shape":
         mask = torch.zeros((8, 7), dtype=torch.bool)
@@ -1148,31 +1152,45 @@ def test_gpu_wide_fused_update_matches_reference(cuda, dtype, d, attend_self, ra
 
 
 @pytest.mark.gpu
-def test_gpu_backward_kernels_refuse_d640_before_they_launch(cuda):
-    """K2, K3, K6 and K7 at d=640 raise ValueError naming the kernel, and
-    launch nothing; the forward kernels take the same inputs."""
-    rng = np.random.default_rng(13)
-    d = 640
-    p = _torch(_ff_params(rng, 2, d, 256), cuda)
-    x = torch.from_numpy(rng.standard_normal((1, 16, 2, d)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [640, 1024])
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+def test_gpu_wide_backward_kernels_match_plain(cuda, dtype, d, attend_self, radius):
+    """Above d=512: K2 (the composition through the hidden) and K3 on it, on
+    the strided bottom-up view, g=3, 70 rows, h=4d; K6 (the wide design) and
+    K7 on its dS', n=36 at b=2, L=3; each against its plain version, two
+    calls bitwise, one launch of each a call."""
+    rng = np.random.default_rng(d + int(attend_self) + int(radius))
+    p = _torch(_ff_params(rng, 3, d, 4 * d), cuda, dtype)
+    lwi = torch.from_numpy(rng.standard_normal((2, 35, 4, d)).astype(np.float32)).to(cuda, dtype)
+    x = lwi[..., :-1, :]
+    g = torch.from_numpy(rng.standard_normal((2, 35, 3, d)).astype(np.float32)).to(cuda, dtype)
     counts = lambda: (ff_kernel.grouped_ff_dx.launches, ff_kernel.grouped_ff_dw.launches,
                       consensus_kernel.consensus_dkv.launches, consensus_kernel.consensus_dq.launches)
     before = counts()
-    with pytest.raises(ValueError, match=r"\(K2\).*d=640"):
-        ff_kernel.grouped_ff_dx(p, x, x)
-    hidden = tuple(torch.zeros((2, 16, 256), device=cuda) for _ in range(2))
-    with pytest.raises(ValueError, match=r"\(K3\).*d=640"):
-        ff_kernel.grouped_ff_dw(p, x, x, hidden)
-    out, lse = consensus_kernel.consensus_attention(x)
-    delta = torch.zeros_like(lse)
-    with pytest.raises(ValueError, match=r"\(K6\).*d=640"):
-        consensus_kernel.consensus_dkv(x, x, lse, delta)
-    ds = torch.zeros(consensus_kernel.ds_shape(x), device=cuda)
-    with pytest.raises(ValueError, match=r"\(K7\).*d=640"):
-        consensus_kernel.consensus_dq(x, x, lse, delta, ds=ds)
-    assert counts() == before
-    ff_kernel.grouped_ff(p, x)
-    torch.cuda.synchronize()
+    dx, hidden = ff_kernel.grouped_ff_dx(p, x, g, keep_hidden=True)
+    _assert_close(dx, plain_ff.grouped_ff_dx(_f32(p), x.float(), g.float()), dtype)
+    assert torch.equal(dx, ff_kernel.grouped_ff_dx(p, x, g))
+    dw = ff_kernel.grouped_ff_dw(p, x, g, hidden)
+    for got_w, want_w in zip(dw, plain_ff.grouped_ff_dw(_f32(p), x.float(), g.float())):
+        _assert_close(got_w, want_w, dtype)
+    levels = torch.from_numpy(rng.standard_normal((2, 36, 3, d)).astype(np.float32)).to(cuda, dtype)
+    gl = torch.from_numpy(rng.standard_normal((2, 36, 3, d)).astype(np.float32)).to(cuda, dtype)
+    mask = torch.from_numpy(local_consensus_mask(6, radius)).to(cuda) if radius else None
+    kw = dict(attend_self=attend_self, non_local_mask=mask)
+    with torch.no_grad():
+        out, lse = plain_consensus.consensus_attention(levels, **kw)
+    delta = (gl.float() * out.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1).contiguous()
+    key_term, _ = plain_consensus.consensus_dkv_terms(levels.float(), gl.float(), lse, delta, **kw)
+    dkv, ds = consensus_kernel.consensus_dkv(levels, gl, lse, delta, keep_ds=True, **kw)
+    dq = consensus_kernel.consensus_dq(levels, gl, lse, delta, ds=ds, **kw)
+    _assert_close(dkv, plain_consensus.consensus_dkv(levels.float(), gl.float(), lse, delta, **kw),
+                  dtype, key_term)
+    _assert_close(dq, plain_consensus.consensus_dq(levels.float(), gl.float(), lse, delta, **kw),
+                  dtype)
+    assert not ds[..., 36:].any()
+    assert torch.equal(dkv, consensus_kernel.consensus_dkv(levels, gl, lse, delta, **kw))
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 2, before[3] + 1)
 
 
 def _reference(fused_update, args, mask, attend_self):
