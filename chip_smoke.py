@@ -21,7 +21,11 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            (off its 32-row tile); consensus also with attend_self, the
            locality mask, b=1 and n=2304 (b=1, with SDPA's time on those
            inputs; the backward without b=1); and the fused level update
-           (K8's rows as the k8 phase gives them);
+           (K8's rows as the k8 phase gives them); then every kernel at
+           glom_tpu's tiny preset (b=8, d=64, h=256) and K1 and K4 at the
+           16-wide demo, which the wrappers run zero-padded to d=128, with
+           each call's device time from torch.profiler beside SDPA's and the
+           bound at the true width;
   k1       (only with --only) K1's rows of the kernels phase alone: the
            bottom-up (g=6, strided view), top-down (g=5) and fuse_ff (g=11)
            calls at b=8, and b=1 and 49 rows (strided views), in float32
@@ -90,9 +94,9 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            paths; a traced window;
   serve_load  the flagship "pallas" engine under the port's load generator
            (glom_tpu_torch/tools/loadgen.py, a process of its own): a closed
-           loop (/embed, batch sizes 1-8, concurrency 8, 5 s) for the
+           loop (/embed, batch sizes 1-8, concurrency 8, 3 s) for the
            sustained rate, then an open loop at half its request rate for
-           10 s with step 1 of the checkpoint landing 3 s in and
+           8 s with step 1 of the checkpoint landing 3 s in and
            hot-reloaded (its graphs captured off the request path); both
            loadgen reports (p95/p99 null: tens of requests), the mean of
            each request span, the memory of the two sets; no failed
@@ -295,6 +299,21 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            deploy_rollback bundle; the op-diff of a bf16 engine's graphs
            naming the quant change at both buckets; the answers again,
            bitwise;
+  widths   widths off the kernels' multiples (the wrappers run the kernels
+           on zero-padded copies, the consensus scaled by the true width):
+           one f32 train step at glom_tpu's tiny preset (b=8, d=64, 3
+           levels, 64/8, h=256) on "pallas" with ff_fused_bwd and on
+           "fused", launches exact, loss and gradients against the plain
+           path, two runs bitwise; /embed on the 16-wide demo checkpoint
+           (glom_tpu's DEMO_CONFIG) from graphs at buckets 1 and 8 on
+           "pallas" and "fused", launches exact, answers within 1e-3 of the
+           plain path; "auto" at the tiny preset picking "pallas"; the
+           kernels' digests at flagship (tools/kernel_digest.py);
+  chaos    the port's chaos suite (glom_tpu_torch/tools/chaos.py) on the
+           card, smoke variants: the five train and reload scenarios and
+           replica_kill (all eleven under --only chaos), each scenario's
+           outcome, MTTR and wall seconds on a line of its own, every one
+           recovered;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
            flagship with 12 iterations, over legs (a)-(e) in six runs,
            each record on its own line with the card's name and power
@@ -378,7 +397,7 @@ from glom_tpu_torch.ops.consensus import consensus_attention as plain_consensus
 from glom_tpu_torch.ops.consensus import l2_normalize
 from glom_tpu_torch.ops.feedforward import grouped_ff_apply as plain_ff
 from glom_tpu_torch.profiling import memory_analysis, trace_files
-from glom_tpu_torch.serving.engine import ServingEngine, make_demo_checkpoint
+from glom_tpu_torch.serving.engine import DEMO_CONFIG, ServingEngine, make_demo_checkpoint
 from glom_tpu_torch.serving.server import make_server
 from glom_tpu_torch.training import denoise
 from glom_tpu_torch.training.metrics import MetricLogger
@@ -620,6 +639,14 @@ def k1_rows(cast, x, dtype):
             for label, p, xx in k1_inputs(cast, x)]
 
 
+def sdpa_call(levels, dtype):
+    """SDPA on the attend_self=True variant of ``levels`` (the consensus
+    kernels' library call), as a function."""
+    q = levels.transpose(1, 2)
+    k = l2_normalize(levels.float()).to(dtype).transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(q, k, q)
+
+
 def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, library=None):
     """K4 against its plain version computed in float32.  ``library``
     (default: attend_self=True without a mask, the one variant
@@ -645,9 +672,7 @@ def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, librar
     if library is None:
         library = attend_self and mask is None
     if library:
-        q = levels.transpose(1, 2)
-        k = l2_normalize(levels.float()).to(dtype).transpose(1, 2)
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, q))
+        row["library_ms"] = time_ms(sdpa_call(levels, dtype))
         row["library"] = "torch.nn.functional.scaled_dot_product_attention"
         row["library_case"] = "attend_self=True"
     return row
@@ -801,10 +826,17 @@ def pair_case(params, x, g, dtype, label, k2_ms, k3_ms):
         params, x, g, ff_kernel.grouped_ff_dx(params, x, g, keep_hidden=True)[1])
     flops = 10.0 * rows * gr * d * h
     nbytes = item * (3 * rows * gr * d + 2 * gr * (2 * d * h + h))
+    # the library call: the plain float32 FF VJP (autograd through the
+    # einsums on cuBLAS; the fused_bwd=False backward), one call, on the
+    # same inputs cast to float32 outside the timing
+    p32, x32, g32 = f32(params), x.float(), g.float()
     return {"kernel": "grouped_ff_dx+grouped_ff_dw", "case": label,
             "dtype": str(dtype).replace("torch.", ""), "shape": list(x.shape),
             "kernel_ms": time_ms(call), "k2_ms": k2_ms, "k3_ms": k3_ms,
             "work": "10 units, what dX and dW need (the TPU kernels do 14)",
+            "library_ms": time_ms(lambda: ff_kernel.plain_vjp(p32, x32, g32)),
+            "library": "ff.plain_vjp in float32: autograd through grouped_ff_apply's einsums "
+                       "(cuBLAS), one call, on the same inputs",
             **bounds(flops, nbytes, dtype)}
 
 
@@ -1176,7 +1208,8 @@ def phase_kernels(device) -> dict:
         main[name] = rows[0]
         library[name] = next((r.get("library_ms") for r in rows
                               if r.get("library_ms") is not None), None)
-    return main, library
+    # the same kernels at widths off their multiples (the wrappers pad)
+    return main, library, narrow_kernel_rows(device)
 
 
 BACKWARD = ("grouped_ff_dx", "grouped_ff_dw", "consensus_dkv", "consensus_dq")
@@ -1523,8 +1556,8 @@ def phase_serve_fused(device) -> dict:
 # loadgen's MIN_TAIL_SAMPLES); PERF.md section 4 defines the longer leg.
 LOAD_BATCH_SIZES = tuple(range(1, 9))
 LOAD_CONCURRENCY = 8
-LOAD_CLOSED_S = 5.0
-LOAD_OPEN_S = 10.0
+LOAD_CLOSED_S = 3.0
+LOAD_OPEN_S = 8.0
 LOAD_RELOAD_AT_S = 3.0
 # a second reload may leave allocated memory this far from the first's
 RELOAD_MEMORY_MARGIN = 16 * 2 ** 20
@@ -1568,8 +1601,8 @@ def settled_memory(device) -> dict:
 def phase_serve_load(device) -> dict:
     """The flagship "pallas" engine behind the HTTP server under
     ``glom_tpu_torch/tools/loadgen.py``, run as a process of its own: a
-    closed loop (/embed, batch sizes 1-8, concurrency 8, 5 s) for the
-    sustained rate, then an open loop at 50 % of its request rate for 10 s,
+    closed loop (/embed, batch sizes 1-8, concurrency 8, 3 s) for the
+    sustained rate, then an open loop at 50 % of its request rate for 8 s,
     during which step 1 of the checkpoint lands and the watcher reloads it.
     No request may fail, /healthz must reach step 1, the answers after the
     swap must equal the eager forward of step 1's weights bit for bit, and
@@ -3939,8 +3972,8 @@ def shadow_agreement(engine, ckpt: str, c, x8) -> dict:
 
 
 CAPACITY_LADDER = 2
-CAPACITY_CLOSED_S = 5.0
-CAPACITY_CEILING_S = 3.0
+CAPACITY_CLOSED_S = 3.0
+CAPACITY_CEILING_S = 2.0
 # a utilization against this run's own closed-loop rate: above 0, and at most
 # the rate itself with a margin for the windows' edges
 UTIL_MAX = 1.05
@@ -4504,13 +4537,13 @@ def phase_attribution(device) -> dict:
 
 
 # -- the fleet ------------------------------------------------------------------
-FLEET_HOP_REQUESTS = 100
+FLEET_HOP_REQUESTS = 60
 # clients of the fail-over and rollout loops: in this process, each parse of
 # a 3 MB body holds the interpreter lock, and four clients starved the
 # rollout's captures (110 s, a 6.6 s exclusive hold on the H100; two: 27.6-
 # 42.6 s; PERF.md)
 FLEET_CLIENTS = 1
-FLEET_LOOP_S = 6.0
+FLEET_LOOP_S = 4.0
 FLEET_AFFINITY_KEYS = 3
 FLEET_AFFINITY_FRAMES = 8
 FLEET_QUERIES = 8
@@ -5653,6 +5686,9 @@ K1_KERNELS = ("ff_hidden_kernel", "ff_out_kernel")
 # (e)'s rate against the train phase's 1000 * BATCH / step_ms
 BENCH_TIE_RTOL = 0.10
 BENCH_LEG_TIMEOUT_S = 300
+# the timed steps of each leg (bench's default on a card is 20): fewer, to
+# keep the whole script inside its time limit
+BENCH_LEG_STEPS = ["--steps", "10"]
 
 
 def bench_leg(flags) -> dict:
@@ -5704,7 +5740,7 @@ def phase_bench(smi: str, pallas_step_ms=None) -> dict:
     try:
         for leg, what, flags, kernels in BENCH_LEGS:
             logdir = os.path.join(tmp, leg)
-            argv = [f for f in flags if f != "trace"]
+            argv = [f for f in flags if f != "trace"] + BENCH_LEG_STEPS
             if "trace" in flags:
                 argv += ["--profile-dir", logdir]
             rec = bench_leg(argv)
@@ -6058,10 +6094,274 @@ def phase_large(device, smi: str) -> tuple:
     return launches, rows, train_launches
 
 
+# -- widths off the kernels' multiples: the tiny preset and the demo ------------
+# glom_tpu's tiny preset (bench.py --config tiny: d=64, 3 levels, 64/8, n=64,
+# h=256), which the kernels run zero-padded to d=128, and the 16-wide demo
+# model (make_demo_checkpoint's DEMO_CONFIG: 3 levels, 16/8, n=4, h=64)
+TINY_KW, TINY_ITERS, TINY_BATCH, _ = bench_preset("tiny")
+TINY = GlomConfig(**TINY_KW)
+# the tiny train steps whose gradients run the kernels at d=64, with their
+# launches a step at loss timestep t (as LARGE_TRAINED)
+TINY_TRAINED = (
+    ("pallas_ff_fused_bwd", dict(ff_impl="pallas", ff_fused_bwd=True, attention_impl="pallas"),
+     lambda t: want_launches(t, t)),
+    ("fused", dict(ff_impl="fused"),
+     lambda t: {**want_launches(t, t), "fused_level_update": t, "grouped_ff_dx": 0,
+                "grouped_ff_dw": 0}),
+)
+DEMO_BUCKETS = (1, 8)
+
+
+def device_time(fn, calls: int = 20) -> dict:
+    """``fn``'s device work a call from a torch.profiler trace of ``calls``
+    calls: every device operation's time (kernels, the pad copies and fills
+    included) and their count.  A call of a few microseconds of device work
+    is bound by the host's issue rate, which CUDA events around back-to-back
+    calls measure instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in ops)
+    return {"device_ms": us / 1e3 / calls, "device_ops": sum(e.count for e in ops) / calls}
+
+
+def narrow_inputs(device, c: GlomConfig, b: int, seed: int):
+    """Seeded weights of ``c`` and ``(b, n, L+1, d)`` state, FF and level
+    cotangents on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    n, L, d = c.num_patches, c.levels, c.dim
+    params = glom_model.init(gen, c, device)
+    lwi = torch.randn((b, n, L + 1, d), generator=gen).to(device)
+    g_ff = torch.randn((b, n, L, d), generator=gen).to(device)
+    g_lv = torch.randn((b, n, L, d), generator=gen).to(device)
+    return params, lwi, g_ff, g_lv
+
+
+def with_device_time(row: dict, call, library=None) -> dict:
+    """``row`` with its call's device time (device_time), and its library
+    call's where it has one."""
+    row.update({f"kernel_{k}": v for k, v in device_time(call).items()})
+    if library is not None:
+        row.update({f"library_{k}": v for k, v in device_time(library).items()})
+    return row
+
+
+def narrow_kernel_rows(device) -> dict:
+    """Every kernel at the tiny preset (b=8, d=64, h=256; the wrappers pad
+    d to 128) and K1 and K4 at the demo's d=16 (b=8, h=64), in float32 and
+    bfloat16, each against its plain version at the usual limits, with its
+    CUDA-event time, its plain version's, its bound at the true width, its
+    library call where one exists (SDPA for K4 and K6 + K7, the plain f32
+    FF VJP for K2 + K3) and, from torch.profiler, the device time of a call
+    (the pad copies and the slice included) beside SDPA's."""
+    rows = {name: [] for name in ("grouped_ff", "consensus_attention", "fused_level_update")
+            + BACKWARD + PAIRS}
+    tiny = narrow_inputs(device, TINY, TINY_BATCH, 23)
+    demo = narrow_inputs(device, DEMO_CONFIG, TINY_BATCH, 24)
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, (params, lwi, g_ff, g_lv), everything in (("tiny", tiny, True),
+                                                            ("demo d=16", demo, False)):
+            cast = glom_model.tree_map(lambda p: p.to(dtype), params)
+            x = lwi.to(dtype)
+            pos = cast["pos_emb"][None, :, None, :]
+            bu, td = cast["bottom_up"], cast["top_down"]
+            xb, xt = x[..., :-1, :], (x[..., 2:, :] + pos).contiguous()
+            lv = x[..., 1:, :]
+            g = len(bu["b2"])
+            rows["grouped_ff"].append(with_device_time(
+                k1_case(bu, xb, dtype, f"{tag} b=8 bottom_up (strided view, g={g})"),
+                lambda: ff_kernel.grouped_ff(bu, xb)))
+            for attend_self in (False, True):
+                label = f"{tag} b=8" + (", attend_self=True" if attend_self else "")
+                rows["consensus_attention"].append(with_device_time(
+                    consensus_case(lv, dtype, label, attend_self=attend_self, library=attend_self),
+                    lambda: consensus_kernel.consensus_attention(lv, attend_self=attend_self),
+                    sdpa_call(lv, dtype) if attend_self else None))
+            if not everything:
+                continue
+            rows["grouped_ff"].append(with_device_time(
+                k1_case(td, xt, dtype, f"{tag} b=8 top_down (g={g - 1})"),
+                lambda: ff_kernel.grouped_ff(td, xt)))
+            with torch.inference_mode():
+                rows["fused_level_update"].append(with_device_time(
+                    fused_case(cast, lv, x[..., :1, :], dtype, f"{tag} b=8"),
+                    lambda: fused_kernel.fused_level_update(bu, td, lv, x[..., :1, :], pos)))
+            gf = g_ff.to(dtype)
+            for label, p, xx, gg in ((f"{tag} b=8 bottom_up (strided view, g={g})", bu, xb, gf),
+                                     (f"{tag} b=8 top_down (g={g - 1})", td, xt,
+                                      gf[..., 1:, :].contiguous())):
+                k2, hidden = k2_case(p, xx, gg, dtype, label)
+                k3 = k3_case(p, xx, gg, hidden, dtype, label, k2["kernel_ms"])
+                del hidden
+                pair = pair_case(p, xx, gg, dtype, label, k2["kernel_ms"], k3["kernel_ms"])
+                p32, x32, g32 = f32(p), xx.float(), gg.float()
+                with_device_time(pair, lambda: ff_kernel.grouped_ff_backward(p, xx, gg),
+                                 lambda: ff_kernel.plain_vjp(p32, x32, g32))
+                for r in (k2, k3, pair):
+                    rows[r["kernel"]].append(r)
+            gl = g_lv.to(dtype)
+            for attend_self in (False, True):
+                label = f"{tag} b=8" + (", attend_self=True" if attend_self else "")
+                bwd = consensus_bwd_case(lv, gl, dtype, label, attend_self=attend_self)
+                pair = next(r for r in bwd if r["kernel"] == "consensus_dkv+consensus_dq")
+                with torch.no_grad():
+                    out, lse = consensus_kernel.consensus_attention(lv, attend_self=attend_self)
+                with_device_time(pair, lambda: consensus_kernel.consensus_backward(
+                    lv, None, out, lse, gl, attend_self=attend_self))
+                for r in bwd:
+                    rows[r["kernel"]].append(r)
+    for kernel, r in rows.items():
+        emit({"phase": "kernels", "part": "narrow", "kernel": kernel, "rows": r,
+              **({"stages": K8_STAGES, "library_note": K8_NOTE}
+                 if kernel == "fused_level_update" else {})})
+    return rows
+
+
+def phase_widths(device) -> dict:
+    """The main paths at widths off the kernels' multiples, through the
+    wrappers' zero padding: (i) one f32 train step at the tiny preset (b=8,
+    d=64) of a Trainer on "pallas" with ff_fused_bwd and on "fused" (the
+    main path: counts set to 0 just before, read just after), launches
+    exact, loss and gradients within GRAD_RTOL of the plain path, two runs
+    of one step bitwise; (ii) /embed on the 16-wide demo checkpoint from
+    the engine's graphs at buckets 1 and 8 over HTTP on "pallas" and on
+    "fused" (launches exact, each answer within SERVE_ATOL of the plain
+    path); (iii) "auto" at the tiny preset picks the kernels; (iv) the
+    kernels' digests at flagship shapes (tools/kernel_digest.py), for a
+    comparison with another checkout on the same card.  Returns the
+    launches of (i) and (ii)."""
+    from glom_tpu_torch.tools import kernel_digest
+
+    launches, report = {}, {}
+    gen = torch.Generator().manual_seed(25)
+    shape = (TINY_BATCH, TINY.channels, TINY.image_size, TINY.image_size)
+    img = torch.randn(shape, generator=gen).to(device)
+    noise = torch.randn(shape, generator=gen).to(device)
+    tc = TrainConfig(batch_size=TINY_BATCH, iters=TINY_ITERS)
+    t = denoise.resolve_loss_timestep(tc, TINY_ITERS)
+    for name, kw, want_fn in TINY_TRAINED:
+        c = GlomConfig(**{**TINY_KW, **kw})
+        trainer = Trainer(c, tc, device=device)
+        reset_launches()
+        metrics = trainer.step(img, noise=noise)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check_launches(f"tiny train step {name}", got, {k: want_fn(t).get(k, 0) for k in got})
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        grad = grads_vs_plain(c, tc, trainer.state.params, img, noise)
+        step = denoise.make_step_fn(c, tc, trainer.optimizer)
+        (s1, m1), (s2, m2) = (step(trainer.state, img, noise=noise),
+                              step(trainer.state, img, noise=noise))
+        bitwise = all(torch.equal(a, b) for a, b in zip(glom_model.tree_leaves(s1.params),
+                                                        glom_model.tree_leaves(s2.params)))
+        if not (bitwise and torch.equal(m1["loss"], m2["loss"])):
+            raise AssertionError(f"tiny train step {name}: two runs of one step differ")
+        report[name] = {"config": kw, "loss": float(metrics["loss"]), "launches": got,
+                        "grad_vs_plain": grad, "bitwise_repeat": bitwise,
+                        "step_ms": host_ms(lambda: step(trainer.state, img, noise=noise))[0]}
+        del trainer, step, s1, s2
+    emit({"phase": "widths", "part": "train", "config": TINY_KW, "batch": TINY_BATCH,
+          "iters": TINY_ITERS, "loss_timestep": t, **report})
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_demo16_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    make_demo_checkpoint(ckpt, seed=0)
+    rng = np.random.default_rng(26)
+    legs = {}
+    try:
+        for name, kw in (("pallas", dict(ff_impl="pallas", attention_impl="pallas")),
+                         ("fused", dict(ff_impl="fused", attention_impl="pallas"))):
+            engine = ServingEngine(ckpt, device=device, buckets=DEMO_BUCKETS, quality_sample=0.0,
+                                   **kw)
+            c, it = engine.config, engine.embed_iters
+            if c.dim != 16:
+                raise AssertionError(f"the demo checkpoint is {c.dim} wide, not glom_tpu's 16")
+            imgs = {k: rng.standard_normal((k, c.channels, c.image_size, c.image_size)).astype(
+                np.float32) for k in DEMO_BUCKETS}
+            plan = tuple(("embed", k) for k in DEMO_BUCKETS)
+            per_forward = ({"grouped_ff": 2 * it, "consensus_attention": it} if name == "pallas"
+                           else {"fused_level_update": it})
+            reset_launches()
+            health, requests, outs, served = serve_requests(engine, plan, imgs)
+            got = check_launches(f"demo /embed {name}", launch_counts(),
+                                 {k: per_forward.get(k, 0) * len(plan)
+                                  for k in kernel_wrappers()})
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            with torch.inference_mode():
+                errs = {k: float((torch.from_numpy(outs[("embed", k)]) - plain_embed_fn(engine)(
+                    engine.params, torch.from_numpy(imgs[k]).to(device)).cpu()).abs().max())
+                        for k in DEMO_BUCKETS}
+            if not max(errs.values()) <= SERVE_ATOL:
+                raise AssertionError(f"demo /embed {name}: {errs} from the plain path "
+                                     f"(limit {SERVE_ATOL})")
+            legs[name] = {"health": {k: health.get(k) for k in ("ff_impl", "attention_impl",
+                                                                 "dim")},
+                          "requests": requests, "launches": got, "embed_vs_plain": errs,
+                          "limit": SERVE_ATOL, **served}
+            free_engines(engine)
+            del engine
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "widths", "part": "demo", "config": {
+        "dim": c.dim, "levels": c.levels, "image_size": c.image_size, "patch_size": c.patch_size,
+        "iters": it, "buckets": list(DEMO_BUCKETS)}, "legs": legs})
+    auto = glom_model.resolve_auto_attention(GlomConfig(**{**TINY_KW, "attention_impl": "auto"}),
+                                             device)
+    if auto != "pallas":
+        raise AssertionError(f"attention_impl='auto' at the tiny preset picks {auto!r}, where "
+                             f"glom_tpu's rule picks its kernels")
+    emit({"phase": "widths", "part": "auto", "n": TINY.num_patches, "dim": TINY.dim,
+          "h100_row": glom_model.ATTENTION_CROSSOVER_N["H100"], "auto_picks": auto})
+    emit({"phase": "widths", "part": "kernel_digest", "shapes": "flagship (d=512)",
+          "digests": kernel_digest.digests(device)})
+    return launches
+
+
+# the chaos scenarios the full script runs (their smoke variants): the five
+# train and reload scenarios and replica_kill; --only chaos runs all eleven
+CHAOS_FULL_RUN = ("torn_ckpt_write", "corrupt_restore", "nan_batch", "reload_io_error",
+                  "train_crash", "replica_kill")
+
+
+def phase_chaos(device, everything: bool = False) -> dict:
+    """The port's chaos suite (glom_tpu_torch/tools/chaos.py) on the card,
+    smoke variants, in this process: CHAOS_FULL_RUN, or with ``everything``
+    all eleven scenarios; each scenario's outcome, MTTR and wall seconds on
+    a line of its own; every one must recover.  The loops run the plain
+    ops, as glom_tpu's defaults do: no kernel launches."""
+    from glom_tpu_torch.tools import chaos
+
+    names = chaos.PORTED if everything else CHAOS_FULL_RUN
+    reset_launches()
+    t0 = time.perf_counter()
+    results = chaos.run(names, soak=False, device=str(device), quiet=True)
+    seconds = time.perf_counter() - t0
+    got = launch_counts()
+    for rec in results:
+        emit({"phase": "chaos", **{k: v for k, v in rec.items() if k != "traceback"}})
+    failed = [r for r in results if r["outcome"] != "recovered"]
+    emit({"phase": "chaos", "mode": "smoke", "recovered": len(results) - len(failed),
+          "total": len(results), "seconds": seconds})
+    if failed:
+        raise AssertionError(f"chaos: {[r['scenario'] for r in failed]} did not recover:\n"
+                             + "\n".join(r.get("traceback", r.get("error", "")) for r in failed))
+    return got
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
-          "bulk", "attribution", "fleet", "train_obs", "forensics", "bench", "large")
+          "bulk", "attribution", "fleet", "train_obs", "forensics", "widths", "chaos", "bench",
+          "large")
 
 
 def parse_args(argv):
@@ -6092,7 +6392,10 @@ def parse_args(argv):
                         "forensics: the engine's warm-up, slo_burn and deploy_rollback "
                         "bundles and the op-diff; bench: the "
                         "bench's legs, tied to train's rate when train runs first; large: the "
-                        "large preset's kernel rows, serving, bench leg and train steps). "
+                        "large preset's kernel rows, serving, bench leg and train steps; "
+                        "widths: the tiny preset's train steps and the 16-wide demo's /embed "
+                        "through the padded kernels, 'auto' and the kernel digests; chaos: all "
+                        "eleven scenarios of the port's chaos suite, six in the full run). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -6105,14 +6408,16 @@ def parse_args(argv):
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
 # deploy, session-tool, fault, quality, capacity, bulk, attribution, fleet,
-# trainer-observability and engine-forensics paths, in the full run's order
+# trainer-observability, engine-forensics, narrow-width and chaos paths, in
+# the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
                 "session_tools": phase_session_tools, "faults": phase_faults,
                 "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
                 "attribution": phase_attribution, "fleet": phase_fleet,
-                "train_obs": phase_train_obs, "forensics": phase_forensics}
+                "train_obs": phase_train_obs, "forensics": phase_forensics,
+                "widths": phase_widths, "chaos": phase_chaos}
 
 
 def run_only(device, names) -> int:
@@ -6135,6 +6440,8 @@ def run_only(device, names) -> int:
             phase_train_fused(device, pallas_step_ms)
         elif name == "train_data":
             phase_train_data(device)
+        elif name == "chaos":
+            phase_chaos(device, everything=True)
         elif name in SLICE_PHASES:
             SLICE_PHASES[name](device)
         elif name == "bench":
@@ -6170,7 +6477,7 @@ def main(argv=()) -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    main_rows, library = timed_phase("kernels", phase_kernels, device)
+    main_rows, library, narrow_rows = timed_phase("kernels", phase_kernels, device)
     launches = timed_phase("serve", phase_serve, device)
     train_launches, pallas_step_ms = timed_phase("train", phase_train, device)
     fused_serve_launches = timed_phase("serve_fused", phase_serve_fused, device)
@@ -6190,7 +6497,7 @@ def main(argv=()) -> int:
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
-    # _train_obs, _forensics: each of those paths' main run; launches_large:
+    # _train_obs, _forensics, _widths, _chaos: each of those paths' main run; launches_large:
     # the large preset's serving run ("pallas" and "fused" in f32);
     # launches_large_train: its three train steps (one a configuration)
     launches.update({k: train_launches[k] for k in BACKWARD})
@@ -6253,7 +6560,13 @@ def main(argv=()) -> int:
             summary[-1]["library_case"] = main_rows[name].get("library")
             summary[-1]["k2_plus_k3"] = {k: pair[k] for k in (
                 "case", "dtype", "work", "kernel_ms", "k2_ms", "k3_ms", "bound_ms", "bound_by",
-                "bound_3xtf32_ms")}
+                "bound_3xtf32_ms", "library_ms", "library")}
+        # the tiny preset's and the demo's rows in float32 (the wrappers pad d
+        # to 128), with the device time of a call beside SDPA's
+        summary[-1]["narrow"] = [{k: r.get(k) for k in (
+            "case", "dtype", "shape", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_3xtf32_ms", "library_ms", "kernel_device_ms", "library_device_ms")}
+            for r in narrow_rows[name] if r["dtype"] == "float32"]
         if name in large_rows:
             # the large preset's rows in float32 (K4's n=2304 (K5) and d=2048
             # rows among them)

@@ -3,15 +3,18 @@
 and K7, dQ).  The forward replaces both forward TPU kernels of
 ``glom_tpu/kernels/consensus_pallas.py``: ``_forward`` (K4, K/V resident)
 and ``_forward_blocked`` (K5, K/V streamed, for n > 1024).  On Hopper K/V is
-always streamed, so one kernel covers every n.  The forward takes any d
-that is a multiple of 128: up to 512 ``csrc/consensus_fwd.cuh``'s kernel,
-above it ``csrc/consensus_wide.cuh``'s design (the logits through a float32
+always streamed, so one kernel covers every n.  The kernels take d a
+multiple of 128: up to 512 ``csrc/consensus_fwd.cuh``'s kernel, above it
+``csrc/consensus_wide.cuh``'s design (the logits through a float32
 workspace the wrapper allocates, :func:`workspace_floats`).  K6 and K7
 replace ``_backward_flash``'s ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` at
 the same widths: K6 above 512 is ``csrc/consensus_bwd_wide.cuh``'s design
 (through a float32 workspace the wrapper allocates,
 :func:`bwd_workspace_floats`).  K6 hands K7 the scaled logit gradient dS' it
-forms, so K7 recomputes nothing.
+forms, so K7 recomputes nothing.  The wrappers take any d: off a multiple of
+128 they copy the levels (and dO) zero-padded to one (``_common.py``), pass
+the model's width, whose ``d^-1/2`` scales the logits, to K4 and K6 (K7's
+dS' carries it), and slice the results back.
 
 :func:`consensus_attention` is the forward.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(levels, mask, out, lse)``, as
@@ -37,17 +40,17 @@ import torch
 
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy, on_device,
-                                            vector_aligned)
+                                            pad_last, padded_width, unpad, vector_aligned)
 from glom_tpu_torch.ops import consensus as plain
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# glom_consensus(levels, sb, sn, sl, mask, out, lse, ws, b, n, L, dim,
+# glom_consensus(levels, sb, sn, sl, mask, out, lse, ws, b, n, L, dim, width,
 #                attend_self, splits, dtype, stream): csrc/consensus.cu
-_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _p]
+_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p] + [_i32] * 8 + [_p]
 # glom_consensus_bwd_dkv(levels, sb, sn, sl, go, lse, delta, mask, out, ds,
-#                        ws, b, n, L, dim, attend_self, dtype, stream): csrc/consensus_bwd.cu
-_DKV_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
-                 _i32, _p]
+#                        ws, b, n, L, dim, width, attend_self, dtype, stream):
+#                        csrc/consensus_bwd.cu
+_DKV_ARGTYPES = [_p, _i64, _i64, _i64] + [_p] * 7 + [_i32] * 7 + [_p]
 # glom_consensus_bwd_dq(levels, sb, sn, sl, ds, out, b, n, L, dim, dtype, stream)
 _DQ_ARGTYPES = [_p, _i64, _i64, _i64, _p, _p, _i32, _i32, _i32, _i32, _i32, _p]
 
@@ -62,7 +65,9 @@ def workspace_floats(b: int, n: int, L: int, d: int, splits: int, dtype) -> int:
     (``glom_consensus_workspace``): none with the narrow kernel (d <= 512)
     and one split; per split beyond one the unnormalized sums and a (max,
     sum) per row; above d=512 the wide design's logits, key scales,
-    transposed keys and split sums (``csrc/consensus_wide.cuh``)."""
+    transposed keys and split sums (``csrc/consensus_wide.cuh``); ``d`` as
+    the kernel runs it (padded)."""
+    d = padded_width(d)
     floats = _build.function("consensus", "glom_consensus_workspace", [_i32] * 6,
                              ctypes.c_longlong)(b, n, L, d, splits, DTYPE_CODES[dtype])
     if floats < 0:
@@ -79,7 +84,9 @@ def bwd_workspace_floats(b: int, n: int, L: int, d: int, dtype) -> int:
     """The float32 elements of a K6 call's workspace
     (``glom_consensus_bwd_workspace``): none up to d=512; above it the wide
     design's S, dP, their transposed products' operands, key scales,
-    transposed keys, dV and dK (``csrc/consensus_bwd_wide.cuh``)."""
+    transposed keys, dV and dK (``csrc/consensus_bwd_wide.cuh``); ``d`` as
+    the kernel runs it (padded)."""
+    d = padded_width(d)
     floats = _build.function("consensus_bwd", "glom_consensus_bwd_workspace", [_i32] * 5,
                              ctypes.c_longlong)(b, n, L, d, DTYPE_CODES[dtype])
     if floats < 0:
@@ -90,10 +97,10 @@ def bwd_workspace_floats(b: int, n: int, L: int, d: int, dtype) -> int:
 def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, dtype) -> int:
     """How many blocks share a query tile's keys on ``device``
     (``glom_consensus_splits``: the count that fills the card's SMs in the
-    fewest steps), cached per shape."""
+    fewest steps), cached per shape; ``d`` as the kernel runs it (padded)."""
     with torch.cuda.device(device):
         return _build.plan("consensus", "glom_consensus_splits", torch.cuda.current_device(),
-                           b, n, L, d, DTYPE_CODES[dtype])
+                           b, n, L, padded_width(d), DTYPE_CODES[dtype])
 
 
 def _rows_aligned(levels: torch.Tensor) -> bool:
@@ -106,15 +113,15 @@ def _rows_aligned(levels: torch.Tensor) -> bool:
 
 def _check(levels: torch.Tensor, mask: Optional[torch.Tensor],
            kernel: str = "consensus kernel (K4)") -> None:
-    """Raise on what ``kernel`` (K4, K6 or K7) does not take; each takes any
-    width that is a multiple of 128."""
+    """Raise on what ``kernel`` (K4, K6 or K7) does not take; any positive
+    width (padded to a multiple of 128 by the wrappers)."""
     if levels.dim() != 4:
         raise ValueError(f"levels must be (b, n, L, d), got shape {tuple(levels.shape)}")
     if levels.dtype not in DTYPE_CODES:
         raise TypeError(f"consensus kernel takes float32 or bfloat16, got {levels.dtype}")
     b, n, L, d = levels.shape
     check_width(kernel, d)
-    if levels.stride(3) != 1:
+    if levels.stride(3) != 1 and padded_width(d) == d:
         raise ValueError("levels' last dimension must be contiguous")
     if b * L > 65535:
         raise ValueError(f"consensus kernel takes b * L <= 65535, got {b * L}")
@@ -127,21 +134,32 @@ def _check(levels: torch.Tensor, mask: Optional[torch.Tensor],
             raise ValueError("non_local_mask must be contiguous and on levels' device")
 
 
+def _kernel_levels(levels: torch.Tensor) -> torch.Tensor:
+    """``levels`` as the kernels read them: zero-padded to a multiple of 128
+    in a fresh contiguous copy where d is off one (every row then on the
+    allocator's boundary), else copied only where its rows are off the
+    kernels' 16-byte boundary."""
+    d = levels.shape[-1]
+    if padded_width(d) != d:
+        return pad_last(levels, padded_width(d))
+    # the kernels copy rows in 16-byte vectors; a fresh contiguous copy
+    # starts on the allocator's boundary and, with d % 128 == 0, so does
+    # every row
+    return levels if _rows_aligned(levels) else fresh_copy(levels)
+
+
 def _forward(levels, attend_self, non_local_mask, splits):
     if not on_device("consensus_attention", levels):
         return plain.consensus_attention(
             levels, attend_self=attend_self, non_local_mask=non_local_mask)
     _check(levels, non_local_mask)
-    if not _rows_aligned(levels):
-        # the kernel copies rows in 16-byte vectors; a fresh contiguous copy
-        # starts on the allocator's boundary and, with d % 128 == 0, so does
-        # every row
-        levels = fresh_copy(levels)
+    shape, width = levels.shape, levels.shape[-1]
+    levels = _kernel_levels(levels)
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     lse = torch.empty((b, L, n, 1), dtype=torch.float32, device=levels.device)
     if b * n == 0:
-        return out, lse
+        return unpad(out, shape), lse
     if splits is None:
         splits = planned_splits(levels.device, b, n, L, d, levels.dtype)
     elif splits < 1:
@@ -154,18 +172,19 @@ def _forward(levels, attend_self, non_local_mask, splits):
             levels.data_ptr(), levels.stride(0), levels.stride(1), levels.stride(2),
             None if non_local_mask is None else non_local_mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), None if ws is None else ws.data_ptr(),
-            b, n, L, d, int(bool(attend_self)), splits, DTYPE_CODES[levels.dtype],
+            b, n, L, d, width, int(bool(attend_self)), splits, DTYPE_CODES[levels.dtype],
             torch.cuda.current_stream(levels.device).cuda_stream,
         )
     _build.check("consensus", code)
     count(consensus_attention)
-    return out, lse
+    return unpad(out, shape), lse
 
 
 def _bwd_inputs(levels, dout, lse, delta, non_local_mask):
-    """Check what K6 and K7 read and return ``(levels, dout)``, each copied
-    into fresh storage where its rows are off the kernels' 16-byte
-    ``cp.async`` boundary (as the forward does)."""
+    """Check what K6 and K7 read and return ``(levels, dout)`` as they read
+    them: zero-padded to a multiple of 128 in fresh storage where d is off
+    one, else each copied into fresh storage where its rows are off the
+    kernels' 16-byte ``cp.async`` boundary (as the forward does)."""
     _check(levels, non_local_mask, "consensus_dkv kernel (K6)")
     b, n, L, d = levels.shape
     want = {"dout": ((b, n, L, d), levels.dtype), "lse": ((b, L, n, 1), torch.float32),
@@ -177,6 +196,8 @@ def _bwd_inputs(levels, dout, lse, delta, non_local_mask):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if padded_width(d) != d:
+        return pad_last(levels, padded_width(d)), pad_last(dout, padded_width(d))
     if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
         levels = fresh_copy(levels)
     if not vector_aligned(dout, nbytes=16):
@@ -199,9 +220,10 @@ def _check_ds(levels, ds):
                          f"{ds.device}")
 
 
-def _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds):
-    """K6 on checked inputs; stores dS' into ``ds`` unless it is None.  Its
-    workspace (above d=512) lives only inside this call."""
+def _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds, width):
+    """K6 on checked inputs, for a model of width ``width`` (the levels'
+    own, or less where they are zero-padded); stores dS' into ``ds`` unless
+    it is None.  Its workspace (above d=512) lives only inside this call."""
     b, n, L, d = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     floats = bwd_workspace_floats(b, n, L, d, levels.dtype)
@@ -212,7 +234,7 @@ def _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds):
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if non_local_mask is None else non_local_mask.data_ptr(), out.data_ptr(),
             None if ds is None else ds.data_ptr(), None if ws is None else ws.data_ptr(),
-            b, n, L, d, int(bool(attend_self)), DTYPE_CODES[levels.dtype],
+            b, n, L, d, width, int(bool(attend_self)), DTYPE_CODES[levels.dtype],
             torch.cuda.current_stream(levels.device).cuda_stream)
     _build.check("consensus_bwd", code)
     return out
@@ -246,13 +268,15 @@ def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask
         kw = dict(attend_self=attend_self, non_local_mask=non_local_mask)
         dkv = plain.consensus_dkv(levels, dout, lse, delta, **kw)
         return (dkv, plain.consensus_ds(levels, dout, lse, delta, **kw)) if keep_ds else dkv
+    shape = levels.shape
     levels, dout = _bwd_inputs(levels, dout, lse, delta, non_local_mask)
     ds = (torch.empty(ds_shape(levels), dtype=torch.float32, device=levels.device)
           if keep_ds else None)
     if levels.shape[0] * levels.shape[1] == 0:
-        out = torch.empty(levels.shape, dtype=levels.dtype, device=levels.device)
+        out = torch.empty(shape, dtype=levels.dtype, device=levels.device)
         return (out, ds) if keep_ds else out
-    out = _launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds)
+    out = unpad(_launch_dkv(levels, dout, lse, delta, attend_self, non_local_mask, ds, shape[-1]),
+                shape)
     count(consensus_dkv)
     return (out, ds) if keep_ds else out
 
@@ -275,11 +299,14 @@ def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=
                          "consensus_dkv(levels, dout, lse, delta, keep_ds=True)")
     _check(levels, non_local_mask, "consensus_dq kernel (K7)")
     _check_ds(levels, ds)
-    if not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
+    shape = levels.shape
+    if padded_width(shape[-1]) != shape[-1]:
+        levels = pad_last(levels, padded_width(shape[-1]))
+    elif not vector_aligned(levels, *levels.stride()[:3], nbytes=16):
         levels = fresh_copy(levels)
     if levels.shape[0] * levels.shape[1] == 0:
-        return torch.empty(levels.shape, dtype=levels.dtype, device=levels.device)
-    out = _launch_dq(levels, ds)
+        return torch.empty(shape, dtype=levels.dtype, device=levels.device)
+    out = unpad(_launch_dq(levels, ds), shape)
     count(consensus_dq)
     return out
 
@@ -320,22 +347,23 @@ def consensus_backward(levels, non_local_mask, out, lse, g, *, attend_self=False
     if not on_device("consensus_backward", levels):
         dkv, ds = consensus_dkv(levels, do, lse, delta, keep_ds=True, **kw)
         return (consensus_dq(levels, do, lse, delta, ds=ds, **kw) + dkv).to(levels.dtype)
+    shape = levels.shape
     levels, do = _bwd_inputs(levels, do, lse, delta, non_local_mask)
     b, n, L, d = levels.shape
     dlevels = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     if b * n == 0:
-        return dlevels
+        return unpad(dlevels, shape)
     for bs, ls in ds_chunks(b, n, L):
         lv = levels[bs, :, ls]
         ds = torch.empty(ds_shape(lv), dtype=torch.float32, device=levels.device)
         dkv = _launch_dkv(lv, do[bs, :, ls].contiguous(), lse[bs, ls].contiguous(),
-                          delta[bs, ls].contiguous(), attend_self, non_local_mask, ds)
+                          delta[bs, ls].contiguous(), attend_self, non_local_mask, ds, shape[-1])
         dq = _launch_dq(lv, ds)
         del ds
         torch.add(dq, dkv, out=dlevels[bs, :, ls])
     count(consensus_dkv)
     count(consensus_dq)
-    return dlevels
+    return unpad(dlevels, shape)
 
 
 def plain_vjp(levels, non_local_mask, g, *, attend_self=False):

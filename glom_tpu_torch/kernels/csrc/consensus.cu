@@ -80,15 +80,17 @@ extern "C" long long glom_consensus_workspace(int b, int n, int L, int dim, int 
 }
 
 // levels (b, n, L, dim) read through strides sb, sn, sl (elements; the last
-// dimension contiguous, every row on a 16-byte boundary); mask (n, n) int8 or bool, contiguous, or null;
+// dimension contiguous, every row on a 16-byte boundary); width: the model's
+// width, 1 to dim, whose d^-1/2 scales the logits (dim itself, or less where
+// the levels are zero-padded to dim); mask (n, n) int8 or bool, contiguous, or null;
 // out (b, n, L, dim) contiguous, levels' dtype; lse (b, L, n) f32; ws: the
 // f32 workspace of glom_consensus_workspace's size (null where that is 0),
 // 16-byte aligned.  Returns the launches' cudaError_t.
 extern "C" int glom_consensus(const void* levels, long long sb, long long sn, long long sl,
                               const void* mask, void* out, void* lse, void* ws, int b, int n,
-                              int L, int dim, int attend_self, int splits, int dtype,
-                              void* stream) {
-  if (!valid(b, n, L, dim) || splits < 1 ||
+                              int L, int dim, int width, int attend_self, int splits,
+                              int dtype, void* stream) {
+  if (!valid(b, n, L, dim) || width < 1 || width > dim || splits < 1 ||
       ((splits > 1 || dim > wide::NARROW_MAX_DIM) && ws == nullptr) ||
       reinterpret_cast<uintptr_t>(ws) % 16 != 0 || reinterpret_cast<uintptr_t>(levels) % 16 != 0) {
     return cudaErrorInvalidValue;
@@ -96,9 +98,10 @@ extern "C" int glom_consensus(const void* levels, long long sb, long long sn, lo
   const int8_t* m = static_cast<const int8_t*>(mask);
   float* ls = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = glom::logit_scale(width);
   if (dtype == glom::kF32)
-    return dispatch<float, float>(dim, levels, sb, sn, sl, m, out, ls, ws, b, n, L, attend_self, splits, s);
+    return dispatch<float, float>(dim, levels, sb, sn, sl, m, out, ls, ws, b, n, L, scale, attend_self, splits, s);
   if (dtype == glom::kBF16)
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(dim, levels, sb, sn, sl, m, out, ls, ws, b, n, L, attend_self, splits, s);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(dim, levels, sb, sn, sl, m, out, ls, ws, b, n, L, scale, attend_self, splits, s);
   return cudaErrorInvalidValue;
 }

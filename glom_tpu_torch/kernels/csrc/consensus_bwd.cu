@@ -492,11 +492,11 @@ consensus_bwd_dq_kernel(const float* __restrict__ ds, const T* __restrict__ lv, 
 template <typename T, int D>
 cudaError_t launch_dkv(const T* lv, long long sb, long long sn, long long sl, const T* go,
                        const float* lse, const float* delta, const int8_t* mask, T* out, float* ds,
-                       int b, int n, int npad, int L, int attend_self, cudaStream_t stream) {
+                       int b, int n, int npad, int L, float scale, int attend_self,
+                       cudaStream_t stream) {
   const size_t smem = Layout<T, D>::kBytes;
   cudaError_t err = glom::allow_smem(consensus_bwd_dkv_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
   consensus_bwd_dkv_kernel<T, D><<<dim3(npad / KB, b * L), THREADS, smem, stream>>>(
       lv, sb, sn, sl, go, lse, delta, mask, out, ds, n, npad, L, scale, attend_self);
   return cudaGetLastError();
@@ -510,19 +510,19 @@ template <typename T>
 cudaError_t dispatch_dkv(int dim, const void* lv, long long sb, long long sn, long long sl,
                          const void* go, const float* lse, const float* delta, const int8_t* mask,
                          void* out, float* ds, void* ws, int b, int n, int npad, int L,
-                         int attend_self, cudaStream_t s) {
+                         float scale, int attend_self, cudaStream_t s) {
   const T* x = static_cast<const T*>(lv);
   const T* g = static_cast<const T*>(go);
   T* o = static_cast<T*>(out);
   switch (dim) {
-    case 128: return launch_dkv<T, 128>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
-    case 256: return launch_dkv<T, 256>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
-    case 384: return launch_dkv<T, 384>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
-    case 512: return launch_dkv<T, 512>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, attend_self, s);
+    case 128: return launch_dkv<T, 128>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, scale, attend_self, s);
+    case 256: return launch_dkv<T, 256>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, scale, attend_self, s);
+    case 384: return launch_dkv<T, 384>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, scale, attend_self, s);
+    case 512: return launch_dkv<T, 512>(x, sb, sn, sl, g, lse, delta, mask, o, ds, b, n, npad, L, scale, attend_self, s);
     default:
       if (dim <= NARROW_MAX_DIM || ws == nullptr) return cudaErrorInvalidValue;
       return glom::cons::wide_bwd::launch_dkv<T>(lv, sb, sn, sl, go, lse, delta, mask, out, ds, ws,
-                                                 b, n, L, dim, attend_self, s);
+                                                 b, n, L, dim, scale, attend_self, s);
   }
 }
 
@@ -566,7 +566,9 @@ extern "C" long long glom_consensus_bwd_workspace(int b, int n, int L, int dim, 
 }
 
 // K6.  levels (b, n, L, dim) read through strides sb, sn, sl (elements; the
-// last dimension contiguous, every row on a 16-byte boundary); go = dO (b,
+// last dimension contiguous, every row on a 16-byte boundary); width: the
+// model's width, 1 to dim, whose d^-1/2 scales the logits (as
+// glom_consensus's); go = dO (b,
 // n, L, dim) contiguous, levels' dtype; lse and delta (b, L, n) f32; mask
 // (n, n) int8 or bool, contiguous, or null; out = dKV (b, n, L, dim)
 // contiguous, levels' dtype; ds: null, or the dS' K7 reads, f32 (b, L, n,
@@ -576,9 +578,10 @@ extern "C" long long glom_consensus_bwd_workspace(int b, int n, int L, int dim, 
 extern "C" int glom_consensus_bwd_dkv(const void* levels, long long sb, long long sn, long long sl,
                                       const void* go, const void* lse, const void* delta,
                                       const void* mask, void* out, void* ds, void* ws, int b,
-                                      int n, int L, int dim, int attend_self, int dtype,
-                                      void* stream) {
-  if (!valid(levels, sb, sn, sl, b, n, L, dim, dtype) || !glom::aligned16(go) ||
+                                      int n, int L, int dim, int width, int attend_self,
+                                      int dtype, void* stream) {
+  if (!valid(levels, sb, sn, sl, b, n, L, dim, dtype) || width < 1 || width > dim ||
+      !glom::aligned16(go) ||
       !glom::aligned16(out) || !glom::aligned16(ds) || !glom::aligned16(ws) ||
       (dim > NARROW_MAX_DIM && ws == nullptr))
     return cudaErrorInvalidValue;
@@ -587,11 +590,12 @@ extern "C" int glom_consensus_bwd_dkv(const void* levels, long long sb, long lon
   const float* dl = static_cast<const float*>(delta);
   float* d = static_cast<float*>(ds);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = glom::logit_scale(width);
   if (dtype == glom::kF32)
     return dispatch_dkv<float>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, ws, b, n,
-                               pad_keys(n), L, attend_self, s);
+                               pad_keys(n), L, scale, attend_self, s);
   return dispatch_dkv<__nv_bfloat16>(dim, levels, sb, sn, sl, go, ls, dl, m, out, d, ws, b, n,
-                                     pad_keys(n), L, attend_self, s);
+                                     pad_keys(n), L, scale, attend_self, s);
 }
 
 // K7.  levels as K6's; ds = the dS' K6 stored for the same levels, f32 (b,

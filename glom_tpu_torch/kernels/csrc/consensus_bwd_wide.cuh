@@ -247,7 +247,7 @@ template <typename T>
 cudaError_t launch_dkv(const void* levels, long long sb, long long sn, long long sl,
                        const void* go, const float* lse, const float* delta, const int8_t* mask,
                        void* out, float* ds_out, void* ws, int b, int n, int L, int dim,
-                       int attend_self, cudaStream_t stream) {
+                       float scale, int attend_self, cudaStream_t stream) {
   const T* lv = static_cast<const T*>(levels);
   const T* g = static_cast<const T*>(go);
   const int np = padded_keys(n), pairs = b * L;
@@ -259,7 +259,6 @@ cudaError_t launch_dkv(const void* levels, long long sb, long long sn, long long
   if (err == cudaSuccess) err = glom::allow_smem(dp_kernel<T>, smem_s);
   if (err == cudaSuccess) err = glom::allow_smem(dvk_kernel<T>, smem_kv);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(dim));
   const dim3 grid_k(np / KEYS, pairs);
   key_prep_kernel<T><<<grid_k, wide::PREP_THREADS, wide::PREP_SMEM, stream>>>(lv, sb, sn, sl, n, L, dim, np, scale, vt, f + w.ks);
   err = cudaGetLastError();

@@ -488,7 +488,7 @@ int blocks_per_sm() {
 template <typename T, int D, typename TO>
 cudaError_t launch(const void* lv, long long sb, long long sn, long long sl,
                    const int8_t* mask, void* out, float* lse, void* ws, int b, int n, int L,
-                   int attend_self, int splits, cudaStream_t stream) {
+                   float scale, int attend_self, int splits, cudaStream_t stream) {
   if (blocks_per_sm<T, D, TO>() < 1) return cudaErrorInvalidConfiguration;
   const int kblocks = (n + BK - 1) / BK;
   const int per_split = (kblocks + splits - 1) / splits;
@@ -497,7 +497,6 @@ cudaError_t launch(const void* lv, long long sb, long long sn, long long sl,
   float* ws_out = splits > 1 ? static_cast<float*>(ws) : nullptr;
   float2* ws_stats = splits > 1 ? reinterpret_cast<float2*>(ws_out + splits * total) : nullptr;
   const dim3 grid((n + BQ - 1) / BQ, b * L, splits);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
   consensus_kernel<T, D, TO><<<grid, THREADS, Layout<T, D>::kBytes, stream>>>(
       static_cast<const T*>(lv), sb, sn, sl, mask, static_cast<TO*>(out), lse, ws_out, ws_stats,
       n, L, scale, attend_self, per_split);
@@ -512,16 +511,16 @@ cudaError_t launch(const void* lv, long long sb, long long sn, long long sl,
 template <typename T, typename TO>
 cudaError_t dispatch(int dim, const void* lv, long long sb, long long sn, long long sl,
                      const int8_t* mask, void* out, float* lse, void* ws, int b, int n, int L,
-                     int attend_self, int splits, cudaStream_t stream) {
+                     float scale, int attend_self, int splits, cudaStream_t stream) {
   switch (dim) {
-    case 128: return launch<T, 128, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
-    case 256: return launch<T, 256, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
-    case 384: return launch<T, 384, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
-    case 512: return launch<T, 512, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, attend_self, splits, stream);
+    case 128: return launch<T, 128, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, scale, attend_self, splits, stream);
+    case 256: return launch<T, 256, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, scale, attend_self, splits, stream);
+    case 384: return launch<T, 384, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, scale, attend_self, splits, stream);
+    case 512: return launch<T, 512, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, scale, attend_self, splits, stream);
     default:
       if (dim % 128 != 0 || dim <= wide::NARROW_MAX_DIM || ws == nullptr) return cudaErrorInvalidValue;
-      return wide::launch<T, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, dim, attend_self,
-                                 splits, stream);
+      return wide::launch<T, TO>(lv, sb, sn, sl, mask, out, lse, ws, b, n, L, dim, scale,
+                                 attend_self, splits, stream);
   }
 }
 

@@ -2,7 +2,8 @@
 // shares: consensus_fwd.cuh (the forward, K4's and K8's) and consensus_bwd.cu
 // (K6, K7).  They fix the edge rules in one place:
 //   * keys are the L2-normalised levels, eps 1e-12, and the logits carry
-//     d^-1/2: both fold into one factor per key, kscale_j;
+//     d^-1/2 of the model's width (logit_scale): both fold into one factor
+//     per key, kscale_j;
 //   * the soft self-mask is the logit -5e-4 on the diagonal unless
 //     attend_self; a masked pair gets -FLT_MAX (never -inf, so a key block
 //     masked whole for a row stays finite); a key past the end gets -inf and
@@ -20,6 +21,12 @@ namespace glom {
 constexpr int KEY_BLOCK = 32;            // keys per streamed block
 constexpr float SELF_LOGIT = -5e-4f;
 constexpr float NORM_EPS = 1e-12f;
+
+// The logits' d^-1/2 for a model of width `width`.  The kernels take d a
+// multiple of 128, and the wrappers run a narrower model on levels
+// zero-padded to one: the padding leaves every product and norm as it was,
+// but not d, so each entry point takes the model's width and scales by it.
+inline float logit_scale(int width) { return 1.0f / sqrtf(static_cast<float>(width)); }
 
 // kscale from a key's squared norm ss: scale / max(sqrt(ss), eps), as
 // consensus_bwd.cu's key_norms computes it, by one reciprocal square root

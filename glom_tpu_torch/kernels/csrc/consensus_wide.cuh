@@ -263,7 +263,7 @@ int plan(int b, int n, int L, int dim, int max_splits) {
 template <typename T, typename TO>
 cudaError_t launch(const void* levels, long long sb, long long sn, long long sl,
                    const int8_t* mask, void* out, float* lse, void* ws, int b, int n, int L,
-                   int dim, int attend_self, int splits, cudaStream_t stream) {
+                   int dim, float scale, int attend_self, int splits, cudaStream_t stream) {
   const T* lv = static_cast<const T*>(levels);
   const int np = padded_keys(n), pairs = b * L;
   const Workspace w = workspace(b, n, L, dim, splits, sizeof(T));
@@ -275,7 +275,6 @@ cudaError_t launch(const void* levels, long long sb, long long sn, long long sl,
   cudaError_t err = glom::allow_smem(logits_kernel<T>, smem_s);
   if (err == cudaSuccess) err = glom::allow_smem(pv_kernel<T, TO>, smem_pv);
   if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(dim));
   const dim3 grid_k(np / KEYS, pairs);
   key_prep_kernel<T><<<grid_k, PREP_THREADS, PREP_SMEM, stream>>>(lv, sb, sn, sl, n, L, dim, np,
                                                                  scale, vt, ks);

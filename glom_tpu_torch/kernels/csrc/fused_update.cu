@@ -307,7 +307,8 @@ size_t update_smem() {
 
 template <typename T>
 cudaError_t launch(Args<T> a, int b, const int8_t* mask, float* lse, float* scratch,
-                   int attend_self, int splits, int cons_splits, cudaStream_t stream) {
+                   float scale, int attend_self, int splits, int cons_splits,
+                   cudaStream_t stream) {
   const size_t smem1 = smem_bytes<float, T>(), smem2 = update_smem<T>();
   cudaError_t err = glom::allow_smem(hidden_kernel<T>, smem1);
   if (err == cudaSuccess) err = glom::allow_smem(update_kernel<T>, smem2);
@@ -324,7 +325,7 @@ cudaError_t launch(Args<T> a, int b, const int8_t* mask, float* lse, float* scra
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = glom::cons::dispatch<T, float>(dim, a.lv, a.sb, a.sn, a.sl, mask, a.cons, lse, scratch, b,
-                                       a.n, L, attend_self, cons_splits, stream);
+                                       a.n, L, scale, attend_self, cons_splits, stream);
   if (err != cudaSuccess) return err;
   const int slabs = hidden / BK;
   const int per_split = (slabs + splits - 1) / splits;
@@ -399,7 +400,9 @@ extern "C" long long glom_fused_update_workspace(int b, int n, int L, int dim, i
 // bottom's (b, n) axes flattening to one).  bw1 (L, dim, hidden), bb1 (L,
 // hidden), bw2 (L, hidden, dim), bb2 (L, dim): the bottom-up net; tw1, tb1,
 // tw2, tb2: the top-down net, L-1 groups; contiguous, w1 and w2 on a 16-byte
-// boundary.  mask (n, n) int8 or bool, contiguous, or null; out (b, n, L,
+// boundary.  width: the model's width, 1 to dim, whose d^-1/2 scales the
+// consensus logits (dim itself, or less where every input is zero-padded to
+// dim).  mask (n, n) int8 or bool, contiguous, or null; out (b, n, L,
 // dim) contiguous, 16-byte aligned.  All of one dtype.  splits: how many
 // blocks share a K8b tile's hidden (glom_fused_update_splits), 1 to 8;
 // cons_splits: how many share a consensus tile's keys (glom_consensus_splits),
@@ -412,14 +415,15 @@ extern "C" int glom_fused_update(const void* levels, long long sb, long long sn,
                                  const void* bb1, const void* bw2, const void* bb2,
                                  const void* tw1, const void* tb1, const void* tw2,
                                  const void* tb2, const void* mask, void* out, void* ws,
-                                 long long ws_floats, int b, int n, int L, int dim, int hidden,
-                                 int attend_self, int splits, int cons_splits, int dtype,
-                                 void* stream) {
+                                 long long ws_floats, int b, int n, int L, int dim, int width,
+                                 int hidden, int attend_self, int splits, int cons_splits,
+                                 int dtype, void* stream) {
   const long long item = dtype == glom::kF32 ? 4 : 2;
   const long long need = glom_fused_update_workspace(b, n, L, dim, hidden, splits, cons_splits);
   const long long rs = row_stride(levels, sb, sn, b, n, item);
   const long long trs = row_stride(bottom, tsb, tsn, b, n, item);
-  if (need < 0 || (dtype != glom::kF32 && dtype != glom::kBF16) || rs < 0 || trs < 0 ||
+  if (need < 0 || (dtype != glom::kF32 && dtype != glom::kBF16) || width < 1 || width > dim ||
+      rs < 0 || trs < 0 ||
       (sl * item) % 16 != 0 || !glom::aligned16(pos) || (n > 1 && (psn * item) % 16 != 0) ||
       !glom::aligned16(bw1) || !glom::aligned16(bw2) || !glom::aligned16(tw1) ||
       !glom::aligned16(tw2) || !glom::aligned16(out) || ws == nullptr || !glom::aligned16(ws) ||
@@ -442,7 +446,8 @@ extern "C" int glom_fused_update(const void* levels, long long sb, long long sn,
     a.hid = f + w.hid; a.tdin = f + w.tdin; a.cons = f + w.cons; a.ws = nullptr;
     a.out = static_cast<T*>(out);
     a.rows = b * n; a.n = n; a.L = L; a.dim = dim; a.hidden = hidden;
-    return launch<T>(a, b, m, f + w.lse, f + w.scratch, attend_self, splits, cons_splits, s);
+    return launch<T>(a, b, m, f + w.lse, f + w.scratch, glom::logit_scale(width), attend_self,
+                     splits, cons_splits, s);
   };
   if (dtype == glom::kF32) return run(static_cast<float*>(nullptr));
   return run(static_cast<__nv_bfloat16*>(nullptr));

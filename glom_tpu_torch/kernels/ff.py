@@ -11,11 +11,14 @@ saved for autograd.  Under autograd it runs inside a
 ``torch.autograd.Function`` that saves ``(x, params)`` only and, with
 ``fused_bwd=True``, differentiates through K2 and K3: K2 recomputes the
 hidden per tile and hands it to K3 (``keep_hidden``), which reduces it over
-the rows; the hidden is freed when the backward returns.  Every kernel takes
-any d that is a multiple of 128: K2 above 512 is a composition on the tiled
-product (``csrc/grouped_ff_bwd.cu``'s header), through a float32 workspace
-the wrapper allocates (:func:`dx_workspace_floats`), which also holds the
-hidden where K3 does not ask for it.  With
+the rows; the hidden is freed when the backward returns.  The kernels take
+d a multiple of 128 and h a multiple of 64; the wrappers take any widths,
+copying x, the cotangent and the parameters zero-padded to those
+(``_common.py``) and slicing the results back.  K2 above d=512 is a
+composition on the tiled product (``csrc/grouped_ff_bwd.cu``'s header),
+through a float32 workspace the wrapper allocates
+(:func:`dx_workspace_floats`), which also holds the hidden where K3 does not
+ask for it.  With
 ``fused_bwd=False`` the backward is the plain VJP of
 :func:`~glom_tpu_torch.ops.feedforward.grouped_ff_apply`, as
 ``ff_pallas.py::_bwd`` chooses.
@@ -36,11 +39,10 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy, on_device,
-                                            vector_aligned)
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, HIDDEN_CHUNK, check_width, count,
+                                            fresh_copy, on_device, pad_ff_params, pad_last,
+                                            padded_hidden, padded_width, unpad, vector_aligned)
 from glom_tpu_torch.ops import feedforward as plain
-
-HIDDEN_CHUNK = 64      # h must be a multiple (K1's and K8's kernels)
 
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_grouped_ff(x, row_stride, group_stride, w1, b1, w2, b2, out, ws, hid,
@@ -71,27 +73,30 @@ def _bwd_kernels():
 def planned_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
     """How many blocks share an output tile's hidden dimension in K1b on
     ``device`` (``glom_grouped_ff_splits``, K3's rule over hidden slabs),
-    cached per shape."""
+    cached per shape; ``d`` and ``h`` as the kernel runs them (padded)."""
     with torch.cuda.device(device):
         return _build.plan("grouped_ff", "glom_grouped_ff_splits", torch.cuda.current_device(),
-                           rows, g, d, h, DTYPE_CODES[dtype])
+                           rows, g, padded_width(d), padded_hidden(h), DTYPE_CODES[dtype])
 
 
 def planned_dx_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
     """How many blocks share a row tile's hidden dimension in K2 on
-    ``device`` (``glom_grouped_ff_bwd_dx_splits``), cached per shape."""
+    ``device`` (``glom_grouped_ff_bwd_dx_splits``), cached per shape; ``d``
+    and ``h`` as the kernel runs them (padded)."""
     with torch.cuda.device(device):
         return _build.plan("grouped_ff_bwd", "glom_grouped_ff_bwd_dx_splits",
-                           torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
+                           torch.cuda.current_device(), rows, g, padded_width(d),
+                           padded_hidden(h), DTYPE_CODES[dtype])
 
 
 def planned_dw_splits(device: torch.device, rows: int, g: int, d: int, h: int, dtype) -> int:
     """How many blocks share an output tile's rows in K3 on ``device``
     (``glom_grouped_ff_bwd_dw_splits``, K2's rule over row slabs), cached
-    per shape."""
+    per shape; ``d`` and ``h`` as the kernel runs them (padded)."""
     with torch.cuda.device(device):
         return _build.plan("grouped_ff_bwd", "glom_grouped_ff_bwd_dw_splits",
-                           torch.cuda.current_device(), rows, g, d, h, DTYPE_CODES[dtype])
+                           torch.cuda.current_device(), rows, g, padded_width(d),
+                           padded_hidden(h), DTYPE_CODES[dtype])
 
 
 def dx_workspace_floats(rows: int, g: int, d: int, h: int, splits: int, dtype,
@@ -99,7 +104,9 @@ def dx_workspace_floats(rows: int, g: int, d: int, h: int, splits: int, dtype,
     """The float32 elements of a K2 call's workspace
     (``glom_grouped_ff_bwd_dx_workspace``): up to d=512 the split sums (none
     with one split); above it also W1^T and W2^T in the weights' type and,
-    without ``keep_hidden``, the hidden."""
+    without ``keep_hidden``, the hidden; ``d`` and ``h`` as the kernel runs
+    them (padded)."""
+    d, h = padded_width(d), padded_hidden(h)
     floats = _build.function("grouped_ff_bwd", "glom_grouped_ff_bwd_dx_workspace", [_i32] * 7,
                              ctypes.c_longlong)(rows, g, d, h, splits, DTYPE_CODES[dtype],
                                                 int(keep_hidden))
@@ -109,15 +116,26 @@ def dx_workspace_floats(rows: int, g: int, d: int, h: int, splits: int, dtype,
     return floats
 
 
+def _padded(params: dict, x: torch.Tensor) -> bool:
+    """Whether the call runs on zero-padded copies: d off a multiple of 128
+    or h off a multiple of 64."""
+    d, h = x.shape[-1], params["w1"].shape[-1]
+    return padded_width(d) != d or padded_hidden(h) != h
+
+
 def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)"):
-    """Raise on what ``kernel`` (K1, K2 or K3) does not take; each takes any
-    width that is a multiple of 128."""
+    """Raise on what ``kernel`` (K1, K2 or K3) does not take.  Any positive
+    widths; the layout checks apply where the call runs on ``params`` and
+    ``x`` as they lie (a padded call runs on fresh copies)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (b, n, g, d), got shape {tuple(x.shape)}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"grouped_ff kernel takes float32 or bfloat16, got {x.dtype}")
     b, n, g, d = x.shape
     h = params["w1"].shape[-1]
+    check_width(kernel, d)
+    if h < 1:
+        raise ValueError(f"{kernel} needs a positive hidden width, got h={h}")
     shapes = {"w1": (g, d, h), "b1": (g, h), "w2": (g, h, d), "b2": (g, d)}
     for name, shape in shapes.items():
         p = params[name]
@@ -128,13 +146,14 @@ def _check(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)"
                 f"{name} is {p.dtype} on {p.device}; the kernel needs x's "
                 f"{x.dtype} on {x.device}"
             )
+    if _padded(params, x):
+        return
+    for name in shapes:
+        p = params[name]
         if not p.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if name in ("w1", "w2") and p.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it with cp.async)")
-    check_width(kernel, d)
-    if h % HIDDEN_CHUNK != 0:
-        raise ValueError(f"grouped_ff kernel needs h a multiple of {HIDDEN_CHUNK}, got {h}")
     if x.stride(3) != 1:
         raise ValueError("x's last dimension must be contiguous")
     if b > 1 and n > 1 and x.stride(0) != n * x.stride(1):
@@ -151,12 +170,13 @@ def _row_stride(x: torch.Tensor) -> int:
 def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tensor:
     if not on_device("grouped_ff", x):
         return plain.grouped_ff_apply(params, x)
-    x = _kernel_input(params, x)
+    shape = x.shape
+    params, x = _kernel_operands(params, x)
     b, n, g, d = x.shape
     h = params["w1"].shape[-1]
     out = torch.empty((b, n, g, d), dtype=x.dtype, device=x.device)
     if b * n == 0:
-        return out
+        return unpad(out, shape)
     splits = _splits(splits, planned_splits, x, h)
     ws = (torch.empty((splits, b * n * g * d), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
@@ -173,28 +193,34 @@ def _forward(params: dict, x: torch.Tensor, splits: Optional[int]) -> torch.Tens
         )
     _build.check("grouped_ff", code)
     count(grouped_ff)
-    return out
+    return unpad(out, shape)
 
 
-def _kernel_input(params: dict, x: torch.Tensor,
-                  kernel: str = "grouped_ff kernel (K1)") -> torch.Tensor:
-    """``x`` as ``kernel`` reads it: checked, and copied into fresh storage
-    when its rows are off a 16-byte boundary (K1 and K3 copy them in
-    16-byte pieces, K2 reads them as 4-element vectors; ``glom_tpu``'s
-    kernels take any layout)."""
+def _kernel_operands(params: dict, x: torch.Tensor, kernel: str = "grouped_ff kernel (K1)"):
+    """``(params, x)`` as ``kernel`` reads them: checked; at widths off the
+    kernels' multiples, copies zero-padded to :func:`padded_width` and
+    :func:`padded_hidden` (x then a fresh contiguous copy, which meets the
+    kernels' alignment by construction); else ``params`` as they are and
+    ``x`` copied into fresh storage only when its rows are off a 16-byte
+    boundary (K1 and K3 copy them in 16-byte pieces, K2 reads them as
+    4-element vectors; ``glom_tpu``'s kernels take any layout)."""
     _check(params, x, kernel)
+    if _padded(params, x):
+        d, h = padded_width(x.shape[-1]), padded_hidden(params["w1"].shape[-1])
+        return pad_ff_params(params, d, h), pad_last(x, d)
     if vector_aligned(x, _row_stride(x), x.stride(2), nbytes=16):
-        return x
-    return fresh_copy(x)
+        return params, x
+    return params, fresh_copy(x)
 
 
-def _cotangent(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The cotangent as the backward kernels read it: ``x``'s type (the
-    contract of ``ff_pallas.py::_backward_fused``), ``x``'s shape,
-    contiguous, on a 16-byte boundary."""
-    if tuple(g.shape) != tuple(x.shape):
-        raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(x.shape)}")
-    go = g.to(x.dtype).contiguous()
+def _cotangent(x: torch.Tensor, g: torch.Tensor, shape) -> torch.Tensor:
+    """The cotangent as the backward kernels read ``x``: ``x``'s type (the
+    contract of ``ff_pallas.py::_backward_fused``), ``shape`` (x's before
+    any padding) zero-padded to ``x``'s width, contiguous, on a 16-byte
+    boundary."""
+    if tuple(g.shape) != tuple(shape):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(shape)}")
+    go = pad_last(g.to(x.dtype), x.shape[-1]).contiguous()
     return go if vector_aligned(go, nbytes=16) else fresh_copy(go)
 
 
@@ -219,18 +245,22 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
 
     ``keep_hidden``: also return the hidden K3 reads, ``(dx, (hid, dh))``:
     ``hid = gelu(x W1 + b1)`` and ``dh = (dO W2^T) * gelu'(x W1 + b1)``,
-    each ``(g, b * n, h)`` float32, stored by the same launch."""
+    each ``(g, b * n, h)`` float32 (on the card ``h`` rounded up to a
+    multiple of 64, the padded units' columns zero), stored by the same
+    launch."""
     if not on_device("grouped_ff_dx", x):
         dx = plain.grouped_ff_dx(params, x, g)
         return (dx, plain.grouped_ff_hidden(params, x, g)) if keep_hidden else dx
-    x = _kernel_input(params, x, "grouped_ff_dx kernel (K2)")
-    go = _cotangent(x, g)
+    shape = x.shape
+    params, x = _kernel_operands(params, x, "grouped_ff_dx kernel (K2)")
+    go = _cotangent(x, g, shape)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
     dx = torch.empty((b, n, gr, d), dtype=x.dtype, device=x.device)
     hidden = (tuple(torch.empty((gr, b * n, h), dtype=torch.float32, device=x.device)
                     for _ in range(2)) if keep_hidden else None)
     if b * n == 0:
+        dx = unpad(dx, shape)
         return (dx, hidden) if keep_hidden else dx
     splits = _splits(splits, planned_dx_splits, x, h)
     floats = dx_workspace_floats(b * n, gr, d, h, splits, x.dtype, keep_hidden)
@@ -248,6 +278,7 @@ def grouped_ff_dx(params: dict, x: torch.Tensor, g: torch.Tensor, *,
         )
     _build.check("grouped_ff_bwd", code)
     count(grouped_ff_dx)
+    dx = unpad(dx, shape)
     return (dx, hidden) if keep_hidden else dx
 
 
@@ -256,8 +287,9 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     """K3: ``(dW1 = X^T dH, db1 = 1^T dH, dW2 = H^T dO)`` summed over every
     row, in the weights' type; ``g`` is dO and ``hidden`` the ``(hid, dh)``
     that ``grouped_ff_dx(..., keep_hidden=True)`` returned for the same
-    ``(params, x, g)``.  K3 reads the hidden and recomputes nothing, so it
-    has no path without one.
+    ``(params, x, g)`` (on the card at ``h`` rounded up to a multiple of 64,
+    as K2 hands it).  K3 reads the hidden and recomputes nothing, so it has
+    no path without one.
 
     ``splits``: how many blocks share an output tile's rows (default:
     :func:`planned_dw_splits`); with more than one their partial sums go
@@ -269,8 +301,10 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     hid, dh = hidden
     if not on_device("grouped_ff_dw", x):
         return plain.grouped_ff_dw_from_hidden(x, g, hid, dh, params["w1"].dtype)
-    x = _kernel_input(params, x, "grouped_ff_dw kernel (K3)")
-    go = _cotangent(x, g)
+    shapes = [tuple(params[k].shape) for k in ("w1", "b1", "w2")]
+    shape = x.shape
+    params, x = _kernel_operands(params, x, "grouped_ff_dw kernel (K3)")
+    go = _cotangent(x, g, shape)
     b, n, gr, d = x.shape
     h = params["w1"].shape[-1]
     for name, t in (("hid", hid), ("dh", dh)):
@@ -283,7 +317,7 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
     db1 = torch.empty_like(params["b1"])
     dw2 = torch.empty_like(params["w2"])
     if b * n == 0:
-        return dw1.zero_(), db1.zero_(), dw2.zero_()
+        return tuple(unpad(t.zero_(), s) for t, s in zip((dw1, db1, dw2), shapes))
     splits = _splits(splits, planned_dw_splits, x, h)
     ws = (torch.empty((splits, gr * (2 * d * h + h)), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
@@ -297,7 +331,7 @@ def grouped_ff_dw(params: dict, x: torch.Tensor, g: torch.Tensor, hidden, *,
         )
     _build.check("grouped_ff_bwd", code)
     count(grouped_ff_dw)
-    return dw1, db1, dw2
+    return tuple(unpad(t, s) for t, s in zip((dw1, db1, dw2), shapes))
 
 
 def grouped_ff_backward(params: dict, x: torch.Tensor, g: torch.Tensor):

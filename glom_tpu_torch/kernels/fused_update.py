@@ -25,7 +25,10 @@ rounds once at its store.  In float32 the two are the same function.  CPU
 tensors take it, CUDA tensors take the kernels, and the wrapper raises on
 anything they do not take; inputs whose rows lie off the 16-byte boundary
 the kernels read them on are copied into fresh storage first, as
-``glom_tpu``'s kernel takes any layout.  There is no fallback from the
+``glom_tpu``'s kernel takes any layout, and at widths off the kernels'
+multiples (d of 128, h of 64) every input is copied zero-padded to them
+(``_common.py``), the model's width passed for the consensus logits'
+``d^-1/2``, and the update sliced back.  There is no fallback from the
 kernels to the plain version.  ``fused_level_update.launches`` counts the
 calls of the C entry, one a call.  A call whose K8b tiles leave the card
 part-empty splits each tile's hidden over several blocks
@@ -51,10 +54,11 @@ import torch.nn.functional as F
 
 from glom_tpu_torch.kernels import _build
 from glom_tpu_torch.kernels._common import (DTYPE_CODES, check_width, count, fresh_copy,
-                                            kernels_take, on_device, vector_aligned)
+                                            kernels_take, on_device, pad_ff_params, pad_last,
+                                            padded_hidden, padded_width, unpad, vector_aligned)
 from glom_tpu_torch.kernels.consensus import consensus_attention
 from glom_tpu_torch.kernels.consensus import planned_splits as planned_key_splits
-from glom_tpu_torch.kernels.ff import HIDDEN_CHUNK, grouped_ff
+from glom_tpu_torch.kernels.ff import grouped_ff
 from glom_tpu_torch.ops import consensus as plain_consensus
 from glom_tpu_torch.ops import feedforward as plain_ff
 
@@ -70,10 +74,10 @@ _FF_NAMES = ("w1", "b1", "w2", "b2")
 _p, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # glom_fused_update(levels, sb, sn, sl, bottom, tsb, tsn, pos, psn, bw1, bb1,
 #                   bw2, bb2, tw1, tb1, tw2, tb2, mask, out, ws, ws_floats, b,
-#                   n, L, dim, hidden, attend_self, splits, cons_splits, dtype,
-#                   stream): csrc/fused_update.cu
+#                   n, L, dim, width, hidden, attend_self, splits, cons_splits,
+#                   dtype, stream): csrc/fused_update.cu
 _ARGTYPES = ([_p, _i64, _i64, _i64, _p, _i64, _i64, _p, _i64] + [_p] * 11 + [_i64]
-             + [_i32] * 9 + [_p])
+             + [_i32] * 10 + [_p])
 # glom_fused_update_workspace(b, n, L, dim, hidden, splits, cons_splits)
 _WS_ARGTYPES = [_i32] * 7
 
@@ -87,7 +91,9 @@ def _workspace_floats(b: int, n: int, L: int, d: int, h: int, splits: int,
                       key_splits: int) -> int:
     """The float32 elements of a call's workspace
     (``glom_fused_update_workspace``): both nets' hidden, the top-down input,
-    the consensus term and its lse, and the split workspaces."""
+    the consensus term and its lse, and the split workspaces; ``d`` and
+    ``h`` as the kernels run them (padded)."""
+    d, h = padded_width(d), padded_hidden(h)
     floats = _build.function("fused_update", "glom_fused_update_workspace", _WS_ARGTYPES,
                              ctypes.c_longlong)(b, n, L, d, h, splits, key_splits)
     if floats < 0:
@@ -97,17 +103,19 @@ def _workspace_floats(b: int, n: int, L: int, d: int, h: int, splits: int,
 
 
 def kernel_supports(dim: int, hidden: int) -> bool:
-    """The widths K8 takes: the kernels' (``_common.kernels_take``, which
-    its gradient's K1-K7 take too) and h a multiple of the hidden chunk."""
-    return kernels_take(dim) and hidden % HIDDEN_CHUNK == 0 and hidden > 0
+    """The widths K8's wrapper takes: any positive ``dim`` and ``hidden``
+    (``_common.kernels_take``; off the kernels' multiples it pads), which its
+    gradient's K1-K7 take too."""
+    return kernels_take(dim) and hidden > 0
 
 
 def supports_config(config, device=None) -> bool:
     """True when the fused level update can take this model shape on
     ``device`` (default: the CPU): ``glom_tpu``'s bound on n, and on a CUDA
-    device the kernel's own widths in place of the TPU's VMEM envelope.  On
-    the CPU, where the plain version runs, only the n bound applies, as in
-    ``glom_tpu``'s interpret mode."""
+    device positive widths (:func:`kernel_supports`: the wrapper pads any
+    other to the kernels' multiples) in place of the TPU's VMEM envelope and
+    lane alignment.  On the CPU, where the plain version runs, only the n
+    bound applies, as in ``glom_tpu``'s interpret mode."""
     if config.num_patches > ONE_SHOT_MAX_N:
         return False
     if device is None or torch.device(device).type == "cpu":
@@ -117,10 +125,11 @@ def supports_config(config, device=None) -> bool:
 
 def planned_splits(device: torch.device, b: int, n: int, L: int, d: int, h: int, dtype) -> int:
     """How many blocks share a K8b tile's hidden on ``device``
-    (``glom_fused_update_splits``, K1b's rule), cached per shape."""
+    (``glom_fused_update_splits``, K1b's rule), cached per shape; ``d`` and
+    ``h`` as the kernels run them (padded)."""
     with torch.cuda.device(device):
         return _build.plan("fused_update", "glom_fused_update_splits", torch.cuda.current_device(),
-                           b, n, L, d, h, DTYPE_CODES[dtype])
+                           b, n, L, padded_width(d), padded_hidden(h), DTYPE_CODES[dtype])
 
 
 _DIVISORS: dict = {}
@@ -208,8 +217,8 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
         raise ValueError(f"fused_level_update needs at least 2 levels, got {L}")
     check_width("fused_level_update kernel (K8)", d)
     if not kernel_supports(d, h):
-        raise ValueError(f"fused_level_update kernel (K8) needs h a multiple of {HIDDEN_CHUNK}, "
-                         f"got h={h}")
+        raise ValueError(f"fused_level_update kernel (K8) needs a positive hidden width, got h={h}")
+    padded = padded_width(d) != d or padded_hidden(h) != h
     if b * L > 65535:
         raise ValueError(f"fused_level_update kernel takes b * L <= 65535, got {b * L}")
     for name, t, shape in (("levels", levels, (b, n, L, d)), ("bottom_level", bottom, (b, n, 1, d)),
@@ -219,7 +228,7 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
         if t.dtype != levels.dtype or t.device != levels.device:
             raise TypeError(f"{name} is {t.dtype} on {t.device}; the kernel needs levels' "
                             f"{levels.dtype} on {levels.device}")
-        if t.stride(-1) != 1:
+        if t.stride(-1) != 1 and not padded:
             raise ValueError(f"{name}'s last dimension must be contiguous (strides {t.stride()})")
     for net, params, g in (("bottom_up", bu, L), ("top_down", td, L - 1)):
         shapes = {"w1": (g, d, h), "b1": (g, h), "w2": (g, h, d), "b2": (g, d)}
@@ -230,6 +239,8 @@ def _check(bu, td, levels, bottom, pos, mask) -> None:
             if p.dtype != levels.dtype or p.device != levels.device:
                 raise TypeError(f"{net}/{name} is {p.dtype} on {p.device}; the kernel needs "
                                 f"levels' {levels.dtype} on {levels.device}")
+            if padded:
+                continue   # the kernels read a padded copy
             if not p.is_contiguous():
                 raise ValueError(f"{net}/{name} must be contiguous")
             if name in ("w1", "w2") and p.data_ptr() % 16:
@@ -247,12 +258,17 @@ def _forward(bu, td, levels, bottom, pos, mask, attend_self, splits=None) -> tor
     if not on_device("fused_level_update", levels):
         return plain_update(bu, td, levels, bottom, pos, mask, attend_self=attend_self)
     _check(bu, td, levels, bottom, pos, mask)
-    levels, bottom, pos = (_kernel_input(t) for t in (levels, bottom, pos))
-    b, n, L, d = levels.shape
-    h = bu["w1"].shape[-1]
+    shape, width = levels.shape, levels.shape[-1]
+    d, h = padded_width(width), padded_hidden(bu["w1"].shape[-1])
+    if (d, h) != (width, bu["w1"].shape[-1]):
+        bu, td = pad_ff_params(bu, d, h), pad_ff_params(td, d, h)
+        levels, bottom, pos = (pad_last(t, d) for t in (levels, bottom, pos))
+    else:
+        levels, bottom, pos = (_kernel_input(t) for t in (levels, bottom, pos))
+    b, n, L, _ = levels.shape
     out = torch.empty((b, n, L, d), dtype=levels.dtype, device=levels.device)
     if b * n == 0:
-        return out
+        return unpad(out, shape)
     if splits is None:
         splits = planned_splits(levels.device, b, n, L, d, h, levels.dtype)
     elif not 1 <= splits <= MAX_SPLITS:
@@ -268,12 +284,12 @@ def _forward(bu, td, levels, bottom, pos, mask, attend_self, splits=None) -> tor
             pos.data_ptr(), pos.stride(1),
             *(bu[k].data_ptr() for k in _FF_NAMES), *(td[k].data_ptr() for k in _FF_NAMES),
             None if mask is None else mask.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
-            b, n, L, d, h, int(bool(attend_self)), splits, key_splits,
+            b, n, L, d, width, h, int(bool(attend_self)), splits, key_splits,
             DTYPE_CODES[levels.dtype], torch.cuda.current_stream(levels.device).cuda_stream,
         )
     _build.check("fused_update", code)
     count(fused_level_update)
-    return out
+    return unpad(out, shape)
 
 
 class _FusedUpdate(torch.autograd.Function):

@@ -19,8 +19,8 @@ fused level-update kernels (``kernels/fused_update.py``, K8); otherwise it
 falls back to the grouped-FF kernel with the attention chosen by the
 ``"auto"`` policy.  ``attention_impl="auto"`` picks the consensus kernels on
 a CUDA device of the kernels' compute capability above the measured
-crossover (:data:`ATTENTION_CROSSOVER_N`) at any width the kernels take (a
-multiple of 128), and the plain ops otherwise.  :func:`apply` runs under autograd: the
+crossover (:data:`ATTENTION_CROSSOVER_N`), at any width as ``glom_tpu``'s
+rule, and the plain ops otherwise.  :func:`apply` runs under autograd: the
 kernels' gradients are their backward kernels (``ff_fused_bwd`` picks K2 +
 K3 or the plain VJP for the FF, as in the JAX package; consensus always
 takes K6 + K7; K8 differentiates the unfused composition of those).
@@ -48,7 +48,6 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from glom_tpu_torch.config import GlomConfig
 from glom_tpu_torch.kernels import fused_update
-from glom_tpu_torch.kernels._common import kernels_take
 from glom_tpu_torch.kernels.consensus import consensus_attention as consensus_kernel
 from glom_tpu_torch.kernels.ff import grouped_ff
 from glom_tpu_torch.ops.consensus import consensus_attention
@@ -198,11 +197,10 @@ def gpu_generation(device=None) -> str:
 def resolve_auto_attention(config: GlomConfig, device=None) -> str:
     """What ``attention_impl="auto"`` means on ``device``: ``"pallas"`` on a
     CUDA device the kernels are built for when ``num_patches`` exceeds the
-    generation's measured crossover and the kernels take the width (any
-    multiple of 128, in both directions), ``"dense"`` otherwise (every CPU
-    run and every card of another compute capability included), as
-    ``glom_tpu``'s rule picks its Pallas kernels above the crossover at any
-    width.  An unmeasured generation of the kernels' compute capability warns
+    generation's measured crossover, ``"dense"`` otherwise (every CPU run and
+    every card of another compute capability included), as ``glom_tpu``'s
+    rule picks its Pallas kernels above the crossover; neither rule has a
+    width term (the kernels' wrappers take any width).  An unmeasured generation of the kernels' compute capability warns
     and borrows the H100's row."""
     dev = torch.device("cpu" if device is None else device)
     if dev.type != "cuda" or torch.cuda.get_device_capability(dev) != KERNELS_CAPABILITY:
@@ -216,7 +214,7 @@ def resolve_auto_attention(config: GlomConfig, device=None) -> str:
             f"n>{_CROSSOVER_FALLBACK_N} from the H100. Run python -m "
             f"glom_tpu_torch.tools.crossover on this card and add the row to "
             f"glom_tpu_torch.models.glom.ATTENTION_CROSSOVER_N", stacklevel=3)
-    return "pallas" if config.num_patches > crossover and kernels_take(config.dim) else "dense"
+    return "pallas" if config.num_patches > crossover else "dense"
 
 
 def make_consensus_fn(config: GlomConfig, device=None):

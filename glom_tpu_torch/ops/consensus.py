@@ -22,6 +22,11 @@ forward's ``lse`` and ``delta = rowsum(dO * O)``, in float32, writing the
 ``(b, L, n, n)`` probabilities the kernels never write.  K6 also hands K7
 the scaled logit gradient it forms, and K7 is a product of it and the levels;
 their plain twins are :func:`consensus_ds` and :func:`consensus_dq_from_ds`.
+
+Each takes ``width``, the width whose ``d**-0.5`` scales the logits (default:
+the levels' own): the kernels run a narrow model on levels zero-padded to a
+multiple of 128 and take the model's width, and on such levels these
+functions with that ``width`` compute what the kernels do.
 """
 
 from __future__ import annotations
@@ -40,12 +45,17 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x / torch.clamp(norm, min=eps)
 
 
+def _scale(x: torch.Tensor, width: Optional[int]) -> float:
+    """The logits' ``d**-0.5``: of ``width``, or of ``x``'s own width."""
+    return (x.shape[-1] if width is None else width) ** -0.5
+
+
 def _masked_logits(x: torch.Tensor, k: torch.Tensor, attend_self: bool,
-                   non_local_mask: Optional[torch.Tensor]):
+                   non_local_mask: Optional[torch.Tensor], width: Optional[int] = None):
     """``(sim (b, L, n, n), self-mask or None)`` of float32 queries ``x`` and
     normalized keys ``k``, both ``(b, n, L, d)``."""
-    n, d = x.shape[1], x.shape[-1]
-    sim = torch.einsum("bild,bjld->blij", x, k) * (d ** -0.5)
+    n = x.shape[1]
+    sim = torch.einsum("bild,bjld->blij", x, k) * _scale(x, width)
     eye = None
     if not attend_self:
         eye = torch.eye(n, dtype=torch.bool, device=x.device)
@@ -60,26 +70,27 @@ def consensus_attention(
     *,
     attend_self: bool = False,
     non_local_mask: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
 ):
     """``(b, n, L, d) -> (out (b, n, L, d), lse (b, L, n, 1))``.
 
     ``non_local_mask``: optional ``(n, n)`` bool or int8, nonzero = blocked
     (from :func:`glom_tpu_torch.ops.masks.local_consensus_mask`)."""
     x = levels.float()
-    sim, _ = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask)
+    sim, _ = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask, width)
     attn = torch.softmax(sim, dim=-1)
     lse = torch.logsumexp(sim, dim=-1, keepdim=True)
     out = torch.einsum("blij,bjld->bild", attn, x)
     return out.to(levels.dtype), lse
 
 
-def _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask):
+def _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask, width=None):
     """``(x, dO, P, dS)`` in float32: ``P = exp(S - lse)``, ``dS = P * (dO V^T -
     delta)``, zero on the diagonal under the soft self-mask (the diagonal
     logit is a constant there)."""
     x = levels.float()
     do = dout.to(levels.dtype).float()
-    sim, eye = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask)
+    sim, eye = _masked_logits(x, l2_normalize(x), attend_self, non_local_mask, width)
     p = torch.exp(sim - lse)
     ds = p * (torch.einsum("bild,bjld->blij", do, x) - delta)
     if eye is not None:
@@ -96,21 +107,23 @@ def l2_normalize_vjp(x: torch.Tensor, dk: torch.Tensor, eps: float = 1e-12) -> t
     return dk / m - torch.where(norm > eps, x * (dot / (m * m * norm)), torch.zeros_like(x))
 
 
-def consensus_dkv_terms(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+def consensus_dkv_terms(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None,
+                        width=None):
     """K6's two terms in float32: the key term ``normalize_vjp(dS^T Q
     scale)`` and the value term ``P^T dO``."""
-    x, do, p, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
+    x, do, p, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask, width)
     dv = torch.einsum("blij,bild->bjld", p, do)
-    dk = torch.einsum("blij,bild->bjld", ds, x) * (x.shape[-1] ** -0.5)
+    dk = torch.einsum("blij,bild->bjld", ds, x) * _scale(x, width)
     return l2_normalize_vjp(x, dk), dv
 
 
-def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+def consensus_dkv(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None,
+                  width=None):
     """K6's plain version: ``normalize_vjp(dS^T Q scale) + P^T dO``, the
     gradient through the keys and values, in ``levels``' type.  ``lse`` and
     ``delta`` are ``(b, L, n, 1)`` float32."""
     dk, dv = consensus_dkv_terms(levels, dout, lse, delta, attend_self=attend_self,
-                                 non_local_mask=non_local_mask)
+                                 non_local_mask=non_local_mask, width=width)
     return (dk + dv).to(levels.dtype)
 
 
@@ -119,14 +132,15 @@ def ds_columns(n: int) -> int:
     return -(-n // 32) * 32
 
 
-def consensus_ds(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+def consensus_ds(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None,
+                 width=None):
     """What K6 hands K7: ``dS'_ij = dS_ij kscale_j`` with ``kscale_j =
     d^-1/2 / max(|x_j|, 1e-12)``, float32 ``(b, L, n, ds_columns(n))``, zero
     past n (and wherever dS is)."""
-    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
-    n, d = x.shape[1], x.shape[-1]
+    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask, width)
+    n = x.shape[1]
     norm = torch.sqrt(torch.sum(x * x, dim=-1))                 # (b, n, L)
-    kscale = (d ** -0.5) / torch.clamp(norm, min=1e-12)
+    kscale = _scale(x, width) / torch.clamp(norm, min=1e-12)
     ds = ds * kscale.permute(0, 2, 1)[:, :, None, :]
     return torch.nn.functional.pad(ds, (0, ds_columns(n) - n))
 
@@ -139,9 +153,10 @@ def consensus_dq_from_ds(levels, ds):
     return dq.to(levels.dtype)
 
 
-def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None):
+def consensus_dq(levels, dout, lse, delta, *, attend_self=False, non_local_mask=None,
+                 width=None):
     """K7's plain version: ``dS K scale``, the gradient through the queries,
     in ``levels``' type."""
-    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask)
-    dq = torch.einsum("blij,bjld->bild", ds, l2_normalize(x)) * (x.shape[-1] ** -0.5)
+    x, _, _, ds = _probs_and_ds(levels, dout, lse, delta, attend_self, non_local_mask, width)
+    dq = torch.einsum("blij,bjld->bild", ds, l2_normalize(x)) * _scale(x, width)
     return dq.to(levels.dtype)

@@ -212,8 +212,9 @@ ENDPOINTS = ("embed", "reconstruct", "parse")
 # similarity paths, which have no batcher but report their outcomes alike
 SLO_ENDPOINTS = ENDPOINTS + ("session", "similar")
 
-# The smallest config the CUDA kernels take (d a multiple of 128).
-DEMO_CONFIG = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8)
+# glom_tpu's demo model (glom_tpu/serving/engine.py::DEMO_CONFIG): the kernels
+# take its width (16) through their wrappers' padding.
+DEMO_CONFIG = GlomConfig(dim=16, levels=3, image_size=16, patch_size=8)
 
 # glom_tpu's engine arguments this port does not take yet: name -> (the value
 # that leaves it unset, what it waits for).  Any other value is refused.

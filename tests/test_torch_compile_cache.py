@@ -316,7 +316,7 @@ def test_post_pass_cache_runs_the_post_pass_on_the_inner_forward():
 # on the card
 # ---------------------------------------------------------------------------
 
-# the smallest model the kernels take (d a multiple of 128)
+# a small model the kernels run without padding (d a multiple of 128)
 CARD = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8)
 
 

@@ -242,15 +242,24 @@ def test_fused_check_refuses(case):
     elif case == "param_dtype":
         a["bu"]["w2"], err = a["bu"]["w2"].bfloat16(), TypeError
     elif case == "dim":
-        a = _good_update(d=96)
+        # any positive width: off a multiple of 128 the wrapper pads every
+        # input (whose layout is then not the caller's concern)
+        for d in (8, 16, 64, 96):
+            fused_update._check(**_good_update(d=d, h=4 * d))
+        views = _good_update(d=96)
+        views["levels"] = torch.zeros((2, 8, 96, 3)).transpose(2, 3)
+        fused_update._check(**views)
+        a = _good_update(d=0, h=128)
     elif case == "dim_large":
-        # K8's forward takes every multiple of 128 past 512 (its consensus
-        # stage the wide design); off a multiple of 128 it refuses
-        for d in (640, 1024):
+        # K8's forward takes every width past 512 too (its consensus stage
+        # the wide design), a multiple of 128 or padded to one
+        for d in (600, 640, 1000, 1024):
             fused_update._check(**_good_update(d=d, h=128))
-        a = _good_update(d=600, h=128)
+        a = _good_update(d=0, h=128)
     elif case == "hidden":
-        a = _good_update(h=96)
+        for h in (32, 96, 200):
+            fused_update._check(**_good_update(h=h))
+        a = _good_update(h=0)
     elif case == "levels":
         a = _good_update(L=1)
     elif case == "rank":
@@ -324,10 +333,11 @@ def test_supports_config_predicates():
     # fuse_ff is a competing fusion, and another ff_impl never takes the fused step
     assert not glom_model.fused_update_supported(dataclasses.replace(c, fuse_ff=True))
     assert not glom_model.fused_update_supported(dataclasses.replace(c, ff_impl="pallas"))
-    # on a CUDA device the kernel's own widths: the forward kernels' set
-    assert not fused_update.supports_config(c, "cuda")
-    for dim, ok in ((128, True), (384, True), (512, True), (640, True), (1024, True), (96, False),
-                    (600, False)):
+    # on a CUDA device any width: the wrapper pads one off the kernels'
+    # multiples (glom_tpu's predicate, in interpret mode, takes any too)
+    assert fused_update.supports_config(c, "cuda")
+    for dim, ok in ((128, True), (384, True), (512, True), (640, True), (1024, True), (96, True),
+                    (600, True), (16, True), (8, True)):
         wide = GlomConfig(dim=dim, levels=3, image_size=64, patch_size=8, ff_impl="fused")
         assert fused_update.supports_config(wide, "cuda") is ok
         assert glom_model.fused_update_supported(wide, torch.device("cuda")) is ok
@@ -398,8 +408,8 @@ def test_auto_attention_is_dense_on_the_cpu(n_side):
 
 
 def test_auto_attention_on_a_cuda_device_follows_the_measured_row(monkeypatch):
-    """Above the generation's row, and at a width the kernels take, the
-    kernels; an unmeasured generation of the kernels' compute capability
+    """Above the generation's row the kernels, at any width (no width term,
+    as in glom_tpu's rule); an unmeasured generation of the kernels' compute capability
     warns and borrows the H100's row; a card of another capability, which
     cannot load the kernels, gets the plain ops."""
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
@@ -411,7 +421,7 @@ def test_auto_attention_on_a_cuda_device_follows_the_measured_row(monkeypatch):
     assert above.num_patches > row
     assert glom_model.resolve_auto_attention(above, "cuda") == "pallas"
     narrow = dataclasses.replace(above, dim=32)
-    assert glom_model.resolve_auto_attention(narrow, "cuda") == "dense"
+    assert glom_model.resolve_auto_attention(narrow, "cuda") == "pallas"
     if row >= 4:
         below = GlomConfig(dim=128, levels=3, image_size=16, patch_size=8, attention_impl="auto")
         assert glom_model.resolve_auto_attention(below, "cuda") == "dense"
@@ -686,11 +696,12 @@ def test_forward_at_d640_matches_glom_tpu(ff_impl):
     np.testing.assert_allclose(got, np.asarray(want), atol=FWD_ATOL)
 
 
-@pytest.mark.parametrize("dim", [640, 1024])
+@pytest.mark.parametrize("dim", [64, 640, 1024])
 def test_auto_attention_past_512_picks_the_kernels_as_glom_tpu(monkeypatch, dim):
-    """'auto' at d=640 and 1024 follows glom_tpu's rule, which has no width
-    term: the kernels above the generation's crossover (n=576 on a mocked
-    H100 here, on a mocked v5e in glom_tpu), the plain ops below it (n=9)."""
+    """'auto' at d=64 (the tiny preset's width), 640 and 1024 follows
+    glom_tpu's rule, which has no width term: the kernels above the
+    generation's crossover (n=576 on a mocked H100 here, on a mocked v5e in
+    glom_tpu), the plain ops below it (n=9)."""
     from glom_tpu.kernels import consensus_pallas
     from glom_tpu.parallel import mesh
 

@@ -75,7 +75,7 @@ def test_importing_the_port_loads_no_jax_and_no_glom_tpu():
             "glom_tpu_torch.tools.observatory", "glom_tpu_torch.obs.diagnostics",
             "glom_tpu_torch.resilience.supervisor", "glom_tpu_torch.device_guard",
             "glom_tpu_torch.tools.forensics_report",
-            "glom_tpu_torch.tools.obs_report"} <= set(mods)
+            "glom_tpu_torch.tools.obs_report", "glom_tpu_torch.tools.chaos"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"

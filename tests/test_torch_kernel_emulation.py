@@ -3,7 +3,10 @@ of K2 and K3 (``csrc/grouped_ff_bwd.cu``'s dX and dW kernels), of K6 and K7
 (``csrc/consensus_bwd.cu``, the consensus backward, K6 handing K7 its dS')
 and of K8 (``csrc/fused_update.cu``, the fused level update, with K4's
 consensus kernel inside) run on the CPU through ``tests/cuda_emu/emulate.py``,
-against the wrappers' plain versions on the same inputs.
+against the wrappers' plain versions on the same inputs; and K1, K4, K6 + K7
+and K8 on the inputs of a model 16 wide zero-padded to 128 as the wrappers
+pad them, called with the true width, against ``glom_tpu``'s kernels in
+interpret mode at d=16.
 
 The emulator compiles the kernels' own source with ``g++`` and runs every
 CUDA thread of a block as a host thread, the tensor cores' products on
@@ -27,7 +30,8 @@ import torch
 from glom_tpu_torch.kernels import consensus as consensus_kernel
 from glom_tpu_torch.kernels import ff as ff_kernel
 from glom_tpu_torch.kernels import fused_update
-from glom_tpu_torch.kernels._common import DTYPE_CODES
+from glom_tpu_torch.kernels._common import (DTYPE_CODES, pad_ff_params, pad_last,
+                                            padded_hidden, padded_width, unpad)
 from glom_tpu_torch.ops import consensus as plain_cons
 from glom_tpu_torch.ops import feedforward as plain_ff
 from glom_tpu_torch.ops.masks import local_consensus_mask
@@ -156,8 +160,18 @@ def test_emulated_k2_refuses_what_the_kernel_does_not_take(dx_fn):
     args = [x.data_ptr(), x.stride(1), x.stride(2), params["w1"].data_ptr(),
             params["b1"].data_ptr(), params["w2"].data_ptr(), dout.data_ptr(), dx.data_ptr(), None,
             None, None]
+    # the C entry takes d a multiple of 128 and h of 32 (a model of any other
+    # width reaches it zero-padded by the wrapper: test_torch_any_width.py)
     assert dx_fn(*args, 8, 1, 96, 64, 1, 0, None) != 0        # d not a multiple of 128
     assert dx_fn(*args, 8, 1, 128, 48, 1, 0, None) != 0       # h not a multiple of 32
+    # ... and takes a model 96 wide with h 48, zero-padded to 128 and 64
+    narrow = {"w1": params["w1"][:, :96, :48], "b1": params["b1"][:, :48],
+              "w2": params["w2"][:, :48, :96], "b2": params["b2"][:, :96]}
+    pp = pad_ff_params(narrow, 128, 64)
+    px, pg = pad_last(x[..., :96], 128), pad_last(dout[..., :96], 128)
+    assert dx_fn(px.data_ptr(), px.stride(1), px.stride(2), pp["w1"].data_ptr(),
+                 pp["b1"].data_ptr(), pp["w2"].data_ptr(), pg.data_ptr(), dx.data_ptr(), None,
+                 None, None, 8, 1, 128, 64, 1, 0, None) == 0
     assert dx_fn(*args, 8, 1, 128, 64, 0, 0, None) != 0       # no split
     assert dx_fn(*args, 8, 1, 128, 64, 2, 0, None) != 0       # splits without a workspace
     hid = torch.zeros((1, 8, 64))
@@ -225,7 +239,11 @@ def test_emulated_k3_refuses_what_the_kernel_does_not_take(dw_fn):
 
     assert call() == 0
     assert call(hid_ptr=None) != 0                       # no hidden: nothing to reduce
-    assert call(d=96) != 0 and call(h=48) != 0           # widths the kernel does not take
+    # widths the C entry does not take; a model of either width reaches it
+    # zero-padded to 128 and 64 by the wrapper, at which it is taken
+    assert call(d=96) != 0 and call(h=48) != 0
+    padded = pad_last(x[..., :96], 128)
+    assert call(x_ptr=padded.data_ptr(), row_stride=padded.stride(1)) == 0
     assert call(splits=0) != 0 and call(splits=2) != 0   # no split; splits without a workspace
     assert call(x_ptr=x.data_ptr() + 4) != 0             # x off a 16-byte boundary
     assert call(row_stride=x.stride(1) + 1) != 0         # rows off it
@@ -366,8 +384,13 @@ def test_emulated_k1_refuses_what_the_kernel_does_not_take(k1_fn):
                      hid_ptr, 8, 1, d, h, splits, 0, None)
 
     assert call() == 0 and call(splits=2, ws_ptr=ws.data_ptr()) == 0
-    assert call(d=64) != 0                               # d not a multiple of 128
-    assert call(h=96) != 0                               # h not a multiple of 64
+    # d not a multiple of 128, h not of 64: the C entry refuses them, and a
+    # model 64 wide (or with h 32) reaches it zero-padded by the wrapper, at
+    # widths it takes
+    assert call(d=64) != 0
+    assert call(h=96) != 0
+    padded = pad_last(x[..., :64], 128)
+    assert call(x_ptr=padded.data_ptr(), row_stride=padded.stride(1)) == 0
     off = torch.zeros(params["w1"].numel() + 1)[1:]      # w1 off a 16-byte boundary
     assert call(w1=off.data_ptr()) != 0
     assert call(x_ptr=x.data_ptr() + 4) != 0             # x off a 16-byte boundary
@@ -423,9 +446,9 @@ def _k8_inputs(b, n, L, d, h, dtype, seed):
     return bu, td, lwi[..., 1:, :], lwi[..., :1, :], t(n, d)[None, :, None, :]
 
 
-def _emulated_k8(k8, args, mask=None, attend_self=False, splits=1, key_splits=1):
+def _emulated_k8(k8, args, mask=None, attend_self=False, splits=1, key_splits=1, width=None):
     """K8's output in a buffer, and with a workspace, that start as NaN, so
-    that an element it skips shows."""
+    that an element it skips shows; ``width``: the model's (default d)."""
     fn, ws_floats = k8
     bu, td, levels, bottom, pos = args
     b, n, L, d = levels.shape
@@ -438,7 +461,8 @@ def _emulated_k8(k8, args, mask=None, attend_self=False, splits=1, key_splits=1)
               bottom.data_ptr(), bottom.stride(0), bottom.stride(1), pos.data_ptr(), pos.stride(1),
               *(bu[k].data_ptr() for k in names), *(td[k].data_ptr() for k in names),
               None if mask is None else mask.data_ptr(), out.data_ptr(), ws.data_ptr(), floats,
-              b, n, L, d, h, int(attend_self), splits, key_splits, DTYPE_CODES[levels.dtype], None)
+              b, n, L, d, d if width is None else width, h, int(attend_self), splits, key_splits,
+              DTYPE_CODES[levels.dtype], None)
     assert code == 0, code
     return out
 
@@ -516,14 +540,19 @@ def test_emulated_k8_refuses_what_the_kernel_does_not_take(k8):
     names = ("w1", "b1", "w2", "b2")
 
     def call(lv=levels, sb=levels.stride(0), bot=bottom, w1=bu["w1"], ws_ptr=ws.data_ptr(),
-             floats=ws.numel(), d=128, h=64, L=3, splits=1, dtype=0):
+             floats=ws.numel(), d=128, width=128, h=64, L=3, splits=1, dtype=0):
         return fn(lv.data_ptr(), sb, lv.stride(1), lv.stride(2), bot.data_ptr(), bot.stride(0),
                   bot.stride(1), pos.data_ptr(), pos.stride(1), w1.data_ptr(),
                   *(bu[k].data_ptr() for k in names[1:]), *(td[k].data_ptr() for k in names),
-                  None, out.data_ptr(), ws_ptr, floats, 2, 4, L, d, h, 0, splits, 1, dtype, None)
+                  None, out.data_ptr(), ws_ptr, floats, 2, 4, L, d, width, h, 0, splits, 1, dtype,
+                  None)
 
     assert call() == 0
-    assert call(d=96) != 0 and call(h=96) != 0 and call(L=1) != 0   # widths, levels
+    # the C entry takes d a multiple of 128 and h of 64; a model of any
+    # other width reaches it zero-padded, its own width scaling the logits
+    assert call(d=96, width=96) != 0 and call(h=96) != 0 and call(L=1) != 0   # widths, levels
+    assert call(width=96) == 0 and call(width=16) == 0 and call(width=1) == 0
+    assert call(width=0) != 0 and call(width=129) != 0    # the model's width: 1 to d
     assert call(splits=0) != 0 and call(splits=9) != 0
     assert call(ws_ptr=None) != 0 and call(floats=ws.numel() - 1) != 0   # no or short workspace
     assert call(dtype=2) != 0
@@ -587,9 +616,10 @@ def k4():
             emulate.function("consensus", "glom_consensus_splits", [ctypes.c_int] * 5))
 
 
-def _emulated_k4(k4, levels, mask=None, attend_self=False, splits=1):
+def _emulated_k4(k4, levels, mask=None, attend_self=False, splits=1, width=None):
     """K4's ``(out, lse)`` in buffers, and with a workspace, that start as
-    NaN, so that an element it skips shows."""
+    NaN, so that an element it skips shows; ``width``: the model's (default
+    d)."""
     fn, ws_floats, _ = k4
     b, n, L, d = levels.shape
     floats = ws_floats(b, n, L, d, splits, DTYPE_CODES[levels.dtype])
@@ -597,8 +627,9 @@ def _emulated_k4(k4, levels, mask=None, attend_self=False, splits=1):
     out = torch.full((b, n, L, d), float("nan"), dtype=levels.dtype)
     lse = torch.full((b, L, n, 1), float("nan"))
     assert fn(levels.data_ptr(), *levels.stride()[:3], None if mask is None else mask.data_ptr(),
-              out.data_ptr(), lse.data_ptr(), ws.data_ptr(), b, n, L, d, int(attend_self),
-              splits, DTYPE_CODES[levels.dtype], None) == 0
+              out.data_ptr(), lse.data_ptr(), ws.data_ptr(), b, n, L, d,
+              d if width is None else width, int(attend_self), splits,
+              DTYPE_CODES[levels.dtype], None) == 0
     return out, lse
 
 
@@ -661,7 +692,12 @@ def test_emulated_k4_workspace_and_refusals(k4):
     levels = torch.zeros((2, 8, 3, 640))
     out, lse = torch.empty(levels.shape), torch.empty((2, 3, 8))
     assert fn(levels.data_ptr(), *levels.stride()[:3], None, out.data_ptr(), lse.data_ptr(),
-              None, 2, 8, 3, 640, 0, 1, 0, None) != 0
+              None, 2, 8, 3, 640, 640, 0, 1, 0, None) != 0
+    ws = torch.zeros(ws_floats(2, 8, 3, 640, 1, 0))
+    for width, ok in ((640, True), (600, True), (1, True), (0, False), (641, False)):
+        code = fn(levels.data_ptr(), *levels.stride()[:3], None, out.data_ptr(), lse.data_ptr(),
+                  ws.data_ptr(), 2, 8, 3, 640, width, 0, 1, 0, None)
+        assert (code == 0) is ok, width
 
 
 # -- K6 and K7: the consensus backward, K6 handing K7 its dS' -----------------
@@ -693,9 +729,11 @@ def _k67_inputs(b, n, L, d, dtype, seed, strided=False, non_local_mask=None, att
     return levels, g, lse, delta
 
 
-def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep_ds=True):
+def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep_ds=True,
+                  width=None):
     """K6's dKV and dS' and K7's dQ on that dS', in buffers that start as NaN
-    so that an element the kernels skip shows."""
+    so that an element the kernels skip shows; ``width``: the model's
+    (default d)."""
     dkv_fn, dq_fn = k67
     b, n, L, d = levels.shape
     code = DTYPE_CODES[levels.dtype]
@@ -704,8 +742,8 @@ def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep
     strides = levels.stride()[:3]
     assert dkv_fn(levels.data_ptr(), *strides, g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   None if mask is None else mask.data_ptr(), dkv.data_ptr(),
-                  ds.data_ptr() if keep_ds else None, None, b, n, L, d, int(attend_self), code,
-                  None) == 0
+                  ds.data_ptr() if keep_ds else None, None, b, n, L, d,
+                  d if width is None else width, int(attend_self), code, None) == 0
     if not keep_ds:
         return dkv
     dq = torch.full(levels.shape, float("nan"), dtype=levels.dtype)
@@ -759,10 +797,10 @@ def test_emulated_k6_refuses_what_the_kernel_does_not_take(k67):
     levels, g, lse, delta = _k67_inputs(1, 8, 2, 128, torch.float32, 0)
     out, ds = torch.empty(levels.shape), torch.zeros(consensus_kernel.ds_shape(levels))
 
-    def k6(lv=levels.data_ptr(), sn=levels.stride(1), d=128, dtype=0):
+    def k6(lv=levels.data_ptr(), sn=levels.stride(1), d=128, width=None, dtype=0):
         return dkv_fn(lv, levels.stride(0), sn, levels.stride(2), g.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), None, out.data_ptr(), ds.data_ptr(), None, 1, 8, 2, d,
-                      0, dtype, None)
+                      d if width is None else width, 0, dtype, None)
 
     def k7(lv=levels.data_ptr(), ds_ptr=ds.data_ptr(), d=128):
         return dq_fn(lv, *levels.stride()[:3], ds_ptr, out.data_ptr(), 1, 8, 2, d, 0, None)
@@ -770,6 +808,10 @@ def test_emulated_k6_refuses_what_the_kernel_does_not_take(k67):
     assert k6() == 0 and k7() == 0
     # d=640 is the wide design's, which needs its workspace (the wide file's tests)
     assert k6(d=96) != 0 and k6(d=640) != 0 and k6(dtype=2) != 0 and k7(d=96) != 0
+    # a model 96 or 16 wide reaches K6 zero-padded to 128, its own width
+    # scaling the logits (K7's dS' carries the scale); the width is 1 to d
+    assert k6(width=96) == 0 and k6(width=16) == 0
+    assert k6(width=0) != 0 and k6(width=129) != 0
     assert k6(lv=levels.data_ptr() + 4) != 0 and k7(lv=levels.data_ptr() + 4) != 0
     assert k6(sn=levels.stride(1) + 1) != 0               # rows off a 16-byte boundary
     assert k7(ds_ptr=None) != 0                           # K7 reads K6's dS'
@@ -817,3 +859,114 @@ def test_emulated_k6_sum_over_many_queries_does_not_drift(k67):
     assert torch.linalg.vector_norm(err) <= 1e-6 * torch.linalg.vector_norm(want)
     assert -(err * want.sign()).sum() <= 1e-6 * want.abs().sum()
     assert (err.abs() <= 1e-4 * (1.0 + want.abs())).all()
+
+
+# -- a model 16 wide: the kernels on inputs zero-padded to 128 ----------------
+
+NARROW = 16
+
+
+def _jnp(t):
+    import jax.numpy as jnp
+
+    return jnp.asarray(t.numpy())
+
+
+def _narrow_ff(rng, g, h):
+    return {"w1": _t32(rng, g, NARROW, h, scale=NARROW ** -0.5), "b1": _t32(rng, g, h, scale=0.1),
+            "w2": _t32(rng, g, h, NARROW, scale=h ** -0.5), "b2": _t32(rng, g, NARROW, scale=0.1)}
+
+
+def _t32(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+def test_emulated_k1_on_padded_inputs_matches_glom_tpu(k1_fn):
+    """K1 on x and the parameters of a model 16 wide with h 32, padded to
+    128 and 64 as the wrapper pads them, sliced back, against glom_tpu's
+    grouped-FF kernel in interpret mode at the true widths."""
+    from glom_tpu.kernels.ff_pallas import grouped_ff_pallas
+
+    rng = np.random.default_rng(21)
+    params, x = _narrow_ff(rng, 2, 32), _t32(rng, 2, 9, 2, NARROW)
+    padded = pad_ff_params(params, padded_width(NARROW), padded_hidden(32))
+    got, hid = _emulated_k1(k1_fn, padded, pad_last(x, padded_width(NARROW)))
+    assert not hid[..., 32:].any() and not got[..., NARROW:].any()
+    want = grouped_ff_pallas({k: _jnp(v) for k, v in params.items()}, _jnp(x), interpret=True)
+    _assert_close(unpad(got, x.shape), torch.from_numpy(np.array(want)), torch.float32)
+
+
+def _narrow_consensus(seed, attend_self, radius):
+    """``(levels, g, mask, mask_i8, out, lse)`` of a model 16 wide: glom_tpu's
+    interpret-mode forward (K4) on them, its out and lse as jax arrays."""
+    import jax.numpy as jnp
+
+    from glom_tpu.kernels import consensus_pallas
+
+    rng = np.random.default_rng(seed)
+    side = 5
+    levels, g = _t32(rng, 1, side * side, 2, NARROW), _t32(rng, 1, side * side, 2, NARROW)
+    mask = torch.from_numpy(local_consensus_mask(side, radius)) if radius else None
+    mask_i8 = None if mask is None else jnp.asarray(mask.numpy().astype(np.int8))
+    out, lse = consensus_pallas._dispatch(_jnp(levels), mask_i8, attend_self, True, None)
+    return levels, g, mask, mask_i8, out, lse
+
+
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+def test_emulated_k4_on_padded_levels_matches_glom_tpu(k4, attend_self, radius):
+    """K4 on levels of a model 16 wide padded to 128, called with the true
+    width (whose d^-1/2 scales the logits), sliced back, against glom_tpu's
+    consensus kernel in interpret mode at d=16: out and lse."""
+    levels, _, mask, _, want, want_lse = _narrow_consensus(22, attend_self, radius)
+    out, lse = _emulated_k4(k4, pad_last(levels, padded_width(NARROW)), mask,
+                            attend_self=attend_self, width=NARROW)
+    assert not out[..., NARROW:].any()
+    _assert_close(unpad(out, levels.shape), torch.from_numpy(np.array(want)), torch.float32)
+    _assert_close(lse, torch.from_numpy(np.array(want_lse)).reshape(lse.shape), torch.float32)
+
+
+@pytest.mark.parametrize("attend_self,radius", [(False, 0), (True, 0), (False, 1.5)])
+def test_emulated_k6_k7_on_padded_levels_match_glom_tpu(k67, attend_self, radius):
+    """K6 (with the true width) and K7 on its dS', on levels and dO of a
+    model 16 wide padded to 128, their sum sliced back, against glom_tpu's
+    flash backward kernels in interpret mode at d=16."""
+    from glom_tpu.kernels import consensus_pallas
+
+    levels, g, mask, mask_i8, out, lse = _narrow_consensus(23, attend_self, radius)
+    want = consensus_pallas._backward_flash(_jnp(levels), mask_i8, out, lse, _jnp(g),
+                                            attend_self=attend_self, interpret=True)
+    out_t = torch.from_numpy(np.array(out))
+    lse_t = torch.from_numpy(np.array(lse)).reshape(1, 2, 25, 1).contiguous()
+    delta = (g * out_t).sum(-1).permute(0, 2, 1)[..., None].contiguous()
+    dp = padded_width(NARROW)
+    dkv, ds, dq = _emulated_k67(k67, pad_last(levels, dp), pad_last(g, dp), lse_t, delta, mask,
+                                attend_self=attend_self, width=NARROW)
+    assert not dkv[..., NARROW:].any() and not dq[..., NARROW:].any()
+    _assert_close(unpad(dkv + dq, levels.shape), torch.from_numpy(np.array(want)),
+                  torch.float32)
+
+
+@pytest.mark.parametrize("radius", [0, 1.5])
+def test_emulated_k8_on_padded_inputs_matches_glom_tpu(k8, radius):
+    """K8 on levels, bottom, pos and both nets of a model 16 wide (h 64)
+    padded to 128, called with the true width, sliced back, against
+    glom_tpu's fused level-update kernel in interpret mode at d=16."""
+    from glom_tpu.kernels import fused_update_pallas
+
+    rng = np.random.default_rng(24)
+    b, side, L, h = 1, 4, 3, 4 * NARROW
+    n = side * side
+    bu, td = _narrow_ff(rng, L, h), _narrow_ff(rng, L - 1, h)
+    lwi = _t32(rng, b, n, L + 1, NARROW)
+    args = (bu, td, lwi[..., 1:, :], lwi[..., :1, :], _t32(rng, n, NARROW)[None, :, None, :])
+    mask = torch.from_numpy(local_consensus_mask(side, radius)) if radius else None
+    dp, hp = padded_width(NARROW), padded_hidden(h)
+    padded = (pad_ff_params(bu, dp, hp), pad_ff_params(td, dp, hp),
+              *(pad_last(t, dp) for t in args[2:]))
+    got = _emulated_k8(k8, padded, mask, width=NARROW)
+    assert not got[..., NARROW:].any()
+    want = fused_update_pallas.fused_level_update(
+        *({k: _jnp(v) for k, v in net.items()} for net in (bu, td)),
+        *(_jnp(t.contiguous()) for t in args[2:]),
+        non_local_mask=None if mask is None else _jnp(mask), interpret=True)
+    _assert_close(unpad(got, args[2].shape), torch.from_numpy(np.array(want)), torch.float32)

@@ -360,6 +360,12 @@ def _good_ff(d=128, g=2, h=256, dtype=torch.float32):
     return _torch(_ff_params(rng, g, d, h), dtype=dtype), torch.zeros((2, 4, g, d), dtype=dtype)
 
 
+def _empty_ff(d, h, g=2):
+    """FF parameters and x of width ``d`` and hidden ``h``, either of them 0."""
+    return ({"w1": torch.zeros((g, d, h)), "b1": torch.zeros((g, h)), "w2": torch.zeros((g, h, d)),
+             "b2": torch.zeros((g, d))}, torch.zeros((2, 4, g, d)))
+
+
 def test_ff_check_accepts_the_main_path_view():
     p, _ = _good_ff()
     lwi = torch.zeros((2, 4, 3, 128))
@@ -377,21 +383,30 @@ def test_ff_check_refuses(case):
     elif case == "shape":
         p["b1"], err = p["b1"][:, :-1], ValueError
     elif case == "dim":
-        # K1, K2 and K3 take every multiple of 128 and refuse any other
-        # width by name
+        # K1, K2 and K3 take every positive width: off a multiple of 128 the
+        # wrappers run them on zero-padded copies (their layouts then not
+        # the caller's concern); a width that is not positive is refused
         kernels = ("grouped_ff kernel (K1)", "grouped_ff_dx kernel (K2)",
                    "grouped_ff_dw kernel (K3)")
-        for d in (640, 1024):
+        for d in (8, 16, 64, 96, 600, 640, 1024):
             wide_p, wide_x = _good_ff(d=d, h=64)
             for kernel in kernels:
                 ff_kernel._check(wide_p, wide_x, kernel)
-        p, x = _good_ff(d=96, h=256)
+            assert ff_kernel._padded(wide_p, wide_x) == (d % 128 != 0)
+        ff_kernel._check(*_good_ff(d=96), "grouped_ff_dx kernel (K2)")
+        ff_kernel._check(*_good_ff(d=96)[:1], torch.zeros((4, 2, 2, 96)).transpose(0, 1))
+        p, x = _empty_ff(0, 256)
         for kernel in kernels[1:]:
-            with pytest.raises(ValueError, match=r"\(K[23]\).*multiple of 128.*d=96"):
+            with pytest.raises(ValueError, match=r"\(K[23]\).*positive width.*d=0"):
                 ff_kernel._check(p, x, kernel)
         err = ValueError
     elif case == "hidden":
-        p, x = _good_ff(h=96)
+        # any positive h: off a multiple of 64 the wrappers pad it too
+        for h in (32, 96, 200):
+            hp, hx = _good_ff(h=h)
+            ff_kernel._check(hp, hx)
+            assert ff_kernel._padded(hp, hx)
+        p, x = _empty_ff(128, 0)
         err = ValueError
     elif case == "strides":
         x, err = torch.zeros((4, 2, 2, 128)).transpose(0, 1), ValueError
@@ -412,18 +427,20 @@ def test_consensus_check_refuses(case):
     if case == "dtype":
         levels, err = levels.double(), TypeError
     elif case == "dim":
-        # K4, K6 and K7 take every multiple of 128 (above 512 the wide
-        # designs) and refuse any other width by name
+        # K4, K6 and K7 take every positive width (above 512 the wide
+        # designs; off a multiple of 128 on zero-padded copies, the model's
+        # width scaling the logits) and refuse a width that is not positive
         kernels = ("consensus kernel (K4)", "consensus_dkv kernel (K6)",
                    "consensus_dq kernel (K7)")
-        for d in (512, 640, 1024, 2048):
+        for d in (8, 16, 64, 96, 512, 600, 640, 1024, 2048):
             for kernel in kernels:
                 consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, kernel)
-        for d in (96, 600):
-            for kernel in kernels[1:]:
-                with pytest.raises(ValueError, match=r"\(K[67]\).*multiple of 128"):
-                    consensus_kernel._check(torch.zeros((2, 8, 3, d)), None, kernel)
-        levels = torch.zeros((2, 8, 3, 96))
+            padded = consensus_kernel._kernel_levels(torch.zeros((2, 8, 3, d)))
+            assert padded.shape[-1] == -(-d // 128) * 128 and padded.is_contiguous()
+        for kernel in kernels[1:]:
+            with pytest.raises(ValueError, match=r"\(K[67]\).*positive width"):
+                consensus_kernel._check(torch.zeros((2, 8, 3, 0)), None, kernel)
+        levels = torch.zeros((2, 8, 3, 0))
     elif case == "mask_shape":
         mask = torch.zeros((8, 7), dtype=torch.bool)
     elif case == "mask_dtype":
@@ -469,8 +486,8 @@ def test_backward_wrappers_copy_rows_off_a_boundary(dtype, offset):
     # the strided bottom-up view of an aligned state needs no copy
     assert _common.vector_aligned(base[..., :-1, :], base.stride(1), base.stride(2), nbytes=16)
     p, _ = _good_ff(g=2, dtype=dtype)
-    assert ff_kernel._kernel_input(p, base[..., :-1, :]).data_ptr() == base.data_ptr()
-    got = ff_kernel._kernel_input(p, off[..., :-1, :])
+    assert ff_kernel._kernel_operands(p, base[..., :-1, :])[1].data_ptr() == base.data_ptr()
+    got = ff_kernel._kernel_operands(p, off[..., :-1, :])[1]
     assert torch.equal(got, off[..., :-1, :]) and got.data_ptr() % 16 == 0
 
 
@@ -495,11 +512,11 @@ def test_forward_copies_rows_off_a_16_byte_boundary(dtype, offset):
                         (p3, flat[off:off + 2 * 8 * 3 * 128].view(2, 8, 3, 128))):
             assert not _common.vector_aligned(view, ff_kernel._row_stride(view), view.stride(2),
                                               nbytes=16)
-            got = ff_kernel._kernel_input(p, view)
+            got = ff_kernel._kernel_operands(p, view)[1]
             assert torch.equal(got, view) and got.data_ptr() != view.data_ptr()
             assert got.data_ptr() % 16 == 0 and got.is_contiguous()
     for p, view in ((p3, base[..., :-1, :]), (p2, base[..., 2:, :])):
-        assert ff_kernel._kernel_input(p, view).data_ptr() == view.data_ptr()
+        assert ff_kernel._kernel_operands(p, view)[1].data_ptr() == view.data_ptr()
 
 
 def test_wrappers_refuse_grad_and_other_devices():
@@ -1287,8 +1304,17 @@ def test_gpu_fused_update_reads_views_and_refuses_misaligned_rows(cuda):
                 got = fu.fused_level_update(bu, td, *views)
             assert fu.fused_level_update.launches == before + 1
             _assert_close(got, _reference(fu, (bu, td, levels, bottom, pos), None, False), dtype)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fu.fused_level_update(bu, td, levels[..., :96], bottom[..., :96], pos[..., :96])
+    # a width off a multiple of 128 runs on zero-padded copies, one launch
+    def narrow_net(p):
+        return {"w1": p["w1"][:, :96].contiguous(), "b1": p["b1"],
+                "w2": p["w2"][..., :96].contiguous(), "b2": p["b2"][..., :96].contiguous()}
+
+    narrow = (narrow_net(bu), narrow_net(td), levels[..., :96], bottom[..., :96], pos[..., :96])
+    before = fu.fused_level_update.launches
+    with torch.inference_mode():
+        got = fu.fused_level_update(*narrow)
+    assert fu.fused_level_update.launches == before + 1 and got.shape[-1] == 96
+    _assert_close(got, _reference(fu, narrow, None, False), dtype)
 
 
 @pytest.mark.gpu

@@ -606,7 +606,8 @@ def test_router_cli_spawns_cpu_replicas_and_refuses_platform(tmp_path, capsys):
         router = ours.FleetRouter(urls, health_interval_s=0.2)
         router.check_health_once(force=True)
         health = router.health()
-        assert health["healthy_replicas"] == 2 and health["dim"] == 128
+        # the --demo checkpoint is the 16-wide DEMO_CONFIG, glom_tpu's
+        assert health["healthy_replicas"] == 2 and health["dim"] == 16
     finally:
         for eng, srv in members:
             srv.shutdown()

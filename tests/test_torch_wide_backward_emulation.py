@@ -90,7 +90,7 @@ def _emulated_k67(k67, levels, g, lse, delta, mask=None, attend_self=False, keep
     strides = levels.stride()[:3]
     assert dkv_fn(levels.data_ptr(), *strides, g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   None if mask is None else mask.data_ptr(), dkv.data_ptr(),
-                  ds.data_ptr() if keep_ds else None, ws.data_ptr(), b, n, L, d,
+                  ds.data_ptr() if keep_ds else None, ws.data_ptr(), b, n, L, d, d,
                   int(attend_self), code, None) == 0
     if not keep_ds:
         return dkv
@@ -155,15 +155,17 @@ def test_emulated_wide_k6_workspace_and_refusals(k67):
     out, ds = torch.empty(levels.shape), torch.zeros(consensus_kernel.ds_shape(levels))
     ws = torch.zeros(ws_floats(1, 8, 1, 640, 0) + 4)
 
-    def k6(ws_ptr=ws.data_ptr(), d=640):
+    def k6(ws_ptr=ws.data_ptr(), d=640, width=640):
         return dkv_fn(levels.data_ptr(), *levels.stride()[:3], g.data_ptr(), lse.data_ptr(),
                       delta.data_ptr(), None, out.data_ptr(), ds.data_ptr(), ws_ptr, 1, 8, 1, d,
-                      0, 0, None)
+                      width, 0, 0, None)
 
     assert k6() == 0
     assert k6(ws_ptr=None) != 0                       # the wide design's workspace
     assert k6(ws_ptr=ws.data_ptr() + 4) != 0          # off a 16-byte boundary
-    assert k6(d=96) != 0
+    assert k6(d=96, width=96) != 0
+    # a model 600 wide, zero-padded to 640, scales its logits by its own width
+    assert k6(width=600) == 0 and k6(width=0) != 0 and k6(width=641) != 0
     assert dq_fn(levels.data_ptr(), *levels.stride()[:3], ds.data_ptr(), out.data_ptr(), 1, 8, 1,
                  640, 0, None) == 0                   # K7 takes the width as it is
 
