@@ -12,7 +12,7 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
   build    nvcc builds every kernel in glom_tpu_torch/kernels/csrc/;
   kernels  each kernel against its plain PyTorch version at the flagship
            shapes (b=8, n=256, L=6, d=512), in float32 and bfloat16, with
-           times (CUDA events; per call, the median of 20 runs of 5 calls
+           times (CUDA events; per call, the median of REPS (10) runs of 5 calls
            after a warm-up) beside the bound and a PyTorch library call
            where one computes the same function: the forward kernels (K1's
            rows as the k1 phase gives them; K4/K5) and the backward ones (K2, K3 of the grouped FF; K6, K7 of
@@ -202,8 +202,8 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            capture; the extra model through K8; three shadow -> rollback
            cycles within 1 % of allocated memory;
   session_tools  python -m glom_tpu_torch.tools.session_check --warm-iters
-           2,3,4,6 --frames 16 --batch 2 through the session graphs (exact
-           launch counts), then the loadgen's --sessions 4 --frames 16 and
+           2,3,4,6 --frames 8 --batch 2 through the session graphs (exact
+           launch counts), then the loadgen's --sessions 4 --frames 8 and
            --tenant a:3 --tenant b:1 against an in-process server;
   faults   data:nan_batch@3 halting a flagship Trainer.fit (b=8, the
            kernel backward) with NonFiniteError at step 3, ckpt_write:torn
@@ -352,7 +352,20 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            and gradients against the plain path, two runs of one step
            bitwise; "auto" attention picking "pallas" on the card; and one
            step on "dense" and on "pallas" attention, timed, for the
-           crossover's row.
+           crossover's row;
+  mesh     multi-GPU training on the one card, flagship f32 b=8, 2 steps:
+           (i) a world of one over NCCL through ``python -m
+           glom_tpu_torch.training.train --mesh 1 1 1 --num-processes 1
+           --coordinator localhost:PORT`` (launches exact); (ii) two ranks
+           sharing the card over gloo (NCCL refuses two ranks on one
+           device; what gloo does not take on CUDA tensors is staged through
+           pinned host copies), each on cuda:0: (2, 1, 1) DP with
+           ff_impl="fused" (K8 a rank), (1, 2, 1) TP (K1/K2/K3 at h=1024 a
+           rank), (1, 1, 2) ring and Ulysses (n=128 columns a rank), (1, 2,
+           1) EP (bottom-up's 6 groups split, top-down's 5 replicated);
+           every rank's device, backend, launches a step (exact) and step
+           times, and the loss and every parameter within 1e-4 of the
+           one-rank step on the card from the same seed, batches and noise.
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -396,6 +409,7 @@ from glom_tpu_torch.ops import feedforward as plain_ffm
 from glom_tpu_torch.ops.consensus import consensus_attention as plain_consensus
 from glom_tpu_torch.ops.consensus import l2_normalize
 from glom_tpu_torch.ops.feedforward import grouped_ff_apply as plain_ff
+from glom_tpu_torch.parallel.placement import gather_to_host
 from glom_tpu_torch.profiling import memory_analysis, trace_files
 from glom_tpu_torch.serving.engine import DEMO_CONFIG, ServingEngine, make_demo_checkpoint
 from glom_tpu_torch.serving.server import make_server
@@ -426,7 +440,7 @@ RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TF32_FLOPS = 495e12
 # embeddings after 12 iterations, kernels vs the plain path, float32
 SERVE_ATOL = 1e-3
-REPS, INNER = 20, 5
+REPS, INNER = 10, 5
 # one train step's gradients, kernels vs the plain path, float32: relative
 # (Frobenius) error per parameter leaf
 GRAD_RTOL = 1e-4
@@ -645,6 +659,18 @@ def sdpa_call(levels, dtype):
     q = levels.transpose(1, 2)
     k = l2_normalize(levels.float()).to(dtype).transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(q, k, q)
+
+
+def sdpa_backward_call(levels, g, dtype):
+    """SDPA's backward (dQ, dK, dV) on the attend_self=True variant of
+    ``levels`` with the cotangent ``g``, as a function (the consensus
+    backward kernels' library call)."""
+    q = levels.transpose(1, 2).detach().requires_grad_(True)
+    k = l2_normalize(levels.float()).to(dtype).transpose(1, 2).detach().requires_grad_(True)
+    v = levels.transpose(1, 2).detach().requires_grad_(True)
+    o = F.scaled_dot_product_attention(q, k, v)
+    go = g.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
 
 
 def consensus_case(levels, dtype, label, *, attend_self=False, mask=None, library=None):
@@ -1556,9 +1582,9 @@ def phase_serve_fused(device) -> dict:
 # loadgen's MIN_TAIL_SAMPLES); PERF.md section 4 defines the longer leg.
 LOAD_BATCH_SIZES = tuple(range(1, 9))
 LOAD_CONCURRENCY = 8
-LOAD_CLOSED_S = 3.0
-LOAD_OPEN_S = 8.0
-LOAD_RELOAD_AT_S = 3.0
+LOAD_CLOSED_S = 2.0
+LOAD_OPEN_S = 6.0
+LOAD_RELOAD_AT_S = 2.0
 # a second reload may leave allocated memory this far from the first's
 RELOAD_MEMORY_MARGIN = 16 * 2 ** 20
 LOAD_SPANS = ("request", "parse", "queue_wait", "batch_assembly", "pad", "execute", "respond")
@@ -2033,8 +2059,9 @@ def two_view_vs_plain(config, train_cfg, params, img, noise, want_launches) -> d
 
 
 def rel_err(got, want) -> float:
-    """``||got - want|| / ||want||`` (Frobenius), in float64."""
-    got, want = got.double(), want.double()
+    """``||got - want|| / ||want||`` (Frobenius), in float64; tensors, arrays
+    or numbers."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
@@ -2683,7 +2710,7 @@ def phase_islands(device) -> dict:
           "propagation_steps": n, "index_rel_err": index_err, "rtol": PATH_RTOL,
           "launches": launches, "row_width": parse.parse_row_width(L, side, d),
           "mean_atol": ISLAND_MEAN_ATOL, "cases": cases,
-          "pack_ms_note": "CUDA events, the median of 20 runs of 5 calls; device ops from a "
+          "pack_ms_note": "CUDA events, the median of REPS runs of 5 calls; device ops from a "
                           "torch.profiler trace of one call"})
     return launches
 
@@ -3245,7 +3272,7 @@ MEMORY_CYCLES = 3
 SHADOW_BATCHES = 4
 LATENCY_SAMPLES = {1: 40, 8: 20}
 SESSION_SWEEP = "2,3,4,6"
-SESSION_TOOL_FRAMES = 16
+SESSION_TOOL_FRAMES = 8
 FAULT_TRAIN_STEPS = 4
 
 
@@ -3628,11 +3655,11 @@ def phase_deploy(device) -> dict:
 
 def phase_session_tools(device) -> dict:
     """The session tools at flagship width: python -m
-    glom_tpu_torch.tools.session_check --warm-iters 2,3,4,6 --frames 16
+    glom_tpu_torch.tools.session_check --warm-iters 2,3,4,6 --frames 8
     --batch 2 on a "pallas" checkpoint (the main path: counts set to 0 just
     before, read just after; every frame a graph replay), its verdict and
     each sweep value's distance and p50/p95; then the port's load generator
-    against an in-process server: --sessions 4 --frames 16, and --tenant a:3
+    against an in-process server: --sessions 4 --frames 8, and --tenant a:3
     --tenant b:1 (tenant a's quota 50 images/s), p50/p95 per frame kind and
     per tenant."""
     import contextlib
@@ -3669,7 +3696,7 @@ def phase_session_tools(device) -> dict:
     base = "http://{}:{}".format(*server.server_address[:2])
     try:
         sessions = run_loadgen(base, "--sessions", 4, "--frames", SESSION_TOOL_FRAMES)
-        tenants = run_loadgen(base, "--tenant", "a:3", "--tenant", "b:1", "--requests", 80,
+        tenants = run_loadgen(base, "--tenant", "a:3", "--tenant", "b:1", "--requests", 40,
                               "--concurrency", 4)
     finally:
         server.shutdown()
@@ -3972,8 +3999,8 @@ def shadow_agreement(engine, ckpt: str, c, x8) -> dict:
 
 
 CAPACITY_LADDER = 2
-CAPACITY_CLOSED_S = 3.0
-CAPACITY_CEILING_S = 2.0
+CAPACITY_CLOSED_S = 2.0
+CAPACITY_CEILING_S = 1.5
 # a utilization against this run's own closed-loop rate: above 0, and at most
 # the rate itself with a margin for the windows' edges
 UTIL_MAX = 1.05
@@ -4537,17 +4564,17 @@ def phase_attribution(device) -> dict:
 
 
 # -- the fleet ------------------------------------------------------------------
-FLEET_HOP_REQUESTS = 60
+FLEET_HOP_REQUESTS = 20
 # clients of the fail-over and rollout loops: in this process, each parse of
 # a 3 MB body holds the interpreter lock, and four clients starved the
 # rollout's captures (110 s, a 6.6 s exclusive hold on the H100; two: 27.6-
 # 42.6 s; PERF.md)
 FLEET_CLIENTS = 1
-FLEET_LOOP_S = 4.0
+FLEET_LOOP_S = 2.0
 FLEET_AFFINITY_KEYS = 3
 FLEET_AFFINITY_FRAMES = 8
-FLEET_QUERIES = 8
-FLEET_INDEX_SLOTS = 64
+FLEET_QUERIES = 4
+FLEET_INDEX_SLOTS = 32
 FLEET_TIMEOUT_S = 300.0
 # the predictions written into PERF.md before the phase's first run
 FLEET_PREDICTED = {"hop_p50_ms": [1.0, 5.0], "one_process_ratio": [0.9, 1.1],
@@ -5688,7 +5715,7 @@ BENCH_TIE_RTOL = 0.10
 BENCH_LEG_TIMEOUT_S = 300
 # the timed steps of each leg (bench's default on a card is 20): fewer, to
 # keep the whole script inside its time limit
-BENCH_LEG_STEPS = ["--steps", "10"]
+BENCH_LEG_STEPS = ["--steps", "6"]
 
 
 def bench_leg(flags) -> dict:
@@ -5811,7 +5838,7 @@ LARGE_TRAINED = (
 )
 # the large kernel rows' timing: fewer samples than the flagship rows (each
 # call takes milliseconds), to keep the script inside its time limit
-LARGE_REPS, LARGE_INNER = 5, 2
+LARGE_REPS, LARGE_INNER = 3, 2
 
 
 @contextlib.contextmanager
@@ -6215,7 +6242,8 @@ def narrow_kernel_rows(device) -> dict:
                 with torch.no_grad():
                     out, lse = consensus_kernel.consensus_attention(lv, attend_self=attend_self)
                 with_device_time(pair, lambda: consensus_kernel.consensus_backward(
-                    lv, None, out, lse, gl, attend_self=attend_self))
+                    lv, None, out, lse, gl, attend_self=attend_self),
+                    sdpa_backward_call(lv, gl, dtype) if attend_self else None)
                 for r in bwd:
                     rows[r["kernel"]].append(r)
     for kernel, r in rows.items():
@@ -6357,11 +6385,281 @@ def phase_chaos(device, everything: bool = False) -> dict:
     return got
 
 
+# -- the mesh phase: multi-GPU training on one card ------------------------
+
+# one rank of the two that share the card over gloo: each case a Trainer on
+# the (2, 1, 1) / (1, 2, 1) / (1, 1, 2) mesh at flagship width, MESH_STEPS
+# steps on the batches and noise the parent wrote (chip_smoke.mesh_run);
+# rank 0 saves the losses, grad norms, gathered parameters and first
+# moments, every rank prints its launches a step and its step times
+MESH_RANK_CHILD = r'''
+import io, json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from chip_smoke import mesh_run, mesh_snapshot
+from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.kernels import wrappers
+from glom_tpu_torch.parallel.mesh import initialize_distributed
+from glom_tpu_torch.training.metrics import MetricLogger
+from glom_tpu_torch.training.trainer import Trainer
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, rank = sys.argv[2], int(sys.argv[3])
+spec = json.load(open(os.path.join(work, "spec.json")))
+# gloo named for CUDA tensors: both ranks run on the one card
+device = initialize_distributed("file://" + os.path.join(work, "store"), 2, rank,
+                                device="cuda:0", backend="gloo", timeout_s=300)
+data = np.load(os.path.join(work, "batches.npz"))
+for case in spec["cases"]:
+    config = GlomConfig(**case["config"])
+    train = TrainConfig(**case["train"], mesh_shape=tuple(case["mesh"]))
+    trainer = Trainer(config, train, device=device, logger=MetricLogger(stream=io.StringIO()))
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    run = mesh_run(trainer, data, device)
+    steps = len(data["imgs"])
+    launches = {k: fn.launches for k, fn in fns.items()}
+    flat = mesh_snapshot(trainer)
+    if rank == 0:
+        np.savez(os.path.join(work, case["name"] + ".npz"), loss=np.asarray(run["loss"]),
+                 grad_norm=np.asarray(run["grad_norm"]), **flat)
+    print(json.dumps({"case": case["name"], "rank": rank, "mesh": case["mesh"],
+                      "device": torch.cuda.get_device_name(device), "backend": dist.get_backend(),
+                      "coords": trainer.mesh.coords, "launches": launches,
+                      "launches_per_step": {k: v / steps for k, v in launches.items()}, **run,
+                      "local_w1": {net: list(trainer.state.params["glom"][net]["w1"].shape)
+                                   for net in ("bottom_up", "top_down")}}), flush=True)
+    del trainer, flat
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+'''
+
+# a world of one over NCCL through the training CLI (--mesh 1 1 1
+# --num-processes 1 --coordinator localhost:PORT): the backend it started,
+# then the launches of the CLI's steps
+MESH_NCCL_CHILD = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as dist
+from glom_tpu_torch.kernels import wrappers
+from glom_tpu_torch.training import train
+
+seen = []
+_init = dist.init_process_group
+
+def init(*args, **kwargs):
+    _init(*args, **kwargs)
+    seen.append({"backend": dist.get_backend(), "world": dist.get_world_size()})
+
+dist.init_process_group = init
+final = train.main(sys.argv[2:])
+print(json.dumps({"process_group": seen, "final": final,
+                  "launches": {k: fn.launches for k, fn in wrappers().items()}}), flush=True)
+'''
+
+MESH_STEPS = 2
+MESH_TIMEOUT_S = 600
+MESH_RTOL = 1e-4
+
+
+def mesh_kernels(**kw) -> dict:
+    return {**FLAGSHIP.to_json_dict(), "ff_impl": "pallas", "ff_fused_bwd": True,
+            "attention_impl": "pallas", **kw}
+
+
+# (name, mesh, config, train, launches a step on each rank at loss timestep t)
+MESH_CASES = (
+    ("dp_fused", (2, 1, 1), mesh_kernels(ff_impl="fused"), dict(param_sharding="replicated"),
+     lambda t: {**want_launches(t, t), "fused_level_update": t}),
+    ("tp", (1, 2, 1), mesh_kernels(), dict(param_sharding="tp"), lambda t: want_launches(t, t)),
+    ("ring", (1, 1, 2), mesh_kernels(attention_impl="ring"), dict(param_sharding="replicated"),
+     lambda t: {**want_launches(t, t), "consensus_attention": 0, "consensus_dkv": 0,
+                "consensus_dq": 0}),
+    ("ulysses", (1, 1, 2), mesh_kernels(attention_impl="ulysses"),
+     dict(param_sharding="replicated"),
+     lambda t: {**want_launches(t, t), "consensus_attention": 0, "consensus_dkv": 0,
+                "consensus_dq": 0}),
+    ("ep", (1, 2, 1), mesh_kernels(), dict(param_sharding="ep"), lambda t: want_launches(t, t)),
+)
+# written before the first run on the card (PERF.md §6, the mesh entry): a rank's step
+# time over the one-rank step's, with the gloo staging through the host
+MESH_PREDICTED = {"tp_over_one_rank": [2.0, 5.0], "ring_over_one_rank": [1.5, 4.0],
+                  "dp_fused_over_one_rank": [1.0, 2.0], "rel_err": 1e-5, "seconds": [60, 120]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_run(trainer, data, device) -> dict:
+    """A step of ``trainer`` on each of ``data``'s batches with its noise:
+    the loss and the logged grad norm of each step, and the step times."""
+    run = {"loss": [], "grad_norm": [], "step_ms": []}
+    for k in range(len(data["imgs"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(data["imgs"][k], noise=torch.from_numpy(data["noise"][k]).to(device))
+        run["loss"].append(float(m["loss"]))
+        run["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return run
+
+
+def mesh_snapshot(trainer) -> dict:
+    """The trainer's parameters and Adam's first moments (``(1 - b1)`` times
+    a weighted sum of the steps' gradients, so a gradient scaled wrong shows
+    there, where Adam's update hides it), gathered and flat."""
+    state = trainer.state
+    return ckpt_lib.flatten({
+        name: gather_to_host(tree, trainer.mesh, trainer._specs)
+        for name, tree in (("params", state.params), ("mu", state.opt_state["mu"]))})
+
+
+def mesh_reference(case, data, device) -> tuple:
+    """The one-rank Trainer on the card from the same seed, batches and noise
+    (ring and Ulysses are the consensus kernels on one rank): its run
+    (:func:`mesh_run`) and its snapshot after the steps."""
+    name, _, cfg, tc, _ = case
+    cfg = {**cfg, "attention_impl": "pallas"} if cfg["attention_impl"] in ("ring", "ulysses") \
+        else cfg
+    trainer = Trainer(GlomConfig(**cfg), TrainConfig(batch_size=BATCH, **tc), device=device,
+                      logger=MetricLogger(stream=open(os.devnull, "w")))
+    run = mesh_run(trainer, data, device)
+    after = mesh_snapshot(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    return run, after
+
+
+
+def phase_mesh(device) -> dict:
+    """Multi-GPU training on the one card: (i) a world of one over NCCL
+    through ``python -m glom_tpu_torch.training.train --mesh 1 1 1
+    --num-processes 1 --coordinator localhost:PORT`` (the production
+    backend's start-up and collectives; flagship, b=8, 2 steps on the
+    kernels, launches exact); (ii) two ranks sharing the card over gloo
+    (NCCL refuses two ranks on one device), each running the kernels on
+    cuda:0, the collectives gloo does not take on CUDA tensors staged
+    through pinned host copies: (2, 1, 1) DP with ``ff_impl="fused"`` (K8 a
+    rank), (1, 2, 1) TP (K1/K2/K3 at h=1024 a rank), (1, 1, 2) ring and
+    Ulysses (n=128 columns a rank) and (1, 2, 1) EP (bottom-up's 6 groups
+    split, top-down's 5 replicated), flagship f32 b=8, MESH_STEPS steps
+    each; every rank's launches a step exact, and each step's loss and
+    logged grad norm, every parameter after the steps and each of Adam's
+    first moments within MESH_RTOL of the one-rank step on the card from
+    the same seed, batches and noise.  Returns the launches of (i) and
+    (ii), every rank and case."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mesh-")
+    rng = np.random.default_rng(31)
+    shape = (MESH_STEPS, BATCH, 3, FLAGSHIP.image_size, FLAGSHIP.image_size)
+    data = {"imgs": rng.standard_normal(shape).astype(np.float32),
+            "noise": rng.standard_normal(shape).astype(np.float32)}
+    np.savez(os.path.join(work, "batches.npz"), **data)
+    cases = [{"name": name, "mesh": list(mesh), "config": cfg,
+              "train": dict(batch_size=BATCH, **tc)} for name, mesh, cfg, tc, _ in MESH_CASES]
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"cases": cases}, f)
+    torch.cuda.empty_cache()
+    t = denoise.resolve_loss_timestep(TrainConfig(), FLAGSHIP.default_iters)
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    nccl_argv = ["--mesh", "1", "1", "1", "--num-processes", "1", "--process-id", "0",
+                 "--coordinator", f"localhost:{free_port()}", "--steps", str(MESH_STEPS),
+                 "--batch-size", str(BATCH), "--log-every", "1", "--ff-impl", "pallas",
+                 "--fused-ff-bwd", "--attention-impl", "pallas"]
+    nccl = subprocess.run([sys.executable, "-c", MESH_NCCL_CHILD, ROOT, *nccl_argv],
+                          capture_output=True, text=True, timeout=MESH_TIMEOUT_S, env=env)
+    ranks = [subprocess.Popen([sys.executable, "-c", MESH_RANK_CHILD, ROOT, work, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=MESH_TIMEOUT_S) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if nccl.returncode != 0:
+        raise AssertionError(f"mesh: the NCCL world of one failed:\n{nccl.stderr[-3000:]}")
+    lines = nccl.stdout.strip().splitlines()
+    one = json.loads(lines[-1])
+    # the CLI's records, one a step (--log-every 1): the step time of each
+    records = [json.loads(line) for line in lines[:-1] if line.startswith("{\"step\"")]
+    one["step_ms"] = [1e3 * BATCH / r["imgs_per_sec"] for r in records if "imgs_per_sec" in r]
+    if one["process_group"] != [{"backend": "nccl", "world": 1}]:
+        raise AssertionError(f"mesh: the CLI started {one['process_group']}, not NCCL of one")
+    want_one = {k: MESH_STEPS * v for k, v in want_launches(t, t).items()}
+    check_launches("mesh (i) NCCL world of one", one["launches"], want_one)
+    if not np.isfinite(one["final"]["loss"]):
+        raise AssertionError(f"mesh (i): loss {one['final']}")
+    emit({"phase": "mesh", "part": "nccl_world_of_one", "argv": nccl_argv, **one})
+    for r, (out, err) in enumerate(outs):
+        if ranks[r].returncode != 0:
+            raise AssertionError(f"mesh: gloo rank {r} failed:\n{err[-4000:]}")
+    records = [json.loads(line) for out, _ in outs for line in out.splitlines()
+               if line.startswith("{")]
+    total = dict(one["launches"])
+    for case in MESH_CASES:
+        name, mesh, cfg, tc, want = case
+        recs = [r for r in records if r["case"] == name]
+        if sorted(r["rank"] for r in recs) != [0, 1]:
+            raise AssertionError(f"mesh {name}: ranks {[r['rank'] for r in recs]}")
+        for r in recs:
+            check_launches(f"mesh {name} rank {r['rank']} a step", r["launches_per_step"],
+                           {k: float(v) for k, v in want(t).items()})
+            if r["backend"] != "gloo" or r["device"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"mesh {name}: {r['backend']} on {r['device']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        ref, after = mesh_reference(case, data, device)
+        got = np.load(os.path.join(work, f"{name}.npz"))
+        # each step's loss and global grad norm, each parameter, and each
+        # first moment: Adam's update is near lr * sign(g), which a gradient
+        # scaled by a constant leaves as it is, but the moment is linear in g
+        errs = {f"{k}[{i}]": rel_err(got[k][i], ref[k][i])
+                for k in ("loss", "grad_norm") for i in range(MESH_STEPS)}
+        errs.update({k: rel_err(got[k], v) for k, v in after.items()})
+        worst = max(errs, key=errs.get)
+        rec = {"phase": "mesh", "case": name, "mesh": list(mesh),
+               "param_sharding": tc["param_sharding"], "attention_impl": cfg["attention_impl"],
+               "ff_impl": cfg["ff_impl"], "loss": ref["loss"], "grad_norm": ref["grad_norm"],
+               "loss_rel_err": max(errs[f"loss[{i}]"] for i in range(MESH_STEPS)),
+               "grad_norm_rel_err": max(errs[f"grad_norm[{i}]"] for i in range(MESH_STEPS)),
+               "worst_param_rel_err": max(v for k, v in errs.items() if k.startswith("params")),
+               "worst_moment_rel_err": max(v for k, v in errs.items() if k.startswith("mu")),
+               "worst": worst, "worst_rel_err": errs[worst],
+               "one_rank_step_ms": ref["step_ms"],
+               "ranks": [{k: r[k] for k in ("rank", "device", "backend", "coords",
+                                            "launches_per_step", "step_ms", "local_w1")}
+                         for r in sorted(recs, key=lambda r: r["rank"])],
+               "rank_over_one_rank": max(r["step_ms"][-1] for r in recs) / ref["step_ms"][-1],
+               "staging": "gloo for CUDA tensors: all_gather, all_to_all and the ring's "
+                          "shift through pinned host copies; all_reduce on the CUDA tensors"}
+        emit(rec)
+        bad = {k: v for k, v in errs.items() if not v <= MESH_RTOL}     # NaN fails too
+        if bad:
+            raise AssertionError(f"mesh {name}: {bad} from the one-rank step "
+                                 f"(limit {MESH_RTOL})")
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "mesh", "predicted": MESH_PREDICTED, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
           "bulk", "attribution", "fleet", "train_obs", "forensics", "widths", "chaos", "bench",
-          "large")
+          "large", "mesh")
 
 
 def parse_args(argv):
@@ -6417,7 +6715,7 @@ SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": pha
                 "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
                 "attribution": phase_attribution, "fleet": phase_fleet,
                 "train_obs": phase_train_obs, "forensics": phase_forensics,
-                "widths": phase_widths, "chaos": phase_chaos}
+                "widths": phase_widths, "chaos": phase_chaos, "mesh": phase_mesh}
 
 
 def run_only(device, names) -> int:

@@ -220,7 +220,10 @@ def resolve_auto_attention(config: GlomConfig, device=None) -> str:
 def make_consensus_fn(config: GlomConfig, device=None):
     """``levels -> consensus`` for the config's ``attention_impl``: the CUDA
     kernels (``"pallas"``), the plain ops (``"dense"``), or whichever of the
-    two :func:`resolve_auto_attention` picks for ``device`` (``"auto"``)."""
+    two :func:`resolve_auto_attention` picks for ``device`` (``"auto"``).
+    ``"ring"`` and ``"ulysses"`` are bound to a mesh: they refuse here, as in
+    ``glom_tpu``, and the trainer injects them (``parallel/ring.py``,
+    ``parallel/ulysses.py``)."""
     impl = config.attention_impl
     if impl == "auto":
         impl = resolve_auto_attention(config, device)
@@ -228,11 +231,14 @@ def make_consensus_fn(config: GlomConfig, device=None):
         attend = consensus_kernel
     elif impl == "dense":
         attend = consensus_attention
+    elif impl in ("ring", "ulysses"):
+        raise ValueError(
+            f"attention_impl={impl!r} needs a device mesh binding the seq axis; use the "
+            f"Trainer (which injects it), or pass consensus_fn=glom_tpu_torch.parallel."
+            f"{{ring.make_ring_consensus | ulysses.make_ulysses_consensus}}(mesh, ...) to "
+            f"apply() yourself")
     else:
-        raise NotImplementedError(
-            f"attention_impl={impl!r} needs the multi-GPU port "
-            f"(ROADMAP queue 1, item 6); use 'pallas' or 'dense'"
-        )
+        raise ValueError(impl)
     mask = resolve_locality_mask(config, device)
 
     def f(levels):
@@ -273,11 +279,14 @@ def embed_inputs(params, img, config: GlomConfig):
     return tokens, params["pos_emb"][None, :, None, :]
 
 
-def initial_levels(params, b: int, config: GlomConfig, dtype) -> torch.Tensor:
-    """The learned per-level init state, materialized as ``(b, n, L, d)``."""
+def initial_levels(params, b: int, config: GlomConfig, dtype, n: Optional[int] = None
+                   ) -> torch.Tensor:
+    """The learned per-level init state, materialized as ``(b, n, L, d)``
+    (``n`` columns; default all of them)."""
     c = config
     init_levels = params["init_levels"].to(dtype)
-    return init_levels[None, None].expand(b, c.num_patches, c.levels, c.dim).contiguous()
+    n = c.num_patches if n is None else n
+    return init_levels[None, None].expand(b, n, c.levels, c.dim).contiguous()
 
 
 def _update_step(params, bottom_level, pos_embs, divisors, consensus_fn, ff_fn, levels):
@@ -425,6 +434,7 @@ def apply(
     consensus_fn=None,
     ff_fn=None,
     fused_fn=None,
+    columns: Optional[slice] = None,
 ):
     """Forward pass, ``Glom.forward(img, iters, levels, return_all)``.
 
@@ -437,14 +447,18 @@ def apply(
     holds and neither override is injected: injected functions win).  When
     ``ff_impl="fused"`` falls back, a default ``attention_impl="dense"`` is a
     leftover, not a choice, and resolves by the ``"auto"`` policy; an explicit
-    ``"auto"`` / ``"pallas"`` is honoured."""
+    ``"auto"`` / ``"pallas"`` is honoured.
+
+    ``columns`` (a slice of the ``n`` patch columns) runs a seq shard of the
+    state: the tokens, positional embeddings and state of those columns
+    only, with a ``consensus_fn`` that reaches the other columns
+    (``parallel/ring.py``, ``parallel/ulysses.py``)."""
     c = config
     validate_img(img, c)
-    if levels is not None and tuple(levels.shape) != (
-        img.shape[0], c.num_patches, c.levels, c.dim
-    ):
+    n = len(range(c.num_patches)[columns]) if columns is not None else c.num_patches
+    if levels is not None and tuple(levels.shape) != (img.shape[0], n, c.levels, c.dim):
         raise ValueError(
-            f"carried levels must be ({img.shape[0]}, {c.num_patches}, "
+            f"carried levels must be ({img.shape[0]}, {n}, "
             f"{c.levels}, {c.dim}), got {tuple(levels.shape)}"
         )
     if iters is None:
@@ -454,9 +468,11 @@ def apply(
     params, img, dt = cast_for_compute(params, img, c)
 
     tokens, pos_embs = embed_inputs(params, img, c)
+    if columns is not None:
+        tokens, pos_embs = tokens[:, columns], pos_embs[:, columns]
     bottom_level = tokens[:, :, None, :]
     if levels is None:
-        levels = initial_levels(params, tokens.shape[0], c, dt)
+        levels = initial_levels(params, tokens.shape[0], c, dt, n)
     else:
         levels = levels.to(dt)
     consensus_fn, ff_fn, fused_fn = resolve_step_fns(

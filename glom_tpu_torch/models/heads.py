@@ -60,6 +60,14 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def decoder_apply(params: dict, state: torch.Tensor, config: GlomConfig, *,
                   arch: str = "linear", level: int = -1) -> torch.Tensor:
     """``(b, n, L, dim)`` level state -> ``(b, c, H, W)`` reconstruction."""
+    patches = decoder_patches(params, state, config, arch=arch, level=level)
+    return unpatchify(patches, config.patch_size, config.image_size, config.channels)
+
+
+def decoder_patches(params: dict, state: torch.Tensor, config: GlomConfig, *,
+                    arch: str = "linear", level: int = -1) -> torch.Tensor:
+    """``(b, n, L, dim)`` level state -> ``(b, n, p*p*c)`` patches, column by
+    column (a seq shard of the state decodes its own columns)."""
     if arch.endswith("_all"):
         b, n = state.shape[:2]
         tokens = state.reshape(b, n, config.levels * config.dim)
@@ -70,4 +78,4 @@ def decoder_apply(params: dict, state: torch.Tensor, config: GlomConfig, *,
     else:
         h = F.gelu(_dense(tokens, params["w1"], params["b1"]), approximate="none")
         patches = _dense(h, params["w2"], params["b2"])
-    return unpatchify(patches, config.patch_size, config.image_size, config.channels)
+    return patches

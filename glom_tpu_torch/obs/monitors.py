@@ -90,13 +90,19 @@ class MemoryMonitor:
                     torch.cuda.get_device_properties(self._device).total_memory)}
 
 
-def numerics_metrics(grads: Iterable[torch.Tensor], loss: torch.Tensor) -> Dict[str, torch.Tensor]:
+def numerics_metrics(grads: Iterable[torch.Tensor], loss: torch.Tensor, *,
+                     total=None) -> Dict[str, torch.Tensor]:
     """Device scalars of one step: ``nonfinite_grads``, the count of
     non-finite gradient elements over every leaf (0 on a healthy step), and
     ``loss_nonfinite``, 1.0 when the loss is NaN or Inf.  float32, as the JAX
-    package counts (exact up to 2**24 bad elements)."""
+    package counts (exact up to 2**24 bad elements).  ``total`` adds up the
+    per-leaf counts (on a mesh of ranks, over the ranks a leaf is split
+    over); by default their sum."""
     counts = [(~torch.isfinite(g.float())).sum().float() for g in grads]
-    nonfinite = torch.stack(counts).sum() if counts else torch.zeros((), device=loss.device)
+    if not counts:
+        nonfinite = torch.zeros((), device=loss.device)
+    else:
+        nonfinite = total(counts) if total is not None else torch.stack(counts).sum()
     loss_bad = (~torch.isfinite(loss.float())).float()
     return {"nonfinite_grads": nonfinite, "loss_nonfinite": loss_bad}
 

@@ -47,7 +47,7 @@ Sites (the names production code passes to :func:`fire`):
 The elastic sites (``host_preempt``, ``coordinator_loss``,
 ``heartbeat_delay``, ``shrink_restart``) parse as in ``glom_tpu``, so one
 spec arms both packages; no seam of the port fires them yet (the elastic
-supervisor is ROADMAP queue 1, item 6).
+supervisor is ROADMAP queue 1, item 6b).
 
 Arming is process-global (:func:`arm` / :func:`disarm` / the
 :func:`injected` context manager): the sites live deep inside library code

@@ -61,7 +61,7 @@ class PreemptionError(RuntimeError):
     """A host/domain was preempted (the scheduler took the machine back) —
     the restartable-by-definition failure class.  The elastic layer's
     ``glom_tpu``'s ``resilience/elastic.py`` subclasses this (its port is
-    ROADMAP queue 1, item 6); the base lives here so
+    ROADMAP queue 1, item 6b); the base lives here so
     :func:`classify_failure` needs no import of the elastic module."""
 
 

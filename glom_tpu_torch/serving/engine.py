@@ -221,9 +221,9 @@ DEMO_CONFIG = GlomConfig(dim=16, levels=3, image_size=16, patch_size=8)
 _Q = "ROADMAP queue 1"
 UNPORTED = {
     "donate_inputs": (None, "an XLA buffer donation; a graph's static input is reused as it is"),
-    "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6)"),
-    "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6)"),
-    "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6)"),
+    "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6b)"),
+    "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6b)"),
+    "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6b)"),
 }
 
 

@@ -12,7 +12,7 @@ router of either package fronts replicas of either.
         --replica http://127.0.0.1:8002
 
 Within a replica a device mesh would scale the MODEL (not in the port yet:
-ROADMAP queue 1, item 6); this module scales THROUGHPUT: a stdlib HTTP front
+ROADMAP queue 1, item 6b); this module scales THROUGHPUT: a stdlib HTTP front
 that dispatches ``/embed`` / ``/reconstruct`` / ``/session/*`` across N
 independent engine replicas: shard within a device for size, replicate
 across devices (or processes) for load.

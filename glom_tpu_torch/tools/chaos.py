@@ -24,9 +24,9 @@ both on the plain ops, as ``glom_tpu``'s defaults (``"dense"``) run them.
 
 ``glom_tpu``'s three elastic scenarios (``host_preempt``,
 ``coordinator_loss``, ``shrink_restart``) keep their names in
-:data:`SCENARIOS`; they need ``resilience/elastic.py`` and
-``parallel/mesh.py``, which the port does not have yet, so naming one exits
-2 and the default run is the other eleven.
+:data:`SCENARIOS`; they need ``resilience/elastic.py`` and the elastic
+meshes of ``parallel/mesh.py``, which the port does not have yet, so naming
+one exits 2 and the default run is the other eleven.
 
 The last line of standard output is ``{"mode", "recovered", "total"}``;
 the exit code is 0 iff every selected scenario recovered.
@@ -999,7 +999,7 @@ def scenario_slow_deploy_attribution(soak, device):
 
 
 # glom_tpu's registry, in its order; the elastic scenarios (None here) need
-# resilience/elastic.py and parallel/mesh.py, which the port does not have yet
+# resilience/elastic.py and the elastic meshes, which the port does not have yet
 SCENARIOS = {
     "torn_ckpt_write": scenario_torn_ckpt_write,
     "corrupt_restore": scenario_corrupt_restore,
@@ -1025,7 +1025,8 @@ def refusal(name: str) -> str:
     from glom_tpu_torch.training.trainer import REASONS
 
     return (f"--scenario {name} is not in the port's chaos suite yet: it needs "
-            f"resilience/elastic.py and parallel/mesh.py ({REASONS['mesh']})")
+            f"resilience/elastic.py and parallel/mesh.py's elastic meshes "
+            f"({REASONS['mesh']})")
 
 
 def run(names, *, soak, device="cuda", quiet=False):

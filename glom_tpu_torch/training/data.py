@@ -19,7 +19,7 @@ device compute.  The stateless streams pass through :func:`fault_injected`,
 the ``data`` fault-injection site, as ``glom_tpu``'s do.
 
 Not here: ``glom_tpu``'s multi-host elastic streams (``ElasticBatches``,
-``HostShardedBatches``, ``host_block``; ROADMAP queue 1, item 6).
+``HostShardedBatches``, ``host_block``; ROADMAP queue 1, item 6b).
 """
 
 from __future__ import annotations
@@ -479,7 +479,7 @@ def make_batches(
     if kind == "elastic":
         raise NotImplementedError(
             "data source 'elastic' (ElasticBatches, HostShardedBatches: the multi-host "
-            "exactly-once streams) is not in the port yet (ROADMAP queue 1, item 6)")
+            "exactly-once streams) is not in the port yet (ROADMAP queue 1, item 6b)")
     if kind == "synthetic":
         it = synthetic_batches(batch_size, image_size, channels, seed)
     elif kind == "folder":

@@ -36,11 +36,13 @@ from glom_tpu_torch.config import GlomConfig, TrainConfig
 from glom_tpu_torch.convert import params_from_numpy
 from glom_tpu_torch.models import glom as glom_model
 from glom_tpu_torch.models.glom import param_shapes, tree_leaves, tree_map
-from glom_tpu_torch.models.heads import decoder_apply, decoder_init, decoder_param_shapes
+from glom_tpu_torch.models.heads import (decoder_apply, decoder_init, decoder_param_shapes,
+                                         decoder_patches)
 from glom_tpu_torch.obs.monitors import numerics_metrics
+from glom_tpu_torch.ops.patch import patchify
 from glom_tpu_torch.resilience import integrity
 from glom_tpu_torch.training.consistency import regularizer_from_state
-from glom_tpu_torch.training.optim import Optimizer, apply_updates, global_norm, tree_map2
+from glom_tpu_torch.training.optim import Optimizer, apply_updates, tree_map2
 
 
 @dataclasses.dataclass
@@ -84,24 +86,31 @@ def resolve_loss_timestep(train: TrainConfig, iters: int) -> int:
 CONSISTENCY_KINDS = ("none", "mse", "infonce")
 
 
-def check_trainable(config: GlomConfig, train: TrainConfig) -> None:
-    """Refuse what the port's train step does not implement yet (the
-    unported ``attention_impl`` values ``ring`` and ``ulysses``) and an
-    unknown consistency kind."""
-    glom_model.make_consensus_fn(config)
+def check_trainable(config: GlomConfig, train: TrainConfig, *, consensus_fn=None) -> None:
+    """Refuse an ``attention_impl`` the step cannot run without an injected
+    ``consensus_fn`` (``ring`` and ``ulysses`` need a mesh) and an unknown
+    consistency kind."""
+    if consensus_fn is None:
+        glom_model.make_consensus_fn(config)
     if train.consistency not in CONSISTENCY_KINDS:
         raise ValueError(f"unknown consistency kind {train.consistency!r}; one of "
                          f"{CONSISTENCY_KINDS}")
 
 
 def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, ff_fn=None,
-                 fused_fn=None):
+                 fused_fn=None, columns: Optional[slice] = None):
     """``loss(params, img, *, generator=None, noise=None) -> (loss, recon)``.
     ``noise`` (standard normal; ``img``'s shape, or ``(2, *img.shape)`` with
     two views) is scaled by ``train.noise_std``; without it the noise is
     drawn from ``generator``.  ``consensus_fn`` / ``ff_fn`` / ``fused_fn`` go
-    to :func:`glom_tpu_torch.models.glom.apply` as they are."""
-    check_trainable(config, train)
+    to :func:`glom_tpu_torch.models.glom.apply` as they are.
+
+    ``columns`` (a seq shard's slice of the patch columns) runs the forward
+    on those columns only (``apply(columns=...)``) and takes the MSE of
+    their decoded patches against the image's: the mean over the shard's
+    pixels, whose mean over the seq ranks is the whole image's MSE; ``recon``
+    is then the ``(b, n/S, p*p*c)`` patches."""
+    check_trainable(config, train, consensus_fn=consensus_fn)
     iters = train.iters if train.iters is not None else config.default_iters
     timestep = resolve_loss_timestep(train, iters)
     two_views = train.consistency != "none"
@@ -118,11 +127,18 @@ def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, f
         noised = (torch.cat([img, img]) if two_views else img) + noise * train.noise_std
         # the forward stops at the loss timestep: its state is what decodes
         state = glom_model.apply(params["glom"], noised, config=config, iters=timestep,
-                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
-        recon = decoder_apply(params["decoder"], state[:b], config, arch=train.decoder,
-                              level=train.loss_level)
+                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn,
+                                 columns=columns)
+        if columns is None:
+            recon = decoder_apply(params["decoder"], state[:b], config, arch=train.decoder,
+                                  level=train.loss_level)
+            target = img
+        else:
+            recon = decoder_patches(params["decoder"], state[:b], config, arch=train.decoder,
+                                    level=train.loss_level)
+            target = patchify(img, config.patch_size)[:, columns]
         acc_dt = torch.promote_types(recon.dtype, torch.float32)
-        loss = torch.mean((recon.to(acc_dt) - img.to(acc_dt)) ** 2)
+        loss = torch.mean((recon.to(acc_dt) - target.to(acc_dt)) ** 2)
         if two_views:
             loss = loss + train.consistency_weight * regularizer_from_state(
                 train.consistency, state[:b], state[b:], level=train.consistency_level,
@@ -132,8 +148,27 @@ def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, f
     return loss_fn
 
 
+class WholeBatch:
+    """Which part of the batch a step computes, and how the parts combine:
+    for one process all rows and columns, and nothing to reduce.  On a mesh
+    of ranks :class:`~glom_tpu_torch.parallel.step.MeshShard` takes a
+    rank's rows and columns and reduces over the ranks."""
+
+    columns: Optional[slice] = None
+
+    def rows(self, n: int) -> slice:
+        return slice(None)
+
+    def mean(self, tensors: list) -> list:
+        return tensors
+
+    def leaf_sum(self, values: list) -> torch.Tensor:
+        """``sum(values)``, one scalar a params leaf."""
+        return sum(values[1:], values[0])
+
+
 def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *,
-                 consensus_fn=None, ff_fn=None, fused_fn=None):
+                 consensus_fn=None, ff_fn=None, fused_fn=None, shard=None):
     """``step(state, img, *, noise=None) -> (state, metrics)``.
 
     With ``train.grad_accum_steps > 1`` the batch splits into that many
@@ -143,43 +178,74 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *
     full-batch step.  InfoNCE's negatives are then the microbatch's, as in
     ``glom_tpu``'s accumulated step.  ``noise``, when given, is the whole
     batch's (:func:`make_loss_fn`'s shape), split the same way along the
-    batch axis (with two views, its second).
+    batch axis (with two views, its second); else each microbatch's is drawn
+    from the state's generator.
     Metrics (device scalars): ``loss``, the raw pre-clip ``grad_norm`` and,
     with ``train.monitor_numerics``, ``nonfinite_grads`` and
     ``loss_nonfinite``.
 
+    ``shard`` (:class:`WholeBatch` by default) picks the rows and columns of
+    each microbatch this process computes and combines the gradients, the
+    loss and the norm's terms over the processes; the noise is drawn for the
+    whole microbatch first, so that every shard sees one process's draw.
+
     ``glom_tpu``'s ``make_train_step`` jits this function and donates its
     state; eager PyTorch has neither, so this is the port's train step."""
+    # a shard's optimizer clips by the norm over every process's; one
+    # process's optimizer takes the norm of what it holds
+    sharded = shard is not None
+    shard = shard if shard is not None else WholeBatch()
     loss_fn = make_loss_fn(config, train, consensus_fn=consensus_fn, ff_fn=ff_fn,
-                           fused_fn=fused_fn)
+                           fused_fn=fused_fn, columns=shard.columns)
     accum = train.grad_accum_steps
     two_views = train.consistency != "none"
+    acc_dt = lambda dt: torch.promote_types(dt, torch.float32)
 
-    def grad_of(params, img, noise, generator):
-        return loss_and_grads(loss_fn, params, img, generator=generator, noise=noise)
+    def noise_shape(img: torch.Tensor) -> tuple:
+        return ((2,) if two_views else ()) + tuple(img.shape)
 
     def step_fn(state: DenoiseState, img: torch.Tensor, *, noise: Optional[torch.Tensor] = None):
-        if accum == 1:
-            loss, grads = grad_of(state.params, img, noise, state.generator)
-        else:
-            mb = img.shape[0] // accum
-            acc_dt = lambda dt: torch.promote_types(dt, torch.float32)
-            loss = torch.zeros((), dtype=acc_dt(config.resolved_compute_dtype), device=img.device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt(p.dtype), device=p.device),
-                             state.params)
-            for i in range(accum):
+        if noise is not None and tuple(noise.shape) != noise_shape(img):
+            raise ValueError(f"noise of shape {tuple(noise.shape)}; this step takes "
+                             f"{noise_shape(img)}")
+        mb = img.shape[0] // accum
+        mine = shard.rows(mb)
+        rows = (slice(None), mine) if two_views else mine
+        loss = grads = None
+        for i in range(accum):
+            block = img[i * mb:(i + 1) * mb]
+            if noise is None:
+                micro = torch.randn(noise_shape(block), generator=state.generator,
+                                    device=img.device, dtype=img.dtype)
+            else:
                 sl = slice(i * mb, (i + 1) * mb)
-                micro_noise = None if noise is None else (noise[:, sl] if two_views else noise[sl])
-                l, g = grad_of(state.params, img[sl], micro_noise, state.generator)
-                loss = loss + l.to(loss.dtype)
-                grads = tree_map2(lambda a, b: a + b.to(a.dtype), grads, g)
+                micro = noise[:, sl] if two_views else noise[sl]
+            l, g = loss_and_grads(loss_fn, state.params, block[mine], noise=micro[rows])
+            if accum == 1:
+                loss, grads = l, g
+                break
+            if grads is None:
+                loss = torch.zeros((), dtype=acc_dt(config.resolved_compute_dtype),
+                                   device=img.device)
+                grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt(p.dtype),
+                                                       device=p.device), state.params)
+            loss = loss + l.to(loss.dtype)
+            grads = tree_map2(lambda a, b: a + b.to(a.dtype), grads, g)
+        if accum > 1:
             loss = loss / accum
             grads = tree_map2(lambda g, p: (g / accum).to(p.dtype), grads, state.params)
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+        leaves = tree_leaves(grads)
+        *reduced, loss = shard.mean(leaves + [loss])
+        by_leaf = dict(zip(map(id, leaves), reduced))
+        grads = tree_map(lambda g: by_leaf[id(g)], grads)
+        leaves = tree_leaves(grads)
+        norm = torch.sqrt(shard.leaf_sum([torch.sum(g * g) for g in leaves]))
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                              **({"norm": norm} if sharded else {}))
         params = apply_updates(state.params, updates)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+        metrics = {"loss": loss, "grad_norm": norm}
         if train.monitor_numerics:
-            metrics.update(numerics_metrics(tree_leaves(grads), loss))
+            metrics.update(numerics_metrics(leaves, loss, total=shard.leaf_sum))
         return DenoiseState(params, opt_state, state.step + 1, state.generator), metrics
 
     return step_fn

@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from glom_tpu_torch.config import GlomConfig
 from glom_tpu_torch.models import glom as glom_model
-from glom_tpu_torch.models.heads import decoder_apply
+from glom_tpu_torch.models.heads import decoder_apply, decoder_patches
+from glom_tpu_torch.ops.patch import patchify
+from glom_tpu_torch.training.denoise import WholeBatch
 
 
 def _device(params: dict) -> torch.device:
@@ -104,27 +106,41 @@ def linear_probe(train_x, train_y, test_x, test_y, *, num_classes: int, l2: floa
 
 def make_psnr_fn(config: GlomConfig, *, noise_std: float = 1.0, iters: Optional[int] = None,
                  timestep: Optional[int] = None, level: int = -1, data_range: float = 2.0,
-                 consensus_fn=None, ff_fn=None, fused_fn=None, decoder: str = "linear"):
+                 consensus_fn=None, ff_fn=None, fused_fn=None, decoder: str = "linear",
+                 shard=None):
     """The eval twin of the denoising objective: ``psnr(params, imgs, *,
     generator=None, noise=None) -> psnr_db`` (a float32 scalar tensor).
     ``noise`` (standard normal, ``imgs``' shape) replaces the draw from
     ``generator``.  The forward stops at ``timestep`` (default
-    ``iters // 2 + 1``), as the train step's does."""
+    ``iters // 2 + 1``), as the train step's does.  ``shard`` (as
+    :func:`~glom_tpu_torch.training.denoise.make_step_fn` takes it) decodes
+    this process's rows and columns of the whole batch's noised images, and
+    averages the MSE over the processes before the PSNR."""
     if iters is None:
         iters = config.default_iters
     if timestep is None:
         timestep = iters // 2 + 1
+    shard = shard if shard is not None else WholeBatch()
+    columns = shard.columns
 
     def psnr_fn(params: dict, imgs: torch.Tensor, *, generator=None, noise=None):
         if noise is None:
             noise = torch.randn(imgs.shape, generator=generator, device=imgs.device,
                                 dtype=imgs.dtype)
+        mine = shard.rows(imgs.shape[0])
+        img = imgs[mine]
         with torch.no_grad():
-            state = glom_model.apply(params["glom"], imgs + noise.to(imgs.dtype) * noise_std,
+            state = glom_model.apply(params["glom"], img + noise[mine].to(img.dtype) * noise_std,
                                      config=config, iters=timestep, consensus_fn=consensus_fn,
-                                     ff_fn=ff_fn, fused_fn=fused_fn)
-            recon = decoder_apply(params["decoder"], state, config, arch=decoder, level=level)
-            mse = torch.mean((recon.float() - imgs.float()) ** 2)
+                                     ff_fn=ff_fn, fused_fn=fused_fn, columns=columns)
+            if columns is None:
+                recon = decoder_apply(params["decoder"], state, config, arch=decoder, level=level)
+                target = img
+            else:
+                recon = decoder_patches(params["decoder"], state, config, arch=decoder,
+                                        level=level)
+                target = patchify(img, config.patch_size)[:, columns]
+            (mse,) = shard.mean([torch.mean((recon.float() - target.float()) ** 2)])
             return 20.0 * np.log10(data_range) - 10.0 * torch.log10(mse)
 
     return psnr_fn

@@ -13,9 +13,9 @@ scalar is read as a float.
 that exporters which want one (``wants_registry``: the Prometheus textfile)
 render with each record; the Trainer adopts a caller's logger's registry as
 ``glom_tpu``'s does.  ``close()`` flushes and closes every exporter and is
-idempotent; a later ``log`` reopens file sinks in append mode.  The port
-runs in one process, so every logger emits (``glom_tpu`` gates on process
-0 of a multi-host job).
+idempotent; a later ``log`` reopens file sinks in append mode.  ``emit``
+False makes ``log`` a no-op: on a mesh of ranks the Trainer clears it on
+every rank but 0, as ``glom_tpu`` gates on process 0 of a multi-host job.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ class MetricLogger:
         # injectable clock: record `time` fields are deterministic in tests
         self._clock = clock if clock is not None else time.time
         self._t0 = self._clock()
+        self.emit = True
 
     def add_exporter(self, exporter) -> None:
         """Attach another sink.  A second exporter of the same class on the
@@ -53,6 +54,8 @@ class MetricLogger:
         self._exporters.append(exporter)
 
     def log(self, step: int, **scalars) -> None:
+        if not self.emit:
+            return
         rec = {"step": int(step), "time": round(self._clock() - self._t0, 3)}
         for k, v in scalars.items():
             rec[k] = normalize_scalar(v)

@@ -23,7 +23,7 @@ onto this one.
 from __future__ import annotations
 
 import math
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -101,9 +101,11 @@ class Optimizer:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
-    def update(self, grads, state: dict, params):
+    def update(self, grads, state: dict, params, *, norm: Optional[torch.Tensor] = None):
+        """``(updates, state)``; ``norm`` is the gradients' global norm when
+        the caller has it (on a mesh, the norm over every rank's shard)."""
         if self.clip_norm:
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads) if norm is None else norm
             keep = g_norm < self.clip_norm
             grads = tree_map(lambda t: torch.where(keep, t, (t / g_norm.to(t.dtype)) * self.clip_norm),
                              grads)

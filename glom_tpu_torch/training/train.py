@@ -20,12 +20,21 @@ supervisor (``--supervise``, ``--max-restart-failures``,
 ``--restart-window-s``), which runs a fresh ``Trainer`` and data stream for
 each attempt: what recovers flows only through the checkpoint directory.
 
+Several processes train on one mesh of ranks (``glom_tpu_torch.parallel``),
+one command a rank: ``--coordinator host:port --num-processes N
+--process-id i`` starts the process group (NCCL on cards, gloo with
+``--device cpu``), ``--mesh`` shapes it over (data, model, seq) and
+``--param-sharding`` places the params; every rank draws the same synthetic
+batches and takes its slice, and rank 0 logs and writes the checkpoints.
+
     python -m glom_tpu_torch.training.train --steps 5 --batch-size 8 \\
         --ff-impl pallas --fused-ff-bwd --attention-impl pallas --log-every 1
     python -m glom_tpu_torch.training.train --data folder --data-dir DIR --augment flip \\
         --consistency infonce --eval-every 50
     python -m glom_tpu_torch.training.train --supervise --checkpoint-dir CKPT \\
         --checkpoint-every 10 --forensics-dir FORENSICS --steps 100
+    python -m glom_tpu_torch.training.train --device cpu --mesh 2 1 1 \\
+        --coordinator localhost:29500 --num-processes 2 --process-id 0   # and id 1
 """
 
 from __future__ import annotations
@@ -33,20 +42,17 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch.distributed as dist
 
 from glom_tpu_torch.config import GlomConfig, TrainConfig, resolve_device
+from glom_tpu_torch.parallel.mesh import initialize_distributed
 from glom_tpu_torch.training.data import AUGMENT_KINDS, _StatefulAugmented, make_batches
 from glom_tpu_torch.training.metrics import MetricLogger
 from glom_tpu_torch.training.trainer import REASONS, Trainer
 
 # flags of the JAX CLI the port does not take yet: flag -> (nargs, REASONS key)
 _REFUSED = {
-    "--mesh": ("+", "mesh"),
-    "--param-sharding": (1, "mesh"),
     "--checkpoint-backend": (1, "mesh"),
-    "--coordinator": (1, "mesh"),
-    "--num-processes": (1, "mesh"),
-    "--process-id": (1, "mesh"),
     "--stop-poll-steps": (1, "mesh"),
     "--platform": (1, "device"),
 }
@@ -66,7 +72,8 @@ def parse_args(argv=None):
                    choices=["auto", "dense", "pallas", "ring", "ulysses"],
                    help="pallas = the port's CUDA consensus kernels (forward, K6, K7); "
                         "auto = pallas on a CUDA device above the measured crossover, else "
-                        "dense; ring and ulysses are refused with their ROADMAP item")
+                        "dense (the ring under a seq axis above one); ring and ulysses = "
+                        "the sequence-parallel consensus over the mesh's seq axis")
     p.add_argument("--ff-impl", default="dense", choices=["dense", "pallas", "fused"],
                    help="pallas = the port's CUDA grouped-FF kernel (K1); fused = the whole "
                         "level update in one call of its kernels (K8), falling back to pallas "
@@ -138,7 +145,18 @@ def parse_args(argv=None):
                    help="cap on held-out images decoded into host RAM and scored per eval "
                         "point")
     p.add_argument("--device", default=None,
-                   help="torch device; default cuda (refused without a card)")
+                   help="torch device; default cuda (refused without a card); with several "
+                        "processes, cuda is cuda:<process id mod the cards on the host>")
+    # parallelism (glom_tpu_torch.parallel): one process a device
+    p.add_argument("--mesh", type=int, nargs="+", default=None,
+                   help="mesh shape over (data, model, seq) ranks; default: all-data")
+    p.add_argument("--param-sharding", default="tp", choices=["tp", "ep", "replicated"],
+                   help="how params use the model axis")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the process group's rendezvous (tcp://host:port); "
+                        "one command a rank")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     # checkpointing and observability (glom_tpu_torch.obs)
     p.add_argument("--async-checkpoint", action="store_true",
                    help="write checkpoints on a background thread (the host copy stays "
@@ -233,7 +251,16 @@ def main(argv=None):
     args = parse_args(argv)
     # the device is settled before any attempt: without a card this refuses
     # at once, and a supervisor never retries it
-    resolve_device(args.device)
+    device = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    device=args.device) or resolve_device(args.device)
+    try:
+        return _main(args, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, device):
     config = GlomConfig(
         dim=args.dim, levels=args.levels, image_size=args.image_size,
         patch_size=args.patch_size, consensus_self=args.consensus_self,
@@ -264,6 +291,7 @@ def main(argv=None):
         forensics_hlo=not args.no_forensics_hlo,
         forensics_step_time_factor=args.forensics_step_time_factor,
         metrics_csv=args.metrics_csv, prom_textfile=args.prom_textfile,
+        mesh_shape=tuple(args.mesh) if args.mesh else None, param_sharding=args.param_sharding,
     )
     eval_data = holdout_eval_data(args) if args.data == "images" and args.eval_every else None
 
@@ -284,7 +312,7 @@ def main(argv=None):
         # built fresh for each (supervised) attempt: a crashed attempt's
         # trainer, state and stream may be poisoned; recovery flows only
         # through the checkpoint directory
-        trainer = Trainer(config, train_cfg, device=args.device,
+        trainer = Trainer(config, train_cfg, device=device,
                           logger=MetricLogger(path=args.log_file))
         if eval_data is not None:
             from glom_tpu_torch.training.eval import EvalSuite
@@ -326,7 +354,8 @@ def main(argv=None):
         ).run()
     else:
         final = run_once()
-    print({"final": final})
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print({"final": final})
     return final
 
 

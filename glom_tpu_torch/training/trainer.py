@@ -70,13 +70,32 @@ traces steps ``start+2`` to ``start+4`` (``profiling.trace``), the window
 ``glom_tpu`` traces; a triggered trace is then off, as two profilers cannot
 run at once.
 
-Not here yet, each refused by name when the config asks for it
-(:data:`UNSUPPORTED`): a mesh and sharded saves (ROADMAP queue 1, item 6).
+On a mesh of ranks (``mesh_shape`` above one, over an initialized process
+group; ``parallel/mesh.py``) the trainer follows ``glom_tpu``'s mesh rules:
+batch and microbatch must divide the data axis; ``attention_impl="auto"``
+under a seq axis above one becomes ``"ring"``; the params are placed by the
+spec tables of ``param_sharding`` (``"tp"``, ``"ep"``, ``"replicated"``), each
+rank holding its slice; the FF runs per shard (``parallel/ff_shard.py``: K1,
+and K2/K3 in the backward, at the shard's shapes), K8 per data shard under
+pure DP (``parallel/fused_shard.py``; any other mesh takes the sharded
+unfused pair with ``glom_tpu``'s warning), the ring or Ulysses consensus over
+the seq axis (a dense or kernel consensus there runs on the columns gathered
+over it, as GSPMD runs ``glom_tpu``'s); and the step is the one-process step
+on this rank's rows and columns (``parallel/step.py::MeshShard``), which draws
+the global batch's noise as one process does and reduces the gradients.
+Rank 0 logs
+and writes the npz (from :func:`~glom_tpu_torch.parallel.placement.gather_to_host`)
+while the others wait at a barrier; a resume loads, then slices.  Still
+refused by name (:data:`UNSUPPORTED`, and on a mesh of ranks the fields
+:func:`check_mesh_supported` names): sharded saves, and on a mesh the
+diagnostics, the eval suite and the two-view objective (ROADMAP queue 1,
+item 6b).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import signal
@@ -122,6 +141,17 @@ from glom_tpu_torch.obs.triggers import (
 )
 from glom_tpu_torch.profiling import annotate, trace
 from glom_tpu_torch.resilience import integrity
+from glom_tpu_torch.models import glom as glom_model
+from glom_tpu_torch.parallel.comm import raw_all_reduce
+from glom_tpu_torch.parallel.ff_shard import make_sharded_ff, make_sharded_ff_pallas
+from glom_tpu_torch.parallel.fused_shard import make_sharded_fused_update
+from glom_tpu_torch.parallel.mesh import Mesh, make_mesh
+from glom_tpu_torch.parallel.placement import gather_to_host, shard_tree, state_shardings
+from glom_tpu_torch.parallel.ring import make_ring_consensus
+from glom_tpu_torch.parallel.sharding import (decoder_pspecs, level_sharded_pspecs,
+                                              param_pspecs, replicated_pspecs)
+from glom_tpu_torch.parallel.step import MeshShard, column_slice, make_gathered_consensus
+from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus
 from glom_tpu_torch.training import denoise
 from glom_tpu_torch.training.eval import make_psnr_fn
 from glom_tpu_torch.training.metrics import MetricLogger
@@ -192,15 +222,16 @@ class NonFiniteError(RuntimeError):
 # Why the port lacks each thing it refuses: the one table of reasons, read by
 # the trainer's refusals (UNSUPPORTED) and by the CLI's (training/train.py)
 REASONS = {
-    "mesh": "the multi-GPU port, ROADMAP queue 1, item 6",
+    "mesh": "sharded saves, elasticity and pipelining, ROADMAP queue 1, item 6b",
     "device": "the port picks its device with --device",
 }
 
 # TrainConfig fields the port's trainer does not implement: (default, REASONS key)
 UNSUPPORTED = {
     "checkpoint_backend": ("npz", "mesh"),
-    "param_sharding": ("tp", "mesh"),
 }
+
+PARAM_SHARDINGS = ("tp", "ep", "replicated")
 
 
 def check_supported(train: TrainConfig) -> None:
@@ -210,9 +241,23 @@ def check_supported(train: TrainConfig) -> None:
             raise NotImplementedError(
                 f"TrainConfig.{field}={getattr(train, field)!r} is not in the port's "
                 f"trainer yet ({REASONS[why]})")
-    if train.mesh_shape is not None and int(np.prod(train.mesh_shape)) > 1:
+    if train.param_sharding not in PARAM_SHARDINGS:
+        raise ValueError(f"unknown param_sharding {train.param_sharding!r}; one of "
+                         f"{PARAM_SHARDINGS}")
+
+
+def check_mesh_supported(config: GlomConfig, train: TrainConfig, mesh) -> None:
+    """Refuse what the mesh path of a world above one rank does not run yet."""
+    for field, on in (("diag_every", bool(train.diag_every)),
+                      ("consistency", train.consistency != "none")):
+        if on:
+            raise NotImplementedError(
+                f"TrainConfig.{field}={getattr(train, field)!r} on a mesh of "
+                f"{mesh.world_size} ranks is not in the port yet ({REASONS['mesh']})")
+    if config.fuse_ff and train.param_sharding == "ep":
         raise NotImplementedError(
-            f"mesh_shape={train.mesh_shape}: the port trains on one card ({REASONS['mesh']})")
+            f"fuse_ff with param_sharding='ep' on a mesh of ranks concatenates the two nets' "
+            f"group-split weights, which no rank holds whole ({REASONS['mesh']})")
 
 
 def _to_numpy_tree(tree):
@@ -230,12 +275,14 @@ class Trainer:
     _NUMERICS_KEYS = ("nonfinite_grads", "loss_nonfinite")
 
     def __init__(self, config: GlomConfig, train: TrainConfig, *, device=None,
-                 optimizer: Optional[Optimizer] = None, logger: Optional[MetricLogger] = None):
-        denoise.check_trainable(config, train)
+                 optimizer: Optional[Optimizer] = None, logger: Optional[MetricLogger] = None,
+                 mesh: Optional[Mesh] = None):
         check_supported(train)
+        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(train.mesh_shape, train.mesh_axes)
+        config = self._plan_mesh(config, train)
         self.config = config
         self.train_cfg = train
-        self.device = resolve_device(device)
         self.optimizer = optimizer if optimizer is not None else Optimizer.from_config(train)
         # ONE registry per trainer and logger pair: a caller's logger's
         # registry is adopted, so what the trainer instruments and what the
@@ -244,6 +291,8 @@ class Trainer:
         self.registry = getattr(self.logger, "registry", None) or MetricRegistry()
         if getattr(self.logger, "registry", "absent") is None:
             self.logger.registry = self.registry
+        if not self.mesh.is_leader and hasattr(self.logger, "emit"):
+            self.logger.emit = False    # rank 0 logs, as glom_tpu's process 0
         if hasattr(self.logger, "add_exporter"):
             from glom_tpu_torch.obs import CsvExporter, PrometheusTextfileExporter
 
@@ -251,16 +300,28 @@ class Trainer:
                 self.logger.add_exporter(CsvExporter(train.metrics_csv))
             if train.prom_textfile:
                 self.logger.add_exporter(PrometheusTextfileExporter(train.prom_textfile))
+        # every rank draws the whole state from the seed, then keeps its slice
         self.state = denoise.init_state(
             torch.Generator().manual_seed(train.seed), config, self.optimizer,
             decoder=train.decoder, decoder_hidden_mult=train.decoder_hidden_mult,
             device=self.device, noise_seed=train.seed)
-        self._step = denoise.make_step_fn(config, train, self.optimizer)
+        self._specs = state_shardings(self.state.params, {
+            "glom": self._glom_specs, "decoder": decoder_pspecs(train.decoder)})
+        if self._sharded:
+            params = shard_tree(self.state.params, self._specs, self.mesh)
+            self.state = denoise.DenoiseState(params, self.optimizer.init(params), 0,
+                                              self.state.generator)
+        # on a mesh of ranks, each step and eval computes this rank's rows and
+        # columns and reduces over the ranks
+        fns = dict(consensus_fn=self._consensus_fn, ff_fn=self._ff_fn, fused_fn=self._fused_fn,
+                   shard=MeshShard(config, self.mesh, self._specs, self._data_axis,
+                                   self._seq_axis) if self._sharded else None)
         self._eval_suite = None
+        self._step = denoise.make_step_fn(config, train, self.optimizer, **fns)
         # without a suite, eval scores the incoming batch's denoising PSNR
         self._eval = make_psnr_fn(config, noise_std=train.noise_std, iters=train.iters,
                                   timestep=train.loss_timestep, level=train.loss_level,
-                                  decoder=train.decoder)
+                                  decoder=train.decoder, **fns)
         self._stop_requested = False
         if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != ("dense", "dense"):
             # every kernel the config can run (K8 and its backward's K1-K7 with
@@ -288,7 +349,7 @@ class Trainer:
         self._wrappers = kernel_wrappers()
         self._last_batch = None            # (images, shape) of the last step
         self._last_launches: dict = {}     # the wrappers' launches across it
-        if train.forensics_dir:
+        if train.forensics_dir and self.mesh.is_leader:
             self._triggers = TriggerEngine(debounce_steps=train.forensics_debounce_steps,
                                            max_captures=train.forensics_max_captures,
                                            registry=self.registry)
@@ -312,9 +373,100 @@ class Trainer:
             self._diag = make_diagnostics_fn(config, iters=train.iters, device=self.device)
         self._ckpt_thread: Optional[threading.Thread] = None
         self._ckpt_error: Optional[BaseException] = None
+        # every rank built: on a process group even a world of one runs its
+        # backend's collective here
+        self.mesh.barrier()
+
+    def _plan_mesh(self, config: GlomConfig, train: TrainConfig) -> GlomConfig:
+        """``glom_tpu``'s mesh rules (``glom_tpu/training/trainer.py``): the
+        batch checks, ``"auto"`` resolving to the ring under a seq axis, the
+        spec tables, and the consensus, FF and fused functions the step runs.
+        Returns the config with ``attention_impl`` resolved."""
+        mesh = self.mesh
+        axes = train.mesh_axes
+        if len(axes) < 2:
+            raise ValueError(
+                f"mesh_axes needs at least (data, model) axes, got {axes}; "
+                "use mesh_shape=(N, 1, 1) for pure DP")
+        data_axis, model_axis = axes[0], axes[1]
+        seq_axis = axes[2] if len(axes) > 2 else None
+        self._data_axis, self._seq_axis = data_axis, seq_axis
+        if train.batch_size % mesh.size(data_axis) != 0:
+            raise ValueError(f"batch_size {train.batch_size} not divisible by data-axis size "
+                             f"{mesh.size(data_axis)}")
+        microbatch = train.batch_size // train.grad_accum_steps
+        if microbatch % mesh.size(data_axis) != 0:
+            raise ValueError(
+                f"microbatch {microbatch} (batch {train.batch_size} / grad_accum_steps "
+                f"{train.grad_accum_steps}) not divisible by data-axis size "
+                f"{mesh.size(data_axis)}")
+        seq_size = mesh.size(seq_axis) if seq_axis else 1
+        if config.attention_impl == "auto" and seq_size > 1:
+            if config.num_patches % seq_size == 0:
+                config = dataclasses.replace(config, attention_impl="ring")
+            else:
+                warnings.warn(
+                    f"attention_impl='auto' cannot resolve to the ring "
+                    f"consensus: num_patches {config.num_patches} not "
+                    f"divisible by seq-axis size {seq_size} — falling "
+                    f"back to the model-level rule, which all-gathers "
+                    f"the seq-sharded state (no sequence parallelism in "
+                    f"the consensus)", stacklevel=3)
+        self._sharded = mesh.world_size > 1
+        if self._sharded:
+            check_mesh_supported(config, train, mesh)
+            column_slice(config, mesh, seq_axis)    # n must split over seq
+        expert_axes = tuple(a for a in axes[3:] if mesh.size(a) > 1)
+        if train.param_sharding == "tp":
+            self._glom_specs = param_pspecs(config, model_axis=model_axis)
+        elif train.param_sharding == "ep":
+            self._glom_specs = level_sharded_pspecs(
+                config, model_axis=model_axis, axis_size=mesh.size(model_axis),
+                extra_axes={a: mesh.size(a) for a in expert_axes} or None)
+        else:
+            self._glom_specs = replicated_pspecs(config)
+
+        consensus_fn = ff_fn = fused_fn = None
+        if config.attention_impl in ("ring", "ulysses"):
+            if seq_axis is None:
+                raise ValueError(
+                    f"attention_impl={config.attention_impl!r} needs a third "
+                    f"(seq) mesh axis; got mesh_axes={axes}")
+            make_sp = make_ring_consensus if config.attention_impl == "ring" \
+                else make_ulysses_consensus
+            consensus_fn = make_sp(
+                mesh, attend_self=config.consensus_self,
+                non_local_mask=glom_model.resolve_locality_mask(config, self.device),
+                seq_axis=seq_axis, num_patches=config.num_patches)
+        elif seq_size > 1:
+            # a dense or kernel consensus of all n columns, gathered over seq
+            consensus_fn = make_gathered_consensus(
+                glom_model.make_consensus_fn(config, self.device), mesh, seq_axis)
+        denoise.check_trainable(config, train, consensus_fn=consensus_fn)
+        params_sharded = (train.param_sharding != "replicated"
+                          and any(mesh.size(a) > 1 for a in (model_axis,) + expert_axes))
+        if self._sharded:
+            # pure DP or replicated params: K8 on each rank's rows
+            fused_fn = make_sharded_fused_update(config, self.device, seq_size=seq_size,
+                                                 params_sharded=params_sharded)
+            if fused_fn is None:
+                shard_kw = dict(param_sharding=train.param_sharding, model_axis=model_axis,
+                                extra_expert_axes=expert_axes)
+                if config.ff_impl in ("pallas", "fused"):
+                    ff_fn = make_sharded_ff_pallas(mesh, fused_bwd=config.ff_fused_bwd,
+                                                   **shard_kw)
+                elif params_sharded:
+                    ff_fn = make_sharded_ff(mesh, **shard_kw)
+        self._consensus_fn, self._ff_fn, self._fused_fn = consensus_fn, ff_fn, fused_fn
+        return config
 
     def set_eval_suite(self, suite) -> None:
-        """Attach or replace the held-out :class:`~glom_tpu_torch.training.eval.EvalSuite`."""
+        """Attach or replace the held-out :class:`~glom_tpu_torch.training.eval.EvalSuite`
+        (one rank's: on a mesh of ranks it is refused, ROADMAP queue 1, item 6b)."""
+        if self._sharded and suite is not None:
+            raise NotImplementedError(
+                f"an EvalSuite on a mesh of {self.mesh.world_size} ranks is not in the port "
+                f"yet ({REASONS['mesh']})")
         self._eval_suite = suite
 
     # -- one step ------------------------------------------------------------
@@ -430,13 +582,18 @@ class Trainer:
             return json.load(f).get("train", {})
 
     def _host_trees(self, data_state: Optional[dict]) -> dict:
-        """The state as numpy trees on the host, copied before this
-        returns."""
+        """The state as numpy trees on the host, copied before this returns;
+        on a mesh of ranks each sharded leaf is all-gathered first (every
+        rank takes part)."""
         st = self.state
-        opt = {"count": st.opt_state["count"], "mu": _to_numpy_tree(st.opt_state["mu"]),
-               "nu": _to_numpy_tree(st.opt_state["nu"])}
+        if self._sharded:
+            host = lambda tree: gather_to_host(tree, self.mesh, self._specs)
+        else:
+            host = _to_numpy_tree
+        opt = {"count": st.opt_state["count"], "mu": host(st.opt_state["mu"]),
+               "nu": host(st.opt_state["nu"])}
         trees = {
-            "params": _to_numpy_tree(st.params),
+            "params": host(st.params),
             "opt": opt_state_to_optax(opt, self.train_cfg),
             "rng": np.asarray([0, (self.train_cfg.seed + st.step) % 2 ** 32], np.uint32),
             "generator": st.generator.get_state().numpy().copy(),
@@ -458,12 +615,25 @@ class Trainer:
         write runs on a thread: it is durable only once
         :meth:`finish_saves` returns (``fit`` drains on every exit path)."""
         self.finish_saves()  # order the manifests; at most one write in flight
-        os.makedirs(directory, exist_ok=True)
-        self._write_config_json(directory)
+        if self._sharded and data_state is not None:
+            # one artifact carries one cursor, and the ranks' would differ
+            warnings.warn(
+                "data-iterator cursor is not checkpointed with backend='npz' on a mesh "
+                f"of {self.mesh.world_size} ranks; sharded saves are {REASONS['mesh']}",
+                stacklevel=2)
+            data_state = None
         step = int(self.state.step)
         trees = self._host_trees(data_state)
+        if not self.mesh.is_leader:
+            # rank 0 writes the gathered state; the others wait for it
+            self.mesh.barrier()
+            return ""
+        os.makedirs(directory, exist_ok=True)
+        self._write_config_json(directory)
         if not self.train_cfg.async_checkpoint:
-            return self._write(directory, step, trees)
+            path = self._write(directory, step, trees)
+            self.mesh.barrier()
+            return path
 
         def write():
             try:
@@ -479,6 +649,7 @@ class Trainer:
         self._ckpt_error = None
         self._ckpt_thread = threading.Thread(target=write, name="glom-torch-ckpt")
         self._ckpt_thread.start()
+        self.mesh.barrier()
         return ckpt_lib.npz_path(directory, step)
 
     def restore(self, directory: str, *, step: Optional[int] = None, batches=None) -> int:
@@ -514,8 +685,12 @@ class Trainer:
         ref = self.state.params
 
         def like(tree, template):
-            return tree_map2(lambda t, a: torch.from_numpy(np.asarray(a)).to(t.device, t.dtype),
-                             template, tree)
+            # a mesh rank keeps its slice of the whole tree it loaded
+            whole = tree_map2(lambda t, a: torch.from_numpy(np.asarray(a)).to(t.dtype),
+                              template, tree)
+            if self._sharded:
+                whole = shard_tree(whole, self._specs, self.mesh)
+            return tree_map2(lambda t, a: a.to(t.device), template, whole)
 
         params = like(trees["params"], ref)
         self.state = denoise.DenoiseState(
@@ -601,6 +776,15 @@ class Trainer:
 
     def _request_stop(self, signum, frame) -> None:
         self._stop_requested = True
+
+    def _agreed(self, flag: bool) -> bool:
+        """``flag`` on any rank (a stop must end every rank at one step)."""
+        if not self._sharded:
+            return flag
+        votes = torch.tensor([float(flag)], device=self.device)
+        for name in self.mesh.axis_names:
+            votes = raw_all_reduce(votes, self.mesh.axis(name))
+        return bool(votes.item() > 0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -705,7 +889,7 @@ class Trainer:
                         self.save(cfg.checkpoint_dir, data_state=data_state())
                     last_saved = i + 1
                 with timer.phase("stop_poll"):
-                    stop = self._stop_requested
+                    stop = self._agreed(self._stop_requested)
                 if stop:
                     self._log(i + 1, event=EVENT_PREEMPT_STOP)
                     if self._forensics is not None:
@@ -729,7 +913,7 @@ class Trainer:
             self.save(cfg.checkpoint_dir, data_state=data_state())
         self.finish_saves()  # fit returns only once the checkpoint is durable
         timer.close()  # the tail window's root span closes before the export
-        if cfg.trace_dir:
+        if cfg.trace_dir and self.mesh.is_leader:
             # Perfetto-loadable export of the run's phase spans; best effort
             try:
                 os.makedirs(cfg.trace_dir, exist_ok=True)
@@ -803,8 +987,8 @@ class Trainer:
                 self.registry.gauge(k).set(last[k])
         for k, v in mem.items():
             self.registry.gauge(k, unit="bytes").set(v)
-        # one card: the per-chip rate is the rate
-        self._log(step, imgs_per_sec=imgs / train_s, imgs_per_sec_per_chip=imgs / train_s,
+        self._log(step, imgs_per_sec=imgs / train_s,
+                  imgs_per_sec_per_chip=imgs / train_s / self.mesh.world_size,
                   **last, **num, **mem, **phases)
         if num.get("grad_norm_spike"):
             self._maybe_capture(TRIGGER_GRAD_SPIKE, step, {"grad_norm": last.get("grad_norm")})

@@ -145,13 +145,15 @@ def test_apply_refuses_bad_inputs():
 @pytest.mark.parametrize("field,value,queue", [
     ("ff_impl", "fused", None),
     ("attention_impl", "auto", None),
-    ("attention_impl", "ring", "queue 1"),
-    ("attention_impl", "ulysses", "queue 1"),
+    ("attention_impl", "ring", "needs a device mesh"),
+    ("attention_impl", "ulysses", "needs a device mesh"),
 ])
 def test_unported_impls_load_but_raise_on_forward(field, value, queue):
     """Every ``ff_impl`` / ``attention_impl`` of glom_tpu loads.  ``fused`` and
     ``auto`` run (on the CPU: the plain versions, the kernels' path bit for
-    bit); ``ring`` and ``ulysses`` wait for the multi-GPU port and refuse."""
+    bit); ``ring`` and ``ulysses`` are bound to a mesh and refuse a forward
+    without one, with glom_tpu's error (the Trainer injects them, or a caller
+    passes ``consensus_fn``; tests/test_torch_parallel*.py run them)."""
     port, _ = _configs()
     cfg = dataclasses.replace(port, **{field: value})
     # the config (and so a checkpoint recording it) loads ...
@@ -164,9 +166,12 @@ def test_unported_impls_load_but_raise_on_forward(field, value, queue):
             want = glom_model.apply(params, img, config=port)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
         return
-    # ... and only a forward asked to run an unported path refuses
-    with pytest.raises(NotImplementedError, match=queue):
+    # ... and only a forward asked to run a mesh-bound path without a mesh refuses
+    with pytest.raises(ValueError, match=queue):
         glom_model.apply(params, img, config=cfg)
+    # glom_tpu refuses it the same way
+    with pytest.raises(ValueError, match=queue):
+        jax_glom.make_consensus_fn(dataclasses.replace(_configs()[1], **{field: value}))
 
 
 def test_update_divisors_and_initial_levels():

@@ -259,8 +259,10 @@ def test_a_triggered_trace_covers_its_steps(tmp_path):
 
 
 def test_only_the_mesh_fields_and_flags_are_refused():
-    assert set(trainer_mod.UNSUPPORTED) == {"checkpoint_backend", "param_sharding"}
+    assert set(trainer_mod.UNSUPPORTED) == {"checkpoint_backend"}
     assert set(trainer_mod.REASONS) == {"mesh", "device"}
+    assert "item 6b" in trainer_mod.REASONS["mesh"]
+    assert set(train._REFUSED) == {"--checkpoint-backend", "--stop-poll-steps", "--platform"}
     assert {why for _, why in train._REFUSED.values()} == {"mesh", "device"}
     args = train.parse_args([
         "--async-checkpoint", "--trace-dir", "t", "--metrics-csv", "m", "--prom-textfile", "p",

@@ -494,13 +494,33 @@ def test_fit_logs_every_log_every_steps(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("checkpoint_backend", "sharded", "item 6"),
-    ("param_sharding", "ep", "item 6"),
-    ("checkpoint_backend", "orbax", "item 6"),
-    ("mesh_shape", (1, 2, 1), "item 6"),
-    ("mesh_shape", (2, 1, 1), "item 6"),
+    ("checkpoint_backend", "sharded", "item 6b"),
+    ("param_sharding", "ep", None),
+    ("checkpoint_backend", "orbax", "item 6b"),
+    ("mesh_shape", (1, 2, 1), "does not cover 1 devices"),
+    ("mesh_shape", (2, 1, 1), "does not cover 1 devices"),
 ])
 def test_trainer_refuses_what_it_does_not_implement(field, value, item):
+    """Sharded saves are refused (item 6b).  ``param_sharding="ep"`` is taken
+    (on one rank every net is whole: the step is the default's), and so is a
+    ``mesh_shape`` above one rank: on a process without a group of that many
+    ranks it fails as glom_tpu's mesh does on too few devices
+    (tests/test_torch_parallel_train.py runs the meshes)."""
+    if item is None:
+        img, noise = _img(), torch.from_numpy(_img(seed=2))
+        got = _trainer(_train_cfg(**{field: value})).step(img, noise=noise)
+        want = _trainer(_train_cfg()).step(img, noise=noise)
+        np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=0)
+        return
+    if field == "mesh_shape":
+        from glom_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+        with pytest.raises(ValueError, match=item) as ours:
+            _trainer(_train_cfg(**{field: value}))
+        with pytest.raises(ValueError, match=item) as theirs:
+            jax_make_mesh(value, devices=jax.devices()[:1])
+        assert str(ours.value) == str(theirs.value)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _trainer(_train_cfg(**{field: value}))
 
@@ -509,13 +529,13 @@ def test_trainer_refuses_what_it_does_not_implement(field, value, item):
     ("remat", True, None),
     ("fuse_ff", True, None),
     ("ff_impl", "fused", None),
-    ("attention_impl", "ring", "item 6"),
+    ("attention_impl", "ring", None),
 ])
 def test_train_step_refuses_unported_knobs(knob, value, item):
-    """``remat``, ``fuse_ff`` and ``ff_impl="fused"`` train, and take the step
-    of the plain configuration (the same weights, image and noise: the same
-    loss and parameters to rounding); ``ring`` still waits for the multi-GPU
-    port and refuses."""
+    """``remat``, ``fuse_ff``, ``ff_impl="fused"`` and ``attention_impl="ring"``
+    (the Trainer's mesh of one rank: the ring of one block) train, and take
+    the step of the plain configuration (the same weights, image and noise:
+    the same loss and parameters to rounding)."""
     kw = {**KERNELS, knob: value}
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
@@ -554,12 +574,17 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_flags(tmp_path, capsys):
     with open(tmp_path / "config.json") as f:
         recorded = json.load(f)
     assert recorded["glom"]["ff_impl"] == "pallas" and recorded["train"]["steps"] == 2
-    for flag, item in (["--param-sharding", "ep"], "item 6"), (["--mesh", "2", "1", "1"], "item 6"), (
-            ["--coordinator", "h:1"], "item 6"), (["--checkpoint-backend", "orbax"], "item 6"), (
-            ["--process-id", "0"], "item 6"):
+    for flag, item in (["--checkpoint-backend", "orbax"], "item 6b"), (
+            ["--stop-poll-steps", "5"], "item 6b"), (["--checkpoint-backend", "sharded"], "item 6b"):
         with pytest.raises(SystemExit):
             train.parse_args(flag)
         assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
+    # the mesh flags are taken, with the JAX CLI's names and defaults
+    args = train.parse_args(["--param-sharding", "ep", "--mesh", "2", "1", "1", "--coordinator",
+                             "h:1", "--num-processes", "2", "--process-id", "0"])
+    assert (args.param_sharding, args.mesh, args.coordinator, args.num_processes,
+            args.process_id) == ("ep", [2, 1, 1], "h:1", 2, 0)
+    assert train.parse_args([]).param_sharding == "tp"
     # the step's knobs are flags now, with the JAX CLI's names and defaults
     args = train.parse_args(["--remat", "--remat-policy", "full", "--fuse-ff", "--ff-impl", "fused"])
     assert (args.remat, args.remat_policy, args.fuse_ff, args.ff_impl) == (True, "full", True, "fused")
