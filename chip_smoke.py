@@ -365,7 +365,22 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            1) EP (bottom-up's 6 groups split, top-down's 5 replicated);
            every rank's device, backend, launches a step (exact) and step
            times, and the loss and every parameter within 1e-4 of the
-           one-rank step on the card from the same seed, batches and noise.
+           one-rank step on the card from the same seed, batches and noise;
+  pipe     GPipe (parallel/pipeline.py) on ranks sharing the card over gloo,
+           flagship f32 b=8, 12 iterations, 2 microbatches (6 iterations a
+           stage), the loss at t=7 (mid-chunk on stage 1): (i) two ranks on
+           ("pipe",) = (2,) with "pallas" (K1, K4; K2, K3, K6, K7 backward)
+           and with "fused" (no stage runs K8): the forward (final and
+           captured) within 1e-3 max-abs and 1e-4 relative of the one-rank
+           forward, one step of make_step_fn(apply_fn=...) with the loss,
+           every parameter and every first moment within 1e-4 of the
+           one-rank step, launches exact per rank from the schedule, the
+           ranks bitwise alike, a rank's warm step over the one-rank step's;
+           (ii) the data-parallel forward (parallel/inference.py) on
+           ("data",) = (2,) at b=5 (padded to 6, sliced back) on "pallas" and
+           on "fused" (K8 12 a rank), against the one-rank forward; (iii)
+           under --only pipe only, (pipe 2, model 2) and (pipe 2, seq 2) on
+           four ranks, gated as (i).
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -415,6 +430,7 @@ from glom_tpu_torch.serving.engine import DEMO_CONFIG, ServingEngine, make_demo_
 from glom_tpu_torch.serving.server import make_server
 from glom_tpu_torch.training import denoise
 from glom_tpu_torch.training.metrics import MetricLogger
+from glom_tpu_torch.training.optim import Optimizer
 from glom_tpu_torch.training.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -6655,11 +6671,318 @@ def phase_mesh(device) -> dict:
     return total
 
 
+# -- the pipe phase: GPipe over ranks sharing the card ------------------------
+
+# one rank of a world of ranks sharing cuda:0 over gloo: each case of its
+# world builds its mesh, draws the flagship weights from PIPE_SEED and runs
+# (pipe) the pipelined forward and two train steps through
+# make_step_fn(apply_fn=...) or (dp) the data-parallel forward, every count
+# reset just before and read just after each call; rank 0 saves what the
+# parent holds against the one-rank path, every rank prints its record with
+# a digest of its outputs (the ranks must agree bitwise)
+PIPE_RANK_CHILD = r"""
+import hashlib, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.kernels import wrappers
+from glom_tpu_torch.models.glom import tree_map
+from glom_tpu_torch.parallel import make_mesh, make_pipelined_apply
+from glom_tpu_torch.parallel.inference import make_data_parallel_forward
+from glom_tpu_torch.parallel.mesh import initialize_distributed
+from glom_tpu_torch.training import denoise
+from glom_tpu_torch.training.optim import Optimizer
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, rank, world = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+spec = json.load(open(os.path.join(work, "spec.json")))
+device = initialize_distributed("file://" + os.path.join(work, f"store{world}"), world, rank,
+                                device="cuda:0", backend="gloo", timeout_s=300)
+data = np.load(os.path.join(work, "batches.npz"))
+fns = wrappers()
+
+
+def counted(fn):
+    for w in fns.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, {k: w.launches for k, w in fns.items()}
+
+
+def digest(*arrays):
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+for case in [c for c in spec["cases"] if c["world"] == world]:
+    config = GlomConfig(**case["config"])
+    mesh = make_mesh(case["mesh"], case["axes"])
+    rec = {"case": case["name"], "rank": rank, "coords": mesh.coords,
+           "device": torch.cuda.get_device_name(device), "backend": dist.get_backend()}
+    optimizer = Optimizer(spec["lr"])
+    state = denoise.init_state(torch.Generator().manual_seed(spec["seed"]), config, optimizer,
+                               device=device)
+    img = torch.from_numpy(data["imgs"][:case["batch"]]).to(device)
+    if case["kind"] == "dp":
+        fn = make_data_parallel_forward(mesh, config, iters=spec["iters"])
+        with torch.no_grad():
+            out, ms, launches = counted(lambda: fn(state.params["glom"], img))
+        out = out.cpu().numpy()
+        rec.update(forward_ms=ms, launches_forward=launches, shape=list(out.shape),
+                   digest=digest(out))
+        if rank == 0:
+            np.save(os.path.join(work, case["name"] + ".npy"), out)
+    else:
+        pp = make_pipelined_apply(mesh, config, **case["pipeline"])
+        with torch.no_grad():
+            out, ms, launches = counted(lambda: pp(state.params["glom"], img, iters=spec["iters"],
+                                                   capture_timestep=spec["t"]))
+        final, cap = (o.cpu().numpy() for o in out)
+        del out
+        rec.update(forward_ms=ms, launches_forward=launches, digest_forward=digest(final, cap))
+        if rank == 0:
+            np.savez(os.path.join(work, case["name"] + "_fwd.npz"), final=final, captured=cap)
+        del final, cap
+        step = denoise.make_step_fn(config, TrainConfig(batch_size=case["batch"]), optimizer,
+                                    apply_fn=pp)
+        noise = torch.from_numpy(data["noise"][:case["batch"]]).to(device)
+        (new, m), ms, launches = counted(lambda: step(state, img, noise=noise))
+        # a second step, warm, for the time
+        _, ms2, _ = counted(lambda: step(new, img, noise=noise))
+        host = lambda tree: tree_map(lambda t: t.detach().cpu().numpy(), tree)
+        flat = ckpt_lib.flatten({"params": host(new.params), "mu": host(new.opt_state["mu"])})
+        rec.update(step_ms=[ms, ms2], launches_step=launches, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   digest_step=digest(*(flat[k] for k in sorted(flat))))
+        if rank == 0:
+            np.savez(os.path.join(work, case["name"] + "_step.npz"), loss=float(m["loss"]),
+                     grad_norm=float(m["grad_norm"]), **flat)
+        del new, m, flat
+    print(json.dumps(rec), flush=True)
+    del state
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+"""
+
+PIPE_ITERS, PIPE_T, PIPE_M = 12, 7, 2
+PIPE_SEED, PIPE_LR = 5, 1e-3
+PIPE_DP_BATCH = 5
+PIPE_TIMEOUT_S = 300
+PIPE_FWD_RTOL = 1e-4
+# (name, world, mesh, axes, config, pipeline kwargs or None for the DP forward)
+PIPE_CASES = (
+    ("pipe_pallas", 2, (2,), ("pipe",), mesh_kernels(), dict(num_microbatches=PIPE_M)),
+    ("pipe_fused", 2, (2,), ("pipe",), mesh_kernels(ff_impl="fused"),
+     dict(num_microbatches=PIPE_M)),
+    ("dp_pallas", 2, (2,), ("data",), mesh_kernels(), None),
+    ("dp_fused", 2, (2,), ("data",), mesh_kernels(ff_impl="fused"), None),
+    # --only pipe: four ranks
+    ("pipe_model", 4, (2, 2), ("pipe", "model"), mesh_kernels(),
+     dict(num_microbatches=PIPE_M, model_axis="model")),
+    ("pipe_seq", 4, (2, 2), ("pipe", "seq"), mesh_kernels(),
+     dict(num_microbatches=PIPE_M, seq_axis="seq")),
+)
+# written before the first run on the card (PERF.md §6, the pipeline entry): a rank's warm
+# step over the one-rank step's (the one-rank step stops at t=7; the
+# pipelined forward runs all 12 iterations), and the phase's seconds
+PIPE_PREDICTED = {"pipe_pallas_over_one_rank": [3.5, 8.0], "pipe_fused_over_one_rank": [2.5, 6.0],
+                  "pipe_model_over_one_rank": [10.0, 40.0],
+                  "pipe_seq_over_one_rank": [10.0, 40.0], "seconds": [25, 60],
+                  "seconds_only_pipe": [50, 120]}
+
+
+def pipe_launches(stage: int, mesh_axes) -> tuple:
+    """``(forward, step)`` launches of a rank at ``stage``, worked out from the
+    schedule: each stage runs its M microbatches through k = 12/S
+    iterations (K1 twice and K4 once each: no stage runs K8); in the step's
+    backward a stage before the capture's back-propagates all k iterations
+    of each microbatch, the capture's stage the first cap_off, a later one
+    none.  The ring (a seq axis) is torch code: no K4, K6, K7."""
+    S = 2
+    k = PIPE_ITERS // S
+    cap_stage, cap_off = (PIPE_T - 1) // k, PIPE_T - ((PIPE_T - 1) // k) * k
+    bwd = PIPE_M * (k if stage < cap_stage else cap_off if stage == cap_stage else 0)
+    fwd, step = want_launches(PIPE_M * k), want_launches(PIPE_M * k, bwd)
+    if "seq" in mesh_axes:
+        none = {"consensus_attention": 0, "consensus_dkv": 0, "consensus_dq": 0}
+        fwd, step = {**fwd, **none}, {**step, **none}
+    return fwd, step
+
+
+def dp_launches(config: dict) -> dict:
+    """A data rank's launches: 12 iterations on its rows, K8 alone on "fused"."""
+    if config["ff_impl"] == "fused":
+        return {**want_launches(0), "fused_level_update": PIPE_ITERS}
+    return want_launches(PIPE_ITERS)
+
+
+def pipe_reference(config: GlomConfig, data, b: int, device, *, step: bool):
+    """The one-rank path on the card from the same seed and batch: the
+    forward (to PIPE_T and on to PIPE_ITERS), and with ``step`` two steps
+    of ``make_step_fn`` (its flat params and first moments after the first,
+    the second's time)."""
+    optimizer = Optimizer(PIPE_LR)
+    state = denoise.init_state(torch.Generator().manual_seed(PIPE_SEED), config, optimizer,
+                               device=device)
+    img = torch.from_numpy(data["imgs"][:b]).to(device)
+    with torch.no_grad():
+        if not step:
+            return glom_model.apply(state.params["glom"], img, config=config, iters=PIPE_ITERS)
+        fwd = glom_model.apply(state.params["glom"], img, config=config, iters=PIPE_ITERS,
+                               capture_timestep=PIPE_T)
+    noise = torch.from_numpy(data["noise"][:b]).to(device)
+    step_fn = denoise.make_step_fn(config, TrainConfig(batch_size=b), optimizer)
+    _, (new, m) = host_ms(lambda: step_fn(state, img, noise=noise))
+    ms2, _ = host_ms(lambda: step_fn(new, img, noise=noise))
+    host = lambda tree: glom_model.tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    flat = ckpt_lib.flatten({"params": host(new.params), "mu": host(new.opt_state["mu"])})
+    return fwd, float(m["loss"]), float(m["grad_norm"]), flat, ms2
+
+
+def run_pipe_world(work: str, world: int) -> list:
+    """The ranks of one world, each a process on cuda:0; their records."""
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    ranks = [subprocess.Popen([sys.executable, "-c", PIPE_RANK_CHILD, ROOT, work, str(r),
+                               str(world)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=PIPE_TIMEOUT_S) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (_, err) in enumerate(outs):
+        if ranks[r].returncode != 0:
+            raise AssertionError(f"pipe: rank {r} of {world} failed:\n{err[-4000:]}")
+    return [json.loads(line) for out, _ in outs for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def phase_pipe(device, everything: bool = False) -> dict:
+    """GPipe over ranks sharing the card (NCCL refuses two ranks on one
+    device; gloo stages the state's sends through pinned host copies), at
+    flagship f32 b=8, 12 iterations, M=2 (k=6), the loss at t=7 (stage 1,
+    mid-chunk): (i) two ranks on ("pipe",) = (2,) with "pallas" (K1, K4; K2,
+    K3, K6, K7 backward) and with "fused" (no stage runs K8): the forward
+    (final and captured) within 1e-3 max-abs and 1e-4 relative of the
+    one-rank forward, one step of ``make_step_fn(apply_fn=...)`` with the
+    loss, every parameter and every first moment within 1e-4 of the
+    one-rank step from the same seed and noise, every rank's launches exact
+    from the schedule, the ranks bitwise alike; (ii) the data-parallel
+    forward on ("data",) = (2,) at b=5 (padded to 6, sliced back) on
+    "pallas" and on "fused" (K8), against the one-rank forward; (iii) with
+    ``everything`` (``--only pipe``) (pipe 2, model 2) and (pipe 2, seq 2)
+    on four ranks, gated as (i).  Returns every rank's launches, summed."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pipe-")
+    rng = np.random.default_rng(37)
+    shape = (BATCH, 3, FLAGSHIP.image_size, FLAGSHIP.image_size)
+    data = {"imgs": rng.standard_normal(shape).astype(np.float32),
+            "noise": rng.standard_normal(shape).astype(np.float32)}
+    np.savez(os.path.join(work, "batches.npz"), **data)
+    cases = [c for c in PIPE_CASES if everything or c[1] == 2]
+    spec = {"seed": PIPE_SEED, "lr": PIPE_LR, "iters": PIPE_ITERS, "t": PIPE_T,
+            "cases": [{"name": name, "world": world, "mesh": list(mesh), "axes": list(axes),
+                       "config": cfg, "kind": "dp" if kw is None else "pipe", "pipeline": kw,
+                       "batch": PIPE_DP_BATCH if kw is None else BATCH}
+                      for name, world, mesh, axes, cfg, kw in cases]}
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    torch.cuda.empty_cache()
+    records = []
+    for world in sorted({c[1] for c in cases}):
+        records += run_pipe_world(work, world)
+    total = {}
+    for name, world, mesh, axes, cfg, kw in cases:
+        recs = sorted((r for r in records if r["case"] == name), key=lambda r: r["rank"])
+        if [r["rank"] for r in recs] != list(range(world)):
+            raise AssertionError(f"pipe {name}: ranks {[r['rank'] for r in recs]}")
+        for r in recs:
+            if r["backend"] != "gloo" or r["device"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"pipe {name}: {r['backend']} on {r['device']}")
+            if kw is None:
+                check_launches(f"pipe {name} rank {r['rank']} forward", r["launches_forward"],
+                               dp_launches(cfg))
+            else:
+                fwd, step = pipe_launches(r["coords"]["pipe"], axes)
+                check_launches(f"pipe {name} rank {r['rank']} forward", r["launches_forward"],
+                               fwd)
+                check_launches(f"pipe {name} rank {r['rank']} step", r["launches_step"], step)
+            for key in ("launches_forward", "launches_step"):
+                for k, v in r.get(key, {}).items():
+                    total[k] = total.get(k, 0) + v
+        digests = {key: {r[key] for r in recs} for key in ("digest", "digest_forward",
+                                                             "digest_step") if key in recs[0]}
+        if any(len(v) != 1 for v in digests.values()):
+            raise AssertionError(f"pipe {name}: the ranks disagree ({digests})")
+        config = GlomConfig(**cfg)
+        rec = {"phase": "pipe", "case": name, "mesh": dict(zip(axes, mesh)),
+               "ff_impl": cfg["ff_impl"], "attention_impl": cfg["attention_impl"],
+               "ranks": [{k: r[k] for k in ("rank", "coords", "device", "backend",
+                                            "launches_forward", "launches_step", "forward_ms",
+                                            "step_ms") if k in r} for r in recs],
+               "staging": "gloo for CUDA tensors: the stage-to-stage sends and the all-gathers "
+                          "through pinned host copies; broadcast and all_reduce on the CUDA "
+                          "tensors"}
+        if kw is None:
+            want = pipe_reference(config, data, PIPE_DP_BATCH, device, step=False)
+            got = torch.from_numpy(np.load(os.path.join(work, f"{name}.npy")))
+            errs = {"out": (float((got - want.cpu()).abs().max()), rel_err(got, want.cpu()))}
+            rec.update(batch=PIPE_DP_BATCH, shape=recs[0]["shape"])
+        else:
+            fwd, loss, norm, flat, one_ms = pipe_reference(config, data, BATCH, device,
+                                                           step=True)
+            got = np.load(os.path.join(work, f"{name}_fwd.npz"))
+            errs = {key: (float((torch.from_numpy(got[key]) - w.cpu()).abs().max()),
+                          rel_err(got[key], w.cpu()))
+                    for key, w in zip(("final", "captured"), fwd)}
+            stepped = np.load(os.path.join(work, f"{name}_step.npz"))
+            step_errs = {"loss": rel_err(stepped["loss"], loss),
+                         "grad_norm": rel_err(stepped["grad_norm"], norm)}
+            step_errs.update({k: rel_err(stepped[k], v) for k, v in flat.items()})
+            worst = max(step_errs, key=step_errs.get)
+            rec.update(
+                batch=BATCH, iters=PIPE_ITERS, microbatches=PIPE_M, loss_timestep=PIPE_T,
+                loss=loss, loss_rel_err=step_errs["loss"],
+                grad_norm_rel_err=step_errs["grad_norm"],
+                worst_param_rel_err=max(v for k, v in step_errs.items()
+                                        if k.startswith("params")),
+                worst_moment_rel_err=max(v for k, v in step_errs.items() if k.startswith("mu")),
+                worst=worst, worst_rel_err=step_errs[worst], one_rank_step_ms=one_ms,
+                rank_over_one_rank=max(r["step_ms"][1] for r in recs) / one_ms)
+            bad = {k: v for k, v in step_errs.items() if not v <= MESH_RTOL}   # NaN fails too
+            if bad:
+                raise AssertionError(f"pipe {name}: {bad} from the one-rank step "
+                                     f"(limit {MESH_RTOL})")
+        rec["forward_max_abs_err"] = {k: v[0] for k, v in errs.items()}
+        rec["forward_rel_err"] = {k: v[1] for k, v in errs.items()}
+        emit(rec)
+        bad = {k: v for k, v in errs.items() if not (v[0] <= SERVE_ATOL and v[1] <= PIPE_FWD_RTOL)}
+        if bad:
+            raise AssertionError(f"pipe {name}: forward {bad} from the one-rank forward "
+                                 f"(limits {SERVE_ATOL} max-abs, {PIPE_FWD_RTOL} relative)")
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "pipe", "predicted": PIPE_PREDICTED, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
           "bulk", "attribution", "fleet", "train_obs", "forensics", "widths", "chaos", "bench",
-          "large", "mesh")
+          "large", "mesh", "pipe")
 
 
 def parse_args(argv):
@@ -6693,7 +7016,9 @@ def parse_args(argv):
                         "large preset's kernel rows, serving, bench leg and train steps; "
                         "widths: the tiny preset's train steps and the 16-wide demo's /embed "
                         "through the padded kernels, 'auto' and the kernel digests; chaos: all "
-                        "eleven scenarios of the port's chaos suite, six in the full run). "
+                        "eleven scenarios of the port's chaos suite, six in the full run; pipe: "
+                        "GPipe and the DP forward on ranks sharing the card, with the "
+                        "four-rank (pipe, model) and (pipe, seq) cases only here). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -6706,8 +7031,8 @@ def parse_args(argv):
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
 # deploy, session-tool, fault, quality, capacity, bulk, attribution, fleet,
-# trainer-observability, engine-forensics, narrow-width and chaos paths, in
-# the full run's order
+# trainer-observability, engine-forensics, narrow-width, chaos, mesh and
+# pipeline paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
@@ -6715,7 +7040,8 @@ SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": pha
                 "quality": phase_quality, "capacity": phase_capacity, "bulk": phase_bulk,
                 "attribution": phase_attribution, "fleet": phase_fleet,
                 "train_obs": phase_train_obs, "forensics": phase_forensics,
-                "widths": phase_widths, "chaos": phase_chaos, "mesh": phase_mesh}
+                "widths": phase_widths, "chaos": phase_chaos, "mesh": phase_mesh,
+                "pipe": phase_pipe}
 
 
 def run_only(device, names) -> int:
@@ -6740,6 +7066,8 @@ def run_only(device, names) -> int:
             phase_train_data(device)
         elif name == "chaos":
             phase_chaos(device, everything=True)
+        elif name == "pipe":
+            phase_pipe(device, everything=True)
         elif name in SLICE_PHASES:
             SLICE_PHASES[name](device)
         elif name == "bench":
@@ -6795,7 +7123,8 @@ def main(argv=()) -> int:
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
-    # _train_obs, _forensics, _widths, _chaos: each of those paths' main run; launches_large:
+    # _train_obs, _forensics, _widths, _chaos, _mesh, _pipe: each of those paths' main run
+    # (_mesh and _pipe: every rank's, summed); launches_large:
     # the large preset's serving run ("pallas" and "fused" in f32);
     # launches_large_train: its three train steps (one a configuration)
     launches.update({k: train_launches[k] for k in BACKWARD})

@@ -18,11 +18,17 @@ per mesh axis:
     level update per shard, on the port's kernels;
   * ``step.py`` -- a rank's part of the train step and the eval: its rows
     and columns of the global batch, the gradient reductions and the global
-    norm.
+    norm;
+  * ``pipeline.py`` -- GPipe pipeline parallelism over the weight-tied
+    iteration loop: stages own iteration chunks, the state flows from rank
+    to rank, and the reverse schedule is the pipeline's own autograd node;
+  * ``inference.py`` -- the data-parallel forward and ``pad_batch``, the one
+    batch-padding rule.
 """
 
 from glom_tpu_torch.parallel.mesh import Mesh, initialize_distributed, make_mesh
+from glom_tpu_torch.parallel.pipeline import make_pipelined_apply
 from glom_tpu_torch.parallel.sharding import batch_pspec, param_pspecs, state_pspec
 
-__all__ = ["Mesh", "make_mesh", "initialize_distributed", "param_pspecs", "batch_pspec",
-           "state_pspec"]
+__all__ = ["Mesh", "make_mesh", "initialize_distributed", "make_pipelined_apply",
+           "param_pspecs", "batch_pspec", "state_pspec"]

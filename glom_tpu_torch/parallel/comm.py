@@ -24,6 +24,13 @@ no autograd.  Each one the port's mesh path runs is an
     that each rank uses differently (each rank's loss reads all of it): its
     backward sums the ranks' cotangents, then takes this rank's slice.
 
+The pipeline (``parallel/pipeline.py``) differentiates its schedule itself
+and takes two more, with no autograd: :func:`raw_send_recv`, one link of a
+chain along the axis (``glom_tpu``'s ``ppermute`` over the pairs
+``(i, i + 1)``, where the first rank receives nothing), and
+:func:`raw_broadcast`, one rank's tensor to every rank along the axis
+(``glom_tpu``'s ``psum`` of a buffer that only its owner holds non-zero).
+
 Each is the identity along an axis of one rank.  With the gloo backend a CUDA
 tensor goes through a pinned host copy for every collective but
 ``all_reduce`` (gloo takes CUDA tensors for ``broadcast``, ``all_reduce``
@@ -127,6 +134,42 @@ def raw_shift(x: torch.Tensor, axis: Optional[AxisGroup], offset: int) -> torch.
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(x.device, non_blocking=True) if staged else out
+
+
+def raw_send_recv(x: Optional[torch.Tensor], axis: AxisGroup, *, send_to: Optional[int] = None,
+                  recv_from: Optional[int] = None,
+                  like: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """Send ``x`` to the rank at index ``send_to`` along ``axis`` and receive
+    from the one at ``recv_from`` a tensor of ``like``'s shape, dtype and
+    device, as one batch of point-to-point operations; either may be None.
+    Returns what arrived (None when nothing was received).  Every send must
+    meet its peer's receive in the same call."""
+    if send_to is None and recv_from is None:
+        return None
+    ops, out = [], None
+    staged = _staged(x if x is not None else like, axis)
+    if send_to is not None:
+        src = x.contiguous()
+        src = _to_host(src) if staged else src
+        ops.append(dist.P2POp(dist.isend, src, axis.ranks[send_to], group=axis.group))
+    if recv_from is not None:
+        out = torch.empty(like.shape, dtype=like.dtype, pin_memory=True) if staged else \
+            torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        ops.append(dist.P2POp(dist.irecv, out, axis.ranks[recv_from], group=axis.group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if out is None or not staged:
+        return out
+    return out.to(like.device, non_blocking=True)
+
+
+def raw_broadcast(x: torch.Tensor, axis: Optional[AxisGroup], owner: int) -> torch.Tensor:
+    """The owner's ``x`` (the rank at index ``owner`` along ``axis``) written
+    into ``x`` on every rank along it; each rank passes a contiguous tensor
+    of the owner's shape and dtype.  gloo takes CUDA tensors here."""
+    if _live(axis):
+        dist.broadcast(x, src=axis.ranks[owner], group=axis.group)
+    return x
 
 
 class _Shift(torch.autograd.Function):

@@ -34,6 +34,11 @@ import torch.distributed as dist
 
 DEFAULT_AXES = ("data", "model", "seq")
 
+#: Every mesh-axis name a module of the port splits over: the default axes
+#: and ``"pipe"``, the pipeline's stage axis (``parallel/pipeline.py``),
+#: whose meshes callers build with ``make_mesh(..., axis_names=...)``.
+MESH_AXES = DEFAULT_AXES + ("pipe",)
+
 #: Seconds a collective may wait before it raises.
 DEFAULT_TIMEOUT_S = 600.0
 

@@ -76,6 +76,7 @@ import torch
 
 from glom_tpu_torch import profiling
 from glom_tpu_torch.kernels import _common
+from glom_tpu_torch.parallel.inference import pad_batch
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> Optional[int]:
@@ -89,14 +90,13 @@ def pick_bucket(buckets: Sequence[int], n: int) -> Optional[int]:
 
 def pad_to_bucket(imgs: np.ndarray, bucket: int) -> np.ndarray:
     """Zero-pad the batch axis up to ``bucket`` (``imgs`` itself when it is
-    already there)."""
+    already there): the one padding rule, shared with the data-parallel
+    forward (``parallel/inference.py::pad_batch``)."""
     imgs = np.asarray(imgs)
     b = imgs.shape[0]
     if b > bucket:
         raise ValueError(f"batch {b} exceeds bucket {bucket}")
-    if b == bucket:
-        return imgs
-    return np.concatenate([imgs, np.zeros((bucket - b,) + imgs.shape[1:], imgs.dtype)])
+    return pad_batch(imgs, bucket)
 
 
 _PREPARED = [0]                       # keys prepared in this process

@@ -7,7 +7,9 @@ head, take the MSE in at least float32, backpropagate, apply the optimizer.
 One difference: the forward STOPS at the loss timestep.  ``glom_tpu``'s
 scan runs all ``iters`` iterations and discards the state after the
 timestep; that state does not reach the loss, so the loss and the gradients
-are the same, and the port saves the iterations.
+are the same, and the port saves the iterations.  An injected ``apply_fn``
+(the pipelined forward) keeps ``glom_tpu``'s contract and runs all
+``iters``.
 
 The noise is drawn from an explicit ``torch.Generator`` (``jax.random``'s
 keys have no torch counterpart), or passed in as a tensor, so that a test
@@ -86,11 +88,12 @@ def resolve_loss_timestep(train: TrainConfig, iters: int) -> int:
 CONSISTENCY_KINDS = ("none", "mse", "infonce")
 
 
-def check_trainable(config: GlomConfig, train: TrainConfig, *, consensus_fn=None) -> None:
+def check_trainable(config: GlomConfig, train: TrainConfig, *, consensus_fn=None,
+                    apply_fn=None) -> None:
     """Refuse an ``attention_impl`` the step cannot run without an injected
-    ``consensus_fn`` (``ring`` and ``ulysses`` need a mesh) and an unknown
-    consistency kind."""
-    if consensus_fn is None:
+    ``consensus_fn`` or ``apply_fn`` (``ring`` and ``ulysses`` need a mesh)
+    and an unknown consistency kind."""
+    if consensus_fn is None and apply_fn is None:
         glom_model.make_consensus_fn(config)
     if train.consistency not in CONSISTENCY_KINDS:
         raise ValueError(f"unknown consistency kind {train.consistency!r}; one of "
@@ -98,19 +101,28 @@ def check_trainable(config: GlomConfig, train: TrainConfig, *, consensus_fn=None
 
 
 def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, ff_fn=None,
-                 fused_fn=None, columns: Optional[slice] = None):
+                 fused_fn=None, apply_fn=None, columns: Optional[slice] = None):
     """``loss(params, img, *, generator=None, noise=None) -> (loss, recon)``.
     ``noise`` (standard normal; ``img``'s shape, or ``(2, *img.shape)`` with
     two views) is scaled by ``train.noise_std``; without it the noise is
     drawn from ``generator``.  ``consensus_fn`` / ``ff_fn`` / ``fused_fn`` go
     to :func:`glom_tpu_torch.models.glom.apply` as they are.
 
+    ``apply_fn`` replaces the forward, with ``glom_tpu``'s contract:
+    ``apply_fn(glom_params, img, iters=..., capture_timestep=t) -> (final,
+    state_after_t)``, run for all ``iters`` iterations.  A pipelined caller
+    passes ``parallel.pipeline.make_pipelined_apply(...)``, which closed over
+    its mesh and its consensus and FF choices; it takes the whole batch on
+    every rank, so it takes no ``columns``.
+
     ``columns`` (a seq shard's slice of the patch columns) runs the forward
     on those columns only (``apply(columns=...)``) and takes the MSE of
     their decoded patches against the image's: the mean over the shard's
     pixels, whose mean over the seq ranks is the whole image's MSE; ``recon``
     is then the ``(b, n/S, p*p*c)`` patches."""
-    check_trainable(config, train, consensus_fn=consensus_fn)
+    if apply_fn is not None and columns is not None:
+        raise ValueError("apply_fn runs the whole batch on every rank; it takes no columns")
+    check_trainable(config, train, consensus_fn=consensus_fn, apply_fn=apply_fn)
     iters = train.iters if train.iters is not None else config.default_iters
     timestep = resolve_loss_timestep(train, iters)
     two_views = train.consistency != "none"
@@ -125,10 +137,13 @@ def make_loss_fn(config: GlomConfig, train: TrainConfig, *, consensus_fn=None, f
         noise = noise.to(img.dtype).reshape((-1,) + tuple(img.shape[1:]))
         # two views: one forward of 2b images, view 1's rows then view 2's
         noised = (torch.cat([img, img]) if two_views else img) + noise * train.noise_std
-        # the forward stops at the loss timestep: its state is what decodes
-        state = glom_model.apply(params["glom"], noised, config=config, iters=timestep,
-                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn,
-                                 columns=columns)
+        if apply_fn is not None:
+            _, state = apply_fn(params["glom"], noised, iters=iters, capture_timestep=timestep)
+        else:
+            # the forward stops at the loss timestep: its state is what decodes
+            state = glom_model.apply(params["glom"], noised, config=config, iters=timestep,
+                                     consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn,
+                                     columns=columns)
         if columns is None:
             recon = decoder_apply(params["decoder"], state[:b], config, arch=train.decoder,
                                   level=train.loss_level)
@@ -168,7 +183,7 @@ class WholeBatch:
 
 
 def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *,
-                 consensus_fn=None, ff_fn=None, fused_fn=None, shard=None):
+                 consensus_fn=None, ff_fn=None, fused_fn=None, apply_fn=None, shard=None):
     """``step(state, img, *, noise=None) -> (state, metrics)``.
 
     With ``train.grad_accum_steps > 1`` the batch splits into that many
@@ -189,14 +204,21 @@ def make_step_fn(config: GlomConfig, train: TrainConfig, optimizer: Optimizer, *
     loss and the norm's terms over the processes; the noise is drawn for the
     whole microbatch first, so that every shard sees one process's draw.
 
+    ``apply_fn`` (:func:`make_loss_fn`'s) replaces the forward: with the
+    pipelined forward every rank runs this step on the whole batch, its
+    gradients summed over the pipeline's ranks inside the forward's
+    backward (``parallel/pipeline.py``), so it takes no ``shard``.
+
     ``glom_tpu``'s ``make_train_step`` jits this function and donates its
     state; eager PyTorch has neither, so this is the port's train step."""
+    if apply_fn is not None and shard is not None:
+        raise ValueError("apply_fn runs the whole batch on every rank; it takes no shard")
     # a shard's optimizer clips by the norm over every process's; one
     # process's optimizer takes the norm of what it holds
     sharded = shard is not None
     shard = shard if shard is not None else WholeBatch()
     loss_fn = make_loss_fn(config, train, consensus_fn=consensus_fn, ff_fn=ff_fn,
-                           fused_fn=fused_fn, columns=shard.columns)
+                           fused_fn=fused_fn, apply_fn=apply_fn, columns=shard.columns)
     accum = train.grad_accum_steps
     two_views = train.consistency != "none"
     acc_dt = lambda dt: torch.promote_types(dt, torch.float32)

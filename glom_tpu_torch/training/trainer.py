@@ -222,7 +222,7 @@ class NonFiniteError(RuntimeError):
 # Why the port lacks each thing it refuses: the one table of reasons, read by
 # the trainer's refusals (UNSUPPORTED) and by the CLI's (training/train.py)
 REASONS = {
-    "mesh": "sharded saves, elasticity and pipelining, ROADMAP queue 1, item 6b",
+    "mesh": "sharded saves and elasticity, ROADMAP queue 1, item 6b",
     "device": "the port picks its device with --device",
 }
 

@@ -1,4 +1,5 @@
-"""One rank of a gloo world for the port's mesh tests (tests/test_torch_parallel*.py).
+"""One rank of a gloo world for the port's mesh tests (tests/test_torch_parallel*.py,
+tests/test_torch_pipeline.py).
 
     python tests/torch_mesh_worker.py SPEC.json RANK
 
@@ -20,17 +21,23 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from glom_tpu_torch import checkpoint as ckpt_lib  # noqa: E402
 from glom_tpu_torch.config import GlomConfig, TrainConfig  # noqa: E402
+from glom_tpu_torch.convert import params_from_numpy  # noqa: E402
 from glom_tpu_torch.parallel.comm import raw_all_reduce  # noqa: E402
 from glom_tpu_torch.parallel.ff_shard import make_sharded_ff_pallas  # noqa: E402
+from glom_tpu_torch.parallel.inference import make_data_parallel_forward  # noqa: E402
 from glom_tpu_torch.parallel.mesh import initialize_distributed, make_mesh  # noqa: E402
 from glom_tpu_torch.parallel.placement import (gather_leaf, gather_to_host,  # noqa: E402
                                                local_slice)
+from glom_tpu_torch.parallel.pipeline import make_pipelined_apply  # noqa: E402
 from glom_tpu_torch.parallel.ring import make_ring_consensus  # noqa: E402
 from glom_tpu_torch.parallel.sharding import (level_sharded_pspecs,  # noqa: E402
                                               param_pspecs, replicated_pspecs)
 from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus  # noqa: E402
+from glom_tpu_torch.training.denoise import DenoiseState, make_step_fn  # noqa: E402
 from glom_tpu_torch.training.metrics import MetricLogger  # noqa: E402
+from glom_tpu_torch.training.optim import Optimizer  # noqa: E402
 from glom_tpu_torch.training.trainer import Trainer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -121,16 +128,66 @@ def job_train(job: dict) -> dict:
     return res
 
 
+def _params(inp, config: GlomConfig, name: str) -> dict:
+    """The ``name`` subtree of the npz's flat ``name/...`` keys, as tensors."""
+    flat = {k: inp[k] for k in inp.files if k.startswith(name + "/")}
+    return params_from_numpy(ckpt_lib.unflatten(flat)[name], config)
+
+
+def _forward_outputs(out) -> dict:
+    if isinstance(out, tuple):
+        return {"final": out[0], "captured": out[1]}
+    return {"out": out}
+
+
+def job_pipe(job: dict) -> dict:
+    """The pipelined forward at each of ``job["forward"]``'s calls, then (with
+    ``job["step"]``) one train step through ``make_step_fn(apply_fn=...)``:
+    its loss, grad norm, parameters and Adam's first moments."""
+    inp = np.load(job["inputs"])
+    mesh = make_mesh(job["mesh"], tuple(job["axes"]))
+    config = GlomConfig(**job["config"])
+    pp = make_pipelined_apply(mesh, config, **job.get("pipeline", {}))
+    glom = _params(inp, config, "glom")
+    img = torch.from_numpy(inp["img"])
+    res = {}
+    for i, call in enumerate(job.get("forward", [])):
+        res[f"f{i}"] = _forward_outputs(pp(glom, img, **call))
+    if "step" in job:
+        train = TrainConfig(**job["step"])
+        optimizer = Optimizer(train.learning_rate)
+        params = {"glom": glom, "decoder": _params(inp, config, "decoder")}
+        state = DenoiseState(params, optimizer.init(params), 0, torch.Generator())
+        step = make_step_fn(config, train, optimizer, apply_fn=pp)
+        new, metrics = step(state, img, noise=torch.from_numpy(inp["noise"]))
+        res.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   params=new.params, mu=new.opt_state["mu"])
+    return res
+
+
+def job_dp_forward(job: dict) -> dict:
+    """make_data_parallel_forward at each of ``job["forward"]``'s calls."""
+    inp = np.load(job["inputs"])
+    mesh = make_mesh(job["mesh"], tuple(job["axes"]))
+    config = GlomConfig(**job["config"])
+    glom = _params(inp, config, "glom")
+    return {f"f{i}": {"out": make_data_parallel_forward(mesh, config, **call)(
+        glom, torch.from_numpy(inp["img"]))} for i, call in enumerate(job["forward"])}
+
+
 def _flat(tree, prefix="") -> dict:
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             out.update(_flat(v, f"{prefix}{k}/"))
         return out
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach()
     return {prefix.rstrip("/"): np.asarray(tree)}
 
 
-JOBS = {"consensus": job_consensus, "ff": job_ff, "train": job_train}
+JOBS = {"consensus": job_consensus, "ff": job_ff, "train": job_train, "pipe": job_pipe,
+        "dp_forward": job_dp_forward}
 
 
 def main(spec_path: str, rank: int) -> None:
