@@ -380,7 +380,24 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            ("data",) = (2,) at b=5 (padded to 6, sliced back) on "pallas" and
            on "fused" (K8 12 a rank), against the one-rank forward; (iii)
            under --only pipe only, (pipe 2, model 2) and (pipe 2, seq 2) on
-           four ranks, gated as (i).
+           four ranks, gated as (i);
+  shard_serve  the sharded serving engine (serving/sharded.py) at flagship
+           f32 on ranks sharing the card over gloo, rank 0 leading: (i)
+           (2, 1, 1) DP on "fused" from graphs (K8 12 an /embed a rank) and
+           (1, 2, 1) TP on "pallas", eager (K1 24 at h=1024, K4 12):
+           /embed and /reconstruct at b=8 (each with the quality
+           post-pass), /parse and the index forward, SHARD_REPS timed
+           /embed b=8 calls, one /embed b=1 through the leader's HTTP
+           server; every rank's launches of every call exact, the answers
+           within 1e-3 of the port's one-rank engine (a DP rank's rows
+           bitwise it at bucket 4), no capture on the request path, a hot
+           reload served by every rank, the leader's dispatch times; (ii) a
+           world of one over NCCL through ``python -m
+           glom_tpu_torch.serving.server --mesh-shape 1,1,1`` serving
+           /embed (launches exact, within 1e-3); (iii) under --only
+           shard_serve only, (1, 2, 1) EP, (1, 1, 2) seq and (2, 2, 1) int8
+           TP on four ranks (within 1e-2 normwise of the one-rank int8
+           engine).
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -397,6 +414,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -6978,11 +6996,419 @@ def phase_pipe(device, everything: bool = False) -> dict:
     return total
 
 
+# -- the shard_serve phase: the sharded serving engine on ranks sharing the card
+
+# one rank of a shard_serve world sharing cuda:0 over gloo: each case of its
+# world builds its mesh engine from the case's checkpoint; rank 0 runs
+# shard_leader, the others follow; every rank logs each cache call of the
+# mesh (family, rows, the launches from a count set to 0 just before it and
+# read just after, the header's and the row gather's host ms) and prints its
+# record
+SHARD_RANK_CHILD = r"""
+import contextlib, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from chip_smoke import shard_leader
+from glom_tpu_torch.kernels import wrappers
+from glom_tpu_torch.parallel.mesh import initialize_distributed
+from glom_tpu_torch.serving import compile_cache, sharded
+from glom_tpu_torch.serving.engine import ServingEngine
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, rank, world = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+spec = json.load(open(os.path.join(work, "spec.json")))
+# gloo named for CUDA tensors: every rank runs on the one card
+device = initialize_distributed("file://" + os.path.join(work, f"store{world}"), world, rank,
+                                device="cuda:0", backend="gloo", timeout_s=300)
+fns = wrappers()
+log = []
+real_announce, real_gather = sharded.MeshDispatch.announce, sharded.MeshDispatch.gather
+
+
+@contextlib.contextmanager
+def announce(self, set_id, family, imgs, eager):
+    rec = {"set": set_id, "family": family, "rows": int(imgs.shape[0]), "gather_ms": 0.0}
+    t0 = time.perf_counter()
+    with real_announce(self, set_id, family, imgs, eager):
+        # inside the leader's lock: no other mesh call runs until this ends
+        rec["header_ms"] = (time.perf_counter() - t0) * 1e3
+        for fn in fns.values():
+            fn.launches = 0
+        yield
+    rec["ms"] = (time.perf_counter() - t0) * 1e3
+    rec["launches"] = {k: fn.launches for k, fn in fns.items()}
+    log.append(rec)
+
+
+def gather(self, host):
+    t0 = time.perf_counter()
+    out = real_gather(self, host)
+    gathered.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+gathered = []
+sharded.MeshDispatch.announce, sharded.MeshDispatch.gather = announce, gather
+for case in spec["cases"]:
+    if case["world"] != world:
+        continue
+    del log[:]
+    engine = ServingEngine(case["ckpt"], device=device, reload_poll_s=0, max_wait_ms=0.0,
+                           mesh_shape=tuple(case["mesh"]), **case["engine"])
+    rec = {"case": case["name"], "rank": rank, "backend": dist.get_backend(),
+           "device": torch.cuda.get_device_name(device), "coords": engine.mesh.coords,
+           "graphed": engine.caches["embed"].graphed,
+           "local_w1": {net: list((engine.params["glom"][net]["w1"]["int8_q"]
+                                   if case["engine"].get("quant") == "int8"
+                                   else engine.params["glom"][net]["w1"]).shape)
+                        for net in ("bottom_up", "top_down")}}
+    if engine.is_leader:
+        rec.update(shard_leader(engine, case, work))
+    else:
+        steps, captures = [], []
+        real_run = engine.follow_run
+
+        def follow_run(set_id, family, imgs, eager):
+            c0 = compile_cache.captures_made()
+            real_run(set_id, family, imgs, eager)
+            steps.append(engine._follower_sets[set_id].step)
+            captures.append(compile_cache.captures_made() - c0)
+
+        engine.follow_run = follow_run
+        rec["calls_run"] = engine.follow()
+        rec.update(steps=steps, request_path_captures=sum(captures))
+    # the gather's time, matched to each call in order
+    for call in log:
+        call["gather_ms"] = gathered.pop(0) if gathered else 0.0
+    del gathered[:]
+    rec["calls"] = list(log)
+    print(json.dumps(rec), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+dist.destroy_process_group()
+"""
+
+SHARD_TIMEOUT_S = 600
+SHARD_REPS = 5
+SHARD_SEED = 41
+# (name, world, mesh, engine arguments, the answers' limit against the one-rank
+# engine: "bitwise" for a data rank's rows, else max-abs SERVE_ATOL (f32) or
+# normwise RTOL[bf16] (int8); full run?)
+SHARD_CASES = (
+    ("dp_fused", 2, (2, 1, 1), dict(ff_impl="fused", buckets=(2, 4, 8)), "bitwise", True),
+    ("tp", 2, (1, 2, 1), dict(ff_impl="pallas", attention_impl="pallas", param_sharding="tp",
+                              buckets=(1, 2, 4, 8)), "f32", True),
+    ("ep", 2, (1, 2, 1), dict(ff_impl="pallas", attention_impl="pallas", param_sharding="ep",
+                              buckets=(1, 2, 4, 8)), "f32", False),
+    ("seq", 2, (1, 1, 2), dict(ff_impl="pallas", attention_impl="pallas",
+                               buckets=(1, 2, 4, 8)), "f32", False),
+    ("int8_tp", 4, (2, 2, 1), dict(ff_impl="pallas", attention_impl="pallas",
+                                   param_sharding="tp", quant="int8", buckets=(2, 4, 8)),
+     "bf16", False),
+)
+# written before the first run on the card (PERF.md §6, PR 26): a rank's /embed
+# b=8 host time over the one-rank engine's, and the leader's dispatch (the
+# header, the images and the row gather, host ms a call)
+SHARD_PREDICTED = {"dp_fused_over_one_rank": [1.0, 2.5], "tp_over_one_rank": [3.0, 15.0],
+                   "dispatch_ms_a_call": [1.0, 30.0], "seconds_full_run": [30, 60]}
+
+
+def shard_launches(config: dict, iters: int) -> dict:
+    """A rank's launches for one call of ``iters`` iterations on its shard:
+    K8 alone under DP "fused", else K1 twice and K4 once an iteration."""
+    if config.get("ff_impl") == "fused":
+        return {**want_launches(0), "fused_level_update": iters}
+    return want_launches(iters)
+
+
+def shard_leader(engine, case: dict, work: str) -> dict:
+    """Rank 0 of a shard_serve case (run in its rank process): /embed and
+    /reconstruct at b=8 through ``submit`` and the batch (each sampled batch
+    replays the quality family), /parse and the index forward through the
+    engine, SHARD_REPS timed /embed b=8 calls, one /embed b=1 through the
+    leader's HTTP server, then the port's one-rank engine (buckets 1, 4, 8,
+    step 0) on the same images, then a hot reload to a perturbed step 1 and
+    one more /embed b=8 on it; the errors, times, captures and health."""
+    from glom_tpu_torch.serving.compile_cache import captures_made
+
+    c = engine.config
+    rng = np.random.default_rng(SHARD_SEED)
+    x8 = rng.standard_normal((BATCH, c.channels, c.image_size, c.image_size)).astype(np.float32)
+    c0 = captures_made()
+    out = {}
+    for ep in ("embed", "reconstruct"):
+        fut = engine.submit(ep, x8)
+        engine.process_once(ep)
+        out[ep] = fut.result(timeout=0)
+    out["parse"] = engine.run("parse", x8)
+    out["index"] = engine.run("index", x8)
+    mesh_ms = []
+    for _ in range(SHARD_REPS):
+        t0 = time.perf_counter()
+        engine.run("embed", x8)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+    engine.start()
+    server = make_server(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05})
+    thread.start()
+    try:
+        base = "http://127.0.0.1:%d" % server.server_address[1]
+        reply, _ = post(base + "/embed", {"images": x8[:1].tolist()})
+        http_b1 = np.asarray(reply["embeddings"], np.float32)
+        # the sampled batches' quality post-passes (the worker's, after the
+        # answer) are done before anything else launches a kernel here
+        wait_quality(engine, 3)
+        health = get(base + "/healthz")
+    finally:
+        server.shutdown()
+        thread.join()
+        server.server_close()
+    request_path_captures = captures_made() - c0
+    kw = {k: v for k, v in case["engine"].items() if k not in ("param_sharding", "buckets")}
+    one = ServingEngine(case["ckpt"], device=engine.device, reload_poll_s=0, quality_sample=0,
+                        buckets=(1, 4, 8), **kw)
+    try:
+        ref = {ep: one.run(ep, x8) for ep in ("embed", "reconstruct", "parse", "index")}
+        one_ms = []
+        for _ in range(SHARD_REPS):
+            t0 = time.perf_counter()
+            one.run("embed", x8)
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        ref_b1 = one.run("embed", x8[:1])
+        per = BATCH // engine.mesh.size("data")
+        rows = {ep: np.concatenate([one.run(ep, x8[i:i + per]) for i in range(0, BATCH, per)])
+                for ep in ("embed", "reconstruct", "parse")} if per < BATCH else ref
+    finally:
+        one.shutdown(drain=False)
+    errs = {ep: float(np.abs(out[ep] - ref[ep]).max()) for ep in ("embed", "reconstruct",
+                                                                   "index")}
+    rels = {ep: rel_err(out[ep], ref[ep]) for ep in ("embed", "reconstruct", "index")}
+    bitwise = {ep: bool(np.array_equal(out[ep], rows[ep])) for ep in ("embed", "reconstruct")}
+    # /parse: labels, counts and sizes bitwise, the means up to the order of
+    # the pack's atomic sums (ISLAND_MEAN_ATOL)
+    g, w = (split_rows(r, c.levels, c.num_patches) for r in (out["parse"], rows["parse"]))
+    parse_vs = {"labels_counts_sizes_bitwise": all(np.array_equal(a, b)
+                                                   for a, b in zip(g[:3], w[:3])),
+                "means_max_abs_err": float(np.abs(g[3] - w[3]).max())}
+    # a hot reload to step 1, served by every rank
+    perturbed_step(case["ckpt"], 1, seed=SHARD_SEED + 2)
+    reloaded = engine.check_reload()
+    after = engine.run("embed", x8)
+    captures = engine.registry.snapshot().get("serving_graph_captures", 0) + sum(
+        cache.poll_captures() for cache in engine.caches.values())
+    engine.shutdown(drain=True)
+    return {"iters": {"embed": engine.embed_iters, "reconstruct": engine.reconstruct_timestep,
+                      "index": engine.embed_iters, "parse": engine.embed_iters,
+                      "quality": engine._program.quality_iters},
+            "max_abs_err": errs, "rel_err": rels, "bitwise_vs_one_rank": bitwise,
+            "parse_vs_one_rank": parse_vs,
+            "http_b1_max_abs_err": float(np.abs(http_b1 - ref_b1).max()),
+            "http_b1_shape": list(http_b1.shape), "parse_shape": list(out["parse"].shape),
+            "one_rank_b1": ref_b1.tolist(),
+            "mesh_embed_b8_ms": mesh_ms, "one_rank_embed_b8_ms": one_ms,
+            "reloaded": bool(reloaded), "step_after": int(engine.step),
+            "after_finite": bool(np.isfinite(after).all()),
+            "after_differs": float(np.abs(after - out["embed"]).max()),
+            "request_path_captures": int(request_path_captures),
+            "serving_graph_captures": int(captures), "health": {
+                k: health[k] for k in ("status", "mesh", "param_sharding", "mesh_dispatch",
+                                       "quant", "ff_impl")}}
+
+
+def run_shard_world(work: str, world: int) -> list:
+    """The ranks of one shard_serve world, each a process on cuda:0; their
+    records."""
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    ranks = [subprocess.Popen([sys.executable, "-c", SHARD_RANK_CHILD, ROOT, work, str(r),
+                               str(world)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=SHARD_TIMEOUT_S) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (_, err) in enumerate(outs):
+        if ranks[r].returncode != 0:
+            raise AssertionError(f"shard_serve: rank {r} of {world} failed:\n{err[-4000:]}")
+    return [json.loads(line) for out, _ in outs for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def shard_nccl_server(ckpt: str, log_path: str):
+    """``python -m glom_tpu_torch.serving.server --mesh-shape 1,1,1`` over
+    NCCL: a world of one through the CLI, in a process of its own."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    with open(log_path, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-m", "glom_tpu_torch.serving.server", "--checkpoint-dir", ckpt,
+             "--device", "cuda", "--port", "0", "--reload-poll-s", "0", "--buckets", "1,8",
+             "--quality-sample", "0", "--mesh-shape", "1,1,1", "--coordinator",
+             f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0"],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+
+
+def phase_shard_serve(device, everything: bool = False) -> dict:
+    """The sharded serving engine (serving/sharded.py) at flagship f32 on
+    ranks sharing the card over gloo, each on cuda:0, rank 0 leading: (i)
+    (2, 1, 1) DP on "fused" from graphs (K8 12 an /embed a rank, on its 4
+    rows) and (1, 2, 1) TP on "pallas", eager (K1 24 at h=1024, K4 12):
+    /embed and /reconstruct at b=8 (with the quality post-pass), /parse and
+    the index forward, one /embed b=1 through the leader's HTTP server, each
+    rank's launches of every call exact, the answers within SERVE_ATOL of the
+    port's one-rank engine on the card (a DP rank's rows bitwise the
+    one-rank engine at bucket 4), no capture on the request path, a hot
+    reload served by every rank; (ii) a world of one over NCCL through
+    ``python -m glom_tpu_torch.serving.server --mesh-shape 1,1,1`` serving
+    /embed; (iii) with ``everything`` (``--only shard_serve``) also (1, 2, 1)
+    EP, (1, 1, 2) seq and (2, 2, 1) int8 TP on four ranks.  Returns every
+    rank's launches, summed."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="shard-")
+    cases = [c for c in SHARD_CASES if everything or c[5]]
+    spec = {"cases": []}
+    for name, world, mesh, kw, _, _ in cases:
+        ckpt = flagship_ckpt(f"shard_serve_{name}", SHARD_SEED)
+        spec["cases"].append({"name": name, "world": world, "mesh": list(mesh), "engine": kw,
+                              "ckpt": ckpt})
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    nccl_ckpt = flagship_ckpt("shard_serve_nccl", SHARD_SEED)
+    nccl_log = os.path.join(work, "nccl.log")
+    nccl = shard_nccl_server(nccl_ckpt, nccl_log)
+    torch.cuda.empty_cache()
+    try:
+        records = []
+        for world in sorted({c[1] for c in cases}):
+            records += run_shard_world(work, world)
+        # (ii) the NCCL world of one: /embed b=1 against the DP leader's
+        # one-rank reference of the same image and weights (step 0)
+        url = served_url(nccl, nccl_log)
+        before = get(url + "/healthz")
+        x1 = np.random.default_rng(SHARD_SEED).standard_normal(
+            (BATCH, 3, FLAGSHIP.image_size, FLAGSHIP.image_size)).astype(np.float32)[:1]
+        reply, _ = post(url + "/embed", {"images": x1.tolist()})
+        after = get(url + "/healthz")
+    finally:
+        nccl.send_signal(signal.SIGTERM)
+        try:
+            nccl.wait(timeout=120)
+        finally:
+            if nccl.poll() is None:
+                nccl.kill()
+                nccl.wait()
+    if nccl.returncode != 0:
+        raise AssertionError(f"shard_serve: the NCCL server exited {nccl.returncode}")
+    for case in spec["cases"]:
+        shutil.rmtree(case["ckpt"], ignore_errors=True)
+    shutil.rmtree(nccl_ckpt, ignore_errors=True)
+    total = {k: 0 for k in want_launches(0)}
+    leaders = {}
+    for name, world, mesh, kw, limit, _ in cases:
+        recs = sorted((r for r in records if r["case"] == name), key=lambda r: r["rank"])
+        if [r["rank"] for r in recs] != list(range(world)):
+            raise AssertionError(f"shard_serve {name}: ranks {[r['rank'] for r in recs]}")
+        lead = recs[0]
+        leaders[name] = lead
+        for r in recs:
+            if r["backend"] != "gloo" or r["device"] != torch.cuda.get_device_name(0):
+                raise AssertionError(f"shard_serve {name}: {r['backend']} on {r['device']}")
+            if len(r["calls"]) != len(lead["calls"]):
+                raise AssertionError(f"shard_serve {name}: rank {r['rank']} ran "
+                                     f"{len(r['calls'])} calls, the leader {len(lead['calls'])}")
+            for call in r["calls"]:
+                check_launches(f"shard_serve {name} rank {r['rank']} {call['family']}",
+                               call["launches"],
+                               shard_launches(kw, lead["iters"][call["family"]]))
+                for k, v in call["launches"].items():
+                    total[k] += v
+            if r["rank"] and (r["request_path_captures"] or lead["step_after"] not in r["steps"]):
+                raise AssertionError(f"shard_serve {name} rank {r['rank']}: captures "
+                                     f"{r['request_path_captures']}, steps {set(r['steps'])}")
+            if r["graphed"] != (name == "dp_fused"):
+                raise AssertionError(f"shard_serve {name}: graphed {r['graphed']}")
+        bad = []
+        if not (lead["reloaded"] and lead["step_after"] == 1 and lead["after_finite"]
+                and lead["after_differs"] > 0):
+            bad.append("reload")
+        if lead["request_path_captures"] or lead["serving_graph_captures"]:
+            bad.append("captures")
+        if lead["health"]["status"] != "ok" or lead["health"]["mesh"] != dict(
+                zip(("data", "model", "seq"), mesh)):
+            bad.append("health")
+        if limit == "bitwise" and not (
+                all(lead["bitwise_vs_one_rank"].values())
+                and lead["parse_vs_one_rank"]["labels_counts_sizes_bitwise"]
+                and lead["parse_vs_one_rank"]["means_max_abs_err"] <= ISLAND_MEAN_ATOL):
+            bad.append(f"bitwise {lead['bitwise_vs_one_rank']} {lead['parse_vs_one_rank']}")
+        if limit == "bf16":
+            if not max(lead["rel_err"].values()) <= RTOL[torch.bfloat16]:
+                bad.append(f"rel_err {lead['rel_err']}")
+        elif not (max(lead["max_abs_err"].values()) <= SERVE_ATOL
+                  and lead["http_b1_max_abs_err"] <= SERVE_ATOL):
+            bad.append(f"max_abs_err {lead['max_abs_err']} / http {lead['http_b1_max_abs_err']}")
+        # the timed /embed b=8 calls: the second to the (SHARD_REPS + 1)-th
+        timed = slice(1, 1 + SHARD_REPS)
+        emb = [cl for cl in lead["calls"] if cl["family"] == "embed"][timed]
+        dispatch_ms = [cl["header_ms"] + cl["gather_ms"] for cl in emb]
+        follower_ms = [[cl["ms"] for cl in r["calls"] if cl["family"] == "embed"][timed]
+                       for r in recs[1:]]
+        emit({"phase": "shard_serve", "case": name, "mesh": dict(zip(("data", "model", "seq"),
+                                                                     mesh)),
+              "engine": kw, "ranks": [{k: r[k] for k in ("rank", "coords", "device", "backend",
+                                                         "graphed", "local_w1")}
+                                      for r in recs],
+              "calls_a_rank": len(lead["calls"]),
+              "launches_a_call": {fam: shard_launches(kw, it)
+                                  for fam, it in lead["iters"].items()},
+              **{k: lead[k] for k in ("max_abs_err", "rel_err", "bitwise_vs_one_rank",
+                                      "parse_vs_one_rank",
+                                      "http_b1_max_abs_err", "http_b1_shape", "parse_shape",
+                                      "mesh_embed_b8_ms", "one_rank_embed_b8_ms", "reloaded",
+                                      "step_after", "request_path_captures",
+                                      "serving_graph_captures", "health")},
+              "mesh_over_one_rank": statistics.median(lead["mesh_embed_b8_ms"])
+              / statistics.median(lead["one_rank_embed_b8_ms"]),
+              "leader_dispatch_ms": dispatch_ms, "follower_embed_ms": follower_ms,
+              "staging": "gloo on the host: headers, images and the row gather; under TP, "
+                         "EP and seq the forward's all-reduces and gathers on CUDA tensors"})
+        if bad:
+            raise AssertionError(f"shard_serve {name}: {bad}")
+    # (ii) checked: NCCL, a world of one, the replay's launches, the answer
+    # against the TP leader's one-rank engine on the same image and weights
+    got = np.asarray(reply["embeddings"], np.float32)
+    nccl_err = float(np.abs(got - np.asarray(leaders["tp"]["one_rank_b1"], np.float32)).max())
+    mesh = after.get("mesh_dispatch") or {}
+    launched = {k: after["kernel_launches"][k] - before["kernel_launches"][k]
+                for k in before["kernel_launches"]}
+    nccl_rec = {"phase": "shard_serve", "part": "nccl_world_of_one", "mesh": after["mesh"],
+                "backend": mesh.get("backend"), "graphs": mesh.get("graphs"),
+                "launches": launched, "shape": list(got.shape), "step": reply["step"],
+                "max_abs_err": nccl_err}
+    emit(nccl_rec)
+    if (mesh.get("backend") != "nccl" or after["mesh"] != {"data": 1, "model": 1, "seq": 1}
+            or launched != {"grouped_ff": 2 * FLAGSHIP.default_iters,
+                            "consensus_attention": FLAGSHIP.default_iters,
+                            "fused_level_update": 0}
+            or got.shape != (1, FLAGSHIP.levels, FLAGSHIP.dim) or not nccl_err <= SERVE_ATOL):
+        raise AssertionError(f"shard_serve: the NCCL world of one: {nccl_rec}")
+    for k, v in launched.items():
+        total[k] += v
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "shard_serve", "predicted": SHARD_PREDICTED, "launches": total,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
           "bulk", "attribution", "fleet", "train_obs", "forensics", "widths", "chaos", "bench",
-          "large", "mesh", "pipe")
+          "large", "mesh", "pipe", "shard_serve")
 
 
 def parse_args(argv):
@@ -7018,7 +7444,9 @@ def parse_args(argv):
                         "through the padded kernels, 'auto' and the kernel digests; chaos: all "
                         "eleven scenarios of the port's chaos suite, six in the full run; pipe: "
                         "GPipe and the DP forward on ranks sharing the card, with the "
-                        "four-rank (pipe, model) and (pipe, seq) cases only here). "
+                        "four-rank (pipe, model) and (pipe, seq) cases only here; "
+                        "shard_serve: the sharded serving engine on ranks sharing the card, "
+                        "with EP, seq and the four-rank int8 TP cases only here). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -7031,8 +7459,8 @@ def parse_args(argv):
 
 # the classifier, video, extraction, islanding, quantized, session, parse,
 # deploy, session-tool, fault, quality, capacity, bulk, attribution, fleet,
-# trainer-observability, engine-forensics, narrow-width, chaos, mesh and
-# pipeline paths, in the full run's order
+# trainer-observability, engine-forensics, narrow-width, chaos, mesh,
+# pipeline and sharded-serving paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
@@ -7041,7 +7469,7 @@ SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": pha
                 "attribution": phase_attribution, "fleet": phase_fleet,
                 "train_obs": phase_train_obs, "forensics": phase_forensics,
                 "widths": phase_widths, "chaos": phase_chaos, "mesh": phase_mesh,
-                "pipe": phase_pipe}
+                "pipe": phase_pipe, "shard_serve": phase_shard_serve}
 
 
 def run_only(device, names) -> int:
@@ -7068,6 +7496,8 @@ def run_only(device, names) -> int:
             phase_chaos(device, everything=True)
         elif name == "pipe":
             phase_pipe(device, everything=True)
+        elif name == "shard_serve":
+            phase_shard_serve(device, everything=True)
         elif name in SLICE_PHASES:
             SLICE_PHASES[name](device)
         elif name == "bench":
@@ -7123,8 +7553,8 @@ def main(argv=()) -> int:
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
-    # _train_obs, _forensics, _widths, _chaos, _mesh, _pipe: each of those paths' main run
-    # (_mesh and _pipe: every rank's, summed); launches_large:
+    # _train_obs, _forensics, _widths, _chaos, _mesh, _pipe, _shard_serve: each of those
+    # paths' main run (_mesh, _pipe and _shard_serve: every rank's, summed); launches_large:
     # the large preset's serving run ("pallas" and "fused" in f32);
     # launches_large_train: its three train steps (one a configuration)
     launches.update({k: train_launches[k] for k in BACKWARD})

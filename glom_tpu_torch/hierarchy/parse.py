@@ -159,16 +159,19 @@ _make_packer = make_pack_fn
 
 
 def make_index_fn(config, iters: Optional[int], *, ff_fn=None, fused_fn=None,
-                  consensus_fn=None):
+                  consensus_fn=None, apply_fn=None):
     """``(params, imgs) -> (b, n, L, d)`` float32 column state, the bulk
     ``transform: "index"`` forward (``params``: ``{"glom": ...}``).  The cast
     is part of the function: the index files are float32 by layout whatever
     the compute dtype.  The step functions, when given, are
     ``models/glom.py::resolve_step_fns``'s (the serving engine resolves them
-    once, outside its graphs)."""
+    once, outside its graphs); ``apply_fn`` stands for ``models/glom.py::apply``
+    (a mesh rank's: ``serving/sharded.py::make_sharded_apply``)."""
+    apply_fn = apply_fn or glom_model.apply
+
     def f(params, imgs):
-        levels = glom_model.apply(params["glom"], imgs, config=config, iters=iters,
-                                  consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        levels = apply_fn(params["glom"], imgs, config=config, iters=iters,
+                          consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
         return levels.float()
 
     return f

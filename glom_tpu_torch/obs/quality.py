@@ -157,7 +157,7 @@ def agreement_stats(agree, log_n: float):
 
 
 def make_quality_fn(config, train_cfg, iters: Optional[int],
-                    *, ff_fn=None, fused_fn=None, consensus_fn=None):
+                    *, ff_fn=None, fused_fn=None, consensus_fn=None, apply_fn=None):
     """``(params, imgs) -> (b, 3L + 1)`` float32 PER-IMAGE signal matrix.
 
     Columns: ``[agreement_l0..l{L-1}, entropy_l0.., norm_l0..,
@@ -171,8 +171,10 @@ def make_quality_fn(config, train_cfg, iters: Optional[int],
     trained decoder head reconstructs from (residual) — a single model
     pass per sampled batch.  The step functions, when given, are
     ``models/glom.py::resolve_step_fns``'s (the serving engine resolves
-    them once, outside its graphs).  Nothing in it reads the device from
-    the host, so it captures as a CUDA graph.
+    them once, outside its graphs); ``apply_fn`` stands for
+    ``glom_model.apply`` (a mesh rank's:
+    ``serving/sharded.py::make_sharded_apply``).  Nothing in it reads the
+    device from the host, so it captures as a CUDA graph.
     """
     import torch
 
@@ -188,8 +190,10 @@ def make_quality_fn(config, train_cfg, iters: Optional[int],
         else config.default_iters)
     timestep = denoise.resolve_loss_timestep(train_cfg, resolved_iters)
 
+    apply_fn = apply_fn or glom_model.apply
+
     def f(params, imgs):
-        levels, captured = glom_model.apply(
+        levels, captured = apply_fn(
             params["glom"], imgs, config=config, iters=resolved_iters,
             capture_timestep=timestep, consensus_fn=consensus_fn,
             ff_fn=ff_fn, fused_fn=fused_fn)

@@ -60,6 +60,14 @@ the caller owns before the cache's lock is released.  :class:`PostPassCache`
 is ``/parse``: another cache's forward followed by a post-pass captured as
 a graph of its own, which copies the inner output into its static input
 under the inner cache's lock.
+
+On a mesh of ranks (``serving/sharded.py``) a cache is one rank's: given a
+``shard``, a call pads the batch to its bucket, announces it to the other
+ranks (the leader's header), runs this rank's rows of the bucket (its
+graphs are captured at that many rows) and gathers every data rank's rows
+of the output back.  ``eager_reason`` (a forward with collectives inside
+it) keeps the cache eager on a card too; its snapshots carry ``mesh``,
+``graphs`` and the reason.
 """
 
 from __future__ import annotations
@@ -260,14 +268,17 @@ class _GraphFamily:
 
     def __init__(self, buckets: Sequence[int], *, device, name: str,
                  lock: Optional[DeviceLock], quant: Optional[str] = None,
-                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None):
+                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None,
+                 mesh_axes: Optional[Dict[str, int]] = None, eager_reason: Optional[str] = None):
         self.name = name
         self.quant = quant
         self._cost_fn = cost_fn
         self.snapshots: Dict[int, Dict] = {}   # by bucket: what its graph launches and costs
         self.buckets: Tuple[int, ...] = tuple(buckets)
         self.device = torch.device(device)
-        self.graphed = self.device.type == "cuda"
+        self.mesh_axes = dict(mesh_axes) if mesh_axes else None
+        self.eager_reason = eager_reason
+        self.graphed = self.device.type == "cuda" and eager_reason is None
         self._lock = lock if lock is not None else DeviceLock()
         self._replay = threading.Lock()       # one replay at a time on this family's pool
         self._graphs: Dict = {}
@@ -355,6 +366,10 @@ class _GraphFamily:
             pool_bytes=_pool_bytes(self._pool) if self.graphed else None,
             param_bytes=profiling.tree_nbytes(self._param_tree()), device=self.device)
         snap.update(self._snapshot_labels())
+        if self.mesh_axes:
+            snap.update(mesh=dict(self.mesh_axes), graphs=self.graphed)
+            if self.eager_reason is not None:
+                snap["eager_reason"] = self.eager_reason
         self.snapshots[bucket] = snap
 
     def _prepare(self, key) -> bool:
@@ -419,14 +434,17 @@ class BucketedGraphCache(_GraphFamily):
     cache needs ``state_shape`` (the state's shape after the batch axis) and
     ``state_dtype``.  ``fn`` runs under ``torch.inference_mode()``.
     ``lock`` is the process's :class:`DeviceLock` (one is made when none is
-    given)."""
+    given).  ``shard`` (``serving/sharded.py::SetShard``) makes it one
+    rank's cache of a mesh engine; a stateful cache takes none."""
 
     def __init__(self, fn: Callable, buckets: Sequence[int], *, input_shape: Tuple[int, ...],
                  device, name: str = "forward", lock: Optional[DeviceLock] = None,
                  iters: Optional[int] = None, carries_state: bool = False,
                  takes_state: bool = False, state_shape: Optional[Tuple[int, ...]] = None,
                  state_dtype=None, quant: Optional[str] = None,
-                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None):
+                 cost_fn: Optional[Callable[[int], Dict[str, float]]] = None,
+                 shard=None, mesh_axes: Optional[Dict[str, int]] = None,
+                 eager_reason: Optional[str] = None):
         buckets = sorted(set(int(b) for b in buckets))
         if not buckets:
             raise ValueError("need at least one bucket size")
@@ -437,8 +455,11 @@ class BucketedGraphCache(_GraphFamily):
                              "next state)")
         if takes_state and (state_shape is None or state_dtype is None):
             raise ValueError("takes_state needs state_shape and state_dtype")
+        if shard is not None and carries_state:
+            raise ValueError("a stateful cache runs on one rank")
         super().__init__(buckets, device=device, name=name, lock=lock, quant=quant,
-                         cost_fn=cost_fn)
+                         cost_fn=cost_fn, mesh_axes=mesh_axes, eager_reason=eager_reason)
+        self.shard = shard
         self.fn = fn
         self.input_shape = tuple(int(s) for s in input_shape)
         self.iters = None if iters is None else int(iters)
@@ -468,8 +489,12 @@ class BucketedGraphCache(_GraphFamily):
             labels["iters"] = self.iters
         return labels
 
+    def _rows(self, bucket: int) -> int:
+        """The rows of a bucket this rank computes: all of them on one rank."""
+        return bucket if self.shard is None else self.shard.local_rows(bucket)
+
     def _capture_call(self, bucket: int):
-        static_in = torch.zeros((bucket,) + self.input_shape, dtype=torch.float32,
+        static_in = torch.zeros((self._rows(bucket),) + self.input_shape, dtype=torch.float32,
                                 device=self.device)
         args = (self._params, static_in)
         static_state = None
@@ -505,9 +530,9 @@ class BucketedGraphCache(_GraphFamily):
         host = out[:b].cpu().numpy()
         return host if not self.carries_state else (host, owned)
 
-    def _run_eager(self, params, imgs: np.ndarray, bucket: int, state, take):
+    def _run_eager(self, params, imgs: np.ndarray, rows: int, state, take):
         with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(pad_to_bucket(imgs, bucket),
+            x = torch.from_numpy(np.ascontiguousarray(pad_to_bucket(imgs, rows),
                                                       dtype=np.float32)).to(self.device)
             args = (params, x) + ((state,) if self.takes_state else ())
             out = self.fn(*args)
@@ -524,7 +549,7 @@ class BucketedGraphCache(_GraphFamily):
         b = imgs.shape[0]
         if not self.graphed:
             t_pad = clock() if clock else 0.0
-            return self._run_eager(params, imgs, bucket, state, take), t_pad
+            return self._run_eager(params, imgs, self._rows(bucket), state, take), t_pad
         with self._lock.shared(), self._holding(bucket) as entry:
             entry.static_in[:b].copy_(torch.from_numpy(np.ascontiguousarray(imgs, np.float32)))
             if b < bucket:
@@ -540,8 +565,24 @@ class BucketedGraphCache(_GraphFamily):
         request path pads: what a replay must equal bit for bit."""
         bucket = self.bucket_of(imgs.shape[0])
         self._check_state(state, bucket)
-        with self._lock.shared():
-            return self._run_eager(params, imgs, bucket, state, self._to_host)
+
+        def run(x):
+            with self._lock.shared():
+                return self._run_eager(params, x, self._rows(bucket), state, self._to_host), 0.0
+
+        return self._dispatched(self.name, imgs, bucket, run, eager=True)[0]
+
+    def _dispatched(self, family: str, imgs: np.ndarray, bucket: int, execute, *,
+                    eager: bool = False):
+        """``execute(imgs)`` on one rank.  On a mesh: announced to the other
+        ranks first, ``execute`` on this rank's rows of the batch padded to
+        ``bucket``, then every data rank's rows gathered and the first
+        ``len(imgs)`` kept.  Returns ``execute``'s ``(output, t_pad)``."""
+        if self.shard is None:
+            return execute(imgs)
+        with self.shard.announce(family, imgs, eager):
+            out, t_pad = execute(pad_to_bucket(imgs, bucket)[self.shard.rows(bucket)])
+            return self.shard.gather(out)[:imgs.shape[0]], t_pad
 
     def __call__(self, params, imgs: np.ndarray, *, state=None, tracer=None,
                  contexts: Sequence = ()):
@@ -556,9 +597,11 @@ class BucketedGraphCache(_GraphFamily):
         the host."""
         return self._serve(params, imgs, state, self._to_host, tracer, contexts)
 
-    def _serve(self, params, imgs: np.ndarray, state, take, tracer, contexts):
+    def _serve(self, params, imgs: np.ndarray, state, take, tracer, contexts,
+               family: Optional[str] = None):
         """Prepare the bucket (a capture needs the device lock alone, so it
-        comes before any hold), then execute it with ``take``."""
+        comes before any hold), then execute it with ``take`` (on a mesh, as
+        graph family ``family``, by default this cache's name)."""
         b = imgs.shape[0]
         self._bind(params)
         clock = tracer.clock if tracer is not None and contexts else None
@@ -566,7 +609,9 @@ class BucketedGraphCache(_GraphFamily):
         bucket = self.bucket_of(b)
         self._check_state(state, bucket)
         prepared = self._prepare(bucket)
-        out, t_pad = self._execute(params, imgs, bucket, state, take, clock)
+        out, t_pad = self._dispatched(
+            family or self.name, imgs, bucket,
+            lambda x: self._execute(params, x, bucket, state, take, clock))
         if clock:
             t_done = clock()
             attrs = {"images": b, "bucket": bucket, "graph": self.graphed,
@@ -610,7 +655,8 @@ class PostPassCache(_GraphFamily):
         # the pack launches no hand kernel and its work is not the model's:
         # its snapshots carry the launches (none) and the pool, no cost
         super().__init__(inner.buckets, device=inner.device, name=name, lock=inner._lock,
-                         quant=inner.quant)
+                         quant=inner.quant, mesh_axes=inner.mesh_axes,
+                         eager_reason=inner.eager_reason)
         self.inner = inner
         self.post_fn = post_fn
         self.iters = inner.iters
@@ -633,8 +679,8 @@ class PostPassCache(_GraphFamily):
 
     def _capture_call(self, key):
         bucket, dtype = key
-        static_in = torch.zeros((bucket,) + self.state_shape, dtype=getattr(torch, dtype),
-                                device=self.device)
+        static_in = torch.zeros((self.inner._rows(bucket),) + self.state_shape,
+                                dtype=getattr(torch, dtype), device=self.device)
         return self.post_fn, (static_in,), static_in, None
 
     def warm_state(self, dtype) -> None:
@@ -651,13 +697,15 @@ class PostPassCache(_GraphFamily):
             self.inner.warmup(params)
         self._warm([self._key(b, self.state_dtype) for b in self.buckets])
 
-    def _pack(self, state: torch.Tensor, b: int) -> np.ndarray:
-        """The pack on a bucket-shaped state on the card: rows ``[:b]`` on
-        the host.  The caller holds the device lock shared."""
+    def _pack(self, state: torch.Tensor, b: int, bucket: Optional[int] = None) -> np.ndarray:
+        """The pack on a bucket-shaped state on the card (on a mesh, this
+        rank's rows of ``bucket``): rows ``[:b]`` on the host.  The caller
+        holds the device lock shared."""
         if not self.graphed:
             with torch.inference_mode():
                 return self.post_fn(state)[:b].cpu().numpy()
-        with self._holding(self._key(state.shape[0], state.dtype)) as entry:
+        key = self._key(state.shape[0] if bucket is None else bucket, state.dtype)
+        with self._holding(key) as entry:
             entry.static_in.copy_(state)
             entry.replay()
             return entry.static_out[:b].cpu().numpy()
@@ -673,19 +721,26 @@ class PostPassCache(_GraphFamily):
     def __call__(self, params, imgs: np.ndarray, *, tracer=None, contexts: Sequence = ()):
         """The inner forward on ``imgs`` padded to its bucket, then the pack:
         the rows of the first ``len(imgs)`` images on the host."""
-        self._prepare(self._key(self.bucket_of(imgs.shape[0]), self.state_dtype))
+        bucket = self.bucket_of(imgs.shape[0])
+        self._prepare(self._key(bucket, self.state_dtype))
         return self.inner._serve(params, imgs, None,
-                                 lambda out, _new, b: self._pack(out, b), tracer, contexts)
+                                 lambda out, _new, b: self._pack(out, b, bucket), tracer,
+                                 contexts, family=self.name)
 
     def eager(self, params, imgs: np.ndarray) -> np.ndarray:
         """The inner forward and the pack run eagerly at the bucket's shape:
         what a replay must equal (labels, counts and sizes bit for bit; the
         means up to the order of the pack's atomic sums)."""
         bucket = self.bucket_of(imgs.shape[0])
-        with self._lock.shared(), torch.inference_mode():
-            return self.inner._run_eager(
-                params, imgs, bucket, None,
-                lambda out, _new, b: self.post_fn(out)[:b].cpu().numpy())
+        inner = self.inner
+
+        def run(x):
+            with self._lock.shared(), torch.inference_mode():
+                return inner._run_eager(
+                    params, x, inner._rows(bucket), None,
+                    lambda out, _new, b: self.post_fn(out)[:b].cpu().numpy()), 0.0
+
+        return inner._dispatched(self.name, imgs, bucket, run, eager=True)[0]
 
     def poll_captures(self) -> int:
         """Pack captures on the request path since the last poll, plus the

@@ -259,6 +259,8 @@ class DeployController:
 
     def _begin(self, phase: str, step: Optional[int],
                fraction: float) -> Optional[int]:
+        # a mesh's dispatch does not carry a candidate's set yet
+        self.engine.refuse_on_mesh("deploy")
         # _begin_lock spans check + load + install: without it, two
         # concurrent begins both pass the no-active-candidate check and
         # both load — the overwritten loser's device tree would stay

@@ -153,9 +153,20 @@ the same cache call as online rows: the graphs captured at start-up, never
 a new capture.  ``/admin/jobs/*`` drives it; ``/healthz`` carries its
 summary as ``bulk``.
 
-Arguments of ``glom_tpu``'s engine that need modules the port does not have
-yet (a device mesh) or that mean nothing to a CUDA graph (buffer donation)
-are refused by name when set: :data:`UNPORTED`.
+A mesh of ranks (:mod:`.sharded`; ``mesh_shape``, ``param_sharding``,
+``mesh_axis_names``): the engine is one rank of a ``torch.distributed``
+world of ``prod(mesh_shape)`` processes, each holding its shard of the
+parameters (placed by ``glom_tpu``'s rules, at start-up and at every reload
+alike) and computing its rows of every bucket on the hand kernels.  Rank 0
+leads: it alone serves, and announces each cache call, load and drop to the
+followers, which run :meth:`ServingEngine.follow`.  A pure-DP mesh replays
+each rank's graphs; a forward with collectives inside (TP, EP, seq) runs
+eagerly, and ``/healthz`` and the snapshots say why.  Above one rank,
+sessions, extra models, the bulk tier, ``/similar``'s index and deploys are
+refused by name (``sharded.ITEM_1B``).
+
+The one argument of ``glom_tpu``'s engine that means nothing to a CUDA graph
+(buffer donation) is refused by name when set: :data:`UNPORTED`.
 """
 
 from __future__ import annotations
@@ -165,6 +176,7 @@ import hashlib
 import threading
 import time
 import warnings
+import weakref
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -190,9 +202,12 @@ from glom_tpu_torch.obs.triggers import (
     QueueSaturationMonitor,
     TriggerEngine,
 )
+from glom_tpu_torch.parallel import mesh as mesh_lib
+from glom_tpu_torch.parallel.placement import shard_tree
 from glom_tpu_torch.resilience import faultinject, integrity
 from glom_tpu_torch.serving import quant as serving_quant
 from glom_tpu_torch.serving import sessions as serving_sessions
+from glom_tpu_torch.serving import sharded
 from glom_tpu_torch.serving.batcher import (  # noqa: F401
     Closed,
     DynamicBatcher,
@@ -216,15 +231,30 @@ SLO_ENDPOINTS = ENDPOINTS + ("session", "similar")
 # take its width (16) through their wrappers' padding.
 DEMO_CONFIG = GlomConfig(dim=16, levels=3, image_size=16, patch_size=8)
 
-# glom_tpu's engine arguments this port does not take yet: name -> (the value
-# that leaves it unset, what it waits for).  Any other value is refused.
-_Q = "ROADMAP queue 1"
+# glom_tpu's engine arguments this port does not take: name -> (the value that
+# leaves it unset, why).  Any other value is refused.
 UNPORTED = {
     "donate_inputs": (None, "an XLA buffer donation; a graph's static input is reused as it is"),
-    "mesh_shape": (None, f"serving/sharded.py ({_Q}, item 6b)"),
-    "param_sharding": ("replicated", f"serving/sharded.py ({_Q}, item 6b)"),
-    "mesh_axis_names": (("data", "model", "seq"), f"serving/sharded.py ({_Q}, item 6b)"),
 }
+
+
+# what a mesh above one rank does not carry yet, by the argument or call that
+# asks for it
+MESH_REFUSED = {
+    "warm_iters": "stateful sessions",
+    "extra_models": "extra registry models",
+    "bulk_dir": "the bulk tier",
+    "index_dir": "/similar's level index",
+    "deploy": "deploys (begin_shadow and the canary)",
+}
+
+
+def refuse_on_mesh(name: str, ranks: int) -> None:
+    """Raise for a :data:`MESH_REFUSED` feature on a mesh of ``ranks`` > 1."""
+    if ranks > 1:
+        raise NotImplementedError(
+            f"{name} ({MESH_REFUSED[name]}) on a mesh of {ranks} ranks is not in the port yet: "
+            f"the leader's dispatch does not carry it ({sharded.ITEM_1B})")
 
 
 def refuse_unported(args: dict) -> None:
@@ -299,28 +329,32 @@ def kernel_launches() -> Dict[str, int]:
 
 
 
-def make_embed_fn(config: GlomConfig, iters: int, step_fns):
+def make_embed_fn(config: GlomConfig, iters: int, step_fns, *, apply_fn=None):
     """``(params, imgs) -> (b, L, d)`` float32: the mean over patches of the
     forward after ``iters`` iterations, every level computed (the endpoint
-    slices one on the host)."""
+    slices one on the host).  ``apply_fn`` stands for ``models/glom.py::apply``
+    (a seq rank's: ``sharded.make_sharded_apply``)."""
     consensus_fn, ff_fn, fused_fn = step_fns
+    apply_fn = apply_fn or glom_model.apply
 
     def f(params, imgs):
-        out = glom_model.apply(params["glom"], imgs, config=config, iters=iters,
-                               consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        out = apply_fn(params["glom"], imgs, config=config, iters=iters,
+                       consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
         return out.mean(dim=1).float()
 
     return f
 
 
-def make_reconstruct_fn(config: GlomConfig, train_cfg: TrainConfig, timestep: int, step_fns):
+def make_reconstruct_fn(config: GlomConfig, train_cfg: TrainConfig, timestep: int, step_fns,
+                        *, apply_fn=None):
     """``(params, imgs) -> (b, c, H, W)`` float32: the state after the
     training loss timestep, decoded through the trained head."""
     consensus_fn, ff_fn, fused_fn = step_fns
+    apply_fn = apply_fn or glom_model.apply
 
     def f(params, imgs):
-        state = glom_model.apply(params["glom"], imgs, config=config, iters=timestep,
-                                 consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
+        state = apply_fn(params["glom"], imgs, config=config, iters=timestep,
+                         consensus_fn=consensus_fn, ff_fn=ff_fn, fused_fn=fused_fn)
         return decoder_apply(params["decoder"], state, config, arch=train_cfg.decoder,
                              level=train_cfg.loss_level).float()
 
@@ -388,12 +422,21 @@ class ServingProgram:
     ``session_cold`` and ``session_warm``; ``quality_sample > 0`` the
     ``quality`` family (the sets :meth:`make` builds with ``quality=True``).
     On a card, the kernels the config runs are built here, before any
-    request."""
+    request.
+
+    On a mesh of ranks (``mesh``, above one rank; ``dispatch`` is its
+    :class:`~glom_tpu_torch.serving.sharded.MeshDispatch`) the forwards are
+    this rank's: the step functions of ``sharded.resolve_sharded_kernels``,
+    the seq rank's columns (``sharded.make_sharded_apply``), and
+    :meth:`make` places this rank's shard of the tree by ``specs``
+    (``sharded.param_shardings``).  ``mesh_axes`` labels the snapshots (a mesh
+    of one rank included)."""
 
     def __init__(self, config: GlomConfig, train_cfg: TrainConfig, *, quant: str, buckets,
                  iters: Optional[int], device, lock: Optional[DeviceLock] = None,
                  warm_iters: Optional[int] = None, parse_thresholds=None,
-                 quality_sample: float = 0.0):
+                 quality_sample: float = 0.0, mesh=None, param_sharding: str = "replicated",
+                 axis_names=mesh_lib.DEFAULT_AXES, dispatch=None):
         if quant not in serving_quant.QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; one of {serving_quant.QUANT_MODES}")
         self.quant = quant
@@ -404,9 +447,26 @@ class ServingProgram:
         self.lock = lock if lock is not None else DeviceLock()
         # the config the forwards run: bf16 compute under a reduced mode
         self.serve_config = c = serving_quant.serving_config(config, quant)
+        self.mesh_axes = sharded.mesh_axes_dict(mesh)
+        self.param_sharding = param_sharding
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.dispatch = dispatch
+        self.specs = None            # the spec tree, from the first tree placed
+        self._model_axis = axis_names[1]
+        self.eager_reason = None
         # resolved once, outside every graph: the step's functions and the
         # locality mask on the device
-        self.step_fns = glom_model.resolve_step_fns(c, self.device)
+        apply_fn = glom_model.apply
+        if self.mesh is None:
+            self.step_fns = glom_model.resolve_step_fns(c, self.device)
+        else:
+            data_axis, model_axis, seq_axis = axis_names
+            self.step_fns = sharded.resolve_sharded_kernels(
+                self.mesh, c, self.device, param_sharding=param_sharding, data_axis=data_axis,
+                model_axis=model_axis, seq_axis=seq_axis)
+            apply_fn = sharded.make_sharded_apply(self.mesh, c, seq_axis)
+            self.eager_reason = sharded.eager_reason(self.mesh, param_sharding,
+                                                     model_axis=model_axis, seq_axis=seq_axis)
         consensus_fn, ff_fn, fused_fn = self.step_fns
         self.embed_iters = iters if iters is not None else config.default_iters
         recon_iters = iters if iters is not None else (
@@ -418,11 +478,12 @@ class ServingProgram:
         self.parse_thresholds = hierarchy_parse.parse_thresholds(parse_thresholds, c.levels)
         self.pack_fn = hierarchy_parse.make_pack_fn(c, self.parse_thresholds)
         fns = {
-            "embed": make_embed_fn(c, self.embed_iters, self.step_fns),
+            "embed": make_embed_fn(c, self.embed_iters, self.step_fns, apply_fn=apply_fn),
             "reconstruct": make_reconstruct_fn(c, train_cfg, self.reconstruct_timestep,
-                                               self.step_fns),
+                                               self.step_fns, apply_fn=apply_fn),
             "index": hierarchy_parse.make_index_fn(c, self.embed_iters, ff_fn=ff_fn,
-                                                   fused_fn=fused_fn, consensus_fn=consensus_fn),
+                                                   fused_fn=fused_fn, consensus_fn=consensus_fn,
+                                                   apply_fn=apply_fn),
         }
         self.session_cold_iters = int(self.embed_iters)
         self.session_warm_iters = warm_iters
@@ -432,7 +493,8 @@ class ServingProgram:
         self.quality_iters = None
         if quality_sample > 0:
             fns["quality"] = make_quality_fn(c, train_cfg, iters, ff_fn=ff_fn,
-                                             fused_fn=fused_fn, consensus_fn=consensus_fn)
+                                             fused_fn=fused_fn, consensus_fn=consensus_fn,
+                                             apply_fn=apply_fn)
             self.quality_iters = fns["quality"].iters
         self.fns = {name: serving_quant.quantized_forward(fn, quant) for name, fn in fns.items()}
         if self.device.type == "cuda" and (config.ff_impl, config.attention_impl) != (
@@ -448,20 +510,32 @@ class ServingProgram:
     def quality(self) -> bool:
         return self.quality_iters is not None
 
-    def make(self, step: int, params: dict, *, quality: bool = True) -> ServingSet:
+    def make(self, step: int, params: dict, *, quality: bool = True,
+             set_id: Optional[int] = None) -> ServingSet:
         """A set for ``params`` (cast to the compute dtype under ``f32``,
         quantized and placed on the device otherwise) with its graph caches,
         not yet captured; ``quality=False`` leaves the ``quality`` family out
         (an extra model's set: only the default model's batches are
-        sampled)."""
+        sampled).  On a mesh the set holds this rank's shard of the tree
+        (each slice contiguous: the kernels take no views), and ``set_id``
+        names it in the dispatch's headers."""
         c = self.serve_config
         if self.quant == "f32":
             dt = c.resolved_compute_dtype
             params = glom_model.tree_map(lambda p: p.to(dt), params)
         else:
-            params = serving_quant.tree_to(serving_quant.quantize_tree(params, self.quant),
-                                           self.device)
+            params = serving_quant.quantize_tree(params, self.quant)
+        if self.mesh is not None:
+            if self.specs is None:
+                self.specs = sharded.param_shardings(self.mesh, c, params,
+                                                     param_sharding=self.param_sharding,
+                                                     model_axis=self._model_axis)
+            params = shard_tree(params, self.specs, self.mesh)
+        if self.quant != "f32":
+            params = serving_quant.tree_to(params, self.device)
         shape = (c.channels, c.image_size, c.image_size)
+        shard = (sharded.SetShard(self.dispatch, int(set_id))
+                 if self.dispatch is not None else None)
         param_bytes = profiling.tree_nbytes(params)
 
         def cache(name, iters, **kw):
@@ -471,7 +545,9 @@ class ServingProgram:
 
             return BucketedGraphCache(self.fns[name], self.buckets, input_shape=shape,
                                       device=self.device, name=name, lock=self.lock,
-                                      iters=iters, quant=self.quant, cost_fn=cost, **kw)
+                                      iters=iters, quant=self.quant, cost_fn=cost,
+                                      shard=shard, mesh_axes=self.mesh_axes,
+                                      eager_reason=self.eager_reason, **kw)
 
         caches = {"embed": cache("embed", self.embed_iters),
                   "reconstruct": cache("reconstruct", self.reconstruct_timestep),
@@ -507,7 +583,14 @@ class ServingEngine:
     it raises unless ``device="cpu"``.  ``clock`` is injectable (tests drive
     batching and SLOs deterministically); ``start(workers=False)`` skips the
     threads, so tests can pump :meth:`process_once` and call
-    :meth:`check_reload` by hand."""
+    :meth:`check_reload` by hand.
+
+    With ``mesh_shape`` every rank of the initialized process group builds
+    its engine with the same arguments, in the same order; rank 0 then
+    serves and every other rank calls :meth:`follow`.  ``param_sharding``
+    (``"replicated"``, ``"tp"``, ``"ep"``) places the parameters on the
+    ``model`` axis; ``mesh_axis_names`` names the (data, model, seq)
+    axes."""
 
     def __init__(
         self,
@@ -559,6 +642,9 @@ class ServingEngine:
         bulk_dir: Optional[str] = None,
         warmup_dir: Optional[str] = None,
         forensics_dir: Optional[str] = None,
+        mesh_shape: Optional[Sequence[int]] = None,
+        param_sharding: str = "replicated",
+        mesh_axis_names: Sequence[str] = mesh_lib.DEFAULT_AXES,
         **unported,
     ):
         refuse_unported(unported)
@@ -595,12 +681,34 @@ class ServingEngine:
                 f"no finalized checkpoint in {checkpoint_dir!r}; train first, "
                 f"or write one with make_demo_checkpoint"
             )
+        # -- a mesh of ranks (serving/sharded.py): the mesh and its dispatch
+        # before anything is loaded, every rank in the same order; what a
+        # mesh above one rank does not carry is refused before any group
+        # starts
+        self.param_sharding = param_sharding
+        self.mesh = self._dispatch = None
+        axes = tuple(mesh_axis_names)
+        if mesh_shape is not None or param_sharding != "replicated":
+            if mesh_shape is None:
+                raise ValueError(
+                    f"param_sharding={param_sharding!r} needs a mesh_shape "
+                    f"(e.g. (1, 4, 1) for 4-way TP)")
+            if param_sharding not in sharded.PARAM_SHARDINGS:
+                raise ValueError(f"unknown param_sharding {param_sharding!r}; one of "
+                                 f"{sharded.PARAM_SHARDINGS}")
+            ranks = int(np.prod([int(s) for s in mesh_shape]))
+            for name, value in (("warm_iters", warm_iters), ("extra_models", extra_models),
+                                ("bulk_dir", bulk_dir), ("index_dir", index_dir)):
+                if value is not None and value != {}:
+                    refuse_on_mesh(name, ranks)
+            self.mesh = sharded.resolve_mesh(mesh_shape, axes)
+            sharded.validate_buckets(buckets, self.mesh, data_axis=axes[0])
+            if self.mesh.world_size > 1:
+                self._dispatch = sharded.MeshDispatch(self.mesh, data_axis=axes[0])
         # -- quantized serving: one mode an engine; a reload quantizes its
         # new tree the same way
         self.quant = quant
-        step, config, self.train_cfg, params = load_params(checkpoint_dir, None, quant,
-                                                           self.device,
-                                                           observer=self._integrity_obs)
+        step, config, self.train_cfg, params = self._load_start_up()
         # None keeps the checkpoint's choice; a value overrides it
         overrides = {k: v for k, v in (("ff_impl", ff_impl), ("attention_impl", attention_impl))
                      if v is not None}
@@ -620,7 +728,9 @@ class ServingEngine:
         self._program = program = ServingProgram(
             self.config, self.train_cfg, quant=quant, buckets=buckets, iters=iters,
             device=self.device, lock=self._device_lock, warm_iters=warm_iters,
-            parse_thresholds=parse_thresholds, quality_sample=quality_sample)
+            parse_thresholds=parse_thresholds, quality_sample=quality_sample,
+            mesh=self.mesh, param_sharding=param_sharding, axis_names=axes,
+            dispatch=self._dispatch)
         self.buckets = program.buckets
         self.serve_config = program.serve_config
         self._step_fns = program.step_fns
@@ -646,7 +756,15 @@ class ServingEngine:
             self.sessions = serving_sessions.SessionStore(
                 max_bytes=session_max_bytes, ttl_s=session_ttl_s, registry=self.registry,
                 clock=self._clock)
-        self._serving = program.make(step, params)
+        self._serving = program.make(step, params, set_id=0)
+        # a follower's sets by id (the leader names them in its headers); the
+        # leader's followers drop a set when the leader frees it
+        self._follower_sets: Dict[int, ServingSet] = {}
+        if self._dispatch is not None:
+            if self._dispatch.is_leader:
+                weakref.finalize(self._serving, self._dispatch.release, 0)
+            else:
+                self._follower_sets[0] = self._serving
         if self.sessions is not None and session_spill_dir:
             # warm boot: a drained replica's spilled states come back
             # resident (invalid ones are dropped)
@@ -718,7 +836,8 @@ class ServingEngine:
             model_registry.DEFAULT_MODEL, self._serving.step, caches=self._serving,
             config=self.serve_config, train_cfg=self.train_cfg,
             signature=model_registry.cache_signature(self.config, quant, self.buckets,
-                                                     iters=iters),
+                                                     iters=iters,
+                                                     mesh_axes=program.mesh_axes),
             source_dir=checkpoint_dir, quant=quant, role="primary", program=self._program)
         for name, model_dir in (extra_models or {}).items():
             if name == model_registry.DEFAULT_MODEL:
@@ -784,6 +903,90 @@ class ServingEngine:
         self._warm = False
         if warmup:
             self.warm()
+        if self._dispatch is not None:
+            # set 0 is built and warmed on every rank: the leader's idle
+            # heartbeat may start
+            self._dispatch.start_heartbeat()
+
+    # -- the mesh -----------------------------------------------------------
+    def _load_start_up(self):
+        """The start-up checkpoint, ``load_params``'s tuple: the newest valid
+        step (a corrupt one quarantined); on a mesh the leader picks it and
+        every follower loads the step the leader loaded."""
+        d = self._dispatch
+        if d is None or d.is_leader:
+            try:
+                loaded = load_params(self.checkpoint_dir, None, self.quant, self.device,
+                                     observer=self._integrity_obs)
+            except BaseException:
+                if d is not None:
+                    d.agree_step(None)
+                raise
+            if d is not None:
+                d.agree_step(loaded[0])
+            return loaded
+        return load_params(self.checkpoint_dir, d.agree_step(None), self.quant, self.device)
+
+    @property
+    def is_leader(self) -> bool:
+        """True on one rank and on a mesh's rank 0, the rank that serves."""
+        return self._dispatch is None or self._dispatch.is_leader
+
+    @property
+    def mesh_rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _check_leader(self) -> None:
+        """A follower serves no request: its cache calls come from the
+        leader's headers (a call of its own would break the ranks' order)."""
+        if not self.is_leader:
+            raise RuntimeError(f"rank {self.mesh_rank} follows the mesh and serves no request; "
+                               f"rank 0 leads")
+
+    def refuse_on_mesh(self, name: str) -> None:
+        """Raise for a :data:`MESH_REFUSED` feature when this engine is a
+        rank of a mesh above one rank."""
+        refuse_on_mesh(name, 1 if self.mesh is None else self.mesh.world_size)
+
+    def follow(self) -> int:
+        """A follower rank's serving (``serving/sharded.py``): run each of the
+        leader's headers on this rank's shard (a cache call, a set loaded or
+        dropped, an acknowledgement, a heartbeat) until the leader stops the
+        mesh; returns the calls run.  A follower binds no port and serves no
+        request; an error or a lost leader raises out of it."""
+        if self.is_leader:
+            raise RuntimeError("only a follower rank of a mesh follows; rank 0 serves")
+        return self._dispatch.follow(self)
+
+    def follow_run(self, set_id: int, family: str, imgs: np.ndarray, eager: bool) -> None:
+        serving = self._follower_sets[set_id]
+        cache = serving.caches[family]
+        (cache.eager if eager else cache)(serving.params, imgs)
+        self._serving = serving
+
+    def follow_load(self, set_id: int, step: int) -> None:
+        """A follower's part of a reload or a stage: the leader's step
+        restored into a new set and warmed as the leader warms its own.  A
+        failure is reported at the leader's ``ACK``: only the leader acts on
+        the checkpoint directory (quarantines)."""
+        try:
+            _, _, _, params = load_params(self.checkpoint_dir, step, self.quant, self.device)
+            serving = self._program.make(step, params, set_id=set_id)
+            if self._warm:
+                self._warm_set(serving)
+        except Exception as e:  # the leader learns it at the ACK and serves nothing of it
+            warnings.warn(f"rank {self.mesh_rank}: set {set_id} of step {step} did not load "
+                          f"({type(e).__name__}: {e})", stacklevel=2)
+            return
+        self._follower_sets[set_id] = serving
+
+    def follow_drop(self, set_id: int) -> None:
+        serving = self._follower_sets.pop(set_id, None)
+        if serving is not None and serving is self._serving and self._follower_sets:
+            self._serving = self._follower_sets[max(self._follower_sets)]
+
+    def follow_has(self, set_id: int) -> bool:
+        return set_id in self._follower_sets
 
     # -- serving sets ------------------------------------------------------
     def _warm_set(self, serving: ServingSet) -> None:
@@ -838,17 +1041,30 @@ class ServingEngine:
 
     def _load_set(self, step: int) -> ServingSet:
         """Restore ``step`` onto the device and capture its graphs (when the
-        engine warms) off the request path."""
-        serving = self._restore_set(step)
-        if self._warm:
-            self._warm_set(serving)
+        engine warms) off the request path.  On a mesh every follower builds
+        the same set first (the leader's ``LOAD``), placed by the same call
+        as at start-up, and the set serves only once every rank holds it
+        (``ACK``); the followers drop it when the leader frees it."""
+        d = self._dispatch
+        set_id = d.load(step) if d is not None else None
+        try:
+            serving = self._restore_set(step, set_id=set_id)
+            if self._warm:
+                self._warm_set(serving)
+        except BaseException:
+            if d is not None:
+                d.release(set_id)
+            raise
+        if d is not None:
+            weakref.finalize(serving, d.release, set_id)
+            d.confirm(set_id)
         return serving
 
-    def _restore_set(self, step: int) -> ServingSet:
+    def _restore_set(self, step: int, *, set_id: Optional[int] = None) -> ServingSet:
         """Restore ``step`` onto the device as a set whose graphs are not
         captured yet."""
         _, _, _, params = load_params(self.checkpoint_dir, step, self.quant, self.device)
-        return self._program.make(step, params)
+        return self._program.make(step, params, set_id=set_id)
 
     def graph_pool_bytes(self) -> Dict[str, Optional[int]]:
         """Bytes the card holds for each graph family's pool (None on the
@@ -865,12 +1081,14 @@ class ServingEngine:
         ``name`` (an endpoint, ``index``, or with sessions ``session_cold``
         and ``session_warm``, which takes ``state=``), padded to its bucket
         and replayed on the card; the family's output for the ``k``."""
+        self._check_leader()
         serving = self._serving
         return self._cache(serving, name)(serving.params, imgs, **kw)
 
     def run_eager(self, name: str, imgs: np.ndarray, **kw):
         """The same batch through the eager forward of the same weights at
         the same bucket: what a replay equals bit for bit."""
+        self._check_leader()
         serving = self._serving
         return self._cache(serving, name).eager(serving.params, imgs, **kw)
 
@@ -923,6 +1141,9 @@ class ServingEngine:
         for t in self._threads:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
         self._threads = []
+        if self._dispatch is not None and self._dispatch.is_leader:
+            # every worker and the watcher are done: the followers' loops end
+            self._dispatch.stop()
         if self.sessions is not None and self._session_spill_dir:
             # spill after the workers drained and every admitted session
             # frame made its put (admission is shut by _stop, so the count
@@ -1152,6 +1373,7 @@ class ServingEngine:
         targets an extra registry model (``ValueError`` for one not
         resident); ``version`` pins the default model's deploy candidate
         (the server takes it from :meth:`DeployController.assign`)."""
+        self._check_leader()
         self._admit(tenant, imgs.shape[0])
         mkey = None
         if model is not None:
@@ -1739,9 +1961,21 @@ class ServingEngine:
         the reload state, the graphs and the kernels' launch counts."""
         c = self.config
         serving, staged = self._serving, self._staged
+        failed = None if self._dispatch is None else self._dispatch.failed
+        mesh = None
+        if self.mesh is not None:
+            mesh = {"rank": self.mesh.rank, "backend": self.mesh.backend,
+                    "graphs": self._program.eager_reason is None,
+                    "eager_reason": self._program.eager_reason,
+                    **({} if self._dispatch is None else self._dispatch.status())}
         return {
-            "status": "ok",
+            # a mesh that lost a rank serves nothing more: not ok
+            "status": "ok" if failed is None else "mesh_failed",
             "step": int(serving.step),
+            # glom_tpu's mesh labels, and the port's rank and dispatch state
+            "mesh": sharded.mesh_axes_dict(self.mesh),
+            "param_sharding": self.param_sharding,
+            "mesh_dispatch": mesh,
             "warm": all(cache.warmed for cache in serving.caches.values()),
             "queue_depth": {ep: b.depth for ep, b in self.batchers.items()},
             "buckets": list(self.buckets),

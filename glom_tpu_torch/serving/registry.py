@@ -51,16 +51,17 @@ DEFAULT_MODEL = "default"
 ROLES = ("primary", "candidate", "resident")
 
 
-def cache_signature(config, quant: str, buckets, *, iters=None) -> Tuple:
-    """The program-identity key, ``glom_tpu``'s tuple (the port has no mesh,
-    so its last field is always empty): two versions with equal signatures
-    run the same graph functions."""
+def cache_signature(config, quant: str, buckets, *, iters=None,
+                    mesh_axes: Optional[dict] = None) -> Tuple:
+    """The program-identity key, ``glom_tpu``'s tuple (its last field the
+    mesh's axes, empty on one rank): two versions with equal signatures run
+    the same graph functions."""
     return (
         tuple(sorted(config.to_json_dict().items(), key=lambda kv: kv[0])),
         str(quant),
         tuple(int(b) for b in buckets),
         None if iters is None else int(iters),
-        (),
+        tuple(sorted((mesh_axes or {}).items())),
     )
 
 

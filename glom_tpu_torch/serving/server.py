@@ -73,6 +73,14 @@ tenant's quota (``--tenant-quota``), a tenant past it is answered 503
 ``{"error": "tenant_overloaded", "tenant": ...}``, and an invalid tenant
 label 400.
 
+Several processes serve one mesh of ranks (``serving/sharded.py``), one
+command a rank: ``--mesh-shape D,M,S --param-sharding tp|ep|replicated
+--coordinator host:port --num-processes N --process-id i`` starts the
+process group (NCCL on cards of their own, gloo on the CPU; ``--backend
+gloo`` for ranks sharing one card) and places this rank's shard; rank 0
+binds the port and serves, every other rank binds none and follows it until
+it drains.
+
 ``--buckets-file`` takes the bucket ladder from a JSON list or from the
 payload of ``python -m glom_tpu_torch.tools.trace_report --suggest-buckets``.
 ``--capacity-ceiling`` is the only source of the capacity plane's ceiling:
@@ -718,11 +726,9 @@ def make_server(engine: ServingEngine, host: str = "127.0.0.1", port: int = 0,
                              metrics_timestamps=metrics_timestamps)
 
 
-# flags of glom_tpu's serving CLI the port does not take yet: flag -> (nargs,
-# the engine argument it sets, whose entry in UNPORTED says what it waits for)
+# flags of glom_tpu's serving CLI the port does not take: flag -> (nargs, the
+# engine argument it sets, whose entry in UNPORTED says why)
 _REFUSED = {
-    "--mesh-shape": (1, "mesh_shape"),
-    "--param-sharding": (1, "param_sharding"),
     "--no-donate": (0, "donate_inputs"),
 }
 # the one with no engine argument behind it: flag -> (nargs, why)
@@ -802,6 +808,23 @@ def parse_args(argv=None):
                         "dense: plain ops; pallas: the grouped-FF kernel; fused: the "
                         "fused level update (consensus + both FFs in one call of K8's kernels, "
                         "falling back to pallas when the model's shape rules it out)")
+    p.add_argument("--mesh-shape", default=None,
+                   help="serve mesh-sharded: comma '(data,model,seq)' rank counts, e.g. "
+                        "'1,4,1' = 4-way TP; one command a rank (--coordinator, "
+                        "--num-processes, --process-id), rank 0 serving.  Buckets must "
+                        "divide the data axis.  Default: one rank")
+    p.add_argument("--param-sharding", default="replicated", choices=["replicated", "tp", "ep"],
+                   help="param placement on the mesh (parallel/sharding.py rules): tp shards "
+                        "every level-MLP's hidden dim over the model axis; ep shards whole "
+                        "level-nets")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the process group's rendezvous (tcp://host:port)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="the process group's backend: NCCL for ranks on cards of their own "
+                        "(the default on cuda), gloo for the CPU and for ranks sharing one card "
+                        "(NCCL refuses two ranks on one device), named here")
     p.add_argument("--reload-poll-s", type=float, default=2.0,
                    help="checkpoint hot-reload poll period; 0 disables")
     p.add_argument("--no-warmup", action="store_true",
@@ -863,6 +886,18 @@ def parse_args(argv=None):
     for flag, (_, why) in refused_table.items():
         if hasattr(args, flag[2:].replace("-", "_")):
             p.error(f"{flag} is not in the port's server yet ({why})")
+    if args.mesh_shape is not None:
+        try:
+            args.mesh_shape = tuple(int(s) for s in args.mesh_shape.split(","))
+        except ValueError:
+            p.error(f"--mesh-shape takes comma-separated ints, got {args.mesh_shape!r}")
+        ranks, world = int(np.prod(args.mesh_shape)), args.num_processes or 1
+        if ranks != world:
+            p.error(f"--mesh-shape {args.mesh_shape} needs {ranks} ranks, one process each "
+                    f"(--num-processes {ranks} with --coordinator and --process-id); got {world}")
+    elif args.param_sharding != "replicated":
+        p.error(f"--param-sharding {args.param_sharding} needs a mesh_shape (--mesh-shape, e.g. "
+                f"1,4,1 for 4-way TP)")
     return args
 
 
@@ -906,22 +941,54 @@ def engine_from_args(args, **overrides) -> ServingEngine:
         capacity_persist_windows=args.capacity_persist_windows,
         capacity_ceiling=args.capacity_ceiling, quality_sample=args.quality_sample,
         bulk_dir=args.bulk_dir, warmup_dir=args.warmup_dir,
-        forensics_dir=args.forensics_dir,
+        forensics_dir=args.forensics_dir, mesh_shape=args.mesh_shape,
+        param_sharding=args.param_sharding,
     )
     kwargs.update(overrides)
     return ServingEngine(args.checkpoint_dir, **kwargs)
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
+    from glom_tpu_torch.parallel.mesh import initialize_distributed
+
+    args = parse_args(argv)
+    # one command a rank: the group starts before the engine (NCCL on cards,
+    # gloo on the CPU or where --backend names it)
+    device = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    device=args.device, backend=args.backend)
+    if device is not None:
+        args.device = str(device)
+    try:
+        return _main(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
+    import torch.distributed as dist
+
     from glom_tpu_torch import checkpoint as ckpt_lib
     from glom_tpu_torch.serving.engine import make_demo_checkpoint
 
-    args = parse_args(argv)
-    if args.demo and ckpt_lib.latest_step(args.checkpoint_dir) is None:
+    if args.demo and (args.process_id or 0) == 0 \
+            and ckpt_lib.latest_step(args.checkpoint_dir) is None:
         make_demo_checkpoint(args.checkpoint_dir)
         print(json.dumps({"event": "demo_checkpoint", "dir": args.checkpoint_dir}))
+    if dist.is_initialized():
+        dist.barrier()      # every rank reads the checkpoint rank 0 may have written
 
     engine = engine_from_args(args)
+    if not engine.is_leader:
+        # a follower binds no port: it runs the leader's calls on its shard
+        print(json.dumps({"event": "following", "rank": engine.mesh_rank,
+                          "mesh": engine.health()["mesh"]}), flush=True)
+        calls = engine.follow()
+        print(json.dumps({"event": "stopped", "rank": engine.mesh_rank, "calls": calls}),
+              flush=True)
+        return 0
     engine.start()
     engine.capacity.start()  # the sampler's thread; tests tick() with a fake clock
     server = make_server(engine, args.host, args.port, quiet=not args.verbose,

@@ -134,6 +134,11 @@ def worlds(tmp_path_factory):
         jobs[ranks].append(job)
     jobs[2].append({"kind": "dp_forward", "name": "dp2", "mesh": [2], "axes": ["data"],
                     "config": TINY, "forward": DP_CALLS, "inputs": inputs[3]})
+    # the (pipe 2, model 2) forward again, its FF function recording any view
+    jobs[4].append({**next(j for j in jobs[4] if j["name"] == "pipe2_model2"),
+                    "name": "pipe2_model2_contiguous", "check_contiguous": True,
+                    "forward": [dict(iters=4)]})
+    jobs[4][-1].pop("step", None)
     results = {}
     for world, world_jobs in jobs.items():
         results.update(run_world(str(root / f"world{world}"), world, world_jobs))
@@ -209,6 +214,19 @@ def test_pipelined_step_matches_glom_tpus_sequential_step(worlds, name):
             else:
                 assert _rel(part[k], v) <= MOMENT_RTOL, (k, _rel(part[k], v))
             np.testing.assert_array_equal(part[k], parts[0][k])
+
+
+def test_a_model_split_stage_hands_the_ff_contiguous_weights(worlds):
+    """The FF kernels take contiguous weights (``kernels/ff.py::_check``) and
+    the CPU's plain ops take views, so this pins it here: on (pipe 2, model 2)
+    every rank's stage hands its FF function contiguous ``w1``, ``b1`` and
+    ``w2`` (``parallel/pipeline.py::_Schedule._tp_slice``), checked by an
+    ``ff_fn`` that records each one it gets as a view, and the forward is
+    bitwise the one without the check."""
+    for part, plain in zip(worlds["pipe2_model2_contiguous"], worlds["pipe2_model2"]):
+        assert int(part["ff_calls"]) > 0
+        assert part["views"].size == 0, sorted(set(part["views"].tolist()))
+        np.testing.assert_array_equal(part["f0/out"], plain["f0/out"])
 
 
 @pytest.mark.parametrize("i", range(len(DP_CALLS)))

@@ -534,8 +534,20 @@ def test_shed_and_drain_are_the_same_structured_503s(ckpt):
                                         ("mesh_shape", (1, 4, 1)),
                                         ("param_sharding", "tp")])
 def test_unported_engine_arguments_are_refused_by_name(ckpt, name, value):
-    with pytest.raises(NotImplementedError, match=name):
-        ServingEngine(ckpt, device="cpu", reload_poll_s=0, **{name: value})
+    """``donate_inputs`` is not ported and is refused by name.  The mesh
+    arguments are ported (``serving/sharded.py``): a value this one process
+    cannot serve is refused by name as glom_tpu refuses it, a mesh larger than
+    the world, ``param_sharding`` without a mesh, axis names that do not name
+    the mesh's axes (tests/test_torch_sharded_serving.py serves meshes)."""
+    if name == "donate_inputs":
+        with pytest.raises(NotImplementedError, match=name):
+            ServingEngine(ckpt, device="cpu", reload_poll_s=0, **{name: value})
+    else:
+        kw = {name: value}
+        if name == "mesh_axis_names":
+            kw["mesh_shape"] = (1, 1, 1)
+        with pytest.raises(ValueError, match=name):
+            ServingEngine(ckpt, device="cpu", reload_poll_s=0, **kw)
     # glom_tpu's engine takes the argument: it is a real one, not a typo
     import inspect
 

@@ -1,5 +1,5 @@
 """One rank of a gloo world for the port's mesh tests (tests/test_torch_parallel*.py,
-tests/test_torch_pipeline.py).
+tests/test_torch_pipeline.py, tests/test_torch_sharded_serving.py).
 
     python tests/torch_mesh_worker.py SPEC.json RANK
 
@@ -15,6 +15,7 @@ import io
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -24,6 +25,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from glom_tpu_torch import checkpoint as ckpt_lib  # noqa: E402
 from glom_tpu_torch.config import GlomConfig, TrainConfig  # noqa: E402
 from glom_tpu_torch.convert import params_from_numpy  # noqa: E402
+from glom_tpu_torch.models import glom as glom_model  # noqa: E402
+from glom_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from glom_tpu_torch.parallel.comm import raw_all_reduce  # noqa: E402
 from glom_tpu_torch.parallel.ff_shard import make_sharded_ff_pallas  # noqa: E402
 from glom_tpu_torch.parallel.inference import make_data_parallel_forward  # noqa: E402
@@ -35,6 +38,7 @@ from glom_tpu_torch.parallel.ring import make_ring_consensus  # noqa: E402
 from glom_tpu_torch.parallel.sharding import (level_sharded_pspecs,  # noqa: E402
                                               param_pspecs, replicated_pspecs)
 from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus  # noqa: E402
+from glom_tpu_torch.serving.engine import ServingEngine  # noqa: E402
 from glom_tpu_torch.training.denoise import DenoiseState, make_step_fn  # noqa: E402
 from glom_tpu_torch.training.metrics import MetricLogger  # noqa: E402
 from glom_tpu_torch.training.optim import Optimizer  # noqa: E402
@@ -147,12 +151,28 @@ def job_pipe(job: dict) -> dict:
     inp = np.load(job["inputs"])
     mesh = make_mesh(job["mesh"], tuple(job["axes"]))
     config = GlomConfig(**job["config"])
-    pp = make_pipelined_apply(mesh, config, **job.get("pipeline", {}))
+    kw = dict(job.get("pipeline", {}))
+    views = []
+    if job.get("check_contiguous"):
+        # the FF kernels take contiguous weights: note every leaf a stage
+        # hands the FF function as a view
+        plain = glom_model.make_ff_fn(config)
+
+        def ff_fn(params, x):
+            views.extend(k for k in ("w1", "b1", "w2") if not params[k].is_contiguous())
+            ff_fn.calls += 1
+            return plain(params, x)
+
+        ff_fn.calls = 0
+        kw["ff_fn"] = ff_fn
+    pp = make_pipelined_apply(mesh, config, **kw)
     glom = _params(inp, config, "glom")
     img = torch.from_numpy(inp["img"])
     res = {}
     for i, call in enumerate(job.get("forward", [])):
         res[f"f{i}"] = _forward_outputs(pp(glom, img, **call))
+    if job.get("check_contiguous"):
+        res.update(ff_calls=kw["ff_fn"].calls, views=np.asarray(views, dtype=str))
     if "step" in job:
         train = TrainConfig(**job["step"])
         optimizer = Optimizer(train.learning_rate)
@@ -186,8 +206,112 @@ def _flat(tree, prefix="") -> dict:
     return {prefix.rstrip("/"): np.asarray(tree)}
 
 
+def _tree_record(tree, prefix: str) -> dict:
+    """Each leaf's local shape under ``prefix/path``, and whether every leaf
+    is contiguous."""
+    flat = _flat(glom_model.tree_map(lambda t: np.asarray(t.shape), tree), prefix + "/")
+    flat[prefix + "_contiguous"] = all(t.is_contiguous() for t in glom_model.tree_leaves(tree))
+    return flat
+
+
+def _serve_calls(engine, imgs, endpoints) -> dict:
+    """Each endpoint through the request path (submit, then the batch), and
+    the index forward (parse's inner one) through the engine."""
+    out = {}
+    for ep in endpoints:
+        fut = engine.submit(ep, imgs)
+        engine.process_once(ep)
+        out[ep] = fut.result(timeout=0)
+    out["index"] = engine.run("index", imgs)
+    return out
+
+
+def job_serve(job: dict) -> dict:
+    """A mesh serving engine (serving/sharded.py) on this rank, from the
+    job's checkpoint: rank 0 leads and runs the job's calls, a follower
+    follows until the leader drains (with ``die``, it leaves without
+    following).  The leader also runs the refusals and, with ``one_rank``,
+    the port's one-rank engine at the bucket a data rank computes on each
+    data rank's rows."""
+    if "timeout_s" in job:
+        mesh_lib.DEFAULT_TIMEOUT_S = job["timeout_s"]
+    imgs = np.load(job["inputs"])["imgs"]
+    kw = dict(device="cpu", reload_poll_s=0, max_wait_ms=0.0, **job["engine"])
+    for bad in job.get("refuse", []):
+        # every rank builds the same engine and raises at the same place
+        try:
+            ServingEngine(job["ckpt"], **{**kw, **bad})
+        except (ValueError, NotImplementedError) as e:
+            bad["error"] = f"{type(e).__name__}: {e}"
+    engine = ServingEngine(job["ckpt"], **kw)
+    res = _tree_record(engine.params, "params")
+    res["refusals"] = json.dumps(job.get("refuse", []))
+    if not engine.is_leader:
+        if job.get("die"):
+            return res
+        try:
+            engine.run("embed", imgs)
+        except RuntimeError as e:     # a follower serves no request
+            res["own_call"] = str(e)
+        res["calls"] = engine.follow()
+        res["step"] = engine.step
+        res["sets"] = np.asarray(sorted(engine._follower_sets))
+        return res
+    if job.get("die"):
+        t0 = time.monotonic()
+        try:
+            _serve_calls(engine, imgs, ["embed"])
+            res["error"] = ""
+        except Exception as e:  # what the request's caller gets
+            res["error"] = f"{type(e).__name__}: {e}"
+        res["fail_s"] = time.monotonic() - t0
+        res["status"] = engine.health()["status"]
+        try:
+            engine.run("embed", imgs)
+            res["after"] = ""
+        except Exception as e:
+            res["after"] = f"{type(e).__name__}: {e}"
+        engine.shutdown(drain=False)
+        return res
+    res.update(_serve_calls(engine, imgs, job["endpoints"]))
+    try:
+        engine.deploy.begin_shadow()
+    except NotImplementedError as e:
+        res["deploy_refused"] = str(e)
+    if job.get("reload"):
+        step, seed = job["reload"]
+        params = ckpt_lib.load_tree(job["ckpt"], engine.step, "params")
+        rng = np.random.default_rng(seed)
+        ckpt_lib.save(job["ckpt"], step, {"params": glom_model.tree_map(
+            lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(a.dtype), params)})
+        res["reloaded"] = engine.check_reload()
+        res["step_after"] = engine.step
+        res.update(_tree_record(engine.params, "reloaded"))
+        res.update({f"{k}_after": v for k, v in _serve_calls(engine, imgs, ["embed"]).items()})
+    res["captures"] = engine.registry.snapshot().get("serving_graph_captures", 0)
+    health = engine.health()
+    res["health"] = json.dumps(health, default=str)
+    res["snapshots"] = json.dumps([dict(snap, family=name) for name, cache in engine.caches.items()
+                                   for snap in cache.snapshots.values()], default=str)
+    engine.shutdown(drain=False)
+    if job.get("one_rank"):
+        # the port's one-rank engine at a data rank's bucket, on each rank's rows
+        d = engine.mesh.size("data")
+        bucket = max(engine.buckets)
+        per = bucket // d
+        one_kw = {k: v for k, v in job["engine"].items() if k not in ("mesh_shape",
+                                                                   "param_sharding")}
+        one = ServingEngine(job["ckpt"], device="cpu", reload_poll_s=0,
+                            **{**one_kw, "buckets": (per,)})
+        for ep in ("embed", "reconstruct", "parse"):
+            res[f"one_rank_{ep}"] = np.concatenate(
+                [one.run(ep, imgs[i:i + per]) for i in range(0, len(imgs), per)])
+        one.shutdown(drain=False)
+    return res
+
+
 JOBS = {"consensus": job_consensus, "ff": job_ff, "train": job_train, "pipe": job_pipe,
-        "dp_forward": job_dp_forward}
+        "dp_forward": job_dp_forward, "serve": job_serve}
 
 
 def main(spec_path: str, rank: int) -> None:
