@@ -311,7 +311,7 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            kernels' digests at flagship (tools/kernel_digest.py);
   chaos    the port's chaos suite (glom_tpu_torch/tools/chaos.py) on the
            card, smoke variants: the five train and reload scenarios and
-           replica_kill (all eleven under --only chaos), each scenario's
+           replica_kill (all fourteen under --only chaos), each scenario's
            outcome, MTTR and wall seconds on a line of its own, every one
            recovered;
   bench    ``python -m glom_tpu_torch.tools.bench`` as a user runs it, at
@@ -397,7 +397,22 @@ each printing its JSON lines; any failure raises and exits non-zero.  With
            /embed (launches exact, within 1e-3); (iii) under --only
            shard_serve only, (1, 2, 1) EP, (1, 1, 2) seq and (2, 2, 1) int8
            TP on four ranks (within 1e-2 normwise of the one-rank int8
-           engine).
+           engine);
+  elastic  elastic training (resilience/elastic.py through
+           tools/chaos.py::elastic_run) on two ranks sharing the card over
+           gloo, flagship f32 b=8 on "pallas" (K2, K3, K6, K7 backward),
+           checkpoint_backend="sharded": (i) a (2, 1, 1) mesh under
+           "host_preempt:kill@3; shrink_restart:shrink" re-planned to
+           (1, 1, 1), resumed from the step-2 sharded save; every rank's
+           supervisor state equal, every slot consumed once on every rank,
+           each rank's launches a trained step exact (K1, K2, K3 14; K4,
+           K6, K7 7), the losses within 1e-4 of an unfailed one-rank run
+           over the same slots, each attempt's warm step a rank; (ii) a
+           sharded save under (1, 2, 1) TP (timed), reassembled bitwise the
+           gathered state, restored onto (2, 1, 1) DP, whose step (launches
+           exact) is within 1e-4 of the one-rank step from that save; (iii)
+           the chaos tool's three elastic scenarios on four ranks sharing
+           the card (smoke depth; soak under --only elastic).
 
 Then the kernels' summary line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Float32 matrix products run in full
@@ -4598,15 +4613,17 @@ def phase_attribution(device) -> dict:
 
 
 # -- the fleet ------------------------------------------------------------------
-FLEET_HOP_REQUESTS = 20
+# the depth of the hop, the loops and the affinity keys' frames: small, to keep
+# the whole script inside its time limit
+FLEET_HOP_REQUESTS = 12
 # clients of the fail-over and rollout loops: in this process, each parse of
 # a 3 MB body holds the interpreter lock, and four clients starved the
 # rollout's captures (110 s, a 6.6 s exclusive hold on the H100; two: 27.6-
 # 42.6 s; PERF.md)
 FLEET_CLIENTS = 1
-FLEET_LOOP_S = 2.0
+FLEET_LOOP_S = 1.0
 FLEET_AFFINITY_KEYS = 3
-FLEET_AFFINITY_FRAMES = 8
+FLEET_AFFINITY_FRAMES = 4
 FLEET_QUERIES = 4
 FLEET_INDEX_SLOTS = 32
 FLEET_TIMEOUT_S = 300.0
@@ -5749,7 +5766,7 @@ BENCH_TIE_RTOL = 0.10
 BENCH_LEG_TIMEOUT_S = 300
 # the timed steps of each leg (bench's default on a card is 20): fewer, to
 # keep the whole script inside its time limit
-BENCH_LEG_STEPS = ["--steps", "6"]
+BENCH_LEG_STEPS = ["--steps", "4"]
 
 
 def bench_leg(flags) -> dict:
@@ -6389,7 +6406,7 @@ def phase_widths(device) -> dict:
 
 
 # the chaos scenarios the full script runs (their smoke variants): the five
-# train and reload scenarios and replica_kill; --only chaos runs all eleven
+# train and reload scenarios and replica_kill; --only chaos runs all fourteen
 CHAOS_FULL_RUN = ("torn_ckpt_write", "corrupt_restore", "nan_batch", "reload_io_error",
                   "train_crash", "replica_kill")
 
@@ -6397,7 +6414,9 @@ CHAOS_FULL_RUN = ("torn_ckpt_write", "corrupt_restore", "nan_batch", "reload_io_
 def phase_chaos(device, everything: bool = False) -> dict:
     """The port's chaos suite (glom_tpu_torch/tools/chaos.py) on the card,
     smoke variants, in this process: CHAOS_FULL_RUN, or with ``everything``
-    all eleven scenarios; each scenario's outcome, MTTR and wall seconds on
+    all fourteen (the three elastic ones on a world of four ranks sharing the
+    card, which the full run leaves to the elastic phase); each scenario's
+    outcome, MTTR and wall seconds on
     a line of its own; every one must recover.  The loops run the plain
     ops, as glom_tpu's defaults do: no kernel launches."""
     from glom_tpu_torch.tools import chaos
@@ -7404,11 +7423,296 @@ def phase_shard_serve(device, everything: bool = False) -> dict:
     return total
 
 
+# -- the elastic phase: elastic training and sharded saves on one card ---------
+
+# one rank of the two that share the card over gloo: (i) an elastic run
+# (tools/chaos.py::elastic_run) under the spec's fault plan, (ii) a step and
+# a sharded save under (1, 2, 1) TP, then a restore of it onto (2, 1, 1) DP
+# and a step; every rank prints its record, rank 0 saves what the parent
+# holds against the one-rank path
+ELASTIC_RANK_CHILD = r"""
+import io, json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from chip_smoke import ElasticCapture, mesh_snapshot
+from glom_tpu_torch import checkpoint as ckpt_lib
+from glom_tpu_torch.config import GlomConfig, TrainConfig
+from glom_tpu_torch.kernels import wrappers
+from glom_tpu_torch.parallel.mesh import initialize_distributed
+from glom_tpu_torch.tools.chaos import elastic_run, supervisor_state
+from glom_tpu_torch.training.metrics import MetricLogger
+from glom_tpu_torch.training.trainer import Trainer
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, rank = sys.argv[2], int(sys.argv[3])
+spec = json.load(open(os.path.join(work, "spec.json")))
+device = initialize_distributed("file://" + os.path.join(work, "store"), 2, rank,
+                                device="cuda:0", backend="gloo", timeout_s=300)
+config = GlomConfig(**spec["config"])
+fns = wrappers()
+
+def counts():
+    return {k: fn.launches for k, fn in fns.items()}
+
+def reset():
+    for fn in fns.values():
+        fn.launches = 0
+
+# (i) the shrink
+train = TrainConfig(**spec["train"])
+cap, slots, plans = ElasticCapture(), [], []
+reset()
+t0 = time.perf_counter()
+sup = elastic_run(hosts=2, steps=train.steps, batch=train.batch_size, spec=spec["fault"],
+                  ckpt_dir=train.checkpoint_dir, device=device, slots=slots, glom=config,
+                  train=train, logger=lambda: cap, plans=plans)
+seconds = time.perf_counter() - t0
+launches = counts()
+trained = sorted(cap.records)
+print(json.dumps({"part": "shrink", "rank": rank, "seconds": seconds, "launches": launches,
+                  "trained_steps": trained,
+                  "launches_per_step": {k: v / len(trained) for k, v in launches.items()},
+                  "records": cap.records, "slots_exactly_once":
+                      sorted(slots) == list(range(train.steps * train.batch_size)),
+                  "state": supervisor_state(sup, plans)}), flush=True)
+
+# (ii) a sharded save under TP, restored onto DP
+data = np.load(os.path.join(work, "batches.npz"))
+quiet = lambda: MetricLogger(stream=io.StringIO())
+tp = Trainer(config, TrainConfig(batch_size=train.batch_size, checkpoint_backend="sharded",
+                                 mesh_shape=(1, 2, 1), param_sharding="tp"),
+             device=device, logger=quiet())
+reset()
+tp.step(data["imgs"][0], noise=torch.from_numpy(data["noise"][0]).to(device))
+tp_launches = counts()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+path = tp.save(spec["tp_dir"])
+save_s = time.perf_counter() - t0
+gathered = ckpt_lib.flatten(tp._host_trees(None))
+bitwise = None
+if rank == 0:
+    saved = ckpt_lib.load_arrays(spec["tp_dir"], 1)
+    bitwise = sorted(saved) == sorted(gathered) and all(
+        saved[k].dtype == v.dtype and np.array_equal(saved[k], v) for k, v in gathered.items())
+shard = os.path.join(spec["tp_dir"], f"ckpt_1.shard{rank}of2.npz")
+shard_bytes = os.path.getsize(shard)
+del tp, gathered
+dp = Trainer(config, TrainConfig(batch_size=train.batch_size, mesh_shape=(2, 1, 1),
+                                 param_sharding="replicated"), device=device, logger=quiet())
+restored = dp.restore(spec["tp_dir"])
+reset()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+m = dp.step(data["imgs"][1], noise=torch.from_numpy(data["noise"][1]).to(device))
+loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+dp_ms = (time.perf_counter() - t0) * 1e3
+dp_launches = counts()
+flat = mesh_snapshot(dp)
+if rank == 0:
+    np.savez(os.path.join(work, "dp.npz"), loss=np.asarray([loss]),
+             grad_norm=np.asarray([grad_norm]), **flat)
+print(json.dumps({"part": "sharded", "rank": rank, "tp_save_path": path, "save_s": save_s,
+                  "shard_bytes": shard_bytes, "bitwise_gathered": bitwise,
+                  "tp_launches": tp_launches, "restored_step": restored,
+                  "dp_launches": dp_launches, "dp_step_ms": dp_ms, "loss": loss}), flush=True)
+dist.destroy_process_group()
+"""
+
+ELASTIC_STEPS = 4
+ELASTIC_FAULT = "host_preempt:kill@3; shrink_restart:shrink"
+ELASTIC_TIMEOUT_S = 600
+ELASTIC_RTOL = 1e-4
+# written before the first run on the card (PERF.md §6, the elastic entry): a rank's warm
+# step on (2, 1, 1) over the unfailed one-rank run's, the TP sharded save's
+# seconds at flagship (params, mu, nu: 282 MB over two shards), the phase's
+# seconds in the full run
+ELASTIC_PREDICTED = {"two_rank_step_over_one_rank": [1.5, 4.0], "tp_save_s": [0.3, 2.0],
+                     "phase_seconds": [40, 60]}
+
+
+class ElasticCapture:
+    """A trainer logger keeping each step's loss at full precision and its
+    host time (from the logged images a second, one step a window), across
+    the attempts of an elastic run."""
+
+    registry = None
+
+    def __init__(self):
+        self.records = {}
+
+    def log(self, step, **scalars):
+        if "loss" in scalars:
+            self.records[int(step)] = {"loss": float(scalars["loss"]),
+                                       "step_ms": 1e3 * BATCH / scalars["imgs_per_sec"]}
+
+    def close(self):
+        pass
+
+
+def elastic_reference(config, train_kw: dict, device) -> dict:
+    """An unfailed one-rank run over the same slots: ``Trainer.fit`` for
+    ELASTIC_STEPS steps on the exactly-once stream of one host, behind the
+    prefetcher the elastic run draws through; its records."""
+    from glom_tpu_torch.training.data import HostShardedBatches, StatefulPrefetcher
+
+    cap = ElasticCapture()
+    train = TrainConfig(**{**train_kw, "checkpoint_dir": None, "checkpoint_every": 0})
+    trainer = Trainer(config, train, device=device, logger=cap)
+    batches = StatefulPrefetcher(
+        HostShardedBatches(BATCH, config.image_size, config.channels, seed=0), 2)
+    try:
+        trainer.fit(batches)
+    finally:
+        batches.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return cap.records
+
+
+def phase_elastic(device, everything: bool = False) -> dict:
+    """Elastic training on the card: two gloo ranks sharing cuda:0 run (i)
+    the shrink and (ii) the sharded save under TP restored onto DP
+    (ELASTIC_RANK_CHILD); the parent holds them against the one-rank path,
+    then (iii) runs the chaos tool's three elastic scenarios on four ranks
+    sharing the card (their soak depth with ``everything``).  Returns the
+    launches of (i) and (ii), every rank's, summed."""
+    from glom_tpu_torch.tools import chaos
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="elastic-")
+    config = GlomConfig(**mesh_kernels())
+    train_kw = dict(batch_size=BATCH, steps=ELASTIC_STEPS, log_every=1, checkpoint_every=1,
+                    checkpoint_dir=os.path.join(work, "ckpt"), checkpoint_backend="sharded")
+    rng = np.random.default_rng(37)
+    shape = (2, BATCH, 3, FLAGSHIP.image_size, FLAGSHIP.image_size)
+    data = {"imgs": rng.standard_normal(shape).astype(np.float32),
+            "noise": rng.standard_normal(shape).astype(np.float32)}
+    np.savez(os.path.join(work, "batches.npz"), **data)
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"config": mesh_kernels(), "train": train_kw, "fault": ELASTIC_FAULT,
+                   "tp_dir": os.path.join(work, "tp")}, f)
+    torch.cuda.empty_cache()
+    t = denoise.resolve_loss_timestep(TrainConfig(), FLAGSHIP.default_iters)
+    want = {k: float(v) for k, v in want_launches(t, t).items()}
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    ranks = [subprocess.Popen([sys.executable, "-c", ELASTIC_RANK_CHILD, ROOT, work, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=ELASTIC_TIMEOUT_S) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (out, err) in enumerate(outs):
+        if ranks[r].returncode != 0:
+            raise AssertionError(f"elastic: rank {r} failed:\n{err[-4000:]}")
+    recs = {(rec["part"], rec["rank"]): rec for out, _ in outs for rec in
+            (json.loads(line) for line in out.splitlines() if line.startswith("{"))}
+    # (i) the shrink: one decision history, exactly-once, launches, losses
+    shrink = [recs[("shrink", r)] for r in (0, 1)]
+    if shrink[0]["state"] != shrink[1]["state"]:
+        raise AssertionError(f"elastic: the ranks decided differently: "
+                             f"{[rec['state'] for rec in shrink]}")
+    plans = shrink[0]["state"]["plans"]
+    if [p["mesh_shape"] for p in plans] != [[2, 1, 1], [1, 1, 1]] or \
+            plans[-1]["resume_step"] != 2:
+        raise AssertionError(f"elastic: plans {plans}")
+    total = {}
+    for r, rec in enumerate(shrink):
+        if not rec["slots_exactly_once"]:
+            raise AssertionError(f"elastic: rank {r} replayed or skipped a slot")
+        if rec["trained_steps"] != ([1, 2, 3, 4] if r == 0 else [1, 2]):
+            raise AssertionError(f"elastic: rank {r} trained steps {rec['trained_steps']}")
+        check_launches(f"elastic (i) rank {r} a trained step", rec["launches_per_step"], want)
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    ref = elastic_reference(config, train_kw, device)
+    got = {int(k): v for k, v in shrink[0]["records"].items()}
+    errs = {k: rel_err(got[k]["loss"], ref[k]["loss"]) for k in ref}
+    ranks_ms = {r: {int(k): v["step_ms"] for k, v in rec["records"].items()}
+                for r, rec in enumerate(shrink)}
+    emit({"phase": "elastic", "part": "shrink", "mesh": [p["mesh_shape"] for p in plans],
+          "fault": ELASTIC_FAULT, "resume_step": plans[-1]["resume_step"],
+          "state": shrink[0]["state"], "loss": {k: got[k]["loss"] for k in sorted(got)},
+          "one_rank_loss": {k: ref[k]["loss"] for k in sorted(ref)},
+          "loss_rel_err": max(errs.values()), "rtol": ELASTIC_RTOL,
+          "launches_per_step": [rec["launches_per_step"] for rec in shrink],
+          "step_ms": ranks_ms, "one_rank_step_ms": {k: ref[k]["step_ms"] for k in ref},
+          # the warm step of each attempt: step 2 on (2, 1, 1), step 4 on (1, 1, 1)
+          "warm_step_ms": {"two_ranks": [ranks_ms[0][2], ranks_ms[1][2]],
+                           "one_rank_after_shrink": ranks_ms[0][4],
+                           "unfailed_one_rank": ref[4]["step_ms"]},
+          "two_rank_step_over_one_rank": max(ranks_ms[0][2], ranks_ms[1][2])
+          / ref[4]["step_ms"],
+          "rank_seconds": [rec["seconds"] for rec in shrink]})
+    if not max(errs.values()) <= ELASTIC_RTOL:     # NaN fails too
+        raise AssertionError(f"elastic (i): losses {errs} from the unfailed run")
+    # (ii) the TP save, bitwise the gathered state; its DP step against one rank's
+    sharded = [recs[("sharded", r)] for r in (0, 1)]
+    if sharded[0]["bitwise_gathered"] is not True:
+        raise AssertionError("elastic (ii): the TP sharded save is not the gathered state")
+    for r, rec in enumerate(sharded):
+        check_launches(f"elastic (ii) TP rank {r}", rec["tp_launches"],
+                       {k: int(v) for k, v in want.items()})
+        check_launches(f"elastic (ii) DP rank {r}", rec["dp_launches"],
+                       {k: int(v) for k, v in want.items()})
+        if rec["restored_step"] != 1:
+            raise AssertionError(f"elastic (ii): rank {r} restored {rec['restored_step']}")
+        for key in ("tp_launches", "dp_launches"):
+            for k, v in rec[key].items():
+                total[k] = total.get(k, 0) + v
+    one = Trainer(config, TrainConfig(batch_size=BATCH), device=device,
+                  logger=MetricLogger(stream=open(os.devnull, "w")))
+    one.restore(os.path.join(work, "tp"))
+    run = mesh_run(one, {"imgs": data["imgs"][1:], "noise": data["noise"][1:]}, device)
+    after = mesh_snapshot(one)
+    del one
+    torch.cuda.empty_cache()
+    dp = np.load(os.path.join(work, "dp.npz"))
+    derrs = {"loss": rel_err(dp["loss"][0], run["loss"][0]),
+             "grad_norm": rel_err(dp["grad_norm"][0], run["grad_norm"][0])}
+    derrs.update({k: rel_err(dp[k], v) for k, v in after.items()})
+    worst = max(derrs, key=derrs.get)
+    emit({"phase": "elastic", "part": "sharded_save", "tp_mesh": [1, 2, 1],
+          "dp_mesh": [2, 1, 1], "save_s": [rec["save_s"] for rec in sharded],
+          "shard_bytes": [rec["shard_bytes"] for rec in sharded],
+          "bitwise_gathered": True, "dp_loss": float(dp["loss"][0]),
+          "one_rank_loss": run["loss"][0], "worst": worst, "worst_rel_err": derrs[worst],
+          "dp_step_ms": [rec["dp_step_ms"] for rec in sharded],
+          "one_rank_step_ms": run["step_ms"][0], "rtol": ELASTIC_RTOL})
+    bad = {k: v for k, v in derrs.items() if not v <= ELASTIC_RTOL}
+    if bad:
+        raise AssertionError(f"elastic (ii): {bad} from the one-rank step (limit {ELASTIC_RTOL})")
+    shutil.rmtree(work, ignore_errors=True)
+    # (iii) the chaos tool's elastic scenarios, four ranks on the card
+    t0 = time.perf_counter()
+    results = chaos.run(list(chaos.ELASTIC), soak=everything, device=str(device), quiet=True)
+    for rec in results:
+        emit({"phase": "elastic", "part": "chaos",
+              **{k: v for k, v in rec.items() if k != "traceback"}})
+    failed = [r for r in results if r["outcome"] != "recovered"]
+    if failed:
+        raise AssertionError(f"elastic chaos: {[r['scenario'] for r in failed]} did not "
+                             "recover:\n" + "\n".join(r.get("traceback", r.get("error", ""))
+                                                       for r in failed))
+    emit({"phase": "elastic", "predicted": ELASTIC_PREDICTED, "launches": total,
+          "chaos_mode": "soak" if everything else "smoke",
+          "chaos_seconds": time.perf_counter() - t0, "card": nvidia_smi(),
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 PHASES = ("kernels", "k1", "k2", "k3", "k6", "k8", "serve", "train", "serve_fused", "serve_load",
           "train_fused", "train_data", "classify", "video", "extract", "islands", "quant",
           "sessions", "parse", "deploy", "session_tools", "faults", "quality", "capacity",
           "bulk", "attribution", "fleet", "train_obs", "forensics", "widths", "chaos", "bench",
-          "large", "mesh", "pipe", "shard_serve")
+          "large", "mesh", "pipe", "shard_serve", "elastic")
 
 
 def parse_args(argv):
@@ -7442,11 +7746,14 @@ def parse_args(argv):
                         "large preset's kernel rows, serving, bench leg and train steps; "
                         "widths: the tiny preset's train steps and the 16-wide demo's /embed "
                         "through the padded kernels, 'auto' and the kernel digests; chaos: all "
-                        "eleven scenarios of the port's chaos suite, six in the full run; pipe: "
+                        "fourteen scenarios of the port's chaos suite, six in the full run; pipe: "
                         "GPipe and the DP forward on ranks sharing the card, with the "
                         "four-rank (pipe, model) and (pipe, seq) cases only here; "
                         "shard_serve: the sharded serving engine on ranks sharing the card, "
-                        "with EP, seq and the four-rank int8 TP cases only here). "
+                        "with EP, seq and the four-rank int8 TP cases only here; elastic: "
+                        "the elastic shrink on ranks sharing the card, the sharded save "
+                        "under TP restored onto DP, and the three elastic chaos scenarios, "
+                        "at their soak depth only here). "
                         "A partial run exits 3 and prints no ok line")
     args = p.parse_args(argv)
     if args.only is not None:
@@ -7460,7 +7767,7 @@ def parse_args(argv):
 # the classifier, video, extraction, islanding, quantized, session, parse,
 # deploy, session-tool, fault, quality, capacity, bulk, attribution, fleet,
 # trainer-observability, engine-forensics, narrow-width, chaos, mesh,
-# pipeline and sharded-serving paths, in the full run's order
+# pipeline, sharded-serving and elastic paths, in the full run's order
 SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": phase_extract,
                 "islands": phase_islands, "quant": phase_quant, "sessions": phase_sessions,
                 "parse": phase_parse, "deploy": phase_deploy,
@@ -7469,7 +7776,8 @@ SLICE_PHASES = {"classify": phase_classify, "video": phase_video, "extract": pha
                 "attribution": phase_attribution, "fleet": phase_fleet,
                 "train_obs": phase_train_obs, "forensics": phase_forensics,
                 "widths": phase_widths, "chaos": phase_chaos, "mesh": phase_mesh,
-                "pipe": phase_pipe, "shard_serve": phase_shard_serve}
+                "pipe": phase_pipe, "shard_serve": phase_shard_serve,
+                "elastic": phase_elastic}
 
 
 def run_only(device, names) -> int:
@@ -7498,6 +7806,8 @@ def run_only(device, names) -> int:
             phase_pipe(device, everything=True)
         elif name == "shard_serve":
             phase_shard_serve(device, everything=True)
+        elif name == "elastic":
+            phase_elastic(device, everything=True)
         elif name in SLICE_PHASES:
             SLICE_PHASES[name](device)
         elif name == "bench":
@@ -7553,8 +7863,9 @@ def main(argv=()) -> int:
     # launches_train_fused: the fused train path's for all; launches_classify,
     # _video, _extract, _islands, _quant, _sessions, _parse, _deploy,
     # _session_tools, _faults, _quality, _capacity, _bulk, _attribution, _fleet,
-    # _train_obs, _forensics, _widths, _chaos, _mesh, _pipe, _shard_serve: each of those
-    # paths' main run (_mesh, _pipe and _shard_serve: every rank's, summed); launches_large:
+    # _train_obs, _forensics, _widths, _chaos, _mesh, _pipe, _shard_serve, _elastic: each
+    # of those paths' main run (_mesh, _pipe, _shard_serve and _elastic: every rank's,
+    # summed); launches_large:
     # the large preset's serving run ("pallas" and "fused" in f32);
     # launches_large_train: its three train steps (one a configuration)
     launches.update({k: train_launches[k] for k in BACKWARD})

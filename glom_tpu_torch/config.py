@@ -196,6 +196,10 @@ class TrainConfig:
                 f"batch_size {self.batch_size} not divisible by "
                 f"grad_accum_steps {self.grad_accum_steps}"
             )
+        if self.checkpoint_backend not in ("npz", "orbax", "sharded"):
+            raise ValueError(f"unknown checkpoint backend {self.checkpoint_backend!r}")
+        if self.stop_poll_steps < 1:
+            raise ValueError(f"stop_poll_steps must be >= 1, got {self.stop_poll_steps}")
 
     def to_json_dict(self) -> dict:
         d = dataclasses.asdict(self)

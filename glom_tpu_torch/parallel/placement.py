@@ -9,7 +9,8 @@ Where ``glom_tpu`` places a global array with a ``NamedSharding``, a rank
 here holds its own slice: :func:`shard_tree` cuts it from the whole tree
 every rank draws from one seed (or loads from one checkpoint), and
 :func:`gather_to_host` all-gathers the slices back into the float32 numpy
-arrays ``checkpoint.py`` writes.
+arrays ``checkpoint.py`` writes.  :func:`replica_tile` names the slices a
+rank writes in a sharded save (``checkpoint.save_sharded``), one rank a tile.
 """
 
 from __future__ import annotations
@@ -79,6 +80,23 @@ def local_slice(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
         width = x.shape[dim] // size
         x = x.narrow(dim, mesh.index(axis) * width, width)
     return x.contiguous()
+
+
+def replica_tile(x: torch.Tensor, spec: tuple, mesh: Mesh):
+    """``(x, start)`` when this rank is replica 0 of its slice ``x`` under
+    ``spec`` (its coordinate is 0 along every mesh axis of size above one
+    that the spec does not split), else None: ``start`` is the slice's
+    offset in the whole tensor, one entry a dimension.  Across the mesh the
+    replica-0 tiles cover every element once, as ``glom_tpu``'s
+    ``addressable_shards`` with ``replica_id == 0`` do."""
+    split = set(sharded_axes(spec))
+    if any(mesh.index(a) for a in mesh.axis_names if a not in split and mesh.size(a) > 1):
+        return None
+    start = [0] * x.dim()
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.size(axis) > 1:
+            start[dim] = mesh.index(axis) * x.shape[dim]
+    return x, start
 
 
 def tree_map_specs(fn, tree: Any, specs: Any) -> Any:

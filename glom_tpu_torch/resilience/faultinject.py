@@ -45,9 +45,9 @@ Sites (the names production code passes to :func:`fire`):
   ==========  ============================  =================================
 
 The elastic sites (``host_preempt``, ``coordinator_loss``,
-``heartbeat_delay``, ``shrink_restart``) parse as in ``glom_tpu``, so one
-spec arms both packages; no seam of the port fires them yet (the elastic
-supervisor is ROADMAP queue 1, item 6b).
+``heartbeat_delay``, ``shrink_restart``) fire in
+:mod:`glom_tpu_torch.resilience.elastic` (the context's tick and the
+supervisor's re-plan), as in ``glom_tpu``, so one spec arms both packages.
 
 Arming is process-global (:func:`arm` / :func:`disarm` / the
 :func:`injected` context manager): the sites live deep inside library code
@@ -81,8 +81,8 @@ KINDS = {
     # candidate loads clean and serves without errors but computes
     # garbage; only the shadow lane's quality comparison can catch it
     "candidate_load": ("bitflip",),
-    # elastic multi-host sites (glom_tpu's resilience/elastic.py, not in
-    # the port yet): kept so a spec naming them parses as in glom_tpu
+    # elastic multi-host sites (resilience/elastic.py): a domain preempted,
+    # the coordinator silent, a beat late, a restart with fewer/more hosts
     "host_preempt": ("kill",),
     "coordinator_loss": ("lost",),
     "heartbeat_delay": ("delay",),

@@ -17,9 +17,10 @@ decides what happens when it fails:
   forensics trigger (one bundle an incident, not one a damaged file), as
   the trainer's anomaly pipeline does.
 
-Steps without an integrity record are presumed good.  No step above the
-manifest's is ever chosen: the manifest's rename is the barrier that
-finalizes a save.
+Steps without an integrity record (a sharded step has none) are presumed
+good.  No step above the manifest's is ever chosen: the manifest's rename is
+the barrier that finalizes a save (a sharded save that crashed between its
+shard writes and the manifest is never resumed).
 """
 
 from __future__ import annotations
@@ -64,11 +65,12 @@ class IntegrityObserver:
 
 def quarantine(directory: str, step: int, *, observer: Optional[IntegrityObserver] = None,
                reason: str = "") -> list:
-    """Rename step ``step``'s npz and integrity record to ``<name>.corrupt``
-    and tell ``observer``.  Warns, never raises; returns the renamed
-    paths."""
+    """Rename step ``step``'s npz or shard files and its integrity record to
+    ``<name>.corrupt`` and tell ``observer``.  Warns, never raises; returns
+    the renamed paths."""
     renamed = []
-    for path in (ckpt_lib.npz_path(directory, step), ckpt_lib.integrity_path(directory, step)):
+    for path in (ckpt_lib.npz_path(directory, step), ckpt_lib.integrity_path(directory, step),
+                 *ckpt_lib.shard_paths(directory, step)):
         if not os.path.exists(path):
             continue
         try:
@@ -92,7 +94,8 @@ def quarantine(directory: str, step: int, *, observer: Optional[IntegrityObserve
 
 
 def _candidate_steps(directory: str) -> list:
-    """Every step with an artifact on disk, newest first."""
+    """Every step with an artifact (an npz or shard files) on disk, newest
+    first."""
     try:
         names = os.listdir(directory)
     except OSError:
@@ -126,17 +129,23 @@ def latest_valid_step(directory: str, *, newer_than: Optional[int] = None,
     return None
 
 
+class NoValidCheckpoint(FileNotFoundError):
+    """Every candidate step of a directory is corrupt or absent."""
+
+
 def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
                           optional: Tuple[str, ...] = (),
                           step: Optional[int] = None,
                           observer: Optional[IntegrityObserver] = None
                           ) -> Tuple[int, Dict[str, dict]]:
     """``(step, {name: tree of numpy arrays})`` of the named trees, and of
-    those in ``optional`` that the step holds.  With
-    ``step=None`` the newest valid step loads, and a step whose per-array
-    CRCs fail at load is quarantined and the next one tried.  A pinned
-    ``step`` raises :class:`~glom_tpu_torch.checkpoint.CorruptCheckpointError`
-    on a bad CRC."""
+    those in ``optional`` that the step holds, with their per-process
+    copies (``<name>@p<i>``).  With ``step=None`` the newest valid step
+    loads, and a step whose per-array CRCs fail at load is quarantined and
+    the next one tried (:class:`NoValidCheckpoint` when none is left).  A
+    pinned ``step`` raises
+    :class:`~glom_tpu_torch.checkpoint.CorruptCheckpointError` on a bad
+    CRC."""
 
     def load(s):
         arrays = ckpt_lib.load_arrays(directory, s)
@@ -144,14 +153,15 @@ def restore_with_fallback(directory: str, names: Tuple[str, ...], *,
         missing = [n for n in names if n not in trees]
         if missing:
             raise KeyError(f"checkpoint step {s} in {directory} holds no tree named {missing}")
-        return s, {n: trees[n] for n in names + tuple(optional) if n in trees}
+        return s, {n: t for n, t in trees.items()
+                   if n in names or n.split("@p", 1)[0] in optional}
 
     if step is not None:
         return load(step)
     while True:
         chosen = latest_valid_step(directory, observer=observer)
         if chosen is None:
-            raise FileNotFoundError(
+            raise NoValidCheckpoint(
                 f"no valid checkpoint in {directory} (every candidate corrupt or absent)")
         try:
             return load(chosen)

@@ -59,10 +59,10 @@ class GiveUp(RuntimeError):
 
 class PreemptionError(RuntimeError):
     """A host/domain was preempted (the scheduler took the machine back) —
-    the restartable-by-definition failure class.  The elastic layer's
-    ``glom_tpu``'s ``resilience/elastic.py`` subclasses this (its port is
-    ROADMAP queue 1, item 6b); the base lives here so
-    :func:`classify_failure` needs no import of the elastic module."""
+    the restartable-by-definition failure class.  The elastic layer
+    (:mod:`glom_tpu_torch.resilience.elastic`) subclasses this; the base
+    lives here so :func:`classify_failure` needs no import of the elastic
+    module."""
 
 
 # -- restart-reason taxonomy ------------------------------------------------

@@ -23,10 +23,16 @@ for training, ``make_demo_checkpoint``'s 16-wide demo model for serving),
 both on the plain ops, as ``glom_tpu``'s defaults (``"dense"``) run them.
 
 ``glom_tpu``'s three elastic scenarios (``host_preempt``,
-``coordinator_loss``, ``shrink_restart``) keep their names in
-:data:`SCENARIOS`; they need ``resilience/elastic.py`` and the elastic
-meshes of ``parallel/mesh.py``, which the port does not have yet, so naming
-one exits 2 and the default run is the other eleven.
+``coordinator_loss``, ``shrink_restart``) run on a gloo world of four ranks
+that the tool starts itself (``glom_tpu``'s CLI fakes four devices in one
+process): ranks on the CPU with ``--device cpu``, else sharing the card.
+Every rank runs the same seeded elastic supervisor; a plan's mesh is the
+world's first ``host_count`` ranks (sharded saves), a rank it leaves out
+ticks the same steps with no trainer, and a scenario recovers only where
+every rank recovered with glom_tpu's assertions and every rank's
+supervisor state (plans, domains, counters, MTTR) is equal.
+
+    python -m glom_tpu_torch.tools.chaos --scenario shrink_restart --device cpu
 
 The last line of standard output is ``{"mode", "recovered", "total"}``;
 the exit code is 0 iff every selected scenario recovered.
@@ -35,6 +41,7 @@ the exit code is 0 iff every selected scenario recovered.
 from __future__ import annotations
 
 import argparse
+import errno
 import hashlib
 import http.client
 import json
@@ -143,6 +150,36 @@ def _front(urls, **kw):
     rsrv = make_router_server(router)
     threading.Thread(target=rsrv.serve_forever, daemon=True).start()
     return router, rsrv, "http://{}:{}".format(*rsrv.server_address[:2])
+
+
+def _fixed_ports():
+    """Listening ports outside the kernel's ephemeral range, from a random
+    start.  A replica that restarts on its old port must find it free, but
+    a port from that range may meanwhile be the local end of an outgoing
+    connection (the load's and the router's open one a request), and then
+    the bind fails with EADDRINUSE, SO_REUSEADDR or not."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = map(int, f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999   # Linux's default range
+    span = range(1024, lo) if lo - 1024 >= 4096 else range(hi + 1, 65536)
+    if not span:
+        return [0]   # no room outside the range: any free port
+    start = random.randrange(len(span))
+    return [span[(start + i) % len(span)] for i in range(len(span))]
+
+
+def _bind(make, port=None):
+    """``make(port)``'s server on ``port``, or with ``port`` None on the
+    first free port of :func:`_fixed_ports`."""
+    for candidate in ([port] if port is not None else _fixed_ports()):
+        try:
+            return make(candidate)
+        except OSError as e:
+            if e.errno != errno.EADDRINUSE or port is not None:
+                raise
+    raise OSError(errno.EADDRINUSE, "no free port outside the ephemeral range")
 
 
 def _close(srv):
@@ -398,11 +435,12 @@ def scenario_replica_kill(soak, device):
     n_replicas, n_min_requests = (3, 40) if not soak else (4, 400)
     health_interval = 0.2
 
-    def start_replica(ckpt, port=0):
+    def start_replica(ckpt, port=None):
+        # a port the restart can have back (_fixed_ports)
         eng = ServingEngine(ckpt, buckets=(1, 2), max_wait_ms=1.0, warmup=True,
                             reload_poll_s=0, device=device)
         eng.start(watch=False)
-        srv = make_server(eng, port=port)
+        srv = _bind(lambda p: make_server(eng, port=p), port)
         threading.Thread(target=srv.serve_forever, daemon=True).start()
         return eng, srv
 
@@ -998,8 +1036,314 @@ def scenario_slow_deploy_attribution(soak, device):
                 "knee_kind": (verdict["knee"] or {}).get("kind")}
 
 
-# glom_tpu's registry, in its order; the elastic scenarios (None here) need
-# resilience/elastic.py and the elastic meshes, which the port does not have yet
+# -- elastic multi-host scenarios (resilience/elastic.py) ---------------------
+#
+# glom_tpu's CLI fakes 4 devices in one process; the port's counterpart is a
+# gloo world of ELASTIC_WORLD ranks that run() starts itself on the device
+# (ranks sharing cuda:0 on a card).  Every rank runs the same seeded
+# supervisor; a plan's mesh is the world's first host_count ranks, and a
+# rank it leaves out ticks the attempt's steps with no trainer.
+
+ELASTIC = ("host_preempt", "coordinator_loss", "shrink_restart")
+ELASTIC_WORLD = 4
+ELASTIC_TIMEOUT_S = 600
+
+_WORLD_DIR = None     # in a rank of the world: the directory every rank shares
+
+
+def _in_world() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _world_barrier() -> None:
+    import torch.distributed as dist
+
+    if _in_world() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _announce_resume(trainer=None, batches=None):
+    """Rank 0's resume point, ``(step, cursor)``, on every rank of the world.
+    A rank of the plan's mesh passes its trainer and stream: it resumes
+    (``Trainer.resume``: the mesh leader picks the newest step that loads,
+    quarantining a newer one that does not) and rank 0 sends the step and
+    the cursor it restored; a rank the plan leaves out passes nothing and
+    receives them.  Every rank sends or receives once, also when its resume
+    raised; a bystander told that rank 0's resume failed raises."""
+    import torch.distributed as dist
+
+    point = None
+    try:
+        if trainer is not None:
+            point = (trainer.resume(batches), batches.state_dict())
+    finally:
+        if _in_world() and dist.get_world_size() > 1:
+            box = [point]
+            dist.broadcast_object_list(box, src=0)
+            point = box[0] if trainer is None else point
+    if point is None:
+        raise RuntimeError("rank 0's resume failed; this attempt has no start")
+    return point
+
+
+def _bystander(ctx, inner, steps, slots):
+    """A rank the plan leaves out: it draws the attempt's wrapped stream with
+    no trainer, from the step and cursor the trainers resumed from, so it
+    ticks the same steps and takes the same decisions as they do."""
+    stream = ctx.wrap(inner, record=slots)
+    start, cursor = _announce_resume()
+    stream.load_state_dict(cursor)
+    for _ in range(start, steps):
+        next(stream)
+    return steps
+
+
+def elastic_run(*, hosts, steps, batch, spec, ckpt_dir, device, slots=None, seed=0, glom=None,
+                train=None, logger=None, mesh_shape_fn=None, plans=None):
+    """Drive a real Trainer under the ElasticSupervisor on every rank of the
+    world (or in one process without a group): each attempt rebuilds the
+    mesh (``make_elastic_mesh``, the world's first ranks, or
+    ``mesh_shape_fn``'s pinned data size) and the trainer, trains on the
+    exactly-once stream behind a prefetcher (every host's block assembled; a
+    mesh rank takes its rows), ticks the context once a step, and resumes
+    from the newest checkpoint that loads, which rank 0 announces to the
+    world (:func:`_announce_resume`); every rank waits for the others at the
+    end of each attempt, so that all re-plan from one directory.
+    ``glom``/``train`` default to the chaos shapes at ``batch``; ``logger``
+    makes each attempt's logger; ``plans`` collects each attempt's plan.
+    Returns the supervisor."""
+    import dataclasses
+
+    from glom_tpu_torch.parallel.mesh import make_elastic_mesh
+    from glom_tpu_torch.resilience import faultinject
+    from glom_tpu_torch.resilience.elastic import ElasticSupervisor, SimClock
+    from glom_tpu_torch.resilience.supervisor import RestartPolicy
+    from glom_tpu_torch.training.data import HostShardedBatches, StatefulPrefetcher
+    from glom_tpu_torch.training.metrics import MetricLogger
+    from glom_tpu_torch.training.trainer import Trainer
+
+    if glom is None or train is None:
+        # sharded saves: on a mesh of ranks only they carry each rank's cursor
+        glom, train = _configs(steps, checkpoint_dir=ckpt_dir)
+        train = dataclasses.replace(train, batch_size=batch, checkpoint_backend="sharded")
+    sim = SimClock()
+
+    def attempt(plan, ctx):
+        try:
+            if plans is not None:
+                plans.append(plan.to_json_dict())
+            if mesh_shape_fn is None:
+                mesh = make_elastic_mesh(plan.host_count, plan.devices_per_host)
+            else:
+                mesh = make_elastic_mesh(
+                    mesh_shape_fn(plan.host_count, plan.devices_per_host)[0], 1)
+            inner = HostShardedBatches(batch, glom.image_size, glom.channels, seed=seed,
+                                       host_count=plan.host_count)
+            if mesh is None:
+                return _bystander(ctx, inner, steps, slots)
+            trainer = Trainer(glom, train, device=device, mesh=mesh,
+                              logger=logger() if logger else MetricLogger(stream=_devnull()))
+            batches = ctx.wrap(StatefulPrefetcher(inner, 2), record=slots)
+            try:
+                _announce_resume(trainer, batches)
+                trainer.fit(batches, resume=False)
+            finally:
+                batches.close()
+            return int(trainer.state.step)
+        finally:
+            # every rank leaves the attempt at the same tick; the trainers'
+            # saves are durable before any rank re-plans from the directory
+            _world_barrier()
+
+    sup = ElasticSupervisor(
+        attempt, hosts=hosts,
+        policy=RestartPolicy(max_failures=3, window_s=1000.0,
+                             backoff_base_s=0.01, backoff_max_s=0.05),
+        heartbeat_timeout_s=2.5, rejoin_grace_s=1.0,
+        step_dt=1.0, checkpoint_dir=ckpt_dir,
+        mesh_shape_fn=mesh_shape_fn,
+        clock=sim, sleep=sim.sleep, advance=sim.advance, seed=seed,
+    )
+    _world_barrier()   # no rank plans before every rank has started
+    if spec:
+        with faultinject.injected(spec, seed=seed):
+            result = sup.run()
+    else:
+        result = sup.run()
+    assert result == steps, f"elastic run stopped at {result}"
+    return sup
+
+
+def supervisor_state(sup, plans) -> dict:
+    """Every decision of an elastic run: each attempt's plan, each domain's
+    accounting, and the counters.  Ranks that agree have equal states."""
+    return {"plans": plans,
+            "domains": {str(h): {"failures_total": d.failures_total, "restarts": d.restarts,
+                                 "steps": d.steps, "dead": d.dead, "down_until": d.down_until}
+                        for h, d in sorted(sup.domains.items())},
+            "restarts": sup.restarts, "elections": sup.elections, "replans": sup.replans,
+            "ticks_total": sup.ticks_total, "mttr_s": sup.mttr_s}
+
+
+def _elastic_dir(name: str) -> str:
+    """A scenario's checkpoint directory, the same on every rank of the
+    world (an elastic scenario runs only there: :func:`run` starts it)."""
+    if _WORLD_DIR is None:
+        raise RuntimeError(f"scenario {name} runs on the gloo world run() starts "
+                           "(run_world), not in this process")
+    path = os.path.join(_WORLD_DIR, name)
+    os.makedirs(path, exist_ok=True)
+    return os.path.join(path, "ckpt")
+
+
+def scenario_host_preempt(soak, device):
+    """One fault domain is preempted mid-run: the job restarts, the victim
+    rejoins after its backoff, the surviving domains' accounting and step
+    cadence are untouched, and the run completes with every sample
+    delivered exactly once (3 hosts, a (3, 1, 1) mesh of ranks)."""
+    steps, kill_at = (6, 4) if not soak else (14, 8)
+    hosts, batch = 3, 6
+    t0 = time.monotonic()
+    slots, plans = [], []
+    sup = elastic_run(hosts=hosts, steps=steps, batch=batch,
+                      spec=f"host_preempt:kill@{kill_at}", ckpt_dir=_elastic_dir("host_preempt"),
+                      device=device, slots=slots, plans=plans)
+    wall = time.monotonic() - t0
+    assert sup.restarts == 1, sup.restarts
+    victim = max(h for h in sup.domains if h != sup.plan.coordinator)
+    assert sup.domains[victim].failures_total == 1
+    survivors = [h for h in sup.domains if h != victim]
+    for h in survivors:
+        d = sup.domains[h]
+        # zero impact on surviving domains: no failures charged, no
+        # backoff applied, and a step on every non-failing tick
+        assert d.failures_total == 0 and d.down_until == 0.0, (h, vars(d))
+        assert d.steps == sup.ticks_total - sup.restarts, (h, d.steps)
+    assert sup.plan.host_count == hosts, "victim never rejoined"
+    assert sorted(slots) == list(range(steps * batch)), (
+        "exactly-once violated across the preemption")
+    assert sup.mttr_s and sup.mttr_s[0] >= 0.0
+    return {"mttr_s": sup.mttr_s[0], "recovery_wall_s": round(wall, 3),
+            "restarts": sup.restarts, "victim": victim,
+            "survivor_steps": sup.domains[survivors[0]].steps,
+            "state": supervisor_state(sup, plans)}
+
+
+def scenario_coordinator_loss(soak, device):
+    """The coordinator goes silent: heartbeat staleness detects it, a
+    successor is elected (the lowest surviving id), and the run completes
+    under the new coordinator."""
+    steps, lose_at = (6, 3) if not soak else (14, 7)
+    hosts, batch = 3, 6
+    t0 = time.monotonic()
+    slots, plans = [], []
+    sup = elastic_run(hosts=hosts, steps=steps, batch=batch,
+                      spec=f"coordinator_loss:lost@{lose_at}",
+                      ckpt_dir=_elastic_dir("coordinator_loss"), device=device, slots=slots,
+                      plans=plans)
+    wall = time.monotonic() - t0
+    assert sup.elections == 1, sup.elections
+    assert sup.plan.coordinator == 1, sup.plan  # successor = lowest live
+    assert sup.domains[0].failures_total == 1   # the lost coordinator
+    assert sorted(slots) == list(range(steps * batch)), (
+        "exactly-once violated across the election")
+    return {"mttr_s": sup.mttr_s[0] if sup.mttr_s else 0.0,
+            "recovery_wall_s": round(wall, 3), "elections": sup.elections,
+            "coordinator": sup.plan.coordinator, "state": supervisor_state(sup, plans)}
+
+
+def scenario_shrink_restart(soak, device):
+    """A preempted host never comes back (``shrink_restart:shrink``): the
+    restart re-plans the mesh from (2, 1, 1) to (1, 1, 1) ranks, reshards
+    the params from the newest verified sharded checkpoint, re-partitions
+    the data cursor and completes, every sample delivered exactly once."""
+    steps, kill_at = (6, 3) if not soak else (14, 7)
+    hosts, batch = 2, 8
+    t0 = time.monotonic()
+    slots, plans = [], []
+    sup = elastic_run(hosts=hosts, steps=steps, batch=batch,
+                      spec=f"host_preempt:kill@{kill_at}; shrink_restart:shrink",
+                      ckpt_dir=_elastic_dir("shrink_restart"), device=device, slots=slots,
+                      plans=plans)
+    wall = time.monotonic() - t0
+    assert sup.replans == 1, sup.replans
+    assert sup.plan.host_count == hosts - 1
+    assert sup.plan.mesh_shape == (hosts - 1, 1, 1), sup.plan
+    assert sup.domains[hosts - 1].dead, "shrunk host should stay gone"
+    # the restart anchored on the newest checkpoint that verifies: tick
+    # kill_at raised BEFORE that step's batch was drawn, so the last
+    # completed (and checkpointed) step is kill_at - 1
+    assert sup.plan.resume_step == kill_at - 1, sup.plan
+    assert sorted(slots) == list(range(steps * batch)), (
+        "exactly-once violated across the shrink re-plan")
+    return {"mttr_s": sup.mttr_s[0] if sup.mttr_s else 0.0,
+            "recovery_wall_s": round(wall, 3), "replans": sup.replans,
+            "mesh_shape": list(sup.plan.mesh_shape),
+            "resumed_from": sup.plan.resume_step, "state": supervisor_state(sup, plans)}
+
+
+def run_world(names, *, soak, device="cuda"):
+    """Run the elastic scenarios ``names`` on a gloo world of
+    ELASTIC_WORLD ranks started here (ranks on the CPU, or sharing cuda:0):
+    one record a scenario, rank 0's, recovered only where every rank
+    recovered and every rank's supervisor state is equal."""
+    import shutil
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    work = tempfile.mkdtemp(prefix="chaos-elastic-")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]),
+        "OMP_NUM_THREADS": "1"}
+    argv = [sys.executable, "-m", "glom_tpu_torch.tools.chaos", "--device", device,
+            "--world-dir", work] + [a for n in names for a in ("--scenario", n)] + (
+            [] if soak else ["--smoke"])
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(ELASTIC_WORLD)]
+    procs = [subprocess.Popen(argv + ["--world-rank", str(r)], env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(ELASTIC_WORLD)]
+    try:
+        codes = [p.wait(timeout=ELASTIC_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        codes = [None] * ELASTIC_WORLD
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = []
+    for r in range(ELASTIC_WORLD):
+        try:
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        except (OSError, ValueError):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            ranks.append([{"scenario": n, "outcome": "failed",
+                           "error": f"rank {r} exited {codes[r]}",
+                           "traceback": tail} for n in names])
+    shutil.rmtree(work, ignore_errors=True)
+    results = []
+    for i, name in enumerate(names):
+        recs = [rank[i] for rank in ranks]
+        rec = {k: v for k, v in recs[0].items() if k != "state"}
+        failed = [(r, x) for r, x in enumerate(recs) if x["outcome"] != "recovered"]
+        if failed:
+            r, x = failed[0]
+            rec = {**x, "outcome": "failed", "error": f"rank {r}: {x.get('error')}"}
+            rec.pop("state", None)
+        elif any(x["state"] != recs[0]["state"] for x in recs[1:]):
+            rec.update(outcome="failed", error="the ranks' supervisor states differ",
+                       states=[x["state"] for x in recs])
+        rec["world"] = ELASTIC_WORLD
+        results.append(rec)
+    return results
+
+
+# glom_tpu's registry, in its order
 SCENARIOS = {
     "torn_ckpt_write": scenario_torn_ckpt_write,
     "corrupt_restore": scenario_corrupt_restore,
@@ -1009,52 +1353,77 @@ SCENARIOS = {
     "replica_kill": scenario_replica_kill,
     "canary_regression": scenario_canary_regression,
     "quality_regression": scenario_quality_regression,
-    "host_preempt": None,
-    "coordinator_loss": None,
-    "shrink_restart": None,
+    "host_preempt": scenario_host_preempt,
+    "coordinator_loss": scenario_coordinator_loss,
+    "shrink_restart": scenario_shrink_restart,
     "bulk_preemption": scenario_bulk_preemption,
     "slow_deploy_attribution": scenario_slow_deploy_attribution,
     "index_rebuild": scenario_index_rebuild,
 }
-PORTED = tuple(name for name, fn in SCENARIOS.items() if fn is not None)
-ELASTIC = tuple(name for name, fn in SCENARIOS.items() if fn is None)
-
-
-def refusal(name: str) -> str:
-    """Why ``name`` (one of :data:`ELASTIC`) does not run in the port."""
-    from glom_tpu_torch.training.trainer import REASONS
-
-    return (f"--scenario {name} is not in the port's chaos suite yet: it needs "
-            f"resilience/elastic.py and parallel/mesh.py's elastic meshes "
-            f"({REASONS['mesh']})")
+PORTED = tuple(SCENARIOS)
 
 
 def run(names, *, soak, device="cuda", quiet=False):
     """Run ``names`` (of :data:`PORTED`) in order on ``device``; one record
-    a scenario (printed as a JSON line unless ``quiet``)."""
+    a scenario (printed as a JSON line unless ``quiet``).  The elastic ones
+    run together on one gloo world (:func:`run_world`), at the first one's
+    place, unless this process is a rank of that world."""
+    results = []
+    elastic = [n for n in names if n in ELASTIC]
+    for name in names:
+        if name in ELASTIC and not _in_world():
+            recs = run_world(elastic, soak=soak, device=device) if name == elastic[0] else []
+        else:
+            recs = [_run_one(name, soak, device)]
+        for rec in recs:
+            if "mttr_s" in rec:
+                rec["mttr_s"] = round(rec["mttr_s"], 3)
+            results.append(rec)
+            if not quiet:
+                print(json.dumps(rec), flush=True)
+    return results
+
+
+def _run_one(name, soak, device) -> dict:
     from glom_tpu_torch.resilience import faultinject
 
-    results = []
-    for name in names:
-        t0 = time.monotonic()
-        try:
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")
-                detail = SCENARIOS[name](soak, device)
-            outcome = "recovered"
-        except Exception as e:  # glomlint: disable=conc-broad-except -- a failed scenario is a record, and the next one still runs
-            detail = {"error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()}
-            outcome = "failed"
-        finally:
-            faultinject.disarm()   # a failed scenario must not poison the next
-        rec = {"scenario": name, "outcome": outcome,
-               "wall_s": round(time.monotonic() - t0, 3), **detail}
-        if "mttr_s" in rec:
-            rec["mttr_s"] = round(rec["mttr_s"], 3)
-        results.append(rec)
-        if not quiet:
-            print(json.dumps(rec), flush=True)
-    return results
+    t0 = time.monotonic()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            detail = SCENARIOS[name](soak, device)
+        outcome = "recovered"
+    except Exception as e:  # glomlint: disable=conc-broad-except -- a failed scenario is a record, and the next one still runs
+        detail = {"error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()}
+        outcome = "failed"
+    finally:
+        faultinject.disarm()   # a failed scenario must not poison the next
+    return {"scenario": name, "outcome": outcome, "wall_s": round(time.monotonic() - t0, 3),
+            **detail}
+
+
+def _world_rank(args) -> int:
+    """One rank of :func:`run_world`'s world: run the scenarios, write this
+    rank's records (with each supervisor's state) for the parent."""
+    global _WORLD_DIR
+    import torch
+    import torch.distributed as dist
+
+    from glom_tpu_torch.parallel.mesh import initialize_distributed
+
+    _WORLD_DIR = args.world_dir
+    device = initialize_distributed("file://" + os.path.join(args.world_dir, "store"),
+                                    ELASTIC_WORLD, args.world_rank, device=args.device,
+                                    backend="gloo", timeout_s=ELASTIC_TIMEOUT_S / 4)
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        results = run(args.scenario, soak=not args.smoke, device=str(device), quiet=True)
+        with open(os.path.join(args.world_dir, f"rank{args.world_rank}.json"), "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1067,10 +1436,11 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device every scenario builds on; 'cpu' runs the plain "
                         "PyTorch versions (default: cuda, which needs a card)")
+    p.add_argument("--world-rank", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--world-dir", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for name in args.scenario or ():
-        if name in ELASTIC:
-            p.error(refusal(name))
+    if args.world_rank is not None:
+        return _world_rank(args)
     from glom_tpu_torch.config import resolve_device
 
     try:

@@ -12,14 +12,17 @@ train on the same batches, bit for bit.
   * ``images`` — a JPEG/PNG folder tree through
     :class:`~glom_tpu_torch.training.image_stream.ImageFolderStream`, whose
     cursor a checkpoint carries.
+  * ``elastic`` — the exactly-once elastic stream
+    (:class:`ElasticBatches`): a global sample slot's content is a function
+    of ``(seed, slot)``, a host takes its :func:`host_block` of each global
+    batch, and the cursor (one global slot count) re-partitions across a
+    change of host count; :class:`HostShardedBatches` assembles every
+    host's block into the global batch, which each rank of a mesh holds.
 
 Batches are NCHW float32 numpy arrays in [-1, 1]; the trainer moves them to
 the card.  A background-thread prefetcher overlaps host batch prep with
 device compute.  The stateless streams pass through :func:`fault_injected`,
 the ``data`` fault-injection site, as ``glom_tpu``'s do.
-
-Not here: ``glom_tpu``'s multi-host elastic streams (``ElasticBatches``,
-``HostShardedBatches``, ``host_block``; ROADMAP queue 1, item 6b).
 """
 
 from __future__ import annotations
@@ -435,6 +438,235 @@ class StatefulPrefetcher(Prefetcher):
         self._thread.start()
 
 
+# -- exactly-once elastic data plane ---------------------------------------
+
+def host_block(global_batch: int, host_index: int, host_count: int):
+    """The deterministic per-host shard of one global batch: the CONTIGUOUS
+    row block ``[host_index*B/H, (host_index+1)*B/H)``.  Contiguous (not
+    striped) on purpose: concatenating all hosts' blocks in host order
+    reconstructs the global batch in its original row order at ANY host
+    count, which is what makes a shrink/grow restart bitwise-neutral to
+    the loss (a striped layout would reorder rows — and float reductions —
+    whenever the host count changed)."""
+    if host_count < 1:
+        raise ValueError(f"host_count must be >= 1, got {host_count}")
+    if not 0 <= host_index < host_count:
+        raise ValueError(
+            f"host_index {host_index} out of range for host_count "
+            f"{host_count}"
+        )
+    if global_batch % host_count != 0:
+        raise ValueError(
+            f"global batch {global_batch} not divisible by host_count "
+            f"{host_count}"
+        )
+    k = global_batch // host_count
+    return host_index * k, (host_index + 1) * k
+
+
+class ElasticBatches:
+    """Exactly-once resumable stream with deterministic per-host shard
+    assignment, keyed on ``(seed, epoch, host_index, host_count)``.
+
+    **Global-slot addressing.**  The stream is an infinite sequence of
+    *global sample slots* ``0, 1, 2, ...``; one global step consumes
+    ``batch_size`` consecutive slots and this host materializes only its
+    :func:`host_block` of them.  Sample content is a pure function of the
+    slot: synthetic mode derives each sample's RNG from ``(seed, slot)``;
+    dataset mode maps ``slot -> (epoch=slot//N, perm_epoch[slot%N])``
+    where ``perm_epoch`` is the per-epoch shuffle keyed on
+    ``(seed, epoch)``.
+
+    **Exactly-once cursor.**  The entire resume state is one integer —
+    ``consumed``, the count of global slots drawn — checkpointed next to
+    the params (``state_dict``/``load_state_dict``, the
+    ``ImageFolderStream`` contract the trainer already persists).  Because
+    the cursor is host-count-free, a restart with a DIFFERENT host count
+    re-partitions trivially: every new host resumes at the same global
+    position and takes its new block.  No slot is ever replayed or
+    skipped.
+
+    **Packing.**  Batches address slots, never epoch-aligned chunks, so an
+    epoch tail short of a full batch is packed together with the next
+    epoch's head instead of padded or dropped — zero pad waste by
+    construction (``epochs_started`` tracks boundary crossings).
+    """
+
+    def __init__(
+        self,
+        batch_size: int,
+        image_size: int = 8,
+        channels: int = 3,
+        seed: int = 0,
+        *,
+        host_index: int = 0,
+        host_count: int = 1,
+        dataset: Optional[np.ndarray] = None,
+        perm_cache: Optional[dict] = None,
+    ):
+        host_block(batch_size, host_index, host_count)  # validate eagerly
+        if dataset is not None:
+            dataset = np.asarray(dataset)
+            if dataset.ndim != 4:
+                raise ValueError(
+                    f"dataset must be (N, C, H, W), got {dataset.shape}"
+                )
+        self._global_batch = int(batch_size)
+        self._image_size = int(image_size)
+        self._channels = int(channels)
+        self._seed = int(seed)
+        self._host_index = int(host_index)
+        self._host_count = int(host_count)
+        self._dataset = dataset
+        self._epoch_size = 0 if dataset is None else int(dataset.shape[0])
+        self._consumed = 0  # GLOBAL slots drawn (all hosts', not just ours)
+        # epoch -> permutation; shareable (HostShardedBatches hands one
+        # dict to all its host streams so the O(N) shuffle happens once per
+        # epoch, not once per host); bounded to the two epochs a batch can
+        # straddle
+        self._perm_cache: dict = perm_cache if perm_cache is not None else {}
+        self.repartitioned = False
+
+    # -- deterministic addressing -----------------------------------------
+    def sample_index(self, slot: int):
+        """Dataset row for a global slot (dataset mode), or the slot itself
+        (synthetic mode) — the identity the exactly-once audits assert on."""
+        if self._dataset is None:
+            return int(slot)
+        epoch, offset = divmod(int(slot), self._epoch_size)
+        perm = self._perm_cache.get(epoch)
+        if perm is None:
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self._seed, epoch]))
+            perm = self._perm_cache[epoch] = rng.permutation(self._epoch_size)
+            for stale in [e for e in self._perm_cache
+                          if e < epoch - 1 or e > epoch + 1]:
+                del self._perm_cache[stale]
+        return int(perm[offset])
+
+    def _sample(self, slot: int) -> np.ndarray:
+        if self._dataset is not None:
+            return self._dataset[self.sample_index(slot)]
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self._seed, int(slot)]))
+        return rng.standard_normal(
+            (self._channels, self._image_size, self._image_size),
+            dtype=np.float32,
+        )
+
+    @property
+    def consumed(self) -> int:
+        return self._consumed
+
+    @property
+    def epochs_started(self) -> int:
+        """Epochs the stream has touched (0 before the first draw);
+        dataset mode only — synthetic streams have no epochs."""
+        if self._epoch_size == 0:
+            return 0
+        return -(-self._consumed // self._epoch_size)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        lo, hi = host_block(self._global_batch, self._host_index,
+                            self._host_count)
+        base = self._consumed
+        batch = np.stack([self._sample(base + j) for j in range(lo, hi)])
+        self._consumed += self._global_batch
+        return batch
+
+    # -- resume cursor (checkpointed via the trainer's data tree) ---------
+    def state_dict(self) -> dict:
+        """Flat int dict (the checkpoint data-tree convention).  Keys are
+        FIXED across host counts so the restore template always matches;
+        ``host_count`` is recorded for forensics and ignored on load."""
+        return {
+            "consumed": self._consumed,
+            "global_batch": self._global_batch,
+            "epoch_size": self._epoch_size,
+            "seed": self._seed,
+            "host_count": self._host_count,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        for key in ("seed", "global_batch", "epoch_size"):
+            if key in state and int(state[key]) != getattr(self, f"_{key}"):
+                raise ValueError(
+                    f"checkpointed data cursor was written by a different "
+                    f"stream: {key} {int(state[key])} != "
+                    f"{getattr(self, f'_{key}')} — exactly-once resume is "
+                    f"only defined within one (seed, dataset, batch) "
+                    f"identity"
+                )
+        if ("host_count" in state
+                and int(state["host_count"]) != self._host_count):
+            # the re-partition case: the cursor is global, so adopting it
+            # under a new host count IS the re-partition
+            self.repartitioned = True
+        self._consumed = int(state["consumed"])
+
+
+class HostShardedBatches:
+    """The per-host elastic data plane assembled: one :class:`ElasticBatches`
+    per host, drawn in host order and concatenated into the global batch.
+    Because each host's share is a contiguous block, the concatenation is
+    bit-identical to a single global stream at ANY host count.  Every rank
+    of a mesh holds the global batch and takes its rows
+    (``parallel/step.py::MeshShard.rows``, which is :func:`host_block` of
+    the data axis), so the chaos harness and the elastic tests train every
+    rank on this.
+
+    ``state_dict`` is the host-count-free global cursor, so a checkpoint
+    cut at H hosts restores into an assembler built with H' hosts (the
+    shrink/grow re-partition)."""
+
+    def __init__(
+        self,
+        batch_size: int,
+        image_size: int = 8,
+        channels: int = 3,
+        seed: int = 0,
+        *,
+        host_count: int = 1,
+        dataset: Optional[np.ndarray] = None,
+    ):
+        perm_cache: dict = {}  # one per-epoch shuffle shared by all hosts
+        self._streams = [
+            ElasticBatches(
+                batch_size, image_size, channels, seed,
+                host_index=i, host_count=host_count, dataset=dataset,
+                perm_cache=perm_cache,
+            )
+            for i in range(host_count)
+        ]
+
+    @property
+    def host_count(self) -> int:
+        return len(self._streams)
+
+    @property
+    def consumed(self) -> int:
+        return self._streams[0].consumed
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        return np.concatenate([next(s) for s in self._streams], axis=0)
+
+    def state_dict(self) -> dict:
+        return self._streams[0].state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        for s in self._streams:
+            s.load_state_dict(state)
+
+    def close(self) -> None:
+        pass  # host-side numpy only; nothing to release
+
+
 class _StatefulAugmented:
     """Augmentation wrapper that forwards the inner stream's resume cursor.
     Only the iteration position is exact across resume; the augmentation RNG
@@ -471,15 +703,29 @@ def make_batches(
     data_dir: Optional[str] = None,
     prefetch: int = 2,
     augment: str = "none",
+    host_index: Optional[int] = None,
+    host_count: int = 1,
 ) -> Iterator[np.ndarray]:
-    """The stream ``kind`` names (``synthetic``, ``folder`` or ``images``),
-    augmented, behind a :class:`Prefetcher` of ``prefetch`` batches (the
-    ``images`` stream prefetches on its own and keeps its cursor).  The
-    caller closes it."""
+    """The stream ``kind`` names (``synthetic``, ``folder``, ``images`` or
+    ``elastic``), augmented, behind a :class:`Prefetcher` of ``prefetch``
+    batches (the ``images`` stream prefetches on its own and keeps its
+    cursor; ``elastic`` behind a :class:`StatefulPrefetcher`, whose cursor
+    is the consumer's).  The caller closes it."""
     if kind == "elastic":
-        raise NotImplementedError(
-            "data source 'elastic' (ElasticBatches, HostShardedBatches: the multi-host "
-            "exactly-once streams) is not in the port yet (ROADMAP queue 1, item 6b)")
+        # exactly-once resumable stream (host_index=None: every host's block
+        # assembled into the global batch; an int: that one host's block).
+        # batch_size is the GLOBAL batch.  No fault_injected wrap (it would
+        # break the state_dict forwarding; elastic faults fire at the
+        # supervisor's tick instead)
+        if host_index is None:
+            it = HostShardedBatches(batch_size, image_size, channels, seed,
+                                    host_count=host_count)
+        else:
+            it = ElasticBatches(batch_size, image_size, channels, seed,
+                                host_index=host_index, host_count=host_count)
+        if augment != "none":
+            it = _StatefulAugmented(it, augment, seed)
+        return StatefulPrefetcher(it, prefetch) if prefetch > 0 else it
     if kind == "synthetic":
         it = synthetic_batches(batch_size, image_size, channels, seed)
     elif kind == "folder":

@@ -25,7 +25,10 @@ one command a rank: ``--coordinator host:port --num-processes N
 --process-id i`` starts the process group (NCCL on cards, gloo with
 ``--device cpu``), ``--mesh`` shapes it over (data, model, seq) and
 ``--param-sharding`` places the params; every rank draws the same synthetic
-batches and takes its slice, and rank 0 logs and writes the checkpoints.
+batches and takes its slice, and rank 0 logs and writes the checkpoints
+(with ``--checkpoint-backend sharded`` every rank writes its own shard; the
+ranks agree on a SIGTERM's stop every ``min(--log-every,
+--checkpoint-every, --stop-poll-steps)`` steps).
 
     python -m glom_tpu_torch.training.train --steps 5 --batch-size 8 \\
         --ff-impl pallas --fused-ff-bwd --attention-impl pallas --log-every 1
@@ -50,10 +53,8 @@ from glom_tpu_torch.training.data import AUGMENT_KINDS, _StatefulAugmented, make
 from glom_tpu_torch.training.metrics import MetricLogger
 from glom_tpu_torch.training.trainer import REASONS, Trainer
 
-# flags of the JAX CLI the port does not take yet: flag -> (nargs, REASONS key)
+# flags of the JAX CLI the port does not take: flag -> (nargs, REASONS key)
 _REFUSED = {
-    "--checkpoint-backend": (1, "mesh"),
-    "--stop-poll-steps": (1, "mesh"),
     "--platform": (1, "device"),
 }
 
@@ -107,6 +108,10 @@ def parse_args(argv=None):
                         "where the forward stops")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--stop-poll-steps", type=int, default=10,
+                   help="multi-process preemption-flag poll cadence (steps); lower it when "
+                        "step times are multi-second so SIGTERM-to-checkpoint latency stays "
+                        "inside the preemption grace window")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--noise-std", type=float, default=1.0)
     p.add_argument("--eval-every", type=int, default=0,
@@ -122,6 +127,9 @@ def parse_args(argv=None):
     p.add_argument("--decoder-hidden-mult", type=int, default=2)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-backend", default="npz", choices=["npz", "orbax", "sharded"],
+                   help="npz: one gathered artifact (rank 0 writes it); sharded: one shard file "
+                        "a rank, its replica-0 tiles and its own data cursor; orbax is refused")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of steps 2-4 of the run here "
                         "(glom_tpu_torch.profiling.trace)")
@@ -215,7 +223,9 @@ def parse_args(argv=None):
     args = p.parse_args(argv)
     for flag, (_, why) in _REFUSED.items():
         if hasattr(args, flag[2:].replace("-", "_")):
-            p.error(f"{flag} is not in the port's trainer yet ({REASONS[why]})")
+            p.error(f"{flag} is not in the port's trainer ({REASONS[why]})")
+    if args.checkpoint_backend == "orbax":
+        p.error(f"--checkpoint-backend orbax is not in the port's trainer ({REASONS['orbax']})")
     if args.data != "synthetic" and not args.data_dir:
         p.error(f"--data {args.data} needs --data-dir")
     return args
@@ -279,8 +289,9 @@ def _main(args, device):
         consistency_temperature=args.consistency_temperature,
         consistency_level=args.consistency_level, eval_every=args.eval_every, decoder=args.decoder,
         decoder_hidden_mult=args.decoder_hidden_mult, steps=args.steps,
-        log_every=args.log_every, checkpoint_every=args.checkpoint_every,
-        checkpoint_dir=args.checkpoint_dir, halt_on_nan=args.halt_on_nan, seed=args.seed,
+        log_every=args.log_every, stop_poll_steps=args.stop_poll_steps,
+        checkpoint_every=args.checkpoint_every, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_backend=args.checkpoint_backend, halt_on_nan=args.halt_on_nan, seed=args.seed,
         profile_dir=args.profile_dir, async_checkpoint=args.async_checkpoint,
         trace_dir=args.trace_dir, monitor_numerics=not args.no_monitor_numerics,
         grad_spike_factor=args.grad_spike_factor, diag_every=args.diag_every,

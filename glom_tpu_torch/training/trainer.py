@@ -37,6 +37,18 @@ A checkpoint is the port's npz layout with its CRC sidecar
   its cursor, which ``restore(batches=...)`` hands back, so the stream goes
   on with the exact next batch.
 
+With ``checkpoint_backend="sharded"`` (``glom_tpu``'s sharded backend) a
+step is one shard file a rank (``checkpoint.save_sharded``): each rank
+writes the tiles of params, opt and rng it is replica 0 of
+(``parallel/placement.py::replica_tile``), with no gather, and its own data
+cursor under ``data@p<rank>``; rank 0 writes the manifest after a barrier
+of the mesh's ranks.  A restore reassembles the whole trees from every
+shard file, whichever world wrote them, and places them on the current
+mesh, so a run resumes on a re-planned mesh (``resilience/elastic.py``); a
+rank the saving world lacked takes rank 0's cursor (all are one).
+On a mesh the leader alone picks the step to resume (quarantining a newer
+one that does not load) and the other ranks load its pick.
+
 With ``async_checkpoint`` the save copies the state to the host (numpy,
 device to host) before it returns, so the next step cannot touch what is
 written, and a background thread writes the npz.  :meth:`finish_saves`
@@ -85,11 +97,15 @@ on this rank's rows and columns (``parallel/step.py::MeshShard``), which draws
 the global batch's noise as one process does and reduces the gradients.
 Rank 0 logs
 and writes the npz (from :func:`~glom_tpu_torch.parallel.placement.gather_to_host`)
-while the others wait at a barrier; a resume loads, then slices.  Still
-refused by name (:data:`UNSUPPORTED`, and on a mesh of ranks the fields
-:func:`check_mesh_supported` names): sharded saves, and on a mesh the
-diagnostics, the eval suite and the two-view objective (ROADMAP queue 1,
-item 6b).
+while the others wait at a barrier; a resume loads, then slices.  On a mesh
+the ranks agree on a SIGTERM's stop every ``min(log_every,
+checkpoint_every, stop_poll_steps)`` steps (the non-zero ones, on absolute
+step numbers), as ``glom_tpu``'s processes do; the agreement is a
+collective, so polling it every step would cost a host sync a step.  Still
+refused by name: the orbax backend (:func:`check_supported`; out of the
+port's scope), and on a mesh of ranks the fields :func:`check_mesh_supported`
+names: the diagnostics, the eval suite, the two-view objective and
+``fuse_ff`` under ``"ep"`` (ROADMAP queue 1, item 6b-rest, part 3).
 """
 
 from __future__ import annotations
@@ -146,7 +162,8 @@ from glom_tpu_torch.parallel.comm import raw_all_reduce
 from glom_tpu_torch.parallel.ff_shard import make_sharded_ff, make_sharded_ff_pallas
 from glom_tpu_torch.parallel.fused_shard import make_sharded_fused_update
 from glom_tpu_torch.parallel.mesh import Mesh, make_mesh
-from glom_tpu_torch.parallel.placement import gather_to_host, shard_tree, state_shardings
+from glom_tpu_torch.parallel.placement import (gather_to_host, replica_tile, shard_tree,
+                                                state_shardings, tree_map_specs)
 from glom_tpu_torch.parallel.ring import make_ring_consensus
 from glom_tpu_torch.parallel.sharding import (decoder_pspecs, level_sharded_pspecs,
                                               param_pspecs, replicated_pspecs)
@@ -220,27 +237,26 @@ class NonFiniteError(RuntimeError):
 
 
 # Why the port lacks each thing it refuses: the one table of reasons, read by
-# the trainer's refusals (UNSUPPORTED) and by the CLI's (training/train.py)
+# the trainer's refusals and by the CLI's (training/train.py)
 REASONS = {
-    "mesh": "sharded saves and elasticity, ROADMAP queue 1, item 6b",
+    "mesh": "ROADMAP queue 1, item 6b-rest, part 3",
     "device": "the port picks its device with --device",
-}
-
-# TrainConfig fields the port's trainer does not implement: (default, REASONS key)
-UNSUPPORTED = {
-    "checkpoint_backend": ("npz", "mesh"),
+    "orbax": "the orbax backend adapts the JAX ecosystem and is out of the port's scope "
+             "(ROADMAP)",
 }
 
 PARAM_SHARDINGS = ("tp", "ep", "replicated")
 
+# what a mesh leader announces in place of the step it restores
+_NONE_VALID, _LEADER_FAILED = -1, -2
+
 
 def check_supported(train: TrainConfig) -> None:
-    """Refuse the TrainConfig fields this trainer does not implement."""
-    for field, (default, why) in UNSUPPORTED.items():
-        if getattr(train, field) != default:
-            raise NotImplementedError(
-                f"TrainConfig.{field}={getattr(train, field)!r} is not in the port's "
-                f"trainer yet ({REASONS[why]})")
+    """Refuse the TrainConfig values this trainer does not implement."""
+    if train.checkpoint_backend == "orbax":
+        raise NotImplementedError(
+            f"TrainConfig.checkpoint_backend='orbax' is not in the port's trainer "
+            f"({REASONS['orbax']})")
     if train.param_sharding not in PARAM_SHARDINGS:
         raise ValueError(f"unknown param_sharding {train.param_sharding!r}; one of "
                          f"{PARAM_SHARDINGS}")
@@ -462,7 +478,8 @@ class Trainer:
 
     def set_eval_suite(self, suite) -> None:
         """Attach or replace the held-out :class:`~glom_tpu_torch.training.eval.EvalSuite`
-        (one rank's: on a mesh of ranks it is refused, ROADMAP queue 1, item 6b)."""
+        (one rank's: on a mesh of ranks it is refused, ROADMAP queue 1, item 6b-rest,
+        part 3)."""
         if self._sharded and suite is not None:
             raise NotImplementedError(
                 f"an EvalSuite on a mesh of {self.mesh.world_size} ranks is not in the port "
@@ -581,12 +598,33 @@ class Trainer:
         with open(path) as f:
             return json.load(f).get("train", {})
 
-    def _host_trees(self, data_state: Optional[dict]) -> dict:
+    def _replica_tiles(self, tree):
+        """This rank's :class:`~glom_tpu_torch.checkpoint.Tile` of each leaf
+        of a params-shaped tree it is replica 0 of (None for the others),
+        float32 on the host."""
+        mesh = self.mesh
+
+        def leaf(x, spec):
+            tile = replica_tile(x.detach(), spec, mesh)
+            if tile is None:
+                return None
+            data, start = tile
+            shape = [n * (mesh.size(a) if a is not None else 1) for n, a in
+                     zip(data.shape, tuple(spec) + (None,) * (data.dim() - len(spec)))]
+            return ckpt_lib.Tile(data.to("cpu", torch.float32, copy=True).numpy(),
+                                 tuple(shape), tuple(start))
+
+        return tree_map_specs(leaf, tree, self._specs)
+
+    def _host_trees(self, data_state: Optional[dict], *, tiles: bool = False) -> dict:
         """The state as numpy trees on the host, copied before this returns;
         on a mesh of ranks each sharded leaf is all-gathered first (every
-        rank takes part)."""
+        rank takes part), or with ``tiles`` this rank's replica-0 tiles
+        (no collective)."""
         st = self.state
-        if self._sharded:
+        if tiles:
+            host = self._replica_tiles
+        elif self._sharded:
             host = lambda tree: gather_to_host(tree, self.mesh, self._specs)
         else:
             host = _to_numpy_tree
@@ -615,12 +653,19 @@ class Trainer:
         write runs on a thread: it is durable only once
         :meth:`finish_saves` returns (``fit`` drains on every exit path)."""
         self.finish_saves()  # order the manifests; at most one write in flight
+        if self.train_cfg.checkpoint_backend == "sharded":
+            if self.train_cfg.async_checkpoint:
+                warnings.warn(
+                    "async_checkpoint only applies to the npz backend (sharded writes are "
+                    "O(local bytes) already) — saving synchronously", stacklevel=2)
+            return self._save_sharded(directory, data_state)
         if self._sharded and data_state is not None:
-            # one artifact carries one cursor, and the ranks' would differ
+            # one artifact carries one cursor, which would be wrong for
+            # every rank but the writer's
             warnings.warn(
-                "data-iterator cursor is not checkpointed with backend='npz' on a mesh "
-                f"of {self.mesh.world_size} ranks; sharded saves are {REASONS['mesh']}",
-                stacklevel=2)
+                "data-iterator cursor is not checkpointed with backend='npz' under "
+                f"{self.mesh.world_size} ranks (per-process cursors diverge); use "
+                "checkpoint_backend='sharded' for exact stream resume", stacklevel=2)
             data_state = None
         step = int(self.state.step)
         trees = self._host_trees(data_state)
@@ -652,6 +697,55 @@ class Trainer:
         self.mesh.barrier()
         return ckpt_lib.npz_path(directory, step)
 
+    def _save_sharded(self, directory: str, data_state: Optional[dict]) -> str:
+        """``glom_tpu``'s sharded save: every rank writes its replica-0 tiles
+        and its own cursor; rank 0 the host-side leaves (the Adam count, the
+        rng key, the generator), ``config.json`` and, after every rank's
+        shard, the manifest.  Returns rank 0's shard path ("" elsewhere)
+        once every rank of the mesh has returned."""
+        mesh = self.mesh
+        trees = self._host_trees(data_state, tiles=True)
+        if mesh.is_leader:
+            os.makedirs(directory, exist_ok=True)
+            self._write_config_json(directory)
+        path = ckpt_lib.save_sharded(directory, int(self.state.step), trees, rank=mesh.rank,
+                                     world=mesh.world_size, barrier=mesh.barrier,
+                                     per_process=("data",))
+        mesh.barrier()   # no rank reads the directory before the manifest is out
+        return path
+
+    def _load_agreed(self, directory: str, step: Optional[int]) -> tuple:
+        """``(step, trees)`` of :func:`integrity.restore_with_fallback`.  On a
+        mesh with ``step=None`` the leader alone chooses, quarantining what
+        does not load, and every other rank loads its choice: no two ranks
+        rename the same files, and all resume from one step."""
+        def load(at):
+            return integrity.restore_with_fallback(
+                directory, ("params", "opt"), optional=("generator", "data"), step=at,
+                observer=self._integrity_obs)
+
+        if step is not None or self.mesh.world_size == 1:
+            return load(step)
+        chosen = _LEADER_FAILED
+        if self.mesh.is_leader:
+            try:
+                out = load(None)
+                chosen = out[0]
+            except integrity.NoValidCheckpoint:
+                chosen = _NONE_VALID
+                raise
+            finally:
+                self.mesh.leader_value(chosen, self.device)
+            return out
+        chosen = self.mesh.leader_value(chosen, self.device)
+        if chosen == _NONE_VALID:
+            raise integrity.NoValidCheckpoint(
+                f"no valid checkpoint in {directory} (the mesh leader found every candidate "
+                f"corrupt or absent)")
+        if chosen == _LEADER_FAILED:
+            raise RuntimeError(f"the mesh leader's restore from {directory} failed")
+        return load(chosen)
+
     def restore(self, directory: str, *, step: Optional[int] = None, batches=None) -> int:
         """Restore params, optimizer state and the noise generator; with
         ``step=None`` from the newest step that passes its integrity check
@@ -661,13 +755,16 @@ class Trainer:
         generator state (its JAX PRNG key has no torch counterpart), so the
         noise generator keeps its fresh seed, with a warning.  When
         ``batches`` is resumable (``load_state_dict``), the checkpoint's
-        ``data`` cursor is handed to it; a checkpoint without one warns and
-        leaves the stream where it is.  Returns the step."""
+        ``data`` cursor is handed to it (a sharded step's ``data@p<rank>``,
+        else rank 0's, else the shared one:
+        ``checkpoint.per_process_tree``); a checkpoint without one warns and
+        leaves the stream where it is.  A sharded step is reassembled from
+        every rank's shard file and sliced for this mesh, which may differ
+        from the one that saved it.  On a mesh, ``step=None`` is the
+        leader's choice (:meth:`_load_agreed`).  Returns the step."""
         self.finish_saves()  # never read past a write in flight
         self._validate_config_json(directory)
-        step, trees = integrity.restore_with_fallback(
-            directory, ("params", "opt"), optional=("generator", "data"), step=step,
-            observer=self._integrity_obs)
+        step, trees = self._load_agreed(directory, step)
         opt = opt_state_from_optax(trees["opt"], self._recorded_train(directory))
         if opt is None and isinstance(trees["opt"], dict) and set(trees["opt"]) == {
                 "count", "mu", "nu"}:
@@ -708,18 +805,21 @@ class Trainer:
                 f"torch counterpart, so the noise generator starts fresh from this "
                 f"trainer's seed", stacklevel=2)
         if batches is not None and hasattr(batches, "load_state_dict"):
-            if "data" in trees:
-                batches.load_state_dict({k: int(v) for k, v in trees["data"].items()})
+            cursor = ckpt_lib.per_process_tree(trees, "data", self.mesh.rank)
+            if cursor is not None:
+                batches.load_state_dict({k: int(v) for k, v in cursor.items()})
             else:
                 warnings.warn(f"checkpoint step {step} carries no data-iterator state; the "
                               f"stream restarts from its initial cursor", stacklevel=2)
         return int(step)
 
     # -- the loop ------------------------------------------------------------
-    def fit(self, batches: Iterator, steps: Optional[int] = None) -> dict:
+    def fit(self, batches: Iterator, steps: Optional[int] = None, *,
+            resume: bool = True) -> dict:
         """Run the loop to ``steps`` total steps (default ``TrainConfig.steps``).
         With a checkpoint dir the loop first resumes from its newest valid
-        step, so ``steps`` at or below it does nothing.  A resumable stream
+        step (:meth:`resume`; ``resume=False`` where the caller already
+        has), so ``steps`` at or below it does nothing.  A resumable stream
         (``state_dict``) has its cursor restored with the state and saved in
         every checkpoint.  Returns the last logged metrics.
 
@@ -731,7 +831,7 @@ class Trainer:
         async checkpoint writer and closes the logger's exporters."""
         armed = self._forensics is not None and self._forensics.arm_faulthandler()
         try:
-            return self._fit(batches, steps)
+            return self._fit(batches, steps, resume)
         except Exception as e:
             self._crash_capture(e)
             raise
@@ -752,18 +852,29 @@ class Trainer:
                 except OSError:
                     pass  # a full disk must not mask the original error
 
-    def _fit(self, batches, steps: Optional[int]) -> dict:
-        cfg = self.train_cfg
-        steps = steps if steps is not None else cfg.steps
-        if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir, strict=True) is not None:
-            resume = integrity.latest_valid_step(cfg.checkpoint_dir, observer=self._integrity_obs)
-            if resume is not None:
-                self._log(self.restore(cfg.checkpoint_dir, step=resume, batches=batches),
-                          event=EVENT_RESUME)
-            else:
-                warnings.warn(f"every checkpoint in {cfg.checkpoint_dir} failed its integrity "
-                              f"check and was quarantined; training restarts from step 0",
-                              stacklevel=2)
+    def resume(self, batches=None) -> int:
+        """Restore from the newest checkpoint in ``checkpoint_dir`` that
+        verifies and loads (:meth:`restore` with ``step=None``: a newer step
+        that fails is quarantined), handing ``batches`` its cursor; without
+        a checkpoint, or with every one quarantined (a warning), the trainer
+        stays where it is.  Returns the step it stands at.  :meth:`fit`
+        calls it first unless told the caller has."""
+        directory = self.train_cfg.checkpoint_dir
+        if not directory or ckpt_lib.latest_step(directory, strict=True) is None:
+            return int(self.state.step)
+        try:
+            step = self.restore(directory, batches=batches)
+        except integrity.NoValidCheckpoint:
+            warnings.warn(f"every checkpoint in {directory} failed its integrity check and "
+                          f"was quarantined; training restarts from step 0", stacklevel=2)
+            return int(self.state.step)
+        self._log(step, event=EVENT_RESUME)
+        return step
+
+    def _fit(self, batches, steps: Optional[int], resume: bool) -> dict:
+        steps = steps if steps is not None else self.train_cfg.steps
+        if resume:
+            self.resume(batches)
         self._stop_requested = False
         previous = None
         if threading.current_thread() is threading.main_thread():
@@ -777,11 +888,18 @@ class Trainer:
     def _request_stop(self, signum, frame) -> None:
         self._stop_requested = True
 
-    def _agreed(self, flag: bool) -> bool:
-        """``flag`` on any rank (a stop must end every rank at one step)."""
+    def _should_stop(self, poll: bool = True) -> bool:
+        """The stop flag agreed over the mesh: a SIGTERM reaches the ranks at
+        different steps, and shards saved at different steps would corrupt
+        the resume, so the flag is OR-reduced and every rank stops at one
+        step.  The reduction is a host-blocking collective, so a mesh polls
+        it only where ``poll`` (computed alike on every rank) says; between
+        polls the decision is deferred, never the local flag."""
         if not self._sharded:
-            return flag
-        votes = torch.tensor([float(flag)], device=self.device)
+            return self._stop_requested
+        if not poll:
+            return False
+        votes = torch.tensor([float(self._stop_requested)], device=self.device)
         for name in self.mesh.axis_names:
             votes = raw_all_reduce(votes, self.mesh.axis(name))
         return bool(votes.item() > 0)
@@ -818,7 +936,11 @@ class Trainer:
         last_saved = -1
         completed, stopped = steps, False
         window, window_imgs = [], 0
-        poll = cfg.log_every or cfg.stop_poll_steps or 1
+        # glom_tpu's stop-poll cadence: the logging or checkpoint cadence,
+        # never longer than stop_poll_steps, on absolute step numbers so the
+        # polls land on the same steps after a resume
+        stop_poll = min(x for x in (cfg.log_every, cfg.checkpoint_every, cfg.stop_poll_steps)
+                        if x)
         self._sync()
         timer = PhaseTimer(registry=self.registry, tracer=self.tracer)
         emitted_recompiles = self._recompile_mon.recompiles
@@ -878,7 +1000,7 @@ class Trainer:
                 if cfg.log_every and (i + 1) % cfg.log_every == 0:
                     last_metrics = self._log_window(i + 1, window, window_imgs, timer)
                     window, window_imgs = [], 0
-                elif not cfg.log_every and cfg.monitor_numerics and (i + 1) % poll == 0:
+                elif not cfg.log_every and cfg.monitor_numerics and (i + 1) % stop_poll == 0:
                     # logging off: NaN surveillance still runs, bounded
                     self._numerics_summary(i + 1, self._fetch(window))
                     window = []
@@ -889,7 +1011,7 @@ class Trainer:
                         self.save(cfg.checkpoint_dir, data_state=data_state())
                     last_saved = i + 1
                 with timer.phase("stop_poll"):
-                    stop = self._agreed(self._stop_requested)
+                    stop = self._should_stop((i + 1) % stop_poll == 0)
                 if stop:
                     self._log(i + 1, event=EVENT_PREEMPT_STOP)
                     if self._forensics is not None:

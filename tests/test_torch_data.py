@@ -252,8 +252,6 @@ def test_make_batches_matches_glom_tpu(tmp_path, image_tree, kind, augment):
 
 
 def test_make_batches_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="'elastic'.*ROADMAP queue 1, item 6"):
-        data.make_batches("elastic", 4, 16)
     with pytest.raises(ValueError, match="unknown data source"):
         data.make_batches("webdataset", 4, 16)
     for kind in ("folder", "images"):

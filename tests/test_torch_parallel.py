@@ -323,11 +323,19 @@ def test_columns_the_seq_axis_does_not_divide_are_refused():
             make(_fake_mesh(seq=3), num_patches=16)
 
 
-def test_the_elastic_and_hybrid_meshes_are_refused_by_name():
-    for fn in (port_mesh.make_hybrid_mesh, port_mesh.elastic_mesh_shape,
-               port_mesh.make_elastic_mesh):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            fn(2)
+def test_the_elastic_and_hybrid_meshes_on_one_process():
+    """Without a process group the world is one rank: the elastic mesh of one
+    host is it, a larger plan is refused with glom_tpu's message, and the
+    hybrid mesh is the flat mesh of its total shape (ranks carry no slice
+    metadata; tests/test_torch_elastic.py holds the shapes against
+    glom_tpu's and runs the prefix meshes on gloo worlds)."""
+    assert port_mesh.make_elastic_mesh(1, 1).shape == {"data": 1, "model": 1, "seq": 1}
+    with pytest.raises(ValueError, match=r"re-planned mesh \(2, 1, 1\) needs 2 devices; "
+                                         r"only 1 visible"):
+        port_mesh.make_elastic_mesh(2, 1)
+    assert port_mesh.make_hybrid_mesh((1, 1, 1), 1).shape == {"data": 1, "model": 1, "seq": 1}
+    with pytest.raises(ValueError, match=r"does not cover 1 devices"):
+        port_mesh.make_hybrid_mesh((1, 1, 1), 2)
 
 
 def test_initialize_distributed_is_a_no_op_for_one_process():

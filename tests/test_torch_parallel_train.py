@@ -276,7 +276,7 @@ def test_auto_under_a_seq_axis_is_the_ring_or_warns():
 def test_the_cli_trains_with_one_command_a_rank(tmp_path):
     """``python -m glom_tpu_torch.training.train --mesh 2 1 1 --num-processes
     2 --process-id i --coordinator ...`` on the CPU: rank 0 logs and writes
-    the checkpoint, which glom_tpu loads; the refused flags cite item 6b."""
+    the checkpoint, which glom_tpu loads; the orbax backend is refused."""
     ckpt = tmp_path / "ckpt"
     env = {k: v for k, v in os.environ.items() if not k.startswith(("XLA_", "JAX_"))}
     env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
@@ -298,6 +298,5 @@ def test_the_cli_trains_with_one_command_a_rank(tmp_path):
     from glom_tpu.training.denoise import load_checkpoint_state
 
     assert load_checkpoint_state(str(ckpt))[0] == 2
-    for flag in (["--checkpoint-backend", "sharded"], ["--stop-poll-steps", "5"]):
-        with pytest.raises(SystemExit):
-            train_cli.parse_args(flag)
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--checkpoint-backend", "orbax"])

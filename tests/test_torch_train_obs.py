@@ -259,11 +259,13 @@ def test_a_triggered_trace_covers_its_steps(tmp_path):
 
 
 def test_only_the_mesh_fields_and_flags_are_refused():
-    assert set(trainer_mod.UNSUPPORTED) == {"checkpoint_backend"}
-    assert set(trainer_mod.REASONS) == {"mesh", "device"}
-    assert "item 6b" in trainer_mod.REASONS["mesh"]
-    assert set(train._REFUSED) == {"--checkpoint-backend", "--stop-poll-steps", "--platform"}
-    assert {why for _, why in train._REFUSED.values()} == {"mesh", "device"}
+    assert not hasattr(trainer_mod, "UNSUPPORTED")      # every TrainConfig field is taken
+    with pytest.raises(NotImplementedError, match="orbax backend adapts the JAX ecosystem"):
+        trainer_mod.check_supported(TrainConfig(checkpoint_backend="orbax"))
+    assert set(trainer_mod.REASONS) == {"mesh", "device", "orbax"}
+    assert "item 6b-rest, part 3" in trainer_mod.REASONS["mesh"]
+    assert set(train._REFUSED) == {"--platform"}
+    assert {why for _, why in train._REFUSED.values()} == {"device"}
     args = train.parse_args([
         "--async-checkpoint", "--trace-dir", "t", "--metrics-csv", "m", "--prom-textfile", "p",
         "--diag-every", "3", "--no-monitor-numerics", "--grad-spike-factor", "4",

@@ -494,18 +494,19 @@ def test_fit_logs_every_log_every_steps(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("checkpoint_backend", "sharded", "item 6b"),
+    ("checkpoint_backend", "sharded", None),
     ("param_sharding", "ep", None),
-    ("checkpoint_backend", "orbax", "item 6b"),
+    ("checkpoint_backend", "orbax", "out of the port's scope"),
     ("mesh_shape", (1, 2, 1), "does not cover 1 devices"),
     ("mesh_shape", (2, 1, 1), "does not cover 1 devices"),
 ])
 def test_trainer_refuses_what_it_does_not_implement(field, value, item):
-    """Sharded saves are refused (item 6b).  ``param_sharding="ep"`` is taken
-    (on one rank every net is whole: the step is the default's), and so is a
-    ``mesh_shape`` above one rank: on a process without a group of that many
-    ranks it fails as glom_tpu's mesh does on too few devices
-    (tests/test_torch_parallel_train.py runs the meshes)."""
+    """The orbax backend is refused (out of the port's scope).  Sharded
+    saves and ``param_sharding="ep"`` are taken (on one rank every net is
+    whole: the step is the default's; tests/test_torch_sharded_checkpoint.py
+    runs the saves), and so is a ``mesh_shape`` above one rank: on a process
+    without a group of that many ranks it fails as glom_tpu's mesh does on
+    too few devices (tests/test_torch_parallel_train.py runs the meshes)."""
     if item is None:
         img, noise = _img(), torch.from_numpy(_img(seed=2))
         got = _trainer(_train_cfg(**{field: value})).step(img, noise=noise)
@@ -574,11 +575,14 @@ def test_cli_trains_on_the_cpu_and_refuses_unported_flags(tmp_path, capsys):
     with open(tmp_path / "config.json") as f:
         recorded = json.load(f)
     assert recorded["glom"]["ff_impl"] == "pallas" and recorded["train"]["steps"] == 2
-    for flag, item in (["--checkpoint-backend", "orbax"], "item 6b"), (
-            ["--stop-poll-steps", "5"], "item 6b"), (["--checkpoint-backend", "sharded"], "item 6b"):
-        with pytest.raises(SystemExit):
-            train.parse_args(flag)
-        assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        train.parse_args(["--checkpoint-backend", "orbax"])
+    assert "orbax backend adapts the JAX ecosystem" in capsys.readouterr().err
+    # the elastic flags are taken, with the JAX CLI's names and defaults
+    args = train.parse_args(["--checkpoint-backend", "sharded", "--stop-poll-steps", "5"])
+    assert (args.checkpoint_backend, args.stop_poll_steps) == ("sharded", 5)
+    assert (train.parse_args([]).checkpoint_backend, train.parse_args([]).stop_poll_steps) == (
+        "npz", 10)
     # the mesh flags are taken, with the JAX CLI's names and defaults
     args = train.parse_args(["--param-sharding", "ep", "--mesh", "2", "1", "1", "--coordinator",
                              "h:1", "--num-processes", "2", "--process-id", "0"])

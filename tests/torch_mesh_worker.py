@@ -1,5 +1,6 @@
 """One rank of a gloo world for the port's mesh tests (tests/test_torch_parallel*.py,
-tests/test_torch_pipeline.py, tests/test_torch_sharded_serving.py).
+tests/test_torch_pipeline.py, tests/test_torch_sharded_serving.py,
+tests/test_torch_elastic.py, tests/test_torch_sharded_checkpoint.py).
 
     python tests/torch_mesh_worker.py SPEC.json RANK
 
@@ -11,9 +12,11 @@ numpy and glom_tpu_torch (never JAX, glom_tpu, the test modules or the
 conftest), and runs torch on one thread.  Not a test module itself.
 """
 
+import dataclasses
 import io
 import json
 import os
+import signal
 import sys
 import time
 
@@ -39,6 +42,7 @@ from glom_tpu_torch.parallel.sharding import (level_sharded_pspecs,  # noqa: E40
                                               param_pspecs, replicated_pspecs)
 from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus  # noqa: E402
 from glom_tpu_torch.serving.engine import ServingEngine  # noqa: E402
+from glom_tpu_torch.tools.chaos import elastic_run, supervisor_state  # noqa: E402
 from glom_tpu_torch.training.denoise import DenoiseState, make_step_fn  # noqa: E402
 from glom_tpu_torch.training.metrics import MetricLogger  # noqa: E402
 from glom_tpu_torch.training.optim import Optimizer  # noqa: E402
@@ -310,8 +314,120 @@ def job_serve(job: dict) -> dict:
     return res
 
 
+class LossCapture:
+    """A trainer logger keeping every step's loss at full precision (the
+    JSONL log rounds it), across the attempts of an elastic run."""
+
+    registry = None
+
+    def __init__(self):
+        self.losses = {}
+
+    def log(self, step, **scalars):
+        if "loss" in scalars:
+            self.losses[int(step)] = float(scalars["loss"])
+
+    def close(self):
+        pass
+
+
+def job_elastic(job: dict) -> dict:
+    """``tools/chaos.py::elastic_run`` on this rank: every rank runs the same
+    seeded supervisor; its losses (a rank of the last plan's mesh logs every
+    step), the slots it consumed and its supervisor's state.  With ``tear``
+    (a step N) an unfailed run to step N goes first, then rank 0 tears the
+    last shard file of step N in half."""
+    config = GlomConfig(**job["config"])
+    train = TrainConfig(**job["train"])
+    if job.get("tear"):
+        at = int(job["tear"])
+        elastic_run(hosts=job["hosts"], steps=at, batch=train.batch_size, spec=None,
+                    ckpt_dir=train.checkpoint_dir, device="cpu", glom=config,
+                    train=dataclasses.replace(train, steps=at), logger=LossCapture)
+        if torch.distributed.get_rank() == 0:
+            path = ckpt_lib.shard_paths(train.checkpoint_dir, at)[-1]
+            os.truncate(path, os.path.getsize(path) // 2)
+        torch.distributed.barrier()
+    capture, slots, plans = LossCapture(), [], []
+    sup = elastic_run(hosts=job["hosts"], steps=train.steps, batch=train.batch_size,
+                      spec=job["spec"], ckpt_dir=train.checkpoint_dir, device="cpu",
+                      slots=slots, glom=config, train=train, logger=lambda: capture,
+                      plans=plans, seed=job.get("seed", 0))
+    steps = sorted(capture.losses)
+    return {"steps": np.asarray(steps, np.int64),
+            "losses": np.asarray([capture.losses[k] for k in steps], np.float64),
+            "slots": np.asarray(sorted(slots), np.int64),
+            "state": json.dumps(supervisor_state(sup, plans), sort_keys=True)}
+
+
+def job_replan(job: dict) -> dict:
+    """``make_elastic_mesh`` for each host count of ``hosts`` in turn: which
+    calls returned the mesh of the first call with the same count, whether
+    this rank is a member of each, and that each member's barrier passes."""
+    hosts = job["hosts"]
+    made = [mesh_lib.make_elastic_mesh(h) for h in hosts]
+    for m in made:
+        if m is not None:
+            m.barrier()
+    first = [hosts.index(h) for h in hosts]
+    return {"reused": np.asarray([i != f and made[i] is made[f] for i, f in enumerate(first)]),
+            "member": np.asarray([m is not None for m in made])}
+
+
+def job_stop(job: dict) -> dict:
+    """``Trainer.fit`` on the job's mesh with a SIGTERM's stop requested on
+    rank ``requester`` while it draws batch ``request_at``: the step every
+    rank stops at."""
+    config = GlomConfig(**job["config"])
+    train = TrainConfig(**job["train"], mesh_shape=tuple(job["mesh"]))
+    trainer = Trainer(config, train, device="cpu", logger=MetricLogger(stream=io.StringIO()))
+    rank = torch.distributed.get_rank()
+    rng = np.random.default_rng(0)
+
+    def batches():
+        k = 0
+        while True:
+            k += 1
+            if rank == job["requester"] and k == job["request_at"]:
+                trainer._request_stop(signal.SIGTERM, None)
+            yield rng.standard_normal((train.batch_size, 3, config.image_size,
+                                       config.image_size)).astype(np.float32)
+
+    trainer.fit(batches())
+    return {"stopped_at": int(trainer.state.step)}
+
+
+def job_sharded(job: dict) -> dict:
+    """A trainer on the job's mesh: with ``imgs`` it steps on them and saves
+    sharded into ``ckpt`` and, gathered, as an npz into ``gathered``; with
+    ``restore`` it restores that directory; either way its state comes back
+    gathered (params, Adam's moments) with the step."""
+    config = GlomConfig(**job["config"])
+    train = TrainConfig(**job["train"], mesh_shape=tuple(job["mesh"]))
+    trainer = Trainer(config, train, device="cpu", logger=MetricLogger(stream=io.StringIO()))
+    res = {}
+    if "imgs" in job:
+        inp = np.load(job["imgs"])
+        for k in range(len(inp["imgs"])):
+            trainer.step(inp["imgs"][k], noise=torch.from_numpy(inp["noise"][k]))
+        res["path"] = trainer.save(job["ckpt"], data_state={"consumed": 16, "seed": 3})
+        gathered = trainer._host_trees({"consumed": 16, "seed": 3})
+        if trainer.mesh.is_leader:
+            ckpt_lib.save(job["gathered"], int(trainer.state.step), gathered)
+    if "restore" in job:
+        res["restored_step"] = trainer.restore(job["restore"])
+    st = trainer.state
+    res["step"] = int(st.step)
+    res["state"] = {name: gather_to_host(tree, trainer.mesh, trainer._specs) for name, tree in
+                    (("params", st.params), ("mu", st.opt_state["mu"]),
+                     ("nu", st.opt_state["nu"]))}
+    res["local_w1"] = np.asarray(st.params["glom"]["bottom_up"]["w1"].shape)
+    return res
+
+
 JOBS = {"consensus": job_consensus, "ff": job_ff, "train": job_train, "pipe": job_pipe,
-        "dp_forward": job_dp_forward, "serve": job_serve}
+        "dp_forward": job_dp_forward, "serve": job_serve, "elastic": job_elastic,
+        "replan": job_replan, "stop": job_stop, "sharded": job_sharded}
 
 
 def main(spec_path: str, rank: int) -> None:
